@@ -1,0 +1,18 @@
+"""PyTorch/CUDA port of ``paddle_hackathon_tpu``.
+
+The package mirrors the JAX package's module paths one to one, so each
+port module has an obvious counterpart there.  It imports ``torch`` and
+numpy, never ``jax`` and nothing of the JAX package.  Entry points place
+their work on the CUDA device unless the caller asks for ``"cpu"``; a
+kernel wrapper runs its plain PyTorch version only for tensors that lie
+on the CPU.
+
+Ported so far: the paged GPT serving path (``models/gpt.py``,
+``inference/serving.py``) and its paged-attention kernel
+(``incubate/nn/kernels/paged_attention.py`` + ``csrc/paged_attention.cu``).
+"""
+
+from .core.device import resolve_device
+from .core.random import seed
+
+__all__ = ["resolve_device", "seed"]

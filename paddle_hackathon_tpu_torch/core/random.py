@@ -1,0 +1,37 @@
+"""Seeded ``torch.Generator``s, one per device.
+
+The JAX package threads one global PRNG key (``core/random.py``).  The
+port passes an explicit ``torch.Generator`` wherever randomness is drawn
+(weight init, dropout, sampling); a caller that passes none gets the
+default generator of the tensor's device, seeded by :func:`seed`.  The two
+frameworks give different numbers from the same seed, so tests that
+compare them make their inputs with numpy.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_DEFAULT_SEED = 0
+_seed = _DEFAULT_SEED
+_generators: dict = {}
+
+
+def seed(s: int) -> None:
+    """Re-seed every device's default generator."""
+    global _seed
+    _seed = int(s)
+    _generators.clear()
+
+
+def default_generator(device) -> torch.Generator:
+    """The default generator of ``device``, created at first use from the
+    last :func:`seed`."""
+    dev = torch.device(device)
+    key = (dev.type, dev.index)
+    gen = _generators.get(key)
+    if gen is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(_seed)
+        _generators[key] = gen
+    return gen

@@ -1,0 +1,12 @@
+"""Activations (the JAX package's ``nn/functional/activation.py``)."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
+    """GELU; ``approximate=True`` is the tanh form that GPT's MLP uses
+    (``jax.nn.gelu(approximate=True)``)."""
+    return F.gelu(x, approximate="tanh" if approximate else "none")
