@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's training and serving paths on one NVIDIA
+GPU and check them.
 
 Run from the repository root with no arguments:
 
@@ -7,33 +8,67 @@ Run from the repository root with no arguments:
 
 Phases, each printing one JSON line:
 
-1. device  -- the card (``nvidia-smi`` name and power limit, torch, CUDA).
-2. build   -- compiles every CUDA kernel of the path from ``csrc/`` (nvcc,
-              sm_90a), in parallel, and reports the seconds taken.
-3. kernel  -- holds ``paged_attention`` against its plain PyTorch version
-              (``paged_attention_ref``) at the serving geometry (B=16,
-              H=12, D=64, P=16, maxp=32; widths 1 and 32; shuffled page
-              tables, an inactive slot, lengths 0 / page boundary / last
-              row of the table; and the serving run's own pool, tables
-              and lengths): bf16 against an f32 run of the plain version
-              at atol=rtol=2e-2, f32 at 2e-5 with TF32 off.  Times the
-              kernel, the plain version and
-              ``F.scaled_dot_product_attention`` on the gathered
-              contiguous K/V (a yardstick the port never calls) at the
-              serving run's decode inputs, by CUDA-graph replay over input
-              copies larger than the L2.
-4. serving -- GPT-2-small (12 layers, hidden 768, 12 heads, vocab 50304) in
-              bf16 with Normal(0, 0.02) weights from a numpy seed, through
-              ``ServingEngine(cache_mode="paged", max_slots=16, max_len=512,
-              page_size=16, num_pages=257, chunk=32, decode_window=32)``:
-              16 greedy requests of 64 prompt tokens and 128 new tokens.
-              Every request must finish, the kernel's launch count must
-              cover every decode step of every layer, and the pool must
-              drain.  Then an f32 run of 4 requests x 32 new tokens must be
-              token-exact against the dense engine (the plain static-cache
-              path), or diverge only at a logit margin <= 1e-3.
-5. profile -- device time by kernel over one short serving run
-              (``torch.profiler``), for the breakdown in PERF.md.
+1. device   -- the card (``nvidia-smi`` name and power limit, torch, CUDA).
+2. build    -- compiles every CUDA kernel from ``csrc/`` (one nvcc per
+               source, sm_90a, all started together) and reports the
+               seconds taken and ptxas's register / spill lines.
+3. flash    -- holds the three packed flash-attention kernels (forward,
+               dK/dV, dQ; ``csrc/flash_attention_packed.cu``) against their
+               plain PyTorch versions run in f32 on the same bf16/f16
+               inputs: forward O and LSE, and the gradient through
+               ``FlashAttentionPacked``.  Cases: causal and non-causal,
+               dropout 0.1 with a fixed seed, the training geometry (b=4,
+               s=1024, H=12, D=64), ragged s=1000 with H=2, f16, and head
+               widths 32 and 128; then the timed kernels' own results at
+               b=32, s=1024.  Limits (``FLASH_TOL``), per slice of the
+               result (O, dQ, dK, dV): relative L2 error 1e-2 and worst
+               row 0.2; LSE absolute 2e-3.  Each case also reads a control
+               (the plain version in bf16/f16, which must pass) and a
+               planted fault (a stale kv tile, which must fail).  Then
+               times each kernel at b=32, s=1024, H=12, D=64 by CUDA-graph
+               replay, beside its bound, its plain version and the library
+               yardstick ``F.scaled_dot_product_attention(is_causal=True)``
+               on pre-split (b, H, s, D) tensors (forward by graph replay;
+               backward, for dK/dV and dQ together, by the kernels' own
+               device time under ``torch.profiler``), which the port never
+               calls.
+4. train    -- GPT-2-small (12 layers, hidden 768, 12 heads, vocab 50304)
+               with Normal(0, 0.02) weights from a numpy seed, dropout 0,
+               through ``make_sharded_train_step(param_dtype=bf16,
+               learning_rate=1e-4, grad_clip_norm=1.0)`` at b=32, s=1024
+               on one repeated batch of random ids and labels: 2 warm-up
+               steps, then 10 timed steps.  Gates: every loss finite, the
+               loss after the 10 steps below the first, each flash launch
+               count exactly 10 x 12 over the timed steps.  Then a 3-step
+               loss series at b=4 with use_flash_attention=True against the
+               same model and init with use_flash_attention=False (the
+               plain composition), rtol 1e-3 (they have agreed to 2.6e-5
+               on the H100: a 40x margin for bf16 rounding in attention).
+5. train_profile -- one train step under ``torch.profiler``: device idle
+               share, top device kernels and host ops.
+6. paged    -- holds ``paged_attention`` against its plain PyTorch version
+               (``paged_attention_ref``) at the serving geometry (B=16,
+               H=12, D=64, P=16, maxp=32; widths 1 and 32; shuffled page
+               tables, an inactive slot, lengths 0 / page boundary / last
+               row of the table; and the serving run's own pool, tables
+               and lengths): bf16 against an f32 run of the plain version
+               at atol=rtol=2e-2, f32 at 2e-5 with TF32 off.  Times the
+               kernel, the plain version and
+               ``F.scaled_dot_product_attention`` on the gathered
+               contiguous K/V (a yardstick the port never calls) at the
+               serving run's decode inputs, by CUDA-graph replay over input
+               copies larger than the L2.
+7. serving  -- GPT-2-small in bf16 through
+               ``ServingEngine(cache_mode="paged", max_slots=16, max_len=512,
+               page_size=16, num_pages=257, chunk=32, decode_window=32)``:
+               16 greedy requests of 64 prompt tokens and 128 new tokens.
+               Every request must finish, the kernel's launch count must
+               cover every decode step of every layer, and the pool must
+               drain.  Then an f32 run of 4 requests x 32 new tokens must be
+               token-exact against the dense engine (the plain static-cache
+               path), or diverge only at a logit margin <= 1e-3.
+8. profile  -- device time by kernel over one short serving run
+               (``torch.profiler``), for the breakdown in PERF.md.
 
 Then the kernel table line, the ``nvidia-smi`` line, and last the result
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -227,7 +262,7 @@ def phase_kernel(torch, pa):
     maxlen_ms = device_ms(torch, [lambda c=c: pa.paged_attention_kernel(**c)
                                   for c in copies(maxlen)])
     maxlen_bound, maxlen_by = bound(maxlen, 2, H100_BF16_FLOPS)
-    emit({"phase": "kernel", "checks": checks,
+    emit({"phase": "paged", "checks": checks,
           "decode_w1_serving": {"ms": k_ms, "plain_ms": p_ms,
                                 "library_ms": l_ms,
                                 "library_vs_kernel_max_abs": lib_err,
@@ -238,6 +273,369 @@ def phase_kernel(torch, pa):
                                "bound_by": maxlen_by}})
     return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms}
+
+
+# ---------------------------------------------------------------------------
+# K1: the packed flash-attention kernels
+# ---------------------------------------------------------------------------
+
+# K1 limits.  Each slice of the result (O, dQ, dK, dV) is held against the
+# plain version run in f32 on the same inputs by two readings: "rel",
+# ||err|| / ||ref|| over the slice, and "row", the worst (batch, row, head)
+# D-vector's ||err|| / ||ref||, with the slice's median row norm as the floor
+# of the denominator (a causal dQ row 0 is zero).  The LSE is held by its
+# largest absolute error.  Beside the kernel, every case reads a control
+# (the plain version in the kernel's own dtype, put in its place: bf16
+# rounding alone) and a planted fault (the same, with kv tile 1 read as a
+# stale copy of tile 0), which must pass and fail the limits.
+FLASH_TOL = {"rel": 1e-2, "row": 0.2, "lse": 2e-3}
+FLASH_SLICES = ("out", "dq", "dk", "dv")
+TRAIN_SHAPE = dict(b=32, s=1024, H=12, D=64)    # bench.py's gpt2 row
+FLASH_VS_PLAIN_RTOL = 1e-3
+
+
+def flash_case(torch, b, s, H, D, dtype, seed):
+    """A random packed qkv (b, s, 3*H*D) and an output cotangent."""
+    rng = np.random.RandomState(seed)
+    qkv = torch.from_numpy((rng.randn(b, s, 3 * H * D) * 0.5).astype(
+        np.float32)).to(DEV, dtype)
+    cot = torch.from_numpy(rng.randn(b, s, H * D).astype(np.float32)).to(
+        DEV, dtype)
+    return qkv, cot
+
+
+def flash_slices(out, lse, dqkv, H):
+    """O, LSE, dQ, dK and dV in f32, each row a D-vector."""
+    b, s, hd = out.shape
+    g = dqkv.float().reshape(b, s, 3, H, hd // H)
+    return {"out": out.float().reshape(b, s, H, hd // H),
+            "lse": lse.float(), "dq": g[:, :, 0], "dk": g[:, :, 1],
+            "dv": g[:, :, 2]}
+
+
+def flash_readings(got, ref):
+    """Each slice's error readings (see ``FLASH_TOL``)."""
+    r = {"lse": float((got["lse"] - ref["lse"]).abs().max())}
+    for k in FLASH_SLICES:
+        err = got[k] - ref[k]
+        row_ref = ref[k].norm(dim=-1)
+        r[k] = {"rel": float(err.norm() / ref[k].norm()),
+                "row": float((err.norm(dim=-1)
+                              / row_ref.clamp_min(row_ref.median())).max()),
+                "max_abs": float(err.abs().max())}
+    return r
+
+
+def flash_within(r):
+    return r["lse"] <= FLASH_TOL["lse"] and all(
+        r[k]["rel"] <= FLASH_TOL["rel"] and r[k]["row"] <= FLASH_TOL["row"]
+        for k in FLASH_SLICES)
+
+
+def flash_plain(fap, qkv, cot, H, causal, scale, p=0.0, seed=None):
+    """The plain forward and backward on ``qkv`` in its own dtype."""
+    out, lse = fap.flash_packed_fwd_ref(qkv, H, causal, scale, p, seed)
+    grad = fap.flash_packed_bwd_ref(qkv, out, lse, cot, H, causal, scale, p,
+                                    seed)
+    return flash_slices(out, lse, grad, H)
+
+
+def stale_tile(qkv, H, tile=64):
+    """The planted fault's input: k and v of kv tile 1 replaced by tile 0's,
+    as a kernel that kept reading a stale double-buffered tile sees them."""
+    bad = qkv.clone()
+    hd = qkv.shape[-1] // 3
+    bad[:, tile:2 * tile, hd:] = qkv[:, :tile, hd:]
+    return bad
+
+
+def flash_bound(b, s, H, D, causal, products, nbytes):
+    """Least time for one kernel: ``products`` (s x s x D) matrix products
+    over the score pairs this input needs (the causal half with the
+    diagonal, or all), against the bytes it must move."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = 2 * products * D * pairs * b * H
+    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def profiled_ms(torch, fn, reps=5):
+    """Device time per call: the kernels' own time under
+    ``torch.profiler`` over ``reps`` eager calls (for a library call that
+    a graph capture does not take; host gaps between its kernels are not
+    counted)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(device_us(e) for e in prof.key_averages()
+             if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    return us / 1e3 / reps
+
+
+def device_us(e):
+    """An event's own device time in microseconds."""
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(e, attr, None)
+        if v:
+            return float(v)
+    return 0.0
+
+
+def phase_flash(torch, fap):
+    import math
+
+    import torch.nn.functional as F
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    checks = []
+
+    def check(name, b, s, H, D, causal, dtype=torch.bfloat16, p=0.0,
+              seed=None):
+        qkv, cot = flash_case(torch, b, s, H, D, dtype, seed=len(checks))
+        scale = 1.0 / math.sqrt(D)
+        out, lse = fap.flash_packed_fwd_kernel(qkv, H, causal, scale, p,
+                                               seed)
+        x = qkv.detach().clone().requires_grad_(True)
+        fap.flash_attention_packed(x, H, causal, scale, p, seed).backward(cot)
+        torch.cuda.synchronize()
+        args = (H, causal, scale, p, seed)
+        ref = flash_plain(fap, qkv.float(), cot.float(), *args)
+        got = {"kernel": flash_slices(out, lse, x.grad, H),
+               "control": flash_plain(fap, qkv, cot, *args),
+               "fault": flash_plain(fap, stale_tile(qkv, H), cot, *args)}
+        r = {k: flash_readings(v, ref) for k, v in got.items()}
+        ok = (flash_within(r["kernel"]) and flash_within(r["control"])
+              and not flash_within(r["fault"]))
+        # [LSE, then (rel, row) for O, dQ, dK, dV]: a short line
+        checks.append({"case": name, "ok": ok, **{
+            k: [v["lse"]] + [v[s][m] for s in FLASH_SLICES
+                             for m in ("rel", "row")]
+            for k, v in r.items()}})
+
+    check("causal_b2_s256_h4", 2, 256, 4, 64, True)
+    check("noncausal_b2_s256_h4", 2, 256, 4, 64, False)
+    check("causal_dropout0.1", 2, 256, 4, 64, True, p=0.1, seed=1234)
+    check("noncausal_dropout0.1", 1, 192, 2, 64, False, p=0.1, seed=-7)
+    check("train_geometry_b4_s1024_h12", 4, 1024, 12, 64, True)
+    check("ragged_s1000_h2", 2, 1000, 2, 64, True)
+    check("ragged_s1000_h2_noncausal", 1, 1000, 2, 64, False)
+    check("f16_causal", 2, 512, 4, 64, True, dtype=torch.float16)
+    check("d32_h4", 2, 256, 4, 32, True)
+    check("d128_h2", 2, 256, 2, 128, True)
+    emit({"phase": "flash_checks", "tolerances": FLASH_TOL,
+          "fields": ["lse"] + [f"{s}_{m}" for s in FLASH_SLICES
+                               for m in ("rel", "row")],
+          "checks": checks})
+    bad = [c["case"] for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError(f"flash kernels disagree with their plain "
+                             f"versions, or the limits do not separate the "
+                             f"control from the planted fault: {bad}")
+
+    # timing at the train step's shape
+    b, s, H, D = (TRAIN_SHAPE[k] for k in "bsHD")
+    scale = 1.0 / math.sqrt(D)
+    qkv, dout = flash_case(torch, b, s, H, D, torch.bfloat16, seed=100)
+    out, lse = fap.flash_packed_fwd_kernel(qkv, H, True, scale)
+    delta = fap._delta(out, dout, H)
+    dqkv = torch.empty_like(qkv)
+    ms = {
+        "fwd": device_ms(torch, [
+            lambda: fap.flash_packed_fwd_kernel(qkv, H, True, scale)]),
+        "dkdv": device_ms(torch, [lambda: fap.flash_packed_dkdv_kernel(
+            qkv, dout, lse, delta, dqkv, H, True, scale)]),
+        "dq": device_ms(torch, [lambda: fap.flash_packed_dq_kernel(
+            qkv, dout, lse, delta, dqkv, H, True, scale)]),
+    }
+    plain_fwd = device_ms(torch, [
+        lambda: fap.flash_packed_fwd_ref(qkv, H, True, scale)], reps=2)
+    plain_bwd = device_ms(torch, [lambda: fap.flash_packed_bwd_ref(
+        qkv, out, lse, dout, H, True, scale)], reps=2)
+    # the timed kernels' results at this shape against the plain version in
+    # f32, and the plain version in bf16 as the control
+    ref = flash_plain(fap, qkv.float(), dout.float(), H, True, scale)
+    train = {"kernel": flash_readings(flash_slices(out, lse, dqkv, H), ref),
+             "control": flash_readings(flash_plain(fap, qkv, dout, H, True,
+                                                   scale), ref)}
+    del ref
+    torch.cuda.empty_cache()
+    if not flash_within(train["kernel"]):
+        raise AssertionError(f"flash kernels disagree with their plain "
+                             f"versions at {TRAIN_SHAPE}: {train}")
+    # the library yardstick on pre-split (b, H, s, D) tensors
+    qh, kh, vh = (t.reshape(b, s, H, D).transpose(1, 2).contiguous()
+                  .requires_grad_(True) for t in qkv.split(H * D, -1))
+    doh = dout.reshape(b, s, H, D).transpose(1, 2).contiguous()
+    with torch.no_grad():
+        lib_fwd = device_ms(torch, [lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True)])
+        lib_out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    lib_vs_kernel = float((lib_out.transpose(1, 2).reshape(b, s, H * D)
+                           .float() - out.float()).abs().max())
+    og = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    lib_bwd = profiled_ms(torch, lambda: torch.autograd.grad(
+        og, (qh, kh, vh), doh, retain_graph=True))
+    del og, qh, kh, vh, doh, lib_out
+
+    e = 2  # bytes per bf16 element
+    io = qkv.numel() * e + lse.numel() * 4
+    bwd_in = io + dout.numel() * e + delta.numel() * 4
+    bounds = {
+        "fwd": flash_bound(b, s, H, D, True, 2, io + out.numel() * e),
+        "dkdv": flash_bound(b, s, H, D, True, 4,
+                            bwd_in + 2 * b * s * H * D * e),
+        "dq": flash_bound(b, s, H, D, True, 3, bwd_in + b * s * H * D * e),
+    }
+    plain = {"fwd": plain_fwd, "dkdv": plain_bwd, "dq": plain_bwd}
+    lib = {"fwd": lib_fwd, "dkdv": lib_bwd, "dq": lib_bwd}
+    got = train["kernel"]
+    errs = {"fwd": got["out"]["max_abs"],
+            "dkdv": max(got["dk"]["max_abs"], got["dv"]["max_abs"]),
+            "dq": got["dq"]["max_abs"]}
+    rows, timing = {}, {}
+    for k in ("fwd", "dkdv", "dq"):
+        b_ms, b_by, flops, nbytes = bounds[k]
+        rows[k] = {"max_abs_err": errs[k], "ms": ms[k],
+                   "plain_ms": plain[k], "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": lib[k]}
+        timing[k] = dict(rows[k], gflop=flops / 1e9, gbytes=nbytes / 1e9,
+                         tflops=flops / ms[k] / 1e9)
+    emit({"phase": "flash", "shape": TRAIN_SHAPE, "causal": True,
+          "readings": train,
+          "library_vs_kernel_out_max_abs": lib_vs_kernel,
+          "plain_note": "dkdv and dq share one plain backward and one "
+                        "library backward (each computes dq, dk, dv)",
+          "timing": timing})
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+def profile_summary(torch, prof, wall):
+    """Device busy time and idle share over ``wall``, and the top device
+    kernels and host ops, from a ``torch.profiler`` run."""
+    # device-side events only (kernels, copies): a CPU op's self device
+    # time repeats the time of the kernels it launched
+    events = prof.key_averages()
+    rows = [(e.key, device_us(e), e.count) for e in events
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    rows = [r for r in rows if r[1] > 0]
+    total = sum(r[1] for r in rows)
+    rows.sort(key=lambda r: -r[1])
+    host = sorted(((e.key, float(e.self_cpu_time_total), e.count)
+                   for e in events
+                   if str(getattr(e, "device_type", "")).endswith("CPU")),
+                  key=lambda r: -r[1])
+    return {"wall_s": wall,
+            "device_busy_s": total / 1e6 if total else None,
+            "device_idle_share": (1 - total / 1e6 / wall) if total else None,
+            "top_kernels": [{"name": k[:80], "device_ms": us / 1e3,
+                             "count": n} for k, us, n in rows[:15]],
+            "top_host_ops": [{"name": k[:60], "self_cpu_ms": us / 1e3,
+                              "count": n} for k, us, n in host[:12]]}
+
+
+def train_model(torch, cfg, arrays):
+    from paddle_hackathon_tpu_torch.models import GPTForCausalLM
+    from paddle_hackathon_tpu_torch.parallel import make_sharded_train_step
+    from paddle_hackathon_tpu_torch.utils import load_jax_state
+    model = GPTForCausalLM(cfg, device=DEV)
+    load_jax_state(model, arrays)
+    step, state = make_sharded_train_step(
+        model, learning_rate=1e-4, grad_clip_norm=1.0,
+        param_dtype="bfloat16")
+    return model, step, state
+
+
+def phase_train(torch, fap):
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_hackathon_tpu_torch.models import gpt_config
+    cfg = gpt_config("gpt2-small-en", hidden_dropout_prob=0.0,
+                     attention_dropout_prob=0.0)
+    b, s = TRAIN_SHAPE["b"], TRAIN_SHAPE["s"]
+    from paddle_hackathon_tpu_torch.models import GPTForCausalLM
+    arrays = random_weights(GPTForCausalLM(cfg, device="cpu"), seed=0)
+    model, step, state = train_model(torch, cfg, arrays)
+    rng = np.random.RandomState(0)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s))).to(DEV)
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s))).to(DEV)
+    losses = []
+    for _ in range(2):                                   # warm-up
+        state, loss = step(state, ids, labels)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in fap.launches:
+        fap.launches[k] = 0
+    steps = 10
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, loss = step(state, ids, labels)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fap.launches)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall on a repeated batch: "
+                             f"{losses}")
+    need = steps * cfg.num_layers
+    if any(n != need for n in launches.values()):
+        raise AssertionError(f"flash launches {launches} != {need} each")
+    n_params = model.num_params()
+    tps = steps * b * s / wall
+    emit({"phase": "train", "model": "gpt2-small-en bf16", "batch": b,
+          "seq": s, "steps": steps, "wall_s": wall,
+          "ms_per_step": 1e3 * wall / steps, "tokens_per_s": tps,
+          "mfu": 6 * n_params * tps / H100_BF16_FLOPS,
+          "num_params": n_params, "peak_memory_gb": peak / 1e9,
+          "losses": losses, "flash_launches": launches})
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, loss = step(state, ids, labels)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    emit({"phase": "train_profile", "steps": 1,
+          **profile_summary(torch, prof, wall)})
+    del model, step, state, prof
+    torch.cuda.empty_cache()
+
+    # flash (K1) against the plain composition, same init and batch
+    series = {}
+    for use_flash in (True, False):
+        c = gpt_config("gpt2-small-en", hidden_dropout_prob=0.0,
+                       attention_dropout_prob=0.0,
+                       use_flash_attention=use_flash)
+        m, st_fn, st = train_model(torch, c, arrays)
+        out = []
+        for _ in range(3):
+            st, loss = st_fn(st, ids[:4], labels[:4])
+            out.append(float(loss))
+        series[use_flash] = out
+        del m, st_fn, st
+        torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(series[True],
+                                                  series[False]))
+    emit({"phase": "train_flash_vs_plain", "batch": 4, "seq": s,
+          "flash": series[True], "plain": series[False],
+          "max_rel_diff": rel, "rtol": FLASH_VS_PLAIN_RTOL})
+    if not rel <= FLASH_VS_PLAIN_RTOL:
+        raise AssertionError(f"flash and plain loss series differ by "
+                             f"{rel} > {FLASH_VS_PLAIN_RTOL}: {series}")
+    return launches
 
 
 def random_weights(model, seed):
@@ -361,33 +759,8 @@ def phase_profile(torch, eng, prompts):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     eng.drop_prefix_cache()
-
-    def dev_us(e):
-        for attr in ("self_device_time_total", "self_cuda_time_total"):
-            v = getattr(e, attr, None)
-            if v:
-                return float(v)
-        return 0.0
-    # device-side events only (kernels, copies): a CPU op's self device
-    # time repeats the time of the kernels it launched
-    events = prof.key_averages()
-    rows = [(e.key, dev_us(e), e.count) for e in events
-            if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    rows = [r for r in rows if r[1] > 0]
-    total = sum(r[1] for r in rows)
-    rows.sort(key=lambda r: -r[1])
-    host = sorted(((e.key, float(e.self_cpu_time_total), e.count)
-                   for e in events
-                   if str(getattr(e, "device_type", "")).endswith("CPU")),
-                  key=lambda r: -r[1])
     emit({"phase": "profile", "requests": 16, "new_tokens": 32,
-          "wall_s": wall,
-          "device_busy_s": total / 1e6 if total else None,
-          "device_idle_share": (1 - total / 1e6 / wall) if total else None,
-          "top_kernels": [{"name": k[:80], "device_ms": us / 1e3,
-                           "count": n} for k, us, n in rows[:12]],
-          "top_host_ops": [{"name": k[:60], "self_cpu_ms": us / 1e3,
-                            "count": n} for k, us, n in host[:12]]})
+          **profile_summary(torch, prof, wall)})
 
 
 def main():
@@ -396,6 +769,8 @@ def main():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     from paddle_hackathon_tpu_torch.incubate.nn.kernels import _build
+    from paddle_hackathon_tpu_torch.incubate.nn.kernels import \
+        flash_attention_packed as fap
     from paddle_hackathon_tpu_torch.incubate.nn.kernels import \
         paged_attention as pa
 
@@ -413,16 +788,31 @@ def main():
           "libraries": sorted(p.name for p in libs.values()),
           "ptxas": ptxas[:12]})
 
+    flash = phase_flash(torch, fap)
+    flash_launches = phase_train(torch, fap)
     kern = phase_kernel(torch, pa)
     eng, prompts, launches = phase_serving(torch, pa)
     phase_profile(torch, eng, prompts)
 
-    emit({"kernels": [{
-        "name": "paged_attention", "route": "cuda",
-        "source": "paddle_hackathon_tpu_torch/csrc/paged_attention.cu",
-        "replaces": "paddle_hackathon_tpu/incubate/nn/kernels/"
-                    "paged_attention.py:114",
-        "launches": launches, **kern}]})
+    src = "paddle_hackathon_tpu_torch/csrc/"
+    ref = "paddle_hackathon_tpu/incubate/nn/kernels/"
+    emit({"kernels": [
+        {"name": "flash_packed_fwd", "route": "cuda",
+         "source": src + "flash_attention_packed.cu",
+         "replaces": ref + "flash_attention_packed.py:247",
+         "launches": flash_launches["fwd"], **flash["fwd"]},
+        {"name": "flash_packed_dkdv", "route": "cuda",
+         "source": src + "flash_attention_packed.cu",
+         "replaces": ref + "flash_attention_packed.py:478",
+         "launches": flash_launches["dkdv"], **flash["dkdv"]},
+        {"name": "flash_packed_dq", "route": "cuda",
+         "source": src + "flash_attention_packed.cu",
+         "replaces": ref + "flash_attention_packed.py:511",
+         "launches": flash_launches["dq"], **flash["dq"]},
+        {"name": "paged_attention", "route": "cuda",
+         "source": src + "paged_attention.cu",
+         "replaces": ref + "paged_attention.py:114",
+         "launches": launches, **kern}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

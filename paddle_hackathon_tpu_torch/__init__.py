@@ -9,7 +9,12 @@ on the CPU.
 
 Ported so far: the paged GPT serving path (``models/gpt.py``,
 ``inference/serving.py``) and its paged-attention kernel
-(``incubate/nn/kernels/paged_attention.py`` + ``csrc/paged_attention.cu``).
+(``incubate/nn/kernels/paged_attention.py`` + ``csrc/paged_attention.cu``);
+the one-device GPT training path (``parallel/api.py``
+``make_sharded_train_step``, ``optimizer/``, ``nn/functional/loss.py``)
+and its packed flash-attention kernels
+(``incubate/nn/kernels/flash_attention_packed.py`` +
+``csrc/flash_attention_packed.cu``).
 """
 
 from .core.device import resolve_device

@@ -10,11 +10,14 @@ compare them make their inputs with numpy.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 _DEFAULT_SEED = 0
 _seed = _DEFAULT_SEED
 _generators: dict = {}
+_scoped: list = []   # generators installed by rng_scope, innermost last
 
 
 def seed(s: int) -> None:
@@ -28,6 +31,9 @@ def default_generator(device) -> torch.Generator:
     """The default generator of ``device``, created at first use from the
     last :func:`seed`."""
     dev = torch.device(device)
+    for gen in reversed(_scoped):
+        if gen.device.type == dev.type:
+            return gen
     key = (dev.type, dev.index)
     gen = _generators.get(key)
     if gen is None:
@@ -35,3 +41,14 @@ def default_generator(device) -> torch.Generator:
         gen.manual_seed(_seed)
         _generators[key] = gen
     return gen
+
+
+@contextlib.contextmanager
+def rng_scope(gen: torch.Generator):
+    """Within the block, :func:`default_generator` of ``gen``'s device type
+    returns ``gen`` (the train step's per-step ``rng``)."""
+    _scoped.append(gen)
+    try:
+        yield gen
+    finally:
+        _scoped.pop()

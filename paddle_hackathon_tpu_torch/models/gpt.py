@@ -1,5 +1,5 @@
 """GPT-style decoder-only LM: the port of the JAX package's
-``models/gpt.py`` for serving.
+``models/gpt.py`` for serving and training.
 
 Parameter names and layouts are the JAX model's (``gpt.wte.weight``,
 ``gpt.blocks.0.attn.qkv_proj.weight`` of shape ``(in, out)``, ...), so a
@@ -12,8 +12,11 @@ reference:
   (``incubate/nn/kernels/paged_attention.py``);
 - static cache (``generate`` and the dense engine): write at
   ``cache_pos``, then the plain masked-softmax composition;
-- no cache: the non-flash causal scaled-dot-product composition (the
-  flash branches raise until K1/K2 are ported).
+- no cache: dispatched in the JAX package's order.  The packed-qkv
+  flash kernels (K1, ``incubate/nn/kernels/flash_attention_packed.py``)
+  where ``_packed_flash_ok`` holds; else, where flash is asked for and the
+  bhd kernels (K2) would take the shape, ``NotImplementedError`` (K2 is
+  not ported yet); else the plain causal scaled-dot-product composition.
 
 Matrix products and the dense static-cache attention stay ordinary
 PyTorch, as the JAX package left them to XLA.  Caches are updated IN
@@ -31,16 +34,17 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core import flags
 from ..core.device import resolve_device
 from ..core.dtype import convert_dtype
 from ..core.random import default_generator
+from ..incubate.nn.functional import flash_attention_qkv_packed
+from ..incubate.nn.kernels import flash_attention as _fa
+from ..incubate.nn.kernels import flash_attention_packed as _fap
 from ..incubate.nn.kernels import paged_attention as _pa
-from ..nn.functional import gelu
+from ..nn.functional import cross_entropy, gelu
 from ..nn.layers import Dropout, Embedding, LayerNorm, Linear
 
-# flags.flag("flash_attention_min_seqlen") of the JAX package: at this
-# width or above the no-cache forward takes the flash kernels there
-FLASH_MIN_SEQLEN = 1024
 _NEG_INF = -1e30
 
 
@@ -102,11 +106,30 @@ class GPTAttention(nn.Module):
         self.attn_dropout = Dropout(config.attention_dropout_prob)
         self.use_flash = config.use_flash_attention
 
-    def _split(self, x):
-        b, s, _ = x.shape
-        qkv = self.qkv_proj(x).reshape(b, s, 3, self.num_heads,
-                                       self.head_dim)
-        return qkv.unbind(2)
+    def _split(self, qkv):
+        b, s, _ = qkv.shape
+        return qkv.reshape(b, s, 3, self.num_heads, self.head_dim).unbind(2)
+
+    def _flash_requested(self, s) -> bool:
+        """scaled_dot_product_attention's flash request in the JAX
+        package: ``use_flash`` when set, else the fused-kernel flag and the
+        min-seqlen crossover."""
+        if self.use_flash is not None:
+            return bool(self.use_flash)
+        return bool(flags.flag("use_fused_kernels")
+                    and s >= flags.flag("flash_attention_min_seqlen"))
+
+    def _packed_flash_ok(self, qkv, s) -> bool:
+        """The JAX test for the packed-qkv kernels: not switched off,
+        ``use_flash=True`` at any supported length or auto at the
+        min-seqlen crossover, and a shape and dtype the kernels take."""
+        if self.use_flash is False or not flags.flag("use_fused_kernels"):
+            return False
+        if self.use_flash is None and \
+                s < flags.flag("flash_attention_min_seqlen"):
+            return False
+        return _fap.supported(s, s, self.num_heads, self.head_dim,
+                              qkv.dtype)
 
     def forward(self, x, cache=None, cache_pos=None, page_table=None):
         b, s, h = x.shape
@@ -118,7 +141,7 @@ class GPTAttention(nn.Module):
             # the kernel reads.
             if cache_pos is None:
                 raise ValueError("page_table requires cache_pos")
-            q, k, v = self._split(x)
+            q, k, v = self._split(self.qkv_proj(x))
             kp, vp = cache
             _pa.paged_write(kp, k, page_table, cache_pos)
             _pa.paged_write(vp, v, page_table, cache_pos)
@@ -130,7 +153,7 @@ class GPTAttention(nn.Module):
             # K/V land at [cache_pos, cache_pos + s) (per slot when
             # cache_pos is (B,)), and queries attend cached positions <=
             # their global position
-            q, k, v = self._split(x)
+            q, k, v = self._split(self.qkv_proj(x))
             kb, vb = cache
             T = kb.shape[1]
             pos = cache_pos.to(torch.long).expand(b) \
@@ -155,16 +178,21 @@ class GPTAttention(nn.Module):
         if cache is not None:
             raise ValueError("a KV cache needs cache_pos (static cache) or "
                              "page_table and cache_pos (paged)")
-        if self.use_flash is True or (self.use_flash is None
-                                      and s >= FLASH_MIN_SEQLEN):
+        qkv = self.qkv_proj(x)
+        if self._packed_flash_ok(qkv, s):
+            # flash attention on the projection-native packed layout
+            out = flash_attention_qkv_packed(
+                qkv, self.num_heads, causal=True,
+                dropout_p=self.attn_dropout.p if self.training else 0.0)
+            return self.out_proj(out)
+        if self._flash_requested(s) and _fa.supported(s, s):
             raise NotImplementedError(
-                "flash attention (the packed-qkv and bhd Pallas kernels K1 "
-                "and K2) is not ported yet: ROADMAP Queue 1 item 5 (the "
-                "GPT-2-small training slice); set use_flash_attention=False "
-                "or keep the sequence under 1024")
-        # no cache: the JAX package's non-flash causal
-        # scaled_dot_product_attention composition, over (b, H, s, D)
-        q, k, v = (t.transpose(1, 2) for t in self._split(x))
+                f"flash attention at seq {s} in {qkv.dtype} takes the bhd "
+                "flash kernels (K2), which are not ported yet: ROADMAP "
+                "Queue 2; set use_flash_attention=False")
+        # the JAX package's non-flash causal scaled_dot_product_attention
+        # composition, over (b, H, s, D)
+        q, k, v = (t.transpose(1, 2) for t in self._split(qkv))
         logits = torch.einsum("bhsd,bhtd->bhst", q, k) \
             * (1.0 / math.sqrt(self.head_dim))
         causal = torch.ones(s, s, dtype=torch.bool, device=x.device).tril()
@@ -280,6 +308,15 @@ class GPTForCausalLM(nn.Module):
             hidden, caches = hidden
         logits = hidden @ self.gpt.wte.weight.T
         return logits if caches is None else (logits, caches)
+
+    def loss(self, input_ids, labels, position_ids=None):
+        """Mean token cross entropy of the logits against ``labels``."""
+        logits = self(input_ids, position_ids)
+        return cross_entropy(logits.reshape(-1, self.config.vocab_size),
+                             labels.reshape(-1))
+
+    def num_params(self) -> int:
+        return sum(p.numel() for p in self.parameters())
 
     @staticmethod
     def _nucleus_mask(scaled, top_p):

@@ -1,3 +1,3 @@
-from .convert import load_jax_state
+from .convert import load_jax_state, state_to_numpy
 
-__all__ = ["load_jax_state"]
+__all__ = ["load_jax_state", "state_to_numpy"]

@@ -3,7 +3,8 @@
 The JAX model's ``state_dict()`` (``nn/layer.py``) exported to numpy is a
 ``{name: np.ndarray}`` dict whose names and layouts are the port's own
 (Paddle's ``(in, out)`` Linear layout is kept on both sides), so loading
-is a name-for-name copy with no transposes.
+is a name-for-name copy with no transposes; :func:`state_to_numpy` is the
+way back.
 """
 
 from __future__ import annotations
@@ -45,3 +46,19 @@ def load_jax_state(model: nn.Module, arrays: Mapping[str, np.ndarray]):
     for name, arr in arrays.items():
         params[name].copy_(to_tensor(arr))
     return model
+
+
+def state_to_numpy(model: nn.Module) -> dict:
+    """``{name: np.ndarray}`` of ``model``'s parameters, the inverse of
+    :func:`load_jax_state`.  bf16 leaves through a 16-bit view of the same
+    bits as ``ml_dtypes.bfloat16`` (numpy's own bf16 type, which JAX
+    uses)."""
+    out = {}
+    for name, p in model.named_parameters():
+        t = p.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes
+            out[name] = t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        else:
+            out[name] = t.numpy().copy()
+    return out

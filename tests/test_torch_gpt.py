@@ -189,11 +189,57 @@ def test_model_without_device_needs_cuda(monkeypatch):
         tgpt.GPTForCausalLM(tgpt.GPTConfig(**_CFG))
 
 
-def test_flash_branch_is_not_ported(models):
+@pytest.mark.parametrize("s", [4, 8])
+def test_flash_branch_is_not_ported(models, s):
+    """Flash forced in f32: neither flash kernel takes s=4, so JAX runs
+    the plain composition and the port must agree with it; at s=8 JAX
+    takes the bhd kernels (K2), which the port does not have yet."""
+    jm, _ = models
+    arrays = {k: np.asarray(v.numpy()) for k, v in jm.state_dict().items()}
     cfg = tgpt.GPTConfig(**dict(_CFG, use_flash_attention=True))
-    tm = tgpt.GPTForCausalLM(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm(torch.from_numpy(_ids((1, 4))))
+    tm = load_jax_state(tgpt.GPTForCausalLM(cfg, device="cpu"), arrays)
+    ids = _ids((1, s), s)
+    if s == 8:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tm(torch.from_numpy(ids))
+        return
+    attns = [blk.attn for blk in jm.gpt.blocks]
+    for a in attns:
+        a.use_flash = True
+    try:
+        ref = _np(jm(Tensor(jnp.asarray(ids))))
+    finally:
+        for a in attns:
+            a.use_flash = False
+    with torch.no_grad():
+        out = tm(torch.from_numpy(ids)).numpy()
+    assert out.shape == (1, 4, 128)
+    np.testing.assert_allclose(out, ref, rtol=0, atol=ATOL)
+
+
+def test_flash_dispatch_reads_the_flags():
+    """Auto mode (use_flash_attention=None) takes the packed kernels from
+    flash_attention_min_seqlen on, and never with use_fused_kernels off;
+    the flags start at the JAX package's defaults."""
+    from paddle_hackathon_tpu_torch.core import flags
+    assert flags.flag("flash_attention_min_seqlen") == 1024
+    assert flags.flag("use_fused_kernels") is True
+    cfg = tgpt.GPTConfig(**dict(_CFG, hidden_size=128, num_heads=2,
+                                use_flash_attention=None))
+    attn = tgpt.GPTAttention(cfg, device="cpu")
+    qkv = torch.zeros(1, 128, 384, dtype=torch.bfloat16)
+    assert not attn._packed_flash_ok(qkv, 128)
+    try:
+        flags.set_flags({"FLAGS_flash_attention_min_seqlen": 128})
+        assert attn._packed_flash_ok(qkv, 128)
+        assert not attn._packed_flash_ok(qkv.float(), 128)
+        flags.set_flags({"use_fused_kernels": False})
+        assert not attn._packed_flash_ok(qkv, 128)
+        with pytest.raises(ValueError, match="unknown flag"):
+            flags.set_flags({"no_such_flag": 1})
+    finally:
+        flags.set_flags({"flash_attention_min_seqlen": 1024,
+                         "use_fused_kernels": True})
 
 
 def test_presets():
