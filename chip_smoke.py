@@ -69,6 +69,47 @@ Phases, each printing one JSON line:
                path), or diverge only at a logit margin <= 1e-3.
 8. profile  -- device time by kernel over one short serving run
                (``torch.profiler``), for the breakdown in PERF.md.
+9. quant_checks -- holds the dequant-GEMM kernel K4
+               (``csrc/quant_matmul.cu``) against its plain version
+               ``quant_matmul_ref`` on the card: the four GPT-2-small
+               projections (K, N) = (768, 2304), (768, 768), (768, 3072),
+               (3072, 768) x M in {1, 8, 200, 256} x int8 / fp8-e4m3
+               weights (quantized by ``nn.quant.quantize_array``), bf16
+               activations; the reading is the largest error in bf16 ulps
+               of the reference, limit 1 (the JAX contract), each output's
+               ulp floored at its f32 accumulation noise (``sum_noise``:
+               outputs that cancel to near zero), with the raw reading
+               beside it.  Each case also
+               reads a control (the plain version with K summed in reverse
+               128-row chunks, which must pass) and a planted fault (the
+               kernel on a weight whose second 128-row K tile is a copy of
+               its first, which must fail), and row 0 and row 255 of M = 256
+               must equal, bit for bit, the same rows computed alone.  f32
+               activations at (8, 768, 2304): relative error <= 1e-5 of
+               max|ref|; f16 activations at the same shape: 1 f16 ulp.  A
+               3-D input with bias through ``quant_matmul``.
+10. quant   -- K4's time at M = 8 and M = 256 for each projection, by
+               CUDA-graph replay over input copies larger than the L2
+               (> 60 MB, >= 24 copies), beside its bound, the plain
+               version's time and a library yardstick the port never calls
+               (``torch._weight_int8pack_mm`` where this torch runs it on
+               CUDA, else the bf16 cuBLAS product ``x @ w_bf16``, labelled).
+11. serving_int8 -- the JAX package's ``serving_int8`` row on the card:
+               GPT-2-small bf16 with Normal(0, 0.02) weights from a numpy
+               seed, ``save_for_serving(quant="int8")`` into a temp dir,
+               ``load_for_serving`` on CUDA, a dense
+               ``ServingEngine(max_slots=8, max_len=224, chunk=32,
+               decode_window=32)``, 8 greedy requests of 64 + 128 tokens;
+               alternated with the same bf16 model unquantized, 3 pairs,
+               medians of each.  Checks: every request completes, K4's
+               launches equal 48 x the model forwards, the plain version
+               is called 0 times.  Weight bytes (params + scales +
+               buffers) of both.  Then one profiled int8 run (idle share,
+               K4's share of device time).
+12. quant_f32_cross_check -- int8 and fp8 artifacts of the f32 model: the
+               dense and paged engines token-exact against the same
+               quantized model's greedy ``generate`` on the card, 4 requests
+               x 32 new tokens.
 
 Then the kernel table line, the ``nvidia-smi`` line, and last the result
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -763,6 +804,405 @@ def phase_profile(torch, eng, prompts):
           **profile_summary(torch, prof, wall)})
 
 
+# ---------------------------------------------------------------------------
+# K4: the weight-only dequant GEMM, and serving from a quantized artifact
+# ---------------------------------------------------------------------------
+
+QUANT_SHAPES = {"qkv": (768, 2304), "out": (768, 768),      # (K, N)
+                "fc_in": (768, 3072), "fc_out": (3072, 768)}
+QUANT_ULP_LIMIT = 1.0           # bf16 ulps of the reference (JAX contract)
+QUANT_F32_REL = 1e-5            # f32 activations: of max|ref|
+SERVE_INT8 = dict(max_slots=8, max_len=224, chunk=32, decode_window=32)
+
+
+def bf16_ulps(torch, got, ref, floor=None, bits=7):
+    """Largest error of ``got`` in bf16 ulps of ``ref``: 2**(floor(log2
+    |ref|) - 7) per element, or the bf16 ulp at ``floor`` (per element)
+    where that is larger.  Zeros of ``ref`` without a floor count against
+    1e-6.  ``bits=10`` reads f16 ulps."""
+    got, ref = got.double(), ref.double()
+    mag = ref.abs() if floor is None else torch.maximum(ref.abs(),
+                                                        floor.double())
+    ulp = torch.where(mag > 0, torch.exp2(torch.floor(torch.log2(
+        mag.clamp_min(1e-300))) - bits), torch.full_like(mag, 1e-6))
+    return float(((got - ref).abs() / ulp).max())
+
+
+def sum_noise(torch, x2d, w_q, scale):
+    """Each output's f32 accumulation noise, sqrt(K) 2**-24 sum_k |x_k w_k|
+    s: the scale below which two orders of the same exact f32 products
+    may differ.  Only outputs that cancel to near zero reach it; there a
+    bf16 ulp of the result is smaller than the sum's own rounding (the
+    control, a reordered plain version, reads up to 49 raw ulps there on
+    the H100)."""
+    k = x2d.shape[1]
+    mag = x2d.float().abs() @ w_q.float().abs()
+    return mag * scale * (k ** 0.5 * 2.0 ** -24)
+
+
+def quant_case(torch, wo, m, k, n, scheme, xdtype, seed):
+    """Activations N(0, 1) and a Normal(0, 0.02) weight quantized on the
+    card by the port's quantizer."""
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(DEV, xdtype)
+    w32 = torch.from_numpy((rng.randn(k, n) * 0.02).astype(np.float32))
+    w_q, scale = wo.quantize_array(w32.to(DEV), scheme)
+    return dict(x2d=x, w_q=w_q, scale=scale)
+
+
+def reversed_chunks_ref(torch, x2d, w_q, scale):
+    """The control: the plain version with K summed in reverse 128-row
+    chunks (another order of the same exact products)."""
+    acc = None
+    for k0 in range(w_q.shape[0] - 128, -1, -128):
+        part = x2d[:, k0:k0 + 128].float() @ w_q[k0:k0 + 128].float()
+        acc = part if acc is None else acc + part
+    return (acc * scale).to(x2d.dtype)
+
+
+def phase_quant_checks(torch, qm, wo):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows, bad, max_abs = [], [], 0.0
+    for name, (k, n) in QUANT_SHAPES.items():
+        for scheme in ("int8", "fp8"):
+            for m in (1, 8, 200, 256):
+                c = quant_case(torch, wo, m, k, n, scheme, torch.bfloat16,
+                               seed=m + k + n)
+                out = qm.quant_matmul_kernel(*c.values())
+                torch.cuda.synchronize()
+                ref = qm.quant_matmul_ref(*c.values())
+                stale = c["w_q"].clone()
+                stale[128:256] = c["w_q"][:128]       # a stale K tile
+                fault = qm.quant_matmul_kernel(c["x2d"], stale, c["scale"])
+                noise = sum_noise(torch, *c.values())
+                r = [bf16_ulps(torch, out, ref, noise),
+                     bf16_ulps(torch, reversed_chunks_ref(torch, **c), ref,
+                               noise),
+                     bf16_ulps(torch, fault, ref, noise),
+                     bf16_ulps(torch, out, ref)]
+                case = f"{name}_{scheme}_m{m}"
+                ok = (r[0] <= QUANT_ULP_LIMIT and r[1] <= QUANT_ULP_LIMIT
+                      and r[2] > QUANT_ULP_LIMIT
+                      and bool(torch.isfinite(out).all()))
+                if m == 256:
+                    # the rows' sums do not depend on M or on the tile
+                    alone = [qm.quant_matmul_kernel(c["x2d"][i:i + 1],
+                                                    c["w_q"], c["scale"])
+                             for i in (0, 255)]
+                    inv = (torch.equal(alone[0][0], out[0])
+                           and torch.equal(alone[1][0], out[255]))
+                    r.append(inv)
+                    ok = ok and inv
+                max_abs = max(max_abs, float((out.float() - ref.float())
+                                             .abs().max()))
+                rows.append([case] + r)
+                if not ok:
+                    bad.append(case)
+    # f32 activations, and a 3-D input with bias through the dispatch
+    f32 = {}
+    for scheme in ("int8", "fp8"):
+        c = quant_case(torch, wo, 8, 768, 2304, scheme, torch.float32, 7)
+        ref = qm.quant_matmul_ref(*c.values())
+        rel = float((qm.quant_matmul_kernel(*c.values()) - ref).abs().max()
+                    / ref.abs().max())
+        f32[scheme] = rel
+        if not rel <= QUANT_F32_REL:
+            bad.append(f"f32_{scheme}")
+    f16 = {}
+    for scheme in ("int8", "fp8"):    # f16 activations, in f16 ulps
+        c = quant_case(torch, wo, 8, 768, 2304, scheme, torch.float16, 8)
+        f16[scheme] = bf16_ulps(torch, qm.quant_matmul_kernel(*c.values()),
+                                qm.quant_matmul_ref(*c.values()),
+                                sum_noise(torch, *c.values()), bits=10)
+        if not f16[scheme] <= QUANT_ULP_LIMIT:
+            bad.append(f"f16_{scheme}")
+    c = quant_case(torch, wo, 8, 768, 2304, "int8", torch.bfloat16, 9)
+    bias = torch.randn(2304, device=DEV)
+    x3 = c["x2d"].reshape(2, 4, 768)
+    got = qm.quant_matmul(x3, c["w_q"], c["scale"], bias)
+    kern = qm.quant_matmul_kernel(*c.values())
+    three_d = (tuple(got.shape) == (2, 4, 2304) and torch.equal(
+        got, (kern + bias.to(torch.bfloat16)).reshape(2, 4, 2304))
+        and bf16_ulps(torch, kern, qm.quant_matmul_ref(*c.values()),
+                      sum_noise(torch, *c.values())) <= QUANT_ULP_LIMIT)
+    if not three_d:
+        bad.append("3d_bias")
+    emit({"phase": "quant_checks", "limit_ulps": QUANT_ULP_LIMIT,
+          "fields": ["case", "kernel_ulps", "control_ulps", "fault_ulps",
+                     "kernel_raw_ulps (no floor)",
+                     "rows_0_255_equal_alone (m256)"],
+          "checks": rows, "f32_rel_err": f32, "f32_limit": QUANT_F32_REL,
+          "f16_ulps": f16,
+          "bias_3d_ok": three_d, "max_abs_err": max_abs})
+    if bad:
+        raise AssertionError(f"quant_matmul kernel disagrees with its plain "
+                             f"version, or the limit does not separate the "
+                             f"control from the planted fault: {bad}")
+    return max_abs
+
+
+def quant_bound(m, k, n):
+    """Least time for one product: x, w_q, scale and out moved once, or
+    2 M K N flops at the bf16 tensor-core peak, whichever is larger."""
+    nbytes = m * k * 2 + k * n + n * 4 + m * n * 2
+    flops = 2 * m * k * n
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def int8pack_runs(torch):
+    """Whether this torch runs ``_weight_int8pack_mm`` on CUDA (the one
+    library call that computes K4's int8 function); decided once, on a
+    small input."""
+    try:
+        a = torch.ones(8, 128, device=DEV, dtype=torch.bfloat16)
+        b = torch.ones(128, 128, device=DEV, dtype=torch.int8)
+        s = torch.ones(128, device=DEV, dtype=torch.bfloat16)
+        torch._weight_int8pack_mm(a, b, s)
+        torch.cuda.synchronize()
+        return True
+    except (RuntimeError, NotImplementedError, AttributeError):
+        return False
+
+
+def phase_quant(torch, qm, wo):
+    int8pack = int8pack_runs(torch)
+    timing, decode = {}, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                          "library_ms": 0.0, "bound_by": "bytes"}
+    for name, (k, n) in QUANT_SHAPES.items():
+        for m in (8, 256):
+            c = quant_case(torch, wo, m, k, n, "int8", torch.bfloat16, m + n)
+            per_copy = sum(t.numel() * t.element_size() for t in c.values())
+            cases = copies(c, max(24, -(-60_000_000 // per_copy)))
+            k_ms = device_ms(torch, [
+                lambda c=c: qm.quant_matmul_kernel(*c.values())
+                for c in cases])
+            p_ms = device_ms(torch, [
+                lambda c=c: qm.quant_matmul_ref(*c.values())
+                for c in cases], reps=2)
+            l_ms = lib_err = None
+            if int8pack:    # weight transposed once, outside the timing
+                libs = [(c["x2d"], c["w_q"].t().contiguous(),
+                         c["scale"].to(torch.bfloat16)) for c in cases]
+                lib_err = float((torch._weight_int8pack_mm(*libs[0]).float()
+                                 - qm.quant_matmul_kernel(*c.values())
+                                 .float()).abs().max())
+                l_ms = device_ms(torch, [
+                    lambda a=a: torch._weight_int8pack_mm(*a) for a in libs])
+                del libs
+            # what the unquantized bf16 row runs instead (no library call
+            # of K4's function): cuBLAS on bf16 weights of the same shape
+            wides = [(c["x2d"], (c["w_q"].float() * c["scale"]).to(
+                torch.bfloat16)) for c in cases]
+            bf16_ms = device_ms(torch, [lambda a=a: a[0] @ a[1]
+                                        for a in wides])
+            del cases, wides
+            b_ms, b_by = quant_bound(m, k, n)
+            timing[f"{name}_m{m}"] = {
+                "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                "library_vs_kernel_max_abs": lib_err,
+                "bf16_cublas_ms": bf16_ms,
+                "bound_ms": b_ms, "bound_by": b_by,
+                "gbytes_per_s": (m * k * 2 + k * n + n * 4 + m * n * 2)
+                / k_ms / 1e6}
+            if m == 8:
+                for key, v in (("ms", k_ms), ("plain_ms", p_ms),
+                               ("bound_ms", b_ms), ("library_ms", l_ms)):
+                    decode[key] = None if v is None or decode[key] is None \
+                        else decode[key] + v
+                if b_by != "bytes":
+                    decode["bound_by"] = "operations"
+    torch.cuda.empty_cache()
+    emit({"phase": "quant", "weights": "int8", "activations": "bf16",
+          "library": "torch._weight_int8pack_mm" if int8pack else None,
+          "timing": timing, "decode_layer_m8": dict(decode, note="sum of the four "
+                                  "projections of one layer at M=8")})
+    return decode
+
+
+def weight_bytes(model):
+    """Bytes the decode tick reads as weights: params (quant scales
+    included) + buffers, as the JAX ``serving_weight_bytes`` gauge counts
+    them."""
+    return (sum(p.numel() * p.element_size() for p in model.parameters())
+            + sum(b.numel() * b.element_size() for b in model.buffers()))
+
+
+def serve_run(torch, eng, prompts, new):
+    """One timed run of ``prompts`` through ``eng``; returns its readings and
+    the model forwards it took."""
+    s0 = dict(eng.stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, new) for p in prompts]
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for r in reqs:
+        toks = np.asarray(r.tokens)
+        assert r.done and len(toks) == new, (r.done, len(toks))
+    ttft = sorted(r.ttft_s for r in reqs)
+    chunk = eng.stats["chunk_ticks"] - s0["chunk_ticks"]
+    dec = eng.stats["decode_ticks"] - s0["decode_ticks"]
+    return {"wall_s": wall, "tokens_per_s": len(prompts) * new / wall,
+            "ttft_p50_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
+            "chunk_ticks": chunk, "decode_ticks": dec,
+            "forwards": chunk + dec * eng._decode_window}
+
+
+def median_run(runs):
+    return sorted(runs, key=lambda r: r["wall_s"])[len(runs) // 2]
+
+
+def phase_serving_int8(torch, qm):
+    import shutil
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_hackathon_tpu_torch.inference import (ServingEngine,
+                                                      load_for_serving,
+                                                      save_for_serving)
+    from paddle_hackathon_tpu_torch.models import GPTForCausalLM, gpt_config
+    from paddle_hackathon_tpu_torch.utils import load_jax_state
+
+    cfg = gpt_config("gpt2-small-en", hidden_dropout_prob=0.0,
+                     attention_dropout_prob=0.0)
+    bf16 = GPTForCausalLM(cfg, device=DEV, dtype="bfloat16")
+    arrays = random_weights(bf16, seed=0)
+    load_jax_state(bf16, arrays)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_int8_")
+    try:
+        t0 = time.perf_counter()
+        save_for_serving(bf16, tmp, quant="int8")
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        int8 = load_for_serving(tmp)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert int8.device.type == torch.device(DEV).type, int8.device
+    bytes_ = {"bf16": weight_bytes(bf16), "int8": weight_bytes(int8)}
+    engines = {"bf16": ServingEngine(bf16, **SERVE_INT8),
+               "int8": ServingEngine(int8, **SERVE_INT8)}
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, 64).astype(np.int32)
+               for _ in range(8)]
+    for e in engines.values():                           # warm-up
+        e.generate(rng.randint(0, cfg.vocab_size, 64), 2)
+
+    plain_calls = [0]
+    plain = qm.quant_matmul_ref
+
+    def counted_plain(*a, **kw):
+        plain_calls[0] += 1
+        return plain(*a, **kw)
+
+    runs = {"bf16": [], "int8": []}
+    launches = None
+    for order in (("bf16", "int8"), ("int8", "bf16"), ("bf16", "int8")):
+        for kind in order:
+            qm.launches = 0
+            qm.quant_matmul_ref = counted_plain
+            try:
+                r = serve_run(torch, engines[kind], prompts, 128)
+            finally:
+                qm.quant_matmul_ref = plain
+            r["k4_launches"] = qm.launches
+            # 4 projections per layer per forward
+            need = 4 * cfg.num_layers * r["forwards"] if kind == "int8" else 0
+            if r["k4_launches"] != need:
+                raise AssertionError(f"{kind}: K4 launches "
+                                     f"{r['k4_launches']} != {need}")
+            if launches is None and kind == "int8":
+                launches = r["k4_launches"]
+            runs[kind].append(r)
+    if plain_calls[0]:
+        raise AssertionError(f"quant_matmul_ref ran {plain_calls[0]} times "
+                             f"on the card's serving path")
+    med = {k: median_run(v) for k, v in runs.items()}
+    emit({"phase": "serving_int8", "model": "gpt2-small-en",
+          "requests": 8, "prompt": 64, "new_tokens": 128, **SERVE_INT8,
+          "artifact_save_s": t_save, "artifact_load_s": t_load,
+          "median": med,
+          "int8_over_bf16_tokens_per_s": (med["int8"]["tokens_per_s"]
+                                          / med["bf16"]["tokens_per_s"]),
+          "pair_ratios": [i["tokens_per_s"] / b["tokens_per_s"]
+                          for b, i in zip(runs["bf16"], runs["int8"])],
+          "weight_bytes": bytes_,
+          "weight_bytes_ratio": bytes_["int8"] / bytes_["bf16"],
+          "k4_launches_per_forward": launches / med["int8"]["forwards"],
+          "plain_calls": plain_calls[0], "runs": runs})
+
+    # one profiled int8 run: idle share and K4's share of device time
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for p in prompts:
+            engines["int8"].submit(p, 32)
+        engines["int8"].run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summ = profile_summary(torch, prof, wall)
+    k4_us = sum(device_us(e) for e in prof.key_averages()
+                if "quant_matmul" in e.key and str(getattr(
+                    e, "device_type", "")).endswith("CUDA"))
+    busy = summ["device_busy_s"]
+    emit({"phase": "quant_profile", "requests": 8, "new_tokens": 32,
+          "k4_device_ms": k4_us / 1e3,
+          "k4_share_of_busy": (k4_us / 1e6 / busy) if busy else None,
+          **summ})
+    del engines, bf16, int8
+    torch.cuda.empty_cache()
+    return launches, arrays, prompts
+
+
+def phase_quant_f32_cross_check(torch, arrays, prompts):
+    import shutil
+    import tempfile
+
+    from paddle_hackathon_tpu_torch.inference import (ServingEngine,
+                                                      load_for_serving,
+                                                      save_for_serving)
+    from paddle_hackathon_tpu_torch.models import GPTForCausalLM, gpt_config
+    from paddle_hackathon_tpu_torch.utils import load_jax_state
+
+    cfg = gpt_config("gpt2-small-en", hidden_dropout_prob=0.0,
+                     attention_dropout_prob=0.0)
+    m32 = GPTForCausalLM(cfg, device=DEV)
+    load_jax_state(m32, arrays)
+    res, bad = {}, []
+    for scheme in ("int8", "fp8"):
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_f32_")
+        try:
+            save_for_serving(m32, tmp, quant=scheme)
+            mq = load_for_serving(tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        ref = mq.generate(np.stack(prompts[:4]), 32,
+                          temperature=0.0).cpu().numpy()
+        for mode in ("dense", "paged"):
+            e = ServingEngine(mq, cache_mode=mode, **SERVE_INT8)
+            rs = [e.submit(p, 32) for p in prompts[:4]]
+            e.run_until_idle()
+            same = [bool(np.array_equal(r.result(), ref[i]))
+                    for i, r in enumerate(rs)]
+            res[f"{scheme}_{mode}"] = sum(same)
+            if not all(same):
+                bad.append(f"{scheme}_{mode}")
+        del mq
+    emit({"phase": "quant_f32_cross_check", "requests": 4, "new_tokens": 32,
+          "token_exact_of_4": res})
+    if bad:
+        raise AssertionError(f"quantized f32 engines diverge from the same "
+                             f"model's generate: {bad}")
+    del m32
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -773,6 +1213,9 @@ def main():
         flash_attention_packed as fap
     from paddle_hackathon_tpu_torch.incubate.nn.kernels import \
         paged_attention as pa
+    from paddle_hackathon_tpu_torch.incubate.nn.kernels import \
+        quant_matmul as qm
+    from paddle_hackathon_tpu_torch.nn.quant import weight_only as wo
 
     smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
@@ -782,37 +1225,48 @@ def main():
 
     t0 = time.perf_counter()
     libs = _build.build_all()
-    ptxas = [ln.strip() for log in _build.build_logs.values()
-             for ln in log.splitlines() if "Used" in ln or "spill" in ln]
+    # ptxas's register / spill lines, per library built in this run
+    ptxas = {lib: [ln.split("info    :")[-1].strip() for ln in log.splitlines()
+                   if "Used" in ln or "spill" in ln]
+             for lib, log in _build.build_logs.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": sorted(p.name for p in libs.values()),
-          "ptxas": ptxas[:12]})
+          "ptxas": ptxas})
 
     flash = phase_flash(torch, fap)
     flash_launches = phase_train(torch, fap)
     kern = phase_kernel(torch, pa)
     eng, prompts, launches = phase_serving(torch, pa)
     phase_profile(torch, eng, prompts)
+    del eng
+    max_abs = phase_quant_checks(torch, qm, wo)
+    decode = phase_quant(torch, qm, wo)
+    k4_launches, arrays, prompts = phase_serving_int8(torch, qm)
+    phase_quant_f32_cross_check(torch, arrays, prompts)
 
     src = "paddle_hackathon_tpu_torch/csrc/"
     ref = "paddle_hackathon_tpu/incubate/nn/kernels/"
-    emit({"kernels": [
-        {"name": "flash_packed_fwd", "route": "cuda",
+    kernels = [
+        {"name": f"flash_packed_{k}", "route": "cuda",
          "source": src + "flash_attention_packed.cu",
-         "replaces": ref + "flash_attention_packed.py:247",
-         "launches": flash_launches["fwd"], **flash["fwd"]},
-        {"name": "flash_packed_dkdv", "route": "cuda",
-         "source": src + "flash_attention_packed.cu",
-         "replaces": ref + "flash_attention_packed.py:478",
-         "launches": flash_launches["dkdv"], **flash["dkdv"]},
-        {"name": "flash_packed_dq", "route": "cuda",
-         "source": src + "flash_attention_packed.cu",
-         "replaces": ref + "flash_attention_packed.py:511",
-         "launches": flash_launches["dq"], **flash["dq"]},
-        {"name": "paged_attention", "route": "cuda",
-         "source": src + "paged_attention.cu",
-         "replaces": ref + "paged_attention.py:114",
-         "launches": launches, **kern}]})
+         "replaces": ref + f"flash_attention_packed.py:{line}",
+         "launches": flash_launches[k], **flash[k]}
+        for k, line in (("fwd", 247), ("dkdv", 478), ("dq", 511))]
+    kernels.append({"name": "paged_attention", "route": "cuda",
+                    "source": src + "paged_attention.cu",
+                    "replaces": ref + "paged_attention.py:175",
+                    "launches": launches, **kern})
+    kernels.append({"name": "quant_matmul", "route": "cuda",
+                    "source": src + "quant_matmul.cu",
+                    "replaces": ref + "quant_matmul.py:112",
+                    "launches": k4_launches, "max_abs_err": max_abs,
+                    "ms": decode["ms"], "plain_ms": decode["plain_ms"],
+                    "bound_ms": decode["bound_ms"],
+                    "bound_by": decode["bound_by"],
+                    "library_ms": decode["library_ms"],
+                    "timed_as": "one decode layer's 4 projections, M=8, "
+                                "int8 (library: the quant phase's)"})
+    emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -14,7 +14,10 @@ the one-device GPT training path (``parallel/api.py``
 ``make_sharded_train_step``, ``optimizer/``, ``nn/functional/loss.py``)
 and its packed flash-attention kernels
 (``incubate/nn/kernels/flash_attention_packed.py`` +
-``csrc/flash_attention_packed.cu``).
+``csrc/flash_attention_packed.cu``); weight-only int8/fp8 serving from
+an artifact (``inference/serving.py`` ``save_for_serving``/
+``load_for_serving``, ``nn/quant/``) and its dequant-GEMM kernel
+(``incubate/nn/kernels/quant_matmul.py`` + ``csrc/quant_matmul.cu``).
 """
 
 from .core.device import resolve_device

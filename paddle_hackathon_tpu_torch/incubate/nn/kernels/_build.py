@@ -28,6 +28,7 @@ BUILD_DIR = _PKG / "_build"
 SOURCES: Dict[str, Path] = {
     "paged_attention": _PKG / "csrc" / "paged_attention.cu",
     "flash_attention_packed": _PKG / "csrc" / "flash_attention_packed.cu",
+    "quant_matmul": _PKG / "csrc" / "quant_matmul.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -19,25 +19,44 @@ same pages and prefill only its suffix, and attention reads K/V through
 the table with the paged-attention kernel
 (``incubate/nn/kernels/paged_attention.py``) on the card.
 
+The serving artifact: :func:`save_for_serving` writes ``{config.json,
+params.npz}`` in the JAX package's format (optionally weight-only int8 or
+fp8-e4m3 quantized), atomically; :func:`load_for_serving` rebuilds the
+model on the card, with ``nn.quant.WeightOnlyLinear`` shells at the
+quantized projections, whose forward runs the dequant-GEMM kernel K4
+(``incubate/nn/kernels/quant_matmul.py``).  Artifacts move between the two
+packages in both directions.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): the auto_run background loop, speculative decoding, sessions,
 priorities/preemption, deadlines, ``prefill_budget``, streaming
-``on_token`` hooks, defrag, MoE and pipeline-parallel ticks, the
-metrics/tracing/flight instrumentation, ``save_for_serving``/
-``load_for_serving`` and int8 weight-only serving.
+``on_token`` hooks, defrag, MoE and pipeline-parallel ticks, and the
+metrics/tracing/flight instrumentation (the ``serving_weight_bytes``
+gauge among them).  ``inference/predictor.py``'s ``create_predictor``,
+which also serves an artifact directory, is not ported either.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
+import glob
+import json
+import os
+import shutil
 import threading
 import time
+import uuid
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from ..core.random import default_generator
+from ..models import gpt as _gpt
+from ..nn.quant import weight_only as _wo
+from ..utils.convert import check_state, dtype_name, to_stored, to_tensor
 from .paged import NULL_PAGE, PagePool, PrefixCache, pages_for
 
 _ROADMAP = "ROADMAP Queue 1 item 10 (ServingEngine)"
@@ -45,6 +64,186 @@ _ROADMAP = "ROADMAP Queue 1 item 10 (ServingEngine)"
 
 def _not_ported(what: str, item: str = _ROADMAP) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet: {item}")
+
+
+class TornArtifactError(RuntimeError):
+    """A serving artifact directory is incomplete: a crash mid-save by a
+    writer that was not atomic, or a partial copy.  :func:`save_for_serving`
+    commits atomically (tmp dir + rename), so a torn directory is always
+    made elsewhere; :func:`load_for_serving` refuses to half-load it."""
+
+
+def _fsync_dir(path: str) -> None:
+    """fsync a directory, so a rename inside it is durable."""
+    flags = os.O_RDONLY | getattr(os, "O_DIRECTORY", 0)
+    try:
+        fd = os.open(path, flags)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def _sweep_stale_saves(path: str) -> None:
+    """Remove tmp dirs orphaned by a DEAD process's hard kill (each holds a
+    full-model-size params.npz nothing else would delete).  A dir whose
+    owner pid is alive (this process included: a concurrent thread's
+    save) is left alone."""
+    for stale in glob.glob(f"{path}.saving-*"):
+        try:
+            pid = int(stale.split(".saving-", 1)[1].split("-", 1)[0])
+            os.kill(pid, 0)       # raises if the owner is gone
+            continue              # owner alive: not ours to sweep
+        except (ValueError, ProcessLookupError):
+            pass                  # malformed name or dead owner: sweep
+        except PermissionError:
+            continue              # alive under another uid
+        shutil.rmtree(stale, ignore_errors=True)
+
+
+def _write_file(path: str, write) -> None:
+    with open(path, "wb") as f:
+        write(f)
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def save_for_serving(model, path, quant=None):
+    """Persist ``{config.json, params.npz}`` in the JAX package's format, so
+    either package's :func:`load_for_serving` rebuilds the model.
+
+    ATOMIC: both files land in a tmp directory (``params.npz`` first,
+    ``config.json``, the manifest, last, both fsync'd), which is then
+    renamed over ``path`` (the previous artifact waits at ``path.old``
+    during the swap); a crash mid-save leaves the previous artifact (or
+    nothing), never a torn directory.  Sidecar files next to the two
+    (a tokenizer, say) are carried into the replacement.
+
+    bf16 and fp8 store as ``uint16``/``uint8`` views with the dtype's name
+    in ``config.json``'s ``param_dtypes``.  ``quant="int8"`` (or ``"fp8"``)
+    quantizes the attention/MLP projection weights on the host at save
+    time (``nn.quant.quantize_weights``: the JAX package's bits): int8 /
+    fp8 values plus f32 per-output-channel ``<name>_scale`` entries, and
+    ``{"quant": {"scheme", "params"}}`` in ``config.json``.  A model that
+    already holds quantized layers records the same manifest without
+    ``quant=``.  Embeddings, layer norms and the tied logits head stay in
+    the float dtype."""
+    # quantize and store from host copies: the bits do not depend on the
+    # device the model sits on
+    params = {k: v.detach().cpu() for k, v in model.named_parameters()}
+    scheme = None
+    if quant is not None:
+        scheme = _wo.resolve_scheme(quant)
+        params, _ = _wo.quantize_weights(params, scheme)
+    # manifest by inspection (covers both quant= and pre-quantized trees):
+    # a weight with a `_scale` sibling is a quantized Linear the loader
+    # must swap before loading state
+    manifest = sorted(k for k in params if k + "_scale" in params)
+    arrs = {k: to_stored(v) for k, v in params.items()}
+    dtypes = {k: dtype_name(v.dtype) for k, v in params.items()}
+    meta = {"model": type(model).__name__,
+            "config": dataclasses.asdict(model.config),
+            "param_dtypes": dtypes}
+    if manifest:
+        if scheme is None:
+            scheme = ("int8" if dtypes[manifest[0]] == "int8"
+                      else "fp8-e4m3")
+        meta["quant"] = {"scheme": scheme, "params": manifest}
+    path = os.fspath(path)
+    # pid names the owner for the stale sweep; the uuid keeps concurrent
+    # saves from threads of one process off each other's tmp dirs
+    tmp = f"{path}.saving-{os.getpid()}-{uuid.uuid4().hex[:8]}"
+    old = f"{path}.old"
+    _sweep_stale_saves(path)
+    os.makedirs(tmp)
+    try:
+        _write_file(os.path.join(tmp, "params.npz"),
+                    lambda f: np.savez(f, **arrs))
+        _write_file(os.path.join(tmp, "config.json"),
+                    lambda f: f.write(json.dumps(meta).encode()))
+        # after a crash inside a swap window the live artifact is .old, so
+        # the sidecars come from there
+        side_src = path if os.path.isdir(path) else (
+            old if os.path.isdir(old) else None)
+        if side_src is not None:
+            for n in os.listdir(side_src):
+                if n in ("config.json", "params.npz"):
+                    continue
+                src, dst = os.path.join(side_src, n), os.path.join(tmp, n)
+                if os.path.isdir(src):
+                    shutil.copytree(src, dst)
+                else:
+                    shutil.copy2(src, dst)
+        if os.path.isdir(path):
+            # `path` is complete, so a stale .old is disposable; never
+            # delete .old while it may be the only valid copy (`path`
+            # missing after a crash in an earlier swap window)
+            shutil.rmtree(old, ignore_errors=True)
+            os.rename(path, old)
+        os.rename(tmp, path)
+        shutil.rmtree(old, ignore_errors=True)
+        _fsync_dir(os.path.dirname(os.path.abspath(path)))
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+
+
+def load_for_serving(path, device=None):
+    """Rebuild the model saved by either package's ``save_for_serving``,
+    on ``device`` (``None``: the CUDA card; ``"cpu"`` for the plain path).
+
+    Quantized projections get empty ``WeightOnlyLinear`` shells at the
+    manifest paths BEFORE state loads, so the int8/fp8 weights land in the
+    serving layers directly; every parameter comes back in its saved
+    dtype.  A torn artifact (a missing or unparsable ``config.json``, a
+    missing ``params.npz``) raises :class:`TornArtifactError`; a directory
+    caught between the two renames of an atomic re-save falls back to the
+    surviving ``.old`` artifact."""
+    dev = resolve_device(device)
+    path = os.fspath(path)
+    if not os.path.isdir(path) and os.path.isdir(path + ".old"):
+        path = path + ".old"      # crash inside a save's swap window
+    if not os.path.isdir(path):
+        raise FileNotFoundError(path)
+    cfg_p = os.path.join(path, "config.json")
+    npz_p = os.path.join(path, "params.npz")
+    for p in (cfg_p, npz_p):
+        if not os.path.exists(p):
+            raise TornArtifactError(
+                f"serving artifact at {path} is torn: {os.path.basename(p)} "
+                f"is missing (a crash mid-write by a writer that was not "
+                f"atomic, or a partial copy); re-export with "
+                f"save_for_serving")
+    try:
+        with open(cfg_p) as f:
+            meta = json.load(f)
+    except ValueError as e:
+        raise TornArtifactError(
+            f"serving artifact at {path} is torn: config.json does not "
+            f"parse ({e}); re-export with save_for_serving") from e
+    cls = getattr(_gpt, meta["model"], None)
+    if cls is None:
+        raise NotImplementedError(
+            f"serving artifact model {meta['model']!r} is not ported yet: "
+            f"ROADMAP Queue 1 item 11")
+    model = cls(_gpt.GPTConfig(**meta["config"]), device=dev)
+    model.eval()
+    q = meta.get("quant")
+    if q:
+        _wo.apply_weight_only(model, q["scheme"], names=q["params"])
+    dtypes = meta.get("param_dtypes", {})
+    with np.load(npz_p) as z:
+        state = {k: to_tensor(z[k], dtypes.get(k)) for k in z.files}
+    params = check_state(model, state)
+    with torch.no_grad():
+        for k, t in state.items():
+            # the saved dtype, as the JAX loader restores it (a name
+            # without a recorded dtype takes the parameter's own)
+            p = params[k]
+            p.data = t.to(dev, t.dtype if k in dtypes else p.dtype)
+    return model
 
 
 class Request:

@@ -19,7 +19,9 @@ reference:
   not ported yet); else the plain causal scaled-dot-product composition.
 
 Matrix products and the dense static-cache attention stay ordinary
-PyTorch, as the JAX package left them to XLA.  Caches are updated IN
+PyTorch, as the JAX package left them to XLA; a projection swapped for a
+``nn.quant.WeightOnlyLinear`` (a quantized serving artifact) runs the
+dequant-GEMM kernel K4 instead.  Caches are updated IN
 PLACE (the JAX code rebuilt them functionally); each branch returns the
 same cache tensors it was given.
 """
@@ -60,7 +62,16 @@ class GPTConfig:
     attention_dropout_prob: float = 0.1
     initializer_range: float = 0.02
     use_flash_attention: bool = None  # None = auto (seq-length heuristic)
-    moe_num_experts: int = 0          # GPT-MoE: not ported yet (> 0 raises)
+    # GPT-MoE: not ported yet (moe_num_experts > 0 raises); the other moe_*
+    # fields are kept with the JAX defaults so that a JAX config.json
+    # (inference/serving.py save_for_serving) rebuilds here
+    moe_num_experts: int = 0
+    moe_topk: int = 2
+    moe_gate: str = "naive"
+    moe_capacity_factor: float = 2.0
+    moe_aux_weight: float = 0.01
+    moe_every_n: int = 1
+    moe_group_size: Optional[int] = None
 
     @property
     def ffn_size(self):
