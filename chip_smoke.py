@@ -46,7 +46,43 @@ Phases, each printing one JSON line:
                on the H100: a 40x margin for bf16 rounding in attention).
 5. train_profile -- one train step under ``torch.profiler``: device idle
                share, top device kernels and host ops.
-6. paged    -- holds ``paged_attention`` against its plain PyTorch version
+6. flash_bhd_checks -- holds the three bhd flash-attention kernels K2
+               (forward, dK/dV, dQ; ``csrc/flash_attention.cu``) against
+               their plain versions on the same inputs: f32 against the
+               plain version in f64, bf16/f16 against it in f32; forward O
+               and LSE, and the gradient through ``FlashAttentionBHD``,
+               each slice apart.  Cases: causal and non-causal, dropout 0.1
+               with a fixed seed, sq=256/skv=1024 and sq=1024/skv=256
+               causal, ragged s=1000, D = 32, 80, 128, each in f32, bf16
+               and f16; the f32 training geometry (B*H = 16*12, s=1024,
+               D=64); batch 1 through ``flash_attention_bshd`` on strided
+               views of one fused projection (f32 at H=12, s=1024; bf16
+               at H=1); and the ring's unit: ``_bwd_pair`` over kv halves
+               with the global LSE and Δ (non-causal: dq sums, dk/dv
+               concatenate; causal: the two-device ring layout).  Limits:
+               bf16/f16 ``FLASH_TOL``; f32 ``FLASH_F32_TOL`` (relative L2 1e-4, worst
+               row 2e-3, LSE 1e-5), which TF32 products fail.  Each case
+               reads a control (the plain version in the input's dtype,
+               must pass) and a planted fault (a stale kv tile, must fail);
+               each f32 case also the plain version on operands rounded
+               to TF32 (must fail).
+7. flash_bhd -- K2's times at the f32 training geometry by CUDA-graph
+               replay (inputs 201 MB), beside the bounds (f32 on the CUDA
+               cores, 67 TFLOP/s), the plain versions, and the library
+               yardstick ``F.scaled_dot_product_attention(is_causal=True)``
+               on (b, H, s, D) f32, pinned to the efficient-attention
+               backend, with its error against the f64 plain version;
+               then the bf16 instance beside K1 at K1's timing shape.
+8. train_f32 -- GPT-2-small f32 (``make_sharded_train_step`` with no
+               ``param_dtype``: f32 parameters and Adam moments) at b=16,
+               s=1024, flash on auto: 2 warm-up and 10 timed steps.  Gates:
+               losses finite and falling, K2 launches exactly 10 x 12 each,
+               K1 launches 0, no plain K2 call.  Then one profiled step
+               (``train_f32_profile``: idle share, K2's share of busy
+               time) and a 3-step loss series at b=4, K2 against
+               ``use_flash_attention=False`` (the plain composition), rtol
+               ``F32_FLASH_VS_PLAIN_RTOL``.
+9. paged    -- holds ``paged_attention`` against its plain PyTorch version
                (``paged_attention_ref``) at the serving geometry (B=16,
                H=12, D=64, P=16, maxp=32; widths 1 and 32; shuffled page
                tables, an inactive slot, lengths 0 / page boundary / last
@@ -58,7 +94,7 @@ Phases, each printing one JSON line:
                contiguous K/V (a yardstick the port never calls) at the
                serving run's decode inputs, by CUDA-graph replay over input
                copies larger than the L2.
-7. serving  -- GPT-2-small in bf16 through
+10. serving -- GPT-2-small in bf16 through
                ``ServingEngine(cache_mode="paged", max_slots=16, max_len=512,
                page_size=16, num_pages=257, chunk=32, decode_window=32)``:
                16 greedy requests of 64 prompt tokens and 128 new tokens.
@@ -67,9 +103,9 @@ Phases, each printing one JSON line:
                drain.  Then an f32 run of 4 requests x 32 new tokens must be
                token-exact against the dense engine (the plain static-cache
                path), or diverge only at a logit margin <= 1e-3.
-8. profile  -- device time by kernel over one short serving run
+11. profile -- device time by kernel over one short serving run
                (``torch.profiler``), for the breakdown in PERF.md.
-9. quant_checks -- holds the dequant-GEMM kernel K4
+12. quant_checks -- holds the dequant-GEMM kernel K4
                (``csrc/quant_matmul.cu``) against its plain version
                ``quant_matmul_ref`` on the card: the four GPT-2-small
                projections (K, N) = (768, 2304), (768, 768), (768, 3072),
@@ -88,13 +124,13 @@ Phases, each printing one JSON line:
                activations at (8, 768, 2304): relative error <= 1e-5 of
                max|ref|; f16 activations at the same shape: 1 f16 ulp.  A
                3-D input with bias through ``quant_matmul``.
-10. quant   -- K4's time at M = 8 and M = 256 for each projection, by
+13. quant   -- K4's time at M = 8 and M = 256 for each projection, by
                CUDA-graph replay over input copies larger than the L2
                (> 60 MB, >= 24 copies), beside its bound, the plain
                version's time and a library yardstick the port never calls
                (``torch._weight_int8pack_mm`` where this torch runs it on
                CUDA, else the bf16 cuBLAS product ``x @ w_bf16``, labelled).
-11. serving_int8 -- the JAX package's ``serving_int8`` row on the card:
+14. serving_int8 -- the JAX package's ``serving_int8`` row on the card:
                GPT-2-small bf16 with Normal(0, 0.02) weights from a numpy
                seed, ``save_for_serving(quant="int8")`` into a temp dir,
                ``load_for_serving`` on CUDA, a dense
@@ -106,7 +142,7 @@ Phases, each printing one JSON line:
                is called 0 times.  Weight bytes (params + scales +
                buffers) of both.  Then one profiled int8 run (idle share,
                K4's share of device time).
-12. quant_f32_cross_check -- int8 and fp8 artifacts of the f32 model: the
+15. quant_f32_cross_check -- int8 and fp8 artifacts of the f32 model: the
                dense and paged engines token-exact against the same
                quantized model's greedy ``generate`` on the card, 4 requests
                x 32 new tokens.
@@ -125,6 +161,7 @@ import numpy as np
 
 H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12          # dense tensor-core bf16
+H100_F32_FLOPS = 67e12            # f32 on the CUDA cores (no tensor cores)
 DEV = "cuda"
 
 
@@ -354,22 +391,25 @@ def flash_slices(out, lse, dqkv, H):
             "dv": g[:, :, 2]}
 
 
-def flash_readings(got, ref):
-    """Each slice's error readings (see ``FLASH_TOL``)."""
+def flash_readings(got, ref, live_floor=False):
+    """Each slice's error readings (see ``FLASH_TOL``).  ``live_floor``
+    takes the row floor as the median over the rows whose reference is
+    not zero (with sq < skv, causal, most kv rows get no gradient)."""
     r = {"lse": float((got["lse"] - ref["lse"]).abs().max())}
     for k in FLASH_SLICES:
         err = got[k] - ref[k]
         row_ref = ref[k].norm(dim=-1)
+        floor = (row_ref[row_ref > 0] if live_floor else row_ref).median()
         r[k] = {"rel": float(err.norm() / ref[k].norm()),
                 "row": float((err.norm(dim=-1)
-                              / row_ref.clamp_min(row_ref.median())).max()),
+                              / row_ref.clamp_min(floor)).max()),
                 "max_abs": float(err.abs().max())}
     return r
 
 
-def flash_within(r):
-    return r["lse"] <= FLASH_TOL["lse"] and all(
-        r[k]["rel"] <= FLASH_TOL["rel"] and r[k]["row"] <= FLASH_TOL["row"]
+def flash_within(r, tol=FLASH_TOL):
+    return r["lse"] <= tol["lse"] and all(
+        r[k]["rel"] <= tol["rel"] and r[k]["row"] <= tol["row"]
         for k in FLASH_SLICES)
 
 
@@ -390,13 +430,14 @@ def stale_tile(qkv, H, tile=64):
     return bad
 
 
-def flash_bound(b, s, H, D, causal, products, nbytes):
+def flash_bound(b, s, H, D, causal, products, nbytes, peak=H100_BF16_FLOPS):
     """Least time for one kernel: ``products`` (s x s x D) matrix products
     over the score pairs this input needs (the causal half with the
-    diagonal, or all), against the bytes it must move."""
+    diagonal, or all) at the ``peak`` rate of their type, against the
+    bytes it must move."""
     pairs = s * (s + 1) // 2 if causal else s * s
     flops = 2 * products * D * pairs * b * H
-    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    t_ops, t_bytes = flops / peak, nbytes / H100_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
@@ -583,7 +624,7 @@ def profile_summary(torch, prof, wall):
                               "count": n} for k, us, n in host[:12]]}
 
 
-def train_model(torch, cfg, arrays):
+def train_model(torch, cfg, arrays, param_dtype="bfloat16"):
     from paddle_hackathon_tpu_torch.models import GPTForCausalLM
     from paddle_hackathon_tpu_torch.parallel import make_sharded_train_step
     from paddle_hackathon_tpu_torch.utils import load_jax_state
@@ -591,7 +632,7 @@ def train_model(torch, cfg, arrays):
     load_jax_state(model, arrays)
     step, state = make_sharded_train_step(
         model, learning_rate=1e-4, grad_clip_norm=1.0,
-        param_dtype="bfloat16")
+        param_dtype=param_dtype)
     return model, step, state
 
 
@@ -676,6 +717,431 @@ def phase_train(torch, fap):
     if not rel <= FLASH_VS_PLAIN_RTOL:
         raise AssertionError(f"flash and plain loss series differ by "
                              f"{rel} > {FLASH_VS_PLAIN_RTOL}: {series}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# K2: the bhd flash-attention kernels, and f32 training through SDPA
+# ---------------------------------------------------------------------------
+
+# K2 limits.  bf16/f16: K1's (``FLASH_TOL``) against the plain version in
+# f32.  f32: against the plain version in f64, relative L2 1e-4 per slice,
+# worst row 2e-3 (K1's 20x between the two readings), LSE 1e-5 absolute.
+# Each case also reads the control (the plain version in the input's
+# dtype; for f32 the plain f32 version against f64) and the planted fault
+# (kv tile 1 a stale copy of tile 0); each f32 case also reads the plain
+# version on operands rounded to TF32's 10-bit mantissa, which must fail:
+# a kernel that ran its products in TF32 would not pass.
+FLASH_F32_TOL = {"rel": 1e-4, "row": 2e-3, "lse": 1e-5}
+BHD_TRAIN_SHAPE = dict(b=16, s=1024, H=12, D=64)     # the f32 train step
+F32_FLASH_VS_PLAIN_RTOL = 1e-4
+
+
+def bhd_case(torch, bh, sq, skv, D, dtype, seed):
+    """Random q, dO (bh, sq, D) and k, v (bh, skv, D) on the card."""
+    rng = np.random.RandomState(seed)
+    mk = lambda s, sc=1.0: torch.from_numpy(  # noqa: E731
+        (rng.randn(bh, s, D) * sc).astype(np.float32)).to(DEV, dtype)
+    return mk(sq, 0.5), mk(skv, 0.5), mk(skv), mk(sq)
+
+
+def bhd_slices(out, lse, dq, dk, dv):
+    """O, LSE, dQ, dK and dV in f64, each row a D-vector."""
+    return {"out": out.double(), "lse": lse.double(), "dq": dq.double(),
+            "dk": dk.double(), "dv": dv.double()}
+
+
+def bhd_plain(fa, q, k, v, do, causal, scale, p=0.0, seed=None):
+    """The plain forward and backward in the inputs' own dtype (f64 for
+    f64)."""
+    out, lse = fa.flash_fwd_ref(q, k, v, causal, scale, p, seed)
+    acc = fa._acc(q.dtype)
+    delta = (do.to(acc) * out.to(acc)).sum(-1)
+    grads = fa.flash_bwd_pair_ref(q, k, v, do, lse, delta, causal, scale, p,
+                                  seed)
+    return bhd_slices(out, lse, *grads)
+
+
+def tf32_round(torch, t):
+    """f32 values rounded to TF32's 10-bit mantissa (to nearest)."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def bhd_stale(t, tile=64):
+    """The planted fault's k or v: tile 1 replaced by tile 0."""
+    bad = t.clone()
+    bad[:, tile:2 * tile] = t[:, :tile]
+    return bad
+
+
+def ring_grads(torch, fa, q, k, v, do, lse, delta, causal, scale):
+    """(dq, dk, dv) from ``_bwd_pair`` over kv halves, given the global
+    LSE and Δ: non-causal, the whole q against each half (dq sums, dk and
+    dv concatenate); causal, the two-device ring layout (q half i against
+    kv half j <= i, causal only on the diagonal)."""
+    h = k.shape[1] // 2
+    halves = (slice(0, h), slice(h, None))
+    whole = slice(None)
+    pairs = ([(whole, halves[0], False), (whole, halves[1], False)]
+             if not causal else
+             [(halves[0], halves[0], True), (halves[1], halves[0], False),
+              (halves[1], halves[1], True)])
+    dq = torch.zeros_like(q, dtype=torch.float32)
+    dk = torch.zeros_like(k, dtype=torch.float32)
+    dv = torch.zeros_like(v, dtype=torch.float32)
+    c = lambda t, sl: t[:, sl].contiguous()  # noqa: E731
+    for qs, ks, diag in pairs:
+        a, b, e = fa._bwd_pair(c(q, qs), c(k, ks), c(v, ks), c(do, qs),
+                               c(lse, qs), c(delta, qs), diag, scale)
+        dq[:, qs] += a.float()
+        dk[:, ks] += b.float()
+        dv[:, ks] += e.float()
+    return dq, dk, dv
+
+
+def bshd_fused_grads(torch, tF, q, k, v, do, b, causal, scale, p, seed):
+    """O and (dq, dk, dv) in (bh, s, D) through the public entry point
+    ``flash_attention_bshd``, with q, k and v strided views of one fused
+    (b, s, 3, H, D) projection, as GPT's qkv hands them over."""
+    bh, s, D = q.shape
+    H = bh // b
+    to_bshd = lambda t: t.reshape(b, H, s, D).transpose(1, 2)  # noqa: E731
+    to_bhd = lambda t: t.transpose(1, 2).reshape(bh, s, D)  # noqa: E731
+    fused = torch.stack([to_bshd(t) for t in (q, k, v)], 2).requires_grad_()
+    out = tF.flash_attention_bshd(fused[:, :, 0], fused[:, :, 1],
+                                  fused[:, :, 2], causal, scale, p, seed)
+    out.backward(to_bshd(do))
+    return (to_bhd(out.detach()),
+            [to_bhd(fused.grad[:, :, i]) for i in range(3)])
+
+
+def phase_flash_bhd_checks(torch, fa):
+    import math
+
+    from paddle_hackathon_tpu_torch.incubate.nn import functional as tF
+    torch.backends.cuda.matmul.allow_tf32 = False
+    checks, train_readings = [], {}
+
+    def check(name, bh, sq, skv, D, causal, dtype, p=0.0, seed=None,
+              ring=False, fused_b=None):
+        q, k, v, do = bhd_case(torch, bh, sq, skv, D, dtype, len(checks))
+        scale = 1.0 / math.sqrt(D)
+        out, lse = fa.flash_fwd_kernel(q, k, v, causal, scale, p, seed)
+        if fused_b:
+            out, grads = bshd_fused_grads(torch, tF, q, k, v, do, fused_b,
+                                          causal, scale, p, seed)
+        elif ring:
+            delta = (do.float() * out.float()).sum(-1)
+            grads = ring_grads(torch, fa, q, k, v, do, lse, delta, causal,
+                               scale)
+        else:
+            xs = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+            fa.flash_attention_bhd(*xs, causal, scale, p, seed).backward(do)
+            grads = [x.grad for x in xs]
+        torch.cuda.synchronize()
+        f32 = dtype == torch.float32
+        wide = torch.float64 if f32 else torch.float32
+        args = (causal, scale, p, seed)
+        ref = bhd_plain(fa, q.to(wide), k.to(wide), v.to(wide), do.to(wide),
+                        *args)
+        got = {"kernel": bhd_slices(out, lse, *grads),
+               "control": bhd_plain(fa, q, k, v, do, *args),
+               "fault": bhd_plain(fa, q, bhd_stale(k), bhd_stale(v), do,
+                                  *args)}
+        if f32:
+            got["tf32"] = bhd_plain(fa, *(tf32_round(torch, t)
+                                          for t in (q, k, v, do)), *args)
+        tol = FLASH_F32_TOL if f32 else FLASH_TOL
+        r = {key: flash_readings(val, ref, live_floor=True)
+             for key, val in got.items()}
+        del ref, got
+        ok = (flash_within(r["kernel"], tol)
+              and flash_within(r["control"], tol)
+              and not flash_within(r["fault"], tol)
+              and not (f32 and flash_within(r["tf32"], tol)))
+        checks.append({"case": name, "ok": ok, **{
+            key: [val["lse"]] + [val[sl][m] for sl in FLASH_SLICES
+                                 for m in ("rel", "row")]
+            for key, val in r.items()}})
+        return r["kernel"]
+
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    for dt, tag in ((f32, "f32"), (bf16, "bf16"), (f16, "f16")):
+        check(f"{tag}_causal_bh8_s256", 8, 256, 256, 64, True, dt)
+        check(f"{tag}_dropout0.1", 8, 256, 256, 64, True, dt, 0.1, 1234)
+        check(f"{tag}_sq256_skv1024", 4, 256, 1024, 64, True, dt)
+        check(f"{tag}_sq1024_skv256", 4, 1024, 256, 64, True, dt)
+        check(f"{tag}_ragged_s1000", 4, 1000, 1000, 64, True, dt)
+        check(f"{tag}_noncausal", 8, 256, 256, 64, False, dt)
+        check(f"{tag}_noncausal_dropout0.1", 4, 192, 192, 64, False, dt,
+              0.1, -7)
+        check(f"{tag}_ragged_s1000_noncausal", 2, 1000, 1000, 64, False, dt)
+        for D in (32, 80, 128):
+            check(f"{tag}_d{D}", 8, 256, 256, D, True, dt)
+        check(f"{tag}_ring_kv_halves", 8, 512, 512, 64, False, dt,
+              ring=True)
+    check("f32_ring_causal", 8, 512, 512, 64, True, f32, ring=True)
+    # batch 1 through the public entry point, on strided views of one fused
+    # projection: the (b, s, H, D) -> (b*H, s, D) move must hand the kernels
+    # contiguous tensors also where the reshape could merge a size-1 dim
+    check("f32_bshd_b1_fused_views", 12, 1024, 1024, 64, True, f32,
+          fused_b=1)
+    check("bf16_bshd_b1_h1_fused_views", 1, 256, 256, 64, True, bf16,
+          fused_b=1)
+    b, s, H, D = (BHD_TRAIN_SHAPE[k] for k in "bsHD")
+    train_readings = check("f32_train_geometry_bh192_s1024", b * H, s, s, D,
+                           True, f32)
+    torch.cuda.empty_cache()
+    emit({"phase": "flash_bhd_checks",
+          "tolerances": {"f32": FLASH_F32_TOL, "bf16_f16": FLASH_TOL},
+          "fields": ["lse"] + [f"{sl}_{m}" for sl in FLASH_SLICES
+                               for m in ("rel", "row")],
+          "checks": checks})
+    bad = [c["case"] for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError(f"bhd flash kernels disagree with their plain "
+                             f"versions, or the limits do not separate the "
+                             f"control from the planted fault: {bad}")
+    return train_readings
+
+
+def phase_flash_bhd(torch, fa, fap, readings):
+    """K2's times at the f32 train step's shape beside their bounds, plain
+    versions and the library; then the bf16 instance beside K1 at K1's
+    timing shape."""
+    import math
+
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, s, H, D = (BHD_TRAIN_SHAPE[k] for k in "bsHD")
+    bh, scale = b * H, 1.0 / math.sqrt(D)
+    q, k, v, do = bhd_case(torch, bh, s, s, D, torch.float32, seed=200)
+    out, lse = fa.flash_fwd_kernel(q, k, v, True, scale)
+    delta = (do * out).sum(-1)
+    ms = {
+        "fwd": device_ms(torch, [
+            lambda: fa.flash_fwd_kernel(q, k, v, True, scale)]),
+        "dkdv": device_ms(torch, [lambda: fa.flash_dkdv_kernel(
+            q, k, v, do, lse, delta, True, scale)]),
+        "dq": device_ms(torch, [lambda: fa.flash_dq_kernel(
+            q, k, v, do, lse, delta, True, scale)]),
+    }
+    plain_fwd = device_ms(torch, [
+        lambda: fa.flash_fwd_ref(q, k, v, True, scale)], reps=2)
+    plain_bwd = device_ms(torch, [lambda: fa.flash_bwd_pair_ref(
+        q, k, v, do, lse, delta, True, scale)], reps=2)
+    torch.cuda.empty_cache()
+
+    # the library yardstick, pinned to one backend: PyTorch's f32 SDPA on
+    # (b, H, s, D); its error against the f64 plain version beside its time
+    qh, kh, vh, doh = (t.reshape(b, H, s, D) for t in (q, k, v, do))
+    backend = SDPBackend.EFFICIENT_ATTENTION
+    with sdpa_kernel(backend):
+        with torch.no_grad():
+            lib_fwd = device_ms(torch, [lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True)])
+        xs = [t.detach().clone().requires_grad_(True) for t in (qh, kh, vh)]
+        og = F.scaled_dot_product_attention(*xs, is_causal=True)
+        lib_bwd = profiled_ms(torch, lambda: torch.autograd.grad(
+            og, xs, doh, retain_graph=True))
+        lib_grads = torch.autograd.grad(og, xs, doh)
+    ref = bhd_plain(fa, q.double(), k.double(), v.double(), do.double(), True,
+                    scale)
+    lib = bhd_slices(og.detach().reshape(bh, s, D), ref["lse"],
+                     *(g.reshape(bh, s, D) for g in lib_grads))
+    lib_read = flash_readings(lib, ref, live_floor=True)
+    del ref, lib, og, xs, lib_grads
+    torch.cuda.empty_cache()
+
+    e = 4
+    io = 3 * q.numel() * e
+    bwd_in = io + do.numel() * e + 2 * lse.numel() * 4
+    bounds = {
+        "fwd": flash_bound(b, s, H, D, True, 2,
+                           io + out.numel() * e + lse.numel() * 4,
+                           H100_F32_FLOPS),
+        "dkdv": flash_bound(b, s, H, D, True, 4, bwd_in + 2 * q.numel() * e,
+                            H100_F32_FLOPS),
+        "dq": flash_bound(b, s, H, D, True, 3, bwd_in + q.numel() * e,
+                          H100_F32_FLOPS),
+    }
+    plain = {"fwd": plain_fwd, "dkdv": plain_bwd, "dq": plain_bwd}
+    library = {"fwd": lib_fwd, "dkdv": lib_bwd, "dq": lib_bwd}
+    errs = {"fwd": readings["out"]["max_abs"],
+            "dkdv": max(readings["dk"]["max_abs"], readings["dv"]["max_abs"]),
+            "dq": readings["dq"]["max_abs"]}
+    rows, timing = {}, {}
+    for key in ("fwd", "dkdv", "dq"):
+        b_ms, b_by, flops, nbytes = bounds[key]
+        rows[key] = {"max_abs_err": errs[key], "ms": ms[key],
+                     "plain_ms": plain[key], "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": library[key]}
+        timing[key] = dict(rows[key], gflop=flops / 1e9,
+                           gbytes=nbytes / 1e9,
+                           tflops=flops / ms[key] / 1e9)
+    del q, k, v, do, out, lse, delta, qh, kh, vh, doh
+    torch.cuda.empty_cache()
+
+    # the bf16 instance beside K1, at K1's timing shape (b=32), from the
+    # same qkv: K1 on the packed projection, K2 on the split heads
+    tb, ts, tH, tD = (TRAIN_SHAPE[key] for key in "bsHD")
+    qkv, dout = flash_case(torch, tb, ts, tH, tD, torch.bfloat16, seed=100)
+    qb, kb, vb = (t.reshape(tb, ts, tH, tD).transpose(1, 2)
+                  .reshape(tb * tH, ts, tD).contiguous()
+                  for t in qkv.split(tH * tD, -1))
+    dob = dout.reshape(tb, ts, tH, tD).transpose(1, 2).reshape(
+        tb * tH, ts, tD).contiguous()
+    o2, lse2 = fa.flash_fwd_kernel(qb, kb, vb, True, scale)
+    d2 = (dob.float() * o2.float()).sum(-1)
+    o1, lse1 = fap.flash_packed_fwd_kernel(qkv, tH, True, scale)
+    d1 = fap._delta(o1, dout, tH)
+    dqkv = torch.empty_like(qkv)
+    bf16 = {
+        "k2_fwd": device_ms(torch, [
+            lambda: fa.flash_fwd_kernel(qb, kb, vb, True, scale)]),
+        "k2_dkdv": device_ms(torch, [lambda: fa.flash_dkdv_kernel(
+            qb, kb, vb, dob, lse2, d2, True, scale)]),
+        "k2_dq": device_ms(torch, [lambda: fa.flash_dq_kernel(
+            qb, kb, vb, dob, lse2, d2, True, scale)]),
+        "k1_fwd": device_ms(torch, [
+            lambda: fap.flash_packed_fwd_kernel(qkv, tH, True, scale)]),
+        "k1_dkdv": device_ms(torch, [lambda: fap.flash_packed_dkdv_kernel(
+            qkv, dout, lse1, d1, dqkv, tH, True, scale)]),
+        "k1_dq": device_ms(torch, [lambda: fap.flash_packed_dq_kernel(
+            qkv, dout, lse1, d1, dqkv, tH, True, scale)]),
+    }
+    same_out = float((o2.reshape(tb, tH, ts, tD).transpose(1, 2)
+                      .reshape(tb, ts, tH * tD).float() - o1.float())
+                     .abs().max())
+    del qkv, dout, qb, kb, vb, dob, o1, o2, dqkv
+    torch.cuda.empty_cache()
+    emit({"phase": "flash_bhd", "shape": BHD_TRAIN_SHAPE, "dtype": "float32",
+          "causal": True, "timing": timing,
+          "library": {"call": "F.scaled_dot_product_attention(is_causal=True)"
+                              " on (b, H, s, D) f32",
+                      "backend": str(backend), "readings_vs_f64": lib_read},
+          "plain_note": "dkdv and dq share one plain backward and one "
+                        "library backward (each computes dq, dk, dv)",
+          "bf16_beside_k1": {"shape": TRAIN_SHAPE, "ms": bf16,
+                             "k1_vs_k2_out_max_abs": same_out}})
+    return rows
+
+
+def phase_train_f32(torch, fa, fap):
+    """GPT-2-small f32 training through the port's default train step:
+    attention dispatched as in JAX, so K2 at s=1024."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_hackathon_tpu_torch.models import GPTForCausalLM, gpt_config
+    cfg = gpt_config("gpt2-small-en", hidden_dropout_prob=0.0,
+                     attention_dropout_prob=0.0)
+    b, s = BHD_TRAIN_SHAPE["b"], BHD_TRAIN_SHAPE["s"]
+    arrays = random_weights(GPTForCausalLM(cfg, device="cpu"), seed=0)
+    model, step, state = train_model(torch, cfg, arrays, param_dtype=None)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    rng = np.random.RandomState(0)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s))).to(DEV)
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s))).to(DEV)
+    plain_calls = {"fwd": 0, "bwd_pair": 0}
+    real = (fa.flash_fwd_ref, fa.flash_bwd_pair_ref)
+
+    def counted(name, fn):
+        def run(*a, **kw):
+            plain_calls[name] += 1
+            return fn(*a, **kw)
+        return run
+    fa.flash_fwd_ref = counted("fwd", real[0])
+    fa.flash_bwd_pair_ref = counted("bwd_pair", real[1])
+    try:
+        losses = []
+        for _ in range(2):                               # warm-up
+            state, loss = step(state, ids, labels)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for counts in (fa.launches, fap.launches):
+            for key in counts:
+                counts[key] = 0
+        steps = 10
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, loss = step(state, ids, labels)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, k1 = dict(fa.launches), dict(fap.launches)
+        plain = dict(plain_calls)
+    finally:
+        fa.flash_fwd_ref, fa.flash_bwd_pair_ref = real
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    n_params = model.num_params()
+    tps = steps * b * s / wall
+    emit({"phase": "train_f32", "model": "gpt2-small-en f32", "batch": b,
+          "seq": s, "steps": steps, "wall_s": wall,
+          "ms_per_step": 1e3 * wall / steps, "tokens_per_s": tps,
+          "mfu_f32": 6 * n_params * tps / H100_F32_FLOPS,
+          "num_params": n_params, "peak_memory_gb": peak / 1e9,
+          "losses": losses, "k2_launches": launches, "k1_launches": k1,
+          "plain_k2_calls": plain})
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite f32 training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"f32 loss did not fall on a repeated batch: "
+                             f"{losses}")
+    need = steps * cfg.num_layers
+    if any(n != need for n in launches.values()):
+        raise AssertionError(f"K2 launches {launches} != {need} each")
+    if any(k1.values()) or any(plain.values()):
+        raise AssertionError(f"f32 training ran K1 {k1} or the plain K2 "
+                             f"versions {plain}")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, loss = step(state, ids, labels)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summary = profile_summary(torch, prof, wall)
+    k2_us = sum(device_us(e) for e in prof.key_averages()
+                if str(getattr(e, "device_type", "")).endswith("CUDA")
+                and "bhd_" in e.key)
+    busy = summary["device_busy_s"] or float("nan")
+    emit({"phase": "train_f32_profile", "steps": 1, **summary,
+          "k2_device_ms": k2_us / 1e3,
+          "k2_share_of_busy": k2_us / 1e6 / busy})
+    del model, step, state, prof
+    torch.cuda.empty_cache()
+
+    # K2 (auto: flash at s=1024) against the plain composition, same init
+    series, fwd_launches = {}, {}
+    for use_flash in (None, False):
+        name = "flash" if use_flash is None else "plain"
+        c = gpt_config("gpt2-small-en", hidden_dropout_prob=0.0,
+                       attention_dropout_prob=0.0,
+                       use_flash_attention=use_flash)
+        m, st_fn, st = train_model(torch, c, arrays, param_dtype=None)
+        fa.launches["fwd"] = 0
+        out = []
+        for _ in range(3):
+            st, loss = st_fn(st, ids[:4], labels[:4])
+            out.append(float(loss))
+        series[name], fwd_launches[name] = out, fa.launches["fwd"]
+        del m, st_fn, st
+        torch.cuda.empty_cache()
+    rel = max(abs(x - y) / abs(y) for x, y in zip(series["flash"],
+                                                  series["plain"]))
+    emit({"phase": "train_f32_flash_vs_plain", "batch": 4, "seq": s,
+          **series, "k2_fwd_launches": fwd_launches, "max_rel_diff": rel,
+          "rtol": F32_FLASH_VS_PLAIN_RTOL})
+    if fwd_launches != {"flash": 3 * cfg.num_layers, "plain": 0}:
+        raise AssertionError(f"the flash series did not run K2 (or the "
+                             f"plain one did): {fwd_launches}")
+    if not rel <= F32_FLASH_VS_PLAIN_RTOL:
+        raise AssertionError(f"f32 flash and plain loss series differ by "
+                             f"{rel} > {F32_FLASH_VS_PLAIN_RTOL}: {series}")
     return launches
 
 
@@ -1210,6 +1676,8 @@ def main():
         return 2
     from paddle_hackathon_tpu_torch.incubate.nn.kernels import _build
     from paddle_hackathon_tpu_torch.incubate.nn.kernels import \
+        flash_attention as fa
+    from paddle_hackathon_tpu_torch.incubate.nn.kernels import \
         flash_attention_packed as fap
     from paddle_hackathon_tpu_torch.incubate.nn.kernels import \
         paged_attention as pa
@@ -1235,6 +1703,8 @@ def main():
 
     flash = phase_flash(torch, fap)
     flash_launches = phase_train(torch, fap)
+    bhd = phase_flash_bhd(torch, fa, fap, phase_flash_bhd_checks(torch, fa))
+    bhd_launches = phase_train_f32(torch, fa, fap)
     kern = phase_kernel(torch, pa)
     eng, prompts, launches = phase_serving(torch, pa)
     phase_profile(torch, eng, prompts)
@@ -1252,6 +1722,15 @@ def main():
          "replaces": ref + f"flash_attention_packed.py:{line}",
          "launches": flash_launches[k], **flash[k]}
         for k, line in (("fwd", 247), ("dkdv", 478), ("dq", 511))]
+    kernels += [
+        {"name": f"flash_bhd_{k}", "route": "cuda",
+         "source": src + "flash_attention.cu",
+         "replaces": ref + f"flash_attention.py:{line}",
+         "launches": bhd_launches[k], **bhd[k],
+         "timed_as": "f32, BH=16*12, s=1024, D=64, causal (the train_f32 "
+                     "step's attention); library: PyTorch's efficient-"
+                     "attention SDPA"}
+        for k, line in (("fwd", 285), ("dkdv", 525), ("dq", 556))]
     kernels.append({"name": "paged_attention", "route": "cuda",
                     "source": src + "paged_attention.cu",
                     "replaces": ref + "paged_attention.py:175",

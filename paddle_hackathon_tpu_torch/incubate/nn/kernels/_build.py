@@ -3,10 +3,11 @@
 Each kernel is one ``csrc/*.cu`` file with a plain C interface.  At first
 use it is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library under ``paddle_hackathon_tpu_torch/_build/`` and loaded with
-``ctypes``.  The library's file name carries a hash of the source and the
-flags, so an edited source rebuilds and an unchanged one loads the
-earlier build.  :func:`build_all` starts one ``nvcc`` per missing
-library, all at once, and waits for them.
+``ctypes``.  The library's file name carries a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header rebuilds and an unchanged one loads the earlier build.
+:func:`build_all` starts one ``nvcc`` per missing library, all at once,
+and waits for them.
 
 Only sources in this repository are compiled; nothing includes
 PyTorch's headers (that route takes minutes per build).
@@ -29,6 +30,7 @@ SOURCES: Dict[str, Path] = {
     "paged_attention": _PKG / "csrc" / "paged_attention.cu",
     "flash_attention_packed": _PKG / "csrc" / "flash_attention_packed.cu",
     "quant_matmul": _PKG / "csrc" / "quant_matmul.cu",
+    "flash_attention": _PKG / "csrc" / "flash_attention.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -55,6 +57,8 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     src = SOURCES[name]
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):   # shared device code
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

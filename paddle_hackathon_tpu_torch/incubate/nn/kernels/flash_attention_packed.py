@@ -32,7 +32,8 @@ import math
 
 import torch
 
-from .flash_attention import _NEG_INF, dropout_keep, keep_threshold
+from .flash_attention import (_NEG_INF, _seed_int, _seed_tensor,
+                              dropout_keep, keep_threshold)
 
 _LANES = 128
 # The JAX estimator's scoped-VMEM budget: part of the gate, kept so that
@@ -91,13 +92,6 @@ def _split(qkv: torch.Tensor, heads: int):
     hd = qkv.shape[-1] // 3
     return (_heads(qkv[..., :hd], heads), _heads(qkv[..., hd:2 * hd], heads),
             _heads(qkv[..., 2 * hd:], heads))
-
-
-def _seed_int(seed) -> int:
-    if seed is None:
-        return 0
-    return int(seed.reshape(-1)[0]) if isinstance(seed, torch.Tensor) \
-        else int(seed)
 
 
 def _drop_mask(b, heads, s, seed, dropout_p, device) -> torch.Tensor:
@@ -237,22 +231,6 @@ def check_kernel_args(qkv, heads, *others) -> None:
         if t.data_ptr() % 16:
             raise ValueError("the packed flash kernels take 16-byte aligned "
                              "tensors")
-
-
-_zero_seeds = {}
-
-
-def _seed_tensor(seed, device) -> torch.Tensor:
-    """``seed`` as a (1,) int32 tensor on ``device``; made by fill kernels
-    (no host copy), so a launch can be captured into a CUDA graph."""
-    if isinstance(seed, torch.Tensor):
-        return seed.to(device=device, dtype=torch.int32).reshape(1)
-    if seed is None:
-        if device not in _zero_seeds:
-            _zero_seeds[device] = torch.zeros(1, dtype=torch.int32,
-                                              device=device)
-        return _zero_seeds[device]
-    return torch.full((1,), int(seed), dtype=torch.int32, device=device)
 
 
 def _tail(qkv, heads, causal, sm_scale, dropout_p):

@@ -14,9 +14,11 @@ reference:
   ``cache_pos``, then the plain masked-softmax composition;
 - no cache: dispatched in the JAX package's order.  The packed-qkv
   flash kernels (K1, ``incubate/nn/kernels/flash_attention_packed.py``)
-  where ``_packed_flash_ok`` holds; else, where flash is asked for and the
-  bhd kernels (K2) would take the shape, ``NotImplementedError`` (K2 is
-  not ported yet); else the plain causal scaled-dot-product composition.
+  where ``_packed_flash_ok`` holds; else ``nn.functional
+  .scaled_dot_product_attention(is_causal=True)``, which takes the bhd
+  flash kernels (K2, ``incubate/nn/kernels/flash_attention.py``) where
+  flash is asked for and their gate takes the length (every f32 model at
+  s >= 1024 by default), and the plain composition otherwise.
 
 Matrix products and the dense static-cache attention stay ordinary
 PyTorch, as the JAX package left them to XLA; a projection swapped for a
@@ -41,10 +43,10 @@ from ..core.device import resolve_device
 from ..core.dtype import convert_dtype
 from ..core.random import default_generator
 from ..incubate.nn.functional import flash_attention_qkv_packed
-from ..incubate.nn.kernels import flash_attention as _fa
 from ..incubate.nn.kernels import flash_attention_packed as _fap
 from ..incubate.nn.kernels import paged_attention as _pa
-from ..nn.functional import cross_entropy, gelu
+from ..nn.functional import (cross_entropy, gelu,
+                             scaled_dot_product_attention)
 from ..nn.layers import Dropout, Embedding, LayerNorm, Linear
 
 _NEG_INF = -1e30
@@ -114,21 +116,12 @@ class GPTAttention(nn.Module):
         self.head_dim = h // config.num_heads
         self.qkv_proj = Linear(h, 3 * h, device=device, dtype=dtype)
         self.out_proj = Linear(h, h, device=device, dtype=dtype)
-        self.attn_dropout = Dropout(config.attention_dropout_prob)
+        self.dropout_p = config.attention_dropout_prob
         self.use_flash = config.use_flash_attention
 
     def _split(self, qkv):
         b, s, _ = qkv.shape
         return qkv.reshape(b, s, 3, self.num_heads, self.head_dim).unbind(2)
-
-    def _flash_requested(self, s) -> bool:
-        """scaled_dot_product_attention's flash request in the JAX
-        package: ``use_flash`` when set, else the fused-kernel flag and the
-        min-seqlen crossover."""
-        if self.use_flash is not None:
-            return bool(self.use_flash)
-        return bool(flags.flag("use_fused_kernels")
-                    and s >= flags.flag("flash_attention_min_seqlen"))
 
     def _packed_flash_ok(self, qkv, s) -> bool:
         """The JAX test for the packed-qkv kernels: not switched off,
@@ -194,22 +187,14 @@ class GPTAttention(nn.Module):
             # flash attention on the projection-native packed layout
             out = flash_attention_qkv_packed(
                 qkv, self.num_heads, causal=True,
-                dropout_p=self.attn_dropout.p if self.training else 0.0)
+                dropout_p=self.dropout_p if self.training else 0.0)
             return self.out_proj(out)
-        if self._flash_requested(s) and _fa.supported(s, s):
-            raise NotImplementedError(
-                f"flash attention at seq {s} in {qkv.dtype} takes the bhd "
-                "flash kernels (K2), which are not ported yet: ROADMAP "
-                "Queue 2; set use_flash_attention=False")
-        # the JAX package's non-flash causal scaled_dot_product_attention
-        # composition, over (b, H, s, D)
-        q, k, v = (t.transpose(1, 2) for t in self._split(qkv))
-        logits = torch.einsum("bhsd,bhtd->bhst", q, k) \
-            * (1.0 / math.sqrt(self.head_dim))
-        causal = torch.ones(s, s, dtype=torch.bool, device=x.device).tril()
-        logits = logits.masked_fill(~causal, _NEG_INF)
-        probs = self.attn_dropout(torch.softmax(logits, -1))
-        out = torch.einsum("bhst,bhtd->bhsd", probs, v).transpose(1, 2)
+        # the heads as (b, s, H, D) views; SDPA dispatches as in JAX
+        q, k, v = self._split(qkv)
+        out = scaled_dot_product_attention(
+            q, k, v, is_causal=True,
+            dropout_p=self.dropout_p if self.training else 0.0,
+            training=self.training, use_flash=self.use_flash)
         return self.out_proj(out.reshape(b, s, h))
 
 

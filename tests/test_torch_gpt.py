@@ -190,19 +190,17 @@ def test_model_without_device_needs_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("s", [4, 8])
-def test_flash_branch_is_not_ported(models, s):
-    """Flash forced in f32: neither flash kernel takes s=4, so JAX runs
-    the plain composition and the port must agree with it; at s=8 JAX
-    takes the bhd kernels (K2), which the port does not have yet."""
+def test_forced_flash_matches_jax(models, s):
+    """Flash forced in f32, where the packed kernels refuse the dtype:
+    neither flash kernel takes s=4, so both packages run the plain
+    composition; at s=8 both take the bhd kernels (K2) through
+    scaled_dot_product_attention, JAX's under the Pallas interpreter and
+    the port's plain version on the CPU."""
     jm, _ = models
     arrays = {k: np.asarray(v.numpy()) for k, v in jm.state_dict().items()}
     cfg = tgpt.GPTConfig(**dict(_CFG, use_flash_attention=True))
     tm = load_jax_state(tgpt.GPTForCausalLM(cfg, device="cpu"), arrays)
     ids = _ids((1, s), s)
-    if s == 8:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tm(torch.from_numpy(ids))
-        return
     attns = [blk.attn for blk in jm.gpt.blocks]
     for a in attns:
         a.use_flash = True
@@ -213,7 +211,7 @@ def test_flash_branch_is_not_ported(models, s):
             a.use_flash = False
     with torch.no_grad():
         out = tm(torch.from_numpy(ids)).numpy()
-    assert out.shape == (1, 4, 128)
+    assert out.shape == (1, s, 128)
     np.testing.assert_allclose(out, ref, rtol=0, atol=ATOL)
 
 

@@ -15,6 +15,9 @@ numpy batches.
   series at rtol 2e-4.  Both sides take the loss in f32 from bf16 logits
   but round matrix products and layer norms to bf16 at slightly
   different points (measured relative difference 2.3e-5).
+- f32 parameters with flash asked for (K2 through scaled_dot_product
+  _attention, the JAX kernel under the interpreter): 3-step loss series
+  at rtol 1e-5.
 - ``cross_entropy`` with ``ignore_index``, eager ``Adam.step()``, and the
   options the port refuses."""
 
@@ -103,6 +106,30 @@ def test_bf16_flash_train_steps_match_jax():
     np.testing.assert_array_equal(
         params["gpt.wte.weight"].dtype,
         np.asarray(jstate["params"]["gpt.wte.weight"]).dtype)
+
+
+def test_f32_flash_train_steps_match_jax(monkeypatch):
+    """f32 parameters (``param_dtype=None``) with flash asked for: the
+    packed kernels refuse f32, so both packages run SDPA's bhd flash path
+    (K2: the JAX kernel under the interpreter, the port's plain version on
+    the CPU).  3-step loss series at rtol 1e-5."""
+    from paddle_hackathon_tpu_torch.incubate.nn.kernels import \
+        flash_attention as tfa
+    calls = []
+    real = tfa._fwd
+
+    def counted(*a, **kw):
+        calls.append(a[0].dtype)
+        return real(*a, **kw)
+    monkeypatch.setattr(tfa, "_fwd", counted)
+    cfg = dict(_CFG, use_flash_attention=True)
+    batches = _batches(3, 2, 16, 128, seed=2)
+    jl, tl, _, tm = _train_both(cfg, batches, learning_rate=1e-3,
+                                optimizer_kwargs={"epsilon": 1e-6})
+    assert tm.gpt.wte.weight.dtype == torch.float32
+    assert calls == [torch.float32] * (3 * _CFG["num_layers"])
+    np.testing.assert_allclose(tl, jl, rtol=1e-5)
+    assert tl[0] != tl[-1]
 
 
 def test_step_rng_keys_dropout():
