@@ -11,27 +11,38 @@ Phases, each printing one JSON line:
 1. device   -- the card (``nvidia-smi`` name and power limit, torch, CUDA).
 2. build    -- compiles every CUDA kernel from ``csrc/`` (one nvcc per
                source, sm_90a, all started together) and reports the
-               seconds taken and ptxas's register / spill lines.
+               seconds taken and ptxas's register / spill lines; for each
+               K1 backward kernel (dK/dV and dQ, bf16/f16, 64/128 wide) its
+               registers, spills, ptxas's performance notes, its dynamic
+               shared memory, and, where ``cuobjdump`` is found, its count
+               of HGMMA (wgmma) instructions, which must be above 0.
 3. flash    -- holds the three packed flash-attention kernels (forward,
                dK/dV, dQ; ``csrc/flash_attention_packed.cu``) against their
                plain PyTorch versions run in f32 on the same bf16/f16
                inputs: forward O and LSE, and the gradient through
                ``FlashAttentionPacked``.  Cases: causal and non-causal,
                dropout 0.1 with a fixed seed, the training geometry (b=4,
-               s=1024, H=12, D=64), ragged s=1000 with H=2, f16, and head
-               widths 32 and 128; then the timed kernels' own results at
+               s=1024, H=12, D=64), ragged s=1000 with H=2, f16, head
+               widths 32 and 128, widths 40 and 80 (zero-filled padding
+               columns), s=65 (one row in the last tile) and batch 1 on a
+               strided view; D=64 f16 and D=128 bf16 take the backward's
+               in-tile scale path, the bf16 D=64 cases the folded one
+               (``scale_path``).  Then the timed kernels' own results at
                b=32, s=1024.  Limits (``FLASH_TOL``), per slice of the
                result (O, dQ, dK, dV): relative L2 error 1e-2 and worst
                row 0.2; LSE absolute 2e-3.  Each case also reads a control
-               (the plain version in bf16/f16, which must pass) and a
-               planted fault (a stale kv tile, which must fail).  Then
-               times each kernel at b=32, s=1024, H=12, D=64 by CUDA-graph
-               replay, beside its bound, its plain version and the library
-               yardstick ``F.scaled_dot_product_attention(is_causal=True)``
-               on pre-split (b, H, s, D) tensors (forward by graph replay;
+               (the plain version in bf16/f16, which must pass), a planted
+               fault (a stale kv tile, which must fail), and runs the
+               backward twice more: the three dqkv must be bit-identical
+               (as at the timing shape).  Then times each kernel at b=32,
+               s=1024, H=12, D=64 by CUDA-graph replay, beside its bound,
+               its plain version and the library yardstick
+               ``F.scaled_dot_product_attention(is_causal=True)`` on
+               pre-split (b, H, s, D) tensors (forward by graph replay;
                backward, for dK/dV and dQ together, by the kernels' own
                device time under ``torch.profiler``), which the port never
-               calls.
+               calls; and the backward pair beside K2's bf16 dK/dV + dQ at
+               the same shape (``backward_pair``).
 4. train    -- GPT-2-small (12 layers, hidden 768, 12 heads, vocab 50304)
                with Normal(0, 0.02) weights from a numpy seed, dropout 0,
                through ``make_sharded_train_step(param_dtype=bf16,
@@ -153,6 +164,7 @@ non-zero before the result line; without a CUDA device it exits 2.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -421,12 +433,24 @@ def flash_plain(fap, qkv, cot, H, causal, scale, p=0.0, seed=None):
     return flash_slices(out, lse, grad, H)
 
 
+def strided_view(torch, t):
+    """Batch-1 ``t`` as a view whose batch stride is not ``s * width`` (a
+    slice of a larger buffer, 128 bytes in): PyTorch calls it contiguous,
+    since the batch has size 1, so the kernels take it as it is."""
+    _, s, w = t.shape
+    buf = torch.zeros(s * w + 128, dtype=t.dtype, device=t.device)
+    view = buf.as_strided((1, s, w), (s * w + 64, w, 1), storage_offset=64)
+    view.copy_(t)
+    return view
+
+
 def stale_tile(qkv, H, tile=64):
     """The planted fault's input: k and v of kv tile 1 replaced by tile 0's,
     as a kernel that kept reading a stale double-buffered tile sees them."""
     bad = qkv.clone()
     hd = qkv.shape[-1] // 3
-    bad[:, tile:2 * tile, hd:] = qkv[:, :tile, hd:]
+    n = min(tile, qkv.shape[1] - tile)        # a short last tile (s < 128)
+    bad[:, tile:tile + n, hd:] = qkv[:, :n, hd:]
     return bad
 
 
@@ -468,7 +492,7 @@ def device_us(e):
     return 0.0
 
 
-def phase_flash(torch, fap):
+def phase_flash(torch, fap, fa):
     import math
 
     import torch.nn.functional as F
@@ -477,24 +501,35 @@ def phase_flash(torch, fap):
     checks = []
 
     def check(name, b, s, H, D, causal, dtype=torch.bfloat16, p=0.0,
-              seed=None):
+              seed=None, strided=False):
         qkv, cot = flash_case(torch, b, s, H, D, dtype, seed=len(checks))
+        if strided:
+            qkv = strided_view(torch, qkv)
         scale = 1.0 / math.sqrt(D)
         out, lse = fap.flash_packed_fwd_kernel(qkv, H, causal, scale, p,
                                                seed)
-        x = qkv.detach().clone().requires_grad_(True)
+        x = (strided_view(torch, qkv) if strided else qkv.clone()).detach()
+        x.requires_grad_(True)
         fap.flash_attention_packed(x, H, causal, scale, p, seed).backward(cot)
-        torch.cuda.synchronize()
+        # the backward kernels again, twice: bit-identical to each other and
+        # to the gradient through autograd
         args = (H, causal, scale, p, seed)
+        again = [fap.flash_packed_bwd_kernel(qkv, out, lse, cot, *args)
+                 for _ in range(2)]
+        torch.cuda.synchronize()
+        bitwise = (torch.equal(again[0], again[1])
+                   and torch.equal(again[0], x.grad))
         ref = flash_plain(fap, qkv.float(), cot.float(), *args)
         got = {"kernel": flash_slices(out, lse, x.grad, H),
                "control": flash_plain(fap, qkv, cot, *args),
                "fault": flash_plain(fap, stale_tile(qkv, H), cot, *args)}
         r = {k: flash_readings(v, ref) for k, v in got.items()}
         ok = (flash_within(r["kernel"]) and flash_within(r["control"])
-              and not flash_within(r["fault"]))
+              and not flash_within(r["fault"]) and bitwise)
         # [LSE, then (rel, row) for O, dQ, dK, dV]: a short line
-        checks.append({"case": name, "ok": ok, **{
+        checks.append({"case": name, "ok": ok, "bitwise_repeat": bitwise,
+                       "scale_path": ("fold" if fap.scale_folds(dtype, scale)
+                                      else "in_tile"), **{
             k: [v["lse"]] + [v[s][m] for s in FLASH_SLICES
                              for m in ("rel", "row")]
             for k, v in r.items()}})
@@ -509,6 +544,12 @@ def phase_flash(torch, fap):
     check("f16_causal", 2, 512, 4, 64, True, dtype=torch.float16)
     check("d32_h4", 2, 256, 4, 32, True)
     check("d128_h2", 2, 256, 2, 128, True)
+    # widths whose padding columns the tensor maps zero-fill, a lone row in
+    # the last tile, and batch 1 on a strided view
+    check("d40_h4", 2, 256, 4, 40, True)
+    check("d80_h2_noncausal", 2, 256, 2, 80, False)
+    check("s65_h2", 2, 65, 2, 64, True)
+    check("b1_strided_view_h4", 1, 256, 4, 64, True, strided=True)
     emit({"phase": "flash_checks", "tolerances": FLASH_TOL,
           "fields": ["lse"] + [f"{s}_{m}" for s in FLASH_SLICES
                                for m in ("rel", "row")],
@@ -563,6 +604,30 @@ def phase_flash(torch, fap):
     lib_bwd = profiled_ms(torch, lambda: torch.autograd.grad(
         og, (qh, kh, vh), doh, retain_graph=True))
     del og, qh, kh, vh, doh, lib_out
+    # the in-call yardstick of the mma.sync design: K2's bf16 dK/dV and dQ
+    # at the same shape, on the split heads
+    qb, kb, vb = (t.reshape(b, s, H, D).transpose(1, 2)
+                  .reshape(b * H, s, D).contiguous()
+                  for t in qkv.split(H * D, -1))
+    dob = dout.reshape(b, s, H, D).transpose(1, 2).reshape(
+        b * H, s, D).contiguous()
+    o2, lse2 = fa.flash_fwd_kernel(qb, kb, vb, True, scale)
+    d2 = (dob.float() * o2.float()).sum(-1)
+    k2_pair = 2 * device_ms(torch, [
+        lambda: fa.flash_dkdv_kernel(qb, kb, vb, dob, lse2, d2, True, scale),
+        lambda: fa.flash_dq_kernel(qb, kb, vb, dob, lse2, d2, True, scale)])
+    del qb, kb, vb, dob, o2, lse2, d2
+    # determinism at this shape: the pair once more into a fresh dqkv
+    dqkv2 = torch.empty_like(qkv)
+    fap.flash_packed_dkdv_kernel(qkv, dout, lse, delta, dqkv2, H, True,
+                                 scale)
+    fap.flash_packed_dq_kernel(qkv, dout, lse, delta, dqkv2, H, True, scale)
+    torch.cuda.synchronize()
+    bitwise = torch.equal(dqkv, dqkv2)
+    del dqkv2
+    if not bitwise:
+        raise AssertionError("the backward kernels gave two different "
+                             "dqkv on one input")
 
     e = 2  # bytes per bf16 element
     io = qkv.numel() * e + lse.numel() * 4
@@ -587,12 +652,19 @@ def phase_flash(torch, fap):
                    "library_ms": lib[k]}
         timing[k] = dict(rows[k], gflop=flops / 1e9, gbytes=nbytes / 1e9,
                          tflops=flops / ms[k] / 1e9)
+    pair = ms["dkdv"] + ms["dq"]
     emit({"phase": "flash", "shape": TRAIN_SHAPE, "causal": True,
           "readings": train,
           "library_vs_kernel_out_max_abs": lib_vs_kernel,
           "plain_note": "dkdv and dq share one plain backward and one "
                         "library backward (each computes dq, dk, dv)",
-          "timing": timing})
+          "timing": timing,
+          "backward_pair": {
+              "ms": pair, "bound_ms": bounds["dkdv"][0] + bounds["dq"][0],
+              "sdpa_bf16_backward_ms": lib_bwd,
+              "k2_bf16_backward_ms": k2_pair,
+              "over_sdpa": pair / lib_bwd, "over_k2": pair / k2_pair,
+              "bitwise_repeat": bitwise}})
     return rows
 
 
@@ -1669,6 +1741,68 @@ def phase_quant_f32_cross_check(torch, arrays, prompts):
     torch.cuda.empty_cache()
 
 
+K1_BWD_KERNEL = re.compile(
+    r"(flash_packed_(?:dkdv|dq)_kernel)I(13__nv_bfloat16|6__half)Li(\d+)E")
+
+
+def k1_kernel_name(mangled):
+    """``flash_packed_dkdv_kernel<bf16,64>`` from a mangled backward
+    kernel name, or None for any other function."""
+    m = K1_BWD_KERNEL.search(mangled)
+    if not m:
+        return None
+    dtype = "bf16" if "bfloat16" in m.group(2) else "f16"
+    return f"{m.group(1)}<{dtype},{m.group(3)}>"
+
+
+def k1_backward_build(_build, fap, lib_path):
+    """Each K1 backward kernel's registers, spills, ptxas performance notes
+    and dynamic shared memory, and where cuobjdump is found, its count of
+    HGMMA (wgmma) instructions, which must be above 0.  Only a library
+    built in this run has ptxas's report."""
+    import ctypes
+    import shutil
+    from pathlib import Path
+    out, cur = {}, None
+    for ln in _build.build_logs.get("flash_attention_packed", "").splitlines():
+        if "Compiling entry function" in ln:
+            cur = k1_kernel_name(ln)
+            if cur:
+                out[cur] = {"ptxas": [], "perf_notes": []}
+        elif "Potential Performance Loss" in ln:
+            name = k1_kernel_name(ln)
+            if name in out:
+                out[name]["perf_notes"].append(ln.split("Loss:")[-1].split(
+                    " in the function")[0].strip())
+        elif cur and ("Used" in ln or "spill" in ln):
+            out[cur]["ptxas"].append(ln.split("info    :")[-1].strip())
+    lib = ctypes.CDLL(str(lib_path))
+    lib.flash_packed_bwd_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    smem = {f"{k}<{dp}>": lib.flash_packed_bwd_smem(int(k == "dkdv"), dp)
+            for k in ("dkdv", "dq") for dp in (64, 128)}
+    cuobjdump = shutil.which("cuobjdump") or str(
+        Path(_build._nvcc()).parent / "cuobjdump")
+    hgmma = None
+    if Path(cuobjdump).exists():
+        sass = subprocess.run([cuobjdump, "-sass", str(lib_path)],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        hgmma, cur = {}, None
+        for ln in sass.splitlines():
+            if "Function :" in ln:
+                cur = k1_kernel_name(ln)
+                if cur:
+                    hgmma[cur] = 0
+            elif cur and "HGMMA" in ln:
+                hgmma[cur] += 1
+        short = [k for k, n in hgmma.items() if n == 0]
+        if len(hgmma) != 8 or short:
+            raise AssertionError(f"K1 backward kernels without HGMMA (or "
+                                 f"missing from the SASS): {hgmma}")
+    return {"kernels": out, "dynamic_smem_bytes": smem, "hgmma": hgmma,
+            "cuobjdump": cuobjdump if hgmma is not None else None}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1699,9 +1833,11 @@ def main():
              for lib, log in _build.build_logs.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": sorted(p.name for p in libs.values()),
-          "ptxas": ptxas})
+          "ptxas": ptxas,
+          "k1_backward": k1_backward_build(
+              _build, fap, libs["flash_attention_packed"])})
 
-    flash = phase_flash(torch, fap)
+    flash = phase_flash(torch, fap, fa)
     flash_launches = phase_train(torch, fap)
     bhd = phase_flash_bhd(torch, fa, fap, phase_flash_bhd_checks(torch, fa))
     bhd_launches = phase_train_f32(torch, fa, fap)

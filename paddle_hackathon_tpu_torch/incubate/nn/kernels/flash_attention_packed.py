@@ -15,7 +15,10 @@ split or transpose exists in device memory.
   :func:`flash_packed_dq_kernel`: the wrappers of the three Hopper kernels
   in ``csrc/flash_attention_packed.cu`` (forward; dK/dV; dQ).  A CUDA
   tensor launches them or raises; there is no fallback to the plain
-  version on the card.
+  version on the card.  They take any length: the JAX gate is the
+  dispatchers' (``supported``), the wrappers check what the kernels take.
+- :func:`scale_folds`: whether the backward kernels apply ``sm_scale`` to
+  their f32 products instead of rewriting the q and k tiles.
 - :class:`FlashAttentionPacked` (``torch.autograd.Function``) and
   :func:`flash_attention_packed`, the counterpart of the JAX
   ``custom_vjp`` function.
@@ -80,6 +83,20 @@ def supported(sq, skv, heads, head_dim, dtype) -> bool:
     if _itemsize(dtype) > 2:
         return False
     return _plan(sq, skv, heads, head_dim, dtype) is not None
+
+
+def scale_folds(dtype, sm_scale) -> bool:
+    """True where the backward kernels may apply ``sm_scale`` to their f32
+    products (S, dK, dQ) and read q and k unscaled: bf16 and a rounded
+    scale that is a power of two (``1/sqrt(D)`` at D = 16 and 64).  Then
+    ``(q * scale).to(bf16)`` is ``q * scale`` (bf16 has f32's exponent
+    range; only results below its smallest normal, 2**-126, could round),
+    and a power of two commutes with every rounding of an f32 sum.  f16's
+    exponent range is narrow, so f16 always scales the tiles."""
+    if dtype != torch.bfloat16:
+        return False
+    r = float(torch.tensor(sm_scale, dtype=dtype))
+    return r > 0.0 and math.frexp(r)[0] == 0.5
 
 
 def _heads(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -189,10 +206,10 @@ def _lib():
         # c_void_p for every pointer and the stream, or ctypes passes them
         # as 32-bit ints and cuts them
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        tail = [ci, ci, ci, ci, ci, cf, ci, cf, ci, vp]
+        geo = [ci, ci, ci, ci, ci, cf, ci, cf, ci]
         fwd = lib.flash_packed_fwd
-        fwd.argtypes = [ci, vp, vp, vp, vp] + tail
-        bwd = [ci, vp, vp, vp, vp, vp, vp] + tail
+        fwd.argtypes = [ci, vp, vp, vp, vp] + geo + [vp]
+        bwd = [ci, vp, vp, vp, vp, vp, vp] + geo + [ci, vp]   # + fold
         for name in ("dkdv", "dq"):
             fn = getattr(lib, f"flash_packed_{name}")
             fn.argtypes = bwd
@@ -206,8 +223,8 @@ def _lib():
 def check_kernel_args(qkv, heads, *others) -> None:
     """Raise ``ValueError`` unless the kernels take ``qkv`` (and the other
     tensors of a backward launch): a CUDA ``(b, s, 3*H*D)`` bf16/f16
-    tensor, contiguous and 16-byte aligned, that :func:`supported` admits,
-    with ``D <= 128``."""
+    tensor, contiguous and 16-byte aligned, with D a multiple of 8 up to
+    128 (any s)."""
     if qkv.device.type != "cuda":
         raise ValueError(f"the packed flash kernels run on CUDA tensors, "
                          f"got {qkv.device}")
@@ -219,7 +236,7 @@ def check_kernel_args(qkv, heads, *others) -> None:
                          f"{qkv.dtype}")
     b, s, hd3 = qkv.shape
     D = hd3 // 3 // heads
-    if not supported(s, s, heads, D, qkv.dtype) or D > MAX_HEAD_DIM:
+    if D % 8 or not 8 <= D <= MAX_HEAD_DIM or s < 1:
         raise ValueError(f"packed flash kernel unsupported for seq {s}, "
                          f"heads {heads}, head_dim {D}, dtype {qkv.dtype}")
     for t in (qkv,) + others:
@@ -233,7 +250,7 @@ def check_kernel_args(qkv, heads, *others) -> None:
                              "tensors")
 
 
-def _tail(qkv, heads, causal, sm_scale, dropout_p):
+def _geo(qkv, heads, causal, sm_scale, dropout_p):
     b, s, hd3 = qkv.shape
     keep = 1.0 - dropout_p
     return (b, s, heads, hd3 // 3 // heads, int(bool(causal)),
@@ -260,7 +277,7 @@ def flash_packed_fwd_kernel(qkv, heads, causal, sm_scale, dropout_p=0.0,
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = fn(_DTYPE_CODES[qkv.dtype], qkv.data_ptr(), out.data_ptr(),
                  lse.data_ptr(), seed_t.data_ptr(),
-                 *_tail(qkv, heads, causal, sm_scale, dropout_p), stream)
+                 *_geo(qkv, heads, causal, sm_scale, dropout_p), stream)
     _check(err, "forward")
     launches["fwd"] += 1
     return out, lse
@@ -284,7 +301,8 @@ def _bwd_launch(name, qkv, dout, lse, delta, dqkv, heads, causal, sm_scale,
         err = fn(_DTYPE_CODES[qkv.dtype], qkv.data_ptr(), dout.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(), seed_t.data_ptr(),
                  dqkv.data_ptr(),
-                 *_tail(qkv, heads, causal, sm_scale, dropout_p), stream)
+                 *_geo(qkv, heads, causal, sm_scale, dropout_p),
+                 int(scale_folds(qkv.dtype, sm_scale)), stream)
     _check(err, name)
     launches[name] += 1
 

@@ -131,3 +131,58 @@ def test_kernel_wrappers_refuse_what_they_do_not_take():
         tfap.flash_packed_fwd_kernel(x, 2, True, 0.125)
     with pytest.raises(ValueError, match="device"):
         tfap.flash_attention_packed(x.to("meta"), 2, True, 0.125)
+
+
+# The backward kernels' scale folding (``scale_folds``): with bf16 and a
+# power-of-two rounded scale they read q and k unscaled and apply the scale
+# to the f32 products.  That equals the JAX rounding points (q * scale and
+# k * scale rounded to bf16 before the products) because (1) the rounding
+# is exact: bf16 shares f32's exponent range, so only results below bf16's
+# smallest normal (2**-126) lose bits, and (2) a power of two commutes with
+# every rounding of an f32 sum.
+
+BF16_MIN_NORMAL = 2.0 ** -126
+
+
+@pytest.mark.parametrize("scale", [2.0 ** -2, 2.0 ** -3, 2.0 ** -4])
+def test_bf16_times_power_of_two_rounds_to_itself(scale):
+    """All 65,536 bf16 bit patterns q: bf16(q * scale) == q * scale in f32,
+    except where 0 < |q * scale| < 2**-126 (a bf16 subnormal result)."""
+    bits = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(torch.int16)
+    q = bits.view(torch.bfloat16).float()
+    exact = q * scale                       # f32: exact down to 2**-149
+    rounded = exact.to(torch.bfloat16).float()
+    same = (rounded == exact) | (torch.isnan(rounded) & torch.isnan(exact))
+    exceptions = (exact.abs() > 0) & (exact.abs() < BF16_MIN_NORMAL)
+    assert bool((same | exceptions).all())
+    # the exceptions are real: some subnormal results do round
+    assert bool((~same & exceptions).any())
+    assert int(exceptions.sum()) < 2 ** 12
+
+
+@pytest.mark.parametrize("scale", [2.0 ** -2, 2.0 ** -3])
+@pytest.mark.parametrize("m,n,k", [(64, 64, 64), (64, 64, 128),
+                                   (128, 64, 40)])
+def test_f32_products_scaled_after_the_sum_are_bitwise(scale, m, n, k):
+    """(a * scale) @ b == (a @ b) * scale bit for bit in f32 for bf16-valued
+    tiles: S^T = K (q*s)^T, dK = dS^T (q*s) and dQ = dS (k*s) as the
+    kernels fold them."""
+    rng = np.random.RandomState(m + n + k)
+    a = torch.from_numpy(rng.randn(m, k).astype(np.float32) * 0.5)
+    b = torch.from_numpy(rng.randn(k, n).astype(np.float32))
+    a, b = (t.to(torch.bfloat16).float() for t in (a, b))
+    before = torch.matmul((a * scale).to(torch.bfloat16).float(), b)
+    after = torch.matmul(a, b) * scale
+    assert torch.equal(before, after)
+    # and the scale on the other operand (dQ = dS . (k * s))
+    assert torch.equal(torch.matmul(b.T, (a * scale).T),
+                       torch.matmul(b.T, a.T) * scale)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 128])
+def test_scale_fold_decision(dtype, d):
+    """Only bf16 at a power-of-two rounded 1/sqrt(D) folds: D = 16 and 64
+    of the widths the kernels take; f16 always scales its tiles."""
+    folds = tfap.scale_folds(getattr(torch, dtype), 1.0 / np.sqrt(d))
+    assert folds == (dtype == "bfloat16" and d in (16, 64))
