@@ -9,40 +9,46 @@ Run from the repository root with no arguments:
 Phases, each printing one JSON line:
 
 1. device   -- the card (``nvidia-smi`` name and power limit, torch, CUDA).
-2. build    -- compiles every CUDA kernel from ``csrc/`` (one nvcc per
-               source, sm_90a, all started together) and reports the
-               seconds taken and ptxas's register / spill lines; for each
-               K1 backward kernel (dK/dV and dQ, bf16/f16, 64/128 wide) its
-               registers, spills, ptxas's performance notes, its dynamic
-               shared memory, and, where ``cuobjdump`` is found, its count
-               of HGMMA (wgmma) instructions, which must be above 0.
-3. flash    -- holds the three packed flash-attention kernels (forward,
-               dK/dV, dQ; ``csrc/flash_attention_packed.cu``) against their
-               plain PyTorch versions run in f32 on the same bf16/f16
-               inputs: forward O and LSE, and the gradient through
+2. build    -- compiles every CUDA kernel library from ``csrc/`` (one nvcc
+               per library, sm_90a, all started together; K1 and K2 one
+               library per padded head width, 64, 128 and 256) and reports
+               the seconds taken, per library too, and ptxas's register /
+               spill lines; for each K1 kernel (forward, dK/dV and dQ,
+               bf16/f16, 64/128/256 wide: 18) its registers, spills,
+               ptxas's performance notes, its dynamic shared memory, and,
+               where ``cuobjdump`` is found, its count of HGMMA (wgmma)
+               instructions, which must be above 0.
+3. flash    -- holds the three packed flash-attention kernels (forward, dK/dV,
+               dQ; ``csrc/flash_attention_packed.cu``) against their plain
+               PyTorch versions run in f32 on the same bf16/f16 inputs:
+               forward O and LSE, and the gradient through
                ``FlashAttentionPacked``.  Cases: causal and non-causal,
                dropout 0.1 with a fixed seed, the training geometry (b=4,
-               s=1024, H=12, D=64), ragged s=1000 with H=2, f16, head
-               widths 32 and 128, widths 40 and 80 (zero-filled padding
-               columns), s=65 (one row in the last tile) and batch 1 on a
-               strided view; D=64 f16 and D=128 bf16 take the backward's
-               in-tile scale path, the bf16 D=64 cases the folded one
-               (``scale_path``).  Then the timed kernels' own results at
-               b=32, s=1024.  Limits (``FLASH_TOL``), per slice of the
-               result (O, dQ, dK, dV): relative L2 error 1e-2 and worst
+               s=1024, H=12, D=64), ragged s=1000 with H=2, f16, head widths
+               32 and 128, widths 40 and 80 (zero-filled padding columns),
+               s=65 (one row in the last tile), batch 1 on a strided view, and
+               the widest instances at H=2: D=256 (bf16, f16 non-causal,
+               dropout 0.1) and D=192 (also ragged s=200); D=64 f16 and D=128
+               bf16 take the in-tile scale path, the bf16 D=64 and D=256 cases
+               the folded one (``scale_path``).  Then the timed kernels' own
+               results at b=32, s=1024.  Limits (``FLASH_TOL``), per slice of
+               the result (O, dQ, dK, dV): relative L2 error 1e-2 and worst
                row 0.2; LSE absolute 2e-3.  Each case also reads a control
                (the plain version in bf16/f16, which must pass), a planted
-               fault (a stale kv tile, which must fail), and runs the
-               backward twice more: the three dqkv must be bit-identical
-               (as at the timing shape).  Then times each kernel at b=32,
-               s=1024, H=12, D=64 by CUDA-graph replay, beside its bound,
-               its plain version and the library yardstick
-               ``F.scaled_dot_product_attention(is_causal=True)`` on
-               pre-split (b, H, s, D) tensors (forward by graph replay;
-               backward, for dK/dV and dQ together, by the kernels' own
-               device time under ``torch.profiler``), which the port never
-               calls; and the backward pair beside K2's bf16 dK/dV + dQ at
-               the same shape (``backward_pair``).
+               fault (a stale kv tile, which must fail), and runs the backward
+               twice more: the three dqkv must be bit-identical (as at the
+               timing shape).  Then times each kernel at b=32, s=1024, H=12,
+               D=64 by CUDA-graph replay, beside its bound, its plain version
+               and the library yardstick
+               ``F.scaled_dot_product_attention(is_causal=True)`` on pre-split
+               (b, H, s, D) tensors (forward by graph replay; backward, for
+               dK/dV and dQ together, by the kernels' own device time under
+               ``torch.profiler``), which the port never calls; and the
+               backward pair beside K2's bf16 dK/dV + dQ at the same shape
+               (``backward_pair``).  Then the same three kernels at D=256
+               (b=8, s=1024, H=4: the wide GPT's attention) beside their
+               bounds, plain versions and SDPA's bf16 forward and backward
+               (``wide``).
 4. train    -- GPT-2-small (12 layers, hidden 768, 12 heads, vocab 50304)
                with Normal(0, 0.02) weights from a numpy seed, dropout 0,
                through ``make_sharded_train_step(param_dtype=bf16,
@@ -58,32 +64,34 @@ Phases, each printing one JSON line:
 5. train_profile -- one train step under ``torch.profiler``: device idle
                share, top device kernels and host ops.
 6. flash_bhd_checks -- holds the three bhd flash-attention kernels K2
-               (forward, dK/dV, dQ; ``csrc/flash_attention.cu``) against
-               their plain versions on the same inputs: f32 against the
-               plain version in f64, bf16/f16 against it in f32; forward O
-               and LSE, and the gradient through ``FlashAttentionBHD``,
-               each slice apart.  Cases: causal and non-causal, dropout 0.1
-               with a fixed seed, sq=256/skv=1024 and sq=1024/skv=256
-               causal, ragged s=1000, D = 32, 80, 128, each in f32, bf16
-               and f16; the f32 training geometry (B*H = 16*12, s=1024,
-               D=64); batch 1 through ``flash_attention_bshd`` on strided
-               views of one fused projection (f32 at H=12, s=1024; bf16
-               at H=1); and the ring's unit: ``_bwd_pair`` over kv halves
-               with the global LSE and Δ (non-causal: dq sums, dk/dv
-               concatenate; causal: the two-device ring layout).  Limits:
-               bf16/f16 ``FLASH_TOL``; f32 ``FLASH_F32_TOL`` (relative L2 1e-4, worst
-               row 2e-3, LSE 1e-5), which TF32 products fail.  Each case
-               reads a control (the plain version in the input's dtype,
-               must pass) and a planted fault (a stale kv tile, must fail);
-               each f32 case also the plain version on operands rounded
-               to TF32 (must fail).
+               (forward, dK/dV, dQ; ``csrc/flash_attention.cu``) against their
+               plain versions on the same inputs: f32 against the plain
+               version in f64, bf16/f16 against it in f32; forward O and LSE,
+               and the gradient through ``FlashAttentionBHD``, each slice
+               apart.  Cases: causal and non-causal, dropout 0.1 with a fixed
+               seed, sq=256/skv=1024 and sq=1024/skv=256 causal, ragged
+               s=1000, D = 32, 80, 128, 256 and 36 (rows not 16-byte aligned
+               in bf16/f16), each in f32, bf16 and f16; the f32 training
+               geometry (B*H = 16*12, s=1024, D=64); batch 1 through
+               ``flash_attention_bshd`` on strided views of one fused
+               projection (f32 at H=12, s=1024; bf16 at H=1); and the ring's
+               unit: ``_bwd_pair`` over kv halves with the global LSE and Δ
+               (non-causal: dq sums, dk/dv concatenate; causal: the two-device
+               ring layout).  Limits: bf16/f16 ``FLASH_TOL``; f32
+               ``FLASH_F32_TOL`` (relative L2 1e-4, worst row 2e-3, LSE 1e-5),
+               which TF32 products fail.  Each case reads a control (the plain
+               version in the input's dtype, must pass) and a planted fault (a
+               stale kv tile, must fail); each f32 case also the plain version
+               on operands rounded to TF32 (must fail).
 7. flash_bhd -- K2's times at the f32 training geometry by CUDA-graph
                replay (inputs 201 MB), beside the bounds (f32 on the CUDA
                cores, 67 TFLOP/s), the plain versions, and the library
                yardstick ``F.scaled_dot_product_attention(is_causal=True)``
                on (b, H, s, D) f32, pinned to the efficient-attention
                backend, with its error against the f64 plain version;
-               then the bf16 instance beside K1 at K1's timing shape.
+               then the bf16 instance beside K1 at K1's timing shape; then
+               the f32 kernels at D=256 (b=8, s=1024, H=4) beside their
+               bounds, plain versions and SDPA (``wide``).
 8. train_f32 -- GPT-2-small f32 (``make_sharded_train_step`` with no
                ``param_dtype``: f32 parameters and Adam moments) at b=16,
                s=1024, flash on auto: 2 warm-up and 10 timed steps.  Gates:
@@ -93,19 +101,30 @@ Phases, each printing one JSON line:
                time) and a 3-step loss series at b=4, K2 against
                ``use_flash_attention=False`` (the plain composition), rtol
                ``F32_FLASH_VS_PLAIN_RTOL``.
-9. paged    -- holds ``paged_attention`` against its plain PyTorch version
+9. wide     -- a GPT at D = 256 (hidden 1024, 4 heads, 2 layers), b=4,
+               s=1024, 3 train steps each way: bf16 through K1, f32
+               through SDPA and K2.  Gates: the flash series' launches
+               exactly 3 x 2 per kernel, the other family's and the plain
+               versions' calls 0, and its loss series against the plain
+               composition's within ``FLASH_VS_PLAIN_RTOL`` (bf16) and
+               ``F32_FLASH_VS_PLAIN_RTOL`` (f32).
+10. paged   -- holds ``paged_attention`` against its plain PyTorch version
                (``paged_attention_ref``) at the serving geometry (B=16,
                H=12, D=64, P=16, maxp=32; widths 1 and 32; shuffled page
                tables, an inactive slot, lengths 0 / page boundary / last
                row of the table; and the serving run's own pool, tables
-               and lengths): bf16 against an f32 run of the plain version
-               at atol=rtol=2e-2, f32 at 2e-5 with TF32 off.  Times the
+               and lengths), and past the old limits: widths 65, 128 (pages
+               of 128) and 256 (pages of 256), width 1 over pages of 128,
+               D=36 (bf16 widths from 16 run the tensor-core kernel, the
+               rest the scalar one): bf16 against an f32 run of the plain
+               version at atol=rtol=2e-2, f32 at 2e-5 with TF32 off.  Times the
                kernel, the plain version and
                ``F.scaled_dot_product_attention`` on the gathered
                contiguous K/V (a yardstick the port never calls) at the
                serving run's decode inputs, by CUDA-graph replay over input
-               copies larger than the L2.
-10. serving -- GPT-2-small in bf16 through
+               copies larger than the L2; and at width 128 over pages of
+               128 beside its bound and plain version.
+11. serving -- GPT-2-small in bf16 through
                ``ServingEngine(cache_mode="paged", max_slots=16, max_len=512,
                page_size=16, num_pages=257, chunk=32, decode_window=32)``:
                16 greedy requests of 64 prompt tokens and 128 new tokens.
@@ -114,9 +133,13 @@ Phases, each printing one JSON line:
                drain.  Then an f32 run of 4 requests x 32 new tokens must be
                token-exact against the dense engine (the plain static-cache
                path), or diverge only at a logit margin <= 1e-3.
-11. profile -- device time by kernel over one short serving run
+12. profile -- device time by kernel over one short serving run
                (``torch.profiler``), for the breakdown in PERF.md.
-12. quant_checks -- holds the dequant-GEMM kernel K4
+13. paged_wide -- the paged engine at ``chunk=128, page_size=128`` against
+               the dense engine, GPT-2-small f32, 4 requests of 300, 200,
+               150 and 64 prompt tokens x 32 new: token-exact, K3 launched,
+               no page in use after the run.
+14. quant_checks -- holds the dequant-GEMM kernel K4
                (``csrc/quant_matmul.cu``) against its plain version
                ``quant_matmul_ref`` on the card: the four GPT-2-small
                projections (K, N) = (768, 2304), (768, 768), (768, 3072),
@@ -135,13 +158,13 @@ Phases, each printing one JSON line:
                activations at (8, 768, 2304): relative error <= 1e-5 of
                max|ref|; f16 activations at the same shape: 1 f16 ulp.  A
                3-D input with bias through ``quant_matmul``.
-13. quant   -- K4's time at M = 8 and M = 256 for each projection, by
+15. quant   -- K4's time at M = 8 and M = 256 for each projection, by
                CUDA-graph replay over input copies larger than the L2
                (> 60 MB, >= 24 copies), beside its bound, the plain
                version's time and a library yardstick the port never calls
                (``torch._weight_int8pack_mm`` where this torch runs it on
                CUDA, else the bf16 cuBLAS product ``x @ w_bf16``, labelled).
-14. serving_int8 -- the JAX package's ``serving_int8`` row on the card:
+16. serving_int8 -- the JAX package's ``serving_int8`` row on the card:
                GPT-2-small bf16 with Normal(0, 0.02) weights from a numpy
                seed, ``save_for_serving(quant="int8")`` into a temp dir,
                ``load_for_serving`` on CUDA, a dense
@@ -153,7 +176,7 @@ Phases, each printing one JSON line:
                is called 0 times.  Weight bytes (params + scales +
                buffers) of both.  Then one profiled int8 run (idle share,
                K4's share of device time).
-15. quant_f32_cross_check -- int8 and fp8 artifacts of the f32 model: the
+17. quant_f32_cross_check -- int8 and fp8 artifacts of the f32 model: the
                dense and paged engines token-exact against the same
                quantized model's greedy ``generate`` on the card, 4 requests
                x 32 new tokens.
@@ -221,17 +244,19 @@ def copies(case, n=6):
                      for _ in range(n - 1)]
 
 
-def kernel_case(torch, dtype, width, seed):
-    """Inputs at the serving geometry: shuffled tables, slot 5 inactive
-    (all-NULL table, stale length), lengths at 0, page boundaries and the
-    last row of the table."""
-    B, H, D, P, maxp = 16, 12, 64, 16, 32
+def kernel_case(torch, dtype, width, seed, D=64, P=16, maxp=32):
+    """Inputs at the serving geometry (or another head width, page size
+    and table width): shuffled tables, slot 5 inactive (all-NULL table,
+    stale length), lengths at 0, page boundaries and the last row of the
+    table."""
+    B, H = 16, 12
     N = 1 + B * maxp
     rng = np.random.RandomState(seed)
     pt = (rng.permutation(N - 1) + 1).reshape(B, maxp).astype(np.int32)
     T = maxp * P
     lengths = rng.randint(0, T - width + 1, B).astype(np.int32)
-    lengths[:5] = [0, P, P - 1, 2 * P - 1, T - width]   # T-width: last row
+    lengths[:5] = np.minimum([0, P, P - 1, 2 * P - 1, T - width],
+                             T - width)                   # T-width: last row
     pt[5] = 0
     lengths[5] = 300
     mk = lambda *s: torch.from_numpy(  # noqa: E731
@@ -310,9 +335,22 @@ def phase_kernel(torch, pa):
         return rec["max_abs_err"]
 
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
+        tag = str(dtype).split('.')[-1]
         for width in (1, 32):
-            check(f"{str(dtype).split('.')[-1]}_w{width}_maxlen",
+            check(f"{tag}_w{width}_maxlen",
                   kernel_case(torch, dtype, width, seed=width), tol)
+        # widths past one 16-row tile loop and one 64-row stage, pages
+        # longer than a stage (read in parts), a head width that is not a
+        # multiple of 8 (element loads)
+        check(f"{tag}_w65", kernel_case(torch, dtype, 65, seed=65), tol)
+        check(f"{tag}_w128_p128", kernel_case(torch, dtype, 128, seed=128,
+                                              P=128, maxp=4), tol)
+        check(f"{tag}_w256_p256", kernel_case(torch, dtype, 256, seed=256,
+                                              P=256, maxp=2), tol)
+        check(f"{tag}_w1_p128", kernel_case(torch, dtype, 1, seed=3, P=128,
+                                            maxp=4), tol)
+        check(f"{tag}_d36_w32", kernel_case(torch, dtype, 32, seed=36,
+                                            D=36), tol)
     case = serving_case(torch, 1, seed=1)
     err = check("bfloat16_w1_serving", case, 2e-2)
     wide = serving_case(torch, 32, seed=32)
@@ -352,6 +390,14 @@ def phase_kernel(torch, pa):
     maxlen_ms = device_ms(torch, [lambda c=c: pa.paged_attention_kernel(**c)
                                   for c in copies(maxlen)])
     maxlen_bound, maxlen_by = bound(maxlen, 2, H100_BF16_FLOPS)
+    # a 128-row prefill chunk over pages of 128 (the wide paged engine's)
+    w128 = kernel_case(torch, torch.bfloat16, 128, seed=129, P=128, maxp=4)
+    w128_ms = device_ms(torch, [lambda c=c: pa.paged_attention_kernel(**c)
+                                for c in copies(w128)])
+    w128_plain = device_ms(torch, [lambda c=c: pa.paged_attention_ref(**c)
+                                   for c in copies(w128)], reps=2)
+    w128_bound, w128_by = bound(w128, 2, H100_BF16_FLOPS)
+    del w128
     emit({"phase": "paged", "checks": checks,
           "decode_w1_serving": {"ms": k_ms, "plain_ms": p_ms,
                                 "library_ms": l_ms,
@@ -360,7 +406,9 @@ def phase_kernel(torch, pa):
           "chunk_w32_serving": {"ms": wide_ms, "bound_ms": wide_bound,
                                 "bound_by": wide_by},
           "decode_w1_maxlen": {"ms": maxlen_ms, "bound_ms": maxlen_bound,
-                               "bound_by": maxlen_by}})
+                               "bound_by": maxlen_by},
+          "chunk_w128_p128": {"ms": w128_ms, "plain_ms": w128_plain,
+                              "bound_ms": w128_bound, "bound_by": w128_by}})
     return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms}
 
@@ -550,6 +598,15 @@ def phase_flash(torch, fap, fa):
     check("d80_h2_noncausal", 2, 256, 2, 80, False)
     check("s65_h2", 2, 65, 2, 64, True)
     check("b1_strided_view_h4", 1, 256, 4, 64, True, strided=True)
+    # the widest instances: D = 256 (bf16 folds the scale, f16 scales its
+    # tiles; the backward's 64-row blocks split the output columns) and
+    # D = 192 (columns 192..255 zero-filled by the tensor maps)
+    check("d256_h2", 2, 256, 2, 256, True)
+    check("d256_h2_f16_noncausal", 2, 256, 2, 256, False,
+          dtype=torch.float16)
+    check("d256_dropout0.1", 2, 256, 2, 256, True, p=0.1, seed=99)
+    check("d192_h2", 2, 256, 2, 192, True)
+    check("d192_h2_ragged_s200", 1, 200, 2, 192, True)
     emit({"phase": "flash_checks", "tolerances": FLASH_TOL,
           "fields": ["lse"] + [f"{s}_{m}" for s in FLASH_SLICES
                                for m in ("rel", "row")],
@@ -653,6 +710,7 @@ def phase_flash(torch, fap, fa):
         timing[k] = dict(rows[k], gflop=flops / 1e9, gbytes=nbytes / 1e9,
                          tflops=flops / ms[k] / 1e9)
     pair = ms["dkdv"] + ms["dq"]
+    wide = flash_wide_times(torch, fap, F)
     emit({"phase": "flash", "shape": TRAIN_SHAPE, "causal": True,
           "readings": train,
           "library_vs_kernel_out_max_abs": lib_vs_kernel,
@@ -664,8 +722,80 @@ def phase_flash(torch, fap, fa):
               "sdpa_bf16_backward_ms": lib_bwd,
               "k2_bf16_backward_ms": k2_pair,
               "over_sdpa": pair / lib_bwd, "over_k2": pair / k2_pair,
-              "bitwise_repeat": bitwise}})
+              "bitwise_repeat": bitwise},
+          "fwd_over_sdpa": ms["fwd"] / lib_fwd,
+          "wide": wide})
+    for k in rows:
+        rows[k]["wide_d256"] = {key: wide["timing"][k][key] for key in
+                                ("ms", "bound_ms", "bound_by", "library_ms")}
     return rows
+
+
+WIDE_SHAPE = dict(b=8, s=1024, H=4, D=256)   # the wide GPT's attention
+
+
+def flash_wide_times(torch, fap, F):
+    """K1's three kernels at ``WIDE_SHAPE`` (D = 256, causal) by graph
+    replay, beside their bounds, the plain versions and the library's bf16
+    SDPA forward and backward on pre-split heads; the timed results held
+    against the plain version in f32."""
+    import math
+    b, s, H, D = (WIDE_SHAPE[k] for k in "bsHD")
+    scale = 1.0 / math.sqrt(D)
+    qkv, dout = flash_case(torch, b, s, H, D, torch.bfloat16, seed=101)
+    out, lse = fap.flash_packed_fwd_kernel(qkv, H, True, scale)
+    delta = fap._delta(out, dout, H)
+    dqkv = torch.empty_like(qkv)
+    ms = {
+        "fwd": device_ms(torch, [
+            lambda: fap.flash_packed_fwd_kernel(qkv, H, True, scale)]),
+        "dkdv": device_ms(torch, [lambda: fap.flash_packed_dkdv_kernel(
+            qkv, dout, lse, delta, dqkv, H, True, scale)]),
+        "dq": device_ms(torch, [lambda: fap.flash_packed_dq_kernel(
+            qkv, dout, lse, delta, dqkv, H, True, scale)]),
+    }
+    plain_fwd = device_ms(torch, [
+        lambda: fap.flash_packed_fwd_ref(qkv, H, True, scale)], reps=2)
+    plain_bwd = device_ms(torch, [lambda: fap.flash_packed_bwd_ref(
+        qkv, out, lse, dout, H, True, scale)], reps=2)
+    ref = flash_plain(fap, qkv.float(), dout.float(), H, True, scale)
+    readings = flash_readings(flash_slices(out, lse, dqkv, H), ref)
+    del ref
+    torch.cuda.empty_cache()
+    if not flash_within(readings):
+        raise AssertionError(f"flash kernels disagree with their plain "
+                             f"versions at {WIDE_SHAPE}: {readings}")
+    qh, kh, vh = (t.reshape(b, s, H, D).transpose(1, 2).contiguous()
+                  .requires_grad_(True) for t in qkv.split(H * D, -1))
+    doh = dout.reshape(b, s, H, D).transpose(1, 2).contiguous()
+    with torch.no_grad():
+        lib_fwd = device_ms(torch, [lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True)])
+    og = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    lib_bwd = profiled_ms(torch, lambda: torch.autograd.grad(
+        og, (qh, kh, vh), doh, retain_graph=True))
+    del og, qh, kh, vh, doh
+    e = 2
+    io = qkv.numel() * e + lse.numel() * 4
+    bwd_in = io + dout.numel() * e + delta.numel() * 4
+    bounds = {
+        "fwd": flash_bound(b, s, H, D, True, 2, io + out.numel() * e),
+        "dkdv": flash_bound(b, s, H, D, True, 4,
+                            bwd_in + 2 * b * s * H * D * e),
+        "dq": flash_bound(b, s, H, D, True, 3, bwd_in + b * s * H * D * e),
+    }
+    plain = {"fwd": plain_fwd, "dkdv": plain_bwd, "dq": plain_bwd}
+    lib = {"fwd": lib_fwd, "dkdv": lib_bwd, "dq": lib_bwd}
+    timing = {}
+    for k in ("fwd", "dkdv", "dq"):
+        b_ms, b_by, flops, _ = bounds[k]
+        timing[k] = {"ms": ms[k], "plain_ms": plain[k], "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": lib[k],
+                     "tflops": flops / ms[k] / 1e9}
+    del qkv, dout, out, lse, delta, dqkv
+    torch.cuda.empty_cache()
+    return {"shape": WIDE_SHAPE, "causal": True, "readings": readings,
+            "timing": timing}
 
 
 # ---------------------------------------------------------------------------
@@ -949,7 +1079,7 @@ def phase_flash_bhd_checks(torch, fa):
         check(f"{tag}_noncausal_dropout0.1", 4, 192, 192, 64, False, dt,
               0.1, -7)
         check(f"{tag}_ragged_s1000_noncausal", 2, 1000, 1000, 64, False, dt)
-        for D in (32, 80, 128):
+        for D in (32, 80, 128, 256, 36):
             check(f"{tag}_d{D}", 8, 256, 256, D, True, dt)
         check(f"{tag}_ring_kv_halves", 8, 512, 512, 64, False, dt,
               ring=True)
@@ -1089,6 +1219,11 @@ def phase_flash_bhd(torch, fa, fap, readings):
                      .abs().max())
     del qkv, dout, qb, kb, vb, dob, o1, o2, dqkv
     torch.cuda.empty_cache()
+    wide = bhd_wide_times(torch, fa, F)
+    for key in rows:
+        rows[key]["wide_d256"] = {k: wide["timing"][key][k] for k in
+                                  ("ms", "bound_ms", "bound_by",
+                                   "library_ms")}
     emit({"phase": "flash_bhd", "shape": BHD_TRAIN_SHAPE, "dtype": "float32",
           "causal": True, "timing": timing,
           "library": {"call": "F.scaled_dot_product_attention(is_causal=True)"
@@ -1097,8 +1232,101 @@ def phase_flash_bhd(torch, fa, fap, readings):
           "plain_note": "dkdv and dq share one plain backward and one "
                         "library backward (each computes dq, dk, dv)",
           "bf16_beside_k1": {"shape": TRAIN_SHAPE, "ms": bf16,
-                             "k1_vs_k2_out_max_abs": same_out}})
+                             "k1_vs_k2_out_max_abs": same_out},
+          "wide": wide})
     return rows
+
+
+BHD_WIDE_SHAPE = dict(b=8, s=1024, H=4, D=256)   # f32, the wide GPT's heads
+
+
+def bhd_wide_times(torch, fa, F):
+    """K2's three f32 kernels at ``BHD_WIDE_SHAPE`` (D = 256, causal) by
+    graph replay, beside their f32 bounds, the plain versions and the
+    library's f32 SDPA (default backend choice) forward and backward; the
+    timed results held against the plain version in f64."""
+    import math
+    b, s, H, D = (BHD_WIDE_SHAPE[k] for k in "bsHD")
+    bh, scale = b * H, 1.0 / math.sqrt(D)
+    q, k, v, do = bhd_case(torch, bh, s, s, D, torch.float32, seed=201)
+    out, lse = fa.flash_fwd_kernel(q, k, v, True, scale)
+    delta = (do * out).sum(-1)
+    ms = {
+        "fwd": device_ms(torch, [
+            lambda: fa.flash_fwd_kernel(q, k, v, True, scale)]),
+        "dkdv": device_ms(torch, [lambda: fa.flash_dkdv_kernel(
+            q, k, v, do, lse, delta, True, scale)]),
+        "dq": device_ms(torch, [lambda: fa.flash_dq_kernel(
+            q, k, v, do, lse, delta, True, scale)]),
+    }
+    plain_fwd = device_ms(torch, [
+        lambda: fa.flash_fwd_ref(q, k, v, True, scale)], reps=2)
+    plain_bwd = device_ms(torch, [lambda: fa.flash_bwd_pair_ref(
+        q, k, v, do, lse, delta, True, scale)], reps=2)
+    dk, dv = fa.flash_dkdv_kernel(q, k, v, do, lse, delta, True, scale)
+    dq = fa.flash_dq_kernel(q, k, v, do, lse, delta, True, scale)
+    ref = bhd_plain(fa, q.double(), k.double(), v.double(), do.double(),
+                    True, scale)
+    readings = flash_readings(bhd_slices(out, lse, dq, dk, dv), ref,
+                              live_floor=True)
+    del ref, dk, dv, dq
+    torch.cuda.empty_cache()
+    if not flash_within(readings, FLASH_F32_TOL):
+        raise AssertionError(f"bhd flash kernels disagree with their plain "
+                             f"versions at {BHD_WIDE_SHAPE}: {readings}")
+    qh, kh, vh, doh = (t.reshape(b, H, s, D) for t in (q, k, v, do))
+    with torch.no_grad():
+        lib_fwd = device_ms(torch, [lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True)])
+    xs = [t.detach().clone().requires_grad_(True) for t in (qh, kh, vh)]
+    og = F.scaled_dot_product_attention(*xs, is_causal=True)
+    lib_bwd = profiled_ms(torch, lambda: torch.autograd.grad(
+        og, xs, doh, retain_graph=True))
+    del og, xs
+    e = 4
+    io = 3 * q.numel() * e
+    bwd_in = io + do.numel() * e + 2 * lse.numel() * 4
+    bounds = {
+        "fwd": flash_bound(b, s, H, D, True, 2,
+                           io + out.numel() * e + lse.numel() * 4,
+                           H100_F32_FLOPS),
+        "dkdv": flash_bound(b, s, H, D, True, 4, bwd_in + 2 * q.numel() * e,
+                            H100_F32_FLOPS),
+        "dq": flash_bound(b, s, H, D, True, 3, bwd_in + q.numel() * e,
+                          H100_F32_FLOPS),
+    }
+    plain = {"fwd": plain_fwd, "dkdv": plain_bwd, "dq": plain_bwd}
+    lib = {"fwd": lib_fwd, "dkdv": lib_bwd, "dq": lib_bwd}
+    timing = {}
+    for key in ("fwd", "dkdv", "dq"):
+        b_ms, b_by, flops, _ = bounds[key]
+        timing[key] = {"ms": ms[key], "plain_ms": plain[key],
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "library_ms": lib[key],
+                       "tflops": flops / ms[key] / 1e9}
+    del q, k, v, do, out, lse, delta, qh, kh, vh, doh
+    torch.cuda.empty_cache()
+    return {"shape": BHD_WIDE_SHAPE, "dtype": "float32", "causal": True,
+            "library": "F.scaled_dot_product_attention(is_causal=True), "
+                       "default backend", "readings_vs_f64": readings,
+            "timing": timing}
+
+
+def counting(module, names, calls):
+    """Wrap ``module``'s functions ``names`` to count their calls in
+    ``calls``; returns the originals, for :func:`restore`."""
+    real = {n: getattr(module, n) for n in names}
+    for n, fn in real.items():
+        def run(*a, _n=n, _fn=fn, **kw):
+            calls[_n] += 1
+            return _fn(*a, **kw)
+        setattr(module, n, run)
+    return real
+
+
+def restore(module, real):
+    for n, fn in real.items():
+        setattr(module, n, fn)
 
 
 def phase_train_f32(torch, fa, fap):
@@ -1116,16 +1344,8 @@ def phase_train_f32(torch, fa, fap):
     rng = np.random.RandomState(0)
     ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s))).to(DEV)
     labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s))).to(DEV)
-    plain_calls = {"fwd": 0, "bwd_pair": 0}
-    real = (fa.flash_fwd_ref, fa.flash_bwd_pair_ref)
-
-    def counted(name, fn):
-        def run(*a, **kw):
-            plain_calls[name] += 1
-            return fn(*a, **kw)
-        return run
-    fa.flash_fwd_ref = counted("fwd", real[0])
-    fa.flash_bwd_pair_ref = counted("bwd_pair", real[1])
+    plain_calls = {"flash_fwd_ref": 0, "flash_bwd_pair_ref": 0}
+    real = counting(fa, plain_calls, plain_calls)
     try:
         losses = []
         for _ in range(2):                               # warm-up
@@ -1146,7 +1366,7 @@ def phase_train_f32(torch, fa, fap):
         launches, k1 = dict(fa.launches), dict(fap.launches)
         plain = dict(plain_calls)
     finally:
-        fa.flash_fwd_ref, fa.flash_bwd_pair_ref = real
+        restore(fa, real)
     peak = torch.cuda.max_memory_allocated()
     losses = [float(x) for x in losses]
     n_params = model.num_params()
@@ -1215,6 +1435,85 @@ def phase_train_f32(torch, fa, fap):
         raise AssertionError(f"f32 flash and plain loss series differ by "
                              f"{rel} > {F32_FLASH_VS_PLAIN_RTOL}: {series}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Wide heads: a GPT at D = 256 through K1 (bf16) and K2 (f32)
+# ---------------------------------------------------------------------------
+
+WIDE_GPT = dict(hidden_size=1024, num_heads=4, num_layers=2)   # D = 256
+
+
+def phase_wide(torch, fa, fap, b=4, s=1024, steps=3):
+    """A dispatch and parity check at D = 256: a GPT of hidden 1024, 4
+    heads, 2 layers (vocab and positions of GPT-2-small), Normal(0, 0.02)
+    weights from a numpy seed, b=4, s=1024, 3 train steps each way.  bf16
+    (``param_dtype=bf16``, ``use_flash_attention=True``) trains through K1;
+    f32 (flash on auto) through SDPA and K2.  Gates: the flash series'
+    kernel launches exactly 3 x 2 each, the other family's 0, the plain
+    versions called 0 times; the flash and plain-composition loss series
+    within the bf16 / f32 limits."""
+    from paddle_hackathon_tpu_torch.models import GPTForCausalLM, gpt_config
+    base = dict(WIDE_GPT, hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+    arrays = random_weights(GPTForCausalLM(gpt_config("gpt2-small-en",
+                                                      **base),
+                                           device="cpu"), seed=2)
+    rng = np.random.RandomState(2)
+    vocab = gpt_config("gpt2-small-en").vocab_size
+    ids = torch.from_numpy(rng.randint(0, vocab, (b, s))).to(DEV)
+    labels = torch.from_numpy(rng.randint(0, vocab, (b, s))).to(DEV)
+    report = {}
+    runs = (("bf16", "bfloat16", True, fap, fa, FLASH_VS_PLAIN_RTOL),
+            ("f32", None, None, fa, fap, F32_FLASH_VS_PLAIN_RTOL))
+    plain_names = {fap: ("flash_packed_fwd_ref", "flash_packed_bwd_ref"),
+                   fa: ("flash_fwd_ref", "flash_bwd_pair_ref")}
+    for tag, param_dtype, flash, used, other, rtol in runs:
+        series = {}
+        for use_flash in (flash, False):
+            cfg = gpt_config("gpt2-small-en", use_flash_attention=use_flash,
+                             **base)
+            model, step, state = train_model(torch, cfg, arrays,
+                                             param_dtype=param_dtype)
+            calls = {n: 0 for m in (fa, fap) for n in plain_names[m]}
+            reals = [(m, counting(m, plain_names[m], calls))
+                     for m in (fa, fap)]
+            for counts in (fa.launches, fap.launches):
+                for key in counts:
+                    counts[key] = 0
+            try:
+                losses = []
+                for _ in range(steps):
+                    state, loss = step(state, ids, labels)
+                    losses.append(float(loss))
+                torch.cuda.synchronize()
+            finally:
+                for m, real in reals:
+                    restore(m, real)
+            name = "plain" if use_flash is False else "flash"
+            series[name] = {"losses": losses,
+                            "launches": dict(used.launches),
+                            "other_launches": dict(other.launches),
+                            "plain_calls": calls}
+            del model, step, state
+            torch.cuda.empty_cache()
+        rel = max(abs(x - y) / abs(y) for x, y in
+                  zip(series["flash"]["losses"], series["plain"]["losses"]))
+        report[tag] = dict(series, max_rel_diff=rel, rtol=rtol)
+        need = steps * WIDE_GPT["num_layers"]
+        f = series["flash"]
+        if (any(n != need for n in f["launches"].values())
+                or any(f["other_launches"].values())
+                or any(f["plain_calls"].values())
+                or any(series["plain"]["launches"].values())):
+            raise AssertionError(f"wide {tag}: the flash series did not run "
+                                 f"its kernels exactly {need} times each "
+                                 f"(or ran the other family, or a plain "
+                                 f"version): {series}")
+        if not all(np.isfinite(f["losses"])) or not rel <= rtol:
+            raise AssertionError(f"wide {tag}: flash and plain loss series "
+                                 f"differ by {rel} > {rtol}: {series}")
+    emit({"phase": "wide", "model": WIDE_GPT, "head_dim": 256, "batch": b,
+          "seq": s, "steps": steps, **report})
 
 
 def random_weights(model, seed):
@@ -1324,6 +1623,52 @@ def phase_serving(torch, pa):
     emit({"phase": "f32_cross_check", "requests": 4, "new_tokens": 32,
           "token_exact": exact, "divergences": margins})
     return eng, prompts, launches
+
+
+def phase_paged_wide(torch, pa):
+    """The paged engine at ``chunk=128, page_size=128`` (K3 at width 128
+    over pages of 128) against the dense engine, GPT-2-small in f32 on the
+    same weights: 4 requests (prompts of 300, 200, 150 and 64 tokens) x 32
+    new tokens, token-exact; K3 launched; no page left in use."""
+    from paddle_hackathon_tpu_torch.inference import ServingEngine
+    from paddle_hackathon_tpu_torch.models import GPTForCausalLM, gpt_config
+    from paddle_hackathon_tpu_torch.utils import load_jax_state
+    cfg = gpt_config("gpt2-small-en", hidden_dropout_prob=0.0,
+                     attention_dropout_prob=0.0)
+    model = GPTForCausalLM(cfg, device=DEV)
+    load_jax_state(model, random_weights(model, seed=3))
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (300, 200, 150, 64)]
+    kw = dict(max_slots=4, max_len=512, chunk=128, decode_window=32)
+    outs, stats = {}, {}
+    for mode in ("paged", "dense"):
+        extra = {"page_size": 128} if mode == "paged" else {}
+        eng = ServingEngine(model, cache_mode=mode, **kw, **extra)
+        pa.launches = 0
+        reqs = [eng.submit(p, 32) for p in prompts]
+        eng.run_until_idle()
+        outs[mode] = [r.result() for r in reqs]
+        stats[mode] = {"k3_launches": pa.launches,
+                       "chunk_ticks": eng.stats["chunk_ticks"],
+                       "decode_ticks": eng.stats["decode_ticks"]}
+        if mode == "paged":
+            eng.drop_prefix_cache()
+            stats[mode]["kv_pages_in_use"] = eng.kv_pages_in_use
+        del eng
+    exact = sum(bool(np.array_equal(a, b))
+                for a, b in zip(outs["paged"], outs["dense"]))
+    emit({"phase": "paged_wide", "chunk": 128, "page_size": 128,
+          "requests": 4, "new_tokens": 32, "token_exact_of_4": exact,
+          **stats})
+    p = stats["paged"]
+    if exact != 4 or p["k3_launches"] == 0 or p["kv_pages_in_use"] != 0 \
+            or stats["dense"]["k3_launches"] != 0:
+        raise AssertionError(f"paged engine at chunk 128 / pages of 128: "
+                             f"{exact} of 4 token-exact against dense, "
+                             f"{stats}")
+    del model
+    torch.cuda.empty_cache()
 
 
 def phase_profile(torch, eng, prompts):
@@ -1741,64 +2086,72 @@ def phase_quant_f32_cross_check(torch, arrays, prompts):
     torch.cuda.empty_cache()
 
 
-K1_BWD_KERNEL = re.compile(
-    r"(flash_packed_(?:dkdv|dq)_kernel)I(13__nv_bfloat16|6__half)Li(\d+)E")
+K1_KERNEL = re.compile(
+    r"(flash_packed_(?:fwd|dkdv|dq)_kernel)I(13__nv_bfloat16|6__half)Li(\d+)E")
+K1_SMEM_INDEX = {"fwd": 0, "dkdv": 1, "dq": 2}
 
 
 def k1_kernel_name(mangled):
-    """``flash_packed_dkdv_kernel<bf16,64>`` from a mangled backward
-    kernel name, or None for any other function."""
-    m = K1_BWD_KERNEL.search(mangled)
+    """``flash_packed_dkdv_kernel<bf16,64>`` from a mangled K1 kernel
+    name, or None for any other function."""
+    m = K1_KERNEL.search(mangled)
     if not m:
         return None
     dtype = "bf16" if "bfloat16" in m.group(2) else "f16"
     return f"{m.group(1)}<{dtype},{m.group(3)}>"
 
 
-def k1_backward_build(_build, fap, lib_path):
-    """Each K1 backward kernel's registers, spills, ptxas performance notes
-    and dynamic shared memory, and where cuobjdump is found, its count of
-    HGMMA (wgmma) instructions, which must be above 0.  Only a library
-    built in this run has ptxas's report."""
+def k1_build(_build, libs):
+    """Each K1 kernel's (forward, dK/dV, dQ; bf16/f16; 64/128/256 wide)
+    registers, spills, ptxas performance notes and dynamic shared memory,
+    and where cuobjdump is found, its count of HGMMA (wgmma)
+    instructions, which must be above 0 for all 18.  Only a library built
+    in this run has ptxas's report."""
     import ctypes
     import shutil
     from pathlib import Path
-    out, cur = {}, None
-    for ln in _build.build_logs.get("flash_attention_packed", "").splitlines():
-        if "Compiling entry function" in ln:
-            cur = k1_kernel_name(ln)
-            if cur:
-                out[cur] = {"ptxas": [], "perf_notes": []}
-        elif "Potential Performance Loss" in ln:
-            name = k1_kernel_name(ln)
-            if name in out:
-                out[name]["perf_notes"].append(ln.split("Loss:")[-1].split(
-                    " in the function")[0].strip())
-        elif cur and ("Used" in ln or "spill" in ln):
-            out[cur]["ptxas"].append(ln.split("info    :")[-1].strip())
-    lib = ctypes.CDLL(str(lib_path))
-    lib.flash_packed_bwd_smem.argtypes = [ctypes.c_int, ctypes.c_int]
-    smem = {f"{k}<{dp}>": lib.flash_packed_bwd_smem(int(k == "dkdv"), dp)
-            for k in ("dkdv", "dq") for dp in (64, 128)}
+    out, smem = {}, {}
+    names = [f"flash_attention_packed_w{dp}" for dp in _build.FLASH_WIDTHS]
+    for lib_name in names:
+        cur = None
+        for ln in _build.build_logs.get(lib_name, "").splitlines():
+            if "Compiling entry function" in ln:
+                cur = k1_kernel_name(ln)
+                if cur:
+                    out[cur] = {"ptxas": [], "perf_notes": []}
+            elif "Potential Performance Loss" in ln:
+                name = k1_kernel_name(ln)
+                if name in out:
+                    out[name]["perf_notes"].append(ln.split("Loss:")[-1].split(
+                        " in the function")[0].strip())
+            elif cur and ("Used" in ln or "spill" in ln):
+                out[cur]["ptxas"].append(ln.split("info    :")[-1].strip())
+        lib = ctypes.CDLL(str(libs[lib_name]))
+        lib.flash_packed_smem.argtypes = [ctypes.c_int]
+        dp = lib_name.rsplit("_w", 1)[1]
+        for k, i in K1_SMEM_INDEX.items():
+            smem[f"{k}<{dp}>"] = lib.flash_packed_smem(i)
     cuobjdump = shutil.which("cuobjdump") or str(
         Path(_build._nvcc()).parent / "cuobjdump")
     hgmma = None
     if Path(cuobjdump).exists():
-        sass = subprocess.run([cuobjdump, "-sass", str(lib_path)],
-                              capture_output=True, text=True, timeout=300,
-                              check=True).stdout
-        hgmma, cur = {}, None
-        for ln in sass.splitlines():
-            if "Function :" in ln:
-                cur = k1_kernel_name(ln)
-                if cur:
-                    hgmma[cur] = 0
-            elif cur and "HGMMA" in ln:
-                hgmma[cur] += 1
+        hgmma = {}
+        for lib_name in names:
+            sass = subprocess.run([cuobjdump, "-sass", str(libs[lib_name])],
+                                  capture_output=True, text=True,
+                                  timeout=300, check=True).stdout
+            cur = None
+            for ln in sass.splitlines():
+                if "Function :" in ln:
+                    cur = k1_kernel_name(ln)
+                    if cur:
+                        hgmma[cur] = 0
+                elif cur and "HGMMA" in ln:
+                    hgmma[cur] += 1
         short = [k for k, n in hgmma.items() if n == 0]
-        if len(hgmma) != 8 or short:
-            raise AssertionError(f"K1 backward kernels without HGMMA (or "
-                                 f"missing from the SASS): {hgmma}")
+        if len(hgmma) != 18 or short:
+            raise AssertionError(f"K1 kernels without HGMMA (or missing "
+                                 f"from the SASS): {hgmma}")
     return {"kernels": out, "dynamic_smem_bytes": smem, "hgmma": hgmma,
             "cuobjdump": cuobjdump if hgmma is not None else None}
 
@@ -1832,19 +2185,20 @@ def main():
                    if "Used" in ln or "spill" in ln]
              for lib, log in _build.build_logs.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "library_seconds": _build.build_seconds,
           "libraries": sorted(p.name for p in libs.values()),
-          "ptxas": ptxas,
-          "k1_backward": k1_backward_build(
-              _build, fap, libs["flash_attention_packed"])})
+          "ptxas": ptxas, "k1": k1_build(_build, libs)})
 
     flash = phase_flash(torch, fap, fa)
     flash_launches = phase_train(torch, fap)
     bhd = phase_flash_bhd(torch, fa, fap, phase_flash_bhd_checks(torch, fa))
     bhd_launches = phase_train_f32(torch, fa, fap)
+    phase_wide(torch, fa, fap)
     kern = phase_kernel(torch, pa)
     eng, prompts, launches = phase_serving(torch, pa)
     phase_profile(torch, eng, prompts)
     del eng
+    phase_paged_wide(torch, pa)
     max_abs = phase_quant_checks(torch, qm, wo)
     decode = phase_quant(torch, qm, wo)
     k4_launches, arrays, prompts = phase_serving_int8(torch, qm)

@@ -37,7 +37,7 @@
 //
 // Design (simple and right first; wgmma, TMA and warp specialisation are
 // later work):
-//   * bf16/f16: K1's tensor-core kernels (flash_attention_packed.cu) on the
+//   * bf16/f16: the mma.sync design K1 had before its Hopper rebuild, on the
 //     bhd layout: one block of 4 warps per (64-row tile, bh), each warp 16
 //     rows; mma.sync m16n8k16 with f32 accumulators fed by ldmatrix; the
 //     inner operand tiles double-buffered with cp.async; scores in log2
@@ -53,15 +53,26 @@
 //   * causal tiles above the diagonal are never loaded: fwd and dq stop at
 //     the diagonal kv tile, dkdv starts at the diagonal q tile (a kv tile
 //     past the last q row gets zero gradients); the heaviest tiles first.
-//   * ragged ends (SQ, SKV multiples of 8, not of 64) are zero-filled and
-//     masked; D up to 64 runs in 64-wide instances, up to 128 in 128-wide
-//     ones, the padding columns zero.  Other D: the wrapper raises.
+//   * ragged ends (SQ, SKV not multiples of 64) are zero-filled and
+//     masked.  Head widths: instances of 64, 128 and 256 padded columns
+//     (padding columns zero), for D up to 256; each width and family
+//     (f32, or bf16/f16) is its own library (-DFLASH_DP, -DFLASH_F32).
+//     Where a row is not 16-byte aligned (D * size % 16 != 0, e.g. D = 36
+//     in bf16) a template flag swaps the 16-byte cp.async chunks for
+//     element reads at the row edge.  At 256: the mma family
+//     reads the q and dO fragments from shared memory at each use, and
+//     its dK/dV and dQ blocks keep half of the output columns (grid.z;
+//     each recomputes the scores), for registers; the f32 forward
+//     single-buffers its kv tiles, and f32 dK/dV and dQ hold their tiles
+//     in two column chunks of 128 (the wide kernels), for shared memory.
 // One summation order per output, whatever BH is: a row never depends on
 // the batch.
 //
 // Each C entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() (0 on success), -1 for a geometry it does
 // not take; the Python wrapper raises on anything but 0.
+
+#include <type_traits>
 
 #include "flash_common.cuh"
 
@@ -86,21 +97,39 @@ struct Ptrs {
   int BH;
 };
 
-// Async copy of rows row0..row0+63 of an (n, D) matrix (row stride D) into
-// a [64][LD] tile, DP columns; rows past n and columns past D are zero.
-template <typename T, int DP, int LD, int NT>
+// Copy of rows row0..row0+63, columns col0..col0+DP-1, of an (n, D)
+// matrix (row stride D) into a [64][LD] tile; rows past n and columns past
+// D are zero.  AL: every row (and col0) is 16-byte aligned, D * sizeof(T)
+// a multiple of 16, and each 16-byte chunk is one cp.async; else (any D,
+// e.g. 36 or 100 in bf16) each chunk is read element by element at the
+// row edges and stored whole, synchronously.
+template <typename T, int DP, int LD, int NT, bool AL>
 __device__ __forceinline__ void load_rows(T* tile, const T* base, int row0,
-                                          int n, int D, int tid) {
+                                          int n, int D, int tid,
+                                          int col0 = 0) {
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kChunks = DP / kVec;
+  using U = typename std::conditional<sizeof(T) == 2, uint16_t,
+                                      uint32_t>::type;
   for (int e = tid; e < kTile * kChunks; e += NT) {
     const int r = e / kChunks, c = (e - r * kChunks) * kVec;
     T* dst = tile + r * LD + c;
-    const int row = row0 + r;
-    if (row < n && c < D)
-      cp_async16(dst, base + (size_t)row * D + c);
-    else
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+    const int row = row0 + r, col = col0 + c;
+    if (AL) {
+      if (row < n && col < D)
+        cp_async16(dst, base + (size_t)row * D + col);
+      else
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+    } else {
+      alignas(16) U buf[kVec] = {};
+      if (row < n) {
+        const U* src = reinterpret_cast<const U*>(base) + (size_t)row * D;
+#pragma unroll
+        for (int i = 0; i < kVec; ++i)
+          if (col + i < D) buf[i] = src[col + i];
+      }
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(buf);
+    }
   }
 }
 
@@ -114,7 +143,18 @@ __device__ __forceinline__ int kv_tiles(int qt, const Geo& g) {
 // bf16 / f16: tensor cores (mma.sync), 4 warps of 16 rows
 // ===========================================================================
 
-template <typename T, int DP>
+// Where a warp's q fragments stay in registers (up to 128 columns; at 256
+// they are read from shared memory at each use, for registers).
+template <int DP> __host__ __device__ constexpr bool q_in_regs() {
+  return DP <= 128;
+}
+// dK/dV and dQ at 256: grid.z splits the output columns in halves (each
+// block recomputes the scores), for registers.
+template <int DP> __host__ __device__ constexpr int out_split() {
+  return DP > 128 ? 2 : 1;
+}
+
+template <typename T, int DP, bool AL>
 __global__ void __launch_bounds__(kThreads)
 bhd_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, T* __restrict__ out,
@@ -140,17 +180,20 @@ bhd_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = qt * kTile;
   const int n_kv = kv_tiles(qt, g);
 
-  load_rows<T, DP, kLd, kThreads>(q_s, qb, q0, g.SQ, g.D, tid);
-  load_rows<T, DP, kLd, kThreads>(k_s, kb, 0, g.SKV, g.D, tid);
-  load_rows<T, DP, kLd, kThreads>(v_s, vb, 0, g.SKV, g.D, tid);
+  load_rows<T, DP, kLd, kThreads, AL>(q_s, qb, q0, g.SQ, g.D, tid);
+  load_rows<T, DP, kLd, kThreads, AL>(k_s, kb, 0, g.SKV, g.D, tid);
+  load_rows<T, DP, kLd, kThreads, AL>(v_s, vb, 0, g.SKV, g.D, tid);
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
 
-  uint32_t qf[kKs][4];
+  constexpr bool kQReg = q_in_regs<DP>();
+  uint32_t qf[kQReg ? kKs : 1][4];
+  if (kQReg) {
 #pragma unroll
-  for (int kk = 0; kk < kKs; ++kk)
-    load_a<T>(qf[kk], q_s, kLd, warp * 16, kk * 16, lane);
+    for (int kk = 0; kk < kKs; ++kk)
+      load_a<T>(qf[kk], q_s, kLd, warp * 16, kk * 16, lane);
+  }
 
   float acc[DP / 8][4];
 #pragma unroll
@@ -169,10 +212,10 @@ bhd_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
       __syncthreads();
     }
     if (j + 1 < n_kv) {                       // prefetch the next kv tile
-      load_rows<T, DP, kLd, kThreads>(k_s + (buf ^ 1) * kTileEl, kb,
-                                      (j + 1) * kTile, g.SKV, g.D, tid);
-      load_rows<T, DP, kLd, kThreads>(v_s + (buf ^ 1) * kTileEl, vb,
-                                      (j + 1) * kTile, g.SKV, g.D, tid);
+      load_rows<T, DP, kLd, kThreads, AL>(k_s + (buf ^ 1) * kTileEl, kb,
+                                          (j + 1) * kTile, g.SKV, g.D, tid);
+      load_rows<T, DP, kLd, kThreads, AL>(v_s + (buf ^ 1) * kTileEl, vb,
+                                          (j + 1) * kTile, g.SKV, g.D, tid);
       cp_async_commit();
     }
     const T* kt = k_s + buf * kTileEl;
@@ -185,12 +228,15 @@ bhd_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < kKs; ++kk) {
+      uint32_t qs[4];
+      if (!kQReg) load_a<T>(qs, q_s, kLd, warp * 16, kk * 16, lane);
+      const uint32_t* qa = kQReg ? qf[kk] : qs;
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t bk[4];
         load_b_nk<T>(bk, kt, kLd, np * 16, kk * 16, lane);
-        mma<T>(s[2 * np], qf[kk], bk);
-        mma<T>(s[2 * np + 1], qf[kk], bk + 2);
+        mma<T>(s[2 * np], qa, bk);
+        mma<T>(s[2 * np + 1], qa, bk + 2);
       }
     }
 
@@ -274,11 +320,11 @@ bhd_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
     const int d = n * 8 + 2 * tq;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      if (rows[r] < g.SQ && d < g.D) {
+      if (rows[r] < g.SQ) {
         const float l = l_r[r] == 0.f ? 1.f : l_r[r];  // the JAX guard
         T* o = out + ((size_t)bh * g.SQ + rows[r]) * g.D + d;
-        o[0] = from_f<T>(acc[n][2 * r] / l);
-        o[1] = from_f<T>(acc[n][2 * r + 1] / l);
+        if (d < g.D) o[0] = from_f<T>(acc[n][2 * r] / l);
+        if (d + 1 < g.D) o[1] = from_f<T>(acc[n][2 * r + 1] / l);
       }
     }
   }
@@ -291,8 +337,9 @@ bhd_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// dK and dV: one block per (kv tile, bh), over q tiles from the diagonal
-template <typename T, int DP>
+// dK and dV: one block per (kv tile, bh, column part), over q tiles from
+// the diagonal; the block keeps output columns c0..c0+DP/out_split-1
+template <typename T, int DP, bool AL>
 __global__ void __launch_bounds__(kThreads)
 bhd_dkdv_mma(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const T* __restrict__ dout,
@@ -302,8 +349,10 @@ bhd_dkdv_mma(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int kLd = DP + 8;
   constexpr int kTileEl = kTile * kLd;
   constexpr int kKs = DP / 16;
+  constexpr int kDO = DP / out_split<DP>();   // this block's columns
   const int kt_i = blockIdx.x;                // causal: most q tiles first
   const int bh = blockIdx.y;
+  const int c0 = blockIdx.z * kDO;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, tq = lane & 3;
   const T* qb = q + (size_t)bh * g.SQ * g.D;
@@ -327,10 +376,10 @@ bhd_dkdv_mma(const T* __restrict__ q, const T* __restrict__ k,
   const int i0 = g.causal ? kt_i : 0;         // first q tile that sees k0
 
   auto load_q_tile = [&](int i, int buf) {
-    load_rows<T, DP, kLd, kThreads>(q_s + buf * kTileEl, qb, i * kTile, g.SQ,
-                                    g.D, tid);
-    load_rows<T, DP, kLd, kThreads>(do_s + buf * kTileEl, db, i * kTile,
-                                    g.SQ, g.D, tid);
+    load_rows<T, DP, kLd, kThreads, AL>(q_s + buf * kTileEl, qb, i * kTile,
+                                        g.SQ, g.D, tid);
+    load_rows<T, DP, kLd, kThreads, AL>(do_s + buf * kTileEl, db, i * kTile,
+                                        g.SQ, g.D, tid);
     if (tid < kTile) {
       const int row = i * kTile + tid;
       lse_s[buf * kTile + tid] = row < g.SQ ? lse_bh[row] * kLog2e : 0.f;
@@ -338,14 +387,14 @@ bhd_dkdv_mma(const T* __restrict__ q, const T* __restrict__ k,
     }
   };
 
-  load_rows<T, DP, kLd, kThreads>(k_s, kb, k0, g.SKV, g.D, tid);
-  load_rows<T, DP, kLd, kThreads>(v_s, vb, k0, g.SKV, g.D, tid);
+  load_rows<T, DP, kLd, kThreads, AL>(k_s, kb, k0, g.SKV, g.D, tid);
+  load_rows<T, DP, kLd, kThreads, AL>(v_s, vb, k0, g.SKV, g.D, tid);
   if (i0 < n_q) load_q_tile(i0, 0);
   cp_async_commit();
 
-  float dk[DP / 8][4], dv[DP / 8][4];
+  float dk[kDO / 8][4], dv[kDO / 8][4];
 #pragma unroll
-  for (int n = 0; n < DP / 8; ++n)
+  for (int n = 0; n < kDO / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
   const int kr_a = k0 + warp * 16 + gq;
@@ -423,10 +472,10 @@ bhd_dkdv_mma(const T* __restrict__ q, const T* __restrict__ k,
       sa[2] = pack2<T>(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]);
       sa[3] = pack2<T>(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3]);
 #pragma unroll
-      for (int dp = 0; dp < DP / 16; ++dp) {
+      for (int dp = 0; dp < kDO / 16; ++dp) {
         uint32_t bd[4], bq[4];
-        load_b_kn<T>(bd, dot, kLd, kk * 16, dp * 16, lane);
-        load_b_kn<T>(bq, qt, kLd, kk * 16, dp * 16, lane);
+        load_b_kn<T>(bd, dot, kLd, kk * 16, c0 + dp * 16, lane);
+        load_b_kn<T>(bq, qt, kLd, kk * 16, c0 + dp * 16, lane);
         mma<T>(dv[2 * dp], pa, bd);
         mma<T>(dv[2 * dp + 1], pa, bd + 2);
         mma<T>(dk[2 * dp], sa, bq);
@@ -436,23 +485,26 @@ bhd_dkdv_mma(const T* __restrict__ q, const T* __restrict__ k,
   }
 
 #pragma unroll
-  for (int n = 0; n < DP / 8; ++n) {
-    const int d = n * 8 + 2 * tq;
+  for (int n = 0; n < kDO / 8; ++n) {
+    const int d = c0 + n * 8 + 2 * tq;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      if (krows[r] < g.SKV && d < g.D) {
+      if (krows[r] < g.SKV) {
         const size_t at = ((size_t)bh * g.SKV + krows[r]) * g.D + d;
-        dk_out[at] = from_f<T>(dk[n][2 * r]);
-        dk_out[at + 1] = from_f<T>(dk[n][2 * r + 1]);
-        dv_out[at] = from_f<T>(dv[n][2 * r]);
-        dv_out[at + 1] = from_f<T>(dv[n][2 * r + 1]);
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          if (d + u < g.D) {
+            dk_out[at + u] = from_f<T>(dk[n][2 * r + u]);
+            dv_out[at + u] = from_f<T>(dv[n][2 * r + u]);
+          }
       }
     }
   }
 }
 
-// dQ: one block per (q tile, bh), over kv tiles up to the diagonal
-template <typename T, int DP>
+// dQ: one block per (q tile, bh, column part), over kv tiles up to the
+// diagonal; the block keeps output columns c0..c0+DP/out_split-1
+template <typename T, int DP, bool AL>
 __global__ void __launch_bounds__(kThreads)
 bhd_dq_mma(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, const T* __restrict__ dout,
@@ -462,8 +514,10 @@ bhd_dq_mma(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int kLd = DP + 8;
   constexpr int kTileEl = kTile * kLd;
   constexpr int kKs = DP / 16;
+  constexpr int kDO = DP / out_split<DP>();   // this block's columns
   const int qt_i = gridDim.x - 1 - blockIdx.x;  // heavy causal tiles first
   const int bh = blockIdx.y;
+  const int c0 = blockIdx.z * kDO;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, tq = lane & 3;
   const T* qb = q + (size_t)bh * g.SQ * g.D;
@@ -481,19 +535,22 @@ bhd_dq_mma(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = qt_i * kTile;
   const int n_kv = kv_tiles(qt_i, g);
 
-  load_rows<T, DP, kLd, kThreads>(q_s, qb, q0, g.SQ, g.D, tid);
-  load_rows<T, DP, kLd, kThreads>(do_s, db, q0, g.SQ, g.D, tid);
-  load_rows<T, DP, kLd, kThreads>(k_s, kb, 0, g.SKV, g.D, tid);
-  load_rows<T, DP, kLd, kThreads>(v_s, vb, 0, g.SKV, g.D, tid);
+  load_rows<T, DP, kLd, kThreads, AL>(q_s, qb, q0, g.SQ, g.D, tid);
+  load_rows<T, DP, kLd, kThreads, AL>(do_s, db, q0, g.SQ, g.D, tid);
+  load_rows<T, DP, kLd, kThreads, AL>(k_s, kb, 0, g.SKV, g.D, tid);
+  load_rows<T, DP, kLd, kThreads, AL>(v_s, vb, 0, g.SKV, g.D, tid);
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
 
-  uint32_t qf[kKs][4], df[kKs][4];
+  constexpr bool kQReg = q_in_regs<DP>();
+  uint32_t qf[kQReg ? kKs : 1][4], df[kQReg ? kKs : 1][4];
+  if (kQReg) {
 #pragma unroll
-  for (int kk = 0; kk < kKs; ++kk) {
-    load_a<T>(qf[kk], q_s, kLd, warp * 16, kk * 16, lane);
-    load_a<T>(df[kk], do_s, kLd, warp * 16, kk * 16, lane);
+    for (int kk = 0; kk < kKs; ++kk) {
+      load_a<T>(qf[kk], q_s, kLd, warp * 16, kk * 16, lane);
+      load_a<T>(df[kk], do_s, kLd, warp * 16, kk * 16, lane);
+    }
   }
   const int row_a = q0 + warp * 16 + gq;
   const int rows[2] = {row_a, row_a + 8};
@@ -504,9 +561,9 @@ bhd_dq_mma(const T* __restrict__ q, const T* __restrict__ k,
     lse_r[r] = in ? lse[(size_t)bh * g.SQ + rows[r]] * kLog2e : 0.f;
     dl_r[r] = in ? delta[(size_t)bh * g.SQ + rows[r]] : 0.f;
   }
-  float dq[DP / 8][4];
+  float dq[kDO / 8][4];
 #pragma unroll
-  for (int n = 0; n < DP / 8; ++n)
+  for (int n = 0; n < kDO / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
 
@@ -517,10 +574,10 @@ bhd_dq_mma(const T* __restrict__ q, const T* __restrict__ k,
       __syncthreads();
     }
     if (j + 1 < n_kv) {
-      load_rows<T, DP, kLd, kThreads>(k_s + (buf ^ 1) * kTileEl, kb,
-                                      (j + 1) * kTile, g.SKV, g.D, tid);
-      load_rows<T, DP, kLd, kThreads>(v_s + (buf ^ 1) * kTileEl, vb,
-                                      (j + 1) * kTile, g.SKV, g.D, tid);
+      load_rows<T, DP, kLd, kThreads, AL>(k_s + (buf ^ 1) * kTileEl, kb,
+                                          (j + 1) * kTile, g.SKV, g.D, tid);
+      load_rows<T, DP, kLd, kThreads, AL>(v_s + (buf ^ 1) * kTileEl, vb,
+                                          (j + 1) * kTile, g.SKV, g.D, tid);
       cp_async_commit();
     }
     const T* kt = k_s + buf * kTileEl;
@@ -534,15 +591,22 @@ bhd_dq_mma(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < kKs; ++kk) {
+      uint32_t qs[4], ds[4];
+      if (!kQReg) {
+        load_a<T>(qs, q_s, kLd, warp * 16, kk * 16, lane);
+        load_a<T>(ds, do_s, kLd, warp * 16, kk * 16, lane);
+      }
+      const uint32_t* qa = kQReg ? qf[kk] : qs;
+      const uint32_t* da = kQReg ? df[kk] : ds;
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t bk[4], bv[4];
         load_b_nk<T>(bk, kt, kLd, np * 16, kk * 16, lane);
         load_b_nk<T>(bv, vt, kLd, np * 16, kk * 16, lane);
-        mma<T>(s[2 * np], qf[kk], bk);
-        mma<T>(s[2 * np + 1], qf[kk], bk + 2);
-        mma<T>(dp[2 * np], df[kk], bv);
-        mma<T>(dp[2 * np + 1], df[kk], bv + 2);
+        mma<T>(s[2 * np], qa, bk);
+        mma<T>(s[2 * np + 1], qa, bk + 2);
+        mma<T>(dp[2 * np], da, bv);
+        mma<T>(dp[2 * np + 1], da, bv + 2);
       }
     }
     const int k0 = j * kTile;
@@ -572,9 +636,9 @@ bhd_dq_mma(const T* __restrict__ q, const T* __restrict__ k,
       sa[2] = pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
       sa[3] = pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
-      for (int d2 = 0; d2 < DP / 16; ++d2) {
+      for (int d2 = 0; d2 < kDO / 16; ++d2) {
         uint32_t bk[4];
-        load_b_kn<T>(bk, kt, kLd, kk * 16, d2 * 16, lane);
+        load_b_kn<T>(bk, kt, kLd, kk * 16, c0 + d2 * 16, lane);
         mma<T>(dq[2 * d2], sa, bk);
         mma<T>(dq[2 * d2 + 1], sa, bk + 2);
       }
@@ -582,14 +646,14 @@ bhd_dq_mma(const T* __restrict__ q, const T* __restrict__ k,
   }
 
 #pragma unroll
-  for (int n = 0; n < DP / 8; ++n) {
-    const int d = n * 8 + 2 * tq;
+  for (int n = 0; n < kDO / 8; ++n) {
+    const int d = c0 + n * 8 + 2 * tq;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      if (rows[r] < g.SQ && d < g.D) {
+      if (rows[r] < g.SQ) {
         T* o = dq_out + ((size_t)bh * g.SQ + rows[r]) * g.D + d;
-        o[0] = from_f<T>(dq[n][2 * r]);
-        o[1] = from_f<T>(dq[n][2 * r + 1]);
+        if (d < g.D) o[0] = from_f<T>(dq[n][2 * r]);
+        if (d + 1 < g.D) o[1] = from_f<T>(dq[n][2 * r + 1]);
       }
     }
   }
@@ -600,14 +664,17 @@ bhd_dq_mma(const T* __restrict__ q, const T* __restrict__ k,
 // ===========================================================================
 
 // s[i][j] = A[ty*4 + i] . B[tx + 16 j] over DP columns (tiles of row stride
-// LD): the 4 x 4 block of a 64 x 64 product that this thread owns.
-template <int DP, int LD>
+// LD): the 4 x 4 block of a 64 x 64 product that this thread owns.  ACC:
+// add to s (the next column chunk) instead.
+template <int DP, int LD, bool ACC = false>
 __device__ __forceinline__ void dot_tile(float (&s)[4][4], const float* a,
                                          const float* b, int ty, int tx) {
+  if (!ACC) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+  }
 #pragma unroll
   for (int d = 0; d < DP; d += 4) {
     float4 av[4], bv[4];
@@ -678,12 +745,13 @@ __device__ __forceinline__ float row_sum16(float x) {
   return x;
 }
 
-// store a 4 x DP/16 block (rows row0 + i, columns tx*4 + 64u + t) of an
-// (n, D) matrix
+// store a 4 x DP/16 block (rows row0 + i, columns c0 + tx*4 + 64u + t) of
+// an (n, D) matrix
 template <int DP>
 __device__ __forceinline__ void store_block(float* base,
                                             const float (&acc)[4][DP / 16],
-                                            int row0, int n, int D, int tx) {
+                                            int row0, int n, int D, int tx,
+                                            int c0 = 0) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     if (row0 + i >= n) continue;
@@ -692,13 +760,15 @@ __device__ __forceinline__ void store_block(float* base,
     for (int u = 0; u < DP / 64; ++u)
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
-        const int d = tx * 4 + 64 * u + t;
+        const int d = c0 + tx * 4 + 64 * u + t;
         if (d < D) row[d] = acc[i][4 * u + t];
       }
   }
 }
 
-template <int DP>
+// STAGES 2 double-buffers the kv tiles; 1 (at 256, for shared memory)
+// loads the next tile after this one's P.V
+template <int DP, int STAGES, bool AL>
 __global__ void __launch_bounds__(kThreadsF)
 bhd_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, float* __restrict__ out,
@@ -716,15 +786,20 @@ bhd_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   extern __shared__ __align__(16) unsigned char smem[];
   float* q_s = reinterpret_cast<float*>(smem);
-  float* k_s = q_s + kTileEl;                 // two buffers
-  float* v_s = k_s + 2 * kTileEl;             // two buffers
-  float* p_s = v_s + 2 * kTileEl;             // [64][kPLd]
+  float* k_s = q_s + kTileEl;                 // STAGES buffers
+  float* v_s = k_s + STAGES * kTileEl;        // STAGES buffers
+  float* p_s = v_s + STAGES * kTileEl;        // [64][kPLd]
 
   const int q0 = qt * kTile;
   const int n_kv = kv_tiles(qt, g);
-  load_rows<float, DP, kLd, kThreadsF>(q_s, qb, q0, g.SQ, g.D, tid);
-  load_rows<float, DP, kLd, kThreadsF>(k_s, kb, 0, g.SKV, g.D, tid);
-  load_rows<float, DP, kLd, kThreadsF>(v_s, vb, 0, g.SKV, g.D, tid);
+  auto load_kv = [&](int j, int buf) {
+    load_rows<float, DP, kLd, kThreadsF, AL>(k_s + buf * kTileEl, kb,
+                                             j * kTile, g.SKV, g.D, tid);
+    load_rows<float, DP, kLd, kThreadsF, AL>(v_s + buf * kTileEl, vb,
+                                             j * kTile, g.SKV, g.D, tid);
+  };
+  load_rows<float, DP, kLd, kThreadsF, AL>(q_s, qb, q0, g.SQ, g.D, tid);
+  load_kv(0, 0);
   cp_async_commit();
 
   float acc[4][DP / 16];
@@ -740,14 +815,11 @@ bhd_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   for (int j = 0; j < n_kv; ++j) {
-    const int buf = j & 1;
+    const int buf = STAGES == 2 ? j & 1 : 0;
     cp_async_wait_all();
     __syncthreads();
-    if (j + 1 < n_kv) {
-      load_rows<float, DP, kLd, kThreadsF>(k_s + (buf ^ 1) * kTileEl, kb,
-                                           (j + 1) * kTile, g.SKV, g.D, tid);
-      load_rows<float, DP, kLd, kThreadsF>(v_s + (buf ^ 1) * kTileEl, vb,
-                                           (j + 1) * kTile, g.SKV, g.D, tid);
+    if (STAGES == 2 && j + 1 < n_kv) {
+      load_kv(j + 1, buf ^ 1);
       cp_async_commit();
     }
     float s[4][4];
@@ -792,6 +864,11 @@ bhd_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
     pv_tile<DP, kLd>(acc, p_s, v_s + buf * kTileEl, ty, tx);
+    if (STAGES == 1 && j + 1 < n_kv) {
+      __syncthreads();                        // every read of the tile done
+      load_kv(j + 1, 0);
+      cp_async_commit();
+    }
   }
 
 #pragma unroll
@@ -807,7 +884,7 @@ bhd_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                   tx);
 }
 
-template <int DP, int STAGES>
+template <int DP, int STAGES, bool AL>
 __global__ void __launch_bounds__(kThreadsF)
 bhd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ dout,
@@ -842,10 +919,10 @@ bhd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int i0 = g.causal ? kt_i : 0;         // first q tile that sees k0
 
   auto load_q_tile = [&](int i, int buf) {
-    load_rows<float, DP, kLd, kThreadsF>(q_s + buf * kTileEl, qb, i * kTile,
-                                         g.SQ, g.D, tid);
-    load_rows<float, DP, kLd, kThreadsF>(do_s + buf * kTileEl, db,
-                                         i * kTile, g.SQ, g.D, tid);
+    load_rows<float, DP, kLd, kThreadsF, AL>(q_s + buf * kTileEl, qb,
+                                             i * kTile, g.SQ, g.D, tid);
+    load_rows<float, DP, kLd, kThreadsF, AL>(do_s + buf * kTileEl, db,
+                                             i * kTile, g.SQ, g.D, tid);
     if (tid < kTile) {
       const int row = i * kTile + tid;
       lse_s[buf * kTile + tid] = row < g.SQ ? lse_bh[row] * kLog2e : 0.f;
@@ -853,8 +930,8 @@ bhd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
   };
 
-  load_rows<float, DP, kLd, kThreadsF>(k_s, kb, k0, g.SKV, g.D, tid);
-  load_rows<float, DP, kLd, kThreadsF>(v_s, vb, k0, g.SKV, g.D, tid);
+  load_rows<float, DP, kLd, kThreadsF, AL>(k_s, kb, k0, g.SKV, g.D, tid);
+  load_rows<float, DP, kLd, kThreadsF, AL>(v_s, vb, k0, g.SKV, g.D, tid);
   if (i0 < n_q) load_q_tile(i0, 0);
   cp_async_commit();
 
@@ -922,7 +999,7 @@ bhd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
   store_block<DP>(dv_out + at, dv, k0 + ty * 4, g.SKV, g.D, tx);
 }
 
-template <int DP>
+template <int DP, bool AL>
 __global__ void __launch_bounds__(kThreadsF)
 bhd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ dout,
@@ -949,10 +1026,10 @@ bhd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   const int q0 = qt_i * kTile;
   const int n_kv = kv_tiles(qt_i, g);
-  load_rows<float, DP, kLd, kThreadsF>(q_s, qb, q0, g.SQ, g.D, tid);
-  load_rows<float, DP, kLd, kThreadsF>(do_s, db, q0, g.SQ, g.D, tid);
-  load_rows<float, DP, kLd, kThreadsF>(k_s, kb, 0, g.SKV, g.D, tid);
-  load_rows<float, DP, kLd, kThreadsF>(v_s, vb, 0, g.SKV, g.D, tid);
+  load_rows<float, DP, kLd, kThreadsF, AL>(q_s, qb, q0, g.SQ, g.D, tid);
+  load_rows<float, DP, kLd, kThreadsF, AL>(do_s, db, q0, g.SQ, g.D, tid);
+  load_rows<float, DP, kLd, kThreadsF, AL>(k_s, kb, 0, g.SKV, g.D, tid);
+  load_rows<float, DP, kLd, kThreadsF, AL>(v_s, vb, 0, g.SKV, g.D, tid);
   cp_async_commit();
 
   float dq[4][DP / 16], lse_r[4], dl_r[4];
@@ -972,10 +1049,12 @@ bhd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_wait_all();
     __syncthreads();
     if (j + 1 < n_kv) {
-      load_rows<float, DP, kLd, kThreadsF>(k_s + (buf ^ 1) * kTileEl, kb,
-                                           (j + 1) * kTile, g.SKV, g.D, tid);
-      load_rows<float, DP, kLd, kThreadsF>(v_s + (buf ^ 1) * kTileEl, vb,
-                                           (j + 1) * kTile, g.SKV, g.D, tid);
+      load_rows<float, DP, kLd, kThreadsF, AL>(k_s + (buf ^ 1) * kTileEl,
+                                               kb, (j + 1) * kTile, g.SKV,
+                                               g.D, tid);
+      load_rows<float, DP, kLd, kThreadsF, AL>(v_s + (buf ^ 1) * kTileEl,
+                                               vb, (j + 1) * kTile, g.SKV,
+                                               g.D, tid);
       cp_async_commit();
     }
     const float* kt = k_s + buf * kTileEl;
@@ -1007,9 +1086,226 @@ bhd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
                   g.D, tx);
 }
 
+// f32 at 256 columns: a 64 x 260 f32 tile is 66.5 KB, so K, V, q and dO do
+// not fit beside each other.  The wide kernels hold them in column chunks
+// of kCw (128): the scores sum the chunks' products into one accumulator,
+// and grid.z picks the block's output chunk; the chunk loop runs the other
+// chunk first and ends on the block's own, whose tiles then feed the
+// output products.  Every output has one fixed summation order.
+constexpr int kCw = 128;
+constexpr int kChunksW = 2;
+
+// dK and dV at 256: one block per (kv tile, bh, output chunk)
+template <bool AL>
+__global__ void __launch_bounds__(kThreadsF)
+bhd_dkdv_f32_wide(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta,
+                  const int32_t* __restrict__ seed_ptr,
+                  float* __restrict__ dk_out, float* __restrict__ dv_out,
+                  Geo g) {
+  constexpr int kLd = kCw + 4;
+  constexpr int kTileEl = kTile * kLd;
+  const int kt_i = blockIdx.x;                // causal: most q tiles first
+  const int bh = blockIdx.y;
+  const int z = blockIdx.z;                   // output chunk
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const float* qb = q + (size_t)bh * g.SQ * g.D;
+  const float* db = dout + (size_t)bh * g.SQ * g.D;
+  const float* kb = k + (size_t)bh * g.SKV * g.D;
+  const float* vb = v + (size_t)bh * g.SKV * g.D;
+  const float* lse_bh = lse + (size_t)bh * g.SQ;
+  const float* delta_bh = delta + (size_t)bh * g.SQ;
+  const int32_t seed = g.dropout ? seed_ptr[0] : 0;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* k_s = reinterpret_cast<float*>(smem);   // one column chunk each
+  float* v_s = k_s + kTileEl;
+  float* q_s = v_s + kTileEl;
+  float* do_s = q_s + kTileEl;
+  float* pt_s = do_s + kTileEl;               // [64][kPLd] dropped P^T
+  float* ds_s = pt_s + kTile * kPLd;          // [64][kPLd] dS^T
+  float* lse_s = ds_s + kTile * kPLd;         // [64]
+  float* dl_s = lse_s + kTile;                // [64]
+
+  const int k0 = kt_i * kTile;
+  const int n_q = (g.SQ + kTile - 1) / kTile;
+  const int i0 = g.causal ? kt_i : 0;
+  float dk[4][kCw / 16], dv[4][kCw / 16];
+  int krows[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int c = 0; c < kCw / 16; ++c) dk[i][c] = dv[i][c] = 0.f;
+    krows[i] = k0 + ty * 4 + i;
+  }
+
+  for (int i = i0; i < n_q; ++i) {
+    const int q0 = i * kTile;
+    float st[4][4], dpt[4][4];
+#pragma unroll
+    for (int t = 0; t < kChunksW; ++t) {
+      const int col0 = ((z + 1 + t) % kChunksW) * kCw;
+      __syncthreads();                        // the last chunk's readers
+      load_rows<float, kCw, kLd, kThreadsF, AL>(k_s, kb, k0, g.SKV, g.D, tid,
+                                                col0);
+      load_rows<float, kCw, kLd, kThreadsF, AL>(v_s, vb, k0, g.SKV, g.D, tid,
+                                                col0);
+      load_rows<float, kCw, kLd, kThreadsF, AL>(q_s, qb, q0, g.SQ, g.D, tid,
+                                                col0);
+      load_rows<float, kCw, kLd, kThreadsF, AL>(do_s, db, q0, g.SQ, g.D,
+                                                tid, col0);
+      if (t == 0 && tid < kTile) {
+        const int row = q0 + tid;
+        lse_s[tid] = row < g.SQ ? lse_bh[row] * kLog2e : 0.f;
+        dl_s[tid] = row < g.SQ ? delta_bh[row] : 0.f;
+      }
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+      if (t == 0) {
+        dot_tile<kCw, kLd>(st, k_s, q_s, ty, tx);
+        dot_tile<kCw, kLd>(dpt, v_s, do_s, ty, tx);
+      } else {
+        dot_tile<kCw, kLd, true>(st, k_s, q_s, ty, tx);
+        dot_tile<kCw, kLd, true>(dpt, v_s, do_s, ty, tx);
+      }
+    }
+    const bool need_mask = q0 + kTile > g.SQ ||
+                           (g.causal && q0 < k0 + ty * 4 + 3);
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int cq = tx + 16 * jj;
+        const int qpos = q0 + cq;
+        const int kpos = krows[ii];
+        float pt = exp2f(fmaf(st[ii][jj], g.scale_log2, -lse_s[cq]));
+        if (need_mask)
+          pt = (qpos < g.SQ && (!g.causal || qpos >= kpos)) ? pt : 0.f;
+        float ptv = pt, dp = dpt[ii][jj];
+        if (g.dropout) {
+          const bool keep = keep_elem(seed, bh, qpos, kpos, g.thresh);
+          ptv = keep ? pt / g.keep_prob : 0.f;
+          dp = keep ? dp / g.keep_prob : 0.f;
+        }
+        pt_s[(ty * 4 + ii) * kPLd + cq] = ptv;
+        ds_s[(ty * 4 + ii) * kPLd + cq] = pt * (dp - dl_s[cq]) * g.scale;
+      }
+    __syncthreads();
+    // the tiles now hold chunk z: dV += drop(P^T) . dO, dK += dS^T . q
+    pv_tile<kCw, kLd>(dv, pt_s, do_s, ty, tx);
+    pv_tile<kCw, kLd>(dk, ds_s, q_s, ty, tx);
+  }
+
+  const size_t at = (size_t)bh * g.SKV * g.D;
+  store_block<kCw>(dk_out + at, dk, k0 + ty * 4, g.SKV, g.D, tx, z * kCw);
+  store_block<kCw>(dv_out + at, dv, k0 + ty * 4, g.SKV, g.D, tx, z * kCw);
+}
+
+// dQ at 256: one block per (q tile, bh, output chunk)
+template <bool AL>
+__global__ void __launch_bounds__(kThreadsF)
+bhd_dq_f32_wide(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                const int32_t* __restrict__ seed_ptr,
+                float* __restrict__ dq_out, Geo g) {
+  constexpr int kLd = kCw + 4;
+  constexpr int kTileEl = kTile * kLd;
+  const int qt_i = gridDim.x - 1 - blockIdx.x;  // heavy causal tiles first
+  const int bh = blockIdx.y;
+  const int z = blockIdx.z;                     // output chunk
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const float* qb = q + (size_t)bh * g.SQ * g.D;
+  const float* db = dout + (size_t)bh * g.SQ * g.D;
+  const float* kb = k + (size_t)bh * g.SKV * g.D;
+  const float* vb = v + (size_t)bh * g.SKV * g.D;
+  const int32_t seed = g.dropout ? seed_ptr[0] : 0;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* q_s = reinterpret_cast<float*>(smem);   // one column chunk each
+  float* do_s = q_s + kTileEl;
+  float* k_s = do_s + kTileEl;
+  float* v_s = k_s + kTileEl;
+  float* ds_s = v_s + kTileEl;                   // [64][kPLd]
+
+  const int q0 = qt_i * kTile;
+  const int n_kv = kv_tiles(qt_i, g);
+  float dq[4][kCw / 16], lse_r[4], dl_r[4];
+  int rows[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int c = 0; c < kCw / 16; ++c) dq[i][c] = 0.f;
+    rows[i] = q0 + ty * 4 + i;
+    const bool in = rows[i] < g.SQ;
+    lse_r[i] = in ? lse[(size_t)bh * g.SQ + rows[i]] * kLog2e : 0.f;
+    dl_r[i] = in ? delta[(size_t)bh * g.SQ + rows[i]] : 0.f;
+  }
+
+  for (int j = 0; j < n_kv; ++j) {
+    const int k0 = j * kTile;
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int t = 0; t < kChunksW; ++t) {
+      const int col0 = ((z + 1 + t) % kChunksW) * kCw;
+      __syncthreads();                        // the last chunk's readers
+      load_rows<float, kCw, kLd, kThreadsF, AL>(q_s, qb, q0, g.SQ, g.D, tid,
+                                                col0);
+      load_rows<float, kCw, kLd, kThreadsF, AL>(do_s, db, q0, g.SQ, g.D,
+                                                tid, col0);
+      load_rows<float, kCw, kLd, kThreadsF, AL>(k_s, kb, k0, g.SKV, g.D, tid,
+                                                col0);
+      load_rows<float, kCw, kLd, kThreadsF, AL>(v_s, vb, k0, g.SKV, g.D, tid,
+                                                col0);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+      if (t == 0) {
+        dot_tile<kCw, kLd>(s, q_s, k_s, ty, tx);
+        dot_tile<kCw, kLd>(dp, do_s, v_s, ty, tx);
+      } else {
+        dot_tile<kCw, kLd, true>(s, q_s, k_s, ty, tx);
+        dot_tile<kCw, kLd, true>(dp, do_s, v_s, ty, tx);
+      }
+    }
+    const bool need_mask = k0 + kTile > g.SKV ||
+                           (g.causal && k0 + kTile - 1 > q0 + ty * 4);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int col = k0 + tx + 16 * jj;
+        float p = exp2f(fmaf(s[i][jj], g.scale_log2, -lse_r[i]));
+        if (need_mask)
+          p = (col < g.SKV && (!g.causal || col <= rows[i])) ? p : 0.f;
+        float d = dp[i][jj];
+        if (g.dropout)
+          d = keep_elem(seed, bh, rows[i], col, g.thresh) ? d / g.keep_prob
+                                                          : 0.f;
+        ds_s[(ty * 4 + i) * kPLd + tx + 16 * jj] = p * (d - dl_r[i]) * g.scale;
+      }
+    __syncthreads();
+    pv_tile<kCw, kLd>(dq, ds_s, k_s, ty, tx);   // dQ += dS . K, chunk z
+  }
+
+  store_block<kCw>(dq_out + (size_t)bh * g.SQ * g.D, dq, q0 + ty * 4, g.SQ,
+                   g.D, tx, z * kCw);
+}
+
 // ===========================================================================
 // Launch
 // ===========================================================================
+
+#if !defined(FLASH_DP) || !defined(FLASH_F32)
+#error "build once per padded head width and family: -DFLASH_DP=64, 128 \
+or 256 and -DFLASH_F32=1 (f32) or 0 (bf16/f16)"
+#endif
+constexpr int kDP = FLASH_DP;                 // this library's width
+static_assert(kDP == 64 || kDP == 128 || kDP == 256, "FLASH_DP");
+constexpr bool kF32 = FLASH_F32 != 0;         // this library's family
 
 template <typename T, int DP> constexpr size_t mma_tile() {
   return (size_t)kTile * (DP + 8) * sizeof(T);
@@ -1018,8 +1314,11 @@ template <int DP> constexpr size_t f32_tile() {
   return (size_t)kTile * (DP + 4) * sizeof(float);
 }
 constexpr size_t kPTile = (size_t)kTile * kPLd * sizeof(float);
-// dK/dV in f32 double-buffers its q / dO tiles where shared memory allows
+// The f32 kernels double-buffer their streamed tiles where shared memory
+// allows it; at 256, dK/dV and dQ run the wide (column-chunked) kernels.
+template <int DP> constexpr int fwd_stages() { return DP <= 128 ? 2 : 1; }
 template <int DP> constexpr int dkdv_stages() { return DP <= 64 ? 2 : 1; }
+constexpr bool kWideF32 = kDP > 128;
 
 template <typename KernelT, typename... Args>
 int launch(KernelT kernel, dim3 grid, int threads, size_t smem,
@@ -1032,18 +1331,19 @@ int launch(KernelT kernel, dim3 grid, int threads, size_t smem,
 
 int tiles(int n) { return (n + kTile - 1) / kTile; }
 
-template <typename T, int DP>
+template <typename T, bool AL>
 int fwd_mma(const Ptrs& a, const Geo& g, cudaStream_t st) {
-  return launch(bhd_fwd_mma<T, DP>, dim3(tiles(g.SQ), a.BH), kThreads,
-                5 * mma_tile<T, DP>(), st, static_cast<const T*>(a.q),
+  return launch(bhd_fwd_mma<T, kDP, AL>, dim3(tiles(g.SQ), a.BH), kThreads,
+                5 * mma_tile<T, kDP>(), st, static_cast<const T*>(a.q),
                 static_cast<const T*>(a.k), static_cast<const T*>(a.v),
                 static_cast<T*>(a.out), static_cast<float*>(a.lse),
                 static_cast<const int32_t*>(a.seed), g);
 }
-template <typename T, int DP>
+template <typename T, bool AL>
 int dkdv_mma(const Ptrs& a, const Geo& g, cudaStream_t st) {
-  return launch(bhd_dkdv_mma<T, DP>, dim3(tiles(g.SKV), a.BH), kThreads,
-                6 * mma_tile<T, DP>() + 4 * kTile * sizeof(float), st,
+  return launch(bhd_dkdv_mma<T, kDP, AL>,
+                dim3(tiles(g.SKV), a.BH, out_split<kDP>()), kThreads,
+                6 * mma_tile<T, kDP>() + 4 * kTile * sizeof(float), st,
                 static_cast<const T*>(a.q), static_cast<const T*>(a.k),
                 static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
                 static_cast<const float*>(a.lse_in),
@@ -1051,10 +1351,11 @@ int dkdv_mma(const Ptrs& a, const Geo& g, cudaStream_t st) {
                 static_cast<const int32_t*>(a.seed), static_cast<T*>(a.dk),
                 static_cast<T*>(a.dv), g);
 }
-template <typename T, int DP>
+template <typename T, bool AL>
 int dq_mma(const Ptrs& a, const Geo& g, cudaStream_t st) {
-  return launch(bhd_dq_mma<T, DP>, dim3(tiles(g.SQ), a.BH), kThreads,
-                6 * mma_tile<T, DP>(), st, static_cast<const T*>(a.q),
+  return launch(bhd_dq_mma<T, kDP, AL>,
+                dim3(tiles(g.SQ), a.BH, out_split<kDP>()), kThreads,
+                6 * mma_tile<T, kDP>(), st, static_cast<const T*>(a.q),
                 static_cast<const T*>(a.k), static_cast<const T*>(a.v),
                 static_cast<const T*>(a.dout),
                 static_cast<const float*>(a.lse_in),
@@ -1063,63 +1364,113 @@ int dq_mma(const Ptrs& a, const Geo& g, cudaStream_t st) {
                 g);
 }
 
-template <int DP>
+template <bool AL>
 int fwd_f32(const Ptrs& a, const Geo& g, cudaStream_t st) {
-  return launch(bhd_fwd_f32<DP>, dim3(tiles(g.SQ), a.BH), kThreadsF,
-                5 * f32_tile<DP>() + kPTile, st,
+  constexpr int S = fwd_stages<kDP>();
+  return launch(bhd_fwd_f32<kDP, S, AL>, dim3(tiles(g.SQ), a.BH), kThreadsF,
+                (1 + 2 * S) * f32_tile<kDP>() + kPTile, st,
                 static_cast<const float*>(a.q),
                 static_cast<const float*>(a.k),
                 static_cast<const float*>(a.v), static_cast<float*>(a.out),
                 static_cast<float*>(a.lse),
                 static_cast<const int32_t*>(a.seed), g);
 }
-template <int DP>
+template <bool AL>
 int dkdv_f32(const Ptrs& a, const Geo& g, cudaStream_t st) {
-  constexpr int S = dkdv_stages<DP>();
-  return launch(bhd_dkdv_f32<DP, S>, dim3(tiles(g.SKV), a.BH), kThreadsF,
-                (2 + 2 * S) * f32_tile<DP>() + 2 * kPTile +
-                    2 * S * kTile * sizeof(float),
-                st, static_cast<const float*>(a.q),
-                static_cast<const float*>(a.k),
-                static_cast<const float*>(a.v),
-                static_cast<const float*>(a.dout),
-                static_cast<const float*>(a.lse_in),
-                static_cast<const float*>(a.delta),
-                static_cast<const int32_t*>(a.seed),
-                static_cast<float*>(a.dk), static_cast<float*>(a.dv), g);
+  const float *q = static_cast<const float*>(a.q),
+              *k = static_cast<const float*>(a.k),
+              *v = static_cast<const float*>(a.v),
+              *d = static_cast<const float*>(a.dout),
+              *l = static_cast<const float*>(a.lse_in),
+              *dl = static_cast<const float*>(a.delta);
+  const int32_t* seed = static_cast<const int32_t*>(a.seed);
+  float *dk = static_cast<float*>(a.dk), *dv = static_cast<float*>(a.dv);
+  if constexpr (kWideF32) {
+    return launch(bhd_dkdv_f32_wide<AL>,
+                  dim3(tiles(g.SKV), a.BH, kChunksW), kThreadsF,
+                  4 * f32_tile<kCw>() + 2 * kPTile +
+                      2 * kTile * sizeof(float),
+                  st, q, k, v, d, l, dl, seed, dk, dv, g);
+  } else {
+    constexpr int S = dkdv_stages<kDP>();
+    return launch(bhd_dkdv_f32<kDP, S, AL>, dim3(tiles(g.SKV), a.BH),
+                  kThreadsF,
+                  (2 + 2 * S) * f32_tile<kDP>() + 2 * kPTile +
+                      2 * S * kTile * sizeof(float),
+                  st, q, k, v, d, l, dl, seed, dk, dv, g);
+  }
 }
-template <int DP>
+template <bool AL>
 int dq_f32(const Ptrs& a, const Geo& g, cudaStream_t st) {
-  return launch(bhd_dq_f32<DP>, dim3(tiles(g.SQ), a.BH), kThreadsF,
-                6 * f32_tile<DP>() + kPTile, st,
-                static_cast<const float*>(a.q),
-                static_cast<const float*>(a.k),
-                static_cast<const float*>(a.v),
-                static_cast<const float*>(a.dout),
-                static_cast<const float*>(a.lse_in),
-                static_cast<const float*>(a.delta),
-                static_cast<const int32_t*>(a.seed),
-                static_cast<float*>(a.dq), g);
+  const float *q = static_cast<const float*>(a.q),
+              *k = static_cast<const float*>(a.k),
+              *v = static_cast<const float*>(a.v),
+              *d = static_cast<const float*>(a.dout),
+              *l = static_cast<const float*>(a.lse_in),
+              *dl = static_cast<const float*>(a.delta);
+  const int32_t* seed = static_cast<const int32_t*>(a.seed);
+  float* dq = static_cast<float*>(a.dq);
+  if constexpr (kWideF32) {
+    return launch(bhd_dq_f32_wide<AL>, dim3(tiles(g.SQ), a.BH, kChunksW),
+                  kThreadsF, 4 * f32_tile<kCw>() + kPTile, st, q, k, v, d, l,
+                  dl, seed, dq, g);
+  } else {
+    return launch(bhd_dq_f32<kDP, AL>, dim3(tiles(g.SQ), a.BH), kThreadsF,
+                  6 * f32_tile<kDP>() + kPTile, st, q, k, v, d, l, dl, seed,
+                  dq, g);
+  }
 }
 
-// One kernel family, dispatched by dtype (0 f32, 1 bf16, 2 f16) and by the
-// padded head width (64 or 128).
-template <int (*F32_64)(const Ptrs&, const Geo&, cudaStream_t),
-          int (*F32_128)(const Ptrs&, const Geo&, cudaStream_t),
-          int (*BF_64)(const Ptrs&, const Geo&, cudaStream_t),
-          int (*BF_128)(const Ptrs&, const Geo&, cudaStream_t),
-          int (*H_64)(const Ptrs&, const Geo&, cudaStream_t),
-          int (*H_128)(const Ptrs&, const Geo&, cudaStream_t)>
+// One kernel, dispatched by dtype (0 f32, 1 bf16, 2 f16) and by whether
+// every row is 16-byte aligned.  This library takes its padded width
+// kDP's D in (kDP/2, kDP] (from 1 at 64) and its family's dtypes: f32
+// (kF32), or bf16 and f16.  (Two families a width, so that their
+// instances compile in parallel.)
+template <template <typename, bool> class F>
 int dispatch(int dtype, const Ptrs& a, const Geo& g, void* stream) {
-  if (dtype < 0 || dtype > 2 || a.BH < 1 || a.BH > 65535 || g.SQ < 1 ||
-      g.SKV < 1 || g.D < 8 || g.D > 128 || g.D % 8 != 0)
+  const int lo = kDP == 64 ? 1 : kDP / 2 + 1;
+  if (dtype < 0 || dtype > 2 || (dtype == 0) != kF32 || a.BH < 1 ||
+      a.BH > 65535 || g.SQ < 1 || g.SKV < 1 || g.D < lo || g.D > kDP)
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool narrow = g.D <= 64;
-  if (dtype == 0) return narrow ? F32_64(a, g, st) : F32_128(a, g, st);
-  if (dtype == 1) return narrow ? BF_64(a, g, st) : BF_128(a, g, st);
-  return narrow ? H_64(a, g, st) : H_128(a, g, st);
+  const bool al = (g.D * (kF32 ? 4 : 2)) % 16 == 0;
+  if constexpr (kF32) {
+    return al ? F<float, true>::run(a, g, st) : F<float, false>::run(a, g, st);
+  } else {
+    if (dtype == 1)
+      return al ? F<__nv_bfloat16, true>::run(a, g, st)
+                : F<__nv_bfloat16, false>::run(a, g, st);
+    return al ? F<__half, true>::run(a, g, st)
+              : F<__half, false>::run(a, g, st);
+  }
 }
+
+// The three families as dispatch's F: the f32 instances on the CUDA cores,
+// the bf16/f16 ones on mma.sync.
+template <typename T, bool AL> struct Fwd {
+  static int run(const Ptrs& a, const Geo& g, cudaStream_t st) {
+    if constexpr (std::is_same<T, float>::value)
+      return fwd_f32<AL>(a, g, st);
+    else
+      return fwd_mma<T, AL>(a, g, st);
+  }
+};
+template <typename T, bool AL> struct Dkdv {
+  static int run(const Ptrs& a, const Geo& g, cudaStream_t st) {
+    if constexpr (std::is_same<T, float>::value)
+      return dkdv_f32<AL>(a, g, st);
+    else
+      return dkdv_mma<T, AL>(a, g, st);
+  }
+};
+template <typename T, bool AL> struct Dq {
+  static int run(const Ptrs& a, const Geo& g, cudaStream_t st) {
+    if constexpr (std::is_same<T, float>::value)
+      return dq_f32<AL>(a, g, st);
+    else
+      return dq_mma<T, AL>(a, g, st);
+  }
+};
 
 Geo make_geo(int SQ, int SKV, int D, int causal, float scale, int dropout,
              float keep_prob, int thresh) {
@@ -1155,9 +1506,7 @@ int flash_bhd_fwd(int dtype, const void* q, const void* k, const void* v,
   a.out = out;
   a.lse = lse;
   a.BH = BH;
-  return dispatch<fwd_f32<64>, fwd_f32<128>, fwd_mma<__nv_bfloat16, 64>,
-                  fwd_mma<__nv_bfloat16, 128>, fwd_mma<__half, 64>,
-                  fwd_mma<__half, 128>>(
+  return dispatch<Fwd>(
       dtype, a, make_geo(SQ, SKV, D, causal, scale, dropout, keep_prob, thresh),
       stream);
 }
@@ -1178,9 +1527,7 @@ int flash_bhd_dkdv(int dtype, const void* q, const void* k, const void* v,
   a.dk = dk;
   a.dv = dv;
   a.BH = BH;
-  return dispatch<dkdv_f32<64>, dkdv_f32<128>, dkdv_mma<__nv_bfloat16, 64>,
-                  dkdv_mma<__nv_bfloat16, 128>, dkdv_mma<__half, 64>,
-                  dkdv_mma<__half, 128>>(
+  return dispatch<Dkdv>(
       dtype, a, make_geo(SQ, SKV, D, causal, scale, dropout, keep_prob, thresh),
       stream);
 }
@@ -1200,9 +1547,7 @@ int flash_bhd_dq(int dtype, const void* q, const void* k, const void* v,
   a.seed = seed;
   a.dq = dq;
   a.BH = BH;
-  return dispatch<dq_f32<64>, dq_f32<128>, dq_mma<__nv_bfloat16, 64>,
-                  dq_mma<__nv_bfloat16, 128>, dq_mma<__half, 64>,
-                  dq_mma<__half, 128>>(
+  return dispatch<Dq>(
       dtype, a, make_geo(SQ, SKV, D, causal, scale, dropout, keep_prob, thresh),
       stream);
 }

@@ -17,7 +17,8 @@
 //   Δ = rowsum(dO * O) per head (f32) comes from the caller, as in JAX.
 //
 // Numerics follow the JAX kernels' rounding points: q * sm_scale rounded to
-// the input type before Q.K^T (the scale itself rounded first), P rounded
+// the input type before Q.K^T (the scale itself rounded first; see
+// ``fold`` below for where the f32 product is scaled instead), P rounded
 // before P.V, dS^T / dS rounded before the dK / dQ products, k * sm_scale
 // rounded for dQ; masked scores at the finite -1e30 before the running max,
 // the l == 0 -> 1 and log(max(l, 1e-30)) guards.  Dropout regenerates the
@@ -35,35 +36,47 @@
 //   dq  : 3 products (S, dP, dQ) ~ 77 GFLOP -> 78 us.
 // chip_smoke.py recomputes these from the run's inputs.
 //
-// Forward design (simple and right first; its Hopper redesign is later
-// work):
-//   * one block of 4 warps per (64-row tile, head, batch); each warp owns
-//     16 rows of the tile.  Tensor cores through mma.sync m16n8k16 (bf16 or
-//     f16 in, f32 accumulate), operands fed by ldmatrix from shared memory
-//     rows padded by 16 bytes (conflict-free), the probability tile reused
-//     from the accumulator registers as the P.V product's A operand; the
-//     kv tiles double-buffered with cp.async.
-//   * causal tiles above the diagonal are never loaded; blocks with the
-//     most tiles are launched first.  Scores are taken in log2 units so
-//     each probability is one exp2f, and the causal / ragged mask runs only
-//     on the tiles where a warp's rows meet the diagonal or the end.
-//
-// Backward design (dK/dV and dQ; Hopper's TMA, mbarriers and wgmma through
+// Design (all three kernels; Hopper's TMA, mbarriers and wgmma through
 // hopper_common.cuh):
-//   * one block of three warpgroups per (128 rows, head, batch): one warp
-//     of the third issues TMA loads through 4-D tensor maps of qkv as
-//     (b, s, 3H, D) and dO as (b, s, H, D) into a three-stage mbarrier ring
-//     (with two, consumers waited on loads; four gained nothing);
-//     two consumer warpgroups of 64 rows each run every product as wgmma
-//     m64n64k16 (f32 accumulators).  dK/dV holds its 128 kv rows of K and V
-//     and walks the q tiles (q, dO, and the LSE and Δ rows, per stage); dQ
-//     holds its 128 q rows of q and dO and walks the kv tiles.  A stage's
-//     q or k tile is read once per warpgroup of 4 warps, not once per warp.
-//   * S^T = K.q^T and dP^T = V.dO^T (dQ: S = q.K^T, dP = dO.V^T) read both
-//     operands from shared memory; dV += P^T.dO and dK += dS^T.q (dQ:
-//     dQ += dS.k) take the elementwise result as A in registers (rounded
-//     to the input type in the accumulator's own layout) and the tile as
-//     an MN-major B through the transpose bit.
+//   * blocks of three warpgroups: one warp of the third issues TMA loads
+//     through 4-D tensor maps of qkv as (b, s, 3H, D) and dO as
+//     (b, s, H, D) into an mbarrier ring of stages; two consumer
+//     warpgroups of 64 rows each run every product as wgmma m64n64k16
+//     (f32 accumulators).  The backward has one block per (128 rows, head,
+//     batch); the forward is persistent, one block per SM walking the
+//     work items (128 q rows, head, batch) with two q buffers, so that
+//     the next item's q and kv tiles load while this item finishes.  Its
+//     items come in groups of heads whose k and v fit in a third of the
+//     L2, heaviest first inside a group: the items that reread a head's
+//     kv tiles run close in time and find them in the L2 (the kv feed,
+//     not the products, bounds the forward at D = 64).  The forward holds
+//     an item's 128 q rows and walks the kv tiles (k and v per stage);
+//     dK/dV holds its kv rows of K and V and walks the q tiles (q, dO,
+//     and the LSE and Δ rows, per stage); dQ holds its q rows of q and dO
+//     and walks the kv tiles.  A stage's tile is read once per warpgroup
+//     of 4 warps, not once per warp.
+//   * S = q.K^T (dK/dV: S^T = K.q^T and dP^T = V.dO^T; dQ: S and dP =
+//     dO.V^T) read both operands from shared memory; O += P.V (dV +=
+//     P^T.dO and dK += dS^T.q; dQ += dS.k) takes the elementwise result as
+//     A in registers (rounded to the input type in the accumulator's own
+//     layout) and the tile as an MN-major B through the transpose bit.
+//   * the forward's online softmax stays in f32 registers: the running max
+//     and sum of a thread's two rows, reduced over the 4 threads of a row
+//     by shuffles; O is rescaled in registers between its products.  The
+//     producer loads the kv tiles from the last down, so a warpgroup's
+//     first tile is the only one that may need the mask (its diagonal, or
+//     the ragged end) and every later one runs the unmasked variant; from
+//     the second tile on, each warpgroup issues S of tile i together with
+//     P.V of tile i-1 and waits only for S before the softmax of tile i,
+//     which then overlaps P.V on the tensor cores.
+//   * head widths: instances of 64, 128 and 256 padded columns (D <= 64,
+//     <= 128, <= 256, a multiple of 8).  At 256 the backward's block
+//     holds 64 rows (K and V, or q and dO, at 64 KB, and two 64 KB
+//     stages fit the 227 KB): both warpgroups compute the same 64 x 64
+//     S^T/dP^T (S/dP) and each keeps half of the output columns, 128 f32
+//     accumulators of dK and dV a thread.  The forward at 256 keeps its
+//     128-row block with two stages (64 + 2 x 64 KB) and 128 accumulators
+//     of O a thread.  Each width is its own library (-DFLASH_DP).
 //   * the elementwise pass is one straight-line block per variant (mask,
 //     dropout as template flags) with 2^x on the SFU: a branch per score
 //     keeps the 32 exponentials of a thread from overlapping.
@@ -73,16 +86,17 @@
 //     of two (D = 16, 64 at 1/sqrt(D)), rounding q * scale and k * scale to
 //     bf16 is exact, so the kernels apply the scale to the f32 products
 //     (S^T or S in the exponent, dK or dQ at the store) and no tile is
-//     rewritten.  Otherwise the consumers scale each arrived q tile (dK/dV)
-//     or a second copy of each k tile (dQ; S takes the unscaled k) in
-//     place, then fence the async proxy before wgmma reads it.  The wrapper
-//     decides (``fold``).
-//   * two kernels and no atomics: every gradient is bit-identical from run
-//     to run.  Causal blocks with the most tiles are launched first; a
-//     warpgroup skips a tile wholly above its diagonal (every wgmma group
-//     is issued and waited for inside that branch: ptxas serialises wgmma
-//     pipelines that cross divergent paths) and masks only where its rows
-//     meet the diagonal or the end.
+//     rewritten.  Otherwise the consumers scale the q tile once (forward,
+//     dQ), each arrived q tile (dK/dV), and a second copy of each k tile
+//     (dQ; S takes the unscaled k; at 256 the one k tile, after both
+//     warpgroups have read it for S) in place, then fence the async proxy
+//     before wgmma reads it.  The wrapper decides (``fold``).
+//   * two backward kernels and no atomics: every gradient is
+//     bit-identical from run to run.  Causal blocks with the most tiles
+//     are launched first; a backward warpgroup skips a tile wholly above
+//     its diagonal (every wgmma group is issued and waited for inside
+//     that branch: ptxas serialises wgmma pipelines that cross divergent
+//     paths) and masks only where its rows meet the diagonal or the end.
 //   * setmaxnreg moves registers from the producer warpgroup (24) to the
 //     consumers (240): at D = 128 a consumer thread holds 128 accumulators
 //     of dK and dV.  ptxas still judges wgmma pipelining against the
@@ -108,271 +122,95 @@ struct Geo {
   int thresh;        // int(keep_prob * 2**23), from the host
 };
 
-// Async copy of rows row0..row0+63 of one column slice (col0 = part*H*D +
-// h*D) into a [64][DP + 8] tile; rows past S and columns past D are zero.
-template <typename T, int DP>
-__device__ __forceinline__ void load_tile_async(T* tile, const T* base,
-                                                size_t rs, int row0, int col0,
-                                                const Geo& g, int tid) {
-  constexpr int kLd = DP + 8;
-  constexpr int kChunks = DP / 8;
-  for (int e = tid; e < kTile * kChunks; e += kThreads) {
-    const int r = e / kChunks, c = (e - r * kChunks) * 8;
-    T* dst = tile + r * kLd + c;
-    const int row = row0 + r;
-    if (row < g.S && c < g.D)
-      cp_async16(dst, base + (size_t)row * rs + col0 + c);
-    else
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-  }
-}
-
-// In place: every element of the chunks this thread loaded times sc,
-// rounded to T (after the thread's own cp.async group completed).
-template <typename T, int DP>
-__device__ __forceinline__ void scale_own_chunks(T* dst, const T* src,
-                                                 float sc, int tid) {
-  constexpr int kLd = DP + 8;
-  constexpr int kChunks = DP / 8;
-  for (int e = tid; e < kTile * kChunks; e += kThreads) {
-    const int r = e / kChunks, c = (e - r * kChunks) * 8;
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      dst[r * kLd + c + i] = from_f<T>(to_f(src[r * kLd + c + i]) * sc);
-  }
-}
+#ifndef FLASH_DP
+#error "build once per padded head width: -DFLASH_DP=64, 128 or 256"
+#endif
+constexpr int kDP = FLASH_DP;                 // this library's width
+static_assert(kDP == 64 || kDP == 128 || kDP == 256, "FLASH_DP");
 
 // ---------------------------------------------------------------------------
-// Forward
-// ---------------------------------------------------------------------------
-
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_packed_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
-                        float* __restrict__ lse,
-                        const int32_t* __restrict__ seed_ptr, Geo g) {
-  constexpr int kLd = DP + 8;
-  constexpr int kTileEl = kTile * kLd;
-  constexpr int kKs = DP / 16;                // k-steps over D
-  const int n_q = gridDim.x;
-  const int qt = n_q - 1 - blockIdx.x;        // heavy causal tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int HD = g.H * g.D;
-  const size_t rs = 3 * (size_t)HD;
-  const T* base = qkv + (size_t)b * g.S * rs;
-  const int32_t seed = g.dropout ? seed_ptr[0] : 0;
-  const int bh = b * g.H + h;
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* q_s = reinterpret_cast<T*>(smem);
-  T* k_s = q_s + kTileEl;                     // two buffers
-  T* v_s = k_s + 2 * kTileEl;                 // two buffers
-
-  const int q0 = qt * kTile;
-  const int n_kv_all = (g.S + kTile - 1) / kTile;
-  const int n_kv = g.causal ? min(qt + 1, n_kv_all) : n_kv_all;
-
-  load_tile_async<T, DP>(q_s, base, rs, q0, h * g.D, g, tid);
-  load_tile_async<T, DP>(k_s, base, rs, 0, HD + h * g.D, g, tid);
-  load_tile_async<T, DP>(v_s, base, rs, 0, 2 * HD + h * g.D, g, tid);
-  cp_async_commit();
-  cp_async_wait_all();
-  scale_own_chunks<T, DP>(q_s, q_s, round_t<T>(g.scale), tid);
-  __syncthreads();
-
-  uint32_t qf[kKs][4];
-#pragma unroll
-  for (int kk = 0; kk < kKs; ++kk)
-    load_a<T>(qf[kk], q_s, kLd, warp * 16, kk * 16, lane);
-
-  float acc[DP / 8][4];
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  float m_r[2] = {kNegInf, kNegInf};
-  float l_r[2] = {0.f, 0.f};                  // this thread's partial sums
-  const int row_a = q0 + warp * 16 + gq;      // rows of c[0..1] / c[2..3]
-  const int rows[2] = {row_a, row_a + 8};
-
-  for (int j = 0; j < n_kv; ++j) {
-    const int buf = j & 1;
-    if (j > 0) {
-      cp_async_wait_all();
-      __syncthreads();
-    }
-    if (j + 1 < n_kv) {                       // prefetch the next kv tile
-      load_tile_async<T, DP>(k_s + (buf ^ 1) * kTileEl, base, rs,
-                             (j + 1) * kTile, HD + h * g.D, g, tid);
-      load_tile_async<T, DP>(v_s + (buf ^ 1) * kTileEl, base, rs,
-                             (j + 1) * kTile, 2 * HD + h * g.D, g, tid);
-      cp_async_commit();
-    }
-    const T* kt = k_s + buf * kTileEl;
-    const T* vt = v_s + buf * kTileEl;
-
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kKs; ++kk) {
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bk[4];
-        load_b_nk<T>(bk, kt, kLd, np * 16, kk * 16, lane);
-        mma<T>(s[2 * np], qf[kk], bk);
-        mma<T>(s[2 * np + 1], qf[kk], bk + 2);
-      }
-    }
-
-    // scores in log2 units; mask (at -1e30, before the running max) only
-    // where this warp's rows meet the diagonal or the ragged end
-    const int k0 = j * kTile;
-    const bool need_mask = k0 + kTile > g.S ||
-                           (g.causal && k0 + kTile - 1 > q0 + warp * 16);
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float v = s[n][e] * kLog2e;
-        if (need_mask) {
-          const int col = k0 + n * 8 + 2 * tq + (e & 1);
-          const bool ok = col < g.S && (!g.causal || col <= rows[e >> 1]);
-          v = ok ? v : kNegInf;
-        }
-        s[n][e] = v;
-        mx[e >> 1] = fmaxf(mx[e >> 1], v);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_next = fmaxf(m_r[r], mx[r]);
-      alpha[r] = exp2f(m_r[r] - m_next);
-      m_r[r] = m_next;
-      l_r[r] *= alpha[r];
-    }
-    // p (undropped into l), then the dropped p for P.V.  Every valid row
-    // has a valid score in every tile it visits, so the running max is
-    // finite and a masked score's p is exactly 0.
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int col = k0 + n * 8 + 2 * tq + (e & 1);
-        float p = exp2f(s[n][e] - m_r[r]);
-        l_r[r] += p;
-        if (g.dropout)
-          p = keep_elem(seed, bh, rows[r], col, g.thresh) ? p / g.keep_prob
-                                                          : 0.f;
-        s[n][e] = p;
-      }
-#pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {          // 16 kv rows per step
-      uint32_t pa[4];
-      pa[0] = pack2<T>(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack2<T>(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dp = 0; dp < DP / 16; ++dp) {
-        uint32_t bv[4];
-        load_b_kn<T>(bv, vt, kLd, kk * 16, dp * 16, lane);
-        mma<T>(acc[2 * dp], pa, bv);
-        mma<T>(acc[2 * dp + 1], pa, bv + 2);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
-    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
-    l_r[r] = l_r[r] == 0.f ? 1.f : l_r[r];    // the JAX kernel's guard
-  }
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n) {
-    const int d = n * 8 + 2 * tq;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (rows[r] < g.S && d < g.D) {
-        T* o = out + ((size_t)b * g.S + rows[r]) * HD + h * g.D + d;
-        o[0] = from_f<T>(acc[n][2 * r] / l_r[r]);
-        o[1] = from_f<T>(acc[n][2 * r + 1] / l_r[r]);
-      }
-    }
-  }
-  if (tq == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      if (rows[r] < g.S)
-        lse[(size_t)bh * g.S + rows[r]] =
-            m_r[r] * kLn2 + logf(fmaxf(l_r[r], 1e-30f));
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Backward: dK/dV and dQ, warp-specialised on TMA and wgmma.
+// Block shapes, shared-memory layouts and common device pieces.
 //
 // A block is three warpgroups.  The last is the producer: one of its warps
-// issues every TMA load into a ring of kBwdStages stages (mbarriers "full"
-// and "empty"), the rest leave at once.  The first two are consumers, each
-// owning 64 of the block's 128 rows (kv rows in dK/dV, q rows in dQ); they
-// run the products as wgmma m64n64k16 with f32 accumulators, the first two
-// of each step from shared memory (both operands K-major), the last with
-// the f32 result of the elementwise pass as A in registers and the tile in
-// shared memory as an MN-major B through the transpose bit.
+// issues every TMA load into a ring of stages (mbarriers "full" and
+// "empty"), the rest leave at once.  The first two are consumers; they run
+// the products as wgmma m64n64k16 with f32 accumulators, the first of each
+// step from shared memory (both operands K-major), the last with the f32
+// result of the elementwise pass as A in registers and the tile in shared
+// memory as an MN-major B through the transpose bit.
 // ---------------------------------------------------------------------------
 
-constexpr int kBwdBlockRows = 128;
-constexpr int kBwdConsumers = 256;
-constexpr int kBwdThreads = kBwdConsumers + 128;
-constexpr int kBwdStages = 3;
+constexpr int kConsumers = 256;
+constexpr int kBlockThreads = kConsumers + 128;
 constexpr int kConsumerBar = 1;               // named barrier of the consumers
+
+// Up to 128 columns a block owns 128 rows, 64 a consumer warpgroup, and
+// each warpgroup all DP output columns.  At 256 a backward block owns 64
+// rows: both warpgroups compute the same S^T/dP^T (S/dP) and each keeps
+// DP/2 output columns.  The forward keeps 128 rows at every width.
+template <int DP> struct Shape {
+  static constexpr bool kSplit = DP > 128;
+  static constexpr int kBwdRows = kSplit ? 64 : 128;
+  static constexpr int kDO = kSplit ? DP / 2 : DP;   // a warpgroup's columns
+  static constexpr int kStages = kSplit ? 2 : 3;
+  static constexpr int kT = DP / 64 * hopper::kSubBytes;   // one 64-row tile
+};
 
 // Byte offsets in a block's shared memory (after 1024-byte alignment).  kT
 // is one 64-row tile of DP columns: DP/64 swizzled [64][64] sub-tiles.
-// dK/dV: K and V (128 rows each), per stage q and dO (64 rows), per stage
-// 64 LSE (log2 units) and 64 Δ floats, the barriers kv_full, full[],
-// empty[].
-template <int DP> struct DkdvSmem {
-  static constexpr int kT = DP / 64 * hopper::kSubBytes;
-  static constexpr int kK = 0, kV = 2 * kT, kStage0 = 4 * kT;
+// Forward (persistent): kQBufs q buffers (128 rows each: the next work
+// item's q loads while this one's runs; one at 256), per stage k and v
+// (64 rows), the barriers q_full[], q_empty[], full[], empty[].
+template <int DP> struct FwdSmem {
+  static constexpr int kT = Shape<DP>::kT;
+  static constexpr int kQBufs = DP <= 128 ? 2 : 1;
+  static constexpr int kStages = DP == 64 ? 4 : DP == 128 ? 3 : 2;
+  static constexpr int kQ = 0, kQBytes = 2 * kT;
+  static constexpr int kStage0 = kQBufs * kQBytes;
   static constexpr int kStageBytes = 2 * kT;
-  static constexpr int kStats = kStage0 + kBwdStages * kStageBytes;
-  static constexpr int kBars = kStats + kBwdStages * 2 * kTile * 4;
-  static constexpr int kBytes = kBars + (1 + 2 * kBwdStages) * 8;
+  static constexpr int kBars = kStage0 + kStages * kStageBytes;
+  static constexpr int kBytes = kBars + (2 * kQBufs + 2 * kStages) * 8;
 };
-// dQ: q and dO (128 rows each), per stage k, v and a k tile for scaling in
-// place (64 rows), the barriers qd_full, full[], empty[].
+// dK/dV: K and V (the block's rows each), per stage q and dO (64 rows),
+// per stage 64 LSE (log2 units) and 64 Δ floats, the barriers kv_full,
+// full[], empty[].
+template <int DP> struct DkdvSmem {
+  static constexpr int kT = Shape<DP>::kT, kStages = Shape<DP>::kStages;
+  static constexpr int kKV = Shape<DP>::kBwdRows / 64 * kT;
+  static constexpr int kK = 0, kV = kKV, kStage0 = 2 * kKV;
+  static constexpr int kStageBytes = 2 * kT;
+  static constexpr int kStats = kStage0 + kStages * kStageBytes;
+  static constexpr int kBars = kStats + kStages * 2 * kTile * 4;
+  static constexpr int kBytes = kBars + (1 + 2 * kStages) * 8;
+};
+// dQ: q and dO (the block's rows each), per stage k, v and (below 256,
+// where the scale does not fold) a k tile for scaling in place (64 rows),
+// the barriers qd_full, full[], empty[].
 template <int DP> struct DqSmem {
-  static constexpr int kT = DP / 64 * hopper::kSubBytes;
-  static constexpr int kQ = 0, kDo = 2 * kT, kStage0 = 4 * kT;
-  static constexpr int kStageBytes = 3 * kT;
-  static constexpr int kBars = kStage0 + kBwdStages * kStageBytes;
-  static constexpr int kBytes = kBars + (1 + 2 * kBwdStages) * 8;
+  static constexpr int kT = Shape<DP>::kT, kStages = Shape<DP>::kStages;
+  static constexpr int kQD = Shape<DP>::kBwdRows / 64 * kT;
+  static constexpr int kQ = 0, kDo = kQD, kStage0 = 2 * kQD;
+  static constexpr int kStageBytes = (Shape<DP>::kSplit ? 2 : 3) * kT;
+  static constexpr int kBars = kStage0 + kStages * kStageBytes;
+  static constexpr int kBytes = kBars + (1 + 2 * kStages) * 8;
 };
 
-// A block's (row-block rank, b*H + h): the rank is the slowest index, so
-// the heaviest causal blocks start first.
+// Work item w's (row-block rank, b*H + h), of n_blk ranks x BH heads in
+// groups of `group` heads: inside a group the rank is the slowest index,
+// so the heaviest causal blocks start first.
+__device__ __forceinline__ void item_coords(int w, int n_blk, int BH,
+                                            int group, int& rank, int& bh) {
+  const int g0 = w / (group * n_blk) * group;
+  const int size = min(group, BH - g0);
+  const int j = w - g0 * n_blk;
+  rank = j / size;
+  bh = g0 + j - rank * size;
+}
+
+// A backward block's coordinates: item blockIdx.x, all heads one group.
 __device__ __forceinline__ void block_coords(int n_blk, int& rank, int& bh) {
   const int BH = gridDim.x / n_blk;
-  rank = blockIdx.x / BH;
-  bh = blockIdx.x - rank * BH;
+  item_coords(blockIdx.x, n_blk, BH, BH, rank, bh);
 }
 
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
@@ -380,7 +218,7 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
 }
 
 // d = A . B^T over DP columns, A and B 64-row tiles (K-major, D the
-// contraction): the first two products of each step.
+// contraction): the first products of each step.
 template <typename T, int DP>
 __device__ __forceinline__ void product_ss(float* d, const unsigned char* a,
                                            const unsigned char* b) {
@@ -392,17 +230,17 @@ __device__ __forceinline__ void product_ss(float* d, const unsigned char* a,
   }
 }
 
-// d[c] += A . B[:, 64c:64c+64]: A 64 x 64 as register fragments a[kk]
-// (k = 16kk..16kk+15), B a 64-row tile whose rows are the contraction
-// (read MN-major).
-template <typename T, int DP>
+// d[c] += A . B[:, 64c:64c+64] for c < W/64: A 64 x 64 as register
+// fragments a[kk] (k = 16kk..16kk+15), B the W columns of a 64-row tile
+// from b on (its rows are the contraction; read MN-major).
+template <typename T, int W>
 __device__ __forceinline__ void product_rs(float (*d)[32],
                                            const uint32_t (*a)[4],
                                            const unsigned char* b) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-    for (int c = 0; c < DP / 64; ++c)
+    for (int c = 0; c < W / 64; ++c)
       hopper::wgmma_rs<T>(
           d[c], a[kk],
           hopper::desc_sw128(b + c * hopper::kSubBytes + kk * 2048,
@@ -410,16 +248,16 @@ __device__ __forceinline__ void product_rs(float (*d)[32],
           1);
 }
 
-template <int DP> __device__ __forceinline__ void zero_acc(float (*d)[32]) {
+template <int W> __device__ __forceinline__ void zero_acc(float (*d)[32]) {
 #pragma unroll
-  for (int c = 0; c < DP / 64; ++c)
+  for (int c = 0; c < W / 64; ++c)
 #pragma unroll
     for (int e = 0; e < 32; ++e) d[c][e] = 0.f;
 }
 
-template <int DP> __device__ __forceinline__ void fence_accs(float (*d)[32]) {
+template <int W> __device__ __forceinline__ void fence_accs(float (*d)[32]) {
 #pragma unroll
-  for (int c = 0; c < DP / 64; ++c) hopper::fence_acc(d[c]);
+  for (int c = 0; c < W / 64; ++c) hopper::fence_acc(d[c]);
 }
 
 // The consumers' in-tile scale (the path where sm_scale does not fold into
@@ -430,7 +268,7 @@ template <typename T>
 __device__ __forceinline__ void scale_in_place(unsigned char* tile, int bytes,
                                                float sc, int tid) {
   uint4* p = reinterpret_cast<uint4*>(tile);
-  for (int c = tid; c < bytes / 16; c += kBwdConsumers) {
+  for (int c = tid; c < bytes / 16; c += kConsumers) {
     uint4 v = p[c];
     T* e = reinterpret_cast<T*>(&v);
 #pragma unroll
@@ -438,17 +276,400 @@ __device__ __forceinline__ void scale_in_place(unsigned char* tile, int bytes,
     p[c] = v;
   }
   hopper::fence_async_shared();
-  hopper::named_bar_sync(kConsumerBar, kBwdConsumers);
+  hopper::named_bar_sync(kConsumerBar, kConsumers);
 }
 
 // 2^x on the SFU, results below 2^-126 flushed to zero (exp2f adds three
 // instructions per score to keep them; a probability under 1e-38 moves
-// no bf16 or f16 gradient).
+// no bf16 or f16 result).
 __device__ __forceinline__ float exp2_ftz(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
+
+// A warpgroup's 64 x W accumulator times mul, rounded to T, into columns
+// c0..c0+W-1 (those below D) of rows rows[0..1] of dst (row stride rs).
+template <typename T, int W>
+__device__ __forceinline__ void store_acc(T* dst, size_t rs, const int* rows,
+                                          float (*d)[32], const float* mul,
+                                          int c0, const Geo& g, int tq) {
+#pragma unroll
+  for (int c = 0; c < W / 64; ++c)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int col = c0 + c * 64 + 8 * i + 2 * tq;
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (rows[r] < g.S && col < g.D)
+          *reinterpret_cast<uint32_t*>(dst + (size_t)rows[r] * rs + col) =
+              pack2<T>(d[c][4 * i + 2 * r] * mul[r],
+                       d[c][4 * i + 2 * r + 1] * mul[r]);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// Forward
+// ---------------------------------------------------------------------------
+
+// The online-softmax pass of one forward tile (64 q rows x 64 kv columns
+// in accumulator layout, raw scores sv in f32): the running max m_r (log2
+// units; s_log2 carries sm_scale where it folds) and this thread's
+// partial sums l_r of its two rows updated, alpha the factor for O; pa <-
+// P = 2^(sv s_log2 - m), 0 where MASK masks (at the finite -1e30, before
+// the max), dropped where DROP, rounded to T.  l takes the undropped p.
+// s_log2 > 0, so the max of the raw scores times s_log2 is the max in
+// log2 units, and each p is one FMA and one 2^x.  MASK and DROP are
+// template flags so that each variant is one straight-line block.  sv is
+// only read: it is a wgmma accumulator, and a write to it while another
+// wgmma of the pipeline is in flight would serialise them (ptxas C7513).
+template <typename T, bool MASK, bool DROP>
+__device__ __forceinline__ void fwd_scores(const float* sv,
+                                           uint32_t (*pa)[4],
+                                           float* m_r, float* l_r,
+                                           float* alpha, float s_log2,
+                                           int k0, const int* rows, int tq,
+                                           const Geo& g, int32_t seed,
+                                           int bh) {
+  auto valid = [&](int e) {
+    const int col = k0 + 8 * (e >> 2) + 2 * tq + (e & 1);
+    return col < g.S && (!g.causal || col <= rows[(e >> 1) & 1]);
+  };
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int r = (e >> 1) & 1;
+    mx[r] = fmaxf(mx[r], (!MASK || valid(e)) ? sv[e] : kNegInf);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    // a row with every score masked so far keeps its -1e30
+    const float m_next = fmaxf(m_r[r], mx[r] == kNegInf ? kNegInf
+                                                        : mx[r] * s_log2);
+    alpha[r] = exp2_ftz(m_r[r] - m_next);
+    m_r[r] = m_next;
+    l_r[r] *= alpha[r];
+  }
+  // Every valid row has a valid score in every tile it visits, so the
+  // running max is finite and a masked score's p is exactly 0.
+#pragma unroll
+  for (int e2 = 0; e2 < 16; ++e2) {
+    float pv[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int e = 2 * e2 + u, r = (e >> 1) & 1;
+      float p = exp2_ftz(fmaf(sv[e], s_log2, -m_r[r]));
+      if (MASK) p = valid(e) ? p : 0.f;
+      l_r[r] += p;
+      if (DROP) {
+        const int col = k0 + 8 * (e >> 2) + 2 * tq + u;
+        p = keep_elem(seed, bh, rows[r], col, g.thresh) ? p / g.keep_prob
+                                                        : 0.f;
+      }
+      pv[u] = p;
+    }
+    pa[e2 >> 2][e2 & 3] = pack2<T>(pv[0], pv[1]);
+  }
+}
+
+// keeps the compiler from reusing the registers of a wgmma's A operand
+// before the wgmma that reads them has completed
+__device__ __forceinline__ void fence_frag(uint32_t (*a)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[kk][j])::"memory");
+}
+
+// A consumer warpgroup's pass over its kv tiles of one work item, ring
+// entries i0..i0+n-1 (the item's tiles start at entry base), in
+// descending kv order (the producer loads an item's tiles from the last
+// down): the first is the one tile that may need the mask
+// (the warpgroup's diagonal, or the ragged end), all others are whole.
+// Where the ring has three stages (DP <= 128), a two-stage software
+// pipeline inside the warpgroup: S_i is issued together with
+// P_{i-1}.V_{i-1} and only S_i is waited for, so the softmax of tile i
+// overlaps P.V of tile i-1 on the tensor cores.  With two stages (DP =
+// 256) that would hold both stages and leave the producer nothing to
+// fill, so each tile runs S, softmax, P.V in turn.  DROP: the dropout
+// variant (a template flag, so that no branch separates a wgmma from its
+// wait).
+template <typename T, int DP, bool DROP>
+__device__ __forceinline__ void fwd_tiles(
+    float (*o)[32], float* m_r, float* l_r, const unsigned char* qa,
+    const unsigned char* stages, uint64_t* full, uint64_t* empty, int base,
+    int i0, int n, int n_kv, bool mask_first, float s_log2, const int* rows,
+    int tq, const Geo& g, int32_t seed, int bh) {
+  using L = FwdSmem<DP>;
+  auto stage = [&](int i) {
+    return stages + (i % L::kStages) * L::kStageBytes;
+  };
+  auto wait_full = [&](int i) {
+    hopper::mbar_wait(full + i % L::kStages, (i / L::kStages) & 1);
+  };
+  auto k0_of = [&](int i) { return (n_kv - 1 - (i - base)) * kTile; };
+  float alpha[2];
+  if constexpr (L::kStages < 3) {
+    uint32_t pa[4][4];
+    for (int i = i0; i < i0 + n; ++i) {
+      wait_full(i);
+      float sv[32];
+      hopper::wgmma_fence();
+      product_ss<T, DP>(sv, qa, stage(i));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_acc(sv);
+      if (i == i0 && mask_first)
+        fwd_scores<T, true, DROP>(sv, pa, m_r, l_r, alpha, s_log2, k0_of(i),
+                                  rows, tq, g, seed, bh);
+      else
+        fwd_scores<T, false, DROP>(sv, pa, m_r, l_r, alpha, s_log2,
+                                   k0_of(i), rows, tq, g, seed, bh);
+#pragma unroll
+      for (int c = 0; c < DP / 64; ++c)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) o[c][e] *= alpha[(e >> 1) & 1];
+      fence_accs<DP>(o);
+      fence_frag(pa);
+      hopper::wgmma_fence();
+      product_rs<T, DP>(o, pa, stage(i) + L::kT);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      fence_accs<DP>(o);
+      fence_frag(pa);
+      hopper::mbar_arrive(empty + i % L::kStages);
+    }
+  } else {
+    // the first tile: S, then the softmax (masked where needed); O is
+    // zero.  The P fragments ping-pong between pa[0] and pa[1] (the loop
+    // runs two tiles a turn): the softmax writes the array the P.V in
+    // flight does not read, with no copy that ptxas could fold into the
+    // wgmma's own registers (that serialises every wgmma, C7513).
+    uint32_t pa[2][4][4];
+    wait_full(i0);
+    {
+      float sv[32];
+      hopper::wgmma_fence();
+      product_ss<T, DP>(sv, qa, stage(i0));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_acc(sv);
+      if (mask_first)
+        fwd_scores<T, true, DROP>(sv, pa[0], m_r, l_r, alpha, s_log2,
+                                  k0_of(i0), rows, tq, g, seed, bh);
+      else
+        fwd_scores<T, false, DROP>(sv, pa[0], m_r, l_r, alpha, s_log2,
+                                   k0_of(i0), rows, tq, g, seed, bh);
+    }
+    // tile i: S_i issued with P_{i-1}.V_{i-1} (fragments pin); the
+    // softmax of tile i into pout overlaps that P.V
+    auto step = [&](int i, uint32_t (*pin)[4], uint32_t (*pout)[4]) {
+      wait_full(i);
+      float sv[32];
+      fence_accs<DP>(o);
+      fence_frag(pin);
+      hopper::wgmma_fence();
+      product_ss<T, DP>(sv, qa, stage(i));              // S_i
+      hopper::wgmma_commit();
+      product_rs<T, DP>(o, pin, stage(i - 1) + L::kT);  // O += P_{i-1}.V
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();
+      hopper::fence_acc(sv);
+      fwd_scores<T, false, DROP>(sv, pout, m_r, l_r, alpha, s_log2,
+                                 k0_of(i), rows, tq, g, seed, bh);
+      hopper::wgmma_wait<0>();
+      fence_accs<DP>(o);
+      fence_frag(pin);
+      hopper::mbar_arrive(empty + (i - 1) % L::kStages);
+#pragma unroll
+      for (int c = 0; c < DP / 64; ++c)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) o[c][e] *= alpha[(e >> 1) & 1];
+    };
+    // the last tile's P.V (fragments p)
+    auto finish = [&](uint32_t (*p)[4]) {
+      const int last = i0 + n - 1;
+      fence_accs<DP>(o);
+      fence_frag(p);
+      hopper::wgmma_fence();
+      product_rs<T, DP>(o, p, stage(last) + L::kT);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      fence_accs<DP>(o);
+      fence_frag(p);
+      hopper::mbar_arrive(empty + last % L::kStages);
+    };
+    int i = i0 + 1;
+    for (; i + 1 < i0 + n; i += 2) {
+      step(i, pa[0], pa[1]);
+      step(i + 1, pa[1], pa[0]);
+    }
+    if (i < i0 + n) {
+      step(i, pa[0], pa[1]);
+      finish(pa[1]);
+    } else {
+      finish(pa[0]);
+    }
+  }
+}
+
+// O and the LSE over work items of (128 q rows, head, batch) in the order
+// of item_coords, each item's kv tiles up to the diagonal loaded from the
+// last down.  Persistent: one block per SM walks the items
+// blockIdx.x, + gridDim.x, ..., so the producer loads the next item's q
+// and first kv tiles while the consumers finish this one (its last P.V,
+// the LSE and the O stores).  fold != 0: sm_scale is applied to S in
+// f32; else the consumers scale each q tile once in place.
+template <typename T, int DP>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+flash_packed_fwd_kernel(const __grid_constant__ CUtensorMap qkv_map,
+                        T* __restrict__ out, float* __restrict__ lse,
+                        const int32_t* __restrict__ seed_ptr, Geo g,
+                        int fold, int B) {
+  using L = FwdSmem<DP>;
+  constexpr int kHalves = DP / 64;
+  constexpr int kRows = 128;
+  const int n_blk = (g.S + kRows - 1) / kRows;
+  const int BH = B * g.H;
+  const int n_items = n_blk * BH;
+  const int n_kv_all = (g.S + kTile - 1) / kTile;
+  // the heads in groups whose k and v rows (4 S D bytes a head) fit in
+  // 16 MB of the 50 MB L2 together, so that the items that reread a
+  // head's kv tiles run close in time
+  const int group = (int)max(1LL, min((long long)BH,
+                                      (16LL << 20) / (4LL * g.S * g.D)));
+  // an item's (b*H + h, first q row, kv tiles)
+  auto item = [&](int w, int& bh, int& q0, int& n_kv) {
+    int rank;
+    item_coords(w, n_blk, BH, group, rank, bh);
+    q0 = (n_blk - 1 - rank) * kRows;
+    n_kv = g.causal ? min((q0 + kRows - 1) / kTile + 1, n_kv_all) : n_kv_all;
+  };
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* q_empty = q_full + L::kQBufs;
+  uint64_t* full = q_empty + L::kQBufs;
+  uint64_t* empty = full + L::kStages;
+  if (threadIdx.x == 0) {
+    for (int q = 0; q < L::kQBufs; ++q) {
+      hopper::mbar_init(q_full + q, 1);
+      hopper::mbar_init(q_empty + q, kConsumers);
+    }
+    for (int s = 0; s < L::kStages; ++s) {
+      hopper::mbar_init(full + s, 1);
+      hopper::mbar_init(empty + s, kConsumers);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // producer: per item, q into its buffer, then k and v per kv tile
+    // (the last first) into the ring; `it` counts ring entries, `qi`
+    // items, across the block's whole walk
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x != kConsumers) return;
+    int it = 0;
+    for (int w = blockIdx.x, qi = 0; w < n_items; w += gridDim.x, ++qi) {
+      int bh, q0, n_kv;
+      item(w, bh, q0, n_kv);
+      const int b = bh / g.H, h = bh - b * g.H;
+      const int qb = qi % L::kQBufs;
+      unsigned char* q_s = sm + L::kQ + qb * L::kQBytes;
+      hopper::mbar_wait(q_empty + qb, ((qi / L::kQBufs) & 1) ^ 1);
+      hopper::mbar_arrive_expect_tx(q_full + qb, L::kQBytes);
+      for (int r = 0; r < 2; ++r)
+        for (int c = 0; c < kHalves; ++c)
+          hopper::tma_load_4d(q_s + (r * kHalves + c) * hopper::kSubBytes,
+                              &qkv_map, q_full + qb, 64 * c, h, q0 + 64 * r,
+                              b);
+      for (int i = 0; i < n_kv; ++i, ++it) {
+        const int s = it % L::kStages, k0 = (n_kv - 1 - i) * kTile;
+        hopper::mbar_wait(empty + s, ((it / L::kStages) & 1) ^ 1);
+        unsigned char* stage = sm + L::kStage0 + s * L::kStageBytes;
+        hopper::mbar_arrive_expect_tx(full + s, 2 * L::kT);
+        for (int c = 0; c < kHalves; ++c) {
+          const int off = c * hopper::kSubBytes;
+          hopper::tma_load_4d(stage + off, &qkv_map, full + s, 64 * c,
+                              g.H + h, k0, b);
+          hopper::tma_load_4d(stage + L::kT + off, &qkv_map, full + s,
+                              64 * c, 2 * g.H + h, k0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns q rows r0..r0+63 of each item
+  hopper::setmaxnreg_inc<240>();
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const float sc = round_t<T>(g.scale);
+  const float s_log2 = fold ? sc * kLog2e : kLog2e;   // S to log2 units
+  const int32_t seed = g.dropout ? seed_ptr[0] : 0;
+  const bool mask_first = g.causal || g.S % kTile != 0;
+  const unsigned char* stages = sm + L::kStage0;
+  int it = 0;
+  for (int w = blockIdx.x, qi = 0; w < n_items; w += gridDim.x, ++qi) {
+    int bh, q0, n_kv;
+    item(w, bh, q0, n_kv);
+    const int b = bh / g.H, h = bh - b * g.H;
+    const int r0 = q0 + 64 * wg;
+    const int rows[2] = {r0 + 16 * warp + gq, r0 + 16 * warp + gq + 8};
+    // this warpgroup's tiles: up to its diagonal (causal), each whole but
+    // the first visited (its diagonal, or the ragged end of s)
+    const int n_wg = g.causal ? min(r0 / kTile + 1, n_kv) : n_kv;
+    const int qb = qi % L::kQBufs;
+    unsigned char* q_s = sm + L::kQ + qb * L::kQBytes;
+    float o[kHalves][32];
+    zero_acc<DP>(o);
+    float m_r[2] = {kNegInf, kNegInf};
+    float l_r[2] = {0.f, 0.f};                // this thread's partial sums
+    hopper::mbar_wait(q_full + qb, (qi / L::kQBufs) & 1);
+    if (!fold) scale_in_place<T>(q_s, L::kQBytes, sc, tid);
+    // tiles above this warpgroup's diagonal: released unread (each waited
+    // for first, so that its release counts toward its own load)
+    for (int i = 0; i < n_kv - n_wg; ++i) {
+      hopper::mbar_wait(full + (it + i) % L::kStages,
+                        ((it + i) / L::kStages) & 1);
+      hopper::mbar_arrive(empty + (it + i) % L::kStages);
+    }
+    const unsigned char* qa = q_s + wg * L::kT;
+    if (g.dropout)
+      fwd_tiles<T, DP, true>(o, m_r, l_r, qa, stages, full, empty, it,
+                             it + n_kv - n_wg, n_wg, n_kv, mask_first,
+                             s_log2, rows, tq, g, seed, bh);
+    else
+      fwd_tiles<T, DP, false>(o, m_r, l_r, qa, stages, full, empty, it,
+                              it + n_kv - n_wg, n_wg, n_kv, mask_first,
+                              s_log2, rows, tq, g, seed, bh);
+    it += n_kv;
+    hopper::mbar_arrive(q_empty + qb);        // q read for the last time
+
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+      inv[r] = 1.f / (l_r[r] == 0.f ? 1.f : l_r[r]);   // the JAX guard
+      if (tq == 0 && rows[r] < g.S)
+        lse[(size_t)bh * g.S + rows[r]] =
+            m_r[r] * kLn2 + logf(fmaxf(l_r[r], 1e-30f));
+    }
+    const size_t rs = (size_t)g.H * g.D;
+    store_acc<T, DP>(out + (size_t)b * g.S * rs + h * g.D, rs, rows, o, inv,
+                     0, g, tq);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Backward: dK/dV and dQ.
+// ---------------------------------------------------------------------------
 
 // The elementwise pass of one dK/dV tile (64 kv rows x 64 q columns in
 // accumulator layout): P^T from the LSE (log2 units), masked where MASK;
@@ -511,32 +732,12 @@ __device__ __forceinline__ void dq_scores(
   }
 }
 
-// A warpgroup's 64 x DP accumulator times mul, rounded to T, into columns
-// 0..D-1 of rows rows[0..1] of dst (row stride rs).
+// dK and dV: one block per (kv rows, head, batch), over the q tiles from
+// the diagonal to the end.  fold != 0: sm_scale is applied to S^T and to dK
+// in f32 (bf16 with a power-of-two scale, where that equals rounding q *
+// scale); else the consumers scale each arrived q tile in place.
 template <typename T, int DP>
-__device__ __forceinline__ void store_acc(T* dst, size_t rs, const int* rows,
-                                          float (*d)[32], float mul,
-                                          const Geo& g, int tq) {
-#pragma unroll
-  for (int c = 0; c < DP / 64; ++c)
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int col = c * 64 + 8 * i + 2 * tq;
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-        if (rows[r] < g.S && col < g.D)
-          *reinterpret_cast<uint32_t*>(dst + (size_t)rows[r] * rs + col) =
-              pack2<T>(d[c][4 * i + 2 * r] * mul,
-                       d[c][4 * i + 2 * r + 1] * mul);
-    }
-}
-
-// dK and dV: one block per (128 kv rows, head, batch), over the q tiles
-// from the diagonal to the end.  fold != 0: sm_scale is applied to S^T and
-// to dK in f32 (bf16 with a power-of-two scale, where that equals rounding
-// q * scale); else the consumers scale each arrived q tile in place.
-template <typename T, int DP>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kBlockThreads, 1)
 flash_packed_dkdv_kernel(const __grid_constant__ CUtensorMap qkv_map,
                          const __grid_constant__ CUtensorMap do_map,
                          const float* __restrict__ lse,
@@ -544,12 +745,14 @@ flash_packed_dkdv_kernel(const __grid_constant__ CUtensorMap qkv_map,
                          const int32_t* __restrict__ seed_ptr,
                          T* __restrict__ dqkv, Geo g, int fold) {
   using L = DkdvSmem<DP>;
+  using Sh = Shape<DP>;
   constexpr int kHalves = DP / 64;
-  const int n_blk = (g.S + kBwdBlockRows - 1) / kBwdBlockRows;
+  constexpr int kRows = Sh::kBwdRows;
+  const int n_blk = (g.S + kRows - 1) / kRows;
   int jb, bh;                                 // causal: most q tiles first
   block_coords(n_blk, jb, bh);
   const int b = bh / g.H, h = bh - b * g.H;
-  const int kv0 = jb * kBwdBlockRows;
+  const int kv0 = jb * kRows;
   const int n_q = (g.S + kTile - 1) / kTile;
   const int i0 = g.causal ? kv0 / kTile : 0;
 
@@ -560,25 +763,25 @@ flash_packed_dkdv_kernel(const __grid_constant__ CUtensorMap qkv_map,
   float* stats = reinterpret_cast<float*>(sm + L::kStats);
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + L::kBars);
   uint64_t* full = kv_full + 1;
-  uint64_t* empty = full + kBwdStages;
+  uint64_t* empty = full + L::kStages;
   if (threadIdx.x == 0) {
     hopper::mbar_init(kv_full, 1);
-    for (int s = 0; s < kBwdStages; ++s) {
+    for (int s = 0; s < L::kStages; ++s) {
       hopper::mbar_init(full + s, 32);
-      hopper::mbar_init(empty + s, kBwdConsumers);
+      hopper::mbar_init(empty + s, kConsumers);
     }
     hopper::mbar_fence_init();
   }
   __syncthreads();
 
-  if (threadIdx.x >= kBwdConsumers) {
+  if (threadIdx.x >= kConsumers) {
     // producer: K and V once, then q, dO, LSE and Δ rows per q tile
     hopper::setmaxnreg_dec<24>();
-    if (threadIdx.x >= kBwdConsumers + 32) return;
+    if (threadIdx.x >= kConsumers + 32) return;
     const int lane = threadIdx.x & 31;
     if (lane == 0) {
-      hopper::mbar_arrive_expect_tx(kv_full, 4 * L::kT);
-      for (int r = 0; r < 2; ++r)
+      hopper::mbar_arrive_expect_tx(kv_full, 2 * L::kKV);
+      for (int r = 0; r < kRows / 64; ++r)
         for (int c = 0; c < kHalves; ++c) {
           const int off = (r * kHalves + c) * hopper::kSubBytes;
           hopper::tma_load_4d(k_s + off, &qkv_map, kv_full, 64 * c, g.H + h,
@@ -590,8 +793,8 @@ flash_packed_dkdv_kernel(const __grid_constant__ CUtensorMap qkv_map,
     const float* lse_bh = lse + (size_t)bh * g.S;
     const float* delta_bh = delta + (size_t)bh * g.S;
     for (int i = i0; i < n_q; ++i) {
-      const int it = i - i0, s = it % kBwdStages;
-      hopper::mbar_wait(empty + s, ((it / kBwdStages) & 1) ^ 1);
+      const int it = i - i0, s = it % L::kStages;
+      hopper::mbar_wait(empty + s, ((it / L::kStages) & 1) ^ 1);
       float* st = stats + s * 2 * kTile;
       for (int r = lane; r < kTile; r += 32) {
         const int row = i * kTile + r;
@@ -614,29 +817,32 @@ flash_packed_dkdv_kernel(const __grid_constant__ CUtensorMap qkv_map,
     return;
   }
 
-  // consumers: warpgroup wg owns kv rows r0..r0+63
+  // consumers: warpgroup wg owns kv rows r0..r0+63 and output columns
+  // c0..c0+kDO-1
   hopper::setmaxnreg_inc<240>();
   const int tid = threadIdx.x, wg = tid >> 7;
   const int warp = (tid >> 5) & 3, lane = tid & 31;
   const int gq = lane >> 2, tq = lane & 3;
-  const int r0 = kv0 + 64 * wg;
+  const int r0 = kv0 + (Sh::kSplit ? 0 : 64 * wg);
+  const int c0 = Sh::kSplit ? Sh::kDO * wg : 0;
+  const int cb = c0 / 64 * hopper::kSubBytes;   // c0's sub-tile offset
   const int rows[2] = {r0 + 16 * warp + gq, r0 + 16 * warp + gq + 8};
   const float sc = round_t<T>(g.scale);
   const float s_log2 = fold ? sc * kLog2e : kLog2e;   // S^T to log2 units
   const int32_t seed = g.dropout ? seed_ptr[0] : 0;
-  const unsigned char* ka = k_s + wg * L::kT;
-  const unsigned char* va = v_s + wg * L::kT;
-  float dk[kHalves][32], dv[kHalves][32];
-  zero_acc<DP>(dk);
-  zero_acc<DP>(dv);
+  const unsigned char* ka = k_s + (r0 - kv0) / 64 * L::kT;
+  const unsigned char* va = v_s + (r0 - kv0) / 64 * L::kT;
+  float dk[Sh::kDO / 64][32], dv[Sh::kDO / 64][32];
+  zero_acc<Sh::kDO>(dk);
+  zero_acc<Sh::kDO>(dv);
   hopper::mbar_wait(kv_full, 0);
 
   for (int i = i0; i < n_q; ++i) {
-    const int it = i - i0, s = it % kBwdStages;
+    const int it = i - i0, s = it % L::kStages;
     unsigned char* qt = sm + L::kStage0 + s * L::kStageBytes;
     const unsigned char* dt = qt + L::kT;
     const int q0 = i * kTile;
-    hopper::mbar_wait(full + s, (it / kBwdStages) & 1);
+    hopper::mbar_wait(full + s, (it / L::kStages) & 1);
     if (!fold) scale_in_place<T>(qt, L::kT, sc, tid);
     // a q tile with a row at or below one of this warpgroup's kv rows;
     // each wgmma group is issued and waited for inside this branch
@@ -669,32 +875,36 @@ flash_packed_dkdv_kernel(const __grid_constant__ CUtensorMap qkv_map,
       else
         dkdv_scores<T, false, false>(st, dpt, pa, sa, lse_t, dl_t, s_log2,
                                      q0, rows, tq, g, seed, bh);
-      // dV += drop(P^T) . dO and dK += dS^T . q
-      fence_accs<DP>(dv);
-      fence_accs<DP>(dk);
+      // dV += drop(P^T) . dO and dK += dS^T . q, this warpgroup's columns
+      fence_accs<Sh::kDO>(dv);
+      fence_accs<Sh::kDO>(dk);
       hopper::wgmma_fence();
-      product_rs<T, DP>(dv, pa, dt);
-      product_rs<T, DP>(dk, sa, qt);
+      product_rs<T, Sh::kDO>(dv, pa, dt + cb);
+      product_rs<T, Sh::kDO>(dk, sa, qt + cb);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
-      fence_accs<DP>(dv);
-      fence_accs<DP>(dk);
+      fence_accs<Sh::kDO>(dv);
+      fence_accs<Sh::kDO>(dk);
     }
     hopper::mbar_arrive(empty + s);
   }
 
   const size_t rs = 3 * (size_t)g.H * g.D;
   T* base = dqkv + (size_t)b * g.S * rs + h * g.D;
-  store_acc<T, DP>(base + g.H * g.D, rs, rows, dk, fold ? sc : 1.f, g, tq);
-  store_acc<T, DP>(base + 2 * g.H * g.D, rs, rows, dv, 1.f, g, tq);
+  const float dk_mul[2] = {fold ? sc : 1.f, fold ? sc : 1.f};
+  const float one[2] = {1.f, 1.f};
+  store_acc<T, Sh::kDO>(base + g.H * g.D, rs, rows, dk, dk_mul, c0, g, tq);
+  store_acc<T, Sh::kDO>(base + 2 * g.H * g.D, rs, rows, dv, one, c0, g, tq);
 }
 
-// dQ: one block per (128 q rows, head, batch), over the kv tiles up to
-// the diagonal.  fold != 0: sm_scale is applied to S and to dQ in f32; else
-// the consumers scale q once and each arrived copy of the k tile in place
-// (S takes the unscaled k, dQ the scaled one, as the JAX kernel).
+// dQ: one block per (q rows, head, batch), over the kv tiles up to the
+// diagonal.  fold != 0: sm_scale is applied to S and to dQ in f32; else
+// the consumers scale q once and the k tile for dQ in place (S takes the
+// unscaled k, dQ the scaled one, as the JAX kernel): below 256 a second
+// copy of each k tile; at 256 the one copy, after both warpgroups have
+// read it for S.
 template <typename T, int DP>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kBlockThreads, 1)
 flash_packed_dq_kernel(const __grid_constant__ CUtensorMap qkv_map,
                        const __grid_constant__ CUtensorMap do_map,
                        const float* __restrict__ lse,
@@ -702,17 +912,20 @@ flash_packed_dq_kernel(const __grid_constant__ CUtensorMap qkv_map,
                        const int32_t* __restrict__ seed_ptr,
                        T* __restrict__ dqkv, Geo g, int fold) {
   using L = DqSmem<DP>;
+  using Sh = Shape<DP>;
   constexpr int kHalves = DP / 64;
-  const int n_blk = (g.S + kBwdBlockRows - 1) / kBwdBlockRows;
+  constexpr int kRows = Sh::kBwdRows;
+  const int n_blk = (g.S + kRows - 1) / kRows;
   int rank, bh;
   block_coords(n_blk, rank, bh);
   const int ib = n_blk - 1 - rank;            // causal: most kv tiles first
   const int b = bh / g.H, h = bh - b * g.H;
-  const int q0 = ib * kBwdBlockRows;
+  const int q0 = ib * kRows;
   const int n_kv_all = (g.S + kTile - 1) / kTile;
-  const int n_kv = g.causal ? min((q0 + kBwdBlockRows - 1) / kTile + 1,
-                                  n_kv_all)
+  const int n_kv = g.causal ? min((q0 + kRows - 1) / kTile + 1, n_kv_all)
                             : n_kv_all;
+  // a second k tile per stage for the scaled copy
+  const bool k_copy = !fold && !Sh::kSplit;
 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
@@ -720,24 +933,24 @@ flash_packed_dq_kernel(const __grid_constant__ CUtensorMap qkv_map,
   unsigned char* do_s = sm + L::kDo;
   uint64_t* qd_full = reinterpret_cast<uint64_t*>(sm + L::kBars);
   uint64_t* full = qd_full + 1;
-  uint64_t* empty = full + kBwdStages;
+  uint64_t* empty = full + L::kStages;
   if (threadIdx.x == 0) {
     hopper::mbar_init(qd_full, 1);
-    for (int s = 0; s < kBwdStages; ++s) {
+    for (int s = 0; s < L::kStages; ++s) {
       hopper::mbar_init(full + s, 1);
-      hopper::mbar_init(empty + s, kBwdConsumers);
+      hopper::mbar_init(empty + s, kConsumers);
     }
     hopper::mbar_fence_init();
   }
   __syncthreads();
 
-  if (threadIdx.x >= kBwdConsumers) {
-    // producer: q and dO once, then k and v (and k again when the scale
-    // does not fold) per kv tile
+  if (threadIdx.x >= kConsumers) {
+    // producer: q and dO once, then k and v (and k again for the scaled
+    // copy) per kv tile
     hopper::setmaxnreg_dec<24>();
-    if (threadIdx.x != kBwdConsumers) return;
-    hopper::mbar_arrive_expect_tx(qd_full, 4 * L::kT);
-    for (int r = 0; r < 2; ++r)
+    if (threadIdx.x != kConsumers) return;
+    hopper::mbar_arrive_expect_tx(qd_full, 2 * L::kQD);
+    for (int r = 0; r < kRows / 64; ++r)
       for (int c = 0; c < kHalves; ++c) {
         const int off = (r * kHalves + c) * hopper::kSubBytes;
         hopper::tma_load_4d(q_s + off, &qkv_map, qd_full, 64 * c, h,
@@ -746,17 +959,17 @@ flash_packed_dq_kernel(const __grid_constant__ CUtensorMap qkv_map,
                             q0 + 64 * r, b);
       }
     for (int j = 0; j < n_kv; ++j) {
-      const int s = j % kBwdStages;
-      hopper::mbar_wait(empty + s, ((j / kBwdStages) & 1) ^ 1);
+      const int s = j % L::kStages;
+      hopper::mbar_wait(empty + s, ((j / L::kStages) & 1) ^ 1);
       unsigned char* stage = sm + L::kStage0 + s * L::kStageBytes;
-      hopper::mbar_arrive_expect_tx(full + s, (fold ? 2 : 3) * L::kT);
+      hopper::mbar_arrive_expect_tx(full + s, (k_copy ? 3 : 2) * L::kT);
       for (int c = 0; c < kHalves; ++c) {
         const int off = c * hopper::kSubBytes;
         hopper::tma_load_4d(stage + off, &qkv_map, full + s, 64 * c,
                             g.H + h, j * kTile, b);
         hopper::tma_load_4d(stage + L::kT + off, &qkv_map, full + s, 64 * c,
                             2 * g.H + h, j * kTile, b);
-        if (!fold)
+        if (k_copy)
           hopper::tma_load_4d(stage + 2 * L::kT + off, &qkv_map, full + s,
                               64 * c, g.H + h, j * kTile, b);
       }
@@ -764,12 +977,15 @@ flash_packed_dq_kernel(const __grid_constant__ CUtensorMap qkv_map,
     return;
   }
 
-  // consumers: warpgroup wg owns q rows r0..r0+63
+  // consumers: warpgroup wg owns q rows r0..r0+63 and output columns
+  // c0..c0+kDO-1
   hopper::setmaxnreg_inc<240>();
   const int tid = threadIdx.x, wg = tid >> 7;
   const int warp = (tid >> 5) & 3, lane = tid & 31;
   const int gq = lane >> 2, tq = lane & 3;
-  const int r0 = q0 + 64 * wg;
+  const int r0 = q0 + (Sh::kSplit ? 0 : 64 * wg);
+  const int c0 = Sh::kSplit ? Sh::kDO * wg : 0;
+  const int cb = c0 / 64 * hopper::kSubBytes;   // c0's sub-tile offset
   const int rows[2] = {r0 + 16 * warp + gq, r0 + 16 * warp + gq + 8};
   const float sc = round_t<T>(g.scale);
   const float s_log2 = fold ? sc * kLog2e : kLog2e;   // S to log2 units
@@ -781,20 +997,21 @@ flash_packed_dq_kernel(const __grid_constant__ CUtensorMap qkv_map,
     lse_r[r] = in ? lse[(size_t)bh * g.S + rows[r]] * kLog2e : 0.f;
     dl_r[r] = in ? delta[(size_t)bh * g.S + rows[r]] : 0.f;
   }
-  const unsigned char* qa = q_s + wg * L::kT;
-  const unsigned char* da = do_s + wg * L::kT;
-  float dq[kHalves][32];
-  zero_acc<DP>(dq);
+  const unsigned char* qa = q_s + (r0 - q0) / 64 * L::kT;
+  const unsigned char* da = do_s + (r0 - q0) / 64 * L::kT;
+  float dq[Sh::kDO / 64][32];
+  zero_acc<Sh::kDO>(dq);
   hopper::mbar_wait(qd_full, 0);
-  if (!fold) scale_in_place<T>(q_s, 2 * L::kT, sc, tid);
+  if (!fold) scale_in_place<T>(q_s, L::kQD, sc, tid);
 
   for (int j = 0; j < n_kv; ++j) {
-    const int s = j % kBwdStages;
+    const int s = j % L::kStages;
     unsigned char* kt = sm + L::kStage0 + s * L::kStageBytes;
     const int k0 = j * kTile;
-    hopper::mbar_wait(full + s, (j / kBwdStages) & 1);
-    if (!fold) scale_in_place<T>(kt + 2 * L::kT, L::kT, sc, tid);
-    // a kv tile with a row at or above one of this warpgroup's q rows
+    hopper::mbar_wait(full + s, (j / L::kStages) & 1);
+    if (k_copy) scale_in_place<T>(kt + 2 * L::kT, L::kT, sc, tid);
+    // a kv tile with a row at or above one of this warpgroup's q rows (at
+    // 256 both warpgroups own the same rows, so both take this branch)
     if (!g.causal || k0 <= r0 + kTile - 1) {
       // S = q . K^T and dP = dO . V^T: 64 q rows x 64 kv columns
       float sv[32], dp[32];
@@ -805,6 +1022,12 @@ flash_packed_dq_kernel(const __grid_constant__ CUtensorMap qkv_map,
       hopper::wgmma_wait<0>();
       hopper::fence_acc(sv);
       hopper::fence_acc(dp);
+      if (Sh::kSplit && !fold) {
+        // both warpgroups have read the unscaled k for S: scale it in
+        // place for dQ
+        hopper::named_bar_sync(kConsumerBar, kConsumers);
+        scale_in_place<T>(kt, L::kT, sc, tid);
+      }
       const bool need_mask = k0 + kTile > g.S ||
                              (g.causal && k0 + kTile - 1 > r0 + 16 * warp);
       uint32_t sa[4][4];
@@ -818,75 +1041,95 @@ flash_packed_dq_kernel(const __grid_constant__ CUtensorMap qkv_map,
         dq_scores<T, false, false>(sv, dp, sa, lse_r, dl_r, s_log2, k0,
                                    rows, tq, g, seed, bh);
       // dQ += dS . k (k * scale rounded, or k with the scale in f32)
-      fence_accs<DP>(dq);
+      fence_accs<Sh::kDO>(dq);
       hopper::wgmma_fence();
-      product_rs<T, DP>(dq, sa, fold ? kt : kt + 2 * L::kT);
+      product_rs<T, Sh::kDO>(dq, sa, (k_copy ? kt + 2 * L::kT : kt) + cb);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
-      fence_accs<DP>(dq);
+      fence_accs<Sh::kDO>(dq);
     }
     hopper::mbar_arrive(empty + s);
   }
 
   const size_t rs = 3 * (size_t)g.H * g.D;
-  store_acc<T, DP>(dqkv + (size_t)b * g.S * rs + h * g.D, rs, rows, dq,
-                   fold ? sc : 1.f, g, tq);
+  const float dq_mul[2] = {fold ? sc : 1.f, fold ? sc : 1.f};
+  store_acc<T, Sh::kDO>(dqkv + (size_t)b * g.S * rs + h * g.D, rs, rows, dq,
+                        dq_mul, c0, g, tq);
 }
 
-template <int DP> constexpr size_t tile_bytes() {
-  return (size_t)kTile * (DP + 8) * 2;
+// ---------------------------------------------------------------------------
+// Launch
+// ---------------------------------------------------------------------------
+
+// Dynamic shared memory of each kernel (0 fwd, 1 dK/dV, 2 dQ), with the
+// 1024 bytes that align it.
+size_t smem_bytes(int kernel) {
+  return 1024 + (kernel == 0   ? FwdSmem<kDP>::kBytes
+                 : kernel == 1 ? DkdvSmem<kDP>::kBytes
+                               : DqSmem<kDP>::kBytes);
 }
 
-template <typename T, int DP>
+// One block per (rows, head, batch) in the order of block_coords.
+long long grid_blocks(int rows, int B, const Geo& g) {
+  return (long long)((g.S + rows - 1) / rows) * g.H * B;
+}
+
+// The forward is persistent: at most one block per SM.
+template <typename T>
 int launch_fwd(const void* qkv, void* out, void* lse, const void* seed,
-               int B, const Geo& g, cudaStream_t st) {
-  const size_t smem = 5 * tile_bytes<DP>();
-  int err = prepare(flash_packed_fwd_kernel<T, DP>, smem);
+               int B, const Geo& g, int fold, cudaStream_t st) {
+  const long long items = grid_blocks(128, B, g);
+  if (items > 0x7FFFFFFFLL) return -1;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const long long blocks = items < sms ? items : sms;
+  CUtensorMap qkv_map;
+  int err = hopper::make_map_bshd<T>(&qkv_map, qkv, B, g.S, 3 * g.H, g.D);
   if (err) return err;
-  dim3 grid((g.S + kTile - 1) / kTile, g.H, B);
-  flash_packed_fwd_kernel<T, DP><<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out),
-      static_cast<float*>(lse), static_cast<const int32_t*>(seed), g);
+  const size_t smem = smem_bytes(0);
+  err = prepare(flash_packed_fwd_kernel<T, kDP>, smem);
+  if (err) return err;
+  flash_packed_fwd_kernel<T, kDP><<<(unsigned)blocks, kBlockThreads, smem,
+                                    st>>>(
+      qkv_map, static_cast<T*>(out), static_cast<float*>(lse),
+      static_cast<const int32_t*>(seed), g, fold, B);
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory of a backward kernel, with the 1024 bytes that
-// align it.
-size_t bwd_smem_bytes(bool dkdv, int DP) {
-  return 1024 + (DP == 64 ? (dkdv ? DkdvSmem<64>::kBytes : DqSmem<64>::kBytes)
-                          : (dkdv ? DkdvSmem<128>::kBytes : DqSmem<128>::kBytes));
-}
-
 // One launcher for both backward kernels (they share a signature): the
-// tensor maps of qkv as (B, S, 3H, D) and dO as (B, S, H, D), then one
-// block per (128 rows, head, batch) in the order of block_coords.
-template <typename T, int DP>
+// tensor maps of qkv as (B, S, 3H, D) and dO as (B, S, H, D).
+template <typename T>
 int launch_bwd(bool dkdv, const void* qkv, const void* dout, const void* lse,
                const void* delta, const void* seed, void* dqkv, int B,
                const Geo& g, int fold, cudaStream_t st) {
-  const long long blocks = (long long)((g.S + kBwdBlockRows - 1) /
-                                       kBwdBlockRows) * g.H * B;
+  const long long blocks = grid_blocks(Shape<kDP>::kBwdRows, B, g);
   if (blocks > 0x7FFFFFFFLL) return -1;
   CUtensorMap qkv_map, do_map;
   int err = hopper::make_map_bshd<T>(&qkv_map, qkv, B, g.S, 3 * g.H, g.D);
   if (err) return err;
   err = hopper::make_map_bshd<T>(&do_map, dout, B, g.S, g.H, g.D);
   if (err) return err;
-  auto kernel = dkdv ? flash_packed_dkdv_kernel<T, DP>
-                     : flash_packed_dq_kernel<T, DP>;
-  const size_t smem = bwd_smem_bytes(dkdv, DP);
+  auto kernel = dkdv ? flash_packed_dkdv_kernel<T, kDP>
+                     : flash_packed_dq_kernel<T, kDP>;
+  const size_t smem = smem_bytes(dkdv ? 1 : 2);
   err = prepare(kernel, smem);
   if (err) return err;
-  kernel<<<(unsigned)blocks, kBwdThreads, smem, st>>>(
+  kernel<<<(unsigned)blocks, kBlockThreads, smem, st>>>(
       qkv_map, do_map, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const int32_t*>(seed),
       static_cast<T*>(dqkv), g, fold);
   return (int)cudaGetLastError();
 }
 
+// The widths this library takes: D a multiple of 8 in (kDP/2, kDP] (from
+// 8 at 64).
 bool geometry_ok(int dtype, int B, const Geo& g) {
+  const int lo = kDP == 64 ? 8 : kDP / 2 + 8;
   return (dtype == 1 || dtype == 2) && B >= 1 && g.S >= 1 && g.H >= 1 &&
-         g.D >= 8 && g.D <= 128 && g.D % 8 == 0 && B <= 65535 &&
+         g.D >= lo && g.D <= kDP && g.D % 8 == 0 && B <= 65535 &&
          g.H <= 65535;
 }
 
@@ -915,16 +1158,11 @@ int launch_bwd_entry(bool dkdv, int dtype, const void* qkv, const void* dout,
   const Geo g = make_geo(S, H, D, causal, scale, dropout, keep_prob, thresh);
   if (!geometry_ok(dtype, B, g) || (fold && dtype != 1)) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return D <= 64 ? launch_bwd<__nv_bfloat16, 64>(dkdv, qkv, dout, lse, delta,
-                                                   seed, dqkv, B, g, fold, st)
-                   : launch_bwd<__nv_bfloat16, 128>(dkdv, qkv, dout, lse,
-                                                    delta, seed, dqkv, B, g,
-                                                    fold, st);
-  return D <= 64 ? launch_bwd<__half, 64>(dkdv, qkv, dout, lse, delta, seed,
-                                          dqkv, B, g, fold, st)
-                 : launch_bwd<__half, 128>(dkdv, qkv, dout, lse, delta, seed,
-                                           dqkv, B, g, fold, st);
+  return dtype == 1
+             ? launch_bwd<__nv_bfloat16>(dkdv, qkv, dout, lse, delta, seed,
+                                         dqkv, B, g, fold, st)
+             : launch_bwd<__half>(dkdv, qkv, dout, lse, delta, seed, dqkv, B,
+                                  g, fold, st);
 }
 
 }  // namespace
@@ -937,15 +1175,13 @@ extern "C" {
 int flash_packed_fwd(int dtype, const void* qkv, void* out, void* lse,
                      const void* seed, int B, int S, int H, int D, int causal,
                      float scale, int dropout, float keep_prob, int thresh,
-                     void* stream) {
+                     int fold, void* stream) {
   const Geo g = make_geo(S, H, D, causal, scale, dropout, keep_prob, thresh);
-  if (!geometry_ok(dtype, B, g)) return -1;
+  if (!geometry_ok(dtype, B, g) || (fold && dtype != 1)) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return D <= 64 ? launch_fwd<__nv_bfloat16, 64>(qkv, out, lse, seed, B, g, st)
-                   : launch_fwd<__nv_bfloat16, 128>(qkv, out, lse, seed, B, g, st);
-  return D <= 64 ? launch_fwd<__half, 64>(qkv, out, lse, seed, B, g, st)
-                 : launch_fwd<__half, 128>(qkv, out, lse, seed, B, g, st);
+  return dtype == 1 ? launch_fwd<__nv_bfloat16>(qkv, out, lse, seed, B, g,
+                                                fold, st)
+                    : launch_fwd<__half>(qkv, out, lse, seed, B, g, fold, st);
 }
 
 int flash_packed_dkdv(int dtype, const void* qkv, const void* dout,
@@ -958,12 +1194,6 @@ int flash_packed_dkdv(int dtype, const void* qkv, const void* dout,
                           fold, stream);
 }
 
-// Dynamic shared memory of the dK/dV (dkdv != 0) or dQ kernel at head
-// width D, in bytes.
-int flash_packed_bwd_smem(int dkdv, int D) {
-  return (int)bwd_smem_bytes(dkdv != 0, D <= 64 ? 64 : 128);
-}
-
 int flash_packed_dq(int dtype, const void* qkv, const void* dout,
                     const void* lse, const void* delta, const void* seed,
                     void* dqkv, int B, int S, int H, int D, int causal,
@@ -973,5 +1203,9 @@ int flash_packed_dq(int dtype, const void* qkv, const void* dout,
                           S, H, D, causal, scale, dropout, keep_prob, thresh,
                           fold, stream);
 }
+
+// Dynamic shared memory of this library's forward (0), dK/dV (1) or dQ (2)
+// kernel, in bytes.
+int flash_packed_smem(int kernel) { return (int)smem_bytes(kernel); }
 
 }  // extern "C"

@@ -42,7 +42,7 @@ import torch
 _NEG_INF = -1e30  # large-but-finite: keeps exp()=0 without inf-inf NaNs
 
 _BLOCK_CANDIDATES = (1024, 512, 256, 128, 64, 32, 16, 8)
-MAX_HEAD_DIM = 128   # the CUDA kernels' widest instance
+MAX_HEAD_DIM = 256   # the CUDA kernels' widest instance
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # kernel launches since the last reset, one count per kernel (the smoke
@@ -212,11 +212,14 @@ def flash_bwd_pair_ref(q, k, v, do, lse, delta_row, causal, sm_scale,
 _fns = {}
 
 
-def _lib():
-    """The three C entry points, built and bound at first use."""
-    if not _fns:
-        from ._build import load
-        lib = load("flash_attention")
+def _lib(head_dim, dtype):
+    """The three C entry points of the library of ``head_dim``'s padded
+    width (64, 128 or 256) and ``dtype``'s family (f32, or bf16/f16),
+    built and bound at first use."""
+    from ._build import load, padded_width
+    key = (padded_width(head_dim), "f32" if dtype == torch.float32 else "h")
+    if key not in _fns:
+        lib = load("flash_attention_w{}_{}".format(*key))
         # c_void_p for every pointer and the stream, or ctypes passes them
         # as 32-bit ints and cuts them
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -224,40 +227,54 @@ def _lib():
         lib.flash_bhd_fwd.argtypes = [ci] + [vp] * 6 + tail
         lib.flash_bhd_dkdv.argtypes = [ci] + [vp] * 9 + tail
         lib.flash_bhd_dq.argtypes = [ci] + [vp] * 8 + tail
+        fns = _fns[key] = {}
         for name in ("fwd", "dkdv", "dq"):
             fn = getattr(lib, f"flash_bhd_{name}")
             fn.restype = ctypes.c_int
-            _fns[name] = fn
-    return _fns
+            fns[name] = fn
+    return _fns[key]
+
+
+def check_geometry(q_shape, kv_shape, dtype) -> None:
+    """Raise unless the kernels take ``q`` of ``q_shape (bh, sq, D)`` and
+    ``k, v`` of ``kv_shape (bh, skv, D)`` in ``dtype`` (a pure function of
+    the shapes, which the CPU tests call): ``NotImplementedError`` for a
+    dtype or head width the CUDA kernels do not cover (any D from 1 to
+    256 is covered), ``RuntimeError`` for ranks, shapes or lengths the gate
+    refuses."""
+    if len(q_shape) != 3 or len(kv_shape) != 3 \
+            or kv_shape[0] != q_shape[0] or kv_shape[2] != q_shape[2]:
+        raise RuntimeError(f"q must be (bh, sq, D) and k, v (bh, skv, D), "
+                           f"got {tuple(q_shape)}, {tuple(kv_shape)}")
+    if dtype not in _DTYPE_CODES:
+        raise NotImplementedError(
+            f"the bhd flash kernels take f32/bf16/f16, got {dtype}: ROADMAP "
+            f"Queue 2")
+    bh, sq, d = q_shape
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"the bhd flash kernels take head widths up to {MAX_HEAD_DIM}, "
+            f"got {d}: ROADMAP Queue 3")
+    if not supported(sq, kv_shape[1]):
+        raise RuntimeError(f"the bhd flash gate refuses seq ({sq}, "
+                           f"{kv_shape[1]})")
 
 
 def check_kernel_args(q, k, v, *others) -> None:
     """Raise unless the kernels take ``q (bh, sq, D)``, ``k, v (bh, skv,
-    D)`` and the other tensors of a launch: ``NotImplementedError`` for a
-    dtype or head width the CUDA kernels do not cover, ``RuntimeError``
-    for anything else (device, rank, shapes, lengths the gate refuses,
-    layout)."""
+    D)`` and the other tensors of a launch: :func:`check_geometry`, then
+    ``RuntimeError`` for the device or the layout."""
     if q.device.type != "cuda":
         raise RuntimeError(f"the bhd flash kernels run on CUDA tensors, got "
                            f"{q.device}")
-    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape \
-            or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
-        raise RuntimeError(f"q must be (bh, sq, D) and k, v (bh, skv, D), "
-                           f"got {tuple(q.shape)}, {tuple(k.shape)}, "
-                           f"{tuple(v.shape)}")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
+    if k.shape != v.shape:
+        raise RuntimeError(f"k and v must have one shape, got "
+                           f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
         raise NotImplementedError(
-            f"the bhd flash kernels take f32/bf16/f16 q, k, v of one dtype, "
-            f"got {q.dtype}, {k.dtype}, {v.dtype}: ROADMAP Queue 2")
-    bh, sq, d = q.shape
-    if d % 8 or d > MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"the bhd flash kernels take head widths that are multiples of "
-            f"8 up to {MAX_HEAD_DIM}, got {d}: ROADMAP Queue 2")
-    if not supported(sq, k.shape[1]):
-        raise RuntimeError(f"the bhd flash gate refuses seq ({sq}, "
-                           f"{k.shape[1]})")
+            f"the bhd flash kernels take q, k, v of one dtype, got "
+            f"{q.dtype}, {k.dtype}, {v.dtype}: ROADMAP Queue 2")
+    check_geometry(tuple(q.shape), tuple(k.shape), q.dtype)
     for t in (q, k, v) + others:
         if t.device != q.device:
             raise RuntimeError(f"tensor on {t.device}, q on {q.device}")
@@ -274,7 +291,7 @@ def _geo(q, k, causal, sm_scale, dropout_p):
 
 
 def _launch(name, q, k, v, ptrs, causal, sm_scale, dropout_p):
-    fn = _lib()[name]
+    fn = _lib(q.shape[-1], q.dtype)[name]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),

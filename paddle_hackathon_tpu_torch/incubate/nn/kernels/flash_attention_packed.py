@@ -17,8 +17,11 @@ split or transpose exists in device memory.
   tensor launches them or raises; there is no fallback to the plain
   version on the card.  They take any length: the JAX gate is the
   dispatchers' (``supported``), the wrappers check what the kernels take.
-- :func:`scale_folds`: whether the backward kernels apply ``sm_scale`` to
-  their f32 products instead of rewriting the q and k tiles.
+- :func:`scale_folds`: whether the kernels apply ``sm_scale`` to their
+  f32 products instead of rewriting the q and k tiles.
+- :func:`check_geometry`: the head widths and types the kernels take (a
+  pure function of the shape, which the CPU tests call), and
+  :func:`check_kernel_args`, which adds the device and layout checks.
 - :class:`FlashAttentionPacked` (``torch.autograd.Function``) and
   :func:`flash_attention_packed`, the counterpart of the JAX
   ``custom_vjp`` function.
@@ -42,7 +45,7 @@ _LANES = 128
 # The JAX estimator's scoped-VMEM budget: part of the gate, kept so that
 # supported() answers as the JAX package does.
 _VMEM_BUDGET = 13 * 2**20
-MAX_HEAD_DIM = 128   # the CUDA kernels' widest instance
+MAX_HEAD_DIM = 256   # the CUDA kernels' widest instance
 _DTYPE_CODES = {torch.bfloat16: 1, torch.float16: 2}
 
 # kernel launches since the last reset, one count per kernel (the smoke
@@ -86,9 +89,9 @@ def supported(sq, skv, heads, head_dim, dtype) -> bool:
 
 
 def scale_folds(dtype, sm_scale) -> bool:
-    """True where the backward kernels may apply ``sm_scale`` to their f32
-    products (S, dK, dQ) and read q and k unscaled: bf16 and a rounded
-    scale that is a power of two (``1/sqrt(D)`` at D = 16 and 64).  Then
+    """True where the kernels may apply ``sm_scale`` to their f32 products
+    (S, dK, dQ) and read q and k unscaled: bf16 and a rounded scale that is
+    a power of two (``1/sqrt(D)`` at D = 16, 64 and 256).  Then
     ``(q * scale).to(bf16)`` is ``q * scale`` (bf16 has f32's exponent
     range; only results below its smallest normal, 2**-126, could round),
     and a power of two commutes with every rounding of an f32 sum.  f16's
@@ -198,47 +201,55 @@ def flash_packed_bwd_ref(qkv, out, lse, dout, heads, causal, sm_scale,
 _fns = {}
 
 
-def _lib():
-    """The three C entry points, built and bound at first use."""
-    if not _fns:
-        from ._build import load
-        lib = load("flash_attention_packed")
+def _lib(head_dim):
+    """The three C entry points of the library of ``head_dim``'s padded
+    width (64, 128 or 256), built and bound at first use."""
+    from ._build import load, padded_width
+    dp = padded_width(head_dim)
+    if dp not in _fns:
+        lib = load(f"flash_attention_packed_w{dp}")
         # c_void_p for every pointer and the stream, or ctypes passes them
         # as 32-bit ints and cuts them
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         geo = [ci, ci, ci, ci, ci, cf, ci, cf, ci]
         fwd = lib.flash_packed_fwd
-        fwd.argtypes = [ci, vp, vp, vp, vp] + geo + [vp]
-        bwd = [ci, vp, vp, vp, vp, vp, vp] + geo + [ci, vp]   # + fold
+        fwd.argtypes = [ci, vp, vp, vp, vp] + geo + [ci, vp]   # + fold
+        bwd = [ci, vp, vp, vp, vp, vp, vp] + geo + [ci, vp]
         for name in ("dkdv", "dq"):
             fn = getattr(lib, f"flash_packed_{name}")
             fn.argtypes = bwd
         for fn in (fwd, lib.flash_packed_dkdv, lib.flash_packed_dq):
             fn.restype = ctypes.c_int
-        _fns.update(fwd=fwd, dkdv=lib.flash_packed_dkdv,
-                    dq=lib.flash_packed_dq)
-    return _fns
+        _fns[dp] = dict(fwd=fwd, dkdv=lib.flash_packed_dkdv,
+                        dq=lib.flash_packed_dq)
+    return _fns[dp]
+
+
+def check_geometry(shape, heads, dtype) -> None:
+    """Raise ``ValueError`` unless the kernels take a qkv of ``shape`` and
+    ``dtype``: ``(b, s, 3*H*D)`` bf16/f16 with D a multiple of 8 up to
+    256 (any s)."""
+    if len(shape) != 3 or shape[-1] % (3 * heads):
+        raise ValueError(f"qkv must be (b, s, 3*H*D) with H={heads}, got "
+                         f"{tuple(shape)}")
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"the packed flash kernels take bf16/f16, got "
+                         f"{dtype}")
+    b, s, hd3 = shape
+    D = hd3 // 3 // heads
+    if D % 8 or not 8 <= D <= MAX_HEAD_DIM or s < 1:
+        raise ValueError(f"packed flash kernel unsupported for seq {s}, "
+                         f"heads {heads}, head_dim {D}, dtype {dtype}")
 
 
 def check_kernel_args(qkv, heads, *others) -> None:
     """Raise ``ValueError`` unless the kernels take ``qkv`` (and the other
-    tensors of a backward launch): a CUDA ``(b, s, 3*H*D)`` bf16/f16
-    tensor, contiguous and 16-byte aligned, with D a multiple of 8 up to
-    128 (any s)."""
+    tensors of a backward launch): a CUDA tensor of a geometry
+    :func:`check_geometry` takes, contiguous and 16-byte aligned."""
     if qkv.device.type != "cuda":
         raise ValueError(f"the packed flash kernels run on CUDA tensors, "
                          f"got {qkv.device}")
-    if qkv.dim() != 3 or qkv.shape[-1] % (3 * heads):
-        raise ValueError(f"qkv must be (b, s, 3*H*D) with H={heads}, got "
-                         f"{tuple(qkv.shape)}")
-    if qkv.dtype not in _DTYPE_CODES:
-        raise ValueError(f"the packed flash kernels take bf16/f16, got "
-                         f"{qkv.dtype}")
-    b, s, hd3 = qkv.shape
-    D = hd3 // 3 // heads
-    if D % 8 or not 8 <= D <= MAX_HEAD_DIM or s < 1:
-        raise ValueError(f"packed flash kernel unsupported for seq {s}, "
-                         f"heads {heads}, head_dim {D}, dtype {qkv.dtype}")
+    check_geometry(tuple(qkv.shape), heads, qkv.dtype)
     for t in (qkv,) + others:
         if not t.is_contiguous():
             raise ValueError("the packed flash kernels take contiguous "
@@ -272,12 +283,13 @@ def flash_packed_fwd_kernel(qkv, heads, causal, sm_scale, dropout_p=0.0,
     out = torch.empty(b, s, hd3 // 3, dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty(b, heads, s, dtype=torch.float32, device=qkv.device)
     seed_t = _seed_tensor(seed, qkv.device)
-    fn = _lib()["fwd"]
+    geo = _geo(qkv, heads, causal, sm_scale, dropout_p)
+    fn = _lib(geo[3])["fwd"]
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = fn(_DTYPE_CODES[qkv.dtype], qkv.data_ptr(), out.data_ptr(),
-                 lse.data_ptr(), seed_t.data_ptr(),
-                 *_geo(qkv, heads, causal, sm_scale, dropout_p), stream)
+                 lse.data_ptr(), seed_t.data_ptr(), *geo,
+                 int(scale_folds(qkv.dtype, sm_scale)), stream)
     _check(err, "forward")
     launches["fwd"] += 1
     return out, lse
@@ -295,13 +307,13 @@ def _bwd_launch(name, qkv, dout, lse, delta, dqkv, heads, causal, sm_scale,
         if t.shape != (b, heads, s) or t.dtype != torch.float32:
             raise ValueError("lse and delta must be (b, H, s) float32")
     seed_t = _seed_tensor(seed, qkv.device)
-    fn = _lib()[name]
+    geo = _geo(qkv, heads, causal, sm_scale, dropout_p)
+    fn = _lib(geo[3])[name]
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = fn(_DTYPE_CODES[qkv.dtype], qkv.data_ptr(), dout.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(), seed_t.data_ptr(),
-                 dqkv.data_ptr(),
-                 *_geo(qkv, heads, causal, sm_scale, dropout_p),
+                 dqkv.data_ptr(), *geo,
                  int(scale_folds(qkv.dtype, sm_scale)), stream)
     _check(err, name)
     launches[name] += 1

@@ -29,10 +29,9 @@ import torch
 
 _NEG_INF = -1e30  # large-but-finite, matching the dense composition
 
-# the kernel's geometry limits (csrc/paged_attention.cu)
+# the kernel's geometry limit (csrc/paged_attention.cu): any width, page
+# size and D up to this
 MAX_HEAD_DIM = 256
-MAX_PAGE_SIZE = 64
-MAX_WIDTH = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # kernel launches since the last reset (the smoke run reads it to prove
@@ -85,31 +84,42 @@ def paged_attention_ref(q, k_pool, v_pool, page_table, lengths):
     return torch.einsum("bhst,bthe->bshe", probs, vb.to(probs.dtype))
 
 
+def check_geometry(q_shape, pool_shapes, dtypes, table_shape, table_dtype,
+                   lengths_shape, lengths_dtype) -> None:
+    """Raise ``ValueError`` unless the kernel takes arguments of these
+    shapes and dtypes (a pure function, which the CPU tests call): q
+    ``(B, s, H, D)``, both pools ``(N, P, H, D)``, one float dtype, an
+    int32 ``(B, pages_per_slot)`` table and int32 ``(B,)`` lengths, with
+    ``1 <= D <= 256`` and any width ``s`` and page size ``P``."""
+    if len(q_shape) != 4 or any(len(p) != 4 for p in pool_shapes):
+        raise ValueError("q must be (B, s, H, D) and the pools (N, P, H, D)")
+    B, s, H, D = q_shape
+    N, P = pool_shapes[0][:2]
+    if any(tuple(p) != (N, P, H, D) for p in pool_shapes):
+        raise ValueError(f"pool shapes {[tuple(p) for p in pool_shapes]} do "
+                         f"not match q {tuple(q_shape)}")
+    if dtypes[0] not in _DTYPE_CODES:
+        raise ValueError(f"unsupported dtype {dtypes[0]}")
+    if any(d != dtypes[0] for d in dtypes):
+        raise ValueError(f"q and the pools must share one dtype, got "
+                         f"{'/'.join(str(d) for d in dtypes)}")
+    if (len(table_shape) != 2 or table_shape[0] != B or table_shape[1] < 1
+            or table_dtype != torch.int32):
+        raise ValueError("page_table must be (B, pages_per_slot) int32")
+    if tuple(lengths_shape) != (B,) or lengths_dtype != torch.int32:
+        raise ValueError("lengths must be (B,) int32")
+    if not 1 <= D <= MAX_HEAD_DIM or P < 1 or s < 1:
+        raise ValueError(f"kernel geometry D={D} P={P} s={s}: needs 1 <= D "
+                         f"<= {MAX_HEAD_DIM}, P >= 1, s >= 1")
+
+
 def check_kernel_args(q, k_pool, v_pool, page_table, lengths) -> None:
     """Raise ``ValueError`` unless the kernel takes these arguments:
-    shapes, dtypes, contiguity, alignment and the geometry limits
-    (``D <= 256``, ``D % 8 == 0``, ``P <= 64``, width ``s <= 64``)."""
-    if q.dim() != 4 or k_pool.dim() != 4:
-        raise ValueError("q must be (B, s, H, D) and the pools (N, P, H, D)")
-    B, s, H, D = q.shape
-    N, P = k_pool.shape[:2]
-    if tuple(k_pool.shape) != (N, P, H, D) or v_pool.shape != k_pool.shape:
-        raise ValueError(f"pool shapes {tuple(k_pool.shape)}/"
-                         f"{tuple(v_pool.shape)} do not match q {tuple(q.shape)}")
-    if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"unsupported dtype {q.dtype}")
-    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise ValueError("q and the pools must share one dtype, got "
-                         f"{q.dtype}/{k_pool.dtype}/{v_pool.dtype}")
-    if (page_table.dim() != 2 or page_table.shape[0] != B
-            or page_table.shape[1] < 1 or page_table.dtype != torch.int32):
-        raise ValueError("page_table must be (B, pages_per_slot) int32")
-    if (lengths.shape != (B,) or lengths.dtype != torch.int32):
-        raise ValueError("lengths must be (B,) int32")
-    if D > MAX_HEAD_DIM or D % 8 or P > MAX_PAGE_SIZE or not 1 <= s <= MAX_WIDTH:
-        raise ValueError(
-            f"kernel geometry D={D} P={P} s={s}: needs D <= {MAX_HEAD_DIM}, "
-            f"D % 8 == 0, P <= {MAX_PAGE_SIZE}, 1 <= s <= {MAX_WIDTH}")
+    :func:`check_geometry`, then contiguity, device and alignment."""
+    check_geometry(tuple(q.shape), (tuple(k_pool.shape), tuple(v_pool.shape)),
+                   (q.dtype, k_pool.dtype, v_pool.dtype),
+                   tuple(page_table.shape), page_table.dtype,
+                   tuple(lengths.shape), lengths.dtype)
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
                     ("page_table", page_table), ("lengths", lengths)):
         if not t.is_contiguous():

@@ -324,6 +324,14 @@ class ServingEngine:
         ``max_slots * ceil(max_len / page_size) + 1``.
       prefix_cache: keep finished prompts' full pages in a radix cache for
         later requests sharing a page-aligned prefix (paged mode).
+    The reference's other parameters stand in its order and take its
+    defaults; a value that needs a part not ported yet raises
+    ``NotImplementedError`` (``spec_k``/``drafter``, ``prefill_budget``,
+    ``slo_window_s``, ``session_ttl_s``/``max_sessions``,
+    ``priority_aging_s``), and ``preempt``/``preempt_limit`` change
+    nothing (no request is ever preempted without priority classes).
+    ``auto_run`` defaults to False here: the background loop is not
+    ported (True raises).
     Temperature > 0 sampling draws from the device's default
     ``torch.Generator`` (``core/random.py``).
     """
@@ -331,15 +339,31 @@ class ServingEngine:
     def __init__(self, model, max_slots=8, max_len=512, chunk=16,
                  temperature=0.0, top_k=None, eos_token_id=None,
                  auto_run=False, decode_window=8, top_p=None, spec_k=0,
-                 cache_mode="dense", page_size=16,
-                 num_pages=None, prefix_cache=True, prefill_budget=None):
+                 drafter="ngram", cache_mode="dense", page_size=16,
+                 num_pages=None, prefix_cache=True, slo_window_s=60.0,
+                 session_ttl_s=None, max_sessions=64,
+                 priority_aging_s=30.0, prefill_budget=None,
+                 preempt=True, preempt_limit=2):
         if auto_run:
             raise _not_ported("the auto_run background loop (drive the "
                               "engine with step()/run_until_idle())")
         if spec_k:
             raise _not_ported("speculative decoding (spec_k > 0)")
+        if drafter != "ngram":
+            raise _not_ported("speculative decoding's drafter")
         if prefill_budget is not None:
             raise _not_ported("prefill_budget")
+        if slo_window_s != 60.0:
+            raise _not_ported("the SLO telemetry window (slo_window_s)")
+        if session_ttl_s is not None or max_sessions != 64:
+            raise _not_ported("multi-turn sessions (session_ttl_s, "
+                              "max_sessions)")
+        if priority_aging_s != 30.0:
+            raise _not_ported("priority classes and aging "
+                              "(priority_aging_s)")
+        # preempt / preempt_limit only bound preemption, which needs
+        # priority classes: with every request at the default priority
+        # nothing is preempted, whatever their values
         if cache_mode not in ("dense", "paged"):
             raise ValueError(f"cache_mode must be 'dense' or 'paged', "
                              f"got {cache_mode!r}")
@@ -401,8 +425,10 @@ class ServingEngine:
     # ------------------------------------------------------------ intake
     def submit(self, prompt, max_new_tokens=32, temperature=None,
                top_k=None, top_p=None, deadline_s=None, on_token=None,
-               session=None, priority=None) -> Request:
+               session=None, priority=None, trace_ctx=None) -> Request:
         """Queue a request; the engine serves it on later ticks."""
+        if trace_ctx is not None:
+            raise _not_ported("request tracing (submit(trace_ctx=))")
         if deadline_s is not None:
             raise _not_ported("submit(deadline_s=)")
         if on_token is not None:

@@ -247,9 +247,11 @@ class GPTModel(nn.Module):
     def forward(self, input_ids, position_ids=None, caches=None,
                 cache_pos=None, page_table=None):
         s = input_ids.shape[1]
-        if position_ids is None:
+        if cache_pos is not None or position_ids is None:
             # positions from the write offset (0 without a cache), clipped
-            # to the table like the reference's out-of-range gather
+            # to the table like the reference's out-of-range gather; as in
+            # the reference, a cache_pos decides them even where
+            # position_ids is given
             pos = cache_pos if cache_pos is not None else \
                 torch.tensor(0, device=input_ids.device)
             position_ids = _positions(pos, s, self.wpe.weight.shape[0])
@@ -375,15 +377,20 @@ class GPTForCausalLM(nn.Module):
 
     @torch.inference_mode()
     def generate(self, input_ids, max_new_tokens=32, temperature=1.0,
-                 top_k: Optional[int] = None, top_p: Optional[float] = None,
-                 spec_k: int = 0, generator=None):
+                 top_k: Optional[int] = None, jit_decode: bool = True,
+                 top_p: Optional[float] = None, spec_k: int = 0,
+                 drafter=None, *, generator=None):
         """Greedy / top-k / nucleus decoding over a static
         ``(B, prompt + max_new, H, D)`` KV cache: one prefill forward, then
         one width-1 forward per token.  ``input_ids`` is a (B, prompt)
         array or tensor; returns (B, prompt + max_new) int64 on the model's
         device.  Greedy output is token-exact against the JAX package's
-        ``generate(temperature=0.0)``."""
-        if spec_k:
+        ``generate(temperature=0.0)``.  The parameters are the reference's,
+        in its order; ``jit_decode`` chooses between two JAX programs that
+        give the same tokens, so either value runs this one eager loop.
+        ``generator`` (keyword only, the port's own) draws the samples;
+        default: the device's default generator."""
+        if spec_k or drafter is not None:
             raise NotImplementedError(
                 "speculative decoding is not ported yet: ROADMAP Queue 1 "
                 "item 8 (nn/decode.py drafters)")

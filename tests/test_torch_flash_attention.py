@@ -78,8 +78,19 @@ def _inputs(seed, B=1, S=128, H=2, D=64):
     ("f32", True, 0.0), ("f32", False, 0.0), ("f32", True, 0.3),
     ("bf16", True, 0.0), ("bf16", False, 0.0), ("bf16", True, 0.3)])
 def test_fwd_and_grad_match_jax_kernel(dt, causal, p):
-    H, D, seed = 2, 64, -77
-    x, cot = _inputs(1 if causal else 2)
+    _match_jax_kernel(dt, causal, p, *_inputs(1 if causal else 2))
+
+
+@pytest.mark.parametrize("dt,causal", [("f32", True), ("bf16", True),
+                                       ("bf16", False)])
+def test_head_dim_256_fwd_and_grad_match_jax_kernel(dt, causal):
+    """The widest head the kernels take, D = 256 (JAX plan (64, 64, 1))."""
+    _match_jax_kernel(dt, causal, 0.0, *_inputs(3, S=64, H=1, D=256), H=1,
+                      D=256)
+
+
+def _match_jax_kernel(dt, causal, p, x, cot, H=2, D=64):
+    seed = -77
     jd, td = (jnp.float32, torch.float32) if dt == "f32" else \
         (jnp.bfloat16, torch.bfloat16)
     sc = 1.0 / np.sqrt(D)
@@ -123,6 +134,20 @@ def test_functional_gate_and_seed_draw():
     ref = flash_attention_qkv_packed(tx, 2)
     torch.testing.assert_close(
         ref, tfap.flash_attention_packed(tx, 2, True, 0.125), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("H,D,dt", [(1, 256, "bfloat16"),
+                                    (2, 192, "float16"), (4, 8, "bfloat16"),
+                                    (2, 136, "bfloat16")])
+def test_kernel_geometry_takes_heads_up_to_256(H, D, dt):
+    tfap.check_geometry((2, 65, 3 * H * D), H, getattr(torch, dt))
+
+
+@pytest.mark.parametrize("H,D,dt", [(1, 264, "bfloat16"), (2, 36, "bfloat16"),
+                                    (1, 64, "float32")])
+def test_kernel_geometry_refuses_the_rest(H, D, dt):
+    with pytest.raises(ValueError):
+        tfap.check_geometry((2, 65, 3 * H * D), H, getattr(torch, dt))
 
 
 def test_kernel_wrappers_refuse_what_they_do_not_take():
@@ -180,9 +205,9 @@ def test_f32_products_scaled_after_the_sum_are_bitwise(scale, m, n, k):
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
-@pytest.mark.parametrize("d", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 128, 192, 256])
 def test_scale_fold_decision(dtype, d):
-    """Only bf16 at a power-of-two rounded 1/sqrt(D) folds: D = 16 and 64
-    of the widths the kernels take; f16 always scales its tiles."""
+    """Only bf16 at a power-of-two rounded 1/sqrt(D) folds: D = 16, 64 and
+    256 of the widths the kernels take; f16 always scales its tiles."""
     folds = tfap.scale_folds(getattr(torch, dtype), 1.0 / np.sqrt(d))
-    assert folds == (dtype == "bfloat16" and d in (16, 64))
+    assert folds == (dtype == "bfloat16" and d in (16, 64, 256))

@@ -90,6 +90,47 @@ def test_grads_match_jax_kernel(dt, causal, sq, skv, p):
                                    err_msg=f"d{name}", **TOL[dt])
 
 
+@pytest.mark.parametrize("dt,d", [("f32", 36), ("bf16", 36), ("f32", 256),
+                                  ("bf16", 256)])
+def test_odd_and_wide_head_dims_match_jax_kernel(dt, d):
+    """A head width that is not a multiple of 8 and the widest, D = 256:
+    forward and gradients, causal, sq != skv."""
+    q, k, v, do = _inputs(d, 2, 64, 128, d)
+    jd, td = DT[dt]
+    sc = 1.0 / np.sqrt(d)
+    jargs = [jnp.asarray(x, jd) for x in (q, k, v)]
+    j_out, j_lse = jfa._fwd(*jargs, True, sc, 0.0, None)
+    j_grads = jax.grad(lambda a, b, c: jnp.sum(jfa.flash_attention_bhd(
+        a, b, c, True, sc).astype(jnp.float32) * do),
+        argnums=(0, 1, 2))(*jargs)
+    targs = [torch.from_numpy(x).to(td).requires_grad_(True)
+             for x in (q, k, v)]
+    t_out, t_lse = tfa._fwd(*(t.detach() for t in targs), True, sc)
+    np.testing.assert_allclose(t_out.float().numpy(), _f(j_out), **TOL[dt])
+    np.testing.assert_allclose(t_lse.numpy(), _f(j_lse)[:, 0, :],
+                               **TOL["f32"])
+    out = tfa.flash_attention_bhd(*targs, True, sc)
+    (out.float() * torch.from_numpy(do)).sum().backward()
+    for name, t, j in zip("qkv", targs, j_grads):
+        np.testing.assert_allclose(t.grad.float().numpy(), _f(j),
+                                   err_msg=f"d{name}", **TOL[dt])
+
+
+@pytest.mark.parametrize("d", [1, 36, 100, 129, 256])
+@pytest.mark.parametrize("dt", ["float32", "bfloat16", "float16"])
+def test_kernel_geometry_takes_any_head_dim_up_to_256(d, dt):
+    tfa.check_geometry((3, 1000, d), (3, 1000, d), getattr(torch, dt))
+
+
+def test_kernel_geometry_refuses_the_rest():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tfa.check_geometry((3, 64, 264), (3, 64, 264), torch.float32)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tfa.check_geometry((3, 64, 64), (3, 64, 64), torch.float64)
+    with pytest.raises(RuntimeError, match="refuses"):
+        tfa.check_geometry((3, 1003, 64), (3, 1003, 64), torch.float32)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_bwd_pair_on_a_kv_chunk_matches_jax(causal):
     """The ring's unit: q against the second half of kv, with the global

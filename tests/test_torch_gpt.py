@@ -156,6 +156,39 @@ def test_temperature_sampling_follows_its_generator(models):
     assert ((runs[0] >= 0) & (runs[0] < 128)).all()
 
 
+def test_cache_pos_decides_positions_over_position_ids(models):
+    """The reference's rule: with a cache, positions come from
+    ``cache_pos`` even where ``position_ids`` is passed beside it."""
+    jm, tm = models
+    B, T = 2, 24
+    jc, tc = _zeros_caches((B, T, 4, 16))
+    ids = _ids((B, 5), 12)
+    pos = np.asarray([3, 9], np.int32)
+    stray = np.zeros((B, 5), np.int32)          # not the cache positions
+    jl, _ = jm(Tensor(jnp.asarray(ids)), Tensor(jnp.asarray(stray)),
+               caches=jc, cache_pos=jnp.asarray(pos))
+    with torch.no_grad():
+        tl, _ = tm(torch.from_numpy(ids), torch.from_numpy(stray).long(),
+                   caches=tc, cache_pos=torch.from_numpy(pos))
+    np.testing.assert_allclose(tl.numpy(), _np(jl), rtol=0, atol=ATOL)
+
+
+def test_generate_fifth_positional_is_jit_decode(models):
+    """``generate(ids, n, 1.0, None, False)`` means ``jit_decode=False`` as
+    in the reference: it samples (the same draws as the keyword call) and
+    does not decode greedily."""
+    _, tm = models
+    ids = _ids((2, 6), 13)
+    gen = lambda: torch.Generator().manual_seed(5)  # noqa: E731
+    positional = tm.generate(ids, 12, 1.0, None, False, generator=gen())
+    keyword = tm.generate(ids, 12, temperature=1.0, generator=gen())
+    greedy = tm.generate(ids, 12, temperature=0.0)
+    torch.testing.assert_close(positional, keyword, rtol=0, atol=0)
+    assert not torch.equal(positional, greedy)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tm.generate(ids, 2, 0.0, None, True, None, 0, "ngram")
+
+
 def test_load_jax_state_rejects_mismatches(models):
     jm, _ = models
     arrays = {k: np.asarray(v.numpy()) for k, v in jm.state_dict().items()}

@@ -52,6 +52,18 @@ def test_ref_matches_jax_reference(width, lengths):
     np.testing.assert_allclose(out, ref, **TOL)
 
 
+@pytest.mark.parametrize("width,P,D", [(128, 128, 16), (65, 16, 36),
+                                       (2, 128, 36)])
+def test_wide_chunks_and_long_pages_match_jax_reference(width, P, D):
+    """A prefill chunk of 128 rows over pages of 128, a width past one
+    64-row stage, and a head width that is not a multiple of 8."""
+    case = _case(5, B=2, s=width, P=P, H=2, D=D, maxp=3,
+                 lengths=[0, 3 * P - width - 5])
+    ref = np.asarray(jpa.paged_attention_ref(**_jax(case)))
+    out = tpa.paged_attention_ref(**_torch(case)).numpy()
+    np.testing.assert_allclose(out, ref, **TOL)
+
+
 @pytest.mark.parametrize("lengths", [[11, 0], [7, 23], [8, 16]])
 def test_ref_matches_jax_decode_kernel_under_interpreter(lengths):
     """Width 1 against the Pallas kernel itself, as the JAX package's own
@@ -101,17 +113,11 @@ def test_kernel_refuses_cpu_tensors():
 
 def _bad(kind):
     c = _torch(_case(4, B=2, s=2, P=8, H=2, D=16, maxp=3, lengths=[1, 2]))
-    if kind == "head_dim_not_multiple_of_8":
-        c["q"] = c["q"][..., :12].contiguous()
-        c["k_pool"] = c["k_pool"][..., :12].contiguous()
-        c["v_pool"] = c["v_pool"][..., :12].contiguous()
-    elif kind == "head_dim_over_256":
+    if kind == "head_dim_over_256":
         c["q"] = torch.zeros(2, 2, 1, 264)
         c["k_pool"] = c["v_pool"] = torch.zeros(7, 8, 1, 264)
-    elif kind == "page_over_64":
-        c["k_pool"] = c["v_pool"] = torch.zeros(7, 72, 2, 16)
-    elif kind == "width_over_64":
-        c["q"] = torch.zeros(2, 65, 2, 16)
+    elif kind == "empty_width":
+        c["q"] = torch.zeros(2, 0, 2, 16)
     elif kind == "dtype_mismatch":
         c["k_pool"] = c["k_pool"].to(torch.bfloat16)
     elif kind == "int64_page_table":
@@ -126,12 +132,22 @@ def _bad(kind):
 
 
 @pytest.mark.parametrize("kind", [
-    "head_dim_not_multiple_of_8", "head_dim_over_256", "page_over_64",
-    "width_over_64", "dtype_mismatch", "int64_page_table", "lengths_shape",
-    "non_contiguous_q", "pool_shape"])
+    "head_dim_over_256", "empty_width", "dtype_mismatch", "int64_page_table",
+    "lengths_shape", "non_contiguous_q", "pool_shape"])
 def test_kernel_argument_checks(kind):
     with pytest.raises(ValueError):
         tpa.check_kernel_args(**_bad(kind))
+
+
+@pytest.mark.parametrize("s,P,D", [(128, 128, 64), (256, 256, 64),
+                                   (65, 16, 64), (1, 16, 36), (32, 128, 12),
+                                   (1, 8, 256)])
+def test_kernel_geometry_takes_any_width_page_and_head_dim(s, P, D):
+    """Widths past 64, pages past 64 and head widths that are not a
+    multiple of 8 (up to 256): the limits of earlier versions."""
+    pool = (7, P, 2, D)
+    tpa.check_geometry((2, s, 2, D), (pool, pool), (torch.bfloat16,) * 3,
+                       (2, 3), torch.int32, (2,), torch.int32)
 
 
 def test_kernel_argument_checks_accept_the_serving_shapes():

@@ -151,7 +151,9 @@ def test_submit_rejects_what_does_not_fit(shared):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"auto_run": True}, {"spec_k": 4}, {"prefill_budget": 8}])
+    {"auto_run": True}, {"spec_k": 4}, {"prefill_budget": 8},
+    {"drafter": "model"}, {"slo_window_s": 5.0}, {"session_ttl_s": 9.0},
+    {"max_sessions": 2}, {"priority_aging_s": None}])
 def test_unported_engine_options_raise(shared, kwargs):
     _, tm, _ = shared
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -160,12 +162,47 @@ def test_unported_engine_options_raise(shared, kwargs):
 
 @pytest.mark.parametrize("kwargs", [
     {"session": "chat"}, {"priority": "interactive"}, {"deadline_s": 1.0},
-    {"on_token": print}])
+    {"on_token": print}, {"trace_ctx": {"trace_id": "t"}}])
 def test_unported_submit_options_raise(shared, kwargs):
     _, tm, _ = shared
     eng = ServingEngine(tm, **_ENGINE)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.submit(np.arange(4, dtype=np.int32), 2, **kwargs)
+
+
+@pytest.mark.parametrize("where", ["generate", "engine_init", "submit"])
+def test_signatures_follow_the_reference(where):
+    """Parameter names and order as the JAX package's; the port's own
+    ``generator`` comes last, keyword only."""
+    import inspect
+
+    from paddle_hackathon_tpu.inference.serving import \
+        ServingEngine as JEngine
+    from paddle_hackathon_tpu.models.gpt import GPTForCausalLM as JGPT
+    from paddle_hackathon_tpu_torch.models import GPTForCausalLM as TGPT
+    fns = {"generate": (JGPT.generate, TGPT.generate),
+           "engine_init": (JEngine.__init__, ServingEngine.__init__),
+           "submit": (JEngine.submit, ServingEngine.submit)}[where]
+    ref, port = (list(inspect.signature(f).parameters.values())
+                 for f in fns)
+    extra = port[len(ref):]
+    assert [p.name for p in port[:len(ref)]] == [p.name for p in ref]
+    assert all(p.kind == p.KEYWORD_ONLY for p in extra)
+    assert [p.name for p in extra] == (["generator"] if where == "generate"
+                                       else [])
+    # the reference's defaults, except auto_run (its loop is not ported)
+    differ = [p.name for p, q in zip(port, ref) if p.default != q.default]
+    assert differ == (["auto_run"] if where == "engine_init" else [])
+
+
+def test_engine_takes_the_reference_defaults(shared):
+    """Every reference parameter at its default value (auto_run aside)
+    constructs, and preempt/preempt_limit, which change nothing here,
+    take any value."""
+    _, tm, _ = shared
+    ServingEngine(tm, **_ENGINE, drafter="ngram", slo_window_s=60.0,
+                  session_ttl_s=None, max_sessions=64,
+                  priority_aging_s=30.0, preempt=False, preempt_limit=0)
 
 
 def test_package_imports_without_jax():

@@ -132,6 +132,23 @@ def test_f32_flash_train_steps_match_jax(monkeypatch):
     assert tl[0] != tl[-1]
 
 
+@pytest.mark.parametrize("param_dtype", ["bfloat16", None])
+def test_head_dim_256_flash_train_steps_match_jax(param_dtype):
+    """Two layers of D = 256 (hidden 256, one head) with flash asked for:
+    bf16 takes the packed kernels (K1), f32 SDPA's bhd ones (K2); the
+    JAX kernels under the interpreter, the port's plain versions on the
+    CPU.  2-step loss series."""
+    cfg = dict(_CFG, hidden_size=256, num_heads=1, use_flash_attention=True)
+    batches = _batches(2, 1, 64, 128, seed=4)
+    jl, tl, _, tm = _train_both(cfg, batches, param_dtype=param_dtype,
+                                learning_rate=1e-3)
+    dt = torch.bfloat16 if param_dtype else torch.float32
+    qkv = torch.zeros(1, 64, 3 * 256, dtype=dt)
+    assert tm.gpt.blocks[0].attn._packed_flash_ok(qkv, 64) == (
+        param_dtype is not None)
+    np.testing.assert_allclose(tl, jl, rtol=2e-4 if param_dtype else 1e-5)
+
+
 def test_step_rng_keys_dropout():
     """The step's ``rng`` seeds its dropout: the same rng repeats the
     loss, another one changes it."""
