@@ -11,13 +11,15 @@ Phases, each printing one JSON line:
 1. device   -- the card (``nvidia-smi`` name and power limit, torch, CUDA).
 2. build    -- compiles every CUDA kernel library from ``csrc/`` (one nvcc
                per library, sm_90a, all started together; K1 and K2 one
-               library per padded head width, 64, 128 and 256) and reports
+               library per padded head width, 64, 128 and 256, and one for
+               every wider head, the column-chunked kernels) and reports
                the seconds taken, per library too, and ptxas's register /
                spill lines; for each K1 kernel (forward, dK/dV and dQ,
-               bf16/f16, 64/128/256 wide: 18) its registers, spills,
-               ptxas's performance notes, its dynamic shared memory, and,
-               where ``cuobjdump`` is found, its count of HGMMA (wgmma)
-               instructions, which must be above 0.
+               bf16/f16, 64/128/256 wide: 18) and each of K2's 3xTF32
+               dK/dV and dQ kernels (64/128/256: 6) its registers, spills,
+               ptxas's performance notes (K1: its dynamic shared memory),
+               and, where ``cuobjdump`` is found, its count of HGMMA
+               (wgmma) instructions, which must be above 0.
 3. flash    -- holds the three packed flash-attention kernels (forward, dK/dV,
                dQ; ``csrc/flash_attention_packed.cu``) against their plain
                PyTorch versions run in f32 on the same bf16/f16 inputs:
@@ -28,7 +30,12 @@ Phases, each printing one JSON line:
                32 and 128, widths 40 and 80 (zero-filled padding columns),
                s=65 (one row in the last tile), batch 1 on a strided view, and
                the widest instances at H=2: D=256 (bf16, f16 non-causal,
-               dropout 0.1) and D=192 (also ragged s=200); D=64 f16 and D=128
+               dropout 0.1) and D=192 (also ragged s=200); past 256 the
+               column-chunked kernels at D=320 (H=2) and D=512 (H=1; H=2
+               non-causal with dropout 0.1); b*H = 65538 (past a grid's y
+               limit) at D=64 and 320, whose last batches are held against
+               the plain version with the batches before as the planted
+               fault; D=64 f16 and D=128
                bf16 take the in-tile scale path, the bf16 D=64 and D=256 cases
                the folded one (``scale_path``).  Then the timed kernels' own
                results at b=32, s=1024.  Limits (``FLASH_TOL``), per slice of
@@ -71,7 +78,9 @@ Phases, each printing one JSON line:
                apart.  Cases: causal and non-causal, dropout 0.1 with a fixed
                seed, sq=256/skv=1024 and sq=1024/skv=256 causal, ragged
                s=1000, D = 32, 80, 128, 256 and 36 (rows not 16-byte aligned
-               in bf16/f16), each in f32, bf16 and f16; the f32 training
+               in bf16/f16) and, past 256, 264, 320 and 512, each in f32,
+               bf16 and f16; f32 at D=33 (rows TMA cannot address) and at
+               D=264 with dropout and sq != skv; the f32 training
                geometry (B*H = 16*12, s=1024, D=64); batch 1 through
                ``flash_attention_bshd`` on strided views of one fused
                projection (f32 at H=12, s=1024; bf16 at H=1); and the ring's
@@ -82,16 +91,26 @@ Phases, each printing one JSON line:
                which TF32 products fail.  Each case reads a control (the plain
                version in the input's dtype, must pass) and a planted fault (a
                stale kv tile, must fail); each f32 case also the plain version
-               on operands rounded to TF32 (must fail).
+               on operands rounded to TF32 (must fail).  Each f32 case at
+               D <= 256 also holds the dK/dV + dQ pair (3xTF32 on the tensor
+               cores) to ``FLASH_F32_PAIR_REL`` (relative L2 6e-7 on dq, dk
+               and dv against f64) and runs it three times more: bit for
+               bit the same; beside it the plain pair on 3xTF32 operands
+               split to nearest (read) and split by truncation (the
+               control, must fail the limit).
 7. flash_bhd -- K2's times at the f32 training geometry by CUDA-graph
-               replay (inputs 201 MB), beside the bounds (f32 on the CUDA
-               cores, 67 TFLOP/s), the plain versions, and the library
+               replay (inputs 201 MB), beside the bounds (the forward f32
+               on the CUDA cores, 67 TFLOP/s; dK/dV and dQ as 3xTF32, three
+               tf32 products at 494.7 TFLOP/s, with the CUDA-core bound
+               beside), the pair's repeats bit for bit, the plain versions,
+               and the library
                yardstick ``F.scaled_dot_product_attention(is_causal=True)``
                on (b, H, s, D) f32, pinned to the efficient-attention
                backend, with its error against the f64 plain version;
                then the bf16 instance beside K1 at K1's timing shape; then
                the f32 kernels at D=256 (b=8, s=1024, H=4) beside their
-               bounds, plain versions and SDPA (``wide``).
+               bounds, plain versions and SDPA (``wide``); the pair's error
+               against f64 beside SDPA's own f32 backward's.
 8. train_f32 -- GPT-2-small f32 (``make_sharded_train_step`` with no
                ``param_dtype``: f32 parameters and Adam moments) at b=16,
                s=1024, flash on auto: 2 warm-up and 10 timed steps.  Gates:
@@ -108,6 +127,12 @@ Phases, each printing one JSON line:
                versions' calls 0, and its loss series against the plain
                composition's within ``FLASH_VS_PLAIN_RTOL`` (bf16) and
                ``F32_FLASH_VS_PLAIN_RTOL`` (f32).
+9b. wide512 -- the same at D = 512 (hidden 1024, 2 heads, 2 layers, b=2,
+               s=1024): K1 and K2 through their column-chunked kernels.
+               Then (``wide512_times``) those kernels timed at its
+               attention (b=2, H=2, s=1024, D=512; K2 f32, K1 bf16) and
+               K3 at D=512 (widths 1 and 32, bf16), each beside its plain
+               version, SDPA and its bounds.
 10. paged   -- holds ``paged_attention`` against its plain PyTorch version
                (``paged_attention_ref``) at the serving geometry (B=16,
                H=12, D=64, P=16, maxp=32; widths 1 and 32; shuffled page
@@ -115,15 +140,21 @@ Phases, each printing one JSON line:
                row of the table; and the serving run's own pool, tables
                and lengths), and past the old limits: widths 65, 128 (pages
                of 128) and 256 (pages of 256), width 1 over pages of 128,
-               D=36 (bf16 widths from 16 run the tensor-core kernel, the
-               rest the scalar one): bf16 against an f32 run of the plain
+               D=36, and D=320 and 512 at widths 1 and 32 over 8-page
+               tables (bf16 widths from 16 run the tensor-core kernel, the
+               rest the scalar one; past 256 both take the width in
+               slices), each beside a control (the plain version in the
+               inputs' dtype, must pass) and a planted fault (each slot's
+               first page read from its second, must fail): bf16 against
+               an f32 run of the plain
                version at atol=rtol=2e-2, f32 at 2e-5 with TF32 off.  Times the
                kernel, the plain version and
                ``F.scaled_dot_product_attention`` on the gathered
                contiguous K/V (a yardstick the port never calls) at the
                serving run's decode inputs, by CUDA-graph replay over input
                copies larger than the L2; and at width 128 over pages of
-               128 beside its bound and plain version.
+               128 beside its bound, plain version and SDPA with the
+               offset-causal mask over the gathered K/V.
 11. serving -- GPT-2-small in bf16 through
                ``ServingEngine(cache_mode="paged", max_slots=16, max_len=512,
                page_size=16, num_pages=257, chunk=32, decode_window=32)``:
@@ -197,6 +228,7 @@ import numpy as np
 H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12          # dense tensor-core bf16
 H100_F32_FLOPS = 67e12            # f32 on the CUDA cores (no tensor cores)
+H100_TF32_FLOPS = 494.7e12        # dense tensor-core tf32 (3xTF32: 3 each)
 DEV = "cuda"
 
 
@@ -312,6 +344,23 @@ def bound(case, elem_bytes, flops_peak):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def gathered(torch, c):
+    """A paged case's (q, K, V, mask) as SDPA takes them: the slots' pages
+    gathered contiguous, (B, H, ., D), and the offset-causal mask (query i
+    of slot b sees rows <= lengths[b] + i)."""
+    B, s, H, D = c["q"].shape
+    P = c["k_pool"].shape[1]
+    rows = (c["page_table"].long()[:, :, None] * P
+            + torch.arange(P, device=DEV)).reshape(B, -1)
+    kb = c["k_pool"].reshape(-1, H, D)[rows].transpose(1, 2).contiguous()
+    vb = c["v_pool"].reshape(-1, H, D)[rows].transpose(1, 2).contiguous()
+    qh = c["q"].transpose(1, 2).contiguous()
+    qpos = c["lengths"].long()[:, None] + torch.arange(s, device=DEV)
+    mask = (torch.arange(rows.shape[1], device=DEV)[None, None]
+            <= qpos[..., None])[:, None]
+    return qh, kb, vb, mask
+
+
 def phase_kernel(torch, pa):
     import torch.nn.functional as F
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -319,19 +368,32 @@ def phase_kernel(torch, pa):
     checks = []
 
     def check(name, case, tol):
+        """The kernel against the plain version in f32, beside a control
+        (the plain version in the inputs' dtype, which must pass) and a
+        planted fault (the plain version with each slot's first page read
+        from its second, which must fail)."""
         out = pa.paged_attention_kernel(**case)
         torch.cuda.synchronize()
-        ref32 = pa.paged_attention_ref(
-            case["q"].float(), case["k_pool"].float(),
-            case["v_pool"].float(), case["page_table"], case["lengths"])
+        f32 = {k: v.float() if v.is_floating_point() else v
+               for k, v in case.items()}
+        ref32 = pa.paged_attention_ref(**f32)
+        bad = dict(f32, page_table=case["page_table"].clone())
+        bad["page_table"][:, 0] = bad["page_table"][:, 1]
+        within = lambda got: bool(  # noqa: E731
+            ((got.float() - ref32).abs() <= tol + tol * ref32.abs()).all())
         err = (out.float() - ref32).abs()
-        ok = bool((err <= tol + tol * ref32.abs()).all())
+        control = pa.paged_attention_ref(**case)
+        ok = (within(out) and within(control)
+              and not within(pa.paged_attention_ref(**bad)))
         rec = {"case": name, "max_abs_err": float(err.max()), "tol": tol,
-               "ok": ok}
+               "control_max_abs_err": float(
+                   (control.float() - ref32).abs().max()), "ok": ok}
         checks.append(rec)
         if not ok or not torch.isfinite(out).all():
             raise AssertionError(f"paged_attention kernel disagrees with "
-                                 f"its plain version: {rec}")
+                                 f"its plain version, or the limit does not "
+                                 f"separate the control from the planted "
+                                 f"fault: {rec}")
         return rec["max_abs_err"]
 
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
@@ -351,6 +413,13 @@ def phase_kernel(torch, pa):
                                             maxp=4), tol)
         check(f"{tag}_d36_w32", kernel_case(torch, dtype, 32, seed=36,
                                             D=36), tol)
+        # past 256: the width in slices (decode steps and the tensor-core
+        # prefill kernel alike)
+        for D in (320, 512):
+            for width in (1, 32):
+                check(f"{tag}_d{D}_w{width}",
+                      kernel_case(torch, dtype, width, seed=D + width, D=D,
+                                  maxp=8), tol)
     case = serving_case(torch, 1, seed=1)
     err = check("bfloat16_w1_serving", case, 2e-2)
     wide = serving_case(torch, 32, seed=32)
@@ -362,21 +431,7 @@ def phase_kernel(torch, pa):
     p_ms = device_ms(torch, [lambda c=c: pa.paged_attention_ref(**c)
                              for c in cases])
     # the library yardstick: SDPA on K/V already gathered contiguous
-    B, s, H, D = case["q"].shape
-    P = case["k_pool"].shape[1]
-
-    def gathered(c):
-        rows = (c["page_table"].long()[:, :, None] * P
-                + torch.arange(P, device=DEV)).reshape(B, -1)
-        kb = c["k_pool"].reshape(-1, H, D)[rows].transpose(1, 2).contiguous()
-        vb = c["v_pool"].reshape(-1, H, D)[rows].transpose(1, 2).contiguous()
-        qh = c["q"].transpose(1, 2).contiguous()
-        qpos = c["lengths"].long()[:, None] + torch.arange(s, device=DEV)
-        mask = (torch.arange(rows.shape[1], device=DEV)[None, None]
-                <= qpos[..., None])[:, None]
-        return qh, kb, vb, mask
-
-    libs = [gathered(c) for c in cases]
+    libs = [gathered(torch, c) for c in cases]
     lib = lambda a: F.scaled_dot_product_attention(  # noqa: E731
         a[0], a[1], a[2], attn_mask=a[3])
     lib_err = float((lib(libs[0]).transpose(1, 2).float()
@@ -397,7 +452,11 @@ def phase_kernel(torch, pa):
     w128_plain = device_ms(torch, [lambda c=c: pa.paged_attention_ref(**c)
                                    for c in copies(w128)], reps=2)
     w128_bound, w128_by = bound(w128, 2, H100_BF16_FLOPS)
-    del w128
+    # its library yardstick: SDPA with the offset-causal mask over the
+    # gathered K/V
+    w128_libs = [gathered(torch, c) for c in copies(w128)]
+    w128_lib = device_ms(torch, [lambda a=a: lib(a) for a in w128_libs])
+    del w128, w128_libs
     emit({"phase": "paged", "checks": checks,
           "decode_w1_serving": {"ms": k_ms, "plain_ms": p_ms,
                                 "library_ms": l_ms,
@@ -408,6 +467,7 @@ def phase_kernel(torch, pa):
           "decode_w1_maxlen": {"ms": maxlen_ms, "bound_ms": maxlen_bound,
                                "bound_by": maxlen_by},
           "chunk_w128_p128": {"ms": w128_ms, "plain_ms": w128_plain,
+                              "library_ms": w128_lib,
                               "bound_ms": w128_bound, "bound_by": w128_by}})
     return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms}
@@ -607,6 +667,45 @@ def phase_flash(torch, fap, fa):
     check("d256_dropout0.1", 2, 256, 2, 256, True, p=0.1, seed=99)
     check("d192_h2", 2, 256, 2, 192, True)
     check("d192_h2_ragged_s200", 1, 200, 2, 192, True)
+    # past 256: the column-chunked kernels (D = 320 in three 128-column
+    # chunks, the last half empty; D = 512 in four)
+    check("d320_h2", 2, 256, 2, 320, True)
+    check("d512_h1", 2, 256, 1, 512, True)
+    check("d512_h2_noncausal_dropout0.1", 1, 256, 2, 512, False, p=0.1,
+          seed=5)
+
+    def check_many_heads(name, D, b=32769, s=8, H=2):
+        # b * H past 65535, grid.y's limit: the last two batches' heads (bh
+        # 65534..65537) against the plain version; the planted fault is the
+        # plain version of the batches before, as a kernel that wrapped bh
+        # would read them
+        gen = torch.Generator(device=DEV).manual_seed(len(checks))
+        qkv = (torch.randn(b, s, 3 * H * D, generator=gen, device=DEV)
+               * 0.5).to(torch.bfloat16)
+        cot = torch.randn(b, s, H * D, generator=gen, device=DEV).to(
+            torch.bfloat16)
+        scale = 1.0 / math.sqrt(D)
+        out, lse = fap.flash_packed_fwd_kernel(qkv, H, True, scale)
+        dqkv = fap.flash_packed_bwd_kernel(qkv, out, lse, cot, H, True, scale)
+        tail, before = slice(b - 2, b), slice(b - 3, b - 1)
+        ref = flash_plain(fap, qkv[tail].float(), cot[tail].float(), H, True,
+                          scale)
+        got = {"kernel": flash_slices(out[tail], lse[tail], dqkv[tail], H),
+               "control": flash_plain(fap, qkv[tail], cot[tail], H, True,
+                                      scale),
+               "fault": flash_plain(fap, qkv[before], cot[tail], H, True,
+                                    scale)}
+        r = {k: flash_readings(v, ref) for k, v in got.items()}
+        ok = (flash_within(r["kernel"]) and flash_within(r["control"])
+              and not flash_within(r["fault"]))
+        checks.append({"case": name, "ok": ok, **{
+            k: [v["lse"]] + [v[s][m] for s in FLASH_SLICES
+                             for m in ("rel", "row")]
+            for k, v in r.items()}})
+        del qkv, cot, out, lse, dqkv
+
+    check_many_heads("bh65538_d64", 64)      # the TMA / wgmma instance
+    check_many_heads("bh65538_d320", 320)    # the column-chunked kernels
     emit({"phase": "flash_checks", "tolerances": FLASH_TOL,
           "fields": ["lse"] + [f"{s}_{m}" for s in FLASH_SLICES
                                for m in ("rel", "row")],
@@ -937,6 +1036,13 @@ def phase_train(torch, fap):
 FLASH_F32_TOL = {"rel": 1e-4, "row": 2e-3, "lse": 1e-5}
 BHD_TRAIN_SHAPE = dict(b=16, s=1024, H=12, D=64)     # the f32 train step
 F32_FLASH_VS_PLAIN_RTOL = 1e-4
+# the f32 dK/dV and dQ pair (3xTF32 on the tensor cores) against the plain
+# version in f64: relative L2 of dq, dk and dv, the largest of the three.
+# On the H100 the pair reads 4.2e-7 to 5.1e-7 over the f32 cases at
+# D <= 256, the plain pair on operands split by truncation (raw f32 read
+# as hi) 7.1e-7 to 1.02e-6, and 1xTF32 above 1e-4: the limit lies between
+# the first two (1e-6 let most truncated readings pass).
+FLASH_F32_PAIR_REL = 6e-7
 
 
 def bhd_case(torch, bh, sq, skv, D, dtype, seed):
@@ -964,10 +1070,42 @@ def bhd_plain(fa, q, k, v, do, causal, scale, p=0.0, seed=None):
     return bhd_slices(out, lse, *grads)
 
 
-def tf32_round(torch, t):
-    """f32 values rounded to TF32's 10-bit mantissa (to nearest)."""
-    bits = t.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+def tf32_trunc_split(torch, x):
+    """``fa.tf32_split`` with truncation in place of round-to-nearest: hi
+    is x with its low 13 mantissa bits cleared, as the tensor core reads
+    raw f32, and lo the same of x - hi."""
+    def trunc(t):
+        return (t.contiguous().view(torch.int32) & ~0x1FFF).view(
+            torch.float32)
+    hi = trunc(x.float())
+    return hi, trunc(x.float() - hi)
+
+
+def split_pair(torch, fa, split, q, k, v, do, lse, delta, causal, scale,
+               p=0.0, seed=None):
+    """The plain f32 pair (``flash_bwd_pair_ref``) with every product taken
+    as the 3xTF32 kernels take it: al.bh + ah.bl + ah.bh from ``split``'s
+    operands, one f32 sum over the three (the operands stacked along the
+    contracted axis); P and dS split as the kernels split them."""
+    def mm(eq, a, b, axis_a, axis_b):
+        (ah, al), (bh_, bl) = split(a), split(b)
+        return torch.einsum(eq, torch.cat([al, ah, ah], axis_a),
+                            torch.cat([bh_, bl, bh_], axis_b))
+    bh, sq, _ = q.shape
+    skv = k.shape[1]
+    pr = torch.exp(mm("bqd,bkd->bqk", q, k, 2, 2) * scale - lse[..., None])
+    if causal:
+        pr = pr.masked_fill(~fa._causal(sq, skv, q.device), 0.0)
+    dp = mm("bqd,bkd->bqk", do, v, 2, 2)
+    pv = pr
+    if p > 0.0:
+        keep = fa._drop_mask(bh, sq, skv, seed, p, q.device)
+        pv = torch.where(keep, pr / (1.0 - p), 0.0)
+        dp = torch.where(keep, dp / (1.0 - p), 0.0)
+    dv = mm("bqk,bqd->bkd", pv, do, 1, 1)
+    ds = pr * (dp - delta[..., None]) * scale
+    return (mm("bqk,bkd->bqd", ds, k, 2, 1), mm("bqk,bqd->bkd", ds, q, 1, 1),
+            dv)
 
 
 def bhd_stale(t, tile=64):
@@ -1052,17 +1190,48 @@ def phase_flash_bhd_checks(torch, fa):
                "fault": bhd_plain(fa, q, bhd_stale(k), bhd_stale(v), do,
                                   *args)}
         if f32:
-            got["tf32"] = bhd_plain(fa, *(tf32_round(torch, t)
+            # operands rounded to TF32 (the 3xTF32 split's hi part)
+            got["tf32"] = bhd_plain(fa, *(fa.tf32_split(t)[0]
                                           for t in (q, k, v, do)), *args)
         tol = FLASH_F32_TOL if f32 else FLASH_TOL
         r = {key: flash_readings(val, ref, live_floor=True)
              for key, val in got.items()}
+        ref_g = {sl: ref[sl] for sl in ("dq", "dk", "dv")}
         del ref, got
         ok = (flash_within(r["kernel"], tol)
               and flash_within(r["control"], tol)
               and not flash_within(r["fault"], tol)
               and not (f32 and flash_within(r["tf32"], tol)))
-        checks.append({"case": name, "ok": ok, **{
+        extra = {}
+        if f32 and D <= 256:
+            # the 3xTF32 pair's own limit, and its repeats bit for bit
+            pair_rel = max(r["kernel"][sl]["rel"] for sl in ("dq", "dk",
+                                                             "dv"))
+            delta = (do * out).sum(-1)
+            runs = [fa._bwd_pair(q, k, v, do, lse, delta, causal, scale, p,
+                                 seed) for _ in range(3)]
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for run in runs[1:]
+                       for a, b in zip(runs[0], run))
+            # the plain pair on 3xTF32 operands on the same inputs: split
+            # to nearest (the kernels' split) and, the control that must
+            # fail the limit, by truncation (raw f32 read as hi)
+            split = {"rna": fa.tf32_split,
+                     "trunc": lambda t: tf32_trunc_split(torch, t)}
+            emu = {key: max(float((g.double() - ref_g[sl]).norm()
+                                  / ref_g[sl].norm())
+                            for g, sl in zip(split_pair(
+                                torch, fa, fn, q, k, v, do, lse, delta,
+                                causal, scale, p, seed), ("dq", "dk", "dv")))
+                   for key, fn in split.items()}
+            ok = (ok and pair_rel <= FLASH_F32_PAIR_REL and same
+                  and emu["trunc"] > FLASH_F32_PAIR_REL)
+            extra = {"pair_rel": pair_rel, "pair_bitwise_repeat": same,
+                     "split_rna_rel": emu["rna"],
+                     "split_trunc_rel": emu["trunc"]}
+            del runs
+        del ref_g
+        checks.append({"case": name, "ok": ok, **extra, **{
             key: [val["lse"]] + [val[sl][m] for sl in FLASH_SLICES
                                  for m in ("rel", "row")]
             for key, val in r.items()}})
@@ -1079,11 +1248,18 @@ def phase_flash_bhd_checks(torch, fa):
         check(f"{tag}_noncausal_dropout0.1", 4, 192, 192, 64, False, dt,
               0.1, -7)
         check(f"{tag}_ragged_s1000_noncausal", 2, 1000, 1000, 64, False, dt)
-        for D in (32, 80, 128, 256, 36):
+        # past 256 the column-chunked kernels (D = 264: a 8-column third
+        # chunk; 320; 512)
+        for D in (32, 80, 128, 256, 36, 264, 320, 512):
             check(f"{tag}_d{D}", 8, 256, 256, D, True, dt)
         check(f"{tag}_ring_kv_halves", 8, 512, 512, 64, False, dt,
               ring=True)
     check("f32_ring_causal", 8, 512, 512, 64, True, f32, ring=True)
+    # rows TMA cannot address (33 f32 = 132 bytes): the column-chunked
+    # kernels at a width the 3xTF32 pair does not take
+    check("f32_d33", 8, 256, 256, 33, True, f32)
+    check("f32_d264_dropout0.1_sq256_skv512", 4, 256, 512, 264, True, f32,
+          0.1, 77)
     # batch 1 through the public entry point, on strided views of one fused
     # projection: the (b, s, H, D) -> (b*H, s, D) move must hand the kernels
     # contiguous tensors also where the reshape could merge a size-1 dim
@@ -1096,7 +1272,8 @@ def phase_flash_bhd_checks(torch, fa):
                            True, f32)
     torch.cuda.empty_cache()
     emit({"phase": "flash_bhd_checks",
-          "tolerances": {"f32": FLASH_F32_TOL, "bf16_f16": FLASH_TOL},
+          "tolerances": {"f32": FLASH_F32_TOL, "bf16_f16": FLASH_TOL,
+                         "f32_pair_rel_d_le_256": FLASH_F32_PAIR_REL},
           "fields": ["lse"] + [f"{sl}_{m}" for sl in FLASH_SLICES
                                for m in ("rel", "row")],
           "checks": checks})
@@ -1157,18 +1334,18 @@ def phase_flash_bhd(torch, fa, fap, readings):
     del ref, lib, og, xs, lib_grads
     torch.cuda.empty_cache()
 
-    e = 4
-    io = 3 * q.numel() * e
-    bwd_in = io + do.numel() * e + 2 * lse.numel() * 4
-    bounds = {
-        "fwd": flash_bound(b, s, H, D, True, 2,
-                           io + out.numel() * e + lse.numel() * 4,
-                           H100_F32_FLOPS),
-        "dkdv": flash_bound(b, s, H, D, True, 4, bwd_in + 2 * q.numel() * e,
-                            H100_F32_FLOPS),
-        "dq": flash_bound(b, s, H, D, True, 3, bwd_in + q.numel() * e,
-                          H100_F32_FLOPS),
-    }
+    # the pair three times more: bit-identical
+    runs = [(*fa.flash_dkdv_kernel(q, k, v, do, lse, delta, True, scale),
+             fa.flash_dq_kernel(q, k, v, do, lse, delta, True, scale))
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for run in runs[1:]
+                  for a, b in zip(runs[0], run))
+    del runs
+    if not bitwise:
+        raise AssertionError("the f32 dK/dV and dQ kernels gave two "
+                             "different results on one input")
+    bounds, f32_bounds = bhd_bounds(b, s, H, D, q, out, lse)
     plain = {"fwd": plain_fwd, "dkdv": plain_bwd, "dq": plain_bwd}
     library = {"fwd": lib_fwd, "dkdv": lib_bwd, "dq": lib_bwd}
     errs = {"fwd": readings["out"]["max_abs"],
@@ -1182,7 +1359,19 @@ def phase_flash_bhd(torch, fa, fap, readings):
                      "bound_by": b_by, "library_ms": library[key]}
         timing[key] = dict(rows[key], gflop=flops / 1e9,
                            gbytes=nbytes / 1e9,
-                           tflops=flops / ms[key] / 1e9)
+                           tflops=flops / ms[key] / 1e9,
+                           f32_cuda_core_bound_ms=f32_bounds[key][0])
+    pair = ms["dkdv"] + ms["dq"]
+    pair_row = {"ms": pair, "sdpa_f32_backward_ms": lib_bwd,
+                "over_sdpa": pair / lib_bwd,
+                "bound_3xtf32_ms": bounds["dkdv"][0] + bounds["dq"][0],
+                "bound_f32_cuda_cores_ms": f32_bounds["dkdv"][0]
+                + f32_bounds["dq"][0],
+                "plain_ms": plain_bwd, "bitwise_repeat": bitwise,
+                "kernel_readings_vs_f64": {
+                    sl: readings[sl]["rel"] for sl in ("dq", "dk", "dv")},
+                "sdpa_readings_vs_f64": {
+                    sl: lib_read[sl]["rel"] for sl in ("dq", "dk", "dv")}}
     del q, k, v, do, out, lse, delta, qh, kh, vh, doh
     torch.cuda.empty_cache()
 
@@ -1225,7 +1414,7 @@ def phase_flash_bhd(torch, fa, fap, readings):
                                   ("ms", "bound_ms", "bound_by",
                                    "library_ms")}
     emit({"phase": "flash_bhd", "shape": BHD_TRAIN_SHAPE, "dtype": "float32",
-          "causal": True, "timing": timing,
+          "causal": True, "timing": timing, "backward_pair": pair_row,
           "library": {"call": "F.scaled_dot_product_attention(is_causal=True)"
                               " on (b, H, s, D) f32",
                       "backend": str(backend), "readings_vs_f64": lib_read},
@@ -1238,6 +1427,25 @@ def phase_flash_bhd(torch, fa, fap, readings):
 
 
 BHD_WIDE_SHAPE = dict(b=8, s=1024, H=4, D=256)   # f32, the wide GPT's heads
+
+
+def bhd_bounds(b, s, H, D, q, out, lse):
+    """K2's f32 bounds: ({fwd: f32 on the CUDA cores, dkdv and dq: their
+    3xTF32 products, 3 tf32 products each, on the tensor cores}, {each on
+    the CUDA cores at 67 TFLOP/s})."""
+    e = 4
+    io = 3 * q.numel() * e
+    bwd_in = io + q.numel() * e + 2 * lse.numel() * 4
+    work = {"fwd": (2, io + out.numel() * e + lse.numel() * 4),
+            "dkdv": (4, bwd_in + 2 * q.numel() * e),
+            "dq": (3, bwd_in + q.numel() * e)}
+    f32 = {key: flash_bound(b, s, H, D, True, n, nb, H100_F32_FLOPS)
+           for key, (n, nb) in work.items()}
+    own = dict(f32)
+    for key in ("dkdv", "dq"):
+        n, nb = work[key]
+        own[key] = flash_bound(b, s, H, D, True, n, nb, H100_TF32_FLOPS / 3)
+    return own, f32
 
 
 def bhd_wide_times(torch, fa, F):
@@ -1283,18 +1491,7 @@ def bhd_wide_times(torch, fa, F):
     lib_bwd = profiled_ms(torch, lambda: torch.autograd.grad(
         og, xs, doh, retain_graph=True))
     del og, xs
-    e = 4
-    io = 3 * q.numel() * e
-    bwd_in = io + do.numel() * e + 2 * lse.numel() * 4
-    bounds = {
-        "fwd": flash_bound(b, s, H, D, True, 2,
-                           io + out.numel() * e + lse.numel() * 4,
-                           H100_F32_FLOPS),
-        "dkdv": flash_bound(b, s, H, D, True, 4, bwd_in + 2 * q.numel() * e,
-                            H100_F32_FLOPS),
-        "dq": flash_bound(b, s, H, D, True, 3, bwd_in + q.numel() * e,
-                          H100_F32_FLOPS),
-    }
+    bounds, f32_bounds = bhd_bounds(b, s, H, D, q, out, lse)
     plain = {"fwd": plain_fwd, "dkdv": plain_bwd, "dq": plain_bwd}
     lib = {"fwd": lib_fwd, "dkdv": lib_bwd, "dq": lib_bwd}
     timing = {}
@@ -1303,13 +1500,20 @@ def bhd_wide_times(torch, fa, F):
         timing[key] = {"ms": ms[key], "plain_ms": plain[key],
                        "bound_ms": b_ms, "bound_by": b_by,
                        "library_ms": lib[key],
-                       "tflops": flops / ms[key] / 1e9}
+                       "tflops": flops / ms[key] / 1e9,
+                       "f32_cuda_core_bound_ms": f32_bounds[key][0]}
+    pair = ms["dkdv"] + ms["dq"]
     del q, k, v, do, out, lse, delta, qh, kh, vh, doh
     torch.cuda.empty_cache()
     return {"shape": BHD_WIDE_SHAPE, "dtype": "float32", "causal": True,
             "library": "F.scaled_dot_product_attention(is_causal=True), "
                        "default backend", "readings_vs_f64": readings,
-            "timing": timing}
+            "timing": timing,
+            "backward_pair": {
+                "ms": pair, "plain_ms": plain_bwd, "sdpa_f32_backward_ms":
+                lib_bwd, "bound_3xtf32_ms": bounds["dkdv"][0]
+                + bounds["dq"][0], "bound_f32_cuda_cores_ms":
+                f32_bounds["dkdv"][0] + f32_bounds["dq"][0]}}
 
 
 def counting(module, names, calls):
@@ -1442,19 +1646,22 @@ def phase_train_f32(torch, fa, fap):
 # ---------------------------------------------------------------------------
 
 WIDE_GPT = dict(hidden_size=1024, num_heads=4, num_layers=2)   # D = 256
+WIDE512_GPT = dict(hidden_size=1024, num_heads=2, num_layers=2)   # D = 512
 
 
-def phase_wide(torch, fa, fap, b=4, s=1024, steps=3):
-    """A dispatch and parity check at D = 256: a GPT of hidden 1024, 4
-    heads, 2 layers (vocab and positions of GPT-2-small), Normal(0, 0.02)
-    weights from a numpy seed, b=4, s=1024, 3 train steps each way.  bf16
-    (``param_dtype=bf16``, ``use_flash_attention=True``) trains through K1;
-    f32 (flash on auto) through SDPA and K2.  Gates: the flash series'
-    kernel launches exactly 3 x 2 each, the other family's 0, the plain
-    versions called 0 times; the flash and plain-composition loss series
-    within the bf16 / f32 limits."""
+def phase_wide(torch, fa, fap, b=4, s=1024, steps=3, gpt=WIDE_GPT,
+               name="wide"):
+    """A dispatch and parity check at a wide head: a GPT of ``gpt``'s
+    hidden size, heads and layers (vocab and positions of GPT-2-small;
+    D = 256 for ``wide``, 512 for ``wide512``), Normal(0, 0.02) weights
+    from a numpy seed, 3 train steps each way.  bf16 (``param_dtype=bf16``,
+    ``use_flash_attention=True``) trains through K1; f32 (flash on auto)
+    through SDPA and K2.  Gates: the flash series' kernel launches exactly
+    3 x 2 each, the other family's 0, the plain versions called 0 times;
+    the flash and plain-composition loss series within the bf16 / f32
+    limits."""
     from paddle_hackathon_tpu_torch.models import GPTForCausalLM, gpt_config
-    base = dict(WIDE_GPT, hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+    base = dict(gpt, hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
     arrays = random_weights(GPTForCausalLM(gpt_config("gpt2-small-en",
                                                       **base),
                                            device="cpu"), seed=2)
@@ -1489,8 +1696,8 @@ def phase_wide(torch, fa, fap, b=4, s=1024, steps=3):
             finally:
                 for m, real in reals:
                     restore(m, real)
-            name = "plain" if use_flash is False else "flash"
-            series[name] = {"losses": losses,
+            run = "plain" if use_flash is False else "flash"
+            series[run] = {"losses": losses,
                             "launches": dict(used.launches),
                             "other_launches": dict(other.launches),
                             "plain_calls": calls}
@@ -1499,21 +1706,138 @@ def phase_wide(torch, fa, fap, b=4, s=1024, steps=3):
         rel = max(abs(x - y) / abs(y) for x, y in
                   zip(series["flash"]["losses"], series["plain"]["losses"]))
         report[tag] = dict(series, max_rel_diff=rel, rtol=rtol)
-        need = steps * WIDE_GPT["num_layers"]
+        need = steps * gpt["num_layers"]
         f = series["flash"]
         if (any(n != need for n in f["launches"].values())
                 or any(f["other_launches"].values())
                 or any(f["plain_calls"].values())
                 or any(series["plain"]["launches"].values())):
-            raise AssertionError(f"wide {tag}: the flash series did not run "
-                                 f"its kernels exactly {need} times each "
+            raise AssertionError(f"{name} {tag}: the flash series did not "
+                                 f"run its kernels exactly {need} times each "
                                  f"(or ran the other family, or a plain "
                                  f"version): {series}")
         if not all(np.isfinite(f["losses"])) or not rel <= rtol:
-            raise AssertionError(f"wide {tag}: flash and plain loss series "
-                                 f"differ by {rel} > {rtol}: {series}")
-    emit({"phase": "wide", "model": WIDE_GPT, "head_dim": 256, "batch": b,
-          "seq": s, "steps": steps, **report})
+            raise AssertionError(f"{name} {tag}: flash and plain loss "
+                                 f"series differ by {rel} > {rtol}: "
+                                 f"{series}")
+    emit({"phase": name, "model": gpt,
+          "head_dim": gpt["hidden_size"] // gpt["num_heads"],
+          "batch": b, "seq": s, "steps": steps, **report})
+
+
+WIDE512_SHAPE = dict(b=2, s=1024, H=2, D=512)   # the wide512 GPT's heads
+
+
+def wide512_times(torch, fa, fap, pa):
+    """The column-chunked kernels at the wide512 GPT's attention (D = 512,
+    b=2, H=2, s=1024, causal) by graph replay: K2 in f32 and K1 in bf16
+    beside their plain versions, SDPA (default backend) and two bounds
+    each (the tensor cores at the inputs' type, and the CUDA cores' f32
+    rate these kernels run at); K3 at D = 512 (16 slots, 12 heads, 8 pages
+    of 16) at width 1 and a chunk of 32, bf16, beside its plain version
+    and SDPA on the gathered K/V."""
+    import math
+
+    import torch.nn.functional as F
+    b, s, H, D = (WIDE512_SHAPE[k] for k in "bsHD")
+    scale = 1.0 / math.sqrt(D)
+    out = {}
+    q, k, v, do = bhd_case(torch, b * H, s, s, D, torch.float32, seed=512)
+    o, lse = fa.flash_fwd_kernel(q, k, v, True, scale)
+    delta = (do * o).sum(-1)
+    ms = {"fwd": device_ms(torch, [
+              lambda: fa.flash_fwd_kernel(q, k, v, True, scale)]),
+          "dkdv": device_ms(torch, [lambda: fa.flash_dkdv_kernel(
+              q, k, v, do, lse, delta, True, scale)]),
+          "dq": device_ms(torch, [lambda: fa.flash_dq_kernel(
+              q, k, v, do, lse, delta, True, scale)])}
+    plain = {"fwd": device_ms(torch, [lambda: fa.flash_fwd_ref(
+                 q, k, v, True, scale)], reps=2),
+             "bwd": device_ms(torch, [lambda: fa.flash_bwd_pair_ref(
+                 q, k, v, do, lse, delta, True, scale)], reps=2)}
+    qh, kh, vh, doh = (t.reshape(b, H, s, D) for t in (q, k, v, do))
+    with torch.no_grad():
+        lib_fwd = device_ms(torch, [lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True)])
+    xs = [t.detach().clone().requires_grad_(True) for t in (qh, kh, vh)]
+    og = F.scaled_dot_product_attention(*xs, is_causal=True)
+    lib_bwd = profiled_ms(torch, lambda: torch.autograd.grad(
+        og, xs, doh, retain_graph=True))
+    tcb, f32b = bhd_bounds(b, s, H, D, q, o, lse)
+    out["k2_f32"] = {key: {
+        "ms": ms[key], "plain_ms": plain["fwd" if key == "fwd" else "bwd"],
+        "library_ms": lib_fwd if key == "fwd" else lib_bwd,
+        "bound_ms": tcb[key][0] if key != "fwd" else
+        flash_bound(b, s, H, D, True, 2, f32b["fwd"][3],
+                    H100_TF32_FLOPS / 3)[0],
+        "bound_by": "operations",
+        "f32_cuda_core_bound_ms": f32b[key][0]} for key in ms}
+    del q, k, v, do, o, lse, delta, qh, kh, vh, doh, xs, og
+    torch.cuda.empty_cache()
+
+    qkv, dout = flash_case(torch, b, s, H, D, torch.bfloat16, seed=513)
+    o, lse = fap.flash_packed_fwd_kernel(qkv, H, True, scale)
+    delta = fap._delta(o, dout, H)
+    dqkv = torch.empty_like(qkv)
+    ms = {"fwd": device_ms(torch, [
+              lambda: fap.flash_packed_fwd_kernel(qkv, H, True, scale)]),
+          "dkdv": device_ms(torch, [lambda: fap.flash_packed_dkdv_kernel(
+              qkv, dout, lse, delta, dqkv, H, True, scale)]),
+          "dq": device_ms(torch, [lambda: fap.flash_packed_dq_kernel(
+              qkv, dout, lse, delta, dqkv, H, True, scale)])}
+    plain = {"fwd": device_ms(torch, [lambda: fap.flash_packed_fwd_ref(
+                 qkv, H, True, scale)], reps=2),
+             "bwd": device_ms(torch, [lambda: fap.flash_packed_bwd_ref(
+                 qkv, o, lse, dout, H, True, scale)], reps=2)}
+    qh, kh, vh = (t.reshape(b, s, H, D).transpose(1, 2).contiguous()
+                  .requires_grad_(True) for t in qkv.split(H * D, -1))
+    doh = dout.reshape(b, s, H, D).transpose(1, 2).contiguous()
+    with torch.no_grad():
+        lib_fwd = device_ms(torch, [lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True)])
+    og = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    lib_bwd = profiled_ms(torch, lambda: torch.autograd.grad(
+        og, (qh, kh, vh), doh, retain_graph=True))
+    e = 2
+    io = qkv.numel() * e + lse.numel() * 4
+    bwd_in = io + dout.numel() * e + delta.numel() * 4
+    work = {"fwd": (2, io + o.numel() * e),
+            "dkdv": (4, bwd_in + 2 * o.numel() * e),
+            "dq": (3, bwd_in + o.numel() * e)}
+    out["k1_bf16"] = {}
+    for key, (n, nb) in work.items():
+        b_ms, b_by, _, _ = flash_bound(b, s, H, D, True, n, nb)
+        out["k1_bf16"][key] = {
+            "ms": ms[key], "plain_ms": plain["fwd" if key == "fwd" else
+                                             "bwd"],
+            "library_ms": lib_fwd if key == "fwd" else lib_bwd,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "f32_cuda_core_bound_ms": flash_bound(b, s, H, D, True, n, nb,
+                                                  H100_F32_FLOPS)[0]}
+    del qkv, dout, o, lse, delta, dqkv, qh, kh, vh, doh, og
+    torch.cuda.empty_cache()
+
+    out["k3_bf16"] = {}
+    for width in (1, 32):
+        case = kernel_case(torch, torch.bfloat16, width, seed=514 + width,
+                           D=D, maxp=8)
+        cs = copies(case)
+        libs = [gathered(torch, c) for c in cs]
+        b_ms, b_by = bound(case, 2, H100_BF16_FLOPS)
+        out["k3_bf16"][f"w{width}"] = {
+            "ms": device_ms(torch, [lambda c=c: pa.paged_attention_kernel(**c)
+                                    for c in cs]),
+            "plain_ms": device_ms(torch, [
+                lambda c=c: pa.paged_attention_ref(**c) for c in cs],
+                reps=2),
+            "library_ms": device_ms(torch, [
+                lambda a=a: F.scaled_dot_product_attention(
+                    a[0], a[1], a[2], attn_mask=a[3]) for a in libs]),
+            "bound_ms": b_ms, "bound_by": b_by}
+        del cs, libs, case
+        torch.cuda.empty_cache()
+    return {"shape": WIDE512_SHAPE, "k3_geometry": "16 slots, 12 heads, "
+            "D=512, pages of 16, 8 a slot", **out}
 
 
 def random_weights(model, seed):
@@ -2156,6 +2480,58 @@ def k1_build(_build, libs):
             "cuobjdump": cuobjdump if hgmma is not None else None}
 
 
+K2_TC_KERNEL = re.compile(r"(bhd_(?:dkdv|dq)_tc)ILi(\d+)E")
+
+
+def k2_tc_build(_build, libs):
+    """The 3xTF32 dK/dV and dQ kernels' (64/128/256 wide: 6) registers,
+    spills, ptxas performance notes and, where cuobjdump is found, their
+    count of HGMMA (wgmma) instructions, which must be above 0 for all 6."""
+    import shutil
+    from pathlib import Path
+    def name(ln):
+        m = K2_TC_KERNEL.search(ln)
+        return f"{m.group(1)}<{m.group(2)}>" if m else None
+
+    names = [f"flash_attention_w{dp}_f32" for dp in _build.FLASH_WIDTHS]
+    out = {}
+    for lib_name in names:
+        cur = None
+        for ln in _build.build_logs.get(lib_name, "").splitlines():
+            if "Compiling entry function" in ln:
+                cur = name(ln)
+                if cur:
+                    out[cur] = {"ptxas": [], "perf_notes": []}
+            elif "Potential Performance Loss" in ln:
+                if name(ln) in out:
+                    out[name(ln)]["perf_notes"].append(ln.split("Loss:")[-1]
+                                                       .split(" in the")[0]
+                                                       .strip())
+            elif cur and ("Used" in ln or "spill" in ln):
+                out[cur]["ptxas"].append(ln.split("info    :")[-1].strip())
+    cuobjdump = shutil.which("cuobjdump") or str(
+        Path(_build._nvcc()).parent / "cuobjdump")
+    hgmma = None
+    if Path(cuobjdump).exists():
+        hgmma = {}
+        for lib_name in names:
+            sass = subprocess.run([cuobjdump, "-sass", str(libs[lib_name])],
+                                  capture_output=True, text=True,
+                                  timeout=300, check=True).stdout
+            cur = None
+            for ln in sass.splitlines():
+                if "Function :" in ln:
+                    cur = name(ln)
+                    if cur:
+                        hgmma[cur] = 0
+                elif cur and "HGMMA" in ln:
+                    hgmma[cur] += 1
+        if len(hgmma) != 6 or not all(hgmma.values()):
+            raise AssertionError(f"3xTF32 kernels without HGMMA (or missing "
+                                 f"from the SASS): {hgmma}")
+    return {"kernels": out, "hgmma": hgmma}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2187,13 +2563,16 @@ def main():
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library_seconds": _build.build_seconds,
           "libraries": sorted(p.name for p in libs.values()),
-          "ptxas": ptxas, "k1": k1_build(_build, libs)})
+          "ptxas": ptxas, "k1": k1_build(_build, libs),
+          "k2_3xtf32": k2_tc_build(_build, libs)})
 
     flash = phase_flash(torch, fap, fa)
     flash_launches = phase_train(torch, fap)
     bhd = phase_flash_bhd(torch, fa, fap, phase_flash_bhd_checks(torch, fa))
     bhd_launches = phase_train_f32(torch, fa, fap)
     phase_wide(torch, fa, fap)
+    phase_wide(torch, fa, fap, b=2, gpt=WIDE512_GPT, name="wide512")
+    emit({"phase": "wide512_times", **wide512_times(torch, fa, fap, pa)})
     kern = phase_kernel(torch, pa)
     eng, prompts, launches = phase_serving(torch, pa)
     phase_profile(torch, eng, prompts)
@@ -2219,7 +2598,8 @@ def main():
          "launches": bhd_launches[k], **bhd[k],
          "timed_as": "f32, BH=16*12, s=1024, D=64, causal (the train_f32 "
                      "step's attention); library: PyTorch's efficient-"
-                     "attention SDPA"}
+                     "attention SDPA; bound: dkdv and dq as 3xTF32 products "
+                     "on the tensor cores, fwd as f32 on the CUDA cores"}
         for k, line in (("fwd", 285), ("dkdv", 525), ("dq", 556))]
     kernels.append({"name": "paged_attention", "route": "cuda",
                     "source": src + "paged_attention.cu",

@@ -20,51 +20,59 @@
 //   * S = (q . k^T) * sm_scale in f32; bf16/f16 inputs round the dropped P
 //     to the input type before P.V, and dS = P (dP - Δ) sm_scale before
 //     dS^T.q and dS.k;
-//   * f32 inputs run every product as f32 FMAs on the CUDA cores, as JAX
-//     runs them at Precision.HIGHEST: no TF32;
+//   * f32 inputs keep f32's accuracy, as JAX runs them at
+//     Precision.HIGHEST: the forward as f32 FMAs on the CUDA cores, dK/dV
+//     and dQ as 3xTF32 on the tensor cores (below); no single-TF32 product;
 //   * dropout regenerates the positional-hash mask of _dropout_keep bit for
 //     bit (key = the bh index, global positions); l takes the undropped p,
 //     P.V and dP take keep / (1 - p).
 //
-// Bound on the H100 SXM (67 TFLOP/s f32 on the CUDA cores, 989 TFLOP/s
-// bf16 dense, 3.35 TB/s) at the GPT-2-small f32 train step's shape,
-// BH = 16*12, s = 1024, D = 64, causal (the causal half of the score pairs):
+// Bound on the H100 SXM (67 TFLOP/s f32 on the CUDA cores, 494.7 TFLOP/s
+// tf32 and 989 bf16 dense on the tensor cores, 3.35 TB/s) at the
+// GPT-2-small f32 train step's shape, BH = 16*12, s = 1024, D = 64, causal
+// (the causal half of the score pairs):
 //   fwd : 2 products (S, P.V), 25.8 GFLOP -> 0.385 ms; operations.
-//   dkdv: 4 products (S^T, dP^T, dV, dK), 51.6 GFLOP -> 0.770 ms.
-//   dq  : 3 products (S, dP, dQ), 38.7 GFLOP -> 0.578 ms.
+//   dkdv: 4 products (S^T, dP^T, dV, dK), 51.6 GFLOP; as 3xTF32, three tf32
+//         products each -> 0.313 ms (0.770 ms as f32 on the CUDA cores).
+//   dq  : 3 products (S, dP, dQ), 38.7 GFLOP -> 0.235 ms (0.578 ms).
 // q, k, v and O are 201 MB in f32, 0.060 ms of bytes.  chip_smoke.py
 // recomputes the bounds from the run's inputs.
 //
-// Design (simple and right first; wgmma, TMA and warp specialisation are
-// later work):
+// Design:
 //   * bf16/f16: the mma.sync design K1 had before its Hopper rebuild, on the
 //     bhd layout: one block of 4 warps per (64-row tile, bh), each warp 16
 //     rows; mma.sync m16n8k16 with f32 accumulators fed by ldmatrix; the
 //     inner operand tiles double-buffered with cp.async; scores in log2
 //     units (one exp2f per probability); the mask only on tiles where a
 //     warp's rows meet the diagonal or a ragged end.
-//   * f32: one block of 256 threads per (64-row tile, bh); each thread owns
-//     a 4 x 4 block of the 64 x 64 score tile (rows ty*4.., columns
-//     tx + 16 j) and 4 rows x DP/16 columns of the output, every product a
-//     chain of f32 FMAs in one fixed order (d ascending, then kv or q rows
+//   * f32 forward: one block of 256 threads per (64-row tile, bh); each
+//     thread owns a 4 x 4 block of the 64 x 64 score tile (rows ty*4..,
+//     columns tx + 16 j) and 4 rows x DP/16 columns of O, every product a
+//     chain of f32 FMAs in one fixed order (d ascending, then kv rows
 //     ascending); operands and the probability tile in shared memory, read
-//     as float4 (row stride DP + 4 floats: conflict-free); the inner tiles
+//     as float4 (row stride DP + 4 floats: conflict-free); the kv tiles
 //     double-buffered with cp.async where shared memory allows it.
+//   * f32 dK/dV and dQ: TMA-fed 3xTF32 wgmma, warp-specialised (the
+//     section "f32 dK/dV and dQ on the tensor cores" below), where TMA can
+//     address the rows (D % 4 == 0); other widths run the column-chunked
+//     CUDA-core kernels of flash_wide.cuh.
 //   * causal tiles above the diagonal are never loaded: fwd and dq stop at
 //     the diagonal kv tile, dkdv starts at the diagonal q tile (a kv tile
 //     past the last q row gets zero gradients); the heaviest tiles first.
 //   * ragged ends (SQ, SKV not multiples of 64) are zero-filled and
 //     masked.  Head widths: instances of 64, 128 and 256 padded columns
-//     (padding columns zero), for D up to 256; each width and family
-//     (f32, or bf16/f16) is its own library (-DFLASH_DP, -DFLASH_F32).
-//     Where a row is not 16-byte aligned (D * size % 16 != 0, e.g. D = 36
-//     in bf16) a template flag swaps the 16-byte cp.async chunks for
-//     element reads at the row edge.  At 256: the mma family
+//     (padding columns zero), for D up to 256, and past 256 the
+//     column-chunked kernels of flash_wide.cuh (-DFLASH_DP=0: one library
+//     for every wider head, the chunk count fixed at run time); each width
+//     and family (f32, or bf16/f16) is its own library (-DFLASH_DP,
+//     -DFLASH_F32).  Where a row is not 16-byte aligned (D * size % 16 !=
+//     0, e.g. D = 36 in bf16) a template flag swaps the 16-byte cp.async
+//     chunks for element reads at the row edge.  At 256: the mma family
 //     reads the q and dO fragments from shared memory at each use, and
 //     its dK/dV and dQ blocks keep half of the output columns (grid.z;
 //     each recomputes the scores), for registers; the f32 forward
-//     single-buffers its kv tiles, and f32 dK/dV and dQ hold their tiles
-//     in two column chunks of 128 (the wide kernels), for shared memory.
+//     single-buffers its kv tiles, and the 3xTF32 dK/dV splits its output
+//     columns over two blocks.
 // One summation order per output, whatever BH is: a row never depends on
 // the batch.
 //
@@ -75,11 +83,13 @@
 #include <type_traits>
 
 #include "flash_common.cuh"
+#include "flash_wide.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
-constexpr int kThreadsF = 256;            // f32 kernels: 16 x 16 threads
-constexpr int kPLd = kTile + 4;           // f32 probability tile row stride
+constexpr int kThreadsF = wide::kThreads;   // the f32 forward: 16 x 16
+using wide::kPLd;                           // its probability tile stride
 
 struct Geo {
   int SQ, SKV, D;
@@ -97,16 +107,15 @@ struct Ptrs {
   int BH;
 };
 
-// Copy of rows row0..row0+63, columns col0..col0+DP-1, of an (n, D)
-// matrix (row stride D) into a [64][LD] tile; rows past n and columns past
-// D are zero.  AL: every row (and col0) is 16-byte aligned, D * sizeof(T)
-// a multiple of 16, and each 16-byte chunk is one cp.async; else (any D,
-// e.g. 36 or 100 in bf16) each chunk is read element by element at the
-// row edges and stored whole, synchronously.
+// Copy of rows row0..row0+63, columns 0..DP-1, of an (n, D) matrix (row
+// stride D) into a [64][LD] tile; rows past n and columns past D are
+// zero.  AL: every row is 16-byte aligned, D * sizeof(T) a multiple of
+// 16, and each 16-byte chunk is one cp.async; else (any D, e.g. 36 or 100
+// in bf16) each chunk is read element by element at the row edges and
+// stored whole, synchronously.
 template <typename T, int DP, int LD, int NT, bool AL>
 __device__ __forceinline__ void load_rows(T* tile, const T* base, int row0,
-                                          int n, int D, int tid,
-                                          int col0 = 0) {
+                                          int n, int D, int tid) {
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kChunks = DP / kVec;
   using U = typename std::conditional<sizeof(T) == 2, uint16_t,
@@ -114,7 +123,7 @@ __device__ __forceinline__ void load_rows(T* tile, const T* base, int row0,
   for (int e = tid; e < kTile * kChunks; e += NT) {
     const int r = e / kChunks, c = (e - r * kChunks) * kVec;
     T* dst = tile + r * LD + c;
-    const int row = row0 + r, col = col0 + c;
+    const int row = row0 + r, col = c;
     if (AL) {
       if (row < n && col < D)
         cp_async16(dst, base + (size_t)row * D + col);
@@ -663,109 +672,6 @@ bhd_dq_mma(const T* __restrict__ q, const T* __restrict__ k,
 // f32: FMAs on the CUDA cores, 256 threads, 4 x 4 scores per thread
 // ===========================================================================
 
-// s[i][j] = A[ty*4 + i] . B[tx + 16 j] over DP columns (tiles of row stride
-// LD): the 4 x 4 block of a 64 x 64 product that this thread owns.  ACC:
-// add to s (the next column chunk) instead.
-template <int DP, int LD, bool ACC = false>
-__device__ __forceinline__ void dot_tile(float (&s)[4][4], const float* a,
-                                         const float* b, int ty, int tx) {
-  if (!ACC) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-  }
-#pragma unroll
-  for (int d = 0; d < DP; d += 4) {
-    float4 av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      av[i] = *reinterpret_cast<const float4*>(a + (ty * 4 + i) * LD + d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      bv[j] = *reinterpret_cast<const float4*>(b + (tx + 16 * j) * LD + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(av[i].x, bv[j].x, s[i][j]);
-        s[i][j] = fmaf(av[i].y, bv[j].y, s[i][j]);
-        s[i][j] = fmaf(av[i].z, bv[j].z, s[i][j]);
-        s[i][j] = fmaf(av[i].w, bv[j].w, s[i][j]);
-      }
-  }
-}
-
-__device__ __forceinline__ float lane_of(const float4& v, int c) {
-  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
-}
-
-// acc[i][4u + t] += sum_c P[ty*4 + i][c] B[c][tx*4 + 64u + t], c < 64: the
-// 4 x DP/16 output block this thread owns, from a [64][kPLd] P tile and a
-// [64][LD] B tile.
-template <int DP, int LD>
-__device__ __forceinline__ void pv_tile(float (&acc)[4][DP / 16],
-                                        const float* p, const float* b,
-                                        int ty, int tx) {
-#pragma unroll 4
-  for (int c = 0; c < kTile; c += 4) {
-    float4 pv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      pv[i] = *reinterpret_cast<const float4*>(p + (ty * 4 + i) * kPLd + c);
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
-#pragma unroll
-      for (int u = 0; u < DP / 64; ++u) {
-        const float4 bv = *reinterpret_cast<const float4*>(
-            b + (c + cc) * LD + tx * 4 + 64 * u);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float pe = lane_of(pv[i], cc);
-          acc[i][4 * u + 0] = fmaf(pe, bv.x, acc[i][4 * u + 0]);
-          acc[i][4 * u + 1] = fmaf(pe, bv.y, acc[i][4 * u + 1]);
-          acc[i][4 * u + 2] = fmaf(pe, bv.z, acc[i][4 * u + 2]);
-          acc[i][4 * u + 3] = fmaf(pe, bv.w, acc[i][4 * u + 3]);
-        }
-      }
-    }
-  }
-}
-
-// max / sum over the 16 threads of a row group (lanes that share ty)
-__device__ __forceinline__ float row_max16(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float row_sum16(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// store a 4 x DP/16 block (rows row0 + i, columns c0 + tx*4 + 64u + t) of
-// an (n, D) matrix
-template <int DP>
-__device__ __forceinline__ void store_block(float* base,
-                                            const float (&acc)[4][DP / 16],
-                                            int row0, int n, int D, int tx,
-                                            int c0 = 0) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (row0 + i >= n) continue;
-    float* row = base + (size_t)(row0 + i) * D;
-#pragma unroll
-    for (int u = 0; u < DP / 64; ++u)
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int d = c0 + tx * 4 + 64 * u + t;
-        if (d < D) row[d] = acc[i][4 * u + t];
-      }
-  }
-}
-
 // STAGES 2 double-buffers the kv tiles; 1 (at 256, for shared memory)
 // loads the next tile after this one's P.V
 template <int DP, int STAGES, bool AL>
@@ -823,7 +729,7 @@ bhd_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       cp_async_commit();
     }
     float s[4][4];
-    dot_tile<DP, kLd>(s, q_s, k_s + buf * kTileEl, ty, tx);
+    wide::dot_tile<DP, kLd>(s, q_s, k_s + buf * kTileEl, ty, tx, false);
 
     const int k0 = j * kTile;
     const bool need_mask = k0 + kTile > g.SKV ||
@@ -842,7 +748,7 @@ bhd_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
         s[i][jj] = x;
         mx = fmaxf(mx, x);
       }
-      mx = row_max16(mx);
+      mx = wide::row_max16(mx);
       const float m_next = fmaxf(m_r[i], mx);
       const float alpha = exp2f(m_r[i] - m_next);
       m_r[i] = m_next;
@@ -863,7 +769,7 @@ bhd_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
     __syncthreads();
-    pv_tile<DP, kLd>(acc, p_s, v_s + buf * kTileEl, ty, tx);
+    wide::pv_tile<DP, kLd>(acc, p_s, v_s + buf * kTileEl, ty, tx);
     if (STAGES == 1 && j + 1 < n_kv) {
       __syncthreads();                        // every read of the tile done
       load_kv(j + 1, 0);
@@ -873,426 +779,600 @@ bhd_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float l = row_sum16(l_r[i]);
+    const float l = wide::row_sum16(l_r[i]);
     if (tx == 0 && rows[i] < g.SQ)
       lse[(size_t)bh * g.SQ + rows[i]] = m_r[i] * kLn2 + logf(fmaxf(l, 1e-30f));
     const float ld = l == 0.f ? 1.f : l;      // the JAX guard
 #pragma unroll
     for (int c = 0; c < DP / 16; ++c) acc[i][c] /= ld;
   }
-  store_block<DP>(out + (size_t)bh * g.SQ * g.D, acc, q0 + ty * 4, g.SQ, g.D,
-                  tx);
+  wide::store<float, DP>(out + (size_t)bh * g.SQ * g.D, g.D, acc,
+                         q0 + ty * 4, g.SQ, g.D, tx, 0);
 }
 
-template <int DP, int STAGES, bool AL>
-__global__ void __launch_bounds__(kThreadsF)
-bhd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const float* __restrict__ dout,
-             const float* __restrict__ lse, const float* __restrict__ delta,
-             const int32_t* __restrict__ seed_ptr,
-             float* __restrict__ dk_out, float* __restrict__ dv_out, Geo g) {
-  constexpr int kLd = DP + 4;
-  constexpr int kTileEl = kTile * kLd;
-  const int kt_i = blockIdx.x;                // causal: most q tiles first
-  const int bh = blockIdx.y;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const float* qb = q + (size_t)bh * g.SQ * g.D;
-  const float* db = dout + (size_t)bh * g.SQ * g.D;
-  const float* kb = k + (size_t)bh * g.SKV * g.D;
-  const float* vb = v + (size_t)bh * g.SKV * g.D;
-  const float* lse_bh = lse + (size_t)bh * g.SQ;
-  const float* delta_bh = delta + (size_t)bh * g.SQ;
-  const int32_t seed = g.dropout ? seed_ptr[0] : 0;
+// ===========================================================================
+// f32 dK/dV and dQ on the tensor cores: 3xTF32 wgmma on TMA-fed tiles
+// ===========================================================================
+//
+// Every product runs as three tf32 wgmma (m64nNk8, f32 accumulators):
+// a.b ~ al.bh + ah.bl + ah.bh with ah = rna_tf32(a), al = rna_tf32(a - ah),
+// the counterpart of the reference's Precision.HIGHEST products.  Raw f32
+// tiles arrive by TMA (boxes of 64 rows x 32 f32, 128-byte swizzled) in a
+// ring of two entries fed by one producer thread; the consumers split each
+// box in shared memory (hi in place of the raw box, lo beside it) before the
+// wgmma read it.  tf32 wgmma takes only K-major operands, so the products
+// that contract over q rows (dK/dV) or kv rows (dQ) read a transposed
+// hi/lo copy that the split pass writes from a second load of the box.
+//
+// A block is 64 rows (kv rows for dK/dV, q rows for dQ) and two consumer
+// warpgroups.  For each tile of the other side, over the head width in
+// 32-column slices: warpgroup 0 sums S (S^T) and warpgroup 1 dP (dP^T).
+// Warpgroup 0 turns S into P from the caller's LSE and hands the undropped
+// P to warpgroup 1 through shared memory (a named-barrier handshake);
+// warpgroup 1 forms dS.  Then the output products, the tile's hi/lo A
+// operand (P^T, dS^T or dS) against 32-column chunks of the transposed B:
+// in dK/dV warpgroup 0 keeps dV and warpgroup 1 dK, all DP columns each;
+// in dQ each keeps half of dQ's columns from the one dS tile.  The
+// output totals stay in registers over the block's walk (f32 sums of
+// short tensor-core runs, below); every output has one summation order
+// (no atomics).  Widths up to 256 in one design: the slices and chunks
+// stream through the ring, so shared memory does not grow with DP;
+// registers do, so at 256 dK/dV's columns go to two blocks.
+//
+// Bound: operations, 3 tf32 products per f32 product at 494.7 TFLOP/s,
+// 2.5x below the f32 CUDA-core bound.  Measured (PERF.md) the pair is held
+// by latency: each warpgroup splits, syncs and waits in turn, one block an
+// SM (214 KB of shared memory).
+namespace tc {
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* k_s = reinterpret_cast<float*>(smem);
-  float* v_s = k_s + kTileEl;
-  float* q_s = v_s + kTileEl;                 // STAGES buffers
-  float* do_s = q_s + STAGES * kTileEl;       // STAGES buffers
-  float* pt_s = do_s + STAGES * kTileEl;      // [64][kPLd] dropped P^T
-  float* ds_s = pt_s + kTile * kPLd;          // [64][kPLd] dS^T
-  float* lse_s = ds_s + kTile * kPLd;         // [STAGES][64]
-  float* dl_s = lse_s + STAGES * kTile;       // [STAGES][64]
+constexpr int kSl = 32;                   // f32 columns of a box: 128 bytes
+constexpr int kBox = kTile * 128;         // one [64][32] f32 box, 8 KB
+constexpr int kStages = 2;                // ring entries
+constexpr int kEntry = 4 * kBox;          // an entry: up to four boxes
+constexpr int kCons = 256;                // two consumer warpgroups
+constexpr int kBlock = kCons + 128;       // and a producer warpgroup
+constexpr int kBarWg = 2;                 // + wg: one warpgroup's barrier
+constexpr int kBarPReady = 4, kBarPFree = 5, kBarDsReady = 6, kBarDsFree = 7;
+// dynamic shared memory, 1024 bytes of alignment included: the ring, two
+// 16 KB buffers a warpgroup, the A operand tiles (dK/dV: P^T and dS^T hi
+// and lo; dQ: dS hi and lo), the 64 x 64 exchange, the ring's barriers
+constexpr size_t kSmemDkdv = 1024 + (size_t)(8 + 8 + 8 + 2) * kBox + 32;
+constexpr size_t kSmemDq = 1024 + (size_t)(8 + 8 + 4 + 2) * kBox + 32;
 
-  const int k0 = kt_i * kTile;
-  const int n_q = (g.SQ + kTile - 1) / kTile;
-  const int i0 = g.causal ? kt_i : 0;         // first q tile that sees k0
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (hopper::smem_u32(p) & 1023)) & 1023);
+}
 
-  auto load_q_tile = [&](int i, int buf) {
-    load_rows<float, DP, kLd, kThreadsF, AL>(q_s + buf * kTileEl, qb,
-                                             i * kTile, g.SQ, g.D, tid);
-    load_rows<float, DP, kLd, kThreadsF, AL>(do_s + buf * kTileEl, db,
-                                             i * kTile, g.SQ, g.D, tid);
-    if (tid < kTile) {
-      const int row = i * kTile + tid;
-      lse_s[buf * kTile + tid] = row < g.SQ ? lse_bh[row] * kLog2e : 0.f;
-      dl_s[buf * kTile + tid] = row < g.SQ ? delta_bh[row] : 0.f;
+// byte offset of element (r, c), c < 32, of a [rows][32] f32 tile in the
+// 128-byte-swizzled layout a TMA box lands in
+__device__ __forceinline__ int sw(int r, int c) {
+  return r * 128 + ((((c >> 2) ^ (r & 7)) << 4) | ((c & 3) << 2));
+}
+
+__device__ __forceinline__ void split4(const float4& v, float4& h,
+                                       float4& l) {
+  h.x = hopper::tf32_rna(v.x);
+  h.y = hopper::tf32_rna(v.y);
+  h.z = hopper::tf32_rna(v.z);
+  h.w = hopper::tf32_rna(v.w);
+  l.x = hopper::tf32_rna(v.x - h.x);
+  l.y = hopper::tf32_rna(v.y - h.y);
+  l.z = hopper::tf32_rna(v.z - h.z);
+  l.w = hopper::tf32_rna(v.w - h.w);
+}
+
+// One [64][32] box split by a warpgroup's 128 threads: hi in place, lo at
+// the same offset of `lo` (the swizzle is position-for-position).
+__device__ __forceinline__ void split_box(unsigned char* box,
+                                          unsigned char* lo, int t) {
+  float4* x = reinterpret_cast<float4*>(box);
+  float4* y = reinterpret_cast<float4*>(lo);
+#pragma unroll
+  for (int k = 0; k < kBox / 16 / 128; ++k) {
+    float4 h, l;
+    split4(x[t + 128 * k], h, l);
+    x[t + 128 * k] = h;
+    y[t + 128 * k] = l;
+  }
+}
+
+// One [64][32] box (rows r, columns c) split into its transpose: hi and lo
+// tiles of 32 rows (c) x 64 columns (r), each two [32][32] sub-tiles of 4
+// KB.  Thread t reads column t % 32 of rows 16 (t / 32) .. +15 (a warp
+// reads whole rows) and writes four 16-byte chunks.
+__device__ __forceinline__ void split_t(const unsigned char* box,
+                                        unsigned char* hi, unsigned char* lo,
+                                        int t) {
+  const int c = t & 31, g = t >> 5;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int r0 = 16 * g + 4 * j;
+    float4 v, h, l;
+    v.x = *reinterpret_cast<const float*>(box + sw(r0, c));
+    v.y = *reinterpret_cast<const float*>(box + sw(r0 + 1, c));
+    v.z = *reinterpret_cast<const float*>(box + sw(r0 + 2, c));
+    v.w = *reinterpret_cast<const float*>(box + sw(r0 + 3, c));
+    split4(v, h, l);
+    const int off = (r0 >> 5) * (kBox / 2) + sw(c, r0 & 31);
+    *reinterpret_cast<float4*>(hi + off) = h;
+    *reinterpret_cast<float4*>(lo + off) = l;
+  }
+}
+
+// A value pair (columns col, col + 1 of row r) split into the hi and lo
+// tiles of a [64][64] A operand (two [64][32] sub-tiles each)
+__device__ __forceinline__ void put_split(unsigned char* hi, unsigned char* lo,
+                                          int r, int col, float x0,
+                                          float x1) {
+  const int off = (col >> 5) * kBox + sw(r, col & 31);
+  float2 h, l;
+  h.x = hopper::tf32_rna(x0);
+  h.y = hopper::tf32_rna(x1);
+  l.x = hopper::tf32_rna(x0 - h.x);
+  l.y = hopper::tf32_rna(x1 - h.y);
+  *reinterpret_cast<float2*>(hi + off) = h;
+  *reinterpret_cast<float2*>(lo + off) = l;
+}
+
+// One k-step run of 3xTF32 products, d (+)= A . B^T over K = 8 KS, A
+// [64][K] and B [N][K] K-major hi and lo tiles of K/32 sub-tiles (SA, SB
+// bytes apart), per k-step in the order al.bh, ah.bl (into dc) and ah.bh
+// (into dm; dc == dm sums all three in one accumulator).  Each run starts
+// its accumulators afresh.
+template <int N, int KS, int SA, int SB>
+__device__ __forceinline__ void tf32x3(float* dm, float* dc,
+                                       const unsigned char* ah,
+                                       const unsigned char* al,
+                                       const unsigned char* bh,
+                                       const unsigned char* bl) {
+  // one descriptor per tile; a k-step adds its byte offset / 16 to the
+  // address field (offsets stay inside the 14-bit field: shared memory is
+  // below 256 KB)
+  const uint64_t dah = hopper::desc_sw128(ah, 16, 1024);
+  const uint64_t dal = hopper::desc_sw128(al, 16, 1024);
+  const uint64_t dbh = hopper::desc_sw128(bh, 16, 1024);
+  const uint64_t dbl = hopper::desc_sw128(bl, 16, 1024);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const uint64_t oa = ((kk >> 2) * SA + (kk & 3) * 32) >> 4;
+    const uint64_t ob = ((kk >> 2) * SB + (kk & 3) * 32) >> 4;
+    const int on = kk > 0 ? 1 : 0;
+    if constexpr (N == 64) {
+      hopper::wgmma_tf32_n64(dc, dal + oa, dbh + ob, on);
+      hopper::wgmma_tf32_n64(dc, dah + oa, dbl + ob, 1);
+      hopper::wgmma_tf32_n64(dm, dah + oa, dbh + ob, dm == dc ? 1 : on);
+    } else {
+      hopper::wgmma_tf32_n32(dc, dal + oa, dbh + ob, on);
+      hopper::wgmma_tf32_n32(dc, dah + oa, dbl + ob, 1);
+      hopper::wgmma_tf32_n32(dm, dah + oa, dbh + ob, dm == dc ? 1 : on);
     }
+  }
+}
+
+// The tensor core's f32 accumulator drops the bits of each wgmma's sum
+// below its last place (rounding toward zero), so a long sum drifts toward
+// zero by a part of its last place per wgmma, in proportion to the number
+// of wgmma.  So no accumulator lives longer than one slice (12 wgmma) or
+// one q tile x chunk (8 wgmma of ah.bh, whose corrections sum apart): each
+// run starts afresh and is added, rounded to nearest, to a total in
+// registers.
+
+// Phase 1, the contraction over the head width: for each 32-column slice,
+// wait for its entry, split this warpgroup's two boxes (A at box 2 wg, B
+// at 2 wg + 1) and sum A . B^T (64 x 64) into part; part is added to sx
+// while the next slice is split.  An entry is released once its products
+// have completed.  e counts ring entries.
+template <int NS>
+__device__ __forceinline__ void contract_width(float* sx, unsigned char* ring,
+                                               uint64_t* full,
+                                               uint64_t* empty,
+                                               unsigned char* mybuf, int& e,
+                                               int wg, int t) {
+  float part[32];
+  auto split = [&](int c) {                   // returns the slice's boxes
+    const int s = e % kStages;
+    hopper::mbar_wait(full + s, (e / kStages) & 1);
+    unsigned char* a = ring + s * kEntry + 2 * wg * kBox;
+    unsigned char* lo = mybuf + (c & 1) * 2 * kBox;
+    split_box(a, lo, t);
+    split_box(a + kBox, lo + kBox, t);
+    hopper::fence_async_shared();
+    hopper::named_bar_sync(kBarWg + wg, 128);
+    ++e;
+    return a;
   };
-
-  load_rows<float, DP, kLd, kThreadsF, AL>(k_s, kb, k0, g.SKV, g.D, tid);
-  load_rows<float, DP, kLd, kThreadsF, AL>(v_s, vb, k0, g.SKV, g.D, tid);
-  if (i0 < n_q) load_q_tile(i0, 0);
-  cp_async_commit();
-
-  float dk[4][DP / 16], dv[4][DP / 16];
-  int krows[4];
+  auto issue = [&](const unsigned char* a, int c) {
+    const unsigned char* lo = mybuf + (c & 1) * 2 * kBox;
+    hopper::wgmma_fence();
+    tf32x3<64, 4, kBox, kBox>(part, part, a, lo, a + kBox, lo + kBox);
+    hopper::wgmma_commit();
+  };
+  auto retire = [&](bool first, int entry) {  // part into sx; release
+    hopper::wgmma_wait<0>();
+    hopper::fence_acc(part);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int c = 0; c < DP / 16; ++c) dk[i][c] = dv[i][c] = 0.f;
-    krows[i] = k0 + ty * 4 + i;
+    for (int x = 0; x < 32; ++x) sx[x] = first ? part[x] : sx[x] + part[x];
+    hopper::mbar_arrive(empty + entry % kStages);
+  };
+  issue(split(0), 0);
+#pragma unroll 1
+  for (int c = 1; c < NS; ++c) {
+    const unsigned char* a = split(c);        // overlaps slice c - 1's wgmma
+    retire(c == 1, e - 2);
+    issue(a, c);
   }
-
-  for (int i = i0; i < n_q; ++i) {
-    const int buf = STAGES == 2 ? (i - i0) & 1 : 0;
-    cp_async_wait_all();
-    __syncthreads();
-    if (STAGES == 2 && i + 1 < n_q) {
-      load_q_tile(i + 1, buf ^ 1);
-      cp_async_commit();
-    }
-    const float* qt = q_s + buf * kTileEl;
-    const float* dot = do_s + buf * kTileEl;
-    const float* lse_t = lse_s + buf * kTile;
-    const float* dl_t = dl_s + buf * kTile;
-
-    // S^T = K . q^T and dP^T = V . dO^T: 4 kv rows x 4 q columns a thread
-    float st[4][4], dpt[4][4];
-    dot_tile<DP, kLd>(st, k_s, qt, ty, tx);
-    dot_tile<DP, kLd>(dpt, v_s, dot, ty, tx);
-    const int q0 = i * kTile;
-    const bool need_mask = q0 + kTile > g.SQ ||
-                           (g.causal && q0 < k0 + ty * 4 + 3);
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int cq = tx + 16 * jj;
-        const int qpos = q0 + cq;
-        const int kpos = krows[ii];
-        float pt = exp2f(fmaf(st[ii][jj], g.scale_log2, -lse_t[cq]));
-        if (need_mask)
-          pt = (qpos < g.SQ && (!g.causal || qpos >= kpos)) ? pt : 0.f;
-        float ptv = pt, dp = dpt[ii][jj];
-        if (g.dropout) {
-          const bool keep = keep_elem(seed, bh, qpos, kpos, g.thresh);
-          ptv = keep ? pt / g.keep_prob : 0.f;
-          dp = keep ? dp / g.keep_prob : 0.f;
-        }
-        pt_s[(ty * 4 + ii) * kPLd + cq] = ptv;
-        ds_s[(ty * 4 + ii) * kPLd + cq] = pt * (dp - dl_t[cq]) * g.scale;
-      }
-    __syncthreads();
-    // dV += drop(P^T) . dO and dK += dS^T . q over this tile's 64 q rows
-    pv_tile<DP, kLd>(dv, pt_s, dot, ty, tx);
-    pv_tile<DP, kLd>(dk, ds_s, qt, ty, tx);
-    if (STAGES == 1 && i + 1 < n_q) {
-      __syncthreads();                        // every read of the tile done
-      load_q_tile(i + 1, 0);
-      cp_async_commit();
-    }
-  }
-
-  const size_t at = (size_t)bh * g.SKV * g.D;
-  store_block<DP>(dk_out + at, dk, k0 + ty * 4, g.SKV, g.D, tx);
-  store_block<DP>(dv_out + at, dv, k0 + ty * 4, g.SKV, g.D, tx);
+  retire(NS == 1, e - 1);
 }
 
-template <int DP, bool AL>
-__global__ void __launch_bounds__(kThreadsF)
-bhd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-           const float* __restrict__ v, const float* __restrict__ dout,
-           const float* __restrict__ lse, const float* __restrict__ delta,
-           const int32_t* __restrict__ seed_ptr, float* __restrict__ dq_out,
-           Geo g) {
-  constexpr int kLd = DP + 4;
-  constexpr int kTileEl = kTile * kLd;
-  const int qt_i = gridDim.x - 1 - blockIdx.x;  // heavy causal tiles first
-  const int bh = blockIdx.y;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const float* qb = q + (size_t)bh * g.SQ * g.D;
-  const float* db = dout + (size_t)bh * g.SQ * g.D;
-  const float* kb = k + (size_t)bh * g.SKV * g.D;
-  const float* vb = v + (size_t)bh * g.SKV * g.D;
-  const int32_t seed = g.dropout ? seed_ptr[0] : 0;
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* q_s = reinterpret_cast<float*>(smem);
-  float* do_s = q_s + kTileEl;
-  float* k_s = do_s + kTileEl;                // two buffers
-  float* v_s = k_s + 2 * kTileEl;             // two buffers
-  float* ds_s = v_s + 2 * kTileEl;            // [64][kPLd]
-
-  const int q0 = qt_i * kTile;
-  const int n_kv = kv_tiles(qt_i, g);
-  load_rows<float, DP, kLd, kThreadsF, AL>(q_s, qb, q0, g.SQ, g.D, tid);
-  load_rows<float, DP, kLd, kThreadsF, AL>(do_s, db, q0, g.SQ, g.D, tid);
-  load_rows<float, DP, kLd, kThreadsF, AL>(k_s, kb, 0, g.SKV, g.D, tid);
-  load_rows<float, DP, kLd, kThreadsF, AL>(v_s, vb, 0, g.SKV, g.D, tid);
-  cp_async_commit();
-
-  float dq[4][DP / 16], lse_r[4], dl_r[4];
-  int rows[4];
+// Phase 2: acc[c] (64 x 32) += A . (box)^T for NC chunks, the A operand a
+// [64][64] hi/lo tile, the B chunk this warpgroup's box (box wg) of each
+// entry, transposed and split into mybuf.  The raw box is released as soon
+// as it is read; chunk c + 1 is split while chunk c's wgmma run.
+template <int NC>
+__device__ __forceinline__ void output_chunks(float (*acc)[16],
+                                              const unsigned char* ah,
+                                              const unsigned char* al,
+                                              unsigned char* ring,
+                                              uint64_t* full, uint64_t* empty,
+                                              unsigned char* mybuf, int& e,
+                                              int wg, int t) {
+  float pm[16], pc[16];
+  auto split = [&](int c) {
+    const int s = e % kStages;
+    hopper::mbar_wait(full + s, (e / kStages) & 1);
+    unsigned char* bt = mybuf + (c & 1) * 2 * kBox;
+    split_t(ring + s * kEntry + wg * kBox, bt, bt + kBox, t);
+    hopper::mbar_arrive(empty + s);
+    hopper::fence_async_shared();
+    hopper::named_bar_sync(kBarWg + wg, 128);
+    ++e;
+  };
+  auto issue = [&](int c) {
+    const unsigned char* bt = mybuf + (c & 1) * 2 * kBox;
+    hopper::wgmma_fence();
+    tf32x3<32, 8, kBox, kBox / 2>(pm, pc, ah, al, bt, bt + kBox);
+    hopper::wgmma_commit();
+  };
+  auto retire = [&](float* d) {
+    hopper::wgmma_wait<0>();
+    hopper::fence_acc<16>(pm);
+    hopper::fence_acc<16>(pc);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+    for (int x = 0; x < 16; ++x) d[x] += pm[x] + pc[x];
+  };
+  split(0);
+  issue(0);
 #pragma unroll
-    for (int c = 0; c < DP / 16; ++c) dq[i][c] = 0.f;
-    rows[i] = q0 + ty * 4 + i;
-    const bool in = rows[i] < g.SQ;
-    lse_r[i] = in ? lse[(size_t)bh * g.SQ + rows[i]] * kLog2e : 0.f;
-    dl_r[i] = in ? delta[(size_t)bh * g.SQ + rows[i]] : 0.f;
+  for (int c = 1; c < NC; ++c) {
+    split(c);                                 // overlaps chunk c - 1's wgmma
+    retire(acc[c - 1]);
+    issue(c);
   }
-
-  for (int j = 0; j < n_kv; ++j) {
-    const int buf = j & 1;
-    cp_async_wait_all();
-    __syncthreads();
-    if (j + 1 < n_kv) {
-      load_rows<float, DP, kLd, kThreadsF, AL>(k_s + (buf ^ 1) * kTileEl,
-                                               kb, (j + 1) * kTile, g.SKV,
-                                               g.D, tid);
-      load_rows<float, DP, kLd, kThreadsF, AL>(v_s + (buf ^ 1) * kTileEl,
-                                               vb, (j + 1) * kTile, g.SKV,
-                                               g.D, tid);
-      cp_async_commit();
-    }
-    const float* kt = k_s + buf * kTileEl;
-    float s[4][4], dp[4][4];
-    dot_tile<DP, kLd>(s, q_s, kt, ty, tx);
-    dot_tile<DP, kLd>(dp, do_s, v_s + buf * kTileEl, ty, tx);
-    const int k0 = j * kTile;
-    const bool need_mask = k0 + kTile > g.SKV ||
-                           (g.causal && k0 + kTile - 1 > q0 + ty * 4);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int col = k0 + tx + 16 * jj;
-        float p = exp2f(fmaf(s[i][jj], g.scale_log2, -lse_r[i]));
-        if (need_mask)
-          p = (col < g.SKV && (!g.causal || col <= rows[i])) ? p : 0.f;
-        float d = dp[i][jj];
-        if (g.dropout)
-          d = keep_elem(seed, bh, rows[i], col, g.thresh) ? d / g.keep_prob
-                                                          : 0.f;
-        ds_s[(ty * 4 + i) * kPLd + tx + 16 * jj] = p * (d - dl_r[i]) * g.scale;
-      }
-    __syncthreads();
-    pv_tile<DP, kLd>(dq, ds_s, kt, ty, tx);   // dQ += dS . K
-  }
-
-  store_block<DP>(dq_out + (size_t)bh * g.SQ * g.D, dq, q0 + ty * 4, g.SQ,
-                  g.D, tx);
+  retire(acc[NC - 1]);
 }
 
-// f32 at 256 columns: a 64 x 260 f32 tile is 66.5 KB, so K, V, q and dO do
-// not fit beside each other.  The wide kernels hold them in column chunks
-// of kCw (128): the scores sum the chunks' products into one accumulator,
-// and grid.z picks the block's output chunk; the chunk loop runs the other
-// chunk first and ends on the block's own, whose tiles then feed the
-// output products.  Every output has one fixed summation order.
-constexpr int kCw = 128;
-constexpr int kChunksW = 2;
+// Store NC accumulator chunks (64 x 32 each; chunk c at column c0 + 32 c)
+// to rows rows[0..1] (< n) of an (n, D) f32 matrix.
+template <int NC>
+__device__ __forceinline__ void store_chunks(float* base, float (*acc)[16],
+                                             const int* rows, int n, int D,
+                                             int c0, int tq) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int col = c0 + 32 * c + 8 * i + 2 * tq;
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (rows[r] < n && col < D)
+          *reinterpret_cast<float2*>(base + (size_t)rows[r] * D + col) =
+              make_float2(acc[c][4 * i + 2 * r], acc[c][4 * i + 2 * r + 1]);
+    }
+}
 
-// dK and dV at 256: one block per (kv tile, bh, output chunk)
-template <bool AL>
-__global__ void __launch_bounds__(kThreadsF)
-bhd_dkdv_f32_wide(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta,
-                  const int32_t* __restrict__ seed_ptr,
-                  float* __restrict__ dk_out, float* __restrict__ dv_out,
-                  Geo g) {
-  constexpr int kLd = kCw + 4;
-  constexpr int kTileEl = kTile * kLd;
-  const int kt_i = blockIdx.x;                // causal: most q tiles first
+template <typename Load>
+__device__ __forceinline__ void produce(uint64_t* full, uint64_t* empty,
+                                        unsigned char* ring, int& e,
+                                        int boxes, Load load) {
+  const int s = e % kStages;
+  hopper::mbar_wait(empty + s, ((e / kStages) & 1) ^ 1);
+  hopper::mbar_arrive_expect_tx(full + s, boxes * kBox);
+  load(ring + s * kEntry, full + s);
+  ++e;
+}
+
+}  // namespace tc
+
+// dK/dV's output columns per block: at 256 the two halves go to two
+// blocks (each recomputes the scores), so that a consumer's dV or
+// dK totals (64 floats) fit beside the scores in ptxas's budget of 168
+// registers a thread at 384 threads.
+template <int DP> __host__ __device__ constexpr int tc_dkdv_split() {
+  return DP > 128 ? 2 : 1;
+}
+
+// dK and dV: one block per (64 kv rows, bh, column part), over the q tiles
+// from the diagonal.  Ring entries per q tile: DP/32 slices {k, q, v, dO}
+// (phase 1), then the part's 32-column chunks {dO, q} (phase 2: dV from
+// dO^T, dK from q^T).
+template <int DP>
+__global__ void __launch_bounds__(tc::kBlock, 1)
+bhd_dkdv_tc(const __grid_constant__ CUtensorMap q_map,
+            const __grid_constant__ CUtensorMap k_map,
+            const __grid_constant__ CUtensorMap v_map,
+            const __grid_constant__ CUtensorMap do_map,
+            const float* __restrict__ lse, const float* __restrict__ delta,
+            const int32_t* __restrict__ seed_ptr, float* __restrict__ dk_out,
+            float* __restrict__ dv_out, Geo g) {
+  using namespace tc;
+  constexpr int kNS = DP / kSl;
+  constexpr int kNC = kNS / tc_dkdv_split<DP>();   // this block's chunks
+  // the column parts of a kv tile are neighbours in the launch order, so
+  // that they share their q, dO, k and v reads in the L2
+  const int kt_i = blockIdx.x / tc_dkdv_split<DP>();   // most q tiles first
   const int bh = blockIdx.y;
-  const int z = blockIdx.z;                   // output chunk
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const float* qb = q + (size_t)bh * g.SQ * g.D;
-  const float* db = dout + (size_t)bh * g.SQ * g.D;
-  const float* kb = k + (size_t)bh * g.SKV * g.D;
-  const float* vb = v + (size_t)bh * g.SKV * g.D;
-  const float* lse_bh = lse + (size_t)bh * g.SQ;
-  const float* delta_bh = delta + (size_t)bh * g.SQ;
-  const int32_t seed = g.dropout ? seed_ptr[0] : 0;
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* k_s = reinterpret_cast<float*>(smem);   // one column chunk each
-  float* v_s = k_s + kTileEl;
-  float* q_s = v_s + kTileEl;
-  float* do_s = q_s + kTileEl;
-  float* pt_s = do_s + kTileEl;               // [64][kPLd] dropped P^T
-  float* ds_s = pt_s + kTile * kPLd;          // [64][kPLd] dS^T
-  float* lse_s = ds_s + kTile * kPLd;         // [64]
-  float* dl_s = lse_s + kTile;                // [64]
-
-  const int k0 = kt_i * kTile;
+  const int cz = blockIdx.x % tc_dkdv_split<DP>() * kNC;   // first chunk
+  const int kv0 = kt_i * kTile;
   const int n_q = (g.SQ + kTile - 1) / kTile;
-  const int i0 = g.causal ? kt_i : 0;
-  float dk[4][kCw / 16], dv[4][kCw / 16];
-  int krows[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int c = 0; c < kCw / 16; ++c) dk[i][c] = dv[i][c] = 0.f;
-    krows[i] = k0 + ty * 4 + i;
+  const int i0 = g.causal ? kt_i : 0;         // first q tile that sees kv0
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);
+  unsigned char* bufs = ring + kStages * kEntry;   // [wg][2][2 boxes]
+  unsigned char* atile = bufs + 8 * kBox;          // [wg][hi 2, lo 2 boxes]
+  float* exch = reinterpret_cast<float*>(atile + 8 * kBox);   // 64 x 64
+  uint64_t* full = reinterpret_cast<uint64_t*>(exch + kTile * kTile);
+  uint64_t* empty = full + kStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(full + s, 1);
+      hopper::mbar_init(empty + s, kCons);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kCons) {
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x != kCons) return;
+    int e = 0;
+    for (int i = i0; i < n_q; ++i) {
+      const int q0 = i * kTile;
+      for (int c = 0; c < kNS; ++c)
+        produce(full, empty, ring, e, 4, [&](unsigned char* st, uint64_t* b) {
+          hopper::tma_load_4d(st, &k_map, b, c * kSl, 0, kv0, bh);
+          hopper::tma_load_4d(st + kBox, &q_map, b, c * kSl, 0, q0, bh);
+          hopper::tma_load_4d(st + 2 * kBox, &v_map, b, c * kSl, 0, kv0, bh);
+          hopper::tma_load_4d(st + 3 * kBox, &do_map, b, c * kSl, 0, q0, bh);
+        });
+      for (int c = cz; c < cz + kNC; ++c)
+        produce(full, empty, ring, e, 2, [&](unsigned char* st, uint64_t* b) {
+          hopper::tma_load_4d(st, &do_map, b, c * kSl, 0, q0, bh);
+          hopper::tma_load_4d(st + kBox, &q_map, b, c * kSl, 0, q0, bh);
+        });
+    }
+    return;
   }
 
+  hopper::setmaxnreg_inc<240>();
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  const int warp = t >> 5, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
+  const int r_a = 16 * warp + gq;             // this thread's tile rows
+  const int krows[2] = {kv0 + r_a, kv0 + r_a + 8};
+  const int32_t seed = g.dropout ? seed_ptr[0] : 0;
+  unsigned char* mybuf = bufs + wg * 4 * kBox;
+  unsigned char* ah = atile + wg * 4 * kBox;  // wg 0: P^T, wg 1: dS^T
+  unsigned char* al = ah + 2 * kBox;
+  const float* stat = (wg == 0 ? lse : delta) + (size_t)bh * g.SQ;
+  float acc[kNC][16];                         // wg 0: dV, wg 1: dK
+#pragma unroll
+  for (int c = 0; c < kNC; ++c)
+#pragma unroll
+    for (int x = 0; x < 16; ++x) acc[c][x] = 0.f;
+
+  int e = 0;
   for (int i = i0; i < n_q; ++i) {
     const int q0 = i * kTile;
-    float st[4][4], dpt[4][4];
+    // this thread's 16 q columns' LSE (log2 units) or Δ
+    float st_c[16];
 #pragma unroll
-    for (int t = 0; t < kChunksW; ++t) {
-      const int col0 = ((z + 1 + t) % kChunksW) * kCw;
-      __syncthreads();                        // the last chunk's readers
-      load_rows<float, kCw, kLd, kThreadsF, AL>(k_s, kb, k0, g.SKV, g.D, tid,
-                                                col0);
-      load_rows<float, kCw, kLd, kThreadsF, AL>(v_s, vb, k0, g.SKV, g.D, tid,
-                                                col0);
-      load_rows<float, kCw, kLd, kThreadsF, AL>(q_s, qb, q0, g.SQ, g.D, tid,
-                                                col0);
-      load_rows<float, kCw, kLd, kThreadsF, AL>(do_s, db, q0, g.SQ, g.D,
-                                                tid, col0);
-      if (t == 0 && tid < kTile) {
-        const int row = q0 + tid;
-        lse_s[tid] = row < g.SQ ? lse_bh[row] * kLog2e : 0.f;
-        dl_s[tid] = row < g.SQ ? delta_bh[row] : 0.f;
-      }
-      cp_async_commit();
-      cp_async_wait_all();
-      __syncthreads();
-      if (t == 0) {
-        dot_tile<kCw, kLd>(st, k_s, q_s, ty, tx);
-        dot_tile<kCw, kLd>(dpt, v_s, do_s, ty, tx);
-      } else {
-        dot_tile<kCw, kLd, true>(st, k_s, q_s, ty, tx);
-        dot_tile<kCw, kLd, true>(dpt, v_s, do_s, ty, tx);
-      }
+    for (int x = 0; x < 16; ++x) {
+      const int q = q0 + 8 * (x >> 1) + 2 * tq + (x & 1);
+      st_c[x] = q < g.SQ ? stat[q] * (wg == 0 ? kLog2e : 1.f) : 0.f;
     }
+    // S^T = K . q^T (wg 0) or dP^T = V . dO^T (wg 1), 64 kv x 64 q
+    float sx[32];
+    contract_width<kNS>(sx, ring, full, empty, mybuf, e, wg, t);
+
     const bool need_mask = q0 + kTile > g.SQ ||
-                           (g.causal && q0 < k0 + ty * 4 + 3);
+                           (g.causal && q0 < kv0 + 16 * warp + 15);
+    auto keep_of = [&](int x) {               // element x's dropout bit
+      const int qpos = q0 + 8 * (x >> 2) + 2 * tq + (x & 1);
+      return keep_elem(seed, bh, qpos, krows[(x >> 1) & 1], g.thresh);
+    };
+    if (wg == 0) {
+      // P^T from the LSE, masked; the undropped P^T to warpgroup 1
 #pragma unroll
-    for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int cq = tx + 16 * jj;
-        const int qpos = q0 + cq;
-        const int kpos = krows[ii];
-        float pt = exp2f(fmaf(st[ii][jj], g.scale_log2, -lse_s[cq]));
-        if (need_mask)
-          pt = (qpos < g.SQ && (!g.causal || qpos >= kpos)) ? pt : 0.f;
-        float ptv = pt, dp = dpt[ii][jj];
-        if (g.dropout) {
-          const bool keep = keep_elem(seed, bh, qpos, kpos, g.thresh);
-          ptv = keep ? pt / g.keep_prob : 0.f;
-          dp = keep ? dp / g.keep_prob : 0.f;
+      for (int x = 0; x < 32; ++x) {
+        float pt = exp2f(fmaf(sx[x], g.scale_log2,
+                              -st_c[2 * (x >> 2) + (x & 1)]));
+        if (need_mask) {
+          const int qpos = q0 + 8 * (x >> 2) + 2 * tq + (x & 1);
+          pt = (qpos < g.SQ && (!g.causal || qpos >= krows[(x >> 1) & 1]))
+                   ? pt : 0.f;
         }
-        pt_s[(ty * 4 + ii) * kPLd + cq] = ptv;
-        ds_s[(ty * 4 + ii) * kPLd + cq] = pt * (dp - dl_s[cq]) * g.scale;
+        sx[x] = pt;
       }
-    __syncthreads();
-    // the tiles now hold chunk z: dV += drop(P^T) . dO, dK += dS^T . q
-    pv_tile<kCw, kLd>(dv, pt_s, do_s, ty, tx);
-    pv_tile<kCw, kLd>(dk, ds_s, q_s, ty, tx);
+      if (i > i0) hopper::named_bar_sync(kBarPFree, kCons);
+#pragma unroll
+      for (int x = 0; x < 32; ++x) exch[x * 128 + t] = sx[x];
+      hopper::named_bar_arrive(kBarPReady, kCons);
+      if (g.dropout) {
+#pragma unroll
+        for (int x = 0; x < 32; ++x)
+          sx[x] = keep_of(x) ? sx[x] / g.keep_prob : 0.f;
+      }
+    } else {
+      // dS^T = P^T (drop(dP^T) - Δ) sm_scale from warpgroup 0's P^T
+      hopper::named_bar_sync(kBarPReady, kCons);
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        float dp = sx[x];
+        if (g.dropout) dp = keep_of(x) ? dp / g.keep_prob : 0.f;
+        sx[x] = exch[x * 128 + t] * (dp - st_c[2 * (x >> 2) + (x & 1)]) *
+                g.scale;
+      }
+      if (i + 1 < n_q) hopper::named_bar_arrive(kBarPFree, kCons);
+    }
+#pragma unroll
+    for (int x = 0; x < 32; x += 2)
+      put_split(ah, al, r_a + 8 * ((x >> 1) & 1), 8 * (x >> 2) + 2 * tq,
+                sx[x], sx[x + 1]);
+    hopper::fence_async_shared();
+    hopper::named_bar_sync(kBarWg + wg, 128);
+    // dV += drop(P^T) . dO (wg 0) or dK += dS^T . q (wg 1)
+    output_chunks<kNC>(acc, ah, al, ring, full, empty, mybuf, e, wg, t);
   }
 
-  const size_t at = (size_t)bh * g.SKV * g.D;
-  store_block<kCw>(dk_out + at, dk, k0 + ty * 4, g.SKV, g.D, tx, z * kCw);
-  store_block<kCw>(dv_out + at, dv, k0 + ty * 4, g.SKV, g.D, tx, z * kCw);
+  store_chunks<kNC>((wg == 0 ? dv_out : dk_out) + (size_t)bh * g.SKV * g.D,
+                    acc, krows, g.SKV, g.D, cz * kSl, tq);
 }
 
-// dQ at 256: one block per (q tile, bh, output chunk)
-template <bool AL>
-__global__ void __launch_bounds__(kThreadsF)
-bhd_dq_f32_wide(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const float* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                const int32_t* __restrict__ seed_ptr,
-                float* __restrict__ dq_out, Geo g) {
-  constexpr int kLd = kCw + 4;
-  constexpr int kTileEl = kTile * kLd;
+// dQ: one block per (64 q rows, bh), over the kv tiles up to the diagonal.
+// Ring entries per kv tile: DP/32 slices {q, k, dO, v} (phase 1), then
+// DP/64 chunk pairs {k chunk c, k chunk c + DP/64} (phase 2: each
+// warpgroup its half of dQ's columns from k^T).
+template <int DP>
+__global__ void __launch_bounds__(tc::kBlock, 1)
+bhd_dq_tc(const __grid_constant__ CUtensorMap q_map,
+          const __grid_constant__ CUtensorMap k_map,
+          const __grid_constant__ CUtensorMap v_map,
+          const __grid_constant__ CUtensorMap do_map,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          const int32_t* __restrict__ seed_ptr, float* __restrict__ dq_out,
+          Geo g) {
+  using namespace tc;
+  constexpr int kNS = DP / kSl, kHalf = kNS / 2;
   const int qt_i = gridDim.x - 1 - blockIdx.x;  // heavy causal tiles first
   const int bh = blockIdx.y;
-  const int z = blockIdx.z;                     // output chunk
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const float* qb = q + (size_t)bh * g.SQ * g.D;
-  const float* db = dout + (size_t)bh * g.SQ * g.D;
-  const float* kb = k + (size_t)bh * g.SKV * g.D;
-  const float* vb = v + (size_t)bh * g.SKV * g.D;
-  const int32_t seed = g.dropout ? seed_ptr[0] : 0;
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* q_s = reinterpret_cast<float*>(smem);   // one column chunk each
-  float* do_s = q_s + kTileEl;
-  float* k_s = do_s + kTileEl;
-  float* v_s = k_s + kTileEl;
-  float* ds_s = v_s + kTileEl;                   // [64][kPLd]
-
   const int q0 = qt_i * kTile;
   const int n_kv = kv_tiles(qt_i, g);
-  float dq[4][kCw / 16], lse_r[4], dl_r[4];
-  int rows[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int c = 0; c < kCw / 16; ++c) dq[i][c] = 0.f;
-    rows[i] = q0 + ty * 4 + i;
-    const bool in = rows[i] < g.SQ;
-    lse_r[i] = in ? lse[(size_t)bh * g.SQ + rows[i]] * kLog2e : 0.f;
-    dl_r[i] = in ? delta[(size_t)bh * g.SQ + rows[i]] : 0.f;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);
+  unsigned char* bufs = ring + kStages * kEntry;   // [wg][2][2 boxes]
+  unsigned char* dsh = bufs + 8 * kBox;            // dS hi (2 boxes)
+  unsigned char* dsl = dsh + 2 * kBox;             // dS lo (2 boxes)
+  float* exch = reinterpret_cast<float*>(dsl + 2 * kBox);     // 64 x 64
+  uint64_t* full = reinterpret_cast<uint64_t*>(exch + kTile * kTile);
+  uint64_t* empty = full + kStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(full + s, 1);
+      hopper::mbar_init(empty + s, kCons);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kCons) {
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x != kCons) return;
+    int e = 0;
+    for (int j = 0; j < n_kv; ++j) {
+      const int k0 = j * kTile;
+      for (int c = 0; c < kNS; ++c)
+        produce(full, empty, ring, e, 4, [&](unsigned char* st, uint64_t* b) {
+          hopper::tma_load_4d(st, &q_map, b, c * kSl, 0, q0, bh);
+          hopper::tma_load_4d(st + kBox, &k_map, b, c * kSl, 0, k0, bh);
+          hopper::tma_load_4d(st + 2 * kBox, &do_map, b, c * kSl, 0, q0, bh);
+          hopper::tma_load_4d(st + 3 * kBox, &v_map, b, c * kSl, 0, k0, bh);
+        });
+      for (int c = 0; c < kHalf; ++c)
+        produce(full, empty, ring, e, 2, [&](unsigned char* st, uint64_t* b) {
+          hopper::tma_load_4d(st, &k_map, b, c * kSl, 0, k0, bh);
+          hopper::tma_load_4d(st + kBox, &k_map, b, (c + kHalf) * kSl, 0, k0,
+                              bh);
+        });
+    }
+    return;
   }
 
+  hopper::setmaxnreg_inc<240>();
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  const int warp = t >> 5, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
+  const int r_a = 16 * warp + gq;
+  const int rows[2] = {q0 + r_a, q0 + r_a + 8};
+  const int32_t seed = g.dropout ? seed_ptr[0] : 0;
+  unsigned char* mybuf = bufs + wg * 4 * kBox;
+  float stat[2];                              // wg 0: LSE (log2), wg 1: Δ
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool in = rows[r] < g.SQ;
+    const size_t at = (size_t)bh * g.SQ + rows[r];
+    stat[r] = !in ? 0.f : wg == 0 ? lse[at] * kLog2e : delta[at];
+  }
+  float acc[kHalf][16];                       // this warpgroup's dQ columns
+#pragma unroll
+  for (int c = 0; c < kHalf; ++c)
+#pragma unroll
+    for (int x = 0; x < 16; ++x) acc[c][x] = 0.f;
+
+  int e = 0;
   for (int j = 0; j < n_kv; ++j) {
     const int k0 = j * kTile;
-    float s[4][4], dp[4][4];
+    // S = q . k^T (wg 0) or dP = dO . v^T (wg 1), 64 q x 64 kv
+    float sx[32];
+    contract_width<kNS>(sx, ring, full, empty, mybuf, e, wg, t);
+    if (wg == 0) {
+      const bool need_mask = k0 + kTile > g.SKV ||
+                             (g.causal && k0 + kTile - 1 > q0 + 16 * warp);
 #pragma unroll
-    for (int t = 0; t < kChunksW; ++t) {
-      const int col0 = ((z + 1 + t) % kChunksW) * kCw;
-      __syncthreads();                        // the last chunk's readers
-      load_rows<float, kCw, kLd, kThreadsF, AL>(q_s, qb, q0, g.SQ, g.D, tid,
-                                                col0);
-      load_rows<float, kCw, kLd, kThreadsF, AL>(do_s, db, q0, g.SQ, g.D,
-                                                tid, col0);
-      load_rows<float, kCw, kLd, kThreadsF, AL>(k_s, kb, k0, g.SKV, g.D, tid,
-                                                col0);
-      load_rows<float, kCw, kLd, kThreadsF, AL>(v_s, vb, k0, g.SKV, g.D, tid,
-                                                col0);
-      cp_async_commit();
-      cp_async_wait_all();
-      __syncthreads();
-      if (t == 0) {
-        dot_tile<kCw, kLd>(s, q_s, k_s, ty, tx);
-        dot_tile<kCw, kLd>(dp, do_s, v_s, ty, tx);
-      } else {
-        dot_tile<kCw, kLd, true>(s, q_s, k_s, ty, tx);
-        dot_tile<kCw, kLd, true>(dp, do_s, v_s, ty, tx);
+      for (int x = 0; x < 32; ++x) {
+        const int r = (x >> 1) & 1;
+        float p = exp2f(fmaf(sx[x], g.scale_log2, -stat[r]));
+        if (need_mask) {
+          const int col = k0 + 8 * (x >> 2) + 2 * tq + (x & 1);
+          p = (col < g.SKV && (!g.causal || col <= rows[r])) ? p : 0.f;
+        }
+        sx[x] = p;
       }
+      if (j > 0) hopper::named_bar_sync(kBarPFree, kCons);
+#pragma unroll
+      for (int x = 0; x < 32; ++x) exch[x * 128 + t] = sx[x];
+      hopper::named_bar_arrive(kBarPReady, kCons);
+      hopper::named_bar_sync(kBarDsReady, kCons);   // dS from warpgroup 1
+    } else {
+      // dS = P (drop(dP) - Δ) sm_scale
+      hopper::named_bar_sync(kBarPReady, kCons);
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const int r = (x >> 1) & 1;
+        float dp = sx[x];
+        if (g.dropout) {
+          const int col = k0 + 8 * (x >> 2) + 2 * tq + (x & 1);
+          dp = keep_elem(seed, bh, rows[r], col, g.thresh) ? dp / g.keep_prob
+                                                           : 0.f;
+        }
+        sx[x] = exch[x * 128 + t] * (dp - stat[r]) * g.scale;
+      }
+      if (j + 1 < n_kv) hopper::named_bar_arrive(kBarPFree, kCons);
+      if (j > 0) hopper::named_bar_sync(kBarDsFree, kCons);
+#pragma unroll
+      for (int x = 0; x < 32; x += 2)
+        tc::put_split(dsh, dsl, r_a + 8 * ((x >> 1) & 1),
+                      8 * (x >> 2) + 2 * tq, sx[x], sx[x + 1]);
+      hopper::fence_async_shared();
+      hopper::named_bar_arrive(kBarDsReady, kCons);
+      hopper::named_bar_sync(kBarWg + 1, 128);
     }
-    const bool need_mask = k0 + kTile > g.SKV ||
-                           (g.causal && k0 + kTile - 1 > q0 + ty * 4);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int col = k0 + tx + 16 * jj;
-        float p = exp2f(fmaf(s[i][jj], g.scale_log2, -lse_r[i]));
-        if (need_mask)
-          p = (col < g.SKV && (!g.causal || col <= rows[i])) ? p : 0.f;
-        float d = dp[i][jj];
-        if (g.dropout)
-          d = keep_elem(seed, bh, rows[i], col, g.thresh) ? d / g.keep_prob
-                                                          : 0.f;
-        ds_s[(ty * 4 + i) * kPLd + tx + 16 * jj] = p * (d - dl_r[i]) * g.scale;
-      }
-    __syncthreads();
-    pv_tile<kCw, kLd>(dq, ds_s, k_s, ty, tx);   // dQ += dS . K, chunk z
+    // dQ[:, this warpgroup's half] += dS . k
+    output_chunks<kHalf>(acc, dsh, dsl, ring, full, empty, mybuf, e, wg, t);
+    if (wg == 0 && j + 1 < n_kv) hopper::named_bar_arrive(kBarDsFree, kCons);
   }
 
-  store_block<kCw>(dq_out + (size_t)bh * g.SQ * g.D, dq, q0 + ty * 4, g.SQ,
-                   g.D, tx, z * kCw);
+  store_chunks<kHalf>(dq_out + (size_t)bh * g.SQ * g.D, acc, rows, g.SQ, g.D,
+                      wg * (DP / 2), tq);
 }
 
 // ===========================================================================
@@ -1300,11 +1380,13 @@ bhd_dq_f32_wide(const float* __restrict__ q, const float* __restrict__ k,
 // ===========================================================================
 
 #if !defined(FLASH_DP) || !defined(FLASH_F32)
-#error "build once per padded head width and family: -DFLASH_DP=64, 128 \
-or 256 and -DFLASH_F32=1 (f32) or 0 (bf16/f16)"
+#error "build once per padded head width and family: -DFLASH_DP=64, 128, \
+256 or 0 (every wider head: the column-chunked kernels) and -DFLASH_F32=1 \
+(f32) or 0 (bf16/f16)"
 #endif
 constexpr int kDP = FLASH_DP;                 // this library's width
-static_assert(kDP == 64 || kDP == 128 || kDP == 256, "FLASH_DP");
+static_assert(kDP == 0 || kDP == 64 || kDP == 128 || kDP == 256,
+              "FLASH_DP");
 constexpr bool kF32 = FLASH_F32 != 0;         // this library's family
 
 template <typename T, int DP> constexpr size_t mma_tile() {
@@ -1314,11 +1396,8 @@ template <int DP> constexpr size_t f32_tile() {
   return (size_t)kTile * (DP + 4) * sizeof(float);
 }
 constexpr size_t kPTile = (size_t)kTile * kPLd * sizeof(float);
-// The f32 kernels double-buffer their streamed tiles where shared memory
-// allows it; at 256, dK/dV and dQ run the wide (column-chunked) kernels.
+// The f32 forward double-buffers its kv tiles where shared memory allows.
 template <int DP> constexpr int fwd_stages() { return DP <= 128 ? 2 : 1; }
-template <int DP> constexpr int dkdv_stages() { return DP <= 64 ? 2 : 1; }
-constexpr bool kWideF32 = kDP > 128;
 
 template <typename KernelT, typename... Args>
 int launch(KernelT kernel, dim3 grid, int threads, size_t smem,
@@ -1375,62 +1454,97 @@ int fwd_f32(const Ptrs& a, const Geo& g, cudaStream_t st) {
                 static_cast<float*>(a.lse),
                 static_cast<const int32_t*>(a.seed), g);
 }
+// The TMA maps of q, k, v and dO as (BH, S, 1, D) f32 tensors.
+int tc_maps(CUtensorMap* m, const Ptrs& a, const Geo& g) {
+  const void* base[4] = {a.q, a.k, a.v, a.dout};
+  const int rows[4] = {g.SQ, g.SKV, g.SKV, g.SQ};
+  for (int i = 0; i < 4; ++i) {
+    const int err =
+        hopper::make_map_bshd<float>(m + i, base[i], a.BH, rows[i], 1, g.D);
+    if (err) return err;
+  }
+  return 0;
+}
+
+// The column-chunked kernels' arguments for (BH, S, D) tensors.
+wide::Args wide_args(const Ptrs& a, const Geo& g) {
+  wide::Args w = {};
+  w.q = a.q;
+  w.k = a.k;
+  w.v = a.v;
+  w.dout = a.dout;
+  w.lse_in = static_cast<const float*>(a.lse_in);
+  w.delta = static_cast<const float*>(a.delta);
+  w.seed = static_cast<const int32_t*>(a.seed);
+  w.out = a.out;
+  w.dq = a.dq;
+  w.dk = a.dk;
+  w.dv = a.dv;
+  w.lse = static_cast<float*>(a.lse);
+  w.lq = {(long long)g.SQ * g.D, 0, g.D};
+  w.lkv = {(long long)g.SKV * g.D, 0, g.D};
+  w.lo = w.lq;
+  w.heads = 1;
+  w.BH = a.BH;
+  w.SQ = g.SQ;
+  w.SKV = g.SKV;
+  w.D = g.D;
+  w.causal = g.causal;
+  w.scale = g.scale;
+  w.dropout = g.dropout;
+  w.keep_prob = g.keep_prob;
+  w.thresh = g.thresh;
+  return w;
+}
+
+// f32 dK/dV and dQ: rows TMA can address (D % 4 == 0, AL) run the 3xTF32
+// tensor-core kernels; other widths the column-chunked CUDA-core kernels.
 template <bool AL>
 int dkdv_f32(const Ptrs& a, const Geo& g, cudaStream_t st) {
-  const float *q = static_cast<const float*>(a.q),
-              *k = static_cast<const float*>(a.k),
-              *v = static_cast<const float*>(a.v),
-              *d = static_cast<const float*>(a.dout),
-              *l = static_cast<const float*>(a.lse_in),
-              *dl = static_cast<const float*>(a.delta);
-  const int32_t* seed = static_cast<const int32_t*>(a.seed);
-  float *dk = static_cast<float*>(a.dk), *dv = static_cast<float*>(a.dv);
-  if constexpr (kWideF32) {
-    return launch(bhd_dkdv_f32_wide<AL>,
-                  dim3(tiles(g.SKV), a.BH, kChunksW), kThreadsF,
-                  4 * f32_tile<kCw>() + 2 * kPTile +
-                      2 * kTile * sizeof(float),
-                  st, q, k, v, d, l, dl, seed, dk, dv, g);
+  if constexpr (AL) {
+    CUtensorMap m[4];
+    const int err = tc_maps(m, a, g);
+    if (err) return err;
+    return launch(bhd_dkdv_tc<kDP>,
+                  dim3(tiles(g.SKV) * tc_dkdv_split<kDP>(), a.BH), tc::kBlock,
+                  tc::kSmemDkdv, st, m[0], m[1], m[2], m[3],
+                  static_cast<const float*>(a.lse_in),
+                  static_cast<const float*>(a.delta),
+                  static_cast<const int32_t*>(a.seed),
+                  static_cast<float*>(a.dk), static_cast<float*>(a.dv), g);
   } else {
-    constexpr int S = dkdv_stages<kDP>();
-    return launch(bhd_dkdv_f32<kDP, S, AL>, dim3(tiles(g.SKV), a.BH),
-                  kThreadsF,
-                  (2 + 2 * S) * f32_tile<kDP>() + 2 * kPTile +
-                      2 * S * kTile * sizeof(float),
-                  st, q, k, v, d, l, dl, seed, dk, dv, g);
+    return wide::launch_dkdv<float, false>(wide_args(a, g), st);
   }
 }
 template <bool AL>
 int dq_f32(const Ptrs& a, const Geo& g, cudaStream_t st) {
-  const float *q = static_cast<const float*>(a.q),
-              *k = static_cast<const float*>(a.k),
-              *v = static_cast<const float*>(a.v),
-              *d = static_cast<const float*>(a.dout),
-              *l = static_cast<const float*>(a.lse_in),
-              *dl = static_cast<const float*>(a.delta);
-  const int32_t* seed = static_cast<const int32_t*>(a.seed);
-  float* dq = static_cast<float*>(a.dq);
-  if constexpr (kWideF32) {
-    return launch(bhd_dq_f32_wide<AL>, dim3(tiles(g.SQ), a.BH, kChunksW),
-                  kThreadsF, 4 * f32_tile<kCw>() + kPTile, st, q, k, v, d, l,
-                  dl, seed, dq, g);
+  if constexpr (AL) {
+    CUtensorMap m[4];
+    const int err = tc_maps(m, a, g);
+    if (err) return err;
+    return launch(bhd_dq_tc<kDP>, dim3(tiles(g.SQ), a.BH), tc::kBlock,
+                  tc::kSmemDq, st, m[0], m[1], m[2], m[3],
+                  static_cast<const float*>(a.lse_in),
+                  static_cast<const float*>(a.delta),
+                  static_cast<const int32_t*>(a.seed),
+                  static_cast<float*>(a.dq), g);
   } else {
-    return launch(bhd_dq_f32<kDP, AL>, dim3(tiles(g.SQ), a.BH), kThreadsF,
-                  6 * f32_tile<kDP>() + kPTile, st, q, k, v, d, l, dl, seed,
-                  dq, g);
+    return wide::launch_dq<float, false>(wide_args(a, g), st);
   }
 }
 
 // One kernel, dispatched by dtype (0 f32, 1 bf16, 2 f16) and by whether
 // every row is 16-byte aligned.  This library takes its padded width
-// kDP's D in (kDP/2, kDP] (from 1 at 64) and its family's dtypes: f32
-// (kF32), or bf16 and f16.  (Two families a width, so that their
-// instances compile in parallel.)
+// kDP's D in (kDP/2, kDP] (from 1 at 64; any D in the column-chunked
+// library, kDP 0, which the wrapper uses past 256) and its family's
+// dtypes: f32 (kF32), or bf16 and f16.  (Two families a width, so that
+// their instances compile in parallel.)
 template <template <typename, bool> class F>
 int dispatch(int dtype, const Ptrs& a, const Geo& g, void* stream) {
   const int lo = kDP == 64 ? 1 : kDP / 2 + 1;
   if (dtype < 0 || dtype > 2 || (dtype == 0) != kF32 || a.BH < 1 ||
-      a.BH > 65535 || g.SQ < 1 || g.SKV < 1 || g.D < lo || g.D > kDP)
+      a.BH > 65535 || g.SQ < 1 || g.SKV < 1 || g.D < 1 ||
+      (kDP > 0 && (g.D < lo || g.D > kDP)))
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool al = (g.D * (kF32 ? 4 : 2)) % 16 == 0;
@@ -1445,11 +1559,14 @@ int dispatch(int dtype, const Ptrs& a, const Geo& g, void* stream) {
   }
 }
 
-// The three families as dispatch's F: the f32 instances on the CUDA cores,
-// the bf16/f16 ones on mma.sync.
+// The three kernels as dispatch's F: past 256 the column-chunked ones;
+// else the f32 forward on the CUDA cores and the f32 backward on the
+// tensor cores (3xTF32), the bf16/f16 instances on mma.sync.
 template <typename T, bool AL> struct Fwd {
   static int run(const Ptrs& a, const Geo& g, cudaStream_t st) {
-    if constexpr (std::is_same<T, float>::value)
+    if constexpr (kDP == 0)
+      return wide::launch_fwd<T, false>(wide_args(a, g), st);
+    else if constexpr (std::is_same<T, float>::value)
       return fwd_f32<AL>(a, g, st);
     else
       return fwd_mma<T, AL>(a, g, st);
@@ -1457,7 +1574,9 @@ template <typename T, bool AL> struct Fwd {
 };
 template <typename T, bool AL> struct Dkdv {
   static int run(const Ptrs& a, const Geo& g, cudaStream_t st) {
-    if constexpr (std::is_same<T, float>::value)
+    if constexpr (kDP == 0)
+      return wide::launch_dkdv<T, false>(wide_args(a, g), st);
+    else if constexpr (std::is_same<T, float>::value)
       return dkdv_f32<AL>(a, g, st);
     else
       return dkdv_mma<T, AL>(a, g, st);
@@ -1465,7 +1584,9 @@ template <typename T, bool AL> struct Dkdv {
 };
 template <typename T, bool AL> struct Dq {
   static int run(const Ptrs& a, const Geo& g, cudaStream_t st) {
-    if constexpr (std::is_same<T, float>::value)
+    if constexpr (kDP == 0)
+      return wide::launch_dq<T, false>(wide_args(a, g), st);
+    else if constexpr (std::is_same<T, float>::value)
       return dq_f32<AL>(a, g, st);
     else
       return dq_mma<T, AL>(a, g, st);

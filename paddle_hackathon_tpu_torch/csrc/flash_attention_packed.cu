@@ -76,7 +76,11 @@
 //     S^T/dP^T (S/dP) and each keeps half of the output columns, 128 f32
 //     accumulators of dK and dV a thread.  The forward at 256 keeps its
 //     128-row block with two stages (64 + 2 x 64 KB) and 128 accumulators
-//     of O a thread.  Each width is its own library (-DFLASH_DP).
+//     of O a thread.  Each width is its own library (-DFLASH_DP).  Past
+//     256 (D a multiple of 8, as far as the JAX plan goes) the library
+//     built with -DFLASH_DP=0 runs the column-chunked CUDA-core kernels of
+//     flash_wide.cuh on the packed layout, the chunk count fixed at run
+//     time.
 //   * the elementwise pass is one straight-line block per variant (mask,
 //     dropout as template flags) with 2^x on the SFU: a branch per score
 //     keeps the 32 exponentials of a thread from overlapping.
@@ -109,6 +113,7 @@
 // not take; the Python wrapper raises on anything but 0.
 
 #include "flash_common.cuh"
+#include "flash_wide.cuh"
 #include "hopper_common.cuh"
 
 namespace {
@@ -123,10 +128,12 @@ struct Geo {
 };
 
 #ifndef FLASH_DP
-#error "build once per padded head width: -DFLASH_DP=64, 128 or 256"
+#error "build once per padded head width: -DFLASH_DP=64, 128, 256 or 0 \
+(every wider head: the column-chunked kernels of flash_wide.cuh)"
 #endif
 constexpr int kDP = FLASH_DP;                 // this library's width
-static_assert(kDP == 64 || kDP == 128 || kDP == 256, "FLASH_DP");
+static_assert(kDP == 0 || kDP == 64 || kDP == 128 || kDP == 256,
+              "FLASH_DP");
 
 // ---------------------------------------------------------------------------
 // Block shapes, shared-memory layouts and common device pieces.
@@ -1062,11 +1069,55 @@ flash_packed_dq_kernel(const __grid_constant__ CUtensorMap qkv_map,
 // ---------------------------------------------------------------------------
 
 // Dynamic shared memory of each kernel (0 fwd, 1 dK/dV, 2 dQ), with the
-// 1024 bytes that align it.
+// 1024 bytes that align the TMA tiles.
 size_t smem_bytes(int kernel) {
-  return 1024 + (kernel == 0   ? FwdSmem<kDP>::kBytes
-                 : kernel == 1 ? DkdvSmem<kDP>::kBytes
-                               : DqSmem<kDP>::kBytes);
+  if constexpr (kDP == 0)
+    return kernel == 0 ? wide::kSmemFwd
+                       : kernel == 1 ? wide::kSmemDkdv : wide::kSmemDq;
+  else
+    return 1024 + (kernel == 0   ? FwdSmem<kDP>::kBytes
+                   : kernel == 1 ? DkdvSmem<kDP>::kBytes
+                                 : DqSmem<kDP>::kBytes);
+}
+
+// The column-chunked kernels' arguments for the packed layout: q, k and v
+// at column offsets 0, H*D and 2*H*D of qkv's rows (3*H*D elements), O and
+// dO rows of H*D; dq, dk, dv the same slices of dqkv.  They round q *
+// sm_scale (and k * sm_scale for dQ) to T in every case, which is what
+// the folded path computes where it folds.
+template <typename T>
+wide::Args packed_args(const void* qkv, const void* dout, const void* lse,
+                       const void* delta, const void* seed, void* out,
+                       void* lse_out, void* dqkv, int B, const Geo& g) {
+  const long long hd = (long long)g.H * g.D;
+  wide::Args w = {};
+  const T* x = static_cast<const T*>(qkv);
+  w.q = x;
+  w.k = x + hd;
+  w.v = x + 2 * hd;
+  w.dout = dout;
+  w.lse_in = static_cast<const float*>(lse);
+  w.delta = static_cast<const float*>(delta);
+  w.seed = static_cast<const int32_t*>(seed);
+  w.out = out;
+  w.lse = static_cast<float*>(lse_out);
+  T* dx = static_cast<T*>(dqkv);
+  w.dq = dx;
+  w.dk = dx == nullptr ? nullptr : dx + hd;
+  w.dv = dx == nullptr ? nullptr : dx + 2 * hd;
+  w.lq = {3 * hd * g.S, g.D, 3 * hd};
+  w.lkv = w.lq;
+  w.lo = {hd * g.S, g.D, hd};
+  w.heads = g.H;
+  w.BH = B * g.H;
+  w.SQ = w.SKV = g.S;
+  w.D = g.D;
+  w.causal = g.causal;
+  w.scale = g.scale;
+  w.dropout = g.dropout;
+  w.keep_prob = g.keep_prob;
+  w.thresh = g.thresh;
+  return w;
 }
 
 // One block per (rows, head, batch) in the order of block_coords.
@@ -1076,8 +1127,8 @@ long long grid_blocks(int rows, int B, const Geo& g) {
 
 // The forward is persistent: at most one block per SM.
 template <typename T>
-int launch_fwd(const void* qkv, void* out, void* lse, const void* seed,
-               int B, const Geo& g, int fold, cudaStream_t st) {
+int launch_fwd_tma(const void* qkv, void* out, void* lse, const void* seed,
+                   int B, const Geo& g, int fold, cudaStream_t st) {
   const long long items = grid_blocks(128, B, g);
   if (items > 0x7FFFFFFFLL) return -1;
   int dev = 0, sms = 0;
@@ -1102,9 +1153,10 @@ int launch_fwd(const void* qkv, void* out, void* lse, const void* seed,
 // One launcher for both backward kernels (they share a signature): the
 // tensor maps of qkv as (B, S, 3H, D) and dO as (B, S, H, D).
 template <typename T>
-int launch_bwd(bool dkdv, const void* qkv, const void* dout, const void* lse,
-               const void* delta, const void* seed, void* dqkv, int B,
-               const Geo& g, int fold, cudaStream_t st) {
+int launch_bwd_tma(bool dkdv, const void* qkv, const void* dout,
+                   const void* lse, const void* delta, const void* seed,
+                   void* dqkv, int B, const Geo& g, int fold,
+                   cudaStream_t st) {
   const long long blocks = grid_blocks(Shape<kDP>::kBwdRows, B, g);
   if (blocks > 0x7FFFFFFFLL) return -1;
   CUtensorMap qkv_map, do_map;
@@ -1124,13 +1176,42 @@ int launch_bwd(bool dkdv, const void* qkv, const void* dout, const void* lse,
   return (int)cudaGetLastError();
 }
 
+// This library's kernels: the TMA / wgmma ones of its width, or (kDP 0)
+// the column-chunked ones.
+template <typename T>
+int launch_fwd(const void* qkv, void* out, void* lse, const void* seed,
+               int B, const Geo& g, int fold, cudaStream_t st) {
+  if constexpr (kDP == 0)
+    return wide::launch_fwd<T, true>(
+        packed_args<T>(qkv, nullptr, nullptr, nullptr, seed, out, lse,
+                       nullptr, B, g),
+        st);
+  else
+    return launch_fwd_tma<T>(qkv, out, lse, seed, B, g, fold, st);
+}
+template <typename T>
+int launch_bwd(bool dkdv, const void* qkv, const void* dout, const void* lse,
+               const void* delta, const void* seed, void* dqkv, int B,
+               const Geo& g, int fold, cudaStream_t st) {
+  if constexpr (kDP == 0) {
+    const wide::Args w = packed_args<T>(qkv, dout, lse, delta, seed, nullptr,
+                                        nullptr, dqkv, B, g);
+    return dkdv ? wide::launch_dkdv<T, true>(w, st)
+                : wide::launch_dq<T, true>(w, st);
+  } else {
+    return launch_bwd_tma<T>(dkdv, qkv, dout, lse, delta, seed, dqkv, B, g,
+                             fold, st);
+  }
+}
+
 // The widths this library takes: D a multiple of 8 in (kDP/2, kDP] (from
-// 8 at 64).
+// 8 at 64; any multiple of 8 in the column-chunked library, kDP 0, which
+// the wrapper uses past 256).
 bool geometry_ok(int dtype, int B, const Geo& g) {
   const int lo = kDP == 64 ? 8 : kDP / 2 + 8;
+  const bool width = kDP == 0 ? g.D >= 8 : g.D >= lo && g.D <= kDP;
   return (dtype == 1 || dtype == 2) && B >= 1 && g.S >= 1 && g.H >= 1 &&
-         g.D >= lo && g.D <= kDP && g.D % 8 == 0 && B <= 65535 &&
-         g.H <= 65535;
+         width && g.D % 8 == 0 && B <= 65535 && g.H <= 65535;
 }
 
 Geo make_geo(int S, int H, int D, int causal, float scale, int dropout,

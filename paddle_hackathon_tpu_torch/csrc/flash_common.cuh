@@ -26,6 +26,7 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_f(float x) { return x; }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ __nv_bfloat16
@@ -34,6 +35,9 @@ from_f<__nv_bfloat16>(float x) {
 }
 template <> __device__ __forceinline__ __half from_f<__half>(float x) {
   return __float2half(x);
+}
+template <> __device__ __forceinline__ float from_f<float>(float x) {
+  return x;
 }
 
 // round to T and back: the value the JAX kernel holds after .astype(T)

@@ -69,21 +69,26 @@ template <> constexpr CUtensorMapDataType map_type<__nv_bfloat16>() {
 template <> constexpr CUtensorMapDataType map_type<__half>() {
   return CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
 }
+template <> constexpr CUtensorMapDataType map_type<float>() {
+  return CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+}
 
-// A map of a row-major (B, S, heads, D) tensor of 2-byte T whose box is
-// {64 columns, 1 head, 64 rows, 1 batch} under 128-byte swizzle.  Columns
-// past D and rows past S arrive as zeros.  D % 8 == 0 keeps every stride a
-// multiple of 16 bytes.  Returns 0, or a negative code.
+// A map of a row-major (B, S, heads, D) tensor of T whose box is {128
+// bytes of columns (64 of a 2-byte T, 32 of f32), 1 head, 64 rows, 1
+// batch} under 128-byte swizzle.  Columns past D and rows past S arrive
+// as zeros.  D * sizeof(T) % 16 == 0 keeps every stride a multiple of 16
+// bytes.  Returns 0, or a negative code.
 template <typename T>
 int make_map_bshd(CUtensorMap* map, const void* base, int B, int S,
                   int heads, int D) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return -2;
+  constexpr cuuint64_t kE = sizeof(T);
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
                               (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t row = (cuuint64_t)heads * D * 2;
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, row, row * S};
-  const cuuint32_t box[4] = {64, 1, kSubRows, 1};
+  const cuuint64_t row = (cuuint64_t)heads * D * kE;
+  const cuuint64_t strides[3] = {(cuuint64_t)D * kE, row, row * S};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / kE), 1, kSubRows, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   CUresult r = encode(map, map_type<T>(), 4, const_cast<void*>(base), dims,
                       strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -170,6 +175,12 @@ __device__ __forceinline__ void fence_async_shared() {
 __device__ __forceinline__ void named_bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
+// counts toward barrier `id` without waiting: the producer side of a
+// named-barrier handshake (its prior shared-memory writes are performed
+// for the threads that sync on it)
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
 
 template <int N> __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
@@ -205,10 +216,11 @@ template <int N> __device__ __forceinline__ void wgmma_wait() {
 }
 
 // keeps the compiler from moving accumulator reads or writes across the
-// asynchronous window of a wgmma
+// asynchronous window of a wgmma (N floats: 32 for n64, 16 for n32)
+template <int N = 32>
 __device__ __forceinline__ void fence_acc(float* d) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 #define HOPPER_ACC32                                                       \
@@ -273,6 +285,47 @@ HOPPER_WGMMA_RS(__half, "f16")
 
 #undef HOPPER_WGMMA_SS
 #undef HOPPER_WGMMA_RS
+
+// x rounded to tf32 (10-bit mantissa) to nearest, ties away from zero: the
+// "hi" part of the 3xTF32 split (the tensor core itself would truncate).
+// Half a tf32 ulp added to the bits, then the 13 low bits cleared: for
+// finite x the same bits as cvt.rna.tf32.f32, in two integer operations
+// where the conversion issues at the conversion unit's lower rate.
+__device__ __forceinline__ float tf32_rna(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
+}
+
+// d[64 x 64] (+)= A[64 x 8] . B[8 x 64] in tf32, A and B K-major in shared
+// memory (B given as its 64 x 8 transpose; 8 f32 = 32 bytes of a swizzled
+// row).  acc = 0 overwrites d.  Accumulator layout as wgmma_ss.
+__device__ __forceinline__ void wgmma_tf32_n64(float* d, uint64_t a,
+                                               uint64_t b, int acc) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+               HOPPER_ACC32 ", %32, %33, p, 1, 1;\n}\n"
+               : HOPPER_ACC32_OPS(d)
+               : "l"(a), "l"(b), "r"(acc));
+}
+
+#define HOPPER_ACC16                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define HOPPER_ACC16_OPS(d)                                                 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+
+// the same with N = 32: d[64 x 32], columns 8i + 2(l%4) + {0,1}, i < 4
+__device__ __forceinline__ void wgmma_tf32_n32(float* d, uint64_t a,
+                                               uint64_t b, int acc) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+               HOPPER_ACC16 ", %16, %17, p, 1, 1;\n}\n"
+               : HOPPER_ACC16_OPS(d)
+               : "l"(a), "l"(b), "r"(acc));
+}
+
+#undef HOPPER_ACC16_OPS
+#undef HOPPER_ACC16
 #undef HOPPER_ACC32_OPS
 #undef HOPPER_ACC32
 

@@ -20,9 +20,10 @@
 // change's work (a CUDA graph over the decode step, or fusing the layer).
 //
 // Design (simple and right first):
-//   * grid (H, B, query tiles): one block of 8 warps per (slot, head, up
-//     to kMaxTileBlocks tiles of QT = 16 query rows), so a prefill chunk
-//     of 128 rows runs 8 blocks where a decode step runs one.  The block
+//   * grid (H x output slices, B, query tiles): one block of 8 warps per
+//     (slot, head, output slice, up to kMaxTileBlocks tiles of QT = 16
+//     query rows), so a prefill chunk of 128 rows runs 8 blocks where a
+//     decode step runs one.  The block
 //     reads its own page ids; there is no scalar prefetch.
 //   * for each of its query tiles the block walks the slot's logical rows
 //     t <= min(T - 1, lengths[b] + last row of the tile) in stages of 64
@@ -36,7 +37,9 @@
 //     a template flag swaps them for element loads.
 //   * any width s (the query tiles loop), any page size P (a stage's rows
 //     find their pages one by one, so a page longer than a stage is read
-//     in parts) and any D up to 256.
+//     in parts) and any D: past 256 in slices of 256 columns, the scores
+//     summed over the slices and each block keeping one output slice (one
+//     slice, and the same work as without the loop, up to 256).
 //   * scores: one warp per key row, lanes split D, shuffle reduction.
 //     Online softmax in f32, one warp per query row, masked rows at -1e30
 //     as in the JAX kernel.  The accumulator is f32 in registers, one
@@ -56,7 +59,8 @@
 // slot), the slot's logical K/V rows gathered through the table 64 at a
 // time with cp.async (double-buffered), scores and softmax in f32, P
 // rounded to the input type before P.V.  The scalar kernel's per-key warp
-// reductions made a 128-row chunk slower than the plain version.
+// reductions made a 128-row chunk slower than the plain version.  Past
+// 256 a sliced copy of it (128-column slices) takes those widths.
 //
 // The C entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() (0 on success); the Python wrapper raises
@@ -78,11 +82,6 @@ constexpr int kMaxD = 256;
 constexpr int kMaxDPerLane = kMaxD / 32;          // 8
 constexpr int kMaxAccPerThread = kQTile * kMaxD / kThreadsS;  // 16
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -98,7 +97,15 @@ __device__ __forceinline__ float warp_max(float v) {
 
 // VEC: rows are 16-byte aligned (D * sizeof(T) % 16 == 0) and move as
 // 16-byte vectors; else element by element.
-template <typename T, bool VEC>
+//
+// SLICED (D > kMaxD): the width runs in slices of W = kMaxD columns: the
+// scores sum the slices' dot products (q and K staged a slice at a time),
+// and each block keeps one slice of the output, the slice index folded
+// into grid.x, so the scores are recomputed per output slice.  Else one
+// slice of W = D columns: q is staged once per tile, K and V rows
+// together, and the instance compiles to the work of a kernel without the
+// slice loop.
+template <typename T, bool VEC, bool SLICED>
 __global__ void __launch_bounds__(kThreadsS)
 paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                        const T* __restrict__ v_pool,
@@ -106,19 +113,22 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                        const int32_t* __restrict__ lengths,
                        T* __restrict__ out, int s, int H, int D, int N, int P,
                        int maxp, float scale) {
-  const int h = blockIdx.x;
+  const int W = SLICED ? kMaxD : D;              // slice width
+  const int nc = SLICED ? (D + kMaxD - 1) / kMaxD : 1;   // slices
+  const int h = blockIdx.x / nc, oc = blockIdx.x - h * nc;
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
 
   // shared layout: K and V stage rows (T, 16-byte aligned rows), query
-  // tile, scores/probabilities, then the per-row softmax state (all f32)
+  // tile, scores/probabilities, then the per-row softmax state (all f32);
+  // rows of W columns
   extern __shared__ __align__(16) unsigned char smem[];
   T* k_s = reinterpret_cast<T*>(smem);
-  T* v_s = k_s + kRows * D;
-  float* q_s = reinterpret_cast<float*>(v_s + kRows * D);
-  float* p_s = q_s + kQTile * D;
+  T* v_s = k_s + kRows * W;
+  float* q_s = reinterpret_cast<float*>(v_s + kRows * W);
+  float* p_s = q_s + kQTile * W;
   float* m_s = p_s + kQTile * kRows;
   float* l_s = m_s + kQTile;
   float* a_s = l_s + kQTile;
@@ -128,16 +138,48 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   const long long T_rows = (long long)maxp * P;   // logical rows in a table
   const size_t row_stride = (size_t)H * D;        // elements between rows
   const int vec = 16 / sizeof(T);                 // elements per 16 B
-  const int vec_per_row = D / vec;
+  const int per_row = VEC ? W / vec : W;          // loads per staged row
+
+  // query tile slice c0 -> f32 shared (columns past D are zero)
+  auto stage_q = [&](int i0, int qt, int c0) {
+    for (int e = tid; e < qt * W; e += kThreadsS) {
+      const int i = e / W, c = e - i * W;
+      q_s[e] = !SLICED || c0 + c < D
+                   ? to_f(q[((size_t)(b * s + i0 + i) * H + h) * D + c0 + c])
+                   : 0.f;
+    }
+  };
+  // one staged element (or 16-byte vector): src, or zero past column D
+  auto put = [&](T* dst, const T* src, bool in) {
+    if (VEC)
+      *reinterpret_cast<uint4*>(dst) =
+          in ? *reinterpret_cast<const uint4*>(src) : make_uint4(0, 0, 0, 0);
+    else
+      *dst = in ? *src : from_f<T>(0.f);
+  };
+  // logical rows t0..t0+nr-1 of the pools: K's columns kc.. into k_s and
+  // V's columns vc.. into v_s, in one pass over the rows (a negative
+  // column skips that pool)
+  auto stage_kv = [&](int t0, int nr, int kc, int vc) {
+    for (int e = tid; e < nr * per_row; e += kThreadsS) {
+      const int r = e / per_row, c = (e - r * per_row) * (VEC ? vec : 1);
+      const int t = t0 + r;
+      int page = pt_row[t / P];
+      page = min(max(page, 0), N - 1);           // never read off the pool
+      const size_t g = ((size_t)page * P + t % P) * row_stride +
+                       (size_t)h * D + c;
+      if (kc >= 0)
+        put(k_s + r * W + c, k_pool + g + kc, !SLICED || kc + c < D);
+      if (vc >= 0)
+        put(v_s + r * W + c, v_pool + g + vc, !SLICED || vc + c < D);
+    }
+  };
 
   for (int i0 = blockIdx.z * kQTile; i0 < s; i0 += gridDim.z * kQTile) {
     const int qt = min(kQTile, s - i0);
 
-    // query tile -> f32 shared; fresh softmax state and accumulator
-    for (int e = tid; e < qt * D; e += kThreadsS) {
-      const int i = e / D, d = e - i * D;
-      q_s[e] = to_f(q[((size_t)(b * s + i0 + i) * H + h) * D + d]);
-    }
+    // fresh softmax state and accumulator; one slice: q staged once
+    if (nc == 1) stage_q(i0, qt, 0);
     if (tid < kQTile) {
       m_s[tid] = kNegInf;
       l_s[tid] = 0.f;
@@ -151,47 +193,37 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 
     for (int t0 = 0; t0 <= t_last; t0 += kRows) {
       const int nr = min(kRows, t_last - t0 + 1);
-      __syncthreads();   // the previous stage's readers are done
-      const int per_row = VEC ? vec_per_row : D;
-      for (int e = tid; e < nr * per_row; e += kThreadsS) {
-        const int r = e / per_row, c = (e - r * per_row) * (VEC ? vec : 1);
-        const int t = t0 + r;
-        int page = pt_row[t / P];
-        page = min(max(page, 0), N - 1);           // never read off the pool
-        const size_t g = ((size_t)page * P + t % P) * row_stride +
-                         (size_t)h * D + c;
-        if (VEC) {
-          *reinterpret_cast<uint4*>(k_s + r * D + c) =
-              *reinterpret_cast<const uint4*>(k_pool + g);
-          *reinterpret_cast<uint4*>(v_s + r * D + c) =
-              *reinterpret_cast<const uint4*>(v_pool + g);
-        } else {
-          k_s[r * D + c] = k_pool[g];
-          v_s[r * D + c] = v_pool[g];
-        }
-      }
-      __syncthreads();
-
-      // scores: warp per key row, lanes over d
-      for (int r = warp; r < nr; r += kWarpsS) {
-        float kr[kMaxDPerLane];
-#pragma unroll
-        for (int k = 0; k < kMaxDPerLane; ++k) {
-          const int d = lane + 32 * k;
-          kr[k] = d < D ? to_f(k_s[r * D + d]) : 0.f;
-        }
-        const int kpos = t0 + r;
-        for (int i = 0; i < qt; ++i) {
-          float part = 0.f;
+      // scores: warp per key row, lanes over d; the slices' dot products
+      // summed into p_s, scaled and masked with the last slice
+      for (int sl = 0; sl < nc; ++sl) {
+        const int c0 = sl * W;
+        __syncthreads();   // the previous readers are done
+        if (nc > 1) stage_q(i0, qt, c0);
+        stage_kv(t0, nr, c0, nc == 1 ? 0 : -1);
+        __syncthreads();
+        for (int r = warp; r < nr; r += kWarpsS) {
+          float kr[kMaxDPerLane];
 #pragma unroll
           for (int k = 0; k < kMaxDPerLane; ++k) {
             const int d = lane + 32 * k;
-            if (d < D) part += q_s[i * D + d] * kr[k];
+            kr[k] = d < W ? to_f(k_s[r * W + d]) : 0.f;
           }
-          part = warp_sum(part);
-          if (lane == 0)
-            p_s[i * kRows + r] =
-                (kpos <= len + i0 + i) ? part * scale : kNegInf;
+          const int kpos = t0 + r;
+          for (int i = 0; i < qt; ++i) {
+            float part = 0.f;
+#pragma unroll
+            for (int k = 0; k < kMaxDPerLane; ++k) {
+              const int d = lane + 32 * k;
+              if (d < W) part += q_s[i * W + d] * kr[k];
+            }
+            part = warp_sum(part);
+            if (lane == 0) {
+              float x = sl == 0 ? part : p_s[i * kRows + r] + part;
+              if (sl == nc - 1)
+                x = (kpos <= len + i0 + i) ? x * scale : kNegInf;
+              p_s[i * kRows + r] = x;
+            }
+          }
         }
       }
       __syncthreads();
@@ -217,17 +249,19 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
           m_s[i] = m_next;
         }
       }
+      // this block's output slice of the stage's V rows
+      if (nc > 1) stage_kv(t0, nr, -1, oc * W);
       __syncthreads();
 
       // acc[i, d] = acc * alpha_i + sum_r p[i, r] * v[r, d]
 #pragma unroll
       for (int k = 0; k < kMaxAccPerThread; ++k) {
         const int e = tid + k * kThreadsS;
-        if (e < qt * D) {
-          const int i = e / D, d = e - i * D;
+        if (e < qt * W) {
+          const int i = e / W, d = e - i * W;
           float a = acc[k] * a_s[i];
           for (int r = 0; r < nr; ++r)
-            a += p_s[i * kRows + r] * to_f(v_s[r * D + d]);
+            a += p_s[i * kRows + r] * to_f(v_s[r * W + d]);
           acc[k] = a;
         }
       }
@@ -236,11 +270,12 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 #pragma unroll
     for (int k = 0; k < kMaxAccPerThread; ++k) {
       const int e = tid + k * kThreadsS;
-      if (e < qt * D) {
-        const int i = e / D, d = e - i * D;
+      const int i = e / W, d = e - i * W;
+      if (e < qt * W && (!SLICED || oc * W + d < D)) {
         float l = l_s[i];
         l = l == 0.f ? 1.f : l;                     // the JAX kernel's guard
-        out[((size_t)(b * s + i0 + i) * H + h) * D + d] = from_f<T>(acc[k] / l);
+        out[((size_t)(b * s + i0 + i) * H + h) * D + oc * W + d] =
+            from_f<T>(acc[k] / l);
       }
     }
     __syncthreads();   // the next tile rewrites q_s and the softmax state
@@ -264,20 +299,21 @@ template <typename T, int DP, int LD, bool AL, bool PAGED>
 __device__ __forceinline__ void load_tile(T* tile, const T* base,
                                           const int32_t* pt_row, int row0,
                                           int end, int P, int N, int H,
-                                          int h, int D, int tid) {
+                                          int h, int D, int tid,
+                                          int col0 = 0) {
   constexpr int kChunks = DP / 8;
   for (int e = tid; e < kTile * kChunks; e += kThreads) {
     const int r = e / kChunks, c = (e - r * kChunks) * 8;
     T* dst = tile + r * LD + c;
-    const int t = row0 + r;
+    const int t = row0 + r, col = col0 + c;
     const T* src = nullptr;
-    if (t < end && c < D) {
+    if (t < end && col < D) {
       size_t row = t;
       if (PAGED) {
         const int page = min(max(pt_row[t / P], 0), N - 1);
         row = (size_t)page * P + t % P;
       }
-      src = base + (row * H + h) * D + c;
+      src = base + (row * H + h) * D + col;
     }
     if (AL) {
       if (src)
@@ -290,7 +326,7 @@ __device__ __forceinline__ void load_tile(T* tile, const T* base,
         const uint16_t* s16 = reinterpret_cast<const uint16_t*>(src);
 #pragma unroll
         for (int i = 0; i < 8; ++i)
-          if (c + i < D) buf[i] = s16[i];
+          if (col + i < D) buf[i] = s16[i];
       }
       *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(buf);
     }
@@ -474,6 +510,189 @@ paged_attention_mma(const T* __restrict__ q, const T* __restrict__ k_pool,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Head widths past kMaxD on the tensor cores (bf16 / f16 prefill widths):
+// paged_attention_mma with the width in slices of kWideW columns.  The
+// scores sum their slices of q and k (staged in turn), and each block
+// keeps one slice of the output, the slice index folded into grid.x, so
+// the scores are recomputed per output slice.  Shared memory and
+// registers do not grow with D.
+// ---------------------------------------------------------------------------
+
+constexpr int kWideW = 128;
+
+template <typename T, bool AL>
+__global__ void __launch_bounds__(kThreads)
+paged_attention_mma_wide(const T* __restrict__ q,
+                         const T* __restrict__ k_pool,
+                         const T* __restrict__ v_pool,
+                         const int32_t* __restrict__ page_table,
+                         const int32_t* __restrict__ lengths,
+                         T* __restrict__ out, int s, int H, int D, int N,
+                         int P, int maxp, float scale_log2) {
+  constexpr int kLd = kWideW + 8;
+  constexpr int kTileEl = kTile * kLd;
+  constexpr int kKs = kWideW / 16;
+  const int nc = (D + kWideW - 1) / kWideW;
+  const int i0 = blockIdx.x / nc * kTile, oc = blockIdx.x % nc;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int len = lengths[b];
+  const int32_t* pt_row = page_table + (size_t)b * maxp;
+  const T* qb = q + (size_t)b * s * H * D;
+  const int t_end = (int)min((long long)maxp * P,
+                             (long long)len + min(i0 + kTile, s));
+  const int n_kv = (t_end + kTile - 1) / kTile;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* q_s = reinterpret_cast<T*>(smem);
+  T* k_s = q_s + kTileEl;
+  T* v_s = k_s + kTileEl;
+
+  float acc[kWideW / 8][4];
+#pragma unroll
+  for (int n = 0; n < kWideW / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m_r[2] = {kNegInf, kNegInf};
+  float l_r[2] = {0.f, 0.f};
+  const int row_a = i0 + warp * 16 + gq;
+  const int rows[2] = {row_a, row_a + 8};
+
+  for (int j = 0; j < n_kv; ++j) {
+    const int k0 = j * kTile;
+    float sc[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+    for (int sl = 0; sl < nc; ++sl) {
+      __syncthreads();                        // the last readers are done
+      load_tile<T, kWideW, kLd, AL, false>(q_s, qb, nullptr, i0, s, P, N, H,
+                                           h, D, tid, sl * kWideW);
+      load_tile<T, kWideW, kLd, AL, true>(k_s, k_pool, pt_row, k0, t_end, P,
+                                          N, H, h, D, tid, sl * kWideW);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < kKs; ++kk) {
+        uint32_t qa[4];
+        load_a<T>(qa, q_s, kLd, warp * 16, kk * 16, lane);
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t bk[4];
+          load_b_nk<T>(bk, k_s, kLd, np * 16, kk * 16, lane);
+          mma<T>(sc[2 * np], qa, bk);
+          mma<T>(sc[2 * np + 1], qa, bk + 2);
+        }
+      }
+    }
+    load_tile<T, kWideW, kLd, AL, true>(v_s, v_pool, pt_row, k0, t_end, P, N,
+                                        H, h, D, tid, oc * kWideW);
+    cp_async_commit();
+    const bool need_mask = k0 + kTile > t_end ||
+                           k0 + kTile - 1 > len + i0 + warp * 16;
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[n][e] * scale_log2;
+        if (need_mask) {
+          const int t = k0 + n * 8 + 2 * tq + (e & 1);
+          x = (t < t_end && t <= len + rows[e >> 1]) ? x : kNegInf;
+        }
+        sc[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_next = fmaxf(m_r[r], mx[r]);
+      alpha[r] = exp2f(m_r[r] - m_next);
+      m_r[r] = m_next;
+      l_r[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(sc[n][e] - m_r[e >> 1]);
+        l_r[e >> 1] += p;
+        sc[n][e] = p;
+      }
+#pragma unroll
+    for (int n = 0; n < kWideW / 8; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+    cp_async_wait_all();
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t pa[4];
+      pa[0] = pack2<T>(sc[2 * kk][0], sc[2 * kk][1]);
+      pa[1] = pack2<T>(sc[2 * kk][2], sc[2 * kk][3]);
+      pa[2] = pack2<T>(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
+      pa[3] = pack2<T>(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
+#pragma unroll
+      for (int dp = 0; dp < kWideW / 16; ++dp) {
+        uint32_t bv[4];
+        load_b_kn<T>(bv, v_s, kLd, kk * 16, dp * 16, lane);
+        mma<T>(acc[2 * dp], pa, bv);
+        mma<T>(acc[2 * dp + 1], pa, bv + 2);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+  }
+#pragma unroll
+  for (int n = 0; n < kWideW / 8; ++n) {
+    const int d = oc * kWideW + n * 8 + 2 * tq;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (rows[r] < s) {
+        const float l = l_r[r] == 0.f ? 1.f : l_r[r];  // the JAX guard
+        T* o = out + (((size_t)b * s + rows[r]) * H + h) * D + d;
+        if (d < D) o[0] = from_f<T>(acc[n][2 * r] / l);
+        if (d + 1 < D) o[1] = from_f<T>(acc[n][2 * r + 1] / l);
+      }
+    }
+  }
+}
+
+// bf16 / f16 prefill widths past kMaxD: the sliced tensor-core kernel
+template <typename T>
+int launch_mma_wide(const void* q, const void* k_pool, const void* v_pool,
+                    const void* page_table, const void* lengths, void* out,
+                    int B, int s, int H, int D, int N, int P, int maxp,
+                    float scale, cudaStream_t stream) {
+  const long long gx =
+      (long long)(s + kTile - 1) / kTile * ((D + kWideW - 1) / kWideW);
+  if (gx > 0x7FFFFFFFLL) return -1;
+  const size_t smem = 3 * (size_t)kTile * (kWideW + 8) * sizeof(T);
+  auto f = D % 8 == 0 ? paged_attention_mma_wide<T, true>
+                      : paged_attention_mma_wide<T, false>;
+  int err = prepare(f, smem);
+  if (err) return err;
+  f<<<dim3((unsigned)gx, H, B), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_pool),
+      static_cast<const T*>(v_pool), static_cast<const int32_t*>(page_table),
+      static_cast<const int32_t*>(lengths), static_cast<T*>(out), s, H, D, N,
+      P, maxp, scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int DP, bool AL>
 int launch_mma(const void* q, const void* k_pool, const void* v_pool,
                const void* page_table, const void* lengths, void* out, int B,
@@ -508,23 +727,23 @@ int launch_tc(const void* q, const void* k_pool, const void* v_pool,
            maxp, scale, stream);
 }
 
-template <typename T, bool VEC>
+template <typename T, bool VEC, bool SLICED>
 int launch_t(const void* q, const void* k_pool, const void* v_pool,
              const void* page_table, const void* lengths, void* out, int B,
              int s, int H, int D, int N, int P, int maxp, float scale,
              cudaStream_t stream) {
-  const size_t smem = 2 * (size_t)kRows * D * sizeof(T) +
-                      sizeof(float) * ((size_t)kQTile * D + kQTile * kRows +
+  const int W = SLICED ? kMaxD : D;               // the kernel's slices
+  const long long gx = (long long)H * ((D + W - 1) / W);
+  if (gx > 0x7FFFFFFFLL) return -1;
+  const size_t smem = 2 * (size_t)kRows * W * sizeof(T) +
+                      sizeof(float) * ((size_t)kQTile * W + kQTile * kRows +
                                        3 * kQTile);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_kernel<T, VEC>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  int err = prepare(paged_attention_kernel<T, VEC, SLICED>, smem);
+  if (err) return err;
   const int tiles = (s + kQTile - 1) / kQTile;
-  dim3 grid(H, B, tiles < kMaxTileBlocks ? tiles : kMaxTileBlocks);
-  paged_attention_kernel<T, VEC><<<grid, kThreadsS, smem, stream>>>(
+  dim3 grid((unsigned)gx, B, tiles < kMaxTileBlocks ? tiles : kMaxTileBlocks);
+  paged_attention_kernel<T, VEC, SLICED><<<grid, kThreadsS, smem,
+                                            stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool),
       static_cast<const T*>(v_pool), static_cast<const int32_t*>(page_table),
       static_cast<const int32_t*>(lengths), static_cast<T*>(out), s, H, D, N,
@@ -532,8 +751,8 @@ int launch_t(const void* q, const void* k_pool, const void* v_pool,
   return (int)cudaGetLastError();
 }
 
-// bf16 / f16 at widths from kMmaMinWidth: the tensor-core kernel; else
-// (decode steps, f32) the scalar one
+// bf16 / f16 at widths from kMmaMinWidth: the tensor-core kernels (in
+// slices past kMaxD); else (decode steps, f32) the scalar one
 template <typename T>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* page_table, const void* lengths, void* out, int B,
@@ -541,10 +760,14 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
            cudaStream_t stream) {
   if constexpr (!std::is_same<T, float>::value) {
     if (s >= kMmaMinWidth)
-      return launch_tc<T>(q, k_pool, v_pool, page_table, lengths, out, B, s,
-                          H, D, N, P, maxp, scale, stream);
+      return (D > kMaxD ? launch_mma_wide<T> : launch_tc<T>)(
+          q, k_pool, v_pool, page_table, lengths, out, B, s, H, D, N, P,
+          maxp, scale, stream);
   }
-  auto f = (D * sizeof(T)) % 16 == 0 ? launch_t<T, true> : launch_t<T, false>;
+  const bool vec = (D * sizeof(T)) % 16 == 0;
+  auto f = D > kMaxD
+               ? (vec ? launch_t<T, true, true> : launch_t<T, false, true>)
+               : (vec ? launch_t<T, true, false> : launch_t<T, false, false>);
   return f(q, k_pool, v_pool, page_table, lengths, out, B, s, H, D, N, P,
            maxp, scale, stream);
 }
@@ -561,8 +784,8 @@ int paged_attention_launch(int dtype, const void* q, const void* k_pool,
                            const void* lengths, void* out, int B, int s,
                            int H, int D, int N, int P, int maxp, float scale,
                            void* stream) {
-  if (D > kMaxD || D < 1 || P < 1 || s < 1 || maxp < 1 || N < 1 || B < 1 ||
-      H < 1 || B > 65535 || H > 65535)
+  if (D < 1 || P < 1 || s < 1 || maxp < 1 || N < 1 || B < 1 || H < 1 ||
+      B > 65535 || H > 65535)
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {

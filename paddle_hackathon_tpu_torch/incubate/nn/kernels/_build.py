@@ -4,11 +4,14 @@ Each kernel is one ``csrc/*.cu`` file with a plain C interface.  At first
 use it is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library under ``paddle_hackathon_tpu_torch/_build/`` and loaded with
 ``ctypes``.  The flash-attention sources are built once per padded head
-width (``-DFLASH_DP=64``, 128, 256: libraries ``<name>_w<DP>``), and the
+width (``-DFLASH_DP=64``, 128, 256: libraries ``<name>_w<DP>``) and once
+for every wider head (``-DFLASH_DP=0``: ``<name>_wide``, the
+column-chunked kernels, whose chunk count is fixed at run time), and the
 bhd kernels also once per type family (``-DFLASH_F32=1`` f32, ``0``
-bf16/f16: ``flash_attention_w<DP>_f32`` / ``_h``), so that their
-template instances compile in parallel processes; each such library
-exports the same C functions for its own widths and types.  The
+bf16/f16: ``flash_attention_w<DP>_f32`` / ``_h``,
+``flash_attention_wide_f32`` / ``_h``), so that their template instances
+compile in parallel processes; each such library exports the same C
+functions for its own widths and types.  The
 library's file name carries a hash of the source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source or header rebuilds
 and an unchanged one loads the earlier build.
@@ -39,14 +42,14 @@ SOURCES: Dict[str, Path] = {
     "quant_matmul": _PKG / "csrc" / "quant_matmul.cu",
 }
 EXTRA_FLAGS: Dict[str, List[str]] = {}
-for _dp in FLASH_WIDTHS:
-    SOURCES[f"flash_attention_packed_w{_dp}"] = \
+for _dp, _tag in [(dp, f"w{dp}") for dp in FLASH_WIDTHS] + [(0, "wide")]:
+    SOURCES[f"flash_attention_packed_{_tag}"] = \
         _PKG / "csrc" / "flash_attention_packed.cu"
-    EXTRA_FLAGS[f"flash_attention_packed_w{_dp}"] = [f"-DFLASH_DP={_dp}"]
+    EXTRA_FLAGS[f"flash_attention_packed_{_tag}"] = [f"-DFLASH_DP={_dp}"]
     for _fam, _f32 in (("f32", 1), ("h", 0)):
-        SOURCES[f"flash_attention_w{_dp}_{_fam}"] = \
+        SOURCES[f"flash_attention_{_tag}_{_fam}"] = \
             _PKG / "csrc" / "flash_attention.cu"
-        EXTRA_FLAGS[f"flash_attention_w{_dp}_{_fam}"] = [
+        EXTRA_FLAGS[f"flash_attention_{_tag}_{_fam}"] = [
             f"-DFLASH_DP={_dp}", f"-DFLASH_F32={_f32}"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -78,9 +81,10 @@ def _flags(name: str) -> List[str]:
     return NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
 
 
-def padded_width(head_dim: int) -> int:
-    """The flash libraries' padded head width that takes ``head_dim``."""
-    return next(dp for dp in FLASH_WIDTHS if head_dim <= dp)
+def width_tag(head_dim: int) -> str:
+    """The flash library that takes ``head_dim``: ``w64``, ``w128`` or
+    ``w256`` (its padded width), or ``wide`` past 256."""
+    return next((f"w{dp}" for dp in FLASH_WIDTHS if head_dim <= dp), "wide")
 
 
 def library_path(name: str) -> Path:

@@ -42,7 +42,6 @@ import torch
 _NEG_INF = -1e30  # large-but-finite: keeps exp()=0 without inf-inf NaNs
 
 _BLOCK_CANDIDATES = (1024, 512, 256, 128, 64, 32, 16, 8)
-MAX_HEAD_DIM = 256   # the CUDA kernels' widest instance
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # kernel launches since the last reset, one count per kernel (the smoke
@@ -177,6 +176,19 @@ def flash_fwd_ref(q, k, v, causal, sm_scale, dropout_p=0.0, seed=None):
     return out, lse
 
 
+def tf32_split(x: torch.Tensor):
+    """The f32 kernels' 3xTF32 operand split: ``(hi, lo)`` with ``hi`` x
+    rounded to TF32 (10 explicit mantissa bits) to nearest, ties away from
+    zero (``cvt.rna.tf32.f32``), and ``lo`` the same rounding of
+    ``x - hi``; a product a.b is taken as al.bh + ah.bl + ah.bh.  Plain
+    torch on f32 tensors, for the tests and the smoke run."""
+    def rna(t):
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    hi = rna(x.float())
+    return hi, rna(x.float() - hi)
+
+
 def flash_bwd_pair_ref(q, k, v, do, lse, delta_row, causal, sm_scale,
                        dropout_p=0.0, seed=None):
     """Plain backward of one q-chunk x kv-chunk pair: ``(dq, dk, dv)`` in
@@ -214,12 +226,12 @@ _fns = {}
 
 def _lib(head_dim, dtype):
     """The three C entry points of the library of ``head_dim``'s padded
-    width (64, 128 or 256) and ``dtype``'s family (f32, or bf16/f16),
-    built and bound at first use."""
-    from ._build import load, padded_width
-    key = (padded_width(head_dim), "f32" if dtype == torch.float32 else "h")
+    width (64, 128 or 256; past 256 the column-chunked library) and
+    ``dtype``'s family (f32, or bf16/f16), built and bound at first use."""
+    from ._build import load, width_tag
+    key = (width_tag(head_dim), "f32" if dtype == torch.float32 else "h")
     if key not in _fns:
-        lib = load("flash_attention_w{}_{}".format(*key))
+        lib = load("flash_attention_{}_{}".format(*key))
         # c_void_p for every pointer and the stream, or ctypes passes them
         # as 32-bit ints and cuts them
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -239,9 +251,10 @@ def check_geometry(q_shape, kv_shape, dtype) -> None:
     """Raise unless the kernels take ``q`` of ``q_shape (bh, sq, D)`` and
     ``k, v`` of ``kv_shape (bh, skv, D)`` in ``dtype`` (a pure function of
     the shapes, which the CPU tests call): ``NotImplementedError`` for a
-    dtype or head width the CUDA kernels do not cover (any D from 1 to
-    256 is covered), ``RuntimeError`` for ranks, shapes or lengths the gate
-    refuses."""
+    dtype the CUDA kernels do not cover (every head width D >= 1 is
+    covered: the tensor-core instances up to 256, the column-chunked
+    kernels past it), ``RuntimeError`` for ranks, shapes or lengths the
+    gate refuses."""
     if len(q_shape) != 3 or len(kv_shape) != 3 \
             or kv_shape[0] != q_shape[0] or kv_shape[2] != q_shape[2]:
         raise RuntimeError(f"q must be (bh, sq, D) and k, v (bh, skv, D), "
@@ -251,10 +264,8 @@ def check_geometry(q_shape, kv_shape, dtype) -> None:
             f"the bhd flash kernels take f32/bf16/f16, got {dtype}: ROADMAP "
             f"Queue 2")
     bh, sq, d = q_shape
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"the bhd flash kernels take head widths up to {MAX_HEAD_DIM}, "
-            f"got {d}: ROADMAP Queue 3")
+    if d < 1:
+        raise RuntimeError(f"head width must be >= 1, got {d}")
     if not supported(sq, kv_shape[1]):
         raise RuntimeError(f"the bhd flash gate refuses seq ({sq}, "
                            f"{kv_shape[1]})")

@@ -45,7 +45,6 @@ _LANES = 128
 # The JAX estimator's scoped-VMEM budget: part of the gate, kept so that
 # supported() answers as the JAX package does.
 _VMEM_BUDGET = 13 * 2**20
-MAX_HEAD_DIM = 256   # the CUDA kernels' widest instance
 _DTYPE_CODES = {torch.bfloat16: 1, torch.float16: 2}
 
 # kernel launches since the last reset, one count per kernel (the smoke
@@ -203,11 +202,12 @@ _fns = {}
 
 def _lib(head_dim):
     """The three C entry points of the library of ``head_dim``'s padded
-    width (64, 128 or 256), built and bound at first use."""
-    from ._build import load, padded_width
-    dp = padded_width(head_dim)
+    width (64, 128 or 256; past 256 the column-chunked library), built and
+    bound at first use."""
+    from ._build import load, width_tag
+    dp = width_tag(head_dim)
     if dp not in _fns:
-        lib = load(f"flash_attention_packed_w{dp}")
+        lib = load(f"flash_attention_packed_{dp}")
         # c_void_p for every pointer and the stream, or ctypes passes them
         # as 32-bit ints and cuts them
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -227,8 +227,9 @@ def _lib(head_dim):
 
 def check_geometry(shape, heads, dtype) -> None:
     """Raise ``ValueError`` unless the kernels take a qkv of ``shape`` and
-    ``dtype``: ``(b, s, 3*H*D)`` bf16/f16 with D a multiple of 8 up to
-    256 (any s)."""
+    ``dtype``: ``(b, s, 3*H*D)`` bf16/f16 with D a positive multiple of 8
+    (any s): the TMA / wgmma instances up to 256, the column-chunked
+    kernels past it, so every shape :func:`supported` admits."""
     if len(shape) != 3 or shape[-1] % (3 * heads):
         raise ValueError(f"qkv must be (b, s, 3*H*D) with H={heads}, got "
                          f"{tuple(shape)}")
@@ -237,7 +238,7 @@ def check_geometry(shape, heads, dtype) -> None:
                          f"{dtype}")
     b, s, hd3 = shape
     D = hd3 // 3 // heads
-    if D % 8 or not 8 <= D <= MAX_HEAD_DIM or s < 1:
+    if D % 8 or D < 8 or s < 1:
         raise ValueError(f"packed flash kernel unsupported for seq {s}, "
                          f"heads {heads}, head_dim {D}, dtype {dtype}")
 

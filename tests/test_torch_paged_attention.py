@@ -113,9 +113,9 @@ def test_kernel_refuses_cpu_tensors():
 
 def _bad(kind):
     c = _torch(_case(4, B=2, s=2, P=8, H=2, D=16, maxp=3, lengths=[1, 2]))
-    if kind == "head_dim_over_256":
-        c["q"] = torch.zeros(2, 2, 1, 264)
-        c["k_pool"] = c["v_pool"] = torch.zeros(7, 8, 1, 264)
+    if kind == "zero_head_dim":
+        c["q"] = torch.zeros(2, 2, 1, 0)
+        c["k_pool"] = c["v_pool"] = torch.zeros(7, 8, 1, 0)
     elif kind == "empty_width":
         c["q"] = torch.zeros(2, 0, 2, 16)
     elif kind == "dtype_mismatch":
@@ -132,7 +132,7 @@ def _bad(kind):
 
 
 @pytest.mark.parametrize("kind", [
-    "head_dim_over_256", "empty_width", "dtype_mismatch", "int64_page_table",
+    "zero_head_dim", "empty_width", "dtype_mismatch", "int64_page_table",
     "lengths_shape", "non_contiguous_q", "pool_shape"])
 def test_kernel_argument_checks(kind):
     with pytest.raises(ValueError):
@@ -141,10 +141,10 @@ def test_kernel_argument_checks(kind):
 
 @pytest.mark.parametrize("s,P,D", [(128, 128, 64), (256, 256, 64),
                                    (65, 16, 64), (1, 16, 36), (32, 128, 12),
-                                   (1, 8, 256)])
+                                   (1, 8, 256), (1, 8, 264), (64, 16, 512)])
 def test_kernel_geometry_takes_any_width_page_and_head_dim(s, P, D):
-    """Widths past 64, pages past 64 and head widths that are not a
-    multiple of 8 (up to 256): the limits of earlier versions."""
+    """Widths past 64, pages past 64, head widths that are not a multiple
+    of 8 and past 256: the limits of earlier versions."""
     pool = (7, P, 2, D)
     tpa.check_geometry((2, s, 2, D), (pool, pool), (torch.bfloat16,) * 3,
                        (2, 3), torch.int32, (2,), torch.int32)
