@@ -16,10 +16,11 @@ Phases, each printing one JSON line:
                the seconds taken, per library too, and ptxas's register /
                spill lines; for each K1 kernel (forward, dK/dV and dQ,
                bf16/f16, 64/128/256 wide: 18) and each of K2's 3xTF32
-               dK/dV and dQ kernels (64/128/256: 6) its registers, spills,
-               ptxas's performance notes (K1: its dynamic shared memory),
-               and, where ``cuobjdump`` is found, its count of HGMMA
-               (wgmma) instructions, which must be above 0.
+               forward, dK/dV and dQ kernels (64/128/256: 9) its
+               registers, spills, ptxas's performance notes (K1: its
+               dynamic shared memory), and, where ``cuobjdump`` is found,
+               its count of HGMMA (wgmma) instructions, which must be above
+               0; and the split decode kernel's (K3) ptxas notes.
 3. flash    -- holds the three packed flash-attention kernels (forward, dK/dV,
                dQ; ``csrc/flash_attention_packed.cu``) against their plain
                PyTorch versions run in f32 on the same bf16/f16 inputs:
@@ -86,12 +87,19 @@ Phases, each printing one JSON line:
                projection (f32 at H=12, s=1024; bf16 at H=1); and the ring's
                unit: ``_bwd_pair`` over kv halves with the global LSE and Δ
                (non-causal: dq sums, dk/dv concatenate; causal: the two-device
-               ring layout).  Limits: bf16/f16 ``FLASH_TOL``; f32
+               ring layout); and b*H = 65538 (past grid.y's limit) at s=8,
+               D=64, f32 and bf16, forward and pair, whose last two heads
+               are held against the plain version with the heads before as
+               the planted fault.  Limits: bf16/f16 ``FLASH_TOL``; f32
                ``FLASH_F32_TOL`` (relative L2 1e-4, worst row 2e-3, LSE 1e-5),
                which TF32 products fail.  Each case reads a control (the plain
                version in the input's dtype, must pass) and a planted fault (a
                stale kv tile, must fail); each f32 case also the plain version
-               on operands rounded to TF32 (must fail).  Each f32 case at
+               on operands rounded to TF32 (must fail), and runs the forward
+               twice more, bit for bit the same; at D <= 256 with rows TMA
+               addresses (the 3xTF32 forward) it reads O's error beside the
+               plain forward on 3xTF32 operands split to nearest and by
+               truncation.  Each f32 case at
                D <= 256 also holds the dK/dV + dQ pair (3xTF32 on the tensor
                cores) to ``FLASH_F32_PAIR_REL`` (relative L2 6e-7 on dq, dk
                and dv against f64) and runs it three times more: bit for
@@ -99,10 +107,11 @@ Phases, each printing one JSON line:
                split to nearest (read) and split by truncation (the
                control, must fail the limit).
 7. flash_bhd -- K2's times at the f32 training geometry by CUDA-graph
-               replay (inputs 201 MB), beside the bounds (the forward f32
-               on the CUDA cores, 67 TFLOP/s; dK/dV and dQ as 3xTF32, three
-               tf32 products at 494.7 TFLOP/s, with the CUDA-core bound
-               beside), the pair's repeats bit for bit, the plain versions,
+               replay (inputs 201 MB), beside the bounds (as 3xTF32, three
+               tf32 products at 494.7 TFLOP/s, with the f32 CUDA-core
+               bound, 67 TFLOP/s, beside), the forward's and the pair's
+               error against f64 beside SDPA's, the pair's repeats bit for
+               bit, the plain versions,
                and the library
                yardstick ``F.scaled_dot_product_attention(is_causal=True)``
                on (b, H, s, D) f32, pinned to the efficient-attention
@@ -133,7 +142,9 @@ Phases, each printing one JSON line:
                attention (b=2, H=2, s=1024, D=512; K2 f32, K1 bf16) and
                K3 at D=512 (widths 1 and 32, bf16), each beside its plain
                version, SDPA and its bounds.
-10. paged   -- holds ``paged_attention`` against its plain PyTorch version
+10. paged   -- holds ``paged_attention`` (K3: the split decode kernel at
+               widths below 16 with 16-byte rows up to D=256, else the
+               tile kernels) against its plain PyTorch version
                (``paged_attention_ref``) at the serving geometry (B=16,
                H=12, D=64, P=16, maxp=32; widths 1 and 32; shuffled page
                tables, an inactive slot, lengths 0 / page boundary / last
@@ -147,25 +158,40 @@ Phases, each printing one JSON line:
                inputs' dtype, must pass) and a planted fault (each slot's
                first page read from its second, must fail): bf16 against
                an f32 run of the plain
-               version at atol=rtol=2e-2, f32 at 2e-5 with TF32 off.  Times the
+               version at atol=rtol=2e-2, f32 at 2e-5 with TF32 off.  Then
+               the split decode kernel at widths 1 and 15, pages of 16, 128
+               and 512, D = 64, 128 and 256, in bf16, f16 (its control the
+               f32 result rounded to f16: f16 cannot hold the -1e30 mask)
+               and f32; 65538 slots of one page each (widths 1 and 16, bf16
+               and f32: the last two slots against the plain version, the
+               two before as the planted fault); and its summation order:
+               three runs bit for bit, each of 16 slots alone bit for bit
+               as among the 16 (the fault: a slot alone against its
+               neighbour must differ).  Times the
                kernel, the plain version and
                ``F.scaled_dot_product_attention`` on the gathered
                contiguous K/V (a yardstick the port never calls) at the
-               serving run's decode inputs, by CUDA-graph replay over input
-               copies larger than the L2; and at width 128 over pages of
+               serving run's decode and chunk inputs and at the table's
+               full length, by CUDA-graph replay over input copies larger
+               than the L2, beside the byte bound and, for decode, the
+               tile kernels' entry point (the scalar kernel, which ran the
+               decode steps before); and at width 128 over pages of
                128 beside its bound, plain version and SDPA with the
                offset-causal mask over the gathered K/V.
 11. serving -- GPT-2-small in bf16 through
                ``ServingEngine(cache_mode="paged", max_slots=16, max_len=512,
                page_size=16, num_pages=257, chunk=32, decode_window=32)``:
                16 greedy requests of 64 prompt tokens and 128 new tokens.
-               Every request must finish, the kernel's launch count must
-               cover every decode step of every layer, and the pool must
-               drain.  Then an f32 run of 4 requests x 32 new tokens must be
+               Every request must finish, the split decode kernel's launch
+               count must equal the decode steps times the layers and the
+               tile kernels' the chunk ticks times the layers, the plain
+               version must not be called, and the pool must drain.  Then
+               an f32 run of 4 requests x 32 new tokens must be
                token-exact against the dense engine (the plain static-cache
                path), or diverge only at a logit margin <= 1e-3.
 12. profile -- device time by kernel over one short serving run
-               (``torch.profiler``), for the breakdown in PERF.md.
+               (``torch.profiler``), for the breakdown in PERF.md, with
+               K3's kernels' share of the busy time.
 13. paged_wide -- the paged engine at ``chunk=128, page_size=128`` against
                the dense engine, GPT-2-small f32, 4 requests of 300, 200,
                150 and 64 prompt tokens x 32 new: token-exact, K3 launched,
@@ -361,11 +387,54 @@ def gathered(torch, c):
     return qh, kb, vb, mask
 
 
+def tiles_route(torch, pa, c):
+    """The tile kernels' entry point on a case: the scalar kernel at decode
+    widths, which ran the decode steps before the split decode kernel.
+    Timed beside it; a comparison, not counted as a launch."""
+    q = c["q"]
+    B, s, H, D = q.shape
+    N, P = c["k_pool"].shape[:2]
+    out = torch.empty_like(q)
+    err = pa._lib("paged_attention")(
+        pa._DTYPE_CODES[q.dtype], q.data_ptr(), c["k_pool"].data_ptr(),
+        c["v_pool"].data_ptr(), c["page_table"].data_ptr(),
+        c["lengths"].data_ptr(), out.data_ptr(), B, s, H, D, N, P,
+        c["page_table"].shape[1], 1.0 / D ** 0.5,
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"paged_attention_launch: CUDA error {err}")
+    return out
+
+
+# the split decode kernel's cases: pages of 16, 128 and 512, each table
+# 512-1024 rows long
+SPLIT_PAGES = ((16, 32), (128, 4), (512, 2))
+
+
+def many_slots_case(torch, dtype, width, seed, B=65538, H=2, D=64, P=16):
+    """B slots of one page each (slot b on page b + 1; page 0 the NULL
+    page), lengths up to the page's last row: past grid.y's 65535."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    mk = lambda *sh: torch.randn(*sh, generator=gen,  # noqa: E731
+                                 device=DEV).to(dtype)
+    lengths = torch.randint(0, P - width + 1, (B,), generator=gen,
+                            device=DEV, dtype=torch.int32)
+    return dict(q=mk(B, width, H, D), k_pool=mk(B + 1, P, H, D),
+                v_pool=mk(B + 1, P, H, D),
+                page_table=torch.arange(1, B + 1, device=DEV,
+                                        dtype=torch.int32)[:, None],
+                lengths=lengths)
+
+
 def phase_kernel(torch, pa):
     import torch.nn.functional as F
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     checks = []
+
+    def within_of(ref32, tol):
+        return lambda got: bool(  # noqa: E731
+            ((got.float() - ref32).abs() <= tol + tol * ref32.abs()).all())
 
     def check(name, case, tol):
         """The kernel against the plain version in f32, beside a control
@@ -379,13 +448,19 @@ def phase_kernel(torch, pa):
         ref32 = pa.paged_attention_ref(**f32)
         bad = dict(f32, page_table=case["page_table"].clone())
         bad["page_table"][:, 0] = bad["page_table"][:, 1]
-        within = lambda got: bool(  # noqa: E731
-            ((got.float() - ref32).abs() <= tol + tol * ref32.abs()).all())
+        within = within_of(ref32, tol)
         err = (out.float() - ref32).abs()
-        control = pa.paged_attention_ref(**case)
+        # f16 cannot hold the plain version's -1e30 mask: its control is
+        # the f32 result rounded to f16
+        control = (pa.paged_attention_ref(**case)
+                   if out.dtype != torch.float16 else ref32.half())
         ok = (within(out) and within(control)
               and not within(pa.paged_attention_ref(**bad)))
-        rec = {"case": name, "max_abs_err": float(err.max()), "tol": tol,
+        B, s, _, D = case["q"].shape
+        rec = {"case": name, "kernel": (
+                   "split" if pa.uses_split_decode(s, D, out.dtype)
+                   else "tiles"),
+               "max_abs_err": float(err.max()), "tol": tol,
                "control_max_abs_err": float(
                    (control.float() - ref32).abs().max()), "ok": ok}
         checks.append(rec)
@@ -420,57 +495,136 @@ def phase_kernel(torch, pa):
                 check(f"{tag}_d{D}_w{width}",
                       kernel_case(torch, dtype, width, seed=D + width, D=D,
                                   maxp=8), tol)
+    # the split decode kernel: widths 1 and 15, pages of 16, 128 and 512,
+    # D = 64, 128 and 256, in each dtype (bf16 and f16 rows of 128-512
+    # bytes: groups of 4, 2 and 1 heads; f32 of 2, 1, 1)
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float16, 2e-2),
+                       (torch.float32, 2e-5)):
+        tag = str(dtype).split('.')[-1]
+        for P, maxp in SPLIT_PAGES:
+            for D in (64, 128, 256):
+                for width in (1, 15):
+                    case = kernel_case(torch, dtype, width,
+                                       seed=P + D + width, D=D, P=P,
+                                       maxp=maxp)
+                    check(f"split_{tag}_p{P}_d{D}_w{width}", case, tol)
+                    del case
+        torch.cuda.empty_cache()
+
+    # slots past 65535 (grid.y's limit): the last two slots against the
+    # plain version, the planted fault the plain version of the two
+    # before, as a kernel that wrapped the slot index would read them
+    for dtype, width, tol in ((torch.bfloat16, 1, 2e-2),
+                              (torch.float32, 1, 2e-5),
+                              (torch.bfloat16, 16, 2e-2),
+                              (torch.float32, 16, 2e-5)):
+        case = many_slots_case(torch, dtype, width, seed=width)
+        out = pa.paged_attention_kernel(**case)
+        B = case["q"].shape[0]
+        part = lambda sl, c=case: dict(  # noqa: E731
+            c, q=c["q"][sl].contiguous(),
+            page_table=c["page_table"][sl].contiguous(),
+            lengths=c["lengths"][sl].contiguous())
+        tail, before = part(slice(B - 2, B)), part(slice(B - 3, B - 1))
+        f32 = lambda c: {k: v.float() if v.is_floating_point() else v  # noqa
+                         for k, v in c.items()}
+        ref32 = pa.paged_attention_ref(**f32(tail))
+        within = within_of(ref32, tol)
+        got = out[B - 2:]
+        ok = (within(got) and within(pa.paged_attention_ref(**tail))
+              and not within(pa.paged_attention_ref(**f32(before))))
+        tag = str(dtype).split('.')[-1]
+        checks.append({"case": f"b65538_{tag}_w{width}", "ok": ok,
+                       "kernel": ("split" if width == 1 else "tiles"),
+                       "max_abs_err": float((got.float() - ref32).abs().max()),
+                       "tol": tol})
+        if not ok:
+            raise AssertionError(f"paged attention at 65538 slots: "
+                                 f"{checks[-1]}")
+        del case, out, tail, before
+        torch.cuda.empty_cache()
+
+    # the split kernel's summation order: three runs bit for bit, and each
+    # slot alone the same bits as among 16 (slots of one chunk and of
+    # several); the planted fault, each slot alone against its neighbour
+    # among 16, must differ
+    invariance = {}
+    for name, case in (("serving", serving_case(torch, 1, seed=7)),
+                       ("maxlen", kernel_case(torch, torch.bfloat16, 1,
+                                              seed=8)),
+                       ("f32_p128_w15", kernel_case(torch, torch.float32, 15,
+                                                    seed=9, P=128, maxp=4))):
+        out = pa.paged_attention_kernel(**case)
+        repeats = all(torch.equal(out, pa.paged_attention_kernel(**case))
+                      for _ in range(2))
+        B = out.shape[0]
+        alone = [pa.paged_attention_kernel(**dict(
+            case, q=case["q"][b:b + 1].contiguous(),
+            page_table=case["page_table"][b:b + 1].contiguous(),
+            lengths=case["lengths"][b:b + 1].contiguous()))[0]
+            for b in range(B)]
+        same = all(torch.equal(alone[b], out[b]) for b in range(B))
+        fault = any(torch.equal(alone[b], out[(b + 1) % B])
+                    for b in range(B))
+        invariance[name] = {"repeats_bitwise": repeats,
+                            "alone_vs_batched_bitwise": same,
+                            "fault_neighbour_equal": fault}
+        if not (repeats and same and not fault):
+            raise AssertionError(f"the split decode kernel is not bit for "
+                                 f"bit the same over repeats and batches: "
+                                 f"{name} {invariance[name]}")
+        del case, out, alone
+    torch.cuda.empty_cache()
+
+    lib = lambda a: F.scaled_dot_product_attention(  # noqa: E731
+        a[0], a[1], a[2], attn_mask=a[3])
+
+    def times(case, plain_reps=5, old=False):
+        """The kernel, the plain version, SDPA on the gathered K/V and (old)
+        the tile kernels' entry point, over input copies larger than the
+        L2, beside the bound."""
+        cs = copies(case)
+        row = {"ms": device_ms(torch, [
+                   lambda c=c: pa.paged_attention_kernel(**c) for c in cs]),
+               "plain_ms": device_ms(torch, [
+                   lambda c=c: pa.paged_attention_ref(**c) for c in cs],
+                   reps=plain_reps)}
+        libs = [gathered(torch, c) for c in cs]
+        row["library_ms"] = device_ms(torch, [lambda a=a: lib(a)
+                                              for a in libs])
+        row["library_vs_kernel_max_abs"] = float(
+            (lib(libs[0]).transpose(1, 2).float()
+             - pa.paged_attention_kernel(**case).float()).abs().max())
+        if old:
+            row["tiles_route_ms"] = device_ms(torch, [
+                lambda c=c: tiles_route(torch, pa, c) for c in cs])
+            row["tiles_route_max_abs_vs_kernel"] = float(
+                (tiles_route(torch, pa, case).float()
+                 - pa.paged_attention_kernel(**case).float()).abs().max())
+        row["bound_ms"], row["bound_by"] = bound(case, 2, H100_BF16_FLOPS)
+        del cs, libs
+        torch.cuda.empty_cache()
+        return row
+
     case = serving_case(torch, 1, seed=1)
     err = check("bfloat16_w1_serving", case, 2e-2)
     wide = serving_case(torch, 32, seed=32)
-    check("bfloat16_w32_serving", wide, 2e-2)
-    maxlen = kernel_case(torch, torch.bfloat16, 1, seed=1)
-    cases = copies(case)
-    k_ms = device_ms(torch, [lambda c=c: pa.paged_attention_kernel(**c)
-                             for c in cases])
-    p_ms = device_ms(torch, [lambda c=c: pa.paged_attention_ref(**c)
-                             for c in cases])
-    # the library yardstick: SDPA on K/V already gathered contiguous
-    libs = [gathered(torch, c) for c in cases]
-    lib = lambda a: F.scaled_dot_product_attention(  # noqa: E731
-        a[0], a[1], a[2], attn_mask=a[3])
-    lib_err = float((lib(libs[0]).transpose(1, 2).float()
-                     - pa.paged_attention_kernel(**case).float()).abs().max())
-    l_ms = device_ms(torch, [lambda a=a: lib(a) for a in libs])
-    del libs
-    b_ms, b_by = bound(case, 2, H100_BF16_FLOPS)
-    wide_ms = device_ms(torch, [lambda c=c: pa.paged_attention_kernel(**c)
-                                for c in copies(wide)])
-    wide_bound, wide_by = bound(wide, 2, H100_BF16_FLOPS)
-    maxlen_ms = device_ms(torch, [lambda c=c: pa.paged_attention_kernel(**c)
-                                  for c in copies(maxlen)])
-    maxlen_bound, maxlen_by = bound(maxlen, 2, H100_BF16_FLOPS)
-    # a 128-row prefill chunk over pages of 128 (the wide paged engine's)
-    w128 = kernel_case(torch, torch.bfloat16, 128, seed=129, P=128, maxp=4)
-    w128_ms = device_ms(torch, [lambda c=c: pa.paged_attention_kernel(**c)
-                                for c in copies(w128)])
-    w128_plain = device_ms(torch, [lambda c=c: pa.paged_attention_ref(**c)
-                                   for c in copies(w128)], reps=2)
-    w128_bound, w128_by = bound(w128, 2, H100_BF16_FLOPS)
-    # its library yardstick: SDPA with the offset-causal mask over the
-    # gathered K/V
-    w128_libs = [gathered(torch, c) for c in copies(w128)]
-    w128_lib = device_ms(torch, [lambda a=a: lib(a) for a in w128_libs])
-    del w128, w128_libs
-    emit({"phase": "paged", "checks": checks,
-          "decode_w1_serving": {"ms": k_ms, "plain_ms": p_ms,
-                                "library_ms": l_ms,
-                                "library_vs_kernel_max_abs": lib_err,
-                                "bound_ms": b_ms, "bound_by": b_by},
-          "chunk_w32_serving": {"ms": wide_ms, "bound_ms": wide_bound,
-                                "bound_by": wide_by},
-          "decode_w1_maxlen": {"ms": maxlen_ms, "bound_ms": maxlen_bound,
-                               "bound_by": maxlen_by},
-          "chunk_w128_p128": {"ms": w128_ms, "plain_ms": w128_plain,
-                              "library_ms": w128_lib,
-                              "bound_ms": w128_bound, "bound_by": w128_by}})
-    return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms}
+    err_w32 = check("bfloat16_w32_serving", wide, 2e-2)
+    decode = times(case, old=True)
+    chunk = times(wide)
+    maxlen = times(kernel_case(torch, torch.bfloat16, 1, seed=1), old=True)
+    # a 128-row prefill chunk over pages of 128 (the wide paged engine's),
+    # beside SDPA with the offset-causal mask over the gathered K/V
+    w128 = times(kernel_case(torch, torch.bfloat16, 128, seed=129, P=128,
+                             maxp=4), plain_reps=2)
+    emit({"phase": "paged", "checks": checks, "invariance": invariance,
+          "decode_w1_serving": decode, "chunk_w32_serving": chunk,
+          "decode_w1_maxlen": maxlen, "chunk_w128_p128": w128})
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return ({"max_abs_err": err, **{k: decode[k] for k in keys},
+             "tiles_route_ms": decode["tiles_route_ms"],
+             "maxlen": {k: maxlen[k] for k in keys + ("tiles_route_ms",)}},
+            {"max_abs_err": err_w32, **{k: chunk[k] for k in keys}})
 
 
 # ---------------------------------------------------------------------------
@@ -1108,6 +1262,31 @@ def split_pair(torch, fa, split, q, k, v, do, lse, delta, causal, scale,
             dv)
 
 
+def split_fwd(torch, fa, split, q, k, v, causal, scale, p=0.0, seed=None):
+    """The plain f32 forward (``flash_fwd_ref``) with S and P.V taken as
+    the 3xTF32 kernel takes them, from ``split``'s operands (as
+    :func:`split_pair`): returns O."""
+    def mm(eq, a, b, axis_a, axis_b):
+        (ah, al), (bh_, bl) = split(a), split(b)
+        return torch.einsum(eq, torch.cat([al, ah, ah], axis_a),
+                            torch.cat([bh_, bl, bh_], axis_b))
+    bh, sq, _ = q.shape
+    skv = k.shape[1]
+    sc = mm("bqd,bkd->bqk", q, k, 2, 2) * scale
+    if causal:
+        mask = fa._causal(sq, skv, q.device)
+        sc = sc.masked_fill(~mask, -1e30)
+    m = sc.amax(-1, keepdim=True)
+    pr = torch.exp(sc - m)
+    if causal:
+        pr = pr.masked_fill(~mask, 0.0)
+    l = pr.sum(-1, keepdim=True)
+    if p > 0.0:
+        keep = fa._drop_mask(bh, sq, skv, seed, p, q.device)
+        pr = torch.where(keep, pr / (1.0 - p), 0.0)
+    return mm("bqk,bkd->bqd", pr, v, 2, 1) / torch.where(l == 0.0, 1.0, l)
+
+
 def bhd_stale(t, tile=64):
     """The planted fault's k or v: tile 1 replaced by tile 0."""
     bad = t.clone()
@@ -1197,12 +1376,33 @@ def phase_flash_bhd_checks(torch, fa):
         r = {key: flash_readings(val, ref, live_floor=True)
              for key, val in got.items()}
         ref_g = {sl: ref[sl] for sl in ("dq", "dk", "dv")}
+        ref_o = ref["out"]
         del ref, got
         ok = (flash_within(r["kernel"], tol)
               and flash_within(r["control"], tol)
               and not flash_within(r["fault"], tol)
               and not (f32 and flash_within(r["tf32"], tol)))
         extra = {}
+        if f32:
+            # the forward twice more, bit for bit; and on D <= 256 with
+            # rows TMA addresses (the 3xTF32 forward) its O reading beside
+            # the plain forward on 3xTF32 operands split to nearest and by
+            # truncation
+            reps = [fa.flash_fwd_kernel(q, k, v, causal, scale, p, seed)
+                    for _ in range(2)]
+            torch.cuda.synchronize()
+            fwd_same = all(torch.equal(a, b) for a, b in zip(*reps))
+            ok = ok and fwd_same
+            extra["fwd_bitwise_repeat"] = fwd_same
+            if D <= 256 and D % 4 == 0:
+                extra["fwd_rel"] = r["kernel"]["out"]["rel"]
+                for key, fn in (("rna", fa.tf32_split),
+                                ("trunc",
+                                 lambda t: tf32_trunc_split(torch, t))):
+                    o = split_fwd(torch, fa, fn, q, k, v, *args)
+                    extra[f"fwd_split_{key}_rel"] = float(
+                        (o.double() - ref_o).norm() / ref_o.norm())
+            del reps
         if f32 and D <= 256:
             # the 3xTF32 pair's own limit, and its repeats bit for bit
             pair_rel = max(r["kernel"][sl]["rel"] for sl in ("dq", "dk",
@@ -1226,11 +1426,11 @@ def phase_flash_bhd_checks(torch, fa):
                    for key, fn in split.items()}
             ok = (ok and pair_rel <= FLASH_F32_PAIR_REL and same
                   and emu["trunc"] > FLASH_F32_PAIR_REL)
-            extra = {"pair_rel": pair_rel, "pair_bitwise_repeat": same,
-                     "split_rna_rel": emu["rna"],
-                     "split_trunc_rel": emu["trunc"]}
+            extra.update({"pair_rel": pair_rel, "pair_bitwise_repeat": same,
+                          "split_rna_rel": emu["rna"],
+                          "split_trunc_rel": emu["trunc"]})
             del runs
-        del ref_g
+        del ref_g, ref_o
         checks.append({"case": name, "ok": ok, **extra, **{
             key: [val["lse"]] + [val[sl][m] for sl in FLASH_SLICES
                                  for m in ("rel", "row")]
@@ -1270,6 +1470,51 @@ def phase_flash_bhd_checks(torch, fa):
     b, s, H, D = (BHD_TRAIN_SHAPE[k] for k in "bsHD")
     train_readings = check("f32_train_geometry_bh192_s1024", b * H, s, s, D,
                            True, f32)
+    torch.cuda.empty_cache()
+
+    def check_many_heads(name, dtype, bh=65538, s=8, D=64):
+        # b*H past 65535, grid.y's limit: the last two heads' forward and
+        # dK/dV + dQ pair against the plain version; the planted fault is
+        # the plain version of the heads before, as a kernel that wrapped
+        # bh would read them
+        gen = torch.Generator(device=DEV).manual_seed(len(checks))
+        q, k, v, do = ((torch.randn(bh, s, D, generator=gen, device=DEV)
+                        * sc).to(dtype) for sc in (0.5, 0.5, 1.0, 1.0))
+        scale = 1.0 / math.sqrt(D)
+        out, lse = fa.flash_fwd_kernel(q, k, v, True, scale)
+        delta = (do.float() * out.float()).sum(-1)
+        grads = fa._bwd_pair(q, k, v, do, lse, delta, True, scale)
+        torch.cuda.synchronize()
+        tail, before = slice(bh - 2, bh), slice(bh - 3, bh - 1)
+        f32 = dtype == torch.float32
+        wide = torch.float64 if f32 else torch.float32
+        ref = bhd_plain(fa, *(t[tail].to(wide) for t in (q, k, v, do)), True,
+                        scale)
+        got = {"kernel": bhd_slices(out[tail], lse[tail],
+                                    *(g[tail] for g in grads)),
+               "control": bhd_plain(fa, *(t[tail] for t in (q, k, v, do)),
+                                    True, scale),
+               "fault": bhd_plain(fa, *(t[before] for t in (q, k, v)),
+                                  do[tail], True, scale)}
+        if f32:
+            got["tf32"] = bhd_plain(fa, *(fa.tf32_split(t[tail])[0]
+                                          for t in (q, k, v, do)), True,
+                                    scale)
+        tol = FLASH_F32_TOL if f32 else FLASH_TOL
+        r = {key: flash_readings(val, ref, live_floor=True)
+             for key, val in got.items()}
+        ok = (flash_within(r["kernel"], tol)
+              and flash_within(r["control"], tol)
+              and not flash_within(r["fault"], tol)
+              and not (f32 and flash_within(r["tf32"], tol)))
+        checks.append({"case": name, "ok": ok, **{
+            key: [val["lse"]] + [val[sl][m] for sl in FLASH_SLICES
+                                 for m in ("rel", "row")]
+            for key, val in r.items()}})
+        del q, k, v, do, out, lse, delta, grads, ref, got
+
+    check_many_heads("f32_bh65538_s8_d64", f32)
+    check_many_heads("bf16_bh65538_s8_d64", bf16)
     torch.cuda.empty_cache()
     emit({"phase": "flash_bhd_checks",
           "tolerances": {"f32": FLASH_F32_TOL, "bf16_f16": FLASH_TOL,
@@ -1361,6 +1606,11 @@ def phase_flash_bhd(torch, fa, fap, readings):
                            gbytes=nbytes / 1e9,
                            tflops=flops / ms[key] / 1e9,
                            f32_cuda_core_bound_ms=f32_bounds[key][0])
+    # the forward's error against f64 beside SDPA's own
+    timing["fwd"].update(
+        out_rel_vs_f64=readings["out"]["rel"], lse_vs_f64=readings["lse"],
+        sdpa_out_rel_vs_f64=lib_read["out"]["rel"],
+        sdpa_lse_vs_f64=lib_read["lse"])
     pair = ms["dkdv"] + ms["dq"]
     pair_row = {"ms": pair, "sdpa_f32_backward_ms": lib_bwd,
                 "over_sdpa": pair / lib_bwd,
@@ -1430,9 +1680,9 @@ BHD_WIDE_SHAPE = dict(b=8, s=1024, H=4, D=256)   # f32, the wide GPT's heads
 
 
 def bhd_bounds(b, s, H, D, q, out, lse):
-    """K2's f32 bounds: ({fwd: f32 on the CUDA cores, dkdv and dq: their
-    3xTF32 products, 3 tf32 products each, on the tensor cores}, {each on
-    the CUDA cores at 67 TFLOP/s})."""
+    """K2's f32 bounds: ({fwd, dkdv and dq as their 3xTF32 products, 3
+    tf32 products each, on the tensor cores}, {each on the CUDA cores at
+    67 TFLOP/s})."""
     e = 4
     io = 3 * q.numel() * e
     bwd_in = io + q.numel() * e + 2 * lse.numel() * 4
@@ -1441,8 +1691,8 @@ def bhd_bounds(b, s, H, D, q, out, lse):
             "dq": (3, bwd_in + q.numel() * e)}
     f32 = {key: flash_bound(b, s, H, D, True, n, nb, H100_F32_FLOPS)
            for key, (n, nb) in work.items()}
-    own = dict(f32)
-    for key in ("dkdv", "dq"):
+    own = {}
+    for key in ("fwd", "dkdv", "dq"):
         n, nb = work[key]
         own[key] = flash_bound(b, s, H, D, True, n, nb, H100_TF32_FLOPS / 3)
     return own, f32
@@ -1486,6 +1736,12 @@ def bhd_wide_times(torch, fa, F):
     with torch.no_grad():
         lib_fwd = device_ms(torch, [lambda: F.scaled_dot_product_attention(
             qh, kh, vh, is_causal=True)])
+        lib_o = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+        ref_o = fa.flash_fwd_ref(q.double(), k.double(), v.double(), True,
+                                 scale)[0]
+        lib_rel = float((lib_o.reshape(bh, s, D).double() - ref_o).norm()
+                        / ref_o.norm())
+        del lib_o, ref_o
     xs = [t.detach().clone().requires_grad_(True) for t in (qh, kh, vh)]
     og = F.scaled_dot_product_attention(*xs, is_causal=True)
     lib_bwd = profiled_ms(torch, lambda: torch.autograd.grad(
@@ -1502,6 +1758,8 @@ def bhd_wide_times(torch, fa, F):
                        "library_ms": lib[key],
                        "tflops": flops / ms[key] / 1e9,
                        "f32_cuda_core_bound_ms": f32_bounds[key][0]}
+    timing["fwd"].update(out_rel_vs_f64=readings["out"]["rel"],
+                         sdpa_out_rel_vs_f64=lib_rel)
     pair = ms["dkdv"] + ms["dq"]
     del q, k, v, do, out, lse, delta, qh, kh, vh, doh
     torch.cuda.empty_cache()
@@ -1887,34 +2145,43 @@ def phase_serving(torch, pa):
     ticks0 = dict(eng.stats)
 
     runs = []
+    plain = {"paged_attention_ref": 0}
+    real = counting(pa, plain, plain)
     for _ in range(3):   # host-bound: repeat to show the spread
         ticks0 = dict(eng.stats)
-        pa.launches = 0
+        for k in pa.launches:
+            pa.launches[k] = 0
+        plain["paged_attention_ref"] = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         reqs = [eng.submit(p, 128) for p in prompts]
         eng.run_until_idle()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = pa.launches
+        launches = dict(pa.launches)
         decode_ticks = eng.stats["decode_ticks"] - ticks0["decode_ticks"]
         chunk_ticks = eng.stats["chunk_ticks"] - ticks0["chunk_ticks"]
         for r in reqs:
             toks = np.asarray(r.tokens)
             assert r.done and len(toks) == 128, (r.done, len(toks))
             assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
-        # every decode step and every chunk tick runs the kernel once per
-        # layer
+        # every decode step runs the split decode kernel and every chunk
+        # tick the tile kernels, once per layer; the plain version never
         need = decode_ticks * eng._decode_window * cfg.num_layers
-        assert decode_ticks > 0 and launches >= need, (launches, need)
-        assert launches == need + chunk_ticks * cfg.num_layers, launches
+        assert decode_ticks > 0 and launches["paged_decode"] == need, (
+            launches, need)
+        assert launches["paged_attention"] == \
+            chunk_ticks * cfg.num_layers, launches
+        assert plain["paged_attention_ref"] == 0, plain
         eng.drop_prefix_cache()
         assert eng.kv_pages_in_use == 0, eng.kv_pages_in_use
         ttft = sorted(r.ttft_s for r in reqs)
         runs.append({"wall_s": wall, "tokens_per_s": 16 * 128 / wall,
                      "ttft_p50_s": ttft[len(ttft) // 2],
                      "ttft_max_s": ttft[-1], "decode_ticks": decode_ticks,
-                     "chunk_ticks": chunk_ticks, "kernel_launches": launches})
+                     "chunk_ticks": chunk_ticks, "kernel_launches": launches,
+                     "plain_calls": plain["paged_attention_ref"]})
+    restore(pa, real)
     med = sorted(runs, key=lambda r: r["wall_s"])[1]
     emit({"phase": "serving", "model": "gpt2-small-en bf16",
           "requests": 16, "prompt": 64, "new_tokens": 128,
@@ -1969,11 +2236,12 @@ def phase_paged_wide(torch, pa):
     for mode in ("paged", "dense"):
         extra = {"page_size": 128} if mode == "paged" else {}
         eng = ServingEngine(model, cache_mode=mode, **kw, **extra)
-        pa.launches = 0
+        for k in pa.launches:
+            pa.launches[k] = 0
         reqs = [eng.submit(p, 32) for p in prompts]
         eng.run_until_idle()
         outs[mode] = [r.result() for r in reqs]
-        stats[mode] = {"k3_launches": pa.launches,
+        stats[mode] = {"k3_launches": dict(pa.launches),
                        "chunk_ticks": eng.stats["chunk_ticks"],
                        "decode_ticks": eng.stats["decode_ticks"]}
         if mode == "paged":
@@ -1986,8 +2254,9 @@ def phase_paged_wide(torch, pa):
           "requests": 4, "new_tokens": 32, "token_exact_of_4": exact,
           **stats})
     p = stats["paged"]
-    if exact != 4 or p["k3_launches"] == 0 or p["kv_pages_in_use"] != 0 \
-            or stats["dense"]["k3_launches"] != 0:
+    if exact != 4 or not all(p["k3_launches"].values()) \
+            or p["kv_pages_in_use"] != 0 \
+            or any(stats["dense"]["k3_launches"].values()):
         raise AssertionError(f"paged engine at chunk 128 / pages of 128: "
                              f"{exact} of 4 token-exact against dense, "
                              f"{stats}")
@@ -2007,8 +2276,15 @@ def phase_profile(torch, eng, prompts):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     eng.drop_prefix_cache()
-    emit({"phase": "profile", "requests": 16, "new_tokens": 32,
-          **profile_summary(torch, prof, wall)})
+    summary = profile_summary(torch, prof, wall)
+    k3 = {name: sum(device_us(e) for e in prof.key_averages()
+                    if str(getattr(e, "device_type", "")).endswith("CUDA")
+                    and name in e.key) / 1e3
+          for name in ("paged_decode_split", "paged_attention")}
+    busy = summary["device_busy_s"] or float("nan")
+    emit({"phase": "profile", "requests": 16, "new_tokens": 32, **summary,
+          "k3_device_ms": k3, "k3_share_of_busy": {
+              k: v / 1e3 / busy for k, v in k3.items()}})
 
 
 # ---------------------------------------------------------------------------
@@ -2480,22 +2756,17 @@ def k1_build(_build, libs):
             "cuobjdump": cuobjdump if hgmma is not None else None}
 
 
-K2_TC_KERNEL = re.compile(r"(bhd_(?:dkdv|dq)_tc)ILi(\d+)E")
+K2_TC_KERNEL = re.compile(r"(bhd_(?:fwd|dkdv|dq)_tc)ILi(\d+)E")
+K3_SPLIT_KERNEL = re.compile(
+    r"(paged_decode_split)I(f|13__nv_bfloat16|6__half)Li(\d+)E")
 
 
-def k2_tc_build(_build, libs):
-    """The 3xTF32 dK/dV and dQ kernels' (64/128/256 wide: 6) registers,
-    spills, ptxas performance notes and, where cuobjdump is found, their
-    count of HGMMA (wgmma) instructions, which must be above 0 for all 6."""
-    import shutil
-    from pathlib import Path
-    def name(ln):
-        m = K2_TC_KERNEL.search(ln)
-        return f"{m.group(1)}<{m.group(2)}>" if m else None
-
-    names = [f"flash_attention_w{dp}_f32" for dp in _build.FLASH_WIDTHS]
+def ptxas_notes(_build, lib_names, name):
+    """Registers, spills and ptxas's performance notes per kernel that
+    ``name`` (a mangled name -> short name, or None) picks out of the
+    libraries' build logs (only a library built in this run has them)."""
     out = {}
-    for lib_name in names:
+    for lib_name in lib_names:
         cur = None
         for ln in _build.build_logs.get(lib_name, "").splitlines():
             if "Compiling entry function" in ln:
@@ -2509,6 +2780,22 @@ def k2_tc_build(_build, libs):
                                                        .strip())
             elif cur and ("Used" in ln or "spill" in ln):
                 out[cur]["ptxas"].append(ln.split("info    :")[-1].strip())
+    return out
+
+
+def k2_tc_build(_build, libs):
+    """The 3xTF32 forward, dK/dV and dQ kernels' (64/128/256 wide: 9)
+    registers, spills, ptxas performance notes and, where cuobjdump is
+    found, their count of HGMMA (wgmma) instructions, which must be above
+    0 for all 9."""
+    import shutil
+    from pathlib import Path
+    def name(ln):
+        m = K2_TC_KERNEL.search(ln)
+        return f"{m.group(1)}<{m.group(2)}>" if m else None
+
+    names = [f"flash_attention_w{dp}_f32" for dp in _build.FLASH_WIDTHS]
+    out = ptxas_notes(_build, names, name)
     cuobjdump = shutil.which("cuobjdump") or str(
         Path(_build._nvcc()).parent / "cuobjdump")
     hgmma = None
@@ -2526,10 +2813,20 @@ def k2_tc_build(_build, libs):
                         hgmma[cur] = 0
                 elif cur and "HGMMA" in ln:
                     hgmma[cur] += 1
-        if len(hgmma) != 6 or not all(hgmma.values()):
+        if len(hgmma) != 9 or not all(hgmma.values()):
             raise AssertionError(f"3xTF32 kernels without HGMMA (or missing "
                                  f"from the SASS): {hgmma}")
     return {"kernels": out, "hgmma": hgmma}
+
+
+def k3_split_build(_build):
+    """The split decode kernel's (f32, bf16, f16; widths up to 1 and 15)
+    ptxas notes."""
+    def name(ln):
+        m = K3_SPLIT_KERNEL.search(ln)
+        return (f"{m.group(1)}<{m.group(2).lstrip('0123456789')},"
+                f"{m.group(3)}>") if m else None
+    return ptxas_notes(_build, ["paged_attention"], name)
 
 
 def main():
@@ -2564,7 +2861,8 @@ def main():
           "library_seconds": _build.build_seconds,
           "libraries": sorted(p.name for p in libs.values()),
           "ptxas": ptxas, "k1": k1_build(_build, libs),
-          "k2_3xtf32": k2_tc_build(_build, libs)})
+          "k2_3xtf32": k2_tc_build(_build, libs),
+          "k3_split_decode": k3_split_build(_build)})
 
     flash = phase_flash(torch, fap, fa)
     flash_launches = phase_train(torch, fap)
@@ -2573,7 +2871,7 @@ def main():
     phase_wide(torch, fa, fap)
     phase_wide(torch, fa, fap, b=2, gpt=WIDE512_GPT, name="wide512")
     emit({"phase": "wide512_times", **wide512_times(torch, fa, fap, pa)})
-    kern = phase_kernel(torch, pa)
+    k3_decode, k3_tiles = phase_kernel(torch, pa)
     eng, prompts, launches = phase_serving(torch, pa)
     phase_profile(torch, eng, prompts)
     del eng
@@ -2598,13 +2896,25 @@ def main():
          "launches": bhd_launches[k], **bhd[k],
          "timed_as": "f32, BH=16*12, s=1024, D=64, causal (the train_f32 "
                      "step's attention); library: PyTorch's efficient-"
-                     "attention SDPA; bound: dkdv and dq as 3xTF32 products "
-                     "on the tensor cores, fwd as f32 on the CUDA cores"}
+                     "attention SDPA; bound: fwd, dkdv and dq as 3xTF32 "
+                     "products on the tensor cores"}
         for k, line in (("fwd", 285), ("dkdv", 525), ("dq", 556))]
+    kernels.append({"name": "paged_decode_split", "route": "cuda",
+                    "source": src + "paged_attention.cu",
+                    "replaces": ref + "paged_attention.py:175",
+                    "launches": launches["paged_decode"], **k3_decode,
+                    "timed_as": "width-1 decode at the serving run's "
+                                "geometry (16 slots, 12 heads of 64, pages "
+                                "of 16, lengths 64..191), bf16; library: "
+                                "SDPA on K/V gathered contiguous"})
     kernels.append({"name": "paged_attention", "route": "cuda",
                     "source": src + "paged_attention.cu",
                     "replaces": ref + "paged_attention.py:175",
-                    "launches": launches, **kern})
+                    "launches": launches["paged_attention"], **k3_tiles,
+                    "timed_as": "a 32-row prefill chunk at the serving "
+                                "run's geometry, bf16 (the tensor-core "
+                                "tile kernel); library: SDPA with the "
+                                "offset-causal mask on gathered K/V"})
     kernels.append({"name": "quant_matmul", "route": "cuda",
                     "source": src + "quant_matmul.cu",
                     "replaces": ref + "quant_matmul.py:112",

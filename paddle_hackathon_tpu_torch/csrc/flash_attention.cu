@@ -21,8 +21,8 @@
 //     to the input type before P.V, and dS = P (dP - Δ) sm_scale before
 //     dS^T.q and dS.k;
 //   * f32 inputs keep f32's accuracy, as JAX runs them at
-//     Precision.HIGHEST: the forward as f32 FMAs on the CUDA cores, dK/dV
-//     and dQ as 3xTF32 on the tensor cores (below); no single-TF32 product;
+//     Precision.HIGHEST: the forward, dK/dV and dQ as 3xTF32 on the tensor
+//     cores (below); no single-TF32 product;
 //   * dropout regenerates the positional-hash mask of _dropout_keep bit for
 //     bit (key = the bh index, global positions); l takes the undropped p,
 //     P.V and dP take keep / (1 - p).
@@ -31,7 +31,8 @@
 // tf32 and 989 bf16 dense on the tensor cores, 3.35 TB/s) at the
 // GPT-2-small f32 train step's shape, BH = 16*12, s = 1024, D = 64, causal
 // (the causal half of the score pairs):
-//   fwd : 2 products (S, P.V), 25.8 GFLOP -> 0.385 ms; operations.
+//   fwd : 2 products (S, P.V), 25.8 GFLOP; as 3xTF32 -> 0.156 ms (0.385 ms
+//         as f32 on the CUDA cores); operations.
 //   dkdv: 4 products (S^T, dP^T, dV, dK), 51.6 GFLOP; as 3xTF32, three tf32
 //         products each -> 0.313 ms (0.770 ms as f32 on the CUDA cores).
 //   dq  : 3 products (S, dP, dQ), 38.7 GFLOP -> 0.235 ms (0.578 ms).
@@ -40,22 +41,17 @@
 //
 // Design:
 //   * bf16/f16: the mma.sync design K1 had before its Hopper rebuild, on the
-//     bhd layout: one block of 4 warps per (64-row tile, bh), each warp 16
+//     bhd layout: one block of 4 warps per (64-row tile, bh), (tile, bh)
+//     folded into grid.x so that any BH launches, each warp 16
 //     rows; mma.sync m16n8k16 with f32 accumulators fed by ldmatrix; the
 //     inner operand tiles double-buffered with cp.async; scores in log2
 //     units (one exp2f per probability); the mask only on tiles where a
 //     warp's rows meet the diagonal or a ragged end.
-//   * f32 forward: one block of 256 threads per (64-row tile, bh); each
-//     thread owns a 4 x 4 block of the 64 x 64 score tile (rows ty*4..,
-//     columns tx + 16 j) and 4 rows x DP/16 columns of O, every product a
-//     chain of f32 FMAs in one fixed order (d ascending, then kv rows
-//     ascending); operands and the probability tile in shared memory, read
-//     as float4 (row stride DP + 4 floats: conflict-free); the kv tiles
-//     double-buffered with cp.async where shared memory allows it.
-//   * f32 dK/dV and dQ: TMA-fed 3xTF32 wgmma, warp-specialised (the
-//     section "f32 dK/dV and dQ on the tensor cores" below), where TMA can
-//     address the rows (D % 4 == 0); other widths run the column-chunked
-//     CUDA-core kernels of flash_wide.cuh.
+//   * f32 forward, dK/dV and dQ: TMA-fed 3xTF32 wgmma, warp-specialised
+//     (the sections "f32 dK/dV and dQ on the tensor cores" and "f32 forward
+//     on the tensor cores" below), where TMA can address the rows (D % 4 ==
+//     0); other widths run the column-chunked CUDA-core kernels of
+//     flash_wide.cuh.
 //   * causal tiles above the diagonal are never loaded: fwd and dq stop at
 //     the diagonal kv tile, dkdv starts at the diagonal q tile (a kv tile
 //     past the last q row gets zero gradients); the heaviest tiles first.
@@ -70,9 +66,9 @@
 //     chunks for element reads at the row edge.  At 256: the mma family
 //     reads the q and dO fragments from shared memory at each use, and
 //     its dK/dV and dQ blocks keep half of the output columns (grid.z;
-//     each recomputes the scores), for registers; the f32 forward
-//     single-buffers its kv tiles, and the 3xTF32 dK/dV splits its output
-//     columns over two blocks.
+//     each recomputes the scores), for registers; the 3xTF32 forward runs
+//     one consumer warpgroup a block, and the 3xTF32 dK/dV splits its
+//     output columns over two blocks.
 // One summation order per output, whatever BH is: a row never depends on
 // the batch.
 //
@@ -87,9 +83,6 @@
 #include "hopper_common.cuh"
 
 namespace {
-
-constexpr int kThreadsF = wide::kThreads;   // the f32 forward: 16 x 16
-using wide::kPLd;                           // its probability tile stride
 
 struct Geo {
   int SQ, SKV, D;
@@ -142,6 +135,11 @@ __device__ __forceinline__ void load_rows(T* tile, const T* base, int row0,
   }
 }
 
+// 64-row tiles of n rows
+__host__ __device__ __forceinline__ int tiles(int n) {
+  return (n + kTile - 1) / kTile;
+}
+
 // kv tiles a causal q tile visits: up to the diagonal, inside the kv range
 __device__ __forceinline__ int kv_tiles(int qt, const Geo& g) {
   const int n_kv_all = (g.SKV + kTile - 1) / kTile;
@@ -172,8 +170,9 @@ bhd_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int kLd = DP + 8;
   constexpr int kTileEl = kTile * kLd;
   constexpr int kKs = DP / 16;
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heavy causal tiles first
-  const int bh = blockIdx.y;
+  const int n_t = tiles(g.SQ);
+  const int bh = blockIdx.x / n_t;            // (tile, bh) folded: any BH
+  const int qt = n_t - 1 - (blockIdx.x - bh * n_t);  // heavy causal first
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, tq = lane & 3;
   const T* qb = q + (size_t)bh * g.SQ * g.D;
@@ -359,8 +358,9 @@ bhd_dkdv_mma(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int kTileEl = kTile * kLd;
   constexpr int kKs = DP / 16;
   constexpr int kDO = DP / out_split<DP>();   // this block's columns
-  const int kt_i = blockIdx.x;                // causal: most q tiles first
-  const int bh = blockIdx.y;
+  const int n_t = tiles(g.SKV);
+  const int bh = blockIdx.x / n_t;            // (tile, bh) folded: any BH
+  const int kt_i = blockIdx.x - bh * n_t;     // causal: most q tiles first
   const int c0 = blockIdx.z * kDO;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, tq = lane & 3;
@@ -524,8 +524,9 @@ bhd_dq_mma(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int kTileEl = kTile * kLd;
   constexpr int kKs = DP / 16;
   constexpr int kDO = DP / out_split<DP>();   // this block's columns
-  const int qt_i = gridDim.x - 1 - blockIdx.x;  // heavy causal tiles first
-  const int bh = blockIdx.y;
+  const int n_t = tiles(g.SQ);
+  const int bh = blockIdx.x / n_t;            // (tile, bh) folded: any BH
+  const int qt_i = n_t - 1 - (blockIdx.x - bh * n_t);  // heavy causal first
   const int c0 = blockIdx.z * kDO;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, tq = lane & 3;
@@ -666,128 +667,6 @@ bhd_dq_mma(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
   }
-}
-
-// ===========================================================================
-// f32: FMAs on the CUDA cores, 256 threads, 4 x 4 scores per thread
-// ===========================================================================
-
-// STAGES 2 double-buffers the kv tiles; 1 (at 256, for shared memory)
-// loads the next tile after this one's P.V
-template <int DP, int STAGES, bool AL>
-__global__ void __launch_bounds__(kThreadsF)
-bhd_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, float* __restrict__ out,
-            float* __restrict__ lse, const int32_t* __restrict__ seed_ptr,
-            Geo g) {
-  constexpr int kLd = DP + 4;
-  constexpr int kTileEl = kTile * kLd;
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heavy causal tiles first
-  const int bh = blockIdx.y;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const float* qb = q + (size_t)bh * g.SQ * g.D;
-  const float* kb = k + (size_t)bh * g.SKV * g.D;
-  const float* vb = v + (size_t)bh * g.SKV * g.D;
-  const int32_t seed = g.dropout ? seed_ptr[0] : 0;
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* q_s = reinterpret_cast<float*>(smem);
-  float* k_s = q_s + kTileEl;                 // STAGES buffers
-  float* v_s = k_s + STAGES * kTileEl;        // STAGES buffers
-  float* p_s = v_s + STAGES * kTileEl;        // [64][kPLd]
-
-  const int q0 = qt * kTile;
-  const int n_kv = kv_tiles(qt, g);
-  auto load_kv = [&](int j, int buf) {
-    load_rows<float, DP, kLd, kThreadsF, AL>(k_s + buf * kTileEl, kb,
-                                             j * kTile, g.SKV, g.D, tid);
-    load_rows<float, DP, kLd, kThreadsF, AL>(v_s + buf * kTileEl, vb,
-                                             j * kTile, g.SKV, g.D, tid);
-  };
-  load_rows<float, DP, kLd, kThreadsF, AL>(q_s, qb, q0, g.SQ, g.D, tid);
-  load_kv(0, 0);
-  cp_async_commit();
-
-  float acc[4][DP / 16];
-  float m_r[4], l_r[4];                       // l_r: this thread's columns
-  int rows[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int c = 0; c < DP / 16; ++c) acc[i][c] = 0.f;
-    m_r[i] = kNegInf;
-    l_r[i] = 0.f;
-    rows[i] = q0 + ty * 4 + i;
-  }
-
-  for (int j = 0; j < n_kv; ++j) {
-    const int buf = STAGES == 2 ? j & 1 : 0;
-    cp_async_wait_all();
-    __syncthreads();
-    if (STAGES == 2 && j + 1 < n_kv) {
-      load_kv(j + 1, buf ^ 1);
-      cp_async_commit();
-    }
-    float s[4][4];
-    wide::dot_tile<DP, kLd>(s, q_s, k_s + buf * kTileEl, ty, tx, false);
-
-    const int k0 = j * kTile;
-    const bool need_mask = k0 + kTile > g.SKV ||
-                           (g.causal && k0 + kTile - 1 > q0 + ty * 4);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        float x = s[i][jj] * g.scale_log2;
-        if (need_mask) {
-          const int col = k0 + tx + 16 * jj;
-          const bool ok = col < g.SKV && (!g.causal || col <= rows[i]);
-          x = ok ? x : kNegInf;
-        }
-        s[i][jj] = x;
-        mx = fmaxf(mx, x);
-      }
-      mx = wide::row_max16(mx);
-      const float m_next = fmaxf(m_r[i], mx);
-      const float alpha = exp2f(m_r[i] - m_next);
-      m_r[i] = m_next;
-      l_r[i] *= alpha;
-#pragma unroll
-      for (int c = 0; c < DP / 16; ++c) acc[i][c] *= alpha;
-      // p (undropped into l), the dropped p into the tile for P.V; every
-      // valid row sees a valid score here, so masked p are exactly 0
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int cl = tx + 16 * jj;
-        float p = exp2f(s[i][jj] - m_next);
-        l_r[i] += p;
-        if (g.dropout)
-          p = keep_elem(seed, bh, rows[i], k0 + cl, g.thresh)
-                  ? p / g.keep_prob : 0.f;
-        p_s[(ty * 4 + i) * kPLd + cl] = p;
-      }
-    }
-    __syncthreads();
-    wide::pv_tile<DP, kLd>(acc, p_s, v_s + buf * kTileEl, ty, tx);
-    if (STAGES == 1 && j + 1 < n_kv) {
-      __syncthreads();                        // every read of the tile done
-      load_kv(j + 1, 0);
-      cp_async_commit();
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float l = wide::row_sum16(l_r[i]);
-    if (tx == 0 && rows[i] < g.SQ)
-      lse[(size_t)bh * g.SQ + rows[i]] = m_r[i] * kLn2 + logf(fmaxf(l, 1e-30f));
-    const float ld = l == 0.f ? 1.f : l;      // the JAX guard
-#pragma unroll
-    for (int c = 0; c < DP / 16; ++c) acc[i][c] /= ld;
-  }
-  wide::store<float, DP>(out + (size_t)bh * g.SQ * g.D, g.D, acc,
-                         q0 + ty * 4, g.SQ, g.D, tx, 0);
 }
 
 // ===========================================================================
@@ -1107,11 +986,14 @@ bhd_dkdv_tc(const __grid_constant__ CUtensorMap q_map,
   using namespace tc;
   constexpr int kNS = DP / kSl;
   constexpr int kNC = kNS / tc_dkdv_split<DP>();   // this block's chunks
-  // the column parts of a kv tile are neighbours in the launch order, so
-  // that they share their q, dO, k and v reads in the L2
-  const int kt_i = blockIdx.x / tc_dkdv_split<DP>();   // most q tiles first
-  const int bh = blockIdx.y;
-  const int cz = blockIdx.x % tc_dkdv_split<DP>() * kNC;   // first chunk
+  // (column part, kv tile, bh) folded into grid.x, so any BH; the column
+  // parts of a kv tile are neighbours in the launch order, so that they
+  // share their q, dO, k and v reads in the L2
+  const int n_x = tiles(g.SKV) * tc_dkdv_split<DP>();
+  const int bh = blockIdx.x / n_x;
+  const int xi = blockIdx.x - bh * n_x;
+  const int kt_i = xi / tc_dkdv_split<DP>();  // most q tiles first
+  const int cz = xi % tc_dkdv_split<DP>() * kNC;   // first chunk
   const int kv0 = kt_i * kTile;
   const int n_q = (g.SQ + kTile - 1) / kTile;
   const int i0 = g.causal ? kt_i : 0;         // first q tile that sees kv0
@@ -1253,8 +1135,9 @@ bhd_dq_tc(const __grid_constant__ CUtensorMap q_map,
           Geo g) {
   using namespace tc;
   constexpr int kNS = DP / kSl, kHalf = kNS / 2;
-  const int qt_i = gridDim.x - 1 - blockIdx.x;  // heavy causal tiles first
-  const int bh = blockIdx.y;
+  const int n_t = tiles(g.SQ);
+  const int bh = blockIdx.x / n_t;            // (tile, bh) folded: any BH
+  const int qt_i = n_t - 1 - (blockIdx.x - bh * n_t);  // heavy causal first
   const int q0 = qt_i * kTile;
   const int n_kv = kv_tiles(qt_i, g);
 
@@ -1376,6 +1259,325 @@ bhd_dq_tc(const __grid_constant__ CUtensorMap q_map,
 }
 
 // ===========================================================================
+// f32 forward on the tensor cores: 3xTF32 wgmma on TMA-fed tiles
+// ===========================================================================
+//
+// The pair's design (above) turned to the forward.  S = q . K^T contracts
+// over the head width, so both operands are K-major tiles as TMA delivers
+// them; O += P . V contracts over kv rows, so V arrives through the
+// transposed hi/lo copy, and P, an accumulator in registers, is the
+// register A operand of tf32 wgmma.  An accumulator holds a row's columns
+// 2t, 2t + 1 where the A fragment holds k = t, t + 4: rather than move P
+// between lanes, the transposed copy of V writes each group of 8 kv rows
+// in the order 0, 2, 4, 6, 1, 3, 5, 7 (the same permutation of the
+// contracted index on both sides leaves the product unchanged).
+//
+// One block per (kW consecutive 64-row q tiles, bh): a producer warpgroup
+// and kW consumer warpgroups, each consumer on its own q tile (no P
+// hand-off), both reading the same split K and V tiles.  The producer's
+// thread 0 issues the TMA loads of raw [64][32] f32 boxes into a ring of
+// kRaw slots; the producer warpgroup splits each box into hi/lo operand
+// tiles (K as it lands, V transposed) in a ring of kOps slots, which the
+// consumers release once their wgmma have read them.  Each block's q tiles
+// are split once, at the start, and stay in shared memory.  Per kv tile a
+// consumer sums S slice by slice (each 32-column slice's 12 wgmma in a
+// fresh accumulator, added to an f32 total: the tensor core truncates its
+// sums), takes the online softmax in registers (log2 units, -1e30 before
+// the max, l over the undropped p), splits the dropped p into hi and lo,
+// rescales O and adds each 32-column chunk's P . V, a fresh accumulator
+// of 24 wgmma, to it.  kW = 2 up to DP = 128; at 256 one consumer (the
+// resident q tiles and O's 128 registers a thread).
+//
+// Bound: operations, two products at 3 tf32 products each on the tensor
+// cores (0.156 ms at the f32 train step's shape, 2.5x below the CUDA
+// cores' f32 bound).
+namespace tcf {
+
+constexpr int kRaw = 4;                   // raw box slots
+constexpr int kOps = 4;                   // operand slots: hi and lo tiles
+constexpr int kBarProd = 1;               // the producer warpgroup's barrier
+template <int DP> __host__ __device__ constexpr int consumers() {
+  return DP <= 128 ? 2 : 1;
+}
+template <int DP> constexpr int threads() {
+  return 128 * (1 + consumers<DP>());
+}
+// 1024 bytes of alignment, q hi and lo per consumer, the rings, barriers
+template <int DP> constexpr size_t smem() {
+  return 1024 + (size_t)(2 * consumers<DP>() * (DP / tc::kSl) + kRaw +
+                         2 * kOps) * tc::kBox + 8 * (2 + kRaw + 2 * kOps);
+}
+
+// one raw box split into separate hi and lo tiles (same layout)
+__device__ __forceinline__ void split_to(const unsigned char* box,
+                                         unsigned char* hi, unsigned char* lo,
+                                         int t) {
+  const float4* x = reinterpret_cast<const float4*>(box);
+  float4* h = reinterpret_cast<float4*>(hi);
+  float4* l = reinterpret_cast<float4*>(lo);
+#pragma unroll
+  for (int k = 0; k < tc::kBox / 16 / 128; ++k)
+    tc::split4(x[t + 128 * k], h[t + 128 * k], l[t + 128 * k]);
+}
+
+// tc::split_t with the kv rows of each group of 8 in the k order 0, 2, 4,
+// 6, 1, 3, 5, 7: thread t reads column t % 32 of rows r0, r0 + 2, r0 + 4,
+// r0 + 6 and writes them as k positions k0 .. k0 + 3.
+__device__ __forceinline__ void split_tp(const unsigned char* box,
+                                         unsigned char* hi, unsigned char* lo,
+                                         int t) {
+  const int c = t & 31, g = t >> 5;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int r0 = 16 * g + 8 * (j >> 1) + (j & 1);
+    const int k0 = 16 * g + 4 * j;
+    float4 v, h, l;
+    v.x = *reinterpret_cast<const float*>(box + tc::sw(r0, c));
+    v.y = *reinterpret_cast<const float*>(box + tc::sw(r0 + 2, c));
+    v.z = *reinterpret_cast<const float*>(box + tc::sw(r0 + 4, c));
+    v.w = *reinterpret_cast<const float*>(box + tc::sw(r0 + 6, c));
+    tc::split4(v, h, l);
+    const int off = (k0 >> 5) * (tc::kBox / 2) + tc::sw(c, k0 & 31);
+    *reinterpret_cast<float4*>(hi + off) = h;
+    *reinterpret_cast<float4*>(lo + off) = l;
+  }
+}
+
+// d = P . B^T over 64 kv rows in 3xTF32: P's hi and lo A fragments in
+// registers (k-step kk in ph[4kk..4kk+3]), B a [32][64] K-major hi/lo
+// tile (two [32][32] sub-tiles 4 KB apart); al.bh, ah.bl, ah.bh per
+// k-step, one accumulator started afresh.
+__device__ __forceinline__ void pv_tf32x3(float* d, const uint32_t* ph,
+                                          const uint32_t* pl,
+                                          const unsigned char* bh,
+                                          const unsigned char* bl) {
+  const uint64_t dbh = hopper::desc_sw128(bh, 16, 1024);
+  const uint64_t dbl = hopper::desc_sw128(bl, 16, 1024);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint64_t ob = ((kk >> 2) * (tc::kBox / 2) + (kk & 3) * 32) >> 4;
+    hopper::wgmma_tf32_rs_n32(d, pl + 4 * kk, dbh + ob, kk > 0 ? 1 : 0);
+    hopper::wgmma_tf32_rs_n32(d, ph + 4 * kk, dbl + ob, 1);
+    hopper::wgmma_tf32_rs_n32(d, ph + 4 * kk, dbh + ob, 1);
+  }
+}
+
+}  // namespace tcf
+
+template <int DP>
+__global__ void __launch_bounds__(tcf::threads<DP>(), 1)
+bhd_fwd_tc(const __grid_constant__ CUtensorMap q_map,
+           const __grid_constant__ CUtensorMap k_map,
+           const __grid_constant__ CUtensorMap v_map, float* __restrict__ out,
+           float* __restrict__ lse, const int32_t* __restrict__ seed_ptr,
+           Geo g) {
+  using namespace tc;
+  using tcf::kOps;
+  using tcf::kRaw;
+  constexpr int kNS = DP / kSl;               // 32-column slices
+  constexpr int kW = tcf::consumers<DP>();    // consumer warpgroups
+  const int n_t = tiles(g.SQ);
+  const int n_blk = (n_t + kW - 1) / kW;
+  const int bh = blockIdx.x / n_blk;          // (tiles, bh) folded: any BH
+  const int blk = n_blk - 1 - (blockIdx.x - bh * n_blk);  // heavy first
+  // the kv tiles of the block's last q tile; ring entries per kv tile:
+  // kNS K slices, then kNS V chunks
+  const int n_kv = kv_tiles(min(kW * blk + kW - 1, n_t - 1), g);
+  const int total = n_kv * 2 * kNS;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qbuf = align1024(smem_raw);  // [hi, lo][consumer][slice]
+  unsigned char* raw = qbuf + 2 * kW * kNS * kBox;
+  unsigned char* ops = raw + kRaw * kBox;     // [slot][hi, lo]
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(ops + 2 * kOps * kBox);
+  uint64_t* qready = qfull + 1;
+  uint64_t* rawfull = qready + 1;
+  uint64_t* opready = rawfull + kRaw;
+  uint64_t* opfree = opready + kOps;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(qfull, 1);
+    hopper::mbar_init(qready, 128);
+    for (int s = 0; s < kRaw; ++s) hopper::mbar_init(rawfull + s, 1);
+    for (int s = 0; s < kOps; ++s) {
+      hopper::mbar_init(opready + s, 128);
+      hopper::mbar_init(opfree + s, 128 * kW);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+
+  if (wg == kW) {                             // the producer warpgroup
+    auto load = [&](int e) {                  // entry e's raw box
+      const int j = e / (2 * kNS), r = e - j * 2 * kNS, s = e % kRaw;
+      hopper::mbar_arrive_expect_tx(rawfull + s, kBox);
+      hopper::tma_load_4d(raw + s * kBox, r < kNS ? &k_map : &v_map,
+                          rawfull + s, (r % kNS) * kSl, 0, j * kTile, bh);
+    };
+    if (t == 0) {
+      hopper::mbar_arrive_expect_tx(qfull, kW * kNS * kBox);
+      for (int w = 0; w < kW; ++w)
+        for (int c = 0; c < kNS; ++c)
+          hopper::tma_load_4d(qbuf + (w * kNS + c) * kBox, &q_map, qfull,
+                              c * kSl, 0, (kW * blk + w) * kTile, bh);
+      for (int e = 0; e < min(kRaw, total); ++e) load(e);
+    }
+    hopper::mbar_wait(qfull, 0);              // q: hi in place, lo beside
+    for (int b = 0; b < kW * kNS; ++b)
+      split_box(qbuf + b * kBox, qbuf + (kW * kNS + b) * kBox, t);
+    hopper::fence_async_shared();
+    hopper::mbar_arrive(qready);
+    for (int e = 0; e < total; ++e) {
+      const int s = e % kRaw, o = e % kOps;
+      hopper::mbar_wait(rawfull + s, (e / kRaw) & 1);
+      hopper::mbar_wait(opfree + o, ((e / kOps) & 1) ^ 1);
+      unsigned char* hi = ops + 2 * o * kBox;
+      if (e % (2 * kNS) < kNS)
+        tcf::split_to(raw + s * kBox, hi, hi + kBox, t);
+      else
+        tcf::split_tp(raw + s * kBox, hi, hi + kBox, t);
+      hopper::fence_async_shared();
+      hopper::mbar_arrive(opready + o);
+      hopper::named_bar_sync(tcf::kBarProd, 128);   // the raw slot is read
+      if (t == 0 && e + kRaw < total) load(e + kRaw);
+    }
+    return;
+  }
+
+  const int warp = t >> 5, lane = t & 31, gq = lane >> 2, tq = lane & 3;
+  const int qt = kW * blk + wg;
+  const int q0 = qt * kTile;
+  const int my_kv = qt < n_t ? kv_tiles(qt, g) : 0;
+  const int r_a = 16 * warp + gq;             // this thread's tile rows
+  const int rows[2] = {q0 + r_a, q0 + r_a + 8};
+  const int32_t seed = g.dropout ? seed_ptr[0] : 0;
+  const unsigned char* qh = qbuf + wg * kNS * kBox;
+  const unsigned char* ql = qbuf + (kW + wg) * kNS * kBox;
+  float o[kNS][16];                           // O, 32-column chunks
+#pragma unroll
+  for (int c = 0; c < kNS; ++c)
+#pragma unroll
+    for (int x = 0; x < 16; ++x) o[c][x] = 0.f;
+  float m_r[2] = {kNegInf, kNegInf};
+  float l_r[2] = {0.f, 0.f};                  // this thread's partial sums
+  uint32_t ph[32], pl[32];                    // P's hi / lo A fragments
+  hopper::mbar_wait(qready, 0);
+
+  int e = 0;
+  for (int j = 0; j < n_kv; ++j) {
+    const bool on = j < my_kv;                // else release the entries
+    float sx[32];
+    // S = q . k^T, 64 q x 64 kv, one slice at a time
+#pragma unroll
+    for (int c = 0; c < kNS; ++c, ++e) {
+      const int s = e % kOps;
+      hopper::mbar_wait(opready + s, (e / kOps) & 1);
+      if (on) {
+        float part[32];
+        const unsigned char* kh = ops + 2 * s * kBox;
+        hopper::wgmma_fence();
+        tf32x3<64, 4, kBox, kBox>(part, part, qh + c * kBox, ql + c * kBox,
+                                  kh, kh + kBox);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_acc(part);
+#pragma unroll
+        for (int x = 0; x < 32; ++x)
+          sx[x] = c == 0 ? part[x] : sx[x] + part[x];
+      }
+      hopper::mbar_arrive(opfree + s);
+    }
+    if (on) {
+      // scores in log2 units, masked at -1e30 only where this warp's rows
+      // meet the diagonal or the ragged end
+      const int k0 = j * kTile;
+      const bool need_mask = k0 + kTile > g.SKV ||
+                             (g.causal && k0 + kTile - 1 > q0 + 16 * warp);
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const int r = (x >> 1) & 1;
+        float v = sx[x] * g.scale_log2;
+        if (need_mask) {
+          const int col = k0 + 8 * (x >> 2) + 2 * tq + (x & 1);
+          v = (col < g.SKV && (!g.causal || col <= rows[r])) ? v : kNegInf;
+        }
+        sx[x] = v;
+        mx[r] = fmaxf(mx[r], v);
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_next = fmaxf(m_r[r], mx[r]);
+        alpha[r] = exp2f(m_r[r] - m_next);
+        m_r[r] = m_next;
+        l_r[r] *= alpha[r];
+      }
+      // p (undropped into l), the dropped p split into P's A fragments:
+      // element x (row r, column 2 tq + (x & 1) of k-step x / 4) is
+      // register 4 (x / 4) + {0, 2, 1, 3}[x % 4].  Every valid row sees a
+      // valid score in each tile it visits, so masked p are exactly 0.
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const int r = (x >> 1) & 1;
+        float p = exp2f(sx[x] - m_r[r]);
+        l_r[r] += p;
+        if (g.dropout) {
+          const int col = k0 + 8 * (x >> 2) + 2 * tq + (x & 1);
+          p = keep_elem(seed, bh, rows[r], col, g.thresh) ? p / g.keep_prob
+                                                          : 0.f;
+        }
+        const int at = (x & ~3) | ((x & 1) << 1) | ((x >> 1) & 1);
+        const float h = hopper::tf32_rna(p);
+        ph[at] = __float_as_uint(h);
+        pl[at] = __float_as_uint(hopper::tf32_rna(p - h));
+      }
+#pragma unroll
+      for (int c = 0; c < kNS; ++c)
+#pragma unroll
+        for (int x = 0; x < 16; ++x) o[c][x] *= alpha[(x >> 1) & 1];
+    }
+    // O += P . V, one 32-column chunk at a time
+#pragma unroll
+    for (int c = 0; c < kNS; ++c, ++e) {
+      const int s = e % kOps;
+      hopper::mbar_wait(opready + s, (e / kOps) & 1);
+      if (on) {
+        float pv[16];
+        const unsigned char* vh = ops + 2 * s * kBox;
+        hopper::wgmma_fence();
+        tcf::pv_tf32x3(pv, ph, pl, vh, vh + kBox);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_acc<16>(pv);
+#pragma unroll
+        for (int x = 0; x < 16; ++x) o[c][x] += pv[x];
+      }
+      hopper::mbar_arrive(opfree + s);
+    }
+  }
+  if (my_kv == 0) return;                     // a q tile past the end
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_r[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    if (tq == 0 && rows[r] < g.SQ)
+      lse[(size_t)bh * g.SQ + rows[r]] =
+          m_r[r] * kLn2 + logf(fmaxf(l, 1e-30f));
+    l_r[r] = l == 0.f ? 1.f : l;              // the JAX guard
+  }
+#pragma unroll
+  for (int c = 0; c < kNS; ++c)
+#pragma unroll
+    for (int x = 0; x < 16; ++x) o[c][x] /= l_r[(x >> 1) & 1];
+  store_chunks<kNS>(out + (size_t)bh * g.SQ * g.D, o, rows, g.SQ, g.D, 0, tq);
+}
+
+// ===========================================================================
 // Launch
 // ===========================================================================
 
@@ -1392,12 +1594,6 @@ constexpr bool kF32 = FLASH_F32 != 0;         // this library's family
 template <typename T, int DP> constexpr size_t mma_tile() {
   return (size_t)kTile * (DP + 8) * sizeof(T);
 }
-template <int DP> constexpr size_t f32_tile() {
-  return (size_t)kTile * (DP + 4) * sizeof(float);
-}
-constexpr size_t kPTile = (size_t)kTile * kPLd * sizeof(float);
-// The f32 forward double-buffers its kv tiles where shared memory allows.
-template <int DP> constexpr int fwd_stages() { return DP <= 128 ? 2 : 1; }
 
 template <typename KernelT, typename... Args>
 int launch(KernelT kernel, dim3 grid, int threads, size_t smem,
@@ -1408,11 +1604,17 @@ int launch(KernelT kernel, dim3 grid, int threads, size_t smem,
   return (int)cudaGetLastError();
 }
 
-int tiles(int n) { return (n + kTile - 1) / kTile; }
+// grid.x of tiles(n) 64-row tiles x parts x BH, or 0 past grid.x's limit
+unsigned folded(int n, int parts, int BH) {
+  const long long gx = (long long)tiles(n) * parts * BH;
+  return gx > 0x7FFFFFFFLL ? 0u : (unsigned)gx;
+}
 
 template <typename T, bool AL>
 int fwd_mma(const Ptrs& a, const Geo& g, cudaStream_t st) {
-  return launch(bhd_fwd_mma<T, kDP, AL>, dim3(tiles(g.SQ), a.BH), kThreads,
+  const unsigned gx = folded(g.SQ, 1, a.BH);
+  if (!gx) return -1;
+  return launch(bhd_fwd_mma<T, kDP, AL>, dim3(gx), kThreads,
                 5 * mma_tile<T, kDP>(), st, static_cast<const T*>(a.q),
                 static_cast<const T*>(a.k), static_cast<const T*>(a.v),
                 static_cast<T*>(a.out), static_cast<float*>(a.lse),
@@ -1420,10 +1622,11 @@ int fwd_mma(const Ptrs& a, const Geo& g, cudaStream_t st) {
 }
 template <typename T, bool AL>
 int dkdv_mma(const Ptrs& a, const Geo& g, cudaStream_t st) {
-  return launch(bhd_dkdv_mma<T, kDP, AL>,
-                dim3(tiles(g.SKV), a.BH, out_split<kDP>()), kThreads,
-                6 * mma_tile<T, kDP>() + 4 * kTile * sizeof(float), st,
-                static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+  const unsigned gx = folded(g.SKV, 1, a.BH);
+  if (!gx) return -1;
+  return launch(bhd_dkdv_mma<T, kDP, AL>, dim3(gx, 1, out_split<kDP>()),
+                kThreads, 6 * mma_tile<T, kDP>() + 4 * kTile * sizeof(float),
+                st, static_cast<const T*>(a.q), static_cast<const T*>(a.k),
                 static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
                 static_cast<const float*>(a.lse_in),
                 static_cast<const float*>(a.delta),
@@ -1432,33 +1635,23 @@ int dkdv_mma(const Ptrs& a, const Geo& g, cudaStream_t st) {
 }
 template <typename T, bool AL>
 int dq_mma(const Ptrs& a, const Geo& g, cudaStream_t st) {
-  return launch(bhd_dq_mma<T, kDP, AL>,
-                dim3(tiles(g.SQ), a.BH, out_split<kDP>()), kThreads,
-                6 * mma_tile<T, kDP>(), st, static_cast<const T*>(a.q),
-                static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-                static_cast<const T*>(a.dout),
+  const unsigned gx = folded(g.SQ, 1, a.BH);
+  if (!gx) return -1;
+  return launch(bhd_dq_mma<T, kDP, AL>, dim3(gx, 1, out_split<kDP>()),
+                kThreads, 6 * mma_tile<T, kDP>(), st,
+                static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+                static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
                 static_cast<const float*>(a.lse_in),
                 static_cast<const float*>(a.delta),
                 static_cast<const int32_t*>(a.seed), static_cast<T*>(a.dq),
                 g);
 }
 
-template <bool AL>
-int fwd_f32(const Ptrs& a, const Geo& g, cudaStream_t st) {
-  constexpr int S = fwd_stages<kDP>();
-  return launch(bhd_fwd_f32<kDP, S, AL>, dim3(tiles(g.SQ), a.BH), kThreadsF,
-                (1 + 2 * S) * f32_tile<kDP>() + kPTile, st,
-                static_cast<const float*>(a.q),
-                static_cast<const float*>(a.k),
-                static_cast<const float*>(a.v), static_cast<float*>(a.out),
-                static_cast<float*>(a.lse),
-                static_cast<const int32_t*>(a.seed), g);
-}
-// The TMA maps of q, k, v and dO as (BH, S, 1, D) f32 tensors.
-int tc_maps(CUtensorMap* m, const Ptrs& a, const Geo& g) {
+// The TMA maps of q, k, v and (n = 4) dO as (BH, S, 1, D) f32 tensors.
+int tc_maps(CUtensorMap* m, const Ptrs& a, const Geo& g, int n = 4) {
   const void* base[4] = {a.q, a.k, a.v, a.dout};
   const int rows[4] = {g.SQ, g.SKV, g.SKV, g.SQ};
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < n; ++i) {
     const int err =
         hopper::make_map_bshd<float>(m + i, base[i], a.BH, rows[i], 1, g.D);
     if (err) return err;
@@ -1497,16 +1690,35 @@ wide::Args wide_args(const Ptrs& a, const Geo& g) {
   return w;
 }
 
-// f32 dK/dV and dQ: rows TMA can address (D % 4 == 0, AL) run the 3xTF32
-// tensor-core kernels; other widths the column-chunked CUDA-core kernels.
+// f32 forward, dK/dV and dQ: rows TMA can address (D % 4 == 0, AL) run
+// the 3xTF32 tensor-core kernels; other widths the column-chunked
+// CUDA-core kernels.
+template <bool AL>
+int fwd_f32(const Ptrs& a, const Geo& g, cudaStream_t st) {
+  if constexpr (AL) {
+    constexpr int kW = tcf::consumers<kDP>();
+    const long long gx = (long long)((tiles(g.SQ) + kW - 1) / kW) * a.BH;
+    if (gx > 0x7FFFFFFFLL) return -1;
+    CUtensorMap m[3];
+    const int err = tc_maps(m, a, g, 3);
+    if (err) return err;
+    return launch(bhd_fwd_tc<kDP>, dim3((unsigned)gx), tcf::threads<kDP>(),
+                  tcf::smem<kDP>(), st, m[0], m[1], m[2],
+                  static_cast<float*>(a.out), static_cast<float*>(a.lse),
+                  static_cast<const int32_t*>(a.seed), g);
+  } else {
+    return wide::launch_fwd<float, false>(wide_args(a, g), st);
+  }
+}
 template <bool AL>
 int dkdv_f32(const Ptrs& a, const Geo& g, cudaStream_t st) {
   if constexpr (AL) {
+    const unsigned gx = folded(g.SKV, tc_dkdv_split<kDP>(), a.BH);
+    if (!gx) return -1;
     CUtensorMap m[4];
     const int err = tc_maps(m, a, g);
     if (err) return err;
-    return launch(bhd_dkdv_tc<kDP>,
-                  dim3(tiles(g.SKV) * tc_dkdv_split<kDP>(), a.BH), tc::kBlock,
+    return launch(bhd_dkdv_tc<kDP>, dim3(gx), tc::kBlock,
                   tc::kSmemDkdv, st, m[0], m[1], m[2], m[3],
                   static_cast<const float*>(a.lse_in),
                   static_cast<const float*>(a.delta),
@@ -1519,10 +1731,12 @@ int dkdv_f32(const Ptrs& a, const Geo& g, cudaStream_t st) {
 template <bool AL>
 int dq_f32(const Ptrs& a, const Geo& g, cudaStream_t st) {
   if constexpr (AL) {
+    const unsigned gx = folded(g.SQ, 1, a.BH);
+    if (!gx) return -1;
     CUtensorMap m[4];
     const int err = tc_maps(m, a, g);
     if (err) return err;
-    return launch(bhd_dq_tc<kDP>, dim3(tiles(g.SQ), a.BH), tc::kBlock,
+    return launch(bhd_dq_tc<kDP>, dim3(gx), tc::kBlock,
                   tc::kSmemDq, st, m[0], m[1], m[2], m[3],
                   static_cast<const float*>(a.lse_in),
                   static_cast<const float*>(a.delta),
@@ -1543,7 +1757,7 @@ template <template <typename, bool> class F>
 int dispatch(int dtype, const Ptrs& a, const Geo& g, void* stream) {
   const int lo = kDP == 64 ? 1 : kDP / 2 + 1;
   if (dtype < 0 || dtype > 2 || (dtype == 0) != kF32 || a.BH < 1 ||
-      a.BH > 65535 || g.SQ < 1 || g.SKV < 1 || g.D < 1 ||
+      g.SQ < 1 || g.SKV < 1 || g.D < 1 ||
       (kDP > 0 && (g.D < lo || g.D > kDP)))
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1560,8 +1774,8 @@ int dispatch(int dtype, const Ptrs& a, const Geo& g, void* stream) {
 }
 
 // The three kernels as dispatch's F: past 256 the column-chunked ones;
-// else the f32 forward on the CUDA cores and the f32 backward on the
-// tensor cores (3xTF32), the bf16/f16 instances on mma.sync.
+// else f32 on the tensor cores (3xTF32) where TMA can address the rows,
+// the bf16/f16 instances on mma.sync.
 template <typename T, bool AL> struct Fwd {
   static int run(const Ptrs& a, const Geo& g, cudaStream_t st) {
     if constexpr (kDP == 0)

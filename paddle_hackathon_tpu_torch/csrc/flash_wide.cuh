@@ -2,7 +2,7 @@
 // forward, dK/dV and dQ for K2's (BH, S, D) tensors and K1's packed
 // (b, s, 3*H*D) projection alike (flash_attention.cu and
 // flash_attention_packed.cu include it).  These are the kernels for head
-// widths past the tensor-core instances (D > 256), and K2's f32 backward
+// widths past the tensor-core instances (D > 256), and K2's f32 kernels
 // where a row is not 16-byte aligned (D % 4 != 0: TMA cannot address it).
 //
 // Design (right first; no preset reaches these widths):

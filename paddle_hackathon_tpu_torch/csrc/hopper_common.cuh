@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks of the port's warp-specialised kernels:
 // TMA tensor maps (encoded on the host by cuTensorMapEncodeTiled, looked
-// up through the CUDA runtime, so no library needs -lcuda), mbarrier
-// rings, TMA tile loads, named barriers, register reconfiguration, and
-// wgmma m64n64k16 products with f32 accumulators, A from shared memory or
-// from registers, B from shared memory, operands in 128-byte-swizzled
-// tiles.
+// up through the CUDA runtime, so no library needs -lcuda; 4-D swizzled
+// ones for the flash kernels, 2-D unswizzled ones for the paged pools),
+// mbarrier rings, TMA tile loads, named barriers, register
+// reconfiguration, and wgmma products with f32 accumulators (bf16/f16
+// m64n64k16 and tf32 m64nNk8), A from shared memory or from registers, B
+// from shared memory, operands in 128-byte-swizzled tiles.
 //
 // Tile convention: a tile of R rows and DP (64 or 128) columns of a 2-byte
 // type is DP/64 sub-tiles of [R][64] elements, each row 128 bytes, each
@@ -98,6 +99,28 @@ int make_map_bshd(CUtensorMap* map, const void* base, int B, int S,
   return r == CUDA_SUCCESS ? 0 : -3;
 }
 
+// A map of a row-major (rows, cols) matrix of T, row stride `ld`
+// elements, whose box is {box_cols, box_rows} with no swizzle (rows land
+// dense in shared memory, box_cols elements each).  Columns past `cols` and
+// rows past `rows` arrive as zeros.  Needs box_cols, box_rows <= 256,
+// box_cols * sizeof(T) and ld * sizeof(T) multiples of 16 bytes.
+template <typename T>
+int make_map_2d(CUtensorMap* map, const void* base, long long rows,
+                long long cols, long long ld, int box_cols, int box_rows) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return -2;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * sizeof(T)};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  CUresult r = encode(map, map_type<T>(), 2, const_cast<void*>(base), dims,
+                      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_NONE,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -3;
+}
+
 // ---------------------------------------------------------------------------
 // Device: barriers and copies
 // ---------------------------------------------------------------------------
@@ -163,6 +186,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// one TMA box of a 2-D `map` at (c0 column, c1 row) into shared memory
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
       : "memory");
 }
 
@@ -322,6 +356,20 @@ __device__ __forceinline__ void wgmma_tf32_n32(float* d, uint64_t a,
                HOPPER_ACC16 ", %16, %17, p, 1, 1;\n}\n"
                : HOPPER_ACC16_OPS(d)
                : "l"(a), "l"(b), "r"(acc));
+}
+
+// d[64 x 32] (+)= A[64 x 8] . B[8 x 32] in tf32, A in registers, B
+// K-major in shared memory.  Thread (warp w, lane l) holds A's rows
+// 16w + l/4 (a[0], a[2]) and 16w + l/4 + 8 (a[1], a[3]), k = l%4 (a[0],
+// a[1]) and l%4 + 4 (a[2], a[3]): mma.m16n8k8's tf32 A fragment per warp.
+__device__ __forceinline__ void wgmma_tf32_rs_n32(float* d, const uint32_t* a,
+                                                  uint64_t b, int acc) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+               HOPPER_ACC16 ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+               : HOPPER_ACC16_OPS(d)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+                 "r"(acc));
 }
 
 #undef HOPPER_ACC16_OPS

@@ -19,12 +19,23 @@
 // at 3.35 TB/s; launch and fixed costs dominate that, which is a later
 // change's work (a CUDA graph over the decode step, or fusing the layer).
 //
-// Design (simple and right first):
-//   * grid (H x output slices, B, query tiles): one block of 8 warps per
-//     (slot, head, output slice, up to kMaxTileBlocks tiles of QT = 16
-//     query rows), so a prefill chunk of 128 rows runs 8 blocks where a
-//     decode step runs one.  The block
-//     reads its own page ids; there is no scalar prefetch.
+// Routing, by the wrapper (paged_attention.py), each kernel counted apart:
+//   * decode widths (s < 16) with 16-byte rows (D * size % 16 == 0) up to
+//     D = 256, any dtype: the split decode kernel (paged_decode_split,
+//     below: whole-page TMA loads, chunks of 64 rows over blocks, merged in
+//     the launch), through paged_decode_launch;
+//   * everything else through paged_attention_launch: bf16 / f16 widths
+//     from 16 (prefill chunks) the tensor-core kernels, in slices past 256;
+//     f32 prefill chunks, decode at D > 256 or rows not 16-byte aligned
+//     (D = 36 in bf16) the scalar kernel.
+// Every launch folds the slot index into grid.x, so any slot count runs.
+//
+// The scalar kernel (simple and right first):
+//   * grid (slots x H x output slices, 1, query tiles): one block of 8
+//     warps per (slot, head, output slice, up to kMaxTileBlocks tiles of
+//     QT = 16 query rows), so a prefill chunk of 128 rows runs 8 blocks
+//     where a decode step runs one.  The block reads its own page ids;
+//     there is no scalar prefetch.
 //   * for each of its query tiles the block walks the slot's logical rows
 //     t <= min(T - 1, lengths[b] + last row of the tile) in stages of 64
 //     rows, which may span several pages: each row finds its page through
@@ -50,8 +61,8 @@
 //   the next stage in registers during the math, interleaved shuffle
 //   reductions and split accumulators gained nothing measurable, so they
 //   are not kept.  The walk is a serial chain of dependent loads and
-//   barriers per block: splitting long walks across blocks
-//   (flash-decoding) is the next step.
+//   barriers per block, which the split decode kernel replaces at decode
+//   widths.
 //
 // Prefill widths (bf16 / f16, s >= 16): a second kernel runs the query
 // tiles on the tensor cores, K2's mma.sync forward (flash_attention.cu)
@@ -69,6 +80,7 @@
 #include <type_traits>
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -115,8 +127,9 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                        int maxp, float scale) {
   const int W = SLICED ? kMaxD : D;              // slice width
   const int nc = SLICED ? (D + kMaxD - 1) / kMaxD : 1;   // slices
-  const int h = blockIdx.x / nc, oc = blockIdx.x - h * nc;
-  const int b = blockIdx.y;
+  const int b = blockIdx.x / (H * nc);           // (slot, head, slice)
+  const int hc = blockIdx.x - b * (H * nc);      // folded: any B
+  const int h = hc / nc, oc = hc - h * nc;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -353,8 +366,10 @@ paged_attention_mma(const T* __restrict__ q, const T* __restrict__ k_pool,
   constexpr int kTileEl = kTile * kLd;
   constexpr int kKs = DP / 16;
   constexpr bool kQReg = DP <= 128;     // else q fragments from shared
-  const int i0 = blockIdx.x * kTile;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int n_qt = (s + kTile - 1) / kTile;
+  const int b = blockIdx.x / n_qt;            // (slot, tile) folded: any B
+  const int i0 = (blockIdx.x - b * n_qt) * kTile;
+  const int h = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, tq = lane & 3;
   const int len = lengths[b];
@@ -534,8 +549,11 @@ paged_attention_mma_wide(const T* __restrict__ q,
   constexpr int kTileEl = kTile * kLd;
   constexpr int kKs = kWideW / 16;
   const int nc = (D + kWideW - 1) / kWideW;
-  const int i0 = blockIdx.x / nc * kTile, oc = blockIdx.x % nc;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int n_x = (s + kTile - 1) / kTile * nc;
+  const int b = blockIdx.x / n_x;             // (slot, tile, slice) folded
+  const int xi = blockIdx.x - b * n_x;
+  const int i0 = xi / nc * kTile, oc = xi % nc;
+  const int h = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, tq = lane & 3;
   const int len = lengths[b];
@@ -677,21 +695,394 @@ int launch_mma_wide(const void* q, const void* k_pool, const void* v_pool,
                     const void* page_table, const void* lengths, void* out,
                     int B, int s, int H, int D, int N, int P, int maxp,
                     float scale, cudaStream_t stream) {
-  const long long gx =
-      (long long)(s + kTile - 1) / kTile * ((D + kWideW - 1) / kWideW);
+  const long long gx = (long long)(s + kTile - 1) / kTile *
+                       ((D + kWideW - 1) / kWideW) * B;
   if (gx > 0x7FFFFFFFLL) return -1;
   const size_t smem = 3 * (size_t)kTile * (kWideW + 8) * sizeof(T);
   auto f = D % 8 == 0 ? paged_attention_mma_wide<T, true>
                       : paged_attention_mma_wide<T, false>;
   int err = prepare(f, smem);
   if (err) return err;
-  f<<<dim3((unsigned)gx, H, B), kThreads, smem, stream>>>(
+  f<<<dim3((unsigned)gx, H), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool),
       static_cast<const T*>(v_pool), static_cast<const int32_t*>(page_table),
       static_cast<const int32_t*>(lengths), static_cast<T*>(out), s, H, D, N,
       P, maxp, scale * kLog2e);
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// Decode widths on Hopper: split paged decoding on whole-page TMA loads
+// ---------------------------------------------------------------------------
+//
+// Widths below kMmaMinWidth (decode steps), D <= 256, rows a multiple of
+// 16 bytes.  Each pool is a 2-D (N*P rows, H*D columns) TMA map; one box
+// is Pb rows of a group of G heads (G*D <= 256 columns): Pb the largest
+// power of two that divides P, up to a chunk, so a box never leaves its
+// page and a chunk is whole boxes (the JAX kernel's whole-page DMA, with
+// heads grouped to fit a box).  One block per (slot, head group, chunk of
+// kR logical rows): the chunk count is the table's (maxp * P / kR), and a
+// chunk past the slot's last visible row exits at once, so the work of a
+// slot follows its own length only.  The slot's length and the chunk's page
+// ids are read in one round trip; thread 0 then loads the chunk's K boxes
+// on one mbarrier and its V boxes on another, so the scores run while V
+// lands.  Scores: one thread per (row, head), the row's 16-byte chunks
+// read from a rotation by the row (the dense TMA rows without bank
+// conflicts), f32 from the input type, -1e30 past the query's position;
+// the chunk's max and sum per (query, head) by warp reductions.  P.V: one
+// thread per column of the group.  A slot whose visible rows fit one chunk
+// writes its output directly; else each chunk writes its partial (m, l,
+// acc) in f32 to a scratch the wrapper owns, and the last block of the
+// (slot, group) to arrive (an atomic counter, which it resets to 0) merges
+// the chunks in their order 0, 1, ... (loading 8 chunks' partials at a
+// time): one summation order an output, the same for a slot alone or
+// among others, and for repeats.  Decode steps (width 1) run an instance
+// without the loops over queries.
+// Bound: bytes (each live K/V row read once; 4 flops an element).  At the
+// serving geometry a block is one chain of dependent steps (length and
+// pages, TMA, scores, P.V, partial, count, merge), so latency, not bytes,
+// sets its time (PERF.md).
+namespace split {
+
+constexpr int kR = 64;                       // logical rows of a chunk
+constexpr int kThreads = 256;
+constexpr int kMaxW = kMmaMinWidth - 1;      // widths below the mma kernel's
+constexpr int kMaxCols = 256;                // columns of a group's row
+constexpr int kMaxG = 8;                     // heads of a group
+constexpr int kPairs = kMaxG * kR / kThreads;   // (row, head) pairs a thread
+
+// a 16-byte chunk of T as f32
+template <typename T>
+__device__ __forceinline__ void unpack16(const uint4& v, float* f);
+template <> __device__ __forceinline__ void unpack16<float>(const uint4& v,
+                                                           float* f) {
+  f[0] = __uint_as_float(v.x);
+  f[1] = __uint_as_float(v.y);
+  f[2] = __uint_as_float(v.z);
+  f[3] = __uint_as_float(v.w);
+}
+template <> __device__ __forceinline__ void unpack16<__nv_bfloat16>(
+    const uint4& v, float* f) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    f[2 * k] = __uint_as_float(w[k] << 16);
+    f[2 * k + 1] = __uint_as_float(w[k] & 0xFFFF0000u);
+  }
+}
+template <> __device__ __forceinline__ void unpack16<__half>(const uint4& v,
+                                                            float* f) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    f[2 * k] = __half2float(__ushort_as_half((unsigned short)(w[k] & 0xFFFF)));
+    f[2 * k + 1] = __half2float(__ushort_as_half((unsigned short)(w[k] >> 16)));
+  }
+}
+
+__host__ __device__ __forceinline__ int pow2_part(int P) {
+  const int pb = P & -P;                     // the largest power of 2 of P
+  return pb < kR ? pb : kR;
+}
+
+struct Geo {
+  int s, H, D, N, P, maxp, G, ng, nch;
+  int pb, pb_log, bstride;                   // box rows, log2, box stride
+  float scale_log2;
+};
+
+// W: the widest query block the instance takes, 1 (decode steps) or
+// kMaxW (its loops over the queries guarded by the width).
+template <typename T, int W>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_split(const __grid_constant__ CUtensorMap k_map,
+                   const __grid_constant__ CUtensorMap v_map,
+                   const T* __restrict__ q,
+                   const int32_t* __restrict__ page_table,
+                   const int32_t* __restrict__ lengths, T* __restrict__ out,
+                   float* __restrict__ part_o, float* __restrict__ part_ml,
+                   int* __restrict__ counts, Geo g) {
+  constexpr int kVec = 16 / sizeof(T);       // elements of a 16-byte chunk
+  const int c = blockIdx.x % g.nch;
+  const int bg = blockIdx.x / g.nch;         // slot * ng + group
+  const int b = bg / g.ng, grp = bg - b * g.ng;
+  const int h0 = grp * g.G;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int s = W == 1 ? 1 : g.s;
+  const int t0 = c * kR;
+  __shared__ int s_len, s_page[kR], is_last;
+  // the length and the chunk's page ids in one round trip
+  if (tid == 0) {
+    s_len = lengths[b];
+    asm volatile("prefetch.tensormap [%0];" ::"l"(&k_map) : "memory");
+    asm volatile("prefetch.tensormap [%0];" ::"l"(&v_map) : "memory");
+  } else if (tid >= 32 && tid < 32 + (kR >> g.pb_log)) {
+    const int pi = (t0 + ((tid - 32) << g.pb_log)) / g.P;
+    s_page[tid - 32] =
+        pi < g.maxp ? min(max(page_table[(size_t)b * g.maxp + pi], 0),
+                          g.N - 1)
+                    : 0;
+  }
+  __syncthreads();
+  const int len = s_len;
+  // rows any query sees, clamped to the table; this chunk's live rows
+  const int t_end = (int)min((long long)g.maxp * g.P, (long long)len + s);
+  if (t0 >= t_end) return;
+  const int nr = min(kR, t_end - t0);
+  const int nlive = (t_end + kR - 1) / kR;
+  const int GD = g.G * g.D;
+  const int HD = g.H * g.D;
+  const int row_bytes = GD * (int)sizeof(T);
+  // byte offset of chunk row r in a staged tile
+  auto row_at = [&](int r) {
+    return (r >> g.pb_log) * g.bstride + (r & (g.pb - 1)) * row_bytes;
+  };
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* k_s =                       // boxes bstride bytes apart
+      smem_raw + ((128 - (hopper::smem_u32(smem_raw) & 127)) & 127);
+  unsigned char* v_s = k_s + (kR / g.pb) * g.bstride;
+  float* q_s = reinterpret_cast<float*>(v_s + (kR / g.pb) * g.bstride);
+  float* p_s = q_s + s * GD;                 // [s][G][kR]
+  float* red_m = p_s + s * g.G * kR;         // [s][G][2 warps of rows]
+  float* red_l = red_m + s * g.G * 2;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(red_l + s * g.G * 2 + 1);
+  bar = reinterpret_cast<uint64_t*>(
+      (reinterpret_cast<uintptr_t>(bar) + 7) & ~uintptr_t(7));
+
+  if (tid == 0) {
+    hopper::mbar_init(bar, 1);
+    hopper::mbar_init(bar + 1, 1);
+    hopper::mbar_fence_init();
+    const int nbox = (nr + g.pb - 1) >> g.pb_log;
+    const uint32_t bytes = (uint32_t)(nbox * g.pb * row_bytes);
+    hopper::mbar_arrive_expect_tx(bar, bytes);
+    hopper::mbar_arrive_expect_tx(bar + 1, bytes);
+    for (int j = 0; j < nbox; ++j) {         // a box stays in its page
+      const int row = s_page[j] * g.P + (t0 + (j << g.pb_log)) % g.P;
+      hopper::tma_load_2d(k_s + j * g.bstride, &k_map, bar, h0 * g.D, row);
+      hopper::tma_load_2d(v_s + j * g.bstride, &v_map, bar + 1, h0 * g.D,
+                          row);
+    }
+  }
+  // the group's queries in f32 (heads past H zero)
+  for (int e = tid; e < s * GD; e += kThreads) {
+    const int i = e / GD, col = h0 * g.D + e - i * GD;
+    q_s[e] = col < HD ? to_f(q[((size_t)b * s + i) * HD + col]) : 0.f;
+  }
+  __syncthreads();                           // barriers and q_s ready
+  hopper::mbar_wait(bar, 0);
+
+  // scores, one thread per (row r, head gh) pair, pair = gh * kR + r: a
+  // warp's 32 rows share a head; in log2 units, -1e30 where masked
+  const int cph = g.D / kVec;                // 16-byte chunks of a head
+  float sc[kPairs][W];
+#pragma unroll
+  for (int k = 0; k < kPairs; ++k) {
+    const int pr = tid + k * kThreads, gh = pr / kR, r = pr - gh * kR;
+#pragma unroll
+    for (int i = 0; i < W; ++i) sc[k][i] = 0.f;
+    if (gh >= g.G) continue;
+    if (r < nr) {
+      const unsigned char* row = k_s + row_at(r) + gh * g.D * (int)sizeof(T);
+      int j = r % cph;
+      for (int n = 0; n < cph; ++n, j = j + 1 == cph ? 0 : j + 1) {
+        float kf[kVec];
+        unpack16<T>(*reinterpret_cast<const uint4*>(row + 16 * j), kf);
+        const float* qr = q_s + gh * g.D + j * kVec;
+#pragma unroll
+        for (int i = 0; i < W; ++i) {
+          if (i < s) {
+            float a = sc[k][i];
+#pragma unroll
+            for (int u = 0; u < kVec; ++u) a = fmaf(qr[i * GD + u], kf[u], a);
+            sc[k][i] = a;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      if (i < s) {
+        const bool ok = r < nr && t0 + r <= len + i;
+        sc[k][i] = ok ? sc[k][i] * g.scale_log2 : kNegInf;
+        const float mx = warp_max(sc[k][i]);
+        if (lane == 0) red_m[(i * g.G + gh) * 2 + (r >> 5)] = mx;
+      }
+    }
+  }
+  __syncthreads();
+  // p = 2^(score - the chunk's max), 0 where masked; the chunk's sums
+#pragma unroll
+  for (int k = 0; k < kPairs; ++k) {
+    const int pr = tid + k * kThreads, gh = pr / kR, r = pr - gh * kR;
+    if (gh >= g.G) continue;
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      if (i < s) {
+        const int at = (i * g.G + gh) * 2;
+        const float m = fmaxf(red_m[at], red_m[at + 1]);
+        const float p = sc[k][i] == kNegInf ? 0.f : exp2f(sc[k][i] - m);
+        p_s[(i * g.G + gh) * kR + r] = p;
+        const float sum = warp_sum(p);
+        if (lane == 0) red_l[at + (r >> 5)] = sum;
+      }
+    }
+  }
+  __syncthreads();
+  hopper::mbar_wait(bar + 1, 0);
+
+  // acc[i] = sum_r p[i, r] v[r, col], one thread per column of the group
+  const int col = tid;
+  const int gh = col / g.D;
+  const bool mine = col < GD && h0 + gh < g.H;
+  float acc[W];
+#pragma unroll
+  for (int i = 0; i < W; ++i) acc[i] = 0.f;
+  if (mine) {
+    const float* pc = p_s + gh * kR;
+#pragma unroll 4
+    for (int r = 0; r < nr; ++r) {
+      const float v = to_f(*reinterpret_cast<const T*>(
+          v_s + row_at(r) + col * (int)sizeof(T)));
+#pragma unroll
+      for (int i = 0; i < W; ++i)
+        if (i < s) acc[i] = fmaf(pc[i * g.G * kR + r], v, acc[i]);
+    }
+  }
+  const size_t o_row = (size_t)b * s;        // out[(b * s + i) * HD + ...]
+  if (nlive == 1) {                          // the whole slot in this chunk
+    if (mine) {
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
+        if (i < s) {
+          const int at = (i * g.G + gh) * 2;
+          float l = red_l[at] + red_l[at + 1];
+          l = l == 0.f ? 1.f : l;              // the JAX guard
+          out[(o_row + i) * HD + h0 * g.D + col] = from_f<T>(acc[i] / l);
+        }
+      }
+    }
+    return;
+  }
+
+  // this chunk's partial: acc at [b][c][i][HD], (m, l) at [b][c][i][H][2]
+  const size_t base = ((size_t)b * g.nch + c) * s;
+  if (mine) {
+#pragma unroll
+    for (int i = 0; i < W; ++i)
+      if (i < s) part_o[(base + i) * HD + h0 * g.D + col] = acc[i];
+  }
+  if (tid < s * g.G) {
+    const int i = tid / g.G, gg = tid - i * g.G;
+    const int at = (i * g.G + gg) * 2;
+    if (h0 + gg < g.H) {
+      float2 ml;
+      ml.x = fmaxf(red_m[at], red_m[at + 1]);
+      ml.y = red_l[at] + red_l[at + 1];
+      reinterpret_cast<float2*>(part_ml)[(base + i) * g.H + h0 + gg] = ml;
+    }
+  }
+  __syncthreads();                           // the block's partial written
+  if (tid == 0) {
+    __threadfence();                         // (cumulative) before the count
+    const int prev = atomicAdd(counts + bg, 1);
+    is_last = prev == nlive - 1;
+    if (is_last) counts[bg] = 0;             // ready for the next launch
+  }
+  __syncthreads();
+  if (!is_last || !mine) return;
+  __threadfence();                           // the others' partials after
+
+  // merge the chunks in order: m = max m_c, l = sum l_c 2^(m_c - m),
+  // acc = sum acc_c 2^(m_c - m), out = acc / l; up to kMerge chunks
+  // loaded at once
+  constexpr int kMerge = 8;
+  const float2* ml_at = reinterpret_cast<const float2*>(part_ml) + h0 + gh;
+  const float* o_at = part_o + h0 * g.D + col;
+  const size_t slot = (size_t)b * g.nch * s;
+  for (int i = 0; i < s; ++i) {
+    float m = kNegInf, l = 0.f, a = 0.f;
+    for (int c0 = 0; c0 < nlive; c0 += kMerge) {
+      float2 ml[kMerge];
+      float ac[kMerge];
+#pragma unroll
+      for (int u = 0; u < kMerge; ++u) {
+        const size_t at = slot + (size_t)(c0 + u) * s + i;
+        const bool in = c0 + u < nlive;
+        ml[u] = in ? __ldcg(ml_at + at * g.H) : make_float2(kNegInf, 0.f);
+        ac[u] = in ? __ldcg(o_at + at * HD) : 0.f;
+      }
+      float mb = m;
+#pragma unroll
+      for (int u = 0; u < kMerge; ++u) mb = fmaxf(mb, ml[u].x);
+      const float w0 = exp2f(m - mb);        // rescale the sums so far
+      l *= w0;
+      a *= w0;
+#pragma unroll
+      for (int u = 0; u < kMerge; ++u) {
+        const float w = exp2f(ml[u].x - mb);
+        l = fmaf(ml[u].y, w, l);
+        a = fmaf(ac[u], w, a);
+      }
+      m = mb;
+    }
+    l = l == 0.f ? 1.f : l;                  // the JAX guard
+    out[(o_row + i) * HD + h0 * g.D + col] = from_f<T>(a / l);
+  }
+}
+
+// The decode route: the plan's geometry, both pools' maps, the launch.
+template <typename T>
+int launch(const void* q, const void* k_pool, const void* v_pool,
+           const void* page_table, const void* lengths, void* out,
+           void* part_o, void* part_ml, void* counts, int B, int s, int H,
+           int D, int N, int P, int maxp, int G, float scale,
+           cudaStream_t stream) {
+  Geo g;
+  g.s = s;
+  g.H = H;
+  g.D = D;
+  g.N = N;
+  g.P = P;
+  g.maxp = maxp;
+  g.G = G;
+  g.ng = (H + G - 1) / G;
+  g.nch = (int)(((long long)maxp * P + kR - 1) / kR);
+  g.pb = pow2_part(P);
+  g.pb_log = __builtin_ctz(g.pb);
+  const int row_bytes = G * D * (int)sizeof(T);
+  g.bstride = (g.pb * row_bytes + 127) / 128 * 128;   // 128-byte box starts
+  g.scale_log2 = scale * kLog2e;
+  const long long gx = (long long)B * g.ng * g.nch;
+  if (gx > 0x7FFFFFFFLL || (long long)N * P > 0x7FFFFFFFLL) return -1;
+  CUtensorMap km, vm;
+  int err = hopper::make_map_2d<T>(&km, k_pool, (long long)N * P,
+                                   (long long)H * D, (long long)H * D,
+                                   G * D, g.pb);
+  if (err) return err;
+  err = hopper::make_map_2d<T>(&vm, v_pool, (long long)N * P,
+                               (long long)H * D, (long long)H * D, G * D,
+                               g.pb);
+  if (err) return err;
+  const size_t smem = 2 * (size_t)(kR / g.pb) * g.bstride +
+                      sizeof(float) * ((size_t)s * G * D + (size_t)s * G * kR +
+                                       4 * (size_t)s * G + 1) +
+                      8 + 16 + 128;
+  auto kernel =
+      s == 1 ? paged_decode_split<T, 1> : paged_decode_split<T, kMaxW>;
+  err = prepare(kernel, smem);
+  if (err) return err;
+  kernel<<<(unsigned)gx, kThreads, smem, stream>>>(
+      km, vm, static_cast<const T*>(q),
+      static_cast<const int32_t*>(page_table),
+      static_cast<const int32_t*>(lengths), static_cast<T*>(out),
+      static_cast<float*>(part_o), static_cast<float*>(part_ml),
+      static_cast<int*>(counts), g);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace split
 
 template <typename T, int DP, bool AL>
 int launch_mma(const void* q, const void* k_pool, const void* v_pool,
@@ -701,8 +1092,10 @@ int launch_mma(const void* q, const void* k_pool, const void* v_pool,
   const size_t smem = 5 * (size_t)kTile * (DP + 8) * sizeof(T);
   int err = prepare(paged_attention_mma<T, DP, AL>, smem);
   if (err) return err;
-  dim3 grid((s + kTile - 1) / kTile, H, B);
-  paged_attention_mma<T, DP, AL><<<grid, kThreads, smem, stream>>>(
+  const long long gx = (long long)(s + kTile - 1) / kTile * B;
+  if (gx > 0x7FFFFFFFLL) return -1;
+  paged_attention_mma<T, DP, AL><<<dim3((unsigned)gx, H), kThreads, smem,
+                                   stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool),
       static_cast<const T*>(v_pool), static_cast<const int32_t*>(page_table),
       static_cast<const int32_t*>(lengths), static_cast<T*>(out), s, H, D, N,
@@ -733,7 +1126,7 @@ int launch_t(const void* q, const void* k_pool, const void* v_pool,
              int s, int H, int D, int N, int P, int maxp, float scale,
              cudaStream_t stream) {
   const int W = SLICED ? kMaxD : D;               // the kernel's slices
-  const long long gx = (long long)H * ((D + W - 1) / W);
+  const long long gx = (long long)H * ((D + W - 1) / W) * B;
   if (gx > 0x7FFFFFFFLL) return -1;
   const size_t smem = 2 * (size_t)kRows * W * sizeof(T) +
                       sizeof(float) * ((size_t)kQTile * W + kQTile * kRows +
@@ -741,7 +1134,7 @@ int launch_t(const void* q, const void* k_pool, const void* v_pool,
   int err = prepare(paged_attention_kernel<T, VEC, SLICED>, smem);
   if (err) return err;
   const int tiles = (s + kQTile - 1) / kQTile;
-  dim3 grid((unsigned)gx, B, tiles < kMaxTileBlocks ? tiles : kMaxTileBlocks);
+  dim3 grid((unsigned)gx, 1, tiles < kMaxTileBlocks ? tiles : kMaxTileBlocks);
   paged_attention_kernel<T, VEC, SLICED><<<grid, kThreadsS, smem,
                                             stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool),
@@ -779,13 +1172,16 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16.  Returns a cudaError_t
 // (0 = launched).  -1: a geometry the kernel does not take (the wrapper
 // checks first, so this is a second guard, not the user-facing error).
+// Every width and head width: the tensor-core kernels for bf16 / f16 from
+// kMmaMinWidth, else the scalar kernel (the wrapper sends decode widths
+// with 16-byte rows up to D = 256 to paged_decode_launch instead).
 int paged_attention_launch(int dtype, const void* q, const void* k_pool,
                            const void* v_pool, const void* page_table,
                            const void* lengths, void* out, int B, int s,
                            int H, int D, int N, int P, int maxp, float scale,
                            void* stream) {
   if (D < 1 || P < 1 || s < 1 || maxp < 1 || N < 1 || B < 1 || H < 1 ||
-      B > 65535 || H > 65535)
+      H > 65535)
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
@@ -801,6 +1197,30 @@ int paged_attention_launch(int dtype, const void* q, const void* k_pool,
     default:
       return -1;
   }
+}
+
+// The split decode kernel: widths s < kMmaMinWidth, D <= 256 with rows a
+// multiple of 16 bytes, heads in groups of G (G * D <= 256, G <= 8).
+// part_o (B * nch * s * H * D f32), part_ml (B * nch * s * H * 2 f32) and
+// counts (B * ceil(H / G) int32, zero, and left zero) are the wrapper's
+// scratch, nch = ceil(maxp * P / 64); with nch == 1 they are not touched.
+int paged_decode_launch(int dtype, const void* q, const void* k_pool,
+                        const void* v_pool, const void* page_table,
+                        const void* lengths, void* out, void* part_o,
+                        void* part_ml, void* counts, int B, int s, int H,
+                        int D, int N, int P, int maxp, int G, float scale,
+                        void* stream) {
+  const int elem = dtype == 0 ? 4 : 2;
+  if (dtype < 0 || dtype > 2 || D < 1 || P < 1 || s < 1 ||
+      s > split::kMaxW || maxp < 1 || N < 1 || B < 1 || H < 1 || G < 1 ||
+      G > split::kMaxG || G * D > split::kMaxCols || (D * elem) % 16 != 0)
+    return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto f = dtype == 0 ? split::launch<float>
+           : dtype == 1 ? split::launch<__nv_bfloat16>
+                        : split::launch<__half>;
+  return f(q, k_pool, v_pool, page_table, lengths, out, part_o, part_ml,
+           counts, B, s, H, D, N, P, maxp, G, scale, st);
 }
 
 }  // extern "C"

@@ -18,6 +18,12 @@ the host-side allocator).
   version; a CUDA tensor launches ``csrc/paged_attention.cu`` at every
   width (decode steps and prefill chunks alike) or raises.  There is no
   fallback from the card to the plain version.
+- :func:`uses_split_decode` is the routing between the file's two entry
+  points: decode widths (``s < 16``) with 16-byte rows up to ``D = 256``
+  go to the split decode kernel (chunks of 64 rows over blocks, whole-page
+  TMA loads, the chunks merged inside the launch), the rest to the tile
+  kernels; :func:`split_plan` is the split kernel's head grouping and
+  chunk count.
 """
 
 from __future__ import annotations
@@ -31,9 +37,13 @@ _NEG_INF = -1e30  # large-but-finite, matching the dense composition
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-# kernel launches since the last reset (the smoke run reads it to prove
-# the serving path went through the kernel)
-launches = 0
+# kernel launches since the last reset, one count per entry point (the
+# smoke run reads them to prove the serving path went through the kernels):
+# "paged_decode" the split decode kernel, "paged_attention" the tile kernels
+launches = {"paged_decode": 0, "paged_attention": 0}
+
+SPLIT_ROWS = 64          # logical rows of a split-decode chunk
+SPLIT_MAX_WIDTH = 15     # widths below the tensor-core kernel's 16
 
 
 def paged_write(pool: torch.Tensor, vals: torch.Tensor,
@@ -129,54 +139,107 @@ def check_kernel_args(q, k_pool, v_pool, page_table, lengths) -> None:
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-_launch_fn = None
+def uses_split_decode(s: int, head_dim: int, dtype) -> bool:
+    """Whether the split decode kernel takes a call (else the tile
+    kernels): widths below 16, rows a multiple of 16 bytes, D <= 256."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    return (s <= SPLIT_MAX_WIDTH and head_dim <= 256
+            and head_dim * elem % 16 == 0)
 
 
-def _lib():
-    """The kernel's C entry point, built and bound at first use."""
-    global _launch_fn
-    if _launch_fn is None:
+def split_plan(heads: int, head_dim: int, dtype, page_size: int,
+               pages_per_slot: int):
+    """``(G, groups, chunks)`` of the split decode kernel: heads in groups
+    of G (a TMA box of G * D <= 256 columns and at most 512 bytes a row
+    where D allows, G <= 8, the groups balanced), and the table's chunks
+    of ``SPLIT_ROWS`` logical rows."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    g = max(1, min(heads, 8, 512 // (head_dim * elem), 256 // head_dim))
+    g = -(-heads // -(-heads // g))
+    # the kernel's own counts: ceil(H / G) groups, ceil(T / rows) chunks
+    return (g, -(-heads // g),
+            -(-(page_size * pages_per_slot) // SPLIT_ROWS))
+
+
+_fns = {}
+
+
+def _lib(name):
+    """A C entry point of the kernel library, built and bound at first
+    use: ``paged_attention_launch`` (the tile kernels) or
+    ``paged_decode_launch`` (the split decode kernel)."""
+    if name not in _fns:
         from ._build import load
-        fn = load("paged_attention").paged_attention_launch
+        fn = getattr(load("paged_attention"), name + "_launch")
         # c_void_p for every pointer and the stream, or ctypes passes them
         # as 32-bit ints and cuts them
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
-                       ci, ctypes.c_float, vp]
+        ptrs = 6 if name == "paged_attention" else 9
+        ints = 7 if name == "paged_attention" else 8
+        fn.argtypes = [ci] + [vp] * ptrs + [ci] * ints + [ctypes.c_float, vp]
         fn.restype = ctypes.c_int
-        _launch_fn = fn
-    return _launch_fn
+        _fns[name] = fn
+    return _fns[name]
+
+
+_scratch = {}
+
+
+def _split_scratch(q, H, D, nch, groups):
+    """The split kernel's partials (f32) and arrival counters (int32,
+    zero; each launch leaves them zero), cached per geometry; none where
+    the table is one chunk."""
+    B, s = q.shape[:2]
+    if nch == 1:
+        return 0, 0, 0
+    key = (q.device, B, s, H, D, nch, groups)
+    if key not in _scratch:
+        f32 = dict(dtype=torch.float32, device=q.device)
+        _scratch[key] = (torch.empty(B * nch * s * H * D, **f32),
+                         torch.empty(B * nch * s * H * 2, **f32),
+                         torch.zeros(B * groups, dtype=torch.int32,
+                                     device=q.device))
+    return tuple(t.data_ptr() for t in _scratch[key])
 
 
 def paged_attention_kernel(q, k_pool, v_pool, page_table, lengths):
-    """Launch the Hopper kernel on PyTorch's current stream; returns
-    ``(B, s, H, D)`` in q's dtype.  Raises on arguments the kernel does not
-    take or a launch the device refuses."""
-    global launches
+    """Launch a Hopper kernel on PyTorch's current stream: the split decode
+    kernel where :func:`uses_split_decode` holds, else the tile kernels;
+    returns ``(B, s, H, D)`` in q's dtype.  Raises on arguments the kernels
+    do not take or a launch the device refuses."""
     if q.device.type != "cuda":
         raise ValueError(f"the paged-attention kernel runs on CUDA "
                          f"tensors, got {q.device}")
     check_kernel_args(q, k_pool, v_pool, page_table, lengths)
     B, s, H, D = q.shape
     N, P = k_pool.shape[:2]
+    maxp = page_table.shape[1]
     out = torch.empty_like(q)
-    fn = _lib()
+    split = uses_split_decode(s, D, q.dtype)
+    name = "paged_decode" if split else "paged_attention"
+    fn = _lib(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
-                 v_pool.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
-                 out.data_ptr(), B, s, H, D, N, P, page_table.shape[1],
-                 1.0 / math.sqrt(D), stream)
+        head = (_DTYPE_CODES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
+                v_pool.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
+                out.data_ptr())
+        if split:
+            G, groups, nch = split_plan(H, D, q.dtype, P, maxp)
+            err = fn(*head, *_split_scratch(q, H, D, nch, groups), B, s, H,
+                     D, N, P, maxp, G, 1.0 / math.sqrt(D), stream)
+        else:
+            err = fn(*head, B, s, H, D, N, P, maxp, 1.0 / math.sqrt(D),
+                     stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: "
                            f"CUDA error {err}")
-    launches += 1
+    launches[name] += 1
     return out
 
 
 def paged_attention(q, k_pool, v_pool, page_table, lengths):
     """Dispatch by device: the plain version for CPU tensors, the Hopper
-    kernel for CUDA tensors (every width), anything else raises."""
+    kernels for CUDA tensors (every width), anything else raises."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pool, v_pool, page_table, lengths)
     if q.device.type == "cuda":

@@ -4,7 +4,10 @@ against the JAX package's kernels run under the Pallas interpreter, as
 the plain forward (O, and the LSE against JAX's ``lse[:, 0, :]``), the
 gradient through ``FlashAttentionBHD`` against ``jax.grad`` of
 ``flash_attention_bhd``, ``_bwd_pair`` on a kv chunk with the global LSE
-and Δ, and the ``flash_attention_bshd`` / ``flash_attention`` APIs.
+and Δ, the ``flash_attention_bshd`` / ``flash_attention`` APIs, the plain
+path at 65538 heads, and a plain emulation of the f32 forward kernel's
+3xTF32 arithmetic (split operands, 32-column slice sums, 64-row kv tiles)
+at 1e-6 relative.
 
 Tolerances: f32 at 1e-5 (the same sums in another order); bf16 at
 rtol=atol=1e-2 (both sides round P and dS to bf16 at the same points, but
@@ -273,3 +276,90 @@ def test_kernel_wrappers_refuse_what_they_do_not_take():
     with pytest.raises(RuntimeError, match="device"):
         tfa.flash_attention_bhd(*(x.to("meta") for _ in range(3)), True,
                                 0.125)
+
+
+def fwd_3xtf32_emulation(q, k, v, causal, sm_scale, terms=3):
+    """The f32 forward kernel's arithmetic in plain torch f32: S summed
+    over 32-column slices, each slice one sum of al.bh + ah.bl + ah.bh
+    (``tfa.tf32_split``'s operands; ``terms=1``: ah.bh alone); the online
+    softmax over 64-row kv tiles in log2 units, -1e30 before the max, l
+    over p; each tile's P.V (P split as well) per 32-column chunk of O,
+    added to the rescaled O.  Returns (O, LSE)."""
+    bh, sq, d = q.shape
+    skv = k.shape[1]
+
+    def mm(eq, a, b):
+        (ah, al), (bh_, bl) = tfa.tf32_split(a), tfa.tf32_split(b)
+        if terms == 1:
+            return torch.einsum(eq, ah, bh_)
+        return (torch.einsum(eq, al, bh_) + torch.einsum(eq, ah, bl)
+                + torch.einsum(eq, ah, bh_))
+
+    sc = torch.zeros(bh, sq, skv)
+    for c0 in range(0, d, 32):
+        sc = sc + mm("bqd,bkd->bqk", q[..., c0:c0 + 32], k[..., c0:c0 + 32])
+    sc = sc * (sm_scale * 1.4426950408889634)
+    rows = torch.arange(sq)[:, None]
+    m = torch.full((bh, sq, 1), -1e30)
+    l = torch.zeros(bh, sq, 1)
+    o = torch.zeros(bh, sq, d)
+    for j0 in range(0, skv, 64):
+        cols = torch.arange(j0, min(j0 + 64, skv))[None, :]
+        x = sc[..., j0:j0 + 64]
+        if causal:
+            x = x.masked_fill(cols > rows, -1e30)
+        m_next = torch.maximum(m, x.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_next)
+        p = torch.exp2(x - m_next)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        pv = torch.cat([mm("bqk,bkd->bqd", p, v[:, j0:j0 + 64, c0:c0 + 32])
+                        for c0 in range(0, d, 32)], -1)
+        o = o * alpha + pv
+        m = m_next
+    lse = m * 0.6931471805599453 + torch.log(l.clamp_min(1e-30))
+    return o / torch.where(l == 0.0, 1.0, l), lse.squeeze(-1)
+
+
+@pytest.mark.parametrize("causal,sq,skv,d", [
+    (True, 128, 128, 64), (False, 64, 128, 64), (True, 128, 64, 64),
+    (True, 192, 192, 40), (False, 128, 192, 96)])
+def test_3xtf32_forward_emulation_matches_jax_kernel(causal, sq, skv, d):
+    """O and LSE within 1e-6 relative (L2) of JAX's f32 forward; the same
+    emulation with one tf32 product (ah.bh) reads far outside it."""
+    q, k, v, _ = _inputs(11 + sq + d, 2, sq, skv, d)
+    sc = 1.0 / np.sqrt(d)
+    j_out, j_lse = jfa._fwd(*(jnp.asarray(x) for x in (q, k, v)), causal, sc)
+    j_out, j_lse = _f(j_out), _f(j_lse)[:, 0, :]
+    rel = lambda a, b: float(np.linalg.norm(a - b) / np.linalg.norm(b))  # noqa
+    t = [torch.from_numpy(x) for x in (q, k, v)]
+    out, lse = fwd_3xtf32_emulation(*t, causal, sc)
+    assert rel(out.numpy(), j_out) <= 1e-6
+    assert rel(lse.numpy(), j_lse) <= 1e-6
+    one, _ = fwd_3xtf32_emulation(*t, causal, sc, terms=1)
+    assert rel(one.numpy(), j_out) > 1e-5
+
+
+def test_plain_path_at_65538_heads_matches_jax_kernel():
+    """b*H = 65538 (past the 65535 of a grid's y dimension, which the
+    kernels no longer use for it): the geometry is taken, and the plain
+    forward and dK/dV + dQ pair over all heads agree on the last two with
+    the JAX kernels run on those two."""
+    bh, s, d = 65538, 8, 8
+    for dt in (torch.float32, torch.bfloat16):
+        tfa.check_geometry((bh, s, d), (bh, s, d), dt)
+    q, k, v, do = _inputs(12, bh, s, s, d)
+    sc = 1.0 / np.sqrt(d)
+    t = torch.from_numpy
+    t_out, t_lse = tfa._fwd(t(q), t(k), t(v), True, sc)
+    t_delta = (t_out * t(do)).sum(-1)
+    t_grads = tfa._bwd_pair(t(q), t(k), t(v), t(do), t_lse, t_delta, True, sc)
+    tail = slice(bh - 2, bh)
+    jq, jk, jv, jdo = (jnp.asarray(x[tail]) for x in (q, k, v, do))
+    j_out, j_lse = jfa._fwd(jq, jk, jv, True, sc)
+    np.testing.assert_allclose(t_out[tail].numpy(), _f(j_out), **TOL["f32"])
+    np.testing.assert_allclose(t_lse[tail].numpy(), _f(j_lse)[:, 0, :],
+                               **TOL["f32"])
+    j_grads = jfa._bwd_pair(jq, jk, jv, jdo, j_lse,
+                            jnp.asarray(t_delta[tail].numpy()), True, sc)
+    for a, b in zip(t_grads, j_grads):
+        np.testing.assert_allclose(a[tail].numpy(), _f(b), **TOL["f32"])
