@@ -5,7 +5,8 @@
 // mbarrier rings, TMA tile loads, named barriers, register
 // reconfiguration, and wgmma products with f32 accumulators (bf16/f16
 // m64n64k16 and tf32 m64nNk8), A from shared memory or from registers, B
-// from shared memory, operands in 128-byte-swizzled tiles.
+// from shared memory (K-major, or MN-major through the transpose bit),
+// operands in 128-byte-swizzled tiles.
 //
 // Tile convention: a tile of R rows and DP (64 or 128) columns of a 2-byte
 // type is DP/64 sub-tiles of [R][64] elements, each row 128 bytes, each
@@ -73,6 +74,9 @@ template <> constexpr CUtensorMapDataType map_type<__half>() {
 template <> constexpr CUtensorMapDataType map_type<float>() {
   return CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
 }
+template <> constexpr CUtensorMapDataType map_type<uint8_t>() {
+  return CU_TENSOR_MAP_DATA_TYPE_UINT8;
+}
 
 // A map of a row-major (B, S, heads, D) tensor of T whose box is {128
 // bytes of columns (64 of a 2-byte T, 32 of f32), 1 head, 64 rows, 1
@@ -100,13 +104,16 @@ int make_map_bshd(CUtensorMap* map, const void* base, int B, int S,
 }
 
 // A map of a row-major (rows, cols) matrix of T, row stride `ld`
-// elements, whose box is {box_cols, box_rows} with no swizzle (rows land
-// dense in shared memory, box_cols elements each).  Columns past `cols` and
-// rows past `rows` arrive as zeros.  Needs box_cols, box_rows <= 256,
-// box_cols * sizeof(T) and ld * sizeof(T) multiples of 16 bytes.
+// elements, whose box is {box_cols, box_rows}, by default with no swizzle
+// (rows land dense in shared memory, box_cols elements each; under
+// CU_TENSOR_MAP_SWIZZLE_128B a box row is 128 bytes and lands as in the
+// tile convention above).  Columns past `cols` and rows past `rows` arrive
+// as zeros.  Needs box_cols, box_rows <= 256, box_cols * sizeof(T) and
+// ld * sizeof(T) multiples of 16 bytes.
 template <typename T>
 int make_map_2d(CUtensorMap* map, const void* base, long long rows,
-                long long cols, long long ld, int box_cols, int box_rows) {
+                long long cols, long long ld, int box_cols, int box_rows,
+                CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return -2;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
@@ -115,7 +122,7 @@ int make_map_2d(CUtensorMap* map, const void* base, long long rows,
   const cuuint32_t step[2] = {1, 1};
   CUresult r = encode(map, map_type<T>(), 2, const_cast<void*>(base), dims,
                       strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      CU_TENSOR_MAP_SWIZZLE_NONE,
+                      swizzle,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : -3;
@@ -198,6 +205,13 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
       : "memory");
+}
+
+// fetches a kernel parameter's tensor map ahead of its first TMA load
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
 }
 
 // orders this thread's generic-proxy shared-memory writes before later
@@ -287,6 +301,12 @@ __device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b,
 template <typename T>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
                                          uint64_t b, int acc);
+// d[64 x 64] (+)= A[64 x 16] . B[16 x 64], A K-major and B MN-major, both
+// in shared memory (B read through the transpose bit, as wgmma_rs reads
+// it).  Accumulator layout as wgmma_ss.
+template <typename T>
+__device__ __forceinline__ void wgmma_ss_bt(float* d, uint64_t a, uint64_t b,
+                                            int acc);
 
 #define HOPPER_WGMMA_SS(TYPE, PTX)                                          \
   template <>                                                               \
@@ -312,12 +332,26 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
                    "r"(acc));                                               \
   }
 
+#define HOPPER_WGMMA_SS_BT(TYPE, PTX)                                       \
+  template <>                                                               \
+  __device__ __forceinline__ void wgmma_ss_bt<TYPE>(float* d, uint64_t a,   \
+                                                    uint64_t b, int acc) {  \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"               \
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32." PTX "." PTX  \
+                 " " HOPPER_ACC32 ", %32, %33, p, 1, 1, 0, 1;\n}\n"         \
+                 : HOPPER_ACC32_OPS(d)                                      \
+                 : "l"(a), "l"(b), "r"(acc));                               \
+  }
+
 HOPPER_WGMMA_SS(__nv_bfloat16, "bf16")
 HOPPER_WGMMA_SS(__half, "f16")
+HOPPER_WGMMA_SS_BT(__nv_bfloat16, "bf16")
+HOPPER_WGMMA_SS_BT(__half, "f16")
 HOPPER_WGMMA_RS(__nv_bfloat16, "bf16")
 HOPPER_WGMMA_RS(__half, "f16")
 
 #undef HOPPER_WGMMA_SS
+#undef HOPPER_WGMMA_SS_BT
 #undef HOPPER_WGMMA_RS
 
 // x rounded to tf32 (10-bit mantissa) to nearest, ties away from zero: the

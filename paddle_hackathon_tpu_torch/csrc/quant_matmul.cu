@@ -8,89 +8,108 @@
 //   out[m, n] = to_x_dtype((sum_k x[m, k] * widen(w_q[k, n])) * scale[n])
 //
 // with x (M, K) f32 / bf16 / f16 row-major, w_q (K, N) int8 or fp8-e4m3
-// row-major (Paddle's (in, out) layout), scale (N,) f32 and an f32 sum.
-// The widening is exact (int8 and e4m3 values are bf16 values), every
-// product of a bf16 or f16 activation and a widened weight is exact in
-// f32, and the sum runs in f32 FMAs with no TF32: the arithmetic of the
+// row-major (Paddle's (in, out) layout, read as it lies: no repacked copy),
+// scale (N,) f32 and an f32 sum.  The widening is exact (int8 and e4m3
+// values are bf16 and f16 values), and every product of a bf16 or f16
+// activation and a widened weight is exact in f32: the arithmetic of the
 // JAX kernel's f32-accumulated dot, up to the order of the sum.
 //
-// Bound: bytes at decode.  At M = 8 (a decode step of 8 slots) a
-// projection does 2 * 8 = 16 flops per weight byte, far under the ~295
-// flops per byte at which the H100's tensor cores, not its memory, would
-// limit; the GPT-2-small weights of one layer are 7.1 MB of int8 (2.1 us at
-// 3.35 TB/s).  At M = 256 (a prefill chunk tick) the products are 0.9
-// GFLOP per qkv projection, which this kernel runs on the CUDA cores'
-// f32 FMAs (67 TFLOP/s), not the tensor cores: a later change's work
-// (mma.sync / wgmma on tiles widened in shared memory, TMA, split-K for
-// the narrow decode GEMMs).
+// What bounds it on the H100.  At decode (M = 8 rows, one per slot) a
+// projection does 2 M = 16 flops per weight byte, far under the ~295 flops
+// per byte at which the tensor cores, not the memory, would limit: bytes
+// bound it (GPT-2-small's four projections are 7.1 MB of int8 a layer,
+// 2.1 us at 3.35 TB/s), and with so little work per launch, latency and
+// the count of bytes in flight decide how near it comes.  At prefill
+// (M = 256 and up) the products decide: 0.9 GFLOP per qkv projection, 0.9
+// us on the bf16 tensor cores, 13 us on the CUDA cores' f32 FMAs.
 //
-// Design (simple and right first):
+// One summation order per output element, fixed by K alone.  K is cut into
+// chunks of kKC = 128 rows (a constant, never a function of M).  Each
+// chunk gives two partials, summed on the tensor cores from zero (wgmma's
+// scale-d is 0 on the chunk's first k-step), and the chunks' partials are
+// added in chunk order 0, 1, 2, ... into a total carried in two floats
+// (TwoSum, from 0); the total times the column's scale is rounded once to
+// x's dtype.  Neither M, nor a row's place in its tile, nor the schedule
+// below changes the order: a row computed alone equals the same row inside
+// a batch of 256, bit for bit, so the serving engine's chunk ticks agree
+// with a width-1 generate (chip_smoke.py checks both).
+//
+// Exact tensor-core sums.  The tensor core drops the bits below its sum's
+// last place; with activations whose exponents spread, a chunk's sum loses
+// several f16 ulps of the exact result that way.  So each row's chunk of x
+// is split exactly into x_hi (each value truncated to a multiple of
+// 2^(E - 7), E the exponent of the row's largest |x| in the chunk) and
+// x_lo (the rest), both bit subsets of x.  Times an int8 weight, x_hi's
+// products are multiples of 2^(E - 7) below 2^(E + 8): a chunk's sum of
+// them fits the tensor core's 24 bits, exactly.  x_lo's sum is below 2^-7
+// of it, so what the tensor core drops there lies far below the result's
+// last place.  (e4m3 weights bring their own exponents: x_hi keeps 5 bits,
+// exact while the chunk's weights stay above ~2^-4 of the largest; past
+// that an f16 output can lie up to 4 f16 ulps from the exact sum, an open
+// item, while bf16 outputs stay within one.)  The products run twice
+// (x_hi and x_lo) for this.
+//
+// The tensor-core kernel (bf16 and f16 activations), quant_matmul_tc_kernel:
+//   * two warpgroups (256 threads) per block; a block owns a tile of kBM =
+//     64 rows of x by kBN = 128 output columns (64 a warpgroup) and a run
+//     of G consecutive chunks.  Layout (a) of the two a weight-only GEMM can
+//     take: A is the x tile (x_hi, x_lo), 64 rows by 128 K columns as two
+//     128-byte-swizzled [64][64] sub-tiles, from shared memory by TMA (rows
+//     past M arrive as zeros, so nothing is padded in memory; a decode
+//     box reads only M rows rounded up to 8); B is the widened weight
+//     chunk, MN-major (its rows are K, as w_q lies), read through wgmma's
+//     transpose bit.  Chosen over (b), the weight as A from registers: (a)
+//     keeps the weight's own 16-byte rows for the widening and TMA for both
+//     operands; the tensor-core rows it wastes at M = 8 cost latency, not
+//     bytes (PERF.md).
+//   * the raw int8 / e4m3 chunk (128 x 128 bytes) and the x chunk arrive by
+//     TMA in a ring of up to 3 stages on mbarriers; the block widens each
+//     raw chunk (16-byte rows, exact: int8 through the f32 magic number
+//     2^23 + 128, e4m3 by moving its 7 magnitude bits under the f32
+//     exponent and multiplying by 2^120, which also gets the subnormals
+//     right; then the f32 value's upper half is its bf16 value, or cvt.rn
+//     gives the f16 one) into an operand slot of two swizzled [128][64]
+//     sub-tiles, splits x (x_hi in place, x_lo beside the weight), and does
+//     so for chunk i + 1 while chunk i's 32 wgmma run.
+//   * the walk (G = all chunks; prefill, wherever the tiles fill the
+//     card): each block walks its chunks in order and adds each chunk's
+//     pair to its register total, then scales, rounds and stores: no
+//     scratch traffic.  Operand work (widening, splitting), not the
+//     products, bounds it, chunk after chunk: a tile of 24 chunks (K =
+//     3072) takes as long at M = 128 as at M = 1024.
+//   * the split (G < chunks; decode, and prefill with tiles for under a
+//     quarter of the SMs): the chunks of each tile are spread over blocks
+//     (grid.z), each block writes each chunk's pair to scratch the wrapper
+//     owns, and the last block of the tile to arrive (an acquire-release
+//     counter, which it resets to 0) adds the pairs in chunk order 0, 1,
+//     ... as the walk does, scales, rounds and stores, in one launch (K3's
+//     split-decode merge).  At GPT-2-small's decode shapes every chunk is
+//     its own block (108 blocks for qkv, 36 for out, 144 for fc_in and
+//     fc_out), so all of a projection's weight bytes are in flight at
+//     once; a block is one chain of dependent steps.  At M = 256, out and
+//     fc_out (24 tiles) split a chunk a block too.
+//
+// The CUDA-core kernel (f32 activations), quant_matmul_f32_kernel: f32 x
+// times a widened weight is not exact in bf16, and no serving preset runs
+// f32 activations, so they keep the first design (f32 FMAs, one order
+// fixed by K alone: of every 128 K rows, thread slice s sums rows 4s..4s+3
+// in ascending order over the whole of K, then the 32 slices add in
+// ascending order), bit-identical at every M too:
 //   * grid (N / 32, M tiles of 8 rows): one block of 256 threads per strip
-//     of 32 output columns and 8 rows.  A thread owns 4 adjacent columns
-//     (one 4-byte load of the int8/fp8 weight per K row, 8 threads per 32
-//     bytes of a row) and a K slice: of every 128 K rows, rows 4s..4s+3
-//     for its slice s (32 slices).  Its activations are 4 consecutive
-//     values of each of the 8 rows, read straight from global memory
-//     (the 8 x K tile is small and every thread of the block reads it:
-//     it stays in L1), so the main loop has no barrier.
-//   * all 8 rows x 4 columns accumulate in f32 registers over the
-//     thread's whole slice; the 32 slice sums of each output are then
-//     added in shared memory in slice order 0..31, scaled once, rounded to
-//     x's dtype and stored.
-//   * one summation order per output element, fixed by K alone: slice s
-//     adds its rows in ascending order, then the slices add in ascending
-//     order.  Neither M nor the row's place in its tile changes it, so a
-//     row computed alone equals the same row computed in a batch of 256,
-//     bit for bit (chip_smoke.py checks this); the serving engine's chunk
-//     ticks then agree with a width-1 generate.
-//   * rows past M are masked in the kernel: their loads read row M - 1 and
-//     their results are not stored.  Nothing is padded in memory.
-//   * widening in registers: int8 through the float magic-number trick
-//     (byte ^ 0x80 under the exponent of 2^23, minus 2^23 + 128: integer
-//     and FADD instructions at full rate, where I2F runs at a quarter);
-//     e4m3 by moving its 7 magnitude bits under the f32 exponent and
-//     multiplying by 2^120, which also gets the subnormals right (0x7F /
-//     0xFF are NaN in e4m3fn; the quantizer never writes them).
+//     of 32 output columns and 8 rows; a thread owns 4 adjacent columns (a
+//     4-byte load of the weight per K row) and a K slice; its activations
+//     come straight from global memory (L1); rows past M read row M - 1
+//     and are not stored.
 //
 // The C entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() (0 on success); the Python wrapper raises
 // on anything else.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBN = 32;                    // output columns per block
-constexpr int kGroups = kBN / 4;           // 4-column groups (8)
-constexpr int kSlices = kThreads / kGroups;  // K slices (32)
-constexpr int kKC = 4 * kSlices;           // K rows per pass (128)
-constexpr int kBM = 8;                     // rows per tile
-static_assert(kBM * kBN == kThreads, "one output element per thread");
-
-// 4 consecutive activations -> f32 (exact); 16-byte (f32) or 8-byte loads
-__device__ __forceinline__ void load4(const float* p, float (&f)[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&f)[4]) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  f[0] = __uint_as_float(v.x << 16);
-  f[1] = __uint_as_float(v.x & 0xffff0000u);
-  f[2] = __uint_as_float(v.y << 16);
-  f[3] = __uint_as_float(v.y & 0xffff0000u);
-}
-__device__ __forceinline__ void load4(const __half* p, float (&f)[4]) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&v.x));
-  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&v.y));
-  f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
-}
-
-// 4 packed weight bytes (column n + i in byte i) -> f32 (exact)
+// 4 packed weight bytes (column n + i in byte i) -> 4 exact f32
 template <bool kFp8>
 __device__ __forceinline__ void widen4(uint32_t v, float (&f)[4]);
 template <>
@@ -115,19 +134,25 @@ __device__ __forceinline__ void widen4<true>(uint32_t v, float (&f)[4]) {
   }
 }
 
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);                      // round to nearest even
-}
-__device__ __forceinline__ void store(__half* p, float v) {
-  *p = __float2half(v);
-}
+// ===========================================================================
+// f32 activations: f32 FMAs on the CUDA cores
+// ===========================================================================
+namespace f32k {
 
-template <typename XT, bool kFp8>
+constexpr int kThreads = 256;
+constexpr int kBN = 32;                    // output columns per block
+constexpr int kGroups = kBN / 4;           // 4-column groups (8)
+constexpr int kSlices = kThreads / kGroups;  // K slices (32)
+constexpr int kKC = 4 * kSlices;           // K rows per pass (128)
+constexpr int kBM = 8;                     // rows per tile
+static_assert(kBM * kBN == kThreads, "one output element per thread");
+
+template <bool kFp8>
 __global__ void __launch_bounds__(kThreads)
-quant_matmul_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ w,
-                    const float* __restrict__ scale, XT* __restrict__ out,
-                    int M, int K, int N) {
+quant_matmul_f32_kernel(const float* __restrict__ x,
+                        const uint8_t* __restrict__ w,
+                        const float* __restrict__ scale,
+                        float* __restrict__ out, int M, int K, int N) {
   __shared__ __align__(16) float red[kSlices * kBM * kBN];   // 32 KB
   const int tid = threadIdx.x;
   const int g = tid % kGroups;
@@ -136,7 +161,7 @@ quant_matmul_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ w,
   const uint8_t* wp = w + (size_t)(4 * s) * N + n0 + 4 * g;
 
   for (int m0 = blockIdx.y * kBM; m0 < M; m0 += gridDim.y * kBM) {
-    const XT* xr[kBM];
+    const float* xr[kBM];
 #pragma unroll
     for (int m = 0; m < kBM; ++m)
       xr[m] = x + (size_t)min(m0 + m, M - 1) * K + 4 * s;
@@ -152,18 +177,21 @@ quant_matmul_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ w,
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         wv[j] = *reinterpret_cast<const uint32_t*>(wp + (size_t)(k0 + j) * N);
-      float xv[kBM][4];
+      float4 xv[kBM];
 #pragma unroll
-      for (int m = 0; m < kBM; ++m) load4(xr[m] + k0, xv[m]);
+      for (int m = 0; m < kBM; ++m)
+        xv[m] = *reinterpret_cast<const float4*>(xr[m] + k0);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {              // K rows in ascending order
         float wf[4];
         widen4<kFp8>(wv[j], wf);
 #pragma unroll
-        for (int m = 0; m < kBM; ++m)
+        for (int m = 0; m < kBM; ++m) {
+          const float xj = j == 0 ? xv[m].x : j == 1 ? xv[m].y
+                           : j == 2 ? xv[m].z : xv[m].w;
 #pragma unroll
-          for (int c = 0; c < 4; ++c)
-            acc[m][c] = fmaf(xv[m][j], wf[c], acc[m][c]);
+          for (int c = 0; c < 4; ++c) acc[m][c] = fmaf(xj, wf[c], acc[m][c]);
+        }
       }
     }
 
@@ -179,51 +207,502 @@ quant_matmul_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ w,
 #pragma unroll 8
     for (int t = 0; t < kSlices; ++t)            // slices in ascending order
       sum += red[t * (kBM * kBN) + m * kBN + col];
-    if (m0 + m < M)
-      store(out + (size_t)(m0 + m) * N + n0 + col, sum * scale[n0 + col]);
+    if (m0 + m < M) out[(size_t)(m0 + m) * N + n0 + col] = sum * scale[n0 + col];
     __syncthreads();                             // red is reused next tile
   }
 }
 
-template <typename XT, bool kFp8>
+template <bool kFp8>
 int launch(const void* x, const void* w, const void* scale, void* out, int M,
            int K, int N, cudaStream_t st) {
   const int tiles = (M + kBM - 1) / kBM;
   dim3 grid(N / kBN, tiles < 65535 ? tiles : 65535);
-  quant_matmul_kernel<XT, kFp8><<<grid, kThreads, 0, st>>>(
-      static_cast<const XT*>(x), static_cast<const uint8_t*>(w),
-      static_cast<const float*>(scale), static_cast<XT*>(out), M, K, N);
+  quant_matmul_f32_kernel<kFp8><<<grid, kThreads, 0, st>>>(
+      static_cast<const float*>(x), static_cast<const uint8_t*>(w),
+      static_cast<const float*>(scale), static_cast<float*>(out), M, K, N);
   return (int)cudaGetLastError();
 }
 
-template <typename XT>
-int launch_w(int w_dtype, const void* x, const void* w, const void* scale,
-             void* out, int M, int K, int N, cudaStream_t st) {
-  if (w_dtype == 0) return launch<XT, false>(x, w, scale, out, M, K, N, st);
-  if (w_dtype == 1) return launch<XT, true>(x, w, scale, out, M, K, N, st);
+}  // namespace f32k
+
+// ===========================================================================
+// bf16 / f16 activations: wgmma on TMA-fed, widened tiles
+// ===========================================================================
+namespace tc {
+
+constexpr int kThreads = 256;              // two warpgroups
+constexpr int kBM = 64;                    // rows of x per block
+constexpr int kBN = 128;                   // output columns (64 a warpgroup)
+constexpr int kKC = 128;                   // K rows of a chunk
+constexpr int kSteps = kKC / 16;           // its wgmma k-steps
+constexpr int kSub = hopper::kSubBytes;    // a [64][64] x sub-tile, 8 KB
+constexpr int kXBytes = 2 * kSub;          // x chunk [64][128]: 16 KB
+constexpr int kRawBytes = kKC * kBN;       // raw weight chunk: 16 KB
+constexpr int kStageBytes = kXBytes + kRawBytes;
+constexpr int kWSub = kKC * 128;           // a widened [128][64] sub-tile
+constexpr int kWBytes = 2 * kWSub;         // widened chunk: 32 KB
+constexpr int kOpBytes = kWBytes + kXBytes; // operand slot: widened w, x_lo
+constexpr int kPieces = kRawBytes / 16 / kThreads;   // 16-byte pieces (4)
+constexpr int kMaxStages = 3;
+
+// ring stages and operand slots of a block that walks g chunks
+__host__ __device__ constexpr int stages(int g) {
+  return g < kMaxStages ? g : kMaxStages;
+}
+__host__ __device__ constexpr int op_slots(int g) { return g < 2 ? g : 2; }
+inline size_t smem_bytes(int g) {
+  return 1024 + (size_t)stages(g) * kStageBytes +
+         (size_t)op_slots(g) * kOpBytes + 8 * stages(g);
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (hopper::smem_u32(p) & 1023)) & 1023);
+}
+
+// two exact f32 values as two T in one register, the lower column in the
+// low half: bf16 as the f32's upper half, f16 by cvt
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  const __half2 h = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// two outputs rounded to T (to nearest even), the lower column low
+template <typename T>
+__device__ __forceinline__ uint32_t round2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t round2<__nv_bfloat16>(float lo,
+                                                          float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+template <>
+__device__ __forceinline__ uint32_t round2<__half>(float lo, float hi) {
+  return pack2<__half>(lo, hi);
+}
+
+// two T (one register, the lower column low) as two f32, exactly
+template <typename T>
+__device__ __forceinline__ void unpack2(uint32_t u, float& a, float& b);
+template <>
+__device__ __forceinline__ void unpack2<__nv_bfloat16>(uint32_t u, float& a,
+                                                       float& b) {
+  a = __uint_as_float(u << 16);
+  b = __uint_as_float(u & 0xffff0000u);
+}
+template <>
+__device__ __forceinline__ void unpack2<__half>(uint32_t u, float& a,
+                                                float& b) {
+  const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&u));
+  a = f.x;
+  b = f.y;
+}
+
+// Piece j of thread t of the raw chunk (kKC rows of kBN bytes, dense)
+// widened into the operand tile: sub-tile q / 4 holds columns 64 (q / 4) ..
+// + 63 as [kKC][64] T in 128-byte rows under the 128-byte swizzle (16-byte
+// chunk c of row r at c ^ (r % 8)).  Piece p = t + 256 j is row p / 8,
+// columns 16 q .. + 15 with q = p % 8.
+template <typename T, bool kFp8>
+__device__ __forceinline__ void widen_piece(const unsigned char* raw,
+                                            unsigned char* op, int t, int j) {
+  const int p = t + kThreads * j;
+  const int r = p >> 3, q = p & 7, c = 2 * (q & 3);
+  const uint4 v = *reinterpret_cast<const uint4*>(raw + 16 * p);
+  const uint32_t b[4] = {v.x, v.y, v.z, v.w};
+  uint32_t h[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float f[4];
+    widen4<kFp8>(b[i], f);
+    h[2 * i] = pack2<T>(f[0], f[1]);
+    h[2 * i + 1] = pack2<T>(f[2], f[3]);
+  }
+  unsigned char* row = op + (q >> 2) * kWSub + r * 128;
+  *reinterpret_cast<uint4*>(row + ((c ^ (r & 7)) << 4)) =
+      make_uint4(h[0], h[1], h[2], h[3]);
+  *reinterpret_cast<uint4*>(row + (((c + 1) ^ (r & 7)) << 4)) =
+      make_uint4(h[4], h[5], h[6], h[7]);
+}
+
+// the biased f32 exponent of a T's magnitude bits (bits & 0x7fff)
+template <typename T> __device__ __forceinline__ int top_exp(uint32_t bits);
+template <> __device__ __forceinline__ int top_exp<__nv_bfloat16>(uint32_t b) {
+  return (int)(b >> 7);
+}
+template <> __device__ __forceinline__ int top_exp<__half>(uint32_t b) {
+  return (int)(b >> 10) + 112;          // f16 bias 15, f32 127 (a subnormal
+}                                       // top reads as 2^-14: fewer hi bits)
+
+// The chunk's x tile split into x = x_hi + x_lo, row by row: x_hi is each
+// value truncated toward zero to a multiple of q = 2^(E - kHiBits), E the
+// exponent of the row's largest |x| in the chunk, and x_lo the rest.  Both
+// are bit subsets of x, so both are exact in T.  With an int8 weight every
+// product of x_hi is a multiple of q below 2^(E + 8), so a chunk's 128 of
+// them sum exactly within the 24 bits the tensor core keeps (it drops the
+// bits below its sum's last place); x_lo's products are below 2^-7 of
+// theirs, so the bits the tensor core drops from their sum are far below
+// the result's.  (An e4m3 weight adds its own exponent spread: kHiBits = 5
+// leaves room for weights down to 2^-4 of the largest.)  x_hi replaces x
+// in place, x_lo goes to `lo` at the same offsets (the same swizzled
+// layout).  A row's 16 pieces of 16 bytes lie on 16 lanes; rows past M
+// are left alone.  |x_hi| = (|x| + C) - C with C = 1.5 * 2^(E - kHiBits +
+// 23), the first sum rounded toward zero.
+template <typename T, int kHiBits>
+__device__ __forceinline__ void split_x(unsigned char* xs, unsigned char* lo,
+                                       int t, int rows) {
+  const int n = min(rows, kBM) * 16;             // pieces of the live rows
+  for (int j0 = 0; j0 < n; j0 += kThreads) {     // the same trips per lane
+    const int j = j0 + t, c = j & 15;
+    const bool live = j < n;
+    const int off = (c >> 3) * kSub + (j >> 4) * 128 + (c & 7) * 16;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (live) v = *reinterpret_cast<const uint4*>(xs + off);
+    uint32_t top = __vmaxu2(__vmaxu2(v.x & 0x7fff7fffu, v.y & 0x7fff7fffu),
+                            __vmaxu2(v.z & 0x7fff7fffu, v.w & 0x7fff7fffu));
+    top = max(top & 0xffffu, top >> 16);
+#pragma unroll
+    for (int d = 1; d < 16; d *= 2)
+      top = max(top, __shfl_xor_sync(0xffffffffu, top, d));
+    if (!live) continue;
+    const int cb = top_exp<T>(top) - kHiBits + 23;
+    const float C = cb > 254 ? 0.f
+                    : __uint_as_float(((uint32_t)max(cb, 24) << 23) |
+                                      0x400000u);
+    const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+    uint32_t hi[4], lw[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float f[2], h[2], l[2];
+      unpack2<T>(u[i], f[0], f[1]);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float a = __fsub_rn(__fadd_rz(fabsf(f[e]), C), C);
+        h[e] = __uint_as_float(__float_as_uint(a) |
+                               (__float_as_uint(f[e]) & 0x80000000u));
+        l[e] = __fsub_rn(f[e], h[e]);
+      }
+      hi[i] = pack2<T>(h[0], h[1]);
+      lw[i] = pack2<T>(l[0], l[1]);
+    }
+    *reinterpret_cast<uint4*>(xs + off) = make_uint4(hi[0], hi[1], hi[2],
+                                                     hi[3]);
+    *reinterpret_cast<uint4*>(lo + off) = make_uint4(lw[0], lw[1], lw[2],
+                                                     lw[3]);
+  }
+}
+
+// *p += v at gpu scope with acquire-release order; returns the old value
+__device__ __forceinline__ int atomic_add_acq_rel(int* p, int v) {
+  int old;
+  asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], %2;\n"
+               : "=r"(old)
+               : "l"(p), "r"(v)
+               : "memory");
+  return old;
+}
+
+// (th, tl) += (hi, lo), a chunk's partials into a total carried in two
+// floats: th takes the rounded sum th + hi and tl its exact rounding error
+// (TwoSum), then lo (x_lo's partial, below 2^-7 of hi's scale); so a row's
+// chunks add with the error of about one rounding
+__device__ __forceinline__ void add_partial(float& th, float& tl, float hi,
+                                            float lo) {
+  const float s = __fadd_rn(th, hi);
+  const float bp = __fsub_rn(s, th);
+  const float e = __fadd_rn(__fsub_rn(th, __fsub_rn(s, bp)),
+                            __fsub_rn(hi, bp));
+  th = s;
+  tl = __fadd_rn(__fadd_rn(tl, e), lo);
+}
+
+// A chunk's products for warpgroup g's 64 columns, x_hi . w into d_hi and
+// x_lo . w into d_lo, each from zero over the chunk's 8 k-steps
+template <typename T>
+__device__ __forceinline__ void chunk_products(float* d_hi, float* d_lo,
+                                               const unsigned char* xs,
+                                               const unsigned char* op,
+                                               int g) {
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk) {
+    const int a = (kk >> 2) * kSub + (kk & 3) * 32;
+    const uint64_t b = hopper::desc_sw128(op + g * kWSub + kk * 2048, kWSub,
+                                          1024);
+    hopper::wgmma_ss_bt<T>(d_hi, hopper::desc_sw128(xs + a, 16, 1024), b,
+                           kk > 0);
+    hopper::wgmma_ss_bt<T>(d_lo, hopper::desc_sw128(op + kWBytes + a, 16,
+                                                    1024), b, kk > 0);
+  }
+  hopper::wgmma_commit();
+}
+
+// Accumulator element pair (i, h) of thread t of a warpgroup: row 16 (t /
+// 32) + (t % 32) / 4 + 8 h, columns 8 i + 2 (t % 4) + {0, 1} of its 64, at
+// acc[4 i + 2 h], + 1 (hopper_common.cuh's layout).
+template <typename F>
+__device__ __forceinline__ void for_pairs(int t, F&& f) {
+  const int r0 = 16 * (t >> 5) + ((t & 31) >> 2);
+  const int c0 = 2 * (t & 3);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) f(r0 + 8 * h, 8 * i + c0, 4 * i + 2 * h);
+}
+
+// grid (M tiles, N / kBN, splits); block z walks chunks zG .. zG + G - 1
+// (fewer in the last); warpgroup g owns the tile's columns 64 g .. + 63.
+// kSplit: G < K / kKC, each chunk's partials to `part` ([chunk][M][N] (hi,
+// lo) f32 pairs) and the tile's last block merges; else G = K / kKC and
+// the block keeps the total in registers.  `xrows`: the rows of x a TMA
+// box brings (M rounded up to 8, at most 64; rows past it are not read).
+template <typename T, bool kFp8, bool kSplit>
+__global__ void __launch_bounds__(kThreads)
+quant_matmul_tc_kernel(const __grid_constant__ CUtensorMap x_map,
+                       const __grid_constant__ CUtensorMap w_map,
+                       const float* __restrict__ scale, T* __restrict__ out,
+                       float* __restrict__ part, int* __restrict__ counts,
+                       int M, int N, int chunks, int G, int xrows) {
+  const int m0 = blockIdx.x * kBM;
+  const int n0 = blockIdx.y * kBN;
+  const int cb = blockIdx.z * G;
+  const int nc = min(G, chunks - cb);
+  const int S = stages(G), O = op_slots(G);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);     // [stage][x | raw w]
+  unsigned char* ops = ring + S * kStageBytes;   // [slot][widened w | x_lo]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ops + O * kOpBytes);
+  __shared__ int is_last;
+  const int t = threadIdx.x, g = t >> 7, tg = t & 127;
+  if (t == 0) {
+    hopper::prefetch_tensormap(&x_map);
+    hopper::prefetch_tensormap(&w_map);
+    for (int s = 0; s < S; ++s) hopper::mbar_init(full + s, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  auto load = [&](int i) {                       // chunk cb + i, stage i % S
+    const int s = i % S, k0 = (cb + i) * kKC;
+    unsigned char* st = ring + s * kStageBytes;
+    hopper::mbar_arrive_expect_tx(full + s, kRawBytes + 2 * xrows * 128);
+    hopper::tma_load_2d(st + kXBytes, &w_map, full + s, n0, k0);
+    hopper::tma_load_2d(st, &x_map, full + s, k0, m0);
+    hopper::tma_load_2d(st + kSub, &x_map, full + s, k0 + 64, m0);
+  };
+  // chunk i's operands: its raw weight widened and its x split, into slot
+  // i % O (x_hi in place)
+  auto prepare = [&](int i) {
+    unsigned char* st = ring + (i % S) * kStageBytes;
+    unsigned char* op = ops + (i % O) * kOpBytes;
+    hopper::mbar_wait(full + i % S, (i / S) & 1);
+#pragma unroll
+    for (int j = 0; j < kPieces; ++j)
+      widen_piece<T, kFp8>(st + kXBytes, op, t, j);
+    split_x<T, kFp8 ? 5 : 7>(st, op + kWBytes, t, M - m0);
+    hopper::fence_async_shared();
+  };
+  if (t == 0)
+    for (int i = 0; i < min(S, nc); ++i) load(i);
+
+  float d_hi[32], d_lo[32];
+  // the walk's total, carried in two floats
+  float th[kSplit ? 1 : 32], tl[kSplit ? 1 : 32];
+  if constexpr (!kSplit) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) th[e] = tl[e] = 0.f;
+  }
+  prepare(0);
+  __syncthreads();
+  for (int i = 0; i < nc; ++i) {
+    chunk_products<T>(d_hi, d_lo, ring + (i % S) * kStageBytes,
+                      ops + (i % O) * kOpBytes, g);
+    if (i + 1 < nc) prepare(i + 1);              // while the products run
+    hopper::wgmma_wait<0>();
+    hopper::fence_acc(d_hi);
+    hopper::fence_acc(d_lo);
+    if constexpr (kSplit) {                      // (hi, lo) of 2 columns
+      float* p = part + (size_t)(cb + i) * M * N * 2;
+      for_pairs(tg, [&](int r, int col, int e) {
+        if (m0 + r < M)
+          *reinterpret_cast<float4*>(
+              p + ((size_t)(m0 + r) * N + n0 + 64 * g + col) * 2) =
+              make_float4(d_hi[e], d_lo[e], d_hi[e + 1], d_lo[e + 1]);
+      });
+    } else {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) add_partial(th[e], tl[e], d_hi[e], d_lo[e]);
+    }
+    __syncthreads();        // chunk i's stage and slot read; i + 1 prepared
+    if (t == 0 && i + S < nc) load(i + S);
+  }
+
+  if constexpr (!kSplit) {
+    for_pairs(tg, [&](int r, int col, int e) {
+      const int n = n0 + 64 * g + col;
+      if (m0 + r < M)
+        *reinterpret_cast<uint32_t*>(out + (size_t)(m0 + r) * N + n) =
+            round2<T>(__fmul_rn(__fadd_rn(th[e], tl[e]), scale[n]),
+                      __fmul_rn(__fadd_rn(th[e + 1], tl[e + 1]),
+                                scale[n + 1]));
+    });
+    return;
+  }
+  // the merge's columns (each thread merges pairs e = t, t + 256, ...: the
+  // columns of e % 64) and their scales, read before the count
+  const int mcol = n0 + 2 * (t % (kBN / 2));
+  const float sc0 = scale[mcol], sc1 = scale[mcol + 1];
+  __syncthreads();                // the block's partials written
+  if (t == 0) {
+    // acq_rel: releases the block's partials (ordered before by the
+    // barrier) and, for the last block, acquires every other block's
+    const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+    const int prev = atomic_add_acq_rel(counts + tile, 1);
+    is_last = prev == (int)gridDim.z - 1;
+    if (is_last) counts[tile] = 0;               // ready for the next launch
+  }
+  __syncthreads();
+  if (!is_last) return;
+  // the merge: the partials in chunk order into a two-float total from 0,
+  // as the walk adds them (two pairs a thread, 8 chunks' loads in flight
+  // for each); times the scale, rounded
+  constexpr int kBatch = 8;
+  const int pairs = min(kBM, M - m0) * (kBN / 2);
+  const size_t stride = (size_t)M * N * 2;
+  for (int e0 = t; e0 < pairs; e0 += 2 * kThreads) {
+    const int e1 = e0 + kThreads;
+    const bool two = e1 < pairs;
+    const float* p0 = part + ((size_t)(m0 + e0 / (kBN / 2)) * N + mcol) * 2;
+    const float* p1 = part + ((size_t)(m0 + e1 / (kBN / 2)) * N + mcol) * 2;
+    float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int c0 = 0; c0 < chunks; c0 += kBatch) {
+      float4 a[kBatch], b[kBatch];
+#pragma unroll
+      for (int c = 0; c < kBatch; ++c) {
+        if (c0 + c < chunks) {
+          a[c] = __ldcg(reinterpret_cast<const float4*>(p0 + (c0 + c) * stride));
+          if (two)
+            b[c] = __ldcg(reinterpret_cast<const float4*>(p1 + (c0 + c) *
+                                                          stride));
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < kBatch; ++c) {
+        if (c0 + c < chunks) {
+          add_partial(t0[0], t0[1], a[c].x, a[c].y);
+          add_partial(t0[2], t0[3], a[c].z, a[c].w);
+          if (two) {
+            add_partial(t1[0], t1[1], b[c].x, b[c].y);
+            add_partial(t1[2], t1[3], b[c].z, b[c].w);
+          }
+        }
+      }
+    }
+    *reinterpret_cast<uint32_t*>(out + (size_t)(m0 + e0 / (kBN / 2)) * N +
+                                 mcol) =
+        round2<T>(__fmul_rn(__fadd_rn(t0[0], t0[1]), sc0),
+                  __fmul_rn(__fadd_rn(t0[2], t0[3]), sc1));
+    if (two)
+      *reinterpret_cast<uint32_t*>(out + (size_t)(m0 + e1 / (kBN / 2)) * N +
+                                   mcol) =
+          round2<T>(__fmul_rn(__fadd_rn(t1[0], t1[1]), sc0),
+                    __fmul_rn(__fadd_rn(t1[2], t1[3]), sc1));
+  }
+}
+
+template <typename T, bool kFp8, bool kSplit>
+int launch(const void* x, const void* w, const void* scale, void* out,
+           void* part, void* counts, int M, int K, int N, int G,
+           cudaStream_t st) {
+  const int xrows = min(kBM, (M + 7) / 8 * 8);
+  CUtensorMap x_map, w_map;
+  int err = hopper::make_map_2d<T>(&x_map, x, M, K, K, 64, xrows,
+                                   CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err) return err;
+  err = hopper::make_map_2d<uint8_t>(&w_map, w, K, N, N, kBN, kKC);
+  if (err) return err;
+  const size_t smem = smem_bytes(G);
+  auto kernel = quant_matmul_tc_kernel<T, kFp8, kSplit>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int chunks = K / kKC;
+  const dim3 grid((M + kBM - 1) / kBM, N / kBN, (chunks + G - 1) / G);
+  kernel<<<grid, kThreads, smem, st>>>(
+      x_map, w_map, static_cast<const float*>(scale), static_cast<T*>(out),
+      static_cast<float*>(part), static_cast<int*>(counts), M, N, chunks, G,
+      xrows);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_w(int w_dtype, bool split, const void* x, const void* w,
+             const void* scale, void* out, void* part, void* counts, int M,
+             int K, int N, int G, cudaStream_t st) {
+  if (w_dtype == 0)
+    return split ? launch<T, false, true>(x, w, scale, out, part, counts, M,
+                                          K, N, G, st)
+                 : launch<T, false, false>(x, w, scale, out, part, counts, M,
+                                           K, N, G, st);
+  if (w_dtype == 1)
+    return split ? launch<T, true, true>(x, w, scale, out, part, counts, M,
+                                         K, N, G, st)
+                 : launch<T, true, false>(x, w, scale, out, part, counts, M,
+                                          K, N, G, st);
   return -1;
 }
+
+}  // namespace tc
 
 }  // namespace
 
 extern "C" {
 
-// x_dtype: 0 = float32, 1 = bfloat16, 2 = float16; w_dtype: 0 = int8,
-// 1 = float8_e4m3fn.  Returns a cudaError_t (0 = launched).  -1: a
-// geometry the kernel does not take (the wrapper checks first, so this is
-// a second guard, not the user-facing error).
+// The tensor-core kernel's tile: 0 = rows of x (kBM), 1 = output columns
+// (kBN), 2 = K rows of a chunk (kKC); the wrapper's plan must agree.
+int quant_matmul_geometry(int which) {
+  return which == 0 ? tc::kBM : which == 1 ? tc::kBN
+         : which == 2 ? tc::kKC : -1;
+}
+
+// x_dtype: 0 = float32 (the CUDA-core kernel), 1 = bfloat16, 2 = float16
+// (the tensor-core kernel); w_dtype: 0 = int8, 1 = float8_e4m3fn.  G: the
+// chunks of kKC K rows each tensor-core block walks (all of them, or fewer
+// for the split schedule, which then needs `part`, 2 * K / kKC * M * N f32, and
+// `counts`, M tiles x N / kBN int32 that are 0, and leaves them 0).
+// Returns a cudaError_t (0 = launched), or a negative code: -1 a geometry
+// the kernel does not take (the wrapper checks first, so this is a second
+// guard, not the user-facing error), -2 / -3 no tensor map.
 int quant_matmul_launch(int x_dtype, int w_dtype, const void* x,
-                        const void* w, const void* scale, void* out, int M,
-                        int K, int N, void* stream) {
-  if (M < 1 || K < kKC || K % kKC != 0 || N < 128 || N % 128 != 0) return -1;
+                        const void* w, const void* scale, void* out,
+                        void* part, void* counts, int M, int K, int N, int G,
+                        void* stream) {
+  if (M < 1 || K < 128 || K % 128 != 0 || N < 128 || N % 128 != 0)
+    return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_dtype == 0) {
+    if (w_dtype == 0) return f32k::launch<false>(x, w, scale, out, M, K, N, st);
+    if (w_dtype == 1) return f32k::launch<true>(x, w, scale, out, M, K, N, st);
+    return -1;
+  }
+  const int chunks = K / tc::kKC;
+  const bool split = G < chunks;
+  if (G < 1 || G > chunks || N / tc::kBN > 65535 ||
+      (chunks + G - 1) / G > 65535 ||
+      (split && (part == nullptr || counts == nullptr)))
+    return -1;
   switch (x_dtype) {
-    case 0:
-      return launch_w<float>(w_dtype, x, w, scale, out, M, K, N, st);
     case 1:
-      return launch_w<__nv_bfloat16>(w_dtype, x, w, scale, out, M, K, N, st);
+      return tc::launch_w<__nv_bfloat16>(w_dtype, split, x, w, scale, out,
+                                         part, counts, M, K, N, G, st);
     case 2:
-      return launch_w<__half>(w_dtype, x, w, scale, out, M, K, N, st);
+      return tc::launch_w<__half>(w_dtype, split, x, w, scale, out, part,
+                                  counts, M, K, N, G, st);
     default:
       return -1;
   }

@@ -12,8 +12,13 @@ dequantization commutes out of the product.
   it.  (A bf16 ``torch.matmul`` would round before the scale: it is not
   this function.)
 - :func:`quant_matmul_kernel` launches ``csrc/quant_matmul.cu`` on a CUDA
-  tensor: the same f32 arithmetic, one summation order per output element
-  whatever M is.
+  tensor: bf16 / f16 activations on the tensor cores (wgmma on weight
+  chunks widened in shared memory), f32 activations on the CUDA cores.
+  :func:`quant_plan` is its schedule, a pure function of the shapes: the
+  chunks of K whose partials are summed in order (their rows depend on K
+  alone, so one summation order per output element whatever M is), and
+  whether a tile's chunks are spread over blocks and merged in order by
+  the last (the split) or walked by one block (the walk).
 - :func:`quant_matmul` flattens the leading dims, dispatches, and adds the
   bias in the activation dtype outside the kernel.  Geometry the kernel
   does not take (K or N not a multiple of 128, or a float weight) goes to
@@ -26,16 +31,80 @@ dequantization commutes out of the product.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 _LANES = 128
 _X_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _W_CODES = {torch.int8: 0, torch.float8_e4m3fn: 1}
+# the tensor-core kernel's tile (csrc/quant_matmul.cu kBM, kBN, kKC): rows
+# of x, output columns, K rows of a chunk
+TILE_M, TILE_N, CHUNK_ROWS = 64, 128, 128
+_F32_TILE_M, _F32_TILE_N = 8, 32          # the CUDA-core kernel's
+_SMS = 132                                # the H100's SMs
+_FILL_BLOCKS = 2 * _SMS                   # the split's target block count
+_SPLIT_BYTES = 25 * 2 ** 20               # its partials: one tile of x,
+_WIDE_SPLIT_BYTES = 40 * 2 ** 20          # and more (the L2 holds 50 MB)
+_GRID_YZ = 65535
 
 # kernel launches since the last reset (the smoke run reads it to prove
-# the serving path went through the kernel)
+# the serving path went through the kernel), and those of the f32 route
 launches = 0
+f32_launches = 0
+
+
+class QuantPlan(NamedTuple):
+    """A launch's schedule.  ``route``: ``"tc"`` (bf16/f16 activations,
+    wgmma) or ``"f32"`` (CUDA cores).  The sum of an output runs over
+    ``chunks`` chunks of ``chunk_rows`` K rows, added in the order
+    ``order``; a grid of ``m_tiles`` x ``n_tiles`` tiles, each tile's chunks
+    walked ``chunks_per_block`` at a time by ``splits`` blocks (``split``:
+    more than one, partials merged by the last block)."""
+    route: str
+    chunk_rows: int
+    chunks: int
+    m_tiles: int
+    n_tiles: int
+    chunks_per_block: int
+    splits: int
+
+    @property
+    def order(self):
+        return tuple(range(self.chunks))
+
+    @property
+    def split(self) -> bool:
+        return self.splits > 1
+
+
+def quant_plan(m: int, k: int, n: int, x_dtype) -> QuantPlan:
+    """The kernel's schedule for an (m, k) x (k, n) product.  The chunks
+    and their order depend on K alone; M and N only choose how the tiles
+    and chunks are spread over blocks.  bf16/f16: with one 64-row tile of
+    x (M <= 64), tiles that cannot fill the card and partials within half
+    the L2, each tile's chunks are spread over blocks, about two blocks
+    per SM (the split, decode's schedule); with more rows, tiles that fill
+    under a quarter of the SMs and partials within 40 MB, every chunk is
+    its own block (the split: fc_out at M = 256 walks 24 chunks in 24
+    blocks otherwise); else every block walks all of its tile's chunks
+    (the walk).  f32: the CUDA-core kernel, 8 x 32 tiles, each walking all
+    of K in passes of 128 rows (its order: 32 slices of K summed in order,
+    fixed by K alone)."""
+    chunks = k // CHUNK_ROWS
+    if x_dtype == torch.float32:
+        return QuantPlan("f32", CHUNK_ROWS, chunks, -(-m // _F32_TILE_M),
+                         n // _F32_TILE_N, chunks, 1)
+    m_tiles, n_tiles = -(-m // TILE_M), n // TILE_N
+    part_bytes = chunks * m * n * 8
+    per_block = chunks
+    if m_tiles == 1:
+        if n_tiles < _SMS and part_bytes <= _SPLIT_BYTES:
+            per_block = min(chunks, -(-chunks * n_tiles // _FILL_BLOCKS))
+    elif 4 * m_tiles * n_tiles <= _SMS and part_bytes <= _WIDE_SPLIT_BYTES:
+        per_block = 1
+    return QuantPlan("tc", CHUNK_ROWS, chunks, m_tiles, n_tiles, per_block,
+                     -(-chunks // per_block))
 
 
 def supported(k: int, n: int, w_dtype) -> bool:
@@ -51,10 +120,32 @@ def quant_matmul_ref(x, w_q, scale):
     return (acc * scale.float()).to(x.dtype)
 
 
-def check_kernel_args(x2d, w_q, scale) -> None:
+def check_geometry(m: int, k: int, n: int, x_dtype, w_dtype) -> QuantPlan:
+    """Raise ``ValueError`` unless the kernel takes an (m, k) x (k, n)
+    product of these dtypes; return its plan.  A pure function of the
+    shapes: K and N multiples of 128, an int8/fp8 weight, f32/bf16/f16
+    activations, and the grid within the card's limits."""
+    if not supported(k, n, w_dtype):
+        raise ValueError(
+            f"quant_matmul_kernel requires lane-aligned K/N (multiples of "
+            f"{_LANES}) and an int8/fp8 weight; got K={k}, N={n}, "
+            f"dtype={w_dtype}")
+    if x_dtype not in _X_CODES:
+        raise ValueError(f"unsupported activation dtype {x_dtype}")
+    if m < 1:
+        raise ValueError(f"M must be at least 1, got {m}")
+    plan = quant_plan(m, k, n, x_dtype)
+    if plan.n_tiles > _GRID_YZ or plan.splits > _GRID_YZ or \
+            plan.m_tiles >= 2 ** 31:
+        raise ValueError(f"quant_matmul_kernel: grid {plan} past the "
+                         f"card's limits")
+    return plan
+
+
+def check_kernel_args(x2d, w_q, scale) -> QuantPlan:
     """Raise ``ValueError`` unless the kernel takes these arguments:
     shapes, dtypes, geometry, devices, contiguity and 16-byte
-    alignment."""
+    alignment; return the launch's plan."""
     if x2d.dim() != 2 or w_q.dim() != 2 or scale.dim() != 1:
         raise ValueError("x must be (M, K), w_q (K, N) and scale (N,)")
     m, k = x2d.shape
@@ -62,14 +153,7 @@ def check_kernel_args(x2d, w_q, scale) -> None:
         raise ValueError(f"shapes x {tuple(x2d.shape)}, w_q "
                          f"{tuple(w_q.shape)}, scale {tuple(scale.shape)} "
                          f"do not agree")
-    n = w_q.shape[1]
-    if not supported(k, n, w_q.dtype):
-        raise ValueError(
-            f"quant_matmul_kernel requires lane-aligned K/N (multiples of "
-            f"{_LANES}) and an int8/fp8 weight; got K={k}, N={n}, "
-            f"dtype={w_q.dtype}")
-    if x2d.dtype not in _X_CODES:
-        raise ValueError(f"unsupported activation dtype {x2d.dtype}")
+    plan = check_geometry(max(m, 1), k, w_q.shape[1], x2d.dtype, w_q.dtype)
     if scale.dtype != torch.float32:
         raise ValueError(f"scale must be float32, got {scale.dtype}")
     for name, t in (("x", x2d), ("w_q", w_q), ("scale", scale)):
@@ -79,35 +163,66 @@ def check_kernel_args(x2d, w_q, scale) -> None:
             raise ValueError(f"{name} is on {t.device}, x on {x2d.device}")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+    return plan
 
 
 _launch_fn = None
 
 
 def _lib():
-    """The kernel's C entry point, built and bound at first use."""
+    """The kernel's C entry point, built and bound at first use; its tile
+    checked against :func:`quant_plan`'s."""
     global _launch_fn
     if _launch_fn is None:
         from ._build import load
-        fn = load("quant_matmul").quant_matmul_launch
+        lib = load("quant_matmul")
+        lib.quant_matmul_geometry.argtypes = [ctypes.c_int]
+        tile = tuple(lib.quant_matmul_geometry(i) for i in range(3))
+        if tile != (TILE_M, TILE_N, CHUNK_ROWS):
+            raise RuntimeError(f"quant_matmul kernel tile {tile} != the "
+                               f"plan's {(TILE_M, TILE_N, CHUNK_ROWS)}")
+        fn = lib.quant_matmul_launch
         # c_void_p for every pointer and the stream, or ctypes passes them
         # as 32-bit ints and cuts them
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ci, ci, vp, vp, vp, vp, ci, ci, ci, vp]
+        fn.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
         fn.restype = ctypes.c_int
         _launch_fn = fn
     return _launch_fn
+
+
+# per device: the split's partials ((hi, lo) f32 pairs) and its arrival
+# counters (int32, zero; each launch leaves them zero), grown to the
+# largest launch
+_part = {}
+_counts = {}
+
+
+def _split_scratch(device, plan, m, n):
+    """Pointers to the split's scratch, or (None, None) for a walk."""
+    if not plan.split:
+        return None, None
+    part, counts = _part.get(device), _counts.get(device)
+    need = 2 * plan.chunks * m * n
+    if part is None or part.numel() < need:
+        part = _part[device] = torch.empty(need, dtype=torch.float32,
+                                           device=device)
+    need = plan.m_tiles * plan.n_tiles
+    if counts is None or counts.numel() < need:
+        counts = _counts[device] = torch.zeros(need, dtype=torch.int32,
+                                               device=device)
+    return part.data_ptr(), counts.data_ptr()
 
 
 def quant_matmul_kernel(x2d, w_q, scale):
     """Launch the Hopper kernel on PyTorch's current stream; ``x2d`` is
     (M, K), returns (M, N) in x's dtype.  Raises on arguments the kernel
     does not take or a launch the device refuses."""
-    global launches
+    global launches, f32_launches
     if x2d.device.type != "cuda":
         raise ValueError(f"the quant_matmul kernel runs on CUDA tensors, "
                          f"got {x2d.device}")
-    check_kernel_args(x2d, w_q, scale)
+    plan = check_kernel_args(x2d, w_q, scale)
     m, k = x2d.shape
     n = w_q.shape[1]
     out = torch.empty(m, n, dtype=x2d.dtype, device=x2d.device)
@@ -116,15 +231,19 @@ def quant_matmul_kernel(x2d, w_q, scale):
     fn = _launch_fn or _lib()
     dev = x2d.device.index
     with torch.cuda.device(dev):
+        part, counts = _split_scratch(x2d.device, plan, m, n)
         # the stream's handle as an int, without a torch.cuda.Stream
         # object per call (the serving path makes 48 calls a forward)
         err = fn(_X_CODES[x2d.dtype], _W_CODES[w_q.dtype], x2d.data_ptr(),
-                 w_q.data_ptr(), scale.data_ptr(), out.data_ptr(), m, k, n,
+                 w_q.data_ptr(), scale.data_ptr(), out.data_ptr(), part,
+                 counts, m, k, n, plan.chunks_per_block,
                  torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError(f"quant_matmul kernel launch failed: "
                            f"CUDA error {err}")
     launches += 1
+    if plan.route == "f32":
+        f32_launches += 1
     return out
 
 

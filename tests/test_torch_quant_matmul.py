@@ -159,3 +159,317 @@ def test_ref_rounds_after_the_scale():
     got = tqm.quant_matmul_ref(tx, tw, ts).double()
     # within half a bf16 ulp of the exact value (plus f32 summation error)
     assert bf16_ulps(got.numpy(), exact.numpy()) <= 0.5 + 1e-3
+
+
+# ---------------------------------------------------------------------------
+# The Hopper kernel's schedule, order of the sum and widening, in plain
+# PyTorch (the kernel itself runs only on the card: chip_smoke.py)
+# ---------------------------------------------------------------------------
+
+
+def widen_bits(w_q, dtype):
+    """``w_q`` (int8 or fp8-e4m3) widened to ``dtype`` (bf16 or f16) as the
+    kernel widens it, step by step on the bits: int8 ``b`` as the f32 with
+    bits ``0x4B000000 | (b ^ 0x80)`` minus ``2**23 + 128``; e4m3 as the
+    f32 with its sign at bit 31 and its 7 magnitude bits at bits 20..26,
+    times ``2**120``; then bf16 as the f32's upper 16 bits, f16 rounded to
+    nearest."""
+    b = w_q.view(torch.uint8).to(torch.int64)
+    if w_q.dtype == torch.int8:
+        bits = 0x4B000000 | (b ^ 0x80)
+    else:
+        bits = ((b & 0x80) << 24) | ((b & 0x7F) << 20)
+    bits = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits)
+    f = bits.to(torch.int32).view(torch.float32)
+    f = f - 8388736.0 if w_q.dtype == torch.int8 else f * 2.0 ** 120
+    if dtype == torch.bfloat16:
+        return (f.view(torch.int32) >> 16).to(torch.int16).view(
+            torch.bfloat16)
+    return f.to(dtype)
+
+
+def split_x(x, chunk_rows=tqm.CHUNK_ROWS, hi_bits=7):
+    """``x`` (M, K) bf16/f16 split as the kernel splits it, ``x = x_hi +
+    x_lo`` exactly: in each row's chunk of ``chunk_rows`` columns, ``x_hi``
+    is each value truncated toward zero to a multiple of ``2**(E -
+    hi_bits)`` (E the exponent of the chunk row's largest magnitude, read
+    from x's own bits: an f16 subnormal counts as 2^-14; the kernel keeps 7
+    bits below E for int8 weights, 5 for e4m3) and ``x_lo`` the rest, both
+    in x's dtype."""
+    m, k = x.shape
+    bits = x.view(torch.int16).to(torch.int32) & 0x7FFF
+    top = bits.view(m, k // chunk_rows, chunk_rows).amax(-1, keepdim=True)
+    if x.dtype == torch.bfloat16:
+        e = top >> 7
+    else:
+        e = (top >> 10) + 112
+    q = torch.exp2((e.clamp(min=24 + hi_bits - 23) - 127 - hi_bits)
+                   .double())
+    xd = x.double().view(m, k // chunk_rows, chunk_rows)
+    hi = torch.trunc(xd / q) * q
+    lo = xd - hi
+    return (hi.reshape(m, k).to(x.dtype), lo.reshape(m, k).to(x.dtype))
+
+
+def _add_partial(th, tl, hi, lo):
+    """(th, tl) += (hi, lo) in f32, th the rounded sum th + hi and tl its
+    exact rounding error plus lo (the kernel's add_partial)."""
+    s = th + hi
+    bp = s - th
+    return s, (tl + ((th - (s - bp)) + (hi - bp))) + lo
+
+
+def _f32_kernel_order(x2d, w_q, scale):
+    """The CUDA-core kernel's order for f32 activations: 32 slices of K
+    (of every 128 rows, slice s takes rows 4s..4s+3), each summed with
+    f32 FMAs row by row in ascending order, then the slices added in
+    order; times the scale."""
+    m, k = x2d.shape
+    n = w_q.shape[1]
+    xs = x2d.double().reshape(m, k // 128, 32, 4)
+    ws = w_q.double().reshape(k // 128, 32, 4, n)
+    acc = torch.zeros(m, 32, n, dtype=torch.float32)
+    for p in range(k // 128):
+        for j in range(4):         # an FMA: the exact product, one rounding
+            acc = (acc.double() + xs[:, p, :, j, None]
+                   * ws[None, p, :, j, :]).float()
+    total = torch.zeros(m, n, dtype=torch.float32)
+    for sl in range(32):
+        total = total + acc[:, sl]
+    return total * scale.float()
+
+
+def quant_matmul_chunked(x2d, w_q, scale, chunk_rows=tqm.CHUNK_ROWS):
+    """The tensor-core kernel's order of the sum in plain PyTorch: per
+    chunk of ``chunk_rows`` K rows, x split by :func:`split_x` and the
+    chunk's two partials ``f32(x_hi . w)`` and ``f32(x_lo . w)`` (each
+    exact in f64, rounded once), added in chunk order into a total carried
+    in two f32 (TwoSum), from 0; its sum times the scale, rounded to x's
+    dtype.  For int8 weights the kernel's x_hi sum is exact on the tensor
+    cores, so this is the kernel's result bit for bit; for e4m3 weights
+    the tensor core drops bits of the x_hi sum where a chunk's weights
+    spread their exponents, so the kernel can differ from this by a few
+    ulps of an f16 output (ROADMAP Queue 3).  f32 activations: the
+    CUDA-core kernel's order (:func:`_f32_kernel_order`)."""
+    if x2d.dtype == torch.float32:
+        return _f32_kernel_order(x2d, w_q, scale)
+    m, k = x2d.shape
+    w = w_q.double()
+    hi, lo = split_x(x2d, chunk_rows,
+                     5 if w_q.dtype == torch.float8_e4m3fn else 7)
+    th = torch.zeros(m, w_q.shape[1], dtype=torch.float32)
+    tl = torch.zeros_like(th)
+    for c in range(0, k, chunk_rows):
+        w_c = w[c:c + chunk_rows]
+        th, tl = _add_partial(th, tl,
+                              (hi[:, c:c + chunk_rows].double() @ w_c).float(),
+                              (lo[:, c:c + chunk_rows].double() @ w_c).float())
+    return ((th + tl) * scale.float()).to(x2d.dtype)
+
+
+PLAN_MS = (1, 8, 16, 17, 200, 256, 4096)
+PLAN_KS = (128, 256, 640, 768, 3072, 4096, 8192)
+PLAN_NS = (128, 384, 768, 2304, 3072, 8192)
+
+
+@pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float16,
+                                    torch.float32], ids=str)
+def test_plan_order_depends_on_k_and_n_only(xdtype):
+    """The chunks of K and their order are the same at every M: a row
+    alone and the same row in a batch of 4096 are summed alike, whichever
+    schedule (the decode split or the prefill walk) each M takes."""
+    for k in PLAN_KS:
+        for n in PLAN_NS:
+            plans = [tqm.quant_plan(m, k, n, xdtype) for m in PLAN_MS]
+            first = plans[0]
+            assert first.chunk_rows * first.chunks == k
+            assert first.order == tuple(range(k // first.chunk_rows))
+            for m, p in zip(PLAN_MS, plans):
+                assert (p.chunk_rows, p.chunks, p.order) == (
+                    first.chunk_rows, first.chunks, first.order), (m, k, n)
+                # the blocks of a tile cover its chunks once, in runs
+                g = p.chunks_per_block
+                assert 1 <= g <= p.chunks
+                assert p.splits == -(-p.chunks // g)
+                assert (p.splits - 1) * g < p.chunks <= p.splits * g
+                assert p.n_tiles * (tqm.TILE_N if p.route == "tc" else 32) \
+                    == n
+                if p.split:       # tiles too few for the card
+                    assert p.route == "tc"
+                    if m <= tqm.TILE_M:
+                        assert p.chunks * m * n * 8 <= 25 * 2 ** 20
+                    else:         # past one tile of x: a chunk a block
+                        assert 4 * p.m_tiles * p.n_tiles <= 132
+                        assert p.chunks * m * n * 8 <= 40 * 2 ** 20
+                        assert g == 1
+    # GPT-2-small at decode: every chunk its own block
+    p = tqm.quant_plan(8, 768, 2304, torch.bfloat16)
+    assert (p.splits, p.n_tiles * p.splits) == (6, 108)
+    assert not tqm.quant_plan(256, 768, 2304, torch.bfloat16).split
+    # its fc_out at M = 256 (4 x 6 tiles) splits a chunk a block; at M =
+    # 1024 (96 tiles) it walks
+    p = tqm.quant_plan(256, 3072, 768, torch.bfloat16)
+    assert (p.splits, p.chunks_per_block, p.m_tiles * p.n_tiles) == (
+        24, 1, 24)
+    assert not tqm.quant_plan(1024, 3072, 768, torch.bfloat16).split
+
+
+def _noise(x, w, s):
+    """Each output's f32 accumulation noise, sqrt(K) 2**-24 sum_k |x w| s
+    (the scale below which two orders of the same exact f32 products may
+    differ, as chip_smoke.py floors its readings)."""
+    x64, w64 = np.abs(_f32(x)).astype(np.float64), np.abs(_f32(w)).astype(
+        np.float64)
+    return (x64 @ w64) * s * (x.shape[1] ** 0.5 * 2.0 ** -24)
+
+
+def bf16_ulps_floored(got, ref, floor):
+    """bf16 ulps of ``ref``, each output's ulp taken at max(|ref|,
+    floor)."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    mag = np.maximum(np.abs(ref), floor)
+    ulp = np.where(mag > 0, 2.0 ** (np.floor(np.log2(np.where(
+        mag > 0, mag, 1.0))) - 7), 1e-6)
+    return float((np.abs(got - ref) / ulp).max())
+
+
+@pytest.mark.parametrize("xdtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("wkind", ["int8", "fp8"])
+@pytest.mark.parametrize("k", [128, 640, 768, 3072])
+def test_chunked_order_matches_jax(k, wkind, xdtype):
+    """The kernel's order (bf16: x split exactly into high and low bits per
+    128-row chunk, two f32 partials per chunk, added in chunk order into a
+    two-float total, then the scale and one rounding; f32: the CUDA-core
+    kernel's 32 slices of FMAs) against the JAX package's Pallas kernel
+    under the interpreter and its jnp reference: bf16 within 1 bf16 ulp
+    (floored at the f32 sum noise), f32 within 1e-5 of max|ref|."""
+    x, w, s = _case(k + len(wkind), 17, k, 256, wkind, xdtype)
+    got = _torch_f32(quant_matmul_chunked(to_tensor(x), to_tensor(w),
+                                              to_tensor(s)))
+    jx, jw, js = jnp.asarray(x), jnp.asarray(w), jnp.asarray(s)
+    for ref in (_f32(_jax_kernel(jx, jw, js)),
+                _f32(jqm.quant_matmul_ref(jx, jw, js))):
+        if xdtype == "bfloat16":
+            assert bf16_ulps_floored(got, ref, _noise(x, w, s)) <= 1
+        else:
+            assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+    # and against the port's plain version, the same function
+    plain = _torch_f32(tqm.quant_matmul_ref(to_tensor(x), to_tensor(w),
+                                            to_tensor(s)))
+    if xdtype == "bfloat16":
+        assert bf16_ulps_floored(got, plain, _noise(x, w, s)) <= 1
+    else:
+        assert np.abs(got - plain).max() <= 1e-5 * np.abs(plain).max()
+
+
+def _ulps_floored(got, ref, floor, bits):
+    """Largest error of ``got`` in ulps (``bits`` below the leading bit: 7
+    for bf16, 10 for f16) of ``ref``, each output's ulp taken at max(|ref|,
+    floor), as chip_smoke.py reads K4."""
+    got, ref = got.double(), ref.double()
+    mag = torch.maximum(ref.abs(), floor.double())
+    ulp = torch.where(mag > 0, torch.exp2(torch.floor(torch.log2(
+        mag.clamp_min(1e-300))) - bits), torch.full_like(mag, 1e-6))
+    return float(((got - ref).abs() / ulp).max())
+
+
+@pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float16],
+                         ids=str)
+@pytest.mark.parametrize("wkind", ["int8", "fp8"])
+@pytest.mark.parametrize("m,k,n", [(8, 768, 2304), (64, 768, 2304),
+                                   (256, 768, 2304), (256, 3072, 768)],
+                         ids=lambda v: str(v))
+def test_chunked_order_within_an_ulp_of_the_exact_sum(m, k, n, wkind,
+                                                      xdtype):
+    """The kernel's order against the exact sum (f64, rounded once to f32,
+    times the scale) at GPT-2-small's projections, the data of
+    chip_smoke.py's K4 cases (N(0, 1) activations, N(0, 0.02) weights
+    quantized by the port): within 1 ulp of the output type, bf16 or f16,
+    floored at the f32 sum noise.  (An f32 sum in one pass reads up to 16
+    f16 ulps there, the noise the f16 checks are held clear of.)"""
+    from paddle_hackathon_tpu_torch.nn.quant import weight_only as wo
+    rng = np.random.RandomState(m + k + n)
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(xdtype)
+    w32 = torch.from_numpy((rng.randn(k, n) * 0.02).astype(np.float32))
+    w_q, scale = wo.quantize_array(w32, wkind)
+    exact = ((x.double() @ w_q.double()).float() * scale).to(xdtype)
+    noise = (x.float().abs() @ w_q.float().abs()) * scale * (
+        k ** 0.5 * 2.0 ** -24)
+    got = quant_matmul_chunked(x, w_q, scale)
+    bits = 7 if xdtype == torch.bfloat16 else 10
+    assert _ulps_floored(got, exact, noise, bits) <= 1
+
+
+@pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float16],
+                         ids=str)
+def test_split_x_exact(xdtype):
+    """x = x_hi + x_lo exactly, both in x's dtype; x_hi a multiple of
+    2**(E - 7) (E the exponent of its chunk row's largest magnitude) with
+    |x_hi| <= |x|, so that x_hi times an int8 weight sums exactly in 24
+    bits; x_lo below it, of x's sign.  Rows of mixed scales, zeros and an
+    all-zero row."""
+    rng = np.random.RandomState(11)
+    x = rng.randn(6, 256) * np.exp2(rng.randint(-12, 6, (6, 256)))
+    x[1, :128] = 0.0
+    x[2, 5] = 0.0
+    x[3] *= 1e-3
+    xt = torch.from_numpy(x.astype(np.float32)).to(xdtype)
+    hi, lo = split_x(xt)
+    assert hi.dtype == lo.dtype == xdtype
+    assert torch.equal(hi.double() + lo.double(), xt.double())
+    for c in (0, 128):
+        blk = xt[:, c:c + 128].double()
+        top = blk.abs().amax(-1, keepdim=True)
+        e = torch.floor(torch.log2(torch.where(top > 0, top,
+                                               torch.ones_like(top))))
+        q = torch.exp2(e - 7)
+        h = hi[:, c:c + 128].double()
+        assert torch.equal(torch.remainder(h, q), torch.zeros_like(h))
+        lo_c = lo[:, c:c + 128].double()
+        assert bool((lo_c.abs() < q).all())
+        assert bool((lo_c * blk >= 0).all())
+    assert torch.equal(hi[1, :128].double(), torch.zeros(128,
+                                                          dtype=torch.float64))
+
+
+def _all_weights(wdtype):
+    """Every int8 value, or every finite e4m3 value (0x7F and 0xFF are its
+    NaNs)."""
+    b = torch.arange(256, dtype=torch.int32).to(torch.uint8)
+    if wdtype == torch.float8_e4m3fn:
+        b = b[(b & 0x7F) != 0x7F]
+    return b.view(wdtype)
+
+
+@pytest.mark.parametrize("to", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("wdtype", [torch.int8, torch.float8_e4m3fn],
+                         ids=str)
+def test_widen_bits_exact(wdtype, to):
+    """The kernel's bit-trick widening gives every weight value exactly,
+    signed zeros and e4m3 subnormals included."""
+    w = _all_weights(wdtype)
+    assert w.numel() == (256 if wdtype == torch.int8 else 254)
+    got = widen_bits(w, to)
+    want = w.to(to)
+    assert got.dtype == to
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    assert torch.equal(got.float(), w.float())
+
+
+@pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("m", [1, 524_289])
+def test_geometry_takes_k640_n384(m, xdtype):
+    """K = 640 (5 chunks, not a power of two) with N = 384, one row or
+    524,289 rows: the geometry check takes it, and both plans sum the same
+    chunks in the same order."""
+    plan = tqm.check_geometry(m, 640, 384, xdtype, torch.int8)
+    assert plan == tqm.check_geometry(m, 640, 384, xdtype,
+                                      torch.float8_e4m3fn)
+    assert plan.chunks == 5 and plan.order == (0, 1, 2, 3, 4)
+    assert plan.order == tqm.quant_plan(1, 640, 384, xdtype).order
+    tile_m = tqm.TILE_M if xdtype != torch.float32 else 8
+    assert plan.m_tiles == -(-m // tile_m)
+    with pytest.raises(ValueError, match="lane-aligned"):
+        tqm.check_geometry(m, 640, 320, xdtype, torch.int8)
+    with pytest.raises(ValueError, match="at least 1"):
+        tqm.check_geometry(0, 640, 384, xdtype, torch.int8)
