@@ -23,7 +23,10 @@ Phases, each printing one JSON line:
                0; the split decode kernel's (K3) ptxas notes; and K4's
                kernels' registers, spills, ptxas notes and HGMMA counts
                (above 0 for each of its 8 tensor-core instances: bf16/f16,
-               int8/fp8, walk/split; 0 for the 2 f32 CUDA-core ones).
+               int8/fp8, walk/split; 0 for the 2 f32 CUDA-core ones); and
+               the same for the 5 forwards past 256 on the tensor cores
+               (``fwd_tc`` bf16/f16 for K1 and K2, ``fwd_tc_f32``; HGMMA
+               above 0).
 3. flash    -- holds the three packed flash-attention kernels (forward, dK/dV,
                dQ; ``csrc/flash_attention_packed.cu``) against their plain
                PyTorch versions run in f32 on the same bf16/f16 inputs:
@@ -35,8 +38,13 @@ Phases, each printing one JSON line:
                s=65 (one row in the last tile), batch 1 on a strided view, and
                the widest instances at H=2: D=256 (bf16, f16 non-causal,
                dropout 0.1) and D=192 (also ragged s=200); past 256 the
-               column-chunked kernels at D=320 (H=2) and D=512 (H=1; H=2
-               non-causal with dropout 0.1); b*H = 65538 (past a grid's y
+               forward on the tensor cores and the column-chunked backward
+               at D=320, 384, 512 (H=1; H=2 non-causal with dropout 0.1)
+               and 1024, in bf16 and f16 (f16 at 384 with dropout), each
+               past 256 also running the forward twice more bit for bit
+               and on a qkv whose V chunks repeat (every output chunk of
+               a row must equal the first bit for bit: one max and sum a
+               row); b*H = 65538 (past a grid's y
                limit) at D=64 and 320, whose last batches are held against
                the plain version with the batches before as the planted
                fault; D=64 f16 and D=128
@@ -82,9 +90,17 @@ Phases, each printing one JSON line:
                apart.  Cases: causal and non-causal, dropout 0.1 with a fixed
                seed, sq=256/skv=1024 and sq=1024/skv=256 causal, ragged
                s=1000, D = 32, 80, 128, 256 and 36 (rows not 16-byte aligned
-               in bf16/f16) and, past 256, 264, 320 and 512, each in f32,
-               bf16 and f16; f32 at D=33 (rows TMA cannot address) and at
-               D=264 with dropout and sq != skv; the f32 training
+               in bf16/f16) and, past 256, 264, 320, 384, 512 and 1024,
+               each in f32, bf16 and f16 (the forward on the tensor cores;
+               each also twice more bit for bit and with V's chunks
+               repeated, every output chunk equal to the first); f32 at
+               D=33 (rows TMA cannot address), at D=264 with dropout and
+               sq != skv, at D=512 with dropout and sq > skv, and at
+               D=514, which must launch the CUDA-core forward and no
+               other; the Python mirror of the forward's route and
+               dynamic shared memory (``fwd_route``, ``wide_fwd_plan``,
+               ``fwd_plan``) equal to the libraries' own at widths 33 to
+               8192; the f32 training
                geometry (B*H = 16*12, s=1024, D=64); batch 1 through
                ``flash_attention_bshd`` on strided views of one fused
                projection (f32 at H=12, s=1024; bf16 at H=1); and the ring's
@@ -135,16 +151,21 @@ Phases, each printing one JSON line:
 9. wide     -- a GPT at D = 256 (hidden 1024, 4 heads, 2 layers), b=4,
                s=1024, 3 train steps each way: bf16 through K1, f32
                through SDPA and K2.  Gates: the flash series' launches
-               exactly 3 x 2 per kernel, the other family's and the plain
-               versions' calls 0, and its loss series against the plain
-               composition's within ``FLASH_VS_PLAIN_RTOL`` (bf16) and
-               ``F32_FLASH_VS_PLAIN_RTOL`` (f32).
+               exactly 3 x 2 per kernel, the forward's also by kernel
+               (the one its width runs 3 x 2, every other 0, the
+               CUDA-core ``wide_fwd`` included), the other family's and
+               the plain versions' calls 0, and its loss series against
+               the plain composition's within ``FLASH_VS_PLAIN_RTOL``
+               (bf16) and ``F32_FLASH_VS_PLAIN_RTOL`` (f32).
 9b. wide512 -- the same at D = 512 (hidden 1024, 2 heads, 2 layers, b=2,
-               s=1024): K1 and K2 through their column-chunked kernels.
-               Then (``wide512_times``) those kernels timed at its
-               attention (b=2, H=2, s=1024, D=512; K2 f32, K1 bf16) and
-               K3 at D=512 (widths 1 and 32, bf16), each beside its plain
-               version, SDPA and its bounds.
+               s=1024): K1 and K2 through the forward on the tensor cores
+               and the column-chunked backward.  Then (``wide512_times``)
+               those kernels timed at its attention (b=2, H=2, s=1024,
+               D=512; K2 f32, K1 bf16), each timed forward held against
+               its plain version, K2's bf16 forward at the same shape, K2's
+               f32 forward at D=514 (the CUDA-core one), and K3 at D=512
+               (widths 1 and 32, bf16), each beside its plain version,
+               SDPA and its bounds.
 10. paged   -- holds ``paged_attention`` (K3: the split decode kernel at
                widths below 16 with 16-byte rows up to D=256, else the
                tile kernels) against its plain PyTorch version
@@ -227,9 +248,10 @@ Phases, each printing one JSON line:
                max|ref|, rows of M = 8 equal their rows of M = 256.  f16
                activations, 1 f16 ulp of the exact sum: M = 8 at (768,
                2304), and M = 256 at every shape with its rows of M = 8 bit
-               for bit (e4m3 weights there are read and reported as an
-               open item, not held: ROADMAP Queue 3).  A 3-D input with
-               bias through ``quant_matmul``.
+               for bit, int8 and e4m3 weights, each beside a control (the
+               exact products in reverse chunk order, must pass) and a
+               planted fault (a stale K tile, must fail).  A 3-D input
+               with bias through ``quant_matmul``.
 15. quant   -- K4's time at M = 8 and M = 256 (bf16 activations) and at
                M = 8 with f32 activations for each projection, and each
                layer's sum, by CUDA-graph replay over input copies larger
@@ -706,6 +728,31 @@ def flash_within(r, tol=FLASH_TOL):
         for k in FLASH_SLICES)
 
 
+def chunk_spans(D, cc):
+    """(start, width) of each output chunk of ``cc`` columns past the
+    first: chunk c holds columns c cc .. c cc + width - 1 of D."""
+    return [(c * cc, min(cc, D - c * cc)) for c in range(1, -(-D // cc))]
+
+
+def repeat_chunks(v, D, cc):
+    """``v`` (..., D) with each later chunk's columns a copy of the first
+    chunk's leading columns."""
+    v = v.clone()
+    for c0, w in chunk_spans(D, cc):
+        v[..., c0:c0 + w] = v[..., :w]
+    return v
+
+
+def chunks_equal(o, D, cc):
+    """Whether each later chunk of ``o`` (..., D) equals the first chunk's
+    leading columns bit for bit: with V's chunks repeated, the blocks of
+    one row's chunks took the same scores, max and sum (the LSE chunk 0
+    writes is every chunk's)."""
+    import torch
+    return all(torch.equal(o[..., c0:c0 + w], o[..., :w])
+               for c0, w in chunk_spans(D, cc))
+
+
 def flash_plain(fap, qkv, cot, H, causal, scale, p=0.0, seed=None):
     """The plain forward and backward on ``qkv`` in its own dtype."""
     out, lse = fap.flash_packed_fwd_ref(qkv, H, causal, scale, p, seed)
@@ -800,15 +847,35 @@ def phase_flash(torch, fap, fa):
         torch.cuda.synchronize()
         bitwise = (torch.equal(again[0], again[1])
                    and torch.equal(again[0], x.grad))
+        extra = {}
+        if D > 256:
+            # the tensor-core forward past 256: twice more, bit for bit, and
+            # on a qkv whose V chunks repeat, every chunk of O the first's
+            cc = fap.fwd_plan(b, s, H, D, dtype)["chunk_cols"]
+            reps = [fap.flash_packed_fwd_kernel(qkv, H, causal, scale, p,
+                                                seed) for _ in range(2)]
+            x5 = qkv.reshape(b, s, 3, H, D).clone()
+            x5[:, :, 2] = repeat_chunks(x5[:, :, 2], D, cc)
+            o_rep = fap.flash_packed_fwd_kernel(
+                x5.reshape(qkv.shape), H, causal, scale, p, seed)[0]
+            torch.cuda.synchronize()
+            extra = {"fwd_bitwise_repeat": all(
+                         torch.equal(u, w) for rep in reps
+                         for u, w in zip(rep, (out, lse))),
+                     "chunks_share_row_stats": chunks_equal(
+                         o_rep.reshape(b, s, H, D), D, cc)}
+            del reps, x5, o_rep
         ref = flash_plain(fap, qkv.float(), cot.float(), *args)
         got = {"kernel": flash_slices(out, lse, x.grad, H),
                "control": flash_plain(fap, qkv, cot, *args),
                "fault": flash_plain(fap, stale_tile(qkv, H), cot, *args)}
         r = {k: flash_readings(v, ref) for k, v in got.items()}
         ok = (flash_within(r["kernel"]) and flash_within(r["control"])
-              and not flash_within(r["fault"]) and bitwise)
+              and not flash_within(r["fault"]) and bitwise
+              and all(extra.values()))
         # [LSE, then (rel, row) for O, dQ, dK, dV]: a short line
         checks.append({"case": name, "ok": ok, "bitwise_repeat": bitwise,
+                       **extra,
                        "scale_path": ("fold" if fap.scale_folds(dtype, scale)
                                       else "in_tile"), **{
             k: [v["lse"]] + [v[s][m] for s in FLASH_SLICES
@@ -840,12 +907,22 @@ def phase_flash(torch, fap, fa):
     check("d256_dropout0.1", 2, 256, 2, 256, True, p=0.1, seed=99)
     check("d192_h2", 2, 256, 2, 192, True)
     check("d192_h2_ragged_s200", 1, 200, 2, 192, True)
-    # past 256: the column-chunked kernels (D = 320 in three 128-column
-    # chunks, the last half empty; D = 512 in four)
+    # past 256: the tensor-core forward (256-column chunks: D = 320 in two,
+    # the second 64 columns; 384; 512 in two; 1024 in four, q resident at
+    # its limit) and the column-chunked backward, bf16 and f16, at (s, H)
+    # the JAX plan admits
     check("d320_h2", 2, 256, 2, 320, True)
+    check("d384_h2", 2, 256, 2, 384, True)
     check("d512_h1", 2, 256, 1, 512, True)
     check("d512_h2_noncausal_dropout0.1", 1, 256, 2, 512, False, p=0.1,
           seed=5)
+    check("d1024_h2", 1, 256, 2, 1024, True)
+    check("d320_h2_f16", 2, 256, 2, 320, True, dtype=torch.float16)
+    check("d384_h1_f16_dropout0.1", 2, 256, 1, 384, True,
+          dtype=torch.float16, p=0.1, seed=11)
+    check("d512_h2_f16", 1, 256, 2, 512, True, dtype=torch.float16)
+    check("d1024_h1_f16_noncausal", 1, 256, 1, 1024, False,
+          dtype=torch.float16)
 
     def check_many_heads(name, D, b=32769, s=8, H=2):
         # b * H past 65535, grid.y's limit: the last two batches' heads (bh
@@ -1422,6 +1499,26 @@ def phase_flash_bhd_checks(torch, fa):
                     extra[f"fwd_split_{key}_rel"] = float(
                         (o.double() - ref_o).norm() / ref_o.norm())
             del reps
+        if fa.fwd_route(D, dtype) in ("wide_fwd_tc", "wide_fwd"):
+            # the column-chunked forward (on the tensor cores, or the
+            # CUDA-core one): twice more bit for bit (f32 above), and on a
+            # V whose chunks repeat, every chunk of O the first's
+            cc = fa.wide_fwd_plan(bh, sq, D, dtype)["chunk_cols"]
+            if not f32:
+                reps = [fa.flash_fwd_kernel(q, k, v, causal, scale, p, seed)
+                        for _ in range(2)]
+                extra["fwd_bitwise_repeat"] = all(
+                    torch.equal(u, w) for rep in reps
+                    for u, w in zip(rep, (out, lse)))
+                del reps
+            o_rep = fa.flash_fwd_kernel(q, k, repeat_chunks(v, D, cc),
+                                        causal, scale, p, seed)[0]
+            torch.cuda.synchronize()
+            extra["chunks_share_row_stats"] = chunks_equal(o_rep, D, cc)
+            extra["fwd_kernel"] = fa.library_fwd_route(D, dtype)
+            ok = (ok and extra["fwd_bitwise_repeat"]
+                  and extra["chunks_share_row_stats"])
+            del o_rep
         if f32 and D <= 256:
             # the 3xTF32 pair's own limit, and its repeats bit for bit
             pair_rel = max(r["kernel"][sl]["rel"] for sl in ("dq", "dk",
@@ -1467,10 +1564,12 @@ def phase_flash_bhd_checks(torch, fa):
         check(f"{tag}_noncausal_dropout0.1", 4, 192, 192, 64, False, dt,
               0.1, -7)
         check(f"{tag}_ragged_s1000_noncausal", 2, 1000, 1000, 64, False, dt)
-        # past 256 the column-chunked kernels (D = 264: a 8-column third
-        # chunk; 320; 512)
-        for D in (32, 80, 128, 256, 36, 264, 320, 512):
-            check(f"{tag}_d{D}", 8, 256, 256, D, True, dt)
+        # past 256 the forward on the tensor cores (bf16/f16: 256-column
+        # chunks of 64-column slices, D = 264 a slice of 8 columns, q
+        # resident up to 1024; f32: 128-column chunks of 32-column slices)
+        # and the column-chunked backward
+        for D in (32, 80, 128, 256, 36, 264, 320, 384, 512, 1024):
+            check(f"{tag}_d{D}", 4 if D > 512 else 8, 256, 256, D, True, dt)
         check(f"{tag}_ring_kv_halves", 8, 512, 512, 64, False, dt,
               ring=True)
     check("f32_ring_causal", 8, 512, 512, 64, True, f32, ring=True)
@@ -1479,6 +1578,18 @@ def phase_flash_bhd_checks(torch, fa):
     check("f32_d33", 8, 256, 256, 33, True, f32)
     check("f32_d264_dropout0.1_sq256_skv512", 4, 256, 512, 264, True, f32,
           0.1, 77)
+    check("f32_d512_dropout0.1_sq512_skv256", 2, 512, 256, 512, True, f32,
+          0.1, 78)
+    # f32 D = 514 (2056-byte rows, which TMA cannot address): the forward
+    # runs the column-chunked CUDA-core kernel and no other
+    before = dict(fa.fwd_launches)
+    check("f32_d514", 4, 256, 256, 514, True, f32)
+    launched = {key: fa.fwd_launches[key] - before[key]
+                for key in fa.FWD_KERNELS}
+    checks[-1]["fwd_launches"] = launched
+    if launched["wide_fwd"] < 1 or any(
+            n for key, n in launched.items() if key != "wide_fwd"):
+        checks[-1]["ok"] = False
     # batch 1 through the public entry point, on strided views of one fused
     # projection: the (b, s, H, D) -> (b*H, s, D) move must hand the kernels
     # contiguous tensors also where the reshape could merge a size-1 dim
@@ -1535,6 +1646,30 @@ def phase_flash_bhd_checks(torch, fa):
     check_many_heads("f32_bh65538_s8_d64", f32)
     check_many_heads("bf16_bh65538_s8_d64", bf16)
     torch.cuda.empty_cache()
+    # the pure-Python mirror of the forward's route and launch plan (which
+    # the CPU tests hold to the card's limits) against the libraries' own
+    # answers: K2 per dtype and width, K1 per width up to the JAX plan's
+    # 8192
+    from paddle_hackathon_tpu_torch.incubate.nn.kernels import \
+        flash_attention_packed as fap
+    wrong = []
+    for dt in (f32, bf16, f16):
+        for D in (33, 64, 264, 320, 384, 512, 514, 516, 1024, 1032, 2048):
+            got = (fa.library_fwd_route(D, dt), fa.library_fwd_smem(D, dt))
+            if got[0] in ("wide_fwd_tc", "wide_fwd"):
+                want = (fa.fwd_route(D, dt),
+                        fa.wide_fwd_plan(1, 64, D, dt)["smem"])
+            else:
+                want = (fa.fwd_route(D, dt), got[1])
+            if got != want:
+                wrong.append((str(dt), D, got, want))
+    for D in (264, 320, 512, 1024, 1032, 2048, 8192):
+        got = fap.library_fwd_smem(D)
+        want = fap.fwd_plan(1, 64, 1, D, bf16)["smem"]
+        if got != want:
+            wrong.append(("k1", D, got, want))
+    checks.append({"case": "fwd_plan_mirror", "ok": not wrong,
+                   "mismatches": wrong})
     emit({"phase": "flash_bhd_checks",
           "tolerances": {"f32": FLASH_F32_TOL, "bf16_f16": FLASH_TOL,
                          "f32_pair_rel_d_le_256": FLASH_F32_PAIR_REL},
@@ -1934,9 +2069,13 @@ def phase_wide(torch, fa, fap, b=4, s=1024, steps=3, gpt=WIDE_GPT,
     from a numpy seed, 3 train steps each way.  bf16 (``param_dtype=bf16``,
     ``use_flash_attention=True``) trains through K1; f32 (flash on auto)
     through SDPA and K2.  Gates: the flash series' kernel launches exactly
-    3 x 2 each, the other family's 0, the plain versions called 0 times;
-    the flash and plain-composition loss series within the bf16 / f32
-    limits."""
+    3 x 2 each, and the forward's by kernel (``fwd_launches``): 3 x 2 of
+    the one its width runs (K1 ``fwd_tma`` at 256, ``wide_fwd_tc`` past
+    it; K2 f32 ``fwd_tc`` at 256, ``wide_fwd_tc`` past it), 0 of every
+    other, the CUDA-core ``wide_fwd`` included; the other family's 0, the
+    plain versions called 0 times; the flash and plain-composition loss
+    series within the bf16 / f32 limits.  Returns each family's forward
+    launches by kernel."""
     from paddle_hackathon_tpu_torch.models import GPTForCausalLM, gpt_config
     base = dict(gpt, hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
     arrays = random_weights(GPTForCausalLM(gpt_config("gpt2-small-en",
@@ -1949,6 +2088,9 @@ def phase_wide(torch, fa, fap, b=4, s=1024, steps=3, gpt=WIDE_GPT,
     report = {}
     runs = (("bf16", "bfloat16", True, fap, fa, FLASH_VS_PLAIN_RTOL),
             ("f32", None, None, fa, fap, F32_FLASH_VS_PLAIN_RTOL))
+    D = gpt["hidden_size"] // gpt["num_heads"]
+    fwd_kernel = {fap: fap.fwd_kernel_of(D),
+                  fa: fa.fwd_route(D, torch.float32)}
     plain_names = {fap: ("flash_packed_fwd_ref", "flash_packed_bwd_ref"),
                    fa: ("flash_fwd_ref", "flash_bwd_pair_ref")}
     for tag, param_dtype, flash, used, other, rtol in runs:
@@ -1961,7 +2103,8 @@ def phase_wide(torch, fa, fap, b=4, s=1024, steps=3, gpt=WIDE_GPT,
             calls = {n: 0 for m in (fa, fap) for n in plain_names[m]}
             reals = [(m, counting(m, plain_names[m], calls))
                      for m in (fa, fap)]
-            for counts in (fa.launches, fap.launches):
+            for counts in (fa.launches, fap.launches, fa.fwd_launches,
+                           fap.fwd_launches):
                 for key in counts:
                     counts[key] = 0
             try:
@@ -1976,7 +2119,9 @@ def phase_wide(torch, fa, fap, b=4, s=1024, steps=3, gpt=WIDE_GPT,
             run = "plain" if use_flash is False else "flash"
             series[run] = {"losses": losses,
                             "launches": dict(used.launches),
+                            "fwd_launches": dict(used.fwd_launches),
                             "other_launches": dict(other.launches),
+                            "other_fwd_launches": dict(other.fwd_launches),
                             "plain_calls": calls}
             del model, step, state
             torch.cuda.empty_cache()
@@ -1985,10 +2130,15 @@ def phase_wide(torch, fa, fap, b=4, s=1024, steps=3, gpt=WIDE_GPT,
         report[tag] = dict(series, max_rel_diff=rel, rtol=rtol)
         need = steps * gpt["num_layers"]
         f = series["flash"]
+        want = {key: need if key == fwd_kernel[used] else 0
+                for key in used.fwd_launches}
         if (any(n != need for n in f["launches"].values())
+                or f["fwd_launches"] != want
                 or any(f["other_launches"].values())
+                or any(f["other_fwd_launches"].values())
                 or any(f["plain_calls"].values())
-                or any(series["plain"]["launches"].values())):
+                or any(series["plain"]["launches"].values())
+                or any(series["plain"]["fwd_launches"].values())):
             raise AssertionError(f"{name} {tag}: the flash series did not "
                                  f"run its kernels exactly {need} times each "
                                  f"(or ran the other family, or a plain "
@@ -1997,22 +2147,49 @@ def phase_wide(torch, fa, fap, b=4, s=1024, steps=3, gpt=WIDE_GPT,
             raise AssertionError(f"{name} {tag}: flash and plain loss "
                                  f"series differ by {rel} > {rtol}: "
                                  f"{series}")
-    emit({"phase": name, "model": gpt,
-          "head_dim": gpt["hidden_size"] // gpt["num_heads"],
-          "batch": b, "seq": s, "steps": steps, **report})
+    emit({"phase": name, "model": gpt, "head_dim": D, "batch": b, "seq": s,
+          "steps": steps, "fwd_kernel": {"bf16": fwd_kernel[fap],
+                                         "f32": fwd_kernel[fa]}, **report})
+    return {tag: report[tag]["flash"]["fwd_launches"] for tag in report}
 
 
 WIDE512_SHAPE = dict(b=2, s=1024, H=2, D=512)   # the wide512 GPT's heads
 
 
+def timed_fwd_check(torch, ref_fn, inputs, got, ref_dtype, tol, causal,
+                    scale):
+    """A timed forward's O and LSE (``got``) against the plain forward
+    ``ref_fn(*inputs, causal, scale)`` run in ``ref_dtype``: relative L2,
+    worst row and LSE readings within ``tol``, and the largest absolute
+    error of O."""
+    ref_o, ref_l = ref_fn(*(t.to(ref_dtype) for t in inputs), causal, scale)
+    o, lse = got
+    err = o.to(ref_dtype) - ref_o.reshape(o.shape)
+    rows = ref_o.reshape(o.shape).norm(dim=-1)
+    r = {"rel": float(err.norm() / ref_o.norm()),
+         "row": float((err.norm(dim=-1) / rows.clamp_min(rows.median()))
+                      .max()),
+         "lse": float((lse.to(ref_dtype) - ref_l.reshape(lse.shape)).abs()
+                      .max()),
+         "max_abs_err": float(err.abs().max())}
+    r["ok"] = (r["rel"] <= tol["rel"] and r["row"] <= tol["row"]
+               and r["lse"] <= tol["lse"])
+    return r
+
+
 def wide512_times(torch, fa, fap, pa):
-    """The column-chunked kernels at the wide512 GPT's attention (D = 512,
-    b=2, H=2, s=1024, causal) by graph replay: K2 in f32 and K1 in bf16
+    """The kernels at the wide512 GPT's attention (D = 512, b=2, H=2,
+    s=1024, causal) by graph replay: K2 in f32 and K1 in bf16 (the forward
+    on the tensor cores, dK/dV and dQ column-chunked on the CUDA cores)
     beside their plain versions, SDPA (default backend) and two bounds
     each (the tensor cores at the inputs' type, and the CUDA cores' f32
-    rate these kernels run at); K3 at D = 512 (16 slots, 12 heads, 8 pages
-    of 16) at width 1 and a chunk of 32, bf16, beside its plain version
-    and SDPA on the gathered K/V."""
+    rate); each timed forward's O and LSE held against the plain version
+    (f32 against f64 at ``FLASH_F32_TOL``, bf16 against f32 at
+    ``FLASH_TOL``).  Then K2's bf16 forward at the same shape, and K2's
+    f32 forward at D = 514 (rows TMA cannot address: the column-chunked
+    CUDA-core forward) beside the same yardsticks.  K3 at D = 512 (16
+    slots, 12 heads, 8 pages of 16) at width 1 and a chunk of 32, bf16,
+    beside its plain version and SDPA on the gathered K/V."""
     import math
 
     import torch.nn.functional as F
@@ -2049,8 +2226,44 @@ def wide512_times(torch, fa, fap, pa):
                     H100_TF32_FLOPS / 3)[0],
         "bound_by": "operations",
         "f32_cuda_core_bound_ms": f32b[key][0]} for key in ms}
+    out["k2_f32"]["fwd"].update(timed_fwd_check(
+        torch, fa.flash_fwd_ref, (q, k, v), (o, lse), torch.float64,
+        FLASH_F32_TOL, True, scale), kernel=fa.library_fwd_route(
+            D, torch.float32))
     del q, k, v, do, o, lse, delta, qh, kh, vh, doh, xs, og
     torch.cuda.empty_cache()
+    # K2's bf16 forward past 256 (not on a GPT path: bf16 GPTs take K1) and
+    # its f32 forward at D = 514 (the CUDA-core forward), each at the same
+    # b, H and s
+    for tag, dt, d in (("k2_bf16", torch.bfloat16, D),
+                       ("k2_f32_d514", torch.float32, 514)):
+        sc = 1.0 / math.sqrt(d)
+        q, k, v, _ = bhd_case(torch, b * H, s, s, d, dt, seed=515)
+        o, lse = fa.flash_fwd_kernel(q, k, v, True, sc)
+        qh, kh, vh = (t.reshape(b, H, s, d) for t in (q, k, v))
+        e = q.element_size()
+        nb = 4 * q.numel() * e + lse.numel() * 4
+        peak = H100_BF16_FLOPS if e == 2 else H100_TF32_FLOPS / 3
+        with torch.no_grad():
+            lib = device_ms(torch, [lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True)])
+        out[tag] = {"fwd": dict(
+            ms=device_ms(torch, [
+                lambda: fa.flash_fwd_kernel(q, k, v, True, sc)]),
+            plain_ms=device_ms(torch, [lambda: fa.flash_fwd_ref(
+                q, k, v, True, sc)], reps=2),
+            library_ms=lib,
+            bound_ms=flash_bound(b, s, H, d, True, 2, nb, peak)[0],
+            bound_by=flash_bound(b, s, H, d, True, 2, nb, peak)[1],
+            f32_cuda_core_bound_ms=flash_bound(b, s, H, d, True, 2, nb,
+                                               H100_F32_FLOPS)[0],
+            kernel=fa.library_fwd_route(d, dt),
+            **timed_fwd_check(torch, fa.flash_fwd_ref, (q, k, v), (o, lse),
+                              torch.float64 if e == 4 else torch.float32,
+                              FLASH_F32_TOL if e == 4 else FLASH_TOL, True,
+                              sc))}
+        del q, k, v, o, lse, qh, kh, vh
+        torch.cuda.empty_cache()
 
     qkv, dout = flash_case(torch, b, s, H, D, torch.bfloat16, seed=513)
     o, lse = fap.flash_packed_fwd_kernel(qkv, H, True, scale)
@@ -2081,6 +2294,9 @@ def wide512_times(torch, fa, fap, pa):
     work = {"fwd": (2, io + o.numel() * e),
             "dkdv": (4, bwd_in + 2 * o.numel() * e),
             "dq": (3, bwd_in + o.numel() * e)}
+    k1_check = timed_fwd_check(
+        torch, lambda x, c, sc: fap.flash_packed_fwd_ref(x, H, c, sc),
+        (qkv,), (o, lse), torch.float32, FLASH_TOL, True, scale)
     out["k1_bf16"] = {}
     for key, (n, nb) in work.items():
         b_ms, b_by, _, _ = flash_bound(b, s, H, D, True, n, nb)
@@ -2091,6 +2307,7 @@ def wide512_times(torch, fa, fap, pa):
             "bound_ms": b_ms, "bound_by": b_by,
             "f32_cuda_core_bound_ms": flash_bound(b, s, H, D, True, n, nb,
                                                   H100_F32_FLOPS)[0]}
+    out["k1_bf16"]["fwd"].update(k1_check, kernel=fap.fwd_kernel_of(D))
     del qkv, dout, o, lse, delta, dqkv, qh, kh, vh, doh, og
     torch.cuda.empty_cache()
 
@@ -2113,6 +2330,11 @@ def wide512_times(torch, fa, fap, pa):
             "bound_ms": b_ms, "bound_by": b_by}
         del cs, libs, case
         torch.cuda.empty_cache()
+    bad = [f"{key}_fwd" for key in ("k2_f32", "k2_bf16", "k2_f32_d514",
+                                     "k1_bf16") if not out[key]["fwd"]["ok"]]
+    if bad:
+        raise AssertionError(f"the timed forwards disagree with their plain "
+                             f"versions: {bad}: {out}")
     return {"shape": WIDE512_SHAPE, "k3_geometry": "16 slots, 12 heads, "
             "D=512, pages of 16, 8 a slot", **out}
 
@@ -2362,6 +2584,17 @@ def reversed_chunks_ref(torch, x2d, w_q, scale):
     return (acc * scale).to(x2d.dtype)
 
 
+def reversed_chunks_exact(torch, x2d, w_q, scale):
+    """The f16 control: the exact products summed in f64 in reverse 128-row
+    chunks, rounded once to f32, times the scale (another order of the
+    exact sum; an f32 sum's own noise is past one f16 ulp)."""
+    acc = None
+    for k0 in range(w_q.shape[0] - 128, -1, -128):
+        part = x2d[:, k0:k0 + 128].double() @ w_q[k0:k0 + 128].double()
+        acc = part if acc is None else acc + part
+    return (acc.float() * scale).to(x2d.dtype)
+
+
 def exact_sum(torch, x2d, w_q, scale):
     """The function's exact value: the exact products summed in f64,
     rounded once to f32, times the f32 scale, rounded to x's type.  An f32
@@ -2466,10 +2699,12 @@ def phase_quant_checks(torch, qm, wo):
             bad.append(f"f32_{scheme}")
     # f16 activations, in f16 ulps of the exact sum (the plain version's own
     # reading beside it): M = 8 at (768, 2304), and M = 256 at every shape
-    # with its rows of M = 8 bit for bit.  e4m3 weights at M = 256 are an
-    # open item (ROADMAP Queue 3: the tensor core drops bits of x_hi's sum
-    # where a chunk's weights spread their exponents): read, not held
-    f16, f16_open = {}, {}
+    # with its rows of M = 8 bit for bit, int8 and e4m3 weights alike (e4m3
+    # through its two exponent bands), each beside a control (the exact
+    # products summed in f64 in reverse 128-row chunks, must pass) and a
+    # planted fault (the kernel on a weight whose second K tile is a copy
+    # of its first, must fail)
+    f16 = {}
     f16_cases = [("qkv", 8, 8)] + [(name, 256, None)
                                    for name in QUANT_CHECK_SHAPES]
     for name, m, seed in f16_cases:
@@ -2481,23 +2716,30 @@ def phase_quant_checks(torch, qm, wo):
             ref = qm.quant_matmul_ref(*c.values())
             ex = exact_sum(torch, *c.values())
             noise = sum_noise(torch, *c.values())
+            stale = c["w_q"].clone()
+            stale[128:256] = c["w_q"][:128]
+            fault = qm.quant_matmul_kernel(c["x2d"], stale, c["scale"])
+            ctl = reversed_chunks_exact(torch, **c)
             got = {"kernel_vs_exact": bf16_ulps(torch, out, ex, noise,
                                                 bits=10),
+                   "control_vs_exact": bf16_ulps(torch, ctl, ex, noise,
+                                                 bits=10),
+                   "fault_vs_exact": bf16_ulps(torch, fault, ex, noise,
+                                               bits=10),
                    "kernel_vs_ref": bf16_ulps(torch, out, ref, noise,
                                               bits=10),
                    "ref_vs_exact": bf16_ulps(torch, ref, ex, noise, bits=10)}
-            ok = bool(torch.isfinite(out).all())
+            ok = (bool(torch.isfinite(out).all())
+                  and got["kernel_vs_exact"] <= lim
+                  and got["control_vs_exact"] <= lim
+                  and got["fault_vs_exact"] > lim)
             if m == 256:
                 got["m8_equal_m256"] = torch.equal(qm.quant_matmul_kernel(
                     c["x2d"][:8].contiguous(), c["w_q"], c["scale"]),
                     out[:8])
                 ok = ok and got["m8_equal_m256"]
             case = f"{name}_{scheme}_m{m}"
-            if m == 256 and scheme == "fp8":
-                f16_open[case] = got
-            else:
-                f16[case] = got
-                ok = ok and got["kernel_vs_exact"] <= lim
+            f16[case] = got
             if not ok:
                 bad.append(f"f16_{case}")
     c = quant_case(torch, wo, 8, 768, 2304, "int8", torch.bfloat16, 9)
@@ -2519,7 +2761,7 @@ def phase_quant_checks(torch, qm, wo):
                      "rows_alone_m8_m1024_equal_m256 (m256)",
                      "3_repeats_equal (m8 and m256)"],
           "checks": rows, "f32_rel_err": f32, "f32_limit": QUANT_F32_REL,
-          "f16_ulps": f16, "f16_fp8_m256_open": f16_open,
+          "f16_ulps": f16,
           "bias_3d_ok": three_d, "max_abs_err": max_abs,
           "f32_max_abs_err": max_abs_f32})
     if bad:
@@ -2572,14 +2814,15 @@ def k4_walk(torch, qm, x2d, w_q, scale):
     return out
 
 
-def quant_times(torch, qm, wo, m, k, n, xdtype, int8pack):
-    """K4's time for one (m, k) x (k, n) int8 product beside its bound, the
-    plain version's and the yardsticks the port never calls:
-    ``torch._weight_int8pack_mm`` (where it runs for x's type) and cuBLAS
-    on the widened weight in x's type.  Where the plan splits past one
-    tile of x, the walk's time beside it (and its result, bit for bit)."""
+def quant_times(torch, qm, wo, m, k, n, xdtype, int8pack, scheme="int8"):
+    """K4's time for one (m, k) x (k, n) int8 (or ``scheme``) product beside
+    its bound, the plain version's and the yardsticks the port never calls:
+    ``torch._weight_int8pack_mm`` (int8, where it runs for x's type) and
+    cuBLAS on the widened weight in x's type.  Where the plan splits past
+    one tile of x, the walk's time beside it (and its result, bit for
+    bit)."""
     plan = qm.quant_plan(m, k, n, xdtype)
-    c = quant_case(torch, wo, m, k, n, "int8", xdtype, m + n)
+    c = quant_case(torch, wo, m, k, n, scheme, xdtype, m + n)
     per_copy = sum(t.numel() * t.element_size() for t in c.values())
     cases = copies(c, max(24, -(-60_000_000 // per_copy)))
     k_ms = device_ms(torch, [lambda c=c: qm.quant_matmul_kernel(*c.values())
@@ -2587,7 +2830,7 @@ def quant_times(torch, qm, wo, m, k, n, xdtype, int8pack):
     p_ms = device_ms(torch, [lambda c=c: qm.quant_matmul_ref(*c.values())
                              for c in cases], reps=2)
     l_ms = lib_err = None
-    if int8pack:        # weight transposed once, outside the timing
+    if int8pack and scheme == "int8":   # weight transposed once, untimed
         try:
             libs = [(c["x2d"], c["w_q"].t().contiguous(),
                      c["scale"].to(xdtype)) for c in cases]
@@ -2647,12 +2890,16 @@ def phase_quant(torch, qm, wo):
                                                  torch.bfloat16, int8pack)
         timing[f"{name}_m8_f32"] = quant_times(torch, qm, wo, 8, k, n,
                                                torch.float32, int8pack)
+        # e4m3 weights: four exponent bands, eight products a k-step
+        for m in (8, 256):
+            timing[f"{name}_m{m}_fp8"] = quant_times(
+                torch, qm, wo, m, k, n, torch.bfloat16, int8pack, "fp8")
     torch.cuda.empty_cache()
     layers = {tag: layer_sum([timing[f"{name}_{tag}"]
                               for name in QUANT_SHAPES])
-              for tag in ("m8", "m256", "m8_f32")}
-    emit({"phase": "quant", "weights": "int8", "activations": "bf16 (f32 "
-          "in the _f32 rows)",
+              for tag in ("m8", "m256", "m8_f32", "m8_fp8", "m256_fp8")}
+    emit({"phase": "quant", "weights": "int8 (fp8-e4m3 in the _fp8 rows)",
+          "activations": "bf16 (f32 in the _f32 rows)",
           "library": "torch._weight_int8pack_mm" if int8pack else None,
           "timing": timing, "layers": layers,
           "note": "a layer: the sum of its four projections"})
@@ -2988,6 +3235,54 @@ def k3_split_build(_build):
     return ptxas_notes(_build, ["paged_attention"], name)
 
 
+WIDE_FWD_KERNEL = re.compile(r"4wide(6fwd_tc|10fwd_tc_f32)I"
+                             r"(?:(13__nv_bfloat16|6__half)Lb([01])E|Li\d+E)")
+
+
+def wide_fwd_name(ln):
+    """``fwd_tc<bf16,K1>`` / ``fwd_tc<f16,K2>`` / ``fwd_tc_f32`` from a
+    line naming a tensor-core forward past 256, or None."""
+    m = WIDE_FWD_KERNEL.search(ln)
+    if not m:
+        return None
+    if m.group(1) == "10fwd_tc_f32":
+        return "fwd_tc_f32"
+    dtype = "bf16" if "bfloat16" in m.group(2) else "f16"
+    return f"fwd_tc<{dtype},{'K1' if m.group(3) == '1' else 'K2'}>"
+
+
+def wide_fwd_build(_build, libs):
+    """The tensor-core forwards past 256 (K1 bf16/f16, K2 bf16/f16, K2
+    f32: 5): registers, spills, ptxas performance notes and, where
+    cuobjdump is found, their HGMMA (wgmma) counts, above 0 for all 5."""
+    import shutil
+    from pathlib import Path
+    names = ["flash_attention_packed_wide", "flash_attention_wide_h",
+             "flash_attention_wide_f32"]
+    out = ptxas_notes(_build, names, wide_fwd_name)
+    cuobjdump = shutil.which("cuobjdump") or str(
+        Path(_build._nvcc()).parent / "cuobjdump")
+    hgmma = None
+    if Path(cuobjdump).exists():
+        hgmma = {}
+        for lib_name in names:
+            sass = subprocess.run([cuobjdump, "-sass", str(libs[lib_name])],
+                                  capture_output=True, text=True,
+                                  timeout=300, check=True).stdout
+            cur = None
+            for ln in sass.splitlines():
+                if "Function :" in ln:
+                    cur = wide_fwd_name(ln)
+                    if cur:
+                        hgmma[cur] = 0
+                elif cur and "HGMMA" in ln:
+                    hgmma[cur] += 1
+        if len(hgmma) != 5 or not all(hgmma.values()):
+            raise AssertionError(f"wide tensor-core forwards without HGMMA "
+                                 f"(or missing from the SASS): {hgmma}")
+    return {"kernels": out, "hgmma": hgmma}
+
+
 K4_KERNEL = re.compile(r"(quant_matmul_(?:tc|f32)_kernel)I"
                        r"(13__nv_bfloat16|6__half)?Lb([01])E(?:Lb([01])E)?")
 
@@ -3070,15 +3365,18 @@ def main():
           "ptxas": ptxas, "k1": k1_build(_build, libs),
           "k2_3xtf32": k2_tc_build(_build, libs),
           "k3_split_decode": k3_split_build(_build),
-          "k4": k4_build(_build, libs)})
+          "k4": k4_build(_build, libs),
+          "wide_fwd_tc": wide_fwd_build(_build, libs)})
 
     flash = phase_flash(torch, fap, fa)
     flash_launches = phase_train(torch, fap)
     bhd = phase_flash_bhd(torch, fa, fap, phase_flash_bhd_checks(torch, fa))
     bhd_launches = phase_train_f32(torch, fa, fap)
     phase_wide(torch, fa, fap)
-    phase_wide(torch, fa, fap, b=2, gpt=WIDE512_GPT, name="wide512")
-    emit({"phase": "wide512_times", **wide512_times(torch, fa, fap, pa)})
+    wide_launches = phase_wide(torch, fa, fap, b=2, gpt=WIDE512_GPT,
+                               name="wide512")
+    wide512 = wide512_times(torch, fa, fap, pa)
+    emit({"phase": "wide512_times", **wide512})
     k3_decode, k3_tiles = phase_kernel(torch, pa)
     eng, prompts, launches = phase_serving(torch, pa)
     phase_profile(torch, eng, prompts)
@@ -3107,6 +3405,26 @@ def main():
                      "attention SDPA; bound: fwd, dkdv and dq as 3xTF32 "
                      "products on the tensor cores"}
         for k, line in (("fwd", 285), ("dkdv", 525), ("dq", 556))]
+    # the tensor-core forward past 256: launches from the wide512 GPT's
+    # flash series (bf16 through K1, f32 through K2), times at its attention
+    for kname, tag, fam, file, line in (
+            ("flash_packed_fwd_wide", "k1_bf16", "bf16",
+             "flash_attention_packed.py", 247),
+            ("flash_bhd_fwd_wide_f32", "k2_f32", "f32", "flash_attention.py",
+             285)):
+        row = wide512[tag]["fwd"]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": src + "flash_wide.cuh"
+            if fam == "bf16" else src + "flash_attention.cu",
+            "replaces": ref + f"{file}:{line}",
+            "launches": wide_launches[fam]["wide_fwd_tc"],
+            **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms")},
+            "timed_as": f"{fam}, b=2, H=2, s=1024, D=512, causal (the "
+                        f"wide512 GPT's attention); library: SDPA, default "
+                        f"backend; bound: the tensor cores "
+                        f"({'bf16' if fam == 'bf16' else '3xTF32'})"})
     kernels.append({"name": "paged_decode_split", "route": "cuda",
                     "source": src + "paged_attention.cu",
                     "replaces": ref + "paged_attention.py:175",

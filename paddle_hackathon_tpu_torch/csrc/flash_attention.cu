@@ -51,7 +51,10 @@
 //     (the sections "f32 dK/dV and dQ on the tensor cores" and "f32 forward
 //     on the tensor cores" below), where TMA can address the rows (D % 4 ==
 //     0); other widths run the column-chunked CUDA-core kernels of
-//     flash_wide.cuh.
+//     flash_wide.cuh.  Past 256 the forward runs on the tensor cores where
+//     TMA can address the rows (wide::fwd_tc_f32 below for f32,
+//     flash_wide.cuh's wide::fwd_tc for bf16/f16), dK/dV and dQ on the
+//     CUDA cores.
 //   * causal tiles above the diagonal are never loaded: fwd and dq stop at
 //     the diagonal kv tile, dkdv starts at the diagonal q tile (a kv tile
 //     past the last q row gets zero gradients); the heaviest tiles first.
@@ -1578,6 +1581,344 @@ bhd_fwd_tc(const __grid_constant__ CUtensorMap q_map,
 }
 
 // ===========================================================================
+// f32 forward past 256 on the tensor cores: wide::fwd_tc_f32
+// ===========================================================================
+//
+// The column-chunked forward (flash_wide.cuh) rebuilt on 3xTF32 wgmma for
+// f32 rows TMA can address (D % 4 == 0) past 256: bhd_fwd_tc's products
+// and split, with the q tile streamed again per kv tile (its hi and lo
+// tiles at D = 512 would be 256 KB) and the output in 128-column chunks.
+// One block per (64-row q tile, bh, chunk), the chunks ceil(D / 128), all
+// folded into grid.x with the q tile slowest, so that the heaviest causal
+// tiles of every head and chunk start first and a tile's chunks run side
+// by side (they read the same q and k from the L2): a producer warpgroup
+// (its warps issue the TMA loads of raw [64][32] f32 boxes into a ring of
+// tcf32::kRaw slots in turn; the warpgroup splits each box into hi/lo
+// operand tiles, q and k as they land, V transposed) and one consumer
+// warpgroup.
+// Ring entries per kv tile: q and k of each 32-column slice in turn, then
+// the chunk's four V boxes.  Per kv tile the consumer sums S slice by
+// slice (each slice's 12 wgmma in a fresh accumulator, added to an f32
+// total in slice order: the tensor core truncates its sums; two
+// accumulators in turn, so that slice c + 1 runs while slice c is added),
+// takes the online softmax in registers (log2 units, -1e30 before the
+// max, l over the undropped p), splits the dropped p into hi and lo A
+// fragments and adds each 32-column chunk's P . V (a fresh accumulator of
+// 24 wgmma, again two in turn) to O.  Every chunk of a row sums the same
+// slices in the same order, so they share one max and one sum; chunk 0
+// writes the LSE.  Bound: operations, two products at 3 tf32 products
+// each (494.7 TFLOP/s), S once per chunk.  What holds it back (PERF.md):
+// the producer's split of every streamed q and k box (q anew for each kv
+// tile) competes for shared memory with the wgmma that read both operands
+// from it, so the consumer waits for its operands most of the time; the
+// heaviest causal tile's blocks set the time at small grids.
+namespace wide {
+namespace tcf32 {
+
+constexpr int kNC = 128;                  // output columns of a chunk
+constexpr int kBlock = 256;               // a consumer and a producer wg
+constexpr int kRaw = 8;                   // raw box slots: 4 slices ahead
+constexpr int kOps = 8;                   // operand slots (hi and lo tiles)
+__host__ __device__ inline int slices(int D) { return (D + tc::kSl - 1) /
+                                                      tc::kSl; }
+__host__ __device__ inline int chunks(int D) { return (D + kNC - 1) / kNC; }
+// 1024 bytes of alignment, the raw ring, the operand slots, the barriers
+// rawfull[], opready[], opfree[]
+constexpr size_t kSmem = 1024 + (size_t)(kRaw + 2 * kOps) * tc::kBox +
+                         8 * (kRaw + 2 * kOps);
+
+// tcf::split_to and tcf::split_tp with every load of the thread's part of
+// the box issued before the first store: the stores may alias the loads
+// as far as the compiler knows, so the plain loops wait out one shared
+// memory round trip per step, and the split (not the products) sets this
+// kernel's pace
+__device__ __forceinline__ void split_to(const unsigned char* box,
+                                         unsigned char* hi, unsigned char* lo,
+                                         int t) {
+  constexpr int kN = tc::kBox / 16 / 128;
+  const float4* x = reinterpret_cast<const float4*>(box);
+  float4 v[kN];
+#pragma unroll
+  for (int k = 0; k < kN; ++k) v[k] = x[t + 128 * k];
+#pragma unroll
+  for (int k = 0; k < kN; ++k) {
+    float4 h, l;
+    tc::split4(v[k], h, l);
+    reinterpret_cast<float4*>(hi)[t + 128 * k] = h;
+    reinterpret_cast<float4*>(lo)[t + 128 * k] = l;
+  }
+}
+__device__ __forceinline__ void split_tp(const unsigned char* box,
+                                         unsigned char* hi, unsigned char* lo,
+                                         int t) {
+  const int c = t & 31, g = t >> 5;
+  float4 v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int r0 = 16 * g + 8 * (j >> 1) + (j & 1);
+    v[j].x = *reinterpret_cast<const float*>(box + tc::sw(r0, c));
+    v[j].y = *reinterpret_cast<const float*>(box + tc::sw(r0 + 2, c));
+    v[j].z = *reinterpret_cast<const float*>(box + tc::sw(r0 + 4, c));
+    v[j].w = *reinterpret_cast<const float*>(box + tc::sw(r0 + 6, c));
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int k0 = 16 * g + 4 * j;
+    float4 h, l;
+    tc::split4(v[j], h, l);
+    const int off = (k0 >> 5) * (tc::kBox / 2) + tc::sw(c, k0 & 31);
+    *reinterpret_cast<float4*>(hi + off) = h;
+    *reinterpret_cast<float4*>(lo + off) = l;
+  }
+}
+
+}  // namespace tcf32
+
+// NC: the output columns of a chunk (tcf32::kNC; a template, so that only
+// the libraries that launch it build it)
+template <int NC>
+__global__ void __launch_bounds__(tcf32::kBlock, 1)
+fwd_tc_f32(const __grid_constant__ CUtensorMap q_map,
+           const __grid_constant__ CUtensorMap k_map,
+           const __grid_constant__ CUtensorMap v_map,
+           float* __restrict__ out, float* __restrict__ lse,
+           const int32_t* __restrict__ seed_ptr, Geo g) {
+  using namespace tc;
+  using tcf32::kOps;
+  using tcf32::kRaw;
+  constexpr int kVBoxes = NC / kSl;           // the chunk's V boxes
+  const int nz = tcf32::chunks(g.D);
+  const int n_t = tiles(g.SQ);
+  const int BH = gridDim.x / (n_t * nz);
+  // (chunk, bh, tile) folded into grid.x, the tile slowest: heavy first
+  const int z = blockIdx.x % nz;
+  const int bh = blockIdx.x / nz % BH;
+  const int qt = n_t - 1 - (int)(blockIdx.x / nz / BH);
+  const int q0 = qt * kTile;
+  const int n_kv = kv_tiles(qt, g);
+  const int ns = tcf32::slices(g.D);
+  const int per = 2 * ns + kVBoxes;           // ring entries a kv tile
+  const int total = n_kv * per;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* raw = align1024(smem_raw);
+  unsigned char* ops = raw + kRaw * kBox;     // [slot][hi, lo]
+  uint64_t* rawfull = reinterpret_cast<uint64_t*>(ops + 2 * kOps * kBox);
+  uint64_t* opready = rawfull + kRaw;
+  uint64_t* opfree = opready + kOps;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kRaw; ++s) hopper::mbar_init(rawfull + s, 1);
+    for (int s = 0; s < kOps; ++s) {
+      hopper::mbar_init(opready + s, 128);
+      hopper::mbar_init(opfree + s, 128);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+
+  if (wg == 1) {                              // the producer warpgroup
+    if ((t & 31) == 0) {                      // every issuing warp
+      hopper::prefetch_tensormap(&q_map);
+      hopper::prefetch_tensormap(&k_map);
+      hopper::prefetch_tensormap(&v_map);
+    }
+    auto load = [&](int e) {                  // entry e's raw box
+      const int j = e / per, r = e - j * per, s = e % kRaw;
+      const CUtensorMap* map = &v_map;
+      int col = z * NC + (r - 2 * ns) * kSl, row = j * kTile;
+      if (r < 2 * ns) {
+        map = (r & 1) ? &k_map : &q_map;
+        col = (r >> 1) * kSl;
+        row = (r & 1) ? j * kTile : q0;
+      }
+      hopper::mbar_arrive_expect_tx(rawfull + s, kBox);
+      hopper::tma_load_4d(raw + s * kBox, map, rawfull + s, col, 0, row, bh);
+    };
+    if (t == 0)
+      for (int e = 0; e < min(kRaw, total); ++e) load(e);
+    for (int e = 0; e < total; ++e) {
+      const int s = e % kRaw, o = e % kOps;
+      hopper::mbar_wait(rawfull + s, (e / kRaw) & 1);
+      hopper::mbar_wait(opfree + o, ((e / kOps) & 1) ^ 1);
+      unsigned char* hi = ops + 2 * o * kBox;
+      if (e % per < 2 * ns)
+        tcf32::split_to(raw + s * kBox, hi, hi + kBox, t);
+      else
+        tcf32::split_tp(raw + s * kBox, hi, hi + kBox, t);
+      hopper::fence_async_shared();
+      hopper::mbar_arrive(opready + o);
+      hopper::named_bar_sync(tcf::kBarProd, 128);   // the raw slot is read
+      // the next load into this slot, issued by each warp in turn, so that
+      // no one warp's issue delays every split
+      if (t == 32 * (e & 3) && e + kRaw < total) load(e + kRaw);
+    }
+    return;
+  }
+
+  const int warp = t >> 5, lane = t & 31, gq = lane >> 2, tq = lane & 3;
+  const int r_a = 16 * warp + gq;             // this thread's tile rows
+  const int rows[2] = {q0 + r_a, q0 + r_a + 8};
+  const int32_t seed = g.dropout ? seed_ptr[0] : 0;
+  float o[kVBoxes][16];                       // O, 32-column chunks
+#pragma unroll
+  for (int c = 0; c < kVBoxes; ++c)
+#pragma unroll
+    for (int x = 0; x < 16; ++x) o[c][x] = 0.f;
+  float m_r[2] = {kNegInf, kNegInf};
+  float l_r[2] = {0.f, 0.f};                  // this thread's partial sums
+  uint32_t ph[32], pl[32];                    // P's hi / lo A fragments
+
+  // slice c of the kv tile whose entries start at e0: its q and k entries
+  // waited for and its products issued into part (a fresh accumulator)
+  auto issue = [&](float* part, int e0, int c) {
+    const int eq = e0 + 2 * c, sq = eq % kOps, sk = (eq + 1) % kOps;
+    hopper::mbar_wait(opready + sq, (eq / kOps) & 1);
+    hopper::mbar_wait(opready + sk, ((eq + 1) / kOps) & 1);
+    const unsigned char* qh = ops + 2 * sq * kBox;
+    const unsigned char* kh = ops + 2 * sk * kBox;
+    hopper::wgmma_fence();
+    tf32x3<64, 4, kBox, kBox>(part, part, qh, qh + kBox, kh, kh + kBox);
+    hopper::wgmma_commit();
+  };
+  // slice c's completed part added to sx (slices in order), its entries
+  // released
+  auto retire = [&](float* sx, float* part, int e0, int c) {
+    hopper::fence_acc(part);
+#pragma unroll
+    for (int x = 0; x < 32; ++x) sx[x] = c == 0 ? part[x] : sx[x] + part[x];
+    const int eq = e0 + 2 * c;
+    hopper::mbar_arrive(opfree + eq % kOps);
+    hopper::mbar_arrive(opfree + (eq + 1) % kOps);
+  };
+  int e = 0;
+  for (int j = 0; j < n_kv; ++j) {
+    float sx[32];
+    // S = q . k^T, 64 q x 64 kv, one slice (its q and k entries) at a
+    // time, slice c + 1 issued before slice c is added
+    {
+      float p0[32], p1[32];
+      issue(p0, e, 0);
+      int c = 1;
+#pragma unroll 1
+      for (; c + 1 < ns; c += 2) {
+        issue(p1, e, c);
+        hopper::wgmma_wait<1>();
+        retire(sx, p0, e, c - 1);
+        issue(p0, e, c + 1);
+        hopper::wgmma_wait<1>();
+        retire(sx, p1, e, c);
+      }
+      if (c < ns) {
+        issue(p1, e, c);
+        hopper::wgmma_wait<1>();
+        retire(sx, p0, e, c - 1);
+        hopper::wgmma_wait<0>();
+        retire(sx, p1, e, c);
+      } else {
+        hopper::wgmma_wait<0>();
+        retire(sx, p0, e, c - 1);
+      }
+      e += 2 * ns;
+    }
+    // scores in log2 units, masked at -1e30 only where this warp's rows
+    // meet the diagonal or the ragged end
+    const int k0 = j * kTile;
+    const bool need_mask = k0 + kTile > g.SKV ||
+                           (g.causal && k0 + kTile - 1 > q0 + 16 * warp);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int r = (x >> 1) & 1;
+      float v = sx[x] * g.scale_log2;
+      if (need_mask) {
+        const int col = k0 + 8 * (x >> 2) + 2 * tq + (x & 1);
+        v = (col < g.SKV && (!g.causal || col <= rows[r])) ? v : kNegInf;
+      }
+      sx[x] = v;
+      mx[r] = fmaxf(mx[r], v);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_next = fmaxf(m_r[r], mx[r]);
+      alpha[r] = exp2f(m_r[r] - m_next);
+      m_r[r] = m_next;
+      l_r[r] *= alpha[r];
+    }
+    // p (undropped into l), the dropped p split into P's A fragments as
+    // bhd_fwd_tc splits them
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int r = (x >> 1) & 1;
+      float p = exp2f(sx[x] - m_r[r]);
+      l_r[r] += p;
+      if (g.dropout) {
+        const int col = k0 + 8 * (x >> 2) + 2 * tq + (x & 1);
+        p = keep_elem(seed, bh, rows[r], col, g.thresh) ? p / g.keep_prob
+                                                        : 0.f;
+      }
+      const int at = (x & ~3) | ((x & 1) << 1) | ((x >> 1) & 1);
+      const float h = hopper::tf32_rna(p);
+      ph[at] = __float_as_uint(h);
+      pl[at] = __float_as_uint(hopper::tf32_rna(p - h));
+    }
+#pragma unroll
+    for (int c = 0; c < kVBoxes; ++c)
+#pragma unroll
+      for (int x = 0; x < 16; ++x) o[c][x] *= alpha[(x >> 1) & 1];
+    // O += P . V, one 32-column chunk of this block's 128 at a time, box
+    // c + 1 issued before box c is added
+    float pv[2][16];
+    auto pv_issue = [&](int c) {
+      const int s = (e + c) % kOps;
+      hopper::mbar_wait(opready + s, ((e + c) / kOps) & 1);
+      const unsigned char* vh = ops + 2 * s * kBox;
+      hopper::wgmma_fence();
+      tcf::pv_tf32x3(pv[c & 1], ph, pl, vh, vh + kBox);
+      hopper::wgmma_commit();
+    };
+    auto pv_retire = [&](int c) {
+      hopper::fence_acc<16>(pv[c & 1]);
+#pragma unroll
+      for (int x = 0; x < 16; ++x) o[c][x] += pv[c & 1][x];
+      hopper::mbar_arrive(opfree + (e + c) % kOps);
+    };
+    pv_issue(0);
+#pragma unroll
+    for (int c = 1; c < kVBoxes; ++c) {
+      pv_issue(c);
+      hopper::wgmma_wait<1>();
+      pv_retire(c - 1);
+    }
+    hopper::wgmma_wait<0>();
+    pv_retire(kVBoxes - 1);
+    e += kVBoxes;
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_r[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    if (z == 0 && tq == 0 && rows[r] < g.SQ)
+      lse[(size_t)bh * g.SQ + rows[r]] =
+          m_r[r] * kLn2 + logf(fmaxf(l, 1e-30f));
+    l_r[r] = l == 0.f ? 1.f : l;              // the JAX guard
+  }
+#pragma unroll
+  for (int c = 0; c < kVBoxes; ++c)
+#pragma unroll
+    for (int x = 0; x < 16; ++x) o[c][x] /= l_r[(x >> 1) & 1];
+  store_chunks<kVBoxes>(out + (size_t)bh * g.SQ * g.D, o, rows, g.SQ, g.D,
+                        z * NC, tq);
+}
+
+}  // namespace wide
+
+// ===========================================================================
 // Launch
 // ===========================================================================
 
@@ -1647,13 +1988,14 @@ int dq_mma(const Ptrs& a, const Geo& g, cudaStream_t st) {
                 g);
 }
 
-// The TMA maps of q, k, v and (n = 4) dO as (BH, S, 1, D) f32 tensors.
+// The TMA maps of q, k, v and (n = 4) dO as (BH, S, 1, D) tensors of T.
+template <typename T = float>
 int tc_maps(CUtensorMap* m, const Ptrs& a, const Geo& g, int n = 4) {
   const void* base[4] = {a.q, a.k, a.v, a.dout};
   const int rows[4] = {g.SQ, g.SKV, g.SKV, g.SQ};
   for (int i = 0; i < n; ++i) {
     const int err =
-        hopper::make_map_bshd<float>(m + i, base[i], a.BH, rows[i], 1, g.D);
+        hopper::make_map_bshd<T>(m + i, base[i], a.BH, rows[i], 1, g.D);
     if (err) return err;
   }
   return 0;
@@ -1690,6 +2032,28 @@ wide::Args wide_args(const Ptrs& a, const Geo& g) {
   return w;
 }
 
+// The forward past 256 on the tensor cores, rows TMA can address: f32
+// (3xTF32, 128-column chunks) or bf16/f16 (flash_wide.cuh's fwd_tc).
+template <typename T>
+int fwd_wide_tc(const Ptrs& a, const Geo& g, cudaStream_t st) {
+  CUtensorMap m[3];
+  const int err = tc_maps<T>(m, a, g, 3);
+  if (err) return err;
+  if constexpr (std::is_same<T, float>::value) {
+    const long long gx =
+        (long long)tiles(g.SQ) * a.BH * wide::tcf32::chunks(g.D);
+    if (gx > 0x7FFFFFFFLL) return -1;
+    return launch(wide::fwd_tc_f32<wide::tcf32::kNC>, dim3((unsigned)gx),
+                  wide::tcf32::kBlock, wide::tcf32::kSmem, st, m[0], m[1],
+                  m[2], static_cast<float*>(a.out),
+                  static_cast<float*>(a.lse),
+                  static_cast<const int32_t*>(a.seed), g);
+  } else {
+    return wide::launch_fwd_tc<T, false>(m[0], m[1], m[2], wide_args(a, g),
+                                         0, 0, 0, st);
+  }
+}
+
 // f32 forward, dK/dV and dQ: rows TMA can address (D % 4 == 0, AL) run
 // the 3xTF32 tensor-core kernels; other widths the column-chunked
 // CUDA-core kernels.
@@ -1707,7 +2071,7 @@ int fwd_f32(const Ptrs& a, const Geo& g, cudaStream_t st) {
                   static_cast<float*>(a.out), static_cast<float*>(a.lse),
                   static_cast<const int32_t*>(a.seed), g);
   } else {
-    return wide::launch_fwd<float, false>(wide_args(a, g), st);
+    return wide::launch_fwd<float>(wide_args(a, g), st);
   }
 }
 template <bool AL>
@@ -1773,13 +2137,17 @@ int dispatch(int dtype, const Ptrs& a, const Geo& g, void* stream) {
   }
 }
 
-// The three kernels as dispatch's F: past 256 the column-chunked ones;
-// else f32 on the tensor cores (3xTF32) where TMA can address the rows,
-// the bf16/f16 instances on mma.sync.
+// The three kernels as dispatch's F: past 256 the forward on the tensor
+// cores where TMA can address the rows (fwd_wide_tc), else the
+// column-chunked CUDA-core kernels; at 256 and below f32 on the tensor
+// cores (3xTF32) where TMA can address the rows, the bf16/f16 instances on
+// mma.sync.
 template <typename T, bool AL> struct Fwd {
   static int run(const Ptrs& a, const Geo& g, cudaStream_t st) {
-    if constexpr (kDP == 0)
-      return wide::launch_fwd<T, false>(wide_args(a, g), st);
+    if constexpr (kDP == 0 && AL)
+      return fwd_wide_tc<T>(a, g, st);
+    else if constexpr (kDP == 0)
+      return wide::launch_fwd<T>(wide_args(a, g), st);
     else if constexpr (std::is_same<T, float>::value)
       return fwd_f32<AL>(a, g, st);
     else
@@ -1865,6 +2233,40 @@ int flash_bhd_dkdv(int dtype, const void* q, const void* k, const void* v,
   return dispatch<Dkdv>(
       dtype, a, make_geo(SQ, SKV, D, causal, scale, dropout, keep_prob, thresh),
       stream);
+}
+
+// The forward kernel this library launches for dtype and head width D:
+// 0 bhd_fwd_mma (bf16/f16 up to 256), 1 bhd_fwd_tc (f32 up to 256, rows TMA
+// addresses), 2 the tensor-core forward past 256 (wide::fwd_tc, or
+// wide::fwd_tc_f32 for f32), 3 the column-chunked CUDA-core forward
+// (wide::fwd: rows TMA cannot address, f32 at any width, bf16/f16 past
+// 256); -1 a width or dtype this library does not take.
+int flash_bhd_fwd_route(int dtype, int D) {
+  const int lo = kDP == 64 ? 1 : kDP / 2 + 1;
+  if (dtype < 0 || dtype > 2 || (dtype == 0) != kF32 || D < 1 ||
+      (kDP > 0 && (D < lo || D > kDP)))
+    return -1;
+  const bool al = (D * (kF32 ? 4 : 2)) % 16 == 0;
+  if (kDP == 0) return al ? 2 : 3;
+  if (kF32) return al ? 1 : 3;
+  return 0;
+}
+
+// Dynamic shared memory of the forward flash_bhd_fwd_route names, in
+// bytes (-1 where the route is -1).
+int flash_bhd_fwd_smem(int dtype, int D) {
+  switch (flash_bhd_fwd_route(dtype, D)) {
+    case 0:
+      return (int)(5 * mma_tile<__nv_bfloat16, (kDP > 0 ? kDP : 64)>());
+    case 1:
+      return (int)tcf::smem<(kDP > 0 ? kDP : 64)>();
+    case 2:
+      return kF32 ? (int)wide::tcf32::kSmem : (int)wide::tcw::smem_bytes(D);
+    case 3:
+      return (int)wide::kSmemFwd;
+    default:
+      return -1;
+  }
 }
 
 int flash_bhd_dq(int dtype, const void* q, const void* k, const void* v,

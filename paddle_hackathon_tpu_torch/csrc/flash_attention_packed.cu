@@ -78,9 +78,11 @@
 //     128-row block with two stages (64 + 2 x 64 KB) and 128 accumulators
 //     of O a thread.  Each width is its own library (-DFLASH_DP).  Past
 //     256 (D a multiple of 8, as far as the JAX plan goes) the library
-//     built with -DFLASH_DP=0 runs the column-chunked CUDA-core kernels of
+//     built with -DFLASH_DP=0 runs the column-chunked kernels of
 //     flash_wide.cuh on the packed layout, the chunk count fixed at run
-//     time.
+//     time: the forward on the tensor cores (fwd_tc: TMA and wgmma, 256
+//     output columns a block, S recomputed per chunk), dK/dV and dQ on
+//     the CUDA cores.
 //   * the elementwise pass is one straight-line block per variant (mask,
 //     dropout as template flags) with 2^x on the SFU: a branch per score
 //     keeps the 32 exponentials of a thread from overlapping.
@@ -1072,7 +1074,7 @@ flash_packed_dq_kernel(const __grid_constant__ CUtensorMap qkv_map,
 // 1024 bytes that align the TMA tiles.
 size_t smem_bytes(int kernel) {
   if constexpr (kDP == 0)
-    return kernel == 0 ? wide::kSmemFwd
+    return kernel == 0 ? wide::tcw::smem_bytes(wide::tcw::kResMaxD)
                        : kernel == 1 ? wide::kSmemDkdv : wide::kSmemDq;
   else
     return 1024 + (kernel == 0   ? FwdSmem<kDP>::kBytes
@@ -1177,17 +1179,25 @@ int launch_bwd_tma(bool dkdv, const void* qkv, const void* dout,
 }
 
 // This library's kernels: the TMA / wgmma ones of its width, or (kDP 0)
-// the column-chunked ones.
+// the column-chunked ones: the forward on the tensor cores
+// (flash_wide.cuh's fwd_tc, over the qkv map as (B, S, 3H, D): q, k and v
+// at head coordinates h, H + h, 2H + h), dK/dV and dQ on the CUDA cores.
 template <typename T>
 int launch_fwd(const void* qkv, void* out, void* lse, const void* seed,
                int B, const Geo& g, int fold, cudaStream_t st) {
-  if constexpr (kDP == 0)
-    return wide::launch_fwd<T, true>(
+  if constexpr (kDP == 0) {
+    CUtensorMap map;
+    const int err =
+        hopper::make_map_bshd<T>(&map, qkv, B, g.S, 3 * g.H, g.D);
+    if (err) return err;
+    return wide::launch_fwd_tc<T, true>(
+        map, map, map,
         packed_args<T>(qkv, nullptr, nullptr, nullptr, seed, out, lse,
                        nullptr, B, g),
-        st);
-  else
+        g.H, 2 * g.H, fold, st);
+  } else {
     return launch_fwd_tma<T>(qkv, out, lse, seed, B, g, fold, st);
+  }
 }
 template <typename T>
 int launch_bwd(bool dkdv, const void* qkv, const void* dout, const void* lse,
@@ -1286,7 +1296,17 @@ int flash_packed_dq(int dtype, const void* qkv, const void* dout,
 }
 
 // Dynamic shared memory of this library's forward (0), dK/dV (1) or dQ (2)
-// kernel, in bytes.
+// kernel, in bytes (the column-chunked library's forward: see
+// flash_packed_fwd_smem).
 int flash_packed_smem(int kernel) { return (int)smem_bytes(kernel); }
+
+// Dynamic shared memory of this library's forward at head width D, in
+// bytes (past 256 it depends on D: q resident up to 1024).
+int flash_packed_fwd_smem(int D) {
+  if constexpr (kDP == 0)
+    return (int)wide::tcw::smem_bytes(D);
+  else
+    return (int)smem_bytes(0);
+}
 
 }  // extern "C"

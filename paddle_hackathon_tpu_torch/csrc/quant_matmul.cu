@@ -43,11 +43,22 @@
 // products are multiples of 2^(E - 7) below 2^(E + 8): a chunk's sum of
 // them fits the tensor core's 24 bits, exactly.  x_lo's sum is below 2^-7
 // of it, so what the tensor core drops there lies far below the result's
-// last place.  (e4m3 weights bring their own exponents: x_hi keeps 5 bits,
-// exact while the chunk's weights stay above ~2^-4 of the largest; past
-// that an f16 output can lie up to 4 f16 ulps from the exact sum, an open
-// item, while bf16 outputs stay within one.)  The products run twice
-// (x_hi and x_lo) for this.
+// last place.  The products run twice (x_hi and x_lo) for this.  e4m3
+// weights bring their own exponents (2^-9 .. 448): the widened chunk is
+// split by exponent into four bands of at most four binades each (w = w_0
+// + w_1 + w_2 + w_3: exponent fields 0-4, 5-8, 9-12, 13-15), each band's
+// weights below 2^7 of its own granularity, as int8's are of 1; and x in
+// three, x_hi (the same 7 bits as for int8), x_mid (the next 7) and x_lo
+// (below 2^-14 of the row's largest |x|).  x_hi and x_mid times a band sum
+// below 2^22 of their granularity, as int8's x_hi does, exactly.  x_lo's
+// sum, over all four bands, is the one inexact partial; with x_lo at 2^-7
+// (two parts of x) its tensor-core rounding, four times int8's, left f16
+// outputs up to 4 ulps off the exact sum on the H100.  The bands run one
+// after another (three accumulators, reused), each band's two exact sums
+// rounded into the chunk's pair in band order (TwoSum, the errors carried
+// with x_lo's partial).  Twelve products a k-step instead of two, four
+// waits a chunk, and an operand slot of 160 KB, one a block instead of
+// two (the next chunk is prepared after this chunk's products).
 //
 // The tensor-core kernel (bf16 and f16 activations), quant_matmul_tc_kernel:
 //   * two warpgroups (256 threads) per block; a block owns a tile of kBM =
@@ -63,7 +74,8 @@
 //     operands; the tensor-core rows it wastes at M = 8 cost latency, not
 //     bytes (PERF.md).
 //   * the raw int8 / e4m3 chunk (128 x 128 bytes) and the x chunk arrive by
-//     TMA in a ring of up to 3 stages on mbarriers; the block widens each
+//     TMA in a ring of up to 3 stages (e4m3: 2) on mbarriers; the block
+//     widens each
 //     raw chunk (16-byte rows, exact: int8 through the f32 magic number
 //     2^23 + 128, e4m3 by moving its 7 magnitude bits under the f32
 //     exponent and multiplying by 2^120, which also gets the subnormals
@@ -241,19 +253,36 @@ constexpr int kRawBytes = kKC * kBN;       // raw weight chunk: 16 KB
 constexpr int kStageBytes = kXBytes + kRawBytes;
 constexpr int kWSub = kKC * 128;           // a widened [128][64] sub-tile
 constexpr int kWBytes = 2 * kWSub;         // widened chunk: 32 KB
-constexpr int kOpBytes = kWBytes + kXBytes; // operand slot: widened w, x_lo
 constexpr int kPieces = kRawBytes / 16 / kThreads;   // 16-byte pieces (4)
-constexpr int kMaxStages = 3;
+// The operand slot: the widened weight (int8: one tile; e4m3: its four
+// exponent bands, w = w_0 + w_1 + w_2 + w_3) and x_lo.  int8 keeps three
+// ring stages and two slots; e4m3's larger slot leaves room for two stages
+// and one slot.
+template <bool kFp8> __host__ __device__ constexpr int w_tiles() {
+  return kFp8 ? 4 : 1;
+}
+// the slot's x parts past the weight: x_lo (int8), x_mid and x_lo (e4m3)
+template <bool kFp8> __host__ __device__ constexpr int op_bytes() {
+  return w_tiles<kFp8>() * kWBytes + (kFp8 ? 2 : 1) * kXBytes;
+}
+template <bool kFp8> __host__ __device__ constexpr int max_stages() {
+  return kFp8 ? 2 : 3;
+}
 
 // ring stages and operand slots of a block that walks g chunks
-__host__ __device__ constexpr int stages(int g) {
-  return g < kMaxStages ? g : kMaxStages;
+template <bool kFp8> __host__ __device__ constexpr int stages(int g) {
+  return g < max_stages<kFp8>() ? g : max_stages<kFp8>();
 }
-__host__ __device__ constexpr int op_slots(int g) { return g < 2 ? g : 2; }
-inline size_t smem_bytes(int g) {
-  return 1024 + (size_t)stages(g) * kStageBytes +
-         (size_t)op_slots(g) * kOpBytes + 8 * stages(g);
+template <bool kFp8> __host__ __device__ constexpr int op_slots(int g) {
+  return kFp8 || g < 2 ? 1 : 2;
 }
+template <bool kFp8> inline size_t smem_bytes(int g) {
+  return 1024 + (size_t)stages<kFp8>(g) * kStageBytes +
+         (size_t)op_slots<kFp8>(g) * op_bytes<kFp8>() + 8 * stages<kFp8>(g);
+}
+static_assert(1024 + 2 * kStageBytes + (4 * kWBytes + 2 * kXBytes) + 16 <=
+                  232448,
+              "the e4m3 walk's shared memory");
 
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
   return p + ((1024 - (hopper::smem_u32(p) & 1023)) & 1023);
@@ -304,18 +333,11 @@ __device__ __forceinline__ void unpack2<__half>(uint32_t u, float& a,
   b = f.y;
 }
 
-// Piece j of thread t of the raw chunk (kKC rows of kBN bytes, dense)
-// widened into the operand tile: sub-tile q / 4 holds columns 64 (q / 4) ..
-// + 63 as [kKC][64] T in 128-byte rows under the 128-byte swizzle (16-byte
-// chunk c of row r at c ^ (r % 8)).  Piece p = t + 256 j is row p / 8,
-// columns 16 q .. + 15 with q = p % 8.
+// 16 raw weight bytes widened into one operand tile at `row` (16-byte
+// chunks c and c + 1 of a swizzled 128-byte row r)
 template <typename T, bool kFp8>
-__device__ __forceinline__ void widen_piece(const unsigned char* raw,
-                                            unsigned char* op, int t, int j) {
-  const int p = t + kThreads * j;
-  const int r = p >> 3, q = p & 7, c = 2 * (q & 3);
-  const uint4 v = *reinterpret_cast<const uint4*>(raw + 16 * p);
-  const uint32_t b[4] = {v.x, v.y, v.z, v.w};
+__device__ __forceinline__ void widen16(const uint32_t (&b)[4],
+                                        unsigned char* row, int r, int c) {
   uint32_t h[8];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -324,11 +346,50 @@ __device__ __forceinline__ void widen_piece(const unsigned char* raw,
     h[2 * i] = pack2<T>(f[0], f[1]);
     h[2 * i + 1] = pack2<T>(f[2], f[3]);
   }
-  unsigned char* row = op + (q >> 2) * kWSub + r * 128;
   *reinterpret_cast<uint4*>(row + ((c ^ (r & 7)) << 4)) =
       make_uint4(h[0], h[1], h[2], h[3]);
   *reinterpret_cast<uint4*>(row + (((c + 1) ^ (r & 7)) << 4)) =
       make_uint4(h[4], h[5], h[6], h[7]);
+}
+
+// Piece j of thread t of the raw chunk (kKC rows of kBN bytes, dense)
+// widened into the operand tile: sub-tile q / 4 holds columns 64 (q / 4) ..
+// + 63 as [kKC][64] T in 128-byte rows under the 128-byte swizzle (16-byte
+// chunk c of row r at c ^ (r % 8)).  Piece p = t + 256 j is row p / 8,
+// columns 16 q .. + 15 with q = p % 8.  e4m3: four tiles, kWBytes apart,
+// the weights whose exponent field lies in 0-4, 5-8, 9-12 and 13-15, each
+// zero where the weight lies in another band: w = w_0 + w_1 + w_2 + w_3.
+template <typename T, bool kFp8>
+__device__ __forceinline__ void widen_piece(const unsigned char* raw,
+                                            unsigned char* op, int t, int j) {
+  const int p = t + kThreads * j;
+  const int r = p >> 3, q = p & 7, c = 2 * (q & 3);
+  const uint4 v = *reinterpret_cast<const uint4*>(raw + 16 * p);
+  unsigned char* row = op + (q >> 2) * kWSub + r * 128;
+  if constexpr (kFp8) {
+    const uint32_t b[4] = {v.x, v.y, v.z, v.w};
+    uint32_t w0[4], w1[4], w2[4], w3[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      // each byte's exponent field (bits 3-6); 0xff in each byte from
+      // field 5, 9 and 13 on
+      const uint32_t f = (b[i] >> 3) & 0x0f0f0f0fu;
+      const uint32_t ge5 = __vcmpgeu4(f, 0x05050505u);
+      const uint32_t ge9 = __vcmpgeu4(f, 0x09090909u);
+      const uint32_t ge13 = __vcmpgeu4(f, 0x0d0d0d0du);
+      w0[i] = b[i] & ~ge5;
+      w1[i] = b[i] & ge5 & ~ge9;
+      w2[i] = b[i] & ge9 & ~ge13;
+      w3[i] = b[i] & ge13;
+    }
+    widen16<T, true>(w0, row, r, c);
+    widen16<T, true>(w1, row + kWBytes, r, c);
+    widen16<T, true>(w2, row + 2 * kWBytes, r, c);
+    widen16<T, true>(w3, row + 3 * kWBytes, r, c);
+  } else {
+    const uint32_t b[4] = {v.x, v.y, v.z, v.w};
+    widen16<T, false>(b, row, r, c);
+  }
 }
 
 // the biased f32 exponent of a T's magnitude bits (bits & 0x7fff)
@@ -348,15 +409,24 @@ template <> __device__ __forceinline__ int top_exp<__half>(uint32_t b) {
 // them sum exactly within the 24 bits the tensor core keeps (it drops the
 // bits below its sum's last place); x_lo's products are below 2^-7 of
 // theirs, so the bits the tensor core drops from their sum are far below
-// the result's.  (An e4m3 weight adds its own exponent spread: kHiBits = 5
-// leaves room for weights down to 2^-4 of the largest.)  x_hi replaces x
-// in place, x_lo goes to `lo` at the same offsets (the same swizzled
-// layout).  A row's 16 pieces of 16 bytes lie on 16 lanes; rows past M
-// are left alone.  |x_hi| = (|x| + C) - C with C = 1.5 * 2^(E - kHiBits +
-// 23), the first sum rounded toward zero.
-template <typename T, int kHiBits>
+// the result's.  An e4m3 weight brings its own exponents (2^-9 .. 448), so
+// its chunk is split into four bands (widen_piece), each spanning at most
+// four binades: the weights of exponent fields 0-4 are multiples of 2^-9
+// below 2^-2, of 5-8 multiples of 2^-5 below 2^2, of 9-12 multiples of
+// 2^-1 below 2^6, of 13-15 multiples of 2^3 below 2^9, each below 2^7 of
+// its granularity as an int8 weight is of 1; with kHiBits = 7 as for int8,
+// x_hi's products and their sums stay where int8's do.  kMid (e4m3): the
+// rest splits again at 2^(E - 2 kHiBits) into x_mid, whose products with a
+// band sum exactly too, and x_lo, below 2^-14 of the row's largest |x|.
+// x_hi replaces x in place, x_mid goes to `mid` and x_lo to `lo` at the
+// same offsets (the same swizzled layout).  A row's 16 pieces of 16 bytes
+// lie on 16 lanes; rows past M are left alone.  |x_hi| = (|x| + C) - C
+// with C = 1.5 * 2^(E - kHiBits + 23), the first sum rounded toward zero
+// (x_mid the same of the rest at 2^(E - 2 kHiBits)).
+template <typename T, int kHiBits, bool kMid = false>
 __device__ __forceinline__ void split_x(unsigned char* xs, unsigned char* lo,
-                                       int t, int rows) {
+                                       int t, int rows,
+                                       unsigned char* mid = nullptr) {
   const int n = min(rows, kBM) * 16;             // pieces of the live rows
   for (int j0 = 0; j0 < n; j0 += kThreads) {     // the same trips per lane
     const int j = j0 + t, c = j & 15;
@@ -371,30 +441,42 @@ __device__ __forceinline__ void split_x(unsigned char* xs, unsigned char* lo,
     for (int d = 1; d < 16; d *= 2)
       top = max(top, __shfl_xor_sync(0xffffffffu, top, d));
     if (!live) continue;
-    const int cb = top_exp<T>(top) - kHiBits + 23;
-    const float C = cb > 254 ? 0.f
-                    : __uint_as_float(((uint32_t)max(cb, 24) << 23) |
-                                      0x400000u);
+    // |v| truncated to a multiple of 2^(E - bits), with v's sign
+    auto trunc_to = [&](float v, int bits) {
+      const int cb = top_exp<T>(top) - bits + 23;
+      const float C = cb > 254 ? 0.f
+                      : __uint_as_float(((uint32_t)max(cb, 24) << 23) |
+                                        0x400000u);
+      const float a = __fsub_rn(__fadd_rz(fabsf(v), C), C);
+      return __uint_as_float(__float_as_uint(a) |
+                             (__float_as_uint(v) & 0x80000000u));
+    };
     const uint32_t u[4] = {v.x, v.y, v.z, v.w};
-    uint32_t hi[4], lw[4];
+    uint32_t hi[4], md[4], lw[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      float f[2], h[2], l[2];
+      float f[2], h[2], m[2], l[2];
       unpack2<T>(u[i], f[0], f[1]);
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const float a = __fsub_rn(__fadd_rz(fabsf(f[e]), C), C);
-        h[e] = __uint_as_float(__float_as_uint(a) |
-                               (__float_as_uint(f[e]) & 0x80000000u));
+        h[e] = trunc_to(f[e], kHiBits);
         l[e] = __fsub_rn(f[e], h[e]);
+        if constexpr (kMid) {
+          m[e] = trunc_to(l[e], 2 * kHiBits);
+          l[e] = __fsub_rn(l[e], m[e]);
+        }
       }
       hi[i] = pack2<T>(h[0], h[1]);
       lw[i] = pack2<T>(l[0], l[1]);
+      if constexpr (kMid) md[i] = pack2<T>(m[0], m[1]);
     }
     *reinterpret_cast<uint4*>(xs + off) = make_uint4(hi[0], hi[1], hi[2],
                                                      hi[3]);
     *reinterpret_cast<uint4*>(lo + off) = make_uint4(lw[0], lw[1], lw[2],
                                                      lw[3]);
+    if constexpr (kMid)
+      *reinterpret_cast<uint4*>(mid + off) = make_uint4(md[0], md[1], md[2],
+                                                        md[3]);
   }
 }
 
@@ -422,8 +504,8 @@ __device__ __forceinline__ void add_partial(float& th, float& tl, float hi,
   tl = __fadd_rn(__fadd_rn(tl, e), lo);
 }
 
-// A chunk's products for warpgroup g's 64 columns, x_hi . w into d_hi and
-// x_lo . w into d_lo, each from zero over the chunk's 8 k-steps
+// int8: a chunk's products for warpgroup g's 64 columns, x_hi . w into
+// d_hi and x_lo . w into d_lo, each from zero over the chunk's 8 k-steps
 template <typename T>
 __device__ __forceinline__ void chunk_products(float* d_hi, float* d_lo,
                                                const unsigned char* xs,
@@ -441,6 +523,63 @@ __device__ __forceinline__ void chunk_products(float* d_hi, float* d_lo,
                                                     1024), b, kk > 0);
   }
   hopper::wgmma_commit();
+}
+
+// a + b rounded to nearest, and its exact rounding error (TwoSum)
+__device__ __forceinline__ float two_sum(float a, float b, float& err) {
+  const float s = __fadd_rn(a, b);
+  const float bp = __fsub_rn(s, a);
+  err = __fadd_rn(__fsub_rn(a, __fsub_rn(s, bp)), __fsub_rn(b, bp));
+  return s;
+}
+
+// e4m3: a chunk's pair (hc, lc) for warpgroup g's 64 columns, band by
+// band (0, 1, 2, 3): x_hi . w_b into ah and x_mid . w_b into am (each
+// exact, from zero), x_lo . w_b added into al; then hc takes ah and am by
+// TwoSum in that order (from ah of band 0), lc their rounding errors, and
+// at the end al.  The slot holds the four band tiles, x_mid, x_lo.
+template <typename T>
+__device__ __forceinline__ void band_pair(float* hc, float* lc, float* ah,
+                                          float* am, float* al,
+                                          const unsigned char* xs,
+                                          const unsigned char* op, int g) {
+  constexpr int kMidAt = 4 * kWBytes, kLoAt = kMidAt + kXBytes;
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      const int a = (kk >> 2) * kSub + (kk & 3) * 32;
+      const uint64_t w = hopper::desc_sw128(
+          op + b * kWBytes + g * kWSub + kk * 2048, kWSub, 1024);
+      hopper::wgmma_ss_bt<T>(ah, hopper::desc_sw128(xs + a, 16, 1024), w,
+                             kk > 0);
+      hopper::wgmma_ss_bt<T>(am, hopper::desc_sw128(op + kMidAt + a, 16,
+                                                    1024), w, kk > 0);
+      hopper::wgmma_ss_bt<T>(al, hopper::desc_sw128(op + kLoAt + a, 16,
+                                                    1024), w, b > 0 || kk > 0);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_acc(ah);
+    hopper::fence_acc(am);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      float e1, e2;
+      if (b == 0) {
+        hc[e] = ah[e];
+        lc[e] = 0.f;
+      } else {
+        hc[e] = two_sum(hc[e], ah[e], e1);
+        lc[e] = __fadd_rn(lc[e], e1);
+      }
+      hc[e] = two_sum(hc[e], am[e], e2);
+      lc[e] = __fadd_rn(lc[e], e2);
+    }
+  }
+  hopper::fence_acc(al);
+#pragma unroll
+  for (int e = 0; e < 32; ++e) lc[e] = __fadd_rn(lc[e], al[e]);
 }
 
 // Accumulator element pair (i, h) of thread t of a warpgroup: row 16 (t /
@@ -473,7 +612,8 @@ quant_matmul_tc_kernel(const __grid_constant__ CUtensorMap x_map,
   const int n0 = blockIdx.y * kBN;
   const int cb = blockIdx.z * G;
   const int nc = min(G, chunks - cb);
-  const int S = stages(G), O = op_slots(G);
+  const int S = stages<kFp8>(G), O = op_slots<kFp8>(G);
+  constexpr int kOpBytes = op_bytes<kFp8>();
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = align1024(smem_raw);     // [stage][x | raw w]
   unsigned char* ops = ring + S * kStageBytes;   // [slot][widened w | x_lo]
@@ -504,13 +644,18 @@ quant_matmul_tc_kernel(const __grid_constant__ CUtensorMap x_map,
 #pragma unroll
     for (int j = 0; j < kPieces; ++j)
       widen_piece<T, kFp8>(st + kXBytes, op, t, j);
-    split_x<T, kFp8 ? 5 : 7>(st, op + kWBytes, t, M - m0);
+    if constexpr (kFp8)    // x_mid, then x_lo, past the band tiles
+      split_x<T, 7, true>(st, op + 4 * kWBytes + kXBytes, t, M - m0,
+                          op + 4 * kWBytes);
+    else
+      split_x<T, 7>(st, op + kWBytes, t, M - m0);
     hopper::fence_async_shared();
   };
   if (t == 0)
     for (int i = 0; i < min(S, nc); ++i) load(i);
 
   float d_hi[32], d_lo[32];
+  float acc[kFp8 ? 96 : 1];          // e4m3: a band's x_hi, x_mid, x_lo
   // the walk's total, carried in two floats
   float th[kSplit ? 1 : 32], tl[kSplit ? 1 : 32];
   if constexpr (!kSplit) {
@@ -520,12 +665,21 @@ quant_matmul_tc_kernel(const __grid_constant__ CUtensorMap x_map,
   prepare(0);
   __syncthreads();
   for (int i = 0; i < nc; ++i) {
-    chunk_products<T>(d_hi, d_lo, ring + (i % S) * kStageBytes,
-                      ops + (i % O) * kOpBytes, g);
-    if (i + 1 < nc) prepare(i + 1);              // while the products run
-    hopper::wgmma_wait<0>();
-    hopper::fence_acc(d_hi);
-    hopper::fence_acc(d_lo);
+    const unsigned char* xs = ring + (i % S) * kStageBytes;
+    const unsigned char* op = ops + (i % O) * kOpBytes;
+    if constexpr (kFp8) {
+      band_pair<T>(d_hi, d_lo, acc, acc + 32, acc + 64, xs, op, g);
+    } else {
+      chunk_products<T>(d_hi, d_lo, xs, op, g);
+      if (O > 1 && i + 1 < nc) prepare(i + 1);   // while the products run
+      hopper::wgmma_wait<0>();
+      hopper::fence_acc(d_hi);
+      hopper::fence_acc(d_lo);
+    }
+    if (O == 1 && i + 1 < nc) {                  // one slot: once both
+      __syncthreads();                           // warpgroups' products
+      prepare(i + 1);                            // have read it
+    }
     if constexpr (kSplit) {                      // (hi, lo) of 2 columns
       float* p = part + (size_t)(cb + i) * M * N * 2;
       for_pairs(tg, [&](int r, int col, int e) {
@@ -626,7 +780,7 @@ int launch(const void* x, const void* w, const void* scale, void* out,
   if (err) return err;
   err = hopper::make_map_2d<uint8_t>(&w_map, w, K, N, N, kBN, kKC);
   if (err) return err;
-  const size_t smem = smem_bytes(G);
+  const size_t smem = smem_bytes<kFp8>(G);
   auto kernel = quant_matmul_tc_kernel<T, kFp8, kSplit>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -13,7 +13,11 @@ K2), and what the packed kernels share with it.
 - :func:`flash_fwd_kernel`, :func:`flash_dkdv_kernel`,
   :func:`flash_dq_kernel`: the wrappers of the three Hopper kernels in
   ``csrc/flash_attention.cu``.  A CUDA tensor launches them or raises;
-  there is no fallback to the plain version on the card.
+  there is no fallback to the plain version on the card.  The forward is
+  one of four kernels by dtype and width (:data:`FWD_KERNELS`, counted
+  apart in :data:`fwd_launches`, as the library reports it launched);
+  :func:`fwd_route` and :func:`wide_fwd_plan` mirror that choice and the
+  launch plan of the ones past 256 in pure Python.
 - ``_fwd`` (O and LSE), ``_bwd_pair`` (dq, dk, dv of one q-chunk x
   kv-chunk pair, given the global LSE and Δ: the unit of ring attention)
   and ``_bwd``, with the JAX names and signatures; each takes the kernels
@@ -47,6 +51,27 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # kernel launches since the last reset, one count per kernel (the smoke
 # run reads them to prove the train step went through the kernels)
 launches = {"fwd": 0, "dkdv": 0, "dq": 0}
+# The forward kernels, in the order of the libraries' flash_bhd_fwd_route:
+# bf16/f16 up to 256 on mma.sync, f32 up to 256 on 3xTF32 wgmma, past 256
+# on the tensor cores (wgmma: bf16/f16, or 3xTF32 for f32) where TMA can
+# address the rows, and the column-chunked CUDA-core forward for the rows
+# it cannot (f32 with D % 4 != 0 at any width, bf16/f16 with D % 8 != 0
+# past 256).  Each forward launch counts once here, under its kernel, and
+# once in ``launches["fwd"]``.
+FWD_KERNELS = ("fwd_mma", "fwd_tc", "wide_fwd_tc", "wide_fwd")
+fwd_launches = dict.fromkeys(FWD_KERNELS, 0)
+
+# The launch plan of the forwards past 256, as csrc/flash_wide.cuh (bf16,
+# f16: fwd_tc, also K1's) and csrc/flash_attention.cu (f32: fwd_tc_f32)
+# lay them out; the CPU tests hold it to the card's limits.
+SMEM_LIMIT = 232_448          # dynamic shared memory a block may take
+_BOX_BYTES = 64 * 128         # a [64 rows][128 bytes] TMA box
+_WIDE_TC = {                  # per element size: threads, slice and chunk
+    2: dict(threads=160, slice_cols=64, chunk_cols=256),
+    4: dict(threads=256, slice_cols=32, chunk_cols=128),
+}
+_Q_RESIDENT_MAX_D = 1024      # bf16/f16: q's slices stay up to this width
+_CUDA_CORE_SMEM = (3 * 64 * 132 + 64 * 68) * 4   # flash_wide.cuh kSmemFwd
 
 
 def _vmem_cap(dtype=torch.bfloat16) -> int:
@@ -221,6 +246,76 @@ def flash_bwd_pair_ref(q, k, v, do, lse, delta_row, causal, sm_scale,
 # The Hopper kernels
 # ---------------------------------------------------------------------------
 
+def _elem(dtype) -> int:
+    return 4 if dtype == torch.float32 else 2
+
+
+def fwd_route(head_dim: int, dtype) -> str:
+    """The forward kernel that runs ``head_dim`` in ``dtype`` (one of
+    :data:`FWD_KERNELS`): the pure-Python mirror of the libraries'
+    ``flash_bhd_fwd_route``.  TMA addresses a row when ``D * size`` is a
+    multiple of 16 bytes."""
+    aligned = head_dim * _elem(dtype) % 16 == 0
+    if head_dim > 256:
+        return "wide_fwd_tc" if aligned else "wide_fwd"
+    if dtype == torch.float32:
+        return "fwd_tc" if aligned else "wide_fwd"
+    return "fwd_mma"
+
+
+def wide_fwd_plan(bh: int, sq: int, head_dim: int, dtype,
+                  row_elems: int = None) -> dict:
+    """The launch plan of the column-chunked forward that takes
+    ``head_dim`` past 256 (or a row TMA cannot address) in ``dtype``
+    (``ValueError`` for a width the other forwards take):
+    ``route``, ``threads``, ``grid`` (the tensor-core kernel: 64-row q
+    tiles x bh x chunks in grid.x; the CUDA-core one: tiles x bh, 1,
+    chunks),
+    ``smem`` (dynamic shared memory, bytes), and for the tensor-core
+    kernel the TMA boxes (``box``: columns, rows; ``box_bytes``: a box
+    row's bytes, 128 under the 128-byte swizzle), the row stride the maps
+    take (``row_elems``: D for (bh, s, D) tensors, 3 H D for K1's packed
+    qkv), the slice and chunk widths, the slices, the live columns of the
+    last slice (``tail``, 0 when whole), whether q's slices stay resident
+    (bf16/f16 up to D = 1024) and the ring stages.  Mirrors
+    ``wide::tcw::smem_of`` and ``wide::tcf32::kSmem``."""
+    route = fwd_route(head_dim, dtype)
+    if route not in ("wide_fwd_tc", "wide_fwd"):
+        raise ValueError(f"D={head_dim} in {dtype} runs {route}")
+    tiles = -(-sq // 64)
+    if route != "wide_fwd_tc":
+        chunks = -(-head_dim // 128)
+        return dict(route=route, threads=256, grid=(tiles * bh, 1, chunks),
+                    smem=_CUDA_CORE_SMEM, chunk_cols=128, chunks=chunks)
+    e = _elem(dtype)
+    geo = _WIDE_TC[e]
+    sl, nc = geo["slice_cols"], geo["chunk_cols"]
+    slices = -(-head_dim // sl)
+    chunks = -(-head_dim // nc)
+    plan = dict(route=route, threads=geo["threads"],
+                grid=(tiles * bh * chunks, 1, 1), slice_cols=sl,
+                chunk_cols=nc,
+                slices=slices, chunks=chunks, tail=head_dim % sl,
+                box=(sl, 64), box_bytes=sl * e,
+                row_elems=head_dim if row_elems is None else row_elems)
+    if e == 2:
+        resident = head_dim <= _Q_RESIDENT_MAX_D
+        k_entry = _BOX_BYTES * (1 if resident else 2)
+        k0 = slices * _BOX_BYTES if resident else 0
+        stages_k, stages_v = 4, 2
+        v_bytes = nc // 64 * _BOX_BYTES
+        bars = k0 + stages_k * k_entry + stages_v * v_bytes
+        smem = 1024 + bars + (1 + 2 * stages_k + 2 * stages_v) * 8
+        plan.update(q_resident=resident, stages=(stages_k, stages_v),
+                    smem=smem)
+    else:
+        raw, op_slots = 8, 8      # tcf32::kRaw, tcf32::kOps
+        smem = 1024 + (raw + 2 * op_slots) * _BOX_BYTES + \
+            8 * (raw + 2 * op_slots)
+        plan.update(q_resident=False, stages=(raw, op_slots), smem=smem)
+    return plan
+
+
 _fns = {}
 
 
@@ -239,12 +334,29 @@ def _lib(head_dim, dtype):
         lib.flash_bhd_fwd.argtypes = [ci] + [vp] * 6 + tail
         lib.flash_bhd_dkdv.argtypes = [ci] + [vp] * 9 + tail
         lib.flash_bhd_dq.argtypes = [ci] + [vp] * 8 + tail
+        lib.flash_bhd_fwd_route.argtypes = [ci, ci]
+        lib.flash_bhd_fwd_smem.argtypes = [ci, ci]
         fns = _fns[key] = {}
-        for name in ("fwd", "dkdv", "dq"):
+        for name in ("fwd", "dkdv", "dq", "fwd_route", "fwd_smem"):
             fn = getattr(lib, f"flash_bhd_{name}")
             fn.restype = ctypes.c_int
             fns[name] = fn
     return _fns[key]
+
+
+def library_fwd_route(head_dim, dtype) -> str:
+    """The forward kernel the library of ``head_dim`` and ``dtype`` launches
+    (its ``flash_bhd_fwd_route``; builds the library at first use)."""
+    code = _lib(head_dim, dtype)["fwd_route"](_DTYPE_CODES[dtype], head_dim)
+    if code < 0:
+        raise RuntimeError(f"no bhd forward for D={head_dim}, {dtype}")
+    return FWD_KERNELS[code]
+
+
+def library_fwd_smem(head_dim, dtype) -> int:
+    """That forward's dynamic shared memory in bytes, as the library
+    computes it."""
+    return _lib(head_dim, dtype)["fwd_smem"](_DTYPE_CODES[dtype], head_dim)
 
 
 def check_geometry(q_shape, kv_shape, dtype) -> None:
@@ -312,6 +424,8 @@ def _launch(name, q, k, v, ptrs, causal, sm_scale, dropout_p):
         raise RuntimeError(f"flash_attention {name} kernel launch failed: "
                            f"CUDA error {err}")
     launches[name] += 1
+    if name == "fwd":
+        fwd_launches[library_fwd_route(q.shape[-1], q.dtype)] += 1
 
 
 def flash_fwd_kernel(q, k, v, causal, sm_scale, dropout_p=0.0, seed=None):

@@ -39,7 +39,7 @@ import math
 import torch
 
 from .flash_attention import (_NEG_INF, _seed_int, _seed_tensor,
-                              dropout_keep, keep_threshold)
+                              dropout_keep, keep_threshold, wide_fwd_plan)
 
 _LANES = 128
 # The JAX estimator's scoped-VMEM budget: part of the gate, kept so that
@@ -50,6 +50,10 @@ _DTYPE_CODES = {torch.bfloat16: 1, torch.float16: 2}
 # kernel launches since the last reset, one count per kernel (the smoke
 # run reads them to prove the train step went through the kernels)
 launches = {"fwd": 0, "dkdv": 0, "dq": 0}
+# the forward's launches by kernel: the TMA / wgmma instances up to 256
+# (``fwd_tma``) and the column-chunked tensor-core forward past it
+# (``wide_fwd_tc``, csrc/flash_wide.cuh)
+fwd_launches = {"fwd_tma": 0, "wide_fwd_tc": 0}
 
 
 def _itemsize(dtype) -> int:
@@ -218,11 +222,35 @@ def _lib(head_dim):
         for name in ("dkdv", "dq"):
             fn = getattr(lib, f"flash_packed_{name}")
             fn.argtypes = bwd
-        for fn in (fwd, lib.flash_packed_dkdv, lib.flash_packed_dq):
+        lib.flash_packed_fwd_smem.argtypes = [ci]
+        for fn in (fwd, lib.flash_packed_dkdv, lib.flash_packed_dq,
+                   lib.flash_packed_fwd_smem):
             fn.restype = ctypes.c_int
         _fns[dp] = dict(fwd=fwd, dkdv=lib.flash_packed_dkdv,
-                        dq=lib.flash_packed_dq)
+                        dq=lib.flash_packed_dq,
+                        fwd_smem=lib.flash_packed_fwd_smem)
     return _fns[dp]
+
+
+def fwd_kernel_of(head_dim: int) -> str:
+    """The forward kernel that runs ``head_dim``: ``fwd_tma`` up to 256,
+    ``wide_fwd_tc`` past it (the library :func:`_lib` picks)."""
+    from ._build import width_tag
+    return "wide_fwd_tc" if width_tag(head_dim) == "wide" else "fwd_tma"
+
+
+def fwd_plan(b: int, s: int, heads: int, head_dim: int, dtype) -> dict:
+    """The launch plan of the forward past 256 on the packed layout: the
+    bf16/f16 tensor-core forward of ``wide_fwd_plan`` over rows of 3 H D
+    elements."""
+    return wide_fwd_plan(b * heads, s, head_dim, dtype,
+                         row_elems=3 * heads * head_dim)
+
+
+def library_fwd_smem(head_dim: int) -> int:
+    """The forward's dynamic shared memory at ``head_dim``, as the library
+    computes it (builds it at first use)."""
+    return _lib(head_dim)["fwd_smem"](head_dim)
 
 
 def check_geometry(shape, heads, dtype) -> None:
@@ -293,6 +321,7 @@ def flash_packed_fwd_kernel(qkv, heads, causal, sm_scale, dropout_p=0.0,
                  int(scale_folds(qkv.dtype, sm_scale)), stream)
     _check(err, "forward")
     launches["fwd"] += 1
+    fwd_launches[fwd_kernel_of(geo[3])] += 1
     return out, lse
 
 

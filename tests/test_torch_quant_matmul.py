@@ -194,8 +194,8 @@ def split_x(x, chunk_rows=tqm.CHUNK_ROWS, hi_bits=7):
     is each value truncated toward zero to a multiple of ``2**(E -
     hi_bits)`` (E the exponent of the chunk row's largest magnitude, read
     from x's own bits: an f16 subnormal counts as 2^-14; the kernel keeps 7
-    bits below E for int8 weights, 5 for e4m3) and ``x_lo`` the rest, both
-    in x's dtype."""
+    bits below E for int8 and e4m3 weights alike) and ``x_lo`` the rest,
+    both in x's dtype."""
     m, k = x.shape
     bits = x.view(torch.int16).to(torch.int32) & 0x7FFF
     top = bits.view(m, k // chunk_rows, chunk_rows).amax(-1, keepdim=True)
@@ -209,6 +209,36 @@ def split_x(x, chunk_rows=tqm.CHUNK_ROWS, hi_bits=7):
     hi = torch.trunc(xd / q) * q
     lo = xd - hi
     return (hi.reshape(m, k).to(x.dtype), lo.reshape(m, k).to(x.dtype))
+
+
+def split_x3(x, chunk_rows=tqm.CHUNK_ROWS, hi_bits=7):
+    """``x`` split as the kernel splits it for e4m3 weights, ``x = x_hi +
+    x_mid + x_lo`` exactly: x_hi as :func:`split_x`, x_mid the rest
+    truncated toward zero to a multiple of ``2**(E - 2 hi_bits)`` (the same
+    E), x_lo what remains, all in x's dtype."""
+    hi, rest = split_x(x, chunk_rows, hi_bits)
+    m, k = x.shape
+    bits = x.view(torch.int16).to(torch.int32) & 0x7FFF
+    top = bits.view(m, k // chunk_rows, chunk_rows).amax(-1, keepdim=True)
+    e = (top >> 7) if x.dtype == torch.bfloat16 else (top >> 10) + 112
+    q = torch.exp2((e.clamp(min=24 + 2 * hi_bits - 23) - 127 - 2 * hi_bits)
+                   .double())
+    rd = rest.double().view(m, k // chunk_rows, chunk_rows)
+    mid = torch.trunc(rd / q) * q
+    return (hi, mid.reshape(m, k).to(x.dtype),
+            (rd - mid).reshape(m, k).to(x.dtype))
+
+
+def split_w_bands(w_q):
+    """An e4m3 weight split as the kernel widens it, ``w = w_0 + w_1 + w_2
+    + w_3`` (f64): the weights whose exponent field (bits 3-6 of the byte)
+    lies in 0-4, 5-8, 9-12 and 13-15, each 0 where the weight lies in
+    another band.  Each band spans at most four binades: its weights are
+    below 2**7 of its granularity, as an int8 weight is of 1."""
+    f = (w_q.view(torch.uint8).to(torch.int32) >> 3) & 0xF
+    w = w_q.double()
+    return tuple(torch.where((f >= lo) & (f <= hi), w, 0.0)
+                 for lo, hi in ((0, 4), (5, 8), (9, 12), (13, 15)))
 
 
 def _add_partial(th, tl, hi, lo):
@@ -245,25 +275,44 @@ def quant_matmul_chunked(x2d, w_q, scale, chunk_rows=tqm.CHUNK_ROWS):
     chunk's two partials ``f32(x_hi . w)`` and ``f32(x_lo . w)`` (each
     exact in f64, rounded once), added in chunk order into a total carried
     in two f32 (TwoSum), from 0; its sum times the scale, rounded to x's
-    dtype.  For int8 weights the kernel's x_hi sum is exact on the tensor
-    cores, so this is the kernel's result bit for bit; for e4m3 weights
-    the tensor core drops bits of the x_hi sum where a chunk's weights
-    spread their exponents, so the kernel can differ from this by a few
-    ulps of an f16 output (ROADMAP Queue 3).  f32 activations: the
-    CUDA-core kernel's order (:func:`_f32_kernel_order`)."""
+    dtype.  e4m3 weights: x split three ways (:func:`split_x3`) and the
+    weight into four bands (:func:`split_w_bands`); band by band the exact
+    sums ``x_hi . w_b`` and ``x_mid . w_b`` are added by TwoSum into the
+    chunk's pair, their rounding errors and then x_lo's partial into its
+    low part.  Every sum but x_lo's is exact on the tensor cores, so this
+    is the kernel's result up to the bits the tensor core drops from
+    x_lo's sum, far below an ulp.  f32 activations: the CUDA-core kernel's
+    order (:func:`_f32_kernel_order`)."""
     if x2d.dtype == torch.float32:
         return _f32_kernel_order(x2d, w_q, scale)
     m, k = x2d.shape
     w = w_q.double()
-    hi, lo = split_x(x2d, chunk_rows,
-                     5 if w_q.dtype == torch.float8_e4m3fn else 7)
+    fp8 = w_q.dtype == torch.float8_e4m3fn
+    if fp8:
+        hi, mid, lo = split_x3(x2d, chunk_rows)
+        bands = split_w_bands(w_q)
+    else:
+        hi, lo = split_x(x2d, chunk_rows)
     th = torch.zeros(m, w_q.shape[1], dtype=torch.float32)
     tl = torch.zeros_like(th)
+    zero = torch.zeros_like(th)
     for c in range(0, k, chunk_rows):
-        w_c = w[c:c + chunk_rows]
-        th, tl = _add_partial(th, tl,
-                              (hi[:, c:c + chunk_rows].double() @ w_c).float(),
-                              (lo[:, c:c + chunk_rows].double() @ w_c).float())
+        rows = slice(c, c + chunk_rows)
+        p_lo = (lo[:, rows].double() @ w[rows]).float()
+        if not fp8:
+            p_hi = (hi[:, rows].double() @ w[rows]).float()
+            th, tl = _add_partial(th, tl, p_hi, p_lo)
+            continue
+        hc, lc = None, zero
+        for band in bands:         # exact sums added by TwoSum, band order
+            for part in (hi, mid):
+                s = (part[:, rows].double() @ band[rows]).float()
+                if hc is None:
+                    hc = s
+                else:
+                    hc, e = _add_partial(hc, zero, s, zero)
+                    lc = lc + e
+        th, tl = _add_partial(th, tl, hc, lc + p_lo)
     return ((th + tl) * scale.float()).to(x2d.dtype)
 
 
@@ -430,6 +479,95 @@ def test_split_x_exact(xdtype):
         assert bool((lo_c * blk >= 0).all())
     assert torch.equal(hi[1, :128].double(), torch.zeros(128,
                                                           dtype=torch.float64))
+
+
+def _exact_in_bits(parts, bits=22):
+    """Whether every sum of ``parts`` (f64 products of one chunk row, last
+    axis the chunk) is exact in ``bits`` bits, whatever the order or
+    grouping of the tensor core's sum: each product a multiple of the
+    smallest power-of-two granularity g of the nonzero ones, and the sum of
+    their magnitudes below 2**bits g.  Per row.  22 bits is where int8's
+    x_hi sums lie (8-bit x_hi times |w| <= 128, 128 rows): the kernel holds
+    e4m3 to the same."""
+    out = []
+    for row in parts:
+        nz = row[row != 0]
+        if nz.numel() == 0:
+            out.append(True)
+            continue
+        m, e = torch.frexp(nz)
+        # the lowest set bit of each product (53-bit significands)
+        sig = (m * 2.0 ** 53).to(torch.int64)
+        low = (sig & -sig).double().log2() + e.double() - 53
+        g = 2.0 ** float(low.min())
+        out.append(bool((row.abs().sum() / g) < 2.0 ** bits))
+    return out
+
+
+@pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float16],
+                         ids=str)
+def test_split_e4m3_bands_exact(xdtype):
+    """e4m3 weights over their whole range (2**-9 .. 448, subnormals and
+    zeros, each value in a chunk's rows) times x split three ways (x_hi of
+    7 bits as for int8, x_mid of the next 7, x_lo below 2**-14 of the
+    row's largest): x_hi . w_b and x_mid . w_b are exact in 22 bits, where
+    int8's sums lie, for each of the four bands, and w_0 + ... + w_3 = w.
+    The earlier split (x_hi of 5 bits times the unsplit weight) fails a
+    case built for it: 127 weights of 448 and one of 2**-9 in one chunk,
+    the running sum past 24 bits; and the whole range unsplit spans more
+    than 24 bits."""
+    rng = np.random.RandomState(17)
+    vals = _all_weights(torch.float8_e4m3fn)
+    w = torch.cat([vals, vals[:2]]).view(torch.uint8)[
+        torch.from_numpy(rng.permutation(256))].view(torch.float8_e4m3fn)
+    bands = split_w_bands(w)
+    assert torch.equal(sum(bands), w.double())
+    # the band edges: below 2**-2, [2**-2, 2**2), [2**2, 2**6), [2**6, 448]
+    edges = (0.0, 0.25, 4.0, 64.0, 512.0)
+    for band, lo_e, hi_e in zip(bands, edges, edges[1:]):
+        live = band[band != 0].abs()
+        assert float(live.min()) >= lo_e and float(live.max()) < hi_e
+    # rows of mixed scales; row 0 holds the largest x_hi (255 q) in both
+    # chunks
+    x = rng.randn(8, 256) * np.exp2(rng.randint(-10, 4, (8, 256)))
+    x[0, :] = 1.9921875
+    x[1, 3] = 0.0
+    xt = torch.from_numpy(x.astype(np.float32)).to(xdtype)
+    hi, mid, lo = split_x3(xt)
+    assert hi.dtype == mid.dtype == lo.dtype == xdtype
+    assert torch.equal(hi.double() + mid.double() + lo.double(),
+                       xt.double())
+    assert torch.equal(hi, split_x(xt)[0])
+    for c in (0, 128):
+        blk = xt[:, c:c + 128].double()
+        top = blk.abs().amax(-1, keepdim=True)
+        e = torch.floor(torch.log2(torch.where(top > 0, top,
+                                               torch.ones_like(top))))
+        q14 = torch.exp2(e - 14)
+        m_c, l_c = mid[:, c:c + 128].double(), lo[:, c:c + 128].double()
+        assert torch.equal(torch.remainder(m_c, q14), torch.zeros_like(m_c))
+        assert bool((m_c.abs() < torch.exp2(e - 7)).all())
+        assert bool((l_c.abs() < q14).all())
+        for part in (hi, mid):
+            h = part[:, c:c + 128].double()
+            for band in bands:
+                assert all(_exact_in_bits(h * band[c:c + 128][None, :]))
+        # the whole range spans more than 24 bits unsplit
+        assert not all(_exact_in_bits(h * w[c:c + 128].double()[None], 24))
+    # the case built for the old split: its running sum is not an f32
+    xo = torch.full((1, 128), 1.96875, dtype=xdtype)
+    wo = torch.full((128,), 448.0).to(torch.float8_e4m3fn)
+    wo[127] = 2.0 ** -9
+    ho, _ = split_x(xo, hi_bits=5)
+    prods = ho.double()[0] * wo.double()
+    run = torch.cumsum(prods, 0)
+    assert not torch.equal(run.float().double(), run)
+    assert not _exact_in_bits(prods[None], 24)[0]
+    h7, _ = split_x(xo)
+    for band in split_w_bands(wo):
+        run = torch.cumsum(h7.double()[0] * band, 0)
+        assert torch.equal(run.float().double(), run)
+        assert _exact_in_bits((h7.double()[0] * band)[None])[0]
 
 
 def _all_weights(wdtype):
