@@ -26,6 +26,8 @@ Phases, each printing one JSON line:
                int8/fp8, walk/split; 0 for the 2 f32 CUDA-core ones); and
                the same for the 5 forwards past 256 on the tensor cores
                (``fwd_tc`` bf16/f16 for K1 and K2, ``fwd_tc_f32``; HGMMA
+               above 0) and the 8 dK/dV and dQ kernels past 256
+               (``dkdv_tc``, ``dq_tc``, bf16/f16 for K1 and K2; HGMMA
                above 0).
 3. flash    -- holds the three packed flash-attention kernels (forward, dK/dV,
                dQ; ``csrc/flash_attention_packed.cu``) against their plain
@@ -38,9 +40,11 @@ Phases, each printing one JSON line:
                s=65 (one row in the last tile), batch 1 on a strided view, and
                the widest instances at H=2: D=256 (bf16, f16 non-causal,
                dropout 0.1) and D=192 (also ragged s=200); past 256 the
-               forward on the tensor cores and the column-chunked backward
-               at D=320, 384, 512 (H=1; H=2 non-causal with dropout 0.1)
-               and 1024, in bf16 and f16 (f16 at 384 with dropout), each
+               column-chunked forward and backward on the tensor cores
+               (``fwd_tc``, ``dkdv_tc``, ``dq_tc``; each case names its
+               backward kernel) at D=320, 384, 512 (H=1; H=2 non-causal
+               with dropout 0.1) and 1024, in bf16 and f16 (f16 at 384
+               with dropout), each
                past 256 also running the forward twice more bit for bit
                and on a qkv whose V chunks repeat (every output chunk of
                a row must equal the first bit for bit: one max and sum a
@@ -93,14 +97,20 @@ Phases, each printing one JSON line:
                in bf16/f16) and, past 256, 264, 320, 384, 512 and 1024,
                each in f32, bf16 and f16 (the forward on the tensor cores;
                each also twice more bit for bit and with V's chunks
-               repeated, every output chunk equal to the first); f32 at
-               D=33 (rows TMA cannot address), at D=264 with dropout and
-               sq != skv, at D=512 with dropout and sq > skv, and at
-               D=514, which must launch the CUDA-core forward and no
-               other; the Python mirror of the forward's route and
-               dynamic shared memory (``fwd_route``, ``wide_fwd_plan``,
-               ``fwd_plan``) equal to the libraries' own at widths 33 to
-               8192; the f32 training
+               repeated, every output chunk equal to the first; bf16/f16
+               dK/dV and dQ on the tensor cores, the pair twice more bit
+               for bit); bf16 D=320 and D=264 (sq > skv) and f16 D=512
+               (non-causal, sq < skv) with dropout 0.1; rows TMA cannot
+               address, zero-padded onto the tensor-core kernels: f32 D=33
+               (the 3xTF32 kernels at 36) and bf16 D=514 (at 520); f32 at
+               D=1032 (a last 128-column chunk of 8), at D=264 with dropout
+               and sq != skv, at D=512 with dropout and sq > skv, and at
+               D=514, which must launch the tensor-core forward (at 516)
+               and the CUDA-core dK/dV and dQ and no other kernel; the
+               Python mirror of the routes and dynamic shared memory
+               (``fwd_route``, ``bwd_route``, ``wide_fwd_plan``,
+               ``fwd_plan``, ``bwd_plan``) equal to the libraries' own at
+               widths 33 to 8192; the f32 training
                geometry (B*H = 16*12, s=1024, D=64); batch 1 through
                ``flash_attention_bshd`` on strided views of one fused
                projection (f32 at H=12, s=1024; bf16 at H=1); and the ring's
@@ -135,9 +145,10 @@ Phases, each printing one JSON line:
                yardstick ``F.scaled_dot_product_attention(is_causal=True)``
                on (b, H, s, D) f32, pinned to the efficient-attention
                backend, with its error against the f64 plain version;
-               then the bf16 instance beside K1 at K1's timing shape; then
-               the f32 kernels at D=256 (b=8, s=1024, H=4) beside their
-               bounds, plain versions and SDPA (``wide``); the pair's error
+               then the bf16 instance (and its plain forward and pair)
+               beside K1 at K1's timing shape; then the f32 kernels at
+               D=256 (b=8, s=1024, H=4) beside their bounds, plain
+               versions and SDPA (``wide``); the pair's error
                against f64 beside SDPA's own f32 backward's.
 8. train_f32 -- GPT-2-small f32 (``make_sharded_train_step`` with no
                ``param_dtype``: f32 parameters and Adam moments) at b=16,
@@ -151,21 +162,31 @@ Phases, each printing one JSON line:
 9. wide     -- a GPT at D = 256 (hidden 1024, 4 heads, 2 layers), b=4,
                s=1024, 3 train steps each way: bf16 through K1, f32
                through SDPA and K2.  Gates: the flash series' launches
-               exactly 3 x 2 per kernel, the forward's also by kernel
-               (the one its width runs 3 x 2, every other 0, the
-               CUDA-core ``wide_fwd`` included), the other family's and
-               the plain versions' calls 0, and its loss series against
+               exactly 3 x 2 per kernel, also by kernel (the forward,
+               dK/dV and dQ its width runs 3 x 2 each, every other 0),
+               the other family's and the plain versions' calls 0, and
+               its loss series against
                the plain composition's within ``FLASH_VS_PLAIN_RTOL``
                (bf16) and ``F32_FLASH_VS_PLAIN_RTOL`` (f32).
 9b. wide512 -- the same at D = 512 (hidden 1024, 2 heads, 2 layers, b=2,
-               s=1024): K1 and K2 through the forward on the tensor cores
-               and the column-chunked backward.  Then (``wide512_times``)
-               those kernels timed at its attention (b=2, H=2, s=1024,
-               D=512; K2 f32, K1 bf16), each timed forward held against
-               its plain version, K2's bf16 forward at the same shape, K2's
-               f32 forward at D=514 (the CUDA-core one), and K3 at D=512
-               (widths 1 and 32, bf16), each beside its plain version,
-               SDPA and its bounds.
+               s=1024): K1 through the column-chunked kernels on the
+               tensor cores (``dkdv_tc`` and ``dq_tc`` 3 x 2 each, K1's
+               other backward kernels 0), K2 f32 through the forward on
+               the tensor cores and the CUDA-core backward.  Then
+               (``wide512_times``) those kernels timed at its attention
+               (b=2, H=2, s=1024, D=512; K2 f32, K1 bf16), each timed
+               forward and K1's pair held against its plain version, K2's
+               bf16 forward and pair at the same shape (the pair's
+               launches counted over three passes through
+               ``flash_attention``), K2's f32 forward at D=514 (padded to
+               516, the pad copies timed apart), and K3 at D=512 (widths 1
+               and 32, bf16), each beside its plain version, SDPA and its
+               bounds.
+9c. dispatch_repairs -- each dispatcher on the card with what its kernel
+               refuses: K1 a strided qkv, K3 an int64 page table and
+               lengths, K4 a transposed weight view and a bf16 scale; each
+               launches its kernel and equals the normalised call bit for
+               bit.
 10. paged   -- holds ``paged_attention`` (K3: the split decode kernel at
                widths below 16 with 16-byte rows up to D=256, else the
                tile kernels) against its plain PyTorch version
@@ -282,6 +303,13 @@ Phases, each printing one JSON line:
 Then the kernel table line, the ``nvidia-smi`` line, and last the result
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero before the result line; without a CUDA device it exits 2.
+
+``python3 chip_smoke.py --serving-ab N [--root DIR]`` runs only the
+serving measurements, N times each: phase ``serving``'s paged bf16 run and
+phase ``serving_int8``'s int8 run, on the same engines, prompts and
+weights, each run a JSON line.  The package is imported from DIR (default:
+this script's directory), so that two checkouts can be compared on one
+card: run it once per tree in separate processes, alternating.
 """
 
 import json
@@ -875,7 +903,7 @@ def phase_flash(torch, fap, fa):
               and all(extra.values()))
         # [LSE, then (rel, row) for O, dQ, dK, dV]: a short line
         checks.append({"case": name, "ok": ok, "bitwise_repeat": bitwise,
-                       **extra,
+                       **extra, "bwd_kernel": fap.bwd_kernel_of(D),
                        "scale_path": ("fold" if fap.scale_folds(dtype, scale)
                                       else "in_tile"), **{
             k: [v["lse"]] + [v[s][m] for s in FLASH_SLICES
@@ -1499,10 +1527,25 @@ def phase_flash_bhd_checks(torch, fa):
                     extra[f"fwd_split_{key}_rel"] = float(
                         (o.double() - ref_o).norm() / ref_o.norm())
             del reps
-        if fa.fwd_route(D, dtype) in ("wide_fwd_tc", "wide_fwd"):
-            # the column-chunked forward (on the tensor cores, or the
-            # CUDA-core one): twice more bit for bit (f32 above), and on a
-            # V whose chunks repeat, every chunk of O the first's
+        if D != fa.padded_width(D, dtype) or D > 256:
+            extra["fwd_kernel"] = fa.library_fwd_route(D, dtype)
+            extra["bwd_route"] = fa.library_bwd_route(D, dtype)
+        if not f32 and D > 256:
+            # the tensor-core backward past 256: the pair twice more, bit
+            # for bit the same as the gradient through autograd
+            delta = (do.float() * out.float()).sum(-1)
+            runs = [fa._bwd_pair(q, k, v, do, lse, delta, causal, scale, p,
+                                 seed) for _ in range(2)]
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for run in runs
+                       for a, b in zip(run, grads))
+            extra["pair_bitwise_repeat"] = same
+            ok = ok and same
+            del runs, delta
+        if fa.fwd_route(D, dtype) == "wide_fwd_tc":
+            # the column-chunked forward on the tensor cores: twice more bit
+            # for bit (f32 above), and on a V whose chunks repeat, every
+            # chunk of O the first's
             cc = fa.wide_fwd_plan(bh, sq, D, dtype)["chunk_cols"]
             if not f32:
                 reps = [fa.flash_fwd_kernel(q, k, v, causal, scale, p, seed)
@@ -1515,7 +1558,6 @@ def phase_flash_bhd_checks(torch, fa):
                                         causal, scale, p, seed)[0]
             torch.cuda.synchronize()
             extra["chunks_share_row_stats"] = chunks_equal(o_rep, D, cc)
-            extra["fwd_kernel"] = fa.library_fwd_route(D, dtype)
             ok = (ok and extra["fwd_bitwise_repeat"]
                   and extra["chunks_share_row_stats"])
             del o_rep
@@ -1567,28 +1609,41 @@ def phase_flash_bhd_checks(torch, fa):
         # past 256 the forward on the tensor cores (bf16/f16: 256-column
         # chunks of 64-column slices, D = 264 a slice of 8 columns, q
         # resident up to 1024; f32: 128-column chunks of 32-column slices)
-        # and the column-chunked backward
+        # and the column-chunked backward (bf16/f16 on the tensor cores,
+        # 256-column chunks; f32 on the CUDA cores)
         for D in (32, 80, 128, 256, 36, 264, 320, 384, 512, 1024):
             check(f"{tag}_d{D}", 4 if D > 512 else 8, 256, 256, D, True, dt)
         check(f"{tag}_ring_kv_halves", 8, 512, 512, 64, False, dt,
               ring=True)
     check("f32_ring_causal", 8, 512, 512, 64, True, f32, ring=True)
-    # rows TMA cannot address (33 f32 = 132 bytes): the column-chunked
-    # kernels at a width the 3xTF32 pair does not take
+    # the tensor-core backward past 256 with dropout, and sq != skv
+    check("bf16_d320_dropout0.1", 8, 256, 256, 320, True, bf16, 0.1, 41)
+    check("f16_d512_noncausal_dropout0.1_sq256_skv512", 4, 256, 512, 512,
+          False, f16, 0.1, 42)
+    check("bf16_d264_dropout0.1_sq512_skv256", 4, 512, 256, 264, True, bf16,
+          0.1, 43)
+    # rows TMA cannot address, zero-padded onto the tensor-core kernels:
+    # f32 D = 33 (132 bytes: the 3xTF32 kernels at 36), bf16 D = 514 (the
+    # forward and the pair at 520); and f32 D = 1032, a row TMA addresses
+    # whose last 128-column chunk holds 8 columns
     check("f32_d33", 8, 256, 256, 33, True, f32)
+    check("bf16_d514", 4, 256, 256, 514, True, bf16)
+    check("f32_d1032", 2, 256, 256, 1032, True, f32)
     check("f32_d264_dropout0.1_sq256_skv512", 4, 256, 512, 264, True, f32,
           0.1, 77)
     check("f32_d512_dropout0.1_sq512_skv256", 2, 512, 256, 512, True, f32,
           0.1, 78)
     # f32 D = 514 (2056-byte rows, which TMA cannot address): the forward
-    # runs the column-chunked CUDA-core kernel and no other
-    before = dict(fa.fwd_launches)
+    # runs the tensor-core kernel at 516 and no other; dK/dV and dQ the
+    # CUDA-core kernels (any D) and no other
+    before = dict(fa.fwd_launches, **fa.bwd_launches)
     check("f32_d514", 4, 256, 256, 514, True, f32)
-    launched = {key: fa.fwd_launches[key] - before[key]
-                for key in fa.FWD_KERNELS}
-    checks[-1]["fwd_launches"] = launched
-    if launched["wide_fwd"] < 1 or any(
-            n for key, n in launched.items() if key != "wide_fwd"):
+    launched = {key: n - before[key] for key, n in
+                dict(fa.fwd_launches, **fa.bwd_launches).items()}
+    checks[-1]["launches"] = launched
+    want = ("wide_fwd_tc", "dkdv_wide", "dq_wide")
+    if any(launched[key] < 1 for key in want) or any(
+            n for key, n in launched.items() if key not in want):
         checks[-1]["ok"] = False
     # batch 1 through the public entry point, on strided views of one fused
     # projection: the (b, s, H, D) -> (b*H, s, D) move must hand the kernels
@@ -1646,26 +1701,29 @@ def phase_flash_bhd_checks(torch, fa):
     check_many_heads("f32_bh65538_s8_d64", f32)
     check_many_heads("bf16_bh65538_s8_d64", bf16)
     torch.cuda.empty_cache()
-    # the pure-Python mirror of the forward's route and launch plan (which
-    # the CPU tests hold to the card's limits) against the libraries' own
-    # answers: K2 per dtype and width, K1 per width up to the JAX plan's
-    # 8192
+    # the pure-Python mirror of the routes and launch plans (which the CPU
+    # tests hold to the card's limits) against the libraries' own answers:
+    # K2's forward and backward routes (at the padded width) and its
+    # forward's shared memory per dtype and width; K1's forward and
+    # backward shared memory per width up to the JAX plan's 8192
     from paddle_hackathon_tpu_torch.incubate.nn.kernels import \
         flash_attention_packed as fap
     wrong = []
     for dt in (f32, bf16, f16):
         for D in (33, 64, 264, 320, 384, 512, 514, 516, 1024, 1032, 2048):
-            got = (fa.library_fwd_route(D, dt), fa.library_fwd_smem(D, dt))
-            if got[0] in ("wide_fwd_tc", "wide_fwd"):
-                want = (fa.fwd_route(D, dt),
-                        fa.wide_fwd_plan(1, 64, D, dt)["smem"])
-            else:
-                want = (fa.fwd_route(D, dt), got[1])
+            got = (fa.library_fwd_route(D, dt), fa.library_fwd_smem(D, dt),
+                   fa.library_bwd_route(D, dt))
+            smem = (fa.wide_fwd_plan(1, 64, D, dt)["smem"]
+                    if got[0] == "wide_fwd_tc" else got[1])
+            want = (fa.fwd_route(D, dt), smem, fa.bwd_route(D, dt))
             if got != want:
                 wrong.append((str(dt), D, got, want))
     for D in (264, 320, 512, 1024, 1032, 2048, 8192):
-        got = fap.library_fwd_smem(D)
-        want = fap.fwd_plan(1, 64, 1, D, bf16)["smem"]
+        got = (fap.library_fwd_smem(D), fap.library_bwd_smem(D, "dkdv"),
+               fap.library_bwd_smem(D, "dq"))
+        want = (fap.fwd_plan(1, 64, 1, D, bf16)["smem"],
+                fap.bwd_plan(1, 64, 1, D, bf16, "dkdv")["smem"],
+                fap.bwd_plan(1, 64, 1, D, bf16, "dq")["smem"])
         if got != want:
             wrong.append(("k1", D, got, want))
     checks.append({"case": "fwd_plan_mirror", "ok": not wrong,
@@ -1806,6 +1864,12 @@ def phase_flash_bhd(torch, fa, fap, readings):
             qkv, dout, lse1, d1, dqkv, tH, True, scale)]),
         "k1_dq": device_ms(torch, [lambda: fap.flash_packed_dq_kernel(
             qkv, dout, lse1, d1, dqkv, tH, True, scale)]),
+        # K2's bf16 plain versions at this shape (the kernel table's
+        # plain column for the mma.sync rows)
+        "k2_plain_fwd": device_ms(torch, [lambda: fa.flash_fwd_ref(
+            qb, kb, vb, True, scale)], reps=2),
+        "k2_plain_pair": device_ms(torch, [lambda: fa.flash_bwd_pair_ref(
+            qb, kb, vb, dob, lse2, d2, True, scale)], reps=2),
     }
     same_out = float((o2.reshape(tb, tH, ts, tD).transpose(1, 2)
                       .reshape(tb, ts, tH * tD).float() - o1.float())
@@ -2069,13 +2133,14 @@ def phase_wide(torch, fa, fap, b=4, s=1024, steps=3, gpt=WIDE_GPT,
     from a numpy seed, 3 train steps each way.  bf16 (``param_dtype=bf16``,
     ``use_flash_attention=True``) trains through K1; f32 (flash on auto)
     through SDPA and K2.  Gates: the flash series' kernel launches exactly
-    3 x 2 each, and the forward's by kernel (``fwd_launches``): 3 x 2 of
-    the one its width runs (K1 ``fwd_tma`` at 256, ``wide_fwd_tc`` past
-    it; K2 f32 ``fwd_tc`` at 256, ``wide_fwd_tc`` past it), 0 of every
-    other, the CUDA-core ``wide_fwd`` included; the other family's 0, the
-    plain versions called 0 times; the flash and plain-composition loss
-    series within the bf16 / f32 limits.  Returns each family's forward
-    launches by kernel."""
+    3 x 2 each, and by kernel (``fwd_launches``, ``bwd_launches``): 3 x 2
+    of the forward its width runs (K1 ``fwd_tma`` at 256, ``wide_fwd_tc``
+    past it; K2 f32 ``fwd_tc`` at 256, ``wide_fwd_tc`` past it) and of
+    its dK/dV and dQ (K1 ``*_tma`` at 256, the tensor-core ``*_wide_tc``
+    past it; K2 f32 ``*_tc`` at 256, the CUDA-core ``*_wide`` past it),
+    0 of every other; the other family's 0, the plain versions called 0
+    times; the flash and plain-composition loss series within the bf16 /
+    f32 limits.  Returns each family's launches by kernel."""
     from paddle_hackathon_tpu_torch.models import GPTForCausalLM, gpt_config
     base = dict(gpt, hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
     arrays = random_weights(GPTForCausalLM(gpt_config("gpt2-small-en",
@@ -2091,6 +2156,8 @@ def phase_wide(torch, fa, fap, b=4, s=1024, steps=3, gpt=WIDE_GPT,
     D = gpt["hidden_size"] // gpt["num_heads"]
     fwd_kernel = {fap: fap.fwd_kernel_of(D),
                   fa: fa.fwd_route(D, torch.float32)}
+    bwd_kernel = {fap: fap.bwd_kernel_of(D),
+                  fa: fa.bwd_route(D, torch.float32)}
     plain_names = {fap: ("flash_packed_fwd_ref", "flash_packed_bwd_ref"),
                    fa: ("flash_fwd_ref", "flash_bwd_pair_ref")}
     for tag, param_dtype, flash, used, other, rtol in runs:
@@ -2104,7 +2171,8 @@ def phase_wide(torch, fa, fap, b=4, s=1024, steps=3, gpt=WIDE_GPT,
             reals = [(m, counting(m, plain_names[m], calls))
                      for m in (fa, fap)]
             for counts in (fa.launches, fap.launches, fa.fwd_launches,
-                           fap.fwd_launches):
+                           fap.fwd_launches, fa.bwd_launches,
+                           fap.bwd_launches):
                 for key in counts:
                     counts[key] = 0
             try:
@@ -2120,8 +2188,10 @@ def phase_wide(torch, fa, fap, b=4, s=1024, steps=3, gpt=WIDE_GPT,
             series[run] = {"losses": losses,
                             "launches": dict(used.launches),
                             "fwd_launches": dict(used.fwd_launches),
+                            "bwd_launches": dict(used.bwd_launches),
                             "other_launches": dict(other.launches),
                             "other_fwd_launches": dict(other.fwd_launches),
+                            "other_bwd_launches": dict(other.bwd_launches),
                             "plain_calls": calls}
             del model, step, state
             torch.cuda.empty_cache()
@@ -2132,13 +2202,18 @@ def phase_wide(torch, fa, fap, b=4, s=1024, steps=3, gpt=WIDE_GPT,
         f = series["flash"]
         want = {key: need if key == fwd_kernel[used] else 0
                 for key in used.fwd_launches}
+        want_bwd = {key: need if key.split("_", 1)[1] == bwd_kernel[used]
+                    else 0 for key in used.bwd_launches}
         if (any(n != need for n in f["launches"].values())
                 or f["fwd_launches"] != want
+                or f["bwd_launches"] != want_bwd
                 or any(f["other_launches"].values())
                 or any(f["other_fwd_launches"].values())
+                or any(f["other_bwd_launches"].values())
                 or any(f["plain_calls"].values())
                 or any(series["plain"]["launches"].values())
-                or any(series["plain"]["fwd_launches"].values())):
+                or any(series["plain"]["fwd_launches"].values())
+                or any(series["plain"]["bwd_launches"].values())):
             raise AssertionError(f"{name} {tag}: the flash series did not "
                                  f"run its kernels exactly {need} times each "
                                  f"(or ran the other family, or a plain "
@@ -2149,8 +2224,12 @@ def phase_wide(torch, fa, fap, b=4, s=1024, steps=3, gpt=WIDE_GPT,
                                  f"{series}")
     emit({"phase": name, "model": gpt, "head_dim": D, "batch": b, "seq": s,
           "steps": steps, "fwd_kernel": {"bf16": fwd_kernel[fap],
-                                         "f32": fwd_kernel[fa]}, **report})
-    return {tag: report[tag]["flash"]["fwd_launches"] for tag in report}
+                                         "f32": fwd_kernel[fa]},
+          "bwd_kernel": {"bf16": bwd_kernel[fap], "f32": bwd_kernel[fa]},
+          **report})
+    return {tag: dict(report[tag]["flash"]["fwd_launches"],
+                      **report[tag]["flash"]["bwd_launches"])
+            for tag in report}
 
 
 WIDE512_SHAPE = dict(b=2, s=1024, H=2, D=512)   # the wide512 GPT's heads
@@ -2177,19 +2256,44 @@ def timed_fwd_check(torch, ref_fn, inputs, got, ref_dtype, tol, causal,
     return r
 
 
+def timed_pair_check(torch, fa, q, k, v, do, lse, delta, got, scale):
+    """A timed bf16/f16 pair's dq, dk, dv (``got``) against the plain pair
+    in f32 on the same inputs: relative L2 and worst row within
+    ``FLASH_TOL``, and the largest absolute error."""
+    ref = fa.flash_bwd_pair_ref(*(t.float() for t in (q, k, v, do)), lse,
+                                delta, True, scale)
+    r = {"ok": True, "max_abs_err": 0.0}
+    for name, g, want in zip(("dq", "dk", "dv"), got, ref):
+        err = g.float() - want
+        rows = want.norm(dim=-1)
+        rel = float(err.norm() / want.norm())
+        row = float((err.norm(dim=-1) / rows.clamp_min(
+            rows[rows > 0].median())).max())
+        r[f"{name}_rel"], r[f"{name}_row"] = rel, row
+        r["max_abs_err"] = max(r["max_abs_err"], float(err.abs().max()))
+        r["ok"] = r["ok"] and rel <= FLASH_TOL["rel"] and \
+            row <= FLASH_TOL["row"]
+    return r
+
+
 def wide512_times(torch, fa, fap, pa):
     """The kernels at the wide512 GPT's attention (D = 512, b=2, H=2,
-    s=1024, causal) by graph replay: K2 in f32 and K1 in bf16 (the forward
-    on the tensor cores, dK/dV and dQ column-chunked on the CUDA cores)
-    beside their plain versions, SDPA (default backend) and two bounds
-    each (the tensor cores at the inputs' type, and the CUDA cores' f32
-    rate); each timed forward's O and LSE held against the plain version
-    (f32 against f64 at ``FLASH_F32_TOL``, bf16 against f32 at
-    ``FLASH_TOL``).  Then K2's bf16 forward at the same shape, and K2's
-    f32 forward at D = 514 (rows TMA cannot address: the column-chunked
-    CUDA-core forward) beside the same yardsticks.  K3 at D = 512 (16
-    slots, 12 heads, 8 pages of 16) at width 1 and a chunk of 32, bf16,
-    beside its plain version and SDPA on the gathered K/V."""
+    s=1024, causal) by graph replay: K2 in f32 (the forward on the tensor
+    cores, dK/dV and dQ column-chunked on the CUDA cores) and K1 in bf16
+    (all three column-chunked on the tensor cores) beside their plain
+    versions, SDPA (default backend) and two bounds each (the tensor
+    cores at the inputs' type, and the CUDA cores' f32 rate); each timed
+    forward's O and LSE held against the plain version (f32 against f64
+    at ``FLASH_F32_TOL``, bf16 against f32 at ``FLASH_TOL``).  Then K2's
+    bf16 forward and dK/dV + dQ pair at the same shape (the pair held
+    against the plain pair in f32), with the pair's launches by kernel
+    over three forward and backward passes through the public
+    ``incubate.nn.functional.flash_attention`` (counts set to 0 just
+    before), and K2's f32 forward at D = 514 (rows TMA cannot address:
+    zero-padded to 516 onto the tensor-core forward; the pad copies timed
+    on their own) beside the same yardsticks.  K3 at D = 512 (16 slots,
+    12 heads, 8 pages of 16) at width 1 and a chunk of 32, bf16, beside
+    its plain version and SDPA on the gathered K/V."""
     import math
 
     import torch.nn.functional as F
@@ -2232,13 +2336,13 @@ def wide512_times(torch, fa, fap, pa):
             D, torch.float32))
     del q, k, v, do, o, lse, delta, qh, kh, vh, doh, xs, og
     torch.cuda.empty_cache()
-    # K2's bf16 forward past 256 (not on a GPT path: bf16 GPTs take K1) and
-    # its f32 forward at D = 514 (the CUDA-core forward), each at the same
-    # b, H and s
+    # K2's bf16 forward and pair past 256 (not on a GPT path: bf16 GPTs
+    # take K1) and its f32 forward at D = 514 (padded to 516), each at the
+    # same b, H and s
     for tag, dt, d in (("k2_bf16", torch.bfloat16, D),
                        ("k2_f32_d514", torch.float32, 514)):
         sc = 1.0 / math.sqrt(d)
-        q, k, v, _ = bhd_case(torch, b * H, s, s, d, dt, seed=515)
+        q, k, v, do = bhd_case(torch, b * H, s, s, d, dt, seed=515)
         o, lse = fa.flash_fwd_kernel(q, k, v, True, sc)
         qh, kh, vh = (t.reshape(b, H, s, d) for t in (q, k, v))
         e = q.element_size()
@@ -2262,7 +2366,14 @@ def wide512_times(torch, fa, fap, pa):
                               torch.float64 if e == 4 else torch.float32,
                               FLASH_F32_TOL if e == 4 else FLASH_TOL, True,
                               sc))}
-        del q, k, v, o, lse, qh, kh, vh
+        width = fa.padded_width(d, dt)
+        if width != d:
+            out[tag]["fwd"].update(padded_to=width, pad_ms=device_ms(
+                torch, [lambda: [fa._pad(t, width) for t in (q, k, v)]]))
+        if e == 2:
+            out[tag].update(k2_bf16_pair(torch, fa, F, q, k, v, do, o, lse,
+                                         sc))
+        del q, k, v, do, o, lse, qh, kh, vh
         torch.cuda.empty_cache()
 
     qkv, dout = flash_case(torch, b, s, H, D, torch.bfloat16, seed=513)
@@ -2308,6 +2419,18 @@ def wide512_times(torch, fa, fap, pa):
             "f32_cuda_core_bound_ms": flash_bound(b, s, H, D, True, n, nb,
                                                   H100_F32_FLOPS)[0]}
     out["k1_bf16"]["fwd"].update(k1_check, kernel=fap.fwd_kernel_of(D))
+    # the timed pair's dqkv against the plain backward in f32
+    r = flash_readings(flash_slices(o, lse, dqkv, H),
+                       flash_plain(fap, qkv.float(), dout.float(), H, True,
+                                   scale))
+    for key, slices in (("dkdv", ("dk", "dv")), ("dq", ("dq",))):
+        out["k1_bf16"][key].update(
+            kernel=f"{key}_{fap.bwd_kernel_of(D)}",
+            max_abs_err=max(r[sl]["max_abs"] for sl in slices),
+            ok=all(r[sl]["rel"] <= FLASH_TOL["rel"]
+                   and r[sl]["row"] <= FLASH_TOL["row"] for sl in slices),
+            **{f"{sl}_{m}": r[sl][m] for sl in slices for m in ("rel",
+                                                               "row")})
     del qkv, dout, o, lse, delta, dqkv, qh, kh, vh, doh, og
     torch.cuda.empty_cache()
 
@@ -2332,11 +2455,136 @@ def wide512_times(torch, fa, fap, pa):
         torch.cuda.empty_cache()
     bad = [f"{key}_fwd" for key in ("k2_f32", "k2_bf16", "k2_f32_d514",
                                      "k1_bf16") if not out[key]["fwd"]["ok"]]
+    bad += [f"{tag}_{key}" for tag in ("k1_bf16", "k2_bf16")
+            for key in ("dkdv", "dq") if not out[tag][key]["ok"]]
+    if not out["k2_bf16"]["api_launches_ok"]:
+        bad.append("k2_bf16_api_launches")
     if bad:
         raise AssertionError(f"the timed forwards disagree with their plain "
                              f"versions: {bad}: {out}")
     return {"shape": WIDE512_SHAPE, "k3_geometry": "16 slots, 12 heads, "
             "D=512, pages of 16, 8 a slot", **out}
+
+
+def k2_bf16_pair(torch, fa, F, q, k, v, do, o, lse, sc):
+    """K2's bf16 dK/dV and dQ past 256 (``dkdv_tc`` / ``dq_tc``) on (b*H,
+    s, D) inputs with their forward's O and LSE: each by graph replay
+    beside its bounds, the plain pair and SDPA's backward, the pair held
+    against the plain pair in f32; then its launches by kernel over three
+    forward and backward passes through ``flash_attention``."""
+    from paddle_hackathon_tpu_torch.incubate.nn import functional as tF
+    bh, s, d = q.shape
+    b, H = WIDE512_SHAPE["b"], WIDE512_SHAPE["H"]
+    delta = (do.float() * o.float()).sum(-1)
+    dk, dv = fa.flash_dkdv_kernel(q, k, v, do, lse, delta, True, sc)
+    dq = fa.flash_dq_kernel(q, k, v, do, lse, delta, True, sc)
+    check = timed_pair_check(torch, fa, q, k, v, do, lse, delta,
+                             (dq, dk, dv), sc)
+    ms = {"dkdv": device_ms(torch, [lambda: fa.flash_dkdv_kernel(
+              q, k, v, do, lse, delta, True, sc)]),
+          "dq": device_ms(torch, [lambda: fa.flash_dq_kernel(
+              q, k, v, do, lse, delta, True, sc)])}
+    plain = device_ms(torch, [lambda: fa.flash_bwd_pair_ref(
+        q, k, v, do, lse, delta, True, sc)], reps=2)
+    xs = [t.reshape(b, H, s, d).detach().clone().requires_grad_(True)
+          for t in (q, k, v)]
+    og = F.scaled_dot_product_attention(*xs, is_causal=True)
+    lib_bwd = profiled_ms(torch, lambda: torch.autograd.grad(
+        og, xs, do.reshape(b, H, s, d), retain_graph=True))
+    e = 2
+    bwd_in = 4 * q.numel() * e + 2 * lse.numel() * 4
+    rows = {}
+    for key, n, nout in (("dkdv", 4, 2), ("dq", 3, 1)):
+        nb = bwd_in + nout * q.numel() * e
+        b_ms, b_by, _, _ = flash_bound(b, s, H, d, True, n, nb)
+        rows[key] = {"ms": ms[key], "plain_ms": plain,
+                     "library_ms": lib_bwd, "bound_ms": b_ms,
+                     "bound_by": b_by,
+                     "f32_cuda_core_bound_ms": flash_bound(
+                         b, s, H, d, True, n, nb, H100_F32_FLOPS)[0],
+                     "route": fa.library_bwd_route(d, q.dtype), **check}
+    del og, xs
+    # the pair on a user's path: the public API, counts from 0
+    for counts in (fa.launches, fa.fwd_launches, fa.bwd_launches):
+        for key in counts:
+            counts[key] = 0
+    qs, ks, vs = (t.reshape(b, H, s, d).transpose(1, 2).detach()
+                  .requires_grad_(True) for t in (q, k, v))
+    dos = do.reshape(b, H, s, d).transpose(1, 2)
+    for _ in range(3):
+        tF.flash_attention(qs, ks, vs, 0.0, True)[0].backward(dos)
+    torch.cuda.synchronize()
+    api = dict(fa.bwd_launches, **fa.fwd_launches)
+    want = {key: 3 if key in ("dkdv_wide_tc", "dq_wide_tc", "wide_fwd_tc")
+            else 0 for key in api}
+    return dict(rows, api_launches=api, api_launches_ok=api == want)
+
+
+def phase_dispatch_repairs(torch, fap, pa, qm, wo):
+    """The dispatchers hand the kernels what they take, on the card: K1
+    through ``flash_attention_qkv_packed`` on a strided qkv (the first 3 H
+    D columns of a wider projection), K3 through ``paged_attention`` with
+    an int64 page table and lengths, K4 through ``quant_matmul`` with a
+    transposed weight view and a bf16 scale.  Each launches its kernel
+    (counted) and equals the call on the normalised arguments bit for
+    bit."""
+    from paddle_hackathon_tpu_torch.incubate.nn.functional import \
+        flash_attention_qkv_packed
+    rows = {}
+    # K1: forward and backward on the strided view
+    b, s, H, D = 2, 256, 4, 64
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    wide = (torch.randn(b, s, 3 * H * D + 64, generator=gen, device=DEV)
+            * 0.5).to(torch.bfloat16)
+    cot = torch.randn(b, s, H * D, generator=gen, device=DEV).to(
+        torch.bfloat16)
+    x = wide.clone().requires_grad_(True)
+    view = x[..., :3 * H * D]
+    ref_x = wide[..., :3 * H * D].contiguous().requires_grad_(True)
+    before = dict(fap.launches)
+    got = flash_attention_qkv_packed(view, H)
+    got.backward(cot)
+    ref = flash_attention_qkv_packed(ref_x, H)
+    ref.backward(cot)
+    torch.cuda.synchronize()
+    rows["k1_strided_qkv"] = {
+        "strided": not view.is_contiguous(),
+        "launches": {k: fap.launches[k] - before[k] for k in before},
+        "equal": torch.equal(got, ref) and torch.equal(
+            x.grad[..., :3 * H * D], ref_x.grad)}
+    # K3: an int64 table and lengths
+    case = kernel_case(torch, torch.bfloat16, 1, seed=70)
+    before = dict(pa.launches)
+    got = pa.paged_attention(case["q"], case["k_pool"], case["v_pool"],
+                             case["page_table"].long(),
+                             case["lengths"].long())
+    ref = pa.paged_attention(**case)
+    torch.cuda.synchronize()
+    rows["k3_int64_table"] = {
+        "launches": {k: pa.launches[k] - before[k] for k in before},
+        "equal": torch.equal(got, ref)}
+    # K4: a transposed weight view and a bf16 scale
+    c = quant_case(torch, wo, 8, 768, 768, "int8", torch.bfloat16, seed=71)
+    w_t = c["w_q"].t().contiguous().t()
+    scale = c["scale"].to(torch.bfloat16)
+    before = qm.launches
+    got = qm.quant_matmul(c["x2d"], w_t, scale)
+    ref = qm.quant_matmul(c["x2d"], c["w_q"], scale.float())
+    torch.cuda.synchronize()
+    rows["k4_strided_weight_bf16_scale"] = {
+        "strided": not w_t.is_contiguous(),
+        "launches": qm.launches - before, "equal": torch.equal(got, ref)}
+    emit({"phase": "dispatch_repairs", **rows})
+    ok = (rows["k1_strided_qkv"]["strided"]
+          and rows["k1_strided_qkv"]["launches"] == {"fwd": 2, "dkdv": 2,
+                                                     "dq": 2}
+          and sum(rows["k3_int64_table"]["launches"].values()) == 2
+          and rows["k4_strided_weight_bf16_scale"]["strided"]
+          and rows["k4_strided_weight_bf16_scale"]["launches"] == 2
+          and all(r["equal"] for r in rows.values()))
+    if not ok:
+        raise AssertionError(f"a dispatcher did not hand its kernel what it "
+                             f"takes: {rows}")
 
 
 def random_weights(model, seed):
@@ -2940,6 +3188,48 @@ def median_run(runs):
     return sorted(runs, key=lambda r: r["wall_s"])[len(runs) // 2]
 
 
+def serving_ab(torch, runs):
+    """The ``--serving-ab`` mode: the paged bf16 run of ``phase_serving``
+    and the int8 run of ``phase_serving_int8``, ``runs`` times each, from
+    the package on ``sys.path``; one JSON line a run."""
+    import shutil
+    import tempfile
+
+    from paddle_hackathon_tpu_torch.inference import (ServingEngine,
+                                                      load_for_serving,
+                                                      save_for_serving)
+    from paddle_hackathon_tpu_torch.models import GPTForCausalLM, gpt_config
+    from paddle_hackathon_tpu_torch.utils import load_jax_state
+
+    cfg = gpt_config("gpt2-small-en", hidden_dropout_prob=0.0,
+                     attention_dropout_prob=0.0)
+    bf16 = GPTForCausalLM(cfg, device=DEV, dtype="bfloat16")
+    load_jax_state(bf16, random_weights(bf16, seed=0))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ab_")
+    try:
+        save_for_serving(bf16, tmp, quant="int8")
+        int8 = load_for_serving(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    engines = {
+        "paged": ServingEngine(bf16, cache_mode="paged", max_slots=16,
+                               max_len=512, page_size=16, num_pages=257,
+                               chunk=32, decode_window=32),
+        "int8": ServingEngine(int8, **SERVE_INT8)}
+    rng = np.random.RandomState(0)
+    prompts = {"paged": [rng.randint(0, cfg.vocab_size, 64).astype(np.int32)
+                         for _ in range(16)]}
+    prompts["int8"] = prompts["paged"][:8]
+    for e in engines.values():                           # warm-up
+        e.generate(rng.randint(0, cfg.vocab_size, 64), 2)
+        e.drop_prefix_cache()
+    for i in range(runs):
+        for kind, e in engines.items():
+            r = serve_run(torch, e, prompts[kind], 128)
+            e.drop_prefix_cache()
+            emit({"phase": "serving_ab", "engine": kind, "run": i, **r})
+
+
 def phase_serving_int8(torch, qm):
     import shutil
     import tempfile
@@ -3251,15 +3541,14 @@ def wide_fwd_name(ln):
     return f"fwd_tc<{dtype},{'K1' if m.group(3) == '1' else 'K2'}>"
 
 
-def wide_fwd_build(_build, libs):
-    """The tensor-core forwards past 256 (K1 bf16/f16, K2 bf16/f16, K2
-    f32: 5): registers, spills, ptxas performance notes and, where
-    cuobjdump is found, their HGMMA (wgmma) counts, above 0 for all 5."""
+def wide_tc_build(_build, libs, names, name, count, what):
+    """``count`` tensor-core kernels that ``name`` picks out of the
+    libraries ``names``: registers, spills, ptxas performance notes and,
+    where cuobjdump is found, their HGMMA (wgmma) counts, above 0 for
+    each."""
     import shutil
     from pathlib import Path
-    names = ["flash_attention_packed_wide", "flash_attention_wide_h",
-             "flash_attention_wide_f32"]
-    out = ptxas_notes(_build, names, wide_fwd_name)
+    out = ptxas_notes(_build, names, name)
     cuobjdump = shutil.which("cuobjdump") or str(
         Path(_build._nvcc()).parent / "cuobjdump")
     hgmma = None
@@ -3272,15 +3561,47 @@ def wide_fwd_build(_build, libs):
             cur = None
             for ln in sass.splitlines():
                 if "Function :" in ln:
-                    cur = wide_fwd_name(ln)
+                    cur = name(ln)
                     if cur:
                         hgmma[cur] = 0
                 elif cur and "HGMMA" in ln:
                     hgmma[cur] += 1
-        if len(hgmma) != 5 or not all(hgmma.values()):
-            raise AssertionError(f"wide tensor-core forwards without HGMMA "
-                                 f"(or missing from the SASS): {hgmma}")
+        if len(hgmma) != count or not all(hgmma.values()):
+            raise AssertionError(f"{what} without HGMMA (or missing from "
+                                 f"the SASS): {hgmma}")
     return {"kernels": out, "hgmma": hgmma}
+
+
+def wide_fwd_build(_build, libs):
+    """The tensor-core forwards past 256 (K1 bf16/f16, K2 bf16/f16, K2
+    f32: 5)."""
+    return wide_tc_build(_build, libs, [
+        "flash_attention_packed_wide", "flash_attention_wide_h",
+        "flash_attention_wide_f32"], wide_fwd_name, 5,
+        "wide tensor-core forwards")
+
+
+WIDE_BWD_KERNEL = re.compile(r"4wide(7dkdv_tc|5dq_tc)I"
+                             r"(13__nv_bfloat16|6__half)Lb([01])E")
+
+
+def wide_bwd_name(ln):
+    """``dkdv_tc<bf16,K1>`` / ``dq_tc<f16,K2>`` from a line naming a
+    tensor-core backward kernel past 256, or None."""
+    m = WIDE_BWD_KERNEL.search(ln)
+    if not m:
+        return None
+    dtype = "bf16" if "bfloat16" in m.group(2) else "f16"
+    kernel = m.group(1).lstrip("0123456789")
+    return f"{kernel}<{dtype},{'K1' if m.group(3) == '1' else 'K2'}>"
+
+
+def wide_bwd_build(_build, libs):
+    """The tensor-core dK/dV and dQ kernels past 256 (K1 and K2,
+    bf16/f16: 8)."""
+    return wide_tc_build(_build, libs, [
+        "flash_attention_packed_wide", "flash_attention_wide_h"],
+        wide_bwd_name, 8, "wide tensor-core backward kernels")
 
 
 K4_KERNEL = re.compile(r"(quant_matmul_(?:tc|f32)_kernel)I"
@@ -3336,6 +3657,14 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if "--serving-ab" in sys.argv:
+        args = sys.argv[1:]
+        if "--root" in args:
+            sys.path.insert(0, args[args.index("--root") + 1])
+        emit({"phase": "device", "nvidia_smi": nvidia_smi(),
+              "root": sys.path[0]})
+        serving_ab(torch, int(args[args.index("--serving-ab") + 1]))
+        return 0
     from paddle_hackathon_tpu_torch.incubate.nn.kernels import _build
     from paddle_hackathon_tpu_torch.incubate.nn.kernels import \
         flash_attention as fa
@@ -3366,7 +3695,8 @@ def main():
           "k2_3xtf32": k2_tc_build(_build, libs),
           "k3_split_decode": k3_split_build(_build),
           "k4": k4_build(_build, libs),
-          "wide_fwd_tc": wide_fwd_build(_build, libs)})
+          "wide_fwd_tc": wide_fwd_build(_build, libs),
+          "wide_bwd_tc": wide_bwd_build(_build, libs)})
 
     flash = phase_flash(torch, fap, fa)
     flash_launches = phase_train(torch, fap)
@@ -3377,6 +3707,7 @@ def main():
                                name="wide512")
     wide512 = wide512_times(torch, fa, fap, pa)
     emit({"phase": "wide512_times", **wide512})
+    phase_dispatch_repairs(torch, fap, pa, qm, wo)
     k3_decode, k3_tiles = phase_kernel(torch, pa)
     eng, prompts, launches = phase_serving(torch, pa)
     phase_profile(torch, eng, prompts)
@@ -3425,6 +3756,33 @@ def main():
                         f"wide512 GPT's attention); library: SDPA, default "
                         f"backend; bound: the tensor cores "
                         f"({'bf16' if fam == 'bf16' else '3xTF32'})"})
+    # the tensor-core backward past 256: K1's launches from the wide512
+    # GPT's bf16 flash series, K2's from three passes through the public
+    # flash_attention at its attention; times at that attention
+    for kname, tag, k, launched, file, line in (
+            ("flash_packed_dkdv_wide", "k1_bf16", "dkdv",
+             wide_launches["bf16"]["dkdv_wide_tc"],
+             "flash_attention_packed.py", 478),
+            ("flash_packed_dq_wide", "k1_bf16", "dq",
+             wide_launches["bf16"]["dq_wide_tc"],
+             "flash_attention_packed.py", 511),
+            ("flash_bhd_dkdv_wide_bf16", "k2_bf16", "dkdv",
+             wide512["k2_bf16"]["api_launches"]["dkdv_wide_tc"],
+             "flash_attention.py", 525),
+            ("flash_bhd_dq_wide_bf16", "k2_bf16", "dq",
+             wide512["k2_bf16"]["api_launches"]["dq_wide_tc"],
+             "flash_attention.py", 556)):
+        row = wide512[tag][k]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": src + "flash_wide.cuh",
+            "replaces": ref + f"{file}:{line}", "launches": launched,
+            "max_abs_err": row["max_abs_err"],
+            **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")},
+            "timed_as": "bf16, b=2, H=2, s=1024, D=512, causal (the wide512 "
+                        "GPT's attention); plain: the plain dK/dV + dQ "
+                        "pair; library: SDPA's backward (dq, dk, dv), "
+                        "default backend; bound: bf16 tensor cores"})
     kernels.append({"name": "paged_decode_split", "route": "cuda",
                     "source": src + "paged_attention.cu",
                     "replaces": ref + "paged_attention.py:175",

@@ -49,12 +49,16 @@
 //     warp's rows meet the diagonal or a ragged end.
 //   * f32 forward, dK/dV and dQ: TMA-fed 3xTF32 wgmma, warp-specialised
 //     (the sections "f32 dK/dV and dQ on the tensor cores" and "f32 forward
-//     on the tensor cores" below), where TMA can address the rows (D % 4 ==
-//     0); other widths run the column-chunked CUDA-core kernels of
-//     flash_wide.cuh.  Past 256 the forward runs on the tensor cores where
-//     TMA can address the rows (wide::fwd_tc_f32 below for f32,
-//     flash_wide.cuh's wide::fwd_tc for bf16/f16), dK/dV and dQ on the
-//     CUDA cores.
+//     on the tensor cores" below).  Past 256 the forward runs on the tensor
+//     cores too (wide::fwd_tc_f32 below for f32, flash_wide.cuh's
+//     wide::fwd_tc for bf16/f16), as do bf16/f16 dK/dV and dQ
+//     (flash_wide.cuh's wide::dkdv_tc, wide::dq_tc); f32 dK/dV and dQ past
+//     256 run the column-chunked CUDA-core kernels of flash_wide.cuh.
+//     Every f32 kernel on the tensor cores, and every bf16/f16 one past
+//     256, takes rows TMA can address (D % 4 == 0 in f32, D % 8 == 0 in
+//     bf16/f16): the wrapper zero-pads other rows to that width (zero
+//     columns of q, k and dO add exact zeros to every score) and cuts the
+//     outputs back, so each C entry point refuses (-1) such rows.
 //   * causal tiles above the diagonal are never loaded: fwd and dq stop at
 //     the diagonal kv tile, dkdv starts at the diagonal q tile (a kv tile
 //     past the last q row gets zero gradients); the heaviest tiles first.
@@ -2054,9 +2058,9 @@ int fwd_wide_tc(const Ptrs& a, const Geo& g, cudaStream_t st) {
   }
 }
 
-// f32 forward, dK/dV and dQ: rows TMA can address (D % 4 == 0, AL) run
-// the 3xTF32 tensor-core kernels; other widths the column-chunked
-// CUDA-core kernels.
+// f32 forward, dK/dV and dQ up to 256: rows TMA can address (D % 4 == 0,
+// AL) run the 3xTF32 tensor-core kernels; other rows are refused (the
+// wrapper pads them).
 template <bool AL>
 int fwd_f32(const Ptrs& a, const Geo& g, cudaStream_t st) {
   if constexpr (AL) {
@@ -2071,7 +2075,7 @@ int fwd_f32(const Ptrs& a, const Geo& g, cudaStream_t st) {
                   static_cast<float*>(a.out), static_cast<float*>(a.lse),
                   static_cast<const int32_t*>(a.seed), g);
   } else {
-    return wide::launch_fwd<float>(wide_args(a, g), st);
+    return -1;
   }
 }
 template <bool AL>
@@ -2089,7 +2093,7 @@ int dkdv_f32(const Ptrs& a, const Geo& g, cudaStream_t st) {
                   static_cast<const int32_t*>(a.seed),
                   static_cast<float*>(a.dk), static_cast<float*>(a.dv), g);
   } else {
-    return wide::launch_dkdv<float, false>(wide_args(a, g), st);
+    return -1;
   }
 }
 template <bool AL>
@@ -2107,7 +2111,7 @@ int dq_f32(const Ptrs& a, const Geo& g, cudaStream_t st) {
                   static_cast<const int32_t*>(a.seed),
                   static_cast<float*>(a.dq), g);
   } else {
-    return wide::launch_dq<float, false>(wide_args(a, g), st);
+    return -1;
   }
 }
 
@@ -2137,17 +2141,27 @@ int dispatch(int dtype, const Ptrs& a, const Geo& g, void* stream) {
   }
 }
 
-// The three kernels as dispatch's F: past 256 the forward on the tensor
-// cores where TMA can address the rows (fwd_wide_tc), else the
-// column-chunked CUDA-core kernels; at 256 and below f32 on the tensor
-// cores (3xTF32) where TMA can address the rows, the bf16/f16 instances on
-// mma.sync.
+// bf16/f16 dK/dV (dq false) or dQ past 256 on the tensor cores
+// (flash_wide.cuh's dkdv_tc / dq_tc over the maps of q, k, v and dO).
+template <typename T>
+int bwd_wide_tc(bool dq, const Ptrs& a, const Geo& g, cudaStream_t st) {
+  CUtensorMap m[4];
+  const int err = tc_maps<T>(m, a, g);
+  if (err) return err;
+  return wide::launch_bwd_tc<T, false>(dq, m[0], m[1], m[2], m[3],
+                                       wide_args(a, g), 0, 0, 0, st);
+}
+
+// The three kernels as dispatch's F.  Past 256: the forward on the tensor
+// cores (fwd_wide_tc), bf16/f16 dK/dV and dQ on the tensor cores
+// (bwd_wide_tc), f32 dK/dV and dQ on the CUDA cores (any D); at 256 and
+// below f32 on the tensor cores (3xTF32), the bf16/f16 instances on
+// mma.sync (any D).  A row TMA cannot address is refused where the route
+// needs TMA.
 template <typename T, bool AL> struct Fwd {
   static int run(const Ptrs& a, const Geo& g, cudaStream_t st) {
-    if constexpr (kDP == 0 && AL)
-      return fwd_wide_tc<T>(a, g, st);
-    else if constexpr (kDP == 0)
-      return wide::launch_fwd<T>(wide_args(a, g), st);
+    if constexpr (kDP == 0)
+      return AL ? fwd_wide_tc<T>(a, g, st) : -1;
     else if constexpr (std::is_same<T, float>::value)
       return fwd_f32<AL>(a, g, st);
     else
@@ -2156,8 +2170,10 @@ template <typename T, bool AL> struct Fwd {
 };
 template <typename T, bool AL> struct Dkdv {
   static int run(const Ptrs& a, const Geo& g, cudaStream_t st) {
-    if constexpr (kDP == 0)
-      return wide::launch_dkdv<T, false>(wide_args(a, g), st);
+    if constexpr (kDP == 0 && std::is_same<T, float>::value)
+      return wide::launch_dkdv<float>(wide_args(a, g), st);
+    else if constexpr (kDP == 0)
+      return AL ? bwd_wide_tc<T>(false, a, g, st) : -1;
     else if constexpr (std::is_same<T, float>::value)
       return dkdv_f32<AL>(a, g, st);
     else
@@ -2166,8 +2182,10 @@ template <typename T, bool AL> struct Dkdv {
 };
 template <typename T, bool AL> struct Dq {
   static int run(const Ptrs& a, const Geo& g, cudaStream_t st) {
-    if constexpr (kDP == 0)
-      return wide::launch_dq<T, false>(wide_args(a, g), st);
+    if constexpr (kDP == 0 && std::is_same<T, float>::value)
+      return wide::launch_dq<float>(wide_args(a, g), st);
+    else if constexpr (kDP == 0)
+      return AL ? bwd_wide_tc<T>(true, a, g, st) : -1;
     else if constexpr (std::is_same<T, float>::value)
       return dq_f32<AL>(a, g, st);
     else
@@ -2236,19 +2254,33 @@ int flash_bhd_dkdv(int dtype, const void* q, const void* k, const void* v,
 }
 
 // The forward kernel this library launches for dtype and head width D:
-// 0 bhd_fwd_mma (bf16/f16 up to 256), 1 bhd_fwd_tc (f32 up to 256, rows TMA
-// addresses), 2 the tensor-core forward past 256 (wide::fwd_tc, or
-// wide::fwd_tc_f32 for f32), 3 the column-chunked CUDA-core forward
-// (wide::fwd: rows TMA cannot address, f32 at any width, bf16/f16 past
-// 256); -1 a width or dtype this library does not take.
+// 0 bhd_fwd_mma (bf16/f16 up to 256), 1 bhd_fwd_tc (f32 up to 256), 2 the
+// tensor-core forward past 256 (wide::fwd_tc, or wide::fwd_tc_f32 for
+// f32); -1 a width or dtype this library does not take, or a row TMA
+// cannot address where the kernel needs TMA.
 int flash_bhd_fwd_route(int dtype, int D) {
   const int lo = kDP == 64 ? 1 : kDP / 2 + 1;
   if (dtype < 0 || dtype > 2 || (dtype == 0) != kF32 || D < 1 ||
       (kDP > 0 && (D < lo || D > kDP)))
     return -1;
   const bool al = (D * (kF32 ? 4 : 2)) % 16 == 0;
-  if (kDP == 0) return al ? 2 : 3;
-  if (kF32) return al ? 1 : 3;
+  if (kDP == 0) return al ? 2 : -1;
+  if (kF32) return al ? 1 : -1;
+  return 0;
+}
+
+// The dK/dV and dQ kernels this library launches for dtype and width D:
+// 0 bhd_*_mma (bf16/f16 up to 256), 1 bhd_*_tc (f32 up to 256), 2
+// wide::dkdv_tc / dq_tc (bf16/f16 past 256), 3 the CUDA-core wide::dkdv /
+// dq (f32 past 256, any D); -1 as flash_bhd_fwd_route.
+int flash_bhd_bwd_route(int dtype, int D) {
+  const int lo = kDP == 64 ? 1 : kDP / 2 + 1;
+  if (dtype < 0 || dtype > 2 || (dtype == 0) != kF32 || D < 1 ||
+      (kDP > 0 && (D < lo || D > kDP)))
+    return -1;
+  const bool al = (D * (kF32 ? 4 : 2)) % 16 == 0;
+  if (kDP == 0) return kF32 ? 3 : al ? 2 : -1;
+  if (kF32) return al ? 1 : -1;
   return 0;
 }
 
@@ -2262,8 +2294,6 @@ int flash_bhd_fwd_smem(int dtype, int D) {
       return (int)tcf::smem<(kDP > 0 ? kDP : 64)>();
     case 2:
       return kF32 ? (int)wide::tcf32::kSmem : (int)wide::tcw::smem_bytes(D);
-    case 3:
-      return (int)wide::kSmemFwd;
     default:
       return -1;
   }

@@ -80,9 +80,9 @@
 //     256 (D a multiple of 8, as far as the JAX plan goes) the library
 //     built with -DFLASH_DP=0 runs the column-chunked kernels of
 //     flash_wide.cuh on the packed layout, the chunk count fixed at run
-//     time: the forward on the tensor cores (fwd_tc: TMA and wgmma, 256
-//     output columns a block, S recomputed per chunk), dK/dV and dQ on
-//     the CUDA cores.
+//     time, all on TMA and wgmma with 256 output columns a block: the
+//     forward fwd_tc (S recomputed per chunk), dK/dV dkdv_tc and dQ dq_tc
+//     (the scores split between two warpgroups, recomputed per chunk).
 //   * the elementwise pass is one straight-line block per variant (mask,
 //     dropout as template flags) with 2^x on the SFU: a branch per score
 //     keeps the 32 exponentials of a thread from overlapping.
@@ -1075,7 +1075,7 @@ flash_packed_dq_kernel(const __grid_constant__ CUtensorMap qkv_map,
 size_t smem_bytes(int kernel) {
   if constexpr (kDP == 0)
     return kernel == 0 ? wide::tcw::smem_bytes(wide::tcw::kResMaxD)
-                       : kernel == 1 ? wide::kSmemDkdv : wide::kSmemDq;
+                       : wide::tcb::smem_bytes(kernel == 2);
   else
     return 1024 + (kernel == 0   ? FwdSmem<kDP>::kBytes
                    : kernel == 1 ? DkdvSmem<kDP>::kBytes
@@ -1084,9 +1084,7 @@ size_t smem_bytes(int kernel) {
 
 // The column-chunked kernels' arguments for the packed layout: q, k and v
 // at column offsets 0, H*D and 2*H*D of qkv's rows (3*H*D elements), O and
-// dO rows of H*D; dq, dk, dv the same slices of dqkv.  They round q *
-// sm_scale (and k * sm_scale for dQ) to T in every case, which is what
-// the folded path computes where it folds.
+// dO rows of H*D; dq, dk, dv the same slices of dqkv.
 template <typename T>
 wide::Args packed_args(const void* qkv, const void* dout, const void* lse,
                        const void* delta, const void* seed, void* out,
@@ -1179,9 +1177,9 @@ int launch_bwd_tma(bool dkdv, const void* qkv, const void* dout,
 }
 
 // This library's kernels: the TMA / wgmma ones of its width, or (kDP 0)
-// the column-chunked ones: the forward on the tensor cores
-// (flash_wide.cuh's fwd_tc, over the qkv map as (B, S, 3H, D): q, k and v
-// at head coordinates h, H + h, 2H + h), dK/dV and dQ on the CUDA cores.
+// the column-chunked ones of flash_wide.cuh (fwd_tc, dkdv_tc, dq_tc, over
+// the qkv map as (B, S, 3H, D): q, k and v at head coordinates h, H + h,
+// 2H + h; dO's as (B, S, H, D)).
 template <typename T>
 int launch_fwd(const void* qkv, void* out, void* lse, const void* seed,
                int B, const Geo& g, int fold, cudaStream_t st) {
@@ -1204,10 +1202,16 @@ int launch_bwd(bool dkdv, const void* qkv, const void* dout, const void* lse,
                const void* delta, const void* seed, void* dqkv, int B,
                const Geo& g, int fold, cudaStream_t st) {
   if constexpr (kDP == 0) {
-    const wide::Args w = packed_args<T>(qkv, dout, lse, delta, seed, nullptr,
-                                        nullptr, dqkv, B, g);
-    return dkdv ? wide::launch_dkdv<T, true>(w, st)
-                : wide::launch_dq<T, true>(w, st);
+    CUtensorMap qkv_map, do_map;
+    int err = hopper::make_map_bshd<T>(&qkv_map, qkv, B, g.S, 3 * g.H, g.D);
+    if (err) return err;
+    err = hopper::make_map_bshd<T>(&do_map, dout, B, g.S, g.H, g.D);
+    if (err) return err;
+    return wide::launch_bwd_tc<T, true>(
+        !dkdv, qkv_map, qkv_map, qkv_map, do_map,
+        packed_args<T>(qkv, dout, lse, delta, seed, nullptr, nullptr, dqkv,
+                       B, g),
+        g.H, 2 * g.H, fold, st);
   } else {
     return launch_bwd_tma<T>(dkdv, qkv, dout, lse, delta, seed, dqkv, B, g,
                              fold, st);

@@ -1,13 +1,12 @@
 // Flash attention at any head width, column-chunked: forward, dK/dV and
 // dQ for K2's (BH, S, D) tensors and K1's packed (b, s, 3*H*D) projection
 // alike (flash_attention.cu and flash_attention_packed.cu include it), for
-// head widths past the 256-wide instances.  The forward on the tensor
-// cores, fwd_tc (bf16/f16; the f32 one is flash_attention.cu's
-// fwd_tc_f32), takes every row TMA can address; it is described at its
-// section below.  The CUDA-core kernels of this first part run dK/dV and
-// dQ past 256, and the forward where TMA cannot address a row: K2's f32
-// rows with D % 4 != 0 at any width, bf16/f16 rows with D % 8 != 0 past
-// 256.
+// head widths past the 256-wide instances.  Every bf16/f16 kernel here runs
+// on the tensor cores over rows TMA can address (D % 8 == 0; K2's wrapper
+// zero-pads other rows): the forward fwd_tc and the backward dkdv_tc /
+// dq_tc, each described at its section below (the f32 forward is
+// flash_attention.cu's fwd_tc_f32).  The CUDA-core kernels of this first
+// part run K2's f32 dK/dV and dQ past 256 (any D).
 //
 // Design of the CUDA-core kernels (right first; no preset reaches these
 // widths):
@@ -15,19 +14,14 @@
 //     and bh folded into grid.x (so any BH), the chunk count ceil(D / 128)
 //     is grid.z, fixed at run time, so one library serves every width;
 //   * each block contracts the scores over the whole width in 128-column
-//     slices of q and k (the tiles converted to f32 in shared memory, the
+//     slices of the operands (the tiles in f32 in shared memory, the
 //     products f32 FMAs, each thread a 4 x 4 block of the 64 x 64 score
-//     tile), and keeps one 128-column chunk of O, dK/dV or dQ in
-//     registers: the scores are recomputed per chunk;
-//   * the backward's slice loop ends on the block's own chunk, whose q, dO
-//     (dK/dV) or k (dQ) tiles then feed the output products; the forward
-//     sums its slices in one order for every chunk, so the chunks of a row
-//     share one max and one sum, and chunk 0 writes the LSE;
-//   * numerics as the tensor-core instances: f32 scores and softmax,
-//     masked scores at -1e30, P and dS rounded to T before their products;
-//     PACKED (K1's dK/dV and dQ) rounds q * sm_scale (and k * sm_scale for
-//     dQ) to T, as the JAX packed kernels, where K2 scales its f32 scores
-//     and dS.
+//     tile), and keeps one 128-column chunk of dK/dV or dQ in registers:
+//     the scores are recomputed per chunk;
+//   * the slice loop ends on the block's own chunk, whose q and dO (dK/dV)
+//     or k (dQ) tiles then feed the output products;
+//   * numerics as the tensor-core instances: f32 scores scaled by sm_scale,
+//     P from the LSE, masked to 0, dS = P (dP - Δ) sm_scale.
 // One summation order per output, no atomics.  Bound: operations, as the
 // tensor-core instances, here on the CUDA cores (67 TFLOP/s f32).
 
@@ -77,20 +71,15 @@ __device__ __forceinline__ size_t head_at(const Lay& l, int heads, int bh) {
 
 // Rows row0..row0+63, columns col0..col0+127, of head `base` (row stride
 // rs) into a [64][kLd] f32 tile; rows past n and columns past D are zero.
-// mul != 1: each element times mul, rounded to T (K1's scaled q and k).
 template <typename T>
-__device__ __forceinline__ void load(float* tile, const T* base, long long rs,
-                                     int row0, int n, int col0, int D,
-                                     float mul, int tid) {
+__device__ __forceinline__ void load(float* tile, const T* base,
+                                     long long rs, int row0, int n, int col0,
+                                     int D, int tid) {
   for (int e = tid; e < kTile * kCw; e += kThreads) {
     const int r = e / kCw, c = e - r * kCw;
     const int row = row0 + r, col = col0 + c;
-    float x = 0.f;
-    if (row < n && col < D) {
-      x = to_f(base[(size_t)row * rs + col]);
-      if (mul != 1.f) x = round_t<T>(x * mul);
-    }
-    tile[r * kLd + c] = x;
+    tile[r * kLd + c] =
+        row < n && col < D ? to_f(base[(size_t)row * rs + col]) : 0.f;
   }
 }
 
@@ -164,30 +153,17 @@ __device__ __forceinline__ void pv_tile(float (&acc)[4][W / 16],
   }
 }
 
-// max / sum over the 16 threads of a row group (lanes that share ty)
-__device__ __forceinline__ float row_max16(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float row_sum16(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// this thread's 4 x W/16 block (rows row0 + i, columns c0 + tx*4 + 64u +
-// t) to T, rows below n and columns below D
-template <typename T, int W = kCw>
+// this thread's 4 x 8 block (rows row0 + i, columns c0 + tx*4 + 64u + t)
+// to T, rows below n and columns below D
+template <typename T>
 __device__ __forceinline__ void store(T* base, long long rs,
-                                      const float (&acc)[4][W / 16], int row0,
+                                      const float (&acc)[4][8], int row0,
                                       int n, int D, int tx, int c0) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     if (row0 + i >= n) continue;
 #pragma unroll
-    for (int u = 0; u < W / 64; ++u)
+    for (int u = 0; u < 2; ++u)
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
         const int d = c0 + tx * 4 + 64 * u + t;
@@ -202,120 +178,22 @@ __device__ __forceinline__ int kv_tiles_of(int qt, const Args& a) {
   return a.causal ? min(qt + 1, n_all) : n_all;
 }
 
-// O chunk blockIdx.z (and, from chunk 0, the LSE) of one q tile: K2's rows
-// that TMA cannot address (f32 with D % 4 != 0, bf16/f16 with D % 8 != 0);
-// every other row past the tensor-core instances runs fwd_tc below.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) fwd(Args a) {
-  const int nz = gridDim.z, z = blockIdx.z;
-  const int n_t = row_tiles(a.SQ), bh = blockIdx.x / n_t;
-  const int qt = n_t - 1 - (blockIdx.x - bh * n_t);  // heavy causal first
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const T* qb = static_cast<const T*>(a.q) + head_at(a.lq, a.heads, bh);
-  const T* kb = static_cast<const T*>(a.k) + head_at(a.lkv, a.heads, bh);
-  const T* vb = static_cast<const T*>(a.v) + head_at(a.lkv, a.heads, bh);
-  const int32_t seed = a.dropout ? a.seed[0] : 0;
-  const float s_log2 = a.scale * kLog2e;
-
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);
-  float* k_s = q_s + kChunkEl;
-  float* v_s = k_s + kChunkEl;
-  float* p_s = v_s + kChunkEl;
-
-  const int q0 = qt * kTile;
-  const int n_kv = kv_tiles_of(qt, a);
-  float acc[4][8], m_r[4], l_r[4];
-  int rows[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
-    m_r[i] = kNegInf;
-    l_r[i] = 0.f;
-    rows[i] = q0 + ty * 4 + i;
-  }
-  for (int j = 0; j < n_kv; ++j) {
-    const int k0 = j * kTile;
-    float s[4][4];
-    for (int t = 0; t < nz; ++t) {            // one order for every chunk
-      __syncthreads();                        // the last slice's readers
-      load<T>(q_s, qb, a.lq.rs, q0, a.SQ, t * kCw, a.D, 1.f, tid);
-      load<T>(k_s, kb, a.lkv.rs, k0, a.SKV, t * kCw, a.D, 1.f, tid);
-      __syncthreads();
-      dot_tile<kCw, kLd>(s, q_s, k_s, ty, tx, t > 0);
-    }
-    const bool need_mask = k0 + kTile > a.SKV ||
-                           (a.causal && k0 + kTile - 1 > q0 + ty * 4);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        float x = s[i][jj] * s_log2;
-        if (need_mask) {
-          const int col = k0 + tx + 16 * jj;
-          x = (col < a.SKV && (!a.causal || col <= rows[i])) ? x : kNegInf;
-        }
-        s[i][jj] = x;
-        mx = fmaxf(mx, x);
-      }
-      mx = row_max16(mx);
-      const float m_next = fmaxf(m_r[i], mx);
-      const float alpha = exp2f(m_r[i] - m_next);
-      m_r[i] = m_next;
-      l_r[i] *= alpha;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acc[i][c] *= alpha;
-      // every valid row sees a valid score in each tile it visits
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int cl = tx + 16 * jj;
-        float p = exp2f(s[i][jj] - m_next);
-        l_r[i] += p;
-        if (a.dropout)
-          p = keep_elem(seed, bh, rows[i], k0 + cl, a.thresh)
-                  ? p / a.keep_prob : 0.f;
-        p_s[(ty * 4 + i) * kPLd + cl] = round_t<T>(p);
-      }
-    }
-    load<T>(v_s, vb, a.lkv.rs, k0, a.SKV, z * kCw, a.D, 1.f, tid);
-    __syncthreads();
-    // the next tile's slice loop syncs before p_s and v_s are rewritten
-    pv_tile<kCw, kLd>(acc, p_s, v_s, ty, tx);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float l = row_sum16(l_r[i]);
-    if (z == 0 && tx == 0 && rows[i] < a.SQ)
-      a.lse[(size_t)bh * a.SQ + rows[i]] =
-          m_r[i] * kLn2 + logf(fmaxf(l, 1e-30f));
-    const float ld = l == 0.f ? 1.f : l;      // the JAX guard
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[i][c] /= ld;
-  }
-  store<T>(static_cast<T*>(a.out) + head_at(a.lo, a.heads, bh), a.lo.rs, acc,
-           q0 + ty * 4, a.SQ, a.D, tx, z * kCw);
-}
-
 // dK and dV chunk blockIdx.z of one kv tile, over the q tiles from the
-// diagonal
-template <typename T, bool PACKED>
+// diagonal (instantiated for K2's f32 alone)
+template <typename T>
 __global__ void __launch_bounds__(kThreads) dkdv(Args a) {
   const int nz = gridDim.z, z = blockIdx.z;
   const int n_t = row_tiles(a.SKV), bh = blockIdx.x / n_t;
   const int kt_i = blockIdx.x - bh * n_t;     // causal: most q tiles first
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const T* qb = static_cast<const T*>(a.q) + head_at(a.lq, a.heads, bh);
-  const T* kb = static_cast<const T*>(a.k) + head_at(a.lkv, a.heads, bh);
-  const T* vb = static_cast<const T*>(a.v) + head_at(a.lkv, a.heads, bh);
-  const T* db = static_cast<const T*>(a.dout) + head_at(a.lo, a.heads, bh);
+  const T* qb = static_cast<const T*>(a.q) + head_at(a.lq, 1, bh);
+  const T* kb = static_cast<const T*>(a.k) + head_at(a.lkv, 1, bh);
+  const T* vb = static_cast<const T*>(a.v) + head_at(a.lkv, 1, bh);
+  const T* db = static_cast<const T*>(a.dout) + head_at(a.lo, 1, bh);
   const float* lse_bh = a.lse_in + (size_t)bh * a.SQ;
   const float* delta_bh = a.delta + (size_t)bh * a.SQ;
   const int32_t seed = a.dropout ? a.seed[0] : 0;
-  const float sc = round_t<T>(a.scale);
-  const float s_log2 = PACKED ? kLog2e : a.scale * kLog2e;
-  const float ds_mul = PACKED ? 1.f : a.scale;
+  const float s_log2 = a.scale * kLog2e;
 
   extern __shared__ float4 smem4[];
   float* k_s = reinterpret_cast<float*>(smem4);   // one chunk each
@@ -344,10 +222,10 @@ __global__ void __launch_bounds__(kThreads) dkdv(Args a) {
     for (int t = 0; t < nz; ++t) {            // ends on chunk z
       const int col0 = ((z + 1 + t) % nz) * kCw;
       __syncthreads();                        // the last chunk's readers
-      load<T>(k_s, kb, a.lkv.rs, k0, a.SKV, col0, a.D, 1.f, tid);
-      load<T>(v_s, vb, a.lkv.rs, k0, a.SKV, col0, a.D, 1.f, tid);
-      load<T>(q_s, qb, a.lq.rs, q0, a.SQ, col0, a.D, PACKED ? sc : 1.f, tid);
-      load<T>(do_s, db, a.lo.rs, q0, a.SQ, col0, a.D, 1.f, tid);
+      load(k_s, kb, a.lkv.rs, k0, a.SKV, col0, a.D, tid);
+      load(v_s, vb, a.lkv.rs, k0, a.SKV, col0, a.D, tid);
+      load(q_s, qb, a.lq.rs, q0, a.SQ, col0, a.D, tid);
+      load(do_s, db, a.lo.rs, q0, a.SQ, col0, a.D, tid);
       if (t == 0 && tid < kTile) {
         const int row = q0 + tid;
         lse_s[tid] = row < a.SQ ? lse_bh[row] * kLog2e : 0.f;
@@ -376,34 +254,33 @@ __global__ void __launch_bounds__(kThreads) dkdv(Args a) {
         }
         pt_s[(ty * 4 + ii) * kPLd + cq] = round_t<T>(ptv);
         ds_s[(ty * 4 + ii) * kPLd + cq] =
-            round_t<T>(pt * (dp - dl_s[cq]) * ds_mul);
+            round_t<T>(pt * (dp - dl_s[cq]) * a.scale);
       }
     __syncthreads();
     // the tiles hold chunk z: dV += drop(P^T) . dO, dK += dS^T . q
     pv_tile<kCw, kLd>(dv, pt_s, do_s, ty, tx);
     pv_tile<kCw, kLd>(dk, ds_s, q_s, ty, tx);
   }
-  store<T>(static_cast<T*>(a.dk) + head_at(a.lkv, a.heads, bh), a.lkv.rs, dk,
-           k0 + ty * 4, a.SKV, a.D, tx, z * kCw);
-  store<T>(static_cast<T*>(a.dv) + head_at(a.lkv, a.heads, bh), a.lkv.rs, dv,
-           k0 + ty * 4, a.SKV, a.D, tx, z * kCw);
+  store(static_cast<T*>(a.dk) + head_at(a.lkv, 1, bh), a.lkv.rs, dk,
+        k0 + ty * 4, a.SKV, a.D, tx, z * kCw);
+  store(static_cast<T*>(a.dv) + head_at(a.lkv, 1, bh), a.lkv.rs, dv,
+        k0 + ty * 4, a.SKV, a.D, tx, z * kCw);
 }
 
 // dQ chunk blockIdx.z of one q tile, over the kv tiles up to the diagonal
-template <typename T, bool PACKED>
+// (instantiated for K2's f32 alone)
+template <typename T>
 __global__ void __launch_bounds__(kThreads) dq(Args a) {
   const int nz = gridDim.z, z = blockIdx.z;
   const int n_t = row_tiles(a.SQ), bh = blockIdx.x / n_t;
   const int qt_i = n_t - 1 - (blockIdx.x - bh * n_t);  // heavy causal first
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const T* qb = static_cast<const T*>(a.q) + head_at(a.lq, a.heads, bh);
-  const T* kb = static_cast<const T*>(a.k) + head_at(a.lkv, a.heads, bh);
-  const T* vb = static_cast<const T*>(a.v) + head_at(a.lkv, a.heads, bh);
-  const T* db = static_cast<const T*>(a.dout) + head_at(a.lo, a.heads, bh);
+  const T* qb = static_cast<const T*>(a.q) + head_at(a.lq, 1, bh);
+  const T* kb = static_cast<const T*>(a.k) + head_at(a.lkv, 1, bh);
+  const T* vb = static_cast<const T*>(a.v) + head_at(a.lkv, 1, bh);
+  const T* db = static_cast<const T*>(a.dout) + head_at(a.lo, 1, bh);
   const int32_t seed = a.dropout ? a.seed[0] : 0;
-  const float sc = round_t<T>(a.scale);
-  const float s_log2 = PACKED ? kLog2e : a.scale * kLog2e;
-  const float ds_mul = PACKED ? 1.f : a.scale;
+  const float s_log2 = a.scale * kLog2e;
 
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);   // one chunk each
@@ -431,10 +308,10 @@ __global__ void __launch_bounds__(kThreads) dq(Args a) {
     for (int t = 0; t < nz; ++t) {            // ends on chunk z
       const int col0 = ((z + 1 + t) % nz) * kCw;
       __syncthreads();                        // the last chunk's readers
-      load<T>(q_s, qb, a.lq.rs, q0, a.SQ, col0, a.D, PACKED ? sc : 1.f, tid);
-      load<T>(do_s, db, a.lo.rs, q0, a.SQ, col0, a.D, 1.f, tid);
-      load<T>(k_s, kb, a.lkv.rs, k0, a.SKV, col0, a.D, 1.f, tid);
-      load<T>(v_s, vb, a.lkv.rs, k0, a.SKV, col0, a.D, 1.f, tid);
+      load(q_s, qb, a.lq.rs, q0, a.SQ, col0, a.D, tid);
+      load(do_s, db, a.lo.rs, q0, a.SQ, col0, a.D, tid);
+      load(k_s, kb, a.lkv.rs, k0, a.SKV, col0, a.D, tid);
+      load(v_s, vb, a.lkv.rs, k0, a.SKV, col0, a.D, tid);
       __syncthreads();
       dot_tile<kCw, kLd>(s, q_s, k_s, ty, tx, t > 0);
       dot_tile<kCw, kLd>(dp, do_s, v_s, ty, tx, t > 0);
@@ -454,18 +331,13 @@ __global__ void __launch_bounds__(kThreads) dq(Args a) {
           d = keep_elem(seed, bh, rows[i], col, a.thresh) ? d / a.keep_prob
                                                           : 0.f;
         ds_s[(ty * 4 + i) * kPLd + tx + 16 * jj] =
-            round_t<T>(p * (d - dl_r[i]) * ds_mul);
+            round_t<T>(p * (d - dl_r[i]) * a.scale);
       }
     __syncthreads();
-    if (PACKED) {                             // dQ takes k * sm_scale in T
-      for (int e = tid; e < kChunkEl; e += kThreads)
-        k_s[e] = round_t<T>(k_s[e] * sc);
-      __syncthreads();
-    }
     pv_tile<kCw, kLd>(dq, ds_s, k_s, ty, tx);   // dQ += dS . k, chunk z
   }
-  store<T>(static_cast<T*>(a.dq) + head_at(a.lq, a.heads, bh), a.lq.rs, dq,
-           q0 + ty * 4, a.SQ, a.D, tx, z * kCw);
+  store(static_cast<T*>(a.dq) + head_at(a.lq, 1, bh), a.lq.rs, dq,
+        q0 + ty * 4, a.SQ, a.D, tx, z * kCw);
 }
 
 // Launches on `st`; cudaGetLastError() after each (0 on success).
@@ -483,23 +355,18 @@ int launch(K kernel, int rows, size_t smem, cudaStream_t st, const Args& a) {
   return (int)cudaGetLastError();
 }
 
-// dynamic shared memory of the forward, dK/dV and dQ kernels
-constexpr size_t kSmemFwd = (3 * kChunkEl + kPEl) * sizeof(float);
+// dynamic shared memory of the dK/dV and dQ kernels
 constexpr size_t kSmemDkdv = (4 * kChunkEl + 2 * kPEl + 2 * kTile) *
                              sizeof(float);
 constexpr size_t kSmemDq = (4 * kChunkEl + kPEl) * sizeof(float);
 
 template <typename T>
-int launch_fwd(const Args& a, cudaStream_t st) {
-  return launch(fwd<T>, a.SQ, kSmemFwd, st, a);
-}
-template <typename T, bool PACKED>
 int launch_dkdv(const Args& a, cudaStream_t st) {
-  return launch(dkdv<T, PACKED>, a.SKV, kSmemDkdv, st, a);
+  return launch(dkdv<T>, a.SKV, kSmemDkdv, st, a);
 }
-template <typename T, bool PACKED>
+template <typename T>
 int launch_dq(const Args& a, cudaStream_t st) {
-  return launch(dq<T, PACKED>, a.SQ, kSmemDq, st, a);
+  return launch(dq<T>, a.SQ, kSmemDq, st, a);
 }
 
 // ===========================================================================
@@ -518,7 +385,7 @@ int launch_dq(const Args& a, cudaStream_t st) {
 //     causal tiles of every head and chunk start first and a tile's chunks
 //     run side by side (they read the same q and k from the L2); at D =
 //     512 two chunks, each recomputing the scores over the whole width (a
-//     2x recompute of S, where the CUDA-core kernel did 4x);
+//     2x recompute of S, where 128-column chunks would do 4x);
 //   * a consumer warpgroup and a producer warp.  The producer issues every
 //     load by TMA (hopper_common.cuh's 4-D maps, 128-byte swizzled [64][64]
 //     boxes) into two mbarrier rings: the k slices (64 columns each, and
@@ -540,7 +407,7 @@ int launch_dq(const Args& a, cudaStream_t st) {
 //     and V read MN-major through the transpose bit (O: 128 f32 registers
 //     a thread).  Every chunk of a row sums the same slices in the same
 //     order, so they share one max and one sum; chunk 0 writes the LSE;
-//   * numerics as fwd: f32 scores and softmax, P rounded to T; K1 (PACKED)
+//   * numerics: f32 scores and softmax, P rounded to T; K1 (PACKED)
 //     takes q * sm_scale rounded to T (the q slices scaled in place, or
 //     with `fold` the scale applied to S in f32, where that is the same),
 //     K2 scales its f32 scores.  One summation order per output, no
@@ -592,11 +459,13 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// bytes of tile times sc, rounded to T, by the 128 consumer threads; then
-// the fence that shows the writes to wgmma, and the consumers' barrier
+// bytes of tile times sc, rounded to T, by the 128 threads of one
+// warpgroup (tid its rank); then the fence that shows the writes to wgmma,
+// and that warpgroup's named barrier `bar`
 template <typename T>
 __device__ __forceinline__ void scale_tile(unsigned char* tile, int bytes,
-                                           float sc, int tid) {
+                                           float sc, int tid,
+                                           int bar = kConsBar) {
   uint4* p = reinterpret_cast<uint4*>(tile);
   for (int c = tid; c < bytes / 16; c += 128) {
     uint4 v = p[c];
@@ -606,7 +475,7 @@ __device__ __forceinline__ void scale_tile(unsigned char* tile, int bytes,
     p[c] = v;
   }
   hopper::fence_async_shared();
-  hopper::named_bar_sync(kConsBar, 128);
+  hopper::named_bar_sync(bar, 128);
 }
 
 // The online softmax of one 64 x 64 tile in accumulator layout (raw f32
@@ -890,6 +759,607 @@ int launch_fwd_tc(const CUtensorMap& q_map, const CUtensorMap& k_map,
   if (err) return err;
   fwd_tc<T, PACKED><<<(unsigned)gx, tcw::kBlock, smem, st>>>(
       q_map, k_map, v_map, a, hk, hv, fold);
+  return (int)cudaGetLastError();
+}
+
+
+// ===========================================================================
+// dK/dV and dQ on the tensor cores, bf16 / f16: dkdv_tc, dq_tc
+// ===========================================================================
+//
+// Replace, past the 256-wide instances, the JAX packed kernels'
+// _bwd_dkdv_kernel and _bwd_dq_kernel (K1, flash_attention_packed.py) and
+// the bhd kernels' (K2, flash_attention.py), for every bf16/f16 row TMA can
+// address (D % 8 == 0; K2's wrapper zero-pads other rows).  What bounds
+// them: the products on the bf16 tensor cores (989 TFLOP/s) -- per (kv
+// tile, q tile) pair S^T and dP^T (dQ: S and dP) over all of D once per
+// 256-column output chunk, dV and dK (dQ) over the chunk -- and, as they
+// stream every operand, the L2's rate.
+//
+// Design:
+//   * one block per (64-row tile, bh, 256-column output chunk), folded into
+//     grid.x with the tile slowest and the heaviest causal tiles first (kv
+//     tile 0 for dK/dV, the last q tile for dQ);
+//   * two consumer warpgroups and a producer warpgroup (384 threads:
+//     ptxas allots registers by warpgroups, 168 a thread, whether the
+//     producer is a warp or a warpgroup, and setmaxnreg does not raise
+//     that, so a consumer's 128 accumulators and 32 scores spill a
+//     little).  One producer thread starts every load by TMA
+//     (hopper_common.cuh's 4-D maps, 128-byte swizzled [64][64] boxes):
+//     per tile of the loop the slices of the two score products into a
+//     ring (an entry is 64 columns of each warpgroup's two operands, four
+//     boxes), then the chunk's output operands (four boxes each) into one
+//     chunk entry.  Nothing stays resident, so every width
+//     up to the JAX plan's 8192 runs in one fixed ~210 KB of shared memory.
+//     Columns past D (a tail slice, a chunk past D) and rows past the
+//     lengths arrive as zeros: K1's packed columns past a head's D are the
+//     map's edge, not the next head;
+//   * the scores are split between the warpgroups instead of recomputed in
+//     each.  dK/dV: warpgroup 0 sums S^T = K.q^T over the slices on wgmma
+//     m64n64k16 (one accumulator over all of D, slice c started while slice
+//     c - 1 completes and releases its entry) and owns the chunk's dV;
+//     warpgroup 1 sums dP^T = V.dO^T and owns dK.  Warpgroup 0 takes P^T =
+//     2^(S^T s_log2 - lse) (masked only on tiles that meet the diagonal or
+//     a ragged end) and hands it to warpgroup 1 through 16 KB of shared
+//     memory in the accumulator layout (each thread reads what the thread
+//     of its rank in the other warpgroup wrote), between two named
+//     barriers.  dV += drop(P^T).dO and dK += dS^T.q run with P and dS
+//     rounded to T as the register A operand and the chunk's dO and q
+//     tiles read MN-major (dV or dK: 128 f32 registers a thread).  dQ:
+//     warpgroup 0 sums S = q.k^T and hands P over; warpgroup 1 sums dP =
+//     dO.V^T, forms dS and owns dQ += dS.k, while warpgroup 0 runs ahead
+//     into the next kv tile.  At D = 512 that is 1.5x the minimal products
+//     (the scores twice), where one warpgroup with 128-column chunks
+//     would do 2.5x;
+//   * numerics as the CUDA-core kernels: f32 scores, P = 2^(s log2e - lse)
+//     masked to 0, dropout by the positional hash at the global bh with P
+//     and dP divided by keep_prob, dS = P (dP - Δ) rounded to T (K2: times
+//     sm_scale); K1 (PACKED) rounds q * sm_scale (dQ: k * sm_scale) to T in
+//     the arrived tiles, or with `fold` applies the scale to S and to the
+//     stored gradient in f32, where that is the same.  One summation order
+//     per output, no atomics.
+namespace tcb {
+
+constexpr int kSub = hopper::kSubBytes;       // one [64][64] box, 8 KB
+constexpr int kNC = 256;                      // output columns of a chunk
+constexpr int kCSubs = kNC / 64;              // boxes of a chunk operand
+constexpr int kStages = 4;                    // slice entries
+constexpr int kEntry = 4 * kSub;              // A0, B0, A1, B1
+constexpr int kBlock = 384;                   // two consumers, a producer
+constexpr int kCons = 256;
+constexpr int kBarWg = 1;                     // + the warpgroup's rank
+constexpr int kBarPFull = 3, kBarPEmpty = 4;  // P handed over
+
+__host__ __device__ inline int slices(int D) { return (D + 63) / 64; }
+__host__ __device__ inline int chunks(int D) { return (D + kNC - 1) / kNC; }
+
+// Byte offsets of the dynamic shared memory (after 1024-byte alignment):
+// the slice ring, the chunk entry (dK/dV: dO and q; dQ: k), P (f32), the
+// barriers full[], empty[], c_full, c_empty.
+struct Smem {
+  int chunk, p, bars, bytes;
+};
+__host__ __device__ inline Smem smem_of(bool dq) {
+  Smem s;
+  s.chunk = kStages * kEntry;
+  s.p = s.chunk + (dq ? 1 : 2) * kCSubs * kSub;
+  s.bars = s.p + kTile * kTile * 4;
+  s.bytes = s.bars + (2 * kStages + 2) * 8;
+  return s;
+}
+inline size_t smem_bytes(bool dq) { return 1024 + (size_t)smem_of(dq).bytes; }
+
+// a box source: map, head coordinate, first row
+struct Src {
+  const CUtensorMap* map;
+  int head, row;
+};
+
+// The producer's loads for one tile of the loop: the slices of both score
+// products (op: A0, B0, A1, B1) into the ring, then n_co chunk operands of
+// output chunk z into the chunk entry.  e counts ring entries, it chunk
+// entries, over the block's whole loop.
+__device__ __forceinline__ void produce(unsigned char* sm, const Smem& L,
+                                        uint64_t* full, uint64_t* empty,
+                                        uint64_t* c_full, uint64_t* c_empty,
+                                        const Src* op, const Src* co,
+                                        int n_co, int n_sl, int z, int b,
+                                        int& e, int it) {
+  for (int c = 0; c < n_sl; ++c, ++e) {
+    const int s = e % kStages;
+    hopper::mbar_wait(empty + s, ((e / kStages) & 1) ^ 1);
+    unsigned char* ent = sm + s * kEntry;
+    hopper::mbar_arrive_expect_tx(full + s, kEntry);
+    for (int o = 0; o < 4; ++o)
+      hopper::tma_load_4d(ent + o * kSub, op[o].map, full + s, 64 * c,
+                          op[o].head, op[o].row, b);
+  }
+  hopper::mbar_wait(c_empty, (it & 1) ^ 1);
+  hopper::mbar_arrive_expect_tx(c_full, n_co * kCSubs * kSub);
+  for (int o = 0; o < n_co; ++o)
+    for (int u = 0; u < kCSubs; ++u)
+      hopper::tma_load_4d(sm + L.chunk + (o * kCSubs + u) * kSub, co[o].map,
+                          c_full, z * kNC + 64 * u, co[o].head, co[o].row, b);
+}
+
+// acc = the sum over the slices of A . B^T (64 x 64; A and B the boxes at
+// a_off and b_off of each ring entry), as fwd_tc sums S.  SCALE: the box at
+// s_off is first scaled in place by sc (K1's q * sm_scale, rounded to T).
+template <typename T, bool SCALE>
+__device__ __forceinline__ void contract(float* acc, unsigned char* sm,
+                                         uint64_t* full, uint64_t* empty,
+                                         int n_sl, int& e, int a_off,
+                                         int b_off, int s_off, float sc,
+                                         int t, int wg) {
+#pragma unroll 1
+  for (int c = 0; c < n_sl; ++c, ++e) {
+    const int s = e % kStages;
+    hopper::mbar_wait(full + s, (e / kStages) & 1);
+    unsigned char* ent = sm + s * kEntry;
+    if (SCALE) tcw::scale_tile<T>(ent + s_off, kSub, sc, t, kBarWg + wg);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::wgmma_ss<T>(acc, hopper::desc_sw128(ent + a_off + kk * 32, 16,
+                                                  1024),
+                          hopper::desc_sw128(ent + b_off + kk * 32, 16, 1024),
+                          c > 0 || kk > 0);
+    hopper::wgmma_commit();
+    if (c > 0) {                              // slice c - 1 read: release
+      hopper::wgmma_wait<1>();
+      hopper::mbar_arrive(empty + (e - 1) % kStages);
+    }
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_acc(acc);
+  hopper::mbar_arrive(empty + (e - 1) % kStages);
+}
+
+// acc[c] += A . (the chunk operand at ch)[:, 64c:64c+64] for the chunk's
+// four boxes: A the rounded P or dS as register fragments, the chunk's
+// rows the contraction (read MN-major)
+template <typename T>
+__device__ __forceinline__ void chunk_product(float (*acc)[32],
+                                              uint32_t (*fr)[4],
+                                              const unsigned char* ch) {
+  tcw::fence_o(acc);
+  tcw::fence_frag(fr);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int c = 0; c < kCSubs; ++c)
+      hopper::wgmma_rs<T>(acc[c], fr[kk],
+                          hopper::desc_sw128(ch + c * kSub + kk * 2048, kSub,
+                                             1024),
+                          1);
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  tcw::fence_o(acc);
+  tcw::fence_frag(fr);
+}
+
+// dK/dV, warpgroup 0: P^T of one tile (kv rows x q columns; raw scores st
+// in the accumulator layout, only read): px <- P^T in f32 (0 where MASK
+// masks), pa <- drop(P^T) rounded to T.  lse_c: the LSE (log2 units) of
+// this thread's 16 q columns.
+template <typename T, bool MASK, bool DROP>
+__device__ __forceinline__ void dkdv_p(const float* st, uint32_t (*pa)[4],
+                                       float* px, const float* lse_c,
+                                       float s_log2, int q0,
+                                       const int* krows, int tq, int t,
+                                       const Args& a, int32_t seed, int bh) {
+#pragma unroll
+  for (int e2 = 0; e2 < 16; ++e2) {
+    float pv[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int e = 2 * e2 + u;
+      const int qpos = q0 + 8 * (e >> 2) + 2 * tq + u;
+      const int kpos = krows[(e >> 1) & 1];
+      float p = tcw::ex2(fmaf(st[e], s_log2, -lse_c[2 * (e >> 2) + u]));
+      if (MASK) p = (qpos < a.SQ && (!a.causal || qpos >= kpos)) ? p : 0.f;
+      px[e * 128 + t] = p;
+      if (DROP)
+        p = keep_elem(seed, bh, qpos, kpos, a.thresh) ? p / a.keep_prob
+                                                      : 0.f;
+      pv[u] = p;
+    }
+    pa[e2 >> 2][e2 & 3] = pack2<T>(pv[0], pv[1]);
+  }
+}
+
+// dK/dV, warpgroup 1: sa <- dS^T = P^T (drop(dP^T) - Δ) ds_mul, rounded to
+// T, from warpgroup 0's P^T (px) and the raw dpt.  dl_c: Δ of this
+// thread's 16 q columns.
+template <typename T, bool DROP>
+__device__ __forceinline__ void dkdv_ds(const float* dpt, uint32_t (*sa)[4],
+                                        const float* px, const float* dl_c,
+                                        float ds_mul, int q0,
+                                        const int* krows, int tq, int t,
+                                        const Args& a, int32_t seed, int bh) {
+#pragma unroll
+  for (int e2 = 0; e2 < 16; ++e2) {
+    float ds[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int e = 2 * e2 + u;
+      float dp = dpt[e];
+      if (DROP)
+        dp = keep_elem(seed, bh, q0 + 8 * (e >> 2) + 2 * tq + u,
+                       krows[(e >> 1) & 1], a.thresh)
+                 ? dp / a.keep_prob : 0.f;
+      ds[u] = px[e * 128 + t] * (dp - dl_c[2 * (e >> 2) + u]) * ds_mul;
+    }
+    sa[e2 >> 2][e2 & 3] = pack2<T>(ds[0], ds[1]);
+  }
+}
+
+// dQ, warpgroup 0: px <- P of one tile (q rows x kv columns) in f32, 0
+// where MASK masks.  lse_r: the LSE (log2 units) of this thread's rows.
+template <bool MASK>
+__device__ __forceinline__ void dq_p(const float* sv, float* px,
+                                     const float* lse_r, float s_log2, int k0,
+                                     const int* rows, int tq, int t,
+                                     const Args& a) {
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int r = (e >> 1) & 1;
+    const int col = k0 + 8 * (e >> 2) + 2 * tq + (e & 1);
+    float p = tcw::ex2(fmaf(sv[e], s_log2, -lse_r[r]));
+    if (MASK) p = (col < a.SKV && (!a.causal || col <= rows[r])) ? p : 0.f;
+    px[e * 128 + t] = p;
+  }
+}
+
+// dQ, warpgroup 1: sa <- dS = P (drop(dP) - Δ) ds_mul, rounded to T.
+template <typename T, bool DROP>
+__device__ __forceinline__ void dq_ds(const float* dp, uint32_t (*sa)[4],
+                                      const float* px, const float* dl_r,
+                                      float ds_mul, int k0, const int* rows,
+                                      int tq, int t, const Args& a,
+                                      int32_t seed, int bh) {
+#pragma unroll
+  for (int e2 = 0; e2 < 16; ++e2) {
+    float ds[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int e = 2 * e2 + u, r = (e >> 1) & 1;
+      float d = dp[e];
+      if (DROP)
+        d = keep_elem(seed, bh, rows[r], k0 + 8 * (e >> 2) + 2 * tq + u,
+                      a.thresh) ? d / a.keep_prob : 0.f;
+      ds[u] = px[e * 128 + t] * (d - dl_r[r]) * ds_mul;
+    }
+    sa[e2 >> 2][e2 & 3] = pack2<T>(ds[0], ds[1]);
+  }
+}
+
+// the block's barriers: full[], empty[] (both warpgroups release a slice
+// entry), c_full, c_empty (n_cons threads release the chunk entry)
+__device__ __forceinline__ uint64_t* init_bars(unsigned char* sm,
+                                               const Smem& L, int n_cons) {
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L.bars);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(full + s, 1);
+      hopper::mbar_init(full + kStages + s, kCons);
+    }
+    hopper::mbar_init(full + 2 * kStages, 1);
+    hopper::mbar_init(full + 2 * kStages + 1, n_cons);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  return full;
+}
+
+// a warpgroup's 64 x 256 accumulator times mul, rounded to T, into columns
+// z*256.. (those below D) of rows rows[0..1] (those below n) of dst
+template <typename T>
+__device__ __forceinline__ void store_chunk(T* dst, long long rs,
+                                            const int* rows, int n,
+                                            float (*acc)[32], float mul,
+                                            int z, int D, int tq) {
+#pragma unroll
+  for (int c = 0; c < kCSubs; ++c)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int col = z * kNC + 64 * c + 8 * i + 2 * tq;
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (rows[r] < n && col < D)
+          *reinterpret_cast<uint32_t*>(dst + (size_t)rows[r] * rs + col) =
+              pack2<T>(acc[c][4 * i + 2 * r] * mul,
+                       acc[c][4 * i + 2 * r + 1] * mul);
+    }
+}
+
+}  // namespace tcb
+
+// The consumers of dkdv_tc (SCALE: K1's q tiles scaled in place).
+template <typename T, bool PACKED, bool SCALE>
+__device__ __forceinline__ void dkdv_tc_consumer(unsigned char* sm,
+                                                 const tcb::Smem& L,
+                                                 uint64_t* bars,
+                                                 const Args& a, int bh,
+                                                 int z, int k0, int i0,
+                                                 int n_q, int fold) {
+  using namespace tcb;
+  uint64_t* full = bars;
+  uint64_t* empty = bars + kStages;
+  uint64_t* c_full = bars + 2 * kStages;
+  uint64_t* c_empty = c_full + 1;
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  const int warp = t >> 5, lane = t & 31, tq = lane & 3;
+  const int krows[2] = {k0 + 16 * warp + (lane >> 2),
+                        k0 + 16 * warp + (lane >> 2) + 8};
+  const float sc = round_t<T>(a.scale);
+  const float s_log2 = PACKED ? (fold ? sc * kLog2e : kLog2e)
+                              : a.scale * kLog2e;
+  const float ds_mul = PACKED ? 1.f : a.scale;
+  const int32_t seed = a.dropout ? a.seed[0] : 0;
+  const int n_sl = slices(a.D);
+  float* px = reinterpret_cast<float*>(sm + L.p);
+  // warpgroup 0 reads the LSE (log2 units) of its q columns, 1 their Δ
+  const float* stat = (wg == 0 ? a.lse_in : a.delta) + (size_t)bh * a.SQ;
+  const float stat_mul = wg == 0 ? kLog2e : 1.f;
+  float acc[kCSubs][32];
+#pragma unroll
+  for (int c = 0; c < kCSubs; ++c)
+#pragma unroll
+    for (int x = 0; x < 32; ++x) acc[c][x] = 0.f;
+  int e = 0;
+  for (int i = i0, it = 0; i < n_q; ++i, ++it) {
+    const int q0 = i * kTile;
+    float cs[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int qpos = q0 + 8 * (j >> 1) + 2 * tq + (j & 1);
+      cs[j] = qpos < a.SQ ? stat[qpos] * stat_mul : 0.f;
+    }
+    // warpgroup 0: S^T = K . q^T (entry boxes 0, 1); 1: dP^T = V . dO^T
+    float sv[32];
+    if (SCALE && wg == 0)
+      contract<T, true>(sv, sm, full, empty, n_sl, e, 0, kSub, kSub, sc, t,
+                        wg);
+    else
+      contract<T, false>(sv, sm, full, empty, n_sl, e, 2 * wg * kSub,
+                         (2 * wg + 1) * kSub, 0, sc, t, wg);
+    const bool need_mask = q0 + kTile > a.SQ ||
+                           (a.causal && q0 < k0 + kTile - 1);
+    uint32_t fr[4][4];
+    if (wg == 0) {
+      if (it > 0) hopper::named_bar_sync(kBarPEmpty, kCons);
+      if (a.dropout) {
+        if (need_mask)
+          dkdv_p<T, true, true>(sv, fr, px, cs, s_log2, q0, krows, tq, t, a,
+                                seed, bh);
+        else
+          dkdv_p<T, false, true>(sv, fr, px, cs, s_log2, q0, krows, tq, t,
+                                 a, seed, bh);
+      } else {
+        if (need_mask)
+          dkdv_p<T, true, false>(sv, fr, px, cs, s_log2, q0, krows, tq, t,
+                                 a, seed, bh);
+        else
+          dkdv_p<T, false, false>(sv, fr, px, cs, s_log2, q0, krows, tq, t,
+                                  a, seed, bh);
+      }
+      hopper::named_bar_arrive(kBarPFull, kCons);
+    } else {
+      hopper::named_bar_sync(kBarPFull, kCons);
+      if (a.dropout)
+        dkdv_ds<T, true>(sv, fr, px, cs, ds_mul, q0, krows, tq, t, a, seed,
+                         bh);
+      else
+        dkdv_ds<T, false>(sv, fr, px, cs, ds_mul, q0, krows, tq, t, a, seed,
+                          bh);
+      if (i + 1 < n_q) hopper::named_bar_arrive(kBarPEmpty, kCons);
+    }
+    // warpgroup 0: dV += drop(P^T) . dO; 1: dK += dS^T . q, chunk z
+    hopper::mbar_wait(c_full, it & 1);
+    unsigned char* ch = sm + L.chunk + wg * kCSubs * kSub;
+    if (SCALE && wg == 1)
+      tcw::scale_tile<T>(ch, kCSubs * kSub, sc, t, kBarWg + 1);
+    chunk_product<T>(acc, fr, ch);
+    hopper::mbar_arrive(c_empty);
+  }
+  T* dst = static_cast<T*>(wg == 0 ? a.dv : a.dk) +
+           head_at(a.lkv, a.heads, bh);
+  store_chunk<T>(dst, a.lkv.rs, krows, a.SKV, acc,
+                 PACKED && fold && wg == 1 ? sc : 1.f, z, a.D, tq);
+}
+
+// dK and dV, one 256-column chunk of one 64-row kv tile, over the q tiles
+// from the diagonal.  The maps as fwd_tc's, with dO's (batch, rows, heads,
+// D) map beside them.
+template <typename T, bool PACKED>
+__global__ void __launch_bounds__(tcb::kBlock, 1)
+dkdv_tc(const __grid_constant__ CUtensorMap q_map,
+        const __grid_constant__ CUtensorMap k_map,
+        const __grid_constant__ CUtensorMap v_map,
+        const __grid_constant__ CUtensorMap do_map, Args a, int hk, int hv,
+        int fold) {
+  using namespace tcb;
+  const int nz = tcb::chunks(a.D);
+  // (chunk, bh, kv tile) folded into grid.x, the tile slowest: kv tile 0
+  // (the most q tiles when causal) first
+  const int z = blockIdx.x % nz;
+  const int bh = blockIdx.x / nz % a.BH;
+  const int kt = (int)(blockIdx.x / nz / a.BH);
+  const int b = bh / a.heads, h = bh - b * a.heads;
+  const int k0 = kt * kTile;
+  const int n_q = row_tiles(a.SQ);
+  const int i0 = a.causal ? kt : 0;           // first q tile that sees k0
+  const Smem L = smem_of(false);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = tcw::align1024(smem_raw);
+  uint64_t* bars = init_bars(sm, L, kCons);
+
+  if (threadIdx.x >= kCons) {                 // the producer warpgroup
+    if (threadIdx.x != kCons) return;
+    hopper::prefetch_tensormap(&q_map);
+    hopper::prefetch_tensormap(&k_map);
+    hopper::prefetch_tensormap(&v_map);
+    hopper::prefetch_tensormap(&do_map);
+    int e = 0;
+    for (int i = i0, it = 0; i < n_q; ++i, ++it) {
+      const int q0 = i * kTile;
+      const Src op[4] = {{&k_map, hk + h, k0}, {&q_map, h, q0},
+                         {&v_map, hv + h, k0}, {&do_map, h, q0}};
+      const Src co[2] = {{&do_map, h, q0}, {&q_map, h, q0}};
+      produce(sm, L, bars, bars + kStages, bars + 2 * kStages,
+              bars + 2 * kStages + 1, op, co, 2, slices(a.D), z, b, e, it);
+    }
+    return;
+  }
+  if (PACKED && !fold)
+    dkdv_tc_consumer<T, PACKED, true>(sm, L, bars, a, bh, z, k0, i0, n_q,
+                                      fold);
+  else
+    dkdv_tc_consumer<T, PACKED, false>(sm, L, bars, a, bh, z, k0, i0, n_q,
+                                       fold);
+}
+
+// The consumers of dq_tc (SCALE: K1's q slices and k chunk scaled in
+// place).
+template <typename T, bool PACKED, bool SCALE>
+__device__ __forceinline__ void dq_tc_consumer(unsigned char* sm,
+                                               const tcb::Smem& L,
+                                               uint64_t* bars, const Args& a,
+                                               int bh, int z, int q0,
+                                               int n_kv, int fold) {
+  using namespace tcb;
+  uint64_t* full = bars;
+  uint64_t* empty = bars + kStages;
+  uint64_t* c_full = bars + 2 * kStages;
+  uint64_t* c_empty = c_full + 1;
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  const int warp = t >> 5, lane = t & 31, tq = lane & 3;
+  const int rows[2] = {q0 + 16 * warp + (lane >> 2),
+                       q0 + 16 * warp + (lane >> 2) + 8};
+  const float sc = round_t<T>(a.scale);
+  const float s_log2 = PACKED ? (fold ? sc * kLog2e : kLog2e)
+                              : a.scale * kLog2e;
+  const float ds_mul = PACKED ? 1.f : a.scale;
+  const int32_t seed = a.dropout ? a.seed[0] : 0;
+  const int n_sl = slices(a.D);
+  float* px = reinterpret_cast<float*>(sm + L.p);
+  // warpgroup 0 reads the LSE (log2 units) of its rows, 1 their Δ
+  float sr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    sr[r] = rows[r] >= a.SQ ? 0.f
+            : wg == 0 ? a.lse_in[(size_t)bh * a.SQ + rows[r]] * kLog2e
+                      : a.delta[(size_t)bh * a.SQ + rows[r]];
+  float acc[kCSubs][32];
+#pragma unroll
+  for (int c = 0; c < kCSubs; ++c)
+#pragma unroll
+    for (int x = 0; x < 32; ++x) acc[c][x] = 0.f;
+  int e = 0;
+  for (int j = 0; j < n_kv; ++j) {
+    const int k0 = j * kTile;
+    // warpgroup 0: S = q . k^T (entry boxes 0, 1); 1: dP = dO . V^T
+    float sv[32];
+    if (SCALE && wg == 0)
+      contract<T, true>(sv, sm, full, empty, n_sl, e, 0, kSub, 0, sc, t, wg);
+    else
+      contract<T, false>(sv, sm, full, empty, n_sl, e, 2 * wg * kSub,
+                         (2 * wg + 1) * kSub, 0, sc, t, wg);
+    const bool need_mask = k0 + kTile > a.SKV ||
+                           (a.causal && k0 + kTile - 1 > q0);
+    if (wg == 0) {
+      if (j > 0) hopper::named_bar_sync(kBarPEmpty, kCons);
+      if (need_mask)
+        dq_p<true>(sv, px, sr, s_log2, k0, rows, tq, t, a);
+      else
+        dq_p<false>(sv, px, sr, s_log2, k0, rows, tq, t, a);
+      hopper::named_bar_arrive(kBarPFull, kCons);
+      continue;                               // on into the next kv tile
+    }
+    uint32_t fr[4][4];
+    hopper::named_bar_sync(kBarPFull, kCons);
+    if (a.dropout)
+      dq_ds<T, true>(sv, fr, px, sr, ds_mul, k0, rows, tq, t, a, seed, bh);
+    else
+      dq_ds<T, false>(sv, fr, px, sr, ds_mul, k0, rows, tq, t, a, seed, bh);
+    if (j + 1 < n_kv) hopper::named_bar_arrive(kBarPEmpty, kCons);
+    // dQ += dS . k (K1: k * sm_scale rounded to T), chunk z
+    hopper::mbar_wait(c_full, j & 1);
+    unsigned char* ch = sm + L.chunk;
+    if (SCALE) tcw::scale_tile<T>(ch, kCSubs * kSub, sc, t, kBarWg + 1);
+    chunk_product<T>(acc, fr, ch);
+    hopper::mbar_arrive(c_empty);
+  }
+  if (wg == 1)
+    store_chunk<T>(static_cast<T*>(a.dq) + head_at(a.lq, a.heads, bh),
+                   a.lq.rs, rows, a.SQ, acc, PACKED && fold ? sc : 1.f, z,
+                   a.D, tq);
+}
+
+// dQ, one 256-column chunk of one 64-row q tile, over the kv tiles up to
+// the diagonal.  The maps as dkdv_tc's.
+template <typename T, bool PACKED>
+__global__ void __launch_bounds__(tcb::kBlock, 1)
+dq_tc(const __grid_constant__ CUtensorMap q_map,
+      const __grid_constant__ CUtensorMap k_map,
+      const __grid_constant__ CUtensorMap v_map,
+      const __grid_constant__ CUtensorMap do_map, Args a, int hk, int hv,
+      int fold) {
+  using namespace tcb;
+  const int nz = tcb::chunks(a.D), n_t = row_tiles(a.SQ);
+  // (chunk, bh, q tile) folded into grid.x, the tile slowest: the last q
+  // tile (the most kv tiles when causal) first
+  const int z = blockIdx.x % nz;
+  const int bh = blockIdx.x / nz % a.BH;
+  const int qt = n_t - 1 - (int)(blockIdx.x / nz / a.BH);
+  const int b = bh / a.heads, h = bh - b * a.heads;
+  const int q0 = qt * kTile;
+  const int n_kv = kv_tiles_of(qt, a);
+  const Smem L = smem_of(true);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = tcw::align1024(smem_raw);
+  uint64_t* bars = init_bars(sm, L, 128);     // warpgroup 1 owns the chunk
+
+  if (threadIdx.x >= kCons) {                 // the producer warpgroup
+    if (threadIdx.x != kCons) return;
+    hopper::prefetch_tensormap(&q_map);
+    hopper::prefetch_tensormap(&k_map);
+    hopper::prefetch_tensormap(&v_map);
+    hopper::prefetch_tensormap(&do_map);
+    int e = 0;
+    for (int j = 0; j < n_kv; ++j) {
+      const int k0 = j * kTile;
+      const Src op[4] = {{&q_map, h, q0}, {&k_map, hk + h, k0},
+                         {&do_map, h, q0}, {&v_map, hv + h, k0}};
+      const Src co[1] = {{&k_map, hk + h, k0}};
+      produce(sm, L, bars, bars + kStages, bars + 2 * kStages,
+              bars + 2 * kStages + 1, op, co, 1, slices(a.D), z, b, e, j);
+    }
+    return;
+  }
+  if (PACKED && !fold)
+    dq_tc_consumer<T, PACKED, true>(sm, L, bars, a, bh, z, q0, n_kv, fold);
+  else
+    dq_tc_consumer<T, PACKED, false>(sm, L, bars, a, bh, z, q0, n_kv, fold);
+}
+
+// grid (tiles x BH x chunks); the maps of q, k, v and dO, K1's head
+// offsets of k and v (hk, hv), fold as fwd_tc's.  dq: dq_tc, else dkdv_tc.
+template <typename T, bool PACKED>
+int launch_bwd_tc(bool dq, const CUtensorMap& q_map, const CUtensorMap& k_map,
+                  const CUtensorMap& v_map, const CUtensorMap& do_map,
+                  const Args& a, int hk, int hv, int fold, cudaStream_t st) {
+  const long long gx = (long long)row_tiles(dq ? a.SQ : a.SKV) * a.BH *
+                       tcb::chunks(a.D);
+  if (gx > 0x7FFFFFFFLL) return -1;
+  const size_t smem = tcb::smem_bytes(dq);
+  auto kernel = dq ? dq_tc<T, PACKED> : dkdv_tc<T, PACKED>;
+  const int err = prepare(kernel, smem);
+  if (err) return err;
+  kernel<<<(unsigned)gx, tcb::kBlock, smem, st>>>(q_map, k_map, v_map, do_map,
+                                                  a, hk, hv, fold);
   return (int)cudaGetLastError();
 }
 

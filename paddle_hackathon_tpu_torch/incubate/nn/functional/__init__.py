@@ -77,10 +77,10 @@ def flash_attention_qkv_packed(qkv, num_heads, causal=True, sm_scale=None,
 
 
 def flash_attention(query, key, value, dropout=0.0, causal=False,
-                    return_softmax=False):
+                    return_softmax=False, name=None):
     """The paddle.incubate ``flash_attention`` API: ``(out, None)``.  The
     kernels never materialise the softmax, so ``return_softmax`` must be
-    False."""
+    False; ``name`` is paddle's operator name, unused."""
     if return_softmax:
         raise ValueError("the flash kernels never materialise the softmax: "
                          "return_softmax must be False")

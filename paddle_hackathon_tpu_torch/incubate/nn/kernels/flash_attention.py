@@ -13,11 +13,18 @@ K2), and what the packed kernels share with it.
 - :func:`flash_fwd_kernel`, :func:`flash_dkdv_kernel`,
   :func:`flash_dq_kernel`: the wrappers of the three Hopper kernels in
   ``csrc/flash_attention.cu``.  A CUDA tensor launches them or raises;
-  there is no fallback to the plain version on the card.  The forward is
-  one of four kernels by dtype and width (:data:`FWD_KERNELS`, counted
-  apart in :data:`fwd_launches`, as the library reports it launched);
-  :func:`fwd_route` and :func:`wide_fwd_plan` mirror that choice and the
-  launch plan of the ones past 256 in pure Python.
+  there is no fallback to the plain version on the card.  Where a kernel
+  reads its rows by TMA (f32 at every width, bf16/f16 past 256) and a row
+  is not a multiple of 16 bytes, the wrapper zero-pads the head width to
+  :func:`padded_width` and cuts the outputs back (zero columns of q, k and
+  dO add exact zeros to every score).  The forward is one of three kernels
+  by dtype and width (:data:`FWD_KERNELS`, counted apart in
+  :data:`fwd_launches`), dK/dV and dQ one of four (:data:`BWD_ROUTES`,
+  counted in :data:`bwd_launches`); :func:`fwd_route`, :func:`bwd_route`,
+  :func:`wide_fwd_plan` and :func:`wide_bwd_plan` mirror those choices
+  and the launch plans of the tensor-core kernels past 256 in pure Python
+  (the counters are keyed by the mirrors; the smoke run holds them to the
+  libraries' own ``flash_bhd_fwd_route`` / ``flash_bhd_bwd_route``).
 - ``_fwd`` (O and LSE), ``_bwd_pair`` (dq, dk, dv of one q-chunk x
   kv-chunk pair, given the global LSE and Δ: the unit of ring attention)
   and ``_bwd``, with the JAX names and signatures; each takes the kernels
@@ -53,17 +60,23 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 launches = {"fwd": 0, "dkdv": 0, "dq": 0}
 # The forward kernels, in the order of the libraries' flash_bhd_fwd_route:
 # bf16/f16 up to 256 on mma.sync, f32 up to 256 on 3xTF32 wgmma, past 256
-# on the tensor cores (wgmma: bf16/f16, or 3xTF32 for f32) where TMA can
-# address the rows, and the column-chunked CUDA-core forward for the rows
-# it cannot (f32 with D % 4 != 0 at any width, bf16/f16 with D % 8 != 0
-# past 256).  Each forward launch counts once here, under its kernel, and
-# once in ``launches["fwd"]``.
-FWD_KERNELS = ("fwd_mma", "fwd_tc", "wide_fwd_tc", "wide_fwd")
+# on the tensor cores (wgmma: bf16/f16, or 3xTF32 for f32).  Each forward
+# launch counts once here, under its kernel, and once in
+# ``launches["fwd"]``.
+FWD_KERNELS = ("fwd_mma", "fwd_tc", "wide_fwd_tc")
 fwd_launches = dict.fromkeys(FWD_KERNELS, 0)
+# The dK/dV and dQ kernels, in the order of flash_bhd_bwd_route: bf16/f16
+# up to 256 on mma.sync (``mma``), f32 up to 256 on 3xTF32 wgmma (``tc``),
+# bf16/f16 past 256 on wgmma (``wide_tc``: flash_wide.cuh's dkdv_tc /
+# dq_tc) and f32 past 256 on the CUDA cores (``wide``).  Each launch counts
+# once in ``bwd_launches["<dkdv|dq>_<route>"]`` and once in ``launches``.
+BWD_ROUTES = ("mma", "tc", "wide_tc", "wide")
+bwd_launches = {f"{k}_{r}": 0 for r in BWD_ROUTES for k in ("dkdv", "dq")}
 
-# The launch plan of the forwards past 256, as csrc/flash_wide.cuh (bf16,
-# f16: fwd_tc, also K1's) and csrc/flash_attention.cu (f32: fwd_tc_f32)
-# lay them out; the CPU tests hold it to the card's limits.
+# The launch plans of the tensor-core kernels past 256, as
+# csrc/flash_wide.cuh (bf16, f16: fwd_tc, dkdv_tc, dq_tc, also K1's) and
+# csrc/flash_attention.cu (f32: fwd_tc_f32) lay them out; the CPU tests
+# hold them to the card's limits.
 SMEM_LIMIT = 232_448          # dynamic shared memory a block may take
 _BOX_BYTES = 64 * 128         # a [64 rows][128 bytes] TMA box
 _WIDE_TC = {                  # per element size: threads, slice and chunk
@@ -71,7 +84,10 @@ _WIDE_TC = {                  # per element size: threads, slice and chunk
     4: dict(threads=256, slice_cols=32, chunk_cols=128),
 }
 _Q_RESIDENT_MAX_D = 1024      # bf16/f16: q's slices stay up to this width
-_CUDA_CORE_SMEM = (3 * 64 * 132 + 64 * 68) * 4   # flash_wide.cuh kSmemFwd
+# the backward past 256 (tcb:: in flash_wide.cuh): two consumer warpgroups
+# and a producer warpgroup, 64-column slices in a ring of 4 entries of four
+# boxes, 256-column chunks, P handed over as a 64 x 64 f32 tile
+_WIDE_BWD = dict(threads=384, slice_cols=64, chunk_cols=256, stages=4)
 
 
 def _vmem_cap(dtype=torch.bfloat16) -> int:
@@ -250,58 +266,74 @@ def _elem(dtype) -> int:
     return 4 if dtype == torch.float32 else 2
 
 
+def padded_width(head_dim: int, dtype, kernel: str = "fwd") -> int:
+    """The head width the ``kernel`` (``"fwd"``, or ``"bwd"`` for dK/dV and
+    dQ) runs ``head_dim`` at: the least width whose rows TMA addresses (a
+    multiple of 16 bytes: 4 f32, 8 bf16/f16 elements) where the kernel
+    reads rows by TMA -- f32 at every width (the backward up to 256: past
+    it the f32 backward runs on the CUDA cores and takes any D) and
+    bf16/f16 past 256 -- else ``head_dim`` itself (mma.sync reads any
+    row)."""
+    if dtype == torch.float32:
+        return -(-head_dim // 4) * 4 \
+            if kernel == "fwd" or head_dim <= 256 else head_dim
+    return -(-head_dim // 8) * 8 if head_dim > 256 else head_dim
+
+
 def fwd_route(head_dim: int, dtype) -> str:
     """The forward kernel that runs ``head_dim`` in ``dtype`` (one of
-    :data:`FWD_KERNELS`): the pure-Python mirror of the libraries'
-    ``flash_bhd_fwd_route``.  TMA addresses a row when ``D * size`` is a
-    multiple of 16 bytes."""
-    aligned = head_dim * _elem(dtype) % 16 == 0
-    if head_dim > 256:
-        return "wide_fwd_tc" if aligned else "wide_fwd"
-    if dtype == torch.float32:
-        return "fwd_tc" if aligned else "wide_fwd"
-    return "fwd_mma"
+    :data:`FWD_KERNELS`, at :func:`padded_width`): the pure-Python mirror
+    of the libraries' ``flash_bhd_fwd_route``."""
+    if padded_width(head_dim, dtype) > 256:
+        return "wide_fwd_tc"
+    return "fwd_tc" if dtype == torch.float32 else "fwd_mma"
+
+
+def bwd_route(head_dim: int, dtype) -> str:
+    """The dK/dV and dQ kernels that run ``head_dim`` in ``dtype`` (one of
+    :data:`BWD_ROUTES`, at :func:`padded_width`): the mirror of the
+    libraries' ``flash_bhd_bwd_route``."""
+    f32 = dtype == torch.float32
+    if padded_width(head_dim, dtype, "bwd") > 256:
+        return "wide" if f32 else "wide_tc"
+    return "tc" if f32 else "mma"
+
+
+def _plan_common(route, bh, sq, d, e, geo, row_elems):
+    sl, nc = geo["slice_cols"], geo["chunk_cols"]
+    chunks = -(-d // nc)
+    return dict(route=route, threads=geo["threads"],
+                grid=(-(-sq // 64) * bh * chunks, 1, 1), slice_cols=sl,
+                chunk_cols=nc, slices=-(-d // sl), chunks=chunks,
+                tail=d % sl, box=(sl, 64), box_bytes=sl * e, head_dim=d,
+                row_elems=d if row_elems is None else row_elems)
 
 
 def wide_fwd_plan(bh: int, sq: int, head_dim: int, dtype,
                   row_elems: int = None) -> dict:
-    """The launch plan of the column-chunked forward that takes
-    ``head_dim`` past 256 (or a row TMA cannot address) in ``dtype``
-    (``ValueError`` for a width the other forwards take):
-    ``route``, ``threads``, ``grid`` (the tensor-core kernel: 64-row q
-    tiles x bh x chunks in grid.x; the CUDA-core one: tiles x bh, 1,
-    chunks),
-    ``smem`` (dynamic shared memory, bytes), and for the tensor-core
-    kernel the TMA boxes (``box``: columns, rows; ``box_bytes``: a box
-    row's bytes, 128 under the 128-byte swizzle), the row stride the maps
-    take (``row_elems``: D for (bh, s, D) tensors, 3 H D for K1's packed
-    qkv), the slice and chunk widths, the slices, the live columns of the
-    last slice (``tail``, 0 when whole), whether q's slices stay resident
-    (bf16/f16 up to D = 1024) and the ring stages.  Mirrors
+    """The launch plan of the tensor-core forward that takes ``head_dim``
+    past 256 in ``dtype``, at :func:`padded_width` (``ValueError`` for a
+    width the narrower forwards take): ``route``, ``threads``, ``grid``
+    (64-row q tiles x bh x chunks in grid.x), ``smem`` (dynamic shared
+    memory, bytes), the TMA boxes (``box``: columns, rows;
+    ``box_bytes``: a box row's bytes, 128 under the 128-byte swizzle), the
+    width the kernel runs (``head_dim``) and the row stride the maps take
+    (``row_elems``: that width for (bh, s, D) tensors, 3 H D for K1's
+    packed qkv), the slice and chunk widths, the slices, the live columns
+    of the last slice (``tail``, 0 when whole), whether q's slices stay
+    resident (bf16/f16 up to D = 1024) and the ring stages.  Mirrors
     ``wide::tcw::smem_of`` and ``wide::tcf32::kSmem``."""
     route = fwd_route(head_dim, dtype)
-    if route not in ("wide_fwd_tc", "wide_fwd"):
-        raise ValueError(f"D={head_dim} in {dtype} runs {route}")
-    tiles = -(-sq // 64)
     if route != "wide_fwd_tc":
-        chunks = -(-head_dim // 128)
-        return dict(route=route, threads=256, grid=(tiles * bh, 1, chunks),
-                    smem=_CUDA_CORE_SMEM, chunk_cols=128, chunks=chunks)
+        raise ValueError(f"D={head_dim} in {dtype} runs {route}")
+    head_dim = padded_width(head_dim, dtype)
     e = _elem(dtype)
-    geo = _WIDE_TC[e]
-    sl, nc = geo["slice_cols"], geo["chunk_cols"]
-    slices = -(-head_dim // sl)
-    chunks = -(-head_dim // nc)
-    plan = dict(route=route, threads=geo["threads"],
-                grid=(tiles * bh * chunks, 1, 1), slice_cols=sl,
-                chunk_cols=nc,
-                slices=slices, chunks=chunks, tail=head_dim % sl,
-                box=(sl, 64), box_bytes=sl * e,
-                row_elems=head_dim if row_elems is None else row_elems)
+    plan = _plan_common(route, bh, sq, head_dim, e, _WIDE_TC[e], row_elems)
+    nc = plan["chunk_cols"]
     if e == 2:
         resident = head_dim <= _Q_RESIDENT_MAX_D
         k_entry = _BOX_BYTES * (1 if resident else 2)
-        k0 = slices * _BOX_BYTES if resident else 0
+        k0 = plan["slices"] * _BOX_BYTES if resident else 0
         stages_k, stages_v = 4, 2
         v_bytes = nc // 64 * _BOX_BYTES
         bars = k0 + stages_k * k_entry + stages_v * v_bytes
@@ -313,6 +345,33 @@ def wide_fwd_plan(bh: int, sq: int, head_dim: int, dtype,
         smem = 1024 + (raw + 2 * op_slots) * _BOX_BYTES + \
             8 * (raw + 2 * op_slots)
         plan.update(q_resident=False, stages=(raw, op_slots), smem=smem)
+    return plan
+
+
+def wide_bwd_plan(bh: int, s: int, head_dim: int, dtype, kernel: str,
+                  row_elems: int = None) -> dict:
+    """The launch plan of the bf16/f16 dK/dV (``kernel="dkdv"``: grid over
+    kv tiles of ``s`` rows) or dQ (``"dq"``: over q tiles) kernel past 256
+    (flash_wide.cuh's ``dkdv_tc`` / ``dq_tc``), at :func:`padded_width`
+    (``ValueError`` for another route): the keys of :func:`wide_fwd_plan`,
+    ``stages`` the slice ring's entries (four boxes each), nothing
+    resident (``q_resident`` False: every operand streams, so the plan is
+    one size at every width), and ``smem`` as ``wide::tcb::smem_of``:
+    the ring, the chunk entry (dK/dV: dO and q, four boxes each; dQ: k),
+    P as 64 x 64 f32 and the barriers."""
+    route = bwd_route(head_dim, dtype)
+    if route != "wide_tc":
+        raise ValueError(f"D={head_dim} in {dtype} runs {route}")
+    if kernel not in ("dkdv", "dq"):
+        raise ValueError(f"kernel must be dkdv or dq, got {kernel}")
+    head_dim = padded_width(head_dim, dtype, "bwd")
+    plan = _plan_common(route, bh, s, head_dim, 2, _WIDE_BWD, row_elems)
+    stages = _WIDE_BWD["stages"]
+    boxes = plan["chunk_cols"] // 64
+    smem = (1024 + stages * 4 * _BOX_BYTES
+            + (1 if kernel == "dq" else 2) * boxes * _BOX_BYTES
+            + 64 * 64 * 4 + (2 * stages + 2) * 8)
+    plan.update(kernel=kernel, q_resident=False, stages=stages, smem=smem)
     return plan
 
 
@@ -334,29 +393,44 @@ def _lib(head_dim, dtype):
         lib.flash_bhd_fwd.argtypes = [ci] + [vp] * 6 + tail
         lib.flash_bhd_dkdv.argtypes = [ci] + [vp] * 9 + tail
         lib.flash_bhd_dq.argtypes = [ci] + [vp] * 8 + tail
-        lib.flash_bhd_fwd_route.argtypes = [ci, ci]
-        lib.flash_bhd_fwd_smem.argtypes = [ci, ci]
+        for name in ("fwd_route", "bwd_route", "fwd_smem"):
+            getattr(lib, f"flash_bhd_{name}").argtypes = [ci, ci]
         fns = _fns[key] = {}
-        for name in ("fwd", "dkdv", "dq", "fwd_route", "fwd_smem"):
+        for name in ("fwd", "dkdv", "dq", "fwd_route", "bwd_route",
+                     "fwd_smem"):
             fn = getattr(lib, f"flash_bhd_{name}")
             fn.restype = ctypes.c_int
             fns[name] = fn
     return _fns[key]
 
 
-def library_fwd_route(head_dim, dtype) -> str:
-    """The forward kernel the library of ``head_dim`` and ``dtype`` launches
-    (its ``flash_bhd_fwd_route``; builds the library at first use)."""
-    code = _lib(head_dim, dtype)["fwd_route"](_DTYPE_CODES[dtype], head_dim)
+def _library_route(name, head_dim, dtype, names) -> str:
+    d = padded_width(head_dim, dtype, name)
+    code = _lib(d, dtype)[f"{name}_route"](_DTYPE_CODES[dtype], d)
     if code < 0:
-        raise RuntimeError(f"no bhd forward for D={head_dim}, {dtype}")
-    return FWD_KERNELS[code]
+        raise RuntimeError(f"no bhd {name} kernel for D={d}, {dtype}")
+    return names[code]
+
+
+def library_fwd_route(head_dim, dtype) -> str:
+    """The forward kernel the library launches for ``head_dim`` (at
+    :func:`padded_width`) and ``dtype`` (its ``flash_bhd_fwd_route``;
+    builds the library at first use)."""
+    return _library_route("fwd", head_dim, dtype, FWD_KERNELS)
+
+
+def library_bwd_route(head_dim, dtype) -> str:
+    """The dK/dV and dQ kernels' route (one of :data:`BWD_ROUTES`) the
+    library launches for ``head_dim`` and ``dtype`` (its
+    ``flash_bhd_bwd_route``)."""
+    return _library_route("bwd", head_dim, dtype, BWD_ROUTES)
 
 
 def library_fwd_smem(head_dim, dtype) -> int:
     """That forward's dynamic shared memory in bytes, as the library
     computes it."""
-    return _lib(head_dim, dtype)["fwd_smem"](_DTYPE_CODES[dtype], head_dim)
+    d = padded_width(head_dim, dtype)
+    return _lib(d, dtype)["fwd_smem"](_DTYPE_CODES[dtype], d)
 
 
 def check_geometry(q_shape, kv_shape, dtype) -> None:
@@ -364,9 +438,9 @@ def check_geometry(q_shape, kv_shape, dtype) -> None:
     ``k, v`` of ``kv_shape (bh, skv, D)`` in ``dtype`` (a pure function of
     the shapes, which the CPU tests call): ``NotImplementedError`` for a
     dtype the CUDA kernels do not cover (every head width D >= 1 is
-    covered: the tensor-core instances up to 256, the column-chunked
-    kernels past it), ``RuntimeError`` for ranks, shapes or lengths the
-    gate refuses."""
+    covered: the instances up to 256, the column-chunked kernels past it,
+    rows TMA cannot address zero-padded), ``RuntimeError`` for ranks,
+    shapes or lengths the gate refuses."""
     if len(q_shape) != 3 or len(kv_shape) != 3 \
             or kv_shape[0] != q_shape[0] or kv_shape[2] != q_shape[2]:
         raise RuntimeError(f"q must be (bh, sq, D) and k, v (bh, skv, D), "
@@ -413,7 +487,21 @@ def _geo(q, k, causal, sm_scale, dropout_p):
             int(dropout_p > 0.0), keep, keep_threshold(keep))
 
 
+def _pad(x, width):
+    """``x`` with its last dim zero-padded to ``width`` (``x`` itself where
+    it is that wide already)."""
+    d = x.shape[-1]
+    return x if d == width else torch.nn.functional.pad(x, (0, width - d))
+
+
+def _cut(x, d):
+    """``x`` cut back to its first ``d`` columns, contiguous."""
+    return x if x.shape[-1] == d else x[..., :d].contiguous()
+
+
 def _launch(name, q, k, v, ptrs, causal, sm_scale, dropout_p):
+    """Launch kernel ``name`` on q, k, v of the width it runs (the caller
+    has padded them)."""
     fn = _lib(q.shape[-1], q.dtype)[name]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -425,21 +513,26 @@ def _launch(name, q, k, v, ptrs, causal, sm_scale, dropout_p):
                            f"CUDA error {err}")
     launches[name] += 1
     if name == "fwd":
-        fwd_launches[library_fwd_route(q.shape[-1], q.dtype)] += 1
+        fwd_launches[fwd_route(q.shape[-1], q.dtype)] += 1
+    else:
+        bwd_launches[f"{name}_{bwd_route(q.shape[-1], q.dtype)}"] += 1
 
 
 def flash_fwd_kernel(q, k, v, causal, sm_scale, dropout_p=0.0, seed=None):
     """Launch the forward kernel on PyTorch's current stream; returns
-    ``(out (bh, sq, D) in q's dtype, lse (bh, sq) f32)``."""
+    ``(out (bh, sq, D) in q's dtype, lse (bh, sq) f32)``.  Rows TMA
+    cannot address run zero-padded to :func:`padded_width`."""
     check_kernel_args(q, k, v)
-    bh, sq, _ = q.shape
+    bh, sq, d = q.shape
+    width = padded_width(d, q.dtype)
+    q, k, v = (_pad(t, width) for t in (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty(bh, sq, dtype=torch.float32, device=q.device)
     seed_t = _seed_tensor(seed, q.device)
     _launch("fwd", q, k, v, (out.data_ptr(), lse.data_ptr(),
                              seed_t.data_ptr()),
             causal, sm_scale, dropout_p)
-    return out, lse
+    return _cut(out, d), lse
 
 
 def _check_bwd(q, k, v, do, lse, delta_row):
@@ -451,30 +544,43 @@ def _check_bwd(q, k, v, do, lse, delta_row):
             raise RuntimeError("lse and delta_row must be (bh, sq) float32")
 
 
+def _bwd_inputs(q, k, v, do):
+    """q, k, v and dO zero-padded to the width dK/dV and dQ run at (Δ
+    comes from the caller, over the real columns)."""
+    width = padded_width(q.shape[-1], q.dtype, "bwd")
+    return [_pad(t, width) for t in (q, k, v, do)]
+
+
 def flash_dkdv_kernel(q, k, v, do, lse, delta_row, causal, sm_scale,
                       dropout_p=0.0, seed=None):
-    """Launch the dK/dV kernel; returns ``(dk, dv)`` (bh, skv, D)."""
+    """Launch the dK/dV kernel; returns ``(dk, dv)`` (bh, skv, D).  Rows
+    TMA cannot address run zero-padded to :func:`padded_width`."""
     _check_bwd(q, k, v, do, lse, delta_row)
+    d = q.shape[-1]
+    q, k, v, do = _bwd_inputs(q, k, v, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     seed_t = _seed_tensor(seed, q.device)
     _launch("dkdv", q, k, v, (do.data_ptr(), lse.data_ptr(),
                               delta_row.data_ptr(), seed_t.data_ptr(),
                               dk.data_ptr(), dv.data_ptr()),
             causal, sm_scale, dropout_p)
-    return dk, dv
+    return _cut(dk, d), _cut(dv, d)
 
 
 def flash_dq_kernel(q, k, v, do, lse, delta_row, causal, sm_scale,
                     dropout_p=0.0, seed=None):
-    """Launch the dQ kernel; returns ``dq`` (bh, sq, D)."""
+    """Launch the dQ kernel; returns ``dq`` (bh, sq, D), rows padded as
+    :func:`flash_dkdv_kernel`'s."""
     _check_bwd(q, k, v, do, lse, delta_row)
+    d = q.shape[-1]
+    q, k, v, do = _bwd_inputs(q, k, v, do)
     dq = torch.empty_like(q)
     seed_t = _seed_tensor(seed, q.device)
     _launch("dq", q, k, v, (do.data_ptr(), lse.data_ptr(),
                             delta_row.data_ptr(), seed_t.data_ptr(),
                             dq.data_ptr()),
             causal, sm_scale, dropout_p)
-    return dq
+    return _cut(dq, d)
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,8 @@ split or transpose exists in device memory.
   tensor launches them or raises; there is no fallback to the plain
   version on the card.  They take any length: the JAX gate is the
   dispatchers' (``supported``), the wrappers check what the kernels take.
+  :func:`flash_attention_packed` hands them a contiguous qkv
+  (:func:`kernel_qkv`).
 - :func:`scale_folds`: whether the kernels apply ``sm_scale`` to their
   f32 products instead of rewriting the q and k tiles.
 - :func:`check_geometry`: the head widths and types the kernels take (a
@@ -39,7 +41,8 @@ import math
 import torch
 
 from .flash_attention import (_NEG_INF, _seed_int, _seed_tensor,
-                              dropout_keep, keep_threshold, wide_fwd_plan)
+                              dropout_keep, keep_threshold, wide_bwd_plan,
+                              wide_fwd_plan)
 
 _LANES = 128
 # The JAX estimator's scoped-VMEM budget: part of the gate, kept so that
@@ -50,10 +53,13 @@ _DTYPE_CODES = {torch.bfloat16: 1, torch.float16: 2}
 # kernel launches since the last reset, one count per kernel (the smoke
 # run reads them to prove the train step went through the kernels)
 launches = {"fwd": 0, "dkdv": 0, "dq": 0}
-# the forward's launches by kernel: the TMA / wgmma instances up to 256
-# (``fwd_tma``) and the column-chunked tensor-core forward past it
-# (``wide_fwd_tc``, csrc/flash_wide.cuh)
+# the launches by kernel: the TMA / wgmma instances up to 256 (``fwd_tma``,
+# ``dkdv_tma``, ``dq_tma``) and the column-chunked tensor-core kernels past
+# it (``wide_fwd_tc``, ``dkdv_wide_tc``, ``dq_wide_tc``:
+# csrc/flash_wide.cuh's fwd_tc, dkdv_tc, dq_tc)
 fwd_launches = {"fwd_tma": 0, "wide_fwd_tc": 0}
+bwd_launches = {"dkdv_tma": 0, "dq_tma": 0, "dkdv_wide_tc": 0,
+                "dq_wide_tc": 0}
 
 
 def _itemsize(dtype) -> int:
@@ -223,12 +229,14 @@ def _lib(head_dim):
             fn = getattr(lib, f"flash_packed_{name}")
             fn.argtypes = bwd
         lib.flash_packed_fwd_smem.argtypes = [ci]
+        lib.flash_packed_smem.argtypes = [ci]
         for fn in (fwd, lib.flash_packed_dkdv, lib.flash_packed_dq,
-                   lib.flash_packed_fwd_smem):
+                   lib.flash_packed_fwd_smem, lib.flash_packed_smem):
             fn.restype = ctypes.c_int
         _fns[dp] = dict(fwd=fwd, dkdv=lib.flash_packed_dkdv,
                         dq=lib.flash_packed_dq,
-                        fwd_smem=lib.flash_packed_fwd_smem)
+                        fwd_smem=lib.flash_packed_fwd_smem,
+                        smem=lib.flash_packed_smem)
     return _fns[dp]
 
 
@@ -239,6 +247,13 @@ def fwd_kernel_of(head_dim: int) -> str:
     return "wide_fwd_tc" if width_tag(head_dim) == "wide" else "fwd_tma"
 
 
+def bwd_kernel_of(head_dim: int) -> str:
+    """The dK/dV and dQ kernels' suffix in :data:`bwd_launches` for
+    ``head_dim``: ``tma`` up to 256, ``wide_tc`` past it."""
+    from ._build import width_tag
+    return "wide_tc" if width_tag(head_dim) == "wide" else "tma"
+
+
 def fwd_plan(b: int, s: int, heads: int, head_dim: int, dtype) -> dict:
     """The launch plan of the forward past 256 on the packed layout: the
     bf16/f16 tensor-core forward of ``wide_fwd_plan`` over rows of 3 H D
@@ -247,10 +262,25 @@ def fwd_plan(b: int, s: int, heads: int, head_dim: int, dtype) -> dict:
                          row_elems=3 * heads * head_dim)
 
 
+def bwd_plan(b: int, s: int, heads: int, head_dim: int, dtype,
+             kernel: str) -> dict:
+    """The launch plan of dK/dV (``kernel="dkdv"``) or dQ (``"dq"``) past
+    256 on the packed layout: ``wide_bwd_plan`` over rows of 3 H D
+    elements."""
+    return wide_bwd_plan(b * heads, s, head_dim, dtype, kernel,
+                         row_elems=3 * heads * head_dim)
+
+
 def library_fwd_smem(head_dim: int) -> int:
     """The forward's dynamic shared memory at ``head_dim``, as the library
     computes it (builds it at first use)."""
     return _lib(head_dim)["fwd_smem"](head_dim)
+
+
+def library_bwd_smem(head_dim: int, kernel: str) -> int:
+    """The dK/dV (``"dkdv"``) or dQ (``"dq"``) kernel's dynamic shared
+    memory in the library of ``head_dim``, as it computes it."""
+    return _lib(head_dim)["smem"](1 if kernel == "dkdv" else 2)
 
 
 def check_geometry(shape, heads, dtype) -> None:
@@ -269,6 +299,13 @@ def check_geometry(shape, heads, dtype) -> None:
     if D % 8 or D < 8 or s < 1:
         raise ValueError(f"packed flash kernel unsupported for seq {s}, "
                          f"heads {heads}, head_dim {D}, dtype {dtype}")
+
+
+def kernel_qkv(qkv):
+    """``qkv`` as the kernels take it: contiguous (a strided view, such as
+    a slice of a wider projection, is copied once; the JAX package has no
+    strides to refuse)."""
+    return qkv.contiguous()
 
 
 def check_kernel_args(qkv, heads, *others) -> None:
@@ -347,6 +384,7 @@ def _bwd_launch(name, qkv, dout, lse, delta, dqkv, heads, causal, sm_scale,
                  int(scale_folds(qkv.dtype, sm_scale)), stream)
     _check(err, name)
     launches[name] += 1
+    bwd_launches[f"{name}_{bwd_kernel_of(geo[3])}"] += 1
 
 
 def flash_packed_dkdv_kernel(qkv, dout, lse, delta, dqkv, heads, causal,
@@ -412,5 +450,5 @@ def flash_attention_packed(qkv, heads, causal, sm_scale, dropout_p=0.0,
     keys the dropout mask when ``dropout_p > 0``."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(qkv.shape[-1] // 3 // heads)
-    return FlashAttentionPacked.apply(qkv, heads, bool(causal),
+    return FlashAttentionPacked.apply(kernel_qkv(qkv), heads, bool(causal),
                                       float(sm_scale), float(dropout_p), seed)

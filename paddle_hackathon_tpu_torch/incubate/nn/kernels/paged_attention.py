@@ -237,11 +237,27 @@ def paged_attention_kernel(q, k_pool, v_pool, page_table, lengths):
     return out
 
 
+def _int32(t):
+    return t if t.dtype == torch.int32 and t.is_contiguous() \
+        else t.to(torch.int32).contiguous()
+
+
+def kernel_index_args(page_table, lengths):
+    """The page table and lengths as the kernels take them: int32 and
+    contiguous (the JAX package casts both to int32; an int64 table or
+    lengths, torch's default integer type, is cast here).  The serving
+    engine stages both as int32 already, so its ticks pass through
+    untouched."""
+    return _int32(page_table), _int32(lengths)
+
+
 def paged_attention(q, k_pool, v_pool, page_table, lengths):
     """Dispatch by device: the plain version for CPU tensors, the Hopper
-    kernels for CUDA tensors (every width), anything else raises."""
+    kernels for CUDA tensors (every width; the table and lengths through
+    :func:`kernel_index_args`), anything else raises."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pool, v_pool, page_table, lengths)
     if q.device.type == "cuda":
-        return paged_attention_kernel(q, k_pool, v_pool, page_table, lengths)
+        return paged_attention_kernel(q, k_pool, v_pool,
+                                      *kernel_index_args(page_table, lengths))
     raise ValueError(f"paged_attention: unsupported device {q.device}")

@@ -247,18 +247,33 @@ def quant_matmul_kernel(x2d, w_q, scale):
     return out
 
 
+def kernel_weight_args(w_q, scale):
+    """The weight and scale as the kernel takes them: ``w_q`` contiguous
+    (a transposed or sliced view is copied) and ``scale`` contiguous f32
+    (the JAX package casts the scale to f32 before its kernel).
+    ``WeightOnlyLinear`` holds both so from its load on, so its calls pass
+    through untouched."""
+    if not w_q.is_contiguous():
+        w_q = w_q.contiguous()
+    if scale.dtype != torch.float32 or not scale.is_contiguous():
+        scale = scale.to(torch.float32).contiguous()
+    return w_q, scale
+
+
 def quant_matmul(x, w_q, scale, bias=None):
     """``x`` (..., K) in bf16/f32 times the quantized ``w_q`` (K, N) with
     per-column ``scale`` (N,), plus ``bias`` (N,) in x's dtype.  Dispatch:
     unsupported geometry or a CPU tensor -> the plain version; a CUDA
-    tensor -> the kernel (or raise)."""
+    tensor -> the kernel (the weight and scale through
+    :func:`kernel_weight_args`), or raise."""
     k, n = w_q.shape
     lead = x.shape[:-1]
     x2d = x.reshape(-1, k)
     if x.device.type == "cpu" or not supported(k, n, w_q.dtype):
         out = quant_matmul_ref(x2d, w_q, scale)
     elif x.device.type == "cuda":
-        out = quant_matmul_kernel(x2d.contiguous(), w_q, scale)
+        out = quant_matmul_kernel(x2d.contiguous(),
+                                  *kernel_weight_args(w_q, scale))
     else:
         raise ValueError(f"quant_matmul: unsupported device {x.device}")
     out = out.reshape(*lead, n)

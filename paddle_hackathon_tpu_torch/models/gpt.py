@@ -12,6 +12,10 @@ reference:
   (``incubate/nn/kernels/paged_attention.py``);
 - static cache (``generate`` and the dense engine): write at
   ``cache_pos``, then the plain masked-softmax composition;
+- growing cache (``caches`` without ``cache_pos``, from
+  ``gen_empty_caches``): the step's K/V appended to the cache, then
+  ``scaled_dot_product_attention`` (a chunk of rows under the additive
+  mask of its past length, one row unmasked);
 - no cache: dispatched in the JAX package's order.  The packed-qkv
   flash kernels (K1, ``incubate/nn/kernels/flash_attention_packed.py``)
   where ``_packed_flash_ok`` holds; else ``nn.functional
@@ -180,8 +184,25 @@ class GPTAttention(nn.Module):
             ctx = torch.einsum("bhst,bthe->bshe", probs, vb.to(probs.dtype))
             return self.out_proj(ctx.reshape(b, s, h)), (kb, vb)
         if cache is not None:
-            raise ValueError("a KV cache needs cache_pos (static cache) or "
-                             "page_table and cache_pos (paged)")
+            # growing cache: this call's K/V appended to the layer's (B,
+            # past, H, D) pair (in K/V's dtype); a chunk of s > 1 rows
+            # attends keys up to its global position past + i, one row
+            # attends every key
+            q, k, v = self._split(self.qkv_proj(x))
+            past = cache[0].shape[1]
+            k = torch.cat([cache[0].to(k.dtype), k], 1)
+            v = torch.cat([cache[1].to(v.dtype), v], 1)
+            mask = None
+            if s > 1:
+                ar = torch.arange(past + s, device=x.device)
+                seen = ar[None, :] <= past + ar[:s, None]
+                mask = torch.where(seen, 0.0, _NEG_INF)[None, None].to(
+                    torch.float32)
+            out = scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=False,
+                dropout_p=self.dropout_p if self.training else 0.0,
+                training=self.training, use_flash=self.use_flash)
+            return self.out_proj(out.reshape(b, s, h)), (k, v)
         qkv = self.qkv_proj(x)
         if self._packed_flash_ok(qkv, s):
             # flash attention on the projection-native packed layout
@@ -248,12 +269,14 @@ class GPTModel(nn.Module):
                 cache_pos=None, page_table=None):
         s = input_ids.shape[1]
         if cache_pos is not None or position_ids is None:
-            # positions from the write offset (0 without a cache), clipped
-            # to the table like the reference's out-of-range gather; as in
-            # the reference, a cache_pos decides them even where
-            # position_ids is given
+            # positions from the write offset (a growing cache's past
+            # length, 0 without a cache), clipped to the table like the
+            # reference's out-of-range gather; as in the reference, a
+            # cache_pos decides them even where position_ids is given
+            past = caches[0][0].shape[1] \
+                if caches is not None and page_table is None else 0
             pos = cache_pos if cache_pos is not None else \
-                torch.tensor(0, device=input_ids.device)
+                torch.tensor(past, device=input_ids.device)
             position_ids = _positions(pos, s, self.wpe.weight.shape[0])
         x = self.drop(self.wte(input_ids) + self.wpe(position_ids))
         new_caches = []
@@ -266,6 +289,17 @@ class GPTModel(nn.Module):
                 new_caches.append(c)
         x = self.ln_f(x)
         return x if caches is None else (x, new_caches)
+
+    def gen_empty_caches(self, batch_size, dtype="float32"):
+        """One empty ``(batch_size, 0, H, D)`` K/V pair a layer, on the
+        model's device: the growing cache of the reference's eager decode,
+        which each forward returns one step longer."""
+        cfg = self.config
+        shape = (batch_size, 0, cfg.num_heads,
+                 cfg.hidden_size // cfg.num_heads)
+        kw = dict(dtype=convert_dtype(dtype), device=self.wte.weight.device)
+        return [(torch.zeros(shape, **kw), torch.zeros(shape, **kw))
+                for _ in range(cfg.num_layers)]
 
 
 class GPTForCausalLM(nn.Module):
@@ -387,9 +421,11 @@ class GPTForCausalLM(nn.Module):
         device.  Greedy output is token-exact against the JAX package's
         ``generate(temperature=0.0)``.  The parameters are the reference's,
         in its order; ``jit_decode`` chooses between two JAX programs that
-        give the same tokens, so either value runs this one eager loop.
-        ``generator`` (keyword only, the port's own) draws the samples;
-        default: the device's default generator."""
+        give the same tokens, so either value runs this one eager loop
+        (the reference's growing cache is the forward over
+        ``GPTModel.gen_empty_caches``).  ``generator`` (keyword only, the
+        port's own) draws the samples; default: the device's default
+        generator."""
         if spec_k or drafter is not None:
             raise NotImplementedError(
                 "speculative decoding is not ported yet: ROADMAP Queue 1 "

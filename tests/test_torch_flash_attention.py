@@ -158,6 +158,58 @@ def test_kernel_wrappers_refuse_what_they_do_not_take():
         tfap.flash_attention_packed(x.to("meta"), 2, True, 0.125)
 
 
+@pytest.mark.parametrize("b", [1, 2])
+def test_dispatcher_hands_the_kernels_a_contiguous_qkv(monkeypatch, b):
+    """A strided qkv (the first 3 H D columns of a wider projection)
+    reaches the kernels' function contiguous (``kernel_qkv``), whose own
+    check stays strict; the output and the gradient equal those of the
+    contiguous copy."""
+    rng = np.random.RandomState(9 + b)
+    wide = torch.from_numpy(rng.randn(b, 64, 3 * 2 * 64 + 16)
+                            .astype(np.float32)).to(torch.bfloat16)
+    seen = []
+    real = tfap.FlashAttentionPacked.apply
+
+    def spy(qkv, *args):
+        seen.append(qkv.is_contiguous())
+        return real(qkv, *args)
+
+    monkeypatch.setattr(tfap.FlashAttentionPacked, "apply", spy)
+    view = wide[..., :3 * 2 * 64]
+    assert not view.is_contiguous()
+    x = view.clone().requires_grad_(True)
+    xv = torch.cat([x, wide[..., 3 * 2 * 64:]], -1)[..., :3 * 2 * 64]
+    assert not xv.is_contiguous()
+    out = flash_attention_qkv_packed(xv, 2)
+    ref_x = view.contiguous().requires_grad_(True)
+    ref = flash_attention_qkv_packed(ref_x, 2)
+    assert seen == [True, True]
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    cot = torch.from_numpy(rng.randn(*out.shape).astype(np.float32))
+    (out.float() * cot).sum().backward()
+    (ref.float() * cot).sum().backward()
+    torch.testing.assert_close(x.grad, ref_x.grad, rtol=0, atol=0)
+    assert tfap.kernel_qkv(view).is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        tfap.check_kernel_args(_FakeCuda(view), 2)
+
+
+class _FakeCuda:
+    """A stand-in that passes the wrappers' device check, so that their
+    layout check is reached on the CPU."""
+
+    def __init__(self, t):
+        self._t = t
+        self.device = torch.device("cuda", 0)
+        self.shape, self.dtype = t.shape, t.dtype
+
+    def is_contiguous(self):
+        return self._t.is_contiguous()
+
+    def data_ptr(self):
+        return self._t.data_ptr()
+
+
 # The backward kernels' scale folding (``scale_folds``): with bf16 and a
 # power-of-two rounded scale they read q and k unscaled and apply the scale
 # to the f32 products.  That equals the JAX rounding points (q * scale and

@@ -218,6 +218,16 @@ def test_flash_attention_api_matches_jax():
     with pytest.raises(ValueError, match="softmax"):
         tF.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
                            return_softmax=True)
+    # paddle's trailing ``name``, as the JAX package takes it
+    j_named, _ = jF.flash_attention(*(Tensor(jnp.asarray(x))
+                                      for x in (q, k, v)), 0.0, True, False,
+                                    "attn")
+    t_named, _ = tF.flash_attention(*(torch.from_numpy(x)
+                                      for x in (q, k, v)), 0.0, True, False,
+                                    "attn")
+    np.testing.assert_allclose(t_named.numpy(), _f(j_named.numpy()),
+                               **TOL["f32"])
+    torch.testing.assert_close(t_named, t_out, rtol=0, atol=0)
 
 
 def test_refused_length_raises_value_error():

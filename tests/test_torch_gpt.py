@@ -2,9 +2,10 @@
 JAX package's on shared weights: the tiny GPT of ``test_paged.py`` (vocab
 128, hidden 64, 2 layers, 4 heads, f32, dropout 0) is built in JAX, its
 ``state_dict()`` exported to numpy and loaded name for name into the
-port.  Logits of the no-cache, static-cache and paged forwards agree at
-``atol=1e-5`` (f32, the same products summed in other orders); greedy
-``generate`` is token-exact."""
+port.  Logits of the no-cache, static-cache, growing-cache and paged
+forwards agree at ``atol=1e-5`` (f32, the same products summed in other
+orders); greedy ``generate`` is token-exact, with either
+``jit_decode``."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -279,8 +280,41 @@ def test_presets():
     assert cfg.vocab_size == 50304 and cfg.hidden_dropout_prob == 0.0
 
 
-def test_cache_without_offset_is_refused(models):
-    _, tm = models
-    cache = [(torch.zeros(1, 8, 4, 16), torch.zeros(1, 8, 4, 16))] * 2
-    with pytest.raises(ValueError, match="cache_pos"):
-        tm(torch.from_numpy(_ids((1, 3))), caches=cache)
+def test_growing_cache_forward_matches_jax(models):
+    """``caches`` without ``cache_pos``, from ``gen_empty_caches``: a
+    prefill, a chunked prefill (the additive mask of its past length) and
+    three decode rows, each step's logits and the grown caches against the
+    JAX package's; positions come from the past length."""
+    jm, tm = models
+    B = 2
+    jc = jm.gpt.gen_empty_caches(B)
+    tc = tm.gpt.gen_empty_caches(B)
+    assert [tuple(k.shape) for k, _ in tc] == [(B, 0, 4, 16)] * 2
+    steps = [_ids((B, 6), 20), _ids((B, 4), 21)] + \
+        [_ids((B, 1), 22 + i) for i in range(3)]
+    for step in steps:
+        jl, jc = jm(Tensor(jnp.asarray(step)), caches=jc)
+        with torch.no_grad():
+            tl, tc = tm(torch.from_numpy(step), caches=tc)
+        np.testing.assert_allclose(tl.numpy(), _np(jl), rtol=0, atol=ATOL)
+    for (jk, jv), (tk, tv) in zip(jc, tc):
+        assert tk.shape == (B, 13, 4, 16)
+        np.testing.assert_allclose(tk.numpy(), _np(jk), rtol=0, atol=ATOL)
+        np.testing.assert_allclose(tv.numpy(), _np(jv), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("prompt_len,new", [(5, 8), (9, 6)])
+def test_greedy_generate_jit_decode_false_is_token_exact_vs_jax(
+        models, prompt_len, new):
+    """``generate(jit_decode=False)`` token-exact against the reference's
+    eager loop over its growing cache, and the same tokens as
+    ``jit_decode=True``."""
+    jm, tm = models
+    ids = _ids((2, prompt_len), 40 + prompt_len)
+    ref = _np(jm.generate(Tensor(jnp.asarray(ids)), max_new_tokens=new,
+                          temperature=0.0, jit_decode=False))
+    out = tm.generate(ids, max_new_tokens=new, temperature=0.0,
+                      jit_decode=False).numpy()
+    np.testing.assert_array_equal(out, ref)
+    np.testing.assert_array_equal(
+        tm.generate(ids, max_new_tokens=new, temperature=0.0).numpy(), ref)

@@ -276,3 +276,33 @@ def test_split_decode_emulation_matches_jax_reference_at_widths(width):
     # the port's plain version (what the CPU takes) agrees as well
     np.testing.assert_allclose(tpa.paged_attention(**_torch(case)).numpy(),
                                ref, **TOL)
+
+
+def test_dispatcher_casts_the_table_and_lengths_to_int32():
+    """An int64 table and lengths (torch's default integer type; the JAX
+    package casts both to int32) reach the kernels as contiguous int32
+    (``kernel_index_args``), whose own check stays strict; on the CPU the
+    dispatch gives the int32 result."""
+    case = _torch(_case(6, B=2, s=1, P=8, H=2, D=16, maxp=3,
+                        lengths=[9, 2]))
+    pt = case["page_table"].long()
+    wide = torch.stack([pt, torch.zeros_like(pt)], -1).reshape(2, -1)[:, ::2]
+    assert not wide.is_contiguous() and wide.dtype == torch.int64
+    table, lengths = tpa.kernel_index_args(wide, case["lengths"].long())
+    for got, want in ((table, case["page_table"]),
+                      (lengths, case["lengths"])):
+        assert got.dtype == torch.int32 and got.is_contiguous()
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    # what is already int32 and contiguous (the serving engine's) passes
+    # through as the same tensors
+    again = tpa.kernel_index_args(table, lengths)
+    assert again[0] is table and again[1] is lengths
+    tpa.check_kernel_args(case["q"], case["k_pool"], case["v_pool"], table,
+                          lengths)
+    with pytest.raises(ValueError, match="int32"):
+        tpa.check_kernel_args(case["q"], case["k_pool"], case["v_pool"],
+                              wide, lengths)
+    out = tpa.paged_attention(case["q"], case["k_pool"], case["v_pool"],
+                              wide, case["lengths"].long())
+    torch.testing.assert_close(out, tpa.paged_attention(**case), rtol=0,
+                               atol=0)

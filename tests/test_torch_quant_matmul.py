@@ -611,3 +611,29 @@ def test_geometry_takes_k640_n384(m, xdtype):
         tqm.check_geometry(m, 640, 320, xdtype, torch.int8)
     with pytest.raises(ValueError, match="at least 1"):
         tqm.check_geometry(0, 640, 384, xdtype, torch.int8)
+
+
+def test_dispatcher_hands_the_kernel_a_contiguous_weight_and_f32_scale():
+    """A transposed weight view and a bf16 scale (the JAX package casts the
+    scale to f32) reach the kernel as a contiguous weight and an f32
+    scale (``kernel_weight_args``), whose own checks stay strict; on the
+    CPU the dispatch gives the same result."""
+    x, w, s = _case(7, 4, 128, 256, "int8", "bfloat16")
+    wt = to_tensor(np.ascontiguousarray(w.T)).T
+    scale = to_tensor(s).to(torch.bfloat16)
+    assert not wt.is_contiguous()
+    w_k, s_k = tqm.kernel_weight_args(wt, scale)
+    assert w_k.is_contiguous() and torch.equal(w_k, to_tensor(w))
+    assert s_k.dtype == torch.float32 and torch.equal(s_k, scale.float())
+    # what WeightOnlyLinear holds passes through as the same tensors
+    again = tqm.kernel_weight_args(w_k, s_k)
+    assert again[0] is w_k and again[1] is s_k
+    x2d = to_tensor(x)
+    tqm.check_kernel_args(x2d, w_k, s_k)
+    with pytest.raises(ValueError, match="float32"):
+        tqm.check_kernel_args(x2d, w_k, scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        tqm.check_kernel_args(x2d, wt, s_k)
+    np.testing.assert_array_equal(
+        _torch_f32(tqm.quant_matmul(x2d, wt, scale)),
+        _torch_f32(tqm.quant_matmul(x2d, w_k, s_k)))

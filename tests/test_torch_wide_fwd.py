@@ -7,9 +7,9 @@ for bf16/f16, ``csrc/flash_attention.cu``'s ``fwd_tc_f32`` for f32), the
 dropout hash keyed by the global b*H + h index, and the launch plan those
 kernels take, mirrored in pure Python (``wide_fwd_plan``): every plan the
 JAX gates can send them fits the card's 232,448 bytes of dynamic shared
-memory and TMA's box rules, and rows TMA cannot address go to the
-column-chunked CUDA-core forward.  The kernels themselves run on the card
-(``chip_smoke.py``).
+memory and TMA's box rules, and rows TMA cannot address run the tensor-core
+forward of the next aligned width on zero-padded inputs.  The kernels
+themselves run on the card (``chip_smoke.py``).
 
 Tolerances as ``test_torch_wide_heads.py``: f32 at 1e-5 and bf16 at 1e-2
 (the same sums in another order; bf16 rounds P at the same point)."""
@@ -166,40 +166,46 @@ def test_k1_plan_fits_every_jax_plan_width(s, heads):
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("d", [257, 264, 320, 516, 1024])
 def test_k2_plan(d, dt):
-    """K2's widths past 256: rows TMA can address (f32 D % 4 == 0, bf16
-    D % 8 == 0) take the tensor-core forward within the card's limits,
-    the others the column-chunked CUDA-core forward."""
+    """K2's widths past 256 take the tensor-core forward within the card's
+    limits: rows TMA can address (f32 D % 4 == 0, bf16 D % 8 == 0) at
+    their width, the others zero-padded to the next such width."""
     dtype = getattr(torch, dt)
     elem = 4 if dt == "float32" else 2
     plan = tfa.wide_fwd_plan(12, 1000, d, dtype)
-    if d * elem % 16 == 0:
-        _check_tc_plan(plan, d, elem, 12, 1000)
-        assert plan["chunk_cols"] == (128 if elem == 4 else 256)
-        assert plan["threads"] == (256 if elem == 4 else 160)
-    else:
-        assert plan["route"] == "wide_fwd"
-        assert plan["smem"] <= SMEM_LIMIT
-        assert plan["grid"] == (16 * 12, 1, -(-d // 128))
+    width = tfa.padded_width(d, dtype)
+    assert width * elem % 16 == 0 and 0 <= width - d < 16 // elem
+    assert (width == d) == (d * elem % 16 == 0)
+    assert plan["head_dim"] == width
+    _check_tc_plan(plan, width, elem, 12, 1000)
+    assert plan["chunk_cols"] == (128 if elem == 4 else 256)
+    assert plan["threads"] == (256 if elem == 4 else 160)
 
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16", "float16"])
 def test_fwd_route_by_alignment(dt):
-    """Every width to 1100: past 256 the tensor-core forward exactly where
-    a row is a multiple of 16 bytes, else the CUDA-core one; up to 256 the
-    narrower instances, f32 rows TMA cannot address (e.g. D = 33) on the
-    CUDA-core forward too.  f32 D = 514 is such a row."""
+    """Every width to 1100: past 256 the tensor-core forward, at the width
+    itself where a row is a multiple of 16 bytes and else zero-padded to
+    the next such width; up to 256 the narrower instances (f32 rows TMA
+    cannot address, e.g. D = 33, padded too: the 3xTF32 forward at 36;
+    bf16/f16 on mma.sync, which reads any row).  f32 D = 514 runs at
+    516."""
     dtype = getattr(torch, dt)
     elem = 4 if dt == "float32" else 2
     for d in range(1, 1101):
         aligned = d * elem % 16 == 0
         route = tfa.fwd_route(d, dtype)
+        width = tfa.padded_width(d, dtype)
         if d > 256:
-            assert route == ("wide_fwd_tc" if aligned else "wide_fwd"), d
+            assert route == "wide_fwd_tc", d
+            assert (width == d) == aligned and width * elem % 16 == 0
         elif dt == "float32":
-            assert route == ("fwd_tc" if aligned else "wide_fwd"), d
+            assert route == "fwd_tc", d
+            assert (width == d) == aligned and width <= 256
         else:
-            assert route == "fwd_mma", d
-    assert tfa.fwd_route(514, torch.float32) == "wide_fwd"
-    assert tfa.fwd_route(33, torch.float32) == "wide_fwd"
+            assert route == "fwd_mma" and width == d, d
+    assert tfa.fwd_route(514, torch.float32) == "wide_fwd_tc"
+    assert tfa.padded_width(514, torch.float32) == 516
+    assert tfa.fwd_route(33, torch.float32) == "fwd_tc"
+    assert tfa.padded_width(33, torch.float32) == 36
     with pytest.raises(ValueError):
         tfa.wide_fwd_plan(1, 64, 128, torch.bfloat16)
