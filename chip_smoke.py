@@ -26,8 +26,11 @@ Phases, each printing one JSON line:
                int8/fp8, walk/split; 0 for the 2 f32 CUDA-core ones); and
                the same for the 5 forwards past 256 on the tensor cores
                (``fwd_tc`` bf16/f16 for K1 and K2, ``fwd_tc_f32``; HGMMA
-               above 0) and the 8 dK/dV and dQ kernels past 256
+               above 0), the 8 dK/dV and dQ kernels past 256
                (``dkdv_tc``, ``dq_tc``, bf16/f16 for K1 and K2; HGMMA
+               above 0), K2's f32 dK/dV and dQ past 256 (``bhd_dkdv_tc<0>``,
+               ``bhd_dq_tc<0>``; HGMMA above 0) and K3's prefill kernel
+               past 256 (``paged_attention_wide_tc``, bf16/f16; HGMMA
                above 0).
 3. flash    -- holds the three packed flash-attention kernels (forward, dK/dV,
                dQ; ``csrc/flash_attention_packed.cu``) against their plain
@@ -105,8 +108,9 @@ Phases, each printing one JSON line:
                (the 3xTF32 kernels at 36) and bf16 D=514 (at 520); f32 at
                D=1032 (a last 128-column chunk of 8), at D=264 with dropout
                and sq != skv, at D=512 with dropout and sq > skv, and at
-               D=514, which must launch the tensor-core forward (at 516)
-               and the CUDA-core dK/dV and dQ and no other kernel; the
+               D=514, each f32 case past 256 launching the tensor-core
+               forward and the 3xTF32 dK/dV and dQ (at 516 for D=514) and
+               no other kernel; the
                Python mirror of the routes and dynamic shared memory
                (``fwd_route``, ``bwd_route``, ``wide_fwd_plan``,
                ``fwd_plan``, ``bwd_plan``) equal to the libraries' own at
@@ -128,13 +132,15 @@ Phases, each printing one JSON line:
                twice more, bit for bit the same; at D <= 256 with rows TMA
                addresses (the 3xTF32 forward) it reads O's error beside the
                plain forward on 3xTF32 operands split to nearest and by
-               truncation.  Each f32 case at
-               D <= 256 also holds the dK/dV + dQ pair (3xTF32 on the tensor
-               cores) to ``FLASH_F32_PAIR_REL`` (relative L2 6e-7 on dq, dk
-               and dv against f64) and runs it three times more: bit for
-               bit the same; beside it the plain pair on 3xTF32 operands
-               split to nearest (read) and split by truncation (the
-               control, must fail the limit).
+               truncation.  Each f32 case runs
+               the dK/dV + dQ pair (3xTF32 on the tensor cores) three times
+               more: bit for bit the same; beside it the plain pair on
+               3xTF32 operands split to nearest and split by truncation.
+               Below D = 1024 (to 512, and 514 padded to 516) the pair
+               is held to ``FLASH_F32_PAIR_REL`` (relative L2 6e-7 on dq,
+               dk and dv against f64) and the truncated control must fail
+               it; the split to nearest is read (its own f32 sums over
+               3 D-long and 1000-row contractions reach 7.9e-7).
 7. flash_bhd -- K2's times at the f32 training geometry by CUDA-graph
                replay (inputs 201 MB), beside the bounds (as 3xTF32, three
                tf32 products at 494.7 TFLOP/s, with the f32 CUDA-core
@@ -171,17 +177,17 @@ Phases, each printing one JSON line:
 9b. wide512 -- the same at D = 512 (hidden 1024, 2 heads, 2 layers, b=2,
                s=1024): K1 through the column-chunked kernels on the
                tensor cores (``dkdv_tc`` and ``dq_tc`` 3 x 2 each, K1's
-               other backward kernels 0), K2 f32 through the forward on
-               the tensor cores and the CUDA-core backward.  Then
+               other backward kernels 0), K2 f32 through the forward and
+               the 3xTF32 dK/dV and dQ on the tensor cores.  Then
                (``wide512_times``) those kernels timed at its attention
                (b=2, H=2, s=1024, D=512; K2 f32, K1 bf16), each timed
-               forward and K1's pair held against its plain version, K2's
+               forward and pair held against its plain version, K2's
                bf16 forward and pair at the same shape (the pair's
                launches counted over three passes through
                ``flash_attention``), K2's f32 forward at D=514 (padded to
                516, the pad copies timed apart), and K3 at D=512 (widths 1
-               and 32, bf16), each beside its plain version, SDPA and its
-               bounds.
+               and 32, bf16; each held against its plain version at
+               2e-2), each beside its plain version, SDPA and its bounds.
 9c. dispatch_repairs -- each dispatcher on the card with what its kernel
                refuses: K1 a strided qkv, K3 an int64 page table and
                lengths, K4 a transposed weight view and a bf16 scale; each
@@ -197,11 +203,16 @@ Phases, each printing one JSON line:
                and lengths), and past the old limits: widths 65, 128 (pages
                of 128) and 256 (pages of 256), width 1 over pages of 128,
                D=36, and D=320 and 512 at widths 1 and 32 over 8-page
-               tables (bf16 widths from 16 run the tensor-core kernel, the
-               rest the scalar one; past 256 both take the width in
-               slices), each beside a control (the plain version in the
-               inputs' dtype, must pass) and a planted fault (each slot's
-               first page read from its second, must fail): bf16 against
+               tables (bf16 widths from 16 run the tensor-core kernels,
+               past 256 paged TMA + wgmma; the rest the scalar one, in
+               slices past 256), bf16 width 32 at D=512 over pages of 128
+               and of 48 and at D=260 (the sliced mma.sync copy), each
+               launching the kernel ``tile_route`` names and no other,
+               twice more bit for bit, beside a control (the plain
+               version in the inputs' dtype, must pass) and a planted
+               fault (each slot's first page read from its second, must
+               fail); the route and plan mirrors (``tile_route``,
+               ``wide_tc_plan``) equal to the library's own: bf16 against
                an f32 run of the plain
                version at atol=rtol=2e-2, f32 at 2e-5 with TF32 off.  Then
                the split decode kernel at widths 1 and 15, pages of 16, 128
@@ -241,6 +252,12 @@ Phases, each printing one JSON line:
                the dense engine, GPT-2-small f32, 4 requests of 300, 200,
                150 and 64 prompt tokens x 32 new: token-exact, K3 launched,
                no page in use after the run.
+13b. paged_wide512 -- the paged engine at the wide512 GPT's heads (D =
+               512), bf16, ``chunk=32``, pages of 16, 8 requests of 64 + 16
+               tokens: K3's prefill kernel past 256 launched exactly chunk
+               ticks x layers, the plain version never, no page in use;
+               against the dense engine token-exact or diverging first
+               within ``BF16_MARGIN`` of the dense model's own logits.
 14. quant_checks -- holds the dequant-GEMM kernel K4
                (``csrc/quant_matmul.cu``) on the card against its plain
                version ``quant_matmul_ref`` (an f32 sum) and against the
@@ -310,6 +327,12 @@ phase ``serving_int8``'s int8 run, on the same engines, prompts and
 weights, each run a JSON line.  The package is imported from DIR (default:
 this script's directory), so that two checkouts can be compared on one
 card: run it once per tree in separate processes, alternating.
+
+``python3 chip_smoke.py --bwd-ab N [--root DIR]`` likewise times only K2's
+f32 dK/dV and dQ kernels (graph replay), N times each, at ``BWD_AB_SHAPES``
+(D = 64, 256, 264, 512, causal), from the package in DIR, with ptxas's
+performance notes for the three f32 libraries where this process built
+them.
 """
 
 import json
@@ -509,9 +532,15 @@ def phase_kernel(torch, pa):
         """The kernel against the plain version in f32, beside a control
         (the plain version in the inputs' dtype, which must pass) and a
         planted fault (the plain version with each slot's first page read
-        from its second, which must fail)."""
+        from its second, which must fail); the call launches the kernel
+        its route names (``tile_route``) and no other, and twice more
+        gives the same bits."""
+        before = dict(pa.kernel_launches)
         out = pa.paged_attention_kernel(**case)
         torch.cuda.synchronize()
+        launched = {k: n - before[k] for k, n in pa.kernel_launches.items()}
+        repeats = all(torch.equal(out, pa.paged_attention_kernel(**case))
+                      for _ in range(2))
         f32 = {k: v.float() if v.is_floating_point() else v
                for k, v in case.items()}
         ref32 = pa.paged_attention_ref(**f32)
@@ -523,12 +552,13 @@ def phase_kernel(torch, pa):
         # the f32 result rounded to f16
         control = (pa.paged_attention_ref(**case)
                    if out.dtype != torch.float16 else ref32.half())
-        ok = (within(out) and within(control)
-              and not within(pa.paged_attention_ref(**bad)))
         B, s, _, D = case["q"].shape
-        rec = {"case": name, "kernel": (
-                   "split" if pa.uses_split_decode(s, D, out.dtype)
-                   else "tiles"),
+        route = pa.tile_route(s, D, out.dtype, case["k_pool"].shape[1])
+        ok = (within(out) and within(control)
+              and not within(pa.paged_attention_ref(**bad)) and repeats
+              and launched == {k: int(k == route) for k in launched})
+        rec = {"case": name, "kernel": route, "launches": launched,
+               "repeats_bitwise": repeats,
                "max_abs_err": float(err.max()), "tol": tol,
                "control_max_abs_err": float(
                    (control.float() - ref32).abs().max()), "ok": ok}
@@ -557,13 +587,42 @@ def phase_kernel(torch, pa):
                                             maxp=4), tol)
         check(f"{tag}_d36_w32", kernel_case(torch, dtype, 32, seed=36,
                                             D=36), tol)
-        # past 256: the width in slices (decode steps and the tensor-core
-        # prefill kernel alike)
+        # past 256: decode steps and f32 the scalar kernel in slices,
+        # bf16 prefill paged TMA + wgmma
         for D in (320, 512):
             for width in (1, 32):
                 check(f"{tag}_d{D}_w{width}",
                       kernel_case(torch, dtype, width, seed=D + width, D=D,
                                   maxp=8), tol)
+    # the bf16 prefill kernel past 256 where a box is part of a page (P =
+    # 128: boxes of 64 rows) or pages are not a power of two (P = 48:
+    # boxes of 16), and a row TMA cannot address (D = 260: the sliced
+    # mma.sync copy)
+    for name, D, P, maxp in (("d512_w32_p128", 512, 128, 2),
+                             ("d512_w32_p48", 512, 48, 3),
+                             ("d260_w32", 260, 16, 8)):
+        check(f"bfloat16_{name}", kernel_case(torch, torch.bfloat16, 32,
+                                              seed=D + P, D=D, P=P,
+                                              maxp=maxp), 2e-2)
+    # the Python mirror of the route and of the wide kernel's shared memory
+    # against the library's own
+    wrong = []
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for s in (1, 15, 16, 32, 128):
+            for D in (36, 64, 256, 260, 264, 320, 512):
+                for P in (1, 12, 16, 48, 128):
+                    got = pa.library_route(s, D, dtype, P)
+                    if got != pa.tile_route(s, D, dtype, P):
+                        wrong.append((str(dtype), s, D, P, got))
+    for D in (264, 320, 512, 1024, 1032, 2048, 8192):
+        got = pa.library_wide_smem(D)
+        if got != pa.wide_tc_plan(1, 32, 1, D, 16, torch.bfloat16)["smem"]:
+            wrong.append(("smem", D, got))
+    checks.append({"case": "route_mirror", "ok": not wrong,
+                   "mismatches": wrong})
+    if wrong:
+        raise AssertionError(f"K3's route or plan mirror disagrees with the "
+                             f"library: {wrong}")
     # the split decode kernel: widths 1 and 15, pages of 16, 128 and 512,
     # D = 64, 128 and 256, in each dtype (bf16 and f16 rows of 128-512
     # bytes: groups of 4, 2 and 1 heads; f32 of 2, 1, 1)
@@ -604,7 +663,7 @@ def phase_kernel(torch, pa):
               and not within(pa.paged_attention_ref(**f32(before))))
         tag = str(dtype).split('.')[-1]
         checks.append({"case": f"b65538_{tag}_w{width}", "ok": ok,
-                       "kernel": ("split" if width == 1 else "tiles"),
+                       "kernel": pa.tile_route(width, 64, dtype, 16),
                        "max_abs_err": float((got.float() - ref32).abs().max()),
                        "tol": tol})
         if not ok:
@@ -1319,7 +1378,10 @@ F32_FLASH_VS_PLAIN_RTOL = 1e-4
 # On the H100 the pair reads 4.2e-7 to 5.1e-7 over the f32 cases at
 # D <= 256, the plain pair on operands split by truncation (raw f32 read
 # as hi) 7.1e-7 to 1.02e-6, and 1xTF32 above 1e-4: the limit lies between
-# the first two (1e-6 let most truncated readings pass).
+# the first two (1e-6 let most truncated readings pass).  It holds up to
+# D = 512 and the padded 514, where the truncated control still fails it
+# (bh=2, s=256 on the CPU, tests/test_torch_wide_bwd.py: 8.9e-7 at 512, to
+# nearest 5.1e-7); from D = 1024 pairs keep FLASH_F32_TOL.
 FLASH_F32_PAIR_REL = 6e-7
 
 
@@ -1468,6 +1530,7 @@ def phase_flash_bhd_checks(torch, fa):
 
     def check(name, bh, sq, skv, D, causal, dtype, p=0.0, seed=None,
               ring=False, fused_b=None):
+        before = dict(fa.fwd_launches, **fa.bwd_launches)
         q, k, v, do = bhd_case(torch, bh, sq, skv, D, dtype, len(checks))
         scale = 1.0 / math.sqrt(D)
         out, lse = fa.flash_fwd_kernel(q, k, v, causal, scale, p, seed)
@@ -1561,8 +1624,9 @@ def phase_flash_bhd_checks(torch, fa):
             ok = (ok and extra["fwd_bitwise_repeat"]
                   and extra["chunks_share_row_stats"])
             del o_rep
-        if f32 and D <= 256:
-            # the 3xTF32 pair's own limit, and its repeats bit for bit
+        if f32:
+            # the 3xTF32 pair's own limit up to D = 512, and its repeats
+            # bit for bit
             pair_rel = max(r["kernel"][sl]["rel"] for sl in ("dq", "dk",
                                                              "dv"))
             delta = (do * out).sum(-1)
@@ -1582,12 +1646,27 @@ def phase_flash_bhd_checks(torch, fa):
                                 torch, fa, fn, q, k, v, do, lse, delta,
                                 causal, scale, p, seed), ("dq", "dk", "dv")))
                    for key, fn in split.items()}
-            ok = (ok and pair_rel <= FLASH_F32_PAIR_REL and same
-                  and emu["trunc"] > FLASH_F32_PAIR_REL)
+            ok = ok and same
+            if D < 1024:
+                # the pair's limit up to D = 512 and the padded D = 514
+                # (at 516); the emulation split to nearest is read, not
+                # held: its own f32 sums (3 D-long or 1000-row
+                # contractions) read up to 7.9e-7 on the card
+                ok = (ok and pair_rel <= FLASH_F32_PAIR_REL
+                      and emu["trunc"] > FLASH_F32_PAIR_REL)
             extra.update({"pair_rel": pair_rel, "pair_bitwise_repeat": same,
                           "split_rna_rel": emu["rna"],
                           "split_trunc_rel": emu["trunc"]})
             del runs
+        if f32 and D > 256:
+            # past 256 the f32 case launches the tensor-core forward and
+            # the 3xTF32 dK/dV and dQ (bhd_*_tc<0>) and no other kernel
+            launched = {key: n - before[key] for key, n in
+                        dict(fa.fwd_launches, **fa.bwd_launches).items()}
+            want = ("wide_fwd_tc", "dkdv_wide_tc_f32", "dq_wide_tc_f32")
+            extra["launches"] = launched
+            ok = ok and all(launched[key] >= 1 for key in want) and not any(
+                n for key, n in launched.items() if key not in want)
         del ref_g, ref_o
         checks.append({"case": name, "ok": ok, **extra, **{
             key: [val["lse"]] + [val[sl][m] for sl in FLASH_SLICES
@@ -1609,8 +1688,9 @@ def phase_flash_bhd_checks(torch, fa):
         # past 256 the forward on the tensor cores (bf16/f16: 256-column
         # chunks of 64-column slices, D = 264 a slice of 8 columns, q
         # resident up to 1024; f32: 128-column chunks of 32-column slices)
-        # and the column-chunked backward (bf16/f16 on the tensor cores,
-        # 256-column chunks; f32 on the CUDA cores)
+        # and the column-chunked backward on the tensor cores (bf16/f16
+        # 256-column chunks; f32 3xTF32, 128 columns of dK and dV, 256 of
+        # dQ a block)
         for D in (32, 80, 128, 256, 36, 264, 320, 384, 512, 1024):
             check(f"{tag}_d{D}", 4 if D > 512 else 8, 256, 256, D, True, dt)
         check(f"{tag}_ring_kv_halves", 8, 512, 512, 64, False, dt,
@@ -1633,18 +1713,10 @@ def phase_flash_bhd_checks(torch, fa):
           0.1, 77)
     check("f32_d512_dropout0.1_sq512_skv256", 2, 512, 256, 512, True, f32,
           0.1, 78)
-    # f32 D = 514 (2056-byte rows, which TMA cannot address): the forward
-    # runs the tensor-core kernel at 516 and no other; dK/dV and dQ the
-    # CUDA-core kernels (any D) and no other
-    before = dict(fa.fwd_launches, **fa.bwd_launches)
+    # f32 D = 514 (2056-byte rows, which TMA cannot address): the forward,
+    # dK/dV and dQ run the tensor-core kernels at 516 and no other (the
+    # launch check of every f32 case past 256, in check)
     check("f32_d514", 4, 256, 256, 514, True, f32)
-    launched = {key: n - before[key] for key, n in
-                dict(fa.fwd_launches, **fa.bwd_launches).items()}
-    checks[-1]["launches"] = launched
-    want = ("wide_fwd_tc", "dkdv_wide", "dq_wide")
-    if any(launched[key] < 1 for key in want) or any(
-            n for key, n in launched.items() if key not in want):
-        checks[-1]["ok"] = False
     # batch 1 through the public entry point, on strided views of one fused
     # projection: the (b, s, H, D) -> (b*H, s, D) move must hand the kernels
     # contiguous tensors also where the reshape could merge a size-1 dim
@@ -1704,8 +1776,9 @@ def phase_flash_bhd_checks(torch, fa):
     # the pure-Python mirror of the routes and launch plans (which the CPU
     # tests hold to the card's limits) against the libraries' own answers:
     # K2's forward and backward routes (at the padded width) and its
-    # forward's shared memory per dtype and width; K1's forward and
-    # backward shared memory per width up to the JAX plan's 8192
+    # forward's shared memory per dtype and width, and past 256 its dK/dV
+    # and dQ plans' shared memory; K1's forward and backward shared memory
+    # per width up to the JAX plan's 8192
     from paddle_hackathon_tpu_torch.incubate.nn.kernels import \
         flash_attention_packed as fap
     wrong = []
@@ -1716,6 +1789,11 @@ def phase_flash_bhd_checks(torch, fa):
             smem = (fa.wide_fwd_plan(1, 64, D, dt)["smem"]
                     if got[0] == "wide_fwd_tc" else got[1])
             want = (fa.fwd_route(D, dt), smem, fa.bwd_route(D, dt))
+            if D > 256:
+                got += tuple(fa.library_bwd_smem(D, dt, kn)
+                             for kn in ("dkdv", "dq"))
+                want += tuple(fa.wide_bwd_plan(1, 64, D, dt, kn)["smem"]
+                              for kn in ("dkdv", "dq"))
             if got != want:
                 wrong.append((str(dt), D, got, want))
     for D in (264, 320, 512, 1024, 1032, 2048, 8192):
@@ -1730,7 +1808,7 @@ def phase_flash_bhd_checks(torch, fa):
                    "mismatches": wrong})
     emit({"phase": "flash_bhd_checks",
           "tolerances": {"f32": FLASH_F32_TOL, "bf16_f16": FLASH_TOL,
-                         "f32_pair_rel_d_le_256": FLASH_F32_PAIR_REL},
+                         "f32_pair_rel_d_below_1024": FLASH_F32_PAIR_REL},
           "fields": ["lse"] + [f"{sl}_{m}" for sl in FLASH_SLICES
                                for m in ("rel", "row")],
           "checks": checks})
@@ -2137,7 +2215,7 @@ def phase_wide(torch, fa, fap, b=4, s=1024, steps=3, gpt=WIDE_GPT,
     of the forward its width runs (K1 ``fwd_tma`` at 256, ``wide_fwd_tc``
     past it; K2 f32 ``fwd_tc`` at 256, ``wide_fwd_tc`` past it) and of
     its dK/dV and dQ (K1 ``*_tma`` at 256, the tensor-core ``*_wide_tc``
-    past it; K2 f32 ``*_tc`` at 256, the CUDA-core ``*_wide`` past it),
+    past it; K2 f32 ``*_tc`` at 256, the 3xTF32 ``*_wide_tc_f32`` past it),
     0 of every other; the other family's 0, the plain versions called 0
     times; the flash and plain-composition loss series within the bf16 /
     f32 limits.  Returns each family's launches by kernel."""
@@ -2257,34 +2335,41 @@ def timed_fwd_check(torch, ref_fn, inputs, got, ref_dtype, tol, causal,
 
 
 def timed_pair_check(torch, fa, q, k, v, do, lse, delta, got, scale):
-    """A timed bf16/f16 pair's dq, dk, dv (``got``) against the plain pair
-    in f32 on the same inputs: relative L2 and worst row within
-    ``FLASH_TOL``, and the largest absolute error."""
-    ref = fa.flash_bwd_pair_ref(*(t.float() for t in (q, k, v, do)), lse,
-                                delta, True, scale)
+    """A timed pair's dq, dk, dv (``got``) against the plain pair on the
+    same inputs: bf16/f16 against it in f32, relative L2 and worst row
+    within ``FLASH_TOL``; f32 against it in f64, relative L2 within
+    ``FLASH_F32_PAIR_REL`` and worst row within ``FLASH_F32_TOL``; and the
+    largest absolute error."""
+    f32 = q.dtype == torch.float32
+    wide = torch.float64 if f32 else torch.float32
+    rel_tol = FLASH_F32_PAIR_REL if f32 else FLASH_TOL["rel"]
+    row_tol = (FLASH_F32_TOL if f32 else FLASH_TOL)["row"]
+    ref = fa.flash_bwd_pair_ref(*(t.to(wide) for t in (q, k, v, do, lse,
+                                                       delta)),
+                                True, scale)
     r = {"ok": True, "max_abs_err": 0.0}
     for name, g, want in zip(("dq", "dk", "dv"), got, ref):
-        err = g.float() - want
+        err = g.to(wide) - want
         rows = want.norm(dim=-1)
         rel = float(err.norm() / want.norm())
         row = float((err.norm(dim=-1) / rows.clamp_min(
             rows[rows > 0].median())).max())
         r[f"{name}_rel"], r[f"{name}_row"] = rel, row
         r["max_abs_err"] = max(r["max_abs_err"], float(err.abs().max()))
-        r["ok"] = r["ok"] and rel <= FLASH_TOL["rel"] and \
-            row <= FLASH_TOL["row"]
+        r["ok"] = r["ok"] and rel <= rel_tol and row <= row_tol
     return r
 
 
 def wide512_times(torch, fa, fap, pa):
     """The kernels at the wide512 GPT's attention (D = 512, b=2, H=2,
-    s=1024, causal) by graph replay: K2 in f32 (the forward on the tensor
-    cores, dK/dV and dQ column-chunked on the CUDA cores) and K1 in bf16
-    (all three column-chunked on the tensor cores) beside their plain
-    versions, SDPA (default backend) and two bounds each (the tensor
-    cores at the inputs' type, and the CUDA cores' f32 rate); each timed
-    forward's O and LSE held against the plain version (f32 against f64
-    at ``FLASH_F32_TOL``, bf16 against f32 at ``FLASH_TOL``).  Then K2's
+    s=1024, causal) by graph replay: K2 in f32 (all three on the tensor
+    cores, 3xTF32) and K1 in bf16 (all three column-chunked on the tensor
+    cores) beside their plain versions, SDPA (default backend) and two
+    bounds each (the tensor cores at the inputs' type, and the CUDA
+    cores' f32 rate); each timed forward's O and LSE held against the
+    plain version (f32 against f64 at ``FLASH_F32_TOL``, bf16 against f32
+    at ``FLASH_TOL``), and K2's f32 dK/dV + dQ against the plain pair in
+    f64 (``timed_pair_check``: ``FLASH_F32_PAIR_REL``).  Then K2's
     bf16 forward and dK/dV + dQ pair at the same shape (the pair held
     against the plain pair in f32), with the pair's launches by kernel
     over three forward and backward passes through the public
@@ -2292,8 +2377,10 @@ def wide512_times(torch, fa, fap, pa):
     before), and K2's f32 forward at D = 514 (rows TMA cannot address:
     zero-padded to 516 onto the tensor-core forward; the pad copies timed
     on their own) beside the same yardsticks.  K3 at D = 512 (16 slots,
-    12 heads, 8 pages of 16) at width 1 and a chunk of 32, bf16, beside
-    its plain version and SDPA on the gathered K/V."""
+    12 heads, 8 pages of 16) at width 1 (the scalar kernel) and a chunk of
+    32 (paged TMA + wgmma), bf16, each held against its plain version in
+    f32 at 2e-2, beside the plain version's time and SDPA on the gathered
+    K/V."""
     import math
 
     import torch.nn.functional as F
@@ -2334,7 +2421,15 @@ def wide512_times(torch, fa, fap, pa):
         torch, fa.flash_fwd_ref, (q, k, v), (o, lse), torch.float64,
         FLASH_F32_TOL, True, scale), kernel=fa.library_fwd_route(
             D, torch.float32))
-    del q, k, v, do, o, lse, delta, qh, kh, vh, doh, xs, og
+    # the timed pair's own results against the plain pair in f64
+    dk, dv = fa.flash_dkdv_kernel(q, k, v, do, lse, delta, True, scale)
+    dq = fa.flash_dq_kernel(q, k, v, do, lse, delta, True, scale)
+    pair = timed_pair_check(torch, fa, q, k, v, do, lse, delta, (dq, dk, dv),
+                            scale)
+    for key in ("dkdv", "dq"):
+        out["k2_f32"][key].update(pair, route=fa.library_bwd_route(
+            D, torch.float32))
+    del q, k, v, do, o, lse, delta, qh, kh, vh, doh, xs, og, dq, dk, dv
     torch.cuda.empty_cache()
     # K2's bf16 forward and pair past 256 (not on a GPT path: bf16 GPTs
     # take K1) and its f32 forward at D = 514 (padded to 516), each at the
@@ -2441,7 +2536,17 @@ def wide512_times(torch, fa, fap, pa):
         cs = copies(case)
         libs = [gathered(torch, c) for c in cs]
         b_ms, b_by = bound(case, 2, H100_BF16_FLOPS)
+        # the timed kernel's result against the plain version in f32, at
+        # the paged checks' 2e-2
+        ref32 = pa.paged_attention_ref(**{
+            key: t.float() if t.is_floating_point() else t
+            for key, t in case.items()})
+        err = (pa.paged_attention_kernel(**case).float() - ref32).abs()
         out["k3_bf16"][f"w{width}"] = {
+            "route": pa.tile_route(width, D, torch.bfloat16,
+                                   case["k_pool"].shape[1]),
+            "max_abs_err": float(err.max()),
+            "ok": bool((err <= 2e-2 + 2e-2 * ref32.abs()).all()),
             "ms": device_ms(torch, [lambda c=c: pa.paged_attention_kernel(**c)
                                     for c in cs]),
             "plain_ms": device_ms(torch, [
@@ -2451,12 +2556,13 @@ def wide512_times(torch, fa, fap, pa):
                 lambda a=a: F.scaled_dot_product_attention(
                     a[0], a[1], a[2], attn_mask=a[3]) for a in libs]),
             "bound_ms": b_ms, "bound_by": b_by}
-        del cs, libs, case
+        del cs, libs, case, ref32, err
         torch.cuda.empty_cache()
     bad = [f"{key}_fwd" for key in ("k2_f32", "k2_bf16", "k2_f32_d514",
                                      "k1_bf16") if not out[key]["fwd"]["ok"]]
-    bad += [f"{tag}_{key}" for tag in ("k1_bf16", "k2_bf16")
+    bad += [f"{tag}_{key}" for tag in ("k1_bf16", "k2_bf16", "k2_f32")
             for key in ("dkdv", "dq") if not out[tag][key]["ok"]]
+    bad += [f"k3_{w}" for w, row in out["k3_bf16"].items() if not row["ok"]]
     if not out["k2_bf16"]["api_launches_ok"]:
         bad.append("k2_bf16_api_launches")
     if bad:
@@ -2751,6 +2857,85 @@ def phase_paged_wide(torch, pa):
                              f"{stats}")
     del model
     torch.cuda.empty_cache()
+
+
+# divergence allowed between the bf16 paged and dense engines at D = 512:
+# only where the dense model's own logits of the two tokens lie this close
+# (bf16 rounding of P and of the attention output moves a logit by ~1e-2;
+# the random model's top-2 logits lie ~0.14 apart on average)
+BF16_MARGIN = 0.05
+
+
+def phase_paged_wide512(torch, pa):
+    """The paged engine at the wide512 GPT's heads (hidden 1024, 2 heads of
+    D = 512, 2 layers), bf16, ``chunk=32``, pages of 16: its prefill
+    chunks run K3's prefill kernel past 256 (``paged_attention_wide_tc``),
+    its decode steps the scalar kernel.  8 requests of 64 prompt tokens x
+    16 new, counts set to 0 just before and read just after: the wide
+    kernel launched exactly chunk ticks x layers, the plain version 0
+    times, no page left in use; against the dense engine on the same
+    weights each request token-exact, or diverging first where the dense
+    model's own margin between the two tokens is within
+    ``BF16_MARGIN``.  Returns the per-kernel launches."""
+    from paddle_hackathon_tpu_torch.inference import ServingEngine
+    from paddle_hackathon_tpu_torch.models import GPTForCausalLM, gpt_config
+    from paddle_hackathon_tpu_torch.utils import load_jax_state
+    cfg = gpt_config("gpt2-small-en", hidden_dropout_prob=0.0,
+                     attention_dropout_prob=0.0, **WIDE512_GPT)
+    model = GPTForCausalLM(cfg, device=DEV, dtype="bfloat16")
+    load_jax_state(model, random_weights(model, seed=4))
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(0, cfg.vocab_size, 64).astype(np.int32)
+               for _ in range(8)]
+    kw = dict(max_slots=8, max_len=256, chunk=32, decode_window=16)
+    outs, stats = {}, {}
+    plain = {"paged_attention_ref": 0}
+    for mode in ("paged", "dense"):
+        extra = {"page_size": 16} if mode == "paged" else {}
+        eng = ServingEngine(model, cache_mode=mode, **kw, **extra)
+        real = counting(pa, plain, plain)
+        for counts in (pa.launches, pa.kernel_launches):
+            for k in counts:
+                counts[k] = 0
+        try:
+            reqs = [eng.submit(p, 16) for p in prompts]
+            eng.run_until_idle()
+            torch.cuda.synchronize()
+        finally:
+            restore(pa, real)
+        outs[mode] = [r.result() for r in reqs]
+        stats[mode] = {"kernel_launches": dict(pa.kernel_launches),
+                       "plain_calls": plain["paged_attention_ref"],
+                       "chunk_ticks": eng.stats["chunk_ticks"],
+                       "decode_ticks": eng.stats["decode_ticks"]}
+        if mode == "paged":
+            eng.drop_prefix_cache()
+            stats[mode]["kv_pages_in_use"] = eng.kv_pages_in_use
+        del eng
+    exact, margins = 0, []
+    for p, a, b in zip(prompts, outs["paged"], outs["dense"]):
+        diff = np.nonzero(a != b)[0]
+        if not len(diff):
+            exact += 1
+            continue
+        k = int(diff[0])
+        margins.append({"position": k - len(p), "margin": margin_at(
+            torch, model, b[:k], int(a[k]), int(b[k]))})
+    emit({"phase": "paged_wide512", "model": WIDE512_GPT, "head_dim": 512,
+          "chunk": 32, "page_size": 16, "requests": 8, "new_tokens": 16,
+          "token_exact_of_8": exact, "divergences": margins,
+          "margin_limit": BF16_MARGIN, **stats})
+    p = stats["paged"]
+    need = p["chunk_ticks"] * cfg.num_layers
+    if (p["kernel_launches"]["tiles_wide_tc"] != need or need == 0
+            or p["plain_calls"] or p["kv_pages_in_use"]
+            or any(stats["dense"]["kernel_launches"].values())
+            or any(m["margin"] > BF16_MARGIN for m in margins)):
+        raise AssertionError(f"paged engine at D = 512: {exact} of 8 "
+                             f"token-exact, {margins}, {stats}")
+    del model
+    torch.cuda.empty_cache()
+    return p["kernel_launches"]
 
 
 def phase_profile(torch, eng, prompts):
@@ -3230,6 +3415,51 @@ def serving_ab(torch, runs):
             emit({"phase": "serving_ab", "engine": kind, "run": i, **r})
 
 
+# K2's f32 dK/dV and dQ shapes of the --bwd-ab mode: the train_f32 step's
+# attention (D = 64), BHD_WIDE_SHAPE (256), and past 256 the wide512
+# GPT's heads (512) and a width whose last column part is one 32-column
+# chunk (264)
+BWD_AB_SHAPES = {"d64": dict(b=16, s=1024, H=12, D=64),
+                 "d256": dict(b=8, s=1024, H=4, D=256),
+                 "d264": dict(b=2, s=1024, H=2, D=264),
+                 "d512": dict(b=2, s=1024, H=2, D=512)}
+
+
+def bwd_ab(torch, runs):
+    """The ``--bwd-ab`` mode: K2's f32 dK/dV and dQ device times at each
+    of ``BWD_AB_SHAPES`` (causal), ``runs`` times, from the package on
+    ``sys.path``; one JSON line a run."""
+    import math
+
+    from paddle_hackathon_tpu_torch.incubate.nn.kernels import _build
+    from paddle_hackathon_tpu_torch.incubate.nn.kernels import \
+        flash_attention as fa
+    names = [f"flash_attention_{t}_f32" for t in ("w64", "w256", "wide")]
+    _build.build_all(names)
+    notes = {n: [ln.split("info    :")[-1].strip()
+                 for ln in _build.build_logs.get(n, "").splitlines()
+                 if "Performance Loss" in ln or "Used" in ln]
+             for n in names}
+    emit({"phase": "bwd_ab_build", "pkg": fa.__file__, "ptxas": notes})
+    for i in range(runs):
+        ms = {}
+        for key, sh in BWD_AB_SHAPES.items():
+            b, s, H, D = (sh[k] for k in "bsHD")
+            scale = 1.0 / math.sqrt(D)
+            q, k, v, do = bhd_case(torch, b * H, s, s, D, torch.float32,
+                                   seed=7)
+            o, lse = fa.flash_fwd_kernel(q, k, v, True, scale)
+            delta = (do * o).sum(-1)
+            ms[key] = {
+                "dkdv": device_ms(torch, [lambda: fa.flash_dkdv_kernel(
+                    q, k, v, do, lse, delta, True, scale)]),
+                "dq": device_ms(torch, [lambda: fa.flash_dq_kernel(
+                    q, k, v, do, lse, delta, True, scale)])}
+            del q, k, v, do, o, lse, delta
+            torch.cuda.empty_cache()
+        emit({"phase": "bwd_ab", "pkg": fa.__file__, "run": i, "ms": ms})
+
+
 def phase_serving_int8(torch, qm):
     import shutil
     import tempfile
@@ -3604,6 +3834,36 @@ def wide_bwd_build(_build, libs):
         wide_bwd_name, 8, "wide tensor-core backward kernels")
 
 
+def wide_f32_bwd_build(_build, libs):
+    """K2's f32 dK/dV and dQ past 256, the 3xTF32 pair at a run-time width
+    (``bhd_dkdv_tc<0>``, ``bhd_dq_tc<0>``: 2)."""
+    def name(ln):
+        m = K2_TC_KERNEL.search(ln)
+        return f"{m.group(1)}<0>" if m and m.group(2) == "0" else None
+    return wide_tc_build(_build, libs, ["flash_attention_wide_f32"], name, 2,
+                         "f32 backward kernels past 256")
+
+
+K3_WIDE_KERNEL = re.compile(r"paged_attention_wide_tcI(13__nv_bfloat16|"
+                            r"6__half)E")
+
+
+def k3_wide_name(ln):
+    """``paged_attention_wide_tc<bf16>`` / ``<f16>`` from a line naming K3's
+    prefill kernel past 256, or None."""
+    m = K3_WIDE_KERNEL.search(ln)
+    if not m:
+        return None
+    return ("paged_attention_wide_tc<"
+            f"{'bf16' if 'bfloat16' in m.group(1) else 'f16'}>")
+
+
+def k3_wide_build(_build, libs):
+    """K3's prefill kernel past 256 on paged TMA + wgmma (bf16, f16: 2)."""
+    return wide_tc_build(_build, libs, ["paged_attention"], k3_wide_name, 2,
+                         "K3 prefill kernels past 256")
+
+
 K4_KERNEL = re.compile(r"(quant_matmul_(?:tc|f32)_kernel)I"
                        r"(13__nv_bfloat16|6__half)?Lb([01])E(?:Lb([01])E)?")
 
@@ -3657,14 +3917,15 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    if "--serving-ab" in sys.argv:
-        args = sys.argv[1:]
-        if "--root" in args:
-            sys.path.insert(0, args[args.index("--root") + 1])
-        emit({"phase": "device", "nvidia_smi": nvidia_smi(),
-              "root": sys.path[0]})
-        serving_ab(torch, int(args[args.index("--serving-ab") + 1]))
-        return 0
+    for flag, mode in (("--serving-ab", serving_ab), ("--bwd-ab", bwd_ab)):
+        if flag in sys.argv:
+            args = sys.argv[1:]
+            if "--root" in args:
+                sys.path.insert(0, args[args.index("--root") + 1])
+            emit({"phase": "device", "nvidia_smi": nvidia_smi(),
+                  "root": sys.path[0]})
+            mode(torch, int(args[args.index(flag) + 1]))
+            return 0
     from paddle_hackathon_tpu_torch.incubate.nn.kernels import _build
     from paddle_hackathon_tpu_torch.incubate.nn.kernels import \
         flash_attention as fa
@@ -3696,7 +3957,9 @@ def main():
           "k3_split_decode": k3_split_build(_build),
           "k4": k4_build(_build, libs),
           "wide_fwd_tc": wide_fwd_build(_build, libs),
-          "wide_bwd_tc": wide_bwd_build(_build, libs)})
+          "wide_bwd_tc": wide_bwd_build(_build, libs),
+          "wide_bwd_tc_f32": wide_f32_bwd_build(_build, libs),
+          "k3_wide_tc": k3_wide_build(_build, libs)})
 
     flash = phase_flash(torch, fap, fa)
     flash_launches = phase_train(torch, fap)
@@ -3713,6 +3976,7 @@ def main():
     phase_profile(torch, eng, prompts)
     del eng
     phase_paged_wide(torch, pa)
+    k3_wide_launches = phase_paged_wide512(torch, pa)
     max_abs, max_abs_f32 = phase_quant_checks(torch, qm, wo)
     decode, decode_f32 = phase_quant(torch, qm, wo)
     k4_launches, arrays, prompts = phase_serving_int8(torch, qm)
@@ -3783,6 +4047,36 @@ def main():
                         "GPT's attention); plain: the plain dK/dV + dQ "
                         "pair; library: SDPA's backward (dq, dk, dv), "
                         "default backend; bound: bf16 tensor cores"})
+    # K2's f32 backward past 256: launches from the wide512 GPT's f32 flash
+    # series, times at its attention
+    for kname, k, line in (("flash_bhd_dkdv_wide_f32", "dkdv", 525),
+                           ("flash_bhd_dq_wide_f32", "dq", 556)):
+        row = wide512["k2_f32"][k]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": src + "flash_attention.cu",
+            "replaces": ref + f"flash_attention.py:{line}",
+            "launches": wide_launches["f32"][f"{k}_wide_tc_f32"],
+            **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms")},
+            "timed_as": "f32, b=2, H=2, s=1024, D=512, causal (the wide512 "
+                        "GPT's attention); plain: the plain dK/dV + dQ "
+                        "pair; library: SDPA's f32 backward (dq, dk, dv), "
+                        "default backend; bound: 3xTF32 products on the "
+                        "tensor cores"})
+    row = wide512["k3_bf16"]["w32"]
+    kernels.append({
+        "name": "paged_attention_wide_tc", "route": "cuda",
+        "source": src + "paged_attention.cu",
+        "replaces": ref + "paged_attention.py:175",
+        "launches": k3_wide_launches["tiles_wide_tc"],
+        **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")},
+        "timed_as": "a 32-row prefill chunk at D=512, bf16 (16 slots, 12 "
+                    "heads, pages of 16, 8 a slot); launches: the paged "
+                    "engine at the wide512 GPT's heads; library: SDPA with "
+                    "the offset-causal mask on gathered K/V"})
     kernels.append({"name": "paged_decode_split", "route": "cuda",
                     "source": src + "paged_attention.cu",
                     "replaces": ref + "paged_attention.py:175",

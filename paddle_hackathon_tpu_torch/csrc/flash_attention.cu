@@ -49,11 +49,12 @@
 //     warp's rows meet the diagonal or a ragged end.
 //   * f32 forward, dK/dV and dQ: TMA-fed 3xTF32 wgmma, warp-specialised
 //     (the sections "f32 dK/dV and dQ on the tensor cores" and "f32 forward
-//     on the tensor cores" below).  Past 256 the forward runs on the tensor
-//     cores too (wide::fwd_tc_f32 below for f32, flash_wide.cuh's
-//     wide::fwd_tc for bf16/f16), as do bf16/f16 dK/dV and dQ
-//     (flash_wide.cuh's wide::dkdv_tc, wide::dq_tc); f32 dK/dV and dQ past
-//     256 run the column-chunked CUDA-core kernels of flash_wide.cuh.
+//     on the tensor cores" below).  Past 256 every kernel runs on the
+//     tensor cores too: the forward (wide::fwd_tc_f32 below for f32,
+//     flash_wide.cuh's wide::fwd_tc for bf16/f16), bf16/f16 dK/dV and dQ
+//     (flash_wide.cuh's wide::dkdv_tc, wide::dq_tc), and f32 dK/dV and dQ
+//     (the pair's instances at a run-time width, bhd_dkdv_tc<0> /
+//     bhd_dq_tc<0>: 128 columns of dK and dV, 256 of dQ a block).
 //     Every f32 kernel on the tensor cores, and every bf16/f16 one past
 //     256, takes rows TMA can address (D % 4 == 0 in f32, D % 8 == 0 in
 //     bf16/f16): the wrapper zero-pads other rows to that width (zero
@@ -65,8 +66,8 @@
 //   * ragged ends (SQ, SKV not multiples of 64) are zero-filled and
 //     masked.  Head widths: instances of 64, 128 and 256 padded columns
 //     (padding columns zero), for D up to 256, and past 256 the
-//     column-chunked kernels of flash_wide.cuh (-DFLASH_DP=0: one library
-//     for every wider head, the chunk count fixed at run time); each width
+//     column-chunked kernels (-DFLASH_DP=0: one library for every wider
+//     head, the chunk count fixed at run time); each width
 //     and family (f32, or bf16/f16) is its own library (-DFLASH_DP,
 //     -DFLASH_F32).  Where a row is not 16-byte aligned (D * size % 16 !=
 //     0, e.g. D = 36 in bf16) a template flag swaps the 16-byte cp.async
@@ -701,9 +702,15 @@ bhd_dq_mma(const T* __restrict__ q, const T* __restrict__ k,
 // in dQ each keeps half of dQ's columns from the one dS tile.  The
 // output totals stay in registers over the block's walk (f32 sums of
 // short tensor-core runs, below); every output has one summation order
-// (no atomics).  Widths up to 256 in one design: the slices and chunks
-// stream through the ring, so shared memory does not grow with DP;
-// registers do, so at 256 dK/dV's columns go to two blocks.
+// (no atomics).  Every width in one design: the slices and chunks stream
+// through the ring, so shared memory does not grow with the width;
+// registers do, so at 256 dK/dV's columns go to two blocks, and past 256
+// (DP = 0, the width at run time) a block keeps 128 columns of each of dK
+// and dV, or 256 of dQ (the 256-wide instances' registers), the scores
+// recomputed per block.  The last part's chunks past D run on the zeros
+// TMA loads there, their stores cut at D: skipping them put the chunk
+// steps' wgmma on a path ptxas took as divergent and serialised (C7518;
+// 9% on the pair at D = 512, PERF.md).
 //
 // Bound: operations, 3 tf32 products per f32 product at 494.7 TFLOP/s,
 // 2.5x below the f32 CUDA-core bound.  Measured (PERF.md) the pair is held
@@ -843,13 +850,13 @@ __device__ __forceinline__ void tf32x3(float* dm, float* dc,
 // run starts afresh and is added, rounded to nearest, to a total in
 // registers.
 
-// Phase 1, the contraction over the head width: for each 32-column slice,
-// wait for its entry, split this warpgroup's two boxes (A at box 2 wg, B
-// at 2 wg + 1) and sum A . B^T (64 x 64) into part; part is added to sx
-// while the next slice is split.  An entry is released once its products
-// have completed.  e counts ring entries.
-template <int NS>
-__device__ __forceinline__ void contract_width(float* sx, unsigned char* ring,
+// Phase 1, the contraction over the head width: for each of the ns
+// 32-column slices, wait for its entry, split this warpgroup's two boxes
+// (A at box 2 wg, B at 2 wg + 1) and sum A . B^T (64 x 64) into part;
+// part is added to sx while the next slice is split.  An entry is
+// released once its products have completed.  e counts ring entries.
+__device__ __forceinline__ void contract_width(float* sx, int ns,
+                                               unsigned char* ring,
                                                uint64_t* full,
                                                uint64_t* empty,
                                                unsigned char* mybuf, int& e,
@@ -882,12 +889,12 @@ __device__ __forceinline__ void contract_width(float* sx, unsigned char* ring,
   };
   issue(split(0), 0);
 #pragma unroll 1
-  for (int c = 1; c < NS; ++c) {
+  for (int c = 1; c < ns; ++c) {
     const unsigned char* a = split(c);        // overlaps slice c - 1's wgmma
     retire(c == 1, e - 2);
     issue(a, c);
   }
-  retire(NS == 1, e - 1);
+  retire(ns == 1, e - 1);
 }
 
 // Phase 2: acc[c] (64 x 32) += A . (box)^T for NC chunks, the A operand a
@@ -977,10 +984,31 @@ template <int DP> __host__ __device__ constexpr int tc_dkdv_split() {
   return DP > 128 ? 2 : 1;
 }
 
+// Past 256 (DP = 0, the width D at run time): 128 output columns of each
+// of dK and dV a block and 256 of dQ (each warpgroup 128 of them), the
+// register plan of the 256-wide instances; the contraction streams
+// ceil(D / 32) slices.
+namespace tc {
+constexpr int kWideChunks = 4;            // 32-column chunks a warpgroup keeps
+__host__ __device__ inline int slices(int D) { return (D + kSl - 1) / kSl; }
+// the column parts of dK/dV (dq false) or dQ a tile of width D runs as
+template <int DP> __host__ __device__ inline int parts(int D, bool dq) {
+  if (DP > 0) return dq ? 1 : tc_dkdv_split<DP>();
+  return (D + kSl * kWideChunks * (dq ? 2 : 1) - 1) /
+         (kSl * kWideChunks * (dq ? 2 : 1));
+}
+}  // namespace tc
+
 // dK and dV: one block per (64 kv rows, bh, column part), over the q tiles
-// from the diagonal.  Ring entries per q tile: DP/32 slices {k, q, v, dO}
-// (phase 1), then the part's 32-column chunks {dO, q} (phase 2: dV from
-// dO^T, dK from q^T).
+// from the diagonal.  Ring entries per q tile: the width's 32-column
+// slices {k, q, v, dO} (phase 1), then the part's 32-column chunks {dO, q}
+// (phase 2: dV from dO^T, dK from q^T).  DP = 0: any width D past 256 (a
+// rows TMA addresses: D % 4 == 0), the part 128 columns; (part, bh, kv
+// tile) folded into grid.x with the tile slowest, kv tile 0 (the most q
+// tiles when causal) first.  The instances up to 256 keep bh slowest: at
+// D = 64 (BH = 192, s = 1024) the tile-slowest order, which spreads the
+// blocks in flight over as many heads' q and dO as there are SMs, took
+// 1.31 ms against 1.21 (PERF.md), though 4% less at 256.
 template <int DP>
 __global__ void __launch_bounds__(tc::kBlock, 1)
 bhd_dkdv_tc(const __grid_constant__ CUtensorMap q_map,
@@ -991,16 +1019,27 @@ bhd_dkdv_tc(const __grid_constant__ CUtensorMap q_map,
             const int32_t* __restrict__ seed_ptr, float* __restrict__ dk_out,
             float* __restrict__ dv_out, Geo g) {
   using namespace tc;
-  constexpr int kNS = DP / kSl;
-  constexpr int kNC = kNS / tc_dkdv_split<DP>();   // this block's chunks
-  // (column part, kv tile, bh) folded into grid.x, so any BH; the column
-  // parts of a kv tile are neighbours in the launch order, so that they
-  // share their q, dO, k and v reads in the L2
-  const int n_x = tiles(g.SKV) * tc_dkdv_split<DP>();
-  const int bh = blockIdx.x / n_x;
-  const int xi = blockIdx.x - bh * n_x;
-  const int kt_i = xi / tc_dkdv_split<DP>();  // most q tiles first
-  const int cz = xi % tc_dkdv_split<DP>() * kNC;   // first chunk
+  const int ns = DP > 0 ? DP / kSl : slices(g.D);
+  // this block's chunks (DP = 0: those of the last part past D arrive as
+  // zeros, and their stores are cut at D)
+  constexpr int kNC = DP > 0 ? DP / kSl / tc_dkdv_split<DP>() : kWideChunks;
+  const int nz = parts<DP>(g.D, false);
+  int bh, kt_i, cz;
+  if (DP > 0) {
+    // (column part, kv tile, bh) folded into grid.x, so any BH; the
+    // column parts of a kv tile are neighbours in the launch order, so
+    // that they share their q, dO, k and v reads in the L2
+    const int n_x = tiles(g.SKV) * nz;
+    bh = blockIdx.x / n_x;
+    const int xi = blockIdx.x - bh * n_x;
+    kt_i = xi / nz;                           // most q tiles first
+    cz = xi % nz * kNC;                       // first chunk
+  } else {
+    const int x = blockIdx.x, BH = gridDim.x / (nz * tiles(g.SKV));
+    cz = x % nz * kNC;
+    bh = x / nz % BH;
+    kt_i = x / nz / BH;
+  }
   const int kv0 = kt_i * kTile;
   const int n_q = (g.SQ + kTile - 1) / kTile;
   const int i0 = g.causal ? kt_i : 0;         // first q tile that sees kv0
@@ -1027,7 +1066,7 @@ bhd_dkdv_tc(const __grid_constant__ CUtensorMap q_map,
     int e = 0;
     for (int i = i0; i < n_q; ++i) {
       const int q0 = i * kTile;
-      for (int c = 0; c < kNS; ++c)
+      for (int c = 0; c < ns; ++c)
         produce(full, empty, ring, e, 4, [&](unsigned char* st, uint64_t* b) {
           hopper::tma_load_4d(st, &k_map, b, c * kSl, 0, kv0, bh);
           hopper::tma_load_4d(st + kBox, &q_map, b, c * kSl, 0, q0, bh);
@@ -1071,7 +1110,7 @@ bhd_dkdv_tc(const __grid_constant__ CUtensorMap q_map,
     }
     // S^T = K . q^T (wg 0) or dP^T = V . dO^T (wg 1), 64 kv x 64 q
     float sx[32];
-    contract_width<kNS>(sx, ring, full, empty, mybuf, e, wg, t);
+    contract_width(sx, ns, ring, full, empty, mybuf, e, wg, t);
 
     const bool need_mask = q0 + kTile > g.SQ ||
                            (g.causal && q0 < kv0 + 16 * warp + 15);
@@ -1127,10 +1166,15 @@ bhd_dkdv_tc(const __grid_constant__ CUtensorMap q_map,
                     acc, krows, g.SKV, g.D, cz * kSl, tq);
 }
 
-// dQ: one block per (64 q rows, bh), over the kv tiles up to the diagonal.
-// Ring entries per kv tile: DP/32 slices {q, k, dO, v} (phase 1), then
-// DP/64 chunk pairs {k chunk c, k chunk c + DP/64} (phase 2: each
-// warpgroup its half of dQ's columns from k^T).
+// dQ: one block per (64 q rows, bh, column part), over the kv tiles up to
+// the diagonal.  Ring entries per kv tile: the width's 32-column slices
+// {q, k, dO, v} (phase 1), then chunk pairs {k chunk c, k chunk c + kHalf}
+// of the part (phase 2: each warpgroup its half of the part's columns
+// from k^T).  DP > 0: one part, all DP columns; DP = 0: parts of 256
+// columns, (part, bh, q tile) folded into grid.x with the tile slowest,
+// the last q tile (the most kv tiles when causal) first.  (The same order
+// took 5-10% off the instances up to 256 at D = 64 and 256; they keep bh
+// slowest for now: PERF.md's open questions.)
 template <int DP>
 __global__ void __launch_bounds__(tc::kBlock, 1)
 bhd_dq_tc(const __grid_constant__ CUtensorMap q_map,
@@ -1141,10 +1185,23 @@ bhd_dq_tc(const __grid_constant__ CUtensorMap q_map,
           const int32_t* __restrict__ seed_ptr, float* __restrict__ dq_out,
           Geo g) {
   using namespace tc;
-  constexpr int kNS = DP / kSl, kHalf = kNS / 2;
+  const int ns = DP > 0 ? DP / kSl : slices(g.D);
+  constexpr int kHalf = DP > 0 ? DP / kSl / 2 : kWideChunks;
   const int n_t = tiles(g.SQ);
-  const int bh = blockIdx.x / n_t;            // (tile, bh) folded: any BH
-  const int qt_i = n_t - 1 - (blockIdx.x - bh * n_t);  // heavy causal first
+  int bh, qt_i, c0;                           // c0: the part's first chunk
+  if (DP > 0) {
+    bh = blockIdx.x / n_t;                    // (tile, bh) folded: any BH
+    qt_i = n_t - 1 - (blockIdx.x - bh * n_t);   // heavy causal first
+    c0 = 0;
+  } else {
+    const int nz = parts<DP>(g.D, true), x = blockIdx.x;
+    const int BH = gridDim.x / (nz * n_t);
+    c0 = x % nz * 2 * kHalf;
+    bh = x / nz % BH;
+    qt_i = n_t - 1 - x / nz / BH;
+  }
+  // (DP = 0: chunks of the last part past D arrive as zeros, and their
+  // stores are cut at D)
   const int q0 = qt_i * kTile;
   const int n_kv = kv_tiles(qt_i, g);
 
@@ -1171,14 +1228,14 @@ bhd_dq_tc(const __grid_constant__ CUtensorMap q_map,
     int e = 0;
     for (int j = 0; j < n_kv; ++j) {
       const int k0 = j * kTile;
-      for (int c = 0; c < kNS; ++c)
+      for (int c = 0; c < ns; ++c)
         produce(full, empty, ring, e, 4, [&](unsigned char* st, uint64_t* b) {
           hopper::tma_load_4d(st, &q_map, b, c * kSl, 0, q0, bh);
           hopper::tma_load_4d(st + kBox, &k_map, b, c * kSl, 0, k0, bh);
           hopper::tma_load_4d(st + 2 * kBox, &do_map, b, c * kSl, 0, q0, bh);
           hopper::tma_load_4d(st + 3 * kBox, &v_map, b, c * kSl, 0, k0, bh);
         });
-      for (int c = 0; c < kHalf; ++c)
+      for (int c = c0; c < c0 + kHalf; ++c)
         produce(full, empty, ring, e, 2, [&](unsigned char* st, uint64_t* b) {
           hopper::tma_load_4d(st, &k_map, b, c * kSl, 0, k0, bh);
           hopper::tma_load_4d(st + kBox, &k_map, b, (c + kHalf) * kSl, 0, k0,
@@ -1213,7 +1270,7 @@ bhd_dq_tc(const __grid_constant__ CUtensorMap q_map,
     const int k0 = j * kTile;
     // S = q . k^T (wg 0) or dP = dO . v^T (wg 1), 64 q x 64 kv
     float sx[32];
-    contract_width<kNS>(sx, ring, full, empty, mybuf, e, wg, t);
+    contract_width(sx, ns, ring, full, empty, mybuf, e, wg, t);
     if (wg == 0) {
       const bool need_mask = k0 + kTile > g.SKV ||
                              (g.causal && k0 + kTile - 1 > q0 + 16 * warp);
@@ -1262,7 +1319,7 @@ bhd_dq_tc(const __grid_constant__ CUtensorMap q_map,
   }
 
   store_chunks<kHalf>(dq_out + (size_t)bh * g.SQ * g.D, acc, rows, g.SQ, g.D,
-                      wg * (DP / 2), tq);
+                      (c0 + wg * kHalf) * kSl, tq);
 }
 
 // ===========================================================================
@@ -2058,9 +2115,9 @@ int fwd_wide_tc(const Ptrs& a, const Geo& g, cudaStream_t st) {
   }
 }
 
-// f32 forward, dK/dV and dQ up to 256: rows TMA can address (D % 4 == 0,
-// AL) run the 3xTF32 tensor-core kernels; other rows are refused (the
-// wrapper pads them).
+// f32 forward, dK/dV and dQ: rows TMA can address (D % 4 == 0, AL) run
+// the 3xTF32 tensor-core kernels (dK/dV and dQ at any width: the DP = 0
+// instances past 256); other rows are refused (the wrapper pads them).
 template <bool AL>
 int fwd_f32(const Ptrs& a, const Geo& g, cudaStream_t st) {
   if constexpr (AL) {
@@ -2081,7 +2138,7 @@ int fwd_f32(const Ptrs& a, const Geo& g, cudaStream_t st) {
 template <bool AL>
 int dkdv_f32(const Ptrs& a, const Geo& g, cudaStream_t st) {
   if constexpr (AL) {
-    const unsigned gx = folded(g.SKV, tc_dkdv_split<kDP>(), a.BH);
+    const unsigned gx = folded(g.SKV, tc::parts<kDP>(g.D, false), a.BH);
     if (!gx) return -1;
     CUtensorMap m[4];
     const int err = tc_maps(m, a, g);
@@ -2099,7 +2156,7 @@ int dkdv_f32(const Ptrs& a, const Geo& g, cudaStream_t st) {
 template <bool AL>
 int dq_f32(const Ptrs& a, const Geo& g, cudaStream_t st) {
   if constexpr (AL) {
-    const unsigned gx = folded(g.SQ, 1, a.BH);
+    const unsigned gx = folded(g.SQ, tc::parts<kDP>(g.D, true), a.BH);
     if (!gx) return -1;
     CUtensorMap m[4];
     const int err = tc_maps(m, a, g);
@@ -2154,10 +2211,10 @@ int bwd_wide_tc(bool dq, const Ptrs& a, const Geo& g, cudaStream_t st) {
 
 // The three kernels as dispatch's F.  Past 256: the forward on the tensor
 // cores (fwd_wide_tc), bf16/f16 dK/dV and dQ on the tensor cores
-// (bwd_wide_tc), f32 dK/dV and dQ on the CUDA cores (any D); at 256 and
-// below f32 on the tensor cores (3xTF32), the bf16/f16 instances on
-// mma.sync (any D).  A row TMA cannot address is refused where the route
-// needs TMA.
+// (bwd_wide_tc), f32 dK/dV and dQ on 3xTF32 (the DP = 0 instances of the
+// pair); at 256 and below f32 on the tensor cores (3xTF32), the bf16/f16
+// instances on mma.sync (any D).  A row TMA cannot address is refused
+// where the route needs TMA.
 template <typename T, bool AL> struct Fwd {
   static int run(const Ptrs& a, const Geo& g, cudaStream_t st) {
     if constexpr (kDP == 0)
@@ -2170,24 +2227,20 @@ template <typename T, bool AL> struct Fwd {
 };
 template <typename T, bool AL> struct Dkdv {
   static int run(const Ptrs& a, const Geo& g, cudaStream_t st) {
-    if constexpr (kDP == 0 && std::is_same<T, float>::value)
-      return wide::launch_dkdv<float>(wide_args(a, g), st);
+    if constexpr (std::is_same<T, float>::value)
+      return dkdv_f32<AL>(a, g, st);
     else if constexpr (kDP == 0)
       return AL ? bwd_wide_tc<T>(false, a, g, st) : -1;
-    else if constexpr (std::is_same<T, float>::value)
-      return dkdv_f32<AL>(a, g, st);
     else
       return dkdv_mma<T, AL>(a, g, st);
   }
 };
 template <typename T, bool AL> struct Dq {
   static int run(const Ptrs& a, const Geo& g, cudaStream_t st) {
-    if constexpr (kDP == 0 && std::is_same<T, float>::value)
-      return wide::launch_dq<float>(wide_args(a, g), st);
+    if constexpr (std::is_same<T, float>::value)
+      return dq_f32<AL>(a, g, st);
     else if constexpr (kDP == 0)
       return AL ? bwd_wide_tc<T>(true, a, g, st) : -1;
-    else if constexpr (std::is_same<T, float>::value)
-      return dq_f32<AL>(a, g, st);
     else
       return dq_mma<T, AL>(a, g, st);
   }
@@ -2271,15 +2324,15 @@ int flash_bhd_fwd_route(int dtype, int D) {
 
 // The dK/dV and dQ kernels this library launches for dtype and width D:
 // 0 bhd_*_mma (bf16/f16 up to 256), 1 bhd_*_tc (f32 up to 256), 2
-// wide::dkdv_tc / dq_tc (bf16/f16 past 256), 3 the CUDA-core wide::dkdv /
-// dq (f32 past 256, any D); -1 as flash_bhd_fwd_route.
+// wide::dkdv_tc / dq_tc (bf16/f16 past 256), 3 bhd_*_tc<0> (f32 past
+// 256, 3xTF32); -1 as flash_bhd_fwd_route.
 int flash_bhd_bwd_route(int dtype, int D) {
   const int lo = kDP == 64 ? 1 : kDP / 2 + 1;
   if (dtype < 0 || dtype > 2 || (dtype == 0) != kF32 || D < 1 ||
       (kDP > 0 && (D < lo || D > kDP)))
     return -1;
   const bool al = (D * (kF32 ? 4 : 2)) % 16 == 0;
-  if (kDP == 0) return kF32 ? 3 : al ? 2 : -1;
+  if (kDP == 0) return al ? (kF32 ? 3 : 2) : -1;
   if (kF32) return al ? 1 : -1;
   return 0;
 }
@@ -2294,6 +2347,24 @@ int flash_bhd_fwd_smem(int dtype, int D) {
       return (int)tcf::smem<(kDP > 0 ? kDP : 64)>();
     case 2:
       return kF32 ? (int)wide::tcf32::kSmem : (int)wide::tcw::smem_bytes(D);
+    default:
+      return -1;
+  }
+}
+
+// Dynamic shared memory of the dK/dV (dq 0) or dQ (dq 1) kernel
+// flash_bhd_bwd_route names, in bytes (-1 where the route is -1).
+int flash_bhd_bwd_smem(int dtype, int D, int dq) {
+  constexpr int dp = kDP > 0 ? kDP : 64;
+  switch (flash_bhd_bwd_route(dtype, D)) {
+    case 0:
+      return (int)(6 * mma_tile<__nv_bfloat16, dp>() +
+                   (dq ? 0 : 4 * kTile * sizeof(float)));
+    case 1:
+    case 3:
+      return (int)(dq ? tc::kSmemDq : tc::kSmemDkdv);
+    case 2:
+      return (int)wide::tcb::smem_bytes(dq != 0);
     default:
       return -1;
   }

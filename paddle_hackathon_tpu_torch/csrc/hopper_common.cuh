@@ -79,13 +79,13 @@ template <> constexpr CUtensorMapDataType map_type<uint8_t>() {
 }
 
 // A map of a row-major (B, S, heads, D) tensor of T whose box is {128
-// bytes of columns (64 of a 2-byte T, 32 of f32), 1 head, 64 rows, 1
-// batch} under 128-byte swizzle.  Columns past D and rows past S arrive
-// as zeros.  D * sizeof(T) % 16 == 0 keeps every stride a multiple of 16
-// bytes.  Returns 0, or a negative code.
+// bytes of columns (64 of a 2-byte T, 32 of f32), 1 head, box_rows rows
+// (64 unless given), 1 batch} under 128-byte swizzle.  Columns past D and
+// rows past S arrive as zeros.  D * sizeof(T) % 16 == 0 keeps every stride
+// a multiple of 16 bytes.  Returns 0, or a negative code.
 template <typename T>
 int make_map_bshd(CUtensorMap* map, const void* base, int B, int S,
-                  int heads, int D) {
+                  int heads, int D, int box_rows = kSubRows) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return -2;
   constexpr cuuint64_t kE = sizeof(T);
@@ -93,7 +93,8 @@ int make_map_bshd(CUtensorMap* map, const void* base, int B, int S,
                               (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t row = (cuuint64_t)heads * D * kE;
   const cuuint64_t strides[3] = {(cuuint64_t)D * kE, row, row * S};
-  const cuuint32_t box[4] = {(cuuint32_t)(128 / kE), 1, kSubRows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / kE), 1,
+                             (cuuint32_t)box_rows, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   CUresult r = encode(map, map_type<T>(), 4, const_cast<void*>(base), dims,
                       strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,

@@ -25,9 +25,11 @@
 //     below: whole-page TMA loads, chunks of 64 rows over blocks, merged in
 //     the launch), through paged_decode_launch;
 //   * everything else through paged_attention_launch: bf16 / f16 widths
-//     from 16 (prefill chunks) the tensor-core kernels, in slices past 256;
-//     f32 prefill chunks, decode at D > 256 or rows not 16-byte aligned
-//     (D = 36 in bf16) the scalar kernel.
+//     from 16 (prefill chunks) the tensor-core kernels (past 256 paged TMA
+//     + wgmma, paged_attention_wide_tc, where D % 8 == 0 and pages hold a
+//     multiple of 8 rows, else a sliced mma.sync copy); f32 prefill
+//     chunks, decode at D > 256 or rows not 16-byte aligned (D = 36 in
+//     bf16) the scalar kernel.  route() names the kernel of each shape.
 // Every launch folds the slot index into grid.x, so any slot count runs.
 //
 // The scalar kernel (simple and right first):
@@ -71,7 +73,10 @@
 // time with cp.async (double-buffered), scores and softmax in f32, P
 // rounded to the input type before P.V.  The scalar kernel's per-key warp
 // reductions made a 128-row chunk slower than the plain version.  Past
-// 256 a sliced copy of it (128-column slices) takes those widths.
+// 256 flash_wide.cuh's forward with a paged TMA producer takes those
+// widths (paged_attention_wide_tc, below), and a sliced copy of the
+// mma.sync kernel (128-column slices) the rows and pages TMA boxes cannot
+// take.
 //
 // The C entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() (0 on success); the Python wrapper raises
@@ -80,6 +85,7 @@
 #include <type_traits>
 
 #include "flash_common.cuh"
+#include "flash_wide.cuh"
 #include "hopper_common.cuh"
 
 namespace {
@@ -1084,6 +1090,316 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
 
 }  // namespace split
 
+// ---------------------------------------------------------------------------
+// Prefill widths past kMaxD on Hopper: paged TMA + wgmma
+// ---------------------------------------------------------------------------
+//
+// bf16 / f16 widths from kMmaMinWidth, D > 256 with rows TMA addresses (D
+// % 8 == 0), pages of a multiple of 8 rows: flash_wide.cuh's forward past
+// 256 (wide::fwd_tc) with a paged producer, in place of
+// paged_attention_mma_wide's sliced mma.sync copy (which re-read q per kv
+// tile, waited on each copy, recomputed S per 128-column output slice).
+// What bounds it: bytes at a prefill chunk of 32 rows (each live K/V row
+// read once per 256-column chunk's block), the bf16 tensor cores past
+// that.
+//
+// Design:
+//   * one block per (slot, 64-row q tile, head, 256-column output chunk),
+//     folded into grid.x with the tile slowest (the last tiles, which see
+//     the most rows, first); a consumer warpgroup and a producer warp;
+//   * the producer issues every load by TMA: q through a 4-D (B, s, H, D)
+//     map (its slices resident up to D = 1024, else streamed beside each
+//     k slice, as fwd_tc), K and V through 4-D (1, N P rows, H, D) maps of
+//     the pools, so a head's columns past D arrive as zeros, not the next
+//     head's.  A box is pb = pow2_part(P) rows (up to 64) of 64 columns of
+//     one head: it never leaves its page, and a 64-row tile is 64 / pb
+//     boxes found through the slot's page ids (read once a kv tile, all
+//     the tile's boxes at once).  A 128-byte-swizzled box lands 1024-byte
+//     aligned, so pb >= 8: pages of other row counts stay on
+//     paged_attention_mma_wide (a route by shape, counted apart).  Boxes
+//     wholly at or past the visible end t_end are not loaded; the K slices
+//     go into a ring of 4 entries and the chunk's V boxes into a ring of 2,
+//     on mbarriers, so the loads run ahead of the wgmma;
+//   * the consumer sums S = q.k^T over 64-column slices on wgmma m64n64k16
+//     (one accumulator over all of D), takes the online softmax in f32
+//     (log2 units, the mask t <= lengths[b] + i and t < t_end at -1e30
+//     before the max, only on tiles that reach either), and adds P.V for
+//     its chunk with P rounded to T as the register A operand: tcw's
+//     pieces.  Rows of the last tile at or past t_end are zeroed in V's
+//     entry before P.V (a page's rows past the slot's end hold whatever
+//     the page holds; their p is exactly 0, but 0 * a non-finite value is
+//     not 0), and their scores are masked;
+//   * every chunk of a row sums the same slices in one order and shares
+//     one max and one sum: one summation order per output, no atomics.
+namespace pw {
+
+struct Geo {
+  int B, s, H, D, N, P, maxp, pb, n_qt;
+  float scale_log2;
+};
+
+constexpr int kMaxBoxes = kTile / 8;         // boxes of a tile (pb >= 8)
+
+// whether the kernel takes pages of P rows (the box rule above)
+__host__ __device__ inline bool takes(int D, int P) {
+  return D % 8 == 0 && split::pow2_part(P) >= 8;
+}
+
+}  // namespace pw
+
+template <typename T>
+__global__ void __launch_bounds__(wide::tcw::kBlock, 1)
+paged_attention_wide_tc(const __grid_constant__ CUtensorMap q_map,
+                        const __grid_constant__ CUtensorMap k_map,
+                        const __grid_constant__ CUtensorMap v_map,
+                        const int32_t* __restrict__ page_table,
+                        const int32_t* __restrict__ lengths,
+                        T* __restrict__ out, pw::Geo g) {
+  using namespace wide::tcw;
+  const int nz = chunks(g.D);
+  const unsigned x = blockIdx.x;
+  const int z = x % nz;
+  const int h = x / nz % g.H;
+  const int b = x / nz / g.H % g.B;
+  const int i0 = (g.n_qt - 1 - (int)(x / nz / g.H / g.B)) * kTile;
+  const int len = lengths[b];
+  // rows any query of this tile sees, clamped to the table
+  const int t_end = (int)min((long long)g.maxp * g.P,
+                             (long long)len + min(i0 + kTile, g.s));
+  const int n_kv = (t_end + kTile - 1) / kTile;
+  const int n_sl = slices(g.D);
+  const bool res = q_resident(g.D);
+  const Smem L = smem_of(g.D);
+  const int box_bytes = g.pb * 128;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L.bars);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* k_empty = k_full + kStagesK;
+  uint64_t* v_full = k_empty + kStagesK;
+  uint64_t* v_empty = v_full + kStagesV;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int st = 0; st < kStagesK; ++st) {
+      hopper::mbar_init(k_full + st, 1);
+      hopper::mbar_init(k_empty + st, 128);
+    }
+    for (int st = 0; st < kStagesV; ++st) {
+      hopper::mbar_init(v_full + st, 1);
+      hopper::mbar_init(v_empty + st, 128);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {                   // the producer warp
+    if (threadIdx.x != 128) return;
+    hopper::prefetch_tensormap(&q_map);
+    hopper::prefetch_tensormap(&k_map);
+    hopper::prefetch_tensormap(&v_map);
+    if (res) {
+      hopper::mbar_arrive_expect_tx(q_full, n_sl * kSub);
+      for (int c = 0; c < n_sl; ++c)
+        hopper::tma_load_4d(sm + c * kSub, &q_map, q_full, 64 * c, h, i0, b);
+    }
+    const int32_t* pt_row = page_table + (size_t)b * g.maxp;
+    const int nb = kTile / g.pb;
+    int e = 0;
+    for (int j = 0; j < n_kv; ++j) {
+      const int k0 = j * kTile;
+      // the tile's boxes that hold visible rows, and their pool rows
+      const int live = min(nb, (t_end - k0 + g.pb - 1) / g.pb);
+      int prow[pw::kMaxBoxes];
+#pragma unroll
+      for (int u = 0; u < pw::kMaxBoxes; ++u) {
+        const int t = k0 + u * g.pb;
+        prow[u] = u < live ? min(max(pt_row[t / g.P], 0), g.N - 1) * g.P +
+                                 t % g.P
+                           : 0;
+      }
+      for (int c = 0; c < n_sl; ++c, ++e) {
+        const int st = e % kStagesK;
+        hopper::mbar_wait(k_empty + st, ((e / kStagesK) & 1) ^ 1);
+        unsigned char* ent = sm + L.k0 + st * L.k_entry;
+        hopper::mbar_arrive_expect_tx(k_full + st,
+                                      live * box_bytes + (res ? 0 : kSub));
+#pragma unroll
+        for (int u = 0; u < pw::kMaxBoxes; ++u)
+          if (u < live)
+            hopper::tma_load_4d(ent + u * box_bytes, &k_map, k_full + st,
+                                64 * c, h, prow[u], 0);
+        if (!res)
+          hopper::tma_load_4d(ent + kSub, &q_map, k_full + st, 64 * c, h,
+                              i0, b);
+      }
+      const int st = j % kStagesV;
+      hopper::mbar_wait(v_empty + st, ((j / kStagesV) & 1) ^ 1);
+      unsigned char* vt = sm + L.v0 + st * kVBytes;
+      hopper::mbar_arrive_expect_tx(v_full + st, kVSubs * live * box_bytes);
+      for (int w = 0; w < kVSubs; ++w)
+#pragma unroll
+        for (int u = 0; u < pw::kMaxBoxes; ++u)
+          if (u < live)
+            hopper::tma_load_4d(vt + w * kSub + u * box_bytes, &v_map,
+                                v_full + st, z * kNC + 64 * w, h, prow[u],
+                                0);
+    }
+    return;
+  }
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tq = lane & 3;
+  const int r0 = i0 + 16 * warp + (lane >> 2);    // this thread's q rows
+  const int pos[2] = {len + r0, len + r0 + 8};    // and their positions
+  wide::Args a = {};                          // the mask: t < t_end, t <= pos
+  a.SKV = t_end;
+  a.causal = 1;
+  if (res) hopper::mbar_wait(q_full, 0);
+  float o[kVSubs][32];
+#pragma unroll
+  for (int c = 0; c < kVSubs; ++c)
+#pragma unroll
+    for (int y = 0; y < 32; ++y) o[c][y] = 0.f;
+  float m_r[2] = {kNegInf, kNegInf};
+  float l_r[2] = {0.f, 0.f};                  // this thread's partial sums
+  int e = 0;
+  for (int j = 0; j < n_kv; ++j) {
+    const int k0 = j * kTile;
+    // S = q . k^T over the slices, one accumulator
+    float sv[32];
+#pragma unroll 1
+    for (int c = 0; c < n_sl; ++c, ++e) {
+      const int st = e % kStagesK;
+      hopper::mbar_wait(k_full + st, (e / kStagesK) & 1);
+      const unsigned char* ent = sm + L.k0 + st * L.k_entry;
+      const unsigned char* qa = res ? sm + c * kSub : ent + kSub;
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma_ss<T>(sv, hopper::desc_sw128(qa + kk * 32, 16, 1024),
+                            hopper::desc_sw128(ent + kk * 32, 16, 1024),
+                            c > 0 || kk > 0);
+      hopper::wgmma_commit();
+      if (c > 0) {                            // slice c - 1 read: release
+        hopper::wgmma_wait<1>();
+        hopper::mbar_arrive(k_empty + (e - 1) % kStagesK);
+      }
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_acc(sv);
+    hopper::mbar_arrive(k_empty + (e - 1) % kStagesK);
+
+    uint32_t pa[4][4];
+    float alpha[2];
+    if (k0 + kTile > t_end || k0 + kTile - 1 > len + i0)
+      scores<T, true, false>(sv, pa, m_r, l_r, alpha, g.scale_log2, k0, pos,
+                             tq, a, 0, 0);
+    else
+      scores<T, false, false>(sv, pa, m_r, l_r, alpha, g.scale_log2, k0,
+                              pos, tq, a, 0, 0);
+#pragma unroll
+    for (int c = 0; c < kVSubs; ++c)
+#pragma unroll
+      for (int y = 0; y < 32; ++y) o[c][y] *= alpha[(y >> 1) & 1];
+
+    // O += P . V for this chunk's 256 columns, V's rows past t_end zeroed
+    const int st = j % kStagesV;
+    hopper::mbar_wait(v_full + st, (j / kStagesV) & 1);
+    unsigned char* vt = sm + L.v0 + st * kVBytes;
+    if (k0 + kTile > t_end) {
+      const int r_lo = t_end - k0, per_row = kVSubs * 8;
+      for (int y = tid; y < (kTile - r_lo) * per_row; y += 128) {
+        const int r = r_lo + y / per_row, w = y % per_row;
+        *reinterpret_cast<uint4*>(vt + (w >> 3) * kSub + r * 128 +
+                                  (w & 7) * 16) = make_uint4(0, 0, 0, 0);
+      }
+      hopper::fence_async_shared();
+      hopper::named_bar_sync(kConsBar, 128);
+    }
+    fence_o(o);
+    fence_frag(pa);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int c = 0; c < kVSubs; ++c)
+        hopper::wgmma_rs<T>(o[c], pa[kk],
+                            hopper::desc_sw128(vt + c * kSub + kk * 2048,
+                                               kSub, 1024),
+                            1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    fence_o(o);
+    fence_frag(pa);
+    hopper::mbar_arrive(v_empty + st);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_r[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[r] = 1.f / (l == 0.f ? 1.f : l);      // the JAX guard
+  }
+  const size_t HD = (size_t)g.H * g.D;
+  T* ob = out + (size_t)b * g.s * HD + (size_t)h * g.D;
+#pragma unroll
+  for (int c = 0; c < kVSubs; ++c)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int col = z * kNC + 64 * c + 8 * i + 2 * tq;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + 8 * r;
+        if (row < g.s && col < g.D)
+          *reinterpret_cast<uint32_t*>(ob + row * HD + col) =
+              pack2<T>(o[c][4 * i + 2 * r] * inv[r],
+                       o[c][4 * i + 2 * r + 1] * inv[r]);
+      }
+    }
+}
+
+// bf16 / f16 prefill widths past kMaxD where pw::takes(D, P): the maps of
+// q and both pools, the launch
+template <typename T>
+int launch_wide_tc(const void* q, const void* k_pool, const void* v_pool,
+                   const void* page_table, const void* lengths, void* out,
+                   int B, int s, int H, int D, int N, int P, int maxp,
+                   float scale, cudaStream_t stream) {
+  pw::Geo g;
+  g.B = B;
+  g.s = s;
+  g.H = H;
+  g.D = D;
+  g.N = N;
+  g.P = P;
+  g.maxp = maxp;
+  g.pb = split::pow2_part(P);
+  g.n_qt = (s + kTile - 1) / kTile;
+  g.scale_log2 = scale * kLog2e;
+  const long long gx = (long long)g.n_qt * B * H * wide::tcw::chunks(D);
+  if (!pw::takes(D, P) || gx > 0x7FFFFFFFLL ||
+      (long long)N * P > 0x7FFFFFFFLL)
+    return -1;
+  CUtensorMap qm, km, vm;
+  int err = hopper::make_map_bshd<T>(&qm, q, B, s, H, D);
+  if (err) return err;
+  err = hopper::make_map_bshd<T>(&km, k_pool, 1, N * P, H, D, g.pb);
+  if (err) return err;
+  err = hopper::make_map_bshd<T>(&vm, v_pool, 1, N * P, H, D, g.pb);
+  if (err) return err;
+  const size_t smem = wide::tcw::smem_bytes(D);
+  err = prepare(paged_attention_wide_tc<T>, smem);
+  if (err) return err;
+  paged_attention_wide_tc<T><<<(unsigned)gx, wide::tcw::kBlock, smem,
+                               stream>>>(
+      qm, km, vm, static_cast<const int32_t*>(page_table),
+      static_cast<const int32_t*>(lengths), static_cast<T*>(out), g);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int DP, bool AL>
 int launch_mma(const void* q, const void* k_pool, const void* v_pool,
                const void* page_table, const void* lengths, void* out, int B,
@@ -1144,8 +1460,10 @@ int launch_t(const void* q, const void* k_pool, const void* v_pool,
   return (int)cudaGetLastError();
 }
 
-// bf16 / f16 at widths from kMmaMinWidth: the tensor-core kernels (in
-// slices past kMaxD); else (decode steps, f32) the scalar one
+// The kernel of each route (route() below): bf16 / f16 at widths from
+// kMmaMinWidth the tensor-core kernels (past kMaxD paged TMA + wgmma where
+// pw::takes(D, P), else the sliced mma.sync copy); else (decode steps,
+// f32) the scalar one
 template <typename T>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* page_table, const void* lengths, void* out, int B,
@@ -1153,7 +1471,9 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
            cudaStream_t stream) {
   if constexpr (!std::is_same<T, float>::value) {
     if (s >= kMmaMinWidth)
-      return (D > kMaxD ? launch_mma_wide<T> : launch_tc<T>)(
+      return (D <= kMaxD         ? launch_tc<T>
+              : pw::takes(D, P) ? launch_wide_tc<T>
+                                : launch_mma_wide<T>)(
           q, k_pool, v_pool, page_table, lengths, out, B, s, H, D, N, P,
           maxp, scale, stream);
   }
@@ -1163,6 +1483,23 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
                : (vec ? launch_t<T, true, false> : launch_t<T, false, false>);
   return f(q, k_pool, v_pool, page_table, lengths, out, B, s, H, D, N, P,
            maxp, scale, stream);
+}
+
+// The kernel the wrapper's dispatch runs for dtype, width s, head width D
+// and pages of P rows: 0 paged_decode_split (through paged_decode_launch:
+// widths below kMmaMinWidth, 16-byte rows, D <= 256), through
+// paged_attention_launch 1 paged_attention_mma (bf16/f16 widths from
+// kMmaMinWidth, D <= 256), 2 paged_attention_wide_tc (past 256 where
+// pw::takes(D, P)), 3 paged_attention_mma_wide (other rows past 256), 4
+// the scalar kernel (the rest); -1 a dtype or size it does not take.
+int route(int dtype, int s, int D, int P) {
+  if (dtype < 0 || dtype > 2 || s < 1 || D < 1 || P < 1) return -1;
+  const int elem = dtype == 0 ? 4 : 2;
+  if (s < kMmaMinWidth && D <= split::kMaxCols && (D * elem) % 16 == 0)
+    return 0;
+  if (dtype == 0 || s < kMmaMinWidth) return 4;
+  if (D <= kMaxD) return 1;
+  return pw::takes(D, P) ? 2 : 3;
 }
 
 }  // namespace
@@ -1197,6 +1534,16 @@ int paged_attention_launch(int dtype, const void* q, const void* k_pool,
     default:
       return -1;
   }
+}
+
+// route() above, for the wrapper's pure-Python mirror (tile_route)
+int paged_attention_route(int dtype, int s, int D, int P) {
+  return route(dtype, s, D, P);
+}
+
+// Dynamic shared memory of paged_attention_wide_tc at head width D, bytes
+int paged_attention_wide_smem(int D) {
+  return (int)wide::tcw::smem_bytes(D);
 }
 
 // The split decode kernel: widths s < kMmaMinWidth, D <= 256 with rows a

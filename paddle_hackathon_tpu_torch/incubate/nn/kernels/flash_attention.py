@@ -68,9 +68,10 @@ fwd_launches = dict.fromkeys(FWD_KERNELS, 0)
 # The dK/dV and dQ kernels, in the order of flash_bhd_bwd_route: bf16/f16
 # up to 256 on mma.sync (``mma``), f32 up to 256 on 3xTF32 wgmma (``tc``),
 # bf16/f16 past 256 on wgmma (``wide_tc``: flash_wide.cuh's dkdv_tc /
-# dq_tc) and f32 past 256 on the CUDA cores (``wide``).  Each launch counts
-# once in ``bwd_launches["<dkdv|dq>_<route>"]`` and once in ``launches``.
-BWD_ROUTES = ("mma", "tc", "wide_tc", "wide")
+# dq_tc) and f32 past 256 on 3xTF32 wgmma (``wide_tc_f32``: the run-time
+# width instances bhd_dkdv_tc<0> / bhd_dq_tc<0>).  Each launch counts once
+# in ``bwd_launches["<dkdv|dq>_<route>"]`` and once in ``launches``.
+BWD_ROUTES = ("mma", "tc", "wide_tc", "wide_tc_f32")
 bwd_launches = {f"{k}_{r}": 0 for r in BWD_ROUTES for k in ("dkdv", "dq")}
 
 # The launch plans of the tensor-core kernels past 256, as
@@ -88,6 +89,16 @@ _Q_RESIDENT_MAX_D = 1024      # bf16/f16: q's slices stay up to this width
 # and a producer warpgroup, 64-column slices in a ring of 4 entries of four
 # boxes, 256-column chunks, P handed over as a 64 x 64 f32 tile
 _WIDE_BWD = dict(threads=384, slice_cols=64, chunk_cols=256, stages=4)
+# the f32 backward past 256 (tc:: in flash_attention.cu): the same three
+# warpgroups, 32-column slices in a ring of 2 entries of up to four [64][32]
+# f32 boxes; 128 columns of each of dK and dV a block, 256 of dQ; dynamic
+# shared memory as tc::kSmemDkdv / kSmemDq (the ring, two split buffers a
+# warpgroup, the A operand tiles, the 64 x 64 exchange, the barriers),
+# which the library exports (library_bwd_smem) for a check on the card
+_WIDE_BWD_F32 = dict(threads=384, slice_cols=32, stages=2,
+                     chunk_cols={"dkdv": 128, "dq": 256},
+                     smem={"dkdv": 1024 + (8 + 8 + 8 + 2) * _BOX_BYTES + 32,
+                           "dq": 1024 + (8 + 8 + 4 + 2) * _BOX_BYTES + 32})
 
 
 def _vmem_cap(dtype=torch.bfloat16) -> int:
@@ -266,17 +277,14 @@ def _elem(dtype) -> int:
     return 4 if dtype == torch.float32 else 2
 
 
-def padded_width(head_dim: int, dtype, kernel: str = "fwd") -> int:
-    """The head width the ``kernel`` (``"fwd"``, or ``"bwd"`` for dK/dV and
-    dQ) runs ``head_dim`` at: the least width whose rows TMA addresses (a
-    multiple of 16 bytes: 4 f32, 8 bf16/f16 elements) where the kernel
-    reads rows by TMA -- f32 at every width (the backward up to 256: past
-    it the f32 backward runs on the CUDA cores and takes any D) and
-    bf16/f16 past 256 -- else ``head_dim`` itself (mma.sync reads any
-    row)."""
+def padded_width(head_dim: int, dtype) -> int:
+    """The head width the kernels (forward, dK/dV and dQ alike) run
+    ``head_dim`` at: the least width whose rows TMA addresses (a multiple
+    of 16 bytes: 4 f32, 8 bf16/f16 elements) where the kernels read rows
+    by TMA -- f32 at every width and bf16/f16 past 256 -- else
+    ``head_dim`` itself (mma.sync reads any row)."""
     if dtype == torch.float32:
-        return -(-head_dim // 4) * 4 \
-            if kernel == "fwd" or head_dim <= 256 else head_dim
+        return -(-head_dim // 4) * 4
     return -(-head_dim // 8) * 8 if head_dim > 256 else head_dim
 
 
@@ -294,8 +302,8 @@ def bwd_route(head_dim: int, dtype) -> str:
     :data:`BWD_ROUTES`, at :func:`padded_width`): the mirror of the
     libraries' ``flash_bhd_bwd_route``."""
     f32 = dtype == torch.float32
-    if padded_width(head_dim, dtype, "bwd") > 256:
-        return "wide" if f32 else "wide_tc"
+    if padded_width(head_dim, dtype) > 256:
+        return "wide_tc_f32" if f32 else "wide_tc"
     return "tc" if f32 else "mma"
 
 
@@ -350,21 +358,33 @@ def wide_fwd_plan(bh: int, sq: int, head_dim: int, dtype,
 
 def wide_bwd_plan(bh: int, s: int, head_dim: int, dtype, kernel: str,
                   row_elems: int = None) -> dict:
-    """The launch plan of the bf16/f16 dK/dV (``kernel="dkdv"``: grid over
-    kv tiles of ``s`` rows) or dQ (``"dq"``: over q tiles) kernel past 256
-    (flash_wide.cuh's ``dkdv_tc`` / ``dq_tc``), at :func:`padded_width`
-    (``ValueError`` for another route): the keys of :func:`wide_fwd_plan`,
-    ``stages`` the slice ring's entries (four boxes each), nothing
-    resident (``q_resident`` False: every operand streams, so the plan is
-    one size at every width), and ``smem`` as ``wide::tcb::smem_of``:
-    the ring, the chunk entry (dK/dV: dO and q, four boxes each; dQ: k),
-    P as 64 x 64 f32 and the barriers."""
+    """The launch plan of the dK/dV (``kernel="dkdv"``: grid over kv tiles
+    of ``s`` rows) or dQ (``"dq"``: over q tiles) kernel past 256, at
+    :func:`padded_width` (``ValueError`` for a width the narrower kernels
+    take): bf16/f16 flash_wide.cuh's ``dkdv_tc`` / ``dq_tc`` (route
+    ``wide_tc``), f32 the 3xTF32 pair's run-time-width instances (route
+    ``wide_tc_f32``).  The keys of :func:`wide_fwd_plan`, ``grid`` (64-row
+    tiles x bh x output chunks in grid.x), ``stages`` the slice ring's
+    entries (four boxes each), nothing resident (``q_resident`` False:
+    every operand streams, so the plan is one size at every width), and
+    ``smem``: bf16/f16 as ``wide::tcb::smem_of`` (the ring, the chunk
+    entry -- dK/dV: dO and q, four boxes each; dQ: k --, P as 64 x 64 f32
+    and the barriers), f32 as ``tc::kSmemDkdv`` / ``kSmemDq``.  f32
+    chunks are 128 columns of each of dK and dV, or 256 of dQ (each
+    consumer warpgroup 128 of them)."""
     route = bwd_route(head_dim, dtype)
-    if route != "wide_tc":
+    if route not in ("wide_tc", "wide_tc_f32"):
         raise ValueError(f"D={head_dim} in {dtype} runs {route}")
     if kernel not in ("dkdv", "dq"):
         raise ValueError(f"kernel must be dkdv or dq, got {kernel}")
-    head_dim = padded_width(head_dim, dtype, "bwd")
+    head_dim = padded_width(head_dim, dtype)
+    if route == "wide_tc_f32":
+        geo = dict(_WIDE_BWD_F32, chunk_cols=_WIDE_BWD_F32["chunk_cols"][
+            kernel])
+        plan = _plan_common(route, bh, s, head_dim, 4, geo, row_elems)
+        plan.update(kernel=kernel, q_resident=False,
+                    stages=geo["stages"], smem=geo["smem"][kernel])
+        return plan
     plan = _plan_common(route, bh, s, head_dim, 2, _WIDE_BWD, row_elems)
     stages = _WIDE_BWD["stages"]
     boxes = plan["chunk_cols"] // 64
@@ -395,9 +415,10 @@ def _lib(head_dim, dtype):
         lib.flash_bhd_dq.argtypes = [ci] + [vp] * 8 + tail
         for name in ("fwd_route", "bwd_route", "fwd_smem"):
             getattr(lib, f"flash_bhd_{name}").argtypes = [ci, ci]
+        lib.flash_bhd_bwd_smem.argtypes = [ci, ci, ci]
         fns = _fns[key] = {}
         for name in ("fwd", "dkdv", "dq", "fwd_route", "bwd_route",
-                     "fwd_smem"):
+                     "fwd_smem", "bwd_smem"):
             fn = getattr(lib, f"flash_bhd_{name}")
             fn.restype = ctypes.c_int
             fns[name] = fn
@@ -405,7 +426,7 @@ def _lib(head_dim, dtype):
 
 
 def _library_route(name, head_dim, dtype, names) -> str:
-    d = padded_width(head_dim, dtype, name)
+    d = padded_width(head_dim, dtype)
     code = _lib(d, dtype)[f"{name}_route"](_DTYPE_CODES[dtype], d)
     if code < 0:
         raise RuntimeError(f"no bhd {name} kernel for D={d}, {dtype}")
@@ -431,6 +452,14 @@ def library_fwd_smem(head_dim, dtype) -> int:
     computes it."""
     d = padded_width(head_dim, dtype)
     return _lib(d, dtype)["fwd_smem"](_DTYPE_CODES[dtype], d)
+
+
+def library_bwd_smem(head_dim, dtype, kernel) -> int:
+    """The dK/dV (``kernel="dkdv"``) or dQ (``"dq"``) kernel's dynamic
+    shared memory in bytes, as the library computes it."""
+    d = padded_width(head_dim, dtype)
+    return _lib(d, dtype)["bwd_smem"](_DTYPE_CODES[dtype], d,
+                                      int(kernel == "dq"))
 
 
 def check_geometry(q_shape, kv_shape, dtype) -> None:
@@ -547,7 +576,7 @@ def _check_bwd(q, k, v, do, lse, delta_row):
 def _bwd_inputs(q, k, v, do):
     """q, k, v and dO zero-padded to the width dK/dV and dQ run at (Δ
     comes from the caller, over the real columns)."""
-    width = padded_width(q.shape[-1], q.dtype, "bwd")
+    width = padded_width(q.shape[-1], q.dtype)
     return [_pad(t, width) for t in (q, k, v, do)]
 
 

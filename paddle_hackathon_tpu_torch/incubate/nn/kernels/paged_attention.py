@@ -23,7 +23,11 @@ the host-side allocator).
   go to the split decode kernel (chunks of 64 rows over blocks, whole-page
   TMA loads, the chunks merged inside the launch), the rest to the tile
   kernels; :func:`split_plan` is the split kernel's head grouping and
-  chunk count.
+  chunk count.  :func:`tile_route` names the kernel of each shape (one of
+  :data:`TILE_ROUTES`, each counted in :data:`kernel_launches`), the
+  pure-Python mirror of the library's ``paged_attention_route``, and
+  :func:`wide_tc_plan` mirrors the launch plan of the prefill kernel past
+  ``D = 256`` (paged TMA + wgmma).
 """
 
 from __future__ import annotations
@@ -41,6 +45,14 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # smoke run reads them to prove the serving path went through the kernels):
 # "paged_decode" the split decode kernel, "paged_attention" the tile kernels
 launches = {"paged_decode": 0, "paged_attention": 0}
+# The kernels, in the order of the library's paged_attention_route: the
+# split decode kernel (through "paged_decode"), then through
+# "paged_attention" the tile kernel on mma.sync (bf16/f16 prefill up to
+# D = 256), paged TMA + wgmma past 256 (``tiles_wide_tc``), the sliced
+# mma.sync copy past 256 for the rest (``tiles_wide``), and the scalar
+# kernel.  Each launch counts once here and once in ``launches``.
+TILE_ROUTES = ("split", "tiles", "tiles_wide_tc", "tiles_wide", "scalar")
+kernel_launches = dict.fromkeys(TILE_ROUTES, 0)
 
 SPLIT_ROWS = 64          # logical rows of a split-decode chunk
 SPLIT_MAX_WIDTH = 15     # widths below the tensor-core kernel's 16
@@ -142,9 +154,8 @@ def check_kernel_args(q, k_pool, v_pool, page_table, lengths) -> None:
 def uses_split_decode(s: int, head_dim: int, dtype) -> bool:
     """Whether the split decode kernel takes a call (else the tile
     kernels): widths below 16, rows a multiple of 16 bytes, D <= 256."""
-    elem = torch.empty((), dtype=dtype).element_size()
     return (s <= SPLIT_MAX_WIDTH and head_dim <= 256
-            and head_dim * elem % 16 == 0)
+            and head_dim * dtype.itemsize % 16 == 0)
 
 
 def split_plan(heads: int, head_dim: int, dtype, page_size: int,
@@ -153,12 +164,65 @@ def split_plan(heads: int, head_dim: int, dtype, page_size: int,
     of G (a TMA box of G * D <= 256 columns and at most 512 bytes a row
     where D allows, G <= 8, the groups balanced), and the table's chunks
     of ``SPLIT_ROWS`` logical rows."""
-    elem = torch.empty((), dtype=dtype).element_size()
-    g = max(1, min(heads, 8, 512 // (head_dim * elem), 256 // head_dim))
+    g = max(1, min(heads, 8, 512 // (head_dim * dtype.itemsize),
+                   256 // head_dim))
     g = -(-heads // -(-heads // g))
     # the kernel's own counts: ceil(H / G) groups, ceil(T / rows) chunks
     return (g, -(-heads // g),
             -(-(page_size * pages_per_slot) // SPLIT_ROWS))
+
+
+def _pow2_part(page_size: int) -> int:
+    """The largest power of two that divides ``page_size``, up to 64 (the
+    split kernel's box rows, and the wide prefill kernel's)."""
+    return min(page_size & -page_size, 64)
+
+
+def tile_route(s: int, head_dim: int, dtype, page_size: int) -> str:
+    """The kernel that runs width ``s``, ``head_dim`` and pages of
+    ``page_size`` rows in ``dtype`` (one of :data:`TILE_ROUTES`): the
+    mirror of the library's ``paged_attention_route``.  Past D = 256 the
+    TMA prefill kernel takes rows of a multiple of 8 elements over pages
+    of a multiple of 8 rows (a 128-byte-swizzled box of 8 rows lands
+    1024-byte aligned)."""
+    if uses_split_decode(s, head_dim, dtype):
+        return "split"
+    if dtype == torch.float32 or s <= SPLIT_MAX_WIDTH:
+        return "scalar"
+    if head_dim <= 256:
+        return "tiles"
+    if head_dim % 8 == 0 and _pow2_part(page_size) >= 8:
+        return "tiles_wide_tc"
+    return "tiles_wide"
+
+
+def wide_tc_plan(B: int, s: int, H: int, head_dim: int, page_size: int,
+                 dtype) -> dict:
+    """The launch plan of ``paged_attention_wide_tc`` (``ValueError`` for
+    a shape another kernel takes), as the kernel lays it out: ``grid``
+    (slots x 64-row q tiles x heads x 256-column chunks in grid.x),
+    ``threads`` (a consumer warpgroup and a producer warp), the K/V boxes
+    (``box_rows`` = the largest power of two dividing the page, up to 64;
+    ``boxes`` a 64-row tile, 64 columns of one head each), the 64-column
+    ``slices``, whether q's slices stay resident (up to D = 1024) and
+    ``smem`` as ``wide::tcw::smem_of`` (q's slices, a K ring of 4 entries
+    -- with q's slice beside each where q streams --, a V ring of 2
+    chunk entries, the barriers)."""
+    route = tile_route(s, head_dim, dtype, page_size)
+    if route != "tiles_wide_tc":
+        raise ValueError(f"s={s} D={head_dim} P={page_size} {dtype} runs "
+                         f"{route}")
+    box = 64 * 128                            # a [64][64] 2-byte box
+    slices, chunks = -(-head_dim // 64), -(-head_dim // 256)
+    resident = head_dim <= 1024
+    k_entry = box * (1 if resident else 2)
+    bars = (slices * box if resident else 0) + 4 * k_entry + 2 * 4 * box
+    pb = _pow2_part(page_size)
+    return dict(route=route, threads=160,
+                grid=(B * -(-s // 64) * H * chunks, 1, 1),
+                box_rows=pb, boxes=64 // pb, box_bytes=128, slices=slices,
+                chunks=chunks, q_resident=resident,
+                smem=1024 + bars + (1 + 2 * 4 + 2 * 2) * 8)
 
 
 _fns = {}
@@ -202,9 +266,34 @@ def _split_scratch(q, H, D, nch, groups):
     return tuple(t.data_ptr() for t in _scratch[key])
 
 
+def library_route(s, head_dim, dtype, page_size) -> str:
+    """The kernel the library routes the shape to (its
+    ``paged_attention_route``; builds the library at first use)."""
+    from ._build import load
+    fn = load("paged_attention").paged_attention_route
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    code = fn(_DTYPE_CODES[dtype], s, head_dim, page_size)
+    if code < 0:
+        raise RuntimeError(f"no paged kernel for s={s} D={head_dim} "
+                           f"P={page_size} {dtype}")
+    return TILE_ROUTES[code]
+
+
+def library_wide_smem(head_dim) -> int:
+    """``paged_attention_wide_tc``'s dynamic shared memory at ``head_dim``
+    as the library computes it."""
+    from ._build import load
+    fn = load("paged_attention").paged_attention_wide_smem
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(head_dim)
+
+
 def paged_attention_kernel(q, k_pool, v_pool, page_table, lengths):
     """Launch a Hopper kernel on PyTorch's current stream: the split decode
-    kernel where :func:`uses_split_decode` holds, else the tile kernels;
+    kernel where :func:`uses_split_decode` holds, else the tile kernels
+    (the kernel :func:`tile_route` names, counted under its name);
     returns ``(B, s, H, D)`` in q's dtype.  Raises on arguments the kernels
     do not take or a launch the device refuses."""
     if q.device.type != "cuda":
@@ -215,7 +304,8 @@ def paged_attention_kernel(q, k_pool, v_pool, page_table, lengths):
     N, P = k_pool.shape[:2]
     maxp = page_table.shape[1]
     out = torch.empty_like(q)
-    split = uses_split_decode(s, D, q.dtype)
+    route = tile_route(s, D, q.dtype, P)
+    split = route == "split"
     name = "paged_decode" if split else "paged_attention"
     fn = _lib(name)
     with torch.cuda.device(q.device):
@@ -234,6 +324,7 @@ def paged_attention_kernel(q, k_pool, v_pool, page_table, lengths):
         raise RuntimeError(f"paged_attention kernel launch failed: "
                            f"CUDA error {err}")
     launches[name] += 1
+    kernel_launches[route] += 1
     return out
 
 

@@ -183,6 +183,62 @@ def test_routing_sends_decode_widths_to_the_split_kernel(s, D, dtype, split):
     assert tpa.uses_split_decode(s, D, dtype) is split
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("s", [1, 15, 16, 32, 128])
+def test_tile_route_names_one_kernel_per_shape(s, dtype):
+    """The mirror of the library's ``paged_attention_route``: the split
+    decode kernel at decode widths with 16-byte rows up to D = 256; bf16 /
+    f16 widths from 16 the tile kernel up to 256, past it paged TMA +
+    wgmma where rows are a multiple of 8 elements and pages of 8 rows, the
+    sliced mma.sync copy otherwise; the scalar kernel for the rest."""
+    half = dtype != torch.float32
+    for D in (64, 256, 260, 320, 512):
+        for P in (1, 12, 16, 48, 128):
+            route = tpa.tile_route(s, D, dtype, P)
+            assert route in tpa.TILE_ROUTES
+            assert (route == "split") is tpa.uses_split_decode(s, D, dtype)
+            if route == "split":
+                continue
+            if not half or s < 16:
+                want = "scalar"
+            elif D <= 256:
+                want = "tiles"
+            elif D % 8 == 0 and P % 8 == 0:
+                want = "tiles_wide_tc"
+            else:
+                want = "tiles_wide"
+            assert route == want, (s, D, P, dtype, route)
+    # the routes are the keys of the per-kernel launch counts
+    assert set(tpa.kernel_launches) == set(tpa.TILE_ROUTES)
+
+
+@pytest.mark.parametrize("P", [1, 16, 48, 128, 256])
+def test_wide_tc_plan_boxes_stay_in_their_page(P):
+    """``paged_attention_wide_tc``'s plan: a box of K or V rows never
+    leaves its page and lands 1024-byte aligned (8-row groups of 128
+    bytes), a 64-row kv tile is whole boxes, and shared memory stays under
+    the card's 232,448 bytes at every width to 8192; pages of fewer than 8
+    rows a box (P = 1) take the sliced kernel."""
+    if P % 8:
+        assert tpa.tile_route(32, 512, torch.bfloat16, P) == "tiles_wide"
+        with pytest.raises(ValueError):
+            tpa.wide_tc_plan(16, 32, 12, 512, P, torch.bfloat16)
+        return
+    for D in range(264, 8193, 8):
+        plan = tpa.wide_tc_plan(16, 32, 12, D, P, torch.bfloat16)
+        assert plan["smem"] <= 232_448, (D, plan)
+        assert plan["q_resident"] is (D <= 1024)
+        assert plan["grid"] == (16 * 12 * -(-D // 256), 1, 1)
+    pb = plan["box_rows"]
+    assert P % pb == 0 and 64 % pb == 0 and pb >= 8
+    assert plan["boxes"] * pb == 64 and pb * plan["box_bytes"] % 1024 == 0
+    for t0 in range(0, 4 * P, 64):            # every box of four pages
+        for u in range(plan["boxes"]):
+            t = t0 + u * pb
+            assert t // P == (t + pb - 1) // P, (t, pb, P)
+
+
 @pytest.mark.parametrize("H,D,dtype,P,maxp,plan", [
     (12, 64, torch.bfloat16, 16, 32, (4, 3, 8)),     # the serving geometry
     (12, 64, torch.float32, 16, 32, (2, 6, 8)),

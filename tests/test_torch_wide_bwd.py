@@ -126,9 +126,9 @@ def test_k2_bf16_wide_grads_match_jax_kernel(d):
                                     (514, "bfloat16", 0.0)])
 def test_k2_padded_rows_match_jax_kernel(d, dt, p):
     """Rows TMA cannot address: f32 D = 33 (the 3xTF32 kernels at 36) and
-    514 (the forward at 516; the backward, on the CUDA cores, at 514), and
-    bf16 D = 514 (the tensor-core kernels at 520), forward and gradients
-    against the JAX package's at the unpadded width."""
+    514 (the forward and the 3xTF32 backward at 516), and bf16 D = 514 (the
+    tensor-core kernels at 520), forward and gradients against the JAX
+    package's at the unpadded width."""
     dtype = getattr(torch, dt)
     assert tfa.padded_width(d, dtype) > d
     _k2_against_jax(*_bhd(d, dt, seed=1), dt, p=p)
@@ -136,7 +136,8 @@ def test_k2_padded_rows_match_jax_kernel(d, dt, p):
 
 @pytest.mark.parametrize("d,dt", [(33, torch.float32), (514, torch.float32),
                                   (514, torch.bfloat16),
-                                  (257, torch.float16)])
+                                  (257, torch.float16),
+                                  (1030, torch.float32)])
 def test_plain_versions_on_padded_inputs_cut_back_are_the_unpadded(d, dt):
     """The padded route's premise, in torch alone: zero columns of q, k and
     dO add exact zeros to every score and to dP, so the plain forward and
@@ -151,9 +152,8 @@ def test_plain_versions_on_padded_inputs_cut_back_are_the_unpadded(d, dt):
     exact = dict(rtol=1e-12, atol=1e-12)
     sc = 1.0 / math.sqrt(d)
     for kernel in ("fwd", "bwd"):
-        w = tfa.padded_width(d, dt, kernel)
-        assert w % (4 if dt == torch.float32 else 8) == 0 or w == d
-        assert w > d or (kernel, dt) == ("bwd", torch.float32)
+        w = tfa.padded_width(d, dt)
+        assert w % (4 if dt == torch.float32 else 8) == 0 and w > d
         padded = [tfa._pad(t, w) for t in (q, k, v, do)]
         assert all(t.shape[-1] == w and t.is_contiguous() for t in padded)
         assert all(torch.equal(t[..., d:], torch.zeros_like(t[..., d:]))
@@ -177,23 +177,32 @@ def test_plain_versions_on_padded_inputs_cut_back_are_the_unpadded(d, dt):
 # Routes and the launch plan of the backward past 256
 # ---------------------------------------------------------------------------
 
-def _check_bwd_plan(plan, d, bh, s, kernel):
-    """The rules every plan of ``dkdv_tc`` / ``dq_tc`` obeys."""
-    assert plan["route"] == "wide_tc" and plan["kernel"] == kernel
+def _check_bwd_plan(plan, d, bh, s, kernel, dtype=torch.bfloat16):
+    """The rules every plan of the dK/dV and dQ kernels past 256 obeys:
+    bf16/f16 ``dkdv_tc`` / ``dq_tc`` (64-column slices, 256-column
+    chunks, a ring of 4), f32 ``bhd_dkdv_tc<0>`` / ``bhd_dq_tc<0>``
+    (32-column slices, 128 columns of dK and dV or 256 of dQ a block, a
+    ring of 2)."""
+    f32 = dtype == torch.float32
+    e = 4 if f32 else 2
+    assert plan["route"] == ("wide_tc_f32" if f32 else "wide_tc")
+    assert plan["kernel"] == kernel
     assert plan["smem"] <= SMEM_LIMIT, (d, plan)
-    assert plan["threads"] == 384 and plan["stages"] == 4
+    assert plan["threads"] == 384 and plan["stages"] == (2 if f32 else 4)
     assert not plan["q_resident"]
     # a TMA box row is the 128 bytes of the swizzle, each box edge <= 256
-    assert plan["box_bytes"] == 128 == plan["box"][0] * 2
+    assert plan["box_bytes"] == 128 == plan["box"][0] * e
     assert max(plan["box"]) <= 256
     w = plan["head_dim"]
-    assert w == tfa.padded_width(d, torch.bfloat16, "bwd")
-    assert w % 8 == 0 and 0 <= w - d < 8
-    assert plan["row_elems"] * 2 % 16 == 0
-    assert plan["slices"] * 64 >= w > (plan["slices"] - 1) * 64
-    assert plan["tail"] == w % 64
-    assert plan["chunk_cols"] == 256
-    assert plan["chunks"] == -(-w // 256)
+    assert w == tfa.padded_width(d, dtype)
+    assert w * e % 16 == 0 and 0 <= w - d < 16 // e
+    assert plan["row_elems"] * e % 16 == 0
+    sl = 128 // e
+    assert plan["slices"] * sl >= w > (plan["slices"] - 1) * sl
+    assert plan["tail"] == w % sl
+    cc = (128 if kernel == "dkdv" else 256) if f32 else 256
+    assert plan["chunk_cols"] == cc
+    assert plan["chunks"] == -(-w // cc)
     assert plan["grid"] == (-(-s // 64) * bh * plan["chunks"], 1, 1)
     assert plan["grid"][0] <= 2 ** 31 - 1
 
@@ -220,35 +229,118 @@ def test_k1_bwd_plan_fits_every_jax_plan_width(s, heads):
     assert tfap.bwd_kernel_of(256) == "tma"
 
 
-@pytest.mark.parametrize("dt", ["bfloat16", "float16"])
+@pytest.mark.parametrize("dt", ["bfloat16", "float16", "float32"])
 @pytest.mark.parametrize("d", [257, 264, 320, 516, 1024, 2048])
 def test_k2_bwd_plan(d, dt):
-    """K2 bf16/f16 past 256, unaligned rows at their padded width."""
+    """K2 past 256, unaligned rows at their padded width: bf16/f16 on
+    ``dkdv_tc`` / ``dq_tc``, f32 on the 3xTF32 pair's run-time-width
+    instances, at every width to the JAX plan's 8192 for f32."""
     dtype = getattr(torch, dt)
-    assert tfa.bwd_route(d, dtype) == "wide_tc"
+    f32 = dtype == torch.float32
+    assert tfa.bwd_route(d, dtype) == ("wide_tc_f32" if f32 else "wide_tc")
     for kernel in ("dkdv", "dq"):
         _check_bwd_plan(tfa.wide_bwd_plan(12, 1000, d, dtype, kernel), d,
-                        12, 1000, kernel)
+                        12, 1000, kernel, dtype)
     # dQ's chunk entry holds k alone: 32 KB less than dK/dV's dO and q
+    # (f32: its A operand is dS alone, 4 boxes of 8 KB less than P^T and
+    # dS^T)
     assert tfa.wide_bwd_plan(1, 64, d, dtype, "dkdv")["smem"] - \
         tfa.wide_bwd_plan(1, 64, d, dtype, "dq")["smem"] == 4 * 64 * 128
+    if f32 and d == 257:
+        # one plan for every width: nothing resident, the ring streams
+        for w in range(257, 8193):
+            for kernel in ("dkdv", "dq"):
+                plan = tfa.wide_bwd_plan(16, 1024, w, dtype, kernel)
+                assert plan["smem"] <= SMEM_LIMIT
+                assert plan["head_dim"] == -(-w // 4) * 4
+                assert plan["chunks"] == -(-plan["head_dim"] //
+                                           plan["chunk_cols"])
+                assert plan["grid"][0] == 16 * 16 * plan["chunks"]
 
 
 def test_routes_name_no_cuda_core_forward():
     """Every width to 1100 in every dtype: the forward is a tensor-core or
-    mma.sync kernel (no CUDA-core forward exists); dK/dV and dQ run on
-    the CUDA cores only for f32 past 256; plans refuse other routes."""
+    mma.sync kernel and so are dK/dV and dQ (no CUDA-core kernel exists:
+    f32 past 256 runs the 3xTF32 pair's run-time-width instances); plans
+    refuse other routes."""
+    assert "wide" not in tfa.BWD_ROUTES and "wide_fwd" not in \
+        tfa.FWD_KERNELS
     for dt in (torch.float32, torch.bfloat16, torch.float16):
         for d in range(1, 1101):
             assert tfa.fwd_route(d, dt) in tfa.FWD_KERNELS
             route = tfa.bwd_route(d, dt)
+            assert route in tfa.BWD_ROUTES
             if d > 256:
-                assert route == ("wide" if dt == torch.float32
+                assert route == ("wide_tc_f32" if dt == torch.float32
                                  else "wide_tc"), (d, dt)
             else:
                 assert route == ("tc" if dt == torch.float32 else "mma")
-    assert "wide_fwd" not in tfa.FWD_KERNELS
     with pytest.raises(ValueError):
-        tfa.wide_bwd_plan(1, 64, 514, torch.float32, "dkdv")
+        tfa.wide_bwd_plan(1, 64, 256, torch.float32, "dkdv")
     with pytest.raises(ValueError):
         tfa.wide_bwd_plan(1, 64, 256, torch.bfloat16, "dq")
+
+
+# ---------------------------------------------------------------------------
+# The f32 pair's limit past 256 and its control
+# ---------------------------------------------------------------------------
+
+PAIR_REL = 6e-7     # chip_smoke.py's FLASH_F32_PAIR_REL
+
+
+def _trunc_split(x):
+    """``tf32_split`` with truncation in place of rounding to nearest (hi:
+    the low 13 mantissa bits cleared, as the tensor core reads raw f32)."""
+    def trunc(t):
+        return (t.contiguous().view(torch.int32) & ~0x1FFF).view(
+            torch.float32)
+    hi = trunc(x.float())
+    return hi, trunc(x.float() - hi)
+
+
+def _split_pair(split, q, k, v, do, lse, delta, sc):
+    """The plain causal f32 pair with every product taken as the 3xTF32
+    kernels take it (al.bh + ah.bl + ah.bh of ``split``'s operands, one
+    f32 sum over the three), P and dS split as the kernels split them."""
+    def mm(eq, a, b, axis_a, axis_b):
+        (ah, al), (bh, bl) = split(a), split(b)
+        return torch.einsum(eq, torch.cat([al, ah, ah], axis_a),
+                            torch.cat([bh, bl, bh], axis_b))
+    sq, skv = q.shape[1], k.shape[1]
+    mask = torch.ones(sq, skv, dtype=torch.bool).tril()
+    p = torch.exp(mm("bqd,bkd->bqk", q, k, 2, 2) * sc
+                  - lse[..., None]).masked_fill(~mask, 0.0)
+    dp = mm("bqd,bkd->bqk", do, v, 2, 2)
+    ds = p * (dp - delta[..., None]) * sc
+    return (mm("bqk,bkd->bqd", ds, k, 2, 1),
+            mm("bqk,bqd->bkd", ds, q, 1, 1),
+            mm("bqk,bqd->bkd", p, do, 1, 1))
+
+
+@pytest.mark.parametrize("d", [320, 512])
+def test_f32_pair_limit_has_a_control_that_fails_past_256(d):
+    """The limit the card holds K2's f32 pair to up to D = 512 (relative
+    L2 6e-7 of dq, dk and dv against the f64 plain pair): the plain pair
+    on 3xTF32 operands split to nearest, the kernels' arithmetic, is
+    under it, and split by truncation (the single rounding the tensor
+    core would apply to raw f32) is over it, so the check can fail."""
+    rng = np.random.RandomState(7)
+    bh, s = 2, 256
+    q, k = (torch.from_numpy((rng.randn(bh, s, d) * 0.5).astype(np.float32))
+            for _ in "qk")
+    v, do = (torch.from_numpy(rng.randn(bh, s, d).astype(np.float32))
+             for _ in "vd")
+    sc = 1.0 / math.sqrt(d)
+    o64, lse64 = tfa.flash_fwd_ref(q.double(), k.double(), v.double(), True,
+                                   sc)
+    delta64 = (do.double() * o64).sum(-1)
+    ref = tfa.flash_bwd_pair_ref(q.double(), k.double(), v.double(),
+                                 do.double(), lse64, delta64, True, sc)
+    lse, delta = lse64.float(), delta64.float()
+
+    def worst(split):
+        got = _split_pair(split, q, k, v, do, lse, delta, sc)
+        return max(float((g.double() - r).norm() / r.norm())
+                   for g, r in zip(got, ref))
+    rna, trunc = worst(tfa.tf32_split), worst(_trunc_split)
+    assert rna <= PAIR_REL < trunc, (rna, trunc)
