@@ -14,8 +14,10 @@ Phases, each printing one JSON line:
                library per padded head width, 64, 128 and 256, and one for
                every wider head, the column-chunked kernels) and reports
                the seconds taken, per library too, and ptxas's register /
-               spill lines; for each K1 kernel (forward, dK/dV and dQ,
-               bf16/f16, 64/128/256 wide: 18) and each of K2's 3xTF32
+               spill lines; for each kernel of ``csrc/flash_tc.cuh`` (K1's
+               forward, dK/dV and dQ, bf16/f16, 64/128/256 wide: 18, and
+               K2's bf16/f16 instances of the same bodies: 18) and each of
+               K2's 3xTF32
                forward, dK/dV and dQ kernels (64/128/256: 9) its
                registers, spills, ptxas's performance notes (K1: its
                dynamic shared memory), and, where ``cuobjdump`` is found,
@@ -69,9 +71,10 @@ Phases, each printing one JSON line:
                ``F.scaled_dot_product_attention(is_causal=True)`` on pre-split
                (b, H, s, D) tensors (forward by graph replay; backward, for
                dK/dV and dQ together, by the kernels' own device time under
-               ``torch.profiler``), which the port never calls; and the
-               backward pair beside K2's bf16 dK/dV + dQ at the same shape
-               (``backward_pair``).  Then the same three kernels at D=256
+               ``torch.profiler``), which the port never calls; the
+               backward pair beside SDPA's backward (``backward_pair``;
+               K2's bf16 kernels, the same bodies, in ``flash_bhd``).
+               Then the same three kernels at D=256
                (b=8, s=1024, H=4: the wide GPT's attention) beside their
                bounds, plain versions and SDPA's bf16 forward and backward
                (``wide``).
@@ -97,12 +100,19 @@ Phases, each printing one JSON line:
                apart.  Cases: causal and non-causal, dropout 0.1 with a fixed
                seed, sq=256/skv=1024 and sq=1024/skv=256 causal, ragged
                s=1000, D = 32, 80, 128, 256 and 36 (rows not 16-byte aligned
-               in bf16/f16) and, past 256, 264, 320, 384, 512 and 1024,
+               in bf16/f16, zero-padded to 40) and, past 256, 264, 320,
+               384, 512 and 1024,
                each in f32, bf16 and f16 (the forward on the tensor cores;
                each also twice more bit for bit and with V's chunks
                repeated, every output chunk equal to the first; bf16/f16
                dK/dV and dQ on the tensor cores, the pair twice more bit
-               for bit); bf16 D=320 and D=264 (sq > skv) and f16 D=512
+               for bit); every bf16/f16 case up to 256 launching only
+               ``flash_tc.cuh``'s forward, dK/dV and dQ (``fwd_tc16``,
+               ``tc16``) and no other kernel, its forward and its pair
+               three times each bit for bit alike (the pair also equal to
+               autograd's); bf16 D=100 (padded to 104) with dropout 0.1
+               and sq=256 < skv=512 (causal kv blocks past the last q row
+               write zeros); bf16 D=320 and D=264 (sq > skv) and f16 D=512
                (non-causal, sq < skv) with dropout 0.1; rows TMA cannot
                address, zero-padded onto the tensor-core kernels: f32 D=33
                (the 3xTF32 kernels at 36) and bf16 D=514 (at 520); f32 at
@@ -112,9 +122,9 @@ Phases, each printing one JSON line:
                forward and the 3xTF32 dK/dV and dQ (at 516 for D=514) and
                no other kernel; the
                Python mirror of the routes and dynamic shared memory
-               (``fwd_route``, ``bwd_route``, ``wide_fwd_plan``,
-               ``fwd_plan``, ``bwd_plan``) equal to the libraries' own at
-               widths 33 to 8192; the f32 training
+               (``fwd_route``, ``bwd_route``, ``tc16_smem``,
+               ``wide_fwd_plan``, ``fwd_plan``, ``bwd_plan``) equal to the
+               libraries' own at widths 33 to 8192; the f32 training
                geometry (B*H = 16*12, s=1024, D=64); batch 1 through
                ``flash_attention_bshd`` on strided views of one fused
                projection (f32 at H=12, s=1024; bf16 at H=1); and the ring's
@@ -123,7 +133,8 @@ Phases, each printing one JSON line:
                ring layout); and b*H = 65538 (past grid.y's limit) at s=8,
                D=64, f32 and bf16, forward and pair, whose last two heads
                are held against the plain version with the heads before as
-               the planted fault.  Limits: bf16/f16 ``FLASH_TOL``; f32
+               the planted fault (bf16: ``flash_tc.cuh``'s kernels alone,
+               once each, and twice more bit for bit).  Limits: bf16/f16 ``FLASH_TOL``; f32
                ``FLASH_F32_TOL`` (relative L2 1e-4, worst row 2e-3, LSE 1e-5),
                which TF32 products fail.  Each case reads a control (the plain
                version in the input's dtype, must pass) and a planted fault (a
@@ -151,8 +162,14 @@ Phases, each printing one JSON line:
                yardstick ``F.scaled_dot_product_attention(is_causal=True)``
                on (b, H, s, D) f32, pinned to the efficient-attention
                backend, with its error against the f64 plain version;
-               then the bf16 instance (and its plain forward and pair)
-               beside K1 at K1's timing shape; then the f32 kernels at
+               then the bf16 instance beside K1 at K1's timing shape; then
+               K2's bf16 kernels up to 256 (``flash_tc.cuh``) at D=64
+               (b=32, H=12), 128 (b=16, H=8) and 256 (b=8, H=4), s=1024,
+               causal, each beside its bound, its plain version and SDPA's
+               bf16 forward or backward, with its largest error against
+               the plain version, and at D=64 their launches over three
+               passes through ``flash_attention`` (only ``fwd_tc16`` /
+               ``tc16``, 3 each); then the f32 kernels at
                D=256 (b=8, s=1024, H=4) beside their bounds, plain
                versions and SDPA (``wide``); the pair's error
                against f64 beside SDPA's own f32 backward's.
@@ -327,6 +344,14 @@ phase ``serving_int8``'s int8 run, on the same engines, prompts and
 weights, each run a JSON line.  The package is imported from DIR (default:
 this script's directory), so that two checkouts can be compared on one
 card: run it once per tree in separate processes, alternating.
+
+``python3 chip_smoke.py --tc16-ab N [--root DIR]`` likewise times K2's bf16
+forward, dK/dV and dQ up to 256 at ``K2_TC16_SHAPES`` (D = 64, 128, 256)
+and K1's three kernels at ``K1_AB_SHAPES`` (D = 64, 256), causal, s =
+1024, N times each, from the package in DIR, after the ptxas report and
+HGMMA counts of the five libraries it builds: to hold a change of
+``csrc/flash_tc.cuh`` against its parent on one card, alternate the two
+trees' processes (parent, change, change, parent).
 
 ``python3 chip_smoke.py --bwd-ab N [--root DIR]`` likewise times only K2's
 f32 dK/dV and dQ kernels (graph replay), N times each, at ``BWD_AB_SHAPES``
@@ -1097,19 +1122,6 @@ def phase_flash(torch, fap, fa):
     lib_bwd = profiled_ms(torch, lambda: torch.autograd.grad(
         og, (qh, kh, vh), doh, retain_graph=True))
     del og, qh, kh, vh, doh, lib_out
-    # the in-call yardstick of the mma.sync design: K2's bf16 dK/dV and dQ
-    # at the same shape, on the split heads
-    qb, kb, vb = (t.reshape(b, s, H, D).transpose(1, 2)
-                  .reshape(b * H, s, D).contiguous()
-                  for t in qkv.split(H * D, -1))
-    dob = dout.reshape(b, s, H, D).transpose(1, 2).reshape(
-        b * H, s, D).contiguous()
-    o2, lse2 = fa.flash_fwd_kernel(qb, kb, vb, True, scale)
-    d2 = (dob.float() * o2.float()).sum(-1)
-    k2_pair = 2 * device_ms(torch, [
-        lambda: fa.flash_dkdv_kernel(qb, kb, vb, dob, lse2, d2, True, scale),
-        lambda: fa.flash_dq_kernel(qb, kb, vb, dob, lse2, d2, True, scale)])
-    del qb, kb, vb, dob, o2, lse2, d2
     # determinism at this shape: the pair once more into a fresh dqkv
     dqkv2 = torch.empty_like(qkv)
     fap.flash_packed_dkdv_kernel(qkv, dout, lse, delta, dqkv2, H, True,
@@ -1156,9 +1168,7 @@ def phase_flash(torch, fap, fa):
           "backward_pair": {
               "ms": pair, "bound_ms": bounds["dkdv"][0] + bounds["dq"][0],
               "sdpa_bf16_backward_ms": lib_bwd,
-              "k2_bf16_backward_ms": k2_pair,
-              "over_sdpa": pair / lib_bwd, "over_k2": pair / k2_pair,
-              "bitwise_repeat": bitwise},
+              "over_sdpa": pair / lib_bwd, "bitwise_repeat": bitwise},
           "fwd_over_sdpa": ms["fwd"] / lib_fwd,
           "wide": wide})
     for k in rows:
@@ -1593,18 +1603,32 @@ def phase_flash_bhd_checks(torch, fa):
         if D != fa.padded_width(D, dtype) or D > 256:
             extra["fwd_kernel"] = fa.library_fwd_route(D, dtype)
             extra["bwd_route"] = fa.library_bwd_route(D, dtype)
-        if not f32 and D > 256:
-            # the tensor-core backward past 256: the pair twice more, bit
-            # for bit the same as the gradient through autograd
+        if not f32:
+            # bf16/f16 on the tensor cores (flash_tc.cuh up to 256,
+            # flash_wide.cuh past it): the pair three times, bit for bit
+            # alike and (through autograd's own pair) the same as the
+            # gradient; up to 256 the forward twice more, bit for bit
             delta = (do.float() * out.float()).sum(-1)
             runs = [fa._bwd_pair(q, k, v, do, lse, delta, causal, scale, p,
-                                 seed) for _ in range(2)]
+                                 seed) for _ in range(3)]
             torch.cuda.synchronize()
-            same = all(torch.equal(a, b) for run in runs
-                       for a, b in zip(run, grads))
+            same = all(torch.equal(a, b) for run in runs[1:]
+                       for a, b in zip(run, runs[0]))
+            if not (ring or fused_b):
+                same = same and all(torch.equal(a, b)
+                                    for a, b in zip(runs[0], grads))
             extra["pair_bitwise_repeat"] = same
             ok = ok and same
             del runs, delta
+            if fa.fwd_route(D, dtype) == "fwd_tc16":
+                reps = [fa.flash_fwd_kernel(q, k, v, causal, scale, p, seed)
+                        for _ in range(3)]
+                torch.cuda.synchronize()
+                extra["fwd_bitwise_repeat"] = all(
+                    torch.equal(u, w) for rep in reps[1:]
+                    for u, w in zip(rep, reps[0]))
+                ok = ok and extra["fwd_bitwise_repeat"]
+                del reps
         if fa.fwd_route(D, dtype) == "wide_fwd_tc":
             # the column-chunked forward on the tensor cores: twice more bit
             # for bit (f32 above), and on a V whose chunks repeat, every
@@ -1658,12 +1682,14 @@ def phase_flash_bhd_checks(torch, fa):
                           "split_rna_rel": emu["rna"],
                           "split_trunc_rel": emu["trunc"]})
             del runs
-        if f32 and D > 256:
+        if (f32 and D > 256) or fa.fwd_route(D, dtype) == "fwd_tc16":
             # past 256 the f32 case launches the tensor-core forward and
-            # the 3xTF32 dK/dV and dQ (bhd_*_tc<0>) and no other kernel
+            # the 3xTF32 dK/dV and dQ (bhd_*_tc<0>) and no other kernel;
+            # bf16/f16 up to 256 flash_tc.cuh's three kernels and no other
             launched = {key: n - before[key] for key, n in
                         dict(fa.fwd_launches, **fa.bwd_launches).items()}
-            want = ("wide_fwd_tc", "dkdv_wide_tc_f32", "dq_wide_tc_f32")
+            want = (("wide_fwd_tc", "dkdv_wide_tc_f32", "dq_wide_tc_f32")
+                    if f32 else ("fwd_tc16", "dkdv_tc16", "dq_tc16"))
             extra["launches"] = launched
             ok = ok and all(launched[key] >= 1 for key in want) and not any(
                 n for key, n in launched.items() if key not in want)
@@ -1702,6 +1728,11 @@ def phase_flash_bhd_checks(torch, fa):
           False, f16, 0.1, 42)
     check("bf16_d264_dropout0.1_sq512_skv256", 4, 512, 256, 264, True, bf16,
           0.1, 43)
+    # bf16 D = 100 (200-byte rows, zero-padded to 104 onto flash_tc.cuh's
+    # 128-wide kernels) with dropout and kv rows past the last q row
+    # (causal: their dK and dV blocks write zeros)
+    check("bf16_d100_dropout0.1_sq256_skv512", 4, 256, 512, 100, True, bf16,
+          0.1, 44)
     # rows TMA cannot address, zero-padded onto the tensor-core kernels:
     # f32 D = 33 (132 bytes: the 3xTF32 kernels at 36), bf16 D = 514 (the
     # forward and the pair at 520); and f32 D = 1032, a row TMA addresses
@@ -1738,12 +1769,29 @@ def phase_flash_bhd_checks(torch, fa):
         q, k, v, do = ((torch.randn(bh, s, D, generator=gen, device=DEV)
                         * sc).to(dtype) for sc in (0.5, 0.5, 1.0, 1.0))
         scale = 1.0 / math.sqrt(D)
+        counts = dict(fa.fwd_launches, **fa.bwd_launches)
         out, lse = fa.flash_fwd_kernel(q, k, v, True, scale)
         delta = (do.float() * out.float()).sum(-1)
         grads = fa._bwd_pair(q, k, v, do, lse, delta, True, scale)
         torch.cuda.synchronize()
+        launched = {key: n - counts[key] for key, n in
+                    dict(fa.fwd_launches, **fa.bwd_launches).items()}
         tail, before = slice(bh - 2, bh), slice(bh - 3, bh - 1)
         f32 = dtype == torch.float32
+        extra = {}
+        if not f32:
+            # flash_tc.cuh's three kernels alone, and twice more bit for bit
+            want = ("fwd_tc16", "dkdv_tc16", "dq_tc16")
+            extra["launches_ok"] = all(
+                (n == 1) == (key in want) for key, n in launched.items())
+            reps = [(*fa.flash_fwd_kernel(q, k, v, True, scale),
+                     *fa._bwd_pair(q, k, v, do, lse, delta, True, scale))
+                    for _ in range(2)]
+            torch.cuda.synchronize()
+            extra["bitwise_repeat"] = all(
+                torch.equal(a, b) for rep in reps
+                for a, b in zip(rep, (out, lse, *grads)))
+            del reps
         wide = torch.float64 if f32 else torch.float32
         ref = bhd_plain(fa, *(t[tail].to(wide) for t in (q, k, v, do)), True,
                         scale)
@@ -1763,8 +1811,9 @@ def phase_flash_bhd_checks(torch, fa):
         ok = (flash_within(r["kernel"], tol)
               and flash_within(r["control"], tol)
               and not flash_within(r["fault"], tol)
-              and not (f32 and flash_within(r["tf32"], tol)))
-        checks.append({"case": name, "ok": ok, **{
+              and not (f32 and flash_within(r["tf32"], tol))
+              and all(extra.values()))
+        checks.append({"case": name, "ok": ok, **extra, **{
             key: [val["lse"]] + [val[sl][m] for sl in FLASH_SLICES
                                  for m in ("rel", "row")]
             for key, val in r.items()}})
@@ -1783,16 +1832,20 @@ def phase_flash_bhd_checks(torch, fa):
         flash_attention_packed as fap
     wrong = []
     for dt in (f32, bf16, f16):
-        for D in (33, 64, 264, 320, 384, 512, 514, 516, 1024, 1032, 2048):
+        for D in (33, 36, 64, 100, 128, 200, 256, 264, 320, 384, 512, 514,
+                  516, 1024, 1032, 2048):
             got = (fa.library_fwd_route(D, dt), fa.library_fwd_smem(D, dt),
                    fa.library_bwd_route(D, dt))
+            tc16 = got[0] == "fwd_tc16"
             smem = (fa.wide_fwd_plan(1, 64, D, dt)["smem"]
-                    if got[0] == "wide_fwd_tc" else got[1])
+                    if got[0] == "wide_fwd_tc" else
+                    fa.tc16_smem(D, "fwd") if tc16 else got[1])
             want = (fa.fwd_route(D, dt), smem, fa.bwd_route(D, dt))
-            if D > 256:
+            if D > 256 or tc16:
                 got += tuple(fa.library_bwd_smem(D, dt, kn)
                              for kn in ("dkdv", "dq"))
-                want += tuple(fa.wide_bwd_plan(1, 64, D, dt, kn)["smem"]
+                want += tuple(fa.tc16_smem(D, kn) if tc16 else
+                              fa.wide_bwd_plan(1, 64, D, dt, kn)["smem"]
                               for kn in ("dkdv", "dq"))
             if got != want:
                 wrong.append((str(dt), D, got, want))
@@ -1942,12 +1995,6 @@ def phase_flash_bhd(torch, fa, fap, readings):
             qkv, dout, lse1, d1, dqkv, tH, True, scale)]),
         "k1_dq": device_ms(torch, [lambda: fap.flash_packed_dq_kernel(
             qkv, dout, lse1, d1, dqkv, tH, True, scale)]),
-        # K2's bf16 plain versions at this shape (the kernel table's
-        # plain column for the mma.sync rows)
-        "k2_plain_fwd": device_ms(torch, [lambda: fa.flash_fwd_ref(
-            qb, kb, vb, True, scale)], reps=2),
-        "k2_plain_pair": device_ms(torch, [lambda: fa.flash_bwd_pair_ref(
-            qb, kb, vb, dob, lse2, d2, True, scale)], reps=2),
     }
     same_out = float((o2.reshape(tb, tH, ts, tD).transpose(1, 2)
                       .reshape(tb, ts, tH * tD).float() - o1.float())
@@ -1959,6 +2006,7 @@ def phase_flash_bhd(torch, fa, fap, readings):
         rows[key]["wide_d256"] = {k: wide["timing"][key][k] for k in
                                   ("ms", "bound_ms", "bound_by",
                                    "library_ms")}
+    tc16 = k2_tc16_times(torch, fa, F)
     emit({"phase": "flash_bhd", "shape": BHD_TRAIN_SHAPE, "dtype": "float32",
           "causal": True, "timing": timing, "backward_pair": pair_row,
           "library": {"call": "F.scaled_dot_product_attention(is_causal=True)"
@@ -1968,8 +2016,124 @@ def phase_flash_bhd(torch, fa, fap, readings):
                         "library backward (each computes dq, dk, dv)",
           "bf16_beside_k1": {"shape": TRAIN_SHAPE, "ms": bf16,
                              "k1_vs_k2_out_max_abs": same_out},
-          "wide": wide})
-    return rows
+          "wide": wide, "bf16_tc16": tc16})
+    return rows, tc16
+
+
+# K2's bf16 timing shapes up to 256 (flash_tc.cuh's instances at 64, 128
+# and 256; causal, s = 1024): K1's timing shape at D = 64, and batches that
+# keep b*H*s*D at a quarter or less of it at the wider heads
+K2_TC16_SHAPES = {"d64": dict(b=32, s=1024, H=12, D=64),
+                  "d128": dict(b=16, s=1024, H=8, D=128),
+                  "d256": dict(b=8, s=1024, H=4, D=256)}
+# K1's shapes of the --tc16-ab mode
+K1_AB_SHAPES = {"d64": dict(b=32, s=1024, H=12, D=64),
+                "d256": dict(b=8, s=1024, H=4, D=256)}
+
+
+def k2_tc16_bounds(b, s, H, D):
+    """K2's bf16 bounds at (b, s, H, D), causal: ``{kernel: flash_bound}``
+    for the forward (2 products; q, k, v read, O and the LSE written),
+    dK/dV (4; q, k, v, dO, LSE and Δ read, dK and dV written) and dQ (3;
+    dQ written)."""
+    e, n, rows = 2, b * H * s * D, b * H * s
+    bwd_in = 4 * n * e + 2 * rows * 4
+    return {"fwd": flash_bound(b, s, H, D, True, 2,
+                               4 * n * e + rows * 4),
+            "dkdv": flash_bound(b, s, H, D, True, 4, bwd_in + 2 * n * e),
+            "dq": flash_bound(b, s, H, D, True, 3, bwd_in + n * e)}
+
+
+def k2_tc16_case(torch, fa, sh, seed):
+    """bf16 q, k, v, dO (b*H, s, D) at shape ``sh``, with the kernel
+    forward's O and LSE and Δ."""
+    import math
+    b, s, H, D = (sh[k] for k in "bsHD")
+    q, k, v, do = bhd_case(torch, b * H, s, s, D, torch.bfloat16, seed)
+    scale = 1.0 / math.sqrt(D)
+    o, lse = fa.flash_fwd_kernel(q, k, v, True, scale)
+    delta = (do.float() * o.float()).sum(-1)
+    return q, k, v, do, o, lse, delta, scale
+
+
+def k2_tc16_times(torch, fa, F):
+    """K2's bf16 forward, dK/dV and dQ up to 256 (flash_tc.cuh, route
+    ``tc16``) at each of ``K2_TC16_SHAPES``: each by graph replay beside its
+    bounds, the plain version (bf16 in, f32 sums) and SDPA's bf16 forward
+    and backward (default backend) on (b, H, s, D); the kernels' largest
+    error against the plain versions on the same inputs.  At D = 64 the
+    kernels' launches by route over three forward and backward passes
+    through the public ``flash_attention``, counted from 0."""
+    from paddle_hackathon_tpu_torch.incubate.nn import functional as tF
+    out = {}
+    for key, sh in K2_TC16_SHAPES.items():
+        b, s, H, D = (sh[k] for k in "bsHD")
+        q, k, v, do, o, lse, delta, sc = k2_tc16_case(torch, fa, sh, 300)
+        dk, dv = fa.flash_dkdv_kernel(q, k, v, do, lse, delta, True, sc)
+        dq = fa.flash_dq_kernel(q, k, v, do, lse, delta, True, sc)
+        po, plse = fa.flash_fwd_ref(q, k, v, True, sc)
+        pdq, pdk, pdv = fa.flash_bwd_pair_ref(q, k, v, do, lse, delta, True,
+                                              sc)
+        torch.cuda.synchronize()
+
+        def err(a, r):
+            return float((a.float() - r.float()).abs().max())
+        errs = {"fwd": err(o, po), "dkdv": max(err(dk, pdk), err(dv, pdv)),
+                "dq": err(dq, pdq), "lse": err(lse, plse)}
+        del po, plse, pdq, pdk, pdv, dk, dv, dq
+        ms = {"fwd": device_ms(torch, [
+                  lambda: fa.flash_fwd_kernel(q, k, v, True, sc)]),
+              "dkdv": device_ms(torch, [lambda: fa.flash_dkdv_kernel(
+                  q, k, v, do, lse, delta, True, sc)]),
+              "dq": device_ms(torch, [lambda: fa.flash_dq_kernel(
+                  q, k, v, do, lse, delta, True, sc)])}
+        plain = {"fwd": device_ms(torch, [lambda: fa.flash_fwd_ref(
+                     q, k, v, True, sc)], reps=2),
+                 "pair": device_ms(torch, [lambda: fa.flash_bwd_pair_ref(
+                     q, k, v, do, lse, delta, True, sc)], reps=2)}
+        torch.cuda.empty_cache()
+        qh, kh, vh, doh = (t.reshape(b, H, s, D) for t in (q, k, v, do))
+        with torch.no_grad():
+            lib_fwd = device_ms(torch, [lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True)])
+        xs = [t.detach().clone().requires_grad_(True) for t in (qh, kh, vh)]
+        og = F.scaled_dot_product_attention(*xs, is_causal=True)
+        lib_bwd = profiled_ms(torch, lambda: torch.autograd.grad(
+            og, xs, doh, retain_graph=True))
+        del og, xs
+        bounds = k2_tc16_bounds(b, s, H, D)
+        rows = {}
+        for kn in ("fwd", "dkdv", "dq"):
+            b_ms, b_by, _, _ = bounds[kn]
+            rows[kn] = {"max_abs_err": errs[kn], "ms": ms[kn],
+                        "plain_ms": plain["fwd" if kn == "fwd" else "pair"],
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": lib_fwd if kn == "fwd" else lib_bwd}
+        out[key] = {"shape": sh, "lse_max_abs_err": errs["lse"],
+                    "pair_ms": ms["dkdv"] + ms["dq"],
+                    "route": [fa.library_fwd_route(D, q.dtype),
+                              fa.library_bwd_route(D, q.dtype)], **rows}
+        if key == "d64":
+            for counts in (fa.launches, fa.fwd_launches, fa.bwd_launches):
+                for c in counts:
+                    counts[c] = 0
+            qs, ks, vs = (t.reshape(b, H, s, D).transpose(1, 2).detach()
+                          .requires_grad_(True) for t in (q, k, v))
+            dos = doh.transpose(1, 2)
+            for _ in range(3):
+                tF.flash_attention(qs, ks, vs, 0.0, True)[0].backward(dos)
+            torch.cuda.synchronize()
+            api = dict(fa.fwd_launches, **fa.bwd_launches)
+            want = {c: 3 if c in ("fwd_tc16", "dkdv_tc16", "dq_tc16") else 0
+                    for c in api}
+            out[key].update(api_launches=api, api_launches_ok=api == want)
+            del qs, ks, vs, dos
+        del q, k, v, do, o, lse, delta, qh, kh, vh, doh
+        torch.cuda.empty_cache()
+    if not out["d64"]["api_launches_ok"]:
+        raise AssertionError(f"flash_attention did not run on flash_tc.cuh's "
+                             f"kernels alone: {out['d64']['api_launches']}")
+    return out
 
 
 BHD_WIDE_SHAPE = dict(b=8, s=1024, H=4, D=256)   # f32, the wide GPT's heads
@@ -3460,6 +3624,61 @@ def bwd_ab(torch, runs):
         emit({"phase": "bwd_ab", "pkg": fa.__file__, "run": i, "ms": ms})
 
 
+def tc16_ab(torch, runs):
+    """The ``--tc16-ab`` mode: K2's bf16 forward, dK/dV and dQ at each of
+    ``K2_TC16_SHAPES`` and K1's three kernels at each of ``K1_AB_SHAPES``
+    (causal, s = 1024), device times by graph replay, ``runs`` times, from
+    the package on ``sys.path``; one JSON line a run.  First the ptxas
+    report (registers, spills, performance notes) and HGMMA count of every
+    kernel of the five libraries it builds, as this tree names them."""
+    from paddle_hackathon_tpu_torch.incubate.nn.kernels import _build
+    from paddle_hackathon_tpu_torch.incubate.nn.kernels import \
+        flash_attention as fa
+    from paddle_hackathon_tpu_torch.incubate.nn.kernels import \
+        flash_attention_packed as fap
+    names = [f"flash_attention_w{dp}_h" for dp in _build.FLASH_WIDTHS] + [
+        f"flash_attention_packed_w{dp}" for dp in (64, 256)]
+    libs = _build.build_all(names)
+
+    def name(ln):
+        m = re.search(r"_Z\w+", ln)
+        return m.group(0) if m else None
+    emit({"phase": "tc16_ab_build", "pkg": fa.__file__,
+          "ptxas": ptxas_notes(_build, names, name),
+          "hgmma": hgmma_counts(_build, libs, names, name)})
+    for i in range(runs):
+        ms = {}
+        for key, sh in K2_TC16_SHAPES.items():
+            q, k, v, do, o, lse, delta, sc = k2_tc16_case(torch, fa, sh, 7)
+            ms[f"k2_{key}"] = {
+                "fwd": device_ms(torch, [
+                    lambda: fa.flash_fwd_kernel(q, k, v, True, sc)]),
+                "dkdv": device_ms(torch, [lambda: fa.flash_dkdv_kernel(
+                    q, k, v, do, lse, delta, True, sc)]),
+                "dq": device_ms(torch, [lambda: fa.flash_dq_kernel(
+                    q, k, v, do, lse, delta, True, sc)])}
+            del q, k, v, do, o, lse, delta
+            torch.cuda.empty_cache()
+        for key, sh in K1_AB_SHAPES.items():
+            b, s, H, D = (sh[c] for c in "bsHD")
+            sc = 1.0 / D ** 0.5
+            qkv, dout = flash_case(torch, b, s, H, D, torch.bfloat16, 8)
+            o, lse = fap.flash_packed_fwd_kernel(qkv, H, True, sc)
+            delta = fap._delta(o, dout, H)
+            dqkv = torch.empty_like(qkv)
+            ms[f"k1_{key}"] = {
+                "fwd": device_ms(torch, [lambda: fap.flash_packed_fwd_kernel(
+                    qkv, H, True, sc)]),
+                "dkdv": device_ms(torch, [
+                    lambda: fap.flash_packed_dkdv_kernel(
+                        qkv, dout, lse, delta, dqkv, H, True, sc)]),
+                "dq": device_ms(torch, [lambda: fap.flash_packed_dq_kernel(
+                    qkv, dout, lse, delta, dqkv, H, True, sc)])}
+            del qkv, dout, o, lse, delta, dqkv
+            torch.cuda.empty_cache()
+        emit({"phase": "tc16_ab", "pkg": fa.__file__, "run": i, "ms": ms})
+
+
 def phase_serving_int8(torch, qm):
     import shutil
     import tempfile
@@ -3612,74 +3831,76 @@ def phase_quant_f32_cross_check(torch, qm, arrays, prompts):
     return f32_launches
 
 
-K1_KERNEL = re.compile(
-    r"(flash_packed_(?:fwd|dkdv|dq)_kernel)I(13__nv_bfloat16|6__half)Li(\d+)E")
-K1_SMEM_INDEX = {"fwd": 0, "dkdv": 1, "dq": 2}
+# csrc/flash_tc.cuh's kernels: K1's instances (PACKED, Lb1E) and K2's
+# bf16/f16 instances up to 256 (Lb0E)
+TC_KERNEL = re.compile(r"flash_tc_(fwd|dkdv|dq)I(13__nv_bfloat16|6__half)"
+                       r"Li(\d+)ELb([01])E")
+TC_SMEM_INDEX = {"fwd": 0, "dkdv": 1, "dq": 2}
 
 
-def k1_kernel_name(mangled):
-    """``flash_packed_dkdv_kernel<bf16,64>`` from a mangled K1 kernel
-    name, or None for any other function."""
-    m = K1_KERNEL.search(mangled)
-    if not m:
+def tc_kernel_name(mangled, packed):
+    """``flash_tc_dkdv<bf16,64>`` from a mangled flash_tc.cuh kernel name
+    whose layout flag is ``packed`` (K1) or not (K2), or None for any other
+    function."""
+    m = TC_KERNEL.search(mangled)
+    if not m or (m.group(4) == "1") != packed:
         return None
     dtype = "bf16" if "bfloat16" in m.group(2) else "f16"
-    return f"{m.group(1)}<{dtype},{m.group(3)}>"
+    return f"flash_tc_{m.group(1)}<{dtype},{m.group(3)}>"
 
 
-def k1_build(_build, libs):
-    """Each K1 kernel's (forward, dK/dV, dQ; bf16/f16; 64/128/256 wide)
-    registers, spills, ptxas performance notes and dynamic shared memory,
-    and where cuobjdump is found, its count of HGMMA (wgmma)
-    instructions, which must be above 0 for all 18.  Only a library built
-    in this run has ptxas's report."""
-    import ctypes
+def hgmma_counts(_build, libs, lib_names, name):
+    """Each kernel's count of HGMMA (wgmma) instructions in the SASS of
+    ``lib_names``, for the kernels ``name`` (a mangled name -> short name,
+    or None) picks; None where cuobjdump is not found."""
     import shutil
     from pathlib import Path
-    out, smem = {}, {}
-    names = [f"flash_attention_packed_w{dp}" for dp in _build.FLASH_WIDTHS]
-    for lib_name in names:
-        cur = None
-        for ln in _build.build_logs.get(lib_name, "").splitlines():
-            if "Compiling entry function" in ln:
-                cur = k1_kernel_name(ln)
-                if cur:
-                    out[cur] = {"ptxas": [], "perf_notes": []}
-            elif "Potential Performance Loss" in ln:
-                name = k1_kernel_name(ln)
-                if name in out:
-                    out[name]["perf_notes"].append(ln.split("Loss:")[-1].split(
-                        " in the function")[0].strip())
-            elif cur and ("Used" in ln or "spill" in ln):
-                out[cur]["ptxas"].append(ln.split("info    :")[-1].strip())
-        lib = ctypes.CDLL(str(libs[lib_name]))
-        lib.flash_packed_smem.argtypes = [ctypes.c_int]
-        dp = lib_name.rsplit("_w", 1)[1]
-        for k, i in K1_SMEM_INDEX.items():
-            smem[f"{k}<{dp}>"] = lib.flash_packed_smem(i)
     cuobjdump = shutil.which("cuobjdump") or str(
         Path(_build._nvcc()).parent / "cuobjdump")
-    hgmma = None
-    if Path(cuobjdump).exists():
-        hgmma = {}
+    if not Path(cuobjdump).exists():
+        return None
+    hgmma = {}
+    for lib_name in lib_names:
+        sass = subprocess.run([cuobjdump, "-sass", str(libs[lib_name])],
+                              capture_output=True, text=True,
+                              timeout=300, check=True).stdout
+        cur = None
+        for ln in sass.splitlines():
+            if "Function :" in ln:
+                cur = name(ln)
+                if cur:
+                    hgmma[cur] = 0
+            elif cur and "HGMMA" in ln:
+                hgmma[cur] += 1
+    return hgmma
+
+
+def tc_build(_build, libs, packed):
+    """flash_tc.cuh's 18 instances of one family (forward, dK/dV, dQ;
+    bf16/f16; 64/128/256 wide): K1's (``packed``, in the
+    ``flash_attention_packed_w*`` libraries) or K2's (in the
+    ``flash_attention_w*_h`` libraries).  Registers, spills, ptxas
+    performance notes, and where cuobjdump is found each one's count of
+    HGMMA (wgmma) instructions, which must be above 0 for all 18; K1's
+    dynamic shared memory as its library exports it.  Only a library built
+    in this run has ptxas's report."""
+    import ctypes
+    names = [f"flash_attention_packed_w{dp}" if packed
+             else f"flash_attention_w{dp}_h" for dp in _build.FLASH_WIDTHS]
+
+    def name(ln):
+        return tc_kernel_name(ln, packed)
+    smem = {}
+    if packed:
         for lib_name in names:
-            sass = subprocess.run([cuobjdump, "-sass", str(libs[lib_name])],
-                                  capture_output=True, text=True,
-                                  timeout=300, check=True).stdout
-            cur = None
-            for ln in sass.splitlines():
-                if "Function :" in ln:
-                    cur = k1_kernel_name(ln)
-                    if cur:
-                        hgmma[cur] = 0
-                elif cur and "HGMMA" in ln:
-                    hgmma[cur] += 1
-        short = [k for k, n in hgmma.items() if n == 0]
-        if len(hgmma) != 18 or short:
-            raise AssertionError(f"K1 kernels without HGMMA (or missing "
-                                 f"from the SASS): {hgmma}")
-    return {"kernels": out, "dynamic_smem_bytes": smem, "hgmma": hgmma,
-            "cuobjdump": cuobjdump if hgmma is not None else None}
+            lib = ctypes.CDLL(str(libs[lib_name]))
+            lib.flash_packed_smem.argtypes = [ctypes.c_int]
+            dp = lib_name.rsplit("_w", 1)[1]
+            for k, i in TC_SMEM_INDEX.items():
+                smem[f"{k}<{dp}>"] = lib.flash_packed_smem(i)
+    return dict(wide_tc_build(_build, libs, names, name, 18,
+                              f"flash_tc kernels ({'K1' if packed else 'K2'})"),
+                dynamic_smem_bytes=smem)
 
 
 K2_TC_KERNEL = re.compile(r"(bhd_(?:fwd|dkdv|dq)_tc)ILi(\d+)E")
@@ -3690,8 +3911,10 @@ K3_SPLIT_KERNEL = re.compile(
 def ptxas_notes(_build, lib_names, name):
     """Registers, spills and ptxas's performance notes per kernel that
     ``name`` (a mangled name -> short name, or None) picks out of the
-    libraries' build logs (only a library built in this run has them)."""
-    out = {}
+    libraries' build logs (only a library built in this run has them).  A
+    note may come before its function's "Compiling entry function" line,
+    so notes are matched by the name they carry."""
+    out, notes = {}, {}
     for lib_name in lib_names:
         cur = None
         for ln in _build.build_logs.get(lib_name, "").splitlines():
@@ -3700,49 +3923,28 @@ def ptxas_notes(_build, lib_names, name):
                 if cur:
                     out[cur] = {"ptxas": [], "perf_notes": []}
             elif "Potential Performance Loss" in ln:
-                if name(ln) in out:
-                    out[name(ln)]["perf_notes"].append(ln.split("Loss:")[-1]
-                                                       .split(" in the")[0]
-                                                       .strip())
+                if name(ln):
+                    notes.setdefault(name(ln), []).append(
+                        ln.split("Loss:")[-1].split(" in the")[0]
+                        .split(" for the")[0].strip())
             elif cur and ("Used" in ln or "spill" in ln):
                 out[cur]["ptxas"].append(ln.split("info    :")[-1].strip())
+    for n, found in notes.items():
+        out.setdefault(n, {"ptxas": [], "perf_notes": []})[
+            "perf_notes"] += found
     return out
 
 
 def k2_tc_build(_build, libs):
-    """The 3xTF32 forward, dK/dV and dQ kernels' (64/128/256 wide: 9)
-    registers, spills, ptxas performance notes and, where cuobjdump is
-    found, their count of HGMMA (wgmma) instructions, which must be above
-    0 for all 9."""
-    import shutil
-    from pathlib import Path
+    """The 3xTF32 forward, dK/dV and dQ kernels (64/128/256 wide: 9), as
+    ``wide_tc_build``."""
     def name(ln):
         m = K2_TC_KERNEL.search(ln)
         return f"{m.group(1)}<{m.group(2)}>" if m else None
 
-    names = [f"flash_attention_w{dp}_f32" for dp in _build.FLASH_WIDTHS]
-    out = ptxas_notes(_build, names, name)
-    cuobjdump = shutil.which("cuobjdump") or str(
-        Path(_build._nvcc()).parent / "cuobjdump")
-    hgmma = None
-    if Path(cuobjdump).exists():
-        hgmma = {}
-        for lib_name in names:
-            sass = subprocess.run([cuobjdump, "-sass", str(libs[lib_name])],
-                                  capture_output=True, text=True,
-                                  timeout=300, check=True).stdout
-            cur = None
-            for ln in sass.splitlines():
-                if "Function :" in ln:
-                    cur = name(ln)
-                    if cur:
-                        hgmma[cur] = 0
-                elif cur and "HGMMA" in ln:
-                    hgmma[cur] += 1
-        if len(hgmma) != 9 or not all(hgmma.values()):
-            raise AssertionError(f"3xTF32 kernels without HGMMA (or missing "
-                                 f"from the SASS): {hgmma}")
-    return {"kernels": out, "hgmma": hgmma}
+    return wide_tc_build(_build, libs, [f"flash_attention_w{dp}_f32"
+                                        for dp in _build.FLASH_WIDTHS],
+                         name, 9, "3xTF32 kernels")
 
 
 def k3_split_build(_build):
@@ -3776,30 +3978,12 @@ def wide_tc_build(_build, libs, names, name, count, what):
     libraries ``names``: registers, spills, ptxas performance notes and,
     where cuobjdump is found, their HGMMA (wgmma) counts, above 0 for
     each."""
-    import shutil
-    from pathlib import Path
-    out = ptxas_notes(_build, names, name)
-    cuobjdump = shutil.which("cuobjdump") or str(
-        Path(_build._nvcc()).parent / "cuobjdump")
-    hgmma = None
-    if Path(cuobjdump).exists():
-        hgmma = {}
-        for lib_name in names:
-            sass = subprocess.run([cuobjdump, "-sass", str(libs[lib_name])],
-                                  capture_output=True, text=True,
-                                  timeout=300, check=True).stdout
-            cur = None
-            for ln in sass.splitlines():
-                if "Function :" in ln:
-                    cur = name(ln)
-                    if cur:
-                        hgmma[cur] = 0
-                elif cur and "HGMMA" in ln:
-                    hgmma[cur] += 1
-        if len(hgmma) != count or not all(hgmma.values()):
-            raise AssertionError(f"{what} without HGMMA (or missing from "
-                                 f"the SASS): {hgmma}")
-    return {"kernels": out, "hgmma": hgmma}
+    hgmma = hgmma_counts(_build, libs, names, name)
+    if hgmma is not None and (len(hgmma) != count
+                              or not all(hgmma.values())):
+        raise AssertionError(f"{what} without HGMMA (or missing from the "
+                             f"SASS): {hgmma}")
+    return {"kernels": ptxas_notes(_build, names, name), "hgmma": hgmma}
 
 
 def wide_fwd_build(_build, libs):
@@ -3886,30 +4070,14 @@ def k4_build(_build, libs):
     where cuobjdump is found, their HGMMA (wgmma) counts: above 0 for each
     of the 8 tensor-core instances (bf16/f16, int8/fp8, walk/split), 0 for
     the 2 CUDA-core (f32) ones."""
-    import shutil
-    from pathlib import Path
-    out = ptxas_notes(_build, ["quant_matmul"], k4_kernel_name)
-    cuobjdump = shutil.which("cuobjdump") or str(
-        Path(_build._nvcc()).parent / "cuobjdump")
-    hgmma = None
-    if Path(cuobjdump).exists():
-        hgmma = {}
-        sass = subprocess.run([cuobjdump, "-sass", str(libs["quant_matmul"])],
-                              capture_output=True, text=True, timeout=300,
-                              check=True).stdout
-        cur = None
-        for ln in sass.splitlines():
-            if "Function :" in ln:
-                cur = k4_kernel_name(ln)
-                if cur:
-                    hgmma[cur] = 0
-            elif cur and "HGMMA" in ln:
-                hgmma[cur] += 1
+    hgmma = hgmma_counts(_build, libs, ["quant_matmul"], k4_kernel_name)
+    if hgmma is not None:
         tc = {k: v for k, v in hgmma.items() if "_tc_" in k}
         if len(tc) != 8 or not all(tc.values()) or len(hgmma) != 10:
             raise AssertionError(f"K4 tensor-core kernels without HGMMA (or "
                                  f"missing from the SASS): {hgmma}")
-    return {"kernels": out, "hgmma": hgmma}
+    return {"kernels": ptxas_notes(_build, ["quant_matmul"], k4_kernel_name),
+            "hgmma": hgmma}
 
 
 def main():
@@ -3917,7 +4085,8 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    for flag, mode in (("--serving-ab", serving_ab), ("--bwd-ab", bwd_ab)):
+    for flag, mode in (("--serving-ab", serving_ab), ("--bwd-ab", bwd_ab),
+                       ("--tc16-ab", tc16_ab)):
         if flag in sys.argv:
             args = sys.argv[1:]
             if "--root" in args:
@@ -3952,7 +4121,8 @@ def main():
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library_seconds": _build.build_seconds,
           "libraries": sorted(p.name for p in libs.values()),
-          "ptxas": ptxas, "k1": k1_build(_build, libs),
+          "ptxas": ptxas, "k1": tc_build(_build, libs, True),
+          "k2_tc16": tc_build(_build, libs, False),
           "k2_3xtf32": k2_tc_build(_build, libs),
           "k3_split_decode": k3_split_build(_build),
           "k4": k4_build(_build, libs),
@@ -3963,7 +4133,8 @@ def main():
 
     flash = phase_flash(torch, fap, fa)
     flash_launches = phase_train(torch, fap)
-    bhd = phase_flash_bhd(torch, fa, fap, phase_flash_bhd_checks(torch, fa))
+    bhd, tc16 = phase_flash_bhd(torch, fa, fap,
+                                phase_flash_bhd_checks(torch, fa))
     bhd_launches = phase_train_f32(torch, fa, fap)
     phase_wide(torch, fa, fap)
     wide_launches = phase_wide(torch, fa, fap, b=2, gpt=WIDE512_GPT,
@@ -4000,6 +4171,28 @@ def main():
                      "attention SDPA; bound: fwd, dkdv and dq as 3xTF32 "
                      "products on the tensor cores"}
         for k, line in (("fwd", 285), ("dkdv", 525), ("dq", 556))]
+    # K2's bf16/f16 kernels up to 256 (flash_tc.cuh): launches from three
+    # passes through the public flash_attention at D = 64, times at each
+    # of K2_TC16_SHAPES
+    for k, line in (("fwd", 285), ("dkdv", 525), ("dq", 556)):
+        for key, row in tc16.items():
+            kernels.append({
+                "name": f"flash_bhd_{k}_bf16" + ("" if key == "d64"
+                                                 else f"_{key}"),
+                "route": "cuda", "source": src + "flash_tc.cuh",
+                "replaces": ref + f"flash_attention.py:{line}",
+                "launches": tc16["d64"]["api_launches"][
+                    "fwd_tc16" if k == "fwd" else f"{k}_tc16"],
+                **row[k],
+                "timed_as": f"bf16, b={row['shape']['b']}, "
+                            f"H={row['shape']['H']}, s=1024, "
+                            f"D={row['shape']['D']}, causal; launches: "
+                            f"three passes through flash_attention at "
+                            f"D=64; plain: the plain "
+                            f"{'forward' if k == 'fwd' else 'pair'}; "
+                            f"library: SDPA bf16 "
+                            f"{'forward' if k == 'fwd' else 'backward'}, "
+                            f"default backend; bound: bf16 tensor cores"})
     # the tensor-core forward past 256: launches from the wide512 GPT's
     # flash series (bf16 through K1, f32 through K2), times at its attention
     for kname, tag, fam, file, line in (

@@ -6,7 +6,13 @@
 //   flash_bhd_dkdv <- _bwd_dkdv_kernel (first pallas_call in _bwd_pair)
 //   flash_bhd_dq   <- _bwd_dq_kernel   (second pallas_call in _bwd_pair)
 // and computes the functions of flash_fwd_ref / flash_bwd_pair_ref in the
-// port's module of the same name.
+// port's module of the same name.  By dtype and width each entry point
+// launches one kernel (its route, flash_bhd_fwd_route / _bwd_route):
+//   bf16/f16, D <= 256: flash_tc.cuh's flash_tc_fwd / flash_tc_dkdv /
+//     flash_tc_dq with PACKED = false (K1's TMA + wgmma bodies);
+//   f32, D <= 256: bhd_fwd_tc / bhd_dkdv_tc / bhd_dq_tc (3xTF32, below);
+//   past 256: flash_wide.cuh's fwd_tc / dkdv_tc / dq_tc (bf16/f16), and
+//     wide::fwd_tc_f32 and bhd_dkdv_tc<0> / bhd_dq_tc<0> (f32, below).
 //
 // Layout: q, dO, O (BH, SQ, D); k, v (BH, SKV, D); all contiguous, row
 // stride D.  LSE and Δ = rowsum(dO * O) are (BH, SQ) f32; Δ and the LSE
@@ -17,36 +23,40 @@
 //   * causal masking is top-left aligned, q_pos >= k_pos with both counted
 //     from 0, also when SQ != SKV; masked scores at the finite -1e30 before
 //     the running max; l == 0 -> 1 and log(max(l, 1e-30)) guards;
-//   * S = (q . k^T) * sm_scale in f32; bf16/f16 inputs round the dropped P
-//     to the input type before P.V, and dS = P (dP - Δ) sm_scale before
-//     dS^T.q and dS.k;
+//   * S = (q . k^T) * sm_scale in f32, q * scale never rounded; bf16/f16
+//     inputs round the dropped P to the input type before P.V, and dS =
+//     P (drop(dP) - Δ) * sm_scale, formed in f32, before dS^T.q and dS.k on
+//     the unscaled q and k (no multiplier at the store; K1 instead rounds
+//     q * scale and the unscaled dS, which agree only for a power-of-two
+//     scale, so the shared bodies take the layout flag for both);
 //   * f32 inputs keep f32's accuracy, as JAX runs them at
 //     Precision.HIGHEST: the forward, dK/dV and dQ as 3xTF32 on the tensor
 //     cores (below); no single-TF32 product;
 //   * dropout regenerates the positional-hash mask of _dropout_keep bit for
 //     bit (key = the bh index, global positions); l takes the undropped p,
-//     P.V and dP take keep / (1 - p).
+//     P.V and dP take keep / (1 - p), dS the undropped P.
 //
 // Bound on the H100 SXM (67 TFLOP/s f32 on the CUDA cores, 494.7 TFLOP/s
-// tf32 and 989 bf16 dense on the tensor cores, 3.35 TB/s) at the
-// GPT-2-small f32 train step's shape, BH = 16*12, s = 1024, D = 64, causal
-// (the causal half of the score pairs):
-//   fwd : 2 products (S, P.V), 25.8 GFLOP; as 3xTF32 -> 0.156 ms (0.385 ms
-//         as f32 on the CUDA cores); operations.
-//   dkdv: 4 products (S^T, dP^T, dV, dK), 51.6 GFLOP; as 3xTF32, three tf32
-//         products each -> 0.313 ms (0.770 ms as f32 on the CUDA cores).
-//   dq  : 3 products (S, dP, dQ), 38.7 GFLOP -> 0.235 ms (0.578 ms).
-// q, k, v and O are 201 MB in f32, 0.060 ms of bytes.  chip_smoke.py
-// recomputes the bounds from the run's inputs.
+// tf32 and 989 bf16 dense on the tensor cores, 3.35 TB/s):
+//   * bf16 at b=32, H=12, s=1024, D=64, causal: fwd 0.0606 ms (bytes: q,
+//     k, v, O and the LSE), dkdv 0.1043 ms and dq 0.0782 ms (operations:
+//     4 and 3 products over the causal half), as K1 (flash_tc.cuh).
+//   * f32 at the GPT-2-small f32 train step's shape, BH = 16*12, s = 1024,
+//     D = 64, causal (the causal half of the score pairs):
+//     fwd : 2 products (S, P.V), 25.8 GFLOP; as 3xTF32 -> 0.156 ms (0.385
+//           ms as f32 on the CUDA cores); operations.
+//     dkdv: 4 products (S^T, dP^T, dV, dK), 51.6 GFLOP; as 3xTF32, three
+//           tf32 products each -> 0.313 ms (0.770 ms on the CUDA cores).
+//     dq  : 3 products (S, dP, dQ), 38.7 GFLOP -> 0.235 ms (0.578 ms).
+//     q, k, v and O are 201 MB in f32, 0.060 ms of bytes.
+// chip_smoke.py recomputes the bounds from the run's inputs.
 //
 // Design:
-//   * bf16/f16: the mma.sync design K1 had before its Hopper rebuild, on the
-//     bhd layout: one block of 4 warps per (64-row tile, bh), (tile, bh)
-//     folded into grid.x so that any BH launches, each warp 16
-//     rows; mma.sync m16n8k16 with f32 accumulators fed by ldmatrix; the
-//     inner operand tiles double-buffered with cp.async; scores in log2
-//     units (one exp2f per probability); the mask only on tiles where a
-//     warp's rows meet the diagonal or a ragged end.
+//   * bf16/f16 up to 256: flash_tc.cuh (its header comment has the
+//     design): a TMA producer warp and two wgmma consumer warpgroups a
+//     block, the forward persistent, over per-head maps of q, k, v and dO
+//     as (BH, rows, 1, D), so that rows past SQ or SKV arrive as zeros and
+//     never the next head's.
 //   * f32 forward, dK/dV and dQ: TMA-fed 3xTF32 wgmma, warp-specialised
 //     (the sections "f32 dK/dV and dQ on the tensor cores" and "f32 forward
 //     on the tensor cores" below).  Past 256 every kernel runs on the
@@ -55,11 +65,11 @@
 //     (flash_wide.cuh's wide::dkdv_tc, wide::dq_tc), and f32 dK/dV and dQ
 //     (the pair's instances at a run-time width, bhd_dkdv_tc<0> /
 //     bhd_dq_tc<0>: 128 columns of dK and dV, 256 of dQ a block).
-//     Every f32 kernel on the tensor cores, and every bf16/f16 one past
-//     256, takes rows TMA can address (D % 4 == 0 in f32, D % 8 == 0 in
-//     bf16/f16): the wrapper zero-pads other rows to that width (zero
-//     columns of q, k and dO add exact zeros to every score) and cuts the
-//     outputs back, so each C entry point refuses (-1) such rows.
+//   * every kernel reads its rows by TMA, so each C entry point takes rows
+//     TMA can address (D % 4 == 0 in f32, D % 8 == 0 in bf16/f16) and
+//     refuses (-1) others: the wrapper zero-pads them to that width (zero
+//     columns of q, k and dO add exact zeros to every score) with the
+//     caller's sm_scale, and cuts the outputs back.
 //   * causal tiles above the diagonal are never loaded: fwd and dq stop at
 //     the diagonal kv tile, dkdv starts at the diagonal q tile (a kv tile
 //     past the last q row gets zero gradients); the heaviest tiles first.
@@ -67,16 +77,10 @@
 //     masked.  Head widths: instances of 64, 128 and 256 padded columns
 //     (padding columns zero), for D up to 256, and past 256 the
 //     column-chunked kernels (-DFLASH_DP=0: one library for every wider
-//     head, the chunk count fixed at run time); each width
-//     and family (f32, or bf16/f16) is its own library (-DFLASH_DP,
-//     -DFLASH_F32).  Where a row is not 16-byte aligned (D * size % 16 !=
-//     0, e.g. D = 36 in bf16) a template flag swaps the 16-byte cp.async
-//     chunks for element reads at the row edge.  At 256: the mma family
-//     reads the q and dO fragments from shared memory at each use, and
-//     its dK/dV and dQ blocks keep half of the output columns (grid.z;
-//     each recomputes the scores), for registers; the 3xTF32 forward runs
-//     one consumer warpgroup a block, and the 3xTF32 dK/dV splits its
-//     output columns over two blocks.
+//     head, the chunk count fixed at run time); each width and family
+//     (f32, or bf16/f16) is its own library (-DFLASH_DP, -DFLASH_F32).  At
+//     256 the 3xTF32 forward runs one consumer warpgroup a block, and the
+//     3xTF32 dK/dV splits its output columns over two blocks.
 // One summation order per output, whatever BH is: a row never depends on
 // the batch.
 //
@@ -87,6 +91,7 @@
 #include <type_traits>
 
 #include "flash_common.cuh"
+#include "flash_tc.cuh"
 #include "flash_wide.cuh"
 #include "hopper_common.cuh"
 
@@ -108,41 +113,6 @@ struct Ptrs {
   int BH;
 };
 
-// Copy of rows row0..row0+63, columns 0..DP-1, of an (n, D) matrix (row
-// stride D) into a [64][LD] tile; rows past n and columns past D are
-// zero.  AL: every row is 16-byte aligned, D * sizeof(T) a multiple of
-// 16, and each 16-byte chunk is one cp.async; else (any D, e.g. 36 or 100
-// in bf16) each chunk is read element by element at the row edges and
-// stored whole, synchronously.
-template <typename T, int DP, int LD, int NT, bool AL>
-__device__ __forceinline__ void load_rows(T* tile, const T* base, int row0,
-                                          int n, int D, int tid) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunks = DP / kVec;
-  using U = typename std::conditional<sizeof(T) == 2, uint16_t,
-                                      uint32_t>::type;
-  for (int e = tid; e < kTile * kChunks; e += NT) {
-    const int r = e / kChunks, c = (e - r * kChunks) * kVec;
-    T* dst = tile + r * LD + c;
-    const int row = row0 + r, col = c;
-    if (AL) {
-      if (row < n && col < D)
-        cp_async16(dst, base + (size_t)row * D + col);
-      else
-        *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-    } else {
-      alignas(16) U buf[kVec] = {};
-      if (row < n) {
-        const U* src = reinterpret_cast<const U*>(base) + (size_t)row * D;
-#pragma unroll
-        for (int i = 0; i < kVec; ++i)
-          if (col + i < D) buf[i] = src[col + i];
-      }
-      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(buf);
-    }
-  }
-}
-
 // 64-row tiles of n rows
 __host__ __device__ __forceinline__ int tiles(int n) {
   return (n + kTile - 1) / kTile;
@@ -152,529 +122,6 @@ __host__ __device__ __forceinline__ int tiles(int n) {
 __device__ __forceinline__ int kv_tiles(int qt, const Geo& g) {
   const int n_kv_all = (g.SKV + kTile - 1) / kTile;
   return g.causal ? min(qt + 1, n_kv_all) : n_kv_all;
-}
-
-// ===========================================================================
-// bf16 / f16: tensor cores (mma.sync), 4 warps of 16 rows
-// ===========================================================================
-
-// Where a warp's q fragments stay in registers (up to 128 columns; at 256
-// they are read from shared memory at each use, for registers).
-template <int DP> __host__ __device__ constexpr bool q_in_regs() {
-  return DP <= 128;
-}
-// dK/dV and dQ at 256: grid.z splits the output columns in halves (each
-// block recomputes the scores), for registers.
-template <int DP> __host__ __device__ constexpr int out_split() {
-  return DP > 128 ? 2 : 1;
-}
-
-template <typename T, int DP, bool AL>
-__global__ void __launch_bounds__(kThreads)
-bhd_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, T* __restrict__ out,
-            float* __restrict__ lse, const int32_t* __restrict__ seed_ptr,
-            Geo g) {
-  constexpr int kLd = DP + 8;
-  constexpr int kTileEl = kTile * kLd;
-  constexpr int kKs = DP / 16;
-  const int n_t = tiles(g.SQ);
-  const int bh = blockIdx.x / n_t;            // (tile, bh) folded: any BH
-  const int qt = n_t - 1 - (blockIdx.x - bh * n_t);  // heavy causal first
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, tq = lane & 3;
-  const T* qb = q + (size_t)bh * g.SQ * g.D;
-  const T* kb = k + (size_t)bh * g.SKV * g.D;
-  const T* vb = v + (size_t)bh * g.SKV * g.D;
-  const int32_t seed = g.dropout ? seed_ptr[0] : 0;
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* q_s = reinterpret_cast<T*>(smem);
-  T* k_s = q_s + kTileEl;                     // two buffers
-  T* v_s = k_s + 2 * kTileEl;                 // two buffers
-
-  const int q0 = qt * kTile;
-  const int n_kv = kv_tiles(qt, g);
-
-  load_rows<T, DP, kLd, kThreads, AL>(q_s, qb, q0, g.SQ, g.D, tid);
-  load_rows<T, DP, kLd, kThreads, AL>(k_s, kb, 0, g.SKV, g.D, tid);
-  load_rows<T, DP, kLd, kThreads, AL>(v_s, vb, 0, g.SKV, g.D, tid);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-
-  constexpr bool kQReg = q_in_regs<DP>();
-  uint32_t qf[kQReg ? kKs : 1][4];
-  if (kQReg) {
-#pragma unroll
-    for (int kk = 0; kk < kKs; ++kk)
-      load_a<T>(qf[kk], q_s, kLd, warp * 16, kk * 16, lane);
-  }
-
-  float acc[DP / 8][4];
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  float m_r[2] = {kNegInf, kNegInf};
-  float l_r[2] = {0.f, 0.f};                  // this thread's partial sums
-  const int row_a = q0 + warp * 16 + gq;      // rows of c[0..1] / c[2..3]
-  const int rows[2] = {row_a, row_a + 8};
-
-  for (int j = 0; j < n_kv; ++j) {
-    const int buf = j & 1;
-    if (j > 0) {
-      cp_async_wait_all();
-      __syncthreads();
-    }
-    if (j + 1 < n_kv) {                       // prefetch the next kv tile
-      load_rows<T, DP, kLd, kThreads, AL>(k_s + (buf ^ 1) * kTileEl, kb,
-                                          (j + 1) * kTile, g.SKV, g.D, tid);
-      load_rows<T, DP, kLd, kThreads, AL>(v_s + (buf ^ 1) * kTileEl, vb,
-                                          (j + 1) * kTile, g.SKV, g.D, tid);
-      cp_async_commit();
-    }
-    const T* kt = k_s + buf * kTileEl;
-    const T* vt = v_s + buf * kTileEl;
-
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kKs; ++kk) {
-      uint32_t qs[4];
-      if (!kQReg) load_a<T>(qs, q_s, kLd, warp * 16, kk * 16, lane);
-      const uint32_t* qa = kQReg ? qf[kk] : qs;
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bk[4];
-        load_b_nk<T>(bk, kt, kLd, np * 16, kk * 16, lane);
-        mma<T>(s[2 * np], qa, bk);
-        mma<T>(s[2 * np + 1], qa, bk + 2);
-      }
-    }
-
-    // scores * sm_scale in log2 units; mask (at -1e30, before the running
-    // max) only where this warp's rows meet the diagonal or the ragged end
-    const int k0 = j * kTile;
-    const bool need_mask = k0 + kTile > g.SKV ||
-                           (g.causal && k0 + kTile - 1 > q0 + warp * 16);
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * g.scale_log2;
-        if (need_mask) {
-          const int col = k0 + n * 8 + 2 * tq + (e & 1);
-          const bool ok = col < g.SKV && (!g.causal || col <= rows[e >> 1]);
-          x = ok ? x : kNegInf;
-        }
-        s[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_next = fmaxf(m_r[r], mx[r]);
-      alpha[r] = exp2f(m_r[r] - m_next);
-      m_r[r] = m_next;
-      l_r[r] *= alpha[r];
-    }
-    // p (undropped into l), then the dropped p for P.V.  Every valid row
-    // has a valid score in every tile it visits (top-left causal: the
-    // tile's first column is <= the row), so the running max is finite and
-    // a masked score's p is exactly 0.
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int col = k0 + n * 8 + 2 * tq + (e & 1);
-        float p = exp2f(s[n][e] - m_r[r]);
-        l_r[r] += p;
-        if (g.dropout)
-          p = keep_elem(seed, bh, rows[r], col, g.thresh) ? p / g.keep_prob
-                                                          : 0.f;
-        s[n][e] = p;
-      }
-#pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {          // 16 kv rows per step
-      uint32_t pa[4];
-      pa[0] = pack2<T>(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack2<T>(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dp = 0; dp < DP / 16; ++dp) {
-        uint32_t bv[4];
-        load_b_kn<T>(bv, vt, kLd, kk * 16, dp * 16, lane);
-        mma<T>(acc[2 * dp], pa, bv);
-        mma<T>(acc[2 * dp + 1], pa, bv + 2);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
-    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
-  }
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n) {
-    const int d = n * 8 + 2 * tq;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (rows[r] < g.SQ) {
-        const float l = l_r[r] == 0.f ? 1.f : l_r[r];  // the JAX guard
-        T* o = out + ((size_t)bh * g.SQ + rows[r]) * g.D + d;
-        if (d < g.D) o[0] = from_f<T>(acc[n][2 * r] / l);
-        if (d + 1 < g.D) o[1] = from_f<T>(acc[n][2 * r + 1] / l);
-      }
-    }
-  }
-  if (tq == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      if (rows[r] < g.SQ)
-        lse[(size_t)bh * g.SQ + rows[r]] =
-            m_r[r] * kLn2 + logf(fmaxf(l_r[r], 1e-30f));
-  }
-}
-
-// dK and dV: one block per (kv tile, bh, column part), over q tiles from
-// the diagonal; the block keeps output columns c0..c0+DP/out_split-1
-template <typename T, int DP, bool AL>
-__global__ void __launch_bounds__(kThreads)
-bhd_dkdv_mma(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const T* __restrict__ dout,
-             const float* __restrict__ lse, const float* __restrict__ delta,
-             const int32_t* __restrict__ seed_ptr, T* __restrict__ dk_out,
-             T* __restrict__ dv_out, Geo g) {
-  constexpr int kLd = DP + 8;
-  constexpr int kTileEl = kTile * kLd;
-  constexpr int kKs = DP / 16;
-  constexpr int kDO = DP / out_split<DP>();   // this block's columns
-  const int n_t = tiles(g.SKV);
-  const int bh = blockIdx.x / n_t;            // (tile, bh) folded: any BH
-  const int kt_i = blockIdx.x - bh * n_t;     // causal: most q tiles first
-  const int c0 = blockIdx.z * kDO;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, tq = lane & 3;
-  const T* qb = q + (size_t)bh * g.SQ * g.D;
-  const T* db = dout + (size_t)bh * g.SQ * g.D;
-  const T* kb = k + (size_t)bh * g.SKV * g.D;
-  const T* vb = v + (size_t)bh * g.SKV * g.D;
-  const int32_t seed = g.dropout ? seed_ptr[0] : 0;
-  const float* lse_bh = lse + (size_t)bh * g.SQ;
-  const float* delta_bh = delta + (size_t)bh * g.SQ;
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* k_s = reinterpret_cast<T*>(smem);
-  T* v_s = k_s + kTileEl;
-  T* q_s = v_s + kTileEl;                     // two buffers
-  T* do_s = q_s + 2 * kTileEl;                // two buffers
-  float* lse_s = reinterpret_cast<float*>(do_s + 2 * kTileEl);  // [2][64]
-  float* dl_s = lse_s + 2 * kTile;                              // [2][64]
-
-  const int k0 = kt_i * kTile;
-  const int n_q = (g.SQ + kTile - 1) / kTile;
-  const int i0 = g.causal ? kt_i : 0;         // first q tile that sees k0
-
-  auto load_q_tile = [&](int i, int buf) {
-    load_rows<T, DP, kLd, kThreads, AL>(q_s + buf * kTileEl, qb, i * kTile,
-                                        g.SQ, g.D, tid);
-    load_rows<T, DP, kLd, kThreads, AL>(do_s + buf * kTileEl, db, i * kTile,
-                                        g.SQ, g.D, tid);
-    if (tid < kTile) {
-      const int row = i * kTile + tid;
-      lse_s[buf * kTile + tid] = row < g.SQ ? lse_bh[row] * kLog2e : 0.f;
-      dl_s[buf * kTile + tid] = row < g.SQ ? delta_bh[row] : 0.f;
-    }
-  };
-
-  load_rows<T, DP, kLd, kThreads, AL>(k_s, kb, k0, g.SKV, g.D, tid);
-  load_rows<T, DP, kLd, kThreads, AL>(v_s, vb, k0, g.SKV, g.D, tid);
-  if (i0 < n_q) load_q_tile(i0, 0);
-  cp_async_commit();
-
-  float dk[kDO / 8][4], dv[kDO / 8][4];
-#pragma unroll
-  for (int n = 0; n < kDO / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-  const int kr_a = k0 + warp * 16 + gq;
-  const int krows[2] = {kr_a, kr_a + 8};
-
-  for (int i = i0; i < n_q; ++i) {
-    const int buf = (i - i0) & 1;
-    cp_async_wait_all();
-    __syncthreads();
-    if (i + 1 < n_q) {
-      load_q_tile(i + 1, buf ^ 1);
-      cp_async_commit();
-    }
-    const T* qt = q_s + buf * kTileEl;
-    const T* dot = do_s + buf * kTileEl;
-    const float* lse_t = lse_s + buf * kTile;
-    const float* dl_t = dl_s + buf * kTile;
-
-    // S^T = K . q^T and dP^T = V . dO^T: 16 kv rows x 64 q columns
-    float st[8][4], dpt[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kKs; ++kk) {
-      uint32_t ka[4], va[4];
-      load_a<T>(ka, k_s, kLd, warp * 16, kk * 16, lane);
-      load_a<T>(va, v_s, kLd, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bq[4], bd[4];
-        load_b_nk<T>(bq, qt, kLd, np * 16, kk * 16, lane);
-        load_b_nk<T>(bd, dot, kLd, np * 16, kk * 16, lane);
-        mma<T>(st[2 * np], ka, bq);
-        mma<T>(st[2 * np + 1], ka, bq + 2);
-        mma<T>(dpt[2 * np], va, bd);
-        mma<T>(dpt[2 * np + 1], va, bd + 2);
-      }
-    }
-    // P^T from the LSE; dS^T = P^T (dP^T - Δ) sm_scale with the undropped
-    // P^T; st <- dropped P^T (for dV), dpt <- dS^T (for dK)
-    const int q0 = i * kTile;
-    const bool need_mask = q0 + kTile > g.SQ ||
-                           (g.causal && q0 < k0 + warp * 16 + 15);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int cq = n * 8 + 2 * tq + (e & 1);
-        const int qpos = q0 + cq;
-        const int kpos = krows[e >> 1];
-        float pt = exp2f(fmaf(st[n][e], g.scale_log2, -lse_t[cq]));
-        if (need_mask)
-          pt = (qpos < g.SQ && (!g.causal || qpos >= kpos)) ? pt : 0.f;
-        float ptv = pt, dp = dpt[n][e];
-        if (g.dropout) {
-          const bool keep = keep_elem(seed, bh, qpos, kpos, g.thresh);
-          ptv = keep ? pt / g.keep_prob : 0.f;
-          dp = keep ? dp / g.keep_prob : 0.f;
-        }
-        st[n][e] = ptv;
-        dpt[n][e] = pt * (dp - dl_t[cq]) * g.scale;
-      }
-    // dV += drop(P^T) . dO and dK += dS^T . q, 16 q rows per step
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t pa[4], sa[4];
-      pa[0] = pack2<T>(st[2 * kk][0], st[2 * kk][1]);
-      pa[1] = pack2<T>(st[2 * kk][2], st[2 * kk][3]);
-      pa[2] = pack2<T>(st[2 * kk + 1][0], st[2 * kk + 1][1]);
-      pa[3] = pack2<T>(st[2 * kk + 1][2], st[2 * kk + 1][3]);
-      sa[0] = pack2<T>(dpt[2 * kk][0], dpt[2 * kk][1]);
-      sa[1] = pack2<T>(dpt[2 * kk][2], dpt[2 * kk][3]);
-      sa[2] = pack2<T>(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]);
-      sa[3] = pack2<T>(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3]);
-#pragma unroll
-      for (int dp = 0; dp < kDO / 16; ++dp) {
-        uint32_t bd[4], bq[4];
-        load_b_kn<T>(bd, dot, kLd, kk * 16, c0 + dp * 16, lane);
-        load_b_kn<T>(bq, qt, kLd, kk * 16, c0 + dp * 16, lane);
-        mma<T>(dv[2 * dp], pa, bd);
-        mma<T>(dv[2 * dp + 1], pa, bd + 2);
-        mma<T>(dk[2 * dp], sa, bq);
-        mma<T>(dk[2 * dp + 1], sa, bq + 2);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int n = 0; n < kDO / 8; ++n) {
-    const int d = c0 + n * 8 + 2 * tq;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (krows[r] < g.SKV) {
-        const size_t at = ((size_t)bh * g.SKV + krows[r]) * g.D + d;
-#pragma unroll
-        for (int u = 0; u < 2; ++u)
-          if (d + u < g.D) {
-            dk_out[at + u] = from_f<T>(dk[n][2 * r + u]);
-            dv_out[at + u] = from_f<T>(dv[n][2 * r + u]);
-          }
-      }
-    }
-  }
-}
-
-// dQ: one block per (q tile, bh, column part), over kv tiles up to the
-// diagonal; the block keeps output columns c0..c0+DP/out_split-1
-template <typename T, int DP, bool AL>
-__global__ void __launch_bounds__(kThreads)
-bhd_dq_mma(const T* __restrict__ q, const T* __restrict__ k,
-           const T* __restrict__ v, const T* __restrict__ dout,
-           const float* __restrict__ lse, const float* __restrict__ delta,
-           const int32_t* __restrict__ seed_ptr, T* __restrict__ dq_out,
-           Geo g) {
-  constexpr int kLd = DP + 8;
-  constexpr int kTileEl = kTile * kLd;
-  constexpr int kKs = DP / 16;
-  constexpr int kDO = DP / out_split<DP>();   // this block's columns
-  const int n_t = tiles(g.SQ);
-  const int bh = blockIdx.x / n_t;            // (tile, bh) folded: any BH
-  const int qt_i = n_t - 1 - (blockIdx.x - bh * n_t);  // heavy causal first
-  const int c0 = blockIdx.z * kDO;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, tq = lane & 3;
-  const T* qb = q + (size_t)bh * g.SQ * g.D;
-  const T* db = dout + (size_t)bh * g.SQ * g.D;
-  const T* kb = k + (size_t)bh * g.SKV * g.D;
-  const T* vb = v + (size_t)bh * g.SKV * g.D;
-  const int32_t seed = g.dropout ? seed_ptr[0] : 0;
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* q_s = reinterpret_cast<T*>(smem);
-  T* do_s = q_s + kTileEl;
-  T* k_s = do_s + kTileEl;                    // two buffers
-  T* v_s = k_s + 2 * kTileEl;                 // two buffers
-
-  const int q0 = qt_i * kTile;
-  const int n_kv = kv_tiles(qt_i, g);
-
-  load_rows<T, DP, kLd, kThreads, AL>(q_s, qb, q0, g.SQ, g.D, tid);
-  load_rows<T, DP, kLd, kThreads, AL>(do_s, db, q0, g.SQ, g.D, tid);
-  load_rows<T, DP, kLd, kThreads, AL>(k_s, kb, 0, g.SKV, g.D, tid);
-  load_rows<T, DP, kLd, kThreads, AL>(v_s, vb, 0, g.SKV, g.D, tid);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-
-  constexpr bool kQReg = q_in_regs<DP>();
-  uint32_t qf[kQReg ? kKs : 1][4], df[kQReg ? kKs : 1][4];
-  if (kQReg) {
-#pragma unroll
-    for (int kk = 0; kk < kKs; ++kk) {
-      load_a<T>(qf[kk], q_s, kLd, warp * 16, kk * 16, lane);
-      load_a<T>(df[kk], do_s, kLd, warp * 16, kk * 16, lane);
-    }
-  }
-  const int row_a = q0 + warp * 16 + gq;
-  const int rows[2] = {row_a, row_a + 8};
-  float lse_r[2], dl_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const bool in = rows[r] < g.SQ;
-    lse_r[r] = in ? lse[(size_t)bh * g.SQ + rows[r]] * kLog2e : 0.f;
-    dl_r[r] = in ? delta[(size_t)bh * g.SQ + rows[r]] : 0.f;
-  }
-  float dq[kDO / 8][4];
-#pragma unroll
-  for (int n = 0; n < kDO / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
-
-  for (int j = 0; j < n_kv; ++j) {
-    const int buf = j & 1;
-    if (j > 0) {
-      cp_async_wait_all();
-      __syncthreads();
-    }
-    if (j + 1 < n_kv) {
-      load_rows<T, DP, kLd, kThreads, AL>(k_s + (buf ^ 1) * kTileEl, kb,
-                                          (j + 1) * kTile, g.SKV, g.D, tid);
-      load_rows<T, DP, kLd, kThreads, AL>(v_s + (buf ^ 1) * kTileEl, vb,
-                                          (j + 1) * kTile, g.SKV, g.D, tid);
-      cp_async_commit();
-    }
-    const T* kt = k_s + buf * kTileEl;
-    const T* vt = v_s + buf * kTileEl;
-
-    // S = q . K^T and dP = dO . V^T: 16 q rows x 64 kv columns
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kKs; ++kk) {
-      uint32_t qs[4], ds[4];
-      if (!kQReg) {
-        load_a<T>(qs, q_s, kLd, warp * 16, kk * 16, lane);
-        load_a<T>(ds, do_s, kLd, warp * 16, kk * 16, lane);
-      }
-      const uint32_t* qa = kQReg ? qf[kk] : qs;
-      const uint32_t* da = kQReg ? df[kk] : ds;
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bk[4], bv[4];
-        load_b_nk<T>(bk, kt, kLd, np * 16, kk * 16, lane);
-        load_b_nk<T>(bv, vt, kLd, np * 16, kk * 16, lane);
-        mma<T>(s[2 * np], qa, bk);
-        mma<T>(s[2 * np + 1], qa, bk + 2);
-        mma<T>(dp[2 * np], da, bv);
-        mma<T>(dp[2 * np + 1], da, bv + 2);
-      }
-    }
-    const int k0 = j * kTile;
-    const bool need_mask = k0 + kTile > g.SKV ||
-                           (g.causal && k0 + kTile - 1 > q0 + warp * 16);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int col = k0 + n * 8 + 2 * tq + (e & 1);
-        float p = exp2f(fmaf(s[n][e], g.scale_log2, -lse_r[r]));
-        if (need_mask)
-          p = (col < g.SKV && (!g.causal || col <= rows[r])) ? p : 0.f;
-        float d = dp[n][e];
-        if (g.dropout)
-          d = keep_elem(seed, bh, rows[r], col, g.thresh) ? d / g.keep_prob
-                                                          : 0.f;
-        s[n][e] = p * (d - dl_r[r]) * g.scale;  // dS
-      }
-    // dQ += dS . K, 16 kv rows per step
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t sa[4];
-      sa[0] = pack2<T>(s[2 * kk][0], s[2 * kk][1]);
-      sa[1] = pack2<T>(s[2 * kk][2], s[2 * kk][3]);
-      sa[2] = pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      sa[3] = pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int d2 = 0; d2 < kDO / 16; ++d2) {
-        uint32_t bk[4];
-        load_b_kn<T>(bk, kt, kLd, kk * 16, c0 + d2 * 16, lane);
-        mma<T>(dq[2 * d2], sa, bk);
-        mma<T>(dq[2 * d2 + 1], sa, bk + 2);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int n = 0; n < kDO / 8; ++n) {
-    const int d = c0 + n * 8 + 2 * tq;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (rows[r] < g.SQ) {
-        T* o = dq_out + ((size_t)bh * g.SQ + rows[r]) * g.D + d;
-        if (d < g.D) o[0] = from_f<T>(dq[n][2 * r]);
-        if (d + 1 < g.D) o[1] = from_f<T>(dq[n][2 * r + 1]);
-      }
-    }
-  }
 }
 
 // ===========================================================================
@@ -1993,10 +1440,6 @@ static_assert(kDP == 0 || kDP == 64 || kDP == 128 || kDP == 256,
               "FLASH_DP");
 constexpr bool kF32 = FLASH_F32 != 0;         // this library's family
 
-template <typename T, int DP> constexpr size_t mma_tile() {
-  return (size_t)kTile * (DP + 8) * sizeof(T);
-}
-
 template <typename KernelT, typename... Args>
 int launch(KernelT kernel, dim3 grid, int threads, size_t smem,
            cudaStream_t st, Args... args) {
@@ -2010,43 +1453,6 @@ int launch(KernelT kernel, dim3 grid, int threads, size_t smem,
 unsigned folded(int n, int parts, int BH) {
   const long long gx = (long long)tiles(n) * parts * BH;
   return gx > 0x7FFFFFFFLL ? 0u : (unsigned)gx;
-}
-
-template <typename T, bool AL>
-int fwd_mma(const Ptrs& a, const Geo& g, cudaStream_t st) {
-  const unsigned gx = folded(g.SQ, 1, a.BH);
-  if (!gx) return -1;
-  return launch(bhd_fwd_mma<T, kDP, AL>, dim3(gx), kThreads,
-                5 * mma_tile<T, kDP>(), st, static_cast<const T*>(a.q),
-                static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-                static_cast<T*>(a.out), static_cast<float*>(a.lse),
-                static_cast<const int32_t*>(a.seed), g);
-}
-template <typename T, bool AL>
-int dkdv_mma(const Ptrs& a, const Geo& g, cudaStream_t st) {
-  const unsigned gx = folded(g.SKV, 1, a.BH);
-  if (!gx) return -1;
-  return launch(bhd_dkdv_mma<T, kDP, AL>, dim3(gx, 1, out_split<kDP>()),
-                kThreads, 6 * mma_tile<T, kDP>() + 4 * kTile * sizeof(float),
-                st, static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-                static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
-                static_cast<const float*>(a.lse_in),
-                static_cast<const float*>(a.delta),
-                static_cast<const int32_t*>(a.seed), static_cast<T*>(a.dk),
-                static_cast<T*>(a.dv), g);
-}
-template <typename T, bool AL>
-int dq_mma(const Ptrs& a, const Geo& g, cudaStream_t st) {
-  const unsigned gx = folded(g.SQ, 1, a.BH);
-  if (!gx) return -1;
-  return launch(bhd_dq_mma<T, kDP, AL>, dim3(gx, 1, out_split<kDP>()),
-                kThreads, 6 * mma_tile<T, kDP>(), st,
-                static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-                static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
-                static_cast<const float*>(a.lse_in),
-                static_cast<const float*>(a.delta),
-                static_cast<const int32_t*>(a.seed), static_cast<T*>(a.dq),
-                g);
 }
 
 // The TMA maps of q, k, v and (n = 4) dO as (BH, S, 1, D) tensors of T.
@@ -2115,87 +1521,119 @@ int fwd_wide_tc(const Ptrs& a, const Geo& g, cudaStream_t st) {
   }
 }
 
-// f32 forward, dK/dV and dQ: rows TMA can address (D % 4 == 0, AL) run
-// the 3xTF32 tensor-core kernels (dK/dV and dQ at any width: the DP = 0
-// instances past 256); other rows are refused (the wrapper pads them).
-template <bool AL>
+// f32 forward, dK/dV and dQ: the 3xTF32 tensor-core kernels (dK/dV and
+// dQ at any width: the DP = 0 instances past 256).  Templates on T (f32),
+// so that only the f32 libraries instantiate their kernels.
+template <typename T>
 int fwd_f32(const Ptrs& a, const Geo& g, cudaStream_t st) {
-  if constexpr (AL) {
-    constexpr int kW = tcf::consumers<kDP>();
-    const long long gx = (long long)((tiles(g.SQ) + kW - 1) / kW) * a.BH;
-    if (gx > 0x7FFFFFFFLL) return -1;
-    CUtensorMap m[3];
-    const int err = tc_maps(m, a, g, 3);
-    if (err) return err;
-    return launch(bhd_fwd_tc<kDP>, dim3((unsigned)gx), tcf::threads<kDP>(),
-                  tcf::smem<kDP>(), st, m[0], m[1], m[2],
-                  static_cast<float*>(a.out), static_cast<float*>(a.lse),
-                  static_cast<const int32_t*>(a.seed), g);
-  } else {
-    return -1;
-  }
+  constexpr int kW = tcf::consumers<kDP>();
+  const long long gx = (long long)((tiles(g.SQ) + kW - 1) / kW) * a.BH;
+  if (gx > 0x7FFFFFFFLL) return -1;
+  CUtensorMap m[3];
+  const int err = tc_maps(m, a, g, 3);
+  if (err) return err;
+  return launch(bhd_fwd_tc<kDP>, dim3((unsigned)gx), tcf::threads<kDP>(),
+                tcf::smem<kDP>(), st, m[0], m[1], m[2],
+                static_cast<float*>(a.out), static_cast<float*>(a.lse),
+                static_cast<const int32_t*>(a.seed), g);
 }
-template <bool AL>
+template <typename T>
 int dkdv_f32(const Ptrs& a, const Geo& g, cudaStream_t st) {
-  if constexpr (AL) {
-    const unsigned gx = folded(g.SKV, tc::parts<kDP>(g.D, false), a.BH);
-    if (!gx) return -1;
-    CUtensorMap m[4];
-    const int err = tc_maps(m, a, g);
-    if (err) return err;
-    return launch(bhd_dkdv_tc<kDP>, dim3(gx), tc::kBlock,
-                  tc::kSmemDkdv, st, m[0], m[1], m[2], m[3],
-                  static_cast<const float*>(a.lse_in),
-                  static_cast<const float*>(a.delta),
-                  static_cast<const int32_t*>(a.seed),
-                  static_cast<float*>(a.dk), static_cast<float*>(a.dv), g);
-  } else {
-    return -1;
-  }
+  const unsigned gx = folded(g.SKV, tc::parts<kDP>(g.D, false), a.BH);
+  if (!gx) return -1;
+  CUtensorMap m[4];
+  const int err = tc_maps(m, a, g);
+  if (err) return err;
+  return launch(bhd_dkdv_tc<kDP>, dim3(gx), tc::kBlock, tc::kSmemDkdv, st,
+                m[0], m[1], m[2], m[3], static_cast<const float*>(a.lse_in),
+                static_cast<const float*>(a.delta),
+                static_cast<const int32_t*>(a.seed),
+                static_cast<float*>(a.dk), static_cast<float*>(a.dv), g);
 }
-template <bool AL>
+template <typename T>
 int dq_f32(const Ptrs& a, const Geo& g, cudaStream_t st) {
-  if constexpr (AL) {
-    const unsigned gx = folded(g.SQ, tc::parts<kDP>(g.D, true), a.BH);
-    if (!gx) return -1;
-    CUtensorMap m[4];
-    const int err = tc_maps(m, a, g);
-    if (err) return err;
-    return launch(bhd_dq_tc<kDP>, dim3(gx), tc::kBlock,
-                  tc::kSmemDq, st, m[0], m[1], m[2], m[3],
-                  static_cast<const float*>(a.lse_in),
-                  static_cast<const float*>(a.delta),
-                  static_cast<const int32_t*>(a.seed),
-                  static_cast<float*>(a.dq), g);
-  } else {
-    return -1;
-  }
+  const unsigned gx = folded(g.SQ, tc::parts<kDP>(g.D, true), a.BH);
+  if (!gx) return -1;
+  CUtensorMap m[4];
+  const int err = tc_maps(m, a, g);
+  if (err) return err;
+  return launch(bhd_dq_tc<kDP>, dim3(gx), tc::kBlock, tc::kSmemDq, st,
+                m[0], m[1], m[2], m[3], static_cast<const float*>(a.lse_in),
+                static_cast<const float*>(a.delta),
+                static_cast<const int32_t*>(a.seed),
+                static_cast<float*>(a.dq), g);
 }
 
-// One kernel, dispatched by dtype (0 f32, 1 bf16, 2 f16) and by whether
-// every row is 16-byte aligned.  This library takes its padded width
-// kDP's D in (kDP/2, kDP] (from 1 at 64; any D in the column-chunked
-// library, kDP 0, which the wrapper uses past 256) and its family's
-// dtypes: f32 (kF32), or bf16 and f16.  (Two families a width, so that
+// bf16/f16 up to 256: flash_tc.cuh's kernels with PACKED = false (K1's
+// bodies), BH heads of one (H = 1), over the maps of q, k, v (and dO) as
+// (BH, rows, 1, D).
+ftc::Geo tc16_geo(const Geo& g) {
+  ftc::Geo t;
+  t.S = g.SQ;
+  t.SKV = g.SKV;
+  t.H = 1;
+  t.D = g.D;
+  t.causal = g.causal;
+  t.scale = g.scale;
+  t.dropout = g.dropout;
+  t.keep_prob = g.keep_prob;
+  t.thresh = g.thresh;
+  return t;
+}
+template <typename T>
+int tc16_maps(ftc::Maps<false>* m, const Ptrs& a, const Geo& g, bool bwd) {
+  CUtensorMap t[4];
+  const int err = tc_maps<T>(t, a, g, bwd ? 4 : 3);
+  if (err) return err;
+  *m = {};
+  m->qm = t[0];
+  m->km = t[1];
+  m->vm = t[2];
+  if (bwd) m->dout = t[3];
+  return 0;
+}
+template <typename T>
+int fwd_tc16(const Ptrs& a, const Geo& g, cudaStream_t st) {
+  ftc::Maps<false> m;
+  const int err = tc16_maps<T>(&m, a, g, false);
+  if (err) return err;
+  return ftc::launch_fwd<T, kDP, false>(m, a.out, a.lse, a.seed, a.BH,
+                                        tc16_geo(g), 0, st);
+}
+template <typename T>
+int bwd_tc16(bool dq, const Ptrs& a, const Geo& g, cudaStream_t st) {
+  ftc::Maps<false> m;
+  const int err = tc16_maps<T>(&m, a, g, true);
+  if (err) return err;
+  return ftc::launch_bwd<T, kDP, false>(!dq, m, a.lse_in, a.delta, a.seed,
+                                        dq ? a.dq : a.dk,
+                                        dq ? nullptr : a.dv, a.BH,
+                                        tc16_geo(g), 0, st);
+}
+
+// Whether this library takes dtype (0 f32, 1 bf16, 2 f16) at head width D:
+// its family's dtypes (f32 with kF32, else bf16 and f16), D in (kDP/2,
+// kDP] (from 1 at 64; any D in the column-chunked library, kDP 0, which
+// the wrapper uses past 256), and rows TMA can address (D * size % 16 ==
+// 0: the wrapper zero-pads other rows).  (Two families a width, so that
 // their instances compile in parallel.)
-template <template <typename, bool> class F>
-int dispatch(int dtype, const Ptrs& a, const Geo& g, void* stream) {
+bool takes(int dtype, int D) {
   const int lo = kDP == 64 ? 1 : kDP / 2 + 1;
-  if (dtype < 0 || dtype > 2 || (dtype == 0) != kF32 || a.BH < 1 ||
-      g.SQ < 1 || g.SKV < 1 || g.D < 1 ||
-      (kDP > 0 && (g.D < lo || g.D > kDP)))
-    return -1;
+  return dtype >= 0 && dtype <= 2 && (dtype == 0) == kF32 && D >= 1 &&
+         (kDP == 0 || (D >= lo && D <= kDP)) &&
+         (D * (kF32 ? 4 : 2)) % 16 == 0;
+}
+
+// One kernel, dispatched by dtype.
+template <template <typename> class F>
+int dispatch(int dtype, const Ptrs& a, const Geo& g, void* stream) {
+  if (!takes(dtype, g.D) || a.BH < 1 || g.SQ < 1 || g.SKV < 1) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool al = (g.D * (kF32 ? 4 : 2)) % 16 == 0;
-  if constexpr (kF32) {
-    return al ? F<float, true>::run(a, g, st) : F<float, false>::run(a, g, st);
-  } else {
-    if (dtype == 1)
-      return al ? F<__nv_bfloat16, true>::run(a, g, st)
-                : F<__nv_bfloat16, false>::run(a, g, st);
-    return al ? F<__half, true>::run(a, g, st)
-              : F<__half, false>::run(a, g, st);
-  }
+  if constexpr (kF32)
+    return F<float>::run(a, g, st);
+  else
+    return dtype == 1 ? F<__nv_bfloat16>::run(a, g, st)
+                      : F<__half>::run(a, g, st);
 }
 
 // bf16/f16 dK/dV (dq false) or dQ past 256 on the tensor cores
@@ -2209,40 +1647,39 @@ int bwd_wide_tc(bool dq, const Ptrs& a, const Geo& g, cudaStream_t st) {
                                        wide_args(a, g), 0, 0, 0, st);
 }
 
-// The three kernels as dispatch's F.  Past 256: the forward on the tensor
-// cores (fwd_wide_tc), bf16/f16 dK/dV and dQ on the tensor cores
-// (bwd_wide_tc), f32 dK/dV and dQ on 3xTF32 (the DP = 0 instances of the
-// pair); at 256 and below f32 on the tensor cores (3xTF32), the bf16/f16
-// instances on mma.sync (any D).  A row TMA cannot address is refused
-// where the route needs TMA.
-template <typename T, bool AL> struct Fwd {
+// The three kernels as dispatch's F.  Up to 256: f32 on 3xTF32, bf16/f16
+// on flash_tc.cuh's TMA + wgmma kernels (fwd_tc16, bwd_tc16).  Past 256:
+// the forward on the tensor cores (fwd_wide_tc), bf16/f16 dK/dV and dQ on
+// the tensor cores (bwd_wide_tc), f32 dK/dV and dQ on 3xTF32 (the DP = 0
+// instances of the pair).
+template <typename T> struct Fwd {
   static int run(const Ptrs& a, const Geo& g, cudaStream_t st) {
     if constexpr (kDP == 0)
-      return AL ? fwd_wide_tc<T>(a, g, st) : -1;
+      return fwd_wide_tc<T>(a, g, st);
     else if constexpr (std::is_same<T, float>::value)
-      return fwd_f32<AL>(a, g, st);
+      return fwd_f32<T>(a, g, st);
     else
-      return fwd_mma<T, AL>(a, g, st);
+      return fwd_tc16<T>(a, g, st);
   }
 };
-template <typename T, bool AL> struct Dkdv {
+template <typename T> struct Dkdv {
   static int run(const Ptrs& a, const Geo& g, cudaStream_t st) {
     if constexpr (std::is_same<T, float>::value)
-      return dkdv_f32<AL>(a, g, st);
+      return dkdv_f32<T>(a, g, st);
     else if constexpr (kDP == 0)
-      return AL ? bwd_wide_tc<T>(false, a, g, st) : -1;
+      return bwd_wide_tc<T>(false, a, g, st);
     else
-      return dkdv_mma<T, AL>(a, g, st);
+      return bwd_tc16<T>(false, a, g, st);
   }
 };
-template <typename T, bool AL> struct Dq {
+template <typename T> struct Dq {
   static int run(const Ptrs& a, const Geo& g, cudaStream_t st) {
     if constexpr (std::is_same<T, float>::value)
-      return dq_f32<AL>(a, g, st);
+      return dq_f32<T>(a, g, st);
     else if constexpr (kDP == 0)
-      return AL ? bwd_wide_tc<T>(true, a, g, st) : -1;
+      return bwd_wide_tc<T>(true, a, g, st);
     else
-      return dq_mma<T, AL>(a, g, st);
+      return bwd_tc16<T>(true, a, g, st);
   }
 };
 
@@ -2307,44 +1744,33 @@ int flash_bhd_dkdv(int dtype, const void* q, const void* k, const void* v,
 }
 
 // The forward kernel this library launches for dtype and head width D:
-// 0 bhd_fwd_mma (bf16/f16 up to 256), 1 bhd_fwd_tc (f32 up to 256), 2 the
+// 0 flash_tc_fwd (bf16/f16 up to 256), 1 bhd_fwd_tc (f32 up to 256), 2 the
 // tensor-core forward past 256 (wide::fwd_tc, or wide::fwd_tc_f32 for
 // f32); -1 a width or dtype this library does not take, or a row TMA
-// cannot address where the kernel needs TMA.
+// cannot address.
 int flash_bhd_fwd_route(int dtype, int D) {
-  const int lo = kDP == 64 ? 1 : kDP / 2 + 1;
-  if (dtype < 0 || dtype > 2 || (dtype == 0) != kF32 || D < 1 ||
-      (kDP > 0 && (D < lo || D > kDP)))
-    return -1;
-  const bool al = (D * (kF32 ? 4 : 2)) % 16 == 0;
-  if (kDP == 0) return al ? 2 : -1;
-  if (kF32) return al ? 1 : -1;
-  return 0;
+  if (!takes(dtype, D)) return -1;
+  return kDP == 0 ? 2 : kF32 ? 1 : 0;
 }
 
 // The dK/dV and dQ kernels this library launches for dtype and width D:
-// 0 bhd_*_mma (bf16/f16 up to 256), 1 bhd_*_tc (f32 up to 256), 2
-// wide::dkdv_tc / dq_tc (bf16/f16 past 256), 3 bhd_*_tc<0> (f32 past
-// 256, 3xTF32); -1 as flash_bhd_fwd_route.
+// 0 flash_tc_dkdv / flash_tc_dq (bf16/f16 up to 256), 1 bhd_*_tc (f32 up
+// to 256), 2 wide::dkdv_tc / dq_tc (bf16/f16 past 256), 3 bhd_*_tc<0>
+// (f32 past 256, 3xTF32); -1 as flash_bhd_fwd_route.
 int flash_bhd_bwd_route(int dtype, int D) {
-  const int lo = kDP == 64 ? 1 : kDP / 2 + 1;
-  if (dtype < 0 || dtype > 2 || (dtype == 0) != kF32 || D < 1 ||
-      (kDP > 0 && (D < lo || D > kDP)))
-    return -1;
-  const bool al = (D * (kF32 ? 4 : 2)) % 16 == 0;
-  if (kDP == 0) return al ? (kF32 ? 3 : 2) : -1;
-  if (kF32) return al ? 1 : -1;
-  return 0;
+  if (!takes(dtype, D)) return -1;
+  return kDP == 0 ? (kF32 ? 3 : 2) : kF32 ? 1 : 0;
 }
 
 // Dynamic shared memory of the forward flash_bhd_fwd_route names, in
 // bytes (-1 where the route is -1).
 int flash_bhd_fwd_smem(int dtype, int D) {
+  constexpr int dp = kDP > 0 ? kDP : 64;
   switch (flash_bhd_fwd_route(dtype, D)) {
     case 0:
-      return (int)(5 * mma_tile<__nv_bfloat16, (kDP > 0 ? kDP : 64)>());
+      return (int)ftc::smem_bytes<dp, false>(0);
     case 1:
-      return (int)tcf::smem<(kDP > 0 ? kDP : 64)>();
+      return (int)tcf::smem<dp>();
     case 2:
       return kF32 ? (int)wide::tcf32::kSmem : (int)wide::tcw::smem_bytes(D);
     default:
@@ -2358,8 +1784,7 @@ int flash_bhd_bwd_smem(int dtype, int D, int dq) {
   constexpr int dp = kDP > 0 ? kDP : 64;
   switch (flash_bhd_bwd_route(dtype, D)) {
     case 0:
-      return (int)(6 * mma_tile<__nv_bfloat16, dp>() +
-                   (dq ? 0 : 4 * kTile * sizeof(float)));
+      return (int)ftc::smem_bytes<dp, false>(dq ? 2 : 1);
     case 1:
     case 3:
       return (int)(dq ? tc::kSmemDq : tc::kSmemDkdv);

@@ -1,8 +1,12 @@
-// Device helpers shared by the flash-attention kernels of this directory
-// (flash_attention_packed.cu, K1; flash_attention.cu, K2): type
-// conversions, mma.sync m16n8k16 with f32 accumulators, ldmatrix fragment
-// loads from padded shared-memory tiles, cp.async, the positional-hash
-// dropout mask of the JAX kernels, and the dynamic shared-memory opt-in.
+// Device helpers shared by the attention kernels of this directory
+// (flash_attention_packed.cu, K1; flash_attention.cu, K2; flash_tc.cuh and
+// flash_wide.cuh, their TMA + wgmma bodies; paged_attention.cu, K3): type
+// conversions, the positional-hash dropout mask of the JAX kernels, the
+// dynamic shared-memory opt-in, and mma.sync m16n8k16 with f32
+// accumulators, ldmatrix fragment loads from padded shared-memory tiles
+// and cp.async, whose users are K3's mma.sync tile kernels
+// (paged_attention_mma, paged_attention_mma_wide): K1 and K2 run every
+// product on wgmma.
 // Each kernel library is one translation unit, so everything here lives in
 // an unnamed namespace.
 

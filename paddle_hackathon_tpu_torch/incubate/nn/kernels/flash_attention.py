@@ -13,11 +13,11 @@ K2), and what the packed kernels share with it.
 - :func:`flash_fwd_kernel`, :func:`flash_dkdv_kernel`,
   :func:`flash_dq_kernel`: the wrappers of the three Hopper kernels in
   ``csrc/flash_attention.cu``.  A CUDA tensor launches them or raises;
-  there is no fallback to the plain version on the card.  Where a kernel
-  reads its rows by TMA (f32 at every width, bf16/f16 past 256) and a row
-  is not a multiple of 16 bytes, the wrapper zero-pads the head width to
-  :func:`padded_width` and cuts the outputs back (zero columns of q, k and
-  dO add exact zeros to every score).  The forward is one of three kernels
+  there is no fallback to the plain version on the card.  Every kernel
+  reads its rows by TMA, so where a row is not a multiple of 16 bytes the
+  wrapper zero-pads the head width to :func:`padded_width` and cuts the
+  outputs back (zero columns of q, k and dO add exact zeros to every
+  score; the caller's ``sm_scale`` is kept).  The forward is one of three kernels
   by dtype and width (:data:`FWD_KERNELS`, counted apart in
   :data:`fwd_launches`), dK/dV and dQ one of four (:data:`BWD_ROUTES`,
   counted in :data:`bwd_launches`); :func:`fwd_route`, :func:`bwd_route`,
@@ -59,19 +59,21 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # run reads them to prove the train step went through the kernels)
 launches = {"fwd": 0, "dkdv": 0, "dq": 0}
 # The forward kernels, in the order of the libraries' flash_bhd_fwd_route:
-# bf16/f16 up to 256 on mma.sync, f32 up to 256 on 3xTF32 wgmma, past 256
-# on the tensor cores (wgmma: bf16/f16, or 3xTF32 for f32).  Each forward
+# bf16/f16 up to 256 on TMA + wgmma (``fwd_tc16``: csrc/flash_tc.cuh's
+# flash_tc_fwd, K1's body), f32 up to 256 on 3xTF32 wgmma, past 256 on
+# the tensor cores (wgmma: bf16/f16, or 3xTF32 for f32).  Each forward
 # launch counts once here, under its kernel, and once in
 # ``launches["fwd"]``.
-FWD_KERNELS = ("fwd_mma", "fwd_tc", "wide_fwd_tc")
+FWD_KERNELS = ("fwd_tc16", "fwd_tc", "wide_fwd_tc")
 fwd_launches = dict.fromkeys(FWD_KERNELS, 0)
 # The dK/dV and dQ kernels, in the order of flash_bhd_bwd_route: bf16/f16
-# up to 256 on mma.sync (``mma``), f32 up to 256 on 3xTF32 wgmma (``tc``),
+# up to 256 on TMA + wgmma (``tc16``: flash_tc.cuh's flash_tc_dkdv /
+# flash_tc_dq), f32 up to 256 on 3xTF32 wgmma (``tc``),
 # bf16/f16 past 256 on wgmma (``wide_tc``: flash_wide.cuh's dkdv_tc /
 # dq_tc) and f32 past 256 on 3xTF32 wgmma (``wide_tc_f32``: the run-time
 # width instances bhd_dkdv_tc<0> / bhd_dq_tc<0>).  Each launch counts once
 # in ``bwd_launches["<dkdv|dq>_<route>"]`` and once in ``launches``.
-BWD_ROUTES = ("mma", "tc", "wide_tc", "wide_tc_f32")
+BWD_ROUTES = ("tc16", "tc", "wide_tc", "wide_tc_f32")
 bwd_launches = {f"{k}_{r}": 0 for r in BWD_ROUTES for k in ("dkdv", "dq")}
 
 # The launch plans of the tensor-core kernels past 256, as
@@ -99,6 +101,40 @@ _WIDE_BWD_F32 = dict(threads=384, slice_cols=32, stages=2,
                      chunk_cols={"dkdv": 128, "dq": 256},
                      smem={"dkdv": 1024 + (8 + 8 + 8 + 2) * _BOX_BYTES + 32,
                            "dq": 1024 + (8 + 8 + 4 + 2) * _BOX_BYTES + 32})
+_TC16_WIDTHS = (64, 128, 256)   # the bf16/f16 instances up to 256
+
+
+def tc16_smem(head_dim: int, kernel: str) -> int:
+    """Dynamic shared memory in bytes of the bf16/f16 kernel up to 256
+    (``kernel`` ``"fwd"``, ``"dkdv"`` or ``"dq"``) at ``head_dim``'s
+    padded width (64, 128 or 256): ``ftc::smem_bytes<DP, false>`` of
+    csrc/flash_tc.cuh, with the 1024 bytes that align the TMA tiles.  The
+    forward: two 128-row q buffers (one at 256) and a ring of k and v
+    tiles (4, 3, 2 stages); dK/dV: K and V of the block's rows (128, or
+    64 at 256), a ring of q and dO tiles with 64 LSE and 64 Δ floats a
+    stage (3 stages, 2 at 256); dQ: q and dO of the block's rows and a
+    ring of k and v tiles; each ring's mbarriers, 8 bytes each."""
+    dp = next((w for w in _TC16_WIDTHS if head_dim <= w), None)
+    if dp is None:
+        raise ValueError(f"D={head_dim} runs past the 256-wide instances")
+    tile = dp // 64 * _BOX_BYTES             # one 64-row tile
+    split = dp > 128
+    rows_tiles = 1 if split else 2            # a backward block's tiles
+    stages = 2 if split else 3
+    if kernel == "fwd":
+        q_bufs = 2 if dp <= 128 else 1
+        ring = {64: 4, 128: 3, 256: 2}[dp]
+        body = q_bufs * 2 * tile + ring * 2 * tile + (2 * q_bufs
+                                                      + 2 * ring) * 8
+    elif kernel == "dkdv":
+        body = (2 * rows_tiles * tile + stages * 2 * tile
+                + stages * 2 * 64 * 4 + (1 + 2 * stages) * 8)
+    elif kernel == "dq":
+        body = (2 * rows_tiles * tile + stages * 2 * tile
+                + (1 + 2 * stages) * 8)
+    else:
+        raise ValueError(f"kernel must be fwd, dkdv or dq, got {kernel}")
+    return 1024 + body
 
 
 def _vmem_cap(dtype=torch.bfloat16) -> int:
@@ -279,13 +315,11 @@ def _elem(dtype) -> int:
 
 def padded_width(head_dim: int, dtype) -> int:
     """The head width the kernels (forward, dK/dV and dQ alike) run
-    ``head_dim`` at: the least width whose rows TMA addresses (a multiple
-    of 16 bytes: 4 f32, 8 bf16/f16 elements) where the kernels read rows
-    by TMA -- f32 at every width and bf16/f16 past 256 -- else
-    ``head_dim`` itself (mma.sync reads any row)."""
-    if dtype == torch.float32:
-        return -(-head_dim // 4) * 4
-    return -(-head_dim // 8) * 8 if head_dim > 256 else head_dim
+    ``head_dim`` at: the least width whose rows TMA addresses, a multiple
+    of 16 bytes (4 f32, 8 bf16/f16 elements).  Every kernel reads its rows
+    by TMA."""
+    step = 4 if dtype == torch.float32 else 8
+    return -(-head_dim // step) * step
 
 
 def fwd_route(head_dim: int, dtype) -> str:
@@ -294,7 +328,7 @@ def fwd_route(head_dim: int, dtype) -> str:
     of the libraries' ``flash_bhd_fwd_route``."""
     if padded_width(head_dim, dtype) > 256:
         return "wide_fwd_tc"
-    return "fwd_tc" if dtype == torch.float32 else "fwd_mma"
+    return "fwd_tc" if dtype == torch.float32 else "fwd_tc16"
 
 
 def bwd_route(head_dim: int, dtype) -> str:
@@ -304,7 +338,7 @@ def bwd_route(head_dim: int, dtype) -> str:
     f32 = dtype == torch.float32
     if padded_width(head_dim, dtype) > 256:
         return "wide_tc_f32" if f32 else "wide_tc"
-    return "tc" if f32 else "mma"
+    return "tc" if f32 else "tc16"
 
 
 def _plan_common(route, bh, sq, d, e, geo, row_elems):

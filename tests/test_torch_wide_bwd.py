@@ -259,12 +259,14 @@ def test_k2_bwd_plan(d, dt):
 
 
 def test_routes_name_no_cuda_core_forward():
-    """Every width to 1100 in every dtype: the forward is a tensor-core or
-    mma.sync kernel and so are dK/dV and dQ (no CUDA-core kernel exists:
-    f32 past 256 runs the 3xTF32 pair's run-time-width instances); plans
-    refuse other routes."""
+    """Every width to 1100 in every dtype: the forward, dK/dV and dQ are
+    tensor-core kernels (no CUDA-core or mma.sync kernel is left: f32 past
+    256 runs the 3xTF32 pair's run-time-width instances, bf16/f16 up to
+    256 flash_tc.cuh's TMA + wgmma pair at the padded width); plans refuse
+    other routes."""
     assert "wide" not in tfa.BWD_ROUTES and "wide_fwd" not in \
         tfa.FWD_KERNELS
+    assert not any("mma" in r for r in tfa.BWD_ROUTES + tfa.FWD_KERNELS)
     for dt in (torch.float32, torch.bfloat16, torch.float16):
         for d in range(1, 1101):
             assert tfa.fwd_route(d, dt) in tfa.FWD_KERNELS
@@ -274,7 +276,8 @@ def test_routes_name_no_cuda_core_forward():
                 assert route == ("wide_tc_f32" if dt == torch.float32
                                  else "wide_tc"), (d, dt)
             else:
-                assert route == ("tc" if dt == torch.float32 else "mma")
+                assert route == ("tc" if dt == torch.float32 else "tc16")
+                assert tfa.padded_width(d, dt) <= 256
     with pytest.raises(ValueError):
         tfa.wide_bwd_plan(1, 64, 256, torch.float32, "dkdv")
     with pytest.raises(ValueError):

@@ -183,12 +183,11 @@ def test_k2_plan(d, dt):
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16", "float16"])
 def test_fwd_route_by_alignment(dt):
-    """Every width to 1100: past 256 the tensor-core forward, at the width
-    itself where a row is a multiple of 16 bytes and else zero-padded to
-    the next such width; up to 256 the narrower instances (f32 rows TMA
-    cannot address, e.g. D = 33, padded too: the 3xTF32 forward at 36;
-    bf16/f16 on mma.sync, which reads any row).  f32 D = 514 runs at
-    516."""
+    """Every width to 1100: past 256 the tensor-core forward, up to 256 the
+    narrower instances (f32 on 3xTF32, bf16/f16 on flash_tc.cuh's TMA +
+    wgmma forward), each at the width itself where a row is a multiple of
+    16 bytes and else zero-padded to the next such width (e.g. f32 D = 33
+    at 36, bf16 D = 36 at 40).  f32 D = 514 runs at 516."""
     dtype = getattr(torch, dt)
     elem = 4 if dt == "float32" else 2
     for d in range(1, 1101):
@@ -198,14 +197,16 @@ def test_fwd_route_by_alignment(dt):
         if d > 256:
             assert route == "wide_fwd_tc", d
             assert (width == d) == aligned and width * elem % 16 == 0
-        elif dt == "float32":
-            assert route == "fwd_tc", d
-            assert (width == d) == aligned and width <= 256
         else:
-            assert route == "fwd_mma" and width == d, d
+            assert route == ("fwd_tc" if dt == "float32" else "fwd_tc16"), d
+            assert (width == d) == aligned and width * elem % 16 == 0
+            assert width <= 256, d
     assert tfa.fwd_route(514, torch.float32) == "wide_fwd_tc"
     assert tfa.padded_width(514, torch.float32) == 516
     assert tfa.fwd_route(33, torch.float32) == "fwd_tc"
     assert tfa.padded_width(33, torch.float32) == 36
+    assert tfa.fwd_route(36, torch.bfloat16) == "fwd_tc16"
+    assert tfa.padded_width(36, torch.bfloat16) == 40
+    assert tfa.padded_width(100, torch.float16) == 104
     with pytest.raises(ValueError):
         tfa.wide_fwd_plan(1, 64, 128, torch.bfloat16)
