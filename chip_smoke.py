@@ -202,17 +202,21 @@ Phases, each printing one JSON line:
                bf16 forward and pair at the same shape (the pair's
                launches counted over three passes through
                ``flash_attention``), K2's f32 forward at D=514 (padded to
-               516, the pad copies timed apart), and K3 at D=512 (widths 1
-               and 32, bf16; each held against its plain version at
-               2e-2), each beside its plain version, SDPA and its bounds.
+               516, the pad copies timed apart), and K3 at D=512 (width 1 in
+               bf16, f16 and f32: the split kernel in column slices; width
+               32 in bf16; each held against its plain version at 2e-2,
+               f32 2e-5), each beside its plain version, SDPA and its
+               bounds.
 9c. dispatch_repairs -- each dispatcher on the card with what its kernel
                refuses: K1 a strided qkv, K3 an int64 page table and
                lengths, K4 a transposed weight view and a bf16 scale; each
                launches its kernel and equals the normalised call bit for
                bit.
 10. paged   -- holds ``paged_attention`` (K3: the split decode kernel at
-               widths below 16 with 16-byte rows up to D=256, else the
-               tile kernels) against its plain PyTorch version
+               widths below 16 with 16-byte rows at any D, past 256 its
+               row in column slices; else the tile kernels, f32 chunks up
+               to D=256 on paged TMA + 3xTF32 wgmma) against its plain
+               PyTorch version
                (``paged_attention_ref``) at the serving geometry (B=16,
                H=12, D=64, P=16, maxp=32; widths 1 and 32; shuffled page
                tables, an inactive slot, lengths 0 / page boundary / last
@@ -235,7 +239,10 @@ Phases, each printing one JSON line:
                the split decode kernel at widths 1 and 15, pages of 16, 128
                and 512, D = 64, 128 and 256, in bf16, f16 (its control the
                f32 result rounded to f16: f16 cannot hold the -1e30 mask)
-               and f32; 65538 slots of one page each (widths 1 and 16, bf16
+               and f32, and past 256 at D = 264, 320, 512 and 1024 (column
+               slices), and f32 chunks at D = 128 and 256 and over pages
+               of 48, 8 and 12 (the scalar kernel, by route); 65538 slots
+               of one page each (widths 1 and 16, bf16
                and f32: the last two slots against the plain version, the
                two before as the planted fault); and its summation order:
                three runs bit for bit, each of 16 slots alone bit for bit
@@ -250,7 +257,10 @@ Phases, each printing one JSON line:
                tile kernels' entry point (the scalar kernel, which ran the
                decode steps before); and at width 128 over pages of
                128 beside its bound, plain version and SDPA with the
-               offset-causal mask over the gathered K/V.
+               offset-causal mask over the gathered K/V; the f32 prefill
+               kernel likewise at the serving chunk and at width 128 over
+               pages of 128 (SDPA in f32, TF32 off; bound: bytes or 3xTF32
+               products).
 11. serving -- GPT-2-small in bf16 through
                ``ServingEngine(cache_mode="paged", max_slots=16, max_len=512,
                page_size=16, num_pages=257, chunk=32, decode_window=32)``:
@@ -261,18 +271,24 @@ Phases, each printing one JSON line:
                version must not be called, and the pool must drain.  Then
                an f32 run of 4 requests x 32 new tokens must be
                token-exact against the dense engine (the plain static-cache
-               path), or diverge only at a logit margin <= 1e-3.
+               path), or diverge only at a logit margin <= 1e-3, its chunk
+               ticks x layers launching the f32 prefill kernel, its decode
+               steps x layers the split kernel, the scalar kernel and the
+               plain version never.
 12. profile -- device time by kernel over one short serving run
                (``torch.profiler``), for the breakdown in PERF.md, with
                K3's kernels' share of the busy time.
 13. paged_wide -- the paged engine at ``chunk=128, page_size=128`` against
                the dense engine, GPT-2-small f32, 4 requests of 300, 200,
-               150 and 64 prompt tokens x 32 new: token-exact, K3 launched,
-               no page in use after the run.
+               150 and 64 prompt tokens x 32 new: token-exact, the f32
+               prefill kernel launched exactly chunk ticks x layers and the
+               split kernel decode steps x layers, the scalar kernel and the
+               plain version never, no page in use after the run.
 13b. paged_wide512 -- the paged engine at the wide512 GPT's heads (D =
                512), bf16, ``chunk=32``, pages of 16, 8 requests of 64 + 16
                tokens: K3's prefill kernel past 256 launched exactly chunk
-               ticks x layers, the plain version never, no page in use;
+               ticks x layers, the split kernel decode steps x layers, the
+               scalar kernel and the plain version never, no page in use;
                against the dense engine token-exact or diverging first
                within ``BF16_MARGIN`` of the dense model's own logits.
 14. quant_checks -- holds the dequant-GEMM kernel K4
@@ -352,6 +368,11 @@ and K1's three kernels at ``K1_AB_SHAPES`` (D = 64, 256), causal, s =
 HGMMA counts of the five libraries it builds: to hold a change of
 ``csrc/flash_tc.cuh`` against its parent on one card, alternate the two
 trees' processes (parent, change, change, parent).
+
+``python3 chip_smoke.py --k3-ab N [--root DIR]`` likewise times K3 at
+``k3_ab_cases`` (the f32 prefill chunks, decode at D = 512 in each type,
+the shapes whose kernel is unchanged and those the scalar kernel keeps),
+after the paged library's ptxas report and HGMMA counts.
 
 ``python3 chip_smoke.py --bwd-ab N [--root DIR]`` likewise times only K2's
 f32 dK/dV and dQ kernels (graph replay), N times each, at ``BWD_AB_SHAPES``
@@ -487,6 +508,19 @@ def bound(case, elem_bytes, flops_peak):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def k3_bound(case):
+    """``bound`` at the case's type: bf16/f16 products on the tensor
+    cores, f32 as 3xTF32 (three tf32 products each)."""
+    e = case["q"].element_size()
+    return bound(case, e, H100_BF16_FLOPS if e == 2 else H100_TF32_FLOPS / 3)
+
+
+def f32_case(case):
+    """A paged case with q and the pools in f32."""
+    return {k: v.float() if v.is_floating_point() else v
+            for k, v in case.items()}
+
+
 def gathered(torch, c):
     """A paged case's (q, K, V, mask) as SDPA takes them: the slots' pages
     gathered contiguous, (B, H, ., D), and the offset-causal mask (query i
@@ -566,8 +600,7 @@ def phase_kernel(torch, pa):
         launched = {k: n - before[k] for k, n in pa.kernel_launches.items()}
         repeats = all(torch.equal(out, pa.paged_attention_kernel(**case))
                       for _ in range(2))
-        f32 = {k: v.float() if v.is_floating_point() else v
-               for k, v in case.items()}
+        f32 = f32_case(case)
         ref32 = pa.paged_attention_ref(**f32)
         bad = dict(f32, page_table=case["page_table"].clone())
         bad["page_table"][:, 0] = bad["page_table"][:, 1]
@@ -612,8 +645,9 @@ def phase_kernel(torch, pa):
                                             maxp=4), tol)
         check(f"{tag}_d36_w32", kernel_case(torch, dtype, 32, seed=36,
                                             D=36), tol)
-        # past 256: decode steps and f32 the scalar kernel in slices,
-        # bf16 prefill paged TMA + wgmma
+        # past 256: decode steps the split kernel in column slices, f32
+        # prefill the scalar kernel in slices, bf16 prefill paged TMA +
+        # wgmma
         for D in (320, 512):
             for width in (1, 32):
                 check(f"{tag}_d{D}_w{width}",
@@ -629,13 +663,25 @@ def phase_kernel(torch, pa):
         check(f"bfloat16_{name}", kernel_case(torch, torch.bfloat16, 32,
                                               seed=D + P, D=D, P=P,
                                               maxp=maxp), 2e-2)
-    # the Python mirror of the route and of the wide kernel's shared memory
+    # the f32 prefill kernel (paged TMA + 3xTF32 wgmma) at D = 128 and 256
+    # (one consumer warpgroup at 256), a chunk of two q tiles at 256, pages
+    # of 48 (boxes of 16) and of 8; pages of 12 (boxes of 4 rows) stay on
+    # the scalar kernel, by route
+    for name, w, kw in (("d128_w32", 32, dict(D=128)),
+                        ("d256_w32", 32, dict(D=256)),
+                        ("d256_w128", 128, dict(D=256, maxp=16)),
+                        ("p48_w32", 32, dict(P=48, maxp=12)),
+                        ("p8_w65", 65, dict(P=8, maxp=64)),
+                        ("p12_w32", 32, dict(P=12, maxp=40))):
+        check(f"float32_{name}", kernel_case(torch, torch.float32, w,
+                                             seed=w + 11, **kw), 2e-5)
+    # the Python mirror of the route and of the kernels' shared memory
     # against the library's own
     wrong = []
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for s in (1, 15, 16, 32, 128):
-            for D in (36, 64, 256, 260, 264, 320, 512):
-                for P in (1, 12, 16, 48, 128):
+            for D in (4, 36, 64, 100, 128, 256, 260, 264, 320, 512):
+                for P in (1, 8, 12, 16, 48, 128):
                     got = pa.library_route(s, D, dtype, P)
                     if got != pa.tile_route(s, D, dtype, P):
                         wrong.append((str(dtype), s, D, P, got))
@@ -643,6 +689,20 @@ def phase_kernel(torch, pa):
         got = pa.library_wide_smem(D)
         if got != pa.wide_tc_plan(1, 32, 1, D, 16, torch.bfloat16)["smem"]:
             wrong.append(("smem", D, got))
+    for D in range(4, 257, 4):
+        for s in (16, 32, 65, 128):
+            got = pa.library_tf32_smem(D, s)
+            if got != pa.tf32_plan(1, s, 1, D, 16)["smem"]:
+                wrong.append(("tf32_smem", D, s, got))
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for D in (64, 128, 256, 264, 320, 512, 520, 1024, 4096, 8192):
+            for s in (1, 15):
+                for P in (16, 48, 128, 512):
+                    plan = pa.split_plan(12, D, dtype, P, 8, s)
+                    got = pa.library_split_smem(dtype, s, D, plan.G, P)
+                    if got != plan.smem:
+                        wrong.append(("split_smem", str(dtype), D, s, P,
+                                      got))
     checks.append({"case": "route_mirror", "ok": not wrong,
                    "mismatches": wrong})
     if wrong:
@@ -657,6 +717,17 @@ def phase_kernel(torch, pa):
         for P, maxp in SPLIT_PAGES:
             for D in (64, 128, 256):
                 for width in (1, 15):
+                    case = kernel_case(torch, dtype, width,
+                                       seed=P + D + width, D=D, P=P,
+                                       maxp=maxp)
+                    check(f"split_{tag}_p{P}_d{D}_w{width}", case, tol)
+                    del case
+        # past 256: one head a group, its row in column slices (2-8 of
+        # them, the last one part zeros at 264, 320 and 520)
+        for D in (264, 320, 512, 1024):
+            for width in (1, 15):
+                for P, maxp in ((16, 8), (128, 2)) if D == 512 else \
+                        ((16, 8),):
                     case = kernel_case(torch, dtype, width,
                                        seed=P + D + width, D=D, P=P,
                                        maxp=maxp)
@@ -679,13 +750,11 @@ def phase_kernel(torch, pa):
             page_table=c["page_table"][sl].contiguous(),
             lengths=c["lengths"][sl].contiguous())
         tail, before = part(slice(B - 2, B)), part(slice(B - 3, B - 1))
-        f32 = lambda c: {k: v.float() if v.is_floating_point() else v  # noqa
-                         for k, v in c.items()}
-        ref32 = pa.paged_attention_ref(**f32(tail))
+        ref32 = pa.paged_attention_ref(**f32_case(tail))
         within = within_of(ref32, tol)
         got = out[B - 2:]
         ok = (within(got) and within(pa.paged_attention_ref(**tail))
-              and not within(pa.paged_attention_ref(**f32(before))))
+              and not within(pa.paged_attention_ref(**f32_case(before))))
         tag = str(dtype).split('.')[-1]
         checks.append({"case": f"b65538_{tag}_w{width}", "ok": ok,
                        "kernel": pa.tile_route(width, 64, dtype, 16),
@@ -706,7 +775,12 @@ def phase_kernel(torch, pa):
                        ("maxlen", kernel_case(torch, torch.bfloat16, 1,
                                               seed=8)),
                        ("f32_p128_w15", kernel_case(torch, torch.float32, 15,
-                                                    seed=9, P=128, maxp=4))):
+                                                    seed=9, P=128, maxp=4)),
+                       ("d512", kernel_case(torch, torch.bfloat16, 1, seed=10,
+                                            D=512, maxp=8)),
+                       ("f32_d320_w15", kernel_case(torch, torch.float32, 15,
+                                                    seed=11, D=320,
+                                                    maxp=8))):
         out = pa.paged_attention_kernel(**case)
         repeats = all(torch.equal(out, pa.paged_attention_kernel(**case))
                       for _ in range(2))
@@ -754,7 +828,7 @@ def phase_kernel(torch, pa):
             row["tiles_route_max_abs_vs_kernel"] = float(
                 (tiles_route(torch, pa, case).float()
                  - pa.paged_attention_kernel(**case).float()).abs().max())
-        row["bound_ms"], row["bound_by"] = bound(case, 2, H100_BF16_FLOPS)
+        row["bound_ms"], row["bound_by"] = k3_bound(case)
         del cs, libs
         torch.cuda.empty_cache()
         return row
@@ -770,14 +844,27 @@ def phase_kernel(torch, pa):
     # beside SDPA with the offset-causal mask over the gathered K/V
     w128 = times(kernel_case(torch, torch.bfloat16, 128, seed=129, P=128,
                              maxp=4), plain_reps=2)
+    # the f32 prefill kernel at the f32 serving cross-check's chunk (the
+    # serving run's pool and tables in f32) and at the f32 paged_wide
+    # engine's chunk of 128 over pages of 128; SDPA in f32, TF32 off
+    f32w = f32_case(serving_case(torch, 32, seed=32))
+    err_f32 = check("float32_w32_serving", f32w, 2e-5)
+    f32_w32 = dict(times(f32w), max_abs_err=err_f32)
+    f32_w128 = times(kernel_case(torch, torch.float32, 128, seed=129,
+                                 P=128, maxp=4), plain_reps=2)
+    f32_w128["max_abs_err"] = next(c["max_abs_err"] for c in checks
+                                   if c["case"] == "float32_w128_p128")
     emit({"phase": "paged", "checks": checks, "invariance": invariance,
           "decode_w1_serving": decode, "chunk_w32_serving": chunk,
-          "decode_w1_maxlen": maxlen, "chunk_w128_p128": w128})
+          "decode_w1_maxlen": maxlen, "chunk_w128_p128": w128,
+          "f32_chunk_w32_serving": f32_w32, "f32_chunk_w128_p128": f32_w128})
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return ({"max_abs_err": err, **{k: decode[k] for k in keys},
              "tiles_route_ms": decode["tiles_route_ms"],
              "maxlen": {k: maxlen[k] for k in keys + ("tiles_route_ms",)}},
-            {"max_abs_err": err_w32, **{k: chunk[k] for k in keys}})
+            {"max_abs_err": err_w32, **{k: chunk[k] for k in keys}},
+            {name: {k: row[k] for k in keys + ("max_abs_err",)}
+             for name, row in (("w32", f32_w32), ("w128", f32_w128))})
 
 
 # ---------------------------------------------------------------------------
@@ -2541,10 +2628,11 @@ def wide512_times(torch, fa, fap, pa):
     before), and K2's f32 forward at D = 514 (rows TMA cannot address:
     zero-padded to 516 onto the tensor-core forward; the pad copies timed
     on their own) beside the same yardsticks.  K3 at D = 512 (16 slots,
-    12 heads, 8 pages of 16) at width 1 (the scalar kernel) and a chunk of
-    32 (paged TMA + wgmma), bf16, each held against its plain version in
-    f32 at 2e-2, beside the plain version's time and SDPA on the gathered
-    K/V."""
+    12 heads, 8 pages of 16) at width 1 (the split decode kernel, its row
+    in column slices) in bf16, f16 and f32, and a bf16 chunk of 32 (paged
+    TMA + wgmma), each held against its plain version in f32 (2e-2, f32
+    2e-5), beside the plain version's time, SDPA on the gathered K/V in
+    the case's type and the bound."""
     import math
 
     import torch.nn.functional as F
@@ -2693,40 +2781,47 @@ def wide512_times(torch, fa, fap, pa):
     del qkv, dout, o, lse, delta, dqkv, qh, kh, vh, doh, og
     torch.cuda.empty_cache()
 
-    out["k3_bf16"] = {}
-    for width in (1, 32):
-        case = kernel_case(torch, torch.bfloat16, width, seed=514 + width,
-                           D=D, maxp=8)
+    # K3: decode (the split kernel in column slices) in each type, and a
+    # bf16 chunk of 32 (paged TMA + wgmma); SDPA in the case's type, TF32
+    # off
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for tag, dt, width, tol in (("k3_bf16", torch.bfloat16, 1, 2e-2),
+                                ("k3_bf16", torch.bfloat16, 32, 2e-2),
+                                ("k3_f16", torch.float16, 1, 2e-2),
+                                ("k3_f32", torch.float32, 1, 2e-5)):
+        case = kernel_case(torch, dt, width, seed=514 + width, D=D, maxp=8)
         cs = copies(case)
+        # f16 cannot hold the plain version's -1e30 mask: its plain version
+        # runs on the inputs in f32
+        pcs = [f32_case(c) for c in cs] if dt == torch.float16 else cs
         libs = [gathered(torch, c) for c in cs]
-        b_ms, b_by = bound(case, 2, H100_BF16_FLOPS)
+        b_ms, b_by = k3_bound(case)
         # the timed kernel's result against the plain version in f32, at
-        # the paged checks' 2e-2
-        ref32 = pa.paged_attention_ref(**{
-            key: t.float() if t.is_floating_point() else t
-            for key, t in case.items()})
+        # the paged checks' limits
+        ref32 = pa.paged_attention_ref(**f32_case(case))
         err = (pa.paged_attention_kernel(**case).float() - ref32).abs()
-        out["k3_bf16"][f"w{width}"] = {
-            "route": pa.tile_route(width, D, torch.bfloat16,
-                                   case["k_pool"].shape[1]),
-            "max_abs_err": float(err.max()),
-            "ok": bool((err <= 2e-2 + 2e-2 * ref32.abs()).all()),
+        out.setdefault(tag, {})[f"w{width}"] = {
+            "route": pa.tile_route(width, D, dt, case["k_pool"].shape[1]),
+            "max_abs_err": float(err.max()), "tol": tol,
+            "ok": bool((err <= tol + tol * ref32.abs()).all()),
             "ms": device_ms(torch, [lambda c=c: pa.paged_attention_kernel(**c)
                                     for c in cs]),
             "plain_ms": device_ms(torch, [
-                lambda c=c: pa.paged_attention_ref(**c) for c in cs],
+                lambda c=c: pa.paged_attention_ref(**c) for c in pcs],
                 reps=2),
             "library_ms": device_ms(torch, [
                 lambda a=a: F.scaled_dot_product_attention(
                     a[0], a[1], a[2], attn_mask=a[3]) for a in libs]),
             "bound_ms": b_ms, "bound_by": b_by}
-        del cs, libs, case, ref32, err
+        del cs, pcs, libs, case, ref32, err
         torch.cuda.empty_cache()
     bad = [f"{key}_fwd" for key in ("k2_f32", "k2_bf16", "k2_f32_d514",
                                      "k1_bf16") if not out[key]["fwd"]["ok"]]
     bad += [f"{tag}_{key}" for tag in ("k1_bf16", "k2_bf16", "k2_f32")
             for key in ("dkdv", "dq") if not out[tag][key]["ok"]]
-    bad += [f"k3_{w}" for w, row in out["k3_bf16"].items() if not row["ok"]]
+    bad += [f"{tag}_{w}" for tag in ("k3_bf16", "k3_f16", "k3_f32")
+            for w, row in out[tag].items() if not row["ok"]]
     if not out["k2_bf16"]["api_launches_ok"]:
         bad.append("k2_bf16_api_launches")
     if bad:
@@ -2948,15 +3043,23 @@ def phase_serving(torch, pa):
     launches = runs[0]["kernel_launches"]
 
     # f32: the paged engine (kernel) against the dense engine (the plain
-    # static-cache path) on the same weights
+    # static-cache path) on the same weights; the paged run's chunks on the
+    # f32 prefill kernel (paged TMA + 3xTF32 wgmma), its decode steps on
+    # the split kernel, the scalar kernel and the plain version never
     m32 = GPTForCausalLM(cfg, device=DEV)
     load_jax_state(m32, arrays)
-    outs = {}
+    outs, f32_stats = {}, {}
     for mode in ("paged", "dense"):
         e = ServingEngine(m32, cache_mode=mode, **eng_kw)
-        rs = [e.submit(p, 32) for p in prompts[:4]]
-        e.run_until_idle()
-        outs[mode] = [r.result() for r in rs]
+        f32_stats[mode] = counted_run(
+            torch, pa, e, lambda e=e: [e.submit(p, 32) for p in prompts[:4]])
+        outs[mode] = [r.result() for r in f32_stats[mode].pop("requests")]
+        if mode == "paged":
+            engine_routes_ok(f32_stats[mode], cfg.num_layers,
+                             e._decode_window, "tiles_tf32", "f32 serving")
+        del e
+    if any(f32_stats["dense"]["kernel_launches"].values()):
+        raise AssertionError(f"the dense engine launched K3: {f32_stats}")
     exact, margins = 0, []
     for p, a, b in zip(prompts[:4], outs["paged"], outs["dense"]):
         diff = np.nonzero(a != b)[0]
@@ -2971,8 +3074,45 @@ def phase_serving(torch, pa):
                                  f"new token {k - len(p)} with logit margin "
                                  f"{m} > 1e-3")
     emit({"phase": "f32_cross_check", "requests": 4, "new_tokens": 32,
-          "token_exact": exact, "divergences": margins})
-    return eng, prompts, launches
+          "token_exact": exact, "divergences": margins, **f32_stats})
+    return eng, prompts, launches, f32_stats["paged"]["kernel_launches"]
+
+
+def counted_run(torch, pa, eng, submit):
+    """Run ``submit()``'s requests to the end on ``eng`` with K3's counts
+    (per entry point and per kernel) and the plain version's calls set to
+    0 just before and read just after, beside the engine's ticks."""
+    plain = {"paged_attention_ref": 0}
+    ticks0 = dict(eng.stats)
+    real = counting(pa, plain, plain)
+    for counts in (pa.launches, pa.kernel_launches):
+        for k in counts:
+            counts[k] = 0
+    try:
+        reqs = submit()
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+    finally:
+        restore(pa, real)
+    return {"requests": reqs, "kernel_launches": dict(pa.kernel_launches),
+            "plain_calls": plain["paged_attention_ref"],
+            "chunk_ticks": eng.stats["chunk_ticks"] - ticks0["chunk_ticks"],
+            "decode_ticks": eng.stats["decode_ticks"]
+            - ticks0["decode_ticks"]}
+
+
+def engine_routes_ok(st, layers, window, chunk_kernel, what):
+    """A paged engine run's K3 launches: every chunk tick ran
+    ``chunk_kernel`` and every decode step the split kernel, once a layer
+    each; the scalar kernel and the plain version never."""
+    got = st["kernel_launches"]
+    want = {k: 0 for k in got}
+    want[chunk_kernel] = st["chunk_ticks"] * layers
+    want["split"] = st["decode_ticks"] * window * layers
+    if (got != want or st["plain_calls"] or not st["chunk_ticks"]
+            or not st["decode_ticks"]):
+        raise AssertionError(f"{what}: K3 launches {got}, want {want}, "
+                             f"plain calls {st['plain_calls']}")
 
 
 def phase_paged_wide(torch, pa):
@@ -2995,15 +3135,13 @@ def phase_paged_wide(torch, pa):
     for mode in ("paged", "dense"):
         extra = {"page_size": 128} if mode == "paged" else {}
         eng = ServingEngine(model, cache_mode=mode, **kw, **extra)
-        for k in pa.launches:
-            pa.launches[k] = 0
-        reqs = [eng.submit(p, 32) for p in prompts]
-        eng.run_until_idle()
-        outs[mode] = [r.result() for r in reqs]
-        stats[mode] = {"k3_launches": dict(pa.launches),
-                       "chunk_ticks": eng.stats["chunk_ticks"],
-                       "decode_ticks": eng.stats["decode_ticks"]}
+        stats[mode] = counted_run(
+            torch, pa, eng, lambda e=eng: [e.submit(p, 32) for p in prompts])
+        outs[mode] = [r.result() for r in stats[mode].pop("requests")]
         if mode == "paged":
+            engine_routes_ok(stats[mode], cfg.num_layers,
+                             eng._decode_window, "tiles_tf32",
+                             "paged engine at chunk 128 / pages of 128")
             eng.drop_prefix_cache()
             stats[mode]["kv_pages_in_use"] = eng.kv_pages_in_use
         del eng
@@ -3013,14 +3151,14 @@ def phase_paged_wide(torch, pa):
           "requests": 4, "new_tokens": 32, "token_exact_of_4": exact,
           **stats})
     p = stats["paged"]
-    if exact != 4 or not all(p["k3_launches"].values()) \
-            or p["kv_pages_in_use"] != 0 \
-            or any(stats["dense"]["k3_launches"].values()):
+    if exact != 4 or p["kv_pages_in_use"] != 0 \
+            or any(stats["dense"]["kernel_launches"].values()):
         raise AssertionError(f"paged engine at chunk 128 / pages of 128: "
                              f"{exact} of 4 token-exact against dense, "
                              f"{stats}")
     del model
     torch.cuda.empty_cache()
+    return p["kernel_launches"]
 
 
 # divergence allowed between the bf16 paged and dense engines at D = 512:
@@ -3053,26 +3191,14 @@ def phase_paged_wide512(torch, pa):
                for _ in range(8)]
     kw = dict(max_slots=8, max_len=256, chunk=32, decode_window=16)
     outs, stats = {}, {}
-    plain = {"paged_attention_ref": 0}
     for mode in ("paged", "dense"):
         extra = {"page_size": 16} if mode == "paged" else {}
         eng = ServingEngine(model, cache_mode=mode, **kw, **extra)
-        real = counting(pa, plain, plain)
-        for counts in (pa.launches, pa.kernel_launches):
-            for k in counts:
-                counts[k] = 0
-        try:
-            reqs = [eng.submit(p, 16) for p in prompts]
-            eng.run_until_idle()
-            torch.cuda.synchronize()
-        finally:
-            restore(pa, real)
-        outs[mode] = [r.result() for r in reqs]
-        stats[mode] = {"kernel_launches": dict(pa.kernel_launches),
-                       "plain_calls": plain["paged_attention_ref"],
-                       "chunk_ticks": eng.stats["chunk_ticks"],
-                       "decode_ticks": eng.stats["decode_ticks"]}
+        stats[mode] = counted_run(
+            torch, pa, eng, lambda e=eng: [e.submit(p, 16) for p in prompts])
+        outs[mode] = [r.result() for r in stats[mode].pop("requests")]
         if mode == "paged":
+            stats[mode]["decode_window"] = eng._decode_window
             eng.drop_prefix_cache()
             stats[mode]["kv_pages_in_use"] = eng.kv_pages_in_use
         del eng
@@ -3090,9 +3216,9 @@ def phase_paged_wide512(torch, pa):
           "token_exact_of_8": exact, "divergences": margins,
           "margin_limit": BF16_MARGIN, **stats})
     p = stats["paged"]
-    need = p["chunk_ticks"] * cfg.num_layers
-    if (p["kernel_launches"]["tiles_wide_tc"] != need or need == 0
-            or p["plain_calls"] or p["kv_pages_in_use"]
+    engine_routes_ok(p, cfg.num_layers, p["decode_window"], "tiles_wide_tc",
+                     "paged engine at D = 512")
+    if (not p["decode_ticks"] or p["kv_pages_in_use"]
             or any(stats["dense"]["kernel_launches"].values())
             or any(m["margin"] > BF16_MARGIN for m in margins)):
         raise AssertionError(f"paged engine at D = 512: {exact} of 8 "
@@ -3679,6 +3805,67 @@ def tc16_ab(torch, runs):
         emit({"phase": "tc16_ab", "pkg": fa.__file__, "run": i, "ms": ms})
 
 
+# K3's shapes of the --k3-ab mode: the two this PR moved (f32 prefill
+# chunks, decode past 256), the shapes whose kernel it left alone (the
+# split decode up to 256, the bf16 tile kernel, the bf16 prefill past 256)
+# and those the scalar kernel keeps (f32 over pages of 12 and past 256,
+# bf16 decode rows that are not 16-byte aligned)
+def k3_ab_cases(torch):
+    kc = kernel_case
+    return {
+        "f32_w32_serving": f32_case(serving_case(torch, 32, seed=32)),
+        "f32_w128_p128": kc(torch, torch.float32, 128, seed=129, P=128,
+                            maxp=4),
+        "bf16_d512_w1": kc(torch, torch.bfloat16, 1, seed=515, D=512,
+                           maxp=8),
+        "f16_d512_w1": kc(torch, torch.float16, 1, seed=515, D=512, maxp=8),
+        "f32_d512_w1": kc(torch, torch.float32, 1, seed=515, D=512, maxp=8),
+        "bf16_w1_serving": serving_case(torch, 1, seed=1),
+        "bf16_w1_maxlen": kc(torch, torch.bfloat16, 1, seed=1),
+        "bf16_w32_serving": serving_case(torch, 32, seed=32),
+        "bf16_w128_p128": kc(torch, torch.bfloat16, 128, seed=129, P=128,
+                             maxp=4),
+        "bf16_d512_w32": kc(torch, torch.bfloat16, 32, seed=546, D=512,
+                            maxp=8),
+        "f32_p12_w32": kc(torch, torch.float32, 32, seed=43, P=12, maxp=40),
+        "f32_d320_w32": kc(torch, torch.float32, 32, seed=352, D=320,
+                           maxp=8),
+        "bf16_d36_w1": kc(torch, torch.bfloat16, 1, seed=37, D=36)}
+
+
+def k3_ab(torch, runs):
+    """The ``--k3-ab`` mode: K3's device time at each of ``k3_ab_cases``
+    (graph replay over input copies larger than the L2), ``runs`` times,
+    from the package on ``sys.path``; one JSON line a run, each shape with
+    the kernel that tree routes it to.  First the ptxas report and HGMMA
+    count of every kernel of the paged library, as this tree names them."""
+    from paddle_hackathon_tpu_torch.incubate.nn.kernels import _build
+    from paddle_hackathon_tpu_torch.incubate.nn.kernels import \
+        paged_attention as pa
+    libs = _build.build_all(["paged_attention"])
+
+    def name(ln):
+        m = re.search(r"_Z\w+", ln)
+        return m.group(0) if m else None
+    emit({"phase": "k3_ab_build", "pkg": pa.__file__,
+          "ptxas": ptxas_notes(_build, ["paged_attention"], name),
+          "hgmma": hgmma_counts(_build, libs, ["paged_attention"], name)})
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = k3_ab_cases(torch)
+    routes = {k: pa.tile_route(c["q"].shape[1], c["q"].shape[3],
+                               c["q"].dtype, c["k_pool"].shape[1])
+              for k, c in cases.items()}
+    for i in range(runs):
+        ms = {}
+        for key, case in cases.items():
+            cs = copies(case)
+            ms[key] = device_ms(torch, [
+                lambda c=c: pa.paged_attention_kernel(**c) for c in cs])
+            del cs
+        emit({"phase": "k3_ab", "pkg": pa.__file__, "run": i, "ms": ms,
+              "routes": routes})
+
+
 def phase_serving_int8(torch, qm):
     import shutil
     import tempfile
@@ -3905,7 +4092,8 @@ def tc_build(_build, libs, packed):
 
 K2_TC_KERNEL = re.compile(r"(bhd_(?:fwd|dkdv|dq)_tc)ILi(\d+)E")
 K3_SPLIT_KERNEL = re.compile(
-    r"(paged_decode_split)I(f|13__nv_bfloat16|6__half)Li(\d+)E")
+    r"(paged_decode_split(?:_wide)?)I(f|13__nv_bfloat16|6__half)Li(\d+)E")
+K3_TF32_KERNEL = re.compile(r"paged_attention_tf32ILi(\d+)ELi(\d+)E")
 
 
 def ptxas_notes(_build, lib_names, name):
@@ -3947,9 +4135,21 @@ def k2_tc_build(_build, libs):
                          name, 9, "3xTF32 kernels")
 
 
+def k3_tf32_build(_build, libs):
+    """K3's f32 prefill kernel on paged TMA + 3xTF32 wgmma (padded widths
+    64, 128, 256; one or two consumer warpgroups: 5 instances)."""
+    def name(ln):
+        m = K3_TF32_KERNEL.search(ln)
+        return (f"paged_attention_tf32<{m.group(1)},{m.group(2)}>" if m
+                else None)
+    return wide_tc_build(_build, libs, ["paged_attention"], name, 5,
+                         "K3 f32 prefill kernels")
+
+
 def k3_split_build(_build):
-    """The split decode kernel's (f32, bf16, f16; widths up to 1 and 15)
-    ptxas notes."""
+    """The split decode kernel's (f32, bf16, f16; widths up to 1 and 15;
+    up to D = 256 and past it, ``paged_decode_split_wide``) ptxas
+    notes."""
     def name(ln):
         m = K3_SPLIT_KERNEL.search(ln)
         return (f"{m.group(1)}<{m.group(2).lstrip('0123456789')},"
@@ -4086,7 +4286,7 @@ def main():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     for flag, mode in (("--serving-ab", serving_ab), ("--bwd-ab", bwd_ab),
-                       ("--tc16-ab", tc16_ab)):
+                       ("--tc16-ab", tc16_ab), ("--k3-ab", k3_ab)):
         if flag in sys.argv:
             args = sys.argv[1:]
             if "--root" in args:
@@ -4125,6 +4325,7 @@ def main():
           "k2_tc16": tc_build(_build, libs, False),
           "k2_3xtf32": k2_tc_build(_build, libs),
           "k3_split_decode": k3_split_build(_build),
+          "k3_tf32": k3_tf32_build(_build, libs),
           "k4": k4_build(_build, libs),
           "wide_fwd_tc": wide_fwd_build(_build, libs),
           "wide_bwd_tc": wide_bwd_build(_build, libs),
@@ -4142,11 +4343,11 @@ def main():
     wide512 = wide512_times(torch, fa, fap, pa)
     emit({"phase": "wide512_times", **wide512})
     phase_dispatch_repairs(torch, fap, pa, qm, wo)
-    k3_decode, k3_tiles = phase_kernel(torch, pa)
-    eng, prompts, launches = phase_serving(torch, pa)
+    k3_decode, k3_tiles, k3_f32 = phase_kernel(torch, pa)
+    eng, prompts, launches, f32_launches_k3 = phase_serving(torch, pa)
     phase_profile(torch, eng, prompts)
     del eng
-    phase_paged_wide(torch, pa)
+    wide_f32_launches = phase_paged_wide(torch, pa)
     k3_wide_launches = phase_paged_wide512(torch, pa)
     max_abs, max_abs_f32 = phase_quant_checks(torch, qm, wo)
     decode, decode_f32 = phase_quant(torch, qm, wo)
@@ -4270,6 +4471,37 @@ def main():
                     "heads, pages of 16, 8 a slot); launches: the paged "
                     "engine at the wide512 GPT's heads; library: SDPA with "
                     "the offset-causal mask on gathered K/V"})
+    row = wide512["k3_bf16"]["w1"]
+    kernels.append({
+        "name": "paged_decode_split_d512", "route": "cuda",
+        "source": src + "paged_attention.cu",
+        "replaces": ref + "paged_attention.py:175",
+        "launches": k3_wide_launches["split"],
+        **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")},
+        "timed_as": "width-1 decode at D=512, bf16 (16 slots, 12 heads, "
+                    "pages of 16, 8 a slot; the split kernel's row in "
+                    "column slices, paged_decode_split_wide); launches: "
+                    "the paged engine's decode steps at the wide512 GPT's "
+                    "heads; library: SDPA on K/V gathered contiguous"})
+    for kname, key, launched, what in (
+            ("paged_attention_tf32", "w32", f32_launches_k3["tiles_tf32"],
+             "a 32-row prefill chunk at the serving run's geometry in f32 "
+             "(16 slots, 12 heads of 64, pages of 16); launches: the f32 "
+             "paged engine of the serving cross-check"),
+            ("paged_attention_tf32_w128", "w128",
+             wide_f32_launches["tiles_tf32"],
+             "a 128-row prefill chunk over pages of 128, f32 (16 slots, 12 "
+             "heads of 64, 4 pages a slot); launches: the paged_wide "
+             "engine (chunk 128, pages of 128)")):
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": src + "paged_attention.cu",
+            "replaces": ref + "paged_attention.py:175",
+            "launches": launched, **k3_f32[key],
+            "timed_as": what + "; library: SDPA f32 (TF32 off) with the "
+                        "offset-causal mask on gathered K/V; bound: bytes "
+                        "or 3xTF32 products on the tensor cores"})
     kernels.append({"name": "paged_decode_split", "route": "cuda",
                     "source": src + "paged_attention.cu",
                     "replaces": ref + "paged_attention.py:175",

@@ -94,6 +94,7 @@
 #include "flash_tc.cuh"
 #include "flash_wide.cuh"
 #include "hopper_common.cuh"
+#include "tf32_tc.cuh"
 
 namespace {
 
@@ -165,8 +166,6 @@ __device__ __forceinline__ int kv_tiles(int qt, const Geo& g) {
 // SM (214 KB of shared memory).
 namespace tc {
 
-constexpr int kSl = 32;                   // f32 columns of a box: 128 bytes
-constexpr int kBox = kTile * 128;         // one [64][32] f32 box, 8 KB
 constexpr int kStages = 2;                // ring entries
 constexpr int kEntry = 4 * kBox;          // an entry: up to four boxes
 constexpr int kCons = 256;                // two consumer warpgroups
@@ -178,43 +177,6 @@ constexpr int kBarPReady = 4, kBarPFree = 5, kBarDsReady = 6, kBarDsFree = 7;
 // and lo; dQ: dS hi and lo), the 64 x 64 exchange, the ring's barriers
 constexpr size_t kSmemDkdv = 1024 + (size_t)(8 + 8 + 8 + 2) * kBox + 32;
 constexpr size_t kSmemDq = 1024 + (size_t)(8 + 8 + 4 + 2) * kBox + 32;
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024 - (hopper::smem_u32(p) & 1023)) & 1023);
-}
-
-// byte offset of element (r, c), c < 32, of a [rows][32] f32 tile in the
-// 128-byte-swizzled layout a TMA box lands in
-__device__ __forceinline__ int sw(int r, int c) {
-  return r * 128 + ((((c >> 2) ^ (r & 7)) << 4) | ((c & 3) << 2));
-}
-
-__device__ __forceinline__ void split4(const float4& v, float4& h,
-                                       float4& l) {
-  h.x = hopper::tf32_rna(v.x);
-  h.y = hopper::tf32_rna(v.y);
-  h.z = hopper::tf32_rna(v.z);
-  h.w = hopper::tf32_rna(v.w);
-  l.x = hopper::tf32_rna(v.x - h.x);
-  l.y = hopper::tf32_rna(v.y - h.y);
-  l.z = hopper::tf32_rna(v.z - h.z);
-  l.w = hopper::tf32_rna(v.w - h.w);
-}
-
-// One [64][32] box split by a warpgroup's 128 threads: hi in place, lo at
-// the same offset of `lo` (the swizzle is position-for-position).
-__device__ __forceinline__ void split_box(unsigned char* box,
-                                          unsigned char* lo, int t) {
-  float4* x = reinterpret_cast<float4*>(box);
-  float4* y = reinterpret_cast<float4*>(lo);
-#pragma unroll
-  for (int k = 0; k < kBox / 16 / 128; ++k) {
-    float4 h, l;
-    split4(x[t + 128 * k], h, l);
-    x[t + 128 * k] = h;
-    y[t + 128 * k] = l;
-  }
-}
 
 // One [64][32] box (rows r, columns c) split into its transpose: hi and lo
 // tiles of 32 rows (c) x 64 columns (r), each two [32][32] sub-tiles of 4
@@ -252,41 +214,6 @@ __device__ __forceinline__ void put_split(unsigned char* hi, unsigned char* lo,
   l.y = hopper::tf32_rna(x1 - h.y);
   *reinterpret_cast<float2*>(hi + off) = h;
   *reinterpret_cast<float2*>(lo + off) = l;
-}
-
-// One k-step run of 3xTF32 products, d (+)= A . B^T over K = 8 KS, A
-// [64][K] and B [N][K] K-major hi and lo tiles of K/32 sub-tiles (SA, SB
-// bytes apart), per k-step in the order al.bh, ah.bl (into dc) and ah.bh
-// (into dm; dc == dm sums all three in one accumulator).  Each run starts
-// its accumulators afresh.
-template <int N, int KS, int SA, int SB>
-__device__ __forceinline__ void tf32x3(float* dm, float* dc,
-                                       const unsigned char* ah,
-                                       const unsigned char* al,
-                                       const unsigned char* bh,
-                                       const unsigned char* bl) {
-  // one descriptor per tile; a k-step adds its byte offset / 16 to the
-  // address field (offsets stay inside the 14-bit field: shared memory is
-  // below 256 KB)
-  const uint64_t dah = hopper::desc_sw128(ah, 16, 1024);
-  const uint64_t dal = hopper::desc_sw128(al, 16, 1024);
-  const uint64_t dbh = hopper::desc_sw128(bh, 16, 1024);
-  const uint64_t dbl = hopper::desc_sw128(bl, 16, 1024);
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const uint64_t oa = ((kk >> 2) * SA + (kk & 3) * 32) >> 4;
-    const uint64_t ob = ((kk >> 2) * SB + (kk & 3) * 32) >> 4;
-    const int on = kk > 0 ? 1 : 0;
-    if constexpr (N == 64) {
-      hopper::wgmma_tf32_n64(dc, dal + oa, dbh + ob, on);
-      hopper::wgmma_tf32_n64(dc, dah + oa, dbl + ob, 1);
-      hopper::wgmma_tf32_n64(dm, dah + oa, dbh + ob, dm == dc ? 1 : on);
-    } else {
-      hopper::wgmma_tf32_n32(dc, dal + oa, dbh + ob, on);
-      hopper::wgmma_tf32_n32(dc, dah + oa, dbl + ob, 1);
-      hopper::wgmma_tf32_n32(dm, dah + oa, dbh + ob, dm == dc ? 1 : on);
-    }
-  }
 }
 
 // The tensor core's f32 accumulator drops the bits of each wgmma's sum
@@ -804,12 +731,7 @@ bhd_dq_tc(const __grid_constant__ CUtensorMap q_map,
 // cores' f32 bound).
 namespace tcf {
 
-constexpr int kRaw = 4;                   // raw box slots
-constexpr int kOps = 4;                   // operand slots: hi and lo tiles
 constexpr int kBarProd = 1;               // the producer warpgroup's barrier
-template <int DP> __host__ __device__ constexpr int consumers() {
-  return DP <= 128 ? 2 : 1;
-}
 template <int DP> constexpr int threads() {
   return 128 * (1 + consumers<DP>());
 }
@@ -817,60 +739,6 @@ template <int DP> constexpr int threads() {
 template <int DP> constexpr size_t smem() {
   return 1024 + (size_t)(2 * consumers<DP>() * (DP / tc::kSl) + kRaw +
                          2 * kOps) * tc::kBox + 8 * (2 + kRaw + 2 * kOps);
-}
-
-// one raw box split into separate hi and lo tiles (same layout)
-__device__ __forceinline__ void split_to(const unsigned char* box,
-                                         unsigned char* hi, unsigned char* lo,
-                                         int t) {
-  const float4* x = reinterpret_cast<const float4*>(box);
-  float4* h = reinterpret_cast<float4*>(hi);
-  float4* l = reinterpret_cast<float4*>(lo);
-#pragma unroll
-  for (int k = 0; k < tc::kBox / 16 / 128; ++k)
-    tc::split4(x[t + 128 * k], h[t + 128 * k], l[t + 128 * k]);
-}
-
-// tc::split_t with the kv rows of each group of 8 in the k order 0, 2, 4,
-// 6, 1, 3, 5, 7: thread t reads column t % 32 of rows r0, r0 + 2, r0 + 4,
-// r0 + 6 and writes them as k positions k0 .. k0 + 3.
-__device__ __forceinline__ void split_tp(const unsigned char* box,
-                                         unsigned char* hi, unsigned char* lo,
-                                         int t) {
-  const int c = t & 31, g = t >> 5;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int r0 = 16 * g + 8 * (j >> 1) + (j & 1);
-    const int k0 = 16 * g + 4 * j;
-    float4 v, h, l;
-    v.x = *reinterpret_cast<const float*>(box + tc::sw(r0, c));
-    v.y = *reinterpret_cast<const float*>(box + tc::sw(r0 + 2, c));
-    v.z = *reinterpret_cast<const float*>(box + tc::sw(r0 + 4, c));
-    v.w = *reinterpret_cast<const float*>(box + tc::sw(r0 + 6, c));
-    tc::split4(v, h, l);
-    const int off = (k0 >> 5) * (tc::kBox / 2) + tc::sw(c, k0 & 31);
-    *reinterpret_cast<float4*>(hi + off) = h;
-    *reinterpret_cast<float4*>(lo + off) = l;
-  }
-}
-
-// d = P . B^T over 64 kv rows in 3xTF32: P's hi and lo A fragments in
-// registers (k-step kk in ph[4kk..4kk+3]), B a [32][64] K-major hi/lo
-// tile (two [32][32] sub-tiles 4 KB apart); al.bh, ah.bl, ah.bh per
-// k-step, one accumulator started afresh.
-__device__ __forceinline__ void pv_tf32x3(float* d, const uint32_t* ph,
-                                          const uint32_t* pl,
-                                          const unsigned char* bh,
-                                          const unsigned char* bl) {
-  const uint64_t dbh = hopper::desc_sw128(bh, 16, 1024);
-  const uint64_t dbl = hopper::desc_sw128(bl, 16, 1024);
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    const uint64_t ob = ((kk >> 2) * (tc::kBox / 2) + (kk & 3) * 32) >> 4;
-    hopper::wgmma_tf32_rs_n32(d, pl + 4 * kk, dbh + ob, kk > 0 ? 1 : 0);
-    hopper::wgmma_tf32_rs_n32(d, ph + 4 * kk, dbl + ob, 1);
-    hopper::wgmma_tf32_rs_n32(d, ph + 4 * kk, dbh + ob, 1);
-  }
 }
 
 }  // namespace tcf
@@ -1135,51 +1003,6 @@ __host__ __device__ inline int chunks(int D) { return (D + kNC - 1) / kNC; }
 constexpr size_t kSmem = 1024 + (size_t)(kRaw + 2 * kOps) * tc::kBox +
                          8 * (kRaw + 2 * kOps);
 
-// tcf::split_to and tcf::split_tp with every load of the thread's part of
-// the box issued before the first store: the stores may alias the loads
-// as far as the compiler knows, so the plain loops wait out one shared
-// memory round trip per step, and the split (not the products) sets this
-// kernel's pace
-__device__ __forceinline__ void split_to(const unsigned char* box,
-                                         unsigned char* hi, unsigned char* lo,
-                                         int t) {
-  constexpr int kN = tc::kBox / 16 / 128;
-  const float4* x = reinterpret_cast<const float4*>(box);
-  float4 v[kN];
-#pragma unroll
-  for (int k = 0; k < kN; ++k) v[k] = x[t + 128 * k];
-#pragma unroll
-  for (int k = 0; k < kN; ++k) {
-    float4 h, l;
-    tc::split4(v[k], h, l);
-    reinterpret_cast<float4*>(hi)[t + 128 * k] = h;
-    reinterpret_cast<float4*>(lo)[t + 128 * k] = l;
-  }
-}
-__device__ __forceinline__ void split_tp(const unsigned char* box,
-                                         unsigned char* hi, unsigned char* lo,
-                                         int t) {
-  const int c = t & 31, g = t >> 5;
-  float4 v[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int r0 = 16 * g + 8 * (j >> 1) + (j & 1);
-    v[j].x = *reinterpret_cast<const float*>(box + tc::sw(r0, c));
-    v[j].y = *reinterpret_cast<const float*>(box + tc::sw(r0 + 2, c));
-    v[j].z = *reinterpret_cast<const float*>(box + tc::sw(r0 + 4, c));
-    v[j].w = *reinterpret_cast<const float*>(box + tc::sw(r0 + 6, c));
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int k0 = 16 * g + 4 * j;
-    float4 h, l;
-    tc::split4(v[j], h, l);
-    const int off = (k0 >> 5) * (tc::kBox / 2) + tc::sw(c, k0 & 31);
-    *reinterpret_cast<float4*>(hi + off) = h;
-    *reinterpret_cast<float4*>(lo + off) = l;
-  }
-}
-
 }  // namespace tcf32
 
 // NC: the output columns of a chunk (tcf32::kNC; a template, so that only
@@ -1251,9 +1074,9 @@ fwd_tc_f32(const __grid_constant__ CUtensorMap q_map,
       hopper::mbar_wait(opfree + o, ((e / kOps) & 1) ^ 1);
       unsigned char* hi = ops + 2 * o * kBox;
       if (e % per < 2 * ns)
-        tcf32::split_to(raw + s * kBox, hi, hi + kBox, t);
+        tcf::split_ahead(raw + s * kBox, hi, hi + kBox, t);
       else
-        tcf32::split_tp(raw + s * kBox, hi, hi + kBox, t);
+        tcf::split_ahead_t(raw + s * kBox, hi, hi + kBox, t);
       hopper::fence_async_shared();
       hopper::mbar_arrive(opready + o);
       hopper::named_bar_sync(tcf::kBarProd, 128);   // the raw slot is read

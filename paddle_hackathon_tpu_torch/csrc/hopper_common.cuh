@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's warp-specialised kernels:
 // TMA tensor maps (encoded on the host by cuTensorMapEncodeTiled, looked
 // up through the CUDA runtime, so no library needs -lcuda; 4-D swizzled
-// ones for the flash kernels, 2-D unswizzled ones for the paged pools),
+// ones for the flash kernels, 2-D and 3-D unswizzled ones for the paged
+// pools),
 // mbarrier rings, TMA tile loads, named barriers, register
 // reconfiguration, and wgmma products with f32 accumulators (bf16/f16
 // m64n64k16 and tf32 m64nNk8), A from shared memory or from registers, B
@@ -129,6 +130,31 @@ int make_map_2d(CUtensorMap* map, const void* base, long long rows,
   return r == CUDA_SUCCESS ? 0 : -3;
 }
 
+// A map of a row-major (rows, heads, D) tensor of T whose box is {box_cols
+// columns, 1 head, box_rows rows}, no swizzle (a box's rows land dense in
+// shared memory, box_cols elements each).  Columns past D arrive as zeros,
+// never the next head's.  Needs box_cols, box_rows <= 256 and box_cols *
+// sizeof(T), D * sizeof(T) multiples of 16 bytes.
+template <typename T>
+int make_map_rhd(CUtensorMap* map, const void* base, long long rows,
+                 int heads, int D, int box_cols, int box_rows) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return -2;
+  constexpr cuuint64_t kE = sizeof(T);
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)rows};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * kE,
+                                 (cuuint64_t)heads * D * kE};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, 1, (cuuint32_t)box_rows};
+  const cuuint32_t step[3] = {1, 1, 1};
+  CUresult r = encode(map, map_type<T>(), 3, const_cast<void*>(base), dims,
+                      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_NONE,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -3;
+}
+
 // ---------------------------------------------------------------------------
 // Device: barriers and copies
 // ---------------------------------------------------------------------------
@@ -205,6 +231,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
+      : "memory");
+}
+
+// one TMA box of a 3-D `map` at (c0 column, c1 head, c2 row)
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
       : "memory");
 }
 

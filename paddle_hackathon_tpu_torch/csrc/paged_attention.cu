@@ -20,16 +20,20 @@
 // change's work (a CUDA graph over the decode step, or fusing the layer).
 //
 // Routing, by the wrapper (paged_attention.py), each kernel counted apart:
-//   * decode widths (s < 16) with 16-byte rows (D * size % 16 == 0) up to
-//     D = 256, any dtype: the split decode kernel (paged_decode_split,
-//     below: whole-page TMA loads, chunks of 64 rows over blocks, merged in
-//     the launch), through paged_decode_launch;
+//   * decode widths (s < 16) with 16-byte rows (D * size % 16 == 0), any
+//     dtype and D: the split decode kernel (paged_decode_split, below:
+//     whole-page TMA loads, chunks of 64 rows over blocks, merged in the
+//     launch; past D = 256 paged_decode_split_wide, the row in column
+//     slices), through paged_decode_launch;
 //   * everything else through paged_attention_launch: bf16 / f16 widths
 //     from 16 (prefill chunks) the tensor-core kernels (past 256 paged TMA
 //     + wgmma, paged_attention_wide_tc, where D % 8 == 0 and pages hold a
-//     multiple of 8 rows, else a sliced mma.sync copy); f32 prefill
-//     chunks, decode at D > 256 or rows not 16-byte aligned (D = 36 in
-//     bf16) the scalar kernel.  route() names the kernel of each shape.
+//     multiple of 8 rows, else a sliced mma.sync copy); f32 prefill chunks
+//     up to D = 256 with D % 4 == 0 over such pages paged TMA + 3xTF32
+//     wgmma (paged_attention_tf32); the rest (decode rows not 16-byte
+//     aligned, D = 36 in bf16; f32 prefill past 256, with D % 4 != 0 or
+//     over pages of fewer than 8 rows a box) the scalar kernel.  route()
+//     names the kernel of each shape.
 // Every launch folds the slot index into grid.x, so any slot count runs.
 //
 // The scalar kernel (simple and right first):
@@ -76,7 +80,8 @@
 // 256 flash_wide.cuh's forward with a paged TMA producer takes those
 // widths (paged_attention_wide_tc, below), and a sliced copy of the
 // mma.sync kernel (128-column slices) the rows and pages TMA boxes cannot
-// take.
+// take.  f32 prefill widths up to 256 run K2's 3xTF32 forward with the
+// same paged TMA producer (paged_attention_tf32, below).
 //
 // The C entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() (0 on success); the Python wrapper raises
@@ -87,6 +92,7 @@
 #include "flash_common.cuh"
 #include "flash_wide.cuh"
 #include "hopper_common.cuh"
+#include "tf32_tc.cuh"
 
 namespace {
 
@@ -794,8 +800,54 @@ __host__ __device__ __forceinline__ int pow2_part(int P) {
 struct Geo {
   int s, H, D, N, P, maxp, G, ng, nch;
   int pb, pb_log, bstride;                   // box rows, log2, box stride
+  int ns, cw;                                // past kMaxCols: column slices
   float scale_log2;
 };
+
+// The last arriving block's merge of one output column: the chunks 0, 1,
+// ..., nlive - 1 in order, m = max m_c, l = sum l_c 2^(m_c - m), acc = sum
+// acc_c 2^(m_c - m), out = acc / l, up to kMerge chunks' partials loaded
+// at once.  head: the column's head; hd: its column of the (H, D) row.
+constexpr int kMerge = 8;
+template <typename T>
+__device__ __forceinline__ void merge_column(const float* part_o,
+                                             const float* part_ml, T* out,
+                                             const Geo& g, int b, int s,
+                                             int nlive, int head, int hd) {
+  const int HD = g.H * g.D;
+  const float2* ml_at = reinterpret_cast<const float2*>(part_ml) + head;
+  const float* o_at = part_o + hd;
+  const size_t slot = (size_t)b * g.nch * s;
+  for (int i = 0; i < s; ++i) {
+    float m = kNegInf, l = 0.f, a = 0.f;
+    for (int c0 = 0; c0 < nlive; c0 += kMerge) {
+      float2 ml[kMerge];
+      float ac[kMerge];
+#pragma unroll
+      for (int u = 0; u < kMerge; ++u) {
+        const size_t at = slot + (size_t)(c0 + u) * s + i;
+        const bool in = c0 + u < nlive;
+        ml[u] = in ? __ldcg(ml_at + at * g.H) : make_float2(kNegInf, 0.f);
+        ac[u] = in ? __ldcg(o_at + at * HD) : 0.f;
+      }
+      float mb = m;
+#pragma unroll
+      for (int u = 0; u < kMerge; ++u) mb = fmaxf(mb, ml[u].x);
+      const float w0 = exp2f(m - mb);        // rescale the sums so far
+      l *= w0;
+      a *= w0;
+#pragma unroll
+      for (int u = 0; u < kMerge; ++u) {
+        const float w = exp2f(ml[u].x - mb);
+        l = fmaf(ml[u].y, w, l);
+        a = fmaf(ac[u], w, a);
+      }
+      m = mb;
+    }
+    l = l == 0.f ? 1.f : l;                  // the JAX guard
+    out[((size_t)b * s + i) * HD + hd] = from_f<T>(a / l);
+  }
+}
 
 // W: the widest query block the instance takes, 1 (decode steps) or
 // kMaxW (its loops over the queries guarded by the width).
@@ -1000,51 +1052,283 @@ paged_decode_split(const __grid_constant__ CUtensorMap k_map,
   if (!is_last || !mine) return;
   __threadfence();                           // the others' partials after
 
-  // merge the chunks in order: m = max m_c, l = sum l_c 2^(m_c - m),
-  // acc = sum acc_c 2^(m_c - m), out = acc / l; up to kMerge chunks
-  // loaded at once
-  constexpr int kMerge = 8;
-  const float2* ml_at = reinterpret_cast<const float2*>(part_ml) + h0 + gh;
-  const float* o_at = part_o + h0 * g.D + col;
-  const size_t slot = (size_t)b * g.nch * s;
-  for (int i = 0; i < s; ++i) {
-    float m = kNegInf, l = 0.f, a = 0.f;
-    for (int c0 = 0; c0 < nlive; c0 += kMerge) {
-      float2 ml[kMerge];
-      float ac[kMerge];
-#pragma unroll
-      for (int u = 0; u < kMerge; ++u) {
-        const size_t at = slot + (size_t)(c0 + u) * s + i;
-        const bool in = c0 + u < nlive;
-        ml[u] = in ? __ldcg(ml_at + at * g.H) : make_float2(kNegInf, 0.f);
-        ac[u] = in ? __ldcg(o_at + at * HD) : 0.f;
-      }
-      float mb = m;
-#pragma unroll
-      for (int u = 0; u < kMerge; ++u) mb = fmaxf(mb, ml[u].x);
-      const float w0 = exp2f(m - mb);        // rescale the sums so far
-      l *= w0;
-      a *= w0;
-#pragma unroll
-      for (int u = 0; u < kMerge; ++u) {
-        const float w = exp2f(ml[u].x - mb);
-        l = fmaf(ml[u].y, w, l);
-        a = fmaf(ac[u], w, a);
-      }
-      m = mb;
-    }
-    l = l == 0.f ? 1.f : l;                  // the JAX guard
-    out[(o_row + i) * HD + h0 * g.D + col] = from_f<T>(a / l);
-  }
+  merge_column<T>(part_o, part_ml, out, g, b, s, nlive, h0 + gh,
+                  h0 * g.D + col);
 }
 
-// The decode route: the plan's geometry, both pools' maps, the launch.
+// ---------------------------------------------------------------------------
+// Past kMaxCols: one head a group (G = 1), the row in column slices
+// ---------------------------------------------------------------------------
+//
+// A head's row is ns column slices of cw columns (cw * size a multiple of
+// 128 bytes, at most kSliceBytes; the slices balanced, the last one's
+// columns past D TMA zeros, never the next head's: the pools are 3-D
+// (N*P rows, H, D) maps).  One block per (slot, head, chunk of kR rows), as
+// above.  The chunk's K slices, then its V slices, stream through a ring
+// of kStages entries (a slice of the chunk's boxes each, on mbarriers), so
+// shared memory does not grow with D.  Scores: four lanes a row, lane j
+// reading the row's 16-byte chunks j, j + 4, ... (odd rows from chunk 4
+// on: the 8 lanes of a quarter warp read 8 distinct banks); each slice's
+// dot product summed over the four lanes by a fixed shuffle order and
+// added to the row's score slice after slice, in order.  Softmax of the
+// chunk as above (its max and sum per query over the 8 warps, in order).
+// P.V: one thread per column of a slice, over the chunk's rows in order;
+// the chunk's partial, the count and the ordered merge as above, the merge
+// one thread per column of the head's row.
+constexpr int kStages = 2;                   // ring entries
+constexpr int kSliceBytes = 512;             // a slice's row, at most
+constexpr int kRowWarps = kThreads / 32;     // warps of 8 rows
+
+template <typename T, int W>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_split_wide(const __grid_constant__ CUtensorMap k_map,
+                        const __grid_constant__ CUtensorMap v_map,
+                        const T* __restrict__ q,
+                        const int32_t* __restrict__ page_table,
+                        const int32_t* __restrict__ lengths,
+                        T* __restrict__ out, float* __restrict__ part_o,
+                        float* __restrict__ part_ml,
+                        int* __restrict__ counts, Geo g) {
+  constexpr int kVec = 16 / sizeof(T);       // elements of a 16-byte chunk
+  const int c = blockIdx.x % g.nch;
+  const int bh = blockIdx.x / g.nch;         // slot * H + head
+  const int b = bh / g.H, h = bh - b * g.H;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int s = W == 1 ? 1 : g.s;
+  const int t0 = c * kR;
+  __shared__ int s_len, s_page[kR], is_last;
+  // the length and the chunk's page ids in one round trip
+  if (tid == 0) {
+    s_len = lengths[b];
+    hopper::prefetch_tensormap(&k_map);
+    hopper::prefetch_tensormap(&v_map);
+  } else if (tid >= 32 && tid < 32 + (kR >> g.pb_log)) {
+    const int pi = (t0 + ((tid - 32) << g.pb_log)) / g.P;
+    s_page[tid - 32] =
+        pi < g.maxp ? min(max(page_table[(size_t)b * g.maxp + pi], 0),
+                          g.N - 1)
+                    : 0;
+  }
+  __syncthreads();
+  const int len = s_len;
+  // rows any query sees, clamped to the table; this chunk's live rows
+  const int t_end = (int)min((long long)g.maxp * g.P, (long long)len + s);
+  if (t0 >= t_end) return;
+  const int nr = min(kR, t_end - t0);
+  const int nlive = (t_end + kR - 1) / kR;
+  const int HD = g.H * g.D;
+  const int row_bytes = g.cw * (int)sizeof(T);   // a slice's row
+  const int entry = kR * row_bytes;
+  const int nbox = (nr + g.pb - 1) >> g.pb_log;
+  const int n_e = 2 * g.ns;                  // K's slices, then V's
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* ring =                      // entries of kR dense rows
+      smem_raw + ((128 - (hopper::smem_u32(smem_raw) & 127)) & 127);
+  float* q_s = reinterpret_cast<float*>(ring + kStages * entry);  // [s][cw]
+  float* p_s = q_s + s * g.cw;               // [s][kR]
+  float* red_m = p_s + s * kR;               // [s][kRowWarps]
+  float* red_l = red_m + s * kRowWarps;
+  uint64_t* full = reinterpret_cast<uint64_t*>(red_l + s * kRowWarps + 1);
+  full = reinterpret_cast<uint64_t*>(
+      (reinterpret_cast<uintptr_t>(full) + 7) & ~uintptr_t(7));
+
+  // ring entry e: K's slice e (e < ns), else V's slice e - ns, as the
+  // chunk's boxes (a box stays in its page); thread 0 issues it
+  auto issue = [&](int e) {
+    const int st = e % kStages;
+    hopper::mbar_arrive_expect_tx(full + st,
+                                  (uint32_t)(nbox * g.pb * row_bytes));
+    const CUtensorMap* m = e < g.ns ? &k_map : &v_map;
+    const int col = (e < g.ns ? e : e - g.ns) * g.cw;
+    for (int j = 0; j < nbox; ++j) {
+      const int row = s_page[j] * g.P + (t0 + (j << g.pb_log)) % g.P;
+      hopper::tma_load_3d(ring + st * entry + j * g.pb * row_bytes, m,
+                          full + st, col, h, row);
+    }
+  };
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) hopper::mbar_init(full + st, 1);
+    hopper::mbar_fence_init();
+    for (int e = 0; e < min(kStages, n_e); ++e) issue(e);
+  }
+
+  // scores, four lanes a row: row r = tid / 4, in log2 units after the
+  // slices, -1e30 where masked
+  const int r = tid >> 2, qd = tid & 3;
+  const int cpr = row_bytes / 16;            // 16-byte chunks, a multiple of 8
+  float sc[W];
+#pragma unroll
+  for (int i = 0; i < W; ++i) sc[i] = 0.f;
+  for (int sl = 0; sl < g.ns; ++sl) {
+    // the queries' slice in f32 (columns past D zero); the barrier below
+    // also publishes the ring's barriers to the first slice's waits
+    for (int e = tid; e < s * g.cw; e += kThreads) {
+      const int i = e / g.cw, col = sl * g.cw + e - i * g.cw;
+      q_s[e] = col < g.D ? to_f(q[((size_t)b * s + i) * HD + h * g.D + col])
+                         : 0.f;
+    }
+    __syncthreads();
+    const int st = sl % kStages;
+    hopper::mbar_wait(full + st, (sl / kStages) & 1);
+    float part[W];
+#pragma unroll
+    for (int i = 0; i < W; ++i) part[i] = 0.f;
+    if (r < nr) {
+      const unsigned char* row = ring + st * entry + r * row_bytes;
+      int j = qd + 4 * (r & 1);
+      for (int n = 0; n < cpr / 4; ++n, j = j + 4 < cpr ? j + 4 : j + 4 - cpr) {
+        float kf[kVec];
+        unpack16<T>(*reinterpret_cast<const uint4*>(row + 16 * j), kf);
+        const float* qr = q_s + j * kVec;
+#pragma unroll
+        for (int i = 0; i < W; ++i) {
+          if (i < s) {
+            float a = part[i];
+#pragma unroll
+            for (int u = 0; u < kVec; ++u) a = fmaf(qr[i * g.cw + u], kf[u], a);
+            part[i] = a;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      if (i < s) {
+        part[i] += __shfl_xor_sync(0xffffffffu, part[i], 1);
+        part[i] += __shfl_xor_sync(0xffffffffu, part[i], 2);
+        sc[i] += part[i];
+      }
+    }
+    __syncthreads();                         // the entry and q_s are read
+    if (tid == 0 && sl + kStages < n_e) issue(sl + kStages);
+  }
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    if (i < s) {
+      const bool ok = r < nr && t0 + r <= len + i;
+      sc[i] = ok ? sc[i] * g.scale_log2 : kNegInf;
+      const float mx = warp_max(sc[i]);
+      if (lane == 0) red_m[i * kRowWarps + warp] = mx;
+    }
+  }
+  __syncthreads();
+  // p = 2^(score - the chunk's max), 0 where masked; the chunk's sums
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    if (i < s) {
+      float m = red_m[i * kRowWarps];
+      for (int w = 1; w < kRowWarps; ++w)
+        m = fmaxf(m, red_m[i * kRowWarps + w]);
+      const float p = sc[i] == kNegInf ? 0.f : exp2f(sc[i] - m);
+      if (qd == 0) p_s[i * kR + r] = p;
+      const float sum = warp_sum(qd == 0 ? p : 0.f);
+      if (lane == 0) red_l[i * kRowWarps + warp] = sum;
+    }
+  }
+  __syncthreads();
+  // query i's chunk max and sum over the warps, in order
+  auto chunk_ml = [&](int i) {
+    float2 ml = make_float2(red_m[i * kRowWarps], red_l[i * kRowWarps]);
+    for (int w = 1; w < kRowWarps; ++w) {
+      ml.x = fmaxf(ml.x, red_m[i * kRowWarps + w]);
+      ml.y += red_l[i * kRowWarps + w];
+    }
+    return ml;
+  };
+
+  // acc[i] = sum_r p[i, r] v[r, col], one thread per column of a V slice
+  const size_t base = ((size_t)b * g.nch + c) * s;   // the chunk's partial
+  for (int sl = 0; sl < g.ns; ++sl) {
+    const int e = g.ns + sl, st = e % kStages;
+    hopper::mbar_wait(full + st, (e / kStages) & 1);
+    const int col = sl * g.cw + tid;
+    if (tid < g.cw && col < g.D) {
+      float acc[W];
+#pragma unroll
+      for (int i = 0; i < W; ++i) acc[i] = 0.f;
+      const unsigned char* vc = ring + st * entry + tid * (int)sizeof(T);
+#pragma unroll 4
+      for (int rr = 0; rr < nr; ++rr) {
+        const float v = to_f(*reinterpret_cast<const T*>(vc + rr * row_bytes));
+#pragma unroll
+        for (int i = 0; i < W; ++i)
+          if (i < s) acc[i] = fmaf(p_s[i * kR + rr], v, acc[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
+        if (i < s) {
+          if (nlive == 1) {                  // the whole slot in this chunk
+            float l = chunk_ml(i).y;
+            l = l == 0.f ? 1.f : l;          // the JAX guard
+            out[((size_t)b * s + i) * HD + h * g.D + col] =
+                from_f<T>(acc[i] / l);
+          } else {
+            part_o[(base + i) * HD + h * g.D + col] = acc[i];
+          }
+        }
+      }
+    }
+    __syncthreads();                         // the entry is read
+    if (tid == 0 && e + kStages < n_e) issue(e + kStages);
+  }
+  if (nlive == 1) return;
+
+  // this chunk's (m, l) at [b][c][i][H][2]; the count; the last block
+  // merges
+  if (tid < s)
+    reinterpret_cast<float2*>(part_ml)[(base + tid) * g.H + h] =
+        chunk_ml(tid);
+  __syncthreads();                           // the block's partial written
+  if (tid == 0) {
+    __threadfence();                         // (cumulative) before the count
+    const int prev = atomicAdd(counts + bh, 1);
+    is_last = prev == nlive - 1;
+    if (is_last) counts[bh] = 0;             // ready for the next launch
+  }
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();                           // the others' partials after
+  for (int col = tid; col < g.D; col += kThreads)
+    merge_column<T>(part_o, part_ml, out, g, b, s, nlive, h, h * g.D + col);
+}
+
+// The column slices of a head's row past kMaxCols: ns slices of cw
+// columns, a slice's row a multiple of 128 bytes up to kSliceBytes
+inline void slices_of(int D, int elem, int* ns, int* cw) {
+  *ns = (D * elem + kSliceBytes - 1) / kSliceBytes;
+  const int per = (D + *ns - 1) / *ns, unit = 128 / elem;
+  *cw = (per + unit - 1) / unit * unit;
+}
+
+// Dynamic shared memory of the split kernel at width s, head width D,
+// groups of G heads and pages of P rows, elements of elem bytes
+inline size_t smem_bytes(int s, int D, int G, int P, int elem) {
+  if (D > kMaxCols) {
+    int ns, cw;
+    slices_of(D, elem, &ns, &cw);
+    return (size_t)kStages * kR * cw * elem +
+           sizeof(float) * ((size_t)s * cw + (size_t)s * kR +
+                            2 * (size_t)kRowWarps * s + 1) +
+           8 * kStages + 8 + 128;
+  }
+  const int pb = pow2_part(P);
+  const size_t bstride = ((size_t)pb * G * D * elem + 127) / 128 * 128;
+  return 2 * (size_t)(kR / pb) * bstride +
+         sizeof(float) * ((size_t)s * G * D + (size_t)s * G * kR +
+                          4 * (size_t)s * G + 1) +
+         8 + 16 + 128;
+}
+
+// The decode route: the plan's geometry, both pools' maps, the launch (a
+// group of G heads up to kMaxCols columns, else one head in slices).
 template <typename T>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* page_table, const void* lengths, void* out,
            void* part_o, void* part_ml, void* counts, int B, int s, int H,
            int D, int N, int P, int maxp, int G, float scale,
            cudaStream_t stream) {
+  const bool wide = D > kMaxCols;
   Geo g;
   g.s = s;
   g.H = H;
@@ -1059,24 +1343,30 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
   g.pb_log = __builtin_ctz(g.pb);
   const int row_bytes = G * D * (int)sizeof(T);
   g.bstride = (g.pb * row_bytes + 127) / 128 * 128;   // 128-byte box starts
+  g.ns = 1;
+  g.cw = G * D;
+  if (wide) slices_of(D, (int)sizeof(T), &g.ns, &g.cw);
   g.scale_log2 = scale * kLog2e;
   const long long gx = (long long)B * g.ng * g.nch;
   if (gx > 0x7FFFFFFFLL || (long long)N * P > 0x7FFFFFFFLL) return -1;
   CUtensorMap km, vm;
-  int err = hopper::make_map_2d<T>(&km, k_pool, (long long)N * P,
-                                   (long long)H * D, (long long)H * D,
-                                   G * D, g.pb);
+  int err = wide ? hopper::make_map_rhd<T>(&km, k_pool, (long long)N * P, H,
+                                           D, g.cw, g.pb)
+                 : hopper::make_map_2d<T>(&km, k_pool, (long long)N * P,
+                                          (long long)H * D, (long long)H * D,
+                                          G * D, g.pb);
   if (err) return err;
-  err = hopper::make_map_2d<T>(&vm, v_pool, (long long)N * P,
-                               (long long)H * D, (long long)H * D, G * D,
-                               g.pb);
+  err = wide ? hopper::make_map_rhd<T>(&vm, v_pool, (long long)N * P, H, D,
+                                       g.cw, g.pb)
+             : hopper::make_map_2d<T>(&vm, v_pool, (long long)N * P,
+                                      (long long)H * D, (long long)H * D,
+                                      G * D, g.pb);
   if (err) return err;
-  const size_t smem = 2 * (size_t)(kR / g.pb) * g.bstride +
-                      sizeof(float) * ((size_t)s * G * D + (size_t)s * G * kR +
-                                       4 * (size_t)s * G + 1) +
-                      8 + 16 + 128;
-  auto kernel =
-      s == 1 ? paged_decode_split<T, 1> : paged_decode_split<T, kMaxW>;
+  const size_t smem = smem_bytes(s, D, G, P, (int)sizeof(T));
+  auto kernel = wide ? (s == 1 ? paged_decode_split_wide<T, 1>
+                               : paged_decode_split_wide<T, kMaxW>)
+                     : (s == 1 ? paged_decode_split<T, 1>
+                               : paged_decode_split<T, kMaxW>);
   err = prepare(kernel, smem);
   if (err) return err;
   kernel<<<(unsigned)gx, kThreads, smem, stream>>>(
@@ -1400,6 +1690,383 @@ int launch_wide_tc(const void* q, const void* k_pool, const void* v_pool,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// f32 prefill widths on Hopper: paged TMA + 3xTF32 wgmma
+// ---------------------------------------------------------------------------
+//
+// f32 widths from kMmaMinWidth, D <= 256 with rows TMA addresses (D % 4 ==
+// 0), pages whose box rows pb = pow2_part(P) >= 8 (pw::takes' box rule):
+// K2's f32 forward (bhd_fwd_tc in flash_attention.cu: the products and
+// their accuracy) with pw's paged producer and the serving mask, in place
+// of the scalar kernel's per-key warp reductions.  What bounds it: bytes
+// at a prefill chunk of 32 rows (each live K/V row read once per q-tile
+// block), the 3xTF32 products (three tf32 products per f32 product at
+// 494.7 TFLOP/s) as the chunk grows.
+//
+// Design:
+//   * one block per (slot, KW consecutive 64-row q tiles, head), folded
+//     into grid.x with the tiles slowest (the last tiles, which see the
+//     most rows, first); KW consumer warpgroups, each on its own q tile
+//     (two up to DP = 128 where the chunk has two tiles, else one: O's
+//     registers at 256), and a producer warpgroup;
+//   * the producer's thread 0 issues every load by TMA: q through a 4-D
+//     (B, s, H, D) map, K and V through 4-D (1, N P rows, H, D) maps of the
+//     pools (a head's columns past D arrive as zeros, not the next head's),
+//     [64][32] f32 boxes (128 bytes a row, 128-byte swizzled) into a ring
+//     of kRaw slots, kv tile by kv tile: its DP / 32 K slices, then its V
+//     slices.  A slot's 64 rows are 64 / pb boxes of pb rows found through
+//     the slot's page ids (a box never leaves its page and lands 1024-byte
+//     aligned, so the swizzle of the whole slot is a TMA box's); boxes
+//     wholly at or past the visible end t_end are not loaded;
+//   * the producer warpgroup splits each slot into hi / lo operand tiles
+//     (K as it lands, V transposed with the kv rows of each group of 8 in
+//     bhd_fwd_tc's k order) in a ring of kOps slots the consumers release,
+//     and writes zeros for the rows at or past t_end (a page's rows past the
+//     slot's end hold whatever the page holds: their p is exactly 0, but 0
+//     times a non-finite value is not 0; rows not loaded hold a slot's
+//     earlier contents);
+//   * each consumer sums S = q . K^T slice by slice in 3xTF32 (each
+//     slice's 12 wgmma in a fresh accumulator added to an f32 total: the
+//     tensor core truncates its sums), takes the online softmax in f32
+//     (log2 units, the mask t <= lengths[b] + i and t < t_end at -1e30
+//     before the max, only on tiles that reach either limit), splits P in
+//     f32 into hi and lo A fragments, and adds each 32-column chunk's P . V
+//     (24 wgmma, a fresh accumulator) to O.  A row's first kv tile holds
+//     its row 0, so its running max is finite and a tile wholly past its
+//     position adds exactly 0.
+namespace ptf {
+
+constexpr int kBarProd = 1;                  // the producer warpgroup's
+constexpr int kRaw = 4;                      // raw box slots
+constexpr int kOps = 4;                      // operand slots: hi and lo tiles
+
+struct Geo {
+  int B, s, H, D, N, P, maxp, pb, n_blk;
+  float scale_log2;
+};
+
+// whether the kernel takes f32 rows of D over pages of P rows
+__host__ __device__ inline bool takes(int D, int P) {
+  return D <= kMaxD && D % 4 == 0 && split::pow2_part(P) >= 8;
+}
+
+// the padded width of D, and the consumers of a chunk of s rows
+__host__ __device__ inline int padded(int D) {
+  return D <= 64 ? 64 : D <= 128 ? 128 : 256;
+}
+__host__ __device__ inline int consumers(int D, int s) {
+  return s > kTile && padded(D) <= 128 ? 2 : 1;
+}
+
+// 1024 bytes of alignment, q hi and lo per consumer, the rings, barriers
+__host__ __device__ inline size_t smem(int DP, int KW) {
+  return 1024 + (size_t)(2 * KW * (DP / tc::kSl) + kRaw + 2 * kOps) *
+                    tc::kBox +
+         8 * (2 + kRaw + 2 * kOps);
+}
+
+}  // namespace ptf
+
+template <int DP, int KW>
+__global__ void __launch_bounds__(128 * (1 + KW), 1)
+paged_attention_tf32(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const int32_t* __restrict__ page_table,
+                     const int32_t* __restrict__ lengths,
+                     float* __restrict__ out, ptf::Geo g) {
+  using namespace tc;
+  using ptf::kOps;
+  using ptf::kRaw;
+  constexpr int kNS = DP / kSl;               // 32-column slices
+  const unsigned x = blockIdx.x;
+  const int h = x % g.H;
+  const int b = x / g.H % g.B;
+  const int blk = g.n_blk - 1 - (int)(x / g.H / g.B);   // heavy first
+  const int q_first = blk * KW * kTile;       // the block's first q row
+  const bool producer = threadIdx.x == 128 * KW;   // issues every load
+  const int32_t* pt_row = page_table + (size_t)b * g.maxp;
+  // pool rows of a kv tile's boxes (the producer's): the first tile's read
+  // beside the length, in one round trip (a box past the table reads the
+  // table's last page, and is not loaded)
+  int prow[pw::kMaxBoxes];
+  auto rows_of = [&](int k0) {
+#pragma unroll
+    for (int u = 0; u < pw::kMaxBoxes; ++u) {
+      const int tt = k0 + u * g.pb;
+      prow[u] = u < kTile / g.pb
+                    ? min(max(pt_row[min(tt / g.P, g.maxp - 1)], 0),
+                          g.N - 1) * g.P + tt % g.P
+                    : 0;
+    }
+  };
+  if (producer) rows_of(0);
+  const int len = lengths[b];
+  const long long T = (long long)g.maxp * g.P;
+  // rows any query of the block sees, clamped to the table
+  const int t_end = (int)min(T, (long long)len + min(q_first + KW * kTile,
+                                                    g.s));
+  const int n_kv = (t_end + kTile - 1) / kTile;
+  const int total = n_kv * 2 * kNS;           // ring entries
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qbuf = align1024(smem_raw);  // [hi, lo][consumer][slice]
+  unsigned char* raw = qbuf + 2 * KW * kNS * kBox;
+  unsigned char* ops = raw + kRaw * kBox;     // [slot][hi, lo]
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(ops + 2 * kOps * kBox);
+  uint64_t* qready = qfull + 1;
+  uint64_t* rawfull = qready + 1;
+  uint64_t* opready = rawfull + kRaw;
+  uint64_t* opfree = opready + kOps;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(qfull, 1);
+    hopper::mbar_init(qready, 128);
+    for (int st = 0; st < kRaw; ++st) hopper::mbar_init(rawfull + st, 1);
+    for (int st = 0; st < kOps; ++st) {
+      hopper::mbar_init(opready + st, 128);
+      hopper::mbar_init(opfree + st, 128 * KW);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+
+  if (wg == KW) {                             // the producer warpgroup
+    int pj = 0, live = 0;                     // prow holds tile pj's rows
+    auto load = [&](int e) {                  // entry e's raw slot
+      const int j = e / (2 * kNS), r = e - j * 2 * kNS, st = e % kRaw;
+      if (j != pj) rows_of(j * kTile);
+      // the tile's boxes that hold visible rows
+      live = min(kTile / g.pb, (t_end - j * kTile + g.pb - 1) / g.pb);
+      pj = j;
+      hopper::mbar_arrive_expect_tx(rawfull + st, live * g.pb * 128);
+#pragma unroll
+      for (int u = 0; u < pw::kMaxBoxes; ++u)
+        if (u < live)
+          hopper::tma_load_4d(raw + st * kBox + u * g.pb * 128,
+                              r < kNS ? &k_map : &v_map, rawfull + st,
+                              (r % kNS) * kSl, h, prow[u], 0);
+    };
+    if (t == 0) {
+      hopper::prefetch_tensormap(&q_map);
+      hopper::prefetch_tensormap(&k_map);
+      hopper::prefetch_tensormap(&v_map);
+      hopper::mbar_arrive_expect_tx(qfull, KW * kNS * kBox);
+      for (int w = 0; w < KW; ++w)
+        for (int c = 0; c < kNS; ++c)
+          hopper::tma_load_4d(qbuf + (w * kNS + c) * kBox, &q_map, qfull,
+                              c * kSl, h, q_first + w * kTile, b);
+      for (int e = 0; e < min(kRaw, total); ++e) load(e);
+    }
+    hopper::mbar_wait(qfull, 0);              // q: hi in place, lo beside
+    for (int bx = 0; bx < KW * kNS; ++bx)
+      split_box(qbuf + bx * kBox, qbuf + (KW * kNS + bx) * kBox, t);
+    hopper::fence_async_shared();
+    hopper::mbar_arrive(qready);
+    for (int e = 0; e < total; ++e) {
+      const int st = e % kRaw, o = e % kOps;
+      const int nr = min(kTile, t_end - e / (2 * kNS) * kTile);
+      hopper::mbar_wait(rawfull + st, (e / kRaw) & 1);
+      hopper::mbar_wait(opfree + o, ((e / kOps) & 1) ^ 1);
+      unsigned char* hi = ops + 2 * o * kBox;
+      if (e % (2 * kNS) < kNS)
+        tcf::split_ahead(raw + st * kBox, hi, hi + kBox, t, nr);
+      else
+        tcf::split_ahead_t(raw + st * kBox, hi, hi + kBox, t, nr);
+      hopper::fence_async_shared();
+      hopper::mbar_arrive(opready + o);
+      hopper::named_bar_sync(ptf::kBarProd, 128);   // the raw slot is read
+      if (t == 0 && e + kRaw < total) load(e + kRaw);
+    }
+    return;
+  }
+
+  const int warp = t >> 5, lane = t & 31, tq = lane & 3;
+  const int q0 = q_first + wg * kTile;        // this consumer's q tile
+  // the rows its queries see, and its kv tiles
+  const int my_end = (int)min(T, (long long)len + min(q0 + kTile, g.s));
+  const int my_kv = q0 < g.s ? (my_end + kTile - 1) / kTile : 0;
+  const int r_a = 16 * warp + (lane >> 2);    // this thread's tile rows
+  const int rows[2] = {q0 + r_a, q0 + r_a + 8};
+  const unsigned char* qh = qbuf + wg * kNS * kBox;
+  const unsigned char* ql = qbuf + (KW + wg) * kNS * kBox;
+  float o[kNS][16];                           // O, 32-column chunks
+#pragma unroll
+  for (int c = 0; c < kNS; ++c)
+#pragma unroll
+    for (int y = 0; y < 16; ++y) o[c][y] = 0.f;
+  float m_r[2] = {kNegInf, kNegInf};
+  float l_r[2] = {0.f, 0.f};                  // this thread's partial sums
+  uint32_t ph[32], pl[32];                    // P's hi / lo A fragments
+  hopper::mbar_wait(qready, 0);
+
+  int e = 0;
+  for (int j = 0; j < n_kv; ++j) {
+    const bool on = j < my_kv;                // else release the entries
+    float sx[32];
+    // S = q . k^T, 64 q x 64 kv, one slice at a time
+#pragma unroll
+    for (int c = 0; c < kNS; ++c, ++e) {
+      const int st = e % kOps;
+      hopper::mbar_wait(opready + st, (e / kOps) & 1);
+      if (on) {
+        float part[32];
+        const unsigned char* kh = ops + 2 * st * kBox;
+        hopper::wgmma_fence();
+        tf32x3<64, 4, kBox, kBox>(part, part, qh + c * kBox, ql + c * kBox,
+                                  kh, kh + kBox);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_acc(part);
+#pragma unroll
+        for (int y = 0; y < 32; ++y)
+          sx[y] = c == 0 ? part[y] : sx[y] + part[y];
+      }
+      hopper::mbar_arrive(opfree + st);
+    }
+    if (on) {
+      // scores in log2 units, masked at -1e30 only where this warp's rows
+      // see less than the whole tile
+      const int k0 = j * kTile;
+      const bool need_mask = k0 + kTile > my_end ||
+                             k0 + kTile - 1 > len + q0 + 16 * warp;
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int y = 0; y < 32; ++y) {
+        const int r = (y >> 1) & 1;
+        float v = sx[y] * g.scale_log2;
+        if (need_mask) {
+          const int col = k0 + 8 * (y >> 2) + 2 * tq + (y & 1);
+          v = (col < my_end && col <= len + rows[r]) ? v : kNegInf;
+        }
+        sx[y] = v;
+        mx[r] = fmaxf(mx[r], v);
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_next = fmaxf(m_r[r], mx[r]);
+        alpha[r] = exp2f(m_r[r] - m_next);
+        m_r[r] = m_next;
+        l_r[r] *= alpha[r];
+      }
+      // p into l and split into P's A fragments: element y (row r,
+      // column 2 tq + (y & 1) of k-step y / 4) is register 4 (y / 4) +
+      // {0, 2, 1, 3}[y % 4]
+#pragma unroll
+      for (int y = 0; y < 32; ++y) {
+        const int r = (y >> 1) & 1;
+        const float p = exp2f(sx[y] - m_r[r]);
+        l_r[r] += p;
+        const int at = (y & ~3) | ((y & 1) << 1) | ((y >> 1) & 1);
+        const float hv = hopper::tf32_rna(p);
+        ph[at] = __float_as_uint(hv);
+        pl[at] = __float_as_uint(hopper::tf32_rna(p - hv));
+      }
+#pragma unroll
+      for (int c = 0; c < kNS; ++c)
+#pragma unroll
+        for (int y = 0; y < 16; ++y) o[c][y] *= alpha[(y >> 1) & 1];
+    }
+    // O += P . V, one 32-column chunk at a time
+#pragma unroll
+    for (int c = 0; c < kNS; ++c, ++e) {
+      const int st = e % kOps;
+      hopper::mbar_wait(opready + st, (e / kOps) & 1);
+      if (on) {
+        float pv[16];
+        const unsigned char* vh = ops + 2 * st * kBox;
+        hopper::wgmma_fence();
+        tcf::pv_tf32x3(pv, ph, pl, vh, vh + kBox);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_acc<16>(pv);
+#pragma unroll
+        for (int y = 0; y < 16; ++y) o[c][y] += pv[y];
+      }
+      hopper::mbar_arrive(opfree + st);
+    }
+  }
+  if (my_kv == 0) return;                     // a q tile past the chunk
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_r[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[r] = 1.f / (l == 0.f ? 1.f : l);      // the JAX guard
+  }
+  const size_t HD = (size_t)g.H * g.D;
+  float* ob = out + (size_t)b * g.s * HD + (size_t)h * g.D;
+#pragma unroll
+  for (int c = 0; c < kNS; ++c)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int col = 32 * c + 8 * i + 2 * tq;
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (rows[r] < g.s && col < g.D)
+          *reinterpret_cast<float2*>(ob + rows[r] * HD + col) =
+              make_float2(o[c][4 * i + 2 * r] * inv[r],
+                          o[c][4 * i + 2 * r + 1] * inv[r]);
+    }
+}
+
+// f32 prefill widths where ptf::takes(D, P): the maps of q and both
+// pools, the instance for D's padded width and the chunk's q tiles
+template <int DP, int KW>
+int launch_tf32_t(const void* q, const void* k_pool, const void* v_pool,
+                  const void* page_table, const void* lengths, void* out,
+                  int B, int s, int H, int D, int N, int P, int maxp,
+                  float scale, cudaStream_t stream) {
+  ptf::Geo g;
+  g.B = B;
+  g.s = s;
+  g.H = H;
+  g.D = D;
+  g.N = N;
+  g.P = P;
+  g.maxp = maxp;
+  g.pb = split::pow2_part(P);
+  g.n_blk = (s + KW * kTile - 1) / (KW * kTile);
+  g.scale_log2 = scale * kLog2e;
+  const long long gx = (long long)g.n_blk * B * H;
+  if (!ptf::takes(D, P) || gx > 0x7FFFFFFFLL ||
+      (long long)N * P > 0x7FFFFFFFLL)
+    return -1;
+  CUtensorMap qm, km, vm;
+  int err = hopper::make_map_bshd<float>(&qm, q, B, s, H, D);
+  if (err) return err;
+  err = hopper::make_map_bshd<float>(&km, k_pool, 1, N * P, H, D, g.pb);
+  if (err) return err;
+  err = hopper::make_map_bshd<float>(&vm, v_pool, 1, N * P, H, D, g.pb);
+  if (err) return err;
+  const size_t smem = ptf::smem(DP, KW);
+  err = prepare(paged_attention_tf32<DP, KW>, smem);
+  if (err) return err;
+  paged_attention_tf32<DP, KW><<<(unsigned)gx, 128 * (1 + KW), smem,
+                                 stream>>>(
+      qm, km, vm, static_cast<const int32_t*>(page_table),
+      static_cast<const int32_t*>(lengths), static_cast<float*>(out), g);
+  return (int)cudaGetLastError();
+}
+
+int launch_tf32(const void* q, const void* k_pool, const void* v_pool,
+                const void* page_table, const void* lengths, void* out,
+                int B, int s, int H, int D, int N, int P, int maxp,
+                float scale, cudaStream_t stream) {
+  const int dp = ptf::padded(D), kw = ptf::consumers(D, s);
+  auto f = dp == 64    ? (kw == 2 ? launch_tf32_t<64, 2> : launch_tf32_t<64, 1>)
+           : dp == 128 ? (kw == 2 ? launch_tf32_t<128, 2>
+                                  : launch_tf32_t<128, 1>)
+                       : launch_tf32_t<256, 1>;
+  return f(q, k_pool, v_pool, page_table, lengths, out, B, s, H, D, N, P,
+           maxp, scale, stream);
+}
+
 template <typename T, int DP, bool AL>
 int launch_mma(const void* q, const void* k_pool, const void* v_pool,
                const void* page_table, const void* lengths, void* out, int B,
@@ -1462,8 +2129,9 @@ int launch_t(const void* q, const void* k_pool, const void* v_pool,
 
 // The kernel of each route (route() below): bf16 / f16 at widths from
 // kMmaMinWidth the tensor-core kernels (past kMaxD paged TMA + wgmma where
-// pw::takes(D, P), else the sliced mma.sync copy); else (decode steps,
-// f32) the scalar one
+// pw::takes(D, P), else the sliced mma.sync copy); f32 at those widths
+// paged TMA + 3xTF32 wgmma where ptf::takes(D, P); else (decode steps
+// without 16-byte rows, the other f32 prefill shapes) the scalar one
 template <typename T>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* page_table, const void* lengths, void* out, int B,
@@ -1476,6 +2144,10 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
                                 : launch_mma_wide<T>)(
           q, k_pool, v_pool, page_table, lengths, out, B, s, H, D, N, P,
           maxp, scale, stream);
+  } else {
+    if (s >= kMmaMinWidth && ptf::takes(D, P))
+      return launch_tf32(q, k_pool, v_pool, page_table, lengths, out, B, s,
+                         H, D, N, P, maxp, scale, stream);
   }
   const bool vec = (D * sizeof(T)) % 16 == 0;
   auto f = D > kMaxD
@@ -1487,17 +2159,18 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
 
 // The kernel the wrapper's dispatch runs for dtype, width s, head width D
 // and pages of P rows: 0 paged_decode_split (through paged_decode_launch:
-// widths below kMmaMinWidth, 16-byte rows, D <= 256), through
-// paged_attention_launch 1 paged_attention_mma (bf16/f16 widths from
-// kMmaMinWidth, D <= 256), 2 paged_attention_wide_tc (past 256 where
-// pw::takes(D, P)), 3 paged_attention_mma_wide (other rows past 256), 4
-// the scalar kernel (the rest); -1 a dtype or size it does not take.
+// widths below kMmaMinWidth, 16-byte rows, any D: past 256
+// paged_decode_split_wide), through paged_attention_launch 1
+// paged_attention_mma (bf16/f16 widths from kMmaMinWidth, D <= 256), 2
+// paged_attention_wide_tc (past 256 where pw::takes(D, P)), 3
+// paged_attention_mma_wide (other bf16/f16 rows past 256), 4 the scalar
+// kernel (the rest), 5 paged_attention_tf32 (f32 widths from kMmaMinWidth
+// where ptf::takes(D, P)); -1 a dtype or size it does not take.
 int route(int dtype, int s, int D, int P) {
   if (dtype < 0 || dtype > 2 || s < 1 || D < 1 || P < 1) return -1;
   const int elem = dtype == 0 ? 4 : 2;
-  if (s < kMmaMinWidth && D <= split::kMaxCols && (D * elem) % 16 == 0)
-    return 0;
-  if (dtype == 0 || s < kMmaMinWidth) return 4;
+  if (s < kMmaMinWidth) return (D * elem) % 16 == 0 ? 0 : 4;
+  if (dtype == 0) return ptf::takes(D, P) ? 5 : 4;
   if (D <= kMaxD) return 1;
   return pw::takes(D, P) ? 2 : 3;
 }
@@ -1509,9 +2182,9 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16.  Returns a cudaError_t
 // (0 = launched).  -1: a geometry the kernel does not take (the wrapper
 // checks first, so this is a second guard, not the user-facing error).
-// Every width and head width: the tensor-core kernels for bf16 / f16 from
-// kMmaMinWidth, else the scalar kernel (the wrapper sends decode widths
-// with 16-byte rows up to D = 256 to paged_decode_launch instead).
+// Every width and head width: the tensor-core kernels from kMmaMinWidth
+// where their rows and pages allow, else the scalar kernel (the wrapper
+// sends decode widths with 16-byte rows to paged_decode_launch instead).
 int paged_attention_launch(int dtype, const void* q, const void* k_pool,
                            const void* v_pool, const void* page_table,
                            const void* lengths, void* out, int B, int s,
@@ -1546,11 +2219,24 @@ int paged_attention_wide_smem(int D) {
   return (int)wide::tcw::smem_bytes(D);
 }
 
-// The split decode kernel: widths s < kMmaMinWidth, D <= 256 with rows a
-// multiple of 16 bytes, heads in groups of G (G * D <= 256, G <= 8).
-// part_o (B * nch * s * H * D f32), part_ml (B * nch * s * H * 2 f32) and
-// counts (B * ceil(H / G) int32, zero, and left zero) are the wrapper's
-// scratch, nch = ceil(maxp * P / 64); with nch == 1 they are not touched.
+// Dynamic shared memory of paged_attention_tf32 at head width D and width
+// s (the instance launch_tf32 picks), bytes
+int paged_attention_tf32_smem(int D, int s) {
+  return (int)ptf::smem(ptf::padded(D), ptf::consumers(D, s));
+}
+
+// Dynamic shared memory of the split decode kernel at width s, head width
+// D, groups of G heads and pages of P rows, bytes
+int paged_decode_split_smem(int dtype, int s, int D, int G, int P) {
+  return (int)split::smem_bytes(s, D, G, P, dtype == 0 ? 4 : 2);
+}
+
+// The split decode kernel: widths s < kMmaMinWidth, rows a multiple of 16
+// bytes, heads in groups of G (G * D <= 256, G <= 8), or past D = 256 one
+// head a group in column slices.  part_o (B * nch * s * H * D f32),
+// part_ml (B * nch * s * H * 2 f32) and counts (B * ceil(H / G) int32,
+// zero, and left zero) are the wrapper's scratch, nch = ceil(maxp * P /
+// 64); with nch == 1 they are not touched.
 int paged_decode_launch(int dtype, const void* q, const void* k_pool,
                         const void* v_pool, const void* page_table,
                         const void* lengths, void* out, void* part_o,
@@ -1560,7 +2246,9 @@ int paged_decode_launch(int dtype, const void* q, const void* k_pool,
   const int elem = dtype == 0 ? 4 : 2;
   if (dtype < 0 || dtype > 2 || D < 1 || P < 1 || s < 1 ||
       s > split::kMaxW || maxp < 1 || N < 1 || B < 1 || H < 1 || G < 1 ||
-      G > split::kMaxG || G * D > split::kMaxCols || (D * elem) % 16 != 0)
+      G > split::kMaxG || (D <= split::kMaxCols ? G * D > split::kMaxCols
+                                                : G != 1) ||
+      (D * elem) % 16 != 0)
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto f = dtype == 0 ? split::launch<float>

@@ -19,21 +19,24 @@ the host-side allocator).
   width (decode steps and prefill chunks alike) or raises.  There is no
   fallback from the card to the plain version.
 - :func:`uses_split_decode` is the routing between the file's two entry
-  points: decode widths (``s < 16``) with 16-byte rows up to ``D = 256``
-  go to the split decode kernel (chunks of 64 rows over blocks, whole-page
-  TMA loads, the chunks merged inside the launch), the rest to the tile
-  kernels; :func:`split_plan` is the split kernel's head grouping and
-  chunk count.  :func:`tile_route` names the kernel of each shape (one of
-  :data:`TILE_ROUTES`, each counted in :data:`kernel_launches`), the
-  pure-Python mirror of the library's ``paged_attention_route``, and
-  :func:`wide_tc_plan` mirrors the launch plan of the prefill kernel past
-  ``D = 256`` (paged TMA + wgmma).
+  points: decode widths (``s < 16``) with 16-byte rows, at any ``D``, go
+  to the split decode kernel (chunks of 64 rows over blocks, whole-page
+  TMA loads, the chunks merged inside the launch; past ``D = 256`` the
+  row in column slices), the rest to the tile kernels; :func:`split_plan`
+  is the split kernel's head grouping, chunk count, column slices and
+  shared memory.  :func:`tile_route` names the kernel of each shape (one
+  of :data:`TILE_ROUTES`, each counted in :data:`kernel_launches`), the
+  pure-Python mirror of the library's ``paged_attention_route``;
+  :func:`wide_tc_plan` mirrors the launch plan of the bf16/f16 prefill
+  kernel past ``D = 256`` (paged TMA + wgmma) and :func:`tf32_plan` that
+  of the f32 prefill kernel up to 256 (paged TMA + 3xTF32 wgmma).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -49,13 +52,20 @@ launches = {"paged_decode": 0, "paged_attention": 0}
 # split decode kernel (through "paged_decode"), then through
 # "paged_attention" the tile kernel on mma.sync (bf16/f16 prefill up to
 # D = 256), paged TMA + wgmma past 256 (``tiles_wide_tc``), the sliced
-# mma.sync copy past 256 for the rest (``tiles_wide``), and the scalar
-# kernel.  Each launch counts once here and once in ``launches``.
-TILE_ROUTES = ("split", "tiles", "tiles_wide_tc", "tiles_wide", "scalar")
+# mma.sync copy past 256 for the rest (``tiles_wide``), the scalar kernel,
+# and f32 prefill up to 256 on paged TMA + 3xTF32 wgmma (``tiles_tf32``).
+# Each launch counts once here and once in ``launches``.
+TILE_ROUTES = ("split", "tiles", "tiles_wide_tc", "tiles_wide", "scalar",
+               "tiles_tf32")
 kernel_launches = dict.fromkeys(TILE_ROUTES, 0)
 
 SPLIT_ROWS = 64          # logical rows of a split-decode chunk
 SPLIT_MAX_WIDTH = 15     # widths below the tensor-core kernel's 16
+SPLIT_SLICE_BYTES = 512  # past D = 256: a column slice's row, at most
+SPLIT_STAGES = 2         # past D = 256: the ring of K / V slices
+SMEM_LIMIT = 232_448     # the H100's dynamic shared memory a block
+TF32_RAW_SLOTS = 4       # the f32 prefill kernel's rings: raw f32 boxes,
+TF32_OP_SLOTS = 4        # and hi / lo operand tiles
 
 
 def paged_write(pool: torch.Tensor, vals: torch.Tensor,
@@ -153,42 +163,72 @@ def check_kernel_args(q, k_pool, v_pool, page_table, lengths) -> None:
 
 def uses_split_decode(s: int, head_dim: int, dtype) -> bool:
     """Whether the split decode kernel takes a call (else the tile
-    kernels): widths below 16, rows a multiple of 16 bytes, D <= 256."""
-    return (s <= SPLIT_MAX_WIDTH and head_dim <= 256
-            and head_dim * dtype.itemsize % 16 == 0)
-
-
-def split_plan(heads: int, head_dim: int, dtype, page_size: int,
-               pages_per_slot: int):
-    """``(G, groups, chunks)`` of the split decode kernel: heads in groups
-    of G (a TMA box of G * D <= 256 columns and at most 512 bytes a row
-    where D allows, G <= 8, the groups balanced), and the table's chunks
-    of ``SPLIT_ROWS`` logical rows."""
-    g = max(1, min(heads, 8, 512 // (head_dim * dtype.itemsize),
-                   256 // head_dim))
-    g = -(-heads // -(-heads // g))
-    # the kernel's own counts: ceil(H / G) groups, ceil(T / rows) chunks
-    return (g, -(-heads // g),
-            -(-(page_size * pages_per_slot) // SPLIT_ROWS))
+    kernels): widths below 16, rows a multiple of 16 bytes, any D."""
+    return s <= SPLIT_MAX_WIDTH and head_dim * dtype.itemsize % 16 == 0
 
 
 def _pow2_part(page_size: int) -> int:
     """The largest power of two that divides ``page_size``, up to 64 (the
-    split kernel's box rows, and the wide prefill kernel's)."""
+    split kernel's box rows, and the TMA prefill kernels')."""
     return min(page_size & -page_size, 64)
+
+
+class SplitPlan(NamedTuple):
+    """The split decode kernel's plan (:func:`split_plan`)."""
+    G: int            # heads a group (a TMA box's columns)
+    groups: int       # ceil(H / G)
+    chunks: int       # the table's chunks of SPLIT_ROWS logical rows
+    slices: int       # column slices of a group's row
+    slice_cols: int   # columns of a slice
+    smem: int         # dynamic shared memory, bytes
+
+
+def split_plan(heads: int, head_dim: int, dtype, page_size: int,
+               pages_per_slot: int, width: int = 1) -> SplitPlan:
+    """The split decode kernel's plan at ``width`` queries.  Up to D = 256
+    heads in groups of G (a TMA box of G * D <= 256 columns and at most
+    512 bytes a row where D allows, G <= 8, the groups balanced), one
+    slice of G * D columns, K and V of a chunk staged whole.  Past 256 one
+    head a group (G = 1) in balanced column slices, each slice's row a
+    multiple of 128 bytes up to ``SPLIT_SLICE_BYTES``, streamed through a
+    ring of ``SPLIT_STAGES`` entries, so shared memory does not grow with
+    D.  ``chunks``: the table's chunks of ``SPLIT_ROWS`` logical rows;
+    ``smem`` as the kernel lays it out (``split::smem_bytes``)."""
+    elem = dtype.itemsize
+    chunks = -(-(page_size * pages_per_slot) // SPLIT_ROWS)
+    if head_dim > 256:
+        slices = -(-head_dim * elem // SPLIT_SLICE_BYTES)
+        unit = 128 // elem
+        cols = -(-(-(-head_dim // slices)) // unit) * unit
+        smem = (SPLIT_STAGES * SPLIT_ROWS * cols * elem
+                + 4 * (width * cols + width * SPLIT_ROWS + 2 * 8 * width + 1)
+                + 8 * SPLIT_STAGES + 8 + 128)
+        return SplitPlan(1, heads, chunks, slices, cols, smem)
+    g = max(1, min(heads, 8, 512 // (head_dim * elem), 256 // head_dim))
+    g = -(-heads // -(-heads // g))
+    pb = _pow2_part(page_size)
+    bstride = -(-pb * g * head_dim * elem // 128) * 128
+    smem = (2 * (SPLIT_ROWS // pb) * bstride
+            + 4 * (width * g * head_dim + width * g * SPLIT_ROWS
+                   + 4 * width * g + 1) + 8 + 16 + 128)
+    # the kernel's own counts: ceil(H / G) groups, ceil(T / rows) chunks
+    return SplitPlan(g, -(-heads // g), chunks, 1, g * head_dim, smem)
 
 
 def tile_route(s: int, head_dim: int, dtype, page_size: int) -> str:
     """The kernel that runs width ``s``, ``head_dim`` and pages of
     ``page_size`` rows in ``dtype`` (one of :data:`TILE_ROUTES`): the
-    mirror of the library's ``paged_attention_route``.  Past D = 256 the
-    TMA prefill kernel takes rows of a multiple of 8 elements over pages
-    of a multiple of 8 rows (a 128-byte-swizzled box of 8 rows lands
-    1024-byte aligned)."""
+    mirror of the library's ``paged_attention_route``.  The TMA prefill
+    kernels take rows TMA addresses (a multiple of 8 elements in bf16/f16
+    past 256, of 4 in f32 up to 256) over pages of a multiple of 8 rows (a
+    128-byte-swizzled box of 8 rows lands 1024-byte aligned)."""
     if uses_split_decode(s, head_dim, dtype):
         return "split"
-    if dtype == torch.float32 or s <= SPLIT_MAX_WIDTH:
+    if s <= SPLIT_MAX_WIDTH:
         return "scalar"
+    if dtype == torch.float32:
+        return ("tiles_tf32" if head_dim <= 256 and head_dim % 4 == 0
+                and _pow2_part(page_size) >= 8 else "scalar")
     if head_dim <= 256:
         return "tiles"
     if head_dim % 8 == 0 and _pow2_part(page_size) >= 8:
@@ -223,6 +263,34 @@ def wide_tc_plan(B: int, s: int, H: int, head_dim: int, page_size: int,
                 box_rows=pb, boxes=64 // pb, box_bytes=128, slices=slices,
                 chunks=chunks, q_resident=resident,
                 smem=1024 + bars + (1 + 2 * 4 + 2 * 2) * 8)
+
+
+def tf32_plan(B: int, s: int, H: int, head_dim: int, page_size: int) -> dict:
+    """The launch plan of ``paged_attention_tf32`` (``ValueError`` for a
+    shape another kernel takes), as the kernel lays it out: the padded
+    width ``dp`` (64, 128 or 256) in 32-column ``slices``, ``consumers``
+    (warpgroups, each on its own 64-row q tile: two up to 128 where the
+    chunk has more than one tile, else one), ``grid`` (slots x blocks of
+    ``consumers`` q tiles x heads in grid.x), ``threads`` (the consumers
+    and a producer warpgroup), the K/V boxes (``box_rows`` = the largest
+    power of two dividing the page, up to 64; ``boxes`` a 64-row tile, 32
+    f32 columns of one head each, 128 bytes a row), and ``smem`` as
+    ``ptf::smem`` (q's hi and lo tiles per consumer, the raw box slots,
+    the hi/lo operand slots, 8 KB a tile, the barriers)."""
+    route = tile_route(s, head_dim, torch.float32, page_size)
+    if route != "tiles_tf32":
+        raise ValueError(f"s={s} D={head_dim} P={page_size} f32 runs {route}")
+    dp = 64 if head_dim <= 64 else 128 if head_dim <= 128 else 256
+    kw = 2 if s > 64 and dp <= 128 else 1
+    box = 64 * 128                            # a [64][32] f32 box
+    pb = _pow2_part(page_size)
+    raw, ops = TF32_RAW_SLOTS, TF32_OP_SLOTS
+    return dict(route=route, dp=dp, slices=dp // 32, consumers=kw,
+                threads=128 * (1 + kw),
+                grid=(-(-s // (64 * kw)) * B * H, 1, 1),
+                box_rows=pb, boxes=64 // pb, box_bytes=128,
+                smem=1024 + (2 * kw * dp // 32 + raw + 2 * ops) * box
+                + 8 * (2 + raw + 2 * ops))
 
 
 _fns = {}
@@ -269,25 +337,40 @@ def _split_scratch(q, H, D, nch, groups):
 def library_route(s, head_dim, dtype, page_size) -> str:
     """The kernel the library routes the shape to (its
     ``paged_attention_route``; builds the library at first use)."""
-    from ._build import load
-    fn = load("paged_attention").paged_attention_route
-    fn.argtypes = [ctypes.c_int] * 4
-    fn.restype = ctypes.c_int
-    code = fn(_DTYPE_CODES[dtype], s, head_dim, page_size)
+    code = _lib_int("paged_attention_route", _DTYPE_CODES[dtype], s,
+                    head_dim, page_size)
     if code < 0:
         raise RuntimeError(f"no paged kernel for s={s} D={head_dim} "
                            f"P={page_size} {dtype}")
     return TILE_ROUTES[code]
 
 
+def _lib_int(name, *args) -> int:
+    """An int-valued C function of the library (built at first use)."""
+    from ._build import load
+    fn = getattr(load("paged_attention"), name)
+    fn.argtypes = [ctypes.c_int] * len(args)
+    fn.restype = ctypes.c_int
+    return fn(*args)
+
+
 def library_wide_smem(head_dim) -> int:
     """``paged_attention_wide_tc``'s dynamic shared memory at ``head_dim``
     as the library computes it."""
-    from ._build import load
-    fn = load("paged_attention").paged_attention_wide_smem
-    fn.argtypes = [ctypes.c_int]
-    fn.restype = ctypes.c_int
-    return fn(head_dim)
+    return _lib_int("paged_attention_wide_smem", head_dim)
+
+
+def library_tf32_smem(head_dim, s) -> int:
+    """``paged_attention_tf32``'s dynamic shared memory at ``head_dim``
+    and width ``s`` as the library computes it."""
+    return _lib_int("paged_attention_tf32_smem", head_dim, s)
+
+
+def library_split_smem(dtype, s, head_dim, G, page_size) -> int:
+    """The split decode kernel's dynamic shared memory as the library
+    computes it."""
+    return _lib_int("paged_decode_split_smem", _DTYPE_CODES[dtype], s,
+                    head_dim, G, page_size)
 
 
 def paged_attention_kernel(q, k_pool, v_pool, page_table, lengths):
@@ -314,9 +397,11 @@ def paged_attention_kernel(q, k_pool, v_pool, page_table, lengths):
                 v_pool.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
                 out.data_ptr())
         if split:
-            G, groups, nch = split_plan(H, D, q.dtype, P, maxp)
-            err = fn(*head, *_split_scratch(q, H, D, nch, groups), B, s, H,
-                     D, N, P, maxp, G, 1.0 / math.sqrt(D), stream)
+            plan = split_plan(H, D, q.dtype, P, maxp)
+            err = fn(*head, *_split_scratch(q, H, D, plan.chunks,
+                                            plan.groups),
+                     B, s, H, D, N, P, maxp, plan.G, 1.0 / math.sqrt(D),
+                     stream)
         else:
             err = fn(*head, B, s, H, D, N, P, maxp, 1.0 / math.sqrt(D),
                      stream)

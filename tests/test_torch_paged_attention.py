@@ -175,11 +175,11 @@ def test_kernel_geometry_takes_any_slot_count():
 @pytest.mark.parametrize("s,D,dtype,split", [
     (1, 64, torch.bfloat16, True), (15, 256, torch.float16, True),
     (1, 64, torch.float32, True), (16, 64, torch.bfloat16, False),
-    (1, 36, torch.bfloat16, False), (1, 320, torch.float32, False),
+    (1, 36, torch.bfloat16, False), (1, 320, torch.float32, True),
     (2, 4, torch.float32, True)])
 def test_routing_sends_decode_widths_to_the_split_kernel(s, D, dtype, split):
-    """Widths below 16 with 16-byte rows up to D = 256 take the split
-    decode kernel, the rest the tile kernels."""
+    """Widths below 16 with 16-byte rows take the split decode kernel at
+    any D, the rest the tile kernels."""
     assert tpa.uses_split_decode(s, D, dtype) is split
 
 
@@ -188,10 +188,12 @@ def test_routing_sends_decode_widths_to_the_split_kernel(s, D, dtype, split):
 @pytest.mark.parametrize("s", [1, 15, 16, 32, 128])
 def test_tile_route_names_one_kernel_per_shape(s, dtype):
     """The mirror of the library's ``paged_attention_route``: the split
-    decode kernel at decode widths with 16-byte rows up to D = 256; bf16 /
-    f16 widths from 16 the tile kernel up to 256, past it paged TMA +
-    wgmma where rows are a multiple of 8 elements and pages of 8 rows, the
-    sliced mma.sync copy otherwise; the scalar kernel for the rest."""
+    decode kernel at decode widths with 16-byte rows; bf16 / f16 widths
+    from 16 the tile kernel up to 256, past it paged TMA + wgmma where rows
+    are a multiple of 8 elements and pages of 8 rows, the sliced mma.sync
+    copy otherwise; f32 widths from 16 paged TMA + 3xTF32 wgmma up to 256
+    where rows are a multiple of 4 elements and pages of 8 rows; the
+    scalar kernel for the rest."""
     half = dtype != torch.float32
     for D in (64, 256, 260, 320, 512):
         for P in (1, 12, 16, 48, 128):
@@ -200,8 +202,11 @@ def test_tile_route_names_one_kernel_per_shape(s, dtype):
             assert (route == "split") is tpa.uses_split_decode(s, D, dtype)
             if route == "split":
                 continue
-            if not half or s < 16:
+            if s < 16:
                 want = "scalar"
+            elif not half:
+                want = ("tiles_tf32" if D <= 256 and D % 4 == 0
+                        and P % 8 == 0 else "scalar")
             elif D <= 256:
                 want = "tiles"
             elif D % 8 == 0 and P % 8 == 0:
@@ -246,22 +251,26 @@ def test_wide_tc_plan_boxes_stay_in_their_page(P):
     (12, 32, torch.bfloat16, 512, 2, (6, 2, 16)),    # 8 a group, balanced
     (3, 8, torch.bfloat16, 3, 5, (3, 1, 1))])
 def test_split_plan_groups_heads_into_one_box(H, D, dtype, P, maxp, plan):
-    G, groups, chunks = tpa.split_plan(H, D, dtype, P, maxp)
+    G, groups, chunks = tpa.split_plan(H, D, dtype, P, maxp)[:3]
     assert (G, groups, chunks) == plan
     elem = torch.empty((), dtype=dtype).element_size()
     assert G * D <= 256 and G <= 8 and groups * G >= H
     assert G * D * elem <= max(512, D * elem)
 
 
-def split_decode_emulation(q, k_pool, v_pool, page_table, lengths, rows):
+def split_decode_emulation(q, k_pool, v_pool, page_table, lengths, rows,
+                           cols=None):
     """The split decode kernel's arithmetic in plain torch, in f32: per
     chunk of ``rows`` logical rows the chunk's max m_c, p = exp(s - m_c)
     (0 where masked), l_c and acc_c; chunks past a slot's last visible row
     skipped; then m = max m_c, l = sum l_c exp(m_c - m), acc = sum acc_c
-    exp(m_c - m) in chunk order, out = acc / l (l == 0 -> 1)."""
+    exp(m_c - m) in chunk order, out = acc / l (l == 0 -> 1).  ``cols``
+    (past D = 256): the scores summed over the row's column slices of
+    ``cols`` columns in order, as the kernel sums them."""
     N, P, H, D = k_pool.shape
     B, s = q.shape[:2]
     T = page_table.shape[1] * P
+    cols = cols or D
     idx = (page_table.long()[:, :, None] * P
            + torch.arange(P)).reshape(B, T)
     kb = k_pool.reshape(N * P, H, D)[idx].float()
@@ -273,7 +282,11 @@ def split_decode_emulation(q, k_pool, v_pool, page_table, lengths, rows):
         parts = []
         for t0 in range(0, t_end, rows):
             t = torch.arange(t0, min(t0 + rows, t_end))
-            sc = torch.einsum("ihd,thd->iht", q[b].float(), kb[b, t])
+            sc = torch.zeros(s, H, len(t))
+            for c0 in range(0, D, cols):
+                sc = sc + torch.einsum("ihd,thd->iht",
+                                       q[b, :, :, c0:c0 + cols].float(),
+                                       kb[b, t, :, c0:c0 + cols])
             sc = sc / math.sqrt(D)
             ok = t[None, None, :] <= length + torch.arange(s)[:, None, None]
             sc = sc.masked_fill(~ok, -1e30)
@@ -296,8 +309,8 @@ def split_decode_emulation(q, k_pool, v_pool, page_table, lengths, rows):
 SPLIT_LENGTHS = [13, 7, 8, 0, 20]
 
 
-def _split_case(dtype, width, seed=6):
-    case = _case(seed, B=5, s=width, P=4, H=3, D=8, maxp=8,
+def _split_case(dtype, width, seed=6, D=8):
+    case = _case(seed, B=5, s=width, P=4, H=3, D=D, maxp=8,
                  lengths=SPLIT_LENGTHS)
     case["page_table"][4] = 0
     return case
@@ -332,6 +345,73 @@ def test_split_decode_emulation_matches_jax_reference_at_widths(width):
     # the port's plain version (what the CPU takes) agrees as well
     np.testing.assert_allclose(tpa.paged_attention(**_torch(case)).numpy(),
                                ref, **TOL)
+
+
+@pytest.mark.parametrize("D", [264, 320, 520])
+@pytest.mark.parametrize("dt,tol", [("float32", 2e-5), ("bfloat16", 2e-2)])
+def test_split_decode_past_256_sums_column_slices(D, dt, tol):
+    """Past D = 256 the split kernel takes a head's row in the plan's
+    column slices (2 or 3 here, the last one part zeros) and sums each
+    row's scores over them in order: width 1 against the Pallas decode
+    kernel under the interpreter and the jnp reference, over several
+    chunks a slot."""
+    case = _split_case(np.float32, 1, seed=D, D=D)
+    dtype = getattr(torch, dt)
+    plan = tpa.split_plan(3, D, dtype, 4, 8)
+    assert plan.G == 1 and plan.slices >= 2
+    assert (plan.slices - 1) * plan.slice_cols < D \
+        <= plan.slices * plan.slice_cols
+    jd = getattr(jnp, dt)
+    jcase = {k: jnp.asarray(v).astype(jd) if v.dtype == np.float32
+             else jnp.asarray(v) for k, v in case.items()}
+    tcase = {k: torch.from_numpy(v.copy()).to(dtype)
+             if v.dtype == np.float32 else torch.from_numpy(v.copy())
+             for k, v in case.items()}
+    out = split_decode_emulation(**tcase, rows=8,
+                                 cols=plan.slice_cols).float().numpy()
+    for ref in (jpa.paged_attention_decode(**jcase),
+                jpa.paged_attention_ref(**jcase)):
+        np.testing.assert_allclose(out, np.asarray(ref, np.float32),
+                                   rtol=tol, atol=tol)
+
+
+def test_split_decode_past_256_at_widths():
+    """Width 5 past 256 (query i sees rows up to lengths + i) in slices,
+    against the jnp reference."""
+    case = _split_case(np.float32, 5, seed=9, D=320)
+    ref = np.asarray(jpa.paged_attention_ref(**_jax(case)))
+    cols = tpa.split_plan(3, 320, torch.float32, 4, 8).slice_cols
+    out = split_decode_emulation(**_torch(case), rows=8, cols=cols).numpy()
+    np.testing.assert_allclose(out, ref, **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_split_plan_past_256_keeps_shared_memory_bounded(dtype):
+    """Every head width with 16-byte rows to 8192 at widths 1 and 15: one
+    head a group, balanced column slices of a multiple of 128 bytes up to
+    512 a row that cover D (the last one by less than a slice), and shared
+    memory that does not grow with D; up to 256 the grouped plan, K and V
+    of a chunk staged whole, under the card's limit too."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    vec = 16 // elem
+    smem = set()
+    for D in range(vec, 8193, vec):
+        for width in (1, 15):
+            plan = tpa.split_plan(12, D, dtype, 16, 8, width)
+            assert plan.smem <= tpa.SMEM_LIMIT, (D, width, plan)
+            assert plan.chunks == 2
+            if D <= 256:
+                assert plan.slices == 1 and plan.slice_cols == plan.G * D
+                continue
+            assert plan.G == 1 and plan.groups == 12
+            cols = plan.slice_cols
+            assert cols * elem % 128 == 0 and cols * elem <= 512
+            assert (plan.slices - 1) * cols < D <= plan.slices * cols
+            smem.add((width, plan.smem))
+    # past 256 a few sizes in all, the largest slices' the most
+    assert max(m for w, m in smem if w == 15) == \
+        tpa.split_plan(12, 8192, dtype, 16, 8, 15).smem
 
 
 def test_dispatcher_casts_the_table_and_lengths_to_int32():
