@@ -25,15 +25,17 @@ Phases, each printing one JSON line:
                0; the split decode kernel's (K3) ptxas notes; and K4's
                kernels' registers, spills, ptxas notes and HGMMA counts
                (above 0 for each of its 8 tensor-core instances: bf16/f16,
-               int8/fp8, walk/split; 0 for the 2 f32 CUDA-core ones); and
+               int8/fp8, walk/split; 0 for the 8 f32 CUDA-core ones); and
                the same for the 5 forwards past 256 on the tensor cores
                (``fwd_tc`` bf16/f16 for K1 and K2, ``fwd_tc_f32``; HGMMA
                above 0), the 8 dK/dV and dQ kernels past 256
                (``dkdv_tc``, ``dq_tc``, bf16/f16 for K1 and K2; HGMMA
                above 0), K2's f32 dK/dV and dQ past 256 (``bhd_dkdv_tc<0>``,
                ``bhd_dq_tc<0>``; HGMMA above 0) and K3's prefill kernel
-               past 256 (``paged_attention_wide_tc``, bf16/f16; HGMMA
-               above 0).
+               past 256 and, since the rebuild of the chunks up to 256,
+               K3's bf16/f16 prefill kernel at every D on paged TMA +
+               wgmma (``paged_attention_tc<T, chunk, consumers>``: 10
+               instances; HGMMA above 0).
 3. flash    -- holds the three packed flash-attention kernels (forward, dK/dV,
                dQ; ``csrc/flash_attention_packed.cu``) against their plain
                PyTorch versions run in f32 on the same bf16/f16 inputs:
@@ -224,16 +226,21 @@ Phases, each printing one JSON line:
                and lengths), and past the old limits: widths 65, 128 (pages
                of 128) and 256 (pages of 256), width 1 over pages of 128,
                D=36, and D=320 and 512 at widths 1 and 32 over 8-page
-               tables (bf16 widths from 16 run the tensor-core kernels,
-               past 256 paged TMA + wgmma; the rest the scalar one, in
-               slices past 256), bf16 width 32 at D=512 over pages of 128
-               and of 48 and at D=260 (the sliced mma.sync copy), each
+               tables (bf16 widths from 16 run paged TMA + wgmma where
+               D % 8 == 0 over pages of a multiple of 8 rows, else the
+               mma.sync copies; f32 the scalar one past 256, in slices),
+               bf16 width 32 at D=512 over pages of 128 and of 48 and at
+               D=260 (the sliced mma.sync copy); the bf16/f16 chunks up
+               to 256 on paged TMA + wgmma (``tiles_tc``) at D = 8, 40,
+               64, 128, 256, widths 16 to 200 (one and two consumer
+               warpgroups), pages of 8, 16, 48 and 128, and beside them
+               pages of 12 and D = 36 on ``paged_attention_mma``, each
                launching the kernel ``tile_route`` names and no other,
                twice more bit for bit, beside a control (the plain
                version in the inputs' dtype, must pass) and a planted
                fault (each slot's first page read from its second, must
                fail); the route and plan mirrors (``tile_route``,
-               ``wide_tc_plan``) equal to the library's own: bf16 against
+               ``tc_plan``) equal to the library's own: bf16 against
                an f32 run of the plain
                version at atol=rtol=2e-2, f32 at 2e-5 with TF32 off.  Then
                the split decode kernel at widths 1 and 15, pages of 16, 128
@@ -260,15 +267,20 @@ Phases, each printing one JSON line:
                offset-causal mask over the gathered K/V; the f32 prefill
                kernel likewise at the serving chunk and at width 128 over
                pages of 128 (SDPA in f32, TF32 off; bound: bytes or 3xTF32
-               products).
+               products); the bf16 chunk at D = 128 and 256 (widths 32 and
+               128), and the shapes the TMA kernels leave to the mma.sync
+               copies and the scalar kernel (pages of 12, D = 36, D = 260,
+               f32 D = 320 and pages of 12, decode at D = 36), each checked
+               and timed beside its bound and SDPA.
 11. serving -- GPT-2-small in bf16 through
                ``ServingEngine(cache_mode="paged", max_slots=16, max_len=512,
                page_size=16, num_pages=257, chunk=32, decode_window=32)``:
                16 greedy requests of 64 prompt tokens and 128 new tokens.
                Every request must finish, the split decode kernel's launch
-               count must equal the decode steps times the layers and the
-               tile kernels' the chunk ticks times the layers, the plain
-               version must not be called, and the pool must drain.  Then
+               count must equal the decode steps times the layers and
+               ``paged_attention_tc``'s (``tiles_tc``) the chunk ticks times
+               the layers, every other K3 kernel and the plain version
+               must not be called, and the pool must drain.  Then
                an f32 run of 4 requests x 32 new tokens must be
                token-exact against the dense engine (the plain static-cache
                path), or diverge only at a logit margin <= 1e-3, its chunk
@@ -315,16 +327,20 @@ Phases, each printing one JSON line:
                rows of the batch inside a batch of 1024 (the walk) must
                equal their rows of the M = 256 batch, bit for bit, and
                three repeats of each must equal the first.  f32
-               activations at (256, 768, 2304): relative error <= 1e-5 of
-               max|ref|, rows of M = 8 equal their rows of M = 256.  f16
+               activations (the CUDA-core kernel) at the same five shapes x
+               M in {1, 8, 17, 256, 1024}, int8 and e4m3: within 1e-5 of
+               max|exact| (the exact products in f64 times the scale),
+               beside a control (the plain version in reverse chunks) and
+               a planted fault (a stale K tile), every M's rows bit for bit
+               their rows of M = 1024, three repeats bit for bit.  f16
                activations, 1 f16 ulp of the exact sum: M = 8 at (768,
                2304), and M = 256 at every shape with its rows of M = 8 bit
                for bit, int8 and e4m3 weights, each beside a control (the
                exact products in reverse chunk order, must pass) and a
                planted fault (a stale K tile, must fail).  A 3-D input
                with bias through ``quant_matmul``.
-15. quant   -- K4's time at M = 8 and M = 256 (bf16 activations) and at
-               M = 8 with f32 activations for each projection, and each
+15. quant   -- K4's time at M = 8 and M = 256 (bf16 activations, and
+               f32 activations) for each projection, and each
                layer's sum, by CUDA-graph replay over input copies larger
                than the L2 (> 60 MB, >= 24 copies), beside its bound, the
                plain version's time and the yardsticks the port never
@@ -371,8 +387,14 @@ trees' processes (parent, change, change, parent).
 
 ``python3 chip_smoke.py --k3-ab N [--root DIR]`` likewise times K3 at
 ``k3_ab_cases`` (the f32 prefill chunks, decode at D = 512 in each type,
-the shapes whose kernel is unchanged and those the scalar kernel keeps),
-after the paged library's ptxas report and HGMMA counts.
+the bf16/f16 chunks up to 256 at w32 and w128, D = 64, 128 and 256, the
+shapes whose kernel is unchanged and those the mma.sync copies and the
+scalar kernel keep), after the paged library's ptxas report and HGMMA
+counts.
+
+``python3 chip_smoke.py --k4-ab N [--root DIR]`` likewise times K4, one
+GPT-2-small layer's four int8 projections at M = 8 and 256, f32 and bf16
+activations (``K4_AB_MS``), after the quant library's ptxas report.
 
 ``python3 chip_smoke.py --bwd-ab N [--root DIR]`` likewise times only K2's
 f32 dK/dV and dQ kernels (graph replay), N times each, at ``BWD_AB_SHAPES``
@@ -663,6 +685,32 @@ def phase_kernel(torch, pa):
         check(f"bfloat16_{name}", kernel_case(torch, torch.bfloat16, 32,
                                               seed=D + P, D=D, P=P,
                                               maxp=maxp), 2e-2)
+    # the bf16/f16 prefill kernel up to 256 (paged TMA + wgmma): D = 64,
+    # 128 and 256, one and two consumer warpgroups, widths of one q tile,
+    # past it and of four, pages of 8, 16, 48 (boxes of 16) and 128 (boxes
+    # of 64), D = 8 and 40 (a slice partly zero); the shapes TMA boxes
+    # cannot take stay on paged_attention_mma, by route: pages of 12 (boxes
+    # of 4 rows) and D = 36
+    for dtype in (torch.bfloat16, torch.float16):
+        tag = str(dtype).split('.')[-1]
+        for name, w, kw in (("d64_w16_p8", 16, dict(P=8, maxp=64)),
+                            ("d64_w32_p48", 32, dict(P=48, maxp=12)),
+                            ("d64_w65", 65, {}),
+                            ("d64_w200_p16", 200, dict(maxp=40)),
+                            ("d128_w32", 32, dict(D=128)),
+                            ("d128_w128_p128", 128, dict(D=128, P=128,
+                                                         maxp=4)),
+                            ("d128_w130_p8", 130, dict(D=128, P=8,
+                                                       maxp=64)),
+                            ("d256_w32", 32, dict(D=256)),
+                            ("d256_w128_p128", 128, dict(D=256, P=128,
+                                                         maxp=4)),
+                            ("d8_w32", 32, dict(D=8)),
+                            ("d40_w65_p16", 65, dict(D=40)),
+                            ("d64_w32_p12", 32, dict(P=12, maxp=40)),
+                            ("d36_w65", 65, dict(D=36))):
+            check(f"{tag}_{name}", kernel_case(torch, dtype, w,
+                                               seed=w + 17, **kw), 2e-2)
     # the f32 prefill kernel (paged TMA + 3xTF32 wgmma) at D = 128 and 256
     # (one consumer warpgroup at 256), a chunk of two q tiles at 256, pages
     # of 48 (boxes of 16) and of 8; pages of 12 (boxes of 4 rows) stay on
@@ -685,10 +733,12 @@ def phase_kernel(torch, pa):
                     got = pa.library_route(s, D, dtype, P)
                     if got != pa.tile_route(s, D, dtype, P):
                         wrong.append((str(dtype), s, D, P, got))
-    for D in (264, 320, 512, 1024, 1032, 2048, 8192):
-        got = pa.library_wide_smem(D)
-        if got != pa.wide_tc_plan(1, 32, 1, D, 16, torch.bfloat16)["smem"]:
-            wrong.append(("smem", D, got))
+    for D in list(range(8, 257, 8)) + [264, 320, 512, 1024, 1032, 2048,
+                                        8192]:
+        for s in (16, 32, 65, 128):
+            got = pa.library_tc_smem(D, s)
+            if got != pa.tc_plan(1, s, 1, D, 16, torch.bfloat16)["smem"]:
+                wrong.append(("tc_smem", D, s, got))
     for D in range(4, 257, 4):
         for s in (16, 32, 65, 128):
             got = pa.library_tf32_smem(D, s)
@@ -844,6 +894,33 @@ def phase_kernel(torch, pa):
     # beside SDPA with the offset-causal mask over the gathered K/V
     w128 = times(kernel_case(torch, torch.bfloat16, 128, seed=129, P=128,
                              maxp=4), plain_reps=2)
+    # the chunk at D = 128 and 256: 32 rows over pages of 16, 128 over
+    # pages of 128
+    wider = {f"d{D}_w{w}": times(kernel_case(torch, torch.bfloat16, w,
+                                             seed=D + w, D=D, **kw),
+                                 plain_reps=2)
+             for D in (128, 256)
+             for w, kw in ((32, {}), (128, dict(P=128, maxp=4)))}
+    # the shapes the TMA kernels leave to the mma.sync copies and to the
+    # scalar kernel (by route), each checked and timed beside its bound and
+    # SDPA
+    kept = {}
+    for name, c in (
+            ("bf16_p12_w32", kernel_case(torch, torch.bfloat16, 32, seed=44,
+                                         P=12, maxp=40)),
+            ("bf16_d36_w32", kernel_case(torch, torch.bfloat16, 32, seed=68,
+                                         D=36)),
+            ("bf16_d260_w32", kernel_case(torch, torch.bfloat16, 32,
+                                          seed=292, D=260, maxp=8)),
+            ("f32_d320_w32", kernel_case(torch, torch.float32, 32, seed=352,
+                                         D=320, maxp=8)),
+            ("f32_p12_w32", kernel_case(torch, torch.float32, 32, seed=43,
+                                        P=12, maxp=40)),
+            ("bf16_d36_w1", kernel_case(torch, torch.bfloat16, 1, seed=37,
+                                        D=36))):
+        e = check(f"kept_{name}", c, 2e-5 if "f32" in name else 2e-2)
+        kept[name] = dict(times(c, plain_reps=2), max_abs_err=e,
+                          kernel=checks[-1]["kernel"])
     # the f32 prefill kernel at the f32 serving cross-check's chunk (the
     # serving run's pool and tables in f32) and at the f32 paged_wide
     # engine's chunk of 128 over pages of 128; SDPA in f32, TF32 off
@@ -857,14 +934,30 @@ def phase_kernel(torch, pa):
     emit({"phase": "paged", "checks": checks, "invariance": invariance,
           "decode_w1_serving": decode, "chunk_w32_serving": chunk,
           "decode_w1_maxlen": maxlen, "chunk_w128_p128": w128,
+          "chunk_wider": wider, "kept_shapes": kept,
           "f32_chunk_w32_serving": f32_w32, "f32_chunk_w128_p128": f32_w128})
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    err_of = {c["case"]: c["max_abs_err"] for c in checks
+              if "max_abs_err" in c}
+    tc = {"w32": dict(chunk, max_abs_err=err_w32),
+          "w128": dict(w128, max_abs_err=err_of["bfloat16_w128_p128"]),
+          "d128_w32": dict(wider["d128_w32"],
+                           max_abs_err=err_of["bfloat16_d128_w32"]),
+          "d128_w128": dict(wider["d128_w128"],
+                            max_abs_err=err_of["bfloat16_d128_w128_p128"]),
+          "d256_w32": dict(wider["d256_w32"],
+                           max_abs_err=err_of["bfloat16_d256_w32"]),
+          "d256_w128": dict(wider["d256_w128"],
+                            max_abs_err=err_of["bfloat16_d256_w128_p128"])}
     return ({"max_abs_err": err, **{k: decode[k] for k in keys},
              "tiles_route_ms": decode["tiles_route_ms"],
              "maxlen": {k: maxlen[k] for k in keys + ("tiles_route_ms",)}},
-            {"max_abs_err": err_w32, **{k: chunk[k] for k in keys}},
             {name: {k: row[k] for k in keys + ("max_abs_err",)}
-             for name, row in (("w32", f32_w32), ("w128", f32_w128))})
+             for name, row in tc.items()},
+            {name: {k: row[k] for k in keys + ("max_abs_err",)}
+             for name, row in (("w32", f32_w32), ("w128", f32_w128))},
+            {name: {k: row[k] for k in keys + ("kernel", "max_abs_err")}
+             for name, row in kept.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -3003,8 +3096,9 @@ def phase_serving(torch, pa):
     real = counting(pa, plain, plain)
     for _ in range(3):   # host-bound: repeat to show the spread
         ticks0 = dict(eng.stats)
-        for k in pa.launches:
-            pa.launches[k] = 0
+        for counts in (pa.launches, pa.kernel_launches):
+            for k in counts:
+                counts[k] = 0
         plain["paged_attention_ref"] = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3013,6 +3107,7 @@ def phase_serving(torch, pa):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(pa.launches)
+        by_kernel = dict(pa.kernel_launches)
         decode_ticks = eng.stats["decode_ticks"] - ticks0["decode_ticks"]
         chunk_ticks = eng.stats["chunk_ticks"] - ticks0["chunk_ticks"]
         for r in reqs:
@@ -3026,7 +3121,13 @@ def phase_serving(torch, pa):
             launches, need)
         assert launches["paged_attention"] == \
             chunk_ticks * cfg.num_layers, launches
-        assert plain["paged_attention_ref"] == 0, plain
+        # by kernel: the chunks on paged TMA + wgmma, the mma.sync tile
+        # kernel and the scalar one never
+        engine_routes_ok({"kernel_launches": by_kernel,
+                          "plain_calls": plain["paged_attention_ref"],
+                          "chunk_ticks": chunk_ticks,
+                          "decode_ticks": decode_ticks}, cfg.num_layers,
+                         eng._decode_window, "tiles_tc", "bf16 serving")
         eng.drop_prefix_cache()
         assert eng.kv_pages_in_use == 0, eng.kv_pages_in_use
         ttft = sorted(r.ttft_s for r in reqs)
@@ -3034,6 +3135,7 @@ def phase_serving(torch, pa):
                      "ttft_p50_s": ttft[len(ttft) // 2],
                      "ttft_max_s": ttft[-1], "decode_ticks": decode_ticks,
                      "chunk_ticks": chunk_ticks, "kernel_launches": launches,
+                     "launches_by_kernel": by_kernel,
                      "plain_calls": plain["paged_attention_ref"]})
     restore(pa, real)
     med = sorted(runs, key=lambda r: r["wall_s"])[1]
@@ -3075,7 +3177,8 @@ def phase_serving(torch, pa):
                                  f"{m} > 1e-3")
     emit({"phase": "f32_cross_check", "requests": 4, "new_tokens": 32,
           "token_exact": exact, "divergences": margins, **f32_stats})
-    return eng, prompts, launches, f32_stats["paged"]["kernel_launches"]
+    return (eng, prompts, dict(launches, **runs[0]["launches_by_kernel"]),
+            f32_stats["paged"]["kernel_launches"])
 
 
 def counted_run(torch, pa, eng, submit):
@@ -3171,8 +3274,9 @@ BF16_MARGIN = 0.05
 def phase_paged_wide512(torch, pa):
     """The paged engine at the wide512 GPT's heads (hidden 1024, 2 heads of
     D = 512, 2 layers), bf16, ``chunk=32``, pages of 16: its prefill
-    chunks run K3's prefill kernel past 256 (``paged_attention_wide_tc``),
-    its decode steps the scalar kernel.  8 requests of 64 prompt tokens x
+    chunks run K3's prefill kernel past 256 (``paged_attention_tc`` in
+    256-column chunks, route ``tiles_wide_tc``), its decode steps the
+    split kernel in column slices.  8 requests of 64 prompt tokens x
     16 new, counts set to 0 just before and read just after: the wide
     kernel launched exactly chunk ticks x layers, the plain version 0
     times, no page left in use; against the dense engine on the same
@@ -3330,6 +3434,7 @@ def exact_sum(torch, x2d, w_q, scale):
 QUANT_CHECK_SHAPES = dict(QUANT_SHAPES, k640=(640, 384))
 QUANT_CHECK_MS = (1, 8, 16, 17, 64, 200, 256, 1024)
 QUANT_REF_MS = (1, 8, 200, 256)       # the cases held to the plain version
+QUANT_F32_MS = (1, 8, 17, 256, 1024)  # f32 activations
 
 
 def phase_quant_checks(torch, qm, wo):
@@ -3405,21 +3510,52 @@ def phase_quant_checks(torch, qm, wo):
                 rows.append([case] + r)
                 if not ok:
                     bad.append(case)
-    # f32 activations (the CUDA-core kernel; rows of M = 8 equal their rows
-    # of M = 256), f16 activations, and a 3-D input with bias through the
-    # dispatch
+    # f32 activations (the CUDA-core kernel) at the four projections and
+    # (640, 384), M in QUANT_F32_MS, int8 and e4m3 weights: within
+    # QUANT_F32_REL of max|exact| (the exact products summed in f64, times
+    # the scale), beside a control (the plain version with K summed in
+    # reverse 128-row chunks, must pass) and a planted fault (the kernel on
+    # a weight whose second K tile is a copy of its first, must fail);
+    # every M's rows bit for bit their rows of M = 1024 (the split at
+    # decode, the walk past it), three repeats bit for bit
     f32, max_abs_f32 = {}, 0.0
-    for scheme in ("int8", "fp8"):
-        c = quant_case(torch, wo, 256, 768, 2304, scheme, torch.float32, 7)
-        out = qm.quant_matmul_kernel(*c.values())
-        ref = qm.quant_matmul_ref(*c.values())
-        rel = float((out - ref).abs().max() / ref.abs().max())
-        m8 = qm.quant_matmul_kernel(c["x2d"][:8].contiguous(), c["w_q"],
-                                    c["scale"])
-        f32[scheme] = rel
-        max_abs_f32 = max(max_abs_f32, float((out - ref).abs().max()))
-        if not (rel <= QUANT_F32_REL and torch.equal(m8, out[:8])):
-            bad.append(f"f32_{scheme}")
+    for name, (k, n) in QUANT_CHECK_SHAPES.items():
+        for scheme in ("int8", "fp8"):
+            big = quant_case(torch, wo, max(QUANT_F32_MS), k, n, scheme,
+                             torch.float32, k + n + 1)
+            out_big = qm.quant_matmul_kernel(*big.values())
+            for m in QUANT_F32_MS:
+                c = dict(big, x2d=big["x2d"][:m].contiguous())
+                out = qm.quant_matmul_kernel(*c.values())
+                torch.cuda.synchronize()
+                ex = (c["x2d"].double() @ c["w_q"].double()) \
+                    * c["scale"].double()
+                top = float(ex.abs().max())
+                stale = c["w_q"].clone()
+                stale[128:256] = c["w_q"][:128]       # a stale K tile
+                got = {
+                    "kernel": float((out.double() - ex).abs().max()) / top,
+                    "control": float((reversed_chunks_ref(torch, **c)
+                                      .double() - ex).abs().max()) / top,
+                    "fault": float((qm.quant_matmul_kernel(
+                        c["x2d"], stale, c["scale"]).double() - ex)
+                        .abs().max()) / top,
+                    "rows_equal_m1024": torch.equal(out, out_big[:m]),
+                    "repeats_equal": all(torch.equal(
+                        qm.quant_matmul_kernel(*c.values()), out)
+                        for _ in range(3)),
+                    "split": qm.quant_plan(m, k, n, torch.float32).split}
+                max_abs_f32 = max(max_abs_f32, float(
+                    (out - qm.quant_matmul_ref(*c.values())).abs().max()))
+                case = f"{name}_{scheme}_m{m}"
+                f32[case] = got
+                if not (got["kernel"] <= QUANT_F32_REL
+                        and got["control"] <= QUANT_F32_REL
+                        and got["fault"] > QUANT_F32_REL
+                        and got["rows_equal_m1024"] and got["repeats_equal"]
+                        and bool(torch.isfinite(out).all())):
+                    bad.append(f"f32_{case}")
+            del big, out_big
     # f16 activations, in f16 ulps of the exact sum (the plain version's own
     # reading beside it): M = 8 at (768, 2304), and M = 256 at every shape
     # with its rows of M = 8 bit for bit, int8 and e4m3 weights alike (e4m3
@@ -3611,8 +3747,9 @@ def phase_quant(torch, qm, wo):
         for m in (8, 256):
             timing[f"{name}_m{m}"] = quant_times(torch, qm, wo, m, k, n,
                                                  torch.bfloat16, int8pack)
-        timing[f"{name}_m8_f32"] = quant_times(torch, qm, wo, 8, k, n,
-                                               torch.float32, int8pack)
+        for m in (8, 256):
+            timing[f"{name}_m{m}_f32"] = quant_times(
+                torch, qm, wo, m, k, n, torch.float32, int8pack)
         # e4m3 weights: four exponent bands, eight products a k-step
         for m in (8, 256):
             timing[f"{name}_m{m}_fp8"] = quant_times(
@@ -3620,13 +3757,14 @@ def phase_quant(torch, qm, wo):
     torch.cuda.empty_cache()
     layers = {tag: layer_sum([timing[f"{name}_{tag}"]
                               for name in QUANT_SHAPES])
-              for tag in ("m8", "m256", "m8_f32", "m8_fp8", "m256_fp8")}
+              for tag in ("m8", "m256", "m8_f32", "m256_f32", "m8_fp8",
+                          "m256_fp8")}
     emit({"phase": "quant", "weights": "int8 (fp8-e4m3 in the _fp8 rows)",
           "activations": "bf16 (f32 in the _f32 rows)",
           "library": "torch._weight_int8pack_mm" if int8pack else None,
           "timing": timing, "layers": layers,
           "note": "a layer: the sum of its four projections"})
-    return layers["m8"], layers["m8_f32"]
+    return layers["m8"], layers["m8_f32"], layers["m256_f32"]
 
 
 def weight_bytes(model):
@@ -3830,7 +3968,20 @@ def k3_ab_cases(torch):
         "f32_p12_w32": kc(torch, torch.float32, 32, seed=43, P=12, maxp=40),
         "f32_d320_w32": kc(torch, torch.float32, 32, seed=352, D=320,
                            maxp=8),
-        "bf16_d36_w1": kc(torch, torch.bfloat16, 1, seed=37, D=36)}
+        "bf16_d36_w1": kc(torch, torch.bfloat16, 1, seed=37, D=36),
+        "f16_w32_serving": {k: v.half() if v.is_floating_point() else v
+                            for k, v in serving_case(torch, 32,
+                                                     seed=32).items()},
+        "bf16_d128_w32": kc(torch, torch.bfloat16, 32, seed=160, D=128),
+        "bf16_d256_w32": kc(torch, torch.bfloat16, 32, seed=288, D=256),
+        "bf16_d128_w128": kc(torch, torch.bfloat16, 128, seed=256, D=128,
+                             P=128, maxp=4),
+        "bf16_d256_w128": kc(torch, torch.bfloat16, 128, seed=384, D=256,
+                             P=128, maxp=4),
+        # shapes TMA boxes cannot take stay on paged_attention_mma
+        "bf16_p12_w32": kc(torch, torch.bfloat16, 32, seed=44, P=12,
+                           maxp=40),
+        "bf16_d36_w32": kc(torch, torch.bfloat16, 32, seed=68, D=36)}
 
 
 def k3_ab(torch, runs):
@@ -3864,6 +4015,49 @@ def k3_ab(torch, runs):
             del cs
         emit({"phase": "k3_ab", "pkg": pa.__file__, "run": i, "ms": ms,
               "routes": routes})
+
+
+K4_AB_MS = (8, 256)
+
+
+def k4_ab(torch, runs):
+    """The ``--k4-ab`` mode: K4's device time for one GPT-2-small layer's
+    four int8 projections (graph replay over input copies larger than the
+    L2) at M in ``K4_AB_MS``, f32 and bf16 activations, ``runs`` times,
+    from the package on ``sys.path``; one JSON line a run, the plan of
+    each projection beside it.  First the quant_matmul library's ptxas
+    report, as this tree names its kernels."""
+    from paddle_hackathon_tpu_torch.incubate.nn.kernels import _build
+    from paddle_hackathon_tpu_torch.incubate.nn.kernels import \
+        quant_matmul as qm
+    from paddle_hackathon_tpu_torch.nn.quant import weight_only as wo
+    _build.build_all(["quant_matmul"])
+
+    def name(ln):
+        m = re.search(r"_Z\w+", ln)
+        return m.group(0) if m else None
+    emit({"phase": "k4_ab_build", "pkg": qm.__file__,
+          "ptxas": ptxas_notes(_build, ["quant_matmul"], name)})
+    cases, plans = {}, {}
+    for xdtype in (torch.float32, torch.bfloat16):
+        for m in K4_AB_MS:
+            for pname, (k, n) in QUANT_SHAPES.items():
+                key = f"{str(xdtype).split('.')[-1]}_m{m}_{pname}"
+                c = quant_case(torch, wo, m, k, n, "int8", xdtype, m + n)
+                per_copy = sum(t.numel() * t.element_size()
+                               for t in c.values())
+                cases[key] = copies(c, max(24, -(-60_000_000 // per_copy)))
+                plans[key] = tuple(qm.quant_plan(m, k, n, xdtype))
+    for i in range(runs):
+        ms = {key: device_ms(torch, [
+            lambda c=c: qm.quant_matmul_kernel(*c.values()) for c in cs])
+            for key, cs in cases.items()}
+        layers = {}
+        for key, v in ms.items():
+            tag = "_".join(key.split("_")[:2])      # <dtype>_m<M>
+            layers[tag] = layers.get(tag, 0.0) + v
+        emit({"phase": "k4_ab", "pkg": qm.__file__, "run": i,
+              "layers": layers, "ms": ms, "plans": plans})
 
 
 def phase_serving_int8(torch, qm):
@@ -4228,52 +4422,59 @@ def wide_f32_bwd_build(_build, libs):
                          "f32 backward kernels past 256")
 
 
-K3_WIDE_KERNEL = re.compile(r"paged_attention_wide_tcI(13__nv_bfloat16|"
-                            r"6__half)E")
+K3_TC_KERNEL = re.compile(r"paged_attention_tcI(13__nv_bfloat16|6__half)"
+                          r"Li(\d+)ELi(\d+)E")
 
 
-def k3_wide_name(ln):
-    """``paged_attention_wide_tc<bf16>`` / ``<f16>`` from a line naming K3's
-    prefill kernel past 256, or None."""
-    m = K3_WIDE_KERNEL.search(ln)
+def k3_tc_name(ln):
+    """``paged_attention_tc<bf16,64,2>`` (type, output chunk, consumers)
+    from a line naming K3's bf16/f16 prefill kernel on paged TMA + wgmma,
+    or None."""
+    m = K3_TC_KERNEL.search(ln)
     if not m:
         return None
-    return ("paged_attention_wide_tc<"
-            f"{'bf16' if 'bfloat16' in m.group(1) else 'f16'}>")
+    dtype = "bf16" if "bfloat16" in m.group(1) else "f16"
+    return f"paged_attention_tc<{dtype},{m.group(2)},{m.group(3)}>"
 
 
-def k3_wide_build(_build, libs):
-    """K3's prefill kernel past 256 on paged TMA + wgmma (bf16, f16: 2)."""
-    return wide_tc_build(_build, libs, ["paged_attention"], k3_wide_name, 2,
-                         "K3 prefill kernels past 256")
+def k3_tc_build(_build, libs):
+    """K3's bf16/f16 prefill kernel on paged TMA + wgmma: output chunks of
+    64 and 128 columns with one or two consumer warpgroups, 256 with one
+    (up to D = 256 one chunk, past it chunks of 256), bf16 and f16: 10."""
+    return wide_tc_build(_build, libs, ["paged_attention"], k3_tc_name, 10,
+                         "K3 bf16/f16 prefill kernels")
 
 
 K4_KERNEL = re.compile(r"(quant_matmul_(?:tc|f32)_kernel)I"
-                       r"(13__nv_bfloat16|6__half)?Lb([01])E(?:Lb([01])E)?")
+                       r"(13__nv_bfloat16|6__half)?Lb([01])E"
+                       r"(?:Li(\d+)E)?(?:Lb([01])E)?")
 
 
 def k4_kernel_name(ln):
     """``quant_matmul_tc_kernel<bf16,fp8,split>`` or
-    ``quant_matmul_f32_kernel<int8>`` from a line naming a K4 kernel."""
+    ``quant_matmul_f32_kernel<int8,R8,walk>`` (R rows a thread) from a
+    line naming a K4 kernel."""
     m = K4_KERNEL.search(ln)
     if not m:
         return None
     w = "fp8" if m.group(3) == "1" else "int8"
+    sched = "split" if m.group(5) == "1" else "walk"
     if m.group(2) is None:
-        return f"{m.group(1)}<{w}>"
+        return f"{m.group(1)}<{w},R{m.group(4)},{sched}>"
     x = "bf16" if "bfloat16" in m.group(2) else "f16"
-    return f"{m.group(1)}<{x},{w},{'split' if m.group(4) == '1' else 'walk'}>"
+    return f"{m.group(1)}<{x},{w},{sched}>"
 
 
 def k4_build(_build, libs):
     """K4's kernels' registers, spills and ptxas performance notes and,
     where cuobjdump is found, their HGMMA (wgmma) counts: above 0 for each
     of the 8 tensor-core instances (bf16/f16, int8/fp8, walk/split), 0 for
-    the 2 CUDA-core (f32) ones."""
+    the 8 CUDA-core (f32) ones (int8/fp8, 2 or 8 rows a thread,
+    walk/split)."""
     hgmma = hgmma_counts(_build, libs, ["quant_matmul"], k4_kernel_name)
     if hgmma is not None:
         tc = {k: v for k, v in hgmma.items() if "_tc_" in k}
-        if len(tc) != 8 or not all(tc.values()) or len(hgmma) != 10:
+        if len(tc) != 8 or not all(tc.values()) or len(hgmma) != 16:
             raise AssertionError(f"K4 tensor-core kernels without HGMMA (or "
                                  f"missing from the SASS): {hgmma}")
     return {"kernels": ptxas_notes(_build, ["quant_matmul"], k4_kernel_name),
@@ -4286,7 +4487,8 @@ def main():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     for flag, mode in (("--serving-ab", serving_ab), ("--bwd-ab", bwd_ab),
-                       ("--tc16-ab", tc16_ab), ("--k3-ab", k3_ab)):
+                       ("--tc16-ab", tc16_ab), ("--k3-ab", k3_ab),
+                       ("--k4-ab", k4_ab)):
         if flag in sys.argv:
             args = sys.argv[1:]
             if "--root" in args:
@@ -4330,7 +4532,7 @@ def main():
           "wide_fwd_tc": wide_fwd_build(_build, libs),
           "wide_bwd_tc": wide_bwd_build(_build, libs),
           "wide_bwd_tc_f32": wide_f32_bwd_build(_build, libs),
-          "k3_wide_tc": k3_wide_build(_build, libs)})
+          "k3_tc": k3_tc_build(_build, libs)})
 
     flash = phase_flash(torch, fap, fa)
     flash_launches = phase_train(torch, fap)
@@ -4343,14 +4545,14 @@ def main():
     wide512 = wide512_times(torch, fa, fap, pa)
     emit({"phase": "wide512_times", **wide512})
     phase_dispatch_repairs(torch, fap, pa, qm, wo)
-    k3_decode, k3_tiles, k3_f32 = phase_kernel(torch, pa)
+    k3_decode, k3_tc, k3_f32, k3_kept = phase_kernel(torch, pa)
     eng, prompts, launches, f32_launches_k3 = phase_serving(torch, pa)
     phase_profile(torch, eng, prompts)
     del eng
     wide_f32_launches = phase_paged_wide(torch, pa)
     k3_wide_launches = phase_paged_wide512(torch, pa)
     max_abs, max_abs_f32 = phase_quant_checks(torch, qm, wo)
-    decode, decode_f32 = phase_quant(torch, qm, wo)
+    decode, decode_f32, prefill_f32 = phase_quant(torch, qm, wo)
     k4_launches, arrays, prompts = phase_serving_int8(torch, qm)
     f32_launches = phase_quant_f32_cross_check(torch, qm, arrays, prompts)
 
@@ -4461,16 +4663,17 @@ def main():
                         "tensor cores"})
     row = wide512["k3_bf16"]["w32"]
     kernels.append({
-        "name": "paged_attention_wide_tc", "route": "cuda",
+        "name": "paged_attention_tc_d512", "route": "cuda",
         "source": src + "paged_attention.cu",
         "replaces": ref + "paged_attention.py:175",
         "launches": k3_wide_launches["tiles_wide_tc"],
         **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms")},
         "timed_as": "a 32-row prefill chunk at D=512, bf16 (16 slots, 12 "
-                    "heads, pages of 16, 8 a slot); launches: the paged "
-                    "engine at the wide512 GPT's heads; library: SDPA with "
-                    "the offset-causal mask on gathered K/V"})
+                    "heads, pages of 16, 8 a slot; paged_attention_tc in "
+                    "256-column chunks, route tiles_wide_tc); launches: "
+                    "the paged engine at the wide512 GPT's heads; library: "
+                    "SDPA with the offset-causal mask on gathered K/V"})
     row = wide512["k3_bf16"]["w1"]
     kernels.append({
         "name": "paged_decode_split_d512", "route": "cuda",
@@ -4510,14 +4713,53 @@ def main():
                                 "geometry (16 slots, 12 heads of 64, pages "
                                 "of 16, lengths 64..191), bf16; library: "
                                 "SDPA on K/V gathered contiguous"})
-    kernels.append({"name": "paged_attention", "route": "cuda",
-                    "source": src + "paged_attention.cu",
-                    "replaces": ref + "paged_attention.py:175",
-                    "launches": launches["paged_attention"], **k3_tiles,
-                    "timed_as": "a 32-row prefill chunk at the serving "
-                                "run's geometry, bf16 (the tensor-core "
-                                "tile kernel); library: SDPA with the "
-                                "offset-causal mask on gathered K/V"})
+    # the bf16/f16 prefill chunks up to 256 on paged TMA + wgmma: the
+    # serving chunk (launched by the serving run), and off the main path
+    # the chunk of 128 over pages of 128 and D = 128, 256
+    for kname, key, launched, what in (
+            ("paged_attention_tc", "w32", launches["tiles_tc"],
+             "a 32-row prefill chunk at the serving run's geometry, bf16 "
+             "(16 slots, 12 heads of 64, pages of 16); launches: the "
+             "serving run's chunk ticks x layers"),
+            ("paged_attention_tc_w128", "w128", 0,
+             "a 128-row chunk over pages of 128, bf16, D=64 (16 slots, 12 "
+             "heads, 4 pages a slot; two consumer warpgroups)"),
+            ("paged_attention_tc_d128_w32", "d128_w32", 0,
+             "a 32-row chunk at D=128, bf16 (16 slots, 12 heads, pages of "
+             "16)"),
+            ("paged_attention_tc_d128_w128", "d128_w128", 0,
+             "a 128-row chunk at D=128 over pages of 128, bf16"),
+            ("paged_attention_tc_d256_w32", "d256_w32", 0,
+             "a 32-row chunk at D=256, bf16 (16 slots, 12 heads, pages of "
+             "16)"),
+            ("paged_attention_tc_d256_w128", "d256_w128", 0,
+             "a 128-row chunk at D=256 over pages of 128, bf16")):
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": src + "paged_attention.cu",
+            "replaces": ref + "paged_attention.py:175",
+            "launches": launched, **k3_tc[key],
+            "timed_as": what + "; library: SDPA with the offset-causal "
+                        "mask on gathered K/V; bound: bytes or bf16 "
+                        "tensor-core products"})
+    # the shapes left to the mma.sync copies and the scalar kernel: no
+    # engine run of this script launches them
+    for kname, key in (("paged_attention_mma_p12", "bf16_p12_w32"),
+                       ("paged_attention_mma_d36", "bf16_d36_w32"),
+                       ("paged_attention_mma_wide_d260", "bf16_d260_w32"),
+                       ("paged_attention_scalar_f32_d320", "f32_d320_w32"),
+                       ("paged_attention_scalar_f32_p12", "f32_p12_w32"),
+                       ("paged_attention_scalar_d36_w1", "bf16_d36_w1")):
+        row = k3_kept[key]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": src + "paged_attention.cu",
+            "replaces": ref + "paged_attention.py:175", "launches": 0,
+            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")},
+            "timed_as": f"{key} (16 slots, 12 heads; route "
+                        f"{row['kernel']}); library: SDPA with the "
+                        f"offset-causal mask on gathered K/V"})
     kernels.append({"name": "quant_matmul", "route": "cuda",
                     "source": src + "quant_matmul.cu",
                     "replaces": ref + "quant_matmul.py:112",
@@ -4541,9 +4783,21 @@ def main():
                     "library_ms": decode_f32["library_ms"],
                     "timed_as": "one decode layer's 4 projections, M=8, "
                                 "int8, f32 activations (the CUDA-core "
-                                "kernel); launches: the f32 cross-check's "
-                                "engines; max_abs_err: the quant_checks "
-                                "phase's"})
+                                "kernel's split); launches: the f32 "
+                                "cross-check's engines; max_abs_err: the "
+                                "quant_checks phase's"})
+    kernels.append({"name": "quant_matmul_f32_m256", "route": "cuda",
+                    "source": src + "quant_matmul.cu",
+                    "replaces": ref + "quant_matmul.py:112",
+                    "launches": f32_launches, "max_abs_err": max_abs_f32,
+                    **{k: prefill_f32[k] for k in (
+                        "ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms")},
+                    "timed_as": "one layer's 4 projections at M=256 "
+                                "(a prefill chunk), int8, f32 activations "
+                                "(the walk for qkv and fc_in, the split "
+                                "for out and fc_out); launches: the same "
+                                "kernel's in the f32 cross-check"})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -2,8 +2,9 @@
 // forward, dK/dV and dQ for K2's (BH, S, D) tensors and K1's packed (b,
 // s, 3*H*D) projection alike (flash_attention.cu and
 // flash_attention_packed.cu include it), for head widths past the
-// 256-wide instances; paged_attention.cu's prefill past 256 reuses the
-// forward's consumer pieces (tcw).  Every bf16/f16 kernel here runs over
+// 256-wide instances; paged_attention.cu's bf16/f16 prefill
+// (paged_attention_tc, at every D) reuses the forward's consumer pieces
+// (tcw).  Every bf16/f16 kernel here runs over
 // rows TMA can address (D % 8 == 0; K2's wrapper zero-pads other rows):
 // the forward fwd_tc and the backward dkdv_tc / dq_tc, each described at
 // its section below.  The f32 kernels past 256 live in flash_attention.cu

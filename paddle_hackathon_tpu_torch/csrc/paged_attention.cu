@@ -26,9 +26,9 @@
 //     launch; past D = 256 paged_decode_split_wide, the row in column
 //     slices), through paged_decode_launch;
 //   * everything else through paged_attention_launch: bf16 / f16 widths
-//     from 16 (prefill chunks) the tensor-core kernels (past 256 paged TMA
-//     + wgmma, paged_attention_wide_tc, where D % 8 == 0 and pages hold a
-//     multiple of 8 rows, else a sliced mma.sync copy); f32 prefill chunks
+//     from 16 (prefill chunks) the tensor-core kernels (paged TMA + wgmma,
+//     paged_attention_tc, where D % 8 == 0 and pages hold a multiple of 8
+//     rows, else the mma.sync copies, sliced past 256); f32 prefill chunks
 //     up to D = 256 with D % 4 == 0 over such pages paged TMA + 3xTF32
 //     wgmma (paged_attention_tf32); the rest (decode rows not 16-byte
 //     aligned, D = 36 in bf16; f32 prefill past 256, with D % 4 != 0 or
@@ -70,18 +70,17 @@
 //   barriers per block, which the split decode kernel replaces at decode
 //   widths.
 //
-// Prefill widths (bf16 / f16, s >= 16): a second kernel runs the query
-// tiles on the tensor cores, K2's mma.sync forward (flash_attention.cu)
-// with a paged loader: one block of 4 warps per (64 query rows, head,
-// slot), the slot's logical K/V rows gathered through the table 64 at a
-// time with cp.async (double-buffered), scores and softmax in f32, P
-// rounded to the input type before P.V.  The scalar kernel's per-key warp
-// reductions made a 128-row chunk slower than the plain version.  Past
-// 256 flash_wide.cuh's forward with a paged TMA producer takes those
-// widths (paged_attention_wide_tc, below), and a sliced copy of the
-// mma.sync kernel (128-column slices) the rows and pages TMA boxes cannot
-// take.  f32 prefill widths up to 256 run K2's 3xTF32 forward with the
-// same paged TMA producer (paged_attention_tf32, below).
+// Prefill widths (bf16 / f16, s >= 16): flash_wide.cuh's forward with a
+// paged TMA producer (paged_attention_tc, below: one output chunk up to
+// 256 columns, 256-column chunks past it) where TMA boxes can take the
+// rows and pages; the rest on the tensor cores through mma.sync, K2's
+// earlier forward with a paged loader (paged_attention_mma: one block of 4
+// warps per (64 query rows, head, slot), the slot's logical K/V rows
+// gathered through the table 64 at a time with cp.async, double-buffered;
+// past 256 a sliced copy, paged_attention_mma_wide, 128-column slices).
+// The scalar kernel's per-key warp reductions made a 128-row chunk slower
+// than the plain version.  f32 prefill widths up to 256 run K2's 3xTF32
+// forward with the same paged TMA producer (paged_attention_tf32, below).
 //
 // The C entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() (0 on success); the Python wrapper raises
@@ -1381,50 +1380,61 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
 }  // namespace split
 
 // ---------------------------------------------------------------------------
-// Prefill widths past kMaxD on Hopper: paged TMA + wgmma
+// bf16 / f16 prefill widths on Hopper: paged TMA + wgmma
 // ---------------------------------------------------------------------------
 //
-// bf16 / f16 widths from kMmaMinWidth, D > 256 with rows TMA addresses (D
-// % 8 == 0), pages of a multiple of 8 rows: flash_wide.cuh's forward past
-// 256 (wide::fwd_tc) with a paged producer, in place of
-// paged_attention_mma_wide's sliced mma.sync copy (which re-read q per kv
-// tile, waited on each copy, recomputed S per 128-column output slice).
-// What bounds it: bytes at a prefill chunk of 32 rows (each live K/V row
-// read once per 256-column chunk's block), the bf16 tensor cores past
-// that.
+// bf16 / f16 widths from kMmaMinWidth with rows TMA addresses (D % 8 == 0)
+// over pages whose box rows pb = pow2_part(P) are at least 8: flash_wide.cuh's
+// forward (wide::fwd_tc's consumer pieces, tcw) with a paged producer, in
+// place of the mma.sync copies (paged_attention_mma up to 256, which
+// gathered K/V rows 16 bytes at a time with cp.async into two buffers;
+// paged_attention_mma_wide past it, which re-read q per kv tile and
+// recomputed S per 128-column output slice).  What bounds it: bytes at a
+// prefill chunk of 32 rows (each live K/V row read once a block), the bf16
+// tensor cores as the chunk grows.
 //
 // Design:
-//   * one block per (slot, 64-row q tile, head, 256-column output chunk),
-//     folded into grid.x with the tile slowest (the last tiles, which see
-//     the most rows, first); a consumer warpgroup and a producer warp;
+//   * one block per (slot, KW consecutive 64-row q tiles, head, NC-column
+//     output chunk), folded into grid.x with the tiles slowest (the last
+//     tiles, which see the most rows, first).  NC is D's padded width up to
+//     256 (64, 128 or 256: one chunk, NC / 64 V boxes an entry, so no P.V
+//     runs on columns past the padded width) and 256 past it (chunks each
+//     recomputing S over all of D); KW consumer warpgroups, two up to NC =
+//     128 where the chunk has more than one q tile (each on its own tile,
+//     sharing the K/V boxes), else one; and a producer warp;
 //   * the producer issues every load by TMA: q through a 4-D (B, s, H, D)
-//     map (its slices resident up to D = 1024, else streamed beside each
-//     k slice, as fwd_tc), K and V through 4-D (1, N P rows, H, D) maps of
-//     the pools, so a head's columns past D arrive as zeros, not the next
-//     head's.  A box is pb = pow2_part(P) rows (up to 64) of 64 columns of
-//     one head: it never leaves its page, and a 64-row tile is 64 / pb
-//     boxes found through the slot's page ids (read once a kv tile, all
-//     the tile's boxes at once).  A 128-byte-swizzled box lands 1024-byte
-//     aligned, so pb >= 8: pages of other row counts stay on
-//     paged_attention_mma_wide (a route by shape, counted apart).  Boxes
-//     wholly at or past the visible end t_end are not loaded; the K slices
-//     go into a ring of 4 entries and the chunk's V boxes into a ring of 2,
-//     on mbarriers, so the loads run ahead of the wgmma;
-//   * the consumer sums S = q.k^T over 64-column slices on wgmma m64n64k16
-//     (one accumulator over all of D), takes the online softmax in f32
-//     (log2 units, the mask t <= lengths[b] + i and t < t_end at -1e30
-//     before the max, only on tiles that reach either), and adds P.V for
-//     its chunk with P rounded to T as the register A operand: tcw's
-//     pieces.  Rows of the last tile at or past t_end are zeroed in V's
-//     entry before P.V (a page's rows past the slot's end hold whatever
-//     the page holds; their p is exactly 0, but 0 * a non-finite value is
-//     not 0), and their scores are masked;
+//     map (resident up to D = 1024, else streamed beside each K slice), K
+//     and V through 4-D (1, N P rows, H, D) maps of the pools, so a head's
+//     columns past D arrive as zeros, not the next head's.  A box is pb
+//     rows of 64 columns of one head: it never leaves its page, and a
+//     64-row kv tile is 64 / pb boxes found through the slot's page ids
+//     (the first tile's read beside the length, in one round trip: a
+//     serving chunk of 32 rows is one block's chain of dependent steps).  A
+//     128-byte-swizzled box lands 1024-byte aligned, so pb >= 8: other
+//     rows and pages stay on the mma.sync copies (routes by shape, counted
+//     apart).  Boxes wholly at or past the visible end t_end are not
+//     loaded; the K slices go into a ring of 4 entries and the chunk's V
+//     boxes into a ring of 2, on mbarriers, so the loads run ahead of the
+//     wgmma;
+//   * each consumer sums S = q.k^T over 64-column slices on wgmma
+//     m64n64k16 (one accumulator over all of D), takes the online softmax
+//     in f32 (log2 units, the mask t <= lengths[b] + i and t below its
+//     tile's end at -1e30 before the max, only on tiles that reach either),
+//     and adds P.V for its chunk with P rounded to T as the register A
+//     operand: tcw's pieces.  It takes every kv tile of the block, those
+//     past its own rows masked whole (their p are 0: O and l keep their
+//     bits; no wgmma on a divergent path, which ptxas would serialise).
+//     Rows of the last tile at or past t_end are zeroed in V's entry
+//     before P.V (a page's
+//     rows past the slot's end hold whatever the page holds; their p is
+//     exactly 0, but 0 * a non-finite value is not 0), and their scores are
+//     masked;
 //   * every chunk of a row sums the same slices in one order and shares
 //     one max and one sum: one summation order per output, no atomics.
 namespace pw {
 
 struct Geo {
-  int B, s, H, D, N, P, maxp, pb, n_qt;
+  int B, s, H, D, N, P, maxp, pb, n_blk;
   float scale_log2;
 };
 
@@ -1435,31 +1445,82 @@ __host__ __device__ inline bool takes(int D, int P) {
   return D % 8 == 0 && split::pow2_part(P) >= 8;
 }
 
+// a block's output columns: D's padded width up to 256, else 256-column
+// chunks; and its consumer warpgroups, each on its own 64-row q tile
+__host__ __device__ inline int chunk_cols(int D) {
+  return D <= 64 ? 64 : D <= 128 ? 128 : 256;
+}
+__host__ __device__ inline int consumers(int D, int s) {
+  return s > kTile && chunk_cols(D) <= 128 ? 2 : 1;
+}
+
+// Byte offsets of the dynamic shared memory (after 1024-byte alignment):
+// the consumers' resident q slices, the K ring (a K slice, and q's where
+// streamed, an entry), the V ring (NC / 64 boxes an entry), the barriers
+// q_full, k_full[], k_empty[], v_full[], v_empty[].
+struct Smem {
+  int k_entry, k0, v0, bars, bytes;
+};
+__host__ __device__ inline Smem smem_of(int D, int NC, int KW) {
+  using namespace wide::tcw;
+  Smem m;
+  const bool res = q_resident(D);
+  m.k_entry = res ? kSub : 2 * kSub;
+  m.k0 = res ? KW * slices(D) * kSub : 0;
+  m.v0 = m.k0 + kStagesK * m.k_entry;
+  m.bars = m.v0 + kStagesV * (NC / 64) * kSub;
+  m.bytes = m.bars + (1 + 2 * kStagesK + 2 * kStagesV) * 8;
+  return m;
+}
+inline size_t smem_bytes(int D, int s) {
+  return 1024 + (size_t)smem_of(D, chunk_cols(D), consumers(D, s)).bytes;
+}
+
 }  // namespace pw
 
-template <typename T>
-__global__ void __launch_bounds__(wide::tcw::kBlock, 1)
-paged_attention_wide_tc(const __grid_constant__ CUtensorMap q_map,
-                        const __grid_constant__ CUtensorMap k_map,
-                        const __grid_constant__ CUtensorMap v_map,
-                        const int32_t* __restrict__ page_table,
-                        const int32_t* __restrict__ lengths,
-                        T* __restrict__ out, pw::Geo g) {
+template <typename T, int NC, int KW>
+__global__ void __launch_bounds__(128 * KW + 32, 1)
+paged_attention_tc(const __grid_constant__ CUtensorMap q_map,
+                   const __grid_constant__ CUtensorMap k_map,
+                   const __grid_constant__ CUtensorMap v_map,
+                   const int32_t* __restrict__ page_table,
+                   const int32_t* __restrict__ lengths,
+                   T* __restrict__ out, pw::Geo g) {
   using namespace wide::tcw;
-  const int nz = chunks(g.D);
+  constexpr int kVS = NC / 64;                // V boxes of an entry
+  constexpr int kCons = 128 * KW;             // consumer threads
+  const int nz = (g.D + NC - 1) / NC;
   const unsigned x = blockIdx.x;
   const int z = x % nz;
   const int h = x / nz % g.H;
   const int b = x / nz / g.H % g.B;
-  const int i0 = (g.n_qt - 1 - (int)(x / nz / g.H / g.B)) * kTile;
+  const int q_first = (g.n_blk - 1 - (int)(x / nz / g.H / g.B)) * KW * kTile;
+  const bool producer = threadIdx.x == kCons;
+  const int32_t* pt_row = page_table + (size_t)b * g.maxp;
+  const int nb = kTile / g.pb;                // boxes of a kv tile
+  // pool rows of a kv tile's boxes (the producer's): the first tile's read
+  // beside the length, in one round trip (a box past the table reads the
+  // table's last page, and is not loaded)
+  int prow[pw::kMaxBoxes];
+  auto rows_of = [&](int k0) {
+#pragma unroll
+    for (int u = 0; u < pw::kMaxBoxes; ++u) {
+      const int t = k0 + u * g.pb;
+      prow[u] = u < nb ? min(max(pt_row[min(t / g.P, g.maxp - 1)], 0),
+                             g.N - 1) * g.P + t % g.P
+                       : 0;
+    }
+  };
+  if (producer) rows_of(0);
   const int len = lengths[b];
-  // rows any query of this tile sees, clamped to the table
-  const int t_end = (int)min((long long)g.maxp * g.P,
-                             (long long)len + min(i0 + kTile, g.s));
+  const long long rows_all = (long long)g.maxp * g.P;
+  // rows any query of the block sees, clamped to the table
+  const int t_end = (int)min(rows_all,
+                             (long long)len + min(q_first + KW * kTile, g.s));
   const int n_kv = (t_end + kTile - 1) / kTile;
   const int n_sl = slices(g.D);
   const bool res = q_resident(g.D);
-  const Smem L = smem_of(g.D);
+  const pw::Smem L = pw::smem_of(g.D, NC, KW);
   const int box_bytes = g.pb * 128;
 
   extern __shared__ unsigned char smem_raw[];
@@ -1473,41 +1534,34 @@ paged_attention_wide_tc(const __grid_constant__ CUtensorMap q_map,
     hopper::mbar_init(q_full, 1);
     for (int st = 0; st < kStagesK; ++st) {
       hopper::mbar_init(k_full + st, 1);
-      hopper::mbar_init(k_empty + st, 128);
+      hopper::mbar_init(k_empty + st, kCons);
     }
     for (int st = 0; st < kStagesV; ++st) {
       hopper::mbar_init(v_full + st, 1);
-      hopper::mbar_init(v_empty + st, 128);
+      hopper::mbar_init(v_empty + st, kCons);
     }
     hopper::mbar_fence_init();
   }
   __syncthreads();
 
-  if (threadIdx.x >= 128) {                   // the producer warp
-    if (threadIdx.x != 128) return;
+  if (threadIdx.x >= kCons) {                 // the producer warp
+    if (!producer) return;
     hopper::prefetch_tensormap(&q_map);
     hopper::prefetch_tensormap(&k_map);
     hopper::prefetch_tensormap(&v_map);
     if (res) {
-      hopper::mbar_arrive_expect_tx(q_full, n_sl * kSub);
-      for (int c = 0; c < n_sl; ++c)
-        hopper::tma_load_4d(sm + c * kSub, &q_map, q_full, 64 * c, h, i0, b);
+      hopper::mbar_arrive_expect_tx(q_full, KW * n_sl * kSub);
+      for (int w = 0; w < KW; ++w)
+        for (int c = 0; c < n_sl; ++c)
+          hopper::tma_load_4d(sm + (w * n_sl + c) * kSub, &q_map, q_full,
+                              64 * c, h, q_first + w * kTile, b);
     }
-    const int32_t* pt_row = page_table + (size_t)b * g.maxp;
-    const int nb = kTile / g.pb;
     int e = 0;
     for (int j = 0; j < n_kv; ++j) {
       const int k0 = j * kTile;
-      // the tile's boxes that hold visible rows, and their pool rows
+      if (j > 0) rows_of(k0);
+      // the tile's boxes that hold visible rows
       const int live = min(nb, (t_end - k0 + g.pb - 1) / g.pb);
-      int prow[pw::kMaxBoxes];
-#pragma unroll
-      for (int u = 0; u < pw::kMaxBoxes; ++u) {
-        const int t = k0 + u * g.pb;
-        prow[u] = u < live ? min(max(pt_row[t / g.P], 0), g.N - 1) * g.P +
-                                 t % g.P
-                           : 0;
-      }
       for (int c = 0; c < n_sl; ++c, ++e) {
         const int st = e % kStagesK;
         hopper::mbar_wait(k_empty + st, ((e / kStagesK) & 1) ^ 1);
@@ -1521,49 +1575,61 @@ paged_attention_wide_tc(const __grid_constant__ CUtensorMap q_map,
                                 64 * c, h, prow[u], 0);
         if (!res)
           hopper::tma_load_4d(ent + kSub, &q_map, k_full + st, 64 * c, h,
-                              i0, b);
+                              q_first, b);
       }
       const int st = j % kStagesV;
       hopper::mbar_wait(v_empty + st, ((j / kStagesV) & 1) ^ 1);
-      unsigned char* vt = sm + L.v0 + st * kVBytes;
-      hopper::mbar_arrive_expect_tx(v_full + st, kVSubs * live * box_bytes);
-      for (int w = 0; w < kVSubs; ++w)
+      unsigned char* vt = sm + L.v0 + st * kVS * kSub;
+      hopper::mbar_arrive_expect_tx(v_full + st, kVS * live * box_bytes);
+      for (int w = 0; w < kVS; ++w)
 #pragma unroll
         for (int u = 0; u < pw::kMaxBoxes; ++u)
           if (u < live)
             hopper::tma_load_4d(vt + w * kSub + u * box_bytes, &v_map,
-                                v_full + st, z * kNC + 64 * w, h, prow[u],
+                                v_full + st, z * NC + 64 * w, h, prow[u],
                                 0);
     }
     return;
   }
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int tq = lane & 3;
-  const int r0 = i0 + 16 * warp + (lane >> 2);    // this thread's q rows
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31, tq = lane & 3;
+  const int q0 = q_first + wg * kTile;        // this consumer's q tile
+  // the rows its queries see, and its kv tiles
+  const int my_end = (int)min(rows_all, (long long)len + min(q0 + kTile,
+                                                            g.s));
+  const int r0 = q0 + 16 * warp + (lane >> 2);    // this thread's q rows
   const int pos[2] = {len + r0, len + r0 + 8};    // and their positions
-  wide::Args a = {};                          // the mask: t < t_end, t <= pos
-  a.SKV = t_end;
+  wide::Args a = {};                          // the mask: t < my_end, t <= pos
+  a.SKV = my_end;
   a.causal = 1;
   if (res) hopper::mbar_wait(q_full, 0);
-  float o[kVSubs][32];
+  float o[kVS][32];
 #pragma unroll
-  for (int c = 0; c < kVSubs; ++c)
+  for (int c = 0; c < kVS; ++c)
 #pragma unroll
     for (int y = 0; y < 32; ++y) o[c][y] = 0.f;
+  auto fence_o = [&] {
+#pragma unroll
+    for (int c = 0; c < kVS; ++c) hopper::fence_acc(o[c]);
+  };
   float m_r[2] = {kNegInf, kNegInf};
   float l_r[2] = {0.f, 0.f};                  // this thread's partial sums
   int e = 0;
   for (int j = 0; j < n_kv; ++j) {
     const int k0 = j * kTile;
-    // S = q . k^T over the slices, one accumulator
+    // S = q . k^T over the slices, one accumulator.  Every consumer takes
+    // every kv tile of the block: a tile wholly past its own rows is
+    // masked whole (its p are 0, its alpha 1: O and l keep their bits),
+    // so no wgmma sits on a divergent path
     float sv[32];
 #pragma unroll 1
     for (int c = 0; c < n_sl; ++c, ++e) {
       const int st = e % kStagesK;
       hopper::mbar_wait(k_full + st, (e / kStagesK) & 1);
       const unsigned char* ent = sm + L.k0 + st * L.k_entry;
-      const unsigned char* qa = res ? sm + c * kSub : ent + kSub;
+      const unsigned char* qa = res ? sm + (wg * n_sl + c) * kSub
+                                    : ent + kSub;
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
@@ -1579,51 +1645,52 @@ paged_attention_wide_tc(const __grid_constant__ CUtensorMap q_map,
     hopper::wgmma_wait<0>();
     hopper::fence_acc(sv);
     hopper::mbar_arrive(k_empty + (e - 1) % kStagesK);
-
     uint32_t pa[4][4];
     float alpha[2];
-    if (k0 + kTile > t_end || k0 + kTile - 1 > len + i0)
+    if (k0 + kTile > my_end || k0 + kTile - 1 > len + q0 + 16 * warp)
       scores<T, true, false>(sv, pa, m_r, l_r, alpha, g.scale_log2, k0, pos,
                              tq, a, 0, 0);
     else
       scores<T, false, false>(sv, pa, m_r, l_r, alpha, g.scale_log2, k0,
                               pos, tq, a, 0, 0);
 #pragma unroll
-    for (int c = 0; c < kVSubs; ++c)
+    for (int c = 0; c < kVS; ++c)
 #pragma unroll
       for (int y = 0; y < 32; ++y) o[c][y] *= alpha[(y >> 1) & 1];
 
-    // O += P . V for this chunk's 256 columns, V's rows past t_end zeroed
+    // O += P . V for this chunk's NC columns, V's rows past t_end zeroed
+    // by all the consumers before any of them reads the entry
     const int st = j % kStagesV;
     hopper::mbar_wait(v_full + st, (j / kStagesV) & 1);
-    unsigned char* vt = sm + L.v0 + st * kVBytes;
+    unsigned char* vt = sm + L.v0 + st * kVS * kSub;
     if (k0 + kTile > t_end) {
-      const int r_lo = t_end - k0, per_row = kVSubs * 8;
-      for (int y = tid; y < (kTile - r_lo) * per_row; y += 128) {
+      const int r_lo = t_end - k0, per_row = kVS * 8;
+      for (int y = threadIdx.x; y < (kTile - r_lo) * per_row; y += kCons) {
         const int r = r_lo + y / per_row, w = y % per_row;
         *reinterpret_cast<uint4*>(vt + (w >> 3) * kSub + r * 128 +
                                   (w & 7) * 16) = make_uint4(0, 0, 0, 0);
       }
       hopper::fence_async_shared();
-      hopper::named_bar_sync(kConsBar, 128);
+      hopper::named_bar_sync(kConsBar, kCons);
     }
-    fence_o(o);
+    fence_o();
     fence_frag(pa);
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int c = 0; c < kVSubs; ++c)
+      for (int c = 0; c < kVS; ++c)
         hopper::wgmma_rs<T>(o[c], pa[kk],
                             hopper::desc_sw128(vt + c * kSub + kk * 2048,
                                                kSub, 1024),
                             1);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
-    fence_o(o);
+    fence_o();
     fence_frag(pa);
     hopper::mbar_arrive(v_empty + st);
   }
+  if (q0 >= g.s) return;                      // a q tile past the chunk
 
   float inv[2];
 #pragma unroll
@@ -1636,10 +1703,10 @@ paged_attention_wide_tc(const __grid_constant__ CUtensorMap q_map,
   const size_t HD = (size_t)g.H * g.D;
   T* ob = out + (size_t)b * g.s * HD + (size_t)h * g.D;
 #pragma unroll
-  for (int c = 0; c < kVSubs; ++c)
+  for (int c = 0; c < kVS; ++c)
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      const int col = z * kNC + 64 * c + 8 * i + 2 * tq;
+      const int col = z * NC + 64 * c + 8 * i + 2 * tq;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = r0 + 8 * r;
@@ -1651,13 +1718,13 @@ paged_attention_wide_tc(const __grid_constant__ CUtensorMap q_map,
     }
 }
 
-// bf16 / f16 prefill widths past kMaxD where pw::takes(D, P): the maps of
-// q and both pools, the launch
-template <typename T>
-int launch_wide_tc(const void* q, const void* k_pool, const void* v_pool,
-                   const void* page_table, const void* lengths, void* out,
-                   int B, int s, int H, int D, int N, int P, int maxp,
-                   float scale, cudaStream_t stream) {
+// bf16 / f16 prefill widths where pw::takes(D, P): the maps of q and both
+// pools, the instance for D's output chunk and the chunk's q tiles
+template <typename T, int NC, int KW>
+int launch_paged_tc_t(const void* q, const void* k_pool, const void* v_pool,
+                      const void* page_table, const void* lengths, void* out,
+                      int B, int s, int H, int D, int N, int P, int maxp,
+                      float scale, cudaStream_t stream) {
   pw::Geo g;
   g.B = B;
   g.s = s;
@@ -1667,9 +1734,9 @@ int launch_wide_tc(const void* q, const void* k_pool, const void* v_pool,
   g.P = P;
   g.maxp = maxp;
   g.pb = split::pow2_part(P);
-  g.n_qt = (s + kTile - 1) / kTile;
+  g.n_blk = (s + KW * kTile - 1) / (KW * kTile);
   g.scale_log2 = scale * kLog2e;
-  const long long gx = (long long)g.n_qt * B * H * wide::tcw::chunks(D);
+  const long long gx = (long long)g.n_blk * B * H * ((D + NC - 1) / NC);
   if (!pw::takes(D, P) || gx > 0x7FFFFFFFLL ||
       (long long)N * P > 0x7FFFFFFFLL)
     return -1;
@@ -1680,15 +1747,31 @@ int launch_wide_tc(const void* q, const void* k_pool, const void* v_pool,
   if (err) return err;
   err = hopper::make_map_bshd<T>(&vm, v_pool, 1, N * P, H, D, g.pb);
   if (err) return err;
-  const size_t smem = wide::tcw::smem_bytes(D);
-  err = prepare(paged_attention_wide_tc<T>, smem);
+  const size_t smem = 1024 + (size_t)pw::smem_of(D, NC, KW).bytes;
+  err = prepare(paged_attention_tc<T, NC, KW>, smem);
   if (err) return err;
-  paged_attention_wide_tc<T><<<(unsigned)gx, wide::tcw::kBlock, smem,
-                               stream>>>(
+  paged_attention_tc<T, NC, KW><<<(unsigned)gx, 128 * KW + 32, smem,
+                                  stream>>>(
       qm, km, vm, static_cast<const int32_t*>(page_table),
       static_cast<const int32_t*>(lengths), static_cast<T*>(out), g);
   return (int)cudaGetLastError();
 }
+
+template <typename T>
+int launch_paged_tc(const void* q, const void* k_pool, const void* v_pool,
+                    const void* page_table, const void* lengths, void* out,
+                    int B, int s, int H, int D, int N, int P, int maxp,
+                    float scale, cudaStream_t stream) {
+  const int nc = pw::chunk_cols(D), kw = pw::consumers(D, s);
+  auto f = nc == 64    ? (kw == 2 ? launch_paged_tc_t<T, 64, 2>
+                                  : launch_paged_tc_t<T, 64, 1>)
+           : nc == 128 ? (kw == 2 ? launch_paged_tc_t<T, 128, 2>
+                                  : launch_paged_tc_t<T, 128, 1>)
+                       : launch_paged_tc_t<T, 256, 1>;
+  return f(q, k_pool, v_pool, page_table, lengths, out, B, s, H, D, N, P,
+           maxp, scale, stream);
+}
+
 
 // ---------------------------------------------------------------------------
 // f32 prefill widths on Hopper: paged TMA + 3xTF32 wgmma
@@ -1989,7 +2072,7 @@ paged_attention_tf32(const __grid_constant__ CUtensorMap q_map,
       hopper::mbar_arrive(opfree + st);
     }
   }
-  if (my_kv == 0) return;                     // a q tile past the chunk
+  if (q0 >= g.s) return;                      // a q tile past the chunk
 
   float inv[2];
 #pragma unroll
@@ -2128,10 +2211,11 @@ int launch_t(const void* q, const void* k_pool, const void* v_pool,
 }
 
 // The kernel of each route (route() below): bf16 / f16 at widths from
-// kMmaMinWidth the tensor-core kernels (past kMaxD paged TMA + wgmma where
-// pw::takes(D, P), else the sliced mma.sync copy); f32 at those widths
-// paged TMA + 3xTF32 wgmma where ptf::takes(D, P); else (decode steps
-// without 16-byte rows, the other f32 prefill shapes) the scalar one
+// kMmaMinWidth the tensor-core kernels (paged TMA + wgmma where
+// pw::takes(D, P), else the mma.sync copies: up to kMaxD the tile kernel,
+// past it the sliced one); f32 at those widths paged TMA + 3xTF32 wgmma
+// where ptf::takes(D, P); else (decode steps without 16-byte rows, the
+// other f32 prefill shapes) the scalar one
 template <typename T>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* page_table, const void* lengths, void* out, int B,
@@ -2139,8 +2223,8 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
            cudaStream_t stream) {
   if constexpr (!std::is_same<T, float>::value) {
     if (s >= kMmaMinWidth)
-      return (D <= kMaxD         ? launch_tc<T>
-              : pw::takes(D, P) ? launch_wide_tc<T>
+      return (pw::takes(D, P) ? launch_paged_tc<T>
+              : D <= kMaxD      ? launch_tc<T>
                                 : launch_mma_wide<T>)(
           q, k_pool, v_pool, page_table, lengths, out, B, s, H, D, N, P,
           maxp, scale, stream);
@@ -2161,18 +2245,19 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
 // and pages of P rows: 0 paged_decode_split (through paged_decode_launch:
 // widths below kMmaMinWidth, 16-byte rows, any D: past 256
 // paged_decode_split_wide), through paged_attention_launch 1
-// paged_attention_mma (bf16/f16 widths from kMmaMinWidth, D <= 256), 2
-// paged_attention_wide_tc (past 256 where pw::takes(D, P)), 3
-// paged_attention_mma_wide (other bf16/f16 rows past 256), 4 the scalar
-// kernel (the rest), 5 paged_attention_tf32 (f32 widths from kMmaMinWidth
-// where ptf::takes(D, P)); -1 a dtype or size it does not take.
+// paged_attention_mma (bf16/f16 widths from kMmaMinWidth, D <= 256, where
+// not pw::takes(D, P)), 2 paged_attention_tc past 256 (where pw::takes(D,
+// P)), 3 paged_attention_mma_wide (other bf16/f16 rows past 256), 4 the
+// scalar kernel (the rest), 5 paged_attention_tf32 (f32 widths from
+// kMmaMinWidth where ptf::takes(D, P)), 6 paged_attention_tc up to 256
+// (where pw::takes(D, P)); -1 a dtype or size it does not take.
 int route(int dtype, int s, int D, int P) {
   if (dtype < 0 || dtype > 2 || s < 1 || D < 1 || P < 1) return -1;
   const int elem = dtype == 0 ? 4 : 2;
   if (s < kMmaMinWidth) return (D * elem) % 16 == 0 ? 0 : 4;
   if (dtype == 0) return ptf::takes(D, P) ? 5 : 4;
-  if (D <= kMaxD) return 1;
-  return pw::takes(D, P) ? 2 : 3;
+  if (pw::takes(D, P)) return D <= kMaxD ? 6 : 2;
+  return D <= kMaxD ? 1 : 3;
 }
 
 }  // namespace
@@ -2214,9 +2299,10 @@ int paged_attention_route(int dtype, int s, int D, int P) {
   return route(dtype, s, D, P);
 }
 
-// Dynamic shared memory of paged_attention_wide_tc at head width D, bytes
-int paged_attention_wide_smem(int D) {
-  return (int)wide::tcw::smem_bytes(D);
+// Dynamic shared memory of paged_attention_tc at head width D and width s
+// (the instance launch_paged_tc picks), bytes
+int paged_attention_tc_smem(int D, int s) {
+  return (int)pw::smem_bytes(D, s);
 }
 
 // Dynamic shared memory of paged_attention_tf32 at head width D and width

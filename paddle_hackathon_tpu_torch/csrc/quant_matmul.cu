@@ -102,16 +102,30 @@
 //     fc_out (24 tiles) split a chunk a block too.
 //
 // The CUDA-core kernel (f32 activations), quant_matmul_f32_kernel: f32 x
-// times a widened weight is not exact in bf16, and no serving preset runs
-// f32 activations, so they keep the first design (f32 FMAs, one order
-// fixed by K alone: of every 128 K rows, thread slice s sums rows 4s..4s+3
-// in ascending order over the whole of K, then the 32 slices add in
-// ascending order), bit-identical at every M too:
-//   * grid (N / 32, M tiles of 8 rows): one block of 256 threads per strip
-//     of 32 output columns and 8 rows; a thread owns 4 adjacent columns (a
-//     4-byte load of the weight per K row) and a K slice; its activations
-//     come straight from global memory (L1); rows past M read row M - 1
-//     and are not stored.
+// times a widened weight is not exact in bf16 or f16, so f32 FMAs (113
+// MFLOP a GPT-2-small decode layer at M = 8: 1.7 us at 67 TFLOP/s, beside
+// 2.1 us of weight bytes), in the same chunks and the same schedules:
+//   * one order fixed by K alone: an output's partial of a chunk is one
+//     chain of f32 FMAs over the chunk's 128 K rows in ascending order,
+//     from 0; the partials are added in chunk order 0, 1, 2, ... from 0
+//     and the total times the scale is rounded once.  A row alone equals
+//     the same row in a batch of 256, bit for bit, whatever the schedule;
+//   * a tile is 8 rows of x by 64 output columns; both operands of a chunk
+//     arrive by TMA (x [8][128] f32, rows past M as zeros; the raw weight
+//     [128][64] bytes) in a ring of up to 2 stages on mbarriers; each
+//     thread owns 2 columns (its two weight bytes a K row widened as
+//     widen4 does) of R rows (its x read as 16-byte broadcasts);
+//   * the split (decode, and prefill with tiles for under half the card's
+//     warps): the chunks of each tile are spread over blocks, each chunk's
+//     partial goes to the wrapper's scratch, and the tile's last block
+//     adds them in chunk order (the acquire-release counter of the
+//     tensor-core split).  At decode (M <= 8) a tile's block is four warps
+//     of R = 2 rows and every chunk is its own block at GPT-2-small's
+//     shapes (216-288 blocks a projection), so all of a projection's
+//     weight bytes are in flight at once;
+//   * the walk (prefill, wherever the tiles fill the card): a block is one
+//     warp of R = 8 rows that walks its tile's chunks in order, its total
+//     in registers; the weight's widening is shared by 8 rows.
 //
 // The C entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() (0 on success); the Python wrapper raises
@@ -145,97 +159,6 @@ __device__ __forceinline__ void widen4<true>(uint32_t v, float (&f)[4]) {
            * 0x1p120f;
   }
 }
-
-// ===========================================================================
-// f32 activations: f32 FMAs on the CUDA cores
-// ===========================================================================
-namespace f32k {
-
-constexpr int kThreads = 256;
-constexpr int kBN = 32;                    // output columns per block
-constexpr int kGroups = kBN / 4;           // 4-column groups (8)
-constexpr int kSlices = kThreads / kGroups;  // K slices (32)
-constexpr int kKC = 4 * kSlices;           // K rows per pass (128)
-constexpr int kBM = 8;                     // rows per tile
-static_assert(kBM * kBN == kThreads, "one output element per thread");
-
-template <bool kFp8>
-__global__ void __launch_bounds__(kThreads)
-quant_matmul_f32_kernel(const float* __restrict__ x,
-                        const uint8_t* __restrict__ w,
-                        const float* __restrict__ scale,
-                        float* __restrict__ out, int M, int K, int N) {
-  __shared__ __align__(16) float red[kSlices * kBM * kBN];   // 32 KB
-  const int tid = threadIdx.x;
-  const int g = tid % kGroups;
-  const int s = tid / kGroups;
-  const int n0 = blockIdx.x * kBN;
-  const uint8_t* wp = w + (size_t)(4 * s) * N + n0 + 4 * g;
-
-  for (int m0 = blockIdx.y * kBM; m0 < M; m0 += gridDim.y * kBM) {
-    const float* xr[kBM];
-#pragma unroll
-    for (int m = 0; m < kBM; ++m)
-      xr[m] = x + (size_t)min(m0 + m, M - 1) * K + 4 * s;
-    float acc[kBM][4];
-#pragma unroll
-    for (int m = 0; m < kBM; ++m)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[m][c] = 0.f;
-
-#pragma unroll 4
-    for (int k0 = 0; k0 < K; k0 += kKC) {
-      uint32_t wv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wv[j] = *reinterpret_cast<const uint32_t*>(wp + (size_t)(k0 + j) * N);
-      float4 xv[kBM];
-#pragma unroll
-      for (int m = 0; m < kBM; ++m)
-        xv[m] = *reinterpret_cast<const float4*>(xr[m] + k0);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {              // K rows in ascending order
-        float wf[4];
-        widen4<kFp8>(wv[j], wf);
-#pragma unroll
-        for (int m = 0; m < kBM; ++m) {
-          const float xj = j == 0 ? xv[m].x : j == 1 ? xv[m].y
-                           : j == 2 ? xv[m].z : xv[m].w;
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[m][c] = fmaf(xj, wf[c], acc[m][c]);
-        }
-      }
-    }
-
-    float* r = red + s * (kBM * kBN) + 4 * g;
-#pragma unroll
-    for (int m = 0; m < kBM; ++m)
-      *reinterpret_cast<float4*>(r + m * kBN) =
-          make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
-    __syncthreads();
-    const int m = tid / kBN;
-    const int col = tid % kBN;
-    float sum = 0.f;
-#pragma unroll 8
-    for (int t = 0; t < kSlices; ++t)            // slices in ascending order
-      sum += red[t * (kBM * kBN) + m * kBN + col];
-    if (m0 + m < M) out[(size_t)(m0 + m) * N + n0 + col] = sum * scale[n0 + col];
-    __syncthreads();                             // red is reused next tile
-  }
-}
-
-template <bool kFp8>
-int launch(const void* x, const void* w, const void* scale, void* out, int M,
-           int K, int N, cudaStream_t st) {
-  const int tiles = (M + kBM - 1) / kBM;
-  dim3 grid(N / kBN, tiles < 65535 ? tiles : 65535);
-  quant_matmul_f32_kernel<kFp8><<<grid, kThreads, 0, st>>>(
-      static_cast<const float*>(x), static_cast<const uint8_t*>(w),
-      static_cast<const float*>(scale), static_cast<float*>(out), M, K, N);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace f32k
 
 // ===========================================================================
 // bf16 / f16 activations: wgmma on TMA-fed, widened tiles
@@ -813,22 +736,237 @@ int launch_w(int w_dtype, bool split, const void* x, const void* w,
 
 }  // namespace tc
 
+// ===========================================================================
+// f32 activations: f32 FMAs on the CUDA cores, chunk by chunk
+// ===========================================================================
+namespace f32k {
+
+constexpr int kKC = tc::kKC;               // K rows of a chunk (128)
+constexpr int kBM = 8;                     // rows of x a tile
+constexpr int kBN = 64;                    // output columns a tile, 2 a lane
+constexpr int kXBytes = kBM * kKC * 4;     // x chunk [8][128] f32: 4 KB
+constexpr int kWBytes = kKC * kBN;         // raw weight chunk [128][64]: 8 KB
+constexpr int kStageBytes = kXBytes + kWBytes;
+constexpr int kMaxStages = 2;
+
+// ring stages of a block that walks g chunks, and its shared memory (128
+// bytes of alignment for TMA, the stages, their barriers)
+__host__ __device__ constexpr int stages(int g) {
+  return g < kMaxStages ? g : kMaxStages;
+}
+inline size_t smem_bytes(int g) {
+  return 128 + (size_t)stages(g) * (kStageBytes + 8);
+}
+
+// 2 packed weight bytes (column n in the low byte, n + 1 in the next) -> 2
+// exact f32, as widen4
+template <bool kFp8>
+__device__ __forceinline__ void widen2(uint32_t v, float& a, float& b) {
+  if constexpr (kFp8) {
+    a = __uint_as_float(((v & 0x80u) << 24) | ((v & 0x7fu) << 20)) *
+        0x1p120f;
+    b = __uint_as_float(((v & 0x8000u) << 16) | ((v & 0x7f00u) << 12)) *
+        0x1p120f;
+  } else {
+    const uint32_t u = v ^ 0x8080u;               // int8 b -> b + 128
+    a = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.0f;
+    b = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.0f;
+  }
+}
+
+// grid (M tiles, N / kBN, splits): block z walks chunks zG .. zG + G - 1
+// (fewer in the last) of one tile of kBM rows and kBN columns; its warps
+// own R rows each (lane l: columns 2 l, 2 l + 1).  A chunk's partial of an
+// output is one chain of f32 FMAs over the chunk's 128 K rows in ascending
+// order, from 0.  kSplit: G < K / kKC, each chunk's partial to `part`
+// ([chunk][M][N] f32) and the tile's last block adds them in chunk order
+// from 0; else G = K / kKC and the block adds them so in registers.
+template <bool kFp8, int R, bool kSplit>
+__global__ void __launch_bounds__(32 * (kBM / R))
+quant_matmul_f32_kernel(const __grid_constant__ CUtensorMap x_map,
+                        const __grid_constant__ CUtensorMap w_map,
+                        const float* __restrict__ scale,
+                        float* __restrict__ out, float* __restrict__ part,
+                        int* __restrict__ counts, int M, int N, int chunks,
+                        int G) {
+  const int m0 = blockIdx.x * kBM;
+  const int n0 = blockIdx.y * kBN;
+  const int cb = blockIdx.z * G;
+  const int nc = min(G, chunks - cb);
+  const int S = stages(G);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring =
+      smem_raw + ((128 - (hopper::smem_u32(smem_raw) & 127)) & 127);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S * kStageBytes);
+  __shared__ int is_last;
+  const int t = threadIdx.x, lane = t & 31, r0 = R * (t >> 5);
+  const int col = n0 + 2 * lane;
+  const float sc0 = scale[col], sc1 = scale[col + 1];
+  if (t == 0) {
+    hopper::prefetch_tensormap(&x_map);
+    hopper::prefetch_tensormap(&w_map);
+    for (int s = 0; s < S; ++s) hopper::mbar_init(full + s, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  auto load = [&](int i) {                       // chunk cb + i, stage i % S
+    const int s = i % S, k0 = (cb + i) * kKC;
+    unsigned char* st = ring + s * kStageBytes;
+    hopper::mbar_arrive_expect_tx(full + s, kStageBytes);
+    hopper::tma_load_2d(st, &x_map, full + s, k0, m0);
+    hopper::tma_load_2d(st + kXBytes, &w_map, full + s, n0, k0);
+  };
+  if (t == 0)
+    for (int i = 0; i < min(S, nc); ++i) load(i);
+
+  float tot[R][2];                               // the walk's total
+#pragma unroll
+  for (int r = 0; r < R; ++r) tot[r][0] = tot[r][1] = 0.f;
+  for (int i = 0; i < nc; ++i) {
+    const unsigned char* st = ring + (i % S) * kStageBytes;
+    hopper::mbar_wait(full + i % S, (i / S) & 1);
+    const float* xs = reinterpret_cast<const float*>(st) + r0 * kKC;
+    const uint16_t* ws =
+        reinterpret_cast<const uint16_t*>(st + kXBytes) + lane;
+    float acc[R][2];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r][0] = acc[r][1] = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < kKC; k += 4) {
+      float4 xv[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        xv[r] = *reinterpret_cast<const float4*>(xs + r * kKC + k);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {              // K rows in ascending order
+        float w0, w1;
+        widen2<kFp8>(ws[(k + j) * (kBN / 2)], w0, w1);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float xj = j == 0 ? xv[r].x : j == 1 ? xv[r].y
+                           : j == 2 ? xv[r].z : xv[r].w;
+          acc[r][0] = __fmaf_rn(xj, w0, acc[r][0]);
+          acc[r][1] = __fmaf_rn(xj, w1, acc[r][1]);
+        }
+      }
+    }
+    __syncthreads();                             // stage i % S read
+    if (t == 0 && i + S < nc) load(i + S);
+    if constexpr (kSplit) {
+      float* p = part + (size_t)(cb + i) * M * N + col;
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (m0 + r0 + r < M)
+          *reinterpret_cast<float2*>(p + (size_t)(m0 + r0 + r) * N) =
+              make_float2(acc[r][0], acc[r][1]);
+    } else {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        tot[r][0] = __fadd_rn(tot[r][0], acc[r][0]);
+        tot[r][1] = __fadd_rn(tot[r][1], acc[r][1]);
+      }
+    }
+  }
+
+  if constexpr (kSplit) {
+    __syncthreads();                             // the block's partials
+    if (t == 0) {
+      // acq_rel: releases the block's partials (ordered before by the
+      // barrier) and, for the last block, acquires every other block's
+      const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+      const int prev = tc::atomic_add_acq_rel(counts + tile, 1);
+      is_last = prev == (int)gridDim.z - 1;
+      if (is_last) counts[tile] = 0;             // ready for the next launch
+    }
+    __syncthreads();
+    if (!is_last) return;
+    // the merge: each output's partials in chunk order into a total from
+    // 0, as the walk adds them (kB chunks' loads in flight a row)
+    constexpr int kB = R == 2 ? 8 : 4;
+    const size_t stride = (size_t)M * N;
+    const float* p = part + (size_t)(m0 + r0) * N + col;
+    for (int c0 = 0; c0 < chunks; c0 += kB) {
+      float2 v[R][kB];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int c = 0; c < kB; ++c)
+          if (m0 + r0 + r < M && c0 + c < chunks)
+            v[r][c] = __ldcg(reinterpret_cast<const float2*>(
+                p + (size_t)r * N + (c0 + c) * stride));
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int c = 0; c < kB; ++c)
+          if (c0 + c < chunks) {
+            tot[r][0] = __fadd_rn(tot[r][0], v[r][c].x);
+            tot[r][1] = __fadd_rn(tot[r][1], v[r][c].y);
+          }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (m0 + r0 + r < M)
+      *reinterpret_cast<float2*>(out + (size_t)(m0 + r0 + r) * N + col) =
+          make_float2(__fmul_rn(tot[r][0], sc0), __fmul_rn(tot[r][1], sc1));
+}
+
+template <bool kFp8, int R, bool kSplit>
+int launch_t(const void* x, const void* w, const void* scale, void* out,
+             void* part, void* counts, int M, int K, int N, int G,
+             cudaStream_t st) {
+  CUtensorMap x_map, w_map;
+  int err = hopper::make_map_2d<float>(&x_map, x, M, K, K, kKC, kBM);
+  if (err) return err;
+  err = hopper::make_map_2d<uint8_t>(&w_map, w, K, N, N, kBN, kKC);
+  if (err) return err;
+  const int chunks = K / kKC;
+  const dim3 grid((M + kBM - 1) / kBM, N / kBN, (chunks + G - 1) / G);
+  quant_matmul_f32_kernel<kFp8, R, kSplit>
+      <<<grid, 32 * (kBM / R), smem_bytes(G), st>>>(
+          x_map, w_map, static_cast<const float*>(scale),
+          static_cast<float*>(out), static_cast<float*>(part),
+          static_cast<int*>(counts), M, N, chunks, G);
+  return (int)cudaGetLastError();
+}
+
+// rows a thread at M rows: 2 where x is one tile (decode: four warps a
+// tile, each block one chain of loads and FMAs), else 8 (one warp a tile)
+inline int rows_per_thread(int M) { return M <= kBM ? 2 : 8; }
+
+template <bool kFp8>
+int launch(const void* x, const void* w, const void* scale, void* out,
+           void* part, void* counts, int M, int K, int N, int G,
+           cudaStream_t st) {
+  const bool split = G < K / kKC;
+  auto f = rows_per_thread(M) == 2
+               ? (split ? launch_t<kFp8, 2, true> : launch_t<kFp8, 2, false>)
+               : (split ? launch_t<kFp8, 8, true> : launch_t<kFp8, 8, false>);
+  return f(x, w, scale, out, part, counts, M, K, N, G, st);
+}
+
+}  // namespace f32k
+
 }  // namespace
 
 extern "C" {
 
-// The tensor-core kernel's tile: 0 = rows of x (kBM), 1 = output columns
-// (kBN), 2 = K rows of a chunk (kKC); the wrapper's plan must agree.
+// The kernels' tiles: 0 = rows of x (tc::kBM), 1 = output columns
+// (tc::kBN), 2 = K rows of a chunk (kKC, both kernels), 3 / 4 = the f32
+// kernel's rows and columns (f32k::kBM, f32k::kBN); the wrapper's plan
+// must agree.
 int quant_matmul_geometry(int which) {
   return which == 0 ? tc::kBM : which == 1 ? tc::kBN
-         : which == 2 ? tc::kKC : -1;
+         : which == 2 ? tc::kKC : which == 3 ? f32k::kBM
+         : which == 4 ? f32k::kBN : -1;
 }
 
 // x_dtype: 0 = float32 (the CUDA-core kernel), 1 = bfloat16, 2 = float16
 // (the tensor-core kernel); w_dtype: 0 = int8, 1 = float8_e4m3fn.  G: the
-// chunks of kKC K rows each tensor-core block walks (all of them, or fewer
-// for the split schedule, which then needs `part`, 2 * K / kKC * M * N f32, and
-// `counts`, M tiles x N / kBN int32 that are 0, and leaves them 0).
+// chunks of kKC K rows each block walks (all of them, or fewer for the
+// split schedule, which then needs `part`, 2 * K / kKC * M * N f32 (the
+// f32 kernel uses half), and `counts`, M tiles x N tiles int32 that are 0,
+// and leaves them 0).
 // Returns a cudaError_t (0 = launched), or a negative code: -1 a geometry
 // the kernel does not take (the wrapper checks first, so this is a second
 // guard, not the user-facing error), -2 / -3 no tensor map.
@@ -839,17 +977,22 @@ int quant_matmul_launch(int x_dtype, int w_dtype, const void* x,
   if (M < 1 || K < 128 || K % 128 != 0 || N < 128 || N % 128 != 0)
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 0) {
-    if (w_dtype == 0) return f32k::launch<false>(x, w, scale, out, M, K, N, st);
-    if (w_dtype == 1) return f32k::launch<true>(x, w, scale, out, M, K, N, st);
-    return -1;
-  }
   const int chunks = K / tc::kKC;
   const bool split = G < chunks;
-  if (G < 1 || G > chunks || N / tc::kBN > 65535 ||
+  if (G < 1 || G > chunks ||
+      N / (x_dtype == 0 ? f32k::kBN : tc::kBN) > 65535 ||
       (chunks + G - 1) / G > 65535 ||
       (split && (part == nullptr || counts == nullptr)))
     return -1;
+  if (x_dtype == 0) {
+    if (w_dtype == 0)
+      return f32k::launch<false>(x, w, scale, out, part, counts, M, K, N, G,
+                                 st);
+    if (w_dtype == 1)
+      return f32k::launch<true>(x, w, scale, out, part, counts, M, K, N, G,
+                                st);
+    return -1;
+  }
   switch (x_dtype) {
     case 1:
       return tc::launch_w<__nv_bfloat16>(w_dtype, split, x, w, scale, out,

@@ -27,9 +27,9 @@ the host-side allocator).
   shared memory.  :func:`tile_route` names the kernel of each shape (one
   of :data:`TILE_ROUTES`, each counted in :data:`kernel_launches`), the
   pure-Python mirror of the library's ``paged_attention_route``;
-  :func:`wide_tc_plan` mirrors the launch plan of the bf16/f16 prefill
-  kernel past ``D = 256`` (paged TMA + wgmma) and :func:`tf32_plan` that
-  of the f32 prefill kernel up to 256 (paged TMA + 3xTF32 wgmma).
+  :func:`tc_plan` mirrors the launch plan of the bf16/f16 prefill kernel
+  (paged TMA + wgmma, at every D) and :func:`tf32_plan` that of the f32
+  prefill kernel up to 256 (paged TMA + 3xTF32 wgmma).
 """
 
 from __future__ import annotations
@@ -50,13 +50,16 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 launches = {"paged_decode": 0, "paged_attention": 0}
 # The kernels, in the order of the library's paged_attention_route: the
 # split decode kernel (through "paged_decode"), then through
-# "paged_attention" the tile kernel on mma.sync (bf16/f16 prefill up to
-# D = 256), paged TMA + wgmma past 256 (``tiles_wide_tc``), the sliced
-# mma.sync copy past 256 for the rest (``tiles_wide``), the scalar kernel,
-# and f32 prefill up to 256 on paged TMA + 3xTF32 wgmma (``tiles_tf32``).
-# Each launch counts once here and once in ``launches``.
+# "paged_attention" the tile kernel on mma.sync (``tiles``: bf16/f16
+# prefill up to D = 256 whose rows or pages TMA cannot address), paged TMA
+# + wgmma past 256 (``tiles_wide_tc``), the sliced mma.sync copy past 256
+# for the rest (``tiles_wide``), the scalar kernel, f32 prefill up to 256
+# on paged TMA + 3xTF32 wgmma (``tiles_tf32``), and bf16/f16 prefill up to
+# 256 on paged TMA + wgmma (``tiles_tc``, the kernel of ``tiles_wide_tc``
+# at one output chunk).  Each launch counts once here and once in
+# ``launches``.
 TILE_ROUTES = ("split", "tiles", "tiles_wide_tc", "tiles_wide", "scalar",
-               "tiles_tf32")
+               "tiles_tf32", "tiles_tc")
 kernel_launches = dict.fromkeys(TILE_ROUTES, 0)
 
 SPLIT_ROWS = 64          # logical rows of a split-decode chunk
@@ -219,9 +222,10 @@ def tile_route(s: int, head_dim: int, dtype, page_size: int) -> str:
     """The kernel that runs width ``s``, ``head_dim`` and pages of
     ``page_size`` rows in ``dtype`` (one of :data:`TILE_ROUTES`): the
     mirror of the library's ``paged_attention_route``.  The TMA prefill
-    kernels take rows TMA addresses (a multiple of 8 elements in bf16/f16
-    past 256, of 4 in f32 up to 256) over pages of a multiple of 8 rows (a
-    128-byte-swizzled box of 8 rows lands 1024-byte aligned)."""
+    kernels take rows TMA addresses (a multiple of 8 elements in bf16/f16,
+    of 4 in f32 up to 256) over pages of a multiple of 8 rows (a
+    128-byte-swizzled box of 8 rows lands 1024-byte aligned); the mma.sync
+    copies keep the other bf16/f16 rows and pages."""
     if uses_split_decode(s, head_dim, dtype):
         return "split"
     if s <= SPLIT_MAX_WIDTH:
@@ -229,39 +233,47 @@ def tile_route(s: int, head_dim: int, dtype, page_size: int) -> str:
     if dtype == torch.float32:
         return ("tiles_tf32" if head_dim <= 256 and head_dim % 4 == 0
                 and _pow2_part(page_size) >= 8 else "scalar")
-    if head_dim <= 256:
-        return "tiles"
     if head_dim % 8 == 0 and _pow2_part(page_size) >= 8:
-        return "tiles_wide_tc"
-    return "tiles_wide"
+        return "tiles_tc" if head_dim <= 256 else "tiles_wide_tc"
+    return "tiles" if head_dim <= 256 else "tiles_wide"
 
 
-def wide_tc_plan(B: int, s: int, H: int, head_dim: int, page_size: int,
-                 dtype) -> dict:
-    """The launch plan of ``paged_attention_wide_tc`` (``ValueError`` for
-    a shape another kernel takes), as the kernel lays it out: ``grid``
-    (slots x 64-row q tiles x heads x 256-column chunks in grid.x),
-    ``threads`` (a consumer warpgroup and a producer warp), the K/V boxes
-    (``box_rows`` = the largest power of two dividing the page, up to 64;
-    ``boxes`` a 64-row tile, 64 columns of one head each), the 64-column
-    ``slices``, whether q's slices stay resident (up to D = 1024) and
-    ``smem`` as ``wide::tcw::smem_of`` (q's slices, a K ring of 4 entries
-    -- with q's slice beside each where q streams --, a V ring of 2
-    chunk entries, the barriers)."""
+def tc_plan(B: int, s: int, H: int, head_dim: int, page_size: int,
+            dtype) -> dict:
+    """The launch plan of ``paged_attention_tc``, the bf16/f16 prefill
+    kernel on paged TMA + wgmma (routes ``tiles_tc`` and
+    ``tiles_wide_tc``; ``ValueError`` for a shape another kernel takes), as
+    the kernel lays it out: the output ``chunk_cols`` (D's padded width 64,
+    128 or 256 up to 256, chunks of 256 past it) and ``chunks``,
+    ``consumers`` (warpgroups, each on its own 64-row q tile: two up to a
+    chunk of 128 columns where the width has more than one tile, else
+    one), ``grid`` (slots x blocks of ``consumers`` q tiles x heads x
+    chunks in grid.x), ``threads`` (the consumers and a producer warp), the
+    K/V boxes (``box_rows`` = the largest power of two dividing the page,
+    up to 64; ``boxes`` a 64-row tile, 64 columns of one head each, 128
+    bytes a row), the 64-column ``slices``, whether q's slices stay
+    resident (up to D = 1024) and ``smem`` as ``pw::smem_of`` (each
+    consumer's q slices, a K ring of 4 entries -- with q's slice beside
+    each where q streams --, a V ring of 2 entries of ``chunk_cols / 64``
+    boxes, the barriers)."""
     route = tile_route(s, head_dim, dtype, page_size)
-    if route != "tiles_wide_tc":
+    if route not in ("tiles_tc", "tiles_wide_tc"):
         raise ValueError(f"s={s} D={head_dim} P={page_size} {dtype} runs "
                          f"{route}")
     box = 64 * 128                            # a [64][64] 2-byte box
-    slices, chunks = -(-head_dim // 64), -(-head_dim // 256)
+    nc = 64 if head_dim <= 64 else 128 if head_dim <= 128 else 256
+    kw = 2 if s > 64 and nc <= 128 else 1
+    slices, chunks = -(-head_dim // 64), -(-head_dim // nc)
     resident = head_dim <= 1024
     k_entry = box * (1 if resident else 2)
-    bars = (slices * box if resident else 0) + 4 * k_entry + 2 * 4 * box
+    bars = ((kw * slices * box if resident else 0) + 4 * k_entry
+            + 2 * (nc // 64) * box)
     pb = _pow2_part(page_size)
-    return dict(route=route, threads=160,
-                grid=(B * -(-s // 64) * H * chunks, 1, 1),
+    return dict(route=route, chunk_cols=nc, chunks=chunks, consumers=kw,
+                threads=128 * kw + 32,
+                grid=(B * -(-s // (64 * kw)) * H * chunks, 1, 1),
                 box_rows=pb, boxes=64 // pb, box_bytes=128, slices=slices,
-                chunks=chunks, q_resident=resident,
+                q_resident=resident,
                 smem=1024 + bars + (1 + 2 * 4 + 2 * 2) * 8)
 
 
@@ -354,10 +366,10 @@ def _lib_int(name, *args) -> int:
     return fn(*args)
 
 
-def library_wide_smem(head_dim) -> int:
-    """``paged_attention_wide_tc``'s dynamic shared memory at ``head_dim``
-    as the library computes it."""
-    return _lib_int("paged_attention_wide_smem", head_dim)
+def library_tc_smem(head_dim, s) -> int:
+    """``paged_attention_tc``'s dynamic shared memory at ``head_dim`` and
+    width ``s`` as the library computes it."""
+    return _lib_int("paged_attention_tc_smem", head_dim, s)
 
 
 def library_tf32_smem(head_dim, s) -> int:

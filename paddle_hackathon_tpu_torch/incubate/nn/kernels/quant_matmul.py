@@ -13,7 +13,8 @@ dequantization commutes out of the product.
   this function.)
 - :func:`quant_matmul_kernel` launches ``csrc/quant_matmul.cu`` on a CUDA
   tensor: bf16 / f16 activations on the tensor cores (wgmma on weight
-  chunks widened in shared memory), f32 activations on the CUDA cores.
+  chunks widened in shared memory), f32 activations on the CUDA cores
+  (f32 FMAs, in the same chunks and schedules).
   :func:`quant_plan` is its schedule, a pure function of the shapes: the
   chunks of K whose partials are summed in order (their rows depend on K
   alone, so one summation order per output element whatever M is), and
@@ -41,9 +42,12 @@ _W_CODES = {torch.int8: 0, torch.float8_e4m3fn: 1}
 # the tensor-core kernel's tile (csrc/quant_matmul.cu kBM, kBN, kKC): rows
 # of x, output columns, K rows of a chunk
 TILE_M, TILE_N, CHUNK_ROWS = 64, 128, 128
-_F32_TILE_M, _F32_TILE_N = 8, 32          # the CUDA-core kernel's
+_F32_TILE_M, _F32_TILE_N = 8, 64          # the CUDA-core kernel's tile
 _SMS = 132                                # the H100's SMs
 _FILL_BLOCKS = 2 * _SMS                   # the split's target block count
+# the f32 split's target warps: 4 a decode block (one 8-row tile), 1 a
+# prefill block; the walk where the tiles fill half of them
+_F32_FILL_WARPS = 16 * _SMS
 _SPLIT_BYTES = 25 * 2 ** 20               # its partials: one tile of x,
 _WIDE_SPLIT_BYTES = 40 * 2 ** 20          # and more (the L2 holds 50 MB)
 _GRID_YZ = 65535
@@ -88,13 +92,24 @@ def quant_plan(m: int, k: int, n: int, x_dtype) -> QuantPlan:
     under a quarter of the SMs and partials within 40 MB, every chunk is
     its own block (the split: fc_out at M = 256 walks 24 chunks in 24
     blocks otherwise); else every block walks all of its tile's chunks
-    (the walk).  f32: the CUDA-core kernel, 8 x 32 tiles, each walking all
-    of K in passes of 128 rows (its order: 32 slices of K summed in order,
-    fixed by K alone)."""
+    (the walk).  f32: tiles of 8 rows by 64 columns (decode, M <= 8: a
+    block of four warps a tile; else one warp); the split where the tiles
+    give under half of ``_F32_FILL_WARPS`` warps (decode, and prefill with
+    few tiles), each tile's chunks spread over blocks toward that many
+    warps, with partials (f32) within 25 MB at decode and 40 MB past it;
+    else the walk."""
     chunks = k // CHUNK_ROWS
     if x_dtype == torch.float32:
-        return QuantPlan("f32", CHUNK_ROWS, chunks, -(-m // _F32_TILE_M),
-                         n // _F32_TILE_N, chunks, 1)
+        m_tiles, n_tiles = -(-m // _F32_TILE_M), n // _F32_TILE_N
+        warps = 4 if m <= _F32_TILE_M else 1      # a block's
+        tiles = m_tiles * n_tiles
+        limit = _SPLIT_BYTES if m <= _F32_TILE_M else _WIDE_SPLIT_BYTES
+        per_block = chunks
+        if 2 * tiles * warps < _F32_FILL_WARPS and chunks * m * n * 4 <= limit:
+            per_block = min(chunks, -(-chunks * tiles * warps
+                                      // _F32_FILL_WARPS))
+        return QuantPlan("f32", CHUNK_ROWS, chunks, m_tiles, n_tiles,
+                         per_block, -(-chunks // per_block))
     m_tiles, n_tiles = -(-m // TILE_M), n // TILE_N
     part_bytes = chunks * m * n * 8
     per_block = chunks
@@ -177,10 +192,11 @@ def _lib():
         from ._build import load
         lib = load("quant_matmul")
         lib.quant_matmul_geometry.argtypes = [ctypes.c_int]
-        tile = tuple(lib.quant_matmul_geometry(i) for i in range(3))
-        if tile != (TILE_M, TILE_N, CHUNK_ROWS):
-            raise RuntimeError(f"quant_matmul kernel tile {tile} != the "
-                               f"plan's {(TILE_M, TILE_N, CHUNK_ROWS)}")
+        tile = tuple(lib.quant_matmul_geometry(i) for i in range(5))
+        want = (TILE_M, TILE_N, CHUNK_ROWS, _F32_TILE_M, _F32_TILE_N)
+        if tile != want:
+            raise RuntimeError(f"quant_matmul kernel tiles {tile} != the "
+                               f"plan's {want}")
         fn = lib.quant_matmul_launch
         # c_void_p for every pointer and the stream, or ctypes passes them
         # as 32-bit ints and cuts them

@@ -189,9 +189,10 @@ def test_routing_sends_decode_widths_to_the_split_kernel(s, D, dtype, split):
 def test_tile_route_names_one_kernel_per_shape(s, dtype):
     """The mirror of the library's ``paged_attention_route``: the split
     decode kernel at decode widths with 16-byte rows; bf16 / f16 widths
-    from 16 the tile kernel up to 256, past it paged TMA + wgmma where rows
-    are a multiple of 8 elements and pages of 8 rows, the sliced mma.sync
-    copy otherwise; f32 widths from 16 paged TMA + 3xTF32 wgmma up to 256
+    from 16 paged TMA + wgmma where rows are a multiple of 8 elements and
+    pages of 8 rows (``tiles_tc`` up to 256, ``tiles_wide_tc`` past it),
+    the mma.sync copies otherwise (the tile kernel up to 256, the sliced
+    one past it); f32 widths from 16 paged TMA + 3xTF32 wgmma up to 256
     where rows are a multiple of 4 elements and pages of 8 rows; the
     scalar kernel for the rest."""
     half = dtype != torch.float32
@@ -207,12 +208,10 @@ def test_tile_route_names_one_kernel_per_shape(s, dtype):
             elif not half:
                 want = ("tiles_tf32" if D <= 256 and D % 4 == 0
                         and P % 8 == 0 else "scalar")
-            elif D <= 256:
-                want = "tiles"
             elif D % 8 == 0 and P % 8 == 0:
-                want = "tiles_wide_tc"
+                want = "tiles_tc" if D <= 256 else "tiles_wide_tc"
             else:
-                want = "tiles_wide"
+                want = "tiles" if D <= 256 else "tiles_wide"
             assert route == want, (s, D, P, dtype, route)
     # the routes are the keys of the per-kernel launch counts
     assert set(tpa.kernel_launches) == set(tpa.TILE_ROUTES)
@@ -220,7 +219,8 @@ def test_tile_route_names_one_kernel_per_shape(s, dtype):
 
 @pytest.mark.parametrize("P", [1, 16, 48, 128, 256])
 def test_wide_tc_plan_boxes_stay_in_their_page(P):
-    """``paged_attention_wide_tc``'s plan: a box of K or V rows never
+    """The plan of the bf16 prefill kernel past 256 (``tc_plan``, route
+    ``tiles_wide_tc``): a box of K or V rows never
     leaves its page and lands 1024-byte aligned (8-row groups of 128
     bytes), a 64-row kv tile is whole boxes, and shared memory stays under
     the card's 232,448 bytes at every width to 8192; pages of fewer than 8
@@ -228,10 +228,11 @@ def test_wide_tc_plan_boxes_stay_in_their_page(P):
     if P % 8:
         assert tpa.tile_route(32, 512, torch.bfloat16, P) == "tiles_wide"
         with pytest.raises(ValueError):
-            tpa.wide_tc_plan(16, 32, 12, 512, P, torch.bfloat16)
+            tpa.tc_plan(16, 32, 12, 512, P, torch.bfloat16)
         return
     for D in range(264, 8193, 8):
-        plan = tpa.wide_tc_plan(16, 32, 12, D, P, torch.bfloat16)
+        plan = tpa.tc_plan(16, 32, 12, D, P, torch.bfloat16)
+        assert plan["route"] == "tiles_wide_tc"
         assert plan["smem"] <= 232_448, (D, plan)
         assert plan["q_resident"] is (D <= 1024)
         assert plan["grid"] == (16 * 12 * -(-D // 256), 1, 1)

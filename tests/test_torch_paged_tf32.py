@@ -36,7 +36,7 @@ def test_tf32_route_takes_f32_chunks_tma_can_address(s):
                     else "scalar")
             assert tpa.tile_route(s, D, F32, P) == want, (s, D, P)
     # bf16 / f16 chunks and every decode width keep their kernels
-    assert tpa.tile_route(32, 64, torch.bfloat16, 16) == "tiles"
+    assert tpa.tile_route(32, 64, torch.bfloat16, 16) == "tiles_tc"
     assert tpa.tile_route(15, 64, F32, 16) == "split"
     assert tpa.tile_route(1, 36, torch.bfloat16, 16) == "scalar"
 

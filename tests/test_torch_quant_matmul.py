@@ -249,23 +249,20 @@ def _add_partial(th, tl, hi, lo):
     return s, (tl + ((th - (s - bp)) + (hi - bp))) + lo
 
 
-def _f32_kernel_order(x2d, w_q, scale):
-    """The CUDA-core kernel's order for f32 activations: 32 slices of K
-    (of every 128 rows, slice s takes rows 4s..4s+3), each summed with
-    f32 FMAs row by row in ascending order, then the slices added in
-    order; times the scale."""
+def _f32_kernel_order(x2d, w_q, scale, chunk_rows=tqm.CHUNK_ROWS):
+    """The CUDA-core kernel's order for f32 activations: per chunk of
+    ``chunk_rows`` K rows, each output's partial is one chain of f32 FMAs
+    over the chunk's rows in ascending order, from 0 (each step the exact
+    product added in f64, rounded once to f32); the partials are added in
+    chunk order into an f32 total from 0; times the scale, rounded."""
     m, k = x2d.shape
-    n = w_q.shape[1]
-    xs = x2d.double().reshape(m, k // 128, 32, 4)
-    ws = w_q.double().reshape(k // 128, 32, 4, n)
-    acc = torch.zeros(m, 32, n, dtype=torch.float32)
-    for p in range(k // 128):
-        for j in range(4):         # an FMA: the exact product, one rounding
-            acc = (acc.double() + xs[:, p, :, j, None]
-                   * ws[None, p, :, j, :]).float()
-    total = torch.zeros(m, n, dtype=torch.float32)
-    for sl in range(32):
-        total = total + acc[:, sl]
+    xd, wd = x2d.double(), w_q.double()
+    total = torch.zeros(m, w_q.shape[1], dtype=torch.float32)
+    for c in range(0, k, chunk_rows):
+        acc = torch.zeros_like(total)
+        for r in range(c, c + chunk_rows):   # an FMA: one rounding a step
+            acc = (acc.double() + xd[:, r, None] * wd[None, r]).float()
+        total = total + acc
     return total * scale.float()
 
 
@@ -341,10 +338,14 @@ def test_plan_order_depends_on_k_and_n_only(xdtype):
                 assert 1 <= g <= p.chunks
                 assert p.splits == -(-p.chunks // g)
                 assert (p.splits - 1) * g < p.chunks <= p.splits * g
-                assert p.n_tiles * (tqm.TILE_N if p.route == "tc" else 32) \
+                assert p.n_tiles * (tqm.TILE_N if p.route == "tc" else 64) \
                     == n
-                if p.split:       # tiles too few for the card
-                    assert p.route == "tc"
+                if p.split and p.route == "f32":   # tiles too few
+                    warps = 4 if m <= 8 else 1
+                    assert 2 * p.m_tiles * p.n_tiles * warps < 16 * 132
+                    assert p.chunks * m * n * 4 <= (25 if m <= 8 else 40) \
+                        * 2 ** 20
+                elif p.split:     # tiles too few for the card
                     if m <= tqm.TILE_M:
                         assert p.chunks * m * n * 8 <= 25 * 2 ** 20
                     else:         # past one tile of x: a chunk a block
@@ -361,6 +362,49 @@ def test_plan_order_depends_on_k_and_n_only(xdtype):
     assert (p.splits, p.chunks_per_block, p.m_tiles * p.n_tiles) == (
         24, 1, 24)
     assert not tqm.quant_plan(1024, 3072, 768, torch.bfloat16).split
+
+
+@pytest.mark.parametrize("k,n", [(768, 2304), (768, 768), (768, 3072),
+                                 (3072, 768)], ids=lambda v: str(v))
+def test_f32_plan_splits_at_decode_and_walks_past_it(k, n):
+    """The f32 kernel's schedule at GPT-2-small's projections: at decode
+    (M <= 8) one tile of x a column strip and every chunk its own block
+    (the split: all of a projection's weight bytes in flight at once); at
+    M = 1024 every tile walks its chunks (no scratch); at M = 256 the walk
+    where the tiles fill the card (qkv, fc_in), else the split (out,
+    fc_out: 384 tiles).  The chunks and their order are K's alone."""
+    chunks = k // 128
+    for m in (1, 8):
+        p = tqm.quant_plan(m, k, n, torch.float32)
+        assert (p.route, p.m_tiles, p.n_tiles) == ("f32", 1, n // 64)
+        assert p.split and p.chunks_per_block == 1 and p.splits == chunks
+    p = tqm.quant_plan(1024, k, n, torch.float32)
+    assert not p.split and p.chunks_per_block == chunks
+    assert p.m_tiles == 128
+    p = tqm.quant_plan(256, k, n, torch.float32)
+    assert p.split is (n == 768)
+    for m in (1, 8, 17, 256, 1024):
+        p = tqm.quant_plan(m, k, n, torch.float32)
+        assert (p.chunk_rows, p.chunks, p.order) == (
+            128, chunks, tuple(range(chunks)))
+
+
+@pytest.mark.parametrize("wkind", ["int8", "fp8"])
+def test_f32_rows_alone_equal_their_rows_in_a_batch(wkind):
+    """The f32 order gives rows of M = 1 and 8 (decode: the split) the
+    same bits as the same rows of M = 256, whichever schedule that takes:
+    the order depends on K alone.  And its sum is within 1e-5 of max|ref|
+    of the exact one (f64)."""
+    x, w, s = _case(31, 256, 640, 384, wkind, "float32")
+    tx, tw, ts = to_tensor(x), to_tensor(w), to_tensor(s)
+    assert tqm.quant_plan(8, 640, 384, torch.float32).split
+    assert not tqm.quant_plan(256, 640, 2304, torch.float32).split
+    full = _f32_kernel_order(tx, tw, ts)
+    for m in (1, 8):
+        assert torch.equal(_f32_kernel_order(tx[:m], tw, ts), full[:m])
+    exact = (tx.double() @ tw.double()) * ts.double()
+    assert float((full.double() - exact).abs().max()) <= \
+        1e-5 * float(exact.abs().max())
 
 
 def _noise(x, w, s):
