@@ -33,9 +33,12 @@ Phases, each printing one JSON line:
                above 0), K2's f32 dK/dV and dQ past 256 (``bhd_dkdv_tc<0>``,
                ``bhd_dq_tc<0>``; HGMMA above 0) and K3's prefill kernel
                past 256 and, since the rebuild of the chunks up to 256,
-               K3's bf16/f16 prefill kernel at every D on paged TMA +
-               wgmma (``paged_attention_tc<T, chunk, consumers>``: 10
-               instances; HGMMA above 0).
+               K3's bf16/f16 prefill kernel at every D on wgmma
+               (``paged_attention_tc<T, chunk, consumers, producer>``: 20
+               instances, TMA and gathered; HGMMA above 0), K3's f32
+               prefill kernel (``paged_attention_tf32<DP, consumers,
+               producer>``: 12 instances; HGMMA above 0) and the split
+               decode kernel's TMA and gathered instances.
 3. flash    -- holds the three packed flash-attention kernels (forward, dK/dV,
                dQ; ``csrc/flash_attention_packed.cu``) against their plain
                PyTorch versions run in f32 on the same bf16/f16 inputs:
@@ -215,10 +218,14 @@ Phases, each printing one JSON line:
                launches its kernel and equals the normalised call bit for
                bit.
 10. paged   -- holds ``paged_attention`` (K3: the split decode kernel at
-               widths below 16 with 16-byte rows at any D, past 256 its
-               row in column slices; else the tile kernels, f32 chunks up
-               to D=256 on paged TMA + 3xTF32 wgmma) against its plain
-               PyTorch version
+               widths below 16 at any D, past 256 its row in column
+               slices, its rows by whole-page TMA boxes where they are a
+               multiple of 16 bytes, else gathered; prefill chunks the
+               bf16/f16 kernel on wgmma, ``paged_attention_tc``, and the
+               f32 kernel on 3xTF32 wgmma, ``paged_attention_tf32``, each
+               on TMA boxes where D's rows are a multiple of 16 bytes over
+               pages of a multiple of 8 rows, else on gathered rows)
+               against its plain PyTorch version
                (``paged_attention_ref``) at the serving geometry (B=16,
                H=12, D=64, P=16, maxp=32; widths 1 and 32; shuffled page
                tables, an inactive slot, lengths 0 / page boundary / last
@@ -226,52 +233,58 @@ Phases, each printing one JSON line:
                and lengths), and past the old limits: widths 65, 128 (pages
                of 128) and 256 (pages of 256), width 1 over pages of 128,
                D=36, and D=320 and 512 at widths 1 and 32 over 8-page
-               tables (bf16 widths from 16 run paged TMA + wgmma where
-               D % 8 == 0 over pages of a multiple of 8 rows, else the
-               mma.sync copies; f32 the scalar one past 256, in slices),
-               bf16 width 32 at D=512 over pages of 128 and of 48 and at
-               D=260 (the sliced mma.sync copy); the bf16/f16 chunks up
-               to 256 on paged TMA + wgmma (``tiles_tc``) at D = 8, 40,
-               64, 128, 256, widths 16 to 200 (one and two consumer
-               warpgroups), pages of 8, 16, 48 and 128, and beside them
-               pages of 12 and D = 36 on ``paged_attention_mma``, each
-               launching the kernel ``tile_route`` names and no other,
-               twice more bit for bit, beside a control (the plain
-               version in the inputs' dtype, must pass) and a planted
-               fault (each slot's first page read from its second, must
-               fail); the route and plan mirrors (``tile_route``,
-               ``tc_plan``) equal to the library's own: bf16 against
-               an f32 run of the plain
-               version at atol=rtol=2e-2, f32 at 2e-5 with TF32 off.  Then
-               the split decode kernel at widths 1 and 15, pages of 16, 128
+               tables, bf16 width 32 at D=512 over pages of 128 and of 48
+               and at D=260 (gathered); the bf16/f16 chunks up to 256 at
+               D = 8, 40, 64, 128, 256, widths 16 to 200 (one and two
+               consumer warpgroups), pages of 8, 16, 48 and 128, and
+               beside them pages of 12 and 5 and D = 36 and 33 on the
+               gathered instance; the f32 chunks at D = 128 and 256 and
+               past 256 (D = 320 and 512), over pages of 48, 8, 12 and 6
+               and at D = 38 and 33 (gathered); the split decode's gathered
+               instance at D = 36 (bf16/f16, widths 1 and 15, pages of 16
+               and 12), D = 33 (bf16, f32) and past 256 at D = 260 (bf16)
+               and 257 (f32); each launching the kernel ``tile_route``
+               names and no other, twice more bit for bit, beside a control
+               (the plain version in the inputs' dtype, must pass) and a
+               planted fault (each slot's first page read from its second,
+               must fail); the route and plan mirrors (``tile_route``,
+               ``tc_plan``, ``tf32_plan``, ``split_plan``) equal to the
+               library's own at every dtype, width 1-128, D 4-1032 and
+               pages of 1-128 rows: bf16 against an f32 run of the plain
+               version at atol=rtol=2e-2, f32 at 2e-5 with TF32 off.  The
+               TMA and gathered instances of each chunk kernel at a shape
+               both take (bf16 and f32, pages of 16, D=64, width 32) bit
+               for bit, and the planted fault (the gathered instance of a
+               second build, ``K3_UNSWIZZLED``, whose tiles are written
+               without the swizzle's XOR) differing.  Then the split decode
+               kernel at widths 1 and 15, pages of 16, 128
                and 512, D = 64, 128 and 256, in bf16, f16 (its control the
                f32 result rounded to f16: f16 cannot hold the -1e30 mask)
                and f32, and past 256 at D = 264, 320, 512 and 1024 (column
-               slices), and f32 chunks at D = 128 and 256 and over pages
-               of 48, 8 and 12 (the scalar kernel, by route); 65538 slots
+               slices); 65538 slots
                of one page each (widths 1 and 16, bf16
                and f32: the last two slots against the plain version, the
-               two before as the planted fault); and its summation order:
+               two before as the planted fault), and of two pages of 12
+               (the gathered chunk routes) and at D = 36 (the gathered
+               split decode); and the split decode's summation order:
                three runs bit for bit, each of 16 slots alone bit for bit
                as among the 16 (the fault: a slot alone against its
-               neighbour must differ).  Times the
-               kernel, the plain version and
+               neighbour must differ), on the TMA and the gathered
+               instance.  Times the kernel, the plain version and
                ``F.scaled_dot_product_attention`` on the gathered
                contiguous K/V (a yardstick the port never calls) at the
                serving run's decode and chunk inputs and at the table's
                full length, by CUDA-graph replay over input copies larger
-               than the L2, beside the byte bound and, for decode, the
-               tile kernels' entry point (the scalar kernel, which ran the
-               decode steps before); and at width 128 over pages of
-               128 beside its bound, plain version and SDPA with the
-               offset-causal mask over the gathered K/V; the f32 prefill
-               kernel likewise at the serving chunk and at width 128 over
-               pages of 128 (SDPA in f32, TF32 off; bound: bytes or 3xTF32
-               products); the bf16 chunk at D = 128 and 256 (widths 32 and
-               128), and the shapes the TMA kernels leave to the mma.sync
-               copies and the scalar kernel (pages of 12, D = 36, D = 260,
-               f32 D = 320 and pages of 12, decode at D = 36), each checked
-               and timed beside its bound and SDPA.
+               than the L2, beside the byte bound; and at width 128 over
+               pages of 128 beside its bound, plain version and SDPA with
+               the offset-causal mask over the gathered K/V; the f32
+               prefill kernel likewise at the serving chunk and at width
+               128 over pages of 128 (SDPA in f32, TF32 off; bound: bytes
+               or 3xTF32 products); the bf16 chunk at D = 128 and 256
+               (widths 32 and 128), the f16 serving chunk, and the shapes
+               the retired kernels ran (pages of 12, D = 36, D = 260, f32
+               D = 320, f32 pages of 12, f32 D = 38, decode at D = 36),
+               each checked and timed beside its bound and SDPA.
 11. serving -- GPT-2-small in bf16 through
                ``ServingEngine(cache_mode="paged", max_slots=16, max_len=512,
                page_size=16, num_pages=257, chunk=32, decode_window=32)``:
@@ -285,8 +298,8 @@ Phases, each printing one JSON line:
                token-exact against the dense engine (the plain static-cache
                path), or diverge only at a logit margin <= 1e-3, its chunk
                ticks x layers launching the f32 prefill kernel, its decode
-               steps x layers the split kernel, the scalar kernel and the
-               plain version never.
+               steps x layers the split kernel, every other K3 kernel and
+               the plain version never.
 12. profile -- device time by kernel over one short serving run
                (``torch.profiler``), for the breakdown in PERF.md, with
                K3's kernels' share of the busy time.
@@ -294,15 +307,27 @@ Phases, each printing one JSON line:
                the dense engine, GPT-2-small f32, 4 requests of 300, 200,
                150 and 64 prompt tokens x 32 new: token-exact, the f32
                prefill kernel launched exactly chunk ticks x layers and the
-               split kernel decode steps x layers, the scalar kernel and the
-               plain version never, no page in use after the run.
+               split kernel decode steps x layers, every other K3 kernel and
+               the plain version never, no page in use after the run.
 13b. paged_wide512 -- the paged engine at the wide512 GPT's heads (D =
                512), bf16, ``chunk=32``, pages of 16, 8 requests of 64 + 16
                tokens: K3's prefill kernel past 256 launched exactly chunk
-               ticks x layers, the split kernel decode steps x layers, the
-               scalar kernel and the plain version never, no page in use;
-               against the dense engine token-exact or diverging first
-               within ``BF16_MARGIN`` of the dense model's own logits.
+               ticks x layers, the split kernel decode steps x layers,
+               every other K3 kernel and the plain version never, no page
+               in use; against the dense engine token-exact or diverging
+               first within ``BF16_MARGIN`` of the dense model's own
+               logits.
+13c. paged_p12 -- the paged engine over pages of 12 rows (a box of 4 rows:
+               no TMA box takes them), GPT-2-small (12 layers, hidden 768,
+               12 heads of 64, N(0, 0.02) weights from a numpy seed), 16
+               slots, ``chunk=32``, in bf16 and in f32, 8 requests of 64 +
+               32 tokens, counts set to 0 just before and read just after:
+               the gathered chunk kernel (``tiles_tc_g``, ``tiles_tf32_g``)
+               launched exactly chunk ticks x layers, the split decode
+               kernel decode steps x layers, every other K3 kernel and the
+               plain version 0 times, no page in use; against the dense
+               engine token-exact, or diverging first within the dense
+               model's own logit margin (bf16 ``BF16_MARGIN``, f32 1e-3).
 14. quant_checks -- holds the dequant-GEMM kernel K4
                (``csrc/quant_matmul.cu``) on the card against its plain
                version ``quant_matmul_ref`` (an f32 sum) and against the
@@ -386,11 +411,17 @@ HGMMA counts of the five libraries it builds: to hold a change of
 trees' processes (parent, change, change, parent).
 
 ``python3 chip_smoke.py --k3-ab N [--root DIR]`` likewise times K3 at
-``k3_ab_cases`` (the f32 prefill chunks, decode at D = 512 in each type,
+``k3_ab_cases`` (the f32 prefill chunks -- at the serving geometry, w128
+over pages of 128, D = 256 and 512 --, decode at D = 512 in each type,
 the bf16/f16 chunks up to 256 at w32 and w128, D = 64, 128 and 256, the
-shapes whose kernel is unchanged and those the mma.sync copies and the
-scalar kernel keep), after the paged library's ptxas report and HGMMA
-counts.
+shapes whose kernel is unchanged, and the seven shapes the retired kernels
+ran, ``K3_RETIRED_SHAPES``, each also beside SDPA on the gathered K/V
+and its bound), after the paged library's ptxas report and HGMMA counts.
+
+``python3 chip_smoke.py --ab-medians FILE`` reads the lines those modes
+wrote to FILE and prints, in one JSON line, the median device time of each
+shape per tree, SDPA's over all trees and the bounds: the figures an A/B
+call reports.
 
 ``python3 chip_smoke.py --k4-ab N [--root DIR]`` likewise times K4, one
 GPT-2-small layer's four int8 projections at M = 8 and 256, f32 and bf16
@@ -560,43 +591,89 @@ def gathered(torch, c):
     return qh, kb, vb, mask
 
 
-def tiles_route(torch, pa, c):
-    """The tile kernels' entry point on a case: the scalar kernel at decode
-    widths, which ran the decode steps before the split decode kernel.
-    Timed beside it; a comparison, not counted as a launch."""
-    q = c["q"]
-    B, s, H, D = q.shape
-    N, P = c["k_pool"].shape[:2]
-    out = torch.empty_like(q)
-    err = pa._lib("paged_attention")(
-        pa._DTYPE_CODES[q.dtype], q.data_ptr(), c["k_pool"].data_ptr(),
-        c["v_pool"].data_ptr(), c["page_table"].data_ptr(),
-        c["lengths"].data_ptr(), out.data_ptr(), B, s, H, D, N, P,
-        c["page_table"].shape[1], 1.0 / D ** 0.5,
-        torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"paged_attention_launch: CUDA error {err}")
-    return out
-
-
 # the split decode kernel's cases: pages of 16, 128 and 512, each table
 # 512-1024 rows long
 SPLIT_PAGES = ((16, 32), (128, 4), (512, 2))
 
 
-def many_slots_case(torch, dtype, width, seed, B=65538, H=2, D=64, P=16):
-    """B slots of one page each (slot b on page b + 1; page 0 the NULL
-    page), lengths up to the page's last row: past grid.y's 65535."""
+def many_slots_case(torch, dtype, width, seed, B=65538, H=2, D=64, P=16,
+                    maxp=1):
+    """B slots of ``maxp`` pages each (slot b on pages b maxp + 1 ...; page
+    0 the NULL page), lengths up to the table's last row: past grid.y's
+    65535."""
     gen = torch.Generator(device=DEV).manual_seed(seed)
     mk = lambda *sh: torch.randn(*sh, generator=gen,  # noqa: E731
                                  device=DEV).to(dtype)
-    lengths = torch.randint(0, P - width + 1, (B,), generator=gen,
+    N = B * maxp + 1
+    lengths = torch.randint(0, maxp * P - width + 1, (B,), generator=gen,
                             device=DEV, dtype=torch.int32)
-    return dict(q=mk(B, width, H, D), k_pool=mk(B + 1, P, H, D),
-                v_pool=mk(B + 1, P, H, D),
-                page_table=torch.arange(1, B + 1, device=DEV,
-                                        dtype=torch.int32)[:, None],
+    return dict(q=mk(B, width, H, D), k_pool=mk(N, P, H, D),
+                v_pool=mk(N, P, H, D),
+                page_table=torch.arange(1, N, device=DEV,
+                                        dtype=torch.int32).reshape(B, maxp),
                 lengths=lengths)
+
+
+# The shapes the retired kernels ran (the scalar paged_attention_kernel:
+# f32 chunks past 256, over pages of 12 and with D % 4 != 0, decode rows
+# not 16-byte aligned; the mma.sync copies: bf16 chunks over pages of 12,
+# at D = 36 and at D = 260), timed in phase paged and by --k3-ab
+K3_RETIRED_SHAPES = (
+    ("f32_d320_w32", "float32", 32, 352, dict(D=320, maxp=8)),
+    ("f32_p12_w32", "float32", 32, 43, dict(P=12, maxp=40)),
+    ("f32_d38_w32", "float32", 32, 38, dict(D=38)),
+    ("bf16_d36_w1", "bfloat16", 1, 37, dict(D=36)),
+    ("bf16_p12_w32", "bfloat16", 32, 44, dict(P=12, maxp=40)),
+    ("bf16_d36_w32", "bfloat16", 32, 68, dict(D=36)),
+    ("bf16_d260_w32", "bfloat16", 32, 292, dict(D=260, maxp=8)))
+
+
+def k3_retired_cases(torch):
+    return {name: kernel_case(torch, getattr(torch, dt), w, seed=seed, **kw)
+            for name, dt, w, seed, kw in K3_RETIRED_SHAPES}
+
+
+# The planted fault of the TMA-vs-gathered check: K3's library built from
+# a copy of its sources whose gathered producers write each 16-byte chunk
+# of a row in place, without the 128-byte swizzle's XOR (gat::swz)
+K3_UNSWIZZLED = ("paged_attention_unswizzled", "  return c ^ (r & 7);\n}",
+                 "  return c;\n}")
+
+
+def register_unswizzled(_build):
+    """Write ``K3_UNSWIZZLED``'s patched copy of K3's sources under the
+    gitignored build directory and register it with ``_build``, so that
+    the run's one parallel build compiles it beside the others."""
+    import shutil
+    name, line, fault = K3_UNSWIZZLED
+    src = _build.SOURCES["paged_attention"]
+    d = _build.BUILD_DIR / "variants" / name
+    d.mkdir(parents=True, exist_ok=True)
+    for f in src.parent.glob("*.cuh"):
+        shutil.copy(f, d / f.name)
+    text = src.read_text()
+    if text.count(line) != 1:
+        raise AssertionError(f"{name}: gat::swz's XOR is not in "
+                             f"{src.name} once")
+    (d / src.name).write_text(text.replace(line, fault))
+    _build.SOURCES[name] = d / src.name
+
+
+def unswizzled_gather(pa, case):
+    """The gathered chunk instance on ``case``, launched from the
+    ``K3_UNSWIZZLED`` library through the wrapper (its library lookup
+    pointed there for the one call)."""
+    from paddle_hackathon_tpu_torch.incubate.nn.kernels import _build
+    load, bound = _build.load, dict(pa._fns)
+    _build.load = lambda n: load(K3_UNSWIZZLED[0] if n == "paged_attention"
+                                 else n)
+    pa._fns.clear()
+    try:
+        return pa.chunk_instance(**case, gathered=True)
+    finally:
+        _build.load = load
+        pa._fns.clear()
+        pa._fns.update(bound)
 
 
 def phase_kernel(torch, pa):
@@ -668,8 +745,8 @@ def phase_kernel(torch, pa):
         check(f"{tag}_d36_w32", kernel_case(torch, dtype, 32, seed=36,
                                             D=36), tol)
         # past 256: decode steps the split kernel in column slices, f32
-        # prefill the scalar kernel in slices, bf16 prefill paged TMA +
-        # wgmma
+        # prefill the f32 kernel in 160-column chunks, bf16 prefill in
+        # 256-column chunks, all on TMA boxes
         for D in (320, 512):
             for width in (1, 32):
                 check(f"{tag}_d{D}_w{width}",
@@ -677,8 +754,8 @@ def phase_kernel(torch, pa):
                                   maxp=8), tol)
     # the bf16 prefill kernel past 256 where a box is part of a page (P =
     # 128: boxes of 64 rows) or pages are not a power of two (P = 48:
-    # boxes of 16), and a row TMA cannot address (D = 260: the sliced
-    # mma.sync copy)
+    # boxes of 16), and a row TMA cannot address (D = 260: the gathered
+    # instance)
     for name, D, P, maxp in (("d512_w32_p128", 512, 128, 2),
                              ("d512_w32_p48", 512, 48, 3),
                              ("d260_w32", 260, 16, 8)):
@@ -689,8 +766,8 @@ def phase_kernel(torch, pa):
     # 128 and 256, one and two consumer warpgroups, widths of one q tile,
     # past it and of four, pages of 8, 16, 48 (boxes of 16) and 128 (boxes
     # of 64), D = 8 and 40 (a slice partly zero); the shapes TMA boxes
-    # cannot take stay on paged_attention_mma, by route: pages of 12 (boxes
-    # of 4 rows) and D = 36
+    # cannot take run the gathered instance, by route: pages of 12 (boxes
+    # of 4 rows) and 5, D = 36 (8-byte rows) and 33 (2-byte rows)
     for dtype in (torch.bfloat16, torch.float16):
         tag = str(dtype).split('.')[-1]
         for name, w, kw in (("d64_w16_p8", 16, dict(P=8, maxp=64)),
@@ -708,28 +785,77 @@ def phase_kernel(torch, pa):
                             ("d8_w32", 32, dict(D=8)),
                             ("d40_w65_p16", 65, dict(D=40)),
                             ("d64_w32_p12", 32, dict(P=12, maxp=40)),
-                            ("d36_w65", 65, dict(D=36))):
+                            ("d36_w65", 65, dict(D=36)),
+                            ("d33_w32", 32, dict(D=33)),
+                            ("d128_w130_p12", 130, dict(D=128, P=12,
+                                                        maxp=60)),
+                            ("d64_w65_p5", 65, dict(P=5, maxp=100))):
             check(f"{tag}_{name}", kernel_case(torch, dtype, w,
                                                seed=w + 17, **kw), 2e-2)
-    # the f32 prefill kernel (paged TMA + 3xTF32 wgmma) at D = 128 and 256
-    # (one consumer warpgroup at 256), a chunk of two q tiles at 256, pages
-    # of 48 (boxes of 16) and of 8; pages of 12 (boxes of 4 rows) stay on
-    # the scalar kernel, by route
+    # the f32 prefill kernel (3xTF32 wgmma) at D = 128 and 256 (one
+    # consumer warpgroup at 256), a chunk of two q tiles at 256, pages of
+    # 48 (boxes of 16) and of 8, past 256 in 160-column chunks; pages of 12
+    # and 6 (boxes of 4 and 2 rows) and D = 38 and 33 (8- and 4-byte rows)
+    # on the gathered instance, by route
     for name, w, kw in (("d128_w32", 32, dict(D=128)),
                         ("d256_w32", 32, dict(D=256)),
                         ("d256_w128", 128, dict(D=256, maxp=16)),
                         ("p48_w32", 32, dict(P=48, maxp=12)),
                         ("p8_w65", 65, dict(P=8, maxp=64)),
-                        ("p12_w32", 32, dict(P=12, maxp=40))):
+                        ("d512_w128_p128", 128, dict(D=512, P=128, maxp=4)),
+                        ("p12_w32", 32, dict(P=12, maxp=40)),
+                        ("d320_w32_p12", 32, dict(D=320, P=12, maxp=20)),
+                        ("d38_w32", 32, dict(D=38)),
+                        ("p12_w130", 130, dict(P=12, maxp=60)),
+                        ("d257_w65_p6", 65, dict(D=257, P=6, maxp=60)),
+                        ("d33_w32", 32, dict(D=33))):
         check(f"float32_{name}", kernel_case(torch, torch.float32, w,
                                              seed=w + 11, **kw), 2e-5)
+    # the split decode kernel's gathered instance (rows not a multiple of
+    # 16 bytes): D = 36 in bf16/f16 at widths 1 and 15 over pages of 16 and
+    # 12, D = 33 in bf16 and f32, past 256 D = 260 (bf16) and 257 (f32)
+    for name, dtype, w, kw in (
+            ("bf16_d36_w1", torch.bfloat16, 1, dict(D=36)),
+            ("bf16_d36_w15", torch.bfloat16, 15, dict(D=36)),
+            ("f16_d36_w1_p12", torch.float16, 1, dict(D=36, P=12, maxp=40)),
+            ("f16_d36_w15_p12", torch.float16, 15, dict(D=36, P=12,
+                                                        maxp=40)),
+            ("bf16_d33_w1", torch.bfloat16, 1, dict(D=33)),
+            ("f32_d33_w1", torch.float32, 1, dict(D=33)),
+            ("bf16_d260_w1", torch.bfloat16, 1, dict(D=260, maxp=8)),
+            ("f32_d257_w15", torch.float32, 15, dict(D=257, maxp=8))):
+        check(f"split_g_{name}", kernel_case(torch, dtype, w, seed=w + 23,
+                                             **kw),
+              2e-5 if dtype == torch.float32 else 2e-2)
+    # the TMA and gathered instances of each chunk kernel at a shape both
+    # take: the same consumers and order, so the same bits; the planted
+    # fault, the gathered instance of the K3_UNSWIZZLED library (its tiles
+    # written without the swizzle's XOR), differs
+    same = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        case = kernel_case(torch, dtype, 32, seed=64)
+        tma = pa.chunk_instance(**case, gathered=False)
+        gat = pa.chunk_instance(**case, gathered=True)
+        bad = unswizzled_gather(pa, case)
+        torch.cuda.synchronize()
+        tag = str(dtype).split('.')[-1]
+        same[tag] = {"bitwise": torch.equal(tma, gat),
+                     "fault_differs": not torch.equal(tma, bad),
+                     "fault_max_abs": float((tma.float()
+                                             - bad.float()).abs().max())}
+        if not (same[tag]["bitwise"] and same[tag]["fault_differs"]):
+            raise AssertionError(f"TMA and gathered instances: {same}")
+        del case, tma, gat, bad
+    checks.append({"case": "tma_vs_gathered_p16_d64_w32", "ok": True,
+                   **same})
     # the Python mirror of the route and of the kernels' shared memory
     # against the library's own
     wrong = []
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
-        for s in (1, 15, 16, 32, 128):
-            for D in (4, 36, 64, 100, 128, 256, 260, 264, 320, 512):
-                for P in (1, 8, 12, 16, 48, 128):
+        for s in (1, 15, 16, 32, 65, 128):
+            for D in (4, 8, 33, 36, 40, 64, 100, 128, 256, 257, 260, 264,
+                      320, 512, 1032):
+                for P in (1, 5, 6, 8, 12, 16, 48, 128):
                     got = pa.library_route(s, D, dtype, P)
                     if got != pa.tile_route(s, D, dtype, P):
                         wrong.append((str(dtype), s, D, P, got))
@@ -739,13 +865,20 @@ def phase_kernel(torch, pa):
             got = pa.library_tc_smem(D, s)
             if got != pa.tc_plan(1, s, 1, D, 16, torch.bfloat16)["smem"]:
                 wrong.append(("tc_smem", D, s, got))
-    for D in range(4, 257, 4):
+    for D in list(range(4, 257, 4)) + [260, 320, 384, 512, 1032, 2048]:
         for s in (16, 32, 65, 128):
             got = pa.library_tf32_smem(D, s)
             if got != pa.tf32_plan(1, s, 1, D, 16)["smem"]:
                 wrong.append(("tf32_smem", D, s, got))
+    for D in (33, 38, 257, 321):
+        for s in (16, 65):
+            got = pa.library_tf32_smem(D, s)
+            plan = pa.gather_plan(1, s, 1, D, 16, torch.float32)
+            if got != plan["smem"]:
+                wrong.append(("tf32_g_smem", D, s, got))
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
-        for D in (64, 128, 256, 264, 320, 512, 520, 1024, 4096, 8192):
+        for D in (33, 36, 64, 100, 128, 256, 260, 264, 320, 512, 520, 1024,
+                  4096, 8192):
             for s in (1, 15):
                 for P in (16, 48, 128, 512):
                     plan = pa.split_plan(12, D, dtype, P, 8, s)
@@ -788,11 +921,15 @@ def phase_kernel(torch, pa):
     # slots past 65535 (grid.y's limit): the last two slots against the
     # plain version, the planted fault the plain version of the two
     # before, as a kernel that wrapped the slot index would read them
-    for dtype, width, tol in ((torch.bfloat16, 1, 2e-2),
-                              (torch.float32, 1, 2e-5),
-                              (torch.bfloat16, 16, 2e-2),
-                              (torch.float32, 16, 2e-5)):
-        case = many_slots_case(torch, dtype, width, seed=width)
+    # (and the gathered routes: two pages of 12 a slot at width 16, D = 36
+    # at width 1)
+    for dtype, width, tol, kw in (
+            (torch.bfloat16, 1, 2e-2, {}), (torch.float32, 1, 2e-5, {}),
+            (torch.bfloat16, 16, 2e-2, {}), (torch.float32, 16, 2e-5, {}),
+            (torch.bfloat16, 16, 2e-2, dict(P=12, maxp=2)),
+            (torch.float32, 16, 2e-5, dict(P=12, maxp=2)),
+            (torch.bfloat16, 1, 2e-2, dict(D=36))):
+        case = many_slots_case(torch, dtype, width, seed=width, **kw)
         out = pa.paged_attention_kernel(**case)
         B = case["q"].shape[0]
         part = lambda sl, c=case: dict(  # noqa: E731
@@ -805,9 +942,11 @@ def phase_kernel(torch, pa):
         got = out[B - 2:]
         ok = (within(got) and within(pa.paged_attention_ref(**tail))
               and not within(pa.paged_attention_ref(**f32_case(before))))
-        tag = str(dtype).split('.')[-1]
+        tag = str(dtype).split('.')[-1] + "".join(
+            f"_{k}{v}" for k, v in kw.items() if k != "maxp")
         checks.append({"case": f"b65538_{tag}_w{width}", "ok": ok,
-                       "kernel": pa.tile_route(width, 64, dtype, 16),
+                       "kernel": pa.tile_route(width, kw.get("D", 64),
+                                               dtype, kw.get("P", 16)),
                        "max_abs_err": float((got.float() - ref32).abs().max()),
                        "tol": tol})
         if not ok:
@@ -830,7 +969,12 @@ def phase_kernel(torch, pa):
                                             D=512, maxp=8)),
                        ("f32_d320_w15", kernel_case(torch, torch.float32, 15,
                                                     seed=11, D=320,
-                                                    maxp=8))):
+                                                    maxp=8)),
+                       ("gathered_d36", kernel_case(torch, torch.bfloat16, 1,
+                                                    seed=12, D=36)),
+                       ("gathered_d36_w15_p12", kernel_case(
+                           torch, torch.float16, 15, seed=13, D=36, P=12,
+                           maxp=40))):
         out = pa.paged_attention_kernel(**case)
         repeats = all(torch.equal(out, pa.paged_attention_kernel(**case))
                       for _ in range(2))
@@ -856,28 +1000,27 @@ def phase_kernel(torch, pa):
     lib = lambda a: F.scaled_dot_product_attention(  # noqa: E731
         a[0], a[1], a[2], attn_mask=a[3])
 
-    def times(case, plain_reps=5, old=False):
-        """The kernel, the plain version, SDPA on the gathered K/V and (old)
-        the tile kernels' entry point, over input copies larger than the
-        L2, beside the bound."""
+    def times(case, plain_reps=5):
+        """The kernel, the plain version and SDPA on the gathered K/V, over
+        input copies larger than the L2, beside the bound (f16: the plain
+        version on the inputs in f32, since f16 cannot hold its -1e30
+        mask)."""
         cs = copies(case)
+        half = case["q"].dtype == torch.float16
         row = {"ms": device_ms(torch, [
                    lambda c=c: pa.paged_attention_kernel(**c) for c in cs]),
                "plain_ms": device_ms(torch, [
-                   lambda c=c: pa.paged_attention_ref(**c) for c in cs],
+                   lambda c=c: pa.paged_attention_ref(
+                       **(f32_case(c) if half else c)) for c in cs],
                    reps=plain_reps)}
+        if half:
+            row["plain_on"] = "float32"
         libs = [gathered(torch, c) for c in cs]
         row["library_ms"] = device_ms(torch, [lambda a=a: lib(a)
                                               for a in libs])
         row["library_vs_kernel_max_abs"] = float(
             (lib(libs[0]).transpose(1, 2).float()
              - pa.paged_attention_kernel(**case).float()).abs().max())
-        if old:
-            row["tiles_route_ms"] = device_ms(torch, [
-                lambda c=c: tiles_route(torch, pa, c) for c in cs])
-            row["tiles_route_max_abs_vs_kernel"] = float(
-                (tiles_route(torch, pa, case).float()
-                 - pa.paged_attention_kernel(**case).float()).abs().max())
         row["bound_ms"], row["bound_by"] = k3_bound(case)
         del cs, libs
         torch.cuda.empty_cache()
@@ -887,9 +1030,14 @@ def phase_kernel(torch, pa):
     err = check("bfloat16_w1_serving", case, 2e-2)
     wide = serving_case(torch, 32, seed=32)
     err_w32 = check("bfloat16_w32_serving", wide, 2e-2)
-    decode = times(case, old=True)
+    decode = times(case)
     chunk = times(wide)
-    maxlen = times(kernel_case(torch, torch.bfloat16, 1, seed=1), old=True)
+    maxlen = times(kernel_case(torch, torch.bfloat16, 1, seed=1))
+    # the f16 serving chunk (the same kernel in f16)
+    f16w = {k: v.half() if v.is_floating_point() else v
+            for k, v in wide.items()}
+    f16_w32 = dict(times(f16w), max_abs_err=check("float16_w32_serving",
+                                                  f16w, 2e-2))
     # a 128-row prefill chunk over pages of 128 (the wide paged engine's),
     # beside SDPA with the offset-causal mask over the gathered K/V
     w128 = times(kernel_case(torch, torch.bfloat16, 128, seed=129, P=128,
@@ -901,26 +1049,15 @@ def phase_kernel(torch, pa):
                                  plain_reps=2)
              for D in (128, 256)
              for w, kw in ((32, {}), (128, dict(P=128, maxp=4)))}
-    # the shapes the TMA kernels leave to the mma.sync copies and to the
-    # scalar kernel (by route), each checked and timed beside its bound and
-    # SDPA
-    kept = {}
-    for name, c in (
-            ("bf16_p12_w32", kernel_case(torch, torch.bfloat16, 32, seed=44,
-                                         P=12, maxp=40)),
-            ("bf16_d36_w32", kernel_case(torch, torch.bfloat16, 32, seed=68,
-                                         D=36)),
-            ("bf16_d260_w32", kernel_case(torch, torch.bfloat16, 32,
-                                          seed=292, D=260, maxp=8)),
-            ("f32_d320_w32", kernel_case(torch, torch.float32, 32, seed=352,
-                                         D=320, maxp=8)),
-            ("f32_p12_w32", kernel_case(torch, torch.float32, 32, seed=43,
-                                        P=12, maxp=40)),
-            ("bf16_d36_w1", kernel_case(torch, torch.bfloat16, 1, seed=37,
-                                        D=36))):
-        e = check(f"kept_{name}", c, 2e-5 if "f32" in name else 2e-2)
-        kept[name] = dict(times(c, plain_reps=2), max_abs_err=e,
-                          kernel=checks[-1]["kernel"])
+    # the shapes the retired kernels ran (the scalar kernel and the
+    # mma.sync copies), each on its route now, checked and timed beside its
+    # bound and SDPA
+    retired = {}
+    for name, c in k3_retired_cases(torch).items():
+        e = check(f"retired_{name}", c, 2e-5 if "f32" in name else 2e-2)
+        retired[name] = dict(times(c, plain_reps=2), max_abs_err=e,
+                             kernel=checks[-1]["kernel"])
+        del c
     # the f32 prefill kernel at the f32 serving cross-check's chunk (the
     # serving run's pool and tables in f32) and at the f32 paged_wide
     # engine's chunk of 128 over pages of 128; SDPA in f32, TF32 off
@@ -934,12 +1071,13 @@ def phase_kernel(torch, pa):
     emit({"phase": "paged", "checks": checks, "invariance": invariance,
           "decode_w1_serving": decode, "chunk_w32_serving": chunk,
           "decode_w1_maxlen": maxlen, "chunk_w128_p128": w128,
-          "chunk_wider": wider, "kept_shapes": kept,
+          "chunk_wider": wider, "retired_shapes": retired,
+          "f16_chunk_w32_serving": f16_w32,
           "f32_chunk_w32_serving": f32_w32, "f32_chunk_w128_p128": f32_w128})
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     err_of = {c["case"]: c["max_abs_err"] for c in checks
               if "max_abs_err" in c}
-    tc = {"w32": dict(chunk, max_abs_err=err_w32),
+    tc = {"w32": dict(chunk, max_abs_err=err_w32), "f16_w32": f16_w32,
           "w128": dict(w128, max_abs_err=err_of["bfloat16_w128_p128"]),
           "d128_w32": dict(wider["d128_w32"],
                            max_abs_err=err_of["bfloat16_d128_w32"]),
@@ -950,14 +1088,13 @@ def phase_kernel(torch, pa):
           "d256_w128": dict(wider["d256_w128"],
                             max_abs_err=err_of["bfloat16_d256_w128_p128"])}
     return ({"max_abs_err": err, **{k: decode[k] for k in keys},
-             "tiles_route_ms": decode["tiles_route_ms"],
-             "maxlen": {k: maxlen[k] for k in keys + ("tiles_route_ms",)}},
+             "maxlen": {k: maxlen[k] for k in keys}},
             {name: {k: row[k] for k in keys + ("max_abs_err",)}
              for name, row in tc.items()},
             {name: {k: row[k] for k in keys + ("max_abs_err",)}
              for name, row in (("w32", f32_w32), ("w128", f32_w128))},
             {name: {k: row[k] for k in keys + ("kernel", "max_abs_err")}
-             for name, row in kept.items()})
+             for name, row in retired.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -3121,8 +3258,8 @@ def phase_serving(torch, pa):
             launches, need)
         assert launches["paged_attention"] == \
             chunk_ticks * cfg.num_layers, launches
-        # by kernel: the chunks on paged TMA + wgmma, the mma.sync tile
-        # kernel and the scalar one never
+        # by kernel: the chunks on paged TMA + wgmma, every other K3
+        # kernel never
         engine_routes_ok({"kernel_launches": by_kernel,
                           "plain_calls": plain["paged_attention_ref"],
                           "chunk_ticks": chunk_ticks,
@@ -3147,7 +3284,7 @@ def phase_serving(torch, pa):
     # f32: the paged engine (kernel) against the dense engine (the plain
     # static-cache path) on the same weights; the paged run's chunks on the
     # f32 prefill kernel (paged TMA + 3xTF32 wgmma), its decode steps on
-    # the split kernel, the scalar kernel and the plain version never
+    # the split kernel, every other K3 kernel and the plain version never
     m32 = GPTForCausalLM(cfg, device=DEV)
     load_jax_state(m32, arrays)
     outs, f32_stats = {}, {}
@@ -3207,7 +3344,7 @@ def counted_run(torch, pa, eng, submit):
 def engine_routes_ok(st, layers, window, chunk_kernel, what):
     """A paged engine run's K3 launches: every chunk tick ran
     ``chunk_kernel`` and every decode step the split kernel, once a layer
-    each; the scalar kernel and the plain version never."""
+    each; every other K3 kernel and the plain version never."""
     got = st["kernel_launches"]
     want = {k: 0 for k in got}
     want[chunk_kernel] = st["chunk_ticks"] * layers
@@ -3330,6 +3467,77 @@ def phase_paged_wide512(torch, pa):
     del model
     torch.cuda.empty_cache()
     return p["kernel_launches"]
+
+
+def phase_paged_p12(torch, pa):
+    """The paged engine over pages of 12 rows, GPT-2-small (12 layers,
+    hidden 768, 12 heads of 64, N(0, 0.02) weights from a numpy seed), 16
+    slots, chunk 32, in bf16 and in f32: no TMA box takes pages of 12 (a
+    box of 4 rows), so its chunks run the gathered instances (bf16
+    ``tiles_tc_g``, f32 ``tiles_tf32_g``), exactly chunk ticks x layers,
+    and its decode steps the split kernel on TMA boxes (rows of 128 bytes:
+    ``split``), exactly decode steps x layers; every other K3 kernel and
+    the plain version 0 times, counts set to 0 just before and read just
+    after; no page in use after the run; 8 requests of 64 prompt tokens x
+    32 new, against the dense engine on the same weights token-exact, or
+    diverging first where the dense model's own margin between the two
+    tokens is within ``BF16_MARGIN`` (bf16) or 1e-3 (f32).  Returns the
+    per-kernel launches of each run."""
+    from paddle_hackathon_tpu_torch.inference import ServingEngine
+    from paddle_hackathon_tpu_torch.models import GPTForCausalLM, gpt_config
+    from paddle_hackathon_tpu_torch.utils import load_jax_state
+    cfg = gpt_config("gpt2-small-en", hidden_dropout_prob=0.0,
+                     attention_dropout_prob=0.0)
+    rng = np.random.RandomState(12)
+    prompts = [rng.randint(0, cfg.vocab_size, 64).astype(np.int32)
+               for _ in range(8)]
+    kw = dict(max_slots=16, max_len=512, chunk=32, decode_window=32)
+    arrays, launched = None, {}
+    for dtype, chunk_kernel, limit in (("bfloat16", "tiles_tc_g",
+                                        BF16_MARGIN),
+                                       ("float32", "tiles_tf32_g", 1e-3)):
+        model = GPTForCausalLM(cfg, device=DEV, dtype=dtype)
+        arrays = arrays or random_weights(model, seed=12)
+        load_jax_state(model, arrays)
+        outs, stats = {}, {}
+        for mode in ("paged", "dense"):
+            extra = {"page_size": 12} if mode == "paged" else {}
+            eng = ServingEngine(model, cache_mode=mode, **kw, **extra)
+            stats[mode] = counted_run(
+                torch, pa, eng,
+                lambda e=eng: [e.submit(p, 32) for p in prompts])
+            outs[mode] = [r.result() for r in stats[mode].pop("requests")]
+            if mode == "paged":
+                engine_routes_ok(stats[mode], cfg.num_layers,
+                                 eng._decode_window, chunk_kernel,
+                                 f"paged engine at pages of 12, {dtype}")
+                eng.drop_prefix_cache()
+                stats[mode]["kv_pages_in_use"] = eng.kv_pages_in_use
+            del eng
+        exact, margins = 0, []
+        for p, a, b in zip(prompts, outs["paged"], outs["dense"]):
+            diff = np.nonzero(a != b)[0]
+            if not len(diff):
+                exact += 1
+                continue
+            k = int(diff[0])
+            margins.append({"position": k - len(p), "margin": margin_at(
+                torch, model, b[:k], int(a[k]), int(b[k]))})
+        emit({"phase": "paged_p12", "dtype": dtype, "page_size": 12,
+              "chunk": 32, "requests": 8, "new_tokens": 32,
+              "token_exact_of_8": exact, "divergences": margins,
+              "margin_limit": limit, **stats})
+        p = stats["paged"]
+        if (p["kv_pages_in_use"]
+                or any(stats["dense"]["kernel_launches"].values())
+                or any(m["margin"] > limit for m in margins)):
+            raise AssertionError(f"paged engine at pages of 12 ({dtype}): "
+                                 f"{exact} of 8 token-exact, {margins}, "
+                                 f"{stats}")
+        launched[dtype] = p["kernel_launches"]
+        del model
+        torch.cuda.empty_cache()
+    return launched
 
 
 def phase_profile(torch, eng, prompts):
@@ -3797,6 +4005,34 @@ def serve_run(torch, eng, prompts, new):
             "forwards": chunk + dec * eng._decode_window}
 
 
+def ab_medians(path):
+    """The ``--ab-medians FILE`` mode: the medians of the device times in
+    the ``--*-ab`` lines of FILE (each line's flat ``ms`` and, where it has
+    them, ``sdpa_ms``), per tree (the line's ``pkg``) and shape, and over
+    all trees for SDPA, beside the bounds the lines give: one JSON line."""
+    import statistics
+    trees, sdpa, bound = {}, {}, {}
+    for ln in open(path):
+        if not ln.startswith("{"):
+            continue
+        d = json.loads(ln)
+        if not (d.get("phase", "").endswith("_ab") and "pkg" in d):
+            continue
+        tree = trees.setdefault(d["pkg"], {})
+        for k, v in d["ms"].items():
+            if isinstance(v, (int, float)):
+                tree.setdefault(k, []).append(v)
+        for k, v in d.get("sdpa_ms", {}).items():
+            sdpa.setdefault(k, []).append(v)
+        bound.update(d.get("bound_ms", {}))
+    med = lambda xs: {k: statistics.median(v)  # noqa: E731
+                      for k, v in xs.items()}
+    emit({"phase": "ab_medians", "file": path,
+          "trees": {pkg: {"runs": max(map(len, t.values())), "ms": med(t)}
+                    for pkg, t in trees.items()},
+          "sdpa_ms": med(sdpa), "bound_ms": bound})
+
+
 def median_run(runs):
     return sorted(runs, key=lambda r: r["wall_s"])[len(runs) // 2]
 
@@ -3943,17 +4179,19 @@ def tc16_ab(torch, runs):
         emit({"phase": "tc16_ab", "pkg": fa.__file__, "run": i, "ms": ms})
 
 
-# K3's shapes of the --k3-ab mode: the two this PR moved (f32 prefill
-# chunks, decode past 256), the shapes whose kernel it left alone (the
-# split decode up to 256, the bf16 tile kernel, the bf16 prefill past 256)
-# and those the scalar kernel keeps (f32 over pages of 12 and past 256,
-# bf16 decode rows that are not 16-byte aligned)
+# K3's shapes of the --k3-ab mode: the f32 prefill chunks and decode past
+# 256, the split decode up to 256, the bf16/f16 chunks on paged TMA +
+# wgmma, and the shapes the retired kernels ran (K3_RETIRED_SHAPES)
 def k3_ab_cases(torch):
     kc = kernel_case
     return {
         "f32_w32_serving": f32_case(serving_case(torch, 32, seed=32)),
         "f32_w128_p128": kc(torch, torch.float32, 128, seed=129, P=128,
                             maxp=4),
+        "f32_d256_w32": kc(torch, torch.float32, 32, seed=288, D=256,
+                           maxp=8),
+        "f32_d512_w32": kc(torch, torch.float32, 32, seed=546, D=512,
+                           maxp=8),
         "bf16_d512_w1": kc(torch, torch.bfloat16, 1, seed=515, D=512,
                            maxp=8),
         "f16_d512_w1": kc(torch, torch.float16, 1, seed=515, D=512, maxp=8),
@@ -3965,10 +4203,6 @@ def k3_ab_cases(torch):
                              maxp=4),
         "bf16_d512_w32": kc(torch, torch.bfloat16, 32, seed=546, D=512,
                             maxp=8),
-        "f32_p12_w32": kc(torch, torch.float32, 32, seed=43, P=12, maxp=40),
-        "f32_d320_w32": kc(torch, torch.float32, 32, seed=352, D=320,
-                           maxp=8),
-        "bf16_d36_w1": kc(torch, torch.bfloat16, 1, seed=37, D=36),
         "f16_w32_serving": {k: v.half() if v.is_floating_point() else v
                             for k, v in serving_case(torch, 32,
                                                      seed=32).items()},
@@ -3978,10 +4212,7 @@ def k3_ab_cases(torch):
                              P=128, maxp=4),
         "bf16_d256_w128": kc(torch, torch.bfloat16, 128, seed=384, D=256,
                              P=128, maxp=4),
-        # shapes TMA boxes cannot take stay on paged_attention_mma
-        "bf16_p12_w32": kc(torch, torch.bfloat16, 32, seed=44, P=12,
-                           maxp=40),
-        "bf16_d36_w32": kc(torch, torch.bfloat16, 32, seed=68, D=36)}
+        **k3_retired_cases(torch)}
 
 
 def k3_ab(torch, runs):
@@ -4006,15 +4237,25 @@ def k3_ab(torch, runs):
     routes = {k: pa.tile_route(c["q"].shape[1], c["q"].shape[3],
                                c["q"].dtype, c["k_pool"].shape[1])
               for k, c in cases.items()}
+    import torch.nn.functional as F
+    retired = {name for name, *_ in K3_RETIRED_SHAPES}
     for i in range(runs):
-        ms = {}
+        ms, sdpa = {}, {}
         for key, case in cases.items():
             cs = copies(case)
             ms[key] = device_ms(torch, [
                 lambda c=c: pa.paged_attention_kernel(**c) for c in cs])
+            if key in retired:                # beside SDPA, this run
+                libs = [gathered(torch, c) for c in cs]
+                sdpa[key] = device_ms(torch, [
+                    lambda a=a: F.scaled_dot_product_attention(
+                        a[0], a[1], a[2], attn_mask=a[3]) for a in libs])
+                del libs
             del cs
+            torch.cuda.empty_cache()
         emit({"phase": "k3_ab", "pkg": pa.__file__, "run": i, "ms": ms,
-              "routes": routes})
+              "sdpa_ms": sdpa, "routes": routes,
+              "bound_ms": {k: k3_bound(cases[k])[0] for k in retired}})
 
 
 K4_AB_MS = (8, 256)
@@ -4286,8 +4527,9 @@ def tc_build(_build, libs, packed):
 
 K2_TC_KERNEL = re.compile(r"(bhd_(?:fwd|dkdv|dq)_tc)ILi(\d+)E")
 K3_SPLIT_KERNEL = re.compile(
-    r"(paged_decode_split(?:_wide)?)I(f|13__nv_bfloat16|6__half)Li(\d+)E")
-K3_TF32_KERNEL = re.compile(r"paged_attention_tf32ILi(\d+)ELi(\d+)E")
+    r"(paged_decode_split(?:_wide(?:_g)?)?)I(f|13__nv_bfloat16|6__half)"
+    r"Li(\d+)E(?:Lb([01])E)?")
+K3_TF32_KERNEL = re.compile(r"paged_attention_tf32ILi(\d+)ELi(\d+)ELb([01])E")
 
 
 def ptxas_notes(_build, lib_names, name):
@@ -4330,24 +4572,30 @@ def k2_tc_build(_build, libs):
 
 
 def k3_tf32_build(_build, libs):
-    """K3's f32 prefill kernel on paged TMA + 3xTF32 wgmma (padded widths
-    64, 128, 256; one or two consumer warpgroups: 5 instances)."""
+    """K3's f32 prefill kernel on 3xTF32 wgmma, its TMA and gathered
+    instances (padded widths 64, 128, 256 and 0, past 256 in 160-column
+    chunks; one or two consumer warpgroups: 12 instances)."""
     def name(ln):
         m = K3_TF32_KERNEL.search(ln)
-        return (f"paged_attention_tf32<{m.group(1)},{m.group(2)}>" if m
+        return (f"paged_attention_tf32<{m.group(1)},{m.group(2)},"
+                f"{'gathered' if m.group(3) == '1' else 'tma'}>" if m
                 else None)
-    return wide_tc_build(_build, libs, ["paged_attention"], name, 5,
+    return wide_tc_build(_build, libs, ["paged_attention"], name, 12,
                          "K3 f32 prefill kernels")
 
 
 def k3_split_build(_build):
     """The split decode kernel's (f32, bf16, f16; widths up to 1 and 15;
-    up to D = 256 and past it, ``paged_decode_split_wide``) ptxas
-    notes."""
+    up to D = 256 and past it, ``paged_decode_split_wide``; TMA and
+    gathered instances) ptxas notes."""
     def name(ln):
         m = K3_SPLIT_KERNEL.search(ln)
-        return (f"{m.group(1)}<{m.group(2).lstrip('0123456789')},"
-                f"{m.group(3)}>") if m else None
+        if not m:
+            return None
+        gathered = m.group(4) == "1" or m.group(1).endswith("_g")
+        return (f"{m.group(1).removesuffix('_g')}<"
+                f"{m.group(2).lstrip('0123456789')},{m.group(3)},"
+                f"{'gathered' if gathered else 'tma'}>")
     return ptxas_notes(_build, ["paged_attention"], name)
 
 
@@ -4423,25 +4671,28 @@ def wide_f32_bwd_build(_build, libs):
 
 
 K3_TC_KERNEL = re.compile(r"paged_attention_tcI(13__nv_bfloat16|6__half)"
-                          r"Li(\d+)ELi(\d+)E")
+                          r"Li(\d+)ELi(\d+)ELb([01])E")
 
 
 def k3_tc_name(ln):
-    """``paged_attention_tc<bf16,64,2>`` (type, output chunk, consumers)
-    from a line naming K3's bf16/f16 prefill kernel on paged TMA + wgmma,
-    or None."""
+    """``paged_attention_tc<bf16,64,2,tma>`` (type, output chunk,
+    consumers, producer) from a line naming K3's bf16/f16 prefill kernel
+    on wgmma, or None."""
     m = K3_TC_KERNEL.search(ln)
     if not m:
         return None
     dtype = "bf16" if "bfloat16" in m.group(1) else "f16"
-    return f"paged_attention_tc<{dtype},{m.group(2)},{m.group(3)}>"
+    producer = "gathered" if m.group(4) == "1" else "tma"
+    return (f"paged_attention_tc<{dtype},{m.group(2)},{m.group(3)},"
+            f"{producer}>")
 
 
 def k3_tc_build(_build, libs):
-    """K3's bf16/f16 prefill kernel on paged TMA + wgmma: output chunks of
-    64 and 128 columns with one or two consumer warpgroups, 256 with one
-    (up to D = 256 one chunk, past it chunks of 256), bf16 and f16: 10."""
-    return wide_tc_build(_build, libs, ["paged_attention"], k3_tc_name, 10,
+    """K3's bf16/f16 prefill kernel on wgmma: output chunks of 64 and 128
+    columns with one or two consumer warpgroups, 256 with one (up to D =
+    256 one chunk, past it chunks of 256), bf16 and f16, the TMA and the
+    gathered producer: 20."""
+    return wide_tc_build(_build, libs, ["paged_attention"], k3_tc_name, 20,
                          "K3 bf16/f16 prefill kernels")
 
 
@@ -4482,6 +4733,9 @@ def k4_build(_build, libs):
 
 
 def main():
+    if "--ab-medians" in sys.argv:
+        ab_medians(sys.argv[sys.argv.index("--ab-medians") + 1])
+        return 0
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4495,7 +4749,8 @@ def main():
                 sys.path.insert(0, args[args.index("--root") + 1])
             emit({"phase": "device", "nvidia_smi": nvidia_smi(),
                   "root": sys.path[0]})
-            mode(torch, int(args[args.index(flag) + 1]))
+            arg = args[args.index(flag) + 1]
+            mode(torch, int(arg))
             return 0
     from paddle_hackathon_tpu_torch.incubate.nn.kernels import _build
     from paddle_hackathon_tpu_torch.incubate.nn.kernels import \
@@ -4515,24 +4770,26 @@ def main():
           "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
+    register_unswizzled(_build)
     libs = _build.build_all()
     # ptxas's register / spill lines, per library built in this run
     ptxas = {lib: [ln.split("info    :")[-1].strip() for ln in log.splitlines()
                    if "Used" in ln or "spill" in ln]
              for lib, log in _build.build_logs.items()}
+    k3_build = {"k3_split_decode": k3_split_build(_build),
+                "k3_tf32": k3_tf32_build(_build, libs),
+                "k3_tc": k3_tc_build(_build, libs)}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library_seconds": _build.build_seconds,
           "libraries": sorted(p.name for p in libs.values()),
           "ptxas": ptxas, "k1": tc_build(_build, libs, True),
           "k2_tc16": tc_build(_build, libs, False),
           "k2_3xtf32": k2_tc_build(_build, libs),
-          "k3_split_decode": k3_split_build(_build),
-          "k3_tf32": k3_tf32_build(_build, libs),
           "k4": k4_build(_build, libs),
           "wide_fwd_tc": wide_fwd_build(_build, libs),
           "wide_bwd_tc": wide_bwd_build(_build, libs),
           "wide_bwd_tc_f32": wide_f32_bwd_build(_build, libs),
-          "k3_tc": k3_tc_build(_build, libs)})
+          **k3_build})
 
     flash = phase_flash(torch, fap, fa)
     flash_launches = phase_train(torch, fap)
@@ -4545,12 +4802,13 @@ def main():
     wide512 = wide512_times(torch, fa, fap, pa)
     emit({"phase": "wide512_times", **wide512})
     phase_dispatch_repairs(torch, fap, pa, qm, wo)
-    k3_decode, k3_tc, k3_f32, k3_kept = phase_kernel(torch, pa)
+    k3_decode, k3_tc, k3_f32, k3_retired = phase_kernel(torch, pa)
     eng, prompts, launches, f32_launches_k3 = phase_serving(torch, pa)
     phase_profile(torch, eng, prompts)
     del eng
     wide_f32_launches = phase_paged_wide(torch, pa)
     k3_wide_launches = phase_paged_wide512(torch, pa)
+    p12_launches = phase_paged_p12(torch, pa)
     max_abs, max_abs_f32 = phase_quant_checks(torch, qm, wo)
     decode, decode_f32, prefill_f32 = phase_quant(torch, qm, wo)
     k4_launches, arrays, prompts = phase_serving_int8(torch, qm)
@@ -4742,24 +5000,47 @@ def main():
             "timed_as": what + "; library: SDPA with the offset-causal "
                         "mask on gathered K/V; bound: bytes or bf16 "
                         "tensor-core products"})
-    # the shapes left to the mma.sync copies and the scalar kernel: no
-    # engine run of this script launches them
-    for kname, key in (("paged_attention_mma_p12", "bf16_p12_w32"),
-                       ("paged_attention_mma_d36", "bf16_d36_w32"),
-                       ("paged_attention_mma_wide_d260", "bf16_d260_w32"),
-                       ("paged_attention_scalar_f32_d320", "f32_d320_w32"),
-                       ("paged_attention_scalar_f32_p12", "f32_p12_w32"),
-                       ("paged_attention_scalar_d36_w1", "bf16_d36_w1")):
-        row = k3_kept[key]
+    # the shapes the retired kernels ran, on the TMA or gathered instance
+    # their route names (launches: the page-12 engine runs for pages of 12,
+    # no engine run of this script at the others), each with its
+    # instance's registers, spills, ptxas notes and HGMMA count
+    tc_g = "paged_attention_tc<bf16,{},1,gathered>"
+    tf32 = "paged_attention_tf32<{},1,{}>"
+    for kname, key, block, inst, launched in (
+            ("paged_attention_tc_g_p12", "bf16_p12_w32", "k3_tc",
+             tc_g.format(64), p12_launches["bfloat16"]["tiles_tc_g"]),
+            ("paged_attention_tc_g_d36", "bf16_d36_w32", "k3_tc",
+             tc_g.format(64), 0),
+            ("paged_attention_tc_g_d260", "bf16_d260_w32", "k3_tc",
+             tc_g.format(256), 0),
+            ("paged_attention_tf32_d320", "f32_d320_w32", "k3_tf32",
+             tf32.format(0, "tma"), 0),
+            ("paged_attention_tf32_g_p12", "f32_p12_w32", "k3_tf32",
+             tf32.format(64, "gathered"),
+             p12_launches["float32"]["tiles_tf32_g"]),
+            ("paged_attention_tf32_g_d38", "f32_d38_w32", "k3_tf32",
+             tf32.format(64, "gathered"), 0),
+            ("paged_decode_split_g_d36", "bf16_d36_w1", "k3_split_decode",
+             "paged_decode_split<__nv_bfloat16,1,gathered>", 0)):
+        rep = k3_build[block]
+        report = {"instance": inst,
+                  "ptxas": rep.get("kernels", rep).get(inst),
+                  "hgmma": (rep.get("hgmma") or {}).get(inst)}
+        row = k3_retired[key]
         kernels.append({
             "name": kname, "route": "cuda",
             "source": src + "paged_attention.cu",
-            "replaces": ref + "paged_attention.py:175", "launches": 0,
+            "replaces": ref + "paged_attention.py:175",
+            "launches": launched,
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")},
+            **report,
             "timed_as": f"{key} (16 slots, 12 heads; route "
-                        f"{row['kernel']}); library: SDPA with the "
-                        f"offset-causal mask on gathered K/V"})
+                        f"{row['kernel']}); launches: "
+                        + ("the page-12 engine's chunk ticks x layers"
+                           if launched else "no engine run of this script")
+                        + "; library: SDPA with the offset-causal mask on "
+                          "gathered K/V"})
     kernels.append({"name": "quant_matmul", "route": "cuda",
                     "source": src + "quant_matmul.cu",
                     "replaces": ref + "quant_matmul.py:112",

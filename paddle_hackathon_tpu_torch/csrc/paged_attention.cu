@@ -5,86 +5,47 @@
 // _decode_kernel (launched by paged_attention_decode).  It computes the
 // function of paged_attention_ref in the same file, at ANY query width s
 // (the JAX dispatcher sent widths > 1 to the jnp reference; here the chunk
-// prefill goes through this kernel too):
+// prefill goes through these kernels too):
 //
 //   out[b, i, h, :] = softmax_t( q[b, i, h, :] . k[b, t, h, :] / sqrt(D) ) v
 //   over the slot's logical rows t <= lengths[b] + i, where logical row t
 //   lives at physical row page_table[b, t / P] * P + t % P of the pools.
 //
-// Bound: bytes.  A width-1 decode step reads each live K/V row once and
-// does 4 flops per element read (two dot products), far below the ~295
-// flops/byte at which the H100's tensor cores, not its memory, would be
-// the limit.  At the GPT-2-small serving shapes (16 slots x ~128 rows x 12
-// heads x 64 x 2 B x 2 for K and V) a step moves ~6.3 MB per layer, ~1.9 us
-// at 3.35 TB/s; launch and fixed costs dominate that, which is a later
-// change's work (a CUDA graph over the decode step, or fusing the layer).
+// Bound: bytes at decode and at a serving chunk.  A width-1 decode step
+// reads each live K/V row once and does 4 flops per element read (two dot
+// products), far below the ~295 flops/byte at which the H100's tensor
+// cores, not its memory, would be the limit.  At the GPT-2-small serving
+// shapes (16 slots x ~128 rows x 12 heads x 64 x 2 B x 2 for K and V) a
+// step moves ~6.3 MB per layer, ~1.9 us at 3.35 TB/s; launch and fixed
+// costs dominate that (PERF.md).
 //
-// Routing, by the wrapper (paged_attention.py), each kernel counted apart:
-//   * decode widths (s < 16) with 16-byte rows (D * size % 16 == 0), any
-//     dtype and D: the split decode kernel (paged_decode_split, below:
-//     whole-page TMA loads, chunks of 64 rows over blocks, merged in the
+// Routes, by the wrapper (paged_attention.py) and route() below, each
+// counted apart; every (dtype, s, D, P) takes one, and each kernel has a
+// TMA instance and a gathered one that differ in their loads alone:
+//   * decode widths (s < 16), any dtype and D: the split decode kernel
+//     (paged_decode_split: chunks of 64 rows over blocks, merged in the
 //     launch; past D = 256 paged_decode_split_wide, the row in column
-//     slices), through paged_decode_launch;
-//   * everything else through paged_attention_launch: bf16 / f16 widths
-//     from 16 (prefill chunks) the tensor-core kernels (paged TMA + wgmma,
-//     paged_attention_tc, where D % 8 == 0 and pages hold a multiple of 8
-//     rows, else the mma.sync copies, sliced past 256); f32 prefill chunks
-//     up to D = 256 with D % 4 == 0 over such pages paged TMA + 3xTF32
-//     wgmma (paged_attention_tf32); the rest (decode rows not 16-byte
-//     aligned, D = 36 in bf16; f32 prefill past 256, with D % 4 != 0 or
-//     over pages of fewer than 8 rows a box) the scalar kernel.  route()
-//     names the kernel of each shape.
+//     slices) through paged_decode_launch, its rows by whole-page TMA boxes
+//     where they are a multiple of 16 bytes (route "split"), else gathered
+//     (route "split_g": D = 36 in bf16);
+//   * prefill chunks (s >= 16) through paged_attention_launch: bf16 / f16
+//     paged_attention_tc (flash_wide.cuh's wgmma forward with a paged
+//     producer; one output chunk up to 256, 256-column chunks past it),
+//     f32 paged_attention_tf32 (K2's 3xTF32 wgmma forward with a paged
+//     producer; 160-column chunks past 256), each by TMA boxes where D's
+//     rows are a multiple of 16 bytes over pages whose box rows
+//     pow2_part(P) are at least 8 (a 128-byte-swizzled box lands 1024-byte
+//     aligned), else by gathered rows written into the same swizzled tiles
+//     (pages of 12, D = 36, D = 260, f32 D % 4 != 0).
+// The gathered loads (gat::chunk16, below) put what a TMA box would put
+// into the same shared-memory layout, so the consumers, their mask, their
+// summation order and their tolerances are the TMA instances', and the two
+// instances give the same bits at a shape both take.
 // Every launch folds the slot index into grid.x, so any slot count runs.
 //
-// The scalar kernel (simple and right first):
-//   * grid (slots x H x output slices, 1, query tiles): one block of 8
-//     warps per (slot, head, output slice, up to kMaxTileBlocks tiles of
-//     QT = 16 query rows), so a prefill chunk of 128 rows runs 8 blocks
-//     where a decode step runs one.  The block reads its own page ids;
-//     there is no scalar prefetch.
-//   * for each of its query tiles the block walks the slot's logical rows
-//     t <= min(T - 1, lengths[b] + last row of the tile) in stages of 64
-//     rows, which may span several pages: each row finds its page through
-//     the table, so rows past the last live one are neither loaded nor
-//     computed, and the walk never leaves the table (an inactive slot's
-//     stale length with its all-NULL table row reads page 0 only).
-//   * each stage's K and V rows for head h are staged in shared memory
-//     with 16-byte loads (rows sit H*D elements apart in the pool); where a
-//     row is not 16-byte aligned (D * size % 16 != 0, e.g. D = 36 in bf16)
-//     a template flag swaps them for element loads.
-//   * any width s (the query tiles loop), any page size P (a stage's rows
-//     find their pages one by one, so a page longer than a stage is read
-//     in parts) and any D: past 256 in slices of 256 columns, the scores
-//     summed over the slices and each block keeping one output slice (one
-//     slice, and the same work as without the loop, up to 256).
-//   * scores: one warp per key row, lanes split D, shuffle reduction.
-//     Online softmax in f32, one warp per query row, masked rows at -1e30
-//     as in the JAX kernel.  The accumulator is f32 in registers, one
-//     thread per (query row, d) element.  Output is written in q's dtype.
-//   * f32, bf16 and f16 are template instances.
-//   Measured steps on the H100 (PERF.md): one page (16 rows) per step with
-//   4 warps was 2.6x slower at width 1 than these 64-row stages; holding
-//   the next stage in registers during the math, interleaved shuffle
-//   reductions and split accumulators gained nothing measurable, so they
-//   are not kept.  The walk is a serial chain of dependent loads and
-//   barriers per block, which the split decode kernel replaces at decode
-//   widths.
-//
-// Prefill widths (bf16 / f16, s >= 16): flash_wide.cuh's forward with a
-// paged TMA producer (paged_attention_tc, below: one output chunk up to
-// 256 columns, 256-column chunks past it) where TMA boxes can take the
-// rows and pages; the rest on the tensor cores through mma.sync, K2's
-// earlier forward with a paged loader (paged_attention_mma: one block of 4
-// warps per (64 query rows, head, slot), the slot's logical K/V rows
-// gathered through the table 64 at a time with cp.async, double-buffered;
-// past 256 a sliced copy, paged_attention_mma_wide, 128-column slices).
-// The scalar kernel's per-key warp reductions made a 128-row chunk slower
-// than the plain version.  f32 prefill widths up to 256 run K2's 3xTF32
-// forward with the same paged TMA producer (paged_attention_tf32, below).
-//
-// The C entry point launches on the caller's stream, allocates nothing,
-// and returns cudaGetLastError() (0 on success); the Python wrapper raises
-// on anything else.
+// The C entry points launch on the caller's stream, allocate nothing, and
+// return cudaGetLastError() (0 on success); the Python wrapper raises on
+// anything else.
 
 #include <type_traits>
 
@@ -94,16 +55,6 @@
 #include "tf32_tc.cuh"
 
 namespace {
-
-// the scalar kernel (kNegInf, -1e30, is the JAX kernel's mask value)
-constexpr int kThreadsS = 256;
-constexpr int kWarpsS = kThreadsS / 32;
-constexpr int kQTile = 16;                        // query rows per tile
-constexpr int kMaxTileBlocks = 64;                // grid.z cap
-constexpr int kRows = 64;                         // K/V rows per stage
-constexpr int kMaxD = 256;
-constexpr int kMaxDPerLane = kMaxD / 32;          // 8
-constexpr int kMaxAccPerThread = kQTile * kMaxD / kThreadsS;  // 16
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -118,622 +69,126 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// VEC: rows are 16-byte aligned (D * sizeof(T) % 16 == 0) and move as
-// 16-byte vectors; else element by element.
+// the narrowest query block of a prefill chunk: widths below it are decode
+// steps (the split decode kernel), widths from it the chunk kernels
+constexpr int kChunkMin = 16;
+
+// ---------------------------------------------------------------------------
+// Gathered rows: the loads of the gathered instances
+// ---------------------------------------------------------------------------
 //
-// SLICED (D > kMaxD): the width runs in slices of W = kMaxD columns: the
-// scores sum the slices' dot products (q and K staged a slice at a time),
-// and each block keeps one slice of the output, the slice index folded
-// into grid.x, so the scores are recomputed per output slice.  Else one
-// slice of W = D columns: q is staged once per tile, K and V rows
-// together, and the instance compiles to the work of a kernel without the
-// slice loop.
-template <typename T, bool VEC, bool SLICED>
-__global__ void __launch_bounds__(kThreadsS)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                       const T* __restrict__ v_pool,
-                       const int32_t* __restrict__ page_table,
-                       const int32_t* __restrict__ lengths,
-                       T* __restrict__ out, int s, int H, int D, int N, int P,
-                       int maxp, float scale) {
-  const int W = SLICED ? kMaxD : D;              // slice width
-  const int nc = SLICED ? (D + kMaxD - 1) / kMaxD : 1;   // slices
-  const int b = blockIdx.x / (H * nc);           // (slot, head, slice)
-  const int hc = blockIdx.x - b * (H * nc);      // folded: any B
-  const int h = hc / nc, oc = hc - h * nc;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+// Where a TMA box cannot address a pool's rows (a 128-byte-swizzled box
+// lands 1024-byte aligned, so it needs pow2_part(P) >= 8 rows of a page; a
+// map needs 16-byte strides, so D * sizeof(T) % 16 == 0), the threads of a
+// producer gather them: each row finds its page through the slot's table
+// row, and each 16-byte piece of a shared-memory tile is one cp.async of the
+// widest size the row's alignment allows (16, 8 or 4 bytes, the bytes past
+// the row's end or past D filled with zeros by the copy itself), or, for
+// rows only 2-byte aligned (an odd D in bf16 / f16), element loads and one
+// shared store.  A tile so filled holds what the TMA instance's box holds,
+// byte for byte, in the same layout, so the consumers do not change.
+namespace gat {
 
-  // shared layout: K and V stage rows (T, 16-byte aligned rows), query
-  // tile, scores/probabilities, then the per-row softmax state (all f32);
-  // rows of W columns
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* k_s = reinterpret_cast<T*>(smem);
-  T* v_s = k_s + kRows * W;
-  float* q_s = reinterpret_cast<float*>(v_s + kRows * W);
-  float* p_s = q_s + kQTile * W;
-  float* m_s = p_s + kQTile * kRows;
-  float* l_s = m_s + kQTile;
-  float* a_s = l_s + kQTile;
-
-  const int len = lengths[b];
-  const int32_t* pt_row = page_table + (size_t)b * maxp;
-  const long long T_rows = (long long)maxp * P;   // logical rows in a table
-  const size_t row_stride = (size_t)H * D;        // elements between rows
-  const int vec = 16 / sizeof(T);                 // elements per 16 B
-  const int per_row = VEC ? W / vec : W;          // loads per staged row
-
-  // query tile slice c0 -> f32 shared (columns past D are zero)
-  auto stage_q = [&](int i0, int qt, int c0) {
-    for (int e = tid; e < qt * W; e += kThreadsS) {
-      const int i = e / W, c = e - i * W;
-      q_s[e] = !SLICED || c0 + c < D
-                   ? to_f(q[((size_t)(b * s + i0 + i) * H + h) * D + c0 + c])
-                   : 0.f;
-    }
-  };
-  // one staged element (or 16-byte vector): src, or zero past column D
-  auto put = [&](T* dst, const T* src, bool in) {
-    if (VEC)
-      *reinterpret_cast<uint4*>(dst) =
-          in ? *reinterpret_cast<const uint4*>(src) : make_uint4(0, 0, 0, 0);
-    else
-      *dst = in ? *src : from_f<T>(0.f);
-  };
-  // logical rows t0..t0+nr-1 of the pools: K's columns kc.. into k_s and
-  // V's columns vc.. into v_s, in one pass over the rows (a negative
-  // column skips that pool)
-  auto stage_kv = [&](int t0, int nr, int kc, int vc) {
-    for (int e = tid; e < nr * per_row; e += kThreadsS) {
-      const int r = e / per_row, c = (e - r * per_row) * (VEC ? vec : 1);
-      const int t = t0 + r;
-      int page = pt_row[t / P];
-      page = min(max(page, 0), N - 1);           // never read off the pool
-      const size_t g = ((size_t)page * P + t % P) * row_stride +
-                       (size_t)h * D + c;
-      if (kc >= 0)
-        put(k_s + r * W + c, k_pool + g + kc, !SLICED || kc + c < D);
-      if (vc >= 0)
-        put(v_s + r * W + c, v_pool + g + vc, !SLICED || vc + c < D);
-    }
-  };
-
-  for (int i0 = blockIdx.z * kQTile; i0 < s; i0 += gridDim.z * kQTile) {
-    const int qt = min(kQTile, s - i0);
-
-    // fresh softmax state and accumulator; one slice: q staged once
-    if (nc == 1) stage_q(i0, qt, 0);
-    if (tid < kQTile) {
-      m_s[tid] = kNegInf;
-      l_s[tid] = 0.f;
-    }
-    float acc[kMaxAccPerThread];
-#pragma unroll
-    for (int k = 0; k < kMaxAccPerThread; ++k) acc[k] = 0.f;
-
-    // last logical row any query of this tile can see, clamped to the table
-    const int t_last = (int)min(T_rows - 1, (long long)len + i0 + qt - 1);
-
-    for (int t0 = 0; t0 <= t_last; t0 += kRows) {
-      const int nr = min(kRows, t_last - t0 + 1);
-      // scores: warp per key row, lanes over d; the slices' dot products
-      // summed into p_s, scaled and masked with the last slice
-      for (int sl = 0; sl < nc; ++sl) {
-        const int c0 = sl * W;
-        __syncthreads();   // the previous readers are done
-        if (nc > 1) stage_q(i0, qt, c0);
-        stage_kv(t0, nr, c0, nc == 1 ? 0 : -1);
-        __syncthreads();
-        for (int r = warp; r < nr; r += kWarpsS) {
-          float kr[kMaxDPerLane];
-#pragma unroll
-          for (int k = 0; k < kMaxDPerLane; ++k) {
-            const int d = lane + 32 * k;
-            kr[k] = d < W ? to_f(k_s[r * W + d]) : 0.f;
-          }
-          const int kpos = t0 + r;
-          for (int i = 0; i < qt; ++i) {
-            float part = 0.f;
-#pragma unroll
-            for (int k = 0; k < kMaxDPerLane; ++k) {
-              const int d = lane + 32 * k;
-              if (d < W) part += q_s[i * W + d] * kr[k];
-            }
-            part = warp_sum(part);
-            if (lane == 0) {
-              float x = sl == 0 ? part : p_s[i * kRows + r] + part;
-              if (sl == nc - 1)
-                x = (kpos <= len + i0 + i) ? x * scale : kNegInf;
-              p_s[i * kRows + r] = x;
-            }
-          }
-        }
-      }
-      __syncthreads();
-
-      // online softmax: warp per query row
-      for (int i = warp; i < qt; i += kWarpsS) {
-        float mx = kNegInf;
-        for (int r = lane; r < nr; r += 32) mx = fmaxf(mx, p_s[i * kRows + r]);
-        mx = warp_max(mx);
-        const float m_prev = m_s[i];
-        const float m_next = fmaxf(m_prev, mx);
-        float sum = 0.f;
-        for (int r = lane; r < nr; r += 32) {
-          const float p = expf(p_s[i * kRows + r] - m_next);
-          p_s[i * kRows + r] = p;
-          sum += p;
-        }
-        sum = warp_sum(sum);
-        if (lane == 0) {
-          const float alpha = expf(m_prev - m_next);
-          a_s[i] = alpha;
-          l_s[i] = l_s[i] * alpha + sum;
-          m_s[i] = m_next;
-        }
-      }
-      // this block's output slice of the stage's V rows
-      if (nc > 1) stage_kv(t0, nr, -1, oc * W);
-      __syncthreads();
-
-      // acc[i, d] = acc * alpha_i + sum_r p[i, r] * v[r, d]
-#pragma unroll
-      for (int k = 0; k < kMaxAccPerThread; ++k) {
-        const int e = tid + k * kThreadsS;
-        if (e < qt * W) {
-          const int i = e / W, d = e - i * W;
-          float a = acc[k] * a_s[i];
-          for (int r = 0; r < nr; ++r)
-            a += p_s[i * kRows + r] * to_f(v_s[r * W + d]);
-          acc[k] = a;
-        }
-      }
-    }
-
-#pragma unroll
-    for (int k = 0; k < kMaxAccPerThread; ++k) {
-      const int e = tid + k * kThreadsS;
-      const int i = e / W, d = e - i * W;
-      if (e < qt * W && (!SLICED || oc * W + d < D)) {
-        float l = l_s[i];
-        l = l == 0.f ? 1.f : l;                     // the JAX kernel's guard
-        out[((size_t)(b * s + i0 + i) * H + h) * D + oc * W + d] =
-            from_f<T>(acc[k] / l);
-      }
-    }
-    __syncthreads();   // the next tile rewrites q_s and the softmax state
-  }
+// the largest power of two dividing a row of D elements of elem bytes, up
+// to 16: the alignment of every row start and of every 16-byte column piece
+__host__ __device__ inline int row_align(int D, int elem) {
+  const int bytes = D * elem;
+  const int a = bytes & -bytes;
+  return a < 16 ? a : 16;
 }
 
-// ---------------------------------------------------------------------------
-// Query tiles on the tensor cores: bf16 / f16 at widths from kMmaMinWidth
-// (prefill chunks).  K2's mma.sync forward (flash_attention.cu) with a
-// paged loader and the serving mask.
-// ---------------------------------------------------------------------------
-
-constexpr int kMmaMinWidth = 16;
-
-// Rows row0..row0+63 of a 64-row tile into a [64][LD] tile, DP columns:
-// row r of q (B, s, H, D) or logical K/V row t of the pool (at physical
-// row page_table[t / P] * P + t % P, head h).  Rows at or past `end` and
-// columns past D are zero.  AL: every row is 16-byte aligned and each
-// 16-byte chunk is one cp.async; else element reads at the row edge.
-template <typename T, int DP, int LD, bool AL, bool PAGED>
-__device__ __forceinline__ void load_tile(T* tile, const T* base,
-                                          const int32_t* pt_row, int row0,
-                                          int end, int P, int N, int H,
-                                          int h, int D, int tid,
-                                          int col0 = 0) {
-  constexpr int kChunks = DP / 8;
-  for (int e = tid; e < kTile * kChunks; e += kThreads) {
-    const int r = e / kChunks, c = (e - r * kChunks) * 8;
-    T* dst = tile + r * LD + c;
-    const int t = row0 + r, col = col0 + c;
-    const T* src = nullptr;
-    if (t < end && col < D) {
-      size_t row = t;
-      if (PAGED) {
-        const int page = min(max(pt_row[t / P], 0), N - 1);
-        row = (size_t)page * P + t % P;
-      }
-      src = base + (row * H + h) * D + col;
-    }
-    if (AL) {
-      if (src)
-        cp_async16(dst, src);
-      else
-        *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-    } else {
-      alignas(16) uint16_t buf[8] = {};
-      if (src) {
-        const uint16_t* s16 = reinterpret_cast<const uint16_t*>(src);
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          if (col + i < D) buf[i] = s16[i];
-      }
-      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(buf);
-    }
-  }
+template <int N>
+__device__ __forceinline__ void cp_zfill(uint32_t dst, const void* src,
+                                         int have) {
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(have)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
+                 "l"(src), "n"(N), "r"(have)
+                 : "memory");
 }
 
-// One block of 4 warps per (64 query rows, head, slot); each warp owns 16
-// rows.  Query i of slot b sits at position lengths[b] + i and sees the
-// slot's logical rows t <= lengths[b] + i (below the table's end); the
-// block walks the rows any of its queries sees, 64 at a time, double-
-// buffered with cp.async.  Scores and the online softmax in f32 (log2
-// units), P rounded to T before P.V, masked scores at -1e30; a row's
-// first tile always holds its row 0, so its running max is finite and a
-// tile wholly past its position adds exactly 0.
-template <typename T, int DP, bool AL>
-__global__ void __launch_bounds__(kThreads)
-paged_attention_mma(const T* __restrict__ q, const T* __restrict__ k_pool,
-                    const T* __restrict__ v_pool,
-                    const int32_t* __restrict__ page_table,
-                    const int32_t* __restrict__ lengths, T* __restrict__ out,
-                    int s, int H, int D, int N, int P, int maxp,
-                    float scale_log2) {
-  constexpr int kLd = DP + 8;
-  constexpr int kTileEl = kTile * kLd;
-  constexpr int kKs = DP / 16;
-  constexpr bool kQReg = DP <= 128;     // else q fragments from shared
-  const int n_qt = (s + kTile - 1) / kTile;
-  const int b = blockIdx.x / n_qt;            // (slot, tile) folded: any B
-  const int i0 = (blockIdx.x - b * n_qt) * kTile;
-  const int h = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int len = lengths[b];
-  const int32_t* pt_row = page_table + (size_t)b * maxp;
-  const T* qb = q + (size_t)b * s * H * D;
-  // rows any query of this tile sees, clamped to the table
-  const int t_end = (int)min((long long)maxp * P,
-                             (long long)len + min(i0 + kTile, s));
-  const int n_kv = (t_end + kTile - 1) / kTile;
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* q_s = reinterpret_cast<T*>(smem);
-  T* k_s = q_s + kTileEl;                     // two buffers
-  T* v_s = k_s + 2 * kTileEl;                 // two buffers
-
-  auto load_kv = [&](int j, int buf) {
-    load_tile<T, DP, kLd, AL, true>(k_s + buf * kTileEl, k_pool, pt_row,
-                                    j * kTile, t_end, P, N, H, h, D, tid);
-    load_tile<T, DP, kLd, AL, true>(v_s + buf * kTileEl, v_pool, pt_row,
-                                    j * kTile, t_end, P, N, H, h, D, tid);
-  };
-  load_tile<T, DP, kLd, AL, false>(q_s, qb, nullptr, i0, s, P, N, H, h, D,
-                                   tid);
-  load_kv(0, 0);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-
-  uint32_t qf[kQReg ? kKs : 1][4];
-  if (kQReg) {
-#pragma unroll
-    for (int kk = 0; kk < kKs; ++kk)
-      load_a<T>(qf[kk], q_s, kLd, warp * 16, kk * 16, lane);
-  }
-  float acc[DP / 8][4];
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  float m_r[2] = {kNegInf, kNegInf};
-  float l_r[2] = {0.f, 0.f};                  // this thread's partial sums
-  const int row_a = i0 + warp * 16 + gq;      // rows of c[0..1] / c[2..3]
-  const int rows[2] = {row_a, row_a + 8};
-
-  for (int j = 0; j < n_kv; ++j) {
-    const int buf = j & 1;
-    if (j > 0) {
-      cp_async_wait_all();
-      __syncthreads();
-    }
-    if (j + 1 < n_kv) {                       // prefetch the next kv tile
-      load_kv(j + 1, buf ^ 1);
-      cp_async_commit();
-    }
-    const T* kt = k_s + buf * kTileEl;
-    const T* vt = v_s + buf * kTileEl;
-
-    float sc[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kKs; ++kk) {
-      uint32_t qs[4];
-      if (!kQReg) load_a<T>(qs, q_s, kLd, warp * 16, kk * 16, lane);
-      const uint32_t* qa = kQReg ? qf[kk] : qs;
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bk[4];
-        load_b_nk<T>(bk, kt, kLd, np * 16, kk * 16, lane);
-        mma<T>(sc[2 * np], qa, bk);
-        mma<T>(sc[2 * np + 1], qa, bk + 2);
-      }
-    }
-    // scores in log2 units; the mask only where a row of this warp sees
-    // less than the whole tile
-    const int k0 = j * kTile;
-    const bool need_mask = k0 + kTile > t_end ||
-                           k0 + kTile - 1 > len + i0 + warp * 16;
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = sc[n][e] * scale_log2;
-        if (need_mask) {
-          const int t = k0 + n * 8 + 2 * tq + (e & 1);
-          x = (t < t_end && t <= len + rows[e >> 1]) ? x : kNegInf;
-        }
-        sc[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_next = fmaxf(m_r[r], mx[r]);
-      alpha[r] = exp2f(m_r[r] - m_next);
-      m_r[r] = m_next;
-      l_r[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(sc[n][e] - m_r[e >> 1]);
-        l_r[e >> 1] += p;
-        sc[n][e] = p;
-      }
-#pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {          // 16 kv rows per step
-      uint32_t pa[4];
-      pa[0] = pack2<T>(sc[2 * kk][0], sc[2 * kk][1]);
-      pa[1] = pack2<T>(sc[2 * kk][2], sc[2 * kk][3]);
-      pa[2] = pack2<T>(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
-      pa[3] = pack2<T>(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
-#pragma unroll
-      for (int dp = 0; dp < DP / 16; ++dp) {
-        uint32_t bv[4];
-        load_b_kn<T>(bv, vt, kLd, kk * 16, dp * 16, lane);
-        mma<T>(acc[2 * dp], pa, bv);
-        mma<T>(acc[2 * dp + 1], pa, bv + 2);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
-    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
-  }
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n) {
-    const int d = n * 8 + 2 * tq;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (rows[r] < s) {
-        const float l = l_r[r] == 0.f ? 1.f : l_r[r];  // the JAX guard
-        T* o = out + (((size_t)b * s + rows[r]) * H + h) * D + d;
-        if (d < D) o[0] = from_f<T>(acc[n][2 * r] / l);
-        if (d + 1 < D) o[1] = from_f<T>(acc[n][2 * r + 1] / l);
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Head widths past kMaxD on the tensor cores (bf16 / f16 prefill widths):
-// paged_attention_mma with the width in slices of kWideW columns.  The
-// scores sum their slices of q and k (staged in turn), and each block
-// keeps one slice of the output, the slice index folded into grid.x, so
-// the scores are recomputed per output slice.  Shared memory and
-// registers do not grow with D.
-// ---------------------------------------------------------------------------
-
-constexpr int kWideW = 128;
-
-template <typename T, bool AL>
-__global__ void __launch_bounds__(kThreads)
-paged_attention_mma_wide(const T* __restrict__ q,
-                         const T* __restrict__ k_pool,
-                         const T* __restrict__ v_pool,
-                         const int32_t* __restrict__ page_table,
-                         const int32_t* __restrict__ lengths,
-                         T* __restrict__ out, int s, int H, int D, int N,
-                         int P, int maxp, float scale_log2) {
-  constexpr int kLd = kWideW + 8;
-  constexpr int kTileEl = kTile * kLd;
-  constexpr int kKs = kWideW / 16;
-  const int nc = (D + kWideW - 1) / kWideW;
-  const int n_x = (s + kTile - 1) / kTile * nc;
-  const int b = blockIdx.x / n_x;             // (slot, tile, slice) folded
-  const int xi = blockIdx.x - b * n_x;
-  const int i0 = xi / nc * kTile, oc = xi % nc;
-  const int h = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int len = lengths[b];
-  const int32_t* pt_row = page_table + (size_t)b * maxp;
-  const T* qb = q + (size_t)b * s * H * D;
-  const int t_end = (int)min((long long)maxp * P,
-                             (long long)len + min(i0 + kTile, s));
-  const int n_kv = (t_end + kTile - 1) / kTile;
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* q_s = reinterpret_cast<T*>(smem);
-  T* k_s = q_s + kTileEl;
-  T* v_s = k_s + kTileEl;
-
-  float acc[kWideW / 8][4];
-#pragma unroll
-  for (int n = 0; n < kWideW / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  float m_r[2] = {kNegInf, kNegInf};
-  float l_r[2] = {0.f, 0.f};
-  const int row_a = i0 + warp * 16 + gq;
-  const int rows[2] = {row_a, row_a + 8};
-
-  for (int j = 0; j < n_kv; ++j) {
-    const int k0 = j * kTile;
-    float sc[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
-    for (int sl = 0; sl < nc; ++sl) {
-      __syncthreads();                        // the last readers are done
-      load_tile<T, kWideW, kLd, AL, false>(q_s, qb, nullptr, i0, s, P, N, H,
-                                           h, D, tid, sl * kWideW);
-      load_tile<T, kWideW, kLd, AL, true>(k_s, k_pool, pt_row, k0, t_end, P,
-                                          N, H, h, D, tid, sl * kWideW);
-      cp_async_commit();
-      cp_async_wait_all();
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kKs; ++kk) {
-        uint32_t qa[4];
-        load_a<T>(qa, q_s, kLd, warp * 16, kk * 16, lane);
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          uint32_t bk[4];
-          load_b_nk<T>(bk, k_s, kLd, np * 16, kk * 16, lane);
-          mma<T>(sc[2 * np], qa, bk);
-          mma<T>(sc[2 * np + 1], qa, bk + 2);
-        }
-      }
-    }
-    load_tile<T, kWideW, kLd, AL, true>(v_s, v_pool, pt_row, k0, t_end, P, N,
-                                        H, h, D, tid, oc * kWideW);
-    cp_async_commit();
-    const bool need_mask = k0 + kTile > t_end ||
-                           k0 + kTile - 1 > len + i0 + warp * 16;
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = sc[n][e] * scale_log2;
-        if (need_mask) {
-          const int t = k0 + n * 8 + 2 * tq + (e & 1);
-          x = (t < t_end && t <= len + rows[e >> 1]) ? x : kNegInf;
-        }
-        sc[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_next = fmaxf(m_r[r], mx[r]);
-      alpha[r] = exp2f(m_r[r] - m_next);
-      m_r[r] = m_next;
-      l_r[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(sc[n][e] - m_r[e >> 1]);
-        l_r[e >> 1] += p;
-        sc[n][e] = p;
-      }
-#pragma unroll
-    for (int n = 0; n < kWideW / 8; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
-    cp_async_wait_all();
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack2<T>(sc[2 * kk][0], sc[2 * kk][1]);
-      pa[1] = pack2<T>(sc[2 * kk][2], sc[2 * kk][3]);
-      pa[2] = pack2<T>(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
-      pa[3] = pack2<T>(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
-#pragma unroll
-      for (int dp = 0; dp < kWideW / 16; ++dp) {
-        uint32_t bv[4];
-        load_b_kn<T>(bv, v_s, kLd, kk * 16, dp * 16, lane);
-        mma<T>(acc[2 * dp], pa, bv);
-        mma<T>(acc[2 * dp + 1], pa, bv + 2);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
-    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
-  }
-#pragma unroll
-  for (int n = 0; n < kWideW / 8; ++n) {
-    const int d = oc * kWideW + n * 8 + 2 * tq;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (rows[r] < s) {
-        const float l = l_r[r] == 0.f ? 1.f : l_r[r];  // the JAX guard
-        T* o = out + (((size_t)b * s + rows[r]) * H + h) * D + d;
-        if (d < D) o[0] = from_f<T>(acc[n][2 * r] / l);
-        if (d + 1 < D) o[1] = from_f<T>(acc[n][2 * r + 1] / l);
-      }
-    }
-  }
-}
-
-// bf16 / f16 prefill widths past kMaxD: the sliced tensor-core kernel
+// 16 bytes at dst (shared, 16-byte aligned): the first `have` bytes (0 to
+// 16) from src (global, al-byte aligned), zeros after.  src must be a
+// valid address even where have == 0 (nothing is read there).  With al >=
+// 4 the copy is asynchronous: it lands by the thread's next wait_group or
+// cp.async arrive.
 template <typename T>
-int launch_mma_wide(const void* q, const void* k_pool, const void* v_pool,
-                    const void* page_table, const void* lengths, void* out,
-                    int B, int s, int H, int D, int N, int P, int maxp,
-                    float scale, cudaStream_t stream) {
-  const long long gx = (long long)(s + kTile - 1) / kTile *
-                       ((D + kWideW - 1) / kWideW) * B;
-  if (gx > 0x7FFFFFFFLL) return -1;
-  const size_t smem = 3 * (size_t)kTile * (kWideW + 8) * sizeof(T);
-  auto f = D % 8 == 0 ? paged_attention_mma_wide<T, true>
-                      : paged_attention_mma_wide<T, false>;
-  int err = prepare(f, smem);
-  if (err) return err;
-  f<<<dim3((unsigned)gx, H), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), static_cast<const int32_t*>(page_table),
-      static_cast<const int32_t*>(lengths), static_cast<T*>(out), s, H, D, N,
-      P, maxp, scale * kLog2e);
-  return (int)cudaGetLastError();
+__device__ __forceinline__ void chunk16(unsigned char* dst, const T* src,
+                                        int have, int al) {
+  const uint32_t d = hopper::smem_u32(dst);
+  const unsigned char* s = reinterpret_cast<const unsigned char*>(src);
+  if (al >= 16) {
+    cp_zfill<16>(d, s, have);
+  } else if (al == 8) {
+#pragma unroll
+    for (int o = 0; o < 16; o += 8)
+      cp_zfill<8>(d + o, have > o ? s + o : s, min(max(have - o, 0), 8));
+  } else if (al == 4) {
+#pragma unroll
+    for (int o = 0; o < 16; o += 4)
+      cp_zfill<4>(d + o, have > o ? s + o : s, min(max(have - o, 0), 4));
+  } else {                                 // 2-byte rows
+    const uint16_t* h = reinterpret_cast<const uint16_t*>(src);
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (2 * i < have) w[i >> 1] |= (uint32_t)__ldg(h + i) << (16 * (i & 1));
+    asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(d),
+                 "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3])
+                 : "memory");
+  }
 }
+
+__device__ __forceinline__ void commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// one of bar's expected arrivals, made once this thread's copies so far
+// have landed (cp.async's own arrive where the copies were asynchronous,
+// else an arrive after the thread's shared stores); the data is then read
+// by generic loads (ld.shared), not by the async proxy
+__device__ __forceinline__ void arrive_landed(uint64_t* bar, int al) {
+  if (al >= 4)
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                     hopper::smem_u32(bar))
+                 : "memory");
+  else
+    hopper::mbar_arrive(bar);
+}
+
+// the 16-byte chunk position of logical chunk c of row r in a
+// 128-byte-swizzled tile (a TMA box's layout)
+__device__ __forceinline__ int swz(int c, int r) {
+  return c ^ (r & 7);
+}
+
+// pool row of logical row t of a slot whose table row is pt_row: its page
+// (clamped to the pool) times P plus its place in the page
+__device__ __forceinline__ int pool_row(const int32_t* pt_row, int t, int P,
+                                        int N) {
+  return min(max(pt_row[t / P], 0), N - 1) * P + t % P;
+}
+
+}  // namespace gat
 
 // ---------------------------------------------------------------------------
 // Decode widths on Hopper: split paged decoding on whole-page TMA loads
 // ---------------------------------------------------------------------------
 //
-// Widths below kMmaMinWidth (decode steps), D <= 256, rows a multiple of
-// 16 bytes.  Each pool is a 2-D (N*P rows, H*D columns) TMA map; one box
-// is Pb rows of a group of G heads (G*D <= 256 columns): Pb the largest
-// power of two that divides P, up to a chunk, so a box never leaves its
-// page and a chunk is whole boxes (the JAX kernel's whole-page DMA, with
-// heads grouped to fit a box).  One block per (slot, head group, chunk of
-// kR logical rows): the chunk count is the table's (maxp * P / kR), and a
-// chunk past the slot's last visible row exits at once, so the work of a
+// Widths below kChunkMin (decode steps), D <= 256.  Where rows are a
+// multiple of 16 bytes each pool is a 2-D (N*P rows, H*D columns) TMA map;
+// one box is Pb rows of a group of G heads (G*D <= 256 columns): Pb the
+// largest power of two that divides P, up to a chunk, so a box never leaves
+// its page and a chunk is whole boxes (the JAX kernel's whole-page DMA,
+// with heads grouped to fit a box).  One block per (slot, head group, chunk
+// of kR logical rows): the chunk count is the table's (maxp * P / kR), and
+// a chunk past the slot's last visible row exits at once, so the work of a
 // slot follows its own length only.  The slot's length and the chunk's page
 // ids are read in one round trip; thread 0 then loads the chunk's K boxes
 // on one mbarrier and its V boxes on another, so the scores run while V
@@ -749,6 +204,13 @@ int launch_mma_wide(const void* q, const void* k_pool, const void* v_pool,
 // time): one summation order an output, the same for a slot alone or
 // among others, and for repeats.  Decode steps (width 1) run an instance
 // without the loops over queries.
+// Rows that are not a multiple of 16 bytes (D = 36 in bf16) run the
+// gathered instance (GATHER): the same blocks, chunks, scores, P.V and
+// merge, its chunk's rows gathered by all the threads (gat::chunk16) into
+// the same barriers, a head's row padded in shared memory to hs columns
+// (the next multiple of 16 bytes, zeros past D, q's pad zero too) so that
+// the scores read whole 16-byte chunks; the page id of every row of the
+// chunk is read beside the length (a "box" of one row).
 // Bound: bytes (each live K/V row read once; 4 flops an element).  At the
 // serving geometry a block is one chain of dependent steps (length and
 // pages, TMA, scores, P.V, partial, count, merge), so latency, not bytes,
@@ -757,7 +219,7 @@ namespace split {
 
 constexpr int kR = 64;                       // logical rows of a chunk
 constexpr int kThreads = 256;
-constexpr int kMaxW = kMmaMinWidth - 1;      // widths below the mma kernel's
+constexpr int kMaxW = kChunkMin - 1;         // widths below a chunk's
 constexpr int kMaxCols = 256;                // columns of a group's row
 constexpr int kMaxG = 8;                     // heads of a group
 constexpr int kPairs = kMaxG * kR / kThreads;   // (row, head) pairs a thread
@@ -800,8 +262,17 @@ struct Geo {
   int s, H, D, N, P, maxp, G, ng, nch;
   int pb, pb_log, bstride;                   // box rows, log2, box stride
   int ns, cw;                                // past kMaxCols: column slices
+  int hs;                                    // a head's columns in shared
+  int al;                                    // gathered: the rows' alignment
   float scale_log2;
 };
+
+// the columns of a head's row in the split kernel's shared memory: D, or
+// (gathered, rows not 16-byte aligned) D rounded up to 16 bytes
+__host__ __device__ inline int head_cols(int D, int elem) {
+  const int v = 16 / elem;
+  return (D * elem) % 16 == 0 ? D : (D + v - 1) / v * v;
+}
 
 // The last arriving block's merge of one output column: the chunks 0, 1,
 // ..., nlive - 1 in order, m = max m_c, l = sum l_c 2^(m_c - m), acc = sum
@@ -849,12 +320,16 @@ __device__ __forceinline__ void merge_column(const float* part_o,
 }
 
 // W: the widest query block the instance takes, 1 (decode steps) or
-// kMaxW (its loops over the queries guarded by the width).
-template <typename T, int W>
+// kMaxW (its loops over the queries guarded by the width).  GATHER: the
+// gathered instance (rows not 16-byte aligned; the maps are unused, the
+// pools read through k_pool and v_pool).
+template <typename T, int W, bool GATHER>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_split(const __grid_constant__ CUtensorMap k_map,
                    const __grid_constant__ CUtensorMap v_map,
                    const T* __restrict__ q,
+                   const T* __restrict__ k_pool,
+                   const T* __restrict__ v_pool,
                    const int32_t* __restrict__ page_table,
                    const int32_t* __restrict__ lengths, T* __restrict__ out,
                    float* __restrict__ part_o, float* __restrict__ part_ml,
@@ -868,11 +343,14 @@ paged_decode_split(const __grid_constant__ CUtensorMap k_map,
   const int s = W == 1 ? 1 : g.s;
   const int t0 = c * kR;
   __shared__ int s_len, s_page[kR], is_last;
-  // the length and the chunk's page ids in one round trip
+  // the length and the chunk's page ids (gathered: one a row) in one round
+  // trip
   if (tid == 0) {
     s_len = lengths[b];
-    asm volatile("prefetch.tensormap [%0];" ::"l"(&k_map) : "memory");
-    asm volatile("prefetch.tensormap [%0];" ::"l"(&v_map) : "memory");
+    if (!GATHER) {
+      hopper::prefetch_tensormap(&k_map);
+      hopper::prefetch_tensormap(&v_map);
+    }
   } else if (tid >= 32 && tid < 32 + (kR >> g.pb_log)) {
     const int pi = (t0 + ((tid - 32) << g.pb_log)) / g.P;
     s_page[tid - 32] =
@@ -887,9 +365,11 @@ paged_decode_split(const __grid_constant__ CUtensorMap k_map,
   if (t0 >= t_end) return;
   const int nr = min(kR, t_end - t0);
   const int nlive = (t_end + kR - 1) / kR;
+  const int hs = GATHER ? g.hs : g.D;       // a head's row in shared
   const int GD = g.G * g.D;
+  const int GS = g.G * hs;                   // a group's row in shared
   const int HD = g.H * g.D;
-  const int row_bytes = GD * (int)sizeof(T);
+  const int row_bytes = GS * (int)sizeof(T);
   // byte offset of chunk row r in a staged tile
   auto row_at = [&](int r) {
     return (r >> g.pb_log) * g.bstride + (r & (g.pb - 1)) * row_bytes;
@@ -900,7 +380,7 @@ paged_decode_split(const __grid_constant__ CUtensorMap k_map,
       smem_raw + ((128 - (hopper::smem_u32(smem_raw) & 127)) & 127);
   unsigned char* v_s = k_s + (kR / g.pb) * g.bstride;
   float* q_s = reinterpret_cast<float*>(v_s + (kR / g.pb) * g.bstride);
-  float* p_s = q_s + s * GD;                 // [s][G][kR]
+  float* p_s = q_s + s * GS;                 // [s][G][kR]
   float* red_m = p_s + s * g.G * kR;         // [s][G][2 warps of rows]
   float* red_l = red_m + s * g.G * 2;
   uint64_t* bar = reinterpret_cast<uint64_t*>(red_l + s * g.G * 2 + 1);
@@ -908,31 +388,67 @@ paged_decode_split(const __grid_constant__ CUtensorMap k_map,
       (reinterpret_cast<uintptr_t>(bar) + 7) & ~uintptr_t(7));
 
   if (tid == 0) {
-    hopper::mbar_init(bar, 1);
-    hopper::mbar_init(bar + 1, 1);
+    hopper::mbar_init(bar, GATHER ? kThreads : 1);
+    hopper::mbar_init(bar + 1, GATHER ? kThreads : 1);
     hopper::mbar_fence_init();
-    const int nbox = (nr + g.pb - 1) >> g.pb_log;
-    const uint32_t bytes = (uint32_t)(nbox * g.pb * row_bytes);
-    hopper::mbar_arrive_expect_tx(bar, bytes);
-    hopper::mbar_arrive_expect_tx(bar + 1, bytes);
-    for (int j = 0; j < nbox; ++j) {         // a box stays in its page
-      const int row = s_page[j] * g.P + (t0 + (j << g.pb_log)) % g.P;
-      hopper::tma_load_2d(k_s + j * g.bstride, &k_map, bar, h0 * g.D, row);
-      hopper::tma_load_2d(v_s + j * g.bstride, &v_map, bar + 1, h0 * g.D,
-                          row);
+    if (!GATHER) {
+      const int nbox = (nr + g.pb - 1) >> g.pb_log;
+      const uint32_t bytes = (uint32_t)(nbox * g.pb * row_bytes);
+      hopper::mbar_arrive_expect_tx(bar, bytes);
+      hopper::mbar_arrive_expect_tx(bar + 1, bytes);
+      for (int j = 0; j < nbox; ++j) {       // a box stays in its page
+        const int row = s_page[j] * g.P + (t0 + (j << g.pb_log)) % g.P;
+        hopper::tma_load_2d(k_s + j * g.bstride, &k_map, bar, h0 * g.D,
+                            row);
+        hopper::tma_load_2d(v_s + j * g.bstride, &v_map, bar + 1, h0 * g.D,
+                            row);
+      }
     }
   }
-  // the group's queries in f32 (heads past H zero)
-  for (int e = tid; e < s * GD; e += kThreads) {
-    const int i = e / GD, col = h0 * g.D + e - i * GD;
-    q_s[e] = col < HD ? to_f(q[((size_t)b * s + i) * HD + col]) : 0.f;
+  if constexpr (GATHER) {
+    // the chunk's live rows, K then V, each head's row padded to hs
+    // columns with zeros (heads past H zero), by every thread
+    __syncthreads();                         // the barriers initialised
+    const int cpr = hs * (int)sizeof(T) / 16;     // chunks of a head's row
+    auto fill = [&](unsigned char* tile, const T* pool, uint64_t* full) {
+      for (int e = tid; e < nr * g.G * cpr; e += kThreads) {
+        const int r = e / (g.G * cpr), x = e - r * (g.G * cpr);
+        const int gh = x / cpr, col = (x - gh * cpr) * kVec;
+        const int row = s_page[r] * g.P + (t0 + r) % g.P;
+        const int have = h0 + gh < g.H
+                             ? min(max((g.D - col) * (int)sizeof(T), 0), 16)
+                             : 0;
+        gat::chunk16(tile + row_at(r) + (gh * hs + col) * (int)sizeof(T),
+                     have ? pool + ((size_t)row * g.H + h0 + gh) * g.D + col
+                          : pool,
+                     have, g.al);
+      }
+      gat::arrive_landed(full, g.al);
+    };
+    fill(k_s, k_pool, bar);
+    fill(v_s, v_pool, bar + 1);
+  }
+  // the group's queries in f32 (heads past H zero; gathered: each head's
+  // row padded to hs columns, zeros past D)
+  if constexpr (GATHER) {
+    for (int e = tid; e < s * GS; e += kThreads) {
+      const int i = e / GS, x = e - i * GS, gh = x / hs, d = x - gh * hs;
+      q_s[e] = d < g.D && h0 + gh < g.H
+                   ? to_f(q[((size_t)b * s + i) * HD + (h0 + gh) * g.D + d])
+                   : 0.f;
+    }
+  } else {
+    for (int e = tid; e < s * GD; e += kThreads) {
+      const int i = e / GD, col = h0 * g.D + e - i * GD;
+      q_s[e] = col < HD ? to_f(q[((size_t)b * s + i) * HD + col]) : 0.f;
+    }
   }
   __syncthreads();                           // barriers and q_s ready
   hopper::mbar_wait(bar, 0);
 
   // scores, one thread per (row r, head gh) pair, pair = gh * kR + r: a
   // warp's 32 rows share a head; in log2 units, -1e30 where masked
-  const int cph = g.D / kVec;                // 16-byte chunks of a head
+  const int cph = hs / kVec;                 // 16-byte chunks of a head
   float sc[kPairs][W];
 #pragma unroll
   for (int k = 0; k < kPairs; ++k) {
@@ -941,18 +457,18 @@ paged_decode_split(const __grid_constant__ CUtensorMap k_map,
     for (int i = 0; i < W; ++i) sc[k][i] = 0.f;
     if (gh >= g.G) continue;
     if (r < nr) {
-      const unsigned char* row = k_s + row_at(r) + gh * g.D * (int)sizeof(T);
+      const unsigned char* row = k_s + row_at(r) + gh * hs * (int)sizeof(T);
       int j = r % cph;
       for (int n = 0; n < cph; ++n, j = j + 1 == cph ? 0 : j + 1) {
         float kf[kVec];
         unpack16<T>(*reinterpret_cast<const uint4*>(row + 16 * j), kf);
-        const float* qr = q_s + gh * g.D + j * kVec;
+        const float* qr = q_s + gh * hs + j * kVec;
 #pragma unroll
         for (int i = 0; i < W; ++i) {
           if (i < s) {
             float a = sc[k][i];
 #pragma unroll
-            for (int u = 0; u < kVec; ++u) a = fmaf(qr[i * GD + u], kf[u], a);
+            for (int u = 0; u < kVec; ++u) a = fmaf(qr[i * GS + u], kf[u], a);
             sc[k][i] = a;
           }
         }
@@ -993,6 +509,7 @@ paged_decode_split(const __grid_constant__ CUtensorMap k_map,
   const int col = tid;
   const int gh = col / g.D;
   const bool mine = col < GD && h0 + gh < g.H;
+  const int at_s = (col + gh * (hs - g.D)) * (int)sizeof(T);     // in a row
   float acc[W];
 #pragma unroll
   for (int i = 0; i < W; ++i) acc[i] = 0.f;
@@ -1000,8 +517,8 @@ paged_decode_split(const __grid_constant__ CUtensorMap k_map,
     const float* pc = p_s + gh * kR;
 #pragma unroll 4
     for (int r = 0; r < nr; ++r) {
-      const float v = to_f(*reinterpret_cast<const T*>(
-          v_s + row_at(r) + col * (int)sizeof(T)));
+      const float v =
+          to_f(*reinterpret_cast<const T*>(v_s + row_at(r) + at_s));
 #pragma unroll
       for (int i = 0; i < W; ++i)
         if (i < s) acc[i] = fmaf(pc[i * g.G * kR + r], v, acc[i]);
@@ -1078,16 +595,15 @@ constexpr int kStages = 2;                   // ring entries
 constexpr int kSliceBytes = 512;             // a slice's row, at most
 constexpr int kRowWarps = kThreads / 32;     // warps of 8 rows
 
-template <typename T, int W>
-__global__ void __launch_bounds__(kThreads)
-paged_decode_split_wide(const __grid_constant__ CUtensorMap k_map,
-                        const __grid_constant__ CUtensorMap v_map,
-                        const T* __restrict__ q,
-                        const int32_t* __restrict__ page_table,
-                        const int32_t* __restrict__ lengths,
-                        T* __restrict__ out, float* __restrict__ part_o,
-                        float* __restrict__ part_ml,
-                        int* __restrict__ counts, Geo g) {
+// The body of both instances (the maps are the kernel's parameters)
+template <typename T, int W, bool GATHER>
+__device__ __forceinline__ void split_wide(
+    const CUtensorMap& k_map, const CUtensorMap& v_map,
+    const T* __restrict__ q, const T* __restrict__ k_pool,
+    const T* __restrict__ v_pool, const int32_t* __restrict__ page_table,
+    const int32_t* __restrict__ lengths, T* __restrict__ out,
+    float* __restrict__ part_o, float* __restrict__ part_ml,
+    int* __restrict__ counts, const Geo& g) {
   constexpr int kVec = 16 / sizeof(T);       // elements of a 16-byte chunk
   const int c = blockIdx.x % g.nch;
   const int bh = blockIdx.x / g.nch;         // slot * H + head
@@ -1096,11 +612,14 @@ paged_decode_split_wide(const __grid_constant__ CUtensorMap k_map,
   const int s = W == 1 ? 1 : g.s;
   const int t0 = c * kR;
   __shared__ int s_len, s_page[kR], is_last;
-  // the length and the chunk's page ids in one round trip
+  // the length and the chunk's page ids (gathered: one a row) in one round
+  // trip
   if (tid == 0) {
     s_len = lengths[b];
-    hopper::prefetch_tensormap(&k_map);
-    hopper::prefetch_tensormap(&v_map);
+    if (!GATHER) {
+      hopper::prefetch_tensormap(&k_map);
+      hopper::prefetch_tensormap(&v_map);
+    }
   } else if (tid >= 32 && tid < 32 + (kR >> g.pb_log)) {
     const int pi = (t0 + ((tid - 32) << g.pb_log)) / g.P;
     s_page[tid - 32] =
@@ -1133,24 +652,44 @@ paged_decode_split_wide(const __grid_constant__ CUtensorMap k_map,
       (reinterpret_cast<uintptr_t>(full) + 7) & ~uintptr_t(7));
 
   // ring entry e: K's slice e (e < ns), else V's slice e - ns, as the
-  // chunk's boxes (a box stays in its page); thread 0 issues it
+  // chunk's boxes (a box stays in its page), which thread 0 issues; or
+  // (gathered) as the chunk's live rows, which every thread gathers
   auto issue = [&](int e) {
     const int st = e % kStages;
-    hopper::mbar_arrive_expect_tx(full + st,
-                                  (uint32_t)(nbox * g.pb * row_bytes));
-    const CUtensorMap* m = e < g.ns ? &k_map : &v_map;
     const int col = (e < g.ns ? e : e - g.ns) * g.cw;
-    for (int j = 0; j < nbox; ++j) {
-      const int row = s_page[j] * g.P + (t0 + (j << g.pb_log)) % g.P;
-      hopper::tma_load_3d(ring + st * entry + j * g.pb * row_bytes, m,
-                          full + st, col, h, row);
+    unsigned char* ent = ring + st * entry;
+    if constexpr (GATHER) {
+      const T* pool = e < g.ns ? k_pool : v_pool;
+      const int cpr = row_bytes / 16;
+      for (int x = tid; x < nr * cpr; x += kThreads) {
+        const int rr = x / cpr, cc = (x - rr * cpr) * kVec;
+        const int row = s_page[rr] * g.P + (t0 + rr) % g.P;
+        const int have = min(max((g.D - col - cc) * (int)sizeof(T), 0), 16);
+        gat::chunk16(ent + rr * row_bytes + cc * (int)sizeof(T),
+                     have ? pool + ((size_t)row * g.H + h) * g.D + col + cc
+                          : pool,
+                     have, g.al);
+      }
+      gat::arrive_landed(full + st, g.al);
+    } else {
+      hopper::mbar_arrive_expect_tx(full + st,
+                                    (uint32_t)(nbox * g.pb * row_bytes));
+      const CUtensorMap* m = e < g.ns ? &k_map : &v_map;
+      for (int j = 0; j < nbox; ++j) {
+        const int row = s_page[j] * g.P + (t0 + (j << g.pb_log)) % g.P;
+        hopper::tma_load_3d(ent + j * g.pb * row_bytes, m, full + st, col, h,
+                            row);
+      }
     }
   };
   if (tid == 0) {
-    for (int st = 0; st < kStages; ++st) hopper::mbar_init(full + st, 1);
+    for (int st = 0; st < kStages; ++st)
+      hopper::mbar_init(full + st, GATHER ? kThreads : 1);
     hopper::mbar_fence_init();
-    for (int e = 0; e < min(kStages, n_e); ++e) issue(e);
   }
+  if (GATHER) __syncthreads();               // the barriers initialised
+  if (GATHER || tid == 0)
+    for (int e = 0; e < min(kStages, n_e); ++e) issue(e);
 
   // scores, four lanes a row: row r = tid / 4, in log2 units after the
   // slices, -1e30 where masked
@@ -1200,7 +739,7 @@ paged_decode_split_wide(const __grid_constant__ CUtensorMap k_map,
       }
     }
     __syncthreads();                         // the entry and q_s are read
-    if (tid == 0 && sl + kStages < n_e) issue(sl + kStages);
+    if ((GATHER || tid == 0) && sl + kStages < n_e) issue(sl + kStages);
   }
 #pragma unroll
   for (int i = 0; i < W; ++i) {
@@ -1269,7 +808,7 @@ paged_decode_split_wide(const __grid_constant__ CUtensorMap k_map,
       }
     }
     __syncthreads();                         // the entry is read
-    if (tid == 0 && e + kStages < n_e) issue(e + kStages);
+    if ((GATHER || tid == 0) && e + kStages < n_e) issue(e + kStages);
   }
   if (nlive == 1) return;
 
@@ -1292,6 +831,35 @@ paged_decode_split_wide(const __grid_constant__ CUtensorMap k_map,
     merge_column<T>(part_o, part_ml, out, g, b, s, nlive, h, h * g.D + col);
 }
 
+#define SPLIT_WIDE_PARAMS                                                   \
+  const __grid_constant__ CUtensorMap k_map,                                \
+      const __grid_constant__ CUtensorMap v_map, const T* __restrict__ q,   \
+      const T* __restrict__ k_pool, const T* __restrict__ v_pool,           \
+      const int32_t* __restrict__ page_table,                               \
+      const int32_t* __restrict__ lengths, T* __restrict__ out,             \
+      float* __restrict__ part_o, float* __restrict__ part_ml,              \
+      int* __restrict__ counts, Geo g
+#define SPLIT_WIDE_ARGS                                                     \
+  k_map, v_map, q, k_pool, v_pool, page_table, lengths, out, part_o,        \
+      part_ml, counts, g
+
+template <typename T, int W>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_split_wide(SPLIT_WIDE_PARAMS) {
+  split_wide<T, W, false>(SPLIT_WIDE_ARGS);
+}
+
+// The gathered instance, with a block's worth of registers (at ptxas's
+// budget for the TMA instance's bounds the width-15 instances spilled)
+template <typename T, int W>
+__global__ void __launch_bounds__(kThreads, 1)
+paged_decode_split_wide_g(SPLIT_WIDE_PARAMS) {
+  split_wide<T, W, true>(SPLIT_WIDE_ARGS);
+}
+
+#undef SPLIT_WIDE_PARAMS
+#undef SPLIT_WIDE_ARGS
+
 // The column slices of a head's row past kMaxCols: ns slices of cw
 // columns, a slice's row a multiple of 128 bytes up to kSliceBytes
 inline void slices_of(int D, int elem, int* ns, int* cw) {
@@ -1301,7 +869,9 @@ inline void slices_of(int D, int elem, int* ns, int* cw) {
 }
 
 // Dynamic shared memory of the split kernel at width s, head width D,
-// groups of G heads and pages of P rows, elements of elem bytes
+// groups of G heads and pages of P rows, elements of elem bytes (the
+// gathered instance where rows are not a multiple of 16 bytes: rows of G
+// padded heads, one a "box")
 inline size_t smem_bytes(int s, int D, int G, int P, int elem) {
   if (D > kMaxCols) {
     int ns, cw;
@@ -1311,23 +881,49 @@ inline size_t smem_bytes(int s, int D, int G, int P, int elem) {
                             2 * (size_t)kRowWarps * s + 1) +
            8 * kStages + 8 + 128;
   }
-  const int pb = pow2_part(P);
-  const size_t bstride = ((size_t)pb * G * D * elem + 127) / 128 * 128;
+  const int hs = head_cols(D, elem);
+  const bool gather = hs != D;
+  const int pb = gather ? 1 : pow2_part(P);
+  const size_t bstride = gather ? (size_t)G * hs * elem
+                                : ((size_t)pb * G * D * elem + 127) / 128 * 128;
   return 2 * (size_t)(kR / pb) * bstride +
-         sizeof(float) * ((size_t)s * G * D + (size_t)s * G * kR +
+         sizeof(float) * ((size_t)s * G * hs + (size_t)s * G * kR +
                           4 * (size_t)s * G + 1) +
          8 + 16 + 128;
 }
 
-// The decode route: the plan's geometry, both pools' maps, the launch (a
-// group of G heads up to kMaxCols columns, else one head in slices).
+template <int W, bool GATHER, typename T>
+int launch_w(const CUtensorMap& km, const CUtensorMap& vm, const void* q,
+             const void* k_pool, const void* v_pool, const void* page_table,
+             const void* lengths, void* out, void* part_o, void* part_ml,
+             void* counts, const Geo& g, long long gx, size_t smem,
+             cudaStream_t stream) {
+  auto kernel = g.D <= kMaxCols ? paged_decode_split<T, W, GATHER>
+                : GATHER        ? paged_decode_split_wide_g<T, W>
+                                : paged_decode_split_wide<T, W>;
+  const int err = prepare(kernel, smem);
+  if (err) return err;
+  kernel<<<(unsigned)gx, kThreads, smem, stream>>>(
+      km, vm, static_cast<const T*>(q), static_cast<const T*>(k_pool),
+      static_cast<const T*>(v_pool), static_cast<const int32_t*>(page_table),
+      static_cast<const int32_t*>(lengths), static_cast<T*>(out),
+      static_cast<float*>(part_o), static_cast<float*>(part_ml),
+      static_cast<int*>(counts), g);
+  return (int)cudaGetLastError();
+}
+
+// The decode routes: the plan's geometry, both pools' maps (or, for rows
+// not 16 bytes aligned, the gathered instance), the launch (a group of G
+// heads up to kMaxCols columns, else one head in slices).
 template <typename T>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* page_table, const void* lengths, void* out,
            void* part_o, void* part_ml, void* counts, int B, int s, int H,
            int D, int N, int P, int maxp, int G, float scale,
            cudaStream_t stream) {
+  constexpr int kE = (int)sizeof(T);
   const bool wide = D > kMaxCols;
+  const bool gather = (D * kE) % 16 != 0;
   Geo g;
   g.s = s;
   g.H = H;
@@ -1338,17 +934,29 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
   g.G = G;
   g.ng = (H + G - 1) / G;
   g.nch = (int)(((long long)maxp * P + kR - 1) / kR);
-  g.pb = pow2_part(P);
+  g.hs = wide ? D : head_cols(D, kE);
+  g.al = gat::row_align(D, kE);
+  g.pb = gather ? 1 : pow2_part(P);          // gathered: a row's own page
   g.pb_log = __builtin_ctz(g.pb);
-  const int row_bytes = G * D * (int)sizeof(T);
-  g.bstride = (g.pb * row_bytes + 127) / 128 * 128;   // 128-byte box starts
+  const int row_bytes = G * g.hs * kE;
+  g.bstride = gather ? row_bytes                       // dense rows
+                     : (g.pb * row_bytes + 127) / 128 * 128;   // box starts
   g.ns = 1;
   g.cw = G * D;
-  if (wide) slices_of(D, (int)sizeof(T), &g.ns, &g.cw);
+  if (wide) slices_of(D, kE, &g.ns, &g.cw);
   g.scale_log2 = scale * kLog2e;
   const long long gx = (long long)B * g.ng * g.nch;
   if (gx > 0x7FFFFFFFLL || (long long)N * P > 0x7FFFFFFFLL) return -1;
-  CUtensorMap km, vm;
+  const size_t smem = smem_bytes(s, D, G, P, kE);
+  CUtensorMap km{}, vm{};
+  if (gather)
+    return s == 1 ? launch_w<1, true, T>(km, vm, q, k_pool, v_pool,
+                                         page_table, lengths, out, part_o,
+                                         part_ml, counts, g, gx, smem, stream)
+                  : launch_w<kMaxW, true, T>(km, vm, q, k_pool, v_pool,
+                                             page_table, lengths, out, part_o,
+                                             part_ml, counts, g, gx, smem,
+                                             stream);
   int err = wide ? hopper::make_map_rhd<T>(&km, k_pool, (long long)N * P, H,
                                            D, g.cw, g.pb)
                  : hopper::make_map_2d<T>(&km, k_pool, (long long)N * P,
@@ -1361,20 +969,13 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
                                       (long long)H * D, (long long)H * D,
                                       G * D, g.pb);
   if (err) return err;
-  const size_t smem = smem_bytes(s, D, G, P, (int)sizeof(T));
-  auto kernel = wide ? (s == 1 ? paged_decode_split_wide<T, 1>
-                               : paged_decode_split_wide<T, kMaxW>)
-                     : (s == 1 ? paged_decode_split<T, 1>
-                               : paged_decode_split<T, kMaxW>);
-  err = prepare(kernel, smem);
-  if (err) return err;
-  kernel<<<(unsigned)gx, kThreads, smem, stream>>>(
-      km, vm, static_cast<const T*>(q),
-      static_cast<const int32_t*>(page_table),
-      static_cast<const int32_t*>(lengths), static_cast<T*>(out),
-      static_cast<float*>(part_o), static_cast<float*>(part_ml),
-      static_cast<int*>(counts), g);
-  return (int)cudaGetLastError();
+  return s == 1 ? launch_w<1, false, T>(km, vm, q, k_pool, v_pool, page_table,
+                                        lengths, out, part_o, part_ml, counts,
+                                        g, gx, smem, stream)
+                : launch_w<kMaxW, false, T>(km, vm, q, k_pool, v_pool,
+                                            page_table, lengths, out, part_o,
+                                            part_ml, counts, g, gx, smem,
+                                            stream);
 }
 
 }  // namespace split
@@ -1383,15 +984,13 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
 // bf16 / f16 prefill widths on Hopper: paged TMA + wgmma
 // ---------------------------------------------------------------------------
 //
-// bf16 / f16 widths from kMmaMinWidth with rows TMA addresses (D % 8 == 0)
-// over pages whose box rows pb = pow2_part(P) are at least 8: flash_wide.cuh's
-// forward (wide::fwd_tc's consumer pieces, tcw) with a paged producer, in
-// place of the mma.sync copies (paged_attention_mma up to 256, which
-// gathered K/V rows 16 bytes at a time with cp.async into two buffers;
-// paged_attention_mma_wide past it, which re-read q per kv tile and
-// recomputed S per 128-column output slice).  What bounds it: bytes at a
-// prefill chunk of 32 rows (each live K/V row read once a block), the bf16
-// tensor cores as the chunk grows.
+// bf16 / f16 widths from kChunkMin: flash_wide.cuh's forward
+// (wide::fwd_tc's consumer pieces, tcw) with a paged producer, in two
+// instances that differ in the producer alone: TMA where boxes address the
+// rows (D % 8 == 0) over pages whose box rows pb = pow2_part(P) are at least
+// 8, else gathered (GATHER: pages of 12, D = 36, D = 260).  What bounds
+// it: bytes at a prefill chunk of 32 rows (each live K/V row read once a
+// block), the bf16 tensor cores as the chunk grows.
 //
 // Design:
 //   * one block per (slot, KW consecutive 64-row q tiles, head, NC-column
@@ -1401,21 +1000,31 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
 //     runs on columns past the padded width) and 256 past it (chunks each
 //     recomputing S over all of D); KW consumer warpgroups, two up to NC =
 //     128 where the chunk has more than one q tile (each on its own tile,
-//     sharing the K/V boxes), else one; and a producer warp;
-//   * the producer issues every load by TMA: q through a 4-D (B, s, H, D)
-//     map (resident up to D = 1024, else streamed beside each K slice), K
-//     and V through 4-D (1, N P rows, H, D) maps of the pools, so a head's
-//     columns past D arrive as zeros, not the next head's.  A box is pb
-//     rows of 64 columns of one head: it never leaves its page, and a
-//     64-row kv tile is 64 / pb boxes found through the slot's page ids
-//     (the first tile's read beside the length, in one round trip: a
-//     serving chunk of 32 rows is one block's chain of dependent steps).  A
-//     128-byte-swizzled box lands 1024-byte aligned, so pb >= 8: other
-//     rows and pages stay on the mma.sync copies (routes by shape, counted
-//     apart).  Boxes wholly at or past the visible end t_end are not
+//     sharing the K/V boxes), else one; and a producer;
+//   * the TMA producer, one thread of a warp, issues every load by TMA: q
+//     through a 4-D (B, s, H, D) map (resident up to D = 1024, else
+//     streamed beside each K slice), K and V through 4-D (1, N P rows, H,
+//     D) maps of the pools, so a head's columns past D arrive as zeros, not
+//     the next head's.  A box is pb rows of 64 columns of one head: it
+//     never leaves its page, and a 64-row kv tile is 64 / pb boxes found
+//     through the slot's page ids (the first tile's read beside the length,
+//     in one round trip: a serving chunk of 32 rows is one block's chain of
+//     dependent steps).  A 128-byte-swizzled box lands 1024-byte aligned,
+//     so pb >= 8.  Boxes wholly at or past the visible end t_end are not
 //     loaded; the K slices go into a ring of 4 entries and the chunk's V
 //     boxes into a ring of 2, on mbarriers, so the loads run ahead of the
 //     wgmma;
+//   * the gathered producer, a warpgroup, writes the same entries in the
+//     same layout: each thread keeps one 16-byte column chunk of 4 rows of
+//     a 64-row tile, whose pool rows it finds once a kv tile through the
+//     table, and copies it with cp.async (gat::chunk16) to chunk c ^ (r % 8)
+//     of row r, as a TMA box lands: zeros past D (D = 36 pads to 64) and in
+//     rows at or past t_end, and q's rows past the chunk.  An entry's copies
+//     land before the thread's proxy fence (fence.proxy.async: generic
+//     writes, then the wgmma's async reads) and its arrival on the entry's
+//     barrier, whose count is the producer's 128 threads; up to three
+//     entries' copies are in flight (two warps took 1.4-1.6x as long:
+//     the producer's own instructions set the pace, PERF.md);
 //   * each consumer sums S = q.k^T over 64-column slices on wgmma
 //     m64n64k16 (one accumulator over all of D), takes the online softmax
 //     in f32 (log2 units, the mask t <= lengths[b] + i and t below its
@@ -1430,17 +1039,24 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
 //     exactly 0, but 0 * a non-finite value is not 0), and their scores are
 //     masked;
 //   * every chunk of a row sums the same slices in one order and shares
-//     one max and one sum: one summation order per output, no atomics.
+//     one max and one sum: one summation order per output, no atomics, the
+//     same bits from either producer.
 namespace pw {
 
 struct Geo {
   int B, s, H, D, N, P, maxp, pb, n_blk;
   float scale_log2;
+  const void *q, *k, *v;                     // the gathered producer's
+  int al;                                    // the rows' alignment
 };
+
+constexpr int kProdG = 128;                  // the gathered producer
+constexpr int kLag = 2;                      // its entries in flight - 1
 
 constexpr int kMaxBoxes = kTile / 8;         // boxes of a tile (pb >= 8)
 
-// whether the kernel takes pages of P rows (the box rule above)
+// whether the TMA instance takes rows of D over pages of P rows (the box
+// rule above; the gathered instance takes the rest)
 __host__ __device__ inline bool takes(int D, int P) {
   return D % 8 == 0 && split::pow2_part(P) >= 8;
 }
@@ -1478,8 +1094,8 @@ inline size_t smem_bytes(int D, int s) {
 
 }  // namespace pw
 
-template <typename T, int NC, int KW>
-__global__ void __launch_bounds__(128 * KW + 32, 1)
+template <typename T, int NC, int KW, bool GATHER>
+__global__ void __launch_bounds__(128 * KW + (GATHER ? pw::kProdG : 32), 1)
 paged_attention_tc(const __grid_constant__ CUtensorMap q_map,
                    const __grid_constant__ CUtensorMap k_map,
                    const __grid_constant__ CUtensorMap v_map,
@@ -1489,6 +1105,7 @@ paged_attention_tc(const __grid_constant__ CUtensorMap q_map,
   using namespace wide::tcw;
   constexpr int kVS = NC / 64;                // V boxes of an entry
   constexpr int kCons = 128 * KW;             // consumer threads
+  constexpr int kFullArrivals = GATHER ? pw::kProdG : 1;
   const int nz = (g.D + NC - 1) / NC;
   const unsigned x = blockIdx.x;
   const int z = x % nz;
@@ -1498,9 +1115,9 @@ paged_attention_tc(const __grid_constant__ CUtensorMap q_map,
   const bool producer = threadIdx.x == kCons;
   const int32_t* pt_row = page_table + (size_t)b * g.maxp;
   const int nb = kTile / g.pb;                // boxes of a kv tile
-  // pool rows of a kv tile's boxes (the producer's): the first tile's read
-  // beside the length, in one round trip (a box past the table reads the
-  // table's last page, and is not loaded)
+  // pool rows of a kv tile's boxes (the TMA producer's): the first tile's
+  // read beside the length, in one round trip (a box past the table reads
+  // the table's last page, and is not loaded)
   int prow[pw::kMaxBoxes];
   auto rows_of = [&](int k0) {
 #pragma unroll
@@ -1511,7 +1128,7 @@ paged_attention_tc(const __grid_constant__ CUtensorMap q_map,
                        : 0;
     }
   };
-  if (producer) rows_of(0);
+  if (!GATHER && producer) rows_of(0);
   const int len = lengths[b];
   const long long rows_all = (long long)g.maxp * g.P;
   // rows any query of the block sees, clamped to the table
@@ -1531,20 +1148,115 @@ paged_attention_tc(const __grid_constant__ CUtensorMap q_map,
   uint64_t* v_full = k_empty + kStagesK;
   uint64_t* v_empty = v_full + kStagesV;
   if (threadIdx.x == 0) {
-    hopper::mbar_init(q_full, 1);
+    hopper::mbar_init(q_full, kFullArrivals);
     for (int st = 0; st < kStagesK; ++st) {
-      hopper::mbar_init(k_full + st, 1);
+      hopper::mbar_init(k_full + st, kFullArrivals);
       hopper::mbar_init(k_empty + st, kCons);
     }
     for (int st = 0; st < kStagesV; ++st) {
-      hopper::mbar_init(v_full + st, 1);
+      hopper::mbar_init(v_full + st, kFullArrivals);
       hopper::mbar_init(v_empty + st, kCons);
     }
     hopper::mbar_fence_init();
   }
   __syncthreads();
 
-  if (threadIdx.x >= kCons) {                 // the producer warp
+  if (threadIdx.x >= kCons && GATHER) {       // the gathered producer
+    constexpr int kStride = pw::kProdG / 8;   // rows a pass of the threads
+    constexpr int kRowsPer = kTile / kStride; // rows a thread of a tile
+    const int p = threadIdx.x - kCons;
+    const int cc = p & 7, r0 = p >> 3;        // chunk cc of rows r0 + s u
+    const T* qg = static_cast<const T*>(g.q);
+    const T* kg = static_cast<const T*>(g.k);
+    const T* vg = static_cast<const T*>(g.v);
+    // element offsets of this thread's rows of the chunk's q tile and of
+    // the current kv tile (-1: zeros), the kv rows' pages read once a tile
+    long long qoff[kRowsPer], koff[kRowsPer];
+    // this thread's chunks of one [64][64] tile at columns col0.. of the
+    // kv tile's rows (kv) or the q tile's
+    auto tile = [&](unsigned char* dst, const T* base, bool kv, int col0) {
+      const int col = col0 + 8 * cc;
+      const int have_c = min(max((g.D - col) * 2, 0), 16);
+#pragma unroll
+      for (int u = 0; u < kRowsPer; ++u) {
+        const int r = r0 + kStride * u;
+        const long long o = kv ? koff[u] : qoff[u];
+        const int have = o < 0 ? 0 : have_c;
+        gat::chunk16(dst + r * 128 + (gat::swz(cc, r) << 4),
+                     have ? base + o + col : base, have, g.al);
+      }
+    };
+    auto q_rows = [&](int i0) {               // the chunk's q rows i0..
+#pragma unroll
+      for (int u = 0; u < kRowsPer; ++u) {
+        const int i = i0 + r0 + kStride * u;
+        qoff[u] = i < g.s ? (((long long)b * g.s + i) * g.H + h) * g.D : -1;
+      }
+    };
+    // entries whose copies are issued and whose arrival is pending, the
+    // newest first: one arrives once pw::kLag later entries are issued
+    // (the copies of kLag + 1 entries in flight)
+    uint64_t* pend[pw::kLag];
+#pragma unroll
+    for (int i = 0; i < pw::kLag; ++i) pend[i] = nullptr;
+    auto issued = [&](uint64_t* bar) {
+      gat::commit();
+      if (pend[pw::kLag - 1]) {
+        gat::wait<pw::kLag>();
+        hopper::fence_async_shared();
+        hopper::mbar_arrive(pend[pw::kLag - 1]);
+      }
+#pragma unroll
+      for (int i = pw::kLag - 1; i > 0; --i) pend[i] = pend[i - 1];
+      pend[0] = bar;
+    };
+    auto drain = [&] {                        // the last entries
+      gat::wait<0>();
+      hopper::fence_async_shared();
+#pragma unroll
+      for (int i = 0; i < pw::kLag; ++i)
+        if (pend[i]) hopper::mbar_arrive(pend[i]);
+    };
+    if (res) {
+      for (int w = 0; w < KW; ++w) {
+        q_rows(q_first + w * kTile);
+        for (int c = 0; c < n_sl; ++c)
+          tile(sm + (w * n_sl + c) * kSub, qg, false, 64 * c);
+      }
+      issued(q_full);
+    } else {
+      q_rows(q_first);                        // streamed beside each slice
+    }
+    int e = 0;
+    for (int j = 0; j < n_kv; ++j) {
+      const int k0 = j * kTile;
+#pragma unroll
+      for (int u = 0; u < kRowsPer; ++u) {    // the tile's rows, each a page
+        const int t = k0 + r0 + kStride * u;
+        koff[u] = t < t_end
+                      ? ((long long)gat::pool_row(pt_row, t, g.P, g.N) * g.H +
+                         h) * g.D
+                      : -1;
+      }
+      for (int c = 0; c < n_sl; ++c, ++e) {
+        const int st = e % kStagesK;
+        hopper::mbar_wait(k_empty + st, ((e / kStagesK) & 1) ^ 1);
+        unsigned char* ent = sm + L.k0 + st * L.k_entry;
+        if (!res) tile(ent + kSub, qg, false, 64 * c);
+        tile(ent, kg, true, 64 * c);
+        issued(k_full + st);
+      }
+      const int st = j % kStagesV;
+      hopper::mbar_wait(v_empty + st, ((j / kStagesV) & 1) ^ 1);
+      unsigned char* vt = sm + L.v0 + st * kVS * kSub;
+      for (int w = 0; w < kVS; ++w)
+        tile(vt + w * kSub, vg, true, z * NC + 64 * w);
+      issued(v_full + st);
+    }
+    drain();
+    return;
+  }
+  if (threadIdx.x >= kCons) {                 // the TMA producer warp
     if (!producer) return;
     hopper::prefetch_tensormap(&q_map);
     hopper::prefetch_tensormap(&k_map);
@@ -1710,17 +1422,29 @@ paged_attention_tc(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = r0 + 8 * r;
-        if (row < g.s && col < g.D)
-          *reinterpret_cast<uint32_t*>(ob + row * HD + col) =
-              pack2<T>(o[c][4 * i + 2 * r] * inv[r],
-                       o[c][4 * i + 2 * r + 1] * inv[r]);
+        if (row < g.s && col < g.D) {
+          const uint32_t two = pack2<T>(o[c][4 * i + 2 * r] * inv[r],
+                                        o[c][4 * i + 2 * r + 1] * inv[r]);
+          T* dst = ob + row * HD + col;
+          // 4-byte aligned pairs, except at an odd D (gathered only)
+          if (!GATHER || (col + 1 < g.D && (g.D & 1) == 0)) {
+            *reinterpret_cast<uint32_t*>(dst) = two;
+          } else {
+            const T* e2 = reinterpret_cast<const T*>(&two);
+            dst[0] = e2[0];
+            if (col + 1 < g.D) dst[1] = e2[1];
+          }
+        }
       }
     }
 }
 
-// bf16 / f16 prefill widths where pw::takes(D, P): the maps of q and both
-// pools, the instance for D's output chunk and the chunk's q tiles
-template <typename T, int NC, int KW>
+// bf16 / f16 prefill widths: the maps of q and both pools where
+// pw::takes(D, P) (else the gathered instance, its pointers and the rows'
+// alignment), the instance for D's output chunk and the chunk's q tiles.
+// gather names the instance (chip_smoke.py holds the two bit for bit at a
+// shape both take); the routes pass gather = !pw::takes(D, P).
+template <typename T, int NC, int KW, bool GATHER>
 int launch_paged_tc_t(const void* q, const void* k_pool, const void* v_pool,
                       const void* page_table, const void* lengths, void* out,
                       int B, int s, int H, int D, int N, int P, int maxp,
@@ -1736,78 +1460,114 @@ int launch_paged_tc_t(const void* q, const void* k_pool, const void* v_pool,
   g.pb = split::pow2_part(P);
   g.n_blk = (s + KW * kTile - 1) / (KW * kTile);
   g.scale_log2 = scale * kLog2e;
+  g.q = q;
+  g.k = k_pool;
+  g.v = v_pool;
+  g.al = gat::row_align(D, (int)sizeof(T));
   const long long gx = (long long)g.n_blk * B * H * ((D + NC - 1) / NC);
-  if (!pw::takes(D, P) || gx > 0x7FFFFFFFLL ||
+  if ((!GATHER && !pw::takes(D, P)) || gx > 0x7FFFFFFFLL ||
       (long long)N * P > 0x7FFFFFFFLL)
     return -1;
-  CUtensorMap qm, km, vm;
-  int err = hopper::make_map_bshd<T>(&qm, q, B, s, H, D);
-  if (err) return err;
-  err = hopper::make_map_bshd<T>(&km, k_pool, 1, N * P, H, D, g.pb);
-  if (err) return err;
-  err = hopper::make_map_bshd<T>(&vm, v_pool, 1, N * P, H, D, g.pb);
-  if (err) return err;
+  CUtensorMap qm{}, km{}, vm{};
+  if (!GATHER) {
+    int err = hopper::make_map_bshd<T>(&qm, q, B, s, H, D);
+    if (err) return err;
+    err = hopper::make_map_bshd<T>(&km, k_pool, 1, N * P, H, D, g.pb);
+    if (err) return err;
+    err = hopper::make_map_bshd<T>(&vm, v_pool, 1, N * P, H, D, g.pb);
+    if (err) return err;
+  }
   const size_t smem = 1024 + (size_t)pw::smem_of(D, NC, KW).bytes;
-  err = prepare(paged_attention_tc<T, NC, KW>, smem);
+  const int err = prepare(paged_attention_tc<T, NC, KW, GATHER>, smem);
   if (err) return err;
-  paged_attention_tc<T, NC, KW><<<(unsigned)gx, 128 * KW + 32, smem,
-                                  stream>>>(
-      qm, km, vm, static_cast<const int32_t*>(page_table),
-      static_cast<const int32_t*>(lengths), static_cast<T*>(out), g);
+  paged_attention_tc<T, NC, KW, GATHER>
+      <<<(unsigned)gx, 128 * KW + (GATHER ? pw::kProdG : 32), smem,
+         stream>>>(qm, km, vm, static_cast<const int32_t*>(page_table),
+                   static_cast<const int32_t*>(lengths),
+                   static_cast<T*>(out), g);
   return (int)cudaGetLastError();
+}
+
+template <typename T, bool GATHER>
+int launch_paged_tc_g(const void* q, const void* k_pool, const void* v_pool,
+                      const void* page_table, const void* lengths, void* out,
+                      int B, int s, int H, int D, int N, int P, int maxp,
+                      float scale, cudaStream_t stream) {
+  const int nc = pw::chunk_cols(D), kw = pw::consumers(D, s);
+  auto f = nc == 64    ? (kw == 2 ? launch_paged_tc_t<T, 64, 2, GATHER>
+                                  : launch_paged_tc_t<T, 64, 1, GATHER>)
+           : nc == 128 ? (kw == 2 ? launch_paged_tc_t<T, 128, 2, GATHER>
+                                  : launch_paged_tc_t<T, 128, 1, GATHER>)
+                       : launch_paged_tc_t<T, 256, 1, GATHER>;
+  return f(q, k_pool, v_pool, page_table, lengths, out, B, s, H, D, N, P,
+           maxp, scale, stream);
 }
 
 template <typename T>
 int launch_paged_tc(const void* q, const void* k_pool, const void* v_pool,
                     const void* page_table, const void* lengths, void* out,
                     int B, int s, int H, int D, int N, int P, int maxp,
-                    float scale, cudaStream_t stream) {
-  const int nc = pw::chunk_cols(D), kw = pw::consumers(D, s);
-  auto f = nc == 64    ? (kw == 2 ? launch_paged_tc_t<T, 64, 2>
-                                  : launch_paged_tc_t<T, 64, 1>)
-           : nc == 128 ? (kw == 2 ? launch_paged_tc_t<T, 128, 2>
-                                  : launch_paged_tc_t<T, 128, 1>)
-                       : launch_paged_tc_t<T, 256, 1>;
-  return f(q, k_pool, v_pool, page_table, lengths, out, B, s, H, D, N, P,
-           maxp, scale, stream);
+                    float scale, int gather, cudaStream_t stream) {
+  return (gather ? launch_paged_tc_g<T, true> : launch_paged_tc_g<T, false>)(
+      q, k_pool, v_pool, page_table, lengths, out, B, s, H, D, N, P, maxp,
+      scale, stream);
 }
 
-
 // ---------------------------------------------------------------------------
-// f32 prefill widths on Hopper: paged TMA + 3xTF32 wgmma
+// f32 prefill widths on Hopper: paged TMA or gathered rows + 3xTF32 wgmma
 // ---------------------------------------------------------------------------
 //
-// f32 widths from kMmaMinWidth, D <= 256 with rows TMA addresses (D % 4 ==
-// 0), pages whose box rows pb = pow2_part(P) >= 8 (pw::takes' box rule):
-// K2's f32 forward (bhd_fwd_tc in flash_attention.cu: the products and
-// their accuracy) with pw's paged producer and the serving mask, in place
-// of the scalar kernel's per-key warp reductions.  What bounds it: bytes
-// at a prefill chunk of 32 rows (each live K/V row read once per q-tile
-// block), the 3xTF32 products (three tf32 products per f32 product at
-// 494.7 TFLOP/s) as the chunk grows.
+// f32 widths from kChunkMin at every D: K2's f32 forward (bhd_fwd_tc in
+// flash_attention.cu: the products and their accuracy) with a paged
+// producer and the serving mask, in two instances that differ in how the
+// raw boxes arrive: by TMA where rows are a multiple of 16 bytes (D % 4 ==
+// 0) over pages whose box rows pb = pow2_part(P) >= 8 (pw::takes' box
+// rule), else gathered (GATHER: pages of 12, D % 4 != 0).  What bounds
+// it: bytes at a prefill chunk of 32 rows (each live K/V row read once per
+// q-tile block), the 3xTF32 products (three tf32 products per f32 product
+// at 494.7 TFLOP/s) as the chunk grows; past 256 at a chunk of 32 rows,
+// the chain of its ring entries a block, one producer warp's split and
+// load and one consumer's slice at a time (PERF.md).
 //
 // Design:
 //   * one block per (slot, KW consecutive 64-row q tiles, head), folded
 //     into grid.x with the tiles slowest (the last tiles, which see the
 //     most rows, first); KW consumer warpgroups, each on its own q tile
 //     (two up to DP = 128 where the chunk has two tiles, else one: O's
-//     registers at 256), and a producer warpgroup;
-//   * the producer's thread 0 issues every load by TMA: q through a 4-D
-//     (B, s, H, D) map, K and V through 4-D (1, N P rows, H, D) maps of the
-//     pools (a head's columns past D arrive as zeros, not the next head's),
+//     registers at 256), and a producer warpgroup.  Past D = 256 (DP = 0)
+//     one consumer and a block per 160-column output chunk too (the chunk
+//     index fastest), each chunk recomputing S over all of D's 32-column
+//     slices, as paged_attention_tc does past 256 (chunks of 160: at 256,
+//     O's 128 f32 registers a thread made the instance spill, at 192 a
+//     little; 160 takes D = 320 in two chunks where 128 took three);
+//   * the TMA producer's four warps issue the ring's loads in turn (lane 0
+//     of warp e % 4 entry e): q through a 4-D (B, s, H, D) map, K and V
+//     through 4-D (1, N P rows, H, D) maps of the pools (a head's columns
+//     past D arrive as zeros, not the next head's),
 //     [64][32] f32 boxes (128 bytes a row, 128-byte swizzled) into a ring
 //     of kRaw slots, kv tile by kv tile: its DP / 32 K slices, then its V
-//     slices.  A slot's 64 rows are 64 / pb boxes of pb rows found through
-//     the slot's page ids (a box never leaves its page and lands 1024-byte
-//     aligned, so the swizzle of the whole slot is a TMA box's); boxes
-//     wholly at or past the visible end t_end are not loaded;
-//   * the producer warpgroup splits each slot into hi / lo operand tiles
-//     (K as it lands, V transposed with the kv rows of each group of 8 in
-//     bhd_fwd_tc's k order) in a ring of kOps slots the consumers release,
-//     and writes zeros for the rows at or past t_end (a page's rows past the
-//     slot's end hold whatever the page holds: their p is exactly 0, but 0
-//     times a non-finite value is not 0; rows not loaded hold a slot's
-//     earlier contents);
+//     slices (past 256: q's and K's slices in turn, q streamed again each
+//     kv tile since its hi and lo tiles would not fit, then the chunk's 5
+//     V slices).  A slot's 64 rows are 64 / pb boxes of pb rows found
+//     through the slot's page ids (a box never leaves its page and lands
+//     1024-byte aligned, so the swizzle of the whole slot is a TMA box's);
+//     boxes wholly at or past the visible end t_end are not loaded;
+//   * the gathered producer fills the same raw slots in the same layout
+//     with cp.async (gat::chunk16), all 128 threads: a thread keeps one
+//     16-byte column chunk of 4 rows, whose pool rows it finds through the
+//     table once a kv tile, zeros past D and in rows at or past t_end, and
+//     arrives on the slot's barrier when its copies land (count 128);
+//   * the producer splits each slot into hi / lo operand tiles (K and q as
+//     they land, V transposed with the kv rows of each group of 8 in
+//     bhd_fwd_tc's k order) in a ring of kOps slots the consumers release:
+//     in the TMA instance, where the ring is refilled (more entries than
+//     kRaw), the slot's warp, so four entries' splits and reloads run at
+//     once, else all 128 threads, an entry at a time (the shorter chain
+//     where every load is issued up front); in the gathered one all 128
+//     threads, which copy every entry; and writes zeros for the rows at or
+//     past t_end (a page's rows past the slot's end hold whatever the page
+//     holds: their p is exactly 0, but 0 times a non-finite value is not
+//     0; rows not loaded hold a slot's earlier contents);
 //   * each consumer sums S = q . K^T slice by slice in 3xTF32 (each
 //     slice's 12 wgmma in a fresh accumulator added to an f32 total: the
 //     tensor core truncates its sums), takes the online softmax in f32
@@ -1816,41 +1576,52 @@ int launch_paged_tc(const void* q, const void* k_pool, const void* v_pool,
 //     f32 into hi and lo A fragments, and adds each 32-column chunk's P . V
 //     (24 wgmma, a fresh accumulator) to O.  A row's first kv tile holds
 //     its row 0, so its running max is finite and a tile wholly past its
-//     position adds exactly 0.
+//     position adds exactly 0.  The consumers are the same code for both
+//     producers: the same bits from either.
 namespace ptf {
 
 constexpr int kBarProd = 1;                  // the producer warpgroup's
-constexpr int kRaw = 4;                      // raw box slots
-constexpr int kOps = 4;                      // operand slots: hi and lo tiles
+constexpr int kNC = 160;                     // past 256: a chunk's columns
+constexpr int kWarps = 4;                    // the producer's warps
+
+// raw box slots and operand slots (hi and lo tiles): 4 each, 8 past 256,
+// where q's slices stream through the rings too
+__host__ __device__ constexpr int raw_slots(int DP) { return DP ? 4 : 8; }
+__host__ __device__ constexpr int op_slots(int DP) { return DP ? 4 : 8; }
 
 struct Geo {
-  int B, s, H, D, N, P, maxp, pb, n_blk;
+  int B, s, H, D, N, P, maxp, pb, n_blk, nz;
   float scale_log2;
+  const float *q, *k, *v;                    // the gathered producer's
 };
 
-// whether the kernel takes f32 rows of D over pages of P rows
+// whether the TMA instance takes f32 rows of D over pages of P rows
 __host__ __device__ inline bool takes(int D, int P) {
-  return D <= kMaxD && D % 4 == 0 && split::pow2_part(P) >= 8;
+  return D % 4 == 0 && split::pow2_part(P) >= 8;
 }
 
-// the padded width of D, and the consumers of a chunk of s rows
+// the padded width of D (0 past 256: chunks of kNC), and the consumers of
+// a chunk of s rows
 __host__ __device__ inline int padded(int D) {
-  return D <= 64 ? 64 : D <= 128 ? 128 : 256;
+  return D <= 64 ? 64 : D <= 128 ? 128 : D <= 256 ? 256 : 0;
 }
 __host__ __device__ inline int consumers(int D, int s) {
-  return s > kTile && padded(D) <= 128 ? 2 : 1;
+  const int dp = padded(D);
+  return s > kTile && dp && dp <= 128 ? 2 : 1;
 }
 
-// 1024 bytes of alignment, q hi and lo per consumer, the rings, barriers
+// 1024 bytes of alignment, q hi and lo per consumer (none past 256), the
+// rings, barriers
 __host__ __device__ inline size_t smem(int DP, int KW) {
-  return 1024 + (size_t)(2 * KW * (DP / tc::kSl) + kRaw + 2 * kOps) *
+  return 1024 + (size_t)(2 * KW * (DP / tc::kSl) + raw_slots(DP) +
+                         2 * op_slots(DP)) *
                     tc::kBox +
-         8 * (2 + kRaw + 2 * kOps);
+         8 * (2 + raw_slots(DP) + 2 * op_slots(DP));
 }
 
 }  // namespace ptf
 
-template <int DP, int KW>
+template <int DP, int KW, bool GATHER>
 __global__ void __launch_bounds__(128 * (1 + KW), 1)
 paged_attention_tf32(const __grid_constant__ CUtensorMap q_map,
                      const __grid_constant__ CUtensorMap k_map,
@@ -1859,19 +1630,25 @@ paged_attention_tf32(const __grid_constant__ CUtensorMap q_map,
                      const int32_t* __restrict__ lengths,
                      float* __restrict__ out, ptf::Geo g) {
   using namespace tc;
-  using ptf::kOps;
-  using ptf::kRaw;
-  constexpr int kNS = DP / kSl;               // 32-column slices
+  constexpr bool kWide = DP == 0;             // past 256: chunks, q streamed
+  constexpr int kRaw = ptf::raw_slots(DP);
+  constexpr int kOps = ptf::op_slots(DP);
+  constexpr int kNS = (kWide ? ptf::kNC : DP) / kSl;   // O's 32-col chunks
+  const int ns = kWide ? (g.D + kSl - 1) / kSl : kNS;  // S's slices
+  const int per = kWide ? 2 * ns + kNS : 2 * kNS;      // entries a kv tile
   const unsigned x = blockIdx.x;
-  const int h = x % g.H;
-  const int b = x / g.H % g.B;
-  const int blk = g.n_blk - 1 - (int)(x / g.H / g.B);   // heavy first
+  const int z = kWide ? (int)(x % g.nz) : 0;  // the output chunk
+  const unsigned y = kWide ? x / g.nz : x;
+  const int h = y % g.H;
+  const int b = y / g.H % g.B;
+  const int blk = g.n_blk - 1 - (int)(y / g.H / g.B);   // heavy first
   const int q_first = blk * KW * kTile;       // the block's first q row
-  const bool producer = threadIdx.x == 128 * KW;   // issues every load
+  // lane 0 of each producer warp issues its warp's TMA loads
+  const bool producer = threadIdx.x >= 128 * KW && (threadIdx.x & 31) == 0;
   const int32_t* pt_row = page_table + (size_t)b * g.maxp;
-  // pool rows of a kv tile's boxes (the producer's): the first tile's read
-  // beside the length, in one round trip (a box past the table reads the
-  // table's last page, and is not loaded)
+  // pool rows of a kv tile's boxes (a TMA producer lane's): the first
+  // tile's read beside the length, in one round trip (a box past the table
+  // reads the table's last page, and is not loaded)
   int prow[pw::kMaxBoxes];
   auto rows_of = [&](int k0) {
 #pragma unroll
@@ -1883,18 +1660,22 @@ paged_attention_tf32(const __grid_constant__ CUtensorMap q_map,
                     : 0;
     }
   };
-  if (producer) rows_of(0);
+  if (!GATHER && producer) rows_of(0);
   const int len = lengths[b];
   const long long T = (long long)g.maxp * g.P;
   // rows any query of the block sees, clamped to the table
   const int t_end = (int)min(T, (long long)len + min(q_first + KW * kTile,
                                                     g.s));
   const int n_kv = (t_end + kTile - 1) / kTile;
-  const int total = n_kv * 2 * kNS;           // ring entries
+  const int total = n_kv * per;               // ring entries
+  // the TMA producer's warps split their own entries where the ring is
+  // refilled; where the prologue's loads are all of them, every entry is
+  // split by all 128 threads, one after another (a shorter chain an entry)
+  const bool by_warp = !GATHER && total > kRaw;
 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* qbuf = align1024(smem_raw);  // [hi, lo][consumer][slice]
-  unsigned char* raw = qbuf + 2 * KW * kNS * kBox;
+  unsigned char* raw = qbuf + (kWide ? 0 : 2 * KW * kNS * kBox);
   unsigned char* ops = raw + kRaw * kBox;     // [slot][hi, lo]
   uint64_t* qfull = reinterpret_cast<uint64_t*>(ops + 2 * kOps * kBox);
   uint64_t* qready = qfull + 1;
@@ -1902,11 +1683,12 @@ paged_attention_tf32(const __grid_constant__ CUtensorMap q_map,
   uint64_t* opready = rawfull + kRaw;
   uint64_t* opfree = opready + kOps;
   if (threadIdx.x == 0) {
-    hopper::mbar_init(qfull, 1);
+    hopper::mbar_init(qfull, GATHER ? 128 : 1);
     hopper::mbar_init(qready, 128);
-    for (int st = 0; st < kRaw; ++st) hopper::mbar_init(rawfull + st, 1);
+    for (int st = 0; st < kRaw; ++st)
+      hopper::mbar_init(rawfull + st, GATHER ? 128 : 1);
     for (int st = 0; st < kOps; ++st) {
-      hopper::mbar_init(opready + st, 128);
+      hopper::mbar_init(opready + st, by_warp ? 32 : 128);
       hopper::mbar_init(opfree + st, 128 * KW);
     }
     hopper::mbar_fence_init();
@@ -1915,51 +1697,162 @@ paged_attention_tf32(const __grid_constant__ CUtensorMap q_map,
   const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
 
   if (wg == KW) {                             // the producer warpgroup
-    int pj = 0, live = 0;                     // prow holds tile pj's rows
-    auto load = [&](int e) {                  // entry e's raw slot
-      const int j = e / (2 * kNS), r = e - j * 2 * kNS, st = e % kRaw;
-      if (j != pj) rows_of(j * kTile);
-      // the tile's boxes that hold visible rows
-      live = min(kTile / g.pb, (t_end - j * kTile + g.pb - 1) / g.pb);
-      pj = j;
-      hopper::mbar_arrive_expect_tx(rawfull + st, live * g.pb * 128);
-#pragma unroll
-      for (int u = 0; u < pw::kMaxBoxes; ++u)
-        if (u < live)
-          hopper::tma_load_4d(raw + st * kBox + u * g.pb * 128,
-                              r < kNS ? &k_map : &v_map, rawfull + st,
-                              (r % kNS) * kSl, h, prow[u], 0);
+    // an entry's kind: q's (past 256), K's or V's slice, and its columns
+    auto kind = [&](int r, int* col) {        // 0 q, 1 K, 2 V
+      if (kWide) {
+        if (r < 2 * ns) {
+          *col = (r >> 1) * kSl;
+          return (r & 1) ? 1 : 0;
+        }
+        *col = z * ptf::kNC + (r - 2 * ns) * kSl;
+        return 2;
+      }
+      *col = (r % kNS) * kSl;
+      return r < kNS ? 1 : 2;
     };
-    if (t == 0) {
-      hopper::prefetch_tensormap(&q_map);
-      hopper::prefetch_tensormap(&k_map);
-      hopper::prefetch_tensormap(&v_map);
-      hopper::mbar_arrive_expect_tx(qfull, KW * kNS * kBox);
-      for (int w = 0; w < KW; ++w)
-        for (int c = 0; c < kNS; ++c)
-          hopper::tma_load_4d(qbuf + (w * kNS + c) * kBox, &q_map, qfull,
-                              c * kSl, h, q_first + w * kTile, b);
+    // the TMA producer: warp pwarp splits entries pwarp, pwarp + kWarps,
+    // ..., and its lane 0 loads them
+    const int pwarp = t >> 5, lane = t & 31;
+    int pj = 0, live = 0;                     // prow holds tile pj's rows
+    // the gathered producer's rows: this thread's column chunk gc of rows
+    // (t / 8) + 16 u of the current kv tile and of the q tiles (-1: zeros)
+    const int gc = t & 7, gr = t >> 3;
+    long long koff[4], qoff[4];
+    auto gather_rows = [&](int j) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int tt = j * kTile + gr + 16 * u;
+        koff[u] = tt < t_end
+                      ? ((long long)gat::pool_row(pt_row, tt, g.P, g.N) * g.H +
+                         h) * g.D
+                      : -1;
+      }
+    };
+    auto q_rows = [&](int i0) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + gr + 16 * u;
+        qoff[u] = i < g.s ? (((long long)b * g.s + i) * g.H + h) * g.D : -1;
+      }
+    };
+    // this thread's part of one [64][32] box of `src` rows `off`, columns
+    // col.. (zeros past D), by cp.async
+    auto gather_box = [&](unsigned char* dst, const float* src, bool kv,
+                          int col0) {
+      const int col = col0 + 4 * gc;
+      const int have_c = min(max((g.D - col) * 4, 0), 16);
+      const int al = gat::row_align(g.D, 4);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int r = gr + 16 * u;
+        const long long o = kv ? koff[u] : qoff[u];
+        const int have = o < 0 ? 0 : have_c;
+        gat::chunk16(dst + r * 128 + (gat::swz(gc, r) << 4),
+                     have ? src + o + col : src, have, al);
+      }
+    };
+    auto load = [&](int e) {                  // entry e's raw slot
+      const int j = e / per, r = e - j * per, st = e % kRaw;
+      int col;
+      const int k = kind(r, &col);
+      if constexpr (GATHER) {
+        if (j != pj) gather_rows(j);
+        pj = j;
+        gather_box(raw + st * kBox, k == 0 ? g.q : k == 1 ? g.k : g.v,
+                   k != 0, col);
+        gat::arrive_landed(rawfull + st, 4);
+      } else {
+        if (j != pj) rows_of(j * kTile);
+        // the tile's boxes that hold visible rows
+        live = min(kTile / g.pb, (t_end - j * kTile + g.pb - 1) / g.pb);
+        pj = j;
+        if (k == 0) {                         // one box of q's 64 rows
+          hopper::mbar_arrive_expect_tx(rawfull + st, kBox);
+          hopper::tma_load_4d(raw + st * kBox, &q_map, rawfull + st, col, h,
+                              q_first, b);
+          return;
+        }
+        hopper::mbar_arrive_expect_tx(rawfull + st, live * g.pb * 128);
+#pragma unroll
+        for (int u = 0; u < pw::kMaxBoxes; ++u)
+          if (u < live)
+            hopper::tma_load_4d(raw + st * kBox + u * g.pb * 128,
+                                k == 1 ? &k_map : &v_map, rawfull + st, col,
+                                h, prow[u], 0);
+      }
+    };
+    if constexpr (GATHER) {
+      gather_rows(0);
+      if (kWide) {
+        q_rows(q_first);                      // streamed with each slice
+      } else {
+        for (int w = 0; w < KW; ++w) {        // q resident: hi in place
+          q_rows(q_first + w * kTile);
+          for (int c = 0; c < kNS; ++c)
+            gather_box(qbuf + (w * kNS + c) * kBox, g.q, false, c * kSl);
+        }
+        gat::arrive_landed(qfull, 4);
+      }
       for (int e = 0; e < min(kRaw, total); ++e) load(e);
+    } else if (lane == 0) {
+      if (pwarp == 0) {
+        hopper::prefetch_tensormap(&q_map);
+        hopper::prefetch_tensormap(&k_map);
+        hopper::prefetch_tensormap(&v_map);
+        if (!kWide) {
+          hopper::mbar_arrive_expect_tx(qfull, KW * kNS * kBox);
+          for (int w = 0; w < KW; ++w)
+            for (int c = 0; c < kNS; ++c)
+              hopper::tma_load_4d(qbuf + (w * kNS + c) * kBox, &q_map,
+                                  qfull, c * kSl, h, q_first + w * kTile, b);
+        }
+      }
+      for (int e = pwarp; e < min(kRaw, total); e += ptf::kWarps) load(e);
     }
-    hopper::mbar_wait(qfull, 0);              // q: hi in place, lo beside
-    for (int bx = 0; bx < KW * kNS; ++bx)
-      split_box(qbuf + bx * kBox, qbuf + (KW * kNS + bx) * kBox, t);
-    hopper::fence_async_shared();
-    hopper::mbar_arrive(qready);
-    for (int e = 0; e < total; ++e) {
+    if (!kWide) {
+      hopper::mbar_wait(qfull, 0);            // q: hi in place, lo beside
+      for (int bx = 0; bx < KW * kNS; ++bx)
+        split_box(qbuf + bx * kBox, qbuf + (KW * kNS + bx) * kBox, t);
+      hopper::fence_async_shared();
+      hopper::mbar_arrive(qready);
+    }
+    // By warp, the TMA producer's warps each take their own entries, so
+    // four entries' chains (wait, split, fence, arrive, the next load) run
+    // at once; one warpgroup taking every entry in turn was paced by one
+    // entry's chain at a time.  The gathered producer still takes every
+    // entry with all 128 threads: its copies spread over one warp's 32
+    // lanes ran slower (PERF.md).
+    const int step = by_warp ? ptf::kWarps : 1;   // entries apart
+    for (int e = by_warp ? pwarp : 0; e < total; e += step) {
       const int st = e % kRaw, o = e % kOps;
-      const int nr = min(kTile, t_end - e / (2 * kNS) * kTile);
+      const int j = e / per;
+      const int nr = min(kTile, t_end - j * kTile);
+      int col;
+      const int k = kind(e - j * per, &col);
       hopper::mbar_wait(rawfull + st, (e / kRaw) & 1);
       hopper::mbar_wait(opfree + o, ((e / kOps) & 1) ^ 1);
       unsigned char* hi = ops + 2 * o * kBox;
-      if (e % (2 * kNS) < kNS)
-        tcf::split_ahead(raw + st * kBox, hi, hi + kBox, t, nr);
-      else
-        tcf::split_ahead_t(raw + st * kBox, hi, hi + kBox, t, nr);
+      auto split = [&](int part) {            // one of 128 threads' parts
+        if (k == 2)
+          tcf::split_ahead_t(raw + st * kBox, hi, hi + kBox, part, nr);
+        else                                  // q's rows past s are zeros
+          tcf::split_ahead(raw + st * kBox, hi, hi + kBox, part,
+                           k == 1 ? nr : kTile);
+      };
+      if (by_warp) {
+#pragma unroll
+        for (int i = 0; i < ptf::kWarps; ++i) split(lane + 32 * i);
+      } else {
+        split(t);
+      }
       hopper::fence_async_shared();
       hopper::mbar_arrive(opready + o);
-      hopper::named_bar_sync(ptf::kBarProd, 128);   // the raw slot is read
-      if (t == 0 && e + kRaw < total) load(e + kRaw);
+      if (GATHER)                             // the raw slot is read
+        hopper::named_bar_sync(ptf::kBarProd, 128);
+      else if (by_warp)
+        __syncwarp();
+      // (the TMA producer reloads only by warp: else total <= kRaw)
+      if ((GATHER || lane == 0) && e + kRaw < total) load(e + kRaw);
     }
     return;
   }
@@ -1981,31 +1874,55 @@ paged_attention_tf32(const __grid_constant__ CUtensorMap q_map,
   float m_r[2] = {kNegInf, kNegInf};
   float l_r[2] = {0.f, 0.f};                  // this thread's partial sums
   uint32_t ph[32], pl[32];                    // P's hi / lo A fragments
-  hopper::mbar_wait(qready, 0);
+  if (!kWide) hopper::mbar_wait(qready, 0);
 
   int e = 0;
   for (int j = 0; j < n_kv; ++j) {
-    const bool on = j < my_kv;                // else release the entries
+    // past 256 (one consumer) every tile; else a tile past this
+    // consumer's rows only releases its entries
+    const bool on = kWide || j < my_kv;
     float sx[32];
     // S = q . k^T, 64 q x 64 kv, one slice at a time
-#pragma unroll
-    for (int c = 0; c < kNS; ++c, ++e) {
-      const int st = e % kOps;
-      hopper::mbar_wait(opready + st, (e / kOps) & 1);
-      if (on) {
+    if constexpr (kWide) {
+#pragma unroll 1
+      for (int c = 0; c < ns; ++c, e += 2) {  // q's entry, then K's
+        const int sq = e % kOps, sk = (e + 1) % kOps;
+        hopper::mbar_wait(opready + sq, (e / kOps) & 1);
+        hopper::mbar_wait(opready + sk, ((e + 1) / kOps) & 1);
         float part[32];
-        const unsigned char* kh = ops + 2 * st * kBox;
+        const unsigned char* qs = ops + 2 * sq * kBox;
+        const unsigned char* kh = ops + 2 * sk * kBox;
         hopper::wgmma_fence();
-        tf32x3<64, 4, kBox, kBox>(part, part, qh + c * kBox, ql + c * kBox,
-                                  kh, kh + kBox);
+        tf32x3<64, 4, kBox, kBox>(part, part, qs, qs + kBox, kh, kh + kBox);
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
         hopper::fence_acc(part);
 #pragma unroll
         for (int y = 0; y < 32; ++y)
           sx[y] = c == 0 ? part[y] : sx[y] + part[y];
+        hopper::mbar_arrive(opfree + sq);
+        hopper::mbar_arrive(opfree + sk);
       }
-      hopper::mbar_arrive(opfree + st);
+    } else {
+#pragma unroll
+      for (int c = 0; c < kNS; ++c, ++e) {
+        const int st = e % kOps;
+        hopper::mbar_wait(opready + st, (e / kOps) & 1);
+        if (on) {
+          float part[32];
+          const unsigned char* kh = ops + 2 * st * kBox;
+          hopper::wgmma_fence();
+          tf32x3<64, 4, kBox, kBox>(part, part, qh + c * kBox, ql + c * kBox,
+                                    kh, kh + kBox);
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+          hopper::fence_acc(part);
+#pragma unroll
+          for (int y = 0; y < 32; ++y)
+            sx[y] = c == 0 ? part[y] : sx[y] + part[y];
+        }
+        hopper::mbar_arrive(opfree + st);
+      }
     }
     if (on) {
       // scores in log2 units, masked at -1e30 only where this warp's rows
@@ -2088,19 +2005,29 @@ paged_attention_tf32(const __grid_constant__ CUtensorMap q_map,
   for (int c = 0; c < kNS; ++c)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int col = 32 * c + 8 * i + 2 * tq;
+      const int col = z * ptf::kNC + 32 * c + 8 * i + 2 * tq;
 #pragma unroll
-      for (int r = 0; r < 2; ++r)
-        if (rows[r] < g.s && col < g.D)
-          *reinterpret_cast<float2*>(ob + rows[r] * HD + col) =
-              make_float2(o[c][4 * i + 2 * r] * inv[r],
-                          o[c][4 * i + 2 * r + 1] * inv[r]);
+      for (int r = 0; r < 2; ++r) {
+        if (rows[r] < g.s && col < g.D) {
+          const float a0 = o[c][4 * i + 2 * r] * inv[r];
+          const float a1 = o[c][4 * i + 2 * r + 1] * inv[r];
+          float* dst = ob + rows[r] * HD + col;
+          // 8-byte aligned pairs, except at an odd D (gathered only)
+          if (!GATHER || (col + 1 < g.D && (g.D & 1) == 0)) {
+            *reinterpret_cast<float2*>(dst) = make_float2(a0, a1);
+          } else {
+            dst[0] = a0;
+            if (col + 1 < g.D) dst[1] = a1;
+          }
+        }
+      }
     }
 }
 
-// f32 prefill widths where ptf::takes(D, P): the maps of q and both
-// pools, the instance for D's padded width and the chunk's q tiles
-template <int DP, int KW>
+// f32 prefill widths: the maps of q and both pools where ptf::takes(D, P)
+// (else the gathered instance), the instance for D's padded width (DP = 0
+// past 256) and the chunk's q tiles; gather as launch_paged_tc_t's
+template <int DP, int KW, bool GATHER>
 int launch_tf32_t(const void* q, const void* k_pool, const void* v_pool,
                   const void* page_table, const void* lengths, void* out,
                   int B, int s, int H, int D, int N, int P, int maxp,
@@ -2115,180 +2042,151 @@ int launch_tf32_t(const void* q, const void* k_pool, const void* v_pool,
   g.maxp = maxp;
   g.pb = split::pow2_part(P);
   g.n_blk = (s + KW * kTile - 1) / (KW * kTile);
+  g.nz = DP ? 1 : (D + ptf::kNC - 1) / ptf::kNC;
   g.scale_log2 = scale * kLog2e;
-  const long long gx = (long long)g.n_blk * B * H;
-  if (!ptf::takes(D, P) || gx > 0x7FFFFFFFLL ||
-      (long long)N * P > 0x7FFFFFFFLL)
+  g.q = static_cast<const float*>(q);
+  g.k = static_cast<const float*>(k_pool);
+  g.v = static_cast<const float*>(v_pool);
+  const long long gx = (long long)g.n_blk * B * H * g.nz;
+  if ((!GATHER && !ptf::takes(D, P)) || ptf::padded(D) != DP ||
+      gx > 0x7FFFFFFFLL || (long long)N * P > 0x7FFFFFFFLL)
     return -1;
-  CUtensorMap qm, km, vm;
-  int err = hopper::make_map_bshd<float>(&qm, q, B, s, H, D);
-  if (err) return err;
-  err = hopper::make_map_bshd<float>(&km, k_pool, 1, N * P, H, D, g.pb);
-  if (err) return err;
-  err = hopper::make_map_bshd<float>(&vm, v_pool, 1, N * P, H, D, g.pb);
-  if (err) return err;
+  CUtensorMap qm{}, km{}, vm{};
+  if (!GATHER) {
+    int err = hopper::make_map_bshd<float>(&qm, q, B, s, H, D);
+    if (err) return err;
+    err = hopper::make_map_bshd<float>(&km, k_pool, 1, N * P, H, D, g.pb);
+    if (err) return err;
+    err = hopper::make_map_bshd<float>(&vm, v_pool, 1, N * P, H, D, g.pb);
+    if (err) return err;
+  }
   const size_t smem = ptf::smem(DP, KW);
-  err = prepare(paged_attention_tf32<DP, KW>, smem);
+  const int err = prepare(paged_attention_tf32<DP, KW, GATHER>, smem);
   if (err) return err;
-  paged_attention_tf32<DP, KW><<<(unsigned)gx, 128 * (1 + KW), smem,
-                                 stream>>>(
+  paged_attention_tf32<DP, KW, GATHER><<<(unsigned)gx, 128 * (1 + KW), smem,
+                                         stream>>>(
       qm, km, vm, static_cast<const int32_t*>(page_table),
       static_cast<const int32_t*>(lengths), static_cast<float*>(out), g);
   return (int)cudaGetLastError();
 }
 
+template <bool GATHER>
+int launch_tf32_g(const void* q, const void* k_pool, const void* v_pool,
+                  const void* page_table, const void* lengths, void* out,
+                  int B, int s, int H, int D, int N, int P, int maxp,
+                  float scale, cudaStream_t stream) {
+  const int dp = ptf::padded(D), kw = ptf::consumers(D, s);
+  auto f = dp == 64    ? (kw == 2 ? launch_tf32_t<64, 2, GATHER>
+                                  : launch_tf32_t<64, 1, GATHER>)
+           : dp == 128 ? (kw == 2 ? launch_tf32_t<128, 2, GATHER>
+                                  : launch_tf32_t<128, 1, GATHER>)
+           : dp == 256 ? launch_tf32_t<256, 1, GATHER>
+                       : launch_tf32_t<0, 1, GATHER>;
+  return f(q, k_pool, v_pool, page_table, lengths, out, B, s, H, D, N, P,
+           maxp, scale, stream);
+}
+
 int launch_tf32(const void* q, const void* k_pool, const void* v_pool,
                 const void* page_table, const void* lengths, void* out,
                 int B, int s, int H, int D, int N, int P, int maxp,
-                float scale, cudaStream_t stream) {
-  const int dp = ptf::padded(D), kw = ptf::consumers(D, s);
-  auto f = dp == 64    ? (kw == 2 ? launch_tf32_t<64, 2> : launch_tf32_t<64, 1>)
-           : dp == 128 ? (kw == 2 ? launch_tf32_t<128, 2>
-                                  : launch_tf32_t<128, 1>)
-                       : launch_tf32_t<256, 1>;
-  return f(q, k_pool, v_pool, page_table, lengths, out, B, s, H, D, N, P,
-           maxp, scale, stream);
+                float scale, int gather, cudaStream_t stream) {
+  return (gather ? launch_tf32_g<true> : launch_tf32_g<false>)(
+      q, k_pool, v_pool, page_table, lengths, out, B, s, H, D, N, P, maxp,
+      scale, stream);
 }
 
-template <typename T, int DP, bool AL>
-int launch_mma(const void* q, const void* k_pool, const void* v_pool,
-               const void* page_table, const void* lengths, void* out, int B,
-               int s, int H, int D, int N, int P, int maxp, float scale,
-               cudaStream_t stream) {
-  const size_t smem = 5 * (size_t)kTile * (DP + 8) * sizeof(T);
-  int err = prepare(paged_attention_mma<T, DP, AL>, smem);
-  if (err) return err;
-  const long long gx = (long long)(s + kTile - 1) / kTile * B;
-  if (gx > 0x7FFFFFFFLL) return -1;
-  paged_attention_mma<T, DP, AL><<<dim3((unsigned)gx, H), kThreads, smem,
-                                   stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), static_cast<const int32_t*>(page_table),
-      static_cast<const int32_t*>(lengths), static_cast<T*>(out), s, H, D, N,
-      P, maxp, scale * kLog2e);
-  return (int)cudaGetLastError();
-}
 
-// the tensor-core path's instance for D (padded to 64, 128 or 256) and
-// row alignment
-template <typename T>
-int launch_tc(const void* q, const void* k_pool, const void* v_pool,
-              const void* page_table, const void* lengths, void* out, int B,
-              int s, int H, int D, int N, int P, int maxp, float scale,
-              cudaStream_t stream) {
-  const bool al = (D * 2) % 16 == 0;
-  auto f = D <= 64    ? (al ? launch_mma<T, 64, true> : launch_mma<T, 64, false>)
-           : D <= 128 ? (al ? launch_mma<T, 128, true>
-                            : launch_mma<T, 128, false>)
-                      : (al ? launch_mma<T, 256, true>
-                            : launch_mma<T, 256, false>);
-  return f(q, k_pool, v_pool, page_table, lengths, out, B, s, H, D, N, P,
-           maxp, scale, stream);
-}
-
-template <typename T, bool VEC, bool SLICED>
-int launch_t(const void* q, const void* k_pool, const void* v_pool,
-             const void* page_table, const void* lengths, void* out, int B,
-             int s, int H, int D, int N, int P, int maxp, float scale,
-             cudaStream_t stream) {
-  const int W = SLICED ? kMaxD : D;               // the kernel's slices
-  const long long gx = (long long)H * ((D + W - 1) / W) * B;
-  if (gx > 0x7FFFFFFFLL) return -1;
-  const size_t smem = 2 * (size_t)kRows * W * sizeof(T) +
-                      sizeof(float) * ((size_t)kQTile * W + kQTile * kRows +
-                                       3 * kQTile);
-  int err = prepare(paged_attention_kernel<T, VEC, SLICED>, smem);
-  if (err) return err;
-  const int tiles = (s + kQTile - 1) / kQTile;
-  dim3 grid((unsigned)gx, 1, tiles < kMaxTileBlocks ? tiles : kMaxTileBlocks);
-  paged_attention_kernel<T, VEC, SLICED><<<grid, kThreadsS, smem,
-                                            stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), static_cast<const int32_t*>(page_table),
-      static_cast<const int32_t*>(lengths), static_cast<T*>(out), s, H, D, N,
-      P, maxp, scale);
-  return (int)cudaGetLastError();
-}
-
-// The kernel of each route (route() below): bf16 / f16 at widths from
-// kMmaMinWidth the tensor-core kernels (paged TMA + wgmma where
-// pw::takes(D, P), else the mma.sync copies: up to kMaxD the tile kernel,
-// past it the sliced one); f32 at those widths paged TMA + 3xTF32 wgmma
-// where ptf::takes(D, P); else (decode steps without 16-byte rows, the
-// other f32 prefill shapes) the scalar one
+// The chunk kernels (widths from kChunkMin): bf16 / f16 paged_attention_tc,
+// f32 paged_attention_tf32, each the TMA instance where its boxes take the
+// rows and pages, else the gathered one (gather forces one: chip_smoke.py's
+// check that the two agree bit for bit)
 template <typename T>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* page_table, const void* lengths, void* out, int B,
            int s, int H, int D, int N, int P, int maxp, float scale,
-           cudaStream_t stream) {
-  if constexpr (!std::is_same<T, float>::value) {
-    if (s >= kMmaMinWidth)
-      return (pw::takes(D, P) ? launch_paged_tc<T>
-              : D <= kMaxD      ? launch_tc<T>
-                                : launch_mma_wide<T>)(
-          q, k_pool, v_pool, page_table, lengths, out, B, s, H, D, N, P,
-          maxp, scale, stream);
-  } else {
-    if (s >= kMmaMinWidth && ptf::takes(D, P))
-      return launch_tf32(q, k_pool, v_pool, page_table, lengths, out, B, s,
-                         H, D, N, P, maxp, scale, stream);
-  }
-  const bool vec = (D * sizeof(T)) % 16 == 0;
-  auto f = D > kMaxD
-               ? (vec ? launch_t<T, true, true> : launch_t<T, false, true>)
-               : (vec ? launch_t<T, true, false> : launch_t<T, false, false>);
-  return f(q, k_pool, v_pool, page_table, lengths, out, B, s, H, D, N, P,
-           maxp, scale, stream);
+           int gather, cudaStream_t stream) {
+  if (s < kChunkMin) return -1;
+  if constexpr (std::is_same<T, float>::value)
+    return launch_tf32(q, k_pool, v_pool, page_table, lengths, out, B, s, H,
+                       D, N, P, maxp, scale, gather, stream);
+  else
+    return launch_paged_tc<T>(q, k_pool, v_pool, page_table, lengths, out, B,
+                              s, H, D, N, P, maxp, scale, gather, stream);
 }
 
 // The kernel the wrapper's dispatch runs for dtype, width s, head width D
-// and pages of P rows: 0 paged_decode_split (through paged_decode_launch:
-// widths below kMmaMinWidth, 16-byte rows, any D: past 256
-// paged_decode_split_wide), through paged_attention_launch 1
-// paged_attention_mma (bf16/f16 widths from kMmaMinWidth, D <= 256, where
-// not pw::takes(D, P)), 2 paged_attention_tc past 256 (where pw::takes(D,
-// P)), 3 paged_attention_mma_wide (other bf16/f16 rows past 256), 4 the
-// scalar kernel (the rest), 5 paged_attention_tf32 (f32 widths from
-// kMmaMinWidth where ptf::takes(D, P)), 6 paged_attention_tc up to 256
-// (where pw::takes(D, P)); -1 a dtype or size it does not take.
+// and pages of P rows, at every (dtype, s, D, P): through
+// paged_decode_launch (widths below kChunkMin) 0 paged_decode_split on TMA
+// boxes (rows a multiple of 16 bytes; past 256 paged_decode_split_wide), 1
+// its gathered instance (other rows); through paged_attention_launch
+// (widths from kChunkMin) 2 paged_attention_tc on TMA boxes up to D = 256
+// (bf16 / f16 where pw::takes(D, P)), 3 the same past 256 (256-column
+// chunks), 4 and 5 their gathered instances (other bf16 / f16 rows and
+// pages), 6 paged_attention_tf32 on TMA boxes (f32 where ptf::takes(D,
+// P), at any D), 7 its gathered instance; -1 a dtype or size it does not
+// take.
 int route(int dtype, int s, int D, int P) {
   if (dtype < 0 || dtype > 2 || s < 1 || D < 1 || P < 1) return -1;
   const int elem = dtype == 0 ? 4 : 2;
-  if (s < kMmaMinWidth) return (D * elem) % 16 == 0 ? 0 : 4;
-  if (dtype == 0) return ptf::takes(D, P) ? 5 : 4;
-  if (pw::takes(D, P)) return D <= kMaxD ? 6 : 2;
-  return D <= kMaxD ? 1 : 3;
+  if (s < kChunkMin) return (D * elem) % 16 == 0 ? 0 : 1;
+  if (dtype == 0) return ptf::takes(D, P) ? 6 : 7;
+  const int wide = D > 256 ? 1 : 0;
+  return (pw::takes(D, P) ? 2 : 4) + wide;
 }
 
 }  // namespace
 
 extern "C" {
 
+int paged_attention_launch_as(int gathered, int dtype, const void* q,
+                              const void* k_pool, const void* v_pool,
+                              const void* page_table, const void* lengths,
+                              void* out, int B, int s, int H, int D, int N,
+                              int P, int maxp, float scale, void* stream);
+
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16.  Returns a cudaError_t
 // (0 = launched).  -1: a geometry the kernel does not take (the wrapper
 // checks first, so this is a second guard, not the user-facing error).
-// Every width and head width: the tensor-core kernels from kMmaMinWidth
-// where their rows and pages allow, else the scalar kernel (the wrapper
-// sends decode widths with 16-byte rows to paged_decode_launch instead).
+// Chunk widths only (s >= 16; the wrapper sends decode widths to
+// paged_decode_launch), every head width and page size: the TMA instance
+// of the chunk kernel of the dtype where its boxes take the rows and
+// pages, else its gathered instance (route() above).
 int paged_attention_launch(int dtype, const void* q, const void* k_pool,
                            const void* v_pool, const void* page_table,
                            const void* lengths, void* out, int B, int s,
                            int H, int D, int N, int P, int maxp, float scale,
                            void* stream) {
-  if (D < 1 || P < 1 || s < 1 || maxp < 1 || N < 1 || B < 1 || H < 1 ||
-      H > 65535)
+  const int r = route(dtype, s, D, P);
+  return paged_attention_launch_as(r == 4 || r == 5 || r == 7 ? 1 : 0,
+                                   dtype, q, k_pool, v_pool, page_table,
+                                   lengths, out, B, s, H, D, N, P, maxp,
+                                   scale, stream);
+}
+
+// paged_attention_launch with the instance named: gathered = 0 the TMA
+// instance (-1 where its boxes do not take the rows or pages), 1 the
+// gathered one.  chip_smoke.py holds the two instances bit for bit at a
+// shape both take; the routes launch through paged_attention_launch.
+int paged_attention_launch_as(int gathered, int dtype, const void* q,
+                              const void* k_pool, const void* v_pool,
+                              const void* page_table, const void* lengths,
+                              void* out, int B, int s, int H, int D, int N,
+                              int P, int maxp, float scale, void* stream) {
+  if (D < 1 || P < 1 || s < kChunkMin || maxp < 1 || N < 1 || B < 1 ||
+      H < 1 || H > 65535)
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
       return launch<float>(q, k_pool, v_pool, page_table, lengths, out, B, s,
-                           H, D, N, P, maxp, scale, st);
+                           H, D, N, P, maxp, scale, gathered, st);
     case 1:
       return launch<__nv_bfloat16>(q, k_pool, v_pool, page_table, lengths,
-                                   out, B, s, H, D, N, P, maxp, scale, st);
+                                   out, B, s, H, D, N, P, maxp, scale,
+                                   gathered, st);
     case 2:
       return launch<__half>(q, k_pool, v_pool, page_table, lengths, out, B,
-                            s, H, D, N, P, maxp, scale, st);
+                            s, H, D, N, P, maxp, scale, gathered, st);
     default:
       return -1;
   }
@@ -2300,41 +2198,41 @@ int paged_attention_route(int dtype, int s, int D, int P) {
 }
 
 // Dynamic shared memory of paged_attention_tc at head width D and width s
-// (the instance launch_paged_tc picks), bytes
+// (the instance launch_paged_tc picks, TMA or gathered alike), bytes
 int paged_attention_tc_smem(int D, int s) {
   return (int)pw::smem_bytes(D, s);
 }
 
 // Dynamic shared memory of paged_attention_tf32 at head width D and width
-// s (the instance launch_tf32 picks), bytes
+// s (the instance launch_tf32 picks, TMA or gathered alike), bytes
 int paged_attention_tf32_smem(int D, int s) {
   return (int)ptf::smem(ptf::padded(D), ptf::consumers(D, s));
 }
 
 // Dynamic shared memory of the split decode kernel at width s, head width
-// D, groups of G heads and pages of P rows, bytes
+// D, groups of G heads and pages of P rows (the gathered instance where
+// rows are not a multiple of 16 bytes), bytes
 int paged_decode_split_smem(int dtype, int s, int D, int G, int P) {
   return (int)split::smem_bytes(s, D, G, P, dtype == 0 ? 4 : 2);
 }
 
-// The split decode kernel: widths s < kMmaMinWidth, rows a multiple of 16
-// bytes, heads in groups of G (G * D <= 256, G <= 8), or past D = 256 one
-// head a group in column slices.  part_o (B * nch * s * H * D f32),
-// part_ml (B * nch * s * H * 2 f32) and counts (B * ceil(H / G) int32,
-// zero, and left zero) are the wrapper's scratch, nch = ceil(maxp * P /
-// 64); with nch == 1 they are not touched.
+// The split decode kernel: widths s < kChunkMin, any D and row alignment
+// (rows not a multiple of 16 bytes: the gathered instance), heads in
+// groups of G (G * D <= 256, G <= 8), or past D = 256 one head a group in
+// column slices.  part_o (B * nch * s * H * D f32), part_ml (B * nch * s
+// * H * 2 f32) and counts (B * ceil(H / G) int32, zero, and left zero) are
+// the wrapper's scratch, nch = ceil(maxp * P / 64); with nch == 1 they are
+// not touched.
 int paged_decode_launch(int dtype, const void* q, const void* k_pool,
                         const void* v_pool, const void* page_table,
                         const void* lengths, void* out, void* part_o,
                         void* part_ml, void* counts, int B, int s, int H,
                         int D, int N, int P, int maxp, int G, float scale,
                         void* stream) {
-  const int elem = dtype == 0 ? 4 : 2;
   if (dtype < 0 || dtype > 2 || D < 1 || P < 1 || s < 1 ||
       s > split::kMaxW || maxp < 1 || N < 1 || B < 1 || H < 1 || G < 1 ||
       G > split::kMaxG || (D <= split::kMaxCols ? G * D > split::kMaxCols
-                                                : G != 1) ||
-      (D * elem) % 16 != 0)
+                                                : G != 1))
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto f = dtype == 0 ? split::launch<float>

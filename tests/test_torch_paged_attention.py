@@ -175,12 +175,17 @@ def test_kernel_geometry_takes_any_slot_count():
 @pytest.mark.parametrize("s,D,dtype,split", [
     (1, 64, torch.bfloat16, True), (15, 256, torch.float16, True),
     (1, 64, torch.float32, True), (16, 64, torch.bfloat16, False),
-    (1, 36, torch.bfloat16, False), (1, 320, torch.float32, True),
+    (1, 36, torch.bfloat16, True), (1, 320, torch.float32, True),
     (2, 4, torch.float32, True)])
 def test_routing_sends_decode_widths_to_the_split_kernel(s, D, dtype, split):
-    """Widths below 16 with 16-byte rows take the split decode kernel at
-    any D, the rest the tile kernels."""
-    assert tpa.uses_split_decode(s, D, dtype) is split
+    """Widths below 16 take the split decode kernel at any D (rows that
+    are not a multiple of 16 bytes, D = 36 in bf16, on its gathered
+    instance), wider chunks the chunk kernels."""
+    assert tpa.uses_split_decode(s) is split
+    want = ("split" if D * dtype.itemsize % 16 == 0 else "split_g") \
+        if split else tpa.tile_route(s, D, dtype, 16)
+    assert tpa.tile_route(s, D, dtype, 16) == want
+    assert want not in ("scalar", "tiles", "tiles_wide")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
@@ -188,33 +193,34 @@ def test_routing_sends_decode_widths_to_the_split_kernel(s, D, dtype, split):
 @pytest.mark.parametrize("s", [1, 15, 16, 32, 128])
 def test_tile_route_names_one_kernel_per_shape(s, dtype):
     """The mirror of the library's ``paged_attention_route``: the split
-    decode kernel at decode widths with 16-byte rows; bf16 / f16 widths
-    from 16 paged TMA + wgmma where rows are a multiple of 8 elements and
-    pages of 8 rows (``tiles_tc`` up to 256, ``tiles_wide_tc`` past it),
-    the mma.sync copies otherwise (the tile kernel up to 256, the sliced
-    one past it); f32 widths from 16 paged TMA + 3xTF32 wgmma up to 256
-    where rows are a multiple of 4 elements and pages of 8 rows; the
-    scalar kernel for the rest."""
+    decode kernel at decode widths (its TMA instance with 16-byte rows,
+    ``split``, else gathered, ``split_g``); bf16 / f16 widths from 16 paged
+    TMA + wgmma where rows are a multiple of 8 elements and pages of 8
+    rows (``tiles_tc`` up to 256, ``tiles_wide_tc`` past it), the same
+    kernel's gathered instance otherwise (``tiles_tc_g``,
+    ``tiles_wide_tc_g``); f32 widths from 16 paged TMA + 3xTF32 wgmma at
+    every D where rows are a multiple of 4 elements and pages of 8 rows
+    (``tiles_tf32``), else its gathered instance (``tiles_tf32_g``).  No
+    shape reaches the retired scalar kernel or the mma.sync copies."""
     half = dtype != torch.float32
     for D in (64, 256, 260, 320, 512):
         for P in (1, 12, 16, 48, 128):
             route = tpa.tile_route(s, D, dtype, P)
             assert route in tpa.TILE_ROUTES
-            assert (route == "split") is tpa.uses_split_decode(s, D, dtype)
-            if route == "split":
-                continue
+            assert route.startswith("split") is tpa.uses_split_decode(s)
+            tma = D % (8 if half else 4) == 0 and P % 8 == 0
             if s < 16:
-                want = "scalar"
+                want = ("split" if D * dtype.itemsize % 16 == 0
+                        else "split_g")
             elif not half:
-                want = ("tiles_tf32" if D <= 256 and D % 4 == 0
-                        and P % 8 == 0 else "scalar")
-            elif D % 8 == 0 and P % 8 == 0:
-                want = "tiles_tc" if D <= 256 else "tiles_wide_tc"
+                want = "tiles_tf32" if tma else "tiles_tf32_g"
             else:
-                want = "tiles" if D <= 256 else "tiles_wide"
+                want = "tiles_tc" if D <= 256 else "tiles_wide_tc"
+                want = want if tma else want + "_g"
             assert route == want, (s, D, P, dtype, route)
     # the routes are the keys of the per-kernel launch counts
     assert set(tpa.kernel_launches) == set(tpa.TILE_ROUTES)
+    assert not {"scalar", "tiles", "tiles_wide"} & set(tpa.TILE_ROUTES)
 
 
 @pytest.mark.parametrize("P", [1, 16, 48, 128, 256])
@@ -224,9 +230,11 @@ def test_wide_tc_plan_boxes_stay_in_their_page(P):
     leaves its page and lands 1024-byte aligned (8-row groups of 128
     bytes), a 64-row kv tile is whole boxes, and shared memory stays under
     the card's 232,448 bytes at every width to 8192; pages of fewer than 8
-    rows a box (P = 1) take the sliced kernel."""
+    rows a box (P = 1) take the kernel's gathered instance, whose TMA plan
+    is refused."""
     if P % 8:
-        assert tpa.tile_route(32, 512, torch.bfloat16, P) == "tiles_wide"
+        assert tpa.tile_route(32, 512, torch.bfloat16, P) == \
+            "tiles_wide_tc_g"
         with pytest.raises(ValueError):
             tpa.tc_plan(16, 32, 12, 512, P, torch.bfloat16)
         return

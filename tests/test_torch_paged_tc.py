@@ -1,7 +1,7 @@
 """K3's bf16/f16 prefill kernel on paged TMA + wgmma
 (``paged_attention_tc``) on the CPU: its route (``tile_route``) and launch
 plan (``tc_plan``) over widths 16-256, head widths 8-264 and pages of 8
-to 128 rows, with the shapes that stay on the mma.sync copies; the
+to 128 rows, with the shapes its gathered instance takes; the
 port's plain version against the JAX package's ``paged_attention_ref`` on
 the shapes the kernel takes; a plain emulation of the kernel's walk --
 blocks of one or two 64-row q tiles, 64-row kv tiles found through the
@@ -49,8 +49,8 @@ def test_route_and_plan_of_the_tma_kernel(dtype, s):
     """Every bf16/f16 chunk up to D = 256 with rows TMA addresses over
     pages of a multiple of 8 rows routes to ``tiles_tc``, past 256 to
     ``tiles_wide_tc`` (the same kernel in 256-column chunks); the rest
-    stays on the mma.sync copies (``tiles``, ``tiles_wide``), whose shapes
-    the plan refuses.  The plan: one output chunk of D's padded width (64,
+    takes the same kernel's gathered instance (``tiles_tc_g``,
+    ``tiles_wide_tc_g``), whose shapes the TMA plan refuses.  The plan: one output chunk of D's padded width (64,
     128, 256) up to 256, two consumer warpgroups up to 128 where the chunk
     has more than one q tile, a block per (slot, consumers' q tiles, head,
     chunk), a producer warp, boxes of pb rows that never leave their page
@@ -61,7 +61,8 @@ def test_route_and_plan_of_the_tma_kernel(dtype, s):
         for P in PAGES:
             route = tpa.tile_route(s, D, dtype, P)
             if not _takes(D, P):
-                assert route == ("tiles" if D <= 256 else "tiles_wide")
+                assert route == ("tiles_tc_g" if D <= 256
+                                 else "tiles_wide_tc_g")
                 with pytest.raises(ValueError):
                     tpa.tc_plan(B, s, H, D, P, dtype)
                 continue
@@ -92,7 +93,7 @@ def test_route_and_plan_of_the_tma_kernel(dtype, s):
     assert (p["consumers"], p["grid"], p["boxes"]) == (2, (192, 1, 1), 1)
     # decode widths never reach it
     assert tpa.tile_route(15, 64, dtype, 16) == "split"
-    assert tpa.tile_route(1, 36, dtype, 16) == "scalar"
+    assert tpa.tile_route(1, 36, dtype, 16) == "split_g"
 
 
 def tc_tile_emulation(q, k_pool, v_pool, page_table, lengths, zero=True):

@@ -27,18 +27,18 @@ F32 = torch.float32
 
 @pytest.mark.parametrize("s", [16, 32, 65, 128])
 def test_tf32_route_takes_f32_chunks_tma_can_address(s):
-    """f32 widths from 16 take the new kernel where D <= 256, D % 4 == 0
-    and the page's box rows (the largest power of two dividing it, up to
-    64) are at least 8; the rest stays on the scalar kernel."""
+    """f32 widths from 16 take the kernel's TMA instance at every D where
+    D % 4 == 0 and the page's box rows (the largest power of two dividing
+    it, up to 64) are at least 8; the rest its gathered instance."""
     for D in range(1, 300):
         for P in (1, 4, 8, 12, 16, 24, 48, 128, 256):
-            want = ("tiles_tf32" if D <= 256 and D % 4 == 0 and P % 8 == 0
-                    else "scalar")
+            want = ("tiles_tf32" if D % 4 == 0 and P % 8 == 0
+                    else "tiles_tf32_g")
             assert tpa.tile_route(s, D, F32, P) == want, (s, D, P)
     # bf16 / f16 chunks and every decode width keep their kernels
     assert tpa.tile_route(32, 64, torch.bfloat16, 16) == "tiles_tc"
     assert tpa.tile_route(15, 64, F32, 16) == "split"
-    assert tpa.tile_route(1, 36, torch.bfloat16, 16) == "scalar"
+    assert tpa.tile_route(1, 36, torch.bfloat16, 16) == "split_g"
 
 
 @pytest.mark.parametrize("P", [8, 16, 48, 128, 256])
@@ -68,7 +68,7 @@ def test_tf32_plan_boxes_stay_in_their_page(P):
 
 
 @pytest.mark.parametrize("s,D,P", [(32, 64, 12), (32, 36, 2), (8, 64, 16),
-                                   (32, 264, 16), (32, 38, 16)])
+                                   (32, 264, 12), (32, 38, 16)])
 def test_tf32_plan_refuses_what_another_kernel_takes(s, D, P):
     with pytest.raises(ValueError):
         tpa.tf32_plan(2, s, 2, D, P)
