@@ -95,9 +95,29 @@ Phases, each printing one JSON line:
                same model and init with use_flash_attention=False (the
                plain composition), rtol 1e-3 (they have agreed to 2.6e-5
                on the H100: a 40x margin for bf16 rounding in attention).
+               Reports the peak device memory over the timed steps (the
+               loss keeps no f32 copy of the logits).
 5. train_profile -- one train step under ``torch.profiler``: device idle
-               share, top device kernels and host ops.
-6. flash_bhd_checks -- holds the three bhd flash-attention kernels K2
+               share, kernel launches (copies and sets apart), top device
+               kernels and host ops.
+6. train_optim -- GPT-2-small in bf16 (the same weights) at b=8, s=1024,
+               3 steps each on one repeated batch through (a)
+               ``make_functional_train_step`` with AdamW (biases and layer
+               norms spared by ``apply_decay_param_fun``), ``LinearWarmup``
+               over ``CosineAnnealingDecay`` and ``ClipGradByGlobalNorm(1.0)``;
+               (b) ``make_sharded_train_step(optimizer="lamb")``; (c)
+               ``make_sharded_train_step(master_weights=True)``.  Gates per
+               run: losses finite and falling, each K1 kernel launched
+               exactly 3 x 12 times, no call of K1's plain versions.  Then
+               (``train_optim_adam_bits``) two steps of Adam and of AdamW on
+               (c)'s bf16 parameters and gradients: the multi-tensor update
+               and the per-tensor rule must give the same bits, values and
+               moments (wall time of each beside); and
+               (``train_optim_loss``) the chunked loss on the model's logits
+               against the unchunked logsumexp form: mean within 1e-6
+               relative, each gradient entry within 1 bf16 ulp (peak memory
+               and wall time of each form beside).
+7. flash_bhd_checks -- holds the three bhd flash-attention kernels K2
                (forward, dK/dV, dQ; ``csrc/flash_attention.cu``) against their
                plain versions on the same inputs: f32 against the plain
                version in f64, bf16/f16 against it in f32; forward O and LSE,
@@ -157,7 +177,7 @@ Phases, each printing one JSON line:
                dk and dv against f64) and the truncated control must fail
                it; the split to nearest is read (its own f32 sums over
                3 D-long and 1000-row contractions reach 7.9e-7).
-7. flash_bhd -- K2's times at the f32 training geometry by CUDA-graph
+8. flash_bhd -- K2's times at the f32 training geometry by CUDA-graph
                replay (inputs 201 MB), beside the bounds (as 3xTF32, three
                tf32 products at 494.7 TFLOP/s, with the f32 CUDA-core
                bound, 67 TFLOP/s, beside), the forward's and the pair's
@@ -178,7 +198,7 @@ Phases, each printing one JSON line:
                D=256 (b=8, s=1024, H=4) beside their bounds, plain
                versions and SDPA (``wide``); the pair's error
                against f64 beside SDPA's own f32 backward's.
-8. train_f32 -- GPT-2-small f32 (``make_sharded_train_step`` with no
+9. train_f32 -- GPT-2-small f32 (``make_sharded_train_step`` with no
                ``param_dtype``: f32 parameters and Adam moments) at b=16,
                s=1024, flash on auto: 2 warm-up and 10 timed steps.  Gates:
                losses finite and falling, K2 launches exactly 10 x 12 each,
@@ -187,7 +207,7 @@ Phases, each printing one JSON line:
                time) and a 3-step loss series at b=4, K2 against
                ``use_flash_attention=False`` (the plain composition), rtol
                ``F32_FLASH_VS_PLAIN_RTOL``.
-9. wide     -- a GPT at D = 256 (hidden 1024, 4 heads, 2 layers), b=4,
+10. wide     -- a GPT at D = 256 (hidden 1024, 4 heads, 2 layers), b=4,
                s=1024, 3 train steps each way: bf16 through K1, f32
                through SDPA and K2.  Gates: the flash series' launches
                exactly 3 x 2 per kernel, also by kernel (the forward,
@@ -217,7 +237,7 @@ Phases, each printing one JSON line:
                lengths, K4 a transposed weight view and a bf16 scale; each
                launches its kernel and equals the normalised call bit for
                bit.
-10. paged   -- holds ``paged_attention`` (K3: the split decode kernel at
+11. paged   -- holds ``paged_attention`` (K3: the split decode kernel at
                widths below 16 at any D, past 256 its row in column
                slices, its rows by whole-page TMA boxes where they are a
                multiple of 16 bytes, else gathered; prefill chunks the
@@ -285,7 +305,7 @@ Phases, each printing one JSON line:
                the retired kernels ran (pages of 12, D = 36, D = 260, f32
                D = 320, f32 pages of 12, f32 D = 38, decode at D = 36),
                each checked and timed beside its bound and SDPA.
-11. serving -- GPT-2-small in bf16 through
+12. serving -- GPT-2-small in bf16 through
                ``ServingEngine(cache_mode="paged", max_slots=16, max_len=512,
                page_size=16, num_pages=257, chunk=32, decode_window=32)``:
                16 greedy requests of 64 prompt tokens and 128 new tokens.
@@ -300,10 +320,10 @@ Phases, each printing one JSON line:
                ticks x layers launching the f32 prefill kernel, its decode
                steps x layers the split kernel, every other K3 kernel and
                the plain version never.
-12. profile -- device time by kernel over one short serving run
+13. profile -- device time by kernel over one short serving run
                (``torch.profiler``), for the breakdown in PERF.md, with
                K3's kernels' share of the busy time.
-13. paged_wide -- the paged engine at ``chunk=128, page_size=128`` against
+14. paged_wide -- the paged engine at ``chunk=128, page_size=128`` against
                the dense engine, GPT-2-small f32, 4 requests of 300, 200,
                150 and 64 prompt tokens x 32 new: token-exact, the f32
                prefill kernel launched exactly chunk ticks x layers and the
@@ -328,7 +348,7 @@ Phases, each printing one JSON line:
                plain version 0 times, no page in use; against the dense
                engine token-exact, or diverging first within the dense
                model's own logit margin (bf16 ``BF16_MARGIN``, f32 1e-3).
-14. quant_checks -- holds the dequant-GEMM kernel K4
+15. quant_checks -- holds the dequant-GEMM kernel K4
                (``csrc/quant_matmul.cu``) on the card against its plain
                version ``quant_matmul_ref`` (an f32 sum) and against the
                exact sum rounded once to f32 (``exact_sum``): the four
@@ -364,7 +384,7 @@ Phases, each printing one JSON line:
                exact products in reverse chunk order, must pass) and a
                planted fault (a stale K tile, must fail).  A 3-D input
                with bias through ``quant_matmul``.
-15. quant   -- K4's time at M = 8 and M = 256 (bf16 activations, and
+16. quant   -- K4's time at M = 8 and M = 256 (bf16 activations, and
                f32 activations) for each projection, and each
                layer's sum, by CUDA-graph replay over input copies larger
                than the L2 (> 60 MB, >= 24 copies), beside its bound, the
@@ -374,7 +394,7 @@ Phases, each printing one JSON line:
                weight in the activation type; where the plan splits at M
                = 256 (out, fc_out), the walk's time beside it, and the
                two results bit for bit.
-16. serving_int8 -- the JAX package's ``serving_int8`` row on the card:
+17. serving_int8 -- the JAX package's ``serving_int8`` row on the card:
                GPT-2-small bf16 with Normal(0, 0.02) weights from a numpy
                seed, ``save_for_serving(quant="int8")`` into a temp dir,
                ``load_for_serving`` on CUDA, a dense
@@ -386,7 +406,7 @@ Phases, each printing one JSON line:
                is called 0 times.  Weight bytes (params + scales +
                buffers) of both.  Then one profiled int8 run (idle share,
                K4's share of device time).
-17. quant_f32_cross_check -- int8 and fp8 artifacts of the f32 model: the
+18. quant_f32_cross_check -- int8 and fp8 artifacts of the f32 model: the
                dense and paged engines token-exact against the same
                quantized model's greedy ``generate`` on the card, 4 requests
                x 32 new tokens; the f32 kernel's launches counted.
@@ -1566,8 +1586,9 @@ def flash_wide_times(torch, fap, F):
 # ---------------------------------------------------------------------------
 
 def profile_summary(torch, prof, wall):
-    """Device busy time and idle share over ``wall``, and the top device
-    kernels and host ops, from a ``torch.profiler`` run."""
+    """Device busy time and idle share over ``wall``, the count of kernel
+    launches (and of copies and sets apart), and the top device kernels
+    and host ops, from a ``torch.profiler`` run."""
     # device-side events only (kernels, copies): a CPU op's self device
     # time repeats the time of the kernels it launched
     events = prof.key_averages()
@@ -1580,7 +1601,11 @@ def profile_summary(torch, prof, wall):
                    for e in events
                    if str(getattr(e, "device_type", "")).endswith("CPU")),
                   key=lambda r: -r[1])
+    kernels = sum(n for k, _, n in rows
+                  if not k.startswith(("Memcpy", "Memset")))
     return {"wall_s": wall,
+            "device_kernel_launches": kernels,
+            "device_copies_and_sets": sum(n for _, _, n in rows) - kernels,
             "device_busy_s": total / 1e6 if total else None,
             "device_idle_share": (1 - total / 1e6 / wall) if total else None,
             "top_kernels": [{"name": k[:80], "device_ms": us / 1e3,
@@ -1682,6 +1707,271 @@ def phase_train(torch, fap):
     if not rel <= FLASH_VS_PLAIN_RTOL:
         raise AssertionError(f"flash and plain loss series differ by "
                              f"{rel} > {FLASH_VS_PLAIN_RTOL}: {series}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# The optimizer and the train step: schedulers, AdamW, Lamb, master weights
+# ---------------------------------------------------------------------------
+
+OPTIM_SHAPE = dict(b=8, s=1024)
+OPTIM_STEPS = 3
+# the chunked loss against the unchunked logsumexp form on the same bf16
+# logits: the mean loss within 1e-6 relative (the two take each row's
+# f32 sum in other orders on the card), each gradient entry within 1
+# bf16 ulp (the softmax is the same f32 arithmetic; a last-bit difference
+# of the row's logsumexp can move an entry across one bf16 rounding)
+CE_REL_TOL = 1e-6
+CE_GRAD_ULPS = 1
+
+
+def no_decay(name):
+    """Biases and layer norms take no weight decay (the usual AdamW
+    split)."""
+    return name.endswith(".bias") or ".ln_" in name
+
+
+def bf16_model(torch, cfg, arrays):
+    from paddle_hackathon_tpu_torch.models import GPTForCausalLM
+    from paddle_hackathon_tpu_torch.utils import load_jax_state
+    model = GPTForCausalLM(cfg, device=DEV)
+    load_jax_state(model, arrays)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.data = p.data.to(torch.bfloat16)
+    return model
+
+
+def counted_steps(torch, fap, run, layers, what):
+    """Run ``run()`` (``OPTIM_STEPS`` steps, returning their losses) with
+    K1's counts set to 0 just before and its plain versions counted; the
+    losses must be finite and falling and each K1 kernel launched exactly
+    steps x layers times, no plain call."""
+    plain = {"flash_packed_fwd_ref": 0, "flash_packed_bwd_ref": 0}
+    real = counting(fap, plain, plain)
+    try:
+        for k in fap.launches:
+            fap.launches[k] = 0
+        t0 = time.perf_counter()
+        losses = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(fap.launches)
+    finally:
+        restore(fap, real)
+    losses = [float(x) for x in losses]
+    need = OPTIM_STEPS * layers
+    emit({"phase": "train_optim", "run": what, "steps": OPTIM_STEPS,
+          "wall_s": wall, "losses": losses, "k1_launches": launches,
+          "plain_k1_calls": plain})
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{what}: losses not finite and falling: "
+                             f"{losses}")
+    if any(n != need for n in launches.values()) or any(plain.values()):
+        raise AssertionError(f"{what}: K1 launches {launches} != {need} "
+                             f"each, or plain calls {plain}")
+    return launches
+
+
+def optim_functional_run(torch, model, ids, labels):
+    """(a): ``make_functional_train_step`` with AdamW (biases and layer
+    norms spared), ``LinearWarmup`` over ``CosineAnnealingDecay`` and
+    ``ClipGradByGlobalNorm(1.0)``."""
+    from paddle_hackathon_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_hackathon_tpu_torch.nn.functional import \
+        fused_softmax_ce_rows
+    from paddle_hackathon_tpu_torch.optimizer import AdamW, lr
+    from paddle_hackathon_tpu_torch.parallel import \
+        make_functional_train_step
+    named = list(model.named_parameters())
+    plist = [p for _, p in named]
+    sched = lr.LinearWarmup(lr.CosineAnnealingDecay(1e-3, T_max=1000),
+                            warmup_steps=2, start_lr=2e-4, end_lr=1e-3)
+    opt = AdamW(learning_rate=sched, parameters=named, weight_decay=0.1,
+                apply_decay_param_fun=lambda n: not no_decay(n),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+
+    def grads_of(params, xs, ys, step):
+        ps = {k: v.detach().requires_grad_() for k, v in params.items()}
+        logits = torch.func.functional_call(model, ps, (xs,))
+        loss = fused_softmax_ce_rows(logits, ys).mean()
+        grads = torch.autograd.grad(loss, list(ps.values()))
+        return loss.detach(), dict(zip(ps, grads))
+
+    train_step = make_functional_train_step(opt, plist,
+                                            [n for n, _ in named], grads_of)
+
+    def run():
+        params = {n: p.detach() for n, p in named}
+        states, t, losses = opt.functional_state(plist), 0, []
+        for _ in range(OPTIM_STEPS):
+            params, states, t, loss = train_step(params, states, t, sched(),
+                                                 (ids, labels))
+            sched.step()
+            losses.append(loss)
+        return losses
+    return run
+
+
+def optim_sharded_run(torch, model, ids, labels, **kw):
+    """(b), (c): ``make_sharded_train_step`` with ``kw``."""
+    from paddle_hackathon_tpu_torch.parallel import make_sharded_train_step
+    step, state = make_sharded_train_step(model, **kw)
+
+    def run():
+        st, losses = state, []
+        for _ in range(OPTIM_STEPS):
+            st, loss = step(st, ids, labels)
+            losses.append(loss)
+        return losses
+    return run
+
+
+def bits_differ(torch, a, b):
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return not torch.equal(a.view(view[a.dtype]), b.view(view[b.dtype]))
+
+
+def adam_multi_vs_per_tensor(torch, model):
+    """Two steps of Adam and of AdamW (the decay mask and the clip) on the
+    model's bf16 parameters and gradients: the multi-tensor update
+    against the per-tensor rule, values and moments bit for bit; each
+    path's wall time (host launches and device work)."""
+    from paddle_hackathon_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_hackathon_tpu_torch.optimizer import Adam, AdamW, Optimizer
+    named = list(model.named_parameters())
+    plist = [p for _, p in named]
+    vals = [p.detach() for p in plist]
+    grads = [p.grad for p in plist]
+    n = len(plist)
+    out = {}
+    for name, opt in (
+            ("adam", Adam(learning_rate=1e-3, parameters=named)),
+            ("adamw", AdamW(learning_rate=1e-3, parameters=named,
+                            weight_decay=0.1,
+                            apply_decay_param_fun=lambda k: not no_decay(k),
+                            grad_clip=ClipGradByGlobalNorm(1.0)))):
+        states, differ, times = opt.functional_state(plist), 0, {}
+        for t in (1, 2):
+            runs = {}
+            for path, fn in (("multi", opt.functional_update),
+                             ("per_tensor", lambda *a, **k:
+                              Optimizer._update_all(opt, *a, (1.0,) * n,
+                                                    k["params"]))):
+                ms = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    runs[path] = fn(vals, grads, states, 1e-3, t,
+                                    params=plist)
+                    torch.cuda.synchronize()
+                    ms.append(1e3 * (time.perf_counter() - t0))
+                times[f"{path}_ms_t{t}"] = sorted(ms)[1]
+            (mv, ms_), (sv, ss) = runs["multi"], runs["per_tensor"]
+            differ += sum(bits_differ(torch, a, b) for a, b in zip(mv, sv))
+            differ += sum(bits_differ(torch, a[k], b[k])
+                          for a, b in zip(ms_, ss) for k in a)
+            states = ms_      # the second step from the first's moments
+        out[name] = {"tensors": n, "tensors_differing": differ, **times}
+    emit({"phase": "train_optim_adam_bits", **out})
+    if any(r["tensors_differing"] for r in out.values()):
+        raise AssertionError(f"multi-tensor Adam differs from the "
+                             f"per-tensor rule: {out}")
+
+
+def ulps_bf16(torch, a, b):
+    """Largest distance in bf16 steps between two bf16 tensors (+0 and
+    -0 one point)."""
+    def key(t):
+        i = t.view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((key(a) - key(b)).abs().max())
+
+
+def chunked_loss_check(torch, model, ids, labels):
+    """``fused_softmax_ce_rows`` on the model's bf16 logits against the
+    unchunked ``logsumexp(x.f32) - x[label].f32`` form: the mean loss,
+    every gradient entry in bf16 ulps, and each form's peak memory and
+    wall time for forward and backward."""
+    from paddle_hackathon_tpu_torch.nn.functional import \
+        fused_softmax_ce_rows
+    with torch.no_grad():
+        x = model(ids).reshape(-1, model.config.vocab_size)
+    lbl = labels.reshape(-1)
+    forms = {
+        "chunked": lambda z: fused_softmax_ce_rows(z, lbl),
+        "unchunked": lambda z: torch.logsumexp(z.float(), dim=-1)
+        - z.gather(-1, lbl[:, None]).squeeze(-1).float()}
+    got = {}
+    for name, fn in forms.items():
+        z = x.clone().requires_grad_()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = fn(z).mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        got[name] = {"loss": float(loss.detach()), "grad": z.grad,
+                     "wall_ms": 1e3 * (time.perf_counter() - t0),
+                     "peak_above_inputs_gb":
+                         (torch.cuda.max_memory_allocated() - base) / 1e9}
+        del z, loss
+    a, b = got["chunked"], got["unchunked"]
+    rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+    ulps = ulps_bf16(torch, a["grad"], b["grad"])
+    emit({"phase": "train_optim_loss", "rows": x.shape[0],
+          "vocab": x.shape[1], "rel_diff": rel, "rel_tol": CE_REL_TOL,
+          "grad_max_ulps": ulps, "ulp_tol": CE_GRAD_ULPS,
+          "grad_entries_differing": int((a["grad"] != b["grad"]).sum()),
+          **{f"{k}_{f}": got[k][f] for k in got
+             for f in ("loss", "wall_ms", "peak_above_inputs_gb")}})
+    if not rel <= CE_REL_TOL or ulps > CE_GRAD_ULPS:
+        raise AssertionError(f"chunked loss off the unchunked form: rel "
+                             f"{rel}, {ulps} bf16 ulps")
+
+
+def phase_train_optim(torch, fap):
+    """GPT-2-small in bf16 at b=8, s=1024 (random weights from the numpy
+    seed, as ``train``) through the optimizer and step paths: (a)
+    ``make_functional_train_step`` with AdamW, a scheduler and a global
+    clip; (b) ``make_sharded_train_step(optimizer="lamb")``; (c)
+    ``make_sharded_train_step(master_weights=True)``; 3 steps each on one
+    repeated batch.  Then the multi-tensor Adam against the per-tensor
+    rule and the chunked loss against the unchunked form, on (c)'s
+    model."""
+    from paddle_hackathon_tpu_torch.models import GPTForCausalLM, gpt_config
+    cfg = gpt_config("gpt2-small-en", hidden_dropout_prob=0.0,
+                     attention_dropout_prob=0.0)
+    arrays = random_weights(GPTForCausalLM(cfg, device="cpu"), seed=0)
+    b, s = OPTIM_SHAPE["b"], OPTIM_SHAPE["s"]
+    rng = np.random.RandomState(1)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s))).to(DEV)
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s))).to(DEV)
+    launches = {}
+    for what, make in (
+            ("functional_adamw", lambda m: optim_functional_run(
+                torch, m, ids, labels)),
+            ("sharded_lamb", lambda m: optim_sharded_run(
+                torch, m, ids, labels, learning_rate=1e-2,
+                optimizer="lamb")),
+            ("sharded_master_weights", lambda m: optim_sharded_run(
+                torch, m, ids, labels, learning_rate=1e-3,
+                master_weights=True))):
+        model = bf16_model(torch, cfg, arrays)
+        launches[what] = counted_steps(torch, fap, make(model),
+                                       cfg.num_layers, what)
+        if what != "sharded_master_weights":
+            del model
+            torch.cuda.empty_cache()
+    from paddle_hackathon_tpu_torch.nn.functional import \
+        fused_softmax_ce_rows
+    fused_softmax_ce_rows(model(ids), labels).mean().backward()
+    adam_multi_vs_per_tensor(torch, model)
+    model.zero_grad(set_to_none=True)
+    chunked_loss_check(torch, model, ids, labels)
+    del model
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -4793,6 +5083,7 @@ def main():
 
     flash = phase_flash(torch, fap, fa)
     flash_launches = phase_train(torch, fap)
+    phase_train_optim(torch, fap)
     bhd, tc16 = phase_flash_bhd(torch, fa, fap,
                                 phase_flash_bhd_checks(torch, fa))
     bhd_launches = phase_train_f32(torch, fa, fap)

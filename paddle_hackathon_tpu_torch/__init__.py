@@ -11,8 +11,10 @@ Ported so far: the paged GPT serving path (``models/gpt.py``,
 ``inference/serving.py``) and its paged-attention kernel
 (``incubate/nn/kernels/paged_attention.py`` + ``csrc/paged_attention.cu``);
 the one-device GPT training path (``parallel/api.py``
-``make_sharded_train_step``, ``optimizer/``, ``nn/functional/loss.py``)
-and its packed flash-attention kernels
+``make_sharded_train_step`` and ``make_functional_train_step``; the
+optimizers, LR schedulers, weight decay and clips of ``optimizer/``,
+``nn/clip.py`` and ``regularizer.py``; the chunked loss of
+``nn/functional/loss.py``) and its packed flash-attention kernels
 (``incubate/nn/kernels/flash_attention_packed.py`` +
 ``csrc/flash_attention_packed.cu``); weight-only int8/fp8 serving from
 an artifact (``inference/serving.py`` ``save_for_serving``/

@@ -1,3 +1,5 @@
-from .gpt import GPTConfig, GPTForCausalLM, GPTModel, gpt_config
+from .gpt import (GPTConfig, GPTForCausalLM, GPTModel, gpt_config,
+                  param_sharding_spec)
 
-__all__ = ["GPTConfig", "GPTForCausalLM", "GPTModel", "gpt_config"]
+__all__ = ["GPTConfig", "GPTForCausalLM", "GPTModel", "gpt_config",
+           "param_sharding_spec"]

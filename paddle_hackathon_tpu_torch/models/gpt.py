@@ -459,3 +459,40 @@ class GPTForCausalLM(nn.Module):
                                top_p=top_p)
             out.append(nxt)
         return torch.cat([ids] + out, 1)
+
+
+def param_sharding_spec(name: str, shape) -> tuple:
+    """Mesh-axis names for each dimension of a GPT parameter: the JAX
+    package's tensor-parallel plan, Megatron style (qkv and fc_in split
+    their output columns on ``"mp"``, out_proj and fc_out their input
+    rows, the embedding its vocabulary rows; ZeRO-3's ``"sharding"`` on
+    the embeddings' rows; MoE stacks on ``"ep"``), as plain tuples.  The
+    port's train step takes it as its ``rule`` and places nothing with
+    it on one device; a multi-device step is ROADMAP Queue 1 item 12."""
+    if name.endswith(".weight_scale"):
+        # weight-only scales follow their weight's output channels;
+        # checked first, as "qkv_proj.weight" is a substring of the name
+        if "qkv_proj." in name or "fc_in." in name:
+            return ("mp",)
+        return (None,)
+    if "qkv_proj.weight" in name or "fc_in.weight" in name:
+        return (None, "mp")
+    if "out_proj.weight" in name or "fc_out.weight" in name:
+        return ("mp", None)
+    if "qkv_proj.bias" in name or "fc_in.bias" in name:
+        return ("mp",)
+    if ".mlp.w1" in name:
+        return ("ep", None, "mp")
+    if ".mlp.b1" in name:
+        return ("ep", "mp")
+    if ".mlp.w2" in name:
+        return ("ep", "mp", None)
+    if ".mlp.b2" in name:
+        return ("ep", None)
+    if ".mlp.gate.weight" in name:
+        return (None, None)
+    if "wte.weight" in name:
+        return (("mp", "sharding"), None)
+    if "wpe.weight" in name:
+        return ("sharding", None)
+    return tuple(None for _ in shape)

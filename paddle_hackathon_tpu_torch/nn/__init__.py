@@ -1,4 +1,6 @@
 from . import functional
+from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
 from .layers import Dropout, Embedding, LayerNorm, Linear
 
-__all__ = ["Dropout", "Embedding", "LayerNorm", "Linear", "functional"]
+__all__ = ["ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue",
+           "Dropout", "Embedding", "LayerNorm", "Linear", "functional"]

@@ -4,15 +4,61 @@ cross entropy with hard labels."""
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
+
+# the f32 bytes of one chunk of rows: each f32 temporary of the loss (the
+# cast logits, their shifted exponentials) stays near 256 MiB
+_CHUNK_BYTES = 1 << 28
+
+
+def _chunks(rows, vocab):
+    step = max(1, _CHUNK_BYTES // (4 * vocab))
+    return [slice(r0, min(r0 + step, rows)) for r0 in range(0, rows, step)]
+
+
+class _SoftmaxCERows(torch.autograd.Function):
+    """``logsumexp(x.f32) - x[label].f32`` over the rows of a 2-D ``x``,
+    without an f32 copy of ``x``: the forward takes the logsumexp a chunk
+    of rows at a time and saves only ``x``, the labels and the f32
+    logsumexp per row; the backward recomputes the softmax chunk by chunk.
+
+    The gradient keeps the rounding points autograd gives the unchunked
+    form: ``(g * exp(x.f32 - lse))`` cast to ``x``'s dtype, plus ``-g``
+    cast to that dtype at each row's label, added in that dtype."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        rows, vocab = logits.shape
+        lse = torch.empty(rows, dtype=torch.float32, device=logits.device)
+        for sl in _chunks(rows, vocab):
+            lse[sl] = torch.logsumexp(logits[sl].float(), dim=1)
+        tgt = logits.gather(1, labels[:, None]).squeeze(1).float()
+        ctx.save_for_backward(logits, labels, lse)
+        return lse - tgt
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        logits, labels, lse = ctx.saved_tensors
+        grad = torch.empty_like(logits)
+        for sl in _chunks(*logits.shape):
+            p = logits[sl].float() - lse[sl, None]
+            grad[sl].copy_(g[sl, None] * p.exp_())
+        idx = labels[:, None]
+        grad.scatter_(1, idx, grad.gather(1, idx)
+                      + (-g).to(logits.dtype)[:, None])
+        return grad, None
 
 
 def fused_softmax_ce_rows(logits, labels, axis=-1):
     """Per-row ``-log softmax(logits)[label]`` as f32: the logsumexp of the
-    logits taken in f32, minus the gathered logit cast to f32."""
-    lse = torch.logsumexp(logits.float(), dim=axis)
-    tgt = logits.gather(axis, labels.long().unsqueeze(axis)) \
-        .squeeze(axis).float()
-    return lse - tgt
+    logits taken in f32, minus the gathered logit cast to f32.  No f32
+    copy of the logits is made or kept for the backward (the JAX package
+    leaves that to XLA's fusion); see :class:`_SoftmaxCERows`."""
+    x = logits.movedim(axis, -1)
+    out = _SoftmaxCERows.apply(x.reshape(-1, x.shape[-1]),
+                               labels.long().reshape(-1))
+    return out.reshape(x.shape[:-1])
 
 
 def cross_entropy(input, label, weight=None, ignore_index=-100,  # noqa: A002

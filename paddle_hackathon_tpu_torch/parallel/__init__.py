@@ -1,3 +1,3 @@
-from .api import make_sharded_train_step
+from .api import make_functional_train_step, make_sharded_train_step
 
-__all__ = ["make_sharded_train_step"]
+__all__ = ["make_functional_train_step", "make_sharded_train_step"]

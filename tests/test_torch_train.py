@@ -18,8 +18,12 @@ numpy batches.
 - f32 parameters with flash asked for (K2 through scaled_dot_product
   _attention, the JAX kernel under the interpreter): 3-step loss series
   at rtol 1e-5.
+- The step's one-device options (``master_weights``, ``optimizer="lamb"``,
+  a custom ``loss_fn``, a ``rule``) and eager Adam's options (coupled weight
+  decay, a clip, a scheduler, ``multi_precision``): 3-step series against
+  JAX, f32.
 - ``cross_entropy`` with ``ignore_index``, eager ``Adam.step()``, and the
-  options the port refuses."""
+  multi-device options the port refuses."""
 
 import jax
 import jax.numpy as jnp
@@ -32,9 +36,15 @@ from paddle_hackathon_tpu import parallel as jparallel
 from paddle_hackathon_tpu.core.tensor import Tensor
 from paddle_hackathon_tpu.models.gpt import GPTConfig as JConfig
 from paddle_hackathon_tpu.models.gpt import GPTForCausalLM as JGPT
+from paddle_hackathon_tpu.models.gpt import \
+    param_sharding_spec as jparam_sharding_spec
+from paddle_hackathon_tpu.nn.layer import functional_call as jfunctional_call
 from paddle_hackathon_tpu.nn.functional import loss as jloss
 from paddle_hackathon_tpu_torch.models import gpt as tgpt
-from paddle_hackathon_tpu_torch.nn.functional import cross_entropy
+from paddle_hackathon_tpu_torch import nn as tnn
+from paddle_hackathon_tpu_torch.nn.functional import (cross_entropy,
+                                                      fused_softmax_ce_rows)
+from paddle_hackathon_tpu_torch import optimizer as toptim
 from paddle_hackathon_tpu_torch.optimizer import Adam
 from paddle_hackathon_tpu_torch.parallel import make_sharded_train_step
 from paddle_hackathon_tpu_torch.utils import load_jax_state, state_to_numpy
@@ -60,13 +70,15 @@ def _batches(n, b, s, vocab, seed=0):
             for _ in range(n)]
 
 
-def _train_both(cfg, batches, param_dtype=None, **kw):
+def _train_both(cfg, batches, param_dtype=None, jkw=(), tkw=(), **kw):
+    """Train both packages on ``batches``; ``kw`` goes to both steps,
+    ``jkw`` / ``tkw`` to the JAX / port step alone."""
     jm, tm = _pair(cfg)
     mesh = jparallel.create_mesh({"dp": 1}, devices=jax.devices()[:1])
     jstep, jstate = jparallel.make_sharded_train_step(
-        jm, mesh, zero_stage=0, param_dtype=param_dtype, **kw)
+        jm, mesh, zero_stage=0, param_dtype=param_dtype, **kw, **dict(jkw))
     tstep, tstate = make_sharded_train_step(tm, param_dtype=param_dtype,
-                                            **kw)
+                                            **kw, **dict(tkw))
     jl, tl = [], []
     for i, (ids, labels) in enumerate(batches):
         jstate, loss = jstep(jstate, jnp.asarray(ids), jnp.asarray(labels),
@@ -217,26 +229,98 @@ def test_eager_adam_matches_jax():
     assert other.get_lr() == 0.5
 
 
+def _jloss_fn(model, params, buffers, batch, rng):
+    ids, labels = batch
+    logits = jfunctional_call(model, params, (Tensor(ids),), buffers=buffers)
+    return (jnp.mean(jloss.fused_softmax_ce_rows(logits, labels))
+            + 0.01 * jnp.mean(jnp.square(logits)))
+
+
+def _tloss_fn(model, params, buffers, batch, rng):
+    ids, labels = batch
+    logits = torch.func.functional_call(model, (params, buffers), (ids,))
+    return (fused_softmax_ce_rows(logits, labels).mean()
+            + 0.01 * logits.square().mean())
+
+
+TRAIN_STEP_OPTIONS = {
+    "master_weights": (dict(master_weights=True), {}, {}),
+    "lamb": (dict(optimizer="lamb",
+                  optimizer_kwargs={"lamb_weight_decay": 0.05}), {}, {}),
+    "loss_fn": ({}, dict(loss_fn=_jloss_fn), dict(loss_fn=_tloss_fn)),
+    "rule": ({}, dict(rule=jparam_sharding_spec),
+             dict(rule=tgpt.param_sharding_spec, mesh={"dp": 1})),
+}
+
+
+@pytest.mark.parametrize("option", sorted(TRAIN_STEP_OPTIONS))
+def test_train_step_options_match_jax(option):
+    """The options this port runs on one device: 3-step f32 loss series
+    at rtol 1e-5 and the updated parameters at atol 1e-5."""
+    kw, jkw, tkw = TRAIN_STEP_OPTIONS[option]
+    kw = dict(kw)
+    okw = dict({"epsilon": 1e-6}, **kw.pop("optimizer_kwargs", {}))
+    batches = _batches(3, 2, 16, 128, seed=8)
+    jl, tl, jstate, tm = _train_both(_CFG, batches, learning_rate=1e-3,
+                                     optimizer_kwargs=okw, jkw=jkw, tkw=tkw,
+                                     **kw)
+    np.testing.assert_allclose(tl, jl, rtol=1e-5)
+    assert tl[0] != tl[-1]
+    params = state_to_numpy(tm)
+    for k, v in jstate["params"].items():
+        np.testing.assert_allclose(params[k], np.asarray(v), rtol=0,
+                                   atol=1e-5, err_msg=k)
+
+
 @pytest.mark.parametrize("kwargs", [
     dict(mesh={"dp": 2}), dict(mesh={"pp": 2}), dict(recompute=True),
-    dict(zero_offload=True), dict(master_weights=True),
-    dict(optimizer="lamb"), dict(loss_fn=lambda *a: 0.0),
-    dict(rule=lambda *a: None), dict(zero_stage=1),
+    dict(zero_offload=True), dict(zero_stage=1),
     dict(recompute_policy="full"), dict(pp_microbatches=4),
     dict(sp_mode="ring"), dict(grad_overlap=True), dict(offload_depth=3)])
 def test_unported_train_step_options_raise(kwargs):
     _, tm = _pair(_CFG)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
         make_sharded_train_step(tm, **kwargs)
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(weight_decay=0.01), dict(grad_clip=object()),
-    dict(learning_rate=lambda: 0.1), dict(multi_precision=True)])
-def test_unported_optimizer_options_raise(kwargs):
-    p = torch.nn.Parameter(torch.zeros(3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Adam(parameters=[p], **kwargs)
+OPTIMIZER_OPTIONS = {
+    "weight_decay": lambda m, nn: dict(weight_decay=0.05),
+    "grad_clip": lambda m, nn: dict(grad_clip=nn.ClipGradByGlobalNorm(2.0)),
+    "scheduler": lambda m, nn: dict(learning_rate=m.lr.StepDecay(
+        0.01, step_size=1, gamma=0.5)),
+    "multi_precision": lambda m, nn: dict(multi_precision=True),
+}
+
+
+@pytest.mark.parametrize("option", sorted(OPTIMIZER_OPTIONS))
+def test_optimizer_options_match_jax(option):
+    """Eager Adam with each option the port used to refuse: 3 steps
+    against the JAX package's Adam, f32 atol 1e-6."""
+    rng = np.random.RandomState(10)
+    w0 = rng.randn(6, 5).astype(np.float32)
+    grads = [rng.randn(6, 5).astype(np.float32) * 3 for _ in range(3)]
+    jkw = OPTIMIZER_OPTIONS[option](paddle.optimizer, paddle.nn)
+    tkw = OPTIMIZER_OPTIONS[option](toptim, tnn)
+    jw = paddle.create_parameter([6, 5], "float32")
+    jw._set_value(jnp.asarray(w0))
+    jopt = paddle.optimizer.Adam(**dict(dict(learning_rate=0.01), **jkw),
+                                 parameters=[jw])
+    tw = torch.nn.Parameter(torch.from_numpy(w0.copy()))
+    topt = Adam(**dict(dict(learning_rate=0.01), **tkw), parameters=[tw])
+    for g in grads:
+        loss = paddle.sum(jw * paddle.to_tensor(g))
+        loss.backward()
+        jopt.step()
+        jopt.clear_grad()
+        tw.grad = torch.from_numpy(g)
+        topt.step()
+        topt.clear_grad()
+        if option == "scheduler":
+            jkw["learning_rate"].step()
+            tkw["learning_rate"].step()
+            assert topt.get_lr() == jopt.get_lr()
+    np.testing.assert_allclose(tw.detach().numpy(), np.asarray(jw.numpy()),
+                               rtol=0, atol=1e-6)
 
 
 def test_unported_cross_entropy_options_raise():
