@@ -410,6 +410,25 @@ Phases, each printing one JSON line:
                dense and paged engines token-exact against the same
                quantized model's greedy ``generate`` on the card, 4 requests
                x 32 new tokens; the f32 kernel's launches counted.
+19. spec    -- speculative decoding (spec_k = 8, the JAX bench's
+               ``decode_spec`` and ``serving_spec`` rows) on GPT-2-small
+               bf16: (a) ``generate`` at batch 8, prompt 64, 128 new
+               tokens, n-gram drafter; (b) the dense engine (8 streams,
+               max_len 224, chunk 32, window 32, a repeated prompt among
+               the 8); (c) the same paged over pages of 16; (d) the same
+               through the serving_int8 phase's int8 artifact; (e) (b) with
+               a 2-layer ``ModelDrafter`` at the same width and vocab (the
+               target's embeddings and first two blocks).
+               Each token-exact against the same path without spec;
+               tokens/s of both (median of 3 alternated pairs), acceptance
+               rate, spec ticks; launches exact (12 ``paged_decode_split``
+               a paged verify tick, 48 K4 an int8 verify tick), 0 plain
+               calls, no page left in use; the paged engine's steady-state
+               ticks under ``forbid_host_transfers()`` with a planted
+               ``.item()`` that must raise.  The paged phase holds K3 at
+               the verify width 9 (bf16 and f32) and times it at the
+               spec engine's geometry; quant_checks holds K4 at M = 72 and
+               quant times it.
 
 Then the kernel table line, the ``nvidia-smi`` line, and last the result
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -442,6 +461,9 @@ and its bound), after the paged library's ptxas report and HGMMA counts.
 wrote to FILE and prints, in one JSON line, the median device time of each
 shape per tree, SDPA's over all trees and the bounds: the figures an A/B
 call reports.
+
+``python3 chip_smoke.py --spec`` builds K3's and K4's libraries and runs
+only the spec phase (its int8 artifact saved and loaded in the phase).
 
 ``python3 chip_smoke.py --k4-ab N [--root DIR]`` likewise times K4, one
 GPT-2-small layer's four int8 projections at M = 8 and 256, f32 and bf16
@@ -536,16 +558,17 @@ def kernel_case(torch, dtype, width, seed, D=64, P=16, maxp=32):
                 lengths=torch.from_numpy(lengths).to(DEV))
 
 
-def serving_case(torch, width, seed):
+def serving_case(torch, width, seed, B=16):
     """Inputs as the serving run gives them: the engine's pool of 257 pages,
-    16 slots owning 14 shuffled pages each (the rest of each 32-page table
-    row NULL); width 1 at decode lengths 64..191, width 32 at the two
-    prefill-chunk offsets 0 and 32."""
-    B, H, D, P, maxp, N, own = 16, 12, 64, 16, 32, 257, 14
+    16 slots (or ``B``) owning 14 shuffled pages each (the rest of each
+    32-page table row NULL); decode widths (below 16: width 1, and the
+    spec phase's verify width 9) at decode lengths 64..191, width 32 at the
+    two prefill-chunk offsets 0 and 32."""
+    H, D, P, maxp, N, own = 12, 64, 16, 32, 257, 14
     rng = np.random.RandomState(seed)
     pt = np.zeros((B, maxp), np.int32)
     pt[:, :own] = (rng.permutation(N - 1) + 1)[:B * own].reshape(B, own)
-    if width == 1:
+    if width < 16:
         lengths = rng.randint(64, 192, B).astype(np.int32)
     else:
         lengths = np.where(np.arange(B) % 2, 32, 0).astype(np.int32)
@@ -752,6 +775,9 @@ def phase_kernel(torch, pa):
         for width in (1, 32):
             check(f"{tag}_w{width}_maxlen",
                   kernel_case(torch, dtype, width, seed=width), tol)
+        # the spec phase's verify tick: width spec_k + 1 = 9 on the split
+        # decode kernel
+        check(f"{tag}_w9_verify", kernel_case(torch, dtype, 9, seed=9), tol)
         # widths past one 16-row tile loop and one 64-row stage, pages
         # longer than a stage (read in parts), a head width that is not a
         # multiple of 8 (element loads)
@@ -1088,12 +1114,23 @@ def phase_kernel(torch, pa):
                                  P=128, maxp=4), plain_reps=2)
     f32_w128["max_abs_err"] = next(c["max_abs_err"] for c in checks
                                    if c["case"] == "float32_w128_p128")
+    # the verify tick of the spec phase's paged engine: 8 slots, width 9 at
+    # decode lengths, bf16 and f32
+    verify = {}
+    for tag, c in (("bf16", serving_case(torch, 9, seed=90, B=8)),
+                   ("f32", f32_case(serving_case(torch, 9, seed=91, B=8)))):
+        e = check(f"{tag}_w9_verify_serving", c,
+                  2e-5 if tag == "f32" else 2e-2)
+        verify[tag] = dict(times(c), max_abs_err=e,
+                           kernel=checks[-1]["kernel"])
+        del c
     emit({"phase": "paged", "checks": checks, "invariance": invariance,
           "decode_w1_serving": decode, "chunk_w32_serving": chunk,
           "decode_w1_maxlen": maxlen, "chunk_w128_p128": w128,
           "chunk_wider": wider, "retired_shapes": retired,
           "f16_chunk_w32_serving": f16_w32,
-          "f32_chunk_w32_serving": f32_w32, "f32_chunk_w128_p128": f32_w128})
+          "f32_chunk_w32_serving": f32_w32, "f32_chunk_w128_p128": f32_w128,
+          "verify_w9_serving": verify})
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     err_of = {c["case"]: c["max_abs_err"] for c in checks
               if "max_abs_err" in c}
@@ -1114,7 +1151,9 @@ def phase_kernel(torch, pa):
             {name: {k: row[k] for k in keys + ("max_abs_err",)}
              for name, row in (("w32", f32_w32), ("w128", f32_w128))},
             {name: {k: row[k] for k in keys + ("kernel", "max_abs_err")}
-             for name, row in retired.items()})
+             for name, row in retired.items()},
+            {name: {k: row[k] for k in keys + ("kernel", "max_abs_err")}
+             for name, row in verify.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -3930,7 +3969,7 @@ def exact_sum(torch, x2d, w_q, scale):
 
 
 QUANT_CHECK_SHAPES = dict(QUANT_SHAPES, k640=(640, 384))
-QUANT_CHECK_MS = (1, 8, 16, 17, 64, 200, 256, 1024)
+QUANT_CHECK_MS = (1, 8, 16, 17, 64, 72, 200, 256, 1024)
 QUANT_REF_MS = (1, 8, 200, 256)       # the cases held to the plain version
 QUANT_F32_MS = (1, 8, 17, 256, 1024)  # f32 activations
 
@@ -4242,7 +4281,8 @@ def phase_quant(torch, qm, wo):
     int8pack = int8pack_runs(torch)
     timing = {}
     for name, (k, n) in QUANT_SHAPES.items():
-        for m in (8, 256):
+        # M = 72: the spec phase's int8 verify tick (8 slots x width 9)
+        for m in (8, 72, 256):
             timing[f"{name}_m{m}"] = quant_times(torch, qm, wo, m, k, n,
                                                  torch.bfloat16, int8pack)
         for m in (8, 256):
@@ -4255,22 +4295,14 @@ def phase_quant(torch, qm, wo):
     torch.cuda.empty_cache()
     layers = {tag: layer_sum([timing[f"{name}_{tag}"]
                               for name in QUANT_SHAPES])
-              for tag in ("m8", "m256", "m8_f32", "m256_f32", "m8_fp8",
-                          "m256_fp8")}
+              for tag in ("m8", "m72", "m256", "m8_f32", "m256_f32",
+                          "m8_fp8", "m256_fp8")}
     emit({"phase": "quant", "weights": "int8 (fp8-e4m3 in the _fp8 rows)",
           "activations": "bf16 (f32 in the _f32 rows)",
           "library": "torch._weight_int8pack_mm" if int8pack else None,
           "timing": timing, "layers": layers,
           "note": "a layer: the sum of its four projections"})
-    return layers["m8"], layers["m8_f32"], layers["m256_f32"]
-
-
-def weight_bytes(model):
-    """Bytes the decode tick reads as weights: params (quant scales
-    included) + buffers, as the JAX ``serving_weight_bytes`` gauge counts
-    them."""
-    return (sum(p.numel() * p.element_size() for p in model.parameters())
-            + sum(b.numel() * b.element_size() for b in model.buffers()))
+    return layers["m8"], layers["m8_f32"], layers["m256_f32"], layers["m72"]
 
 
 def serve_run(torch, eng, prompts, new):
@@ -4601,6 +4633,7 @@ def phase_serving_int8(torch, qm):
                                                       load_for_serving,
                                                       save_for_serving)
     from paddle_hackathon_tpu_torch.models import GPTForCausalLM, gpt_config
+    from paddle_hackathon_tpu_torch.observability import get_registry
     from paddle_hackathon_tpu_torch.utils import load_jax_state
 
     cfg = gpt_config("gpt2-small-en", hidden_dropout_prob=0.0,
@@ -4620,9 +4653,13 @@ def phase_serving_int8(torch, qm):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     assert int8.device.type == torch.device(DEV).type, int8.device
-    bytes_ = {"bf16": weight_bytes(bf16), "int8": weight_bytes(int8)}
     engines = {"bf16": ServingEngine(bf16, **SERVE_INT8),
                "int8": ServingEngine(int8, **SERVE_INT8)}
+    # the engines' serving_weight_bytes gauges: params (quant scales
+    # included) and buffers, as the JAX engine counts them
+    reg = get_registry()
+    bytes_ = {k: reg.total("serving_weight_bytes", engine=e.engine_id)
+              for k, e in engines.items()}
     rng = np.random.RandomState(0)
     prompts = [rng.randint(0, cfg.vocab_size, 64).astype(np.int32)
                for _ in range(8)]
@@ -4690,9 +4727,9 @@ def phase_serving_int8(torch, qm):
           "k4_device_ms": k4_us / 1e3,
           "k4_share_of_busy": (k4_us / 1e6 / busy) if busy else None,
           **summ})
-    del engines, bf16, int8
+    del engines, bf16
     torch.cuda.empty_cache()
-    return launches, arrays, prompts
+    return launches, arrays, prompts, int8
 
 
 def phase_quant_f32_cross_check(torch, qm, arrays, prompts):
@@ -4741,6 +4778,297 @@ def phase_quant_f32_cross_check(torch, qm, arrays, prompts):
     del m32
     torch.cuda.empty_cache()
     return f32_launches
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding: generate and the engines' verify tick
+# ---------------------------------------------------------------------------
+
+SPEC_K = 8                  # the JAX bench's decode_spec / serving_spec rows
+SPEC_NEW = 128
+SPEC_ENGINE = dict(SERVE_INT8, spec_k=SPEC_K)
+
+
+def spec_prompts(vocab):
+    """The serving_int8 phase's 8 prompts of 64 tokens, the second one
+    replaced by the first's first 8 tokens repeated 8 times: a repeated
+    prompt, as the JAX bench's serving_spec row feeds one, so that the
+    n-gram drafter proposes from the start."""
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, vocab, 64).astype(np.int32) for _ in range(8)]
+    prompts[1] = np.tile(prompts[0][:8], 8)
+    return prompts
+
+
+def counted_launches(torch, pa, qm, run):
+    """``run()`` with K3's launches by kernel, K4's launches and both plain
+    versions' calls set to 0 just before and read just after."""
+    plain = {"paged_attention_ref": 0, "quant_matmul_ref": 0}
+    real_pa = counting(pa, ["paged_attention_ref"], plain)
+    real_qm = counting(qm, ["quant_matmul_ref"], plain)
+    for counts in (pa.launches, pa.kernel_launches):
+        for k in counts:
+            counts[k] = 0
+    qm.launches = 0
+    try:
+        out = run()
+        torch.cuda.synchronize()
+    finally:
+        restore(pa, real_pa)
+        restore(qm, real_qm)
+    return out, {"k3": {k: n for k, n in pa.kernel_launches.items() if n},
+                 "k4": qm.launches, "plain_calls": sum(plain.values())}
+
+
+def spec_serve(torch, eng, prompts):
+    """One timed run of ``prompts`` x SPEC_NEW through ``eng``: the
+    outputs, and the run's wall, tokens/s, ticks by flavor and spec
+    counters."""
+    s0 = dict(eng.stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, SPEC_NEW) for p in prompts]
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    d = {k: eng.stats[k] - s0[k] for k in (
+        "chunk_ticks", "decode_ticks", "spec_ticks", "spec_drafted",
+        "spec_accepted", "tokens")}
+    return np.stack([r.result() for r in reqs]), dict(
+        wall_s=wall, tokens_per_s=len(prompts) * SPEC_NEW / wall, **d)
+
+
+def spec_generate(torch, model, ids, spec_k):
+    """One timed greedy ``generate`` of the batch, with or without spec."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model.generate(ids, SPEC_NEW, temperature=0.0, spec_k=spec_k)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    row = {"wall_s": wall, "tokens_per_s": ids.shape[0] * SPEC_NEW / wall}
+    if spec_k:
+        st = model._last_spec_stats
+        row.update(spec_ticks=st["ticks"], spec_drafted=st["proposed"],
+                   spec_accepted=st["accepted"])
+    return out.cpu().numpy(), row
+
+
+def spec_pairs(torch, pa, qm, name, plain_fn, spec_fn, want):
+    """Three pairs of runs, alternated (plain, spec; spec, plain; plain,
+    spec): every spec run token-exact against the first plain run, every
+    run's launches exactly ``want(readings, spec)`` and 0 plain calls.
+    Returns the runs and the medians by wall time."""
+    runs = {"plain": [], "spec": []}
+    ref = None
+    for order in (("plain", "spec"), ("spec", "plain"), ("plain", "spec")):
+        for kind in order:
+            (out, row), counts = counted_launches(
+                torch, pa, qm, plain_fn if kind == "plain" else spec_fn)
+            row["launches"] = counts
+            expect = want(row, kind == "spec")
+            if counts["plain_calls"] or counts["k3"] != expect["k3"] \
+                    or counts["k4"] != expect["k4"]:
+                raise AssertionError(f"spec {name} {kind}: launches "
+                                     f"{counts}, want {expect} and 0 plain "
+                                     f"calls")
+            if kind == "plain" and ref is None:
+                ref = out
+            elif not np.array_equal(out, ref):
+                bad = np.argwhere(out != ref)[:4].tolist()
+                raise AssertionError(f"spec {name} {kind}: not token-exact "
+                                     f"against the run without spec at "
+                                     f"(row, position) {bad}")
+            runs[kind].append(row)
+    med = {k: median_run(v) for k, v in runs.items()}
+    spec = med["spec"]
+    out = {"spec": spec, "plain": med["plain"],
+           "spec_over_plain_tokens_per_s": (spec["tokens_per_s"]
+                                            / med["plain"]["tokens_per_s"]),
+           "acceptance_rate": (spec["spec_accepted"]
+                               / max(spec["spec_drafted"], 1)),
+           "spec_ticks": spec["spec_ticks"], "token_exact": True,
+           "plain_calls": 0, "runs": runs}
+    return out, ref
+
+
+def device_memory_gauges():
+    """``observability.record_device_memory`` on the card: card 0's three
+    gauges from a registry of their own, which must be the caching
+    allocator's readings (in use > 0, at most the peak and the reserved
+    bytes)."""
+    from paddle_hackathon_tpu_torch.observability import (
+        MetricRegistry, record_device_memory)
+    reg = MetricRegistry(enabled=True)
+    record_device_memory(reg)
+    got = {}
+    for ln in reg.expose_text().splitlines():
+        m = re.match(r'device_memory_bytes_(\w+)\{device="0"\} (\S+)$', ln)
+        if m:
+            got[m.group(1)] = float(m.group(2))
+    if not (set(got) == {"in_use", "peak", "reserved"}
+            and 0 < got["in_use"] <= got["peak"]
+            and got["in_use"] <= got["reserved"]):
+        raise AssertionError(f"record_device_memory on the card: {got}")
+    return got
+
+
+def phase_spec(torch, pa, qm, int8=None, cfg_overrides=None):
+    """Speculative decoding at the full width of GPT-2-small (bf16,
+    N(0, 0.02) weights from a numpy seed), spec_k = 8, n-gram drafter
+    unless named: (a) ``generate`` at batch 8, prompt 64, 128 new tokens;
+    (b) the dense engine (8 streams, max_len 224, chunk 32, window 32);
+    (c) the same on the paged engine over pages of 16; (d) the same through
+    the int8 artifact (``int8``: the serving_int8 phase's model; saved and
+    loaded here when None); (e) the dense engine with a 2-layer
+    ``ModelDrafter`` at the same width and vocab (the target truncated to
+    its first two blocks).  Each run token-exact
+    against the same path without spec, tokens/s median of 3 alternated
+    pairs; launches exact: 12 ``paged_decode_split`` a paged verify tick
+    (and 12 a decode step, ``paged_attention_tc`` 12 a chunk tick), 48 K4
+    a forward of the int8 engine (a verify tick is one forward, M = 8 x 9
+    = 72); 0 plain calls; no page left in use.  Then the paged engine's
+    steady-state ticks under ``forbid_host_transfers()``, with a planted
+    ``.item()`` inside the same block, which must raise; and the card's
+    device-memory gauges through ``record_device_memory``."""
+    import shutil
+    import tempfile
+
+    from paddle_hackathon_tpu_torch.inference import (ServingEngine,
+                                                      load_for_serving,
+                                                      save_for_serving)
+    from paddle_hackathon_tpu_torch.models import GPTForCausalLM, gpt_config
+    from paddle_hackathon_tpu_torch.observability import (
+        HostTransferError, forbid_host_transfers)
+    from paddle_hackathon_tpu_torch.utils import load_jax_state
+
+    kw = dict(hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
+              **(cfg_overrides or {}))
+    cfg = gpt_config("gpt2-small-en", **kw)
+    L = cfg.num_layers
+    model = GPTForCausalLM(cfg, device=DEV, dtype="bfloat16")
+    load_jax_state(model, random_weights(model, seed=0))
+    if int8 is None:
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_spec_int8_")
+        try:
+            save_for_serving(model, tmp, quant="int8")
+            int8 = load_for_serving(tmp, device=DEV)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    prompts = spec_prompts(cfg.vocab_size)
+    W = SPEC_ENGINE["decode_window"]
+    none = lambda row, spec: {"k3": {}, "k4": 0}  # noqa: E731
+    report = {}
+
+    # (a) generate
+    ids = torch.tensor(np.stack(prompts), device=DEV)
+    spec_generate(torch, model, ids[:, :16], SPEC_K)       # warm-up
+    report["a_generate"], _ = spec_pairs(
+        torch, pa, qm, "generate",
+        lambda: spec_generate(torch, model, ids, 0),
+        lambda: spec_generate(torch, model, ids, SPEC_K), none)
+
+    def engines(m, **extra):
+        out = {}
+        for kind, k in (("plain", 0), ("spec", SPEC_K)):
+            e = ServingEngine(m, **dict(SPEC_ENGINE, spec_k=k, **extra))
+            e.generate(prompts[1], 16)                     # warm-up
+            out[kind] = e
+        return out
+
+    def pairs(name, engs, want):
+        return spec_pairs(torch, pa, qm, name,
+                          lambda: spec_serve(torch, engs["plain"], prompts),
+                          lambda: spec_serve(torch, engs["spec"], prompts),
+                          want)
+
+    # (b) the dense engine
+    dense = engines(model)
+    report["b_dense"], ref_b = pairs("dense", dense, none)
+
+    # (c) the paged engine: K3 on every tick
+    def k3_want(row, spec):
+        k3 = {"tiles_tc": L * row["chunk_ticks"],
+              "split": L * (row["spec_ticks"] + W * row["decode_ticks"])}
+        return {"k3": {k: n for k, n in k3.items() if n}, "k4": 0}
+    paged = engines(model, cache_mode="paged", page_size=16)
+    leaked = {}
+
+    def paged_run(kind):
+        out = spec_serve(torch, paged[kind], prompts)
+        paged[kind].drop_prefix_cache()
+        leaked[kind] = paged[kind].kv_pages_in_use
+        if leaked[kind]:
+            raise AssertionError(f"paged {kind}: {leaked[kind]} pages "
+                                 f"left in use")
+        return out
+    report["c_paged"], ref_c = spec_pairs(
+        torch, pa, qm, "paged", lambda: paged_run("plain"),
+        lambda: paged_run("spec"), k3_want)
+    report["c_paged"]["kv_pages_in_use"] = 0
+    k3_launches = report["c_paged"]["runs"]["spec"][0]["launches"]["k3"]
+
+    # the steady-state verify and decode ticks under the transfer guard,
+    # with a planted implicit fetch in the same block as the control
+    eng = paged["spec"]
+    s0 = dict(eng.stats)
+    reqs = [eng.submit(p, SPEC_NEW) for p in prompts]
+    while eng._pending or any(s.req is not None and s.off < len(s.seq)
+                              for s in eng._slots):
+        eng.step()
+    guarded = 0
+    with forbid_host_transfers():
+        while eng.step():
+            guarded += 1
+        try:
+            eng._caches[0][0].sum().item()
+            planted = False
+        except HostTransferError:
+            planted = True
+    out = np.stack([r.result() for r in reqs])
+    guard = {"guarded_ticks": guarded,
+             "guarded_spec_ticks": eng.stats["spec_ticks"]
+             - s0["spec_ticks"], "planted_item_raised": planted,
+             "token_exact": bool(np.array_equal(out, ref_c))}
+    if not guard["token_exact"]:
+        guard["diff_at"] = np.argwhere(out != ref_c)[:8].tolist()
+    eng.drop_prefix_cache()
+    if not (guard["guarded_ticks"] and guard["guarded_spec_ticks"]
+            and planted and guard["token_exact"]
+            and eng.kv_pages_in_use == 0):
+        raise AssertionError(f"spec paged ticks under "
+                             f"forbid_host_transfers: {guard}")
+    report["c_paged"]["forbid_host_transfers"] = guard
+    report["device_memory"] = device_memory_gauges()
+    del paged, eng
+
+    # (d) the int8 artifact: K4 on every projection of every forward
+    def k4_want(row, spec):
+        fwd = row["chunk_ticks"] + W * row["decode_ticks"] + row["spec_ticks"]
+        return {"k3": {}, "k4": 4 * L * fwd}
+    q = engines(int8)
+    report["d_int8"], _ = pairs("int8", q, k4_want)
+    k4_launches = report["d_int8"]["runs"]["spec"][0]["launches"]["k4"]
+    del q
+
+    # (e) a 2-layer draft model at the same width and vocab: from the
+    # target's seed, so it holds the target's embeddings and first two
+    # blocks (a draft of unrelated random weights accepted none of its
+    # drafts on the H100)
+    draft = GPTForCausalLM(gpt_config("gpt2-small-en", **dict(kw,
+                                                              num_layers=2)),
+                           device=DEV, dtype="bfloat16")
+    load_jax_state(draft, random_weights(draft, seed=0))
+    dm = engines(model, drafter=draft)
+    report["e_model_drafter"], ref_e = pairs("model_drafter", dm, none)
+    if not np.array_equal(ref_e, ref_b):
+        raise AssertionError("the dense engine's runs without spec differ "
+                             "between (b) and (e)")
+    del dense, dm, draft
+    torch.cuda.empty_cache()
+    emit({"phase": "spec", "model": "gpt2-small-en bf16", "spec_k": SPEC_K,
+          "requests": len(prompts), "prompt": 64, "new_tokens": SPEC_NEW,
+          "engine": SPEC_ENGINE, "layers": L, **report})
+    return {"k3": k3_launches, "k4": k4_launches}
 
 
 # csrc/flash_tc.cuh's kernels: K1's instances (PACKED, Lb1E) and K2's
@@ -5053,6 +5381,15 @@ def main():
         quant_matmul as qm
     from paddle_hackathon_tpu_torch.nn.quant import weight_only as wo
 
+    if "--spec" in sys.argv:
+        # the spec phase alone: K3's and K4's libraries, then its runs
+        emit({"phase": "device", "nvidia_smi": nvidia_smi(),
+              "name": torch.cuda.get_device_name(0)})
+        t0 = time.perf_counter()
+        _build.build_all(["paged_attention", "quant_matmul"])
+        emit({"phase": "build", "seconds": time.perf_counter() - t0})
+        phase_spec(torch, pa, qm)
+        return 0
     smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
     emit({"phase": "device", "nvidia_smi": smi, "name": name,
@@ -5093,7 +5430,7 @@ def main():
     wide512 = wide512_times(torch, fa, fap, pa)
     emit({"phase": "wide512_times", **wide512})
     phase_dispatch_repairs(torch, fap, pa, qm, wo)
-    k3_decode, k3_tc, k3_f32, k3_retired = phase_kernel(torch, pa)
+    k3_decode, k3_tc, k3_f32, k3_retired, k3_verify = phase_kernel(torch, pa)
     eng, prompts, launches, f32_launches_k3 = phase_serving(torch, pa)
     phase_profile(torch, eng, prompts)
     del eng
@@ -5101,9 +5438,11 @@ def main():
     k3_wide_launches = phase_paged_wide512(torch, pa)
     p12_launches = phase_paged_p12(torch, pa)
     max_abs, max_abs_f32 = phase_quant_checks(torch, qm, wo)
-    decode, decode_f32, prefill_f32 = phase_quant(torch, qm, wo)
-    k4_launches, arrays, prompts = phase_serving_int8(torch, qm)
+    decode, decode_f32, prefill_f32, k4_m72 = phase_quant(torch, qm, wo)
+    k4_launches, arrays, prompts, int8 = phase_serving_int8(torch, qm)
     f32_launches = phase_quant_f32_cross_check(torch, qm, arrays, prompts)
+    spec_launches = phase_spec(torch, pa, qm, int8)
+    del int8
 
     src = "paddle_hackathon_tpu_torch/csrc/"
     ref = "paddle_hackathon_tpu/incubate/nn/kernels/"
@@ -5262,6 +5601,25 @@ def main():
                                 "geometry (16 slots, 12 heads of 64, pages "
                                 "of 16, lengths 64..191), bf16; library: "
                                 "SDPA on K/V gathered contiguous"})
+    # the spec phase's paged verify tick: width 9 on the split kernel;
+    # launches: the split kernel's in one spec run of the paged engine
+    # (12 a verify tick, 12 a decode step)
+    for tag in ("bf16", "f32"):
+        row = k3_verify[tag]
+        kernels.append({
+            "name": f"paged_decode_split_verify_w9_{tag}", "route": "cuda",
+            "source": src + "paged_attention.cu",
+            "replaces": ref + "paged_attention.py:175",
+            "launches": spec_launches["k3"].get("split", 0)
+            if tag == "bf16" else 0,
+            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")},
+            "timed_as": f"the verify tick's attention, width 9, {tag} (8 "
+                        f"slots, 12 heads of 64, pages of 16, lengths "
+                        f"64..191; route {row['kernel']}); launches: one "
+                        f"spec run of the paged engine (bf16; the f32 "
+                        f"row's path is not run); library: SDPA with the "
+                        f"offset-causal mask on gathered K/V"})
     # the bf16/f16 prefill chunks up to 256 on paged TMA + wgmma: the
     # serving chunk (launched by the serving run), and off the main path
     # the chunk of 128 over pages of 128 and D = 128, 256
@@ -5344,6 +5702,19 @@ def main():
                                 "int8, bf16 activations (the tensor-core "
                                 "kernel's split; library: the quant "
                                 "phase's)"})
+    kernels.append({"name": "quant_matmul_m72", "route": "cuda",
+                    "source": src + "quant_matmul.cu",
+                    "replaces": ref + "quant_matmul.py:112",
+                    "launches": spec_launches["k4"], "max_abs_err": max_abs,
+                    **{k: k4_m72[k] for k in (
+                        "ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms")},
+                    "timed_as": "one layer's 4 projections at M=72 (the "
+                                "int8 verify tick: 8 slots x width 9), "
+                                "int8, bf16 activations; launches: one spec "
+                                "run of the int8 engine; max_abs_err: the "
+                                "quant_checks phase's (M=72 among its "
+                                "cases)"})
     kernels.append({"name": "quant_matmul_f32", "route": "cuda",
                     "source": src + "quant_matmul.cu",
                     "replaces": ref + "quant_matmul.py:112",

@@ -51,7 +51,9 @@ from ..incubate.nn.kernels import flash_attention_packed as _fap
 from ..incubate.nn.kernels import paged_attention as _pa
 from ..nn.functional import (cross_entropy, gelu,
                              scaled_dot_product_attention)
+from ..nn.decode import accept_lengths, get_drafter
 from ..nn.layers import Dropout, Embedding, LayerNorm, Linear
+from ..observability.sanitizers import device_get
 
 _NEG_INF = -1e30
 
@@ -167,10 +169,14 @@ class GPTAttention(nn.Module):
             pos = cache_pos.to(torch.long).expand(b) \
                 if cache_pos.dim() == 0 else cache_pos.to(torch.long)
             ar = torch.arange(s, device=x.device)
-            # the write start clamps so the window fits, as JAX's
-            # dynamic_update_slice does; the mask uses the unclamped start
-            rows = pos.clamp(0, T - s)[:, None] + ar[None, :]
             qpos = pos[:, None] + ar[None, :]
+            # rows past the cache's end land in its last row (JAX's
+            # dynamic_update_slice shifts the window back instead, onto
+            # rows already written); several such rows scatter to that one
+            # row and which write lands is unspecified, so a caller that
+            # writes past the end must discard the output of every query
+            # that can read row T - 1
+            rows = qpos.clamp(0, T - 1)
             mask = (torch.arange(T, device=x.device)[None, None, :]
                     <= qpos[..., None])[:, None]                 # (b,1,s,T)
             bidx = torch.arange(b, device=x.device)[:, None].expand(b, s)
@@ -425,26 +431,39 @@ class GPTForCausalLM(nn.Module):
         (the reference's growing cache is the forward over
         ``GPTModel.gen_empty_caches``).  ``generator`` (keyword only, the
         port's own) draws the samples; default: the device's default
-        generator."""
-        if spec_k or drafter is not None:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet: ROADMAP Queue 1 "
-                "item 8 (nn/decode.py drafters)")
+        generator.
+
+        ``spec_k > 0`` switches to speculative draft-and-verify decoding
+        (:meth:`_generate_spec`): a drafter (``drafter='ngram'``
+        prompt-lookup by default, or a small ``GPTForCausalLM``) proposes
+        up to ``spec_k`` tokens a step and one forward of width
+        ``spec_k + 1`` verifies them, committing the longest prefix that
+        matches the model's greedy argmax, so the output equals the
+        non-speculative greedy output token for token.  Greedy only
+        (``temperature`` must be 0.0), as in the reference."""
         self.eval()
         dev = self.device
         ids = torch.as_tensor(np.asarray(input_ids), device=dev).long() \
             if not isinstance(input_ids, torch.Tensor) \
             else input_ids.to(dev).long()
+        if spec_k:
+            if temperature != 0.0:
+                raise ValueError(
+                    "spec_k requires temperature=0.0: speculative "
+                    "acceptance matches the target's greedy argmax, so "
+                    "only greedy decoding is exactly preserved")
+            if not jit_decode:
+                raise ValueError(
+                    "spec_k requires jit_decode=True: the draft-and-"
+                    "verify loop runs over the static-cache forwards "
+                    "(the growing-cache path has no verify step)")
+            return self._generate_spec(ids, max_new_tokens, int(spec_k),
+                                       drafter)
         if max_new_tokens <= 0:
             return ids
         b, prompt = ids.shape
-        cfg = self.config
-        head_dim = cfg.hidden_size // cfg.num_heads
         max_len = prompt + max_new_tokens
-        w = self.gpt.wte.weight
-        caches = [(w.new_zeros(b, max_len, cfg.num_heads, head_dim),
-                   w.new_zeros(b, max_len, cfg.num_heads, head_dim))
-                  for _ in range(cfg.num_layers)]
+        caches = self._static_caches(b, max_len)
         out: List[torch.Tensor] = []
         logits, caches = self(ids, caches=caches,
                               cache_pos=torch.tensor(0, device=dev))
@@ -459,6 +478,115 @@ class GPTForCausalLM(nn.Module):
                                top_p=top_p)
             out.append(nxt)
         return torch.cat([ids] + out, 1)
+
+    def _static_caches(self, b, max_len):
+        """One zeroed ``(b, max_len, H, D)`` K/V pair a layer in the
+        model's dtype, on its device."""
+        cfg = self.config
+        head_dim = cfg.hidden_size // cfg.num_heads
+        w = self.gpt.wte.weight
+        return [(w.new_zeros(b, max_len, cfg.num_heads, head_dim),
+                 w.new_zeros(b, max_len, cfg.num_heads, head_dim))
+                for _ in range(cfg.num_layers)]
+
+    def _generate_spec(self, ids, max_new_tokens, spec_k, drafter):
+        """Speculative draft-and-verify greedy decoding (the reference's
+        host loop): a prompt prefill and a width-(K+1) VERIFY forward
+        that scores every proposal position at once over one static
+        cache of ``prompt + max_new`` rows, plus a host loop
+        that proposes drafts, accepts the longest argmax-matching prefix,
+        and commits ``accepted + 1`` tokens a round trip.  Rejected tails
+        need no cache rollback: attention reads only ``kpos <= qpos`` and
+        the next verify rewrites ``[length, length + K]``, so stale rows
+        are never attended (the serving engine's tick shares this
+        invariant).  A row that has its tokens is frozen: it re-verifies
+        in place and commits nothing.
+
+        Output equals the greedy non-speculative ``generate``: both
+        commit ``argmax(logits / 1e-6)`` given the same committed prefix.
+        Acceptance counters land on ``self._last_spec_stats``
+        (``{"proposed", "accepted", "ticks"}``), ``proposed`` and
+        ``accepted`` capped at each row's remaining budget."""
+        if max_new_tokens <= 0:
+            return ids
+        dev = self.device
+        b, prompt = ids.shape
+        K = int(spec_k)
+        # the target's cache has the non-spec length, so that every
+        # forward attends over as many rows as the non-spec loop's and
+        # rounds alike on the card (the reference adds K+1 rows for the
+        # verify's tail; here a write past the end lands in the last row,
+        # T - 1: GPTAttention).  No kept token reads that row: the last
+        # committed token is sampled at position T - 2, and every query
+        # past it is discarded.  The drafter's mirror
+        # keeps the reference's K+1 extra rows
+        caches = self._static_caches(b, prompt + max_new_tokens)
+        cache_len = prompt + max_new_tokens + K + 1
+
+        # one resolved drafter per (drafter, K), as the reference keeps
+        # it: repeated calls with one draft model reuse one ModelDrafter.
+        # The entry keeps a strong ref to the caller's argument, so the
+        # id() key cannot alias a recycled object.
+        dcache = self.__dict__.setdefault("_spec_drafter_cache", {})
+        entry = dcache.get((id(drafter), K))
+        if entry is None or entry[0] is not drafter:
+            if len(dcache) >= 8:
+                dcache.pop(next(iter(dcache)))
+            entry = (drafter, get_drafter(drafter, K))
+            dcache[(id(drafter), K)] = entry
+        dr = entry[1]
+        dr.begin(b, cache_len)
+        # explicit fetches (device_get): one for the prompt mirror, one
+        # per verify round trip
+        np_ids = device_get(ids).astype(np.int32)
+        dr.ingest(np_ids, np.zeros(b, np.int32),
+                  np.full(b, prompt, np.int32))
+        logits, caches = self(ids, caches=caches,
+                              cache_pos=torch.tensor(0, device=dev))
+        tok0 = device_get(self._sample(logits[:, -1], 0.0, None)[:, 0]
+                          .to(torch.int32))
+        out = np.zeros((b, max_new_tokens), np.int32)
+        out[:, 0] = tok0
+        ngen = np.ones(b, np.int64)
+        lengths = np.full(b, prompt, np.int32)  # committed cache rows
+        last = tok0.copy()
+        stats = {"proposed": 0, "accepted": 0, "ticks": 0}
+        while (ngen < max_new_tokens).any():
+            drafts, ndraft = dr.propose(last, lengths)
+            ndraft = np.where(ngen >= max_new_tokens, 0, ndraft)
+            toks = np.concatenate([last[:, None], drafts], axis=1)
+            logits, caches = self(
+                torch.as_tensor(toks, device=dev).long(), caches=caches,
+                cache_pos=torch.as_tensor(lengths, device=dev))
+            ver = device_get(self._sample(
+                logits.reshape(b * (K + 1), -1), 0.0, None)[:, 0]
+                .reshape(b, K + 1).to(torch.int32))
+            acc = accept_lengths(drafts, ndraft, ver)
+            stats["ticks"] += 1
+            ingest_nvalid = np.zeros(b, np.int32)
+            old_lengths = lengths.copy()
+            for i in range(b):
+                if ngen[i] >= max_new_tokens:
+                    continue  # frozen: re-verifies in place, commits nothing
+                rem = max_new_tokens - int(ngen[i])
+                # cap at the row's remaining budget: drafts past it are
+                # discarded, and counting them would overstate the
+                # acceptance rate
+                stats["proposed"] += min(int(ndraft[i]), rem)
+                stats["accepted"] += min(int(acc[i]), rem)
+                take = min(int(acc[i]) + 1, rem)
+                out[i, ngen[i]:ngen[i] + take] = ver[i, :take]
+                ngen[i] += take
+                if ngen[i] < max_new_tokens:
+                    ingest_nvalid[i] = int(acc[i]) + 1
+                    lengths[i] += int(acc[i]) + 1
+                    last[i] = ver[i, int(acc[i])]
+            if getattr(dr, "ingest_after_verify", True):
+                # self-ingesting drafters already wrote these rows in
+                # propose(); replaying them would recompute identical KV
+                dr.ingest(toks, old_lengths, ingest_nvalid)
+        self._last_spec_stats = stats
+        return torch.cat([ids, torch.as_tensor(out, device=dev).long()], 1)
 
 
 def param_sharding_spec(name: str, shape) -> tuple:

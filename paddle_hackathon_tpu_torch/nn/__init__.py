@@ -1,6 +1,8 @@
 from . import functional
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
+from .decode import BeamSearchDecoder, dynamic_decode
 from .layers import Dropout, Embedding, LayerNorm, Linear
 
-__all__ = ["ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue",
-           "Dropout", "Embedding", "LayerNorm", "Linear", "functional"]
+__all__ = ["BeamSearchDecoder", "ClipGradByGlobalNorm", "ClipGradByNorm",
+           "ClipGradByValue", "Dropout", "Embedding", "LayerNorm", "Linear",
+           "dynamic_decode", "functional"]

@@ -186,8 +186,14 @@ def test_generate_fifth_positional_is_jit_decode(models):
     greedy = tm.generate(ids, 12, temperature=0.0)
     torch.testing.assert_close(positional, keyword, rtol=0, atol=0)
     assert not torch.equal(positional, greedy)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.generate(ids, 2, 0.0, None, True, None, 0, "ngram")
+    # the seventh and eighth positionals are spec_k and drafter: a drafter
+    # without spec_k is ignored, as in the reference, and spec_k decodes
+    # the same greedy tokens
+    short = tm.generate(ids, 2, temperature=0.0)
+    for spec_k in (0, 2):
+        torch.testing.assert_close(
+            tm.generate(ids, 2, 0.0, None, True, None, spec_k, "ngram"),
+            short, rtol=0, atol=0)
 
 
 def test_load_jax_state_rejects_mismatches(models):

@@ -151,8 +151,8 @@ def test_submit_rejects_what_does_not_fit(shared):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"auto_run": True}, {"spec_k": 4}, {"prefill_budget": 8},
-    {"drafter": "model"}, {"slo_window_s": 5.0}, {"session_ttl_s": 9.0},
+    {"auto_run": True}, {"priority_aging_s": 5.0}, {"prefill_budget": 8},
+    {"prefill_budget": 1}, {"slo_window_s": 5.0}, {"session_ttl_s": 9.0},
     {"max_sessions": 2}, {"priority_aging_s": None}])
 def test_unported_engine_options_raise(shared, kwargs):
     _, tm, _ = shared
