@@ -429,6 +429,29 @@ Phases, each printing one JSON line:
                the verify width 9 (bf16 and f32) and times it at the
                spec engine's geometry; quant_checks holds K4 at M = 72 and
                quant times it.
+20. stages  -- the engine's scheduler stages on GPT-2-small bf16, the paged
+               engine at the serving geometry (16 slots, max_len 512,
+               pages of 16, chunk 32, window 8) over 129 pages: a mixed
+               load of 24 batch requests (64 + 128) and, 16 ticks later,
+               8 interactive ones (64 + 64, streamed through
+               ``on_token``), once all default and twice with the
+               classes: preemptions > 0, interactive TTFT p50 below the
+               batch's, the two class runs token-exact, the streams equal
+               to the results; whether a replayed row is bit-identical
+               to its first pass; 4 sessions x 3 turns; ``defrag()``
+               moving pages, then a turn token-exact against the run
+               without it; a deadline abort freeing its pages, exact
+               against the run without it; an ``auto_run`` burst from 4
+               threads ending in ``drain``, beside the same requests
+               step-driven; an n-gram spec engine preempted and resumed;
+               the int8 artifact on the dense engine with a preemption.
+               Every stream against the same request alone (or a fresh
+               whole conversation, or the step-driven run) token-exact or
+               diverging first within ``BF16_MARGIN`` of the model's own
+               logits; K3's and K4's launches exact in every counted run,
+               0 plain calls, no page left in use; ``load_report()``
+               printed; tokens/s, TTFT p50 by class, preemptions, replayed
+               rows, defrag pages and seconds, loop against step tokens/s.
 
 Then the kernel table line, the ``nvidia-smi`` line, and last the result
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -463,7 +486,8 @@ shape per tree, SDPA's over all trees and the bounds: the figures an A/B
 call reports.
 
 ``python3 chip_smoke.py --spec`` builds K3's and K4's libraries and runs
-only the spec phase (its int8 artifact saved and loaded in the phase).
+only the spec phase (its int8 artifact saved and loaded in the phase);
+``--stages`` likewise runs only the stages phase.
 
 ``python3 chip_smoke.py --k4-ab N [--root DIR]`` likewise times K4, one
 GPT-2-small layer's four int8 projections at M = 8 and 256, f32 and bf16
@@ -480,6 +504,7 @@ import json
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -3547,7 +3572,7 @@ def phase_serving(torch, pa):
     load_jax_state(model, arrays)
     eng_kw = dict(max_slots=16, max_len=512, page_size=16, num_pages=257,
                   chunk=32, decode_window=32)
-    eng = ServingEngine(model, cache_mode="paged", **eng_kw)
+    eng = ServingEngine(model, auto_run=False, cache_mode="paged", **eng_kw)
     rng = np.random.RandomState(0)
     prompts = [rng.randint(0, cfg.vocab_size, 64).astype(np.int32)
                for _ in range(16)]
@@ -3618,7 +3643,7 @@ def phase_serving(torch, pa):
     load_jax_state(m32, arrays)
     outs, f32_stats = {}, {}
     for mode in ("paged", "dense"):
-        e = ServingEngine(m32, cache_mode=mode, **eng_kw)
+        e = ServingEngine(m32, auto_run=False, cache_mode=mode, **eng_kw)
         f32_stats[mode] = counted_run(
             torch, pa, e, lambda e=e: [e.submit(p, 32) for p in prompts[:4]])
         outs[mode] = [r.result() for r in f32_stats[mode].pop("requests")]
@@ -3703,7 +3728,8 @@ def phase_paged_wide(torch, pa):
     outs, stats = {}, {}
     for mode in ("paged", "dense"):
         extra = {"page_size": 128} if mode == "paged" else {}
-        eng = ServingEngine(model, cache_mode=mode, **kw, **extra)
+        eng = ServingEngine(model, auto_run=False,
+                            cache_mode=mode, **kw, **extra)
         stats[mode] = counted_run(
             torch, pa, eng, lambda e=eng: [e.submit(p, 32) for p in prompts])
         outs[mode] = [r.result() for r in stats[mode].pop("requests")]
@@ -3763,7 +3789,8 @@ def phase_paged_wide512(torch, pa):
     outs, stats = {}, {}
     for mode in ("paged", "dense"):
         extra = {"page_size": 16} if mode == "paged" else {}
-        eng = ServingEngine(model, cache_mode=mode, **kw, **extra)
+        eng = ServingEngine(model, auto_run=False,
+                            cache_mode=mode, **kw, **extra)
         stats[mode] = counted_run(
             torch, pa, eng, lambda e=eng: [e.submit(p, 16) for p in prompts])
         outs[mode] = [r.result() for r in stats[mode].pop("requests")]
@@ -3831,7 +3858,8 @@ def phase_paged_p12(torch, pa):
         outs, stats = {}, {}
         for mode in ("paged", "dense"):
             extra = {"page_size": 12} if mode == "paged" else {}
-            eng = ServingEngine(model, cache_mode=mode, **kw, **extra)
+            eng = ServingEngine(model, auto_run=False,
+                                cache_mode=mode, **kw, **extra)
             stats[mode] = counted_run(
                 torch, pa, eng,
                 lambda e=eng: [e.submit(p, 32) for p in prompts])
@@ -4383,10 +4411,11 @@ def serving_ab(torch, runs):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     engines = {
-        "paged": ServingEngine(bf16, cache_mode="paged", max_slots=16,
+        "paged": ServingEngine(bf16, auto_run=False,
+                               cache_mode="paged", max_slots=16,
                                max_len=512, page_size=16, num_pages=257,
                                chunk=32, decode_window=32),
-        "int8": ServingEngine(int8, **SERVE_INT8)}
+        "int8": ServingEngine(int8, auto_run=False, **SERVE_INT8)}
     rng = np.random.RandomState(0)
     prompts = {"paged": [rng.randint(0, cfg.vocab_size, 64).astype(np.int32)
                          for _ in range(16)]}
@@ -4653,8 +4682,8 @@ def phase_serving_int8(torch, qm):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     assert int8.device.type == torch.device(DEV).type, int8.device
-    engines = {"bf16": ServingEngine(bf16, **SERVE_INT8),
-               "int8": ServingEngine(int8, **SERVE_INT8)}
+    engines = {"bf16": ServingEngine(bf16, auto_run=False, **SERVE_INT8),
+               "int8": ServingEngine(int8, auto_run=False, **SERVE_INT8)}
     # the engines' serving_weight_bytes gauges: params (quant scales
     # included) and buffers, as the JAX engine counts them
     reg = get_registry()
@@ -4758,7 +4787,8 @@ def phase_quant_f32_cross_check(torch, qm, arrays, prompts):
         ref = mq.generate(np.stack(prompts[:4]), 32,
                           temperature=0.0).cpu().numpy()
         for mode in ("dense", "paged"):
-            e = ServingEngine(mq, cache_mode=mode, **SERVE_INT8)
+            e = ServingEngine(mq, auto_run=False,
+                              cache_mode=mode, **SERVE_INT8)
             rs = [e.submit(p, 32) for p in prompts[:4]]
             e.run_until_idle()
             same = [bool(np.array_equal(r.result(), ref[i]))
@@ -4970,7 +5000,8 @@ def phase_spec(torch, pa, qm, int8=None, cfg_overrides=None):
     def engines(m, **extra):
         out = {}
         for kind, k in (("plain", 0), ("spec", SPEC_K)):
-            e = ServingEngine(m, **dict(SPEC_ENGINE, spec_k=k, **extra))
+            e = ServingEngine(m, auto_run=False,
+                              **dict(SPEC_ENGINE, spec_k=k, **extra))
             e.generate(prompts[1], 16)                     # warm-up
             out[kind] = e
         return out
@@ -5069,6 +5100,549 @@ def phase_spec(torch, pa, qm, int8=None, cfg_overrides=None):
           "requests": len(prompts), "prompt": 64, "new_tokens": SPEC_NEW,
           "engine": SPEC_ENGINE, "layers": L, **report})
     return {"k3": k3_launches, "k4": k4_launches}
+
+
+# ---------------------------------------------------------------------------
+# The engine's scheduler stages: priority classes, preemption, sessions,
+# defrag, deadlines, streams, the auto_run loop and the reports
+# ---------------------------------------------------------------------------
+
+# the serving geometry; 128 usable pages hold 9 footprints of a batch
+# request (64 + 128 tokens and the chunk's reserve: 14 pages), so most of
+# the batch backlog queues and the interactive arrivals (64 + 64: 10 pages
+# each) admit by preemption
+STAGES_ENGINE = dict(cache_mode="paged", max_slots=16, max_len=512,
+                     page_size=16, chunk=32, decode_window=8)
+STAGES_PAGES = 129
+STAGES_BATCH = (24, 64, 128)        # requests, prompt, new tokens
+STAGES_INTER = (8, 64, 64)
+STAGES_ARRIVAL = 16                 # ticks before the interactive arrivals
+
+
+def stage_engine(model, **kw):
+    """An engine, driven synchronously unless ``auto_run=True`` is given,
+    whose chunk-flavoured forwards are recorded as wide (``chunk``) or not
+    (every row a single token): K3 runs its prefill kernel on the first
+    and its split kernel on the second."""
+    from paddle_hackathon_tpu_torch.inference import ServingEngine
+    eng = ServingEngine(model, **dict({"auto_run": False}, **kw))
+    widths = eng.stage_widths = []
+    real = eng._run_tick
+
+    def run(tokens, starts, nvalid, sampling):
+        widths.append(int(nvalid.max()) > 1)
+        return real(tokens, starts, nvalid, sampling)
+    eng._run_tick = run
+    return eng
+
+
+def stage_counted(torch, pa, qm, eng, run, layers):
+    """``run()`` with K3's and K4's counts and both plain versions' calls
+    set to 0 just before and read just after, held to what the engine's
+    ticks of that run need: paged, ``tiles_tc`` once a layer for each wide
+    chunk tick and ``split`` once a layer for each width-1 forward (a
+    narrow chunk tick, ``decode_window`` a decode tick) and each verify
+    tick; an int8 model, K4 four times a layer each forward; 0 plain
+    calls.  Returns ``run()``'s value and the counts beside the ticks."""
+    s0 = dict(eng.stats)
+    w0 = len(eng.stage_widths)
+    out, counts = counted_launches(torch, pa, qm, run)
+    d = {k: eng.stats[k] - s0[k]
+         for k in ("chunk_ticks", "decode_ticks", "spec_ticks")}
+    wide = sum(eng.stage_widths[w0:])
+    W = eng._decode_window
+    width1 = d["chunk_ticks"] - wide + W * d["decode_ticks"]
+    fwd = d["chunk_ticks"] + W * d["decode_ticks"] + d["spec_ticks"]
+    k3 = ({"tiles_tc": layers * wide,
+           "split": layers * (width1 + d["spec_ticks"])}
+          if eng._paged else {})
+    want = {"k3": {k: n for k, n in k3.items() if n},
+            "k4": 4 * layers * fwd if eng._quantized else 0}
+    if (counts["plain_calls"] or counts["k3"] != want["k3"]
+            or counts["k4"] != want["k4"] or not fwd):
+        raise AssertionError(f"stages: launches {counts}, want {want} and "
+                             f"0 plain calls (ticks {d}, wide {wide})")
+    return out, dict(counts, **d, wide_chunk_ticks=wide)
+
+
+def stage_gate(torch, model, prompt, got, want, what, margins):
+    """The margin gate: ``got`` (prompt + tokens) equals ``want``, or at
+    the first position where they differ the two tokens are within
+    ``BF16_MARGIN`` in the model's own logits on ``want``'s prefix (rows
+    that another path recomputed).  A divergence is appended to
+    ``margins``; past the bound it raises."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: {got.shape} tokens, want "
+                             f"{want.shape}")
+    diff = np.nonzero(got != want)[0]
+    if not len(diff):
+        return True
+    k = int(diff[0])
+    row = {"what": what, "position": k - len(prompt),
+           "margin": margin_at(torch, model, want[:k], int(got[k]),
+                               int(want[k]))}
+    margins.append(row)
+    if row["margin"] > BF16_MARGIN:
+        raise AssertionError(f"{what}: diverges with a logit margin above "
+                             f"{BF16_MARGIN}: {row}")
+    return False
+
+
+def stage_exact(got, want, what):
+    """The exact gate: runs whose tick schedule and row provenance are the
+    same must give the same tokens."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape or not np.array_equal(got, want):
+        bad = (np.argwhere(got != want)[:4].tolist()
+               if got.shape == want.shape else [got.shape, want.shape])
+        raise AssertionError(f"{what}: not token-exact at {bad}")
+
+
+def stage_alone(eng, prompts, new):
+    """Each prompt served alone on ``eng``: the baselines."""
+    out = []
+    for p in prompts:
+        r = eng.submit(p, new)
+        eng.run_until_idle()
+        out.append(r.result())
+    eng.drop_prefix_cache()
+    return out
+
+
+def p50(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def stage_mixed(torch, eng, batch, inter, classes, streams=None):
+    """The mixed load: the batch requests, ``STAGES_ARRIVAL`` ticks, then
+    the interactive ones (their classes when ``classes``, else all
+    default), run to the end; its readings."""
+    nb, ni = STAGES_BATCH[2], STAGES_INTER[2]
+    s0 = {k: int(eng._c[k].value)
+          for k in ("preemptions", "preempt_replay_tokens", "tokens",
+                    "prefix_hit_tokens")}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rb = [eng.submit(p, nb, priority="batch" if classes else None)
+          for p in batch]
+    for _ in range(STAGES_ARRIVAL):
+        eng.step()
+    if any(r.done for r in rb):
+        raise AssertionError("stages: a batch request finished before the "
+                             "interactive arrivals")
+    ri = [eng.submit(p, ni, priority="interactive" if classes else None,
+                     on_token=None if streams is None else streams[k].append)
+          for k, p in enumerate(inter)]
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    d = {k: int(eng._c[k].value) - v for k, v in s0.items()}
+    return {"batch": [r.result() for r in rb],
+            "interactive": [r.result() for r in ri],
+            "requests": rb + ri, "wall_s": wall,
+            "tokens_per_s": d["tokens"] / wall,
+            "ttft_p50_s": {"batch": p50([r.ttft_s for r in rb]),
+                           "interactive": p50([r.ttft_s for r in ri])},
+            "preempted_requests": sum(r._preempts > 0 for r in rb),
+            **d}
+
+
+def stage_replay_probe(torch, model, prompt, new):
+    """Whether a row re-prefilled after a preemption is bit-identical to
+    the row the first pass wrote: one request on a paged engine without a
+    prefix cache (so its resume replays every row), its K and V rows read
+    through its page table after 40 tokens, the stream preempted, and the
+    same rows read again once the replay has consumed them; prompt rows
+    (first written by prefill chunks) and generated rows (first written
+    by width-1 decode steps) are counted apart."""
+    eng = stage_engine(model, prefix_cache=False, **STAGES_ENGINE)
+    req = eng.submit(prompt, new)
+    while len(req.tokens) < 40:
+        eng.step()
+
+    def rows(n):
+        i = next(k for k, s in enumerate(eng._slots) if s.req is req)
+        pt = torch.tensor(eng._page_tables[i], device=DEV).long()
+        j = torch.arange(n, device=DEV)
+        page, off = pt[j // eng._page_size], j % eng._page_size
+        return [(k[page, off].clone(), v[page, off].clone())
+                for k, v in eng._caches]
+    n = len(prompt) + len(req.tokens) - 1
+    first = rows(n)
+    with eng._lock:
+        i = next(k for k, s in enumerate(eng._slots) if s.req is req)
+        eng._preempt_slot_locked(i, time.perf_counter())
+    while True:
+        eng.step()
+        slot = next(s for s in eng._slots if s.req is req)
+        if slot.off >= len(slot.seq):
+            break
+    again = rows(n)
+    same = torch.ones(n, dtype=torch.bool, device=DEV)
+    max_diff = 0.0
+    for (k0, v0), (k1, v1) in zip(first, again):
+        eq = ((k0 == k1).flatten(1).all(1) & (v0 == v1).flatten(1).all(1))
+        same &= eq
+        max_diff = max(max_diff, float((k0.float() - k1.float()).abs().max()),
+                       float((v0.float() - v1.float()).abs().max()))
+    same = same.cpu().numpy()
+    eng.run_until_idle()
+    out = req.result()
+    eng.shutdown()
+    P = len(prompt)
+    return out, {"rows": n, "prompt_rows_identical": int(same[:P].sum()),
+                 "prompt_rows": P,
+                 "generated_rows_identical": int(same[P:].sum()),
+                 "generated_rows": n - P, "max_abs_diff": max_diff}
+
+
+def phase_stages(torch, pa, qm, int8=None):
+    """The engine's scheduler stages at the full width of GPT-2-small (bf16,
+    N(0, 0.02) weights from a numpy seed) on the paged engine at the
+    serving geometry (``STAGES_ENGINE``, ``STAGES_PAGES`` pages):
+
+    - a mixed load (``STAGES_BATCH`` batch requests, ``STAGES_ARRIVAL``
+      ticks, then ``STAGES_INTER`` interactive ones with ``on_token``
+      streams): once all default (plain), twice with the classes.  Checks:
+      preemptions > 0, the interactive TTFT p50 below the batch's, the two
+      class runs token-exact against each other and the streams against
+      the results, every stream against the same request alone exact or
+      within the margin gate;
+    - whether a replayed row is bit-identical to its first pass (probe);
+    - 4 sessions x 3 turns against fresh submissions of the whole
+      conversation (margin gate), resumes and hits counted;
+    - ``defrag()`` moving pages, then a session turn exact against the
+      same run without it;
+    - a deadline abort mid-decode freeing its pages, the other streams and
+      its own tokens exact against the run without the abort;
+    - an ``auto_run`` burst from 4 threads ending in ``drain``, against
+      the same requests step-driven (margin gate), tokens/s of both;
+    - an n-gram spec engine (spec_k = 8) preempt-resume, against alone;
+    - the int8 artifact (``int8``, saved and loaded here when None) on
+      the dense engine with a preemption, against alone.
+    K3's and K4's launches exact in every counted run (``stage_counted``),
+    0 plain calls, no page left in use.  ``load_report()`` is printed."""
+    import shutil
+    import tempfile
+
+    from paddle_hackathon_tpu_torch.inference import (DeadlineExceededError,
+                                                      load_for_serving,
+                                                      save_for_serving)
+    from paddle_hackathon_tpu_torch.models import GPTForCausalLM, gpt_config
+    from paddle_hackathon_tpu_torch.utils import load_jax_state
+
+    t_phase = time.perf_counter()
+    cfg = gpt_config("gpt2-small-en", hidden_dropout_prob=0.0,
+                     attention_dropout_prob=0.0)
+    L = cfg.num_layers
+    model = GPTForCausalLM(cfg, device=DEV, dtype="bfloat16")
+    load_jax_state(model, random_weights(model, seed=0))
+    rng = np.random.RandomState(19)
+    batch = [rng.randint(0, cfg.vocab_size, STAGES_BATCH[1]).astype(np.int32)
+             for _ in range(STAGES_BATCH[0])]
+    inter = [rng.randint(0, cfg.vocab_size, STAGES_INTER[1]).astype(np.int32)
+             for _ in range(STAGES_INTER[0])]
+    margins, report = [], {}
+
+    def gate_all(what, got, prompts, want):
+        exact = sum(stage_gate(torch, model, p, g, w, f"{what}[{k}]",
+                               margins)
+                    for k, (p, g, w) in enumerate(zip(prompts, got, want)))
+        return {"token_exact": int(exact), "of": len(prompts)}
+
+    def no_page_left(eng, what):
+        eng.drop_sessions()
+        eng.drop_prefix_cache()
+        if eng.kv_pages_in_use:
+            raise AssertionError(f"stages {what}: {eng.kv_pages_in_use} "
+                                 f"pages left in use")
+
+    # the baselines: every request alone
+    alone_eng = stage_engine(model, **STAGES_ENGINE)
+    alone_eng.generate(batch[0][:16], 4)                  # warm-up
+    alone = {"batch": stage_alone(alone_eng, batch, STAGES_BATCH[2]),
+             "interactive": stage_alone(alone_eng, inter, STAGES_INTER[2])}
+
+    # (a) the mixed load: plain, then the classes twice
+    eng = stage_engine(model, num_pages=STAGES_PAGES, **STAGES_ENGINE)
+    runs = {}
+    for name, classes in (("plain", False), ("classes", True),
+                          ("classes_again", True)):
+        streams = [[] for _ in inter]
+        row, counts = stage_counted(
+            torch, pa, qm, eng,
+            lambda: stage_mixed(torch, eng, batch, inter, classes, streams),
+            L)
+        for r, s in zip(row["requests"][len(batch):], streams):
+            if s != r.tokens + [None]:
+                raise AssertionError(f"stages {name}: on_token stream "
+                                     f"differs from the result")
+        for group in ("batch", "interactive"):
+            row[f"{group}_gate"] = gate_all(
+                f"{name}.{group}", row[group],
+                batch if group == "batch" else inter, alone[group])
+        if name == "classes":
+            report["load_report"] = eng.load_report()
+        no_page_left(eng, name)
+        del row["requests"]
+        row["launches"] = counts
+        runs[name] = row
+    for group in ("batch", "interactive"):
+        for a, b in zip(runs["classes"][group], runs["classes_again"][group]):
+            stage_exact(a, b, f"two step-driven class runs ({group})")
+    cls = runs["classes"]
+    if not (cls["preemptions"] > 0 and cls["ttft_p50_s"]["interactive"]
+            < cls["ttft_p50_s"]["batch"] and runs["plain"]["preemptions"]
+            == 0):
+        raise AssertionError(f"stages classes: preemptions "
+                             f"{cls['preemptions']}, TTFT p50 "
+                             f"{cls['ttft_p50_s']}")
+    for row in runs.values():
+        for group in ("batch", "interactive"):
+            row.pop(group)
+    report["mixed"] = runs
+    del eng
+
+    # (b) is a replayed row bit-identical to its first pass?
+    out, report["replay_probe"] = stage_replay_probe(
+        torch, model, batch[0], STAGES_BATCH[2])
+    report["replay_probe"]["stream_exact"] = stage_gate(
+        torch, model, batch[0], out, alone["batch"][0], "replay_probe",
+        margins)
+
+    # (c) 4 sessions x 3 turns against fresh whole-conversation requests
+    eng = stage_engine(model, **STAGES_ENGINE)
+    fresh = stage_engine(model, **STAGES_ENGINE)
+    hist = [rng.randint(0, cfg.vocab_size, 64).astype(np.int32)
+            for _ in range(4)]
+    s0 = dict(eng.stats)
+    sess = {"turns": []}
+    for t in range(3):
+        if t:
+            hist = [np.concatenate(
+                [h, rng.randint(0, cfg.vocab_size, 16).astype(np.int32)])
+                for h in hist]
+
+        def run_turn():
+            reqs = [eng.submit(h, 32, session=f"s{k}")
+                    for k, h in enumerate(hist)]
+            eng.run_until_idle()
+            return reqs
+        got, counts = stage_counted(torch, pa, qm, eng, run_turn, L)
+        want = [fresh.submit(h, 32) for h in hist]
+        fresh.run_until_idle()
+        fresh.drop_prefix_cache()
+        sess["turns"].append(dict(gate_all(
+            f"session_turn{t}", [r.result() for r in got], hist,
+            [r.result() for r in want]), launches=counts))
+        hist = [r.result() for r in got]
+    sess.update({k: eng.stats[k] - s0[k] for k in (
+        "session_resumes", "session_hit_tokens", "prefix_hit_tokens")})
+    sess["retained_pages"] = eng.load_report()["sessions"]["retained_pages"]
+    if sess["session_resumes"] != 8 or not sess["session_hit_tokens"]:
+        raise AssertionError(f"stages sessions: {sess}")
+    no_page_left(eng, "sessions")
+    report["sessions"] = sess
+    del eng, fresh
+
+    # (d) defrag: the same session turn with and without a compaction
+    outs, dfr = {}, {}
+    for name in ("defrag", "without"):
+        e = stage_engine(model, **STAGES_ENGINE)
+        for sid, p in (("a", batch[1]), ("b", batch[2])):
+            e.submit(p, 32, session=sid)
+            e.run_until_idle()
+        e.drop_prefix_cache()
+        with e._lock:
+            e._evict_session_locked("a", donate=False)
+        if name == "defrag":
+            pool = e._pool
+            before = sorted(int(pool._ref[p]) for p in pool.allocated_ids())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            moved = e.defrag()
+            torch.cuda.synchronize()
+            dfr = {"pages_moved": moved,
+                   "seconds": time.perf_counter() - t0,
+                   "packed": pool.highest_allocated() == pool.allocated,
+                   "refcounts_kept": before == sorted(
+                       int(pool._ref[p]) for p in pool.allocated_ids())}
+            if not (moved > 0 and dfr["packed"] and dfr["refcounts_kept"]):
+                raise AssertionError(f"stages defrag: {dfr}")
+        h = np.concatenate([e._sessions["b"].tokens, batch[3][:16]])
+        r = e.submit(h, 32, session="b")
+        e.run_until_idle()
+        outs[name] = r.result()
+        no_page_left(e, name)
+        del e
+    stage_exact(outs["defrag"], outs["without"], "defrag")
+    report["defrag"] = dfr
+
+    # (e) a deadline abort mid-decode, against the same run without it
+    res = {}
+    for name in ("abort", "without"):
+        e = stage_engine(model, **STAGES_ENGINE)
+        reqs = [e.submit(p, 64, deadline_s=1e6) for p in batch[:4]]
+        for _ in range(6):
+            e.step()
+        used = e.kv_pages_in_use
+        if name == "abort":
+            reqs[0].deadline_s = 0.0
+            e.step()
+            freed = used - e.kv_pages_in_use
+        e.run_until_idle()
+        res[name] = [r.tokens for r in reqs]
+        if name == "abort":
+            if not (isinstance(reqs[0].error, DeadlineExceededError)
+                    and freed > 0):
+                raise AssertionError(f"stages deadline: {reqs[0].error!r},"
+                                     f" {freed} pages freed")
+            report["deadline"] = {"tokens_before_abort": len(reqs[0].tokens),
+                                  "pages_freed": freed,
+                                  "recent_aborts":
+                                      e.introspect_requests()[
+                                          "recent_aborts"]}
+        no_page_left(e, name)
+        del e
+    n = len(res["abort"][0])
+    stage_exact(res["abort"][0], res["without"][0][:n], "deadline prefix")
+    for a, b in zip(res["abort"][1:], res["without"][1:]):
+        stage_exact(a, b, "deadline others")
+
+    # (f) an auto_run burst from 4 threads, against the same step-driven
+    loop_eng = stage_engine(model, auto_run=True, **STAGES_ENGINE)
+    step_eng = stage_engine(model, **STAGES_ENGINE)
+    prompts = batch[4:12]
+    for e in (loop_eng, step_eng):
+        e.generate(batch[0][:16], 4, timeout=300)          # warm-up
+    outs, errors = {}, []
+
+    def burst():
+        def client(k):
+            # both of a client's requests in flight at once: one burst
+            try:
+                reqs = {j: loop_eng.submit(prompts[j], 64) for j in (k, k + 4)}
+                for j, r in reqs.items():
+                    r.wait(300)
+                    outs[j] = r.result()
+            except BaseException as exc:  # noqa: BLE001
+                errors.append(exc)
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(4)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        loop_eng.drain(timeout=300)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def stepped():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [step_eng.submit(p, 64) for p in prompts]
+        step_eng.run_until_idle()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, [r.result() for r in reqs]
+    wall_loop, loop_counts = stage_counted(torch, pa, qm, loop_eng, burst, L)
+    (wall_step, step_outs), step_counts = stage_counted(
+        torch, pa, qm, step_eng, stepped, L)
+    if errors or loop_eng._running or not loop_eng.draining:
+        raise AssertionError(f"stages auto_run: {errors}")
+    report["auto_run"] = {
+        "loop_tokens_per_s": 8 * 64 / wall_loop,
+        "step_tokens_per_s": 8 * 64 / wall_step,
+        "loop_wall_s": wall_loop, "step_wall_s": wall_step,
+        "gate": gate_all("auto_run", [outs[j] for j in range(8)], prompts,
+                         step_outs),
+        "launches": {"loop": loop_counts, "step": step_counts}}
+    for e in (loop_eng, step_eng):
+        no_page_left(e, "auto_run")
+        e.shutdown(timeout=60)
+    del loop_eng, step_eng
+
+    # (g) the n-gram spec engine, preempted and resumed
+    spec_kw = dict(STAGES_ENGINE, spec_k=8)
+    rep = np.tile(batch[5][:8], 8)
+    e = stage_engine(model, num_pages=1 + 14 + 5, **spec_kw)
+    e.generate(batch[0][:16], 4)                         # warm-up
+
+    def spec_run():
+        rb = e.submit(rep, STAGES_BATCH[2], priority="batch")
+        for _ in range(6):
+            e.step()
+        ri = e.submit(inter[0], STAGES_INTER[2], priority="interactive")
+        e.run_until_idle()
+        return rb, ri
+    (rb, ri), counts = stage_counted(torch, pa, qm, e, spec_run, L)
+    quiet = stage_engine(model, **spec_kw)
+    want = (stage_alone(quiet, [rep], STAGES_BATCH[2])
+            + stage_alone(quiet, [inter[0]], STAGES_INTER[2]))
+    report["spec"] = {
+        "preempts": rb._preempts, "spec_ticks": counts["spec_ticks"],
+        "spec_accepted": e.stats["spec_accepted"],
+        "batch_exact": stage_gate(torch, model, rep, rb.result(), want[0],
+                                  "spec.batch", margins),
+        "launches": counts}
+    stage_gate(torch, model, inter[0], ri.result(), want[1],
+               "spec.interactive", margins)
+    if not (rb._preempts and counts["spec_ticks"]):
+        raise AssertionError(f"stages spec: {report['spec']}")
+    no_page_left(e, "spec")
+    del e, quiet
+
+    # (h) the int8 artifact on the dense engine, with a preemption
+    if int8 is None:
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_stages_int8_")
+        try:
+            save_for_serving(model, tmp, quant="int8")
+            int8 = load_for_serving(tmp, device=DEV)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    q_kw = dict(SERVE_INT8, max_slots=4)
+    e = stage_engine(int8, **q_kw)
+    e.generate(batch[0][:16], 4)                          # warm-up
+
+    def int8_run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rb = [e.submit(p, 64, priority="batch") for p in batch[:4]]
+        for _ in range(3):
+            e.step()
+        ri = [e.submit(p, 64, priority="interactive") for p in inter[:2]]
+        e.run_until_idle()
+        torch.cuda.synchronize()
+        return rb + ri, time.perf_counter() - t0
+    (reqs, wall), counts = stage_counted(torch, pa, qm, e, int8_run, L)
+    quiet = stage_engine(int8, **q_kw)
+    want = stage_alone(quiet, batch[:4] + inter[:2], 64)
+    qm_margins = []
+    exact = sum(stage_gate(torch, int8, p, r.result(), w, f"int8[{k}]",
+                           qm_margins)
+                for k, (p, r, w) in enumerate(zip(batch[:4] + inter[:2],
+                                                  reqs, want)))
+    margins += qm_margins
+    report["int8"] = {"tokens_per_s": 6 * 64 / wall, "wall_s": wall,
+                      "preemptions": e.stats["preemptions"],
+                      "token_exact": int(exact), "of": 6,
+                      "ttft_p50_s": {
+                          "batch": p50([r.ttft_s for r in reqs[:4]]),
+                          "interactive": p50([r.ttft_s for r in reqs[4:]])},
+                      "launches": counts}
+    if not e.stats["preemptions"]:
+        raise AssertionError(f"stages int8: {report['int8']}")
+    del e, quiet, int8
+    torch.cuda.empty_cache()
+    emit({"phase": "stages", "model": "gpt2-small-en bf16",
+          "engine": dict(STAGES_ENGINE, num_pages=STAGES_PAGES),
+          "batch": STAGES_BATCH, "interactive": STAGES_INTER,
+          "arrival_ticks": STAGES_ARRIVAL, "layers": L,
+          "margin_limit": BF16_MARGIN, "divergences": margins,
+          "seconds": time.perf_counter() - t_phase, **report})
 
 
 # csrc/flash_tc.cuh's kernels: K1's instances (PACKED, Lb1E) and K2's
@@ -5390,6 +5964,15 @@ def main():
         emit({"phase": "build", "seconds": time.perf_counter() - t0})
         phase_spec(torch, pa, qm)
         return 0
+    if "--stages" in sys.argv:
+        # the stages phase alone: K3's and K4's libraries, then its runs
+        emit({"phase": "device", "nvidia_smi": nvidia_smi(),
+              "name": torch.cuda.get_device_name(0)})
+        t0 = time.perf_counter()
+        _build.build_all(["paged_attention", "quant_matmul"])
+        emit({"phase": "build", "seconds": time.perf_counter() - t0})
+        phase_stages(torch, pa, qm)
+        return 0
     smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
     emit({"phase": "device", "nvidia_smi": smi, "name": name,
@@ -5442,6 +6025,7 @@ def main():
     k4_launches, arrays, prompts, int8 = phase_serving_int8(torch, qm)
     f32_launches = phase_quant_f32_cross_check(torch, qm, arrays, prompts)
     spec_launches = phase_spec(torch, pa, qm, int8)
+    phase_stages(torch, pa, qm, int8)
     del int8
 
     src = "paddle_hackathon_tpu_torch/csrc/"

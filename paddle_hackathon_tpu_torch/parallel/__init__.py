@@ -1,3 +1,5 @@
-from .api import make_functional_train_step, make_sharded_train_step
+from .api import (get_mesh, make_functional_train_step,
+                  make_sharded_train_step, set_mesh)
 
-__all__ = ["make_functional_train_step", "make_sharded_train_step"]
+__all__ = ["get_mesh", "make_functional_train_step",
+           "make_sharded_train_step", "set_mesh"]

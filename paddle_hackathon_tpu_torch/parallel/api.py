@@ -46,6 +46,23 @@ def _mesh_shape(mesh) -> dict:
     return {str(k): int(v) for k, v in dict(shape).items()}
 
 
+_current_mesh = None
+
+
+def set_mesh(mesh) -> None:
+    """Set the ambient mesh (None clears it): a ``{axis: size}`` mapping
+    or an object with such a ``shape``, where the JAX package's
+    ``set_mesh`` takes a ``jax.sharding.Mesh``.  ``ServingEngine`` reads
+    its ``pp`` axis: the pipeline-parallel tick is ROADMAP Queue 1 item
+    12."""
+    global _current_mesh
+    _current_mesh = mesh
+
+
+def get_mesh():
+    return _current_mesh
+
+
 def _tree_map(fn, tree):
     """``fn`` over the leaves of nested tuples, lists and dicts."""
     if isinstance(tree, (tuple, list)):

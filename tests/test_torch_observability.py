@@ -230,7 +230,7 @@ def test_engine_spans_and_counters_match_reference(models, mode):
     jspans = _traced(jtracing, lambda: box.setdefault(
         "j", run(JEngine, jm, auto_run=False)))
     tspans = _traced(ttracing, lambda: box.setdefault("t", run(
-        ServingEngine, tm)))
+        ServingEngine, tm, auto_run=False)))
     (je, jout), (te, tout) = box["j"], box["t"]
     for a, b in zip(tout, jout):
         np.testing.assert_array_equal(a, b)
@@ -243,12 +243,11 @@ def test_engine_spans_and_counters_match_reference(models, mode):
     def series(reg, eng):
         text = reg.expose_text(label_filter={"engine": eng.engine_id})
         text = text.replace(f'engine="{eng.engine_id}"', 'engine="E"')
-        # the serving series but the wall-time buckets and sums; the
-        # reference's jit-build series and its idle-tick pool compaction
-        # (defrag, a stage not ported yet, whose families stay 0 here) are
-        # left out
+        # the serving series (the idle-tick pool compaction's among
+        # them) but the wall-time buckets and sums; the reference's
+        # jit-build series are left out
         return [ln for ln in text.splitlines()
-                if "serving_" in ln and "serving_defrag" not in ln
+                if "serving_" in ln
                 and not re.search(r"serving_(ttft|tpot|e2e|tick)_seconds_"
                                   r"(bucket|sum)", ln)]
     assert series(tobs.get_registry(), te) == \
@@ -304,7 +303,7 @@ def test_steady_state_tick_passes_under_the_guard(models, mode):
     ``device_get``.  A planted ``.item()`` inside the same block is the
     control, and the guarded run stays token-exact."""
     _, tm = models
-    eng = ServingEngine(tm, cache_mode=mode, **_ENGINE)
+    eng = ServingEngine(tm, auto_run=False, cache_mode=mode, **_ENGINE)
     reqs = [eng.submit(p, 24) for p in _prompts()]
     while any(s.req is not None and s.off < len(s.seq)
               for s in eng._slots) or eng._pending:
@@ -317,7 +316,7 @@ def test_steady_state_tick_passes_under_the_guard(models, mode):
             eng._caches[0][0].sum().item()
     assert eng.stats["spec_ticks"] > spec0
     eng.run_until_idle()
-    ref = ServingEngine(tm, cache_mode=mode, **_ENGINE)
+    ref = ServingEngine(tm, auto_run=False, cache_mode=mode, **_ENGINE)
     for r, p in zip(reqs, _prompts()):
         np.testing.assert_array_equal(r.result(), ref.generate(p, 24))
 
@@ -452,7 +451,7 @@ def test_engine_step_failure_writes_a_crash_dump(models, tmp_path,
     escapes ``step`` and leaves a crash dump naming the engine."""
     _, tm = models
     monkeypatch.setenv("PHT_FLIGHT_DIR", str(tmp_path))
-    eng = ServingEngine(tm, cache_mode="dense", **_ENGINE)
+    eng = ServingEngine(tm, auto_run=False, cache_mode="dense", **_ENGINE)
     eng.submit(_prompts()[0], 4)
     with tfaults.injected("serving.step=fail@1"):
         with pytest.warns(UserWarning, match="flight-recorder dump"):
@@ -517,9 +516,8 @@ def _scrape(metrics_mod, flight_mod, tracing_mod, server_mod):
                         b for b in body["stale_beacons"] if b == "unit.stale"]
                 for k in ("engines", "fleets"):
                     if k in body:
-                        # the reference's live engines and routers
-                        # register reports here; the port registers none
-                        # (load_report is a later stage of the engine)
+                        # the live engines (both packages') and the
+                        # reference's routers register reports here
                         out[f"{path} {k}"] = body.pop(k)
                 if "events" in body:
                     body["events"] = [{k: v for k, v in e.items()
@@ -545,7 +543,8 @@ def test_introspection_server_matches_reference():
     code, ctype, body = ref.pop("/nope")
     body["endpoints"].remove("/debug/programs")
     assert got.pop("/nope") == (code, ctype, body) and code == 404
-    assert got.pop("/load engines") == {} and got.pop("/fleet fleets") == {}
+    assert isinstance(got.pop("/load engines"), dict)
+    assert got.pop("/fleet fleets") == {}
     assert isinstance(ref.pop("/load engines"), dict)
     assert isinstance(ref.pop("/fleet fleets"), dict)
     assert got == ref

@@ -261,7 +261,7 @@ def test_paged_engine_at_a_tc_chunk_is_token_exact_vs_jax():
     jeng.run_until_idle()
     refs = [r.result() for r in jreqs]
     jeng.shutdown()
-    eng = ServingEngine(tm, cache_mode="paged", **_ENGINE)
+    eng = ServingEngine(tm, auto_run=False, cache_mode="paged", **_ENGINE)
     reqs = [eng.submit(p, 30) for p in prompts]
     eng.run_until_idle()
     for r, ref in zip(reqs, refs):

@@ -408,7 +408,8 @@ def test_quantized_engines_token_exact(shared_int8, mode):
     tq, _, prompts, refs = shared_int8
     before = tqm.launches
     kw = dict(cache_mode="paged", page_size=8) if mode == "paged" else {}
-    eng = ServingEngine(tq, max_slots=4, max_len=64, chunk=4, **kw)
+    eng = ServingEngine(tq, auto_run=False, max_slots=4, max_len=64,
+                        chunk=4, **kw)
     reqs = [eng.submit(p, 8) for p in prompts]
     eng.run_until_idle()
     for r, p, ref in zip(reqs, prompts, refs):

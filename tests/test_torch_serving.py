@@ -1,9 +1,10 @@
 """The port's serving slice (``paddle_hackathon_tpu_torch``) as a whole:
 the paged ServingEngine on the tiny GPT of ``test_paged.py`` is
 token-exact against the JAX package's paged engine on shared weights and
-against the port's own dense mode; the page pool drains; the engine
-features not yet ported refuse loudly; and the package imports without
-JAX or anything of the JAX package."""
+against the port's own dense mode; the page pool drains; every engine and
+submit option of the reference is accepted, and what is not ported yet
+(the MoE and pipeline-parallel ticks) refuses loudly; and the package
+imports without JAX or anything of the JAX package."""
 
 import subprocess
 import sys
@@ -66,11 +67,12 @@ def _serve(engine, prompts, new):
 
 def test_paged_engine_token_exact_vs_jax_engine_and_dense(shared):
     _, tm, (refs, straddle_ref) = shared
-    eng = ServingEngine(tm, cache_mode="paged", page_size=8, **_ENGINE)
+    eng = ServingEngine(tm, auto_run=False, cache_mode="paged", page_size=8,
+                        **_ENGINE)
     outs = _serve(eng, _prompts(), 8)
     for out, ref in zip(outs, refs):
         np.testing.assert_array_equal(out, ref)
-    dense = ServingEngine(tm, **_ENGINE)
+    dense = ServingEngine(tm, auto_run=False, **_ENGINE)
     for out, ref in zip(_serve(dense, _prompts(), 8), refs):
         np.testing.assert_array_equal(out, ref)
     assert eng.stats["tokens"] == dense.stats["tokens"] == 32
@@ -92,7 +94,8 @@ def test_paged_engine_token_exact_vs_jax_engine_and_dense(shared):
 
 def test_engine_matches_generate(shared):
     _, tm, _ = shared
-    eng = ServingEngine(tm, cache_mode="paged", page_size=8, **_ENGINE)
+    eng = ServingEngine(tm, auto_run=False, cache_mode="paged", page_size=8,
+                        **_ENGINE)
     p = _prompts(1)[0]
     np.testing.assert_array_equal(
         eng.generate(p, 6),
@@ -102,7 +105,7 @@ def test_engine_matches_generate(shared):
 def test_prefix_cache_skips_reprefill_and_stays_exact(shared):
     _, tm, _ = shared
     prompt = np.random.RandomState(7).randint(0, 128, (21,)).astype(np.int32)
-    eng = ServingEngine(tm, max_slots=2, max_len=64, chunk=4,
+    eng = ServingEngine(tm, auto_run=False, max_slots=2, max_len=64, chunk=4,
                         cache_mode="paged", page_size=8)
     first = _serve(eng, [prompt], 6)[0]
     ticks1 = eng.stats["ticks"]
@@ -116,7 +119,7 @@ def test_prefix_cache_skips_reprefill_and_stays_exact(shared):
 def test_admission_queues_until_pages_free(shared):
     """A free slot is not capacity: the FIFO head waits for pages."""
     _, tm, (refs, _) = shared
-    eng = ServingEngine(tm, cache_mode="paged", page_size=8,
+    eng = ServingEngine(tm, auto_run=False, cache_mode="paged", page_size=8,
                         num_pages=9, prefix_cache=False, **_ENGINE)
     reqs = [eng.submit(p, 8) for p in _prompts()]
     occupied = []
@@ -130,7 +133,7 @@ def test_admission_queues_until_pages_free(shared):
 
 def test_write_window_tripwire(shared):
     _, tm, _ = shared
-    eng = ServingEngine(tm, max_slots=1, max_len=64, chunk=4,
+    eng = ServingEngine(tm, auto_run=False, max_slots=1, max_len=64, chunk=4,
                         cache_mode="paged", page_size=8)
     eng.submit(np.arange(6, dtype=np.int32), 8)
     assert eng.step()
@@ -142,7 +145,7 @@ def test_write_window_tripwire(shared):
 
 def test_submit_rejects_what_does_not_fit(shared):
     _, tm, _ = shared
-    eng = ServingEngine(tm, max_slots=2, max_len=64, chunk=4,
+    eng = ServingEngine(tm, auto_run=False, max_slots=2, max_len=64, chunk=4,
                         cache_mode="paged", page_size=8, num_pages=3)
     with pytest.raises(ValueError, match="KV pages"):
         eng.submit(np.arange(20, dtype=np.int32), 20)
@@ -155,25 +158,88 @@ def test_submit_rejects_what_does_not_fit(shared):
     {"prefill_budget": 1}, {"slo_window_s": 5.0}, {"session_ttl_s": 9.0},
     {"max_sessions": 2}, {"priority_aging_s": None}])
 def test_unported_engine_options_raise(shared, kwargs):
-    _, tm, _ = shared
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(tm, **_ENGINE, **kwargs)
+    """The engine options a later slice ported are accepted and act as the
+    reference's: each engine serves the prompts token-exact against the
+    JAX engine (the loop when ``auto_run``, else the synchronous driver),
+    and reports the option where the reference's ``load_report`` does."""
+    _, tm, (refs, _) = shared
+    kw = dict(_ENGINE, cache_mode="paged", page_size=8, **kwargs)
+    kw.setdefault("auto_run", False)
+    eng = ServingEngine(tm, **kw)
+    reqs = [eng.submit(p, 8) for p in _prompts()]
+    if eng.auto_run:
+        assert all(r.wait(120) for r in reqs)
+        eng.drain(timeout=60)
+    else:
+        eng.run_until_idle()
+    for r, ref in zip(reqs, refs):
+        np.testing.assert_array_equal(r.result(), ref)
+    rep = eng.load_report()
+    sched = rep["scheduler"]
+    assert sched["priority_aging_s"] == kw.get("priority_aging_s", 30.0)
+    assert sched["prefill_budget"] == kw.get("prefill_budget")
+    assert rep["slo"]["window_s"] == kw.get("slo_window_s", 60.0)
+    assert eng._session_ttl_s == kw.get("session_ttl_s")
+    assert eng._max_sessions == kw.get("max_sessions", 64)
+    eng.drop_prefix_cache()
+    assert eng.kv_pages_in_use == 0
+    eng.shutdown()
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"session": "chat"}, {"priority": "interactive"}, {"deadline_s": 1.0},
+    {"session": "chat"}, {"priority": "interactive"}, {"deadline_s": 600.0},
     {"on_token": print}, {"trace_ctx": {"trace_id": "t"}}])
 def test_unported_submit_options_raise(shared, kwargs):
-    _, tm, _ = shared
-    eng = ServingEngine(tm, **_ENGINE)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.submit(np.arange(4, dtype=np.int32), 2, **kwargs)
+    """The submit options a later slice ported are accepted and act as the
+    reference's: the request's tokens equal the JAX engine's and the
+    option shows where the reference shows it."""
+    _, tm, (refs, _) = shared
+    eng = ServingEngine(tm, auto_run=False, **_ENGINE)
+    streamed = []
+    if "on_token" in kwargs:
+        kwargs = {"on_token": streamed.append}
+    req = eng.submit(_prompts(1)[0], 8, **kwargs)
+    eng.run_until_idle()
+    np.testing.assert_array_equal(req.result(), refs[0])
+    if "session" in kwargs:
+        assert list(eng._sessions) == ["chat"]
+        np.testing.assert_array_equal(eng._sessions["chat"].tokens, refs[0])
+    if "priority" in kwargs:
+        assert req.lifecycle["priority"] == "interactive"
+    if "deadline_s" in kwargs:
+        assert req.lifecycle["deadline_s"] == 600.0 and req.error is None
+    if "on_token" in kwargs:
+        assert streamed == req.tokens + [None]
+    assert req.trace_ctx == kwargs.get("trace_ctx")
+
+
+def test_moe_and_pp_ticks_raise():
+    """What the port still refuses, citing its ROADMAP item: a model with
+    MoE layers (the MoE tick) and an ambient mesh with a pipeline axis
+    (the pipeline-parallel tick)."""
+    import dataclasses
+    import types
+
+    from paddle_hackathon_tpu_torch import parallel
+    cfg = tgpt.GPTConfig(**_CFG)
+    moe = types.SimpleNamespace(
+        config=dataclasses.replace(cfg, moe_num_experts=4))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        ServingEngine(moe, **_ENGINE)
+    tm = tgpt.GPTForCausalLM(cfg, device="cpu")
+    parallel.set_mesh({"dp": 1, "pp": 2})
+    try:
+        with pytest.raises(NotImplementedError, match="item 12"):
+            ServingEngine(tm, **_ENGINE)
+    finally:
+        parallel.set_mesh(None)
+    ServingEngine(tm, **_ENGINE)
 
 
 @pytest.mark.parametrize("where", ["generate", "engine_init", "submit"])
 def test_signatures_follow_the_reference(where):
-    """Parameter names and order as the JAX package's; the port's own
-    ``generator`` comes last, keyword only."""
+    """Parameter names, order and defaults as the JAX package's; the
+    port's own ``generator`` comes last, keyword only."""
     import inspect
 
     from paddle_hackathon_tpu.inference.serving import \
@@ -190,19 +256,26 @@ def test_signatures_follow_the_reference(where):
     assert all(p.kind == p.KEYWORD_ONLY for p in extra)
     assert [p.name for p in extra] == (["generator"] if where == "generate"
                                        else [])
-    # the reference's defaults, except auto_run (its loop is not ported)
-    differ = [p.name for p, q in zip(port, ref) if p.default != q.default]
-    assert differ == (["auto_run"] if where == "engine_init" else [])
+    assert [p.name for p, q in zip(port, ref) if p.default != q.default] \
+        == []
 
 
 def test_engine_takes_the_reference_defaults(shared):
-    """Every reference parameter at its default value (auto_run aside)
-    constructs, and preempt/preempt_limit, which change nothing here,
-    take any value."""
-    _, tm, _ = shared
-    ServingEngine(tm, **_ENGINE, drafter="ngram", slo_window_s=60.0,
-                  session_ttl_s=None, max_sessions=64,
-                  priority_aging_s=30.0, preempt=False, preempt_limit=0)
+    """Every reference parameter at its default value constructs,
+    ``auto_run=True`` included, and ``generate`` then runs through the
+    background loop."""
+    _, tm, (refs, _) = shared
+    eng = ServingEngine(tm, **_ENGINE, temperature=0.0, top_k=None,
+                        eos_token_id=None, auto_run=True, decode_window=8,
+                        top_p=None, spec_k=0, drafter="ngram",
+                        cache_mode="dense", page_size=16, num_pages=None,
+                        prefix_cache=True, slo_window_s=60.0,
+                        session_ttl_s=None, max_sessions=64,
+                        priority_aging_s=30.0, prefill_budget=None,
+                        preempt=True, preempt_limit=2)
+    np.testing.assert_array_equal(
+        eng.generate(_prompts(1)[0], 8, timeout=120), refs[0])
+    eng.shutdown(timeout=60)
 
 
 def test_package_imports_without_jax():
@@ -234,7 +307,8 @@ def test_eos_stops_a_request_and_frees_its_slot(shared):
     gen = refs[0][len(prompt):]
     eos = int(gen[2])
     stop = int(np.nonzero(gen == eos)[0][0])     # first occurrence
-    eng = ServingEngine(tm, cache_mode="paged", page_size=8, eos_token_id=eos,
+    eng = ServingEngine(tm, auto_run=False, cache_mode="paged", page_size=8,
+                        eos_token_id=eos,
                         **_ENGINE)
     out = _serve(eng, [prompt], 8)[0]
     np.testing.assert_array_equal(out, refs[0][:len(prompt) + stop + 1])
@@ -247,7 +321,8 @@ def test_per_request_sampling_overrides(shared):
     """A greedy request on an engine whose default samples: the per-slot
     vector mode keeps it token-exact while its neighbours sample."""
     _, tm, (refs, _) = shared
-    eng = ServingEngine(tm, cache_mode="paged", page_size=8, temperature=1.0,
+    eng = ServingEngine(tm, auto_run=False, cache_mode="paged", page_size=8,
+                        temperature=1.0,
                         top_k=20, **_ENGINE)
     prompts = _prompts()
     reqs = [eng.submit(prompts[0], 8, temperature=0.0)] + \

@@ -278,9 +278,11 @@ def test_engine_spec_matches_jax_engine(models, mode, which):
     je = JEngine(jm, auto_run=False, drafter=_drafter(models, which, 0),
                  **kw)
     refs = _serve(je, prompts, 10)
-    te = ServingEngine(tm, drafter=_drafter(models, which, 1), **kw)
+    te = ServingEngine(tm, auto_run=False,
+                       drafter=_drafter(models, which, 1), **kw)
     outs = _serve(te, prompts, 10)
-    plain = _serve(ServingEngine(tm, **dict(kw, spec_k=0)), prompts, 10)
+    plain = _serve(ServingEngine(tm, auto_run=False, **dict(kw, spec_k=0)),
+                   prompts, 10)
     for out, ref, p in zip(outs, refs, plain):
         np.testing.assert_array_equal(out, ref)
         np.testing.assert_array_equal(out, p)
@@ -301,7 +303,7 @@ def test_engine_spec_acceptance_on_repetitive_stream(models):
     kw = dict(max_slots=2, max_len=96, chunk=4, spec_k=4)
     je = JEngine(jm, auto_run=False, **kw)
     ref = _serve(je, [p], 12)[0]
-    te = ServingEngine(tm, **kw)
+    te = ServingEngine(tm, auto_run=False, **kw)
     np.testing.assert_array_equal(_serve(te, [p], 12)[0], ref)
     assert te.stats["spec_accepted"] > 0
     assert te.stats["spec_ticks"] < te.stats["tokens"] - 1
@@ -316,7 +318,8 @@ def test_engine_spec_with_mixed_sampling_slots(models):
     ref = np.asarray(jm.generate(Tensor(jnp.asarray(p_greedy[None])),
                                  max_new_tokens=10,
                                  temperature=0.0).numpy())[0]
-    eng = ServingEngine(tm, max_slots=2, max_len=64, chunk=4, spec_k=4)
+    eng = ServingEngine(tm, auto_run=False, max_slots=2, max_len=64, chunk=4,
+                        spec_k=4)
     r0 = eng.submit(p_greedy, 10)
     r1 = eng.submit(p_sampled, 10, temperature=0.9, top_k=20)
     eng.run_until_idle()
@@ -336,7 +339,7 @@ def test_engine_spec_all_sampling_falls_back_to_multi_window(models):
     ref = np.asarray(jm.generate(Tensor(jnp.asarray(p_greedy[None])),
                                  max_new_tokens=10,
                                  temperature=0.0).numpy())[0]
-    eng = ServingEngine(tm, max_slots=2, max_len=64, chunk=4,
+    eng = ServingEngine(tm, auto_run=False, max_slots=2, max_len=64, chunk=4,
                         temperature=0.8, spec_k=4, decode_window=4)
     r_s = eng.submit(p_sampled, 6)
     for _ in range(4):
@@ -354,7 +357,8 @@ def test_submit_capacity_guard_covers_spec_headroom(models):
     """The verify write needs spec_k + 1 rows of headroom: the capacity
     check uses max(chunk, spec_k + 1), in pages too."""
     (_, tm), _ = models
-    eng = ServingEngine(tm, max_slots=2, max_len=32, chunk=4, spec_k=7)
+    eng = ServingEngine(tm, auto_run=False, max_slots=2, max_len=32, chunk=4,
+                        spec_k=7)
     with pytest.raises(ValueError, match="cache rows"):
         # fits max_len-chunk=28 but NOT max_len-(spec_k+1)=24
         eng.submit(np.arange(10, dtype=np.int32), max_new_tokens=16)
@@ -364,7 +368,8 @@ def test_submit_capacity_guard_covers_spec_headroom(models):
     # paged: the footprint covers the 8-row verify window past the last
     # row (rows 0..31 over pages of 4: 8 pages, where the chunk's 4-row
     # window would need 7)
-    paged = ServingEngine(tm, max_slots=2, max_len=32, chunk=4, spec_k=7,
+    paged = ServingEngine(tm, auto_run=False, max_slots=2, max_len=32,
+                          chunk=4, spec_k=7,
                           cache_mode="paged", page_size=4)
     r = paged.submit(np.arange(10, dtype=np.int32), max_new_tokens=14)
     paged.step()
@@ -384,7 +389,7 @@ def test_prefix_hit_replays_skipped_rows_to_drafter(models):
     kw = dict(max_slots=2, max_len=64, chunk=4, spec_k=4,
               cache_mode="paged", page_size=8)
     je = JEngine(jm, auto_run=False, **kw)
-    te = ServingEngine(tm, **kw)
+    te = ServingEngine(tm, auto_run=False, **kw)
     for e in (je, te):
         first = _serve(e, [prompt], 8)[0]
         second = _serve(e, [prompt], 8)[0]

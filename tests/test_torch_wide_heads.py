@@ -189,7 +189,7 @@ def test_wide_gpt_paged_engine_token_exact_vs_jax_engine():
     jeng.run_until_idle()
     want = [np.asarray(r.result()) for r in jreqs]
     jeng.shutdown()
-    teng = ServingEngine(tm, **engine)
+    teng = ServingEngine(tm, auto_run=False, **engine)
     treqs = [teng.submit(p, 6) for p in prompts]
     teng.run_until_idle()
     got = [np.asarray(r.result()) for r in treqs]
