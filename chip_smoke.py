@@ -453,6 +453,38 @@ Phases, each printing one JSON line:
                printed; tokens/s, TTFT p50 by class, preemptions, replayed
                rows, defrag pages and seconds, loop against step tokens/s.
 
+deploy (the deployment surface over the engine, GPT-2-small bf16 with
+               N(0, 0.02) weights from a numpy seed): (a) bf16 and int8
+               ``save_for_serving`` artifacts through ``create_predictor``
+               at 4 x 1024, zero-copy and convenience runs and ``clone``,
+               the bf16 logits bit for bit the model's own forward, the
+               int8 logits within ``INT8_LOGIT_BOUND`` of the same int8
+               model with K4's plain version, and no further from bf16
+               than that plain version plus the bound (f32 beside), a
+               ``PredictorPool`` of 4 allocating under 1% of the weight
+               bytes more than one predictor,
+               K1's forward 12 and K4 48 launches a run; (b) the 48
+               projections wrapped in ``QuantizedLinear`` (channel-wise),
+               3 AdamW steps at 8 x 1024 (K1's three kernels exact, losses
+               finite), ``convert_to_weight_only`` (scales the learned
+               absmax / 127 bit for bit, weights on the grid), the
+               artifact round trip, 8 requests of 64 + 128 on the dense
+               int8 engine against the converted model's own ``generate``
+               (margin gate, K4 exact); (c) two paged replicas (16 slots,
+               pages of 16, chunk 32) behind ``FleetRouter``, 32 requests
+               of 64 + 128 (16 sharing a 48-token prefix) against one
+               engine alone: a plain run, a failover drill
+               (``serving.tick[<replica>]`` failing every tick once the
+               first wave has started: its started requests raise
+               ``StreamInterruptedError``, the second wave fails over), a
+               drain under load losing nothing, affinity against
+               round-robin (a higher prefix-hit ratio); K3 counted per
+               replica, 0 plain calls, no page left in use; tokens/s and
+               TTFT p50 beside one engine's; (d) the native shim and a C++
+               client built with g++, 4 threads through
+               ``pht_engine_generate`` on the int8 artifact against the
+               Python engine (margin gate), the error paths' strings.
+
 Then the kernel table line, the ``nvidia-smi`` line, and last the result
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero before the result line; without a CUDA device it exits 2.
@@ -487,7 +519,8 @@ call reports.
 
 ``python3 chip_smoke.py --spec`` builds K3's and K4's libraries and runs
 only the spec phase (its int8 artifact saved and loaded in the phase);
-``--stages`` likewise runs only the stages phase.
+``--stages`` likewise runs only the stages phase; ``--deploy`` builds
+K1's (D = 64), K3's and K4's libraries and runs only the deploy phase.
 
 ``python3 chip_smoke.py --k4-ab N [--root DIR]`` likewise times K4, one
 GPT-2-small layer's four int8 projections at M = 8 and 256, f32 and bf16
@@ -5645,6 +5678,793 @@ def phase_stages(torch, pa, qm, int8=None):
           "seconds": time.perf_counter() - t_phase, **report})
 
 
+# ---------------------------------------------------------------------------
+# The deployment surface: the predictor, QAT, the fleet router, the native ABI
+# ---------------------------------------------------------------------------
+
+DEPLOY_PRED = (4, 1024)           # the predictor runs' batch x seq
+DEPLOY_POOL = 4                   # PredictorPool size
+DEPLOY_QAT = (8, 1024)            # the QAT fine-tune's batch x seq
+DEPLOY_QAT_STEPS = 3
+DEPLOY_QAT_SERVE = (8, 64, 128)   # requests, prompt, new tokens
+DEPLOY_QAT_ENGINE = dict(max_slots=8, max_len=256, chunk=32)
+DEPLOY_FLEET_ENGINE = dict(cache_mode="paged", max_slots=16, max_len=512,
+                           page_size=16, chunk=32)
+DEPLOY_FLEET_LOAD = (32, 64, 128)  # requests, prompt, new tokens
+DEPLOY_SHARED = (16, 48)          # requests sharing a prefix, its length
+DEPLOY_NATIVE = (4, 64, 32)       # client threads, prompt, new tokens
+DEPLOY_NATIVE_ENGINE = (4, 256, 32)   # pht_engine_create's slots, len, chunk
+# tests/test_quant_serving.py's int8-against-bf16 max-abs logit bound (set
+# there on 12 positions of a 2-layer model; here K4 against its plain
+# version through all 12 layers and 4,096 positions)
+INT8_LOGIT_BOUND = 0.05
+QAT_PROJ = (("attn", "qkv_proj"), ("attn", "out_proj"), ("mlp", "fc_in"),
+            ("mlp", "fc_out"))
+_DEPLOY_TL = threading.local()     # the fleet replica a loop thread drives
+
+
+def deploy_counted(torch, fap, pa, qm, run):
+    """``run()`` with K1's, K3's and K4's counts and the four plain
+    versions' calls set to 0 just before and read just after."""
+    names = {fap: ["flash_packed_fwd_ref", "flash_packed_bwd_ref"],
+             pa: ["paged_attention_ref"], qm: ["quant_matmul_ref"]}
+    plain = {n: 0 for ns in names.values() for n in ns}
+    real = {mod: counting(mod, ns, plain) for mod, ns in names.items()}
+    for counts in (fap.launches, pa.launches, pa.kernel_launches):
+        for k in counts:
+            counts[k] = 0
+    qm.launches = 0
+    try:
+        out = run()
+        torch.cuda.synchronize()
+    finally:
+        for mod, r in real.items():
+            restore(mod, r)
+    return out, {"k1": {k: n for k, n in fap.launches.items() if n},
+                 "k3": {k: n for k, n in pa.kernel_launches.items() if n},
+                 "k4": qm.launches, "plain_calls": sum(plain.values())}
+
+
+def deploy_want(counts, want, what):
+    if counts != dict(want, plain_calls=0):
+        raise AssertionError(f"{what}: launches {counts}, want {want} and "
+                             f"0 plain calls")
+
+
+def logit_err(a, b):
+    d = a.float() - b.float()
+    return {"max": float(d.abs().max()), "rms": float(d.pow(2).mean().sqrt())}
+
+
+def deploy_predictor(torch, fap, pa, qm, cfg, arrays, tmp):
+    """(a): bf16 and int8 ``save_for_serving`` artifacts served by
+    ``create_predictor`` at ``DEPLOY_PRED``: zero-copy and convenience runs,
+    ``clone``, a ``PredictorPool``."""
+    from paddle_hackathon_tpu_torch.inference import (Config, PredictorPool,
+                                                      create_predictor,
+                                                      save_for_serving)
+    from paddle_hackathon_tpu_torch.models import GPTForCausalLM
+    from paddle_hackathon_tpu_torch.utils import load_jax_state
+    L = cfg.num_layers
+    model = bf16_model(torch, cfg, arrays)
+    dirs = {"bf16": f"{tmp}/bf16", "int8": f"{tmp}/int8"}
+    t0 = time.perf_counter()
+    save_for_serving(model, dirs["bf16"])
+    save_for_serving(model, dirs["int8"], quant="int8")
+    t_save = time.perf_counter() - t0
+    b, s = DEPLOY_PRED
+    ids = np.random.RandomState(4).randint(0, cfg.vocab_size,
+                                           (b, s)).astype(np.int32)
+    with torch.inference_mode():
+        own = model(torch.from_numpy(ids).to(DEV))
+    del model
+    # the f32 model on the same weights: what bf16 itself costs
+    f32 = GPTForCausalLM(cfg, device=DEV)
+    load_jax_state(f32, arrays)
+    with torch.inference_mode():
+        logits = {"f32": f32(torch.from_numpy(ids).to(DEV))}
+    del f32
+    torch.cuda.empty_cache()
+    report, launches = {}, {"fwd": 0, "k4": 0}
+    for kind in ("bf16", "int8"):
+        t0 = time.perf_counter()
+        pred = create_predictor(Config(dirs[kind]))
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        pred.get_input_handle("input_ids").copy_from_cpu(ids)
+        pred.run()                                        # warm-up
+        t0 = time.perf_counter()
+        _, c = deploy_counted(torch, fap, pa, qm, pred.run)
+        ms = 1e3 * (time.perf_counter() - t0)
+        want = {"k1": {"fwd": L}, "k3": {},
+                "k4": 4 * L if kind == "int8" else 0}
+        deploy_want(c, want, f"predictor {kind} zero-copy run")
+        launches["fwd"] += c["k1"]["fwd"]
+        launches["k4"] += c["k4"]
+        zc = pred.get_output_handle("fetch_0")._value
+        (conv,), c2 = deploy_counted(torch, fap, pa, qm,
+                                     lambda: pred.run([ids]))
+        deploy_want(c2, want, f"predictor {kind} convenience run")
+        launches["fwd"] += c2["k1"]["fwd"]
+        launches["k4"] += c2["k4"]
+        if not np.array_equal(conv, zc.float().cpu().numpy()):
+            raise AssertionError(f"predictor {kind}: the convenience run's "
+                                 f"logits differ from the zero-copy run's")
+        clone = pred.clone()
+        if clone._model is not pred._model:
+            raise AssertionError("clone() copied the model")
+        (cl,) = clone.run([ids])
+        if not np.array_equal(cl, conv):
+            raise AssertionError(f"predictor {kind}: the clone's logits "
+                                 f"differ")
+        if kind == "bf16" and not torch.equal(zc, own):
+            raise AssertionError("predictor bf16: logits differ from the "
+                                 "model's own forward")
+        logits[kind] = zc
+        if kind == "int8":
+            # the same int8 model with K4's plain version on the card
+            real = qm.quant_matmul_kernel
+            qm.quant_matmul_kernel = qm.quant_matmul_ref
+            try:
+                with torch.inference_mode():
+                    logits["int8_plain"] = pred._model(
+                        torch.from_numpy(ids).to(DEV))
+            finally:
+                qm.quant_matmul_kernel = real
+        report[kind] = {"load_s": t_load, "run_ms": ms, "launches": c,
+                        "shape": list(zc.shape)}
+        pred.clear_intermediate_tensor()
+        del pred, clone, conv, cl
+    errs = {f"{a}_vs_{b}": logit_err(logits[a], logits[b])
+            for a, b in (("int8", "bf16"), ("int8", "int8_plain"),
+                         ("int8_plain", "bf16"), ("bf16", "f32"),
+                         ("int8", "f32"))}
+    del logits, own
+    torch.cuda.empty_cache()
+    # K4 against its plain version through the whole int8 model, held to
+    # the int8 bound; int8 against bf16 no further from bf16 than the
+    # plain version's own quantization error plus that bound
+    if not (errs["int8_vs_int8_plain"]["max"] < INT8_LOGIT_BOUND
+            and errs["int8_vs_bf16"]["max"] <= errs["int8_plain_vs_bf16"][
+                "max"] + INT8_LOGIT_BOUND):
+        raise AssertionError(f"int8 logits: {errs}, bound "
+                             f"{INT8_LOGIT_BOUND}")
+    # the pool: what one predictor's load allocates, and its clones less
+    # than 1% of the weight bytes on top
+    def allocated(make):
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        out = make()
+        torch.cuda.synchronize()
+        return out, torch.cuda.memory_allocated() - m0
+    one, one_bytes = allocated(lambda: create_predictor(Config(dirs["int8"])))
+    weight = sum(t.numel() * t.element_size()
+                 for t in one._model.parameters())
+    del one
+    torch.cuda.empty_cache()
+    pool, pool_bytes = allocated(
+        lambda: PredictorPool(Config(dirs["int8"]), size=DEPLOY_POOL))
+    main = pool.retrieve(0)
+    if len({id(pool.retrieve(i)._model) for i in range(DEPLOY_POOL)}) != 1 \
+            or not pool_bytes - one_bytes < 0.01 * weight:
+        raise AssertionError(f"PredictorPool({DEPLOY_POOL}) allocated "
+                             f"{pool_bytes} bytes, one predictor "
+                             f"{one_bytes}, weights {weight}")
+    outs = []
+    for i in range(DEPLOY_POOL):
+        p = pool.retrieve(i)
+        (o,), c = deploy_counted(torch, fap, pa, qm, lambda p=p: p.run([ids]))
+        deploy_want(c, {"k1": {"fwd": L}, "k3": {}, "k4": 4 * L},
+                    f"pool member {i}")
+        launches["fwd"] += c["k1"]["fwd"]
+        launches["k4"] += c["k4"]
+        p.clear_intermediate_tensor()
+        outs.append(o)
+    if not all(np.array_equal(o, outs[0]) for o in outs):
+        raise AssertionError("the pool's members disagree")
+    del pool, main, outs
+    torch.cuda.empty_cache()
+    emit({"phase": "deploy_predictor", "model": "gpt2-small-en",
+          "batch": b, "seq": s, "artifact_save_s": t_save,
+          "logit_errors": errs, "int8_bound": INT8_LOGIT_BOUND, "pool_size": DEPLOY_POOL,
+          "pool_bytes": pool_bytes, "one_predictor_bytes": one_bytes,
+          "weight_bytes": weight,
+          "clones_over_weight_bytes": (pool_bytes - one_bytes) / weight,
+          **report})
+    return dirs, launches
+
+
+def deploy_qat(torch, fap, pa, qm, cfg, arrays, tmp):
+    """(b): the QAT fine-tune (48 ``QuantizedLinear``s, channel-wise
+    weight scales), ``convert_to_weight_only``, the artifact round trip and
+    the dense int8 engine."""
+    from paddle_hackathon_tpu_torch.inference import (load_for_serving,
+                                                      save_for_serving)
+    from paddle_hackathon_tpu_torch.nn.quant import (QuantizedLinear,
+                                                     convert_to_weight_only)
+    from paddle_hackathon_tpu_torch.optimizer import AdamW
+    L = cfg.num_layers
+    model = bf16_model(torch, cfg, arrays)
+    wrapped = {}
+    for i, blk in enumerate(model.gpt.blocks):
+        for part, name in QAT_PROJ:
+            parent = getattr(blk, part)
+            q = QuantizedLinear(getattr(parent, name),
+                                weight_quantize_type="channel_wise_abs_max")
+            setattr(parent, name, q)
+            wrapped[f"gpt.blocks.{i}.{part}.{name}"] = (parent, name)
+    model.train()
+    opt = AdamW(learning_rate=1e-4, parameters=list(model.parameters()),
+                weight_decay=0.01)
+    b, s = DEPLOY_QAT
+    rng = np.random.RandomState(5)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s))).to(DEV)
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s))).to(DEV)
+
+    def steps():
+        losses = []
+        for _ in range(DEPLOY_QAT_STEPS):
+            loss = model.loss(ids, labels)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses.append(loss.detach())
+        return losses
+    t0 = time.perf_counter()
+    losses, c = deploy_counted(torch, fap, pa, qm, steps)
+    wall = time.perf_counter() - t0
+    n = DEPLOY_QAT_STEPS * L
+    deploy_want(c, {"k1": {"fwd": n, "dkdv": n, "dq": n}, "k3": {}, "k4": 0},
+                "QAT steps")
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"QAT losses not finite: {losses}")
+    k1 = dict(c["k1"])
+    model.eval()
+    learned = {k: getattr(p, n)._fake_quant_weight.scale.clone()
+               for k, (p, n) in wrapped.items()}
+    weights = {k: getattr(p, n).weight.detach().clone()
+               for k, (p, n) in wrapped.items()}
+    if convert_to_weight_only(model) != len(wrapped):
+        raise AssertionError("convert_to_weight_only did not convert every "
+                             "QuantizedLinear")
+    steps_off = 0.0
+    for k, (p, n) in wrapped.items():
+        lay = getattr(p, n)
+        want_s = torch.clamp_min(learned[k] / 127.0, 1e-9)
+        if not torch.equal(lay.weight_scale.view(torch.int32),
+                           want_s.view(torch.int32)):
+            raise AssertionError(f"{k}: weight_scale is not the learned "
+                                 f"absmax / 127 bit for bit")
+        w = weights[k]
+        grid = torch.clamp(torch.round(w.float() / want_s[None, :]),
+                           -127, 127)
+        if not torch.equal(lay.weight.float(), grid):
+            raise AssertionError(f"{k}: the int8 weights are off the "
+                                 f"fake-quant grid")
+        # the training forward's bf16 fake-quant of the same weight, in
+        # grid steps from the served dequantization (recorded)
+        sb = learned[k].to(torch.bfloat16)[None, :]
+        fq = torch.clamp(torch.round(w / sb * 127.0), -127, 127) / 127.0 * sb
+        deq = lay.weight.float() * lay.weight_scale[None, :]
+        steps_off = max(steps_off, float(((deq - fq.float()).abs()
+                                          / want_s[None, :]).max()))
+    del weights, opt, ids, labels
+    torch.cuda.empty_cache()
+    save_for_serving(model, f"{tmp}/qat")
+    del model
+    served = load_for_serving(f"{tmp}/qat")
+    nreq, plen, new = DEPLOY_QAT_SERVE
+    prompts = [rng.randint(0, cfg.vocab_size, plen).astype(np.int32)
+               for _ in range(nreq)]
+    eng = stage_engine(served, **DEPLOY_QAT_ENGINE)
+    eng.generate(prompts[0][:16], 2)                      # warm-up
+
+    def serve():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, new) for p in prompts]
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        return reqs, time.perf_counter() - t0
+    (reqs, swall), counts = stage_counted(torch, pa, qm, eng, serve, L)
+    with torch.inference_mode():
+        want = served.generate(torch.from_numpy(np.stack(prompts)).to(DEV),
+                               max_new_tokens=new,
+                               temperature=0.0).cpu().numpy()
+    margins = []
+    exact = sum(stage_gate(torch, served, p, r.result(), w, f"qat[{i}]",
+                           margins)
+                for i, (p, r, w) in enumerate(zip(prompts, reqs, want)))
+    eng.shutdown(timeout=60)
+    del eng, served
+    torch.cuda.empty_cache()
+    emit({"phase": "deploy_qat", "model": "gpt2-small-en bf16",
+          "quantized_linears": len(wrapped), "batch": b, "seq": s,
+          "steps": DEPLOY_QAT_STEPS, "wall_s": wall, "losses": losses,
+          "k1_launches": k1, "bf16_fake_quant_max_steps_off": steps_off,
+          "engine": DEPLOY_QAT_ENGINE, "requests": nreq, "prompt": plen,
+          "new_tokens": new, "tokens_per_s": nreq * new / swall,
+          "token_exact": int(exact), "of": nreq, "divergences": margins,
+          "margin_limit": BF16_MARGIN, "launches": counts})
+    return k1, counts["k4"]
+
+
+def fleet_engine(model, **kw):
+    """An ``auto_run`` paged replica whose chunk forwards are recorded as
+    wide or not (``stage_engine``) and whose loop threads carry its id."""
+    eng = stage_engine(model, **dict(DEPLOY_FLEET_ENGINE, auto_run=True,
+                                     **kw))
+    real = eng._loop
+
+    def loop(_real=real, _id=eng.engine_id):
+        _DEPLOY_TL.engine = _id
+        return _real()
+    eng._loop = loop
+    return eng
+
+
+def fleet_idle(engs, timeout=60.0):
+    """Wait until no replica's loop runs (its last tick has committed)."""
+    end = time.monotonic() + timeout
+    for e in engs:
+        while True:
+            with e._lock:
+                if not e._running:
+                    break
+            if time.monotonic() > end:
+                raise AssertionError(f"{e.engine_id}: loop still running")
+            time.sleep(0.005)
+
+
+def fleet_counted(torch, pa, qm, engs, run, layers):
+    """``run()`` with K3's counts and the plain versions' calls set to 0
+    just before and read just after, and ``paged_attention``'s calls
+    counted per replica (by the loop thread that made them): each
+    replica's calls equal what its ticks need (a call a layer for each
+    chunk tick and for each of a decode tick's ``decode_window`` steps),
+    none outside a replica's loop, the K3 kernels' launches the sum (the
+    wide chunk ticks on ``tiles_tc``, every other call on ``split``), no
+    K4 launch and no plain call."""
+    calls, lock = {}, threading.Lock()
+    real = pa.paged_attention
+
+    def counted(*a, **kw):
+        eid = getattr(_DEPLOY_TL, "engine", None)
+        with lock:
+            calls[eid] = calls.get(eid, 0) + 1
+        return real(*a, **kw)
+    s0 = {e.engine_id: (dict(e.stats), len(e.stage_widths)) for e in engs}
+    pa.paged_attention = counted
+    try:
+        def whole():
+            out = run()
+            fleet_idle(engs)
+            return out
+        out, counts = counted_launches(torch, pa, qm, whole)
+    finally:
+        pa.paged_attention = real
+    per, k3 = {}, {"tiles_tc": 0, "split": 0}
+    for e in engs:
+        st0, w0 = s0[e.engine_id]
+        d = {k: e.stats[k] - st0[k] for k in ("chunk_ticks", "decode_ticks")}
+        wide = sum(e.stage_widths[w0:])
+        want = layers * (d["chunk_ticks"] + e._decode_window
+                         * d["decode_ticks"])
+        per[e.engine_id] = dict(calls=calls.get(e.engine_id, 0), want=want,
+                                **d, wide_chunk_ticks=wide)
+        k3["tiles_tc"] += layers * wide
+        k3["split"] += want - layers * wide
+    k3 = {k: n for k, n in k3.items() if n}
+    if (any(r["calls"] != r["want"] for r in per.values())
+            or calls.get(None, 0) or counts["k3"] != k3 or counts["k4"]
+            or counts["plain_calls"]):
+        raise AssertionError(f"fleet launches {counts} per replica {per} "
+                             f"(outside a loop: {calls.get(None, 0)}), "
+                             f"want K3 {k3}, no K4 and 0 plain calls")
+    return out, dict(counts, replicas=per)
+
+
+def fleet_pages_home(engs):
+    """Every page home on every replica (prefix caches dropped)."""
+    for e in engs:
+        e.drop_prefix_cache()
+        if e.kv_pages_in_use:
+            raise AssertionError(f"{e.engine_id}: {e.kv_pages_in_use} pages "
+                                 f"left in use")
+
+
+def fleet_check(torch, model, prompts, frs, want, what, margins):
+    """Each completed fleet request against one engine alone (the margin
+    gate); returns how many were token-exact."""
+    return sum(stage_gate(torch, model, p, fr.result(), w,
+                          f"{what}[{i}]", margins)
+               for i, (p, fr, w) in enumerate(zip(prompts, frs, want))
+               if fr.error is None)
+
+
+def fleet_readings(frs, wall, new):
+    """tokens/s and TTFT p50 (router submit to first token) of a run."""
+    ttft = [fr._req.t_first - fr._t_submit for fr in frs
+            if fr.error is None and fr._req.t_first is not None]
+    done = sum(fr.error is None for fr in frs)
+    return {"wall_s": wall, "tokens_per_s": done * new / wall,
+            "ttft_p50_s": p50(ttft), "completed": done}
+
+
+def deploy_fleet(torch, pa, qm, cfg, arrays):
+    """(c): two paged replicas behind ``FleetRouter`` at
+    ``DEPLOY_FLEET_ENGINE``, ``DEPLOY_FLEET_LOAD`` (the first
+    ``DEPLOY_SHARED[0]`` requests share a prefix): one engine alone (the
+    reference and the baseline readings), a plain fleet run, a failover
+    drill, a drain under load, affinity against round-robin."""
+    from paddle_hackathon_tpu_torch.inference import (FleetRouter,
+                                                      StreamInterruptedError)
+    from paddle_hackathon_tpu_torch.observability import faults
+    L = cfg.num_layers
+    n, plen, new = DEPLOY_FLEET_LOAD
+    nshared, slen = DEPLOY_SHARED
+    rng = np.random.RandomState(6)
+    shared = rng.randint(0, cfg.vocab_size, slen).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.randint(
+        0, cfg.vocab_size, plen - slen).astype(np.int32)])
+        for _ in range(nshared)]
+    prompts += [rng.randint(0, cfg.vocab_size, plen).astype(np.int32)
+                for _ in range(n - nshared)]
+    # a model object a replica, on the same weights
+    models = [bf16_model(torch, cfg, arrays) for _ in range(2)]
+    for m in models:                                       # warm-up
+        e = fleet_engine(m)
+        e.generate(prompts[-1][:16], 2)
+        e.shutdown(timeout=60)
+    report, margins, launches = {}, [], {"tiles_tc": 0, "split": 0}
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts["k3"].get(k, 0)
+
+    # one engine alone: the reference tokens and the baseline readings
+    solo = fleet_engine(models[0])
+
+    def solo_run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [solo.submit(p, new) for p in prompts]
+        for r in reqs:
+            r.wait(300)
+        return reqs, time.perf_counter() - t0
+    (reqs, wall), counts = fleet_counted(torch, pa, qm, [solo], solo_run, L)
+    add(counts)
+    want = [r.result() for r in reqs]
+    report["one_engine"] = {
+        "wall_s": wall, "tokens_per_s": n * new / wall,
+        "ttft_p50_s": p50([r.ttft_s for r in reqs]), "launches": counts}
+    fleet_pages_home([solo])
+    solo.shutdown(timeout=60)
+
+    def fleet_run(router, subset=None, first=None):
+        """Submit ``first`` (waited) then the rest of the load through
+        ``router``; wait for all."""
+        idx = list(range(n)) if subset is None else subset
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frs = {}
+        if first is not None:
+            frs[first] = router.submit(prompts[first], new)
+            frs[first].wait(300)
+        for i in idx:
+            if i not in frs:
+                frs[i] = router.submit(prompts[i], new)
+        for fr in frs.values():
+            if not fr.wait(300):
+                raise AssertionError("a fleet request hung")
+        return [frs[i] for i in idx], time.perf_counter() - t0
+
+    # plain fleet run
+    engs = [fleet_engine(m) for m in models]
+    router = FleetRouter(engs, backoff_s=0.01)
+    (frs, wall), counts = fleet_counted(
+        torch, pa, qm, engs, lambda: fleet_run(router), L)
+    add(counts)
+    if any(fr.error is not None for fr in frs):
+        raise AssertionError(f"fleet: {[fr.error for fr in frs]}")
+    exact = fleet_check(torch, models[0], prompts, frs, want, "fleet",
+                        margins)
+    report["fleet"] = dict(fleet_readings(frs, wall, new),
+                           token_exact=int(exact), launches=counts,
+                           placed={e.engine_id: sum(fr.replica == e.engine_id
+                                                    for fr in frs)
+                                   for e in engs})
+    fleet_pages_home(engs)
+    router.shutdown(timeout=60)
+
+    # the failover drill: wave A (the unshared prompts) started, then
+    # serving.tick[<replica 0>] fails every tick and wave B arrives
+    engs = [fleet_engine(m) for m in models]
+    router = FleetRouter(engs, backoff_s=0.01, breaker_failures=1)
+    dead = engs[0].engine_id
+    point = f"serving.tick[{dead}]"
+
+    def drill():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wave_a = {i: router.submit(prompts[i], new)
+                  for i in range(nshared, n)}
+        end = time.monotonic() + 120
+        while not all(len(fr.tokens) for fr in wave_a.values()):
+            if time.monotonic() > end:
+                raise AssertionError("failover: wave A did not start")
+            time.sleep(0.002)
+        faults.arm_point(point, "prob", p=1.0)
+        wave_b = {i: router.submit(prompts[i], new) for i in range(nshared)}
+        frs = {**wave_a, **wave_b}
+        for fr in frs.values():
+            if not fr.wait(300):
+                raise AssertionError("failover: a request hung")
+        return [frs[i] for i in range(n)], time.perf_counter() - t0
+    # the dead replica's loops end in the injected fault: counted here
+    # instead of printed
+    hook, killed = threading.excepthook, []
+
+    def quiet(args):
+        if isinstance(args.exc_value, faults.InjectedFault):
+            killed.append(args.thread.name)
+        else:
+            hook(args)
+    threading.excepthook = quiet
+    try:
+        (frs, wall), counts = fleet_counted(torch, pa, qm, engs, drill, L)
+    finally:
+        faults.disarm()
+        threading.excepthook = hook
+    add(counts)
+    interrupted = [i for i, fr in enumerate(frs) if fr.error is not None]
+    for i in interrupted:
+        if not (isinstance(frs[i].error, StreamInterruptedError)
+                and frs[i].tokens and i >= nshared):
+            raise AssertionError(f"failover: request {i} failed with "
+                                 f"{frs[i].error!r}")
+    moved = [i for i, fr in enumerate(frs) if fr.retries and not fr.error]
+    if not interrupted or not moved or any(
+            frs[i].replica == dead for i in moved):
+        raise AssertionError(f"failover: interrupted {interrupted}, failed "
+                             f"over {moved}")
+    exact = fleet_check(torch, models[0], prompts, frs, want, "failover",
+                        margins)
+    report["failover"] = dict(fleet_readings(frs, wall, new),
+                              token_exact=int(exact),
+                              interrupted=len(interrupted),
+                              failed_over=len(moved),
+                              dead_replica_loops=len(killed),
+                              launches=counts)
+    fleet_pages_home(engs)
+    router.shutdown(timeout=60)
+
+    # a drain under load: replica 0 drained while the load runs
+    engs = [fleet_engine(m) for m in models]
+    router = FleetRouter(engs, backoff_s=0.01)
+
+    def drain_run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frs = [router.submit(p, new) for p in prompts]
+        router.drain(engs[0].engine_id, timeout=300)
+        for fr in frs:
+            if not fr.wait(300):
+                raise AssertionError("drain: a request hung")
+        return frs, time.perf_counter() - t0
+    (frs, wall), counts = fleet_counted(torch, pa, qm, engs, drain_run, L)
+    add(counts)
+    lost = [i for i, fr in enumerate(frs) if fr.error is not None]
+    if lost or router.replica_names() != [engs[1].engine_id]:
+        raise AssertionError(f"drain: lost {lost}, replicas "
+                             f"{router.replica_names()}")
+    exact = fleet_check(torch, models[0], prompts, frs, want, "drain",
+                        margins)
+    report["drain"] = dict(fleet_readings(frs, wall, new),
+                           token_exact=int(exact), lost=0, launches=counts,
+                           drained_served=sum(fr.replica == engs[0].engine_id
+                                              for fr in frs))
+    fleet_pages_home(engs)
+    router.shutdown(timeout=60)
+
+    # affinity against round-robin: one shared-prefix request first, then
+    # the rest of the load
+    ratios = {}
+    for policy in ("least_loaded", "round_robin"):
+        engs = [fleet_engine(m) for m in models]
+        router = FleetRouter(engs, backoff_s=0.01, policy=policy)
+        (frs, wall), counts = fleet_counted(
+            torch, pa, qm, engs, lambda: fleet_run(router, first=0), L)
+        add(counts)
+        if any(fr.error is not None for fr in frs):
+            raise AssertionError(f"{policy}: {[fr.error for fr in frs]}")
+        exact = fleet_check(torch, models[0], prompts, frs, want, policy,
+                            margins)
+        ratios[policy] = [e.stats["prefix_hit_rate"] for e in engs]
+        report[policy] = dict(fleet_readings(frs, wall, new),
+                              token_exact=int(exact), launches=counts,
+                              prefix_hit_rate=ratios[policy])
+        fleet_pages_home(engs)
+        router.shutdown(timeout=60)
+    if not max(ratios["least_loaded"]) > max(ratios["round_robin"]):
+        raise AssertionError(f"affinity: prefix-hit ratios {ratios}")
+    del models, engs, router
+    torch.cuda.empty_cache()
+    emit({"phase": "deploy_fleet", "model": "gpt2-small-en bf16",
+          "replicas": 2, "engine": DEPLOY_FLEET_ENGINE, "requests": n,
+          "prompt": plen, "new_tokens": new, "shared_prefix": DEPLOY_SHARED,
+          "margin_limit": BF16_MARGIN, "divergences": margins,
+          "k3_launches": launches, **report})
+    return launches
+
+
+NATIVE_CLIENT_CC = r"""
+// A C++ serving client with no Python in its source: threads call
+// pht_engine_generate concurrently on one engine, then the error paths.
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <string>
+#include <thread>
+#include <vector>
+
+extern "C" {
+int32_t pht_serving_init(const char* repo_dir);
+void* pht_engine_create(const char*, int32_t, int32_t, int32_t);
+int64_t pht_engine_generate(void*, const int32_t*, int32_t, int32_t,
+                            int32_t*, int64_t, double);
+const char* pht_predictor_last_error();
+void pht_engine_destroy(void*);
+}
+
+// argv: repo, model_dir, threads, prompt_len, new, vocab, slots, len, chunk
+int main(int argc, char** argv) {
+  if (argc != 10) return 2;
+  int T = std::atoi(argv[3]), P = std::atoi(argv[4]), N = std::atoi(argv[5]);
+  int V = std::atoi(argv[6]);
+  if (pht_serving_init(argv[1]) != 0) {
+    std::fprintf(stderr, "init: %s\n", pht_predictor_last_error());
+    return 3;
+  }
+  void* eng = pht_engine_create(argv[2], std::atoi(argv[7]),
+                                std::atoi(argv[8]), std::atoi(argv[9]));
+  if (!eng) {
+    std::fprintf(stderr, "create: %s\n", pht_predictor_last_error());
+    return 4;
+  }
+  // thread k's prompt: (k * 7919 + i * 31 + 1) % V, i < P
+  std::vector<std::vector<int32_t>> outs(T, std::vector<int32_t>(P + N));
+  std::vector<int64_t> ns(T, 0);
+  std::vector<std::thread> threads;
+  for (int k = 0; k < T; k++) {
+    threads.emplace_back([&, k] {
+      std::vector<int32_t> prompt(P);
+      for (int i = 0; i < P; i++) prompt[i] = (k * 7919 + i * 31 + 1) % V;
+      ns[k] = pht_engine_generate(eng, prompt.data(), P, N, outs[k].data(),
+                                  P + N, k == 0 ? 0.0 : 600.0);
+    });
+  }
+  for (auto& t : threads) t.join();
+  for (int k = 0; k < T; k++) {
+    if (ns[k] < 0) {
+      std::fprintf(stderr, "generate %d: %s\n", k,
+                   pht_predictor_last_error());
+      return 5;
+    }
+    std::printf("client %d:", k);
+    for (int64_t i = 0; i < ns[k]; i++) std::printf(" %d", outs[k][i]);
+    std::printf("\n");
+  }
+  int64_t s = pht_engine_generate(eng, outs[0].data(), P, N, outs[0].data(),
+                                  3, 600.0);
+  std::printf("gen_small %lld: %s\n", (long long)s,
+              pht_predictor_last_error());
+  int64_t b = pht_engine_generate(nullptr, outs[0].data(), P, N,
+                                  outs[0].data(), P + N, 600.0);
+  std::printf("gen_bad %lld: %s\n", (long long)b, pht_predictor_last_error());
+  std::string missing = std::string(argv[2]) + ".missing";
+  void* e2 = pht_engine_create(missing.c_str(), 2, 64, 4);
+  std::printf("engine_missing %d: %s\n", e2 == nullptr,
+              pht_predictor_last_error());
+  pht_engine_destroy(eng);
+  return 0;
+}
+"""
+
+
+def deploy_native(torch, cfg, model_dir, tmp):
+    """(d): the shim and a C++ client built with g++; ``DEPLOY_NATIVE``
+    threads generate concurrently through ``pht_engine_generate`` from the
+    int8 artifact on the card, against the Python engine on the same
+    artifact; the error paths return their strings."""
+    import os
+
+    from paddle_hackathon_tpu_torch import native
+    from paddle_hackathon_tpu_torch.inference import load_for_serving
+    t0 = time.perf_counter()
+    shim = native.build_serving_shim()
+    src = f"{tmp}/client.cc"
+    with open(src, "w") as f:
+        f.write(NATIVE_CLIENT_CC)
+    client = f"{tmp}/client"
+    subprocess.run(["g++", "-O2", "-std=c++17", src,
+                    *native.client_link_flags(shim), "-o", client],
+                   check=True, capture_output=True, text=True)
+    t_build = time.perf_counter() - t0
+    T, P, N = DEPLOY_NATIVE
+    slots, max_len, chunk = DEPLOY_NATIVE_ENGINE
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [client, repo, model_dir, str(T), str(P), str(N),
+         str(cfg.vocab_size), str(slots), str(max_len), str(chunk)],
+        capture_output=True, text=True, timeout=600, env=native.client_env())
+    t_client = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"native client exited {res.returncode}: "
+                             f"{res.stderr[-3000:]}")
+    lines = dict(ln.split(": ", 1) if ": " in ln else (ln.rstrip(":"), "")
+                 for ln in res.stdout.splitlines())
+    prompts = [np.asarray([(k * 7919 + i * 31 + 1) % cfg.vocab_size
+                           for i in range(P)], np.int32) for k in range(T)]
+    model = load_for_serving(model_dir)
+    eng = stage_engine(model, max_slots=slots, max_len=max_len, chunk=chunk)
+    reqs = [eng.submit(p, N) for p in prompts]
+    eng.run_until_idle()
+    margins = []
+    exact = sum(stage_gate(
+        torch, model, p, np.asarray([int(t) for t in
+                                     lines[f"client {k}"].split()]),
+        r.result(), f"native[{k}]", margins)
+        for k, (p, r) in enumerate(zip(prompts, reqs)))
+    errors = {k: lines.get(k) for k in ("gen_small -2", "gen_bad -3",
+                                        "engine_missing 1")}
+    if (errors["gen_small -2"] != "output buffer too small"
+            or errors["gen_bad -3"] != "bad engine handle"
+            or not errors["engine_missing 1"]):
+        raise AssertionError(f"native error paths: {res.stdout[-2000:]}")
+    eng.shutdown(timeout=60)
+    del eng, model
+    torch.cuda.empty_cache()
+    emit({"phase": "deploy_native", "artifact": "gpt2-small-en int8",
+          "shim": shim.name, "build_s": t_build, "client_s": t_client,
+          "threads": T, "prompt": P, "new_tokens": N,
+          "engine": dict(max_slots=slots, max_len=max_len, chunk=chunk),
+          "token_exact": int(exact), "of": T, "divergences": margins,
+          "margin_limit": BF16_MARGIN, "error_strings": errors})
+
+
+def phase_deploy(torch, fap, pa, qm):
+    """The deployment surface at the full width of GPT-2-small (bf16,
+    N(0, 0.02) weights from a numpy seed): (a) the predictor, (b) QAT,
+    (c) the fleet router, (d) the native ABI.  Returns the main-path
+    launches: K1's (the predictor and the QAT steps), K4's (the int8
+    predictor and the QAT engine) and K3's (the fleet runs)."""
+    import shutil
+    import tempfile
+
+    from paddle_hackathon_tpu_torch.models import GPTForCausalLM, gpt_config
+    t_phase = time.perf_counter()
+    cfg = gpt_config("gpt2-small-en", hidden_dropout_prob=0.0,
+                     attention_dropout_prob=0.0)
+    arrays = random_weights(GPTForCausalLM(cfg, device="cpu"), seed=0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_deploy_")
+    try:
+        dirs, pred = deploy_predictor(torch, fap, pa, qm, cfg, arrays, tmp)
+        qat_k1, qat_k4 = deploy_qat(torch, fap, pa, qm, cfg, arrays, tmp)
+        k3 = deploy_fleet(torch, pa, qm, cfg, arrays)
+        deploy_native(torch, cfg, dirs["int8"], tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {"k1": {"fwd": pred["fwd"] + qat_k1["fwd"],
+                       "dkdv": qat_k1["dkdv"], "dq": qat_k1["dq"]},
+                "k4": pred["k4"] + qat_k4, "k3": k3}
+    emit({"phase": "deploy", "seconds": time.perf_counter() - t_phase,
+          "launches": launches})
+    return launches
+
+
 # csrc/flash_tc.cuh's kernels: K1's instances (PACKED, Lb1E) and K2's
 # bf16/f16 instances up to 256 (Lb0E)
 TC_KERNEL = re.compile(r"flash_tc_(fwd|dkdv|dq)I(13__nv_bfloat16|6__half)"
@@ -5973,6 +6793,16 @@ def main():
         emit({"phase": "build", "seconds": time.perf_counter() - t0})
         phase_stages(torch, pa, qm)
         return 0
+    if "--deploy" in sys.argv:
+        # the deploy phase alone: K1's (D = 64), K3's and K4's libraries
+        emit({"phase": "device", "nvidia_smi": nvidia_smi(),
+              "name": torch.cuda.get_device_name(0)})
+        t0 = time.perf_counter()
+        _build.build_all(["paged_attention", "quant_matmul",
+                          "flash_attention_packed_w64"])
+        emit({"phase": "build", "seconds": time.perf_counter() - t0})
+        phase_deploy(torch, fap, pa, qm)
+        return 0
     smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
     emit({"phase": "device", "nvidia_smi": smi, "name": name,
@@ -6027,6 +6857,7 @@ def main():
     spec_launches = phase_spec(torch, pa, qm, int8)
     phase_stages(torch, pa, qm, int8)
     del int8
+    deploy = phase_deploy(torch, fap, pa, qm)
 
     src = "paddle_hackathon_tpu_torch/csrc/"
     ref = "paddle_hackathon_tpu/incubate/nn/kernels/"
@@ -6325,6 +7156,52 @@ def main():
                                 "(the walk for qkv and fc_in, the split "
                                 "for out and fc_out); launches: the same "
                                 "kernel's in the f32 cross-check"})
+    # the deployment surface's paths (phase deploy): K1 through the
+    # predictor and the QAT fine-tune, K4 through the int8 predictor and
+    # the QAT-converted engine, K3 through the fleet's replicas; each row's
+    # times are the same kernel's rows above
+    for kname, k, line, row, what in (
+            ("flash_packed_fwd_deploy", "fwd", 247, flash["fwd"],
+             "the bf16 and int8 predictors at b=4, s=1024 and the QAT "
+             "fine-tune's forwards"),
+            ("flash_packed_dkdv_qat", "dkdv", 478, flash["dkdv"],
+             "the QAT fine-tune's backwards"),
+            ("flash_packed_dq_qat", "dq", 511, flash["dq"],
+             "the QAT fine-tune's backwards")):
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": src + "flash_attention_packed.cu",
+            "replaces": ref + f"flash_attention_packed.py:{line}",
+            "launches": deploy["k1"][k],
+            **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms")},
+            "timed_as": f"launches: {what}; times: the flash_packed_{k} "
+                        f"row's"})
+    kernels.append({
+        "name": "quant_matmul_deploy", "route": "cuda",
+        "source": src + "quant_matmul.cu",
+        "replaces": ref + "quant_matmul.py:112",
+        "launches": deploy["k4"], "max_abs_err": max_abs,
+        **{k: decode[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")},
+        "timed_as": "launches: the int8 predictor (M = 4096) and the "
+                    "QAT-converted dense engine (M = 8 decode, 256 "
+                    "prefill); times: the quant_matmul row's"})
+    for kname, key, row in (
+            ("paged_attention_tc_fleet", "tiles_tc", k3_tc["w32"]),
+            ("paged_decode_split_fleet", "split", k3_decode)):
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": src + "paged_attention.cu",
+            "replaces": ref + "paged_attention.py:175",
+            "launches": deploy["k3"].get(key, 0),
+            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")},
+            "timed_as": "launches: the fleet's two paged replicas over all "
+                        "its runs (counted per replica); times: the "
+                        + ("paged_attention_tc" if key == "tiles_tc"
+                           else "paged_decode_split") + " row's"})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

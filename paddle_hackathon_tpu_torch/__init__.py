@@ -19,10 +19,17 @@ optimizers, LR schedulers, weight decay and clips of ``optimizer/``,
 ``csrc/flash_attention_packed.cu``); weight-only int8/fp8 serving from
 an artifact (``inference/serving.py`` ``save_for_serving``/
 ``load_for_serving``, ``nn/quant/``) and its dequant-GEMM kernel
-(``incubate/nn/kernels/quant_matmul.py`` + ``csrc/quant_matmul.cu``).
+(``incubate/nn/kernels/quant_matmul.py`` + ``csrc/quant_matmul.cu``);
+the deployment surface over the engine: ``inference/config.py`` and
+``predictor.py`` (``create_predictor``), the QAT layers of ``nn/quant/``
+with ``convert_to_weight_only``, the serving fleet ``inference/fleet.py``,
+``profiler/cross_stack.py``, and the C ABI of ``native/serving.cc``.
 """
 
 from .core.device import resolve_device
 from .core.random import seed
+
+# the JAX package's version: the port serves the same artifacts and API
+__version__ = "0.1.0"
 
 __all__ = ["resolve_device", "seed"]

@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import NamedTuple
 
 import torch
@@ -66,6 +67,7 @@ launches = {"paged_decode": 0, "paged_attention": 0}
 TILE_ROUTES = ("split", "split_g", "tiles_tc", "tiles_wide_tc", "tiles_tc_g",
                "tiles_wide_tc_g", "tiles_tf32", "tiles_tf32_g")
 kernel_launches = dict.fromkeys(TILE_ROUTES, 0)
+_count_lock = threading.Lock()
 
 SPLIT_ROWS = 64          # logical rows of a split-decode chunk
 SPLIT_MAX_WIDTH = 15     # widths below the tensor-core kernel's 16
@@ -493,9 +495,10 @@ def paged_attention_kernel(q, k_pool, v_pool, page_table, lengths):
     check_kernel_args(q, k_pool, v_pool, page_table, lengths)
     route = tile_route(q.shape[1], q.shape[3], q.dtype, k_pool.shape[1])
     out = _launch(q, k_pool, v_pool, page_table, lengths, route)
-    launches["paged_decode" if route.startswith("split")
-             else "paged_attention"] += 1
-    kernel_launches[route] += 1
+    with _count_lock:      # fleet replicas launch from their own threads
+        launches["paged_decode" if route.startswith("split")
+                 else "paged_attention"] += 1
+        kernel_launches[route] += 1
     return out
 
 

@@ -32,6 +32,7 @@ dequantization commutes out of the product.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple
 
 import torch
@@ -56,6 +57,7 @@ _GRID_YZ = 65535
 # the serving path went through the kernel), and those of the f32 route
 launches = 0
 f32_launches = 0
+_count_lock = threading.Lock()
 
 
 class QuantPlan(NamedTuple):
@@ -257,9 +259,10 @@ def quant_matmul_kernel(x2d, w_q, scale):
     if err != 0:
         raise RuntimeError(f"quant_matmul kernel launch failed: "
                            f"CUDA error {err}")
-    launches += 1
-    if plan.route == "f32":
-        f32_launches += 1
+    with _count_lock:      # fleet replicas launch from their own threads
+        launches += 1
+        if plan.route == "f32":
+            f32_launches += 1
     return out
 
 

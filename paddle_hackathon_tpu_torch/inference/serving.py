@@ -53,8 +53,8 @@ tick histograms, gauges, spans and flight-recorder events.
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): the MoE tick and a serving artifact of a model other than GPT
 (item 11), and the pipeline-parallel tick (item 12).
-``inference/predictor.py``'s ``create_predictor``, which also serves an
-artifact directory, is not ported either.
+``inference/predictor.py``'s ``create_predictor`` serves the same
+artifact directory, and ``inference/fleet.py`` routes over engines.
 """
 
 from __future__ import annotations
@@ -929,6 +929,12 @@ class ServingEngine:
             prompt_len=len(req.prompt), max_new=req.max_new_tokens, **fleet)
         with self._lock:
             if self._closed:
+                if self._draining:
+                    # drained, then shut down: still the router's "place
+                    # elsewhere", as the JAX engine answers after drain()
+                    raise EngineDraining(
+                        f"engine {self._engine_id} is draining and shut "
+                        f"down: admission is closed")
                 raise RuntimeError("engine is shut down")
             draining = self._draining
             if not draining:

@@ -16,11 +16,13 @@ channel, no zero point.
   install empty shells at an artifact's manifest paths (what
   ``load_for_serving`` does before it loads state).
 
+- :func:`convert_to_weight_only`: the QAT export, every
+  ``QuantizedLinear`` of a tree swapped for a :class:`WeightOnlyLinear` on
+  the grid training simulated (``WeightOnlyLinear.from_qat``).
+
 :func:`quantize_array` gives the JAX package's bits: f32 ``absmax /
 qmax`` floored at 1e-9, an f32 division, round half to even (int8),
-clip, cast.  The QAT export (``WeightOnlyLinear.from_qat``,
-:func:`convert_to_weight_only`) needs the QAT ``QuantizedLinear``, which
-is not ported: both raise.
+clip, cast.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from torch import nn
 
 from ...incubate.nn.kernels.quant_matmul import quant_matmul
 from ..layers.common import Linear
-from .quant_layers import channel_absmax
+from .quant_layers import QuantizedLinear, channel_absmax
 
 __all__ = [
     "quantize_weights", "quantize_array", "WeightOnlyLinear",
@@ -39,7 +41,6 @@ __all__ = [
 ]
 
 SCHEMES = ("int8", "fp8-e4m3")
-_QAT = "the QAT QuantizedLinear is not ported yet: ROADMAP Queue 1 item 10"
 
 
 def resolve_scheme(scheme):
@@ -181,7 +182,40 @@ class WeightOnlyLinear(nn.Module):
 
     @classmethod
     def from_qat(cls, qlayer, scheme="int8"):
-        raise NotImplementedError(f"WeightOnlyLinear.from_qat: {_QAT}")
+        """Convert a QAT ``QuantizedLinear`` with its LEARNED absmax (the
+        ``_fake_quant_weight.scale`` buffer), so serving quantizes on the
+        grid training simulated: per channel from a
+        ``channel_wise_abs_max`` quantizer, or the per-tensor ``abs_max``
+        scalar broadcast over the output channels.  A quantizer that never
+        ran (all-zero scale) falls back to measuring the weight.  The bias
+        parameter is SHARED."""
+        w = qlayer.weight.detach()
+        out = w.shape[1]
+        fq = qlayer._fake_quant_weight
+        quant_axis = getattr(fq, "_quant_axis", None)
+        if quant_axis is not None and quant_axis % w.dim() != w.dim() - 1:
+            # per-IN-channel scales cannot leave the GEMM as a per-output
+            # epilogue (and for a square weight a shape check would not
+            # notice), so refuse with the remedy
+            raise ValueError(
+                f"convert_to_weight_only needs per-OUTPUT-channel QAT "
+                f"scales (weight_quant_axis={w.dim() - 1}); this layer "
+                f"learned quant_axis={quant_axis}.  Re-run QAT with "
+                f"weight_quant_axis={w.dim() - 1} or quantize from the "
+                f"weights instead (apply_weight_only / "
+                f"save_for_serving(quant=...)).")
+        absmax = fq.scale.detach()
+        if not bool((absmax > 0).any()):
+            absmax = None
+        elif quant_axis is None:
+            # per-tensor observer: one scalar, the same grid on every
+            # output channel
+            absmax = absmax.reshape(-1)[:1].expand(out)
+        q, scale = quantize_array(w, scheme, axis=-1, absmax=absmax)
+        lay = cls(w.shape[0], w.shape[1], scheme=scheme, has_bias=False,
+                  device=w.device)
+        lay.bias = qlayer.bias
+        return lay._load_quantized(q, scale)
 
 
 def _shell_for(old, scheme):
@@ -224,6 +258,16 @@ def apply_weight_only(model, scheme="int8", names=None):
 
 
 def convert_to_weight_only(layer_tree, scheme="int8"):
-    """QAT export (JAX ``convert_to_weight_only``): needs the QAT
-    ``QuantizedLinear``, which is not ported."""
-    raise NotImplementedError(f"convert_to_weight_only: {_QAT}")
+    """QAT export: replace every ``QuantizedLinear`` in ``layer_tree`` with
+    a :class:`WeightOnlyLinear` built from its learned scales
+    (:meth:`WeightOnlyLinear.from_qat`).  In place; returns the number of
+    layers converted.  The converted tree saves through
+    ``save_for_serving`` like any quantized model (its weights are already
+    narrow, so ``quant=`` is NOT passed again)."""
+    converted = 0
+    for layer in list(layer_tree.modules()):
+        for name, sub in list(layer.named_children()):
+            if isinstance(sub, QuantizedLinear):
+                setattr(layer, name, WeightOnlyLinear.from_qat(sub, scheme))
+                converted += 1
+    return converted

@@ -67,42 +67,64 @@ def to_stored(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def _persistent_buffers(model: nn.Module) -> dict:
+    """``model``'s buffers that belong in its state (the JAX package's
+    persistable buffers: a QAT observer's ``scale``/``state``/``accum``),
+    by dotted name."""
+    out = {}
+    for mname, mod in model.named_modules():
+        for bname, buf in mod._buffers.items():
+            if buf is not None and \
+                    bname not in mod._non_persistent_buffers_set:
+                out.setdefault(f"{mname}.{bname}" if mname else bname, buf)
+    return out
+
+
 def check_state(model: nn.Module, arrays: Mapping) -> dict:
-    """``model``'s parameters by name, after checking that ``arrays``
-    (numpy arrays or tensors) names exactly them with their shapes:
-    ``KeyError`` on a missing or extra name, ``ValueError`` on a shape
-    mismatch."""
+    """``model``'s parameters and buffers by name, after checking that
+    ``arrays`` (numpy arrays or tensors) names every parameter and every
+    persistent buffer, and nothing else but the non-persistent buffers (a
+    quantizer's recomputed scale, which JAX's ``functional_state`` carries
+    beside its ``state_dict``), with their shapes: ``KeyError`` on a
+    missing or extra name, ``ValueError`` on a shape mismatch."""
     params = dict(model.named_parameters())
-    missing = sorted(set(params) - set(arrays))
-    extra = sorted(set(arrays) - set(params))
+    buffers = dict(model.named_buffers())
+    required = set(params) | set(_persistent_buffers(model))
+    missing = sorted(required - set(arrays))
+    extra = sorted(set(arrays) - set(params) - set(buffers))
     if missing or extra:
         raise KeyError(f"state mismatch: missing {missing}, extra {extra}")
+    tensors = dict(buffers, **params)
     for name, arr in arrays.items():
-        if tuple(np.shape(arr)) != tuple(params[name].shape):
+        if tuple(np.shape(arr)) != tuple(tensors[name].shape):
             raise ValueError(f"{name}: shape {tuple(np.shape(arr))} != "
-                             f"{tuple(params[name].shape)}")
-    return params
+                             f"{tuple(tensors[name].shape)}")
+    return tensors
 
 
 @torch.no_grad()
 def load_jax_state(model: nn.Module, arrays: Mapping[str, np.ndarray]):
-    """Copy ``arrays`` into ``model``'s parameters name for name, onto each
-    parameter's device and into its dtype.  Nothing is copied unless every
-    name and shape agrees (:func:`check_state`).  Returns ``model``."""
-    params = check_state(model, arrays)
+    """Copy ``arrays`` into ``model``'s parameters and buffers name for
+    name, onto each tensor's device and into its dtype.  Nothing is copied
+    unless every name and shape agrees (:func:`check_state`).  Returns
+    ``model``."""
+    tensors = check_state(model, arrays)
     for name, arr in arrays.items():
-        params[name].copy_(to_tensor(arr))
+        tensors[name].copy_(to_tensor(arr))
     return model
 
 
 def state_to_numpy(model: nn.Module) -> dict:
-    """``{name: np.ndarray}`` of ``model``'s parameters, the inverse of
+    """``{name: np.ndarray}`` of ``model``'s parameters and persistent
+    buffers (the JAX ``state_dict``'s names), the inverse of
     :func:`load_jax_state`.  bf16 and fp8 leaves come back as
     ``ml_dtypes.bfloat16``/``ml_dtypes.float8_e4m3fn`` views of the same
     bits (numpy's own types for them, which JAX uses)."""
     out = {}
-    for name, p in model.named_parameters():
-        a = to_stored(p).copy()      # never a view of the parameter
+    named = dict(model.named_parameters())
+    named.update(_persistent_buffers(model))
+    for name, p in named.items():
+        a = to_stored(p).copy()      # never a view of the tensor
         kind = dtype_name(p.dtype)
         if kind in _BIT_VIEWS:
             import ml_dtypes

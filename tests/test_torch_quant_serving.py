@@ -210,10 +210,17 @@ def test_apply_weight_only_names_installs_shells():
 
 
 def test_qat_export_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        twq.convert_to_weight_only(torch.nn.Linear(2, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        twq.WeightOnlyLinear.from_qat(None)
+    """The QAT export is ported now (its cases against the JAX package
+    are in ``tests/test_torch_qat.py``): a tree without a QAT layer
+    converts nothing, and a ``QuantizedLinear`` becomes a
+    ``WeightOnlyLinear`` sharing its bias."""
+    assert twq.convert_to_weight_only(torch.nn.Linear(2, 2)) == 0
+    q = twq.QuantizedLinear(Linear(128, 256, device="cpu"))
+    torch.nn.init.normal_(q.weight)
+    q(torch.ones(2, 128))
+    lay = twq.WeightOnlyLinear.from_qat(q)
+    assert type(lay) is twq.WeightOnlyLinear and lay.bias is q.bias
+    assert lay.weight.dtype == torch.int8
 
 
 def test_weight_scale_must_be_per_output_channel():
