@@ -485,6 +485,25 @@ deploy (the deployment surface over the engine, GPT-2-small bf16 with
                ``pht_engine_generate`` on the int8 artifact against the
                Python engine (margin gate), the error paths' strings.
 
+dygraph (the Paddle dygraph surface, GPT-2-small bf16 on ``Layer`` with
+               N(0, 0.02) weights from a numpy seed, b=8, s=1024): 7
+               Adam steps (2 warm-up, 5 timed) through ``paddle.to_tensor``
+               / ``model(ids)`` / ``F.cross_entropy`` / ``backward`` /
+               ``opt.step`` / ``opt.clear_grad`` with
+               ``ClipGradByGlobalNorm(1.0)``, beside the same 7 steps
+               from the same weights and batches through
+               ``make_sharded_train_step``: both loss series (the idiom's
+               bf16 loss, and the step's f32 loss formula on the idiom's
+               logits), bit for bit or the first differing step, its
+               relative gap (at most ``DYGRAPH_REL_GAP``) and the op that
+               reorders; ms/step, device busy time, idle share and peak
+               memory of both; K1's launches by kernel (12 fwd, 12 dkdv,
+               12 dq a step), 0 plain calls; ``paddle.to_tensor`` with no
+               place landing on ``cuda:0``; every ``OP_TABLE`` op on a
+               CUDA ``Tensor`` against the same op on a CPU ``Tensor``
+               (``tests/test_torch_op_cases.py``: f32 rtol 1e-5, linalg
+               by invariants, random ops by shape, dtype and range).
+
 Then the kernel table line, the ``nvidia-smi`` line, and last the result
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero before the result line; without a CUDA device it exits 2.
@@ -520,7 +539,9 @@ call reports.
 ``python3 chip_smoke.py --spec`` builds K3's and K4's libraries and runs
 only the spec phase (its int8 artifact saved and loaded in the phase);
 ``--stages`` likewise runs only the stages phase; ``--deploy`` builds
-K1's (D = 64), K3's and K4's libraries and runs only the deploy phase.
+K1's (D = 64), K3's and K4's libraries and runs only the deploy phase;
+``--dygraph`` builds K1's library (D = 64) and runs only the dygraph
+phase.
 
 ``python3 chip_smoke.py --k4-ab N [--root DIR]`` likewise times K4, one
 GPT-2-small layer's four int8 projections at M = 8 and 256, f32 and bf16
@@ -4389,8 +4410,8 @@ def serve_run(torch, eng, prompts, new):
 
 
 def ab_medians(path):
-    """The ``--ab-medians FILE`` mode: the medians of the device times in
-    the ``--*-ab`` lines of FILE (each line's flat ``ms`` and, where it has
+    """The ``--ab-medians FILE`` mode: the medians of the times in the
+    ``--*-ab`` lines of FILE (each line's flat ``ms`` and, where it has
     them, ``sdpa_ms``), per tree (the line's ``pkg``) and shape, and over
     all trees for SDPA, beside the bounds the lines give: one JSON line."""
     import statistics
@@ -4423,7 +4444,10 @@ def median_run(runs):
 def serving_ab(torch, runs):
     """The ``--serving-ab`` mode: the paged bf16 run of ``phase_serving``
     and the int8 run of ``phase_serving_int8``, ``runs`` times each, from
-    the package on ``sys.path``; one JSON line a run."""
+    the package on ``sys.path``; one JSON line a run, and one a round with
+    the tree (``pkg``), both runs' wall ms and the host ms of one width-1
+    ``gpt`` forward at 16 rows (``--ab-medians`` reads these); then one
+    profiled paged run: busy and idle time and the host ops by count."""
     import shutil
     import tempfile
 
@@ -4456,11 +4480,99 @@ def serving_ab(torch, runs):
     for e in engines.values():                           # warm-up
         e.generate(rng.randint(0, cfg.vocab_size, 64), 2)
         e.drop_prefix_cache()
+    import paddle_hackathon_tpu_torch as pkg
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (16, 1))).to(DEV)
     for i in range(runs):
+        ms = {"gpt_forward_b16_s1": forward_host_ms(torch, bf16.gpt, ids)}
         for kind, e in engines.items():
             r = serve_run(torch, e, prompts[kind], 128)
             e.drop_prefix_cache()
+            ms[f"{kind}_run"] = r["wall_s"] * 1e3
             emit({"phase": "serving_ab", "engine": kind, "run": i, **r})
+        emit({"phase": "serving_ab", "pkg": pkg.__file__, "run": i,
+              "ms": ms})
+    # one profiled paged run: where the tree's host time goes
+    e = engines["paged"]
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        r = serve_run(torch, e, prompts["paged"], 128)
+    e.drop_prefix_cache()
+    counts = sorted(((ev.key, ev.count) for ev in prof.key_averages()
+                     if str(getattr(ev, "device_type", "")).endswith("CPU")),
+                    key=lambda kv: -kv[1])
+    emit({"phase": "serving_ab_profile", "pkg": pkg.__file__,
+          **profile_summary(torch, prof, r["wall_s"]),
+          "host_op_counts": dict(counts[:60])})
+
+
+def layer_ab(torch, runs):
+    """The ``--layer-ab`` mode: the host ms of one width-1 ``gpt`` forward
+    at 16 rows (GPT-2-small bf16) with each cost the dygraph surface puts
+    on a torch caller switched off in turn, interleaved in one process so
+    that the machine's drift falls on every variant alike:
+    ``module_call`` runs torch's own ``nn.Module.__call__`` in place of
+    ``Layer.__call__``, ``plain_params`` makes the parameters plain
+    ``nn.Parameter``s, ``unwrapped_f`` calls ``gelu`` and
+    ``scaled_dot_product_attention`` without their ``takes_tensors``
+    wrappers, ``all_off`` does all three; one JSON line a round."""
+    from torch import nn
+
+    import paddle_hackathon_tpu_torch as pkg
+    from paddle_hackathon_tpu_torch.models import GPTForCausalLM, gpt_config
+    from paddle_hackathon_tpu_torch.models import gpt as gpt_mod
+    from paddle_hackathon_tpu_torch.nn.layer import Layer
+    from paddle_hackathon_tpu_torch.nn.parameter import Parameter
+    from paddle_hackathon_tpu_torch.utils import load_jax_state
+
+    cfg = gpt_config("gpt2-small-en", hidden_dropout_prob=0.0,
+                     attention_dropout_prob=0.0)
+    model = GPTForCausalLM(cfg, device=DEV, dtype="bfloat16")
+    load_jax_state(model, random_weights(model, seed=0))
+    rng = np.random.RandomState(0)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (16, 1))).to(DEV)
+    params = list(model.parameters())
+    own_call = Layer.__dict__["__call__"]
+    wrapped = {n: getattr(gpt_mod, n)
+               for n in ("gelu", "scaled_dot_product_attention")}
+
+    def variant(name):
+        off = lambda what: name in (what, "all_off")  # noqa: E731
+        Layer.__call__ = nn.Module.__call__ if off("module_call") \
+            else own_call
+        for q in params:
+            q.__class__ = nn.Parameter if off("plain_params") else Parameter
+        for n, f in wrapped.items():
+            setattr(gpt_mod, n, f.__wrapped__ if off("unwrapped_f") else f)
+
+    names = ["as_built", "module_call", "plain_params", "unwrapped_f",
+             "all_off"]
+    try:
+        for i in range(runs):
+            ms = {}
+            for n in names[i % 5:] + names[:i % 5]:
+                variant(n)
+                ms[n] = forward_host_ms(torch, model.gpt, ids)
+            emit({"phase": "layer_ab", "pkg": pkg.__file__, "run": i,
+                  "ms": ms})
+    finally:
+        variant("as_built")
+
+
+def forward_host_ms(torch, module, ids, reps=50):
+    """Wall ms of one ``module(ids)`` call (inference mode, after 5
+    warm-up calls), the mean of ``reps`` synchronised back to back: at a
+    decode step's width a host-bound reading, so it moves with the
+    Python work on each layer's call."""
+    with torch.inference_mode():
+        for _ in range(5):
+            module(ids)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            module(ids)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
 
 
 # K2's f32 dK/dV and dQ shapes of the --bwd-ab mode: the train_f32 step's
@@ -6465,6 +6577,239 @@ def phase_deploy(torch, fap, pa, qm):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The Paddle dygraph surface: GPT-2-small trained through Tensor / tape /
+# Layer, beside the sharded step; the op table on the card
+# ---------------------------------------------------------------------------
+
+DYGRAPH_SHAPE = dict(b=8, s=1024)
+DYGRAPH_STEPS = 7                 # 2 warm-up + 5 timed
+DYGRAPH_WARMUP = 2
+# the largest relative gap allowed between the two paths' f32 loss at any
+# step when they are not equal bit for bit
+DYGRAPH_REL_GAP = 2e-3
+DYGRAPH_PLACE = "cuda:0"          # where to_tensor with no place must land
+
+
+def dygraph_batches(vocab):
+    rng = np.random.RandomState(2)
+    b, s = DYGRAPH_SHAPE["b"], DYGRAPH_SHAPE["s"]
+    return [(rng.randint(0, vocab, (b, s)).astype(np.int32),
+             rng.randint(0, vocab, (b, s)).astype(np.int32))
+            for _ in range(DYGRAPH_STEPS)]
+
+
+def dygraph_series(torch, run_step):
+    """Run ``run_step(i)`` for the phase's steps with CUDA events around
+    each; returns (records, ms per timed step on the device timeline, the
+    timed wall seconds, the timed steps' peak memory)."""
+    recs, events, t0 = [], [], None
+    for i in range(DYGRAPH_STEPS):
+        if i == DYGRAPH_WARMUP:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        recs.append(run_step(i, e1))
+        events.append((e0, e1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ms = [a.elapsed_time(b) for a, b in events[DYGRAPH_WARMUP:]]
+    return recs, float(np.mean(ms)), wall, torch.cuda.max_memory_allocated()
+
+
+def dygraph_op_sweep(torch, paddle):
+    """Every ``OP_TABLE`` op on CUDA ``Tensor``s against the same op on
+    CPU ``Tensor``s from the same numpy inputs (the cases of
+    ``tests/test_torch_op_cases.py``)."""
+    import os
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    import test_torch_op_cases as oc
+    cpu = oc.Side(paddle, paddle.ops.OP_TABLE, "cpu")
+    gpu = oc.Side(paddle, paddle.ops.OP_TABLE, "gpu")
+    passed, failed = 0, []
+    t0 = time.perf_counter()
+    for name in sorted(paddle.ops.OP_TABLE):
+        try:
+            oc.run_case(name, oc.ALL[name], cpu, gpu)
+            if name in oc.EXTRA:
+                oc.run_case(name, oc.EXTRA[name], cpu, gpu)
+            passed += 1
+        except Exception as e:  # noqa: BLE001 -- every failure is listed
+            failed.append({"op": name, "error": repr(e)[:300]})
+    paddle.set_device("gpu")
+    return {"ops": len(paddle.ops.OP_TABLE), "passed": passed,
+            "failed": failed, "seconds": time.perf_counter() - t0,
+            "rtol": oc.RTOL, "atol": oc.ATOL}
+
+
+def phase_dygraph(torch, fap):
+    """GPT-2-small (bf16 parameters, b=8, s=1024) trained 7 Adam steps
+    through the Paddle idiom and through ``make_sharded_train_step`` from
+    the same weights and batches; then the op sweep.  Returns K1's
+    launches by kernel over the idiom's steps."""
+    import paddle_hackathon_tpu_torch as paddle
+    from paddle_hackathon_tpu_torch.core import device as pdevice
+    from paddle_hackathon_tpu_torch.models import GPTForCausalLM, gpt_config
+    from paddle_hackathon_tpu_torch.nn import functional as F
+    from paddle_hackathon_tpu_torch.nn.functional import \
+        fused_softmax_ce_rows
+    from paddle_hackathon_tpu_torch.parallel import make_sharded_train_step
+    from torch.profiler import ProfilerActivity, profile
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    # the default place is the card
+    pdevice._current = None
+    probe = paddle.to_tensor(np.arange(3, dtype=np.float32))
+    placed = str(probe._value.device)
+    if placed != DYGRAPH_PLACE or paddle.get_device() != "gpu:0":
+        raise AssertionError(f"to_tensor with no place landed on {placed}")
+    paddle.set_device("gpu")
+    cfg = gpt_config("gpt2-small-en", hidden_dropout_prob=0.0,
+                     attention_dropout_prob=0.0)
+    arrays = random_weights(GPTForCausalLM(cfg, device="cpu"), seed=0)
+    batches = dygraph_batches(cfg.vocab_size)
+    L = cfg.num_layers
+
+    # (a) the Paddle idiom
+    model = bf16_model(torch, cfg, arrays)
+    opt = paddle.optimizer.Adam(learning_rate=1e-4, beta2=0.95,
+                                parameters=model.parameters(),
+                                grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+    grads0 = {}
+
+    def idiom_step(i, done):
+        ids_np, lab_np = batches[i]
+        ids = paddle.to_tensor(ids_np)
+        logits = model(ids)
+        loss = F.cross_entropy(logits, paddle.to_tensor(lab_np))
+        loss.backward()
+        if i == 0:
+            grads0.update({n: p.grad.cpu()
+                           for n, p in model.named_parameters()})
+        opt.step()
+        opt.clear_grad()
+        done.record()
+        with torch.no_grad():   # the sharded step's loss formula, f32
+            l32 = fused_softmax_ce_rows(
+                logits._value, torch.from_numpy(lab_np).to(DEV)).mean()
+        return loss, l32
+
+    plain = {"flash_packed_fwd_ref": 0, "flash_packed_bwd_ref": 0}
+    real = counting(fap, plain, plain)
+    try:
+        for k in fap.launches:
+            fap.launches[k] = 0
+        recs, idiom_ms, idiom_wall, idiom_peak = dygraph_series(
+            torch, idiom_step)
+        launches = dict(fap.launches)
+    finally:
+        restore(fap, real)
+    idiom_bf16 = [float(l_) for l_, _ in recs]
+    idiom_f32 = [l32 for _, l32 in recs]
+    gnorm0 = float(sum(g.float().square().sum() for g in grads0.values())
+                   .sqrt())
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        idiom_step(1, torch.cuda.Event())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    idiom_prof = profile_summary(torch, prof, wall)
+    del model, opt, recs, prof
+    torch.cuda.empty_cache()
+
+    # (b) the sharded step, same weights and batches
+    model = bf16_model(torch, cfg, arrays)
+    step, state = make_sharded_train_step(model, learning_rate=1e-4,
+                                          grad_clip_norm=1.0)
+    ids0 = torch.from_numpy(batches[0][0]).to(DEV).long()
+    lab0 = torch.from_numpy(batches[0][1]).to(DEV).long()
+    fused_softmax_ce_rows(model(ids0), lab0).mean().backward()
+    grads_equal = all(not bits_differ(torch, p.grad.cpu(), grads0[n])
+                      for n, p in model.named_parameters())
+    model.zero_grad(set_to_none=True)
+    del grads0
+
+    def sharded_step(i, done):
+        nonlocal state
+        state, loss = step(state, *batches[i])
+        done.record()
+        return loss
+
+    sharded, sharded_ms, sharded_wall, sharded_peak = dygraph_series(
+        torch, sharded_step)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, *batches[0])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    sharded_prof = profile_summary(torch, prof, wall)
+    del model, step, state, prof
+    torch.cuda.empty_cache()
+
+    # the two series
+    first = next((i for i, (a, b) in enumerate(zip(idiom_f32, sharded))
+                  if bits_differ(torch, a, b)), None)
+    idiom_f32 = [float(x) for x in idiom_f32]
+    sharded = [float(x) for x in sharded]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(idiom_f32, sharded)]
+    cause = None
+    if first == 0:
+        cause = "the forward: the first step's losses differ"
+    elif first is not None and not grads_equal:
+        cause = "the backward: the first step's gradients differ in bits"
+    elif first is not None and gnorm0 > 1.0:
+        cause = ("the clip (global norm %.4g > 1.0 at step 0): "
+                 "ClipGradByGlobalNorm sums the squared norms in "
+                 "parameters() order and scales each bf16 gradient in f32 "
+                 "before rounding it; the sharded step sums in sorted-name "
+                 "order and multiplies the bf16 gradients by the scale "
+                 "rounded to bf16" % gnorm0)
+    elif first is not None:
+        cause = "unexplained: the gradients agree and the clip is idle"
+
+    sweep = dygraph_op_sweep(torch, paddle)
+    need = DYGRAPH_STEPS * L
+    out = {"phase": "dygraph", "nvidia_smi": smi, "model": "gpt2-small-en "
+           "bf16", "batch": DYGRAPH_SHAPE["b"], "seq": DYGRAPH_SHAPE["s"],
+           "steps": DYGRAPH_STEPS, "warmup": DYGRAPH_WARMUP,
+           "to_tensor_default_place": placed,
+           "idiom": {"loss_bf16": idiom_bf16, "loss_f32": idiom_f32,
+                     "ms_per_step": idiom_ms, "timed_wall_s": idiom_wall,
+                     "peak_memory_gb": idiom_peak / 1e9,
+                     "profile": idiom_prof},
+           "sharded": {"loss_f32": sharded, "ms_per_step": sharded_ms,
+                       "timed_wall_s": sharded_wall,
+                       "peak_memory_gb": sharded_peak / 1e9,
+                       "profile": sharded_prof},
+           "bit_equal": first is None, "first_differing_step": first,
+           "rel_gaps": gaps, "rel_gap_limit": DYGRAPH_REL_GAP,
+           "first_step_grads_bit_equal": grads_equal,
+           "first_step_grad_norm": gnorm0, "reorders": cause,
+           "k1_launches": launches, "k1_launches_expected_each": need,
+           "plain_k1_calls": plain, "op_sweep": sweep,
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    if any(n != need for n in launches.values()) or any(plain.values()):
+        raise AssertionError(f"dygraph: K1 launches {launches} != {need} "
+                             f"each, or plain calls {plain}")
+    if not all(np.isfinite(idiom_f32 + sharded)):
+        raise AssertionError("dygraph: non-finite loss")
+    if max(gaps) > DYGRAPH_REL_GAP:
+        raise AssertionError(f"dygraph: loss series differ by {max(gaps)} "
+                             f"> {DYGRAPH_REL_GAP} ({cause})")
+    if sweep["failed"]:
+        raise AssertionError(f"dygraph: ops failed on the card: "
+                             f"{[f['op'] for f in sweep['failed']]}")
+    pdevice._current = None
+    return launches
+
+
 # csrc/flash_tc.cuh's kernels: K1's instances (PACKED, Lb1E) and K2's
 # bf16/f16 instances up to 256 (Lb0E)
 TC_KERNEL = re.compile(r"flash_tc_(fwd|dkdv|dq)I(13__nv_bfloat16|6__half)"
@@ -6752,7 +7097,8 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    for flag, mode in (("--serving-ab", serving_ab), ("--bwd-ab", bwd_ab),
+    for flag, mode in (("--serving-ab", serving_ab), ("--layer-ab", layer_ab),
+                       ("--bwd-ab", bwd_ab),
                        ("--tc16-ab", tc16_ab), ("--k3-ab", k3_ab),
                        ("--k4-ab", k4_ab)):
         if flag in sys.argv:
@@ -6792,6 +7138,15 @@ def main():
         _build.build_all(["paged_attention", "quant_matmul"])
         emit({"phase": "build", "seconds": time.perf_counter() - t0})
         phase_stages(torch, pa, qm)
+        return 0
+    if "--dygraph" in sys.argv:
+        # the dygraph phase alone: K1's library (D = 64)
+        emit({"phase": "device", "nvidia_smi": nvidia_smi(),
+              "name": torch.cuda.get_device_name(0)})
+        t0 = time.perf_counter()
+        _build.build_all(["flash_attention_packed_w64"])
+        emit({"phase": "build", "seconds": time.perf_counter() - t0})
+        phase_dygraph(torch, fap)
         return 0
     if "--deploy" in sys.argv:
         # the deploy phase alone: K1's (D = 64), K3's and K4's libraries
@@ -6834,6 +7189,7 @@ def main():
     flash = phase_flash(torch, fap, fa)
     flash_launches = phase_train(torch, fap)
     phase_train_optim(torch, fap)
+    dygraph = phase_dygraph(torch, fap)
     bhd, tc16 = phase_flash_bhd(torch, fa, fap,
                                 phase_flash_bhd_checks(torch, fa))
     bhd_launches = phase_train_f32(torch, fa, fap)
@@ -7202,6 +7558,21 @@ def main():
                         "its runs (counted per replica); times: the "
                         + ("paged_attention_tc" if key == "tiles_tc"
                            else "paged_decode_split") + " row's"})
+    # the dygraph surface's path (phase dygraph): K1 through GPT-2-small's
+    # Paddle-idiom steps; times are the flash_packed rows'
+    for k, line in (("fwd", 247), ("dkdv", 478), ("dq", 511)):
+        row = flash[k]
+        kernels.append({
+            "name": f"flash_packed_{k}_dygraph", "route": "cuda",
+            "source": src + "flash_attention_packed.cu",
+            "replaces": ref + f"flash_attention_packed.py:{line}",
+            "launches": dygraph[k],
+            **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms")},
+            "timed_as": "launches: the dygraph phase's 7 Paddle-idiom "
+                        "steps of GPT-2-small at b=8, s=1024; times: the "
+                        f"flash_packed_{k} row's"})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

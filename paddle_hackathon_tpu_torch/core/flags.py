@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import os
 import threading
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Iterable, Mapping, Union
 
 _lock = threading.RLock()
 _registry: Dict[str, Any] = {}
@@ -51,6 +51,25 @@ def set_flags(flags: Mapping[str, Any]) -> None:
             _registry[name] = _coerce(value, _defs[name]["default"])
 
 
+def get_flags(flags: Union[str, Iterable[str], None] = None
+              ) -> Dict[str, Any]:
+    """``paddle.get_flags``: every flag, or the named ones (keyed as
+    asked, a ``FLAGS_`` prefix optional); an unknown name raises
+    ``ValueError``."""
+    with _lock:
+        if flags is None:
+            return dict(_registry)
+        if isinstance(flags, str):
+            flags = [flags]
+        out = {}
+        for name in flags:
+            key = name[len("FLAGS_"):] if name.startswith("FLAGS_") else name
+            if key not in _registry:
+                raise ValueError(f"unknown flag: {name}")
+            out[name] = _registry[key]
+        return out
+
+
 def flag(name: str) -> Any:
     """Fast internal read of a single flag value."""
     return _registry[name]
@@ -63,3 +82,8 @@ define_flag("flash_attention_min_seqlen", 1024,
 define_flag("use_fused_kernels", True,
             "Use the fused kernels (flash attention) when available; "
             "falls back to the plain compositions.")
+define_flag("check_nan_inf", False,
+            "Check the outputs of every dygraph op for NaN/Inf and raise "
+            "FloatingPointError naming the op.")
+define_flag("default_dtype", "float32",
+            "Default floating dtype for new tensors.")

@@ -52,3 +52,21 @@ def rng_scope(gen: torch.Generator):
         yield gen
     finally:
         _scoped.pop()
+
+
+def get_rng_state():
+    """The generator state: the seed and every default generator made
+    since it (``set_rng_state`` takes it back)."""
+    return {"seed": _seed,
+            "states": {key: gen.get_state()
+                       for key, gen in _generators.items()}}
+
+
+def set_rng_state(state) -> None:
+    """Restore a :func:`get_rng_state` snapshot."""
+    global _seed
+    _seed = int(state["seed"])
+    _generators.clear()
+    for (dtype, index), st in state["states"].items():
+        gen = default_generator(torch.device(dtype, index))
+        gen.set_state(st)

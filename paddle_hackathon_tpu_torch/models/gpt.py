@@ -40,7 +40,6 @@ from typing import List, Optional
 
 import numpy as np
 import torch
-from torch import nn
 
 from ..core import flags
 from ..core.device import resolve_device
@@ -52,7 +51,11 @@ from ..incubate.nn.kernels import paged_attention as _pa
 from ..nn.functional import (cross_entropy, gelu,
                              scaled_dot_product_attention)
 from ..nn.decode import accept_lengths, get_drafter
+from ..nn.container import LayerList
+from ..nn.layer import Layer
+from ..nn import initializer as I
 from ..nn.layers import Dropout, Embedding, LayerNorm, Linear
+from ..nn.parameter import ParamAttr
 from ..observability.sanitizers import device_get
 
 _NEG_INF = -1e30
@@ -114,14 +117,22 @@ def _positions(pos: torch.Tensor, s: int, max_pos: int) -> torch.Tensor:
     return idx.clamp(0, max_pos - 1)
 
 
-class GPTAttention(nn.Module):
+def _normal_attr(config: GPTConfig) -> ParamAttr:
+    """The JAX model's weight attribute: ``Normal(0, initializer_range)``
+    drawn from the device's default generator as the layer is built."""
+    return ParamAttr(initializer=I.Normal(0.0, config.initializer_range))
+
+
+class GPTAttention(Layer):
     def __init__(self, config: GPTConfig, device=None, dtype=None):
         super().__init__()
         h = config.hidden_size
         self.num_heads = config.num_heads
         self.head_dim = h // config.num_heads
-        self.qkv_proj = Linear(h, 3 * h, device=device, dtype=dtype)
-        self.out_proj = Linear(h, h, device=device, dtype=dtype)
+        kw = {"weight_attr": _normal_attr(config), "device": device,
+              "dtype": dtype}
+        self.qkv_proj = Linear(h, 3 * h, **kw)
+        self.out_proj = Linear(h, h, **kw)
         self.dropout_p = config.attention_dropout_prob
         self.use_flash = config.use_flash_attention
 
@@ -225,19 +236,19 @@ class GPTAttention(nn.Module):
         return self.out_proj(out.reshape(b, s, h))
 
 
-class GPTMLP(nn.Module):
+class GPTMLP(Layer):
     def __init__(self, config: GPTConfig, device=None, dtype=None):
         super().__init__()
-        self.fc_in = Linear(config.hidden_size, config.ffn_size,
-                            device=device, dtype=dtype)
-        self.fc_out = Linear(config.ffn_size, config.hidden_size,
-                             device=device, dtype=dtype)
+        kw = {"weight_attr": _normal_attr(config), "device": device,
+              "dtype": dtype}
+        self.fc_in = Linear(config.hidden_size, config.ffn_size, **kw)
+        self.fc_out = Linear(config.ffn_size, config.hidden_size, **kw)
 
     def forward(self, x):
         return self.fc_out(gelu(self.fc_in(x), approximate=True))
 
 
-class GPTBlock(nn.Module):
+class GPTBlock(Layer):
     """Pre-LN transformer block."""
 
     def __init__(self, config: GPTConfig, device=None, dtype=None):
@@ -258,17 +269,19 @@ class GPTBlock(nn.Module):
         return x if cache is None else (x, cache)
 
 
-class GPTModel(nn.Module):
+class GPTModel(Layer):
     def __init__(self, config: GPTConfig, device=None, dtype=None):
         super().__init__()
         self.config = config
         kw = {"device": device, "dtype": dtype}
-        self.wte = Embedding(config.vocab_size, config.hidden_size, **kw)
+        self.wte = Embedding(config.vocab_size, config.hidden_size,
+                             weight_attr=_normal_attr(config), **kw)
         self.wpe = Embedding(config.max_position_embeddings,
-                             config.hidden_size, **kw)
+                             config.hidden_size,
+                             weight_attr=_normal_attr(config), **kw)
         self.drop = Dropout(config.hidden_dropout_prob)
-        self.blocks = nn.ModuleList([GPTBlock(config, **kw)
-                                     for _ in range(config.num_layers)])
+        self.blocks = LayerList([GPTBlock(config, **kw)
+                                 for _ in range(config.num_layers)])
         self.ln_f = LayerNorm(config.hidden_size, **kw)
 
     def forward(self, input_ids, position_ids=None, caches=None,
@@ -308,7 +321,7 @@ class GPTModel(nn.Module):
                 for _ in range(cfg.num_layers)]
 
 
-class GPTForCausalLM(nn.Module):
+class GPTForCausalLM(Layer):
     """LM head ties the embedding matrix.  ``device=None`` means the CUDA
     card (a ``RuntimeError`` when there is none); pass ``device="cpu"`` for
     the plain path.  Weights start Normal(0, ``initializer_range``) from
@@ -325,14 +338,6 @@ class GPTForCausalLM(nn.Module):
         self.gpt = GPTModel(config, device=dev,
                             dtype=None if dtype is None
                             else convert_dtype(dtype))
-        self._init_weights(default_generator(dev))
-
-    @torch.no_grad()
-    def _init_weights(self, gen):
-        std = self.config.initializer_range
-        for mod in self.modules():
-            if isinstance(mod, (Linear, Embedding)):
-                mod.weight.normal_(0.0, std, generator=gen)
 
     @property
     def device(self) -> torch.device:

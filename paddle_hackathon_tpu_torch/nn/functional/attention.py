@@ -15,11 +15,13 @@ import torch
 
 from ...core import flags
 from ...core.random import default_generator
+from ...core.tensor import takes_tensors
 from ...incubate.nn.functional import flash_attention_bshd
 
 _NEG_INF = -1e30
 
 
+@takes_tensors
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, use_flash=None, name=None):
@@ -67,6 +69,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     return torch.einsum("bhst,bhtd->bhsd", probs, v).transpose(1, 2)
 
 
+@takes_tensors
 def sequence_mask(lengths, maxlen=None, dtype="int64"):
     """``(n, maxlen)`` mask, 1 where the position is below the row's
     length; ``maxlen`` defaults to the longest length."""

@@ -2,9 +2,12 @@
 
 ``Linear`` keeps Paddle's weight layout ``(in_features, out_features)``,
 so ``y = x @ W + b`` and a JAX state dict copies in without transposes.
-Parameters are created empty on the caller's device; the owning model
-initialises them (``models/gpt.py``) or loads them
-(``utils/convert.py``).
+The layers are ``Layer``s (``nn/layer.py``) holding ``Parameter``s
+(``nn/parameter.py``) made as Paddle makes them: on the current place
+(``core/device.parameter_device``; keyword ``device`` overrides it),
+initialised by the ``ParamAttr``'s initializer, else ``Linear``'s
+``XavierUniform`` weight and zero bias and ``Embedding``'s
+``Normal(0, 1)``.  ``bias_attr=False`` drops the bias.
 """
 
 from __future__ import annotations
@@ -12,22 +15,30 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ...core.device import parameter_device
 from ...core.random import default_generator
+from .. import initializer as I
+from ..layer import Layer
 
 
-class Linear(nn.Module):
+class Linear(Layer):
     """``y = x @ W + b`` with ``W`` of shape ``(in_features, out_features)``."""
 
     def __init__(self, in_features: int, out_features: int,
-                 bias: bool = True, device=None, dtype=None):
+                 weight_attr=None, bias_attr=None, name=None, *,
+                 device=None, dtype=None):
         super().__init__()
         self.in_features = in_features
         self.out_features = out_features
-        kw = {"device": device, "dtype": dtype}
-        self.weight = nn.Parameter(torch.empty(in_features, out_features,
-                                               **kw))
-        self.bias = (nn.Parameter(torch.zeros(out_features, **kw))
-                     if bias else None)
+        dev = parameter_device(device)
+        self.weight = self.create_parameter(
+            (in_features, out_features), attr=weight_attr, dtype=dtype,
+            device=dev)
+        self.bias = None
+        if bias_attr is not False:
+            self.bias = self.create_parameter(
+                (out_features,), attr=bias_attr, dtype=dtype, is_bias=True,
+                device=dev)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = x @ self.weight
@@ -38,23 +49,34 @@ class Linear(nn.Module):
                f"out_features={self.out_features}"
 
 
-class Embedding(nn.Module):
+class Embedding(Layer):
+    """A row lookup; rows looked up at ``padding_idx`` come out zero, as in
+    the JAX package.  ``sparse`` is accepted and has no effect there
+    either."""
+
     def __init__(self, num_embeddings: int, embedding_dim: int,
-                 device=None, dtype=None):
+                 padding_idx=None, sparse: bool = False, weight_attr=None,
+                 name=None, *, device=None, dtype=None):
         super().__init__()
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
-        self.weight = nn.Parameter(torch.empty(num_embeddings, embedding_dim,
-                                               device=device, dtype=dtype))
+        self.padding_idx = padding_idx
+        self.weight = self.create_parameter(
+            (num_embeddings, embedding_dim), attr=weight_attr, dtype=dtype,
+            default_initializer=I.Normal(0.0, 1.0),
+            device=parameter_device(device))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return nn.functional.embedding(ids, self.weight)
+        out = nn.functional.embedding(ids, self.weight)
+        if self.padding_idx is not None:
+            out = out.masked_fill((ids == self.padding_idx)[..., None], 0.0)
+        return out
 
     def extra_repr(self) -> str:
         return f"{self.num_embeddings}, {self.embedding_dim}"
 
 
-class Dropout(nn.Module):
+class Dropout(Layer):
     """Upscale-in-train dropout; the identity at eval or ``p == 0``.  The
     mask is drawn from the device's default generator
     (``core/random.py``)."""

@@ -3,7 +3,8 @@
 The update is a pure function over lists of tensors,
 :meth:`Optimizer.functional_update`: the gradient preamble (f32 cast of
 f32 parameters' gradients, coupled weight decay, then the clip), then the
-rule.  The eager ``step()`` runs it over every trainable parameter with a
+rule, at the learning rate times each parameter's own scale
+(``optimize_attr["learning_rate"]``, set by ``ParamAttr``).  The eager ``step()`` runs it over every trainable parameter with a
 gradient and writes the new values back in place under
 ``torch.no_grad()`` (the JAX package runs the same update as one jitted
 program with donated buffers).  The learning rate is a float or an
@@ -56,6 +57,14 @@ def f32_product(*xs) -> float:
     for x in xs[1:]:
         out = out * np.float32(x)
     return float(out)
+
+
+def param_lrs_of(params):
+    """Each parameter's learning-rate scale: ``optimize_attr
+    ["learning_rate"]`` where it carries one (a ``Parameter``), else
+    1.0."""
+    return tuple(float(getattr(p, "optimize_attr", {}).get(
+        "learning_rate", 1.0)) for p in params)
 
 
 def _split_names(parameters):
@@ -124,7 +133,7 @@ class Optimizer:
         states = [self._get_accumulators(p) for p in params]
         new_vals, new_states = self._update_all(
             params, [p.grad for p in params], states, self.get_lr(),
-            self._step_count + 1, (1.0,) * len(params), params)
+            self._step_count + 1, param_lrs_of(params), params)
         torch._foreach_copy_(params, new_vals)
         for p, s in zip(params, new_states):
             self._accumulators[id(p)] = s
@@ -158,14 +167,16 @@ class Optimizer:
         accumulator dicts, in order.  Returns ``(new_vals, new_states)``;
         nothing is written in place.  ``params`` (the matching parameters)
         lets a per-parameter rule (AdamW's decay mask, Lamb's and Lars's
-        exclusions) find each one; ``param_lrs`` scales the rate per
-        parameter (default 1.0: port parameters carry no per-parameter
-        rate)."""
+        exclusions) find each one, and gives each one's learning-rate
+        scale (``optimize_attr["learning_rate"]``, which
+        ``ParamAttr(learning_rate=)`` sets; 1.0 for a parameter without
+        one) unless ``param_lrs`` gives the scales."""
         if shard_info is not None:
             raise NotImplementedError(
                 f"functional_update with a ZeRO shard_info {_DISTRIBUTED}")
         if param_lrs is None:
-            param_lrs = (1.0,) * len(vals)
+            param_lrs = param_lrs_of(params) if params is not None \
+                else (1.0,) * len(vals)
         return self._update_all(list(vals), list(grads), list(states),
                                 float(lr), int(step_t), tuple(param_lrs),
                                 params)

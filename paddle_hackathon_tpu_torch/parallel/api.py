@@ -208,6 +208,12 @@ def make_sharded_train_step(model, mesh=None,
     {"m", "v" (not for lars)[, "master"]}}, "step": int}``, a view of the
     model and the step's slots after the last step, returned for the JAX
     call shape.
+
+    Every parameter steps at the one learning rate, as in the JAX
+    package's step: a parameter's own ``optimize_attr["learning_rate"]``
+    (``ParamAttr(learning_rate=)``) scales its update through an
+    optimizer (``step()``, ``functional_update`` and so
+    :func:`make_functional_train_step`), not here.
     """
     axes = _mesh_shape(mesh)
     if any(n > 1 for n in axes.values()):

@@ -324,8 +324,18 @@ def test_optimizer_options_match_jax(option):
 
 
 def test_unported_cross_entropy_options_raise():
-    x, y = torch.zeros(2, 3), torch.zeros(2, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cross_entropy(x, y, label_smoothing=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cross_entropy(x, torch.zeros(2, 3), soft_label=True)
+    """The two options this test once held to a ``NotImplementedError``
+    (label smoothing, soft labels) are ported: on the same inputs they
+    give the JAX package's value, f32 rtol 1e-6 (``test_torch_layer.py``
+    holds every option, with gradients)."""
+    x = np.array([[0.5, -1.0, 2.0], [0.1, 0.2, -0.3]], np.float32)
+    y = np.array([2, 0], np.int32)
+    soft = np.array([[0.2, 0.3, 0.5], [0.6, 0.1, 0.3]], np.float32)
+    for label, kw in ((y, {"label_smoothing": 0.1}),
+                      (soft, {"soft_label": True})):
+        got = cross_entropy(torch.from_numpy(x), torch.from_numpy(label),
+                            **kw)
+        want = jloss.cross_entropy(Tensor(jnp.asarray(x)),
+                                   Tensor(jnp.asarray(label)), **kw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want._value),
+                                   rtol=1e-6)
