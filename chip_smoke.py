@@ -503,6 +503,29 @@ dygraph (the Paddle dygraph surface, GPT-2-small bf16 on ``Layer`` with
                CUDA ``Tensor`` against the same op on a CPU ``Tensor``
                (``tests/test_torch_op_cases.py``: f32 rtol 1e-5, linalg
                by invariants, random ops by shape, dtype and range).
+fit (``Model.fit`` and the input pipeline, GPT-2-small bf16 on the
+               dygraph phase's weights and batches, b=8, s=1024, fed by
+               ``DataLoader(num_workers=2, use_buffer_reader=True)`` over
+               an ``io.Dataset`` of the batches' rows: the native staging
+               ring's iterator must be the one that ran): the eager fit (7
+               steps) against the Paddle idiom run in the same process,
+               losses and final weights bit for bit; the K-step trainer at
+               K = 1 over 7 steps against the eager fit (bit for bit, or
+               within ``DYGRAPH_REL_GAP``) and K = 4 against K = 1 over 8
+               steps (bit for bit); every batch each fit saw checksummed against the
+               rows; the loader alone with each slot's copy delayed on the
+               copy stream, once as built (no batch may differ) and once
+               with a planted release of each slot before its copy's event
+               (some batch must differ); ``start_d2h`` / ``finish_d2h`` on
+               a bf16 and an int32 tensor; K1's launches by kernel (12 a step
+               each), 0 plain calls; evaluate and predict on 2 batches (K1
+               forward only); ``Model.save`` / ``Model.load`` into a model
+               of other weights (equal weights, equal evaluate loss);
+               ``summary``'s total against ``named_parameters``; ms/step
+               from CUDA events (steps 3-7; K = 4: its second superstep)
+               for the idiom, eager, K = 1 and K = 4; ``input_wait_seconds``
+               p50 and max; the ``train_mfu`` / ``train_tokens_per_sec``
+               gauges; peak memory; one profiled eager fit step.
 
 Then the kernel table line, the ``nvidia-smi`` line, and last the result
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -541,7 +564,10 @@ only the spec phase (its int8 artifact saved and loaded in the phase);
 ``--stages`` likewise runs only the stages phase; ``--deploy`` builds
 K1's (D = 64), K3's and K4's libraries and runs only the deploy phase;
 ``--dygraph`` builds K1's library (D = 64) and runs only the dygraph
-phase.
+phase; ``--fit`` likewise runs only the fit phase.  ``--fit-ab N`` runs
+N alternating rounds of the idiom, the eager fit from the ring and from a
+list of placed batches, and K = 1 and K = 4 from the ring (ms/step
+medians and quartiles), then each loader alone.
 
 ``python3 chip_smoke.py --k4-ab N [--root DIR]`` likewise times K4, one
 GPT-2-small layer's four int8 projections at M = 8 and 256, f32 and bf16
@@ -6810,6 +6836,549 @@ def phase_dygraph(torch, fap):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Model.fit and the input pipeline: GPT-2-small trained through hapi.Model
+# fed by the DataLoader's native staging ring, beside the dygraph idiom
+# ---------------------------------------------------------------------------
+
+FIT_STEPS = DYGRAPH_STEPS         # the eager fit and K = 1 against the idiom
+FIT_K_STEPS = 8                   # K = 4 against K = 1 over two supersteps
+FIT_TIMED = (1, DYGRAPH_STEPS - 1)  # events after step 1 .. after step 6:
+#                                   steps 3-7 (1-indexed) between them
+FIT_EVAL_BATCHES = 2
+# the planted fault's copy delay: a sleep kernel on the copy stream before
+# each slot's copy (about 10 ms at the card's clock), so a slot released
+# before its copy's event is overwritten while the copy waits
+FIT_COPY_DELAY_CYCLES = 20_000_000
+FIT_PLACE = "cuda:0"              # where the DataLoader's batches must land
+
+
+def fit_rows(vocab, n):
+    """The phase's ``n`` batches as dataset rows: the dygraph phase's
+    batches (the same numpy stream), one row per sequence."""
+    rng = np.random.RandomState(2)
+    b, s = DYGRAPH_SHAPE["b"], DYGRAPH_SHAPE["s"]
+    pairs = [(rng.randint(0, vocab, (b, s)).astype(np.int32),
+              rng.randint(0, vocab, (b, s)).astype(np.int32))
+             for _ in range(n)]
+    return (np.concatenate([p[0] for p in pairs]),
+            np.concatenate([p[1] for p in pairs]))
+
+
+def fit_checksum_weights(torch, shape, device):
+    n = int(np.prod(shape))
+    return (torch.arange(n, device=device, dtype=torch.int64) % 9973
+            + 1).reshape(shape)
+
+
+class FitRecorder:
+    """A loader wrapper that records, for every batch it hands to
+    ``Model.fit``, a position-weighted checksum of both arrays (on the
+    card, read after the fit) and the type of the iterator that ran."""
+
+    def __init__(self, torch, loader, weights):
+        self.torch, self.loader, self.w = torch, loader, weights
+        self.sums, self.iterators = [], []
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        it = iter(self.loader)
+        self.iterators.append(type(it).__name__)
+        for ids, labels in it:
+            self.sums.append(self.torch.stack([
+                (ids._value.long() * self.w).sum(),
+                (labels._value.long() * self.w).sum()]))
+            yield ids, labels
+
+    def host_sums(self):
+        return [tuple(int(v) for v in s.cpu().tolist()) for s in self.sums]
+
+
+def fit_expected_sums(rows, b):
+    ids, labels = rows
+    w = (np.arange(ids[:b].size, dtype=np.int64) % 9973 + 1).reshape(
+        ids[:b].shape)
+    return [(int((ids[i:i + b].astype(np.int64) * w).sum()),
+             int((labels[i:i + b].astype(np.int64) * w).sum()))
+            for i in range(0, len(ids), b)]
+
+
+class FitSteps:
+    """Callback: each step's loss, and a CUDA event at the end of every
+    step (recorded when the loop hands the step to the callbacks)."""
+
+    def __init__(self, torch, base):
+        self.torch, self.losses, self.events = torch, [], []
+        self.base = base
+
+    def make(self):
+        rec = self
+
+        class _Cb(self.base):
+            def on_train_batch_end(self, step, logs=None):
+                rec.losses.append(logs["loss"])
+                ev = rec.torch.cuda.Event(enable_timing=True)
+                ev.record()
+                rec.events.append(ev)
+        return _Cb()
+
+    def series(self):
+        return [float(v) for v in self.losses]
+
+    def ms_per_step(self, a=FIT_TIMED[0], b=FIT_TIMED[1]):
+        self.torch.cuda.synchronize()
+        return self.events[a].elapsed_time(self.events[b]) / (b - a)
+
+
+def fit_loader_integrity(torch, pdl, make_loader, expected, planted):
+    """Run the buffered loader alone over the rows with every slot's copy
+    delayed on the copy stream; with ``planted`` each slot goes back to the
+    ring as soon as its copy is queued (before the copy's event).  Returns
+    how many batches' checksums differ from the rows'."""
+    real_copy = pdl._BufferedPrefetchIter._copy_to_card
+    real_release = pdl._BufferedPrefetchIter._release_when_copied
+
+    def delayed_copy(self, view):
+        with torch.cuda.stream(self._copy_stream):
+            torch.cuda._sleep(FIT_COPY_DELAY_CYCLES)
+        return real_copy(self, view)
+
+    def early_release(self, ev, slot):
+        self.ring.release(slot)
+
+    pdl._BufferedPrefetchIter._copy_to_card = delayed_copy
+    if planted:
+        pdl._BufferedPrefetchIter._release_when_copied = early_release
+    try:
+        rec = make_loader()
+        for _ in rec:
+            pass
+        got = rec.host_sums()
+    finally:
+        pdl._BufferedPrefetchIter._copy_to_card = real_copy
+        pdl._BufferedPrefetchIter._release_when_copied = real_release
+    bad = sum(1 for a, b in zip(got, expected) if a != b)
+    return {"batches": len(got), "iterator": rec.iterators,
+            "mismatched_batches": bad + abs(len(got) - len(expected))}
+
+
+def phase_fit(torch, fap):
+    """GPT-2-small (bf16, b=8, s=1024) trained through ``Model.fit`` from a
+    ``DataLoader(num_workers=2, use_buffer_reader=True)`` over the dygraph
+    phase's weights and batches: the eager fit against the dygraph idiom
+    (bit for bit), the K-step trainer at K = 1 against the eager fit and
+    K = 4 against K = 1; the loader's checksums with and without a planted
+    early slot release; evaluate, predict, save/load and summary.  Returns
+    K1's launches by kernel over the fits."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import paddle_hackathon_tpu_torch as paddle
+    from paddle_hackathon_tpu_torch.core import device as pdevice
+    from paddle_hackathon_tpu_torch.core import native
+    from paddle_hackathon_tpu_torch.io import dataloader as pdl
+    from paddle_hackathon_tpu_torch.models import GPTForCausalLM, gpt_config
+    from paddle_hackathon_tpu_torch.nn import functional as F
+    from paddle_hackathon_tpu_torch.observability import metrics as obs
+    from torch.profiler import ProfilerActivity, profile
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    if not native.available():
+        raise AssertionError("fit: the native runtime did not build")
+    cfg = gpt_config("gpt2-small-en", hidden_dropout_prob=0.0,
+                     attention_dropout_prob=0.0)
+    arrays = random_weights(GPTForCausalLM(cfg, device="cpu"), seed=0)
+    L, b = cfg.num_layers, DYGRAPH_SHAPE["b"]
+    rows = fit_rows(cfg.vocab_size, FIT_K_STEPS)
+    expected = fit_expected_sums(rows, b)
+
+    class Rows(paddle.io.Dataset):
+        def __len__(self):
+            return len(rows[0])
+
+        def __getitem__(self, i):
+            return rows[0][i], rows[1][i]
+
+    # the default place is the card: the loader's batches land there
+    pdevice._current = None
+    weights = fit_checksum_weights(torch, (b, DYGRAPH_SHAPE["s"]), DEV)
+
+    def make_loader():
+        return FitRecorder(torch, paddle.io.DataLoader(
+            Rows(), batch_size=b, shuffle=False, num_workers=2,
+            use_buffer_reader=True), weights)
+
+    probe = next(iter(paddle.io.DataLoader(Rows(), batch_size=b,
+                                           num_workers=2)))
+    placed = str(probe[0]._value.device)
+    if placed != FIT_PLACE:
+        raise AssertionError(f"fit: the DataLoader's batch landed on "
+                             f"{placed}")
+    del probe
+
+    def optimizer(model):
+        return paddle.optimizer.Adam(
+            learning_rate=1e-4, beta2=0.95, parameters=model.parameters(),
+            grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+
+    # (a) the dygraph idiom, as in the dygraph phase, in this process
+    model = bf16_model(torch, cfg, arrays)
+    opt = optimizer(model)
+    idiom_events, idiom = [], []
+    for i in range(FIT_STEPS):
+        ids = paddle.to_tensor(rows[0][i * b:(i + 1) * b])
+        loss = F.cross_entropy(model(ids), paddle.to_tensor(
+            rows[1][i * b:(i + 1) * b]))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        idiom_events.append(ev)
+        idiom.append(float(loss))
+    torch.cuda.synchronize()
+    idiom_ms = idiom_events[FIT_TIMED[0]].elapsed_time(
+        idiom_events[FIT_TIMED[1]]) / (FIT_TIMED[1] - FIT_TIMED[0])
+    # the weights after the last step, kept on the card to compare bits
+    final = {"idiom": {k: v.detach().clone()
+                       for k, v in model.state_dict().items()}}
+    del model, opt
+    torch.cuda.empty_cache()
+
+    def fit_run(steps, **kw):
+        # one input (the ids): predict's batches carry the labels too
+        model = paddle.Model(bf16_model(torch, cfg, arrays),
+                             inputs=["input_ids"], labels=["labels"])
+        model.prepare(optimizer=optimizer(model.network),
+                      loss=paddle.nn.CrossEntropyLoss())
+        cb = FitSteps(torch, paddle.callbacks.Callback)
+        rec = make_loader()
+        model.fit(rec, epochs=1, num_iters=steps, verbose=0,
+                  callbacks=[cb.make()], **kw)
+        return model, cb, rec
+
+    plain = {"flash_packed_fwd_ref": 0, "flash_packed_bwd_ref": 0}
+    real = counting(fap, plain, plain)
+    runs = {}
+    try:
+        for k in fap.launches:
+            fap.launches[k] = 0
+        for name, steps, kw in (
+                ("eager", FIT_STEPS, dict(jit_compile=False)),
+                ("k1_7", FIT_STEPS, dict(jit_compile=True,
+                                         steps_per_execution=1)),
+                ("k1", FIT_K_STEPS, dict(jit_compile=True,
+                                         steps_per_execution=1)),
+                ("k4", FIT_K_STEPS, dict(jit_compile=True,
+                                         steps_per_execution=4))):
+            before = dict(fap.launches)
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            model, cb, rec = fit_run(steps, **kw)
+            final[name] = {k: v.detach().clone() for k, v in
+                           model.network.state_dict().items()}
+            runs[name] = {
+                "model": model, "losses": cb.series(),
+                "ms": cb.ms_per_step(*((3, 7) if name == "k4"
+                                       else FIT_TIMED)),
+                "compiled": model._fit_used_compiled,
+                "iterators": rec.iterators, "sums": rec.host_sums(),
+                "launches": {k: fap.launches[k] - before[k]
+                             for k in before},
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "held_before_gb": base / 1e9}
+            if name != "eager":
+                del model
+                runs[name].pop("model")
+                torch.cuda.empty_cache()
+        launches = dict(fap.launches)
+    finally:
+        restore(fap, real)
+    reg = obs.get_registry()
+    wait = reg.histogram("input_wait_seconds", "", unit="s").labels(
+        site="device_prefetch")
+    gauges = {name: reg.gauge(name, "").labels(path="hapi_compiled")._value
+              for name in ("train_mfu", "train_tokens_per_sec")}
+    phases = {ph: reg.gauge("train_phase_seconds_per_step", "").labels(
+        path="hapi_compiled", phase=ph)._value
+        for ph in ("dispatch", "host_wait", "device")}
+
+    eager = runs["eager"]
+    fit_model = eager.pop("model")
+    first_k1 = runs["k1_7"]["losses"]
+    k1_vs_eager = [abs(a - b_) / abs(b_)
+                   for a, b_ in zip(first_k1, eager["losses"])]
+
+    def same_weights(a, b_):
+        return sorted(final[a]) == sorted(final[b_]) and all(
+            torch.equal(final[a][k], final[b_][k]) for k in final[a])
+
+    weights_equal = {"eager_vs_idiom": same_weights("eager", "idiom"),
+                     "k1_vs_eager": same_weights("k1_7", "eager"),
+                     "k4_vs_k1": same_weights("k4", "k1")}
+    del final
+    torch.cuda.empty_cache()
+
+    # (b) the loader alone: control, then the planted early release
+    control = fit_loader_integrity(torch, pdl, make_loader, expected, False)
+    planted = fit_loader_integrity(torch, pdl, make_loader, expected, True)
+
+    # the device-to-host half of io/transfer.py on the card
+    from paddle_hackathon_tpu_torch.io import finish_d2h, start_d2h
+    src = torch.randn(b, 3, 64, device=DEV).to(torch.bfloat16)
+    d2h = finish_d2h(start_d2h({"x": src, "y": (paddle.to_tensor(
+        rows[0][:b]), 7)}))
+    d2h_ok = (np.array_equal(d2h["x"], src.cpu().view(torch.int16).numpy()
+                             .view(np.uint16))
+              and np.array_equal(d2h["y"][0], rows[0][:b])
+              and d2h["y"][1] == 7)
+
+    # (c) evaluate and predict on 2 batches, counted
+    eval_loader = make_loader()
+    for k in fap.launches:
+        fap.launches[k] = 0
+    real = counting(fap, plain, plain)
+    try:
+        ev_logs = fit_model.evaluate(eval_loader, num_iters=FIT_EVAL_BATCHES,
+                                     verbose=0)
+        preds = fit_model.predict(make_loader(), num_iters=FIT_EVAL_BATCHES)
+        eval_launches = dict(fap.launches)
+    finally:
+        restore(fap, real)
+    pred_ok = (len(preds) == FIT_EVAL_BATCHES
+               and tuple(preds[0][0].shape) == (b, DYGRAPH_SHAPE["s"],
+                                                cfg.vocab_size))
+
+    # (d) save, load into a fresh model (other weights), equal
+    tmp = tempfile.mkdtemp(prefix="fit_save_")
+    try:
+        fit_model.save(os.path.join(tmp, "gpt2"), training=False)
+        fresh = paddle.Model(bf16_model(torch, cfg, random_weights(
+            GPTForCausalLM(cfg, device="cpu"), seed=1)),
+            inputs=["input_ids"], labels=["labels"])
+        fresh.prepare(loss=paddle.nn.CrossEntropyLoss())
+        fresh.load(os.path.join(tmp, "gpt2"))
+        a_sd, b_sd = fit_model.network.state_dict(), \
+            fresh.network.state_dict()
+        loaded_equal = sorted(a_sd) == sorted(b_sd) and all(
+            torch.equal(a_sd[k], b_sd[k]) for k in a_sd)
+        fresh_logs = fresh.evaluate(make_loader(),
+                                    num_iters=FIT_EVAL_BATCHES, verbose=0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del fresh
+
+    # (e) summary against the parameters (the tied embedding once)
+    import contextlib
+    import io as _io
+    with contextlib.redirect_stdout(_io.StringIO()):
+        totals = fit_model.summary()
+    n_params = sum(p.numel() for _, p in
+                   fit_model.network.named_parameters())
+
+    # (f) one profiled eager fit step
+    ids = paddle.to_tensor(rows[0][:b])
+    labels = paddle.to_tensor(rows[1][:b])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fit_model.train_batch([ids], [labels])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    prof_sum = profile_summary(torch, prof, wall)
+    del fit_model, prof
+    torch.cuda.empty_cache()
+
+    need = {"eager": FIT_STEPS * L, "k1_7": FIT_STEPS * L,
+            "k1": FIT_K_STEPS * L, "k4": FIT_K_STEPS * L}
+    out = {"phase": "fit", "nvidia_smi": smi,
+           "model": "gpt2-small-en bf16", "batch": b,
+           "seq": DYGRAPH_SHAPE["s"], "loader_default_place": placed,
+           "ring": {"iterator": sorted({i for r in runs.values()
+                                        for i in r["iterators"]}),
+                    "slots": max(4, 2 * 2 * 2),
+                    "slot_bytes": pdl._BufferedPrefetchIter.slot_bytes,
+                    "batch_bytes": int(rows[0][:b].nbytes
+                                       + rows[1][:b].nbytes)},
+           "idiom": {"loss": idiom, "ms_per_step": idiom_ms},
+           **{n: {k: r[k] for k in ("losses", "ms", "compiled", "launches",
+                                    "peak_gb", "held_before_gb")}
+              for n, r in runs.items()},
+           "eager_equals_idiom": eager["losses"] == idiom,
+           "k1_equals_eager": first_k1 == eager["losses"],
+           "k1_vs_eager_rel_gaps": k1_vs_eager,
+           "k4_equals_k1": runs["k4"]["losses"] == runs["k1"]["losses"],
+           "final_weights_bit_equal": weights_equal,
+           "checksums_equal": {n: r["sums"] == expected[:len(r["sums"])]
+                               for n, r in runs.items()},
+           "loader_control": control, "loader_planted_early_release":
+           planted, "d2h_equal": d2h_ok,
+           "input_wait_seconds": {"p50": wait.quantile(0.5),
+                                  "max": wait.max, "count": wait.count},
+           "gauges": gauges, "phase_seconds_per_step": phases,
+           "k1_launches": launches, "plain_k1_calls": plain,
+           "eval": {"loss": ev_logs.get("loss"),
+                    "launches": eval_launches, "predict_ok": pred_ok},
+           "save_load": {"weights_equal": loaded_equal,
+                         "eval_loss": fresh_logs.get("loss")},
+           "summary": {**totals, "named_parameters": n_params},
+           "profile_eager_step": prof_sum,
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    fails = []
+    if out["ring"]["iterator"] != ["_BufferedPrefetchIter"]:
+        fails.append(f"iterators {out['ring']['iterator']}")
+    if not (out["eager_equals_idiom"] and weights_equal["eager_vs_idiom"]):
+        fails.append("the eager fit differs from the idiom")
+    if not (out["k1_equals_eager"] and weights_equal["k1_vs_eager"]) and \
+            max(k1_vs_eager) > DYGRAPH_REL_GAP:
+        fails.append(f"K=1 differs from eager by {max(k1_vs_eager)}")
+    if not (out["k4_equals_k1"] and weights_equal["k4_vs_k1"]):
+        fails.append("K=4 differs from K=1")
+    if eager["compiled"] or not all(runs[n]["compiled"]
+                                    for n in ("k1_7", "k1", "k4")):
+        fails.append("a fit took the other path")
+    if not all(out["checksums_equal"].values()):
+        fails.append(f"loader checksums {out['checksums_equal']}")
+    if not d2h_ok:
+        fails.append("start_d2h / finish_d2h differ from the tensors")
+    if control["mismatched_batches"] or not \
+            planted["mismatched_batches"]:
+        fails.append(f"loader check: control {control}, planted {planted}")
+    for n, r in runs.items():
+        if any(v != need[n] for v in r["launches"].values()):
+            fails.append(f"{n}: K1 launches {r['launches']} != {need[n]}")
+    if any(plain.values()):
+        fails.append(f"plain K1 calls {plain}")
+    if eval_launches["dkdv"] or eval_launches["dq"] or \
+            eval_launches["fwd"] != 2 * FIT_EVAL_BATCHES * L or not pred_ok:
+        fails.append(f"eval/predict: launches {eval_launches}, "
+                     f"predict {pred_ok}")
+    if not loaded_equal or fresh_logs.get("loss") != ev_logs.get("loss"):
+        fails.append(f"save/load: weights {loaded_equal}, eval "
+                     f"{fresh_logs} vs {ev_logs}")
+    if totals["total_params"] != n_params:
+        fails.append(f"summary {totals} vs {n_params}")
+    series = idiom + [v for r in runs.values() for v in r["losses"]]
+    if not all(np.isfinite(series)):
+        fails.append("non-finite loss")
+    if fails:
+        raise AssertionError("fit: " + "; ".join(fails))
+    return launches
+
+
+def fit_ab(torch, rounds):
+    """``--fit-ab N``: where the eager fit's host time goes.  N rounds, in
+    one process, of GPT-2-small bf16 (the fit phase's weights and
+    batches) through the Paddle idiom, the eager fit from the buffered
+    ring and from a list of batches already on the card, and the K-step
+    trainer at K = 1 and K = 4; the order alternates each round.  ms/step
+    from CUDA events as in the fit phase.  Then each loader alone: the
+    wait for each of the 8 batches, synchronised."""
+    from paddle_hackathon_tpu_torch.incubate.nn.kernels import _build
+    _build.build_all(["flash_attention_packed_w64"])
+    import paddle_hackathon_tpu_torch as paddle
+    from paddle_hackathon_tpu_torch.core import device as pdevice
+    from paddle_hackathon_tpu_torch.models import GPTForCausalLM, gpt_config
+    from paddle_hackathon_tpu_torch.nn import functional as F
+    pdevice._current = None
+    cfg = gpt_config("gpt2-small-en", hidden_dropout_prob=0.0,
+                     attention_dropout_prob=0.0)
+    arrays = random_weights(GPTForCausalLM(cfg, device="cpu"), seed=0)
+    b = DYGRAPH_SHAPE["b"]
+    rows = fit_rows(cfg.vocab_size, FIT_K_STEPS)
+
+    class Rows(paddle.io.Dataset):
+        def __len__(self):
+            return len(rows[0])
+
+        def __getitem__(self, i):
+            return rows[0][i], rows[1][i]
+
+    def loader(**kw):
+        return paddle.io.DataLoader(Rows(), batch_size=b, shuffle=False,
+                                    **kw)
+
+    def optimizer(model):
+        return paddle.optimizer.Adam(
+            learning_rate=1e-4, beta2=0.95, parameters=model.parameters(),
+            grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+
+    def idiom():
+        model = bf16_model(torch, cfg, arrays)
+        opt = optimizer(model)
+        evs = []
+        for i in range(FIT_STEPS):
+            loss = F.cross_entropy(
+                model(paddle.to_tensor(rows[0][i * b:(i + 1) * b])),
+                paddle.to_tensor(rows[1][i * b:(i + 1) * b]))
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            evs.append(ev)
+            float(loss)
+        torch.cuda.synchronize()
+        return evs[FIT_TIMED[0]].elapsed_time(evs[FIT_TIMED[1]]) / \
+            (FIT_TIMED[1] - FIT_TIMED[0])
+
+    def fit(data, steps, timed, **kw):
+        model = paddle.Model(bf16_model(torch, cfg, arrays),
+                             inputs=["input_ids"], labels=["labels"])
+        model.prepare(optimizer=optimizer(model.network),
+                      loss=paddle.nn.CrossEntropyLoss())
+        cb = FitSteps(torch, paddle.callbacks.Callback)
+        model.fit(data, epochs=1, num_iters=steps, verbose=0,
+                  callbacks=[cb.make()], **kw)
+        return cb.ms_per_step(*timed)
+
+    placed = [(paddle.to_tensor(rows[0][i * b:(i + 1) * b]),
+               paddle.to_tensor(rows[1][i * b:(i + 1) * b]))
+              for i in range(FIT_K_STEPS)]
+    runs = [("idiom", idiom),
+            ("eager_ring", lambda: fit(loader(num_workers=2), FIT_STEPS,
+                                       FIT_TIMED, jit_compile=False)),
+            ("eager_list", lambda: fit(placed, FIT_STEPS, FIT_TIMED,
+                                       jit_compile=False)),
+            ("k1_ring", lambda: fit(loader(num_workers=2), FIT_K_STEPS,
+                                    FIT_TIMED, jit_compile=True,
+                                    steps_per_execution=1)),
+            ("k4_ring", lambda: fit(loader(num_workers=2), FIT_K_STEPS,
+                                    (3, 7), jit_compile=True,
+                                    steps_per_execution=4))]
+    out = {"phase": "fit_ab", "nvidia_smi": nvidia_smi(), "rounds": []}
+    for r in range(rounds):
+        order = runs if r % 2 == 0 else runs[::-1]
+        out["rounds"].append({name: fn() for name, fn in order})
+        torch.cuda.empty_cache()
+    for name, _ in runs:
+        v = np.array([rd[name] for rd in out["rounds"]])
+        out[name] = {"median": float(np.median(v)),
+                     "q1": float(np.percentile(v, 25)),
+                     "q3": float(np.percentile(v, 75))}
+    for name, kw in (("alone_ring", dict(num_workers=2)),
+                     ("alone_threads", dict(num_workers=2,
+                                            use_buffer_reader=False)),
+                     ("alone_single", dict(num_workers=0))):
+        waits = []
+        it = iter(loader(**kw))
+        for _ in range(FIT_K_STEPS):
+            t0 = time.perf_counter()
+            next(it)
+            torch.cuda.synchronize()
+            waits.append((time.perf_counter() - t0) * 1e3)
+        out[name + "_ms"] = waits
+    emit(out)
+
+
 # csrc/flash_tc.cuh's kernels: K1's instances (PACKED, Lb1E) and K2's
 # bf16/f16 instances up to 256 (Lb0E)
 TC_KERNEL = re.compile(r"flash_tc_(fwd|dkdv|dq)I(13__nv_bfloat16|6__half)"
@@ -7100,7 +7669,7 @@ def main():
     for flag, mode in (("--serving-ab", serving_ab), ("--layer-ab", layer_ab),
                        ("--bwd-ab", bwd_ab),
                        ("--tc16-ab", tc16_ab), ("--k3-ab", k3_ab),
-                       ("--k4-ab", k4_ab)):
+                       ("--k4-ab", k4_ab), ("--fit-ab", fit_ab)):
         if flag in sys.argv:
             args = sys.argv[1:]
             if "--root" in args:
@@ -7148,6 +7717,15 @@ def main():
         emit({"phase": "build", "seconds": time.perf_counter() - t0})
         phase_dygraph(torch, fap)
         return 0
+    if "--fit" in sys.argv:
+        # the fit phase alone: K1's library (D = 64)
+        emit({"phase": "device", "nvidia_smi": nvidia_smi(),
+              "name": torch.cuda.get_device_name(0)})
+        t0 = time.perf_counter()
+        _build.build_all(["flash_attention_packed_w64"])
+        emit({"phase": "build", "seconds": time.perf_counter() - t0})
+        phase_fit(torch, fap)
+        return 0
     if "--deploy" in sys.argv:
         # the deploy phase alone: K1's (D = 64), K3's and K4's libraries
         emit({"phase": "device", "nvidia_smi": nvidia_smi(),
@@ -7190,6 +7768,7 @@ def main():
     flash_launches = phase_train(torch, fap)
     phase_train_optim(torch, fap)
     dygraph = phase_dygraph(torch, fap)
+    fit = phase_fit(torch, fap)
     bhd, tc16 = phase_flash_bhd(torch, fa, fap,
                                 phase_flash_bhd_checks(torch, fa))
     bhd_launches = phase_train_f32(torch, fa, fap)
@@ -7573,6 +8152,21 @@ def main():
             "timed_as": "launches: the dygraph phase's 7 Paddle-idiom "
                         "steps of GPT-2-small at b=8, s=1024; times: the "
                         f"flash_packed_{k} row's"})
+    # Model.fit's path (phase fit): K1 through GPT-2-small's eager fit
+    # (7 steps), the K-step trainer at K = 1 and at K = 4 (8 steps each)
+    for k, line in (("fwd", 247), ("dkdv", 478), ("dq", 511)):
+        row = flash[k]
+        kernels.append({
+            "name": f"flash_packed_{k}_fit", "route": "cuda",
+            "source": src + "flash_attention_packed.cu",
+            "replaces": ref + f"flash_attention_packed.py:{line}",
+            "launches": fit[k],
+            **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms")},
+            "timed_as": "launches: the fit phase's 30 Model.fit steps of "
+                        "GPT-2-small at b=8, s=1024 (eager 7, K=1 7 and 8, "
+                        f"K=4 8); times: the flash_packed_{k} row's"})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -33,6 +33,14 @@ the dtypes, ``seed`` / ``get_rng_state`` / ``set_rng_state``,
 ``set_flags`` / ``get_flags``, the op table (``ops/``, ``tensor/``),
 ``autograd.PyLayer``, and ``nn.Layer`` with ``Parameter``, ``ParamAttr``,
 the initializers and the containers (``nn/``).
+
+``Model.fit`` and the input pipeline: ``hapi`` (``Model``, the K-step
+trainer of ``hapi/compiled.py``, the callbacks, ``summary`` and
+``flops``), ``io`` (``Dataset``, the samplers, ``DataLoader`` over the
+native staging ring of ``core/native.py`` + ``native/runtime.cc``,
+``device_prefetch``), ``metric``, ``framework`` (``save`` / ``load``),
+``cost_model``'s FLOPs and peak, and the loss and activation layers and
+functionals of ``nn/``.
 """
 
 
@@ -58,6 +66,11 @@ from .core.tensor import Tensor, to_tensor  # noqa: E402
 from . import ops  # noqa: E402
 from .ops import *  # noqa: E402,F401,F403 -- the paddle.* op surface
 from . import autograd, nn, optimizer, tensor  # noqa: E402
+from . import (callbacks, cost_model, framework, hapi, io,  # noqa: E402
+               metric)
+from .framework.io import load, save  # noqa: E402
+from .hapi import Model  # noqa: E402
+from .hapi.summary import flops, summary  # noqa: E402
 from .nn.layer import Layer  # noqa: E402
 from .nn.parameter import ParamAttr, Parameter, create_parameter  # noqa: E402
 
@@ -67,4 +80,5 @@ __all__ = ["resolve_device", "seed", "Tensor", "to_tensor", "grad",
            "no_grad", "enable_grad", "set_grad_enabled", "is_grad_enabled",
            "set_device", "get_device", "device_count", "Layer", "ParamAttr",
            "Parameter", "create_parameter", "set_flags", "get_flags",
-           "get_rng_state", "set_rng_state"]
+           "get_rng_state", "set_rng_state", "Model", "save", "load",
+           "summary", "flops"]

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import struct
 
 import torch
 
@@ -107,8 +108,17 @@ def scale_folds(dtype, sm_scale) -> bool:
     exponent range is narrow, so f16 always scales the tiles."""
     if dtype != torch.bfloat16:
         return False
-    r = float(torch.tensor(sm_scale, dtype=dtype))
+    r = _round_bf16(sm_scale)
     return r > 0.0 and math.frexp(r)[0] == 0.5
+
+
+def _round_bf16(x: float) -> float:
+    """``x`` rounded as ``torch.tensor(x, dtype=torch.bfloat16)`` rounds
+    it (to f32, then to the nearest bf16, ties to even), on the host: no
+    tensor is made, so a launch reads no tensor's value on the host."""
+    bits = struct.unpack("<I", struct.pack("<f", float(x)))[0]
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+    return struct.unpack("<f", struct.pack("<I", bits))[0]
 
 
 def _heads(x: torch.Tensor, heads: int) -> torch.Tensor:

@@ -4,6 +4,7 @@ from .container import (Identity, LayerDict, LayerList, ParameterList,
                         Sequential)
 from .decode import BeamSearchDecoder, dynamic_decode
 from .layer import Layer, functional_call
+from .layers import *  # noqa: F401,F403 -- the layers, activations, losses
 from .layers import Dropout, Embedding, LayerNorm, Linear
 from .parameter import ParamAttr, Parameter, create_parameter
 

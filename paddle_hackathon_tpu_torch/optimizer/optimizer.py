@@ -277,7 +277,11 @@ class Optimizer:
             for k in list(acc):
                 key = f"{prefix}_{k}"
                 if key in state:
-                    acc[k] = torch.as_tensor(state[key]).to(
+                    v = state[key]
+                    # a Tensor from paddle.load: its payload (a bf16
+                    # moment would otherwise go through its uint16 bits)
+                    v = getattr(v, "_value", v)
+                    acc[k] = torch.as_tensor(v).to(
                         device=acc[k].device, dtype=acc[k].dtype)
                     found = True
             if found:

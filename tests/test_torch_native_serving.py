@@ -282,6 +282,13 @@ def test_shim_and_port_import_nothing_of_jax():
     mods = set(re.findall(r'"\s*(?:import|from)\s+([\w.]+)', src))
     assert mods == {"sys", "numpy", "paddle_hackathon_tpu_torch.inference"}
     assert "jax" not in src
+    # the host runtime the DataLoader's staging ring runs on is the port's
+    # own copy, built from the port's tree by core/native.py
+    runtime = open(os.path.join(PORT, "native", "runtime.cc")).read()
+    assert "jax" not in runtime.lower() and "Python.h" not in runtime
+    assert "paddle_hackathon_tpu" not in runtime
+    native_py = open(os.path.join(PORT, "core", "native.py")).read()
+    assert '"native" / "runtime.cc"' in native_py
     hits = []
     for path in [os.path.join(ROOT, "chip_smoke.py")] + [
             os.path.join(d, f) for d, _, fs in os.walk(PORT) for f in fs
