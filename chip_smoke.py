@@ -526,6 +526,29 @@ fit (``Model.fit`` and the input pipeline, GPT-2-small bf16 on the
                for the idiom, eager, K = 1 and K = 4; ``input_wait_seconds``
                p50 and max; the ``train_mfu`` / ``train_tokens_per_sec``
                gauges; peak memory; one profiled eager fit step.
+ernie (the encoder: ERNIE-3.0-base-zh, 12 x 768, 12 heads, vocab 40,000,
+               bf16 parameters, dropout 0, ``random_weights``): K1
+               non-causal at its attention (b=64, s=512, H=12, D=64)
+               against its plain version within ``FLASH_TOL`` (control and
+               planted stale tile as in the flash phase), timed beside
+               SDPA and its bound; 10 MLM steps of ``bench_ernie``'s
+               recipe (``make_sharded_train_step``, Adam 1e-4, clip 1.0,
+               the masked-positions batch of ``ernie_batch``, the custom
+               ``ernie_loss_fn``) through K1, 12 launches a step per
+               kernel and 0 plain calls, against 10 from the same weights
+               through the plain composition (step 0 within
+               ``ERNIE_REL_TOL`` relative); ms/step (CUDA events, steps
+               3-10), tokens/s, peak memory and one profiled step (busy,
+               idle, K1's share); at b=8 under a padding mask on half the
+               rows the masked-positions rows against the full logits (bit
+               for bit or within ``ERNIE_HEADS_TOL``), no K1 launch;
+               ``ErnieForSequenceClassification`` through
+               ``Model.fit(jit_compile=False)`` (5 steps, b=16, s=128: K1
+               non-causal, 12 a step per kernel) and ``evaluate`` with
+               ``metric.Accuracy`` (K1 forward only); ``Model.fit`` on
+               ``Sequential(Linear, BatchNorm1D, Linear)`` falling back to
+               the eager loop (``jit_compile=True`` naming the buffers),
+               its running stats against the same fit on the CPU.
 
 Then the kernel table line, the ``nvidia-smi`` line, and last the result
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -564,7 +587,8 @@ only the spec phase (its int8 artifact saved and loaded in the phase);
 ``--stages`` likewise runs only the stages phase; ``--deploy`` builds
 K1's (D = 64), K3's and K4's libraries and runs only the deploy phase;
 ``--dygraph`` builds K1's library (D = 64) and runs only the dygraph
-phase; ``--fit`` likewise runs only the fit phase.  ``--fit-ab N`` runs
+phase; ``--fit`` likewise runs only the fit phase, and ``--ernie`` the
+ernie phase.  ``--fit-ab N`` runs
 N alternating rounds of the idiom, the eager fit from the ring and from a
 list of placed batches, and K = 1 and K = 4 from the ring (ms/step
 medians and quartiles), then each loader alone.
@@ -1662,43 +1686,60 @@ WIDE_SHAPE = dict(b=8, s=1024, H=4, D=256)   # the wide GPT's attention
 
 
 def flash_wide_times(torch, fap, F):
-    """K1's three kernels at ``WIDE_SHAPE`` (D = 256, causal) by graph
-    replay, beside their bounds, the plain versions and the library's bf16
-    SDPA forward and backward on pre-split heads; the timed results held
-    against the plain version in f32."""
+    """K1's three kernels at ``WIDE_SHAPE`` (D = 256, causal)."""
+    return k1_times(torch, fap, F, WIDE_SHAPE, True, seed=101)
+
+
+def k1_times(torch, fap, F, shape, causal, seed, control=False):
+    """K1's three kernels at ``shape`` (bf16) by graph replay, beside
+    their bounds, the plain versions and the library's bf16 SDPA forward
+    and backward on pre-split heads; the timed results held against the
+    plain version in f32 within ``FLASH_TOL``.  ``control`` also holds the
+    plain version in bf16 to the limits and a planted stale tile outside
+    them, as the flash phase's checks do."""
     import math
-    b, s, H, D = (WIDE_SHAPE[k] for k in "bsHD")
+    b, s, H, D = (shape[k] for k in "bsHD")
     scale = 1.0 / math.sqrt(D)
-    qkv, dout = flash_case(torch, b, s, H, D, torch.bfloat16, seed=101)
-    out, lse = fap.flash_packed_fwd_kernel(qkv, H, True, scale)
+    qkv, dout = flash_case(torch, b, s, H, D, torch.bfloat16, seed=seed)
+    out, lse = fap.flash_packed_fwd_kernel(qkv, H, causal, scale)
     delta = fap._delta(out, dout, H)
     dqkv = torch.empty_like(qkv)
     ms = {
         "fwd": device_ms(torch, [
-            lambda: fap.flash_packed_fwd_kernel(qkv, H, True, scale)]),
+            lambda: fap.flash_packed_fwd_kernel(qkv, H, causal, scale)]),
         "dkdv": device_ms(torch, [lambda: fap.flash_packed_dkdv_kernel(
-            qkv, dout, lse, delta, dqkv, H, True, scale)]),
+            qkv, dout, lse, delta, dqkv, H, causal, scale)]),
         "dq": device_ms(torch, [lambda: fap.flash_packed_dq_kernel(
-            qkv, dout, lse, delta, dqkv, H, True, scale)]),
+            qkv, dout, lse, delta, dqkv, H, causal, scale)]),
     }
     plain_fwd = device_ms(torch, [
-        lambda: fap.flash_packed_fwd_ref(qkv, H, True, scale)], reps=2)
+        lambda: fap.flash_packed_fwd_ref(qkv, H, causal, scale)], reps=2)
     plain_bwd = device_ms(torch, [lambda: fap.flash_packed_bwd_ref(
-        qkv, out, lse, dout, H, True, scale)], reps=2)
-    ref = flash_plain(fap, qkv.float(), dout.float(), H, True, scale)
+        qkv, out, lse, dout, H, causal, scale)], reps=2)
+    ref = flash_plain(fap, qkv.float(), dout.float(), H, causal, scale)
     readings = flash_readings(flash_slices(out, lse, dqkv, H), ref)
+    checks = {}
+    if control:
+        checks = {"control": flash_readings(flash_plain(
+                      fap, qkv, dout, H, causal, scale), ref),
+                  "fault": flash_readings(flash_plain(
+                      fap, stale_tile(qkv, H), dout, H, causal, scale), ref)}
     del ref
     torch.cuda.empty_cache()
-    if not flash_within(readings):
+    if not flash_within(readings) or (control and (
+            not flash_within(checks["control"])
+            or flash_within(checks["fault"]))):
         raise AssertionError(f"flash kernels disagree with their plain "
-                             f"versions at {WIDE_SHAPE}: {readings}")
+                             f"versions at {shape}, or the limits do not "
+                             f"separate the control from the planted "
+                             f"fault: {readings} {checks}")
     qh, kh, vh = (t.reshape(b, s, H, D).transpose(1, 2).contiguous()
                   .requires_grad_(True) for t in qkv.split(H * D, -1))
     doh = dout.reshape(b, s, H, D).transpose(1, 2).contiguous()
     with torch.no_grad():
         lib_fwd = device_ms(torch, [lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=True)])
-    og = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+            qh, kh, vh, is_causal=causal)])
+    og = F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
     lib_bwd = profiled_ms(torch, lambda: torch.autograd.grad(
         og, (qh, kh, vh), doh, retain_graph=True))
     del og, qh, kh, vh, doh
@@ -1706,23 +1747,30 @@ def flash_wide_times(torch, fap, F):
     io = qkv.numel() * e + lse.numel() * 4
     bwd_in = io + dout.numel() * e + delta.numel() * 4
     bounds = {
-        "fwd": flash_bound(b, s, H, D, True, 2, io + out.numel() * e),
-        "dkdv": flash_bound(b, s, H, D, True, 4,
+        "fwd": flash_bound(b, s, H, D, causal, 2, io + out.numel() * e),
+        "dkdv": flash_bound(b, s, H, D, causal, 4,
                             bwd_in + 2 * b * s * H * D * e),
-        "dq": flash_bound(b, s, H, D, True, 3, bwd_in + b * s * H * D * e),
+        "dq": flash_bound(b, s, H, D, causal, 3,
+                          bwd_in + b * s * H * D * e),
     }
     plain = {"fwd": plain_fwd, "dkdv": plain_bwd, "dq": plain_bwd}
     lib = {"fwd": lib_fwd, "dkdv": lib_bwd, "dq": lib_bwd}
+    errs = {"fwd": readings["out"]["max_abs"],
+            "dkdv": max(readings["dk"]["max_abs"],
+                        readings["dv"]["max_abs"]),
+            "dq": readings["dq"]["max_abs"]}
     timing = {}
     for k in ("fwd", "dkdv", "dq"):
-        b_ms, b_by, flops, _ = bounds[k]
-        timing[k] = {"ms": ms[k], "plain_ms": plain[k], "bound_ms": b_ms,
+        b_ms, b_by, flops, nbytes = bounds[k]
+        timing[k] = {"max_abs_err": errs[k], "ms": ms[k],
+                     "plain_ms": plain[k], "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": lib[k],
+                     "gflop": flops / 1e9, "gbytes": nbytes / 1e9,
                      "tflops": flops / ms[k] / 1e9}
     del qkv, dout, out, lse, delta, dqkv
     torch.cuda.empty_cache()
-    return {"shape": WIDE_SHAPE, "causal": True, "readings": readings,
-            "timing": timing}
+    return {"shape": shape, "causal": causal, "readings": readings,
+            **checks, "timing": timing}
 
 
 # ---------------------------------------------------------------------------
@@ -3618,14 +3666,16 @@ def phase_dispatch_repairs(torch, fap, pa, qm, wo):
 
 def random_weights(model, seed):
     """Normal(0, 0.02) matrices, zero biases, unit layer-norm scales, as the
-    JAX model initialises them, keyed by the JAX state-dict names."""
+    JAX model initialises them, keyed by the JAX state-dict names (GPT's
+    layer norms are ``ln_*``, BERT's ``ln_*`` and ``layer_norm``; BERT's
+    ``decoder_bias`` is a bias)."""
     rng = np.random.default_rng(seed)
     arrays = {}
     for name, p in model.named_parameters():
         shape = tuple(p.shape)
-        if name.endswith(".bias"):
+        if name.endswith("bias"):
             arrays[name] = np.zeros(shape, np.float32)
-        elif ".ln_" in name:
+        elif ".ln_" in name or ".layer_norm." in name:
             arrays[name] = np.ones(shape, np.float32)
         else:
             arrays[name] = (rng.standard_normal(shape, np.float32)
@@ -7274,6 +7324,355 @@ def phase_fit(torch, fap):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The encoder: ERNIE-3.0-base MLM pretraining on K1's non-causal path
+# ---------------------------------------------------------------------------
+
+ERNIE_SHAPE = dict(b=64, s=512)           # bench.py's bench_ernie row
+ERNIE_ATTN = dict(b=64, s=512, H=12, D=64)
+ERNIE_STEPS = 10
+ERNIE_TIMED = (1, ERNIE_STEPS - 1)        # events after step 2 .. after
+#                                           step 10: steps 3-10 between them
+ERNIE_REL_TOL = 1e-2                      # step 0's loss, flash vs plain
+ERNIE_HEADS_B = 8
+ERNIE_HEADS_TOL = 2e-2                    # masked rows against full logits
+ERNIE_FT = dict(b=16, s=128, steps=5, eval_batches=2)
+ERNIE_BN = dict(rows=32, b=8, tol=1e-5)
+
+
+def ernie_batch(b, s, vocab, seed=0):
+    """``bench_ernie``'s batch: ids, and 15% of the positions masked, their
+    flat indices padded to a multiple of 512 (pad labels -1)."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, vocab, (b, s)).astype(np.int32)
+    lab = rng.randint(0, vocab, (b, s))
+    m = rng.rand(b, s) < 0.15
+    flat = np.where(m.reshape(-1))[0]
+    k = -(-int(b * s * 0.16) // 512) * 512
+    if len(flat) > k:
+        raise AssertionError(f"{len(flat)} masked positions > K = {k}")
+    pos = np.zeros(k, np.int32)
+    pos[:len(flat)] = flat
+    labels = np.full(k, -1, np.int64)
+    labels[:len(flat)] = lab.reshape(-1)[flat]
+    return ids, pos, labels, len(flat)
+
+
+def ernie_loss_fn(model, params, buffers, batch, rng):
+    """``bench_ernie``'s loss: the masked rows' cross entropy
+    (``fused_softmax_ce_rows``), pad rows (label -1) counted zero."""
+    import torch
+    from paddle_hackathon_tpu_torch.nn.functional import \
+        fused_softmax_ce_rows
+    from paddle_hackathon_tpu_torch.nn.layer import functional_call
+    (ids, pos), labels = batch
+    logits = functional_call(model, params, (ids,),
+                             kwargs={"masked_positions": pos},
+                             buffers=buffers)[0]
+    keep = labels >= 0
+    rows = fused_softmax_ce_rows(logits, labels.clamp_min(0))
+    rows = torch.where(keep, rows, torch.zeros_like(rows))
+    return rows.sum() / keep.sum().clamp_min(1)
+
+
+def ernie_bn_fit(torch, paddle, place, state):
+    """``Model.fit`` (default ``jit_compile``) on ``Sequential(Linear,
+    BatchNorm1D, Linear)`` from ``state`` on ``place``: the running stats
+    after its steps, whether it fell back to the eager loop, and the
+    reason ``jit_compile=True`` gives."""
+    nn = paddle.nn
+    paddle.set_device(place)
+    rng = np.random.RandomState(0)
+    x = rng.randn(ERNIE_BN["rows"], 10).astype(np.float32)
+    y = (x.sum(1) > 0).astype(np.int64)
+
+    class Toy(paddle.io.Dataset):
+        def __len__(self):
+            return len(x)
+
+        def __getitem__(self, i):
+            return x[i], y[i]
+
+    net = nn.Sequential(nn.Linear(10, 8), nn.BatchNorm1D(8),
+                        nn.Linear(8, 2))
+    net.set_state_dict(state)
+    m = paddle.Model(net)
+    m.prepare(optimizer=paddle.optimizer.Adam(learning_rate=1e-2,
+                                              parameters=net.parameters()),
+              loss=nn.CrossEntropyLoss())
+    m.fit(Toy(), epochs=1, batch_size=ERNIE_BN["b"], shuffle=False,
+          verbose=0)
+    try:
+        m.fit(Toy(), epochs=1, batch_size=ERNIE_BN["b"], verbose=0,
+              jit_compile=True)
+        reason = None
+    except ValueError as e:
+        reason = str(e)
+    stats = {k: v.detach().float().cpu().numpy()
+             for k, v in net[1].state_dict().items() if k.startswith("_")}
+    return stats, m._fit_used_compiled, reason
+
+
+def phase_ernie(torch, fap):
+    """ERNIE-3.0-base (12 x 768, 12 heads, vocab 40,000, type vocab 4,
+    bf16 parameters, dropout 0) MLM pretraining with ``bench_ernie``'s
+    recipe through ``make_sharded_train_step``: K1 non-causal at the
+    encoder's attention against its plain version, timed beside SDPA and
+    its bound; 10 steps through K1 (12 launches a step each) against 10
+    from the same weights through the plain composition; the
+    masked-positions head against the full logits under a padding mask (no
+    K1); ``ErnieForSequenceClassification`` fine-tuned through
+    ``Model.fit`` and evaluated; a BatchNorm network's eager fit against
+    the CPU.  Returns the kernel rows and the training run's K1 launches."""
+    import torch.nn.functional as TF
+    from torch.profiler import ProfilerActivity, profile
+
+    import paddle_hackathon_tpu_torch as paddle
+    from paddle_hackathon_tpu_torch import models
+    from paddle_hackathon_tpu_torch.core import device as pdevice
+    from paddle_hackathon_tpu_torch.parallel import make_sharded_train_step
+    from paddle_hackathon_tpu_torch.utils import load_jax_state
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    fails = []
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    # (1) K1 non-causal at the encoder's attention
+    kernel = k1_times(torch, fap, TF, ERNIE_ATTN, False, seed=102,
+                      control=True)
+    t_kernel = time.perf_counter() - t_phase
+
+    # (2) 10 steps through K1 against 10 through the plain composition
+    def config(**kw):
+        return models.ernie_config("ernie-3.0-base-zh",
+                                   hidden_dropout_prob=0.0,
+                                   attention_dropout_prob=0.0, **kw)
+    cfg = config()
+    L = cfg.num_layers
+    arrays = random_weights(models.BertForPretraining(cfg, device=DEV),
+                            seed=0)
+    torch.cuda.empty_cache()
+    b, s = ERNIE_SHAPE["b"], ERNIE_SHAPE["s"]
+    ids, pos, labels, n_masked = ernie_batch(b, s, cfg.vocab_size)
+    batch = ((torch.from_numpy(ids).to(DEV), torch.from_numpy(pos).to(DEV)),
+             torch.from_numpy(labels).to(DEV))
+
+    def train(use_flash):
+        model = models.BertForPretraining(
+            config(use_flash_attention=use_flash), device=DEV)
+        load_jax_state(model, arrays)
+        step, state = make_sharded_train_step(
+            model, learning_rate=1e-4, grad_clip_norm=1.0,
+            param_dtype="bfloat16", loss_fn=ernie_loss_fn)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, events = [], []
+        for _ in range(ERNIE_STEPS):
+            state, loss = step(state, *batch)
+            losses.append(loss)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+        torch.cuda.synchronize()
+        a, z = ERNIE_TIMED
+        return {"model": model, "step": step, "state": state,
+                "losses": [float(v) for v in losses],
+                "ms": events[a].elapsed_time(events[z]) / (z - a),
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+    plain = {"flash_packed_fwd_ref": 0, "flash_packed_bwd_ref": 0}
+    real = counting(fap, plain, plain)
+    try:
+        for k in fap.launches:
+            fap.launches[k] = 0
+        flash = train(True)
+        launches = dict(fap.launches)
+    finally:
+        restore(fap, real)
+    model, step, state = flash.pop("model"), flash.pop("step"), \
+        flash.pop("state")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, loss = step(state, *batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    prof_sum = profile_summary(torch, prof, wall)
+    k1_device_ms = sum(
+        device_us(e) for e in prof.key_averages()
+        if str(getattr(e, "device_type", "")).endswith("CUDA")
+        and "flash_tc" in e.key) / 1e3
+    del prof, step, state
+    torch.cuda.empty_cache()
+    ref = train(False)
+    ref.pop("model"), ref.pop("step"), ref.pop("state")
+    torch.cuda.empty_cache()
+    rel0 = abs(flash["losses"][0] - ref["losses"][0]) / abs(ref["losses"][0])
+    diffs = [abs(a - c) for a, c in zip(flash["losses"], ref["losses"])]
+    tokens_s = b * s / flash["ms"] * 1e3
+
+    # (3) the masked-positions head against the full logits, under a
+    # padding mask on half the rows: the plain composition, no K1
+    model.eval()
+    hb = ERNIE_HEADS_B
+    hids, hpos, _, _ = ernie_batch(hb, s, cfg.vocab_size, seed=1)
+    mask = np.ones((hb, s), np.int32)
+    mask[hb // 2:, s // 2:] = 0
+    hids_t, hpos_t = torch.from_numpy(hids).to(DEV), \
+        torch.from_numpy(hpos).to(DEV).long()
+    mask_t = torch.from_numpy(mask).to(DEV)
+    for k in fap.launches:
+        fap.launches[k] = 0
+    with torch.no_grad():
+        full, _ = model(hids_t, attention_mask=mask_t)
+        rows, _ = model(hids_t, attention_mask=mask_t,
+                        masked_positions=hpos_t)
+        want = full.reshape(-1, full.shape[-1]).index_select(0, hpos_t)
+        heads_bitwise = bool(torch.equal(rows, want))
+        heads_err = float((rows.float() - want.float()).abs().max())
+        heads_finite = bool(torch.isfinite(full).all())
+    heads_launches = dict(fap.launches)
+    heads = {"batch": hb, "padded_rows": hb - hb // 2,
+             "logits_dtype": str(full.dtype), "bitwise": heads_bitwise,
+             "max_abs_err": heads_err, "tol": ERNIE_HEADS_TOL,
+             "k1_launches": heads_launches, "finite": heads_finite}
+    del full, rows, want, model
+    torch.cuda.empty_cache()
+
+    # (4) ErnieForSequenceClassification through Model.fit, then evaluate
+    ft = ERNIE_FT
+    rng = np.random.RandomState(3)
+    ft_ids = rng.randint(0, cfg.vocab_size,
+                         (ft["b"] * ft["steps"], ft["s"])).astype(np.int32)
+    ft_y = rng.randint(0, 2, (ft["b"] * ft["steps"],)).astype(np.int64)
+
+    class Rows(paddle.io.Dataset):
+        def __len__(self):
+            return len(ft_ids)
+
+        def __getitem__(self, i):
+            return ft_ids[i], ft_y[i]
+
+    pdevice._current = None        # the default place: the card
+    net = models.ErnieForSequenceClassification(cfg, num_classes=2,
+                                                device=DEV)
+    load_jax_state(net, random_weights(net, seed=1))
+    with torch.no_grad():
+        for p in net.parameters():
+            p.data = p.data.to(torch.bfloat16)
+    fit_model = paddle.Model(net, inputs=["input_ids"], labels=["labels"])
+    fit_model.prepare(
+        optimizer=paddle.optimizer.Adam(learning_rate=1e-4,
+                                        parameters=net.parameters()),
+        loss=paddle.nn.CrossEntropyLoss(), metrics=paddle.metric.Accuracy())
+    cb = FitSteps(torch, paddle.callbacks.Callback)
+    real = counting(fap, plain, plain)
+    try:
+        for k in fap.launches:
+            fap.launches[k] = 0
+        fit_model.fit(Rows(), batch_size=ft["b"], epochs=1, shuffle=False,
+                      verbose=0, jit_compile=False, callbacks=[cb.make()])
+        ft_launches = dict(fap.launches)
+        for k in fap.launches:
+            fap.launches[k] = 0
+        ev_logs = fit_model.evaluate(Rows(), batch_size=ft["b"],
+                                     num_iters=ft["eval_batches"], verbose=0)
+        ev_launches = dict(fap.launches)
+    finally:
+        restore(fap, real)
+    finetune = {"batch": ft["b"], "seq": ft["s"], "losses": cb.series(),
+                "compiled": fit_model._fit_used_compiled,
+                "k1_launches": ft_launches, "eval": {
+                    "logs": {k: float(np.asarray(v).reshape(-1)[0])
+                             for k, v in ev_logs.items()},
+                    "k1_launches": ev_launches}}
+    del fit_model, net, cb
+    torch.cuda.empty_cache()
+
+    # (5) BatchNorm: Model.fit falls back to the eager loop; running stats
+    # on the card against the CPU's
+    paddle.set_device("cpu")
+    bn_net = paddle.nn.Sequential(paddle.nn.Linear(10, 8),
+                                  paddle.nn.BatchNorm1D(8),
+                                  paddle.nn.Linear(8, 2))
+    bn_state = {k: v.detach().clone() for k, v in bn_net.state_dict().items()}
+    try:
+        cpu_stats, cpu_compiled, _ = ernie_bn_fit(torch, paddle, "cpu",
+                                                  bn_state)
+        gpu_stats, gpu_compiled, reason = ernie_bn_fit(torch, paddle, "gpu",
+                                                       bn_state)
+    finally:
+        pdevice._current = None
+    bn_gap = max(float(np.abs(gpu_stats[k] - cpu_stats[k]).max())
+                 for k in cpu_stats)
+    bn = {"stats": sorted(gpu_stats), "max_abs_gap_to_cpu": bn_gap,
+          "tol": ERNIE_BN["tol"], "eager": [not cpu_compiled,
+                                            not gpu_compiled],
+          "jit_compile_true": reason,
+          "steps": ERNIE_BN["rows"] // ERNIE_BN["b"]}
+
+    out = {"phase": "ernie", "nvidia_smi": smi,
+           "model": "ernie-3.0-base-zh bf16", "batch": b, "seq": s,
+           "masked_positions": {"k": len(pos), "masked": n_masked},
+           "num_params": int(sum(v.size for v in arrays.values())),
+           "kernel": {k: kernel[k] for k in ("shape", "causal", "readings",
+                                             "control", "fault", "timing")},
+           "kernel_seconds": t_kernel,
+           "fwd_over_sdpa": kernel["timing"]["fwd"]["ms"]
+           / kernel["timing"]["fwd"]["library_ms"],
+           "bwd_pair_over_sdpa": (kernel["timing"]["dkdv"]["ms"]
+                                  + kernel["timing"]["dq"]["ms"])
+           / kernel["timing"]["dkdv"]["library_ms"],
+           "flash": flash, "plain": ref, "step0_rel_diff": rel0,
+           "rtol": ERNIE_REL_TOL, "series_max_abs_diff": max(diffs),
+           "series_max_rel_diff": max(d / abs(c) for d, c in
+                                      zip(diffs, ref["losses"])),
+           "ms_per_step": flash["ms"], "tokens_per_s": tokens_s,
+           "plain_ms_per_step": ref["ms"],
+           "k1_launches": launches, "plain_k1_calls": plain,
+           "profile_step": prof_sum,
+           "k1_device_ms_in_profiled_step": k1_device_ms,
+           "k1_share_of_busy": (k1_device_ms / 1e3 / prof_sum["device_busy_s"]
+                                if prof_sum["device_busy_s"] else None),
+           "heads": heads, "finetune": finetune, "batch_norm": bn,
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    need = ERNIE_STEPS * L
+    if any(n != need for n in launches.values()) or any(plain.values()):
+        fails.append(f"K1 launches {launches} != {need} each, or plain "
+                     f"calls {plain}")
+    series = flash["losses"] + ref["losses"] + finetune["losses"]
+    if not all(np.isfinite(series)):
+        fails.append("non-finite loss")
+    if not rel0 <= ERNIE_REL_TOL:
+        fails.append(f"step 0: flash {flash['losses'][0]} vs plain "
+                     f"{ref['losses'][0]} ({rel0} > {ERNIE_REL_TOL})")
+    if not flash["losses"][-1] < flash["losses"][0]:
+        fails.append(f"loss did not fall on a repeated batch: "
+                     f"{flash['losses']}")
+    if any(heads_launches.values()) or not heads_finite or not (
+            heads_bitwise or heads_err <= ERNIE_HEADS_TOL):
+        fails.append(f"heads: {heads}")
+    ft_need = ft["steps"] * L
+    if finetune["compiled"] or any(
+            n != ft_need for n in ft_launches.values()):
+        fails.append(f"fine-tune: compiled {finetune['compiled']}, K1 "
+                     f"launches {ft_launches} != {ft_need}")
+    if ev_launches["dkdv"] or ev_launches["dq"] or \
+            ev_launches["fwd"] != ft["eval_batches"] * L or \
+            "acc" not in finetune["eval"]["logs"]:
+        fails.append(f"evaluate: {finetune['eval']}")
+    if not all(bn["eager"]) or reason is None or "buffers" not in reason \
+            or not bn_gap <= ERNIE_BN["tol"]:
+        fails.append(f"batch norm fit: {bn}")
+    if fails:
+        raise AssertionError("ernie: " + "; ".join(fails))
+    rows = {k: {key: kernel["timing"][k][key] for key in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms")} for k in ("fwd", "dkdv", "dq")}
+    return rows, launches
+
+
 def fit_ab(torch, rounds):
     """``--fit-ab N``: where the eager fit's host time goes.  N rounds, in
     one process, of GPT-2-small bf16 (the fit phase's weights and
@@ -7726,6 +8125,15 @@ def main():
         emit({"phase": "build", "seconds": time.perf_counter() - t0})
         phase_fit(torch, fap)
         return 0
+    if "--ernie" in sys.argv:
+        # the ernie phase alone: K1's library (D = 64)
+        emit({"phase": "device", "nvidia_smi": nvidia_smi(),
+              "name": torch.cuda.get_device_name(0)})
+        t0 = time.perf_counter()
+        _build.build_all(["flash_attention_packed_w64"])
+        emit({"phase": "build", "seconds": time.perf_counter() - t0})
+        phase_ernie(torch, fap)
+        return 0
     if "--deploy" in sys.argv:
         # the deploy phase alone: K1's (D = 64), K3's and K4's libraries
         emit({"phase": "device", "nvidia_smi": nvidia_smi(),
@@ -7769,6 +8177,7 @@ def main():
     phase_train_optim(torch, fap)
     dygraph = phase_dygraph(torch, fap)
     fit = phase_fit(torch, fap)
+    ernie, ernie_launches = phase_ernie(torch, fap)
     bhd, tc16 = phase_flash_bhd(torch, fa, fap,
                                 phase_flash_bhd_checks(torch, fa))
     bhd_launches = phase_train_f32(torch, fa, fap)
@@ -8167,6 +8576,20 @@ def main():
             "timed_as": "launches: the fit phase's 30 Model.fit steps of "
                         "GPT-2-small at b=8, s=1024 (eager 7, K=1 7 and 8, "
                         f"K=4 8); times: the flash_packed_{k} row's"})
+    # the encoder's path (phase ernie): K1 non-causal through
+    # ERNIE-3.0-base's 10 MLM steps; times at its attention
+    for k, line in (("fwd", 247), ("dkdv", 478), ("dq", 511)):
+        kernels.append({
+            "name": f"flash_packed_{k}_ernie", "route": "cuda",
+            "source": src + "flash_attention_packed.cu",
+            "replaces": ref + f"flash_attention_packed.py:{line}",
+            "launches": ernie_launches[k], **ernie[k],
+            "timed_as": "bf16, b=64, H=12, s=512, D=64, non-causal (the "
+                        "ERNIE-3.0-base encoder's attention); launches: "
+                        "the ernie phase's 10 MLM steps; plain: the plain "
+                        + ("forward" if k == "fwd" else "backward")
+                        + "; library: SDPA bf16, non-causal, default "
+                          "backend; bound: bf16 tensor cores or bytes"})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

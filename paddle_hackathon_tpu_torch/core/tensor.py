@@ -504,6 +504,8 @@ def _unwrap(x):
     if isinstance(x, Tensor):
         return x._value
     if isinstance(x, (tuple, list)):
+        if hasattr(x, "_fields"):            # a namedtuple (a layer's cache)
+            return type(x)(*(_unwrap(v) for v in x))
         return type(x)(_unwrap(v) for v in x)
     if isinstance(x, dict):
         return {k: _unwrap(v) for k, v in x.items()}
@@ -515,6 +517,8 @@ def _wrap(x):
     if isinstance(x, torch.Tensor):
         return Tensor._wrap(x)
     if isinstance(x, (tuple, list)):
+        if hasattr(x, "_fields"):
+            return type(x)(*(_wrap(v) for v in x))
         return type(x)(_wrap(v) for v in x)
     if isinstance(x, dict):
         return {k: _wrap(v) for k, v in x.items()}

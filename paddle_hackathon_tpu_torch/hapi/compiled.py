@@ -60,10 +60,10 @@ def _to_list(x):
 
 def _mutating_layer_types():
     """Layer classes whose forward mutates registered buffers in training
-    mode, state the functional step cannot carry, so fit stays eager for
-    them.  The JAX package lists BatchNorm and SpectralNorm, which arrive
-    in the port with ROADMAP Queue 1 item 11; the port has none yet."""
-    return ()
+    mode (BatchNorm's running stats, SpectralNorm's power iterates), state
+    the functional step cannot carry, so fit stays eager for them."""
+    from ..nn.layers.norm import SpectralNorm, _BatchNormBase
+    return (_BatchNormBase, SpectralNorm)
 
 
 def unsupported_reason(model, accumulate_grad_batches=1):
@@ -90,7 +90,7 @@ def unsupported_reason(model, accumulate_grad_batches=1):
         return "optimizer holds parameters outside the fitted network"
     mutating = _mutating_layer_types()
     for layer in network.sublayers(include_self=True):
-        if mutating and isinstance(layer, mutating):
+        if isinstance(layer, mutating):
             return (f"{type(layer).__name__} updates buffers in-place "
                     "during training (running stats)")
     return None

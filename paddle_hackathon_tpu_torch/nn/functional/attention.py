@@ -17,6 +17,7 @@ from ...core import flags
 from ...core.random import default_generator
 from ...core.tensor import takes_tensors
 from ...incubate.nn.functional import flash_attention_bshd
+from .common import promote
 
 _NEG_INF = -1e30
 
@@ -29,7 +30,8 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
 
     Flash is asked for by ``use_flash`` when set, else by the
     ``use_fused_kernels`` flag at ``sq >= flash_attention_min_seqlen``.
-    ``attn_mask`` is additive and broadcasts to ``(b, h, sq, skv)``; causal
+    ``attn_mask`` is additive and broadcasts to ``(b, h, sq, skv)`` (an f32
+    mask on bf16/f16 scores makes them, and the output, f32, as in JAX); causal
     masking is top-left aligned.  Dropout (``training`` only) drops the
     probabilities: inside the kernels by their positional hash, in the plain
     composition by the device's default generator."""
@@ -66,6 +68,10 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
             >= dropout_p
         probs = torch.where(keep, probs / (1.0 - dropout_p),
                             torch.zeros_like(probs))
+    if v.dtype != probs.dtype:
+        # an f32 mask made bf16/f16 scores f32: the product is f32, as
+        # jnp.einsum promotes it
+        probs, v = promote(probs, v)
     return torch.einsum("bhst,bhtd->bhsd", probs, v).transpose(1, 2)
 
 

@@ -41,7 +41,8 @@ def to_tensor(arr, name: Optional[str] = None) -> torch.Tensor:
     by default the array's own dtype.  bf16 and fp8 arrays from
     ``ml_dtypes`` go through an unsigned view too, since
     ``torch.from_numpy`` rejects them."""
-    arr = np.ascontiguousarray(arr)
+    # ascontiguousarray makes a 0-d array 1-d: keep the array's own shape
+    arr = np.ascontiguousarray(arr).reshape(np.shape(arr))
     if not arr.flags.writeable:     # e.g. a view of a JAX array's buffer
         arr = arr.copy()
     name = name or arr.dtype.name
